@@ -190,3 +190,4 @@ def _apply_tiers(config, items):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: heavy multi-device compile; excluded from the default tier (DS_FULL_TESTS=1 or -m slow to run)")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's CUDA kernels); skips without one (-m cuda to select)")
