@@ -18,7 +18,22 @@ builds every kernel from ``deepspeed_tpu_torch/csrc`` on first use.  Phases:
      forward launched K3;
   4. path parity: the kernel path against the plain path — identical greedy
      streams in float32 (2 layers, full width), and close first-step logits
-     in bf16 at full depth.
+     in bf16 at full depth;
+  5. K1/K2a/K2b flash attention against their plain versions at the
+     training shapes of Llama-125M (B 24, S 1024, 12 heads of 64) and of
+     Llama-3-8B (B 1, S 4096, 32/8 heads of 128), bf16 and f32, causal and
+     full, with a query offset and with Sk > Sq — error, kernel / plain /
+     library (SDPA forward, SDPA backward) time and the roofline bound;
+  6. training: ``initialize`` → ``train_batch`` on Llama-125M at the JAX
+     package's bench configuration (B 24, S 1024, bf16, AdamW, ZeRO-2,
+     remat ``flash_saveable``), full width and depth with seeded random
+     weights — tokens/s, step time, MFU, peak memory, losses falling on a
+     repeated batch, K1/K2a/K2b launches per step (one per layer each), and
+     a profiled step;
+  7. training parity, kernel path (``attention_impl="flash"``) against the
+     plain path (``"chunked"``): 3 float32 AdamW steps at 125M width, and 3
+     bf16 steps at Llama-3-8B width (2 layers, S 2048) held against a
+     float32 run.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -34,13 +49,16 @@ import time
 import numpy as np
 import torch
 
+import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
                                               build_engine)
-from deepspeed_tpu_torch.models.llama import PRESETS, init_weights_
+from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, init_weights_
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache
 from deepspeed_tpu_torch.models.llama_cache import paged_attention as paged_attention_plain
 from deepspeed_tpu_torch.ops.op_builder import KERNEL_SOURCES, build_kernel
+from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delta_plain, flash_dkv_cuda,
+                                                     flash_dq_cuda, flash_fwd_cuda, flash_fwd_plain)
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
@@ -55,6 +73,13 @@ MAX_PAGES = 128
 # plus 1e-2 absolute for small outputs.  float32: only the summation order
 # and exp differ.
 TOLERANCE = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+LAUNCH_COUNTERS = (paged_attention_cuda, flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda)
+
+
+def reset_launch_counts() -> None:
+    """Every kernel's launch count to 0: done just before each path is driven."""
+    for fn in LAUNCH_COUNTERS:
+        fn.launches = 0
 
 
 def log(msg: str) -> None:
@@ -109,14 +134,16 @@ def make_case(starts, clens, c, dtype, seed):
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` with a cold L2: every launch is preceded
-    by a write of ``flush`` (larger than the 50 MB L2), which also keeps
-    the card busy while the host enqueues the timed work."""
+    by a write of ``flush`` (larger than the 50 MB L2) and a ~1 ms device
+    spin, which keeps the card busy while the host enqueues the timed work,
+    so host launch latency stays out of the reading."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -252,7 +279,7 @@ def phase_serving(cfg, state, smi: str) -> dict:
     acc = get_accelerator()
     acc.synchronize()
     acc.reset_peak_memory_stats()
-    paged_attention_cuda.launches = 0
+    reset_launch_counts()
     eng.forward_calls = 0
     t0 = time.perf_counter()
     put_t, reused = {}, {}    # reused: prompt tokens whose KV the prefix cache supplied at admission
@@ -424,6 +451,405 @@ def phase_profile(cfg, state) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 5
+
+# training shapes: Llama-125M at the bench configuration, and Llama-3-8B
+FLASH_SHAPES = {"bench": dict(b=24, s=1024, h=12, hk=12, d=64), "llama3-8b": dict(b=1, s=4096, h=32, hk=8, d=128)}
+# Kernel against plain, element by element.  o, dq, dk, dv:
+#   |kernel − plain| <= a·|plain| + b·rms(vector) + f·rms(tensor),
+# the vector being the D values of one head at one query row (o, dq) or key
+# (dk, dv).  a: the two versions round the same f32 value to the output
+# dtype, at most one ulp apart (2^-7 relative in bf16).  b: the kernel rounds
+# p (and ds) to bf16 at the online softmax's running max, the plain version
+# at the row's final max; each rounding moves a term by up to 2^-9 of itself,
+# so the sum moves by a few 2^-9 of the vector's own scale.  f: a floor for
+# vectors that are cancellation noise (dq of a row that sees one key is 0 up
+# to f32 rounding).  lse and delta are float32 statistics computed from the
+# same f32 terms on both sides: |err| <= stat·(|plain| + rms(plain)).  The
+# float32 kernels differ from the plain version only in summation order; the
+# float32 floor f is set above the noise of the causal rows that see few
+# keys (2^-16 failed on dq at Llama-3-8B shapes, H100 readings in PERF.md).
+FLASH_TOL = {torch.bfloat16: dict(a=2**-7, b=2**-6, f=2**-8, stat=2**-14),
+             torch.float32: dict(a=2**-16, b=2**-14, f=2**-14, stat=2**-16)}
+
+
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, tol: dict, vector: bool) -> float:
+    """Largest |got − want| over its limit (see FLASH_TOL): at most 1 passes."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean().sqrt()
+    if vector:
+        limit = tol["a"] * want.abs() + tol["b"] * want.square().mean(-1, keepdim=True).sqrt() + tol["f"] * rms
+    else:
+        limit = tol["stat"] * (want.abs() + rms)
+    ratio = (got - want).abs() / limit.clamp_min(torch.finfo(torch.float32).tiny)
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float(ratio.max())
+
+
+def flash_mutants(q, k, v, causal, q_offset, o, lse, dq, dk, dv) -> dict:
+    """Faulty kernels the check must reject, made from the kernel's outputs:
+    K1 that stops one kv tile (64 keys) short of the diagonal for the second
+    half of the rows; K2a that zeroes dq of one query head in the last q tile;
+    K2b that zeroes dk and dv of the last kv tile at or below the diagonal
+    (the keys with the smallest gradients)."""
+    sq, sk = q.shape[1], k.shape[1]
+    half, tile = sq // 2, 64
+    short_o, short_lse = flash_fwd_plain(q, k, v, causal, q_offset - tile)
+    o_m, lse_m = o.clone(), lse.clone()
+    o_m[:, half:], lse_m[:, :, half:] = short_o[:, half:], short_lse[:, :, half:]
+    dq_m = dq.clone()
+    dq_m[:, -tile:, -1] = 0
+    t1 = min(sk, sq + q_offset) // tile * tile
+    dk_m, dv_m = dk.clone(), dv.clone()
+    dk_m[:, t1 - tile:t1] = 0
+    dv_m[:, t1 - tile:t1] = 0
+    return {"o": o_m, "lse": lse_m, "dq": dq_m, "dk": dk_m, "dv": dv_m}
+
+
+def visible_keys(sq: int, sk: int, causal: bool, q_offset: int) -> int:
+    """Keys seen by the Sq query rows of one head: the causal triangle, or all."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, q_offset + i + 1) for i in range(sq))
+
+
+def flash_bounds(b, sq, sk, h, hk, d, dtype, vis) -> dict:
+    """Least time of each kernel: each input read once and each output
+    written once, against 4/6/8·B·H·D·vis flops (QK+PV; QK, dO·Vᵀ, dS·K;
+    QK, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) at the bf16 tensor-core peak."""
+    e = torch.finfo(dtype).bits // 8
+    qb, kvb, st = b * sq * h * d * e, b * sk * hk * d * e, b * h * sq * 4
+    nbytes = {"flash_fwd": qb + 2 * kvb + qb + st,                         # q k v → o lse
+              "flash_dq": qb + 2 * kvb + 2 * qb + st + qb + st,            # q k v o do lse → dq delta
+              "flash_dkv": qb + 2 * kvb + qb + 2 * st + 2 * kvb}           # q k v do lse delta → dk dv
+    flops = {"flash_fwd": 4, "flash_dq": 6, "flash_dkv": 8}
+    out = {}
+    for name in nbytes:
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = flops[name] * b * h * d * vis / PEAK_FLOPS[torch.bfloat16] * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def flash_case(shape: str, dtype, causal: bool, sq: int, sk: int, q_offset: int, flush, timed: bool) -> dict:
+    g = FLASH_SHAPES[shape]
+    b, h, hk, d = g["b"], g["h"], g["hk"], g["d"]
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk + q_offset + int(causal))
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, sk, hk, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    o, lse = flash_fwd_cuda(q, k, v, causal, q_offset)
+    dq, delta = flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
+    dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+    want_o, want_lse = flash_fwd_plain(q, k, v, causal, q_offset)
+    want_dq, want_dk, want_dv = flash_bwd_plain(q, k, v, o, lse, do, causal, q_offset)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    label = f"{shape} {dtype} causal={causal} Sq={sq} Sk={sk} q_offset={q_offset}"
+    # output: (kernel, plain, is a vector per head and row/key)
+    outputs = {"flash_fwd": {"o": (o, want_o, True), "lse": (lse, want_lse, False)},
+               "flash_dq": {"dq": (dq, want_dq, True), "delta": (delta, flash_delta_plain(o, do), False)},
+               "flash_dkv": {"dk": (dk, want_dk, True), "dv": (dv, want_dv, True)}}
+    errs, ratios = {}, {}
+    for name, outs in outputs.items():
+        errs[name] = max(float((got.float() - want.float()).abs().max()) for got, want, _ in outs.values())
+        for out, (got, want, vector) in outs.items():
+            ratios[out] = tolerance_ratio(got, want, tol, vector)
+    log(f"  {label}: |err|/limit " + ", ".join(f"{n}={r:.3g}" for n, r in ratios.items()))
+    bad = {n: r for n, r in ratios.items() if not r <= 1}
+    if bad:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version, |err|/limit {bad}")
+    if causal and sk > sq + q_offset and (dk[:, sq + q_offset:].any() or dv[:, sq + q_offset:].any()):
+        raise AssertionError(f"{label}: keys above the diagonal got nonzero dk/dv")
+    if causal and dtype == torch.bfloat16 and sq == sk:
+        mutants = flash_mutants(q, k, v, causal, q_offset, o, lse, dq, dk, dv)
+        wants = {out: (want, vector) for outs in outputs.values() for out, (_, want, vector) in outs.items()}
+        caught = {n: tolerance_ratio(m, wants[n][0], tol, wants[n][1]) for n, m in mutants.items()}
+        log(f"  {label}: faulty kernels' |err|/limit " + ", ".join(f"{n}={r:.3g}" for n, r in caught.items()))
+        if not all(r > 1 for r in caught.values()):
+            raise AssertionError(f"{label}: the check passes a faulty kernel: {caught}")
+    case = f"{shape} {str(dtype)[6:]} {'causal' if causal else 'full'} Sq={sq} Sk={sk} off={q_offset}"
+    rows = {k_: {"case": case, "max_abs_err": e_} for k_, e_ in errs.items()}
+    if timed:
+        vis = visible_keys(sq, sk, causal, q_offset)
+        for name, (t, by) in flash_bounds(b, sq, sk, h, hk, d, dtype, vis).items():
+            rows[name].update(bound_ms=t, bound_by=by)
+        rows["flash_fwd"]["ms"] = time_ms(lambda: flash_fwd_cuda(q, k, v, causal, q_offset), 10, flush)
+        rows["flash_dq"]["ms"] = time_ms(lambda: flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset), 10, flush)
+        rows["flash_dkv"]["ms"] = time_ms(lambda: flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset), 10,
+                                          flush)
+        rows["flash_fwd"]["plain_ms"] = time_ms(lambda: flash_fwd_plain(q, k, v, causal, q_offset), 3, flush)
+        # the plain backward computes dq, dk and dv in one call: its time
+        # stands beside both backward kernels
+        bwd_ms = time_ms(lambda: flash_bwd_plain(q, k, v, o, lse, do, causal, q_offset), 3, flush)
+        rows["flash_dq"]["plain_ms"] = rows["flash_dkv"]["plain_ms"] = bwd_ms
+        # library: SDPA on [B, H, S, D] with the GQA heads repeated (not
+        # timed); its backward (dq, dk, dv together) by autograd.grad
+        rep = h // hk
+        qs = q.transpose(1, 2).contiguous().requires_grad_()
+        ks, vs = (x.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous().requires_grad_() for x in (k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.no_grad():
+            rows["flash_fwd"]["library_ms"] = time_ms(lambda: sdpa(qs, ks, vs, is_causal=causal), 10, flush)
+        out = sdpa(qs, ks, vs, is_causal=causal)
+        gout = do.transpose(1, 2).contiguous()
+        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), gout, retain_graph=True), 10, flush)
+        rows["flash_dq"]["library_ms"] = rows["flash_dkv"]["library_ms"] = lib_bwd
+    for name, row in rows.items():
+        log(f"  {name} {case}: " + ", ".join(f"{k_}={v_:.4g}" if isinstance(v_, float) else f"{k_}={v_}"
+                                             for k_, v_ in row.items() if k_ != "case"))
+    return rows
+
+
+def phase_flash_kernels() -> dict:
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for shape, g in FLASH_SHAPES.items():
+        s = g["s"]
+        timed[shape] = flash_case(shape, torch.bfloat16, True, s, s, 0, flush, timed=True)
+        flash_case(shape, torch.bfloat16, False, s, s, 0, flush, timed=False)
+        flash_case(shape, torch.float32, True, s, s, 0, flush, timed=False)
+        flash_case(shape, torch.float32, False, s, s, 0, flush, timed=False)
+        for dtype in (torch.bfloat16, torch.float32):
+            flash_case(shape, dtype, True, s // 2, s, s // 2, flush, timed=False)   # queries at an offset
+            flash_case(shape, dtype, True, s // 2, s, 0, flush, timed=False)        # keys past the last query
+    del flush
+    torch.cuda.empty_cache()
+    return timed
+
+
+# ---------------------------------------------------------------- phase 6
+
+BENCH_B, BENCH_S = 24, 1024
+BENCH_DS_CONFIG = {"train_batch_size": BENCH_B, "optimizer": {"type": "AdamW",
+                                                              "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                   "zero_optimization": {"stage": 2}, "bf16": {"enabled": True}, "steps_per_print": 0}
+
+
+def llama_125m(**overrides) -> LlamaConfig:
+    """Llama-125M as the JAX package's bench trains it."""
+    fields = dict(max_position_embeddings=BENCH_S, rope_theta=1e4, remat=True, remat_policy="flash_saveable",
+                  attention_impl="flash")
+    return dataclasses.replace(PRESETS["125m"], **{**fields, **overrides})
+
+
+def build_trainer(cfg: LlamaConfig, ds_config: dict, seed: int = 0, state=None):
+    model = LlamaForCausalLM(cfg, device="cuda")
+    if state is None:
+        init_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=ds_config, params=state)
+    return engine
+
+
+def phase_training(smi: str) -> dict:
+    cfg = llama_125m()
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (BENCH_B, BENCH_S),
+                                                             dtype=np.int32)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    acc = get_accelerator()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    reset_launch_counts()
+    engine = build_trainer(cfg, BENCH_DS_CONFIG)
+    losses = [float(engine.train_batch(batch=batch)) for _ in range(3)]   # warm-up
+    windows, steps_per_window = [], 5
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for _ in range(steps_per_window):
+            loss = engine.train_batch(batch=batch)
+        losses.append(float(loss))                                       # the value fetch syncs
+        windows.append((time.perf_counter() - t0) / steps_per_window)
+    steps = 3 + 2 * steps_per_window
+    launches = (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)
+    layers = cfg.num_hidden_layers
+    if launches != (layers * steps, ) * 3:
+        raise AssertionError(f"K1/K2a/K2b launched {launches} times over {steps} steps of {layers} layers: "
+                             f"expected {layers} each per step")
+    if paged_attention_cuda.launches:
+        raise AssertionError("the training path launched the serving kernel K3")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling on a repeated batch: {losses}")
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    step_s = min(windows)
+    tok_s = BENCH_B * BENCH_S / step_s
+    # bench.py:160-162: 6N per token plus the attention term
+    flops_per_token = 6 * n_params + 12 * layers * cfg.hidden_size * BENCH_S
+    res = {"params": n_params, "step_ms": 1e3 * step_s, "window_step_ms": [1e3 * w for w in windows],
+           "tok_s": tok_s, "mfu": tok_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+           "peak_mem_gb": acc.max_memory_allocated() / 1e9, "losses": losses, "steps": steps,
+           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), launches)),
+           "launches_per_step": launches[0] / steps, "card": smi}
+    log("  training: " + json.dumps(res))
+    res["profile"] = profile_training_step(engine, batch)
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def profile_training_step(engine, batch) -> dict:
+    """One training step under torch.profiler: the device time and the
+    kernels that take it; the busy share is that device time over the wall
+    time of the next, identical step, not profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(engine.train_batch(batch=batch))
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    float(engine.train_batch(batch=batch))
+    wall_plain = time.perf_counter() - t0
+    # device rows only, without the GPU-side span of a user annotation (the
+    # optimizer's ``Optimizer.step#...`` region), which would count the
+    # kernels inside it twice
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.step#")]
+    dev_us = {e.key: e.self_device_time_total for e in rows}
+    busy_ms = sum(dev_us.values()) / 1e3
+    top = sorted(((v / 1e3, n) for n, v in dev_us.items() if v > 0), reverse=True)[:10]
+    groups = {"flash_fwd": ("flash_fwd_kernel", ), "flash_dq": ("flash_dq_kernel", ),
+              "flash_dkv": ("flash_dkv_kernel", ), "gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+              "reduce": ("reduce_kernel", ), "elementwise_copy": ("elementwise", "copy")}
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    for name, us in dev_us.items():
+        g = next((g for g, keys in groups.items() if any(k in name for k in keys)), "other")
+        by_group[g] += us / 1e3
+    # the same device time by the host operator that launched each kernel
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    top_ops = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in ops), reverse=True)[:12]
+    res = {"wall_ms": 1e3 * wall_plain, "profiled_wall_ms": 1e3 * wall, "device_ms": busy_ms,
+           "device_busy_share": busy_ms / (1e3 * wall_plain), "device_ops": sum(e.count for e in rows),
+           "device_ms_by_group": by_group, "top_kernels_ms": [[n[:70], t] for t, n in top],
+           "top_host_ops_ms_calls": [[n, t, c] for t, n, c in top_ops]}
+    log("  training profile: " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+QKV = ("q_proj", "k_proj", "v_proj")
+
+
+def run_steps(engine, batches) -> dict:
+    """The first batch's gradients of every q/k/v projection, from the
+    engine's own forward (the loss ``train_batch`` differentiates), then one
+    ``train_batch`` per batch: its loss and its global grad norm (before
+    clipping)."""
+    params = {n: p for n, p in engine.module.named_parameters() if n.split(".")[-2] in QKV}
+    grads = torch.autograd.grad(engine.forward(batches[0]), list(params.values()))
+    run = {"grads": {n: g.float() for n, g in zip(params, grads)}, "losses": [], "grad_norms": []}
+    for b in batches:
+        run["losses"].append(float(engine.train_batch(batch=b)))
+        run["grad_norms"].append(engine.get_global_grad_norm())
+    return run
+
+
+def run_differences(a: dict, b: dict) -> dict:
+    """How far run ``a`` is from run ``b``: the largest relative difference
+    of a per-step loss and of a per-step global grad norm, and per q/k/v
+    leaf the relative L2 distance of the first step's gradients."""
+
+    def rel(x, y):
+        return max(abs(u - v) / abs(v) for u, v in zip(x, y))
+
+    return {"loss": rel(a["losses"], b["losses"]), "grad_norm": rel(a["grad_norms"], b["grad_norms"]),
+            "qkv_grads": {n: float((g - b["grads"][n]).norm() / b["grads"][n].norm()) for n, g in a["grads"].items()}}
+
+
+def phase_training_parity_f32() -> dict:
+    """3 AdamW steps with clipping, float32, 125M width, 2 layers, B 4, S 512:
+    the kernel path against the chunked path on the same weights and
+    batches.  The two sum in other orders (the f32 kernels on the CUDA
+    cores, the chunked path in cuBLAS f32), so losses, global grad norms and
+    the first step's q/k/v gradients agree to 1e-5 relative; a K2 that
+    scaled dq, dk or dv, or got one head wrong, moves those gradients by
+    percents.  Adam's update is about lr·sign(g) where the gradient is
+    small, so a parameter whose gradient is below the two paths' rounding
+    difference may step by lr either way: all but 1e-4 of the parameters
+    within 2e-5, every one within 2·sum(lr)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama_125m(num_hidden_layers=2, dtype=torch.float32, max_position_embeddings=512)
+    ds_config = {"train_batch_size": 4, "gradient_clipping": 1.0,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(3):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 512), dtype=np.int32)).cuda()
+        batches.append({"input_ids": ids, "labels": ids})
+    state = None
+    runs, params = {}, {}
+    for impl in ("flash", "chunked"):
+        eng = build_trainer(dataclasses.replace(cfg, attention_impl=impl), ds_config, seed=1, state=state)
+        if state is None:
+            state = {k: v.clone() for k, v in eng.module.state_dict().items()}
+        runs[impl] = run_steps(eng, batches)
+        params[impl] = {k: v.clone() for k, v in eng.module.state_dict().items()}
+        del eng
+    d = run_differences(runs["flash"], runs["chunked"])
+    diff = torch.cat([(params["flash"][k] - params["chunked"][k]).abs().flatten() for k in params["flash"]])
+    res = {"losses_kernel": runs["flash"]["losses"], "losses_plain": runs["chunked"]["losses"],
+           "grad_norms_kernel": runs["flash"]["grad_norms"], "grad_norms_plain": runs["chunked"]["grad_norms"],
+           "kernel_vs_plain": d, "max_param_abs": float(diff.max()),
+           "share_param_beyond_2e-5": float((diff > 2e-5).float().mean())}
+    log("  f32 training parity (125M width, 2 layers): " + json.dumps(res))
+    if not (d["loss"] <= 1e-5 and d["grad_norm"] <= 1e-5 and max(d["qkv_grads"].values()) <= 1e-5
+            and res["share_param_beyond_2e-5"] < 1e-4 and res["max_param_abs"] <= 2 * 3e-4):
+        raise AssertionError(f"f32 training parity out of tolerance: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_training_parity_bf16() -> dict:
+    """3 AdamW steps at Llama-3-8B width (2 layers, GQA 32/8, head dim 128,
+    vocab 128256), B 1, S 2048: the bf16 kernel path and the bf16 chunked
+    path, both held against the chunked path in float32 on the same
+    weights.  Tolerance, as phase 4: the plain path's own bf16 error e (per
+    measure: the per-step loss, the per-step global grad norm, and per q/k/v
+    leaf the first step's gradients); the kernel path must stay within 2·e
+    of the plain path and within 1.5·e of float32."""
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=2, remat=True, remat_policy="flash_saveable",
+                              attention_impl="flash")
+    ds_config = {"train_batch_size": 1, "gradient_clipping": 1.0,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-5, "weight_decay": 0.01}}}
+    rng = np.random.default_rng(7)
+    batches = []
+    for _ in range(3):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048), dtype=np.int32)).cuda()
+        batches.append({"input_ids": ids, "labels": ids})
+    model = LlamaForCausalLM(cfg, device="cuda")
+    state = init_weights_(model, torch.Generator(device="cuda").manual_seed(2)).state_dict()
+    del model
+    configs = {"flash": (cfg, {**ds_config, "bf16": {"enabled": True}}),
+               "chunked": (dataclasses.replace(cfg, attention_impl="chunked"),
+                           {**ds_config, "bf16": {"enabled": True}}),
+               "f32": (dataclasses.replace(cfg, attention_impl="chunked", dtype=torch.float32), ds_config)}
+    runs = {}
+    for name, (c, dsc) in configs.items():
+        reset_launch_counts()
+        eng = build_trainer(c, dsc, state=state)
+        runs[name] = run_steps(eng, batches)
+        if (flash_fwd_cuda.launches > 0) != (name == "flash"):
+            raise AssertionError(f"{name}: K1 launched {flash_fwd_cuda.launches} times")
+        del eng
+        torch.cuda.empty_cache()
+    res = {"losses": {n: r["losses"] for n, r in runs.items()},
+           "grad_norms": {n: r["grad_norms"] for n, r in runs.items()},
+           "kernel_vs_plain": run_differences(runs["flash"], runs["chunked"]),
+           "kernel_vs_f32": run_differences(runs["flash"], runs["f32"]),
+           "plain_vs_f32": run_differences(runs["chunked"], runs["f32"])}
+    log("  bf16 training parity (Llama-3-8B width, 2 layers): " + json.dumps(res))
+    e, kp, kf = res["plain_vs_f32"], res["kernel_vs_plain"], res["kernel_vs_f32"]
+    within = [kp[m] <= 2 * e[m] and kf[m] <= 1.5 * e[m] for m in ("loss", "grad_norm")]
+    within += [kp["qkv_grads"][n] <= 2 * e["qkv_grads"][n] and kf["qkv_grads"][n] <= 1.5 * e["qkv_grads"][n]
+               for n in e["qkv_grads"]]
+    if not (all(np.isfinite(res["losses"]["flash"])) and all(within)):
+        raise AssertionError(f"bf16 training parity out of tolerance: {res}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -445,12 +871,29 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     phase_parity_f32()
+    log("== phase 5: K1/K2a/K2b flash attention vs their plain versions")
+    flash = phase_flash_kernels()
+    log("== phase 6: training Llama-125M")
+    training = phase_training(env["card"])
+    log("== phase 7: training parity")
+    phase_training_parity_f32()
+    phase_training_parity_bf16()
     dec = k3["decode"]
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40", "launches": serving["k3_launches"],
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if n != "decode_f32"), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"]}]
+    replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:162",
+                "flash_dq": "deepspeed_tpu/ops/flash_attention.py:287",
+                "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}
+    for name, where in replaces.items():
+        row = flash["bench"][name]     # the training path's shapes
+        kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": where, "launches": training["launches"][name],
+                        "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

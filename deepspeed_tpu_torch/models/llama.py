@@ -1,10 +1,20 @@
 """Llama-family causal LM (port of ``deepspeed_tpu/models/llama.py``).
 
-What the serving slice needs: the config and presets, ``RMSNorm``, the
-half-split rotary embedding, the MLP, and a cache-free forward
-(``LlamaForCausalLM``) over the plain ``reference_attention`` — the engine
-tests' golden.  The training step (flash kernels K1/K2, remat, the
-hand-written loss VJP) comes with a later slice.
+The config and presets, ``RMSNorm``, the half-split rotary embedding, the
+MLP, the cache-free forward (``LlamaForCausalLM``) that the training step
+runs, and the token-mean cross entropy with its hand-written gradient
+(``causal_lm_loss``).  The paged serving twin (``llama_cache.py``) shares the
+projections, the MLP and the norms.
+
+Attention in the cache-free model follows ``cfg.attention_impl`` as in JAX
+(``get_attention_impl``): ``"reference"`` (full scores) or ``"chunked"``
+(query chunks, no [B, N, S, S] tensor), both in ``ops/attention.py``, or ``"flash"`` (``ops/flash_attention``:
+the CUDA kernels K1/K2a/K2b on a GPU, their plain versions on the CPU).  In
+the serving twin ``"flash"`` means the paged kernel K3, as in JAX.
+
+``cfg.remat`` wraps each block in ``torch.utils.checkpoint`` under
+``cfg.remat_policy`` (``nothing_saveable``, ``flash_saveable``,
+``flash_only``; see ``remat_context_fn``).
 
 Numerics follow the JAX modules: weights live in ``param_dtype`` and are
 cast to ``dtype`` at use (flax ``DenseGeneral``/``Embed`` promote the same
@@ -19,14 +29,17 @@ twin (``llama_cache.py``) loads the same state dict.
 """
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
+from ..ops.attention import chunked_attention, reference_attention
+from ..ops.flash_attention import flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,11 +56,14 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # paged attention of the serving path: "flash" runs the hand-written
-    # CUDA kernel on a GPU tensor (its plain version on a CPU tensor);
-    # "reference" always runs the plain PyTorch version
+    # cache-free model: "reference" | "chunked" | "flash" (get_attention_impl);
+    # serving twin: "flash" runs the paged CUDA kernel K3 on a GPU tensor
+    # (its plain version on a CPU tensor), "reference" the plain version
     attention_impl: str = "flash"
     attention_bias: bool = False  # qkv bias (Qwen2-style checkpoints)
+    # per-block activation checkpointing of the cache-free model (training)
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
 
     @property
     def head_dim(self) -> int:
@@ -120,21 +136,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> torch.Tensor:
-    """Plain softmax attention, q [B, Sq, H, D], k/v [B, Sk, KV, D], GQA by
-    repeating each kv head over its query group; float32 logits, probs cast
-    to v's dtype before the PV product."""
-    _, sq, nh, hd = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    if nkv != nh:
-        k = k.repeat_interleave(nh // nkv, dim=2)
-        v = v.repeat_interleave(nh // nkv, dim=2)
-    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
-    if causal:
-        mask = torch.arange(sq, device=q.device)[:, None] >= torch.arange(sk, device=q.device)[None, :]
-        logits = logits.masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bnqk,bknd->bqnd", probs.to(v.dtype), v)
+def get_attention_impl(name: str) -> Callable:
+    """The attention function of the cache-free model (JAX ``llama.py:354``)."""
+    if name == "reference":
+        return reference_attention
+    if name == "chunked":
+        return chunked_attention
+    if name == "flash":
+        return flash_attention
+    if name in ("ulysses", "fpdt", "ring"):
+        raise NotImplementedError(f"attention_impl {name!r} is sequence-parallel attention over several devices: "
+                                  "not ported yet (ROADMAP Queue 1, multi-device training)")
+    raise ValueError(f"Unknown attention impl {name!r} (reference | chunked | flash)")
 
 
 class LlamaAttention(nn.Module):
@@ -164,9 +177,11 @@ class LlamaAttention(nn.Module):
         b, s = attn.shape[:2]
         return dense(attn.reshape(b, s, -1), self.o_proj, self.cfg.dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         q, k, v = self.qkv(x, positions)
-        return self.out(reference_attention(q, k, v, causal=True))
+        attn = get_attention_impl(self.cfg.attention_impl)
+        return self.out(attn(q, k, v, causal=True, segment_ids=segment_ids))
 
 
 class LlamaMLP(nn.Module):
@@ -193,14 +208,44 @@ class LlamaBlock(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
                                                 device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        h = x + self.self_attn(self.input_layernorm(x), positions)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = x + self.self_attn(self.input_layernorm(x), positions, segment_ids)
         return h + self.mlp(self.post_attention_layernorm(h))
+
+
+def remat_context_fn(policy: str) -> Optional[Callable]:
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for a JAX remat
+    policy name (``llama.py:126-142``), or None for full recompute.
+
+    * ``nothing_saveable``: every activation of the block is recomputed in
+      the backward (the forward attention kernel K1 included);
+    * ``flash_saveable``: the outputs of the projection and MLP matmuls
+      (``aten.mm``/``aten.addmm``: JAX's dots without batch dims) and of the
+      flash forward op (``ds_torch::flash_fwd``: o and lse) are saved, so the
+      backward launches K2a/K2b without relaunching K1;
+    * ``flash_only``: only the flash forward's outputs are saved.
+    """
+    if policy == "nothing_saveable":
+        return None
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    saved = {torch.ops.ds_torch.flash_fwd.default}
+    if policy == "flash_saveable":
+        saved |= {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    elif policy != "flash_only":
+        raise ValueError(f"unknown remat_policy {policy!r} (nothing_saveable | flash_saveable | flash_only)")
+
+    def choose(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, choose)
 
 
 class LlamaForCausalLM(nn.Module):
     """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
-    compute dtype.  Attention is always ``reference_attention``."""
+    compute dtype.  Attention follows ``cfg.attention_impl`` through
+    ``get_attention_impl``."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda"):
         super().__init__()
@@ -226,12 +271,23 @@ class LlamaForCausalLM(nn.Module):
             return x.to(self.cfg.dtype) @ self.embed_tokens.weight.to(self.cfg.dtype).T
         return dense(x, self.lm_head, self.cfg.dtype)
 
-    def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None, pld_scale=None) -> torch.Tensor:
+        if pld_scale is not None:
+            raise NotImplementedError("progressive layer drop is not ported (ROADMAP Queue 1, training features)")
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
         x = self.embed(input_ids)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            context_fn = remat_context_fn(self.cfg.remat_policy)
+            kw = {} if context_fn is None else {"context_fn": context_fn}
         for layer in self.layers:
-            x = layer(x, positions)
+            if remat:
+                x = checkpoint(layer, x, positions, segment_ids, use_reentrant=False, **kw)
+            else:
+                x = layer(x, positions, segment_ids)
         return self.logits(x)
 
 
@@ -250,3 +306,42 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
     return model
+
+
+class _CausalLMLoss(torch.autograd.Function):
+    """Token-mean cross entropy with the hand-written gradient of the JAX
+    ``causal_lm_loss`` (``llama.py:514-557``)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, loss_mask):
+        lse = torch.logsumexp(logits.float(), dim=-1)                                   # [B, S]
+        tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0].float()
+        nll = lse - tgt
+        if loss_mask is not None:
+            mask = loss_mask.float()
+            denom = mask.sum().clamp_min(1.0)
+            loss = (nll * mask).sum() / denom
+        else:
+            mask, denom = None, torch.tensor(float(nll.numel()), device=nll.device)
+            loss = nll.mean()
+        ctx.save_for_backward(logits, labels, lse, denom, *([] if mask is None else [mask]))
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse, denom, *mask = ctx.saved_tensors
+        w = (g / denom) * mask[0] if mask else (g / denom).expand(lse.shape)
+        d = torch.exp(logits.float() - lse[..., None])                                  # softmax
+        d.scatter_add_(-1, labels[..., None].long(), torch.full_like(lse[..., None], -1.0))  # − onehot
+        d.mul_(w[..., None])
+        return d.to(logits.dtype), None, None
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in float32 from an f32 logsumexp minus the
+    target logit; with ``loss_mask`` the mean is over the masked-in tokens
+    (denominator ``max(sum, 1)``).  The gradient is ``(softmax − onehot)·w``
+    in the logits' dtype, computed from the saved logits: no [B, S, V]
+    float32 log-prob tensor is kept."""
+    return _CausalLMLoss.apply(logits, labels, loss_mask)

@@ -1,4 +1,5 @@
-"""The PyTorch port's CUDA kernels on the card.  Every test is marked
+"""The PyTorch port's CUDA kernels on the card: K3 (paged attention) and
+K1/K2a/K2b (flash attention forward and backward).  Every test is marked
 ``cuda`` and skips without a GPU.  This file imports nothing of the JAX
 package, so a GPU host without JAX runs it on its own:
 
@@ -13,7 +14,7 @@ import torch
 
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
                                               build_engine)
-from deepspeed_tpu_torch.models.llama import PRESETS, init_weights_
+from deepspeed_tpu_torch.models.llama import PRESETS, LlamaForCausalLM, init_weights_
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache, paged_attention
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
 
@@ -92,3 +93,107 @@ def test_engine_kernel_path_matches_plain_path():
         launched = paged_attention_cuda.launches - before
         assert launched == (cfg.num_hidden_layers * eng.forward_calls if impl == "flash" else 0)
     assert streams["flash"] == streams["reference"]
+
+
+# ---------------------------------------------------------------- K1, K2a, K2b
+
+# |kernel − plain| <= a·|plain| + b·rms(vector) + f·rms(tensor) for o, dq,
+# dk, dv (the vector: one head's D values at one row or key), and
+# stat·(|plain| + rms) for the float32 lse and delta; chip_smoke.py phase 5
+# states where each term comes from
+FLASH_TOL = {torch.bfloat16: dict(a=2**-7, b=2**-6, f=2**-8, stat=2**-14),
+             torch.float32: dict(a=2**-16, b=2**-14, f=2**-14, stat=2**-16)}
+
+
+def _within(got, want, tol, vector=True) -> bool:
+    got, want = got.float(), want.float()
+    rms = want.square().mean().sqrt()
+    if vector:
+        limit = tol["a"] * want.abs() + tol["b"] * want.square().mean(-1, keepdim=True).sqrt() + tol["f"] * rms
+    else:
+        limit = tol["stat"] * (want.abs() + rms)
+    return bool(((got - want).abs() <= limit).all())
+
+
+FLASH_CASES = [
+    pytest.param(True, 4, 4, 64, 128, 128, 0, id="causal-mha-d64"),
+    pytest.param(False, 4, 4, 64, 128, 128, 0, id="full-mha-d64"),
+    pytest.param(True, 8, 2, 128, 128, 128, 0, id="causal-gqa-d128"),
+    pytest.param(True, 6, 2, 64, 256, 384, 128, id="q-offset-rep3"),
+    pytest.param(True, 4, 2, 128, 128, 256, 0, id="sk-gt-sq"),
+]
+
+
+def _flash_inputs(h, hk, d, sq, sk, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+
+    return t(2, sq, h, d), t(2, sk, hk, d), t(2, sk, hk, d), t(2, sq, h, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", FLASH_CASES)
+def test_flash_kernels_match_plain(dtype, causal, h, hk, d, sq, sk, q_offset):
+    """K1, K2a (dq and delta) and K2b against their plain versions on the
+    same CUDA tensors, element by element against each row's or key's own
+    scale (``FLASH_TOL``)."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(h, hk, d, sq, sk, dtype)
+    tol = FLASH_TOL[dtype]
+    before = (fa.flash_fwd_cuda.launches, fa.flash_dq_cuda.launches, fa.flash_dkv_cuda.launches)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, q_offset)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, causal, q_offset)
+    assert _within(o, want_o, tol) and _within(lse, want_lse, tol, vector=False)
+    dq, delta = fa.flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
+    dk, dv = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, q_offset)
+    torch.cuda.synchronize()
+    assert _within(delta, fa.flash_delta_plain(o, do), tol, vector=False)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _within(g, w, tol), name
+    # the check rejects a K2b that leaves out the last kv tile it must write
+    t1 = min(sk, sq + q_offset) // 64 * 64
+    dk_faulty = dk.clone()
+    dk_faulty[:, t1 - 64:t1] = 0
+    assert not _within(dk_faulty, want[1], tol)
+    if causal and sk > sq + q_offset:
+        assert not dk[:, sq + q_offset:].any() and not dv[:, sq + q_offset:].any()
+    after = (fa.flash_fwd_cuda.launches, fa.flash_dq_cuda.launches, fa.flash_dkv_cuda.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def test_flash_kernels_reject_what_they_do_not_take():
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, _ = _flash_inputs(4, 2, 64, 128, 128, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd_cuda(q, k.to(torch.bfloat16), v, True, 0)
+
+
+def test_flash_training_step_launches_each_kernel_once_per_layer():
+    """A small Llama trained under ``flash_saveable`` on the card: K1, K2a
+    and K2b each launch once per layer per micro-step (no K1 relaunch in
+    the recompute), and the losses match the chunked path in float32."""
+    import deepspeed_tpu_torch as ds
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS["tiny"], hidden_size=256, intermediate_size=512, vocab_size=512,
+                              num_hidden_layers=3, dtype=torch.float32, remat=True, remat_policy="flash_saveable")
+    ids = np.random.default_rng(1).integers(0, 512, (4, 256)).astype(np.int32)
+    losses = {}
+    for impl in ("flash", "chunked"):
+        model = init_weights_(LlamaForCausalLM(dataclasses.replace(cfg, attention_impl=impl), device="cuda"),
+                              torch.Generator(device="cuda").manual_seed(0))
+        eng = ds.initialize(model=model, config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
+                                                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}})[0]
+        fa.flash_fwd_cuda.launches = fa.flash_dq_cuda.launches = fa.flash_dkv_cuda.launches = 0
+        losses[impl] = [float(eng.train_batch(batch={"input_ids": ids, "labels": ids})) for _ in range(2)]
+        launches = (fa.flash_fwd_cuda.launches, fa.flash_dq_cuda.launches, fa.flash_dkv_cuda.launches)
+        n = cfg.num_hidden_layers * 2 * 2 if impl == "flash" else 0
+        assert launches == (n, n, n), (impl, launches)
+    np.testing.assert_allclose(losses["flash"], losses["chunked"], rtol=1e-4)

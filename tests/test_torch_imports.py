@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: ``deepspeed_tpu_torch`` and
-``chip_smoke.py`` load neither JAX nor flax nor any module of the JAX
-package ``deepspeed_tpu`` (whose ``__init__`` imports JAX)."""
+``chip_smoke.py`` load neither JAX nor flax nor pydantic (absent where the
+card is) nor any module of the JAX package ``deepspeed_tpu`` (whose
+``__init__`` imports JAX)."""
 
 import ast
 import json
@@ -18,6 +19,16 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.models.llama_cache",
     "deepspeed_tpu_torch.models.convert",
     "deepspeed_tpu_torch.ops.paged_attention",
+    "deepspeed_tpu_torch.ops.attention",
+    "deepspeed_tpu_torch.ops.flash_attention",
+    "deepspeed_tpu_torch.ops.adam",
+    "deepspeed_tpu_torch.ops.optimizer",
+    "deepspeed_tpu_torch.runtime",
+    "deepspeed_tpu_torch.runtime.constants",
+    "deepspeed_tpu_torch.runtime.config",
+    "deepspeed_tpu_torch.runtime.lr_schedules",
+    "deepspeed_tpu_torch.runtime.fp16.loss_scaler",
+    "deepspeed_tpu_torch.runtime.engine",
     "deepspeed_tpu_torch.ops.op_builder",
     "deepspeed_tpu_torch.inference.v2",
     "deepspeed_tpu_torch.inference.v2.ragged",
@@ -27,7 +38,7 @@ SLICE_MODULES = [
 
 _PROBE = """
 import importlib, json, sys
-for name in ("jax", "jaxlib", "flax"):
+for name in ("jax", "jaxlib", "flax", "pydantic"):
     sys.modules[name] = None          # any import of them raises ImportError
 for m in {modules!r}:
     importlib.import_module(m)
@@ -42,7 +53,7 @@ def test_port_imports_without_jax():
     assert res.returncode == 0, res.stderr
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     assert not [m for m in loaded if m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")]
-    assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton")]
+    assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "pydantic")]
 
 
 def _imported_modules(path: Path):
@@ -58,4 +69,5 @@ def test_port_sources_and_chip_smoke_import_no_jax_package():
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "deepspeed_tpu"), f"{f.relative_to(REPO)} imports {mod}"
+            assert root not in ("jax", "jaxlib", "flax", "pydantic", "deepspeed_tpu"), \
+                f"{f.relative_to(REPO)} imports {mod}"
