@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and ``nvcc``;
-builds every kernel from ``deepspeed_tpu_torch/csrc`` on first use.  Phases:
+builds every kernel from ``deepspeed_tpu_torch/csrc``, one ``nvcc`` per
+source, all started together.  Phases:
 
   1. environment: card name and power limit, versions, kernel build time;
   2. K3 paged attention against its plain PyTorch version at the serving
@@ -33,7 +34,21 @@ builds every kernel from ``deepspeed_tpu_torch/csrc`` on first use.  Phases:
   7. training parity, kernel path (``attention_impl="flash"``) against the
      plain path (``"chunked"``): 3 float32 AdamW steps at 125M width, and 3
      bf16 steps at Llama-3-8B width (2 layers, S 2048) held against a
-     float32 run.
+     float32 run;
+  8. K6a/K6b/K6c block-sparse attention against their plain versions at
+     BERT-large's attention (B 4, 16 heads of 64, S 4096, block 16, bf16)
+     for seven layouts (DeepSpeed's documented fixed example, fixed
+     unidirectional, BigBird, BSLongformer, variable, local window, dense),
+     with faulty kernels the check must reject, a key padding mask, float32
+     at S 1024 and head dim 128 at block 64; kernel / plain / library (SDPA
+     with the layout as a token mask) time and the roofline bound for the
+     fixed example and BigBird, and a layout with global blocks against a
+     local one of the same density (the straggler's share);
+  9. the sparse path through its entry points: ``DeepSpeedConfig`` with the
+     documented ``sparse_attention`` block → ``make_sparsity_config`` →
+     ``SparseSelfAttention`` forward and backward on CUDA tensors, three
+     iterations — K6a/K6b/K6c launches per call, finite gradients, outputs
+     against the plain versions, peak memory and a profiled iteration.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -45,6 +60,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -60,6 +76,16 @@ from deepspeed_tpu_torch.ops.op_builder import KERNEL_SOURCES, build_kernel
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delta_plain, flash_dkv_cuda,
                                                      flash_dq_cuda, flash_fwd_cuda, flash_fwd_plain)
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
+from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, BSLongformerSparsityConfig,
+                                                      DenseSparsityConfig, FixedSparsityConfig,
+                                                      LocalSlidingWindowSparsityConfig, SparseSelfAttention,
+                                                      VariableSparsityConfig, extend_position_embedding,
+                                                      make_sparsity_config)
+from deepspeed_tpu_torch.ops.sparse_attention.kernel import (EMPTY_ROW_LSE, build_tables, sparse_attn_bwd_plain,
+                                                             sparse_attn_delta_plain, sparse_attn_dkv_cuda,
+                                                             sparse_attn_dq_cuda, sparse_attn_fwd_cuda,
+                                                             sparse_attn_fwd_plain)
+from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -73,7 +99,8 @@ MAX_PAGES = 128
 # plus 1e-2 absolute for small outputs.  float32: only the summation order
 # and exp differ.
 TOLERANCE = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
-LAUNCH_COUNTERS = (paged_attention_cuda, flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda)
+LAUNCH_COUNTERS = (paged_attention_cuda, flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda, sparse_attn_fwd_cuda,
+                   sparse_attn_dq_cuda, sparse_attn_dkv_cuda)
 
 
 def reset_launch_counts() -> None:
@@ -101,10 +128,15 @@ def phase_environment() -> dict:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
-    for name in KERNEL_SOURCES:
+
+    def build(name):
         t0 = time.perf_counter()
-        output = build_kernel(name)
-        log(f"  {name}: nvcc {time.perf_counter() - t0:.2f} s" + ("" if output else " (already built)"))
+        return build_kernel(name), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(KERNEL_SOURCES)) as pool:   # one nvcc per source, all at once
+        built = dict(zip(KERNEL_SOURCES, pool.map(build, KERNEL_SOURCES)))
+    for name, (output, seconds) in built.items():
+        log(f"  {name}: nvcc {seconds:.2f} s" + ("" if output else " (already built)"))
         for line in output.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {line.strip()}")
@@ -850,6 +882,340 @@ def phase_training_parity_bf16() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 8
+
+# BERT-large's attention (deepspeed_tpu/models/bert.py: 16 heads of 64) at a
+# 4096-token context (its 512 learned positions tiled by
+# extend_position_embedding), bf16
+SPARSE_B, SPARSE_H, SPARSE_S, SPARSE_D, SPARSE_BLOCK = 4, 16, 4096, 64, 16
+#: the ``sparse_attention`` block of DeepSpeed's config documentation
+#: (config-json, "Sparse Attention")
+DOC_SPARSE_ATTENTION = {"mode": "fixed", "block": 16, "different_layout_per_head": True, "num_local_blocks": 4,
+                        "num_global_blocks": 1, "attention": "bidirectional", "horizontal_global_attention": False,
+                        "num_different_global_patterns": 4}
+SPARSE_NAMES = ("sparse_attn_fwd", "sparse_attn_dq", "sparse_attn_dkv")
+
+
+def sparse_configs(h: int, block: int) -> dict:
+    """name → (sparsity config, causal) of the layouts phase 8 checks."""
+    return {
+        "fixed": (make_sparsity_config({**DOC_SPARSE_ATTENTION, "block": block}, num_heads=h), False),
+        "fixed_uni": (FixedSparsityConfig(h, block, True, num_local_blocks=4, num_global_blocks=1,
+                                          attention="unidirectional", num_different_global_patterns=4), True),
+        "bigbird": (BigBirdSparsityConfig(h, block, True, num_random_blocks=1, num_sliding_window_blocks=3,
+                                          num_global_blocks=1), False),
+        "bslongformer": (BSLongformerSparsityConfig(h, block, True, num_sliding_window_blocks=3,
+                                                    global_block_indices=[0]), False),
+        "variable": (VariableSparsityConfig(h, block, True, num_random_blocks=1, local_window_blocks=[2, 4],
+                                            global_block_indices=[0]), False),
+        "local": (LocalSlidingWindowSparsityConfig(h, block, num_sliding_window_blocks=3), True),
+        "dense": (DenseSparsityConfig(h, block), False),
+    }
+
+
+def sparse_inputs(b, h, s, d, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype) for _ in range(4)]
+
+
+def sparse_kernels(q, k, v, do, tables, block, causal, kpm=None) -> dict:
+    """K6a, then K6b and K6c from its outputs."""
+    o, lse = sparse_attn_fwd_cuda(q, k, v, tables, block, causal, None, kpm)
+    dq, delta = sparse_attn_dq_cuda(q, k, v, o, lse, do, tables, block, causal, None, kpm)
+    dk, dv = sparse_attn_dkv_cuda(q, k, v, do, lse, delta, tables, block, causal, None, kpm)
+    return {"o": o, "lse": lse, "dq": dq, "delta": delta, "dk": dk, "dv": dv}
+
+
+def sparse_plain(q, k, v, do, got, tables, block, causal, kpm=None) -> dict:
+    """The plain versions on the same inputs; the backward from the kernel's
+    o and lse, as K6b and K6c take them."""
+    o, lse = sparse_attn_fwd_plain(q, k, v, tables, block, causal, None, kpm)
+    dq, dk, dv = sparse_attn_bwd_plain(q, k, v, got["o"], got["lse"], do, tables, block, causal, None, kpm)
+    return {"o": o, "lse": lse, "dq": dq, "delta": sparse_attn_delta_plain(got["o"], do), "dk": dk, "dv": dv}
+
+
+def sparse_ratio(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) -> float:
+    """``tolerance_ratio`` of one output; lse is held on the rows that attend
+    to a key, and must read exactly 3e38 on the others."""
+    if name in ("lse", "delta"):
+        live = want != EMPTY_ROW_LSE
+        if not torch.equal(got[~live], want[~live]):
+            return float("inf")
+        return tolerance_ratio(got[live], want[live], tol, vector=False) if bool(live.any()) else 0.0
+    return tolerance_ratio(got, want, tol, vector=True)
+
+
+def sparse_mutants(q, k, v, layout, block, causal, kpm, got) -> dict:
+    """Faulty kernels the check must reject, made from the kernel's outputs:
+    K6a that drops the first admitted kv block of the first row block (of
+    head 0) that admits two; K6b that zeroes that row block's dq; K6c that
+    zeroes dk and dv of head 0's widest column (a global column where the
+    layout has one)."""
+    counts = layout[0].sum(-1)
+    r = int(np.argmax(counts >= 2))
+    cut = layout[:1].copy()
+    cut[0, r, np.nonzero(layout[0, r])[0][0]] = 0
+    o_cut, lse_cut = sparse_attn_fwd_plain(q[:, :1], k[:, :1], v[:, :1], build_tables(cut, "cuda"), block, causal,
+                                           None, kpm)
+    rows = slice(r * block, (r + 1) * block)
+    out = {n: got[n].clone() for n in ("o", "lse", "dq", "dk", "dv")}
+    out["o"][:, 0, rows], out["lse"][:, 0, rows] = o_cut[:, 0, rows], lse_cut[:, 0, rows]
+    out["dq"][:, 0, rows] = 0
+    c = int(np.argmax(layout[0].sum(-2)))
+    out["dk"][:, 0, c * block:(c + 1) * block] = 0
+    out["dv"][:, 0, c * block:(c + 1) * block] = 0
+    return out
+
+
+def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True) -> dict:
+    """Hold K6a/K6b/K6c to their plain versions on one layout; with
+    ``mutants``, fail unless the check rejects each faulty kernel.
+    Returns per kernel the largest |kernel − plain|."""
+    h, block = cfg.num_heads, cfg.block
+    layout = np.asarray(cfg.make_layout(s))
+    tables = build_tables(layout, "cuda")
+    q, k, v, do = sparse_inputs(b, h, s, d, dtype, seed=s + d + block + int(causal))
+    got = sparse_kernels(q, k, v, do, tables, block, causal, kpm)
+    want = sparse_plain(q, k, v, do, got, tables, block, causal, kpm)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    ratios = {n: sparse_ratio(n, got[n], want[n], tol) for n in got}
+    log(f"  {label}: density {layout.mean():.4f}, |err|/limit " + ", ".join(f"{n}={r:.3g}" for n, r in ratios.items()))
+    bad = {n: r for n, r in ratios.items() if not r <= 1}
+    if bad:
+        raise AssertionError(f"{label}: kernel disagrees with the plain version, |err|/limit {bad}")
+    # a kv block no row admits gets zero dk/dv
+    dead_cols = torch.from_numpy(layout.sum(-2) == 0).cuda().repeat_interleave(block, dim=1)   # [H, S]
+    if bool(dead_cols.any()) and (got["dk"][:, dead_cols].any() or got["dv"][:, dead_cols].any()):
+        raise AssertionError(f"{label}: a kv block no row admits got nonzero dk/dv")
+    if mutants:
+        faulty = sparse_mutants(q, k, v, layout, block, causal, kpm, got)
+        caught = {n: sparse_ratio(n, m, want[n], tol) for n, m in faulty.items()}
+        log(f"  {label}: faulty kernels' |err|/limit " + ", ".join(f"{n}={r:.3g}" for n, r in caught.items()))
+        if not all(r > 1 for r in caught.values()):
+            raise AssertionError(f"{label}: the check passes a faulty kernel: {caught}")
+    outs = {"sparse_attn_fwd": ("o", "lse"), "sparse_attn_dq": ("dq", "delta"), "sparse_attn_dkv": ("dk", "dv")}
+    return {kname: max(float((got[n].float() - want[n].float()).abs().max()) for n in names)
+            for kname, names in outs.items()}
+
+
+def visible_pairs(layout: np.ndarray, block: int, causal: bool) -> int:
+    """(query, key) token pairs the layout lets attend, per batch row: a whole
+    block for an admitted block, its lower triangle on the diagonal and
+    nothing above it with causal."""
+    if not causal:
+        return int(layout.astype(bool).sum()) * block * block
+    h, r, c = np.nonzero(layout)
+    return int((c < r).sum()) * block * block + int((c == r).sum()) * block * (block + 1) // 2
+
+
+def sparse_bounds(layout, block, b, d, causal, tables, dtype) -> dict:
+    """Least time of each kernel: each input read once (the index tables
+    included) and each output written once, against 4/6/8·D flops per
+    visible pair (QK+PV; QK, dO·Vᵀ, dS·K; QK, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) at the
+    bf16 tensor-core peak."""
+    h, nb, _ = layout.shape
+    x = b * h * nb * block * d * (torch.finfo(dtype).bits // 8)      # one [B, H, S, D] tensor
+    st = b * h * nb * block * 4                                        # one [B, H, S] f32 statistic
+    rows = 4 * sum(t.numel() for t in (tables.row_ptr, tables.row_idx, tables.row_order))
+    cols = 4 * sum(t.numel() for t in (tables.col_ptr, tables.col_idx, tables.col_order))
+    nbytes = {"sparse_attn_fwd": 3 * x + rows + x + st,                # q k v → o lse
+              "sparse_attn_dq": 5 * x + st + rows + x + st,            # q k v o do lse → dq delta
+              "sparse_attn_dkv": 4 * x + 2 * st + cols + 2 * x}        # q k v do lse delta → dk dv
+    pairs = b * visible_pairs(layout, block, causal)
+    out = {}
+    for name, per_pair in zip(SPARSE_NAMES, (4, 6, 8)):
+        t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        t_ops = per_pair * d * pairs / PEAK_FLOPS[torch.bfloat16] * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
+def sparse_timing(label, cfg, causal, flush, plain=True, library=True, tables=None) -> dict:
+    """Kernel (cold L2), plain and library time of K6a/K6b/K6c at the full
+    configuration, beside each kernel's bound."""
+    b, s, d, dtype = SPARSE_B, SPARSE_S, SPARSE_D, torch.bfloat16
+    block = cfg.block
+    layout = np.asarray(cfg.make_layout(s))
+    tables = tables if tables is not None else build_tables(layout, "cuda")
+    q, k, v, do = sparse_inputs(b, cfg.num_heads, s, d, dtype, seed=1)
+    got = sparse_kernels(q, k, v, do, tables, block, causal)
+    rows = {n: {"case": label, "density": float(layout.mean())} for n in SPARSE_NAMES}
+    for name, (t, by) in sparse_bounds(layout, block, b, d, causal, tables, dtype).items():
+        rows[name].update(bound_ms=t, bound_by=by)
+    rows["sparse_attn_fwd"]["ms"] = time_ms(lambda: sparse_attn_fwd_cuda(q, k, v, tables, block, causal), 10, flush)
+    rows["sparse_attn_dq"]["ms"] = time_ms(
+        lambda: sparse_attn_dq_cuda(q, k, v, got["o"], got["lse"], do, tables, block, causal), 10, flush)
+    rows["sparse_attn_dkv"]["ms"] = time_ms(
+        lambda: sparse_attn_dkv_cuda(q, k, v, do, got["lse"], got["delta"], tables, block, causal), 10, flush)
+    if plain:
+        rows["sparse_attn_fwd"]["plain_ms"] = time_ms(
+            lambda: sparse_attn_fwd_plain(q, k, v, tables, block, causal), 3, flush)
+        # the plain backward computes dq, dk and dv in one call: its time
+        # stands beside both backward kernels
+        bwd_ms = time_ms(lambda: sparse_attn_bwd_plain(q, k, v, got["o"], got["lse"], do, tables, block, causal), 3,
+                         flush)
+        rows["sparse_attn_dq"]["plain_ms"] = rows["sparse_attn_dkv"]["plain_ms"] = bwd_ms
+    if library:
+        # SDPA on the same [B, H, S, D] tensors with the layout expanded to a
+        # boolean token mask [1, H, S, S] (built outside the timing); its
+        # backward (dq, dk, dv together) by autograd.grad
+        mask = torch.from_numpy(layout != 0).cuda().repeat_interleave(block, 1).repeat_interleave(block, 2)
+        if causal:
+            mask &= torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        with torch.no_grad():
+            rows["sparse_attn_fwd"]["library_ms"] = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask[None]), 10, flush)
+        out = sdpa(qs, ks, vs, attn_mask=mask[None])
+        lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True), 10, flush)
+        rows["sparse_attn_dq"]["library_ms"] = rows["sparse_attn_dkv"]["library_ms"] = lib_bwd
+        del mask, out
+    for name, row in rows.items():
+        log(f"  {name} {label}: " + ", ".join(f"{k_}={v_:.4g}" if isinstance(v_, float) else f"{k_}={v_}"
+                                             for k_, v_ in row.items() if k_ != "case"))
+    return rows
+
+
+def phase_sparse_kernels() -> dict:
+    b, h, s, d = SPARSE_B, SPARSE_H, SPARSE_S, SPARSE_D
+    errs = {n: 0.0 for n in SPARSE_NAMES}
+
+    def check(*args, **kwargs):
+        for n, e in sparse_case(*args, **kwargs).items():
+            errs[n] = max(errs[n], e)
+
+    for name, (cfg, causal) in sparse_configs(h, SPARSE_BLOCK).items():
+        check(f"{name} bf16 B{b} S{s} D{d} block {SPARSE_BLOCK}", cfg, causal, b, s, d, torch.bfloat16)
+    # padded sequences: the last 10% of batch row 1's keys and a scattered 5% of row 3's
+    kpm = torch.ones((b, s), dtype=torch.bool, device="cuda")
+    kpm[1, -s // 10:] = False
+    kpm[3] = torch.rand(s, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda") > 0.05
+    for name in ("fixed", "fixed_uni"):
+        cfg, causal = sparse_configs(h, SPARSE_BLOCK)[name]
+        check(f"{name} bf16 key_padding_mask", cfg, causal, b, s, d, torch.bfloat16, kpm=kpm)
+    for name, (cfg, causal) in sparse_configs(h, SPARSE_BLOCK).items():
+        check(f"{name} f32 S1024", cfg, causal, b, 1024, d, torch.float32, mutants=False)
+    for dtype in (torch.bfloat16, torch.float32):
+        for name in ("fixed", "fixed_uni"):
+            cfg, causal = sparse_configs(h, 64)[name]
+            check(f"{name} {str(dtype)[6:]} D128 block 64", cfg, causal, b, s, 128, dtype,
+                  mutants=dtype == torch.bfloat16)
+    log(f"  max |kernel - plain|: " + json.dumps(errs))
+
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for name in ("fixed", "bigbird"):
+        cfg, causal = sparse_configs(h, SPARSE_BLOCK)[name]
+        timed[name] = sparse_timing(name, cfg, causal, flush)
+    # the straggler: BSLongformer's global row and column admit all 256
+    # blocks, a local window of the same density admits at most 5; both
+    # launched heaviest first, and BSLongformer also in table order
+    straggler = {}
+    cfg_g, _ = sparse_configs(h, SPARSE_BLOCK)["bslongformer"]
+    cfg_l = LocalSlidingWindowSparsityConfig(h, SPARSE_BLOCK, num_sliding_window_blocks=5, attention="bidirectional")
+    straggler["bslongformer"] = sparse_timing("bslongformer", cfg_g, False, flush, plain=False, library=False)
+    straggler["local5"] = sparse_timing("local5", cfg_l, False, flush, plain=False, library=False)
+    t = build_tables(cfg_g.make_layout(s), "cuda")
+    natural = torch.arange(t.row_order.numel(), dtype=torch.int32, device="cuda")
+    straggler["bslongformer_table_order"] = sparse_timing(
+        "bslongformer table order", cfg_g, False, flush, plain=False, library=False,
+        tables=dataclasses.replace(t, row_order=natural, col_order=natural))
+    share = {n: 1 - straggler["local5"][n]["ms"] / straggler["bslongformer"][n]["ms"] for n in SPARSE_NAMES}
+    log("  straggler share (1 - local5 / bslongformer): " + json.dumps(share))
+    del flush
+    torch.cuda.empty_cache()
+    return {"errs": errs, "timed": timed, "straggler": straggler, "straggler_share": share}
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def phase_sparse_path(smi: str) -> dict:
+    """The sparse path through its entry points, as a user would call it:
+    the DeepSpeed config's ``sparse_attention`` block → a sparsity config →
+    ``SparseSelfAttention`` forward and backward on CUDA tensors.  Each
+    iteration's wall time ends in a synchronize; the first one also builds
+    the layout, its index tables and the ops' dispatch state."""
+    b, h, s, d = SPARSE_B, SPARSE_H, SPARSE_S, SPARSE_D
+    ds_config = DeepSpeedConfig({"train_batch_size": b, "bf16": {"enabled": True},
+                                 "sparse_attention": dict(DOC_SPARSE_ATTENTION)})
+    sparsity = make_sparsity_config(ds_config.sparse_attention, num_heads=h)
+    attn = SparseSelfAttention(sparsity)
+    # BERT-large's 512 learned positions tiled to the 4096-token context
+    pos = extend_position_embedding(torch.randn((512, h * d), device="cuda", dtype=torch.bfloat16), s)
+    if tuple(pos.shape) != (s, h * d) or not torch.equal(pos[512:1024], pos[:512]):
+        raise AssertionError(f"extend_position_embedding gave {tuple(pos.shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    do = torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    acc = get_accelerator()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    reset_launch_counts()
+    iters, walls = 3, []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = attn(q, k, v)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        acc.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    launches = {n: fn.launches for n, fn in zip(SPARSE_NAMES, (sparse_attn_fwd_cuda, sparse_attn_dq_cuda,
+                                                                sparse_attn_dkv_cuda))}
+    if list(launches.values()) != [iters] * 3:
+        raise AssertionError(f"K6a/K6b/K6c launched {launches} times over {iters} forward and backward calls")
+    if any(fn.launches for fn in (paged_attention_cuda, flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda)):
+        raise AssertionError("the sparse path launched a dense attention kernel")
+    if tuple(out.shape) != (b, h, s, d) or not all(bool(torch.isfinite(t).all()) for t in (out, *grads)):
+        raise AssertionError("the sparse path gave non-finite outputs or gradients")
+    # the path's outputs against the plain versions on the same inputs
+    tables = attn.get_sparse_layout(s).tables("cuda")
+    want_o, _ = sparse_attn_fwd_plain(q.detach(), k.detach(), v.detach(), tables, sparsity.block)
+    o, lse = sparse_attn_fwd_cuda(q.detach(), k.detach(), v.detach(), tables, sparsity.block)
+    want_grads = sparse_attn_bwd_plain(q.detach(), k.detach(), v.detach(), o, lse, do, tables, sparsity.block)
+    tol = FLASH_TOL[torch.bfloat16]
+    ratios = {n: tolerance_ratio(g, w, tol, vector=True)
+              for n, g, w in zip(("o", "dq", "dk", "dv"), (out.detach(), *grads), (want_o, *want_grads))}
+    if not all(r <= 1 for r in ratios.values()):
+        raise AssertionError(f"the sparse path disagrees with the plain versions: |err|/limit {ratios}")
+    res = {"config": ds_config.sparse_attention, "shape": [b, h, s, d], "density": float(attn.get_layout(s).mean()),
+           "launches": launches, "iters": iters, "wall_ms_per_iter": walls, "ratios": ratios,
+           "peak_mem_gb": acc.max_memory_allocated() / 1e9, "card": smi}
+    log("  sparse path: " + json.dumps(res))
+    res["profile"] = profile_sparse_iteration(attn, q, k, v, do)
+    return res
+
+
+def profile_sparse_iteration(attn, q, k, v, do) -> dict:
+    """One forward and backward under torch.profiler: the device time by
+    kernel; the busy share is that device time over the wall time of the
+    next, identical iteration, not profiled, which also reads the span from
+    the first launch to the last on the card with CUDA events.  Where the
+    profiler records no device event, its fields are null."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(attn(q, k, v), (q, k, v), do)
+        torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    torch.autograd.grad(attn(q, k, v), (q, k, v), do)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = {e.key: e.self_device_time_total for e in rows}
+    busy_ms = sum(dev_us.values()) / 1e3 if rows else None
+    top = sorted(((u / 1e3, n) for n, u in dev_us.items() if u > 0), reverse=True)[:6]
+    res = {"wall_ms": wall_ms, "device_span_ms": start.elapsed_time(end), "device_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms if rows else None, "device_ops": sum(e.count for e in rows),
+           "top_kernels_ms": [[n[:70], t] for t, n in top]}
+    log("  sparse path profile: " + json.dumps(res))
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -878,6 +1244,10 @@ def main() -> int:
     log("== phase 7: training parity")
     phase_training_parity_f32()
     phase_training_parity_bf16()
+    log("== phase 8: K6a/K6b/K6c block-sparse attention vs their plain versions")
+    sparse = phase_sparse_kernels()
+    log("== phase 9: the sparse path: DeepSpeedConfig -> SparseSelfAttention forward and backward")
+    sparse_path = phase_sparse_path(env["card"])
     dec = k3["decode"]
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40", "launches": serving["k3_launches"],
@@ -894,6 +1264,15 @@ def main() -> int:
                         "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+    replaces = {"sparse_attn_fwd": "deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:35",
+                "sparse_attn_dq": "deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:125",
+                "sparse_attn_dkv": "deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:152"}
+    for name, where in replaces.items():
+        row = sparse["timed"]["fixed"][name]     # the entry-point path's layout
+        kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/sparse_attention.cu",
+                        "replaces": where, "launches": sparse_path["launches"][name],
+                        "max_abs_err": sparse["errs"][name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

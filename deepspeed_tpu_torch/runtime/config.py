@@ -6,8 +6,10 @@ runs where pydantic is not installed).  Keys the port implements: the batch
 triangle (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``, one data-parallel rank), ``optimizer``,
 ``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage``,
-``gradient_clipping``, ``gradient_predivide_factor``, ``steps_per_print``
-and ``wall_clock_breakdown``.  Any other key with a non-default value raises
+``gradient_clipping``, ``gradient_predivide_factor``, ``steps_per_print``,
+``wall_clock_breakdown`` and ``sparse_attention`` (kept as the raw dict, as
+the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``).
+Any other key with a non-default value raises
 ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
@@ -21,7 +23,7 @@ import torch
 from .constants import (BFLOAT16, BFLOAT16_OLD, COMPRESSION_TRAINING, FP16, GRADIENT_ACCUMULATION_STEPS,
                         GRADIENT_CLIPPING, GRADIENT_CLIPPING_DEFAULT, GRADIENT_PREDIVIDE_FACTOR,
                         GRADIENT_PREDIVIDE_FACTOR_DEFAULT, MOE, OPTIMIZER, PIPELINE, PROGRESSIVE_LAYER_DROP, SCHEDULER,
-                        SEQUENCE_PARALLEL_SIZE, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL,
+                        SEQUENCE_PARALLEL_SIZE, SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, WALL_CLOCK_BREAKDOWN,
                         WALL_CLOCK_BREAKDOWN_DEFAULT, ZERO_OPTIMIZATION)
 
@@ -40,7 +42,7 @@ UNPORTED_KEYS = {
 }
 _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS, OPTIMIZER,
                      SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, ZERO_OPTIMIZATION, GRADIENT_CLIPPING,
-                     GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN}
+                     GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION}
 #: the JAX package's ZeRO knobs besides ``stage``, with their defaults: a
 #: single-device step has nothing to bucket, overlap or partition
 ZERO_DEFAULTS = {
@@ -157,6 +159,7 @@ class DeepSpeedConfig:
         self.gradient_predivide_factor = pd.get(GRADIENT_PREDIVIDE_FACTOR, GRADIENT_PREDIVIDE_FACTOR_DEFAULT)
         self.steps_per_print = pd.get(STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT)
         self.wall_clock_breakdown = pd.get(WALL_CLOCK_BREAKDOWN, WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.sparse_attention = pd.get(SPARSE_ATTENTION, None)
 
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)
         self.train_micro_batch_size_per_gpu = pd.get(TRAIN_MICRO_BATCH_SIZE_PER_GPU)

@@ -27,6 +27,8 @@ WALL_CLOCK_BREAKDOWN_DEFAULT = False
 
 ZERO_OPTIMIZATION = "zero_optimization"
 
+SPARSE_ATTENTION = "sparse_attention"
+
 TENSOR_PARALLEL = "tensor_parallel"
 SEQUENCE_PARALLEL_SIZE = "sequence_parallel_size"
 PIPELINE = "pipeline"

@@ -1,5 +1,6 @@
-"""The PyTorch port's CUDA kernels on the card: K3 (paged attention) and
-K1/K2a/K2b (flash attention forward and backward).  Every test is marked
+"""The PyTorch port's CUDA kernels on the card: K3 (paged attention),
+K1/K2a/K2b (flash attention forward and backward) and K6a/K6b/K6c
+(block-sparse attention forward and backward).  Every test is marked
 ``cuda`` and skips without a GPU.  This file imports nothing of the JAX
 package, so a GPU host without JAX runs it on its own:
 
@@ -197,3 +198,110 @@ def test_flash_training_step_launches_each_kernel_once_per_layer():
         n = cfg.num_hidden_layers * 2 * 2 if impl == "flash" else 0
         assert launches == (n, n, n), (impl, launches)
     np.testing.assert_allclose(losses["flash"], losses["chunked"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------- K6a, K6b, K6c
+
+
+def _sparse_layout(h, nb, seed):
+    """Random blocks (density ~0.3) with head 0 holding a global row and
+    column (block 0) and head 1 an empty q row (1) and an empty kv column
+    (2); the diagonal stays admitted elsewhere so causal rows see a key."""
+    rng = np.random.default_rng(seed)
+    layout = (rng.random((h, nb, nb)) < 0.3).astype(np.int64)
+    layout[:, np.arange(nb), np.arange(nb)] = 1
+    layout[0, 0, :] = layout[0, :, 0] = 1
+    layout[1, 1, :] = 0
+    layout[1, :, 2] = 0
+    return layout
+
+
+SPARSE_CASES = [
+    pytest.param(16, 64, False, False, id="b16-d64"),
+    pytest.param(16, 64, True, True, id="b16-d64-causal-kpm"),
+    pytest.param(32, 128, True, False, id="b32-d128-causal"),
+    pytest.param(64, 64, False, True, id="b64-d64-kpm"),
+    pytest.param(128, 128, True, False, id="b128-d128-causal"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block,d,causal,use_kpm", SPARSE_CASES)
+def test_sparse_kernels_match_plain(dtype, block, d, causal, use_kpm):
+    """K6a (o, lse), K6b (dq, delta) and K6c (dk, dv) against their plain
+    versions on the same CUDA tensors (``FLASH_TOL``); the empty q row emits
+    zeros with lse 3e38 and the empty kv column gets zero dk and dv."""
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    b, h, s = 2, 3, 512
+    layout = _sparse_layout(h, s // block, seed=block + d)
+    tables = sk.build_tables(layout, "cuda")
+    rng = np.random.default_rng(block)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).cuda().to(dtype)
+                   for _ in range(4))
+    kpm = None
+    if use_kpm:
+        kpm = torch.from_numpy(rng.random((b, s)) > 0.2).cuda()
+    args = (tables, block, causal, None, kpm)
+    tol = FLASH_TOL[dtype]
+    before = (sk.sparse_attn_fwd_cuda.launches, sk.sparse_attn_dq_cuda.launches, sk.sparse_attn_dkv_cuda.launches)
+    o, lse = sk.sparse_attn_fwd_cuda(q, k, v, *args)
+    want_o, want_lse = sk.sparse_attn_fwd_plain(q, k, v, *args)
+    dq, delta = sk.sparse_attn_dq_cuda(q, k, v, o, lse, do, *args)
+    dk, dv = sk.sparse_attn_dkv_cuda(q, k, v, do, lse, delta, *args)
+    want = sk.sparse_attn_bwd_plain(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    live = want_lse != sk.EMPTY_ROW_LSE    # rows that attend to a key; the others must read exactly 3e38
+    assert _within(o, want_o, tol) and _within(lse[live], want_lse[live], tol, vector=False)
+    assert bool((lse[~live] == sk.EMPTY_ROW_LSE).all())
+    assert _within(delta, sk.sparse_attn_delta_plain(o, do), tol, vector=False)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert _within(g, w, tol), name
+    rows = slice(block, 2 * block)
+    assert not o[:, 1, rows].any() and bool((lse[:, 1, rows] == sk.EMPTY_ROW_LSE).all())
+    cols = slice(2 * block, 3 * block)
+    assert not dk[:, 1, cols].any() and not dv[:, 1, cols].any()
+    # the check rejects a K6c that loses the global column's dk
+    dk_faulty = dk.clone()
+    dk_faulty[:, 0, :block] = 0
+    assert not _within(dk_faulty, want[1], tol)
+    after = (sk.sparse_attn_fwd_cuda.launches, sk.sparse_attn_dq_cuda.launches, sk.sparse_attn_dkv_cuda.launches)
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
+
+
+def test_sparse_kernels_reject_what_they_do_not_take():
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    layout = _sparse_layout(2, 8, seed=0)
+    q = torch.randn((1, 2, 64, 64), device="cuda")
+    with pytest.raises(ValueError, match="block"):
+        sk.sparse_attn_fwd_cuda(q, q, q, sk.build_tables(layout, "cuda"), 8)
+    tables = sk.build_tables(_sparse_layout(2, 4, seed=0), "cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        sk.sparse_attn_fwd_cuda(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous(),
+                                tables, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        sk.sparse_attn_fwd_cuda(q.half(), q.half(), q.half(), tables, 16)
+    with pytest.raises(ValueError, match="int32"):
+        sk.sparse_attn_fwd_cuda(q, q, q, sk.build_tables(_sparse_layout(2, 4, seed=0), "cpu"), 16)
+
+
+def test_sparse_self_attention_on_the_card_matches_the_cpu_path():
+    """``SparseSelfAttention`` forward and backward on CUDA tensors launch
+    K6a, K6b and K6c once each and agree with the same op on CPU tensors
+    (the plain versions) in float32."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    cfg = sa.BigBirdSparsityConfig(num_heads=4, block=16, different_layout_per_head=True)
+    ssa = sa.SparseSelfAttention(cfg)
+    rng = np.random.default_rng(3)
+    x = [rng.normal(size=(2, 4, 256, 64)).astype(np.float32) for _ in range(4)]
+    results = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in x[:3])
+        sk.sparse_attn_fwd_cuda.launches = sk.sparse_attn_dq_cuda.launches = sk.sparse_attn_dkv_cuda.launches = 0
+        out = ssa(q, k, v)
+        out.backward(torch.from_numpy(x[3]).to(dev))
+        launches = (sk.sparse_attn_fwd_cuda.launches, sk.sparse_attn_dq_cuda.launches, sk.sparse_attn_dkv_cuda.launches)
+        assert launches == ((1, 1, 1) if dev == "cuda" else (0, 0, 0))
+        results[dev] = [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
+    for a, b_ in zip(results["cuda"], results["cpu"]):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)

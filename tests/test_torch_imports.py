@@ -23,6 +23,11 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.flash_attention",
     "deepspeed_tpu_torch.ops.adam",
     "deepspeed_tpu_torch.ops.optimizer",
+    "deepspeed_tpu_torch.ops.sparse_attention",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparsity_config",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparse_attention_utils",
+    "deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention",
+    "deepspeed_tpu_torch.ops.sparse_attention.kernel",
     "deepspeed_tpu_torch.runtime",
     "deepspeed_tpu_torch.runtime.constants",
     "deepspeed_tpu_torch.runtime.config",
