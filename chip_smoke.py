@@ -48,7 +48,20 @@ source, all started together.  Phases:
      documented ``sparse_attention`` block → ``make_sparsity_config`` →
      ``SparseSelfAttention`` forward and backward on CUDA tensors, three
      iterations — K6a/K6b/K6c launches per call, finite gradients, outputs
-     against the plain versions, peak memory and a profiled iteration.
+     against the plain versions, peak memory and a profiled iteration;
+ 10. K4a/K4b/K5a/K5b block quantization against their plain versions at
+     the qgZ wire's shapes (the 24,576,000-element embedding of Llama-125M
+     in f32 and bf16, a padded norm weight, 1001 blocks), codes, scales and
+     dequantized values identical, with two faulty kernels the check must
+     reject; kernel / plain time and the bound;
+ 11. data-parallel training through the entry points: two spawned ranks on
+     the one card over gloo (NCCL takes one card per rank), each
+     ``initialize`` → ``train_batch`` on Llama-125M at full width and depth
+     with ``zero_quantized_gradients`` (12 of the 24 rows per rank) —
+     K4a/K4b launches (2 per parameter tensor per step), K1/K2 once per
+     layer, step and wire time, tokens/s, peak memory, bit-identical ranks,
+     the CommsLogger's bytes; then LoCo, a float32-wire control and the
+     int4 collectives (K5a/K5b) against their plain versions.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -56,10 +69,13 @@ there is no GPU or any phase fails.
 """
 
 import dataclasses
+import gc
+import hashlib
 import json
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -76,6 +92,12 @@ from deepspeed_tpu_torch.ops.op_builder import KERNEL_SOURCES, build_kernel
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delta_plain, flash_dkv_cuda,
                                                      flash_dq_cuda, flash_fwd_cuda, flash_fwd_plain)
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
+from deepspeed_tpu_torch.ops.quant_kernels import (dequantize_int4_cuda, dequantize_int8_cuda, quantize_int4_cuda,
+                                                   quantize_int8_cuda)
+from deepspeed_tpu_torch.ops.quantizer import dequantize_int4 as dequantize_int4_plain
+from deepspeed_tpu_torch.ops.quantizer import dequantize_int8 as dequantize_int8_plain
+from deepspeed_tpu_torch.ops.quantizer import quantize_int4 as quantize_int4_plain
+from deepspeed_tpu_torch.ops.quantizer import quantize_int8 as quantize_int8_plain
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, BSLongformerSparsityConfig,
                                                       DenseSparsityConfig, FixedSparsityConfig,
                                                       LocalSlidingWindowSparsityConfig, SparseSelfAttention,
@@ -100,7 +122,8 @@ MAX_PAGES = 128
 # and exp differ.
 TOLERANCE = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 LAUNCH_COUNTERS = (paged_attention_cuda, flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda, sparse_attn_fwd_cuda,
-                   sparse_attn_dq_cuda, sparse_attn_dkv_cuda)
+                   sparse_attn_dq_cuda, sparse_attn_dkv_cuda, quantize_int8_cuda, dequantize_int8_cuda,
+                   quantize_int4_cuda, dequantize_int4_cuda)
 
 
 def reset_launch_counts() -> None:
@@ -1216,6 +1239,357 @@ def profile_sparse_iteration(attn, q, k, v, do) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 10
+
+QUANT_N = 32000 * 768     # the embedding (and lm_head) of Llama-125M: its largest gradient
+QUANT_BLOCK = 256
+QUANT_NAMES = ("quantize_int8", "dequantize_int8", "quantize_int4", "dequantize_int4")
+QUANT_REPLACES = {"quantize_int8": "deepspeed_tpu/ops/quant_kernels.py:31",
+                  "dequantize_int8": "deepspeed_tpu/ops/quant_kernels.py:39",
+                  "quantize_int4": "deepspeed_tpu/ops/quant_kernels.py:44",
+                  "dequantize_int4": "deepspeed_tpu/ops/quant_kernels.py:56"}
+
+
+def quant_input(n: int, dtype: torch.dtype, seed: int) -> torch.Tensor:
+    """Gradient-like values in blocks of 256 at scales 1e-6..1e2, block 1 all
+    zero, block 2 x/scale ties for int8 (absmax 127: scale exactly 1) and
+    block 3 for int4 (absmax 7)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nb = n // QUANT_BLOCK
+    scale = 10.0**(torch.rand((nb, 1), generator=gen, device="cuda") * 8 - 6)
+    x = torch.randn((nb, QUANT_BLOCK), generator=gen, device="cuda") * scale
+    x[1] = 0
+    j = torch.arange(QUANT_BLOCK, device="cuda")
+    sign = 1 - 2 * (j % 2)
+    for row, qmax in ((2, 127), (3, 7)):
+        x[row] = (j % qmax + 0.5) * sign
+        x[row, 0] = qmax
+    return x.reshape(-1).to(dtype)
+
+
+def quant_check(label: str, x: torch.Tensor) -> dict:
+    """The four kernels on ``x`` against their plain versions on the same
+    CUDA tensors: codes, scales and dequantized values must be identical.
+    The dequantize kernels run at the shape the W=2 wire gives them,
+    [2·nb/2, 256] into [2, n/2].  Returns per kernel the largest
+    |kernel − plain| (0 when they agree)."""
+    n = x.numel()
+    out = {}
+    for bits, quant, dequant in ((8, quantize_int8_cuda, dequantize_int8_cuda),
+                                 (4, quantize_int4_cuda, dequantize_int4_cuda)):
+        pq, pd = (quantize_int8_plain, dequantize_int8_plain) if bits == 8 else (quantize_int4_plain,
+                                                                                 dequantize_int4_plain)
+        q, s = quant(x, QUANT_BLOCK)
+        want_q, want_s = pq(x, QUANT_BLOCK)
+        shape = (2, n // 2) if n % (2 * QUANT_BLOCK) == 0 else (n, )
+        deq = dequant(q, s, shape)
+        want_deq = pd(q, s, shape)
+        torch.cuda.synchronize()
+        same = torch.equal(q, want_q) and torch.equal(s, want_s) and torch.equal(deq, want_deq)
+        out[f"quantize_int{bits}"] = max(float((q.int() - want_q.int()).abs().max()), float((s - want_s).abs().max()))
+        out[f"dequantize_int{bits}"] = float((deq - want_deq).abs().max())
+        if not same or not bool(torch.isfinite(deq).all()):
+            raise AssertionError(f"{label}: int{bits} kernels differ from the plain versions: {out}")
+    log(f"  {label}: n {n}, codes, scales and dequantized values identical to the plain versions")
+    return out
+
+
+def quant_mutants(x: torch.Tensor) -> dict:
+    """Faulty kernels the check must reject, made from the kernels' outputs:
+    K4a that rounds x/scale half away from zero, and K5a that swaps the
+    halves of its bytes (element i in the high nibble, i + 128 in the low)."""
+    q8, s8 = quantize_int8_cuda(x, QUANT_BLOCK)
+    r = x.float().reshape(-1, QUANT_BLOCK) / s8[:, None]
+    away = torch.clamp(torch.sign(r) * torch.floor(r.abs() + 0.5), -127, 127).to(torch.int8)
+    q4, _ = quantize_int4_cuda(x, QUANT_BLOCK)
+    swapped = (q4 >> 4) | (q4 << 4)
+    want8, _ = quantize_int8_plain(x, QUANT_BLOCK)
+    want4, _ = quantize_int4_plain(x, QUANT_BLOCK)
+    torch.cuda.synchronize()
+    caught = {"round_half_away": not torch.equal(away, want8), "int4_halves_swapped": not torch.equal(swapped, want4),
+              "codes_off_by_round_half_away": int((away != want8).sum()),
+              "bytes_off_by_swap": int((swapped != want4).sum())}
+    log(f"  faulty kernels: {json.dumps(caught)}")
+    if not (caught["round_half_away"] and caught["int4_halves_swapped"]):
+        raise AssertionError(f"the check passes a faulty quant kernel: {caught}")
+    return caught
+
+
+def quant_bounds(n: int, in_bytes: int) -> dict:
+    """Least time of each kernel at n elements: its input read once and its
+    output written once at the HBM rate (a few operations per element: all
+    four are bound by bytes)."""
+    scales = 4 * (n // QUANT_BLOCK)
+    nbytes = {"quantize_int8": in_bytes * n + n + scales, "dequantize_int8": n + scales + 4 * n,
+              "quantize_int4": in_bytes * n + n // 2 + scales, "dequantize_int4": n // 2 + scales + 4 * n}
+    return {k: (v / HBM_BYTES_PER_S * 1e3, "bytes") for k, v in nbytes.items()}
+
+
+def phase_quant_kernels() -> dict:
+    """K4a/K4b/K5a/K5b against their plain versions at the wire's shapes:
+    the embedding's 24,576,000 elements in f32 and bf16, a 768-element norm
+    weight padded to 1024, an nb (1001) that is not a multiple of the 8
+    blocks of a CTA; two faulty kernels must be rejected; kernel / plain time
+    (cold L2) at the embedding's shape beside the bound."""
+    x = quant_input(QUANT_N, torch.float32, seed=10)
+    errs = quant_check("embedding f32", x)
+    for label, t in (("embedding bf16", quant_input(QUANT_N, torch.bfloat16, seed=11)),
+                     ("norm 768 padded to 1024", torch.cat([quant_input(1024, torch.float32, seed=12)[:768],
+                                                            torch.zeros(256, device="cuda")])),
+                     ("nb 1001", quant_input(1001 * QUANT_BLOCK, torch.float32, seed=13))):
+        for k, v in quant_check(label, t).items():
+            errs[k] = max(errs[k], v)
+    mutants = quant_mutants(x)
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    q8, s8 = quantize_int8_cuda(x, QUANT_BLOCK)
+    q4, s4 = quantize_int4_cuda(x, QUANT_BLOCK)
+    shape = (2, QUANT_N // 2)
+    timed = {
+        "quantize_int8": (lambda: quantize_int8_cuda(x, QUANT_BLOCK), lambda: quantize_int8_plain(x, QUANT_BLOCK)),
+        "dequantize_int8": (lambda: dequantize_int8_cuda(q8, s8, shape), lambda: dequantize_int8_plain(q8, s8, shape)),
+        "quantize_int4": (lambda: quantize_int4_cuda(x, QUANT_BLOCK), lambda: quantize_int4_plain(x, QUANT_BLOCK)),
+        "dequantize_int4": (lambda: dequantize_int4_cuda(q4, s4, shape), lambda: dequantize_int4_plain(q4, s4, shape)),
+    }
+    rows = {}
+    for name, (t_bound, by) in quant_bounds(QUANT_N, 4).items():
+        kernel, plain = timed[name]
+        rows[name] = {"case": f"f32 n={QUANT_N}", "max_abs_err": errs[name], "ms": time_ms(kernel, 20, flush),
+                      "plain_ms": time_ms(plain, 5, flush), "bound_ms": t_bound, "bound_by": by, "library_ms": None}
+        log(f"  {name}: " + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                                      for k, v in rows[name].items()))
+    del flush
+    torch.cuda.empty_cache()
+    return {"rows": rows, "mutants": mutants}
+
+
+# ---------------------------------------------------------------- phase 11
+
+DP_WORLD = 2
+DP_TIMEOUT_S = 600
+DP_WARMUP, DP_TIMED, DP_LOCO_STEPS, DP_CONTROL_STEPS = 3, 5, 3, 5
+DP_DS_CONFIG = {**BENCH_DS_CONFIG, "zero_optimization": {"stage": 0, "zero_quantized_gradients": True}}
+QUANT_COUNTERS = (quantize_int8_cuda, dequantize_int8_cuda, quantize_int4_cuda, dequantize_int4_cuda)
+
+
+def quant_replay_ms(numels, rank: int) -> float:
+    """Device ms of one qgZ step's codec launches on this card's own: per
+    tensor K4a over the padded gradient and over its shard, K4b over the
+    received copies and over the gathered tensor, at the shapes of the
+    step, timed with CUDA events while the other rank waits at a barrier
+    (two ranks' CUDA contexts time-slice the card, so events inside the
+    shared step would count the other rank's work too)."""
+    from deepspeed_tpu_torch.comm import comm
+    unit = DP_WORLD * 256
+    xs = [torch.randn(-(-n // unit) * unit, device="cuda") for n in numels]
+
+    def step():
+        for x in xs:
+            q, s = quantize_int8_cuda(x)
+            dequantize_int8_cuda(q, s, (DP_WORLD, x.numel() // DP_WORLD))
+            q, s = quantize_int8_cuda(x[:x.numel() // DP_WORLD])
+            dequantize_int8_cuda(torch.cat([q] * DP_WORLD), torch.cat([s] * DP_WORLD), (x.numel(), ))
+
+    ms = None
+    for turn in range(DP_WORLD):
+        comm.barrier()
+        if turn == rank:
+            step()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                step()
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / 3
+    comm.barrier()
+    return ms
+
+
+def param_digest(engine) -> str:
+    """sha256 over every parameter's and master tensor's bytes."""
+    h = hashlib.sha256()
+    for t in [p.detach() for p in engine.module.parameters()] + list(engine.master):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_batch():
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, PRESETS["125m"].vocab_size, (BENCH_B, BENCH_S),
+                                                             dtype=np.int32)).cuda()
+    return {"input_ids": ids, "labels": ids}
+
+
+def dp_train(ds_config: dict, steps: int, timed_from=None) -> dict:
+    """A fresh engine on this rank (seeded weights, broadcast from rank 0) and
+    ``steps`` train_batch calls on the repeated global batch; the steps from
+    ``timed_from`` on are timed as one window ended by a fetch of the loss."""
+    from deepspeed_tpu_torch.comm import comm
+    engine = build_trainer(llama_125m(), ds_config)
+    batch = dp_batch()
+    losses = []
+    for i in range(steps):
+        if i == timed_from:
+            float(losses[-1])
+            wire0 = {k: list(v) for k, v in comm.comms_logger().comms_dict["all_to_all_quant_reduce"].items()}
+            t0 = time.perf_counter()
+        losses.append(engine.train_batch(batch=batch))
+    float(losses[-1])                    # the value fetch ends the window
+    res = {"engine": engine, "losses": [float(l) for l in losses]}
+    if timed_from is not None:
+        n = steps - timed_from
+        window_s = time.perf_counter() - t0
+        wire1 = comm.comms_logger().comms_dict["all_to_all_quant_reduce"]
+        wire_s = sum(v[1] for v in wire1.values()) - sum(v[1] for v in wire0.values())
+        res.update(step_ms=1e3 * window_s / n, wire_ms_per_step=1e3 * wire_s / n)
+    return res
+
+
+def dp_rank(rank: int) -> dict:
+    """Phase 11 on one rank: qgZ steps (3 warm-up, 5 timed), LoCo steps, the
+    float32-wire control, and the int4 collectives over the embedding's
+    gradient against their plain versions on CPU copies."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.runtime.comm import all_to_all_quant_reduce, quantized_all_gather
+    comm.configure(enabled=True)
+    acc = get_accelerator()
+    acc.reset_peak_memory_stats()
+    reset_launch_counts()
+    run = dp_train(DP_DS_CONFIG, DP_WARMUP + DP_TIMED, timed_from=DP_WARMUP)
+    launches = {f.__name__: f.launches for f in LAUNCH_COUNTERS}
+    engine = run.pop("engine")
+    res = {"qgz": run, "launches": launches, "numels": [p.numel() for p in engine.params], "qgz_active": engine.qgz,
+           "wire_bytes": engine._compressed_wire_bytes,
+           "comms": {str(k): v[0] for k, v in comm.comms_logger().comms_dict["all_to_all_quant_reduce"].items()},
+           "digest": param_digest(engine), "peak_mem_gb": acc.max_memory_allocated() / 1e9,
+           "backend": comm.get_backend()}
+    res["qgz"]["kernel_ms_per_step"] = quant_replay_ms(res["numels"], rank)
+    # the embedding's gradient of this rank's rows, for the int4 calls
+    rows = {k: v[rank * BENCH_B // DP_WORLD:(rank + 1) * BENCH_B // DP_WORLD] for k, v in dp_batch().items()}
+    emb = engine.module.embed_tokens.weight
+    grad = torch.autograd.grad(engine.forward(rows), [emb])[0].float()
+    del engine
+    torch.cuda.empty_cache()
+
+    for counter in QUANT_COUNTERS:
+        counter.launches = 0
+    shard = all_to_all_quant_reduce(grad, bits=4)
+    full = quantized_all_gather(shard, bits=4)
+    torch.cuda.synchronize()
+    res["int4_launches"] = {f.__name__: f.launches for f in (quantize_int4_cuda, dequantize_int4_cuda)}
+    shard_cpu = all_to_all_quant_reduce(grad.cpu(), bits=4)
+    full_cpu = quantized_all_gather(shard_cpu, bits=4)
+    res["int4_identical"] = torch.equal(shard.cpu(), shard_cpu) and torch.equal(full.cpu(), full_cpu)
+    del grad, shard, full
+
+    loco_cfg = {**DP_DS_CONFIG, "zero_optimization": {**DP_DS_CONFIG["zero_optimization"],
+                                                      "zeropp_loco_param": {"err_beta": 0.8}}}
+    loco = dp_train(loco_cfg, DP_LOCO_STEPS)
+    engine = loco.pop("engine")
+    res["loco"] = {**loco, "error_abs_max": max(float(e.abs().max()) for e in engine.loco_error),
+                   "digest": param_digest(engine)}
+    del engine
+    torch.cuda.empty_cache()
+    control = dp_train({**DP_DS_CONFIG, "zero_optimization": {"stage": 0}}, DP_CONTROL_STEPS)
+    engine = control.pop("engine")
+    res["control"] = {**control, "digest": param_digest(engine), "qgz_active": engine.qgz}
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def dp_rank_main(rank: int, init_method: str, queue) -> None:
+    """A spawned rank: both ranks share the one card (cuda:0) over gloo."""
+    from deepspeed_tpu_torch.comm import comm
+    try:
+        torch.cuda.set_device(0)
+        comm.init_distributed(dist_backend="gloo", init_method=init_method, rank=rank, world_size=DP_WORLD,
+                              timeout=DP_TIMEOUT_S, verbose=False)
+        queue.put((rank, dp_rank(rank), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if comm.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_data_parallel(smi: str) -> dict:
+    """The data-parallel path through its entry points: two ranks on the one
+    card (spawned; gloo: NCCL refuses two ranks on one card), each
+    ``initialize`` → ``train_batch`` on Llama-125M at full width and depth
+    with ``zero_quantized_gradients`` (qgZ), 12 of the 24 rows per rank."""
+    import multiprocessing
+    import socket
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=dp_rank_main, args=(r, f"tcp://127.0.0.1:{port}", queue)) for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        for _ in range(DP_WORLD):
+            rank, res, err = queue.get(timeout=DP_TIMEOUT_S)
+            if err is not None:
+                raise AssertionError(f"data-parallel rank {rank} failed:\n{err}")
+            ranks[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"data-parallel ranks exited with {[p.exitcode for p in procs]}")
+    r0, r1 = ranks[0], ranks[1]
+    steps = DP_WARMUP + DP_TIMED
+    layers = PRESETS["125m"].num_hidden_layers
+    n_tensors = len(r0["numels"])
+    unit = DP_WORLD * 256     # JAX engine.py:1016-1026: per direction the padded int8 payload and its scales
+    want_bytes = sum(2 * (n + 4 * (n // 256)) for n in (-(-m // unit) * unit for m in r0["numels"]))
+    checks = {
+        "qgz_active": r0["qgz_active"] and r1["qgz_active"] and not r0["control"]["qgz_active"],
+        "backend_gloo": r0["backend"] == "gloo",
+        "k4a_k4b_2_per_tensor_per_step": all(
+            r["launches"]["quantize_int8_cuda"] == r["launches"]["dequantize_int8_cuda"] == 2 * n_tensors * steps
+            for r in (r0, r1)),
+        "k1_k2_once_per_layer": all(r["launches"][k] == layers * steps for r in (r0, r1)
+                                    for k in ("flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda")),
+        "k5_launched": all(r["int4_launches"] == {"quantize_int4_cuda": 2, "dequantize_int4_cuda": 2}
+                           for r in (r0, r1)),
+        "int4_identical_to_plain": r0["int4_identical"] and r1["int4_identical"],
+        "losses_finite_falling": all(np.isfinite(r0["qgz"]["losses"])) and
+        r0["qgz"]["losses"][-1] < r0["qgz"]["losses"][0],
+        "ranks_bit_identical": r0["digest"] == r1["digest"] and r0["loco"]["digest"] == r1["loco"]["digest"]
+        and r0["control"]["digest"] == r1["control"]["digest"],
+        "losses_equal_on_ranks": r0["qgz"]["losses"] == r1["qgz"]["losses"],
+        "comms_bytes_formula": r0["wire_bytes"] == want_bytes and list(r0["comms"]) == [str(want_bytes)],
+        "loco_error_nonzero": r0["loco"]["error_abs_max"] > 0,
+        "qgz_within_5e-2_of_fp32_wire": bool(np.allclose(r0["qgz"]["losses"][:DP_CONTROL_STEPS],
+                                                         r0["control"]["losses"], rtol=5e-2, atol=5e-2)),
+    }
+    q = r0["qgz"]
+    res = {"card": smi, "backend": r0["backend"], "ranks_on_one_card": DP_WORLD,
+           "payload_path": "CUDA tensors handed to gloo (gloo copies them through host memory itself)",
+           "n_tensors": n_tensors, "step_ms": [r["qgz"]["step_ms"] for r in (r0, r1)],
+           "tok_s_both_ranks": BENCH_B * BENCH_S / (max(r["qgz"]["step_ms"] for r in (r0, r1)) / 1e3),
+           "wire_ms_per_step": [r["qgz"]["wire_ms_per_step"] for r in (r0, r1)],
+           "quant_kernel_ms_per_step_alone": [r["qgz"]["kernel_ms_per_step"] for r in (r0, r1)],
+           "peak_mem_gb": [r["peak_mem_gb"] for r in (r0, r1)], "wire_bytes_per_step": r0["wire_bytes"],
+           "losses_qgz": q["losses"], "losses_fp32_wire": r0["control"]["losses"], "losses_loco": r0["loco"]["losses"],
+           "loco_error_abs_max": r0["loco"]["error_abs_max"], "launches": r0["launches"],
+           "int4_launches": r0["int4_launches"], "checks": checks}
+    log("  data parallel: " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"data-parallel phase failed {bad}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1248,6 +1622,10 @@ def main() -> int:
     sparse = phase_sparse_kernels()
     log("== phase 9: the sparse path: DeepSpeedConfig -> SparseSelfAttention forward and backward")
     sparse_path = phase_sparse_path(env["card"])
+    log("== phase 10: K4a/K4b/K5a/K5b quantization vs their plain versions")
+    quant = phase_quant_kernels()
+    log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire")
+    dp = phase_data_parallel(env["card"])
     dec = k3["decode"]
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40", "launches": serving["k3_launches"],
@@ -1273,6 +1651,14 @@ def main() -> int:
                         "replaces": where, "launches": sparse_path["launches"][name],
                         "max_abs_err": sparse["errs"][name], "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # no single PyTorch call quantizes per block with an absmax scale: library_ms is null
+    for name in QUANT_NAMES:
+        row = quant["rows"][name]     # the embedding's shape, the wire's largest tensor
+        launches = dp["launches"] if "int8" in name else dp["int4_launches"]
+        kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/quant.cu",
+                        "replaces": QUANT_REPLACES[name], "launches": launches[f"{name}_cuda"],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

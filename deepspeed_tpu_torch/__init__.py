@@ -11,11 +11,13 @@ training runtime when called, and the serving path is imported from its
 module, e.g. ``from deepspeed_tpu_torch.inference.v2 import build_engine``.
 """
 
+import os
+
 __version__ = "0.1.0"
 
 
 def initialize(model=None, config=None, optimizer=None, lr_scheduler=None, params=None, device=None,
-               training_data=None):
+               training_data=None, dist_init_required=None):
     """Create a training engine (port of ``deepspeed_tpu.initialize``; ref:
     ``deepspeed/__init__.py:69``).
 
@@ -25,6 +27,12 @@ def initialize(model=None, config=None, optimizer=None, lr_scheduler=None, param
     ``params -> torch.optim.Optimizer``.  The engine runs on ``device``,
     CUDA unless the caller passes ``device="cpu"`` (no GPU raises).  Returns
     ``(engine, optimizer, None, lr_scheduler)``.
+
+    Data parallelism runs over the default ``torch.distributed`` process
+    group.  Without one, ``comm.init_distributed`` creates it (from the
+    launcher's ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``) when
+    ``dist_init_required`` is True, or when it is None and the environment
+    names a world larger than 1; otherwise the engine trains one rank.
     """
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
@@ -33,8 +41,11 @@ def initialize(model=None, config=None, optimizer=None, lr_scheduler=None, param
     if training_data is not None:
         raise NotImplementedError("training_data / the DeepSpeed dataloader is not ported (ROADMAP Queue 1, dataloader): "
                                   "pass batches to engine.train_batch(batch=...) or data_iter=")
+    from .comm import comm
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
+    if dist_init_required or (dist_init_required is None and int(os.environ.get("WORLD_SIZE", 1)) > 1):
+        comm.init_distributed()
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer, lr_scheduler=lr_scheduler,
                              params=params, device=device)

@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
 
 #: kernel name -> source under deepspeed_tpu_torch/
 KERNEL_SOURCES = {"paged_attention": "csrc/paged_attention.cu", "flash_attention": "csrc/flash_attention.cu",
-                  "sparse_attention": "csrc/sparse_attention.cu"}
+                  "sparse_attention": "csrc/sparse_attention.cu", "quant": "csrc/quant.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -4,13 +4,17 @@
 Dataclasses take the place of the JAX package's pydantic models (the port
 runs where pydantic is not installed).  Keys the port implements: the batch
 triangle (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
-``gradient_accumulation_steps``, one data-parallel rank), ``optimizer``,
-``scheduler``, ``fp16``, ``bf16``, ``zero_optimization.stage``,
+``gradient_accumulation_steps``, over the data-parallel world size of the
+process group), ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
+``zero_optimization`` (``stage``; ``zero_quantized_gradients`` and
+``zeropp_loco_param``, the ZeRO++ quantized gradient wire),
 ``gradient_clipping``, ``gradient_predivide_factor``, ``steps_per_print``,
 ``wall_clock_breakdown`` and ``sparse_attention`` (kept as the raw dict, as
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``).
 Any other key with a non-default value raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+``NotImplementedError`` naming the ROADMAP item that brings it, and so does
+a ZeRO stage above 0 over more than one data-parallel rank (partitioning is
+not ported).
 """
 
 import dataclasses
@@ -20,14 +24,15 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from ..comm.mesh import ROADMAP_MULTI_DEVICE, dp_world_size
 from .constants import (BFLOAT16, BFLOAT16_OLD, COMPRESSION_TRAINING, FP16, GRADIENT_ACCUMULATION_STEPS,
                         GRADIENT_CLIPPING, GRADIENT_CLIPPING_DEFAULT, GRADIENT_PREDIVIDE_FACTOR,
                         GRADIENT_PREDIVIDE_FACTOR_DEFAULT, MOE, OPTIMIZER, PIPELINE, PROGRESSIVE_LAYER_DROP, SCHEDULER,
                         SEQUENCE_PARALLEL_SIZE, SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, WALL_CLOCK_BREAKDOWN,
-                        WALL_CLOCK_BREAKDOWN_DEFAULT, ZERO_OPTIMIZATION)
+                        WALL_CLOCK_BREAKDOWN_DEFAULT, ZERO_OPTIMIZATION, ZERO_QUANTIZED_GRADIENTS,
+                        ZEROPP_LOCO_ERR_BETA_DEFAULT, ZEROPP_LOCO_PARAM)
 
-ROADMAP_MULTI_DEVICE = "ROADMAP Queue 1, multi-device training (data/pipeline/tensor/sequence/expert parallel)"
 ROADMAP_OFFLOAD = "ROADMAP Queue 1, ZeRO-3 and offload"
 ROADMAP_TRAINING_FEATURES = "ROADMAP Queue 1, training features (compression, progressive layer drop, 1-bit)"
 
@@ -43,18 +48,18 @@ UNPORTED_KEYS = {
 _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS, OPTIMIZER,
                      SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, ZERO_OPTIMIZATION, GRADIENT_CLIPPING,
                      GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION}
-#: the JAX package's ZeRO knobs besides ``stage``, with their defaults: a
-#: single-device step has nothing to bucket, overlap or partition
+#: the JAX package's ZeRO knobs besides ``stage`` and the quantized gradient
+#: wire, with their defaults: the port's step has nothing to bucket, overlap
+#: or partition
 ZERO_DEFAULTS = {
     "contiguous_gradients": True, "reduce_scatter": True, "reduce_bucket_size": 500_000_000,
     "use_multi_rank_bucket_allreduce": True, "allgather_partitions": True, "allgather_bucket_size": 500_000_000,
     "overlap_comm": None, "load_from_fp32_weights": True, "elastic_checkpoint": False, "offload_param": None,
     "offload_optimizer": None, "sub_group_size": 1_000_000_000, "round_robin_gradients": False,
-    "ignore_unused_parameters": True, "zero_quantized_weights": False, "zero_quantized_gradients": False,
-    "zero_hpz_partition_size": 1, "mics_shard_size": -1,
+    "ignore_unused_parameters": True, "zero_quantized_weights": False, "zero_hpz_partition_size": 1,
+    "mics_shard_size": -1,
 }
 _DISABLED = ({}, None, False, 0, 1)   # values of an unported key that leave it off
-DP_WORLD_SIZE = 1                      # one device: data parallelism is the multi-device slice
 
 
 class DeepSpeedConfigError(Exception):
@@ -107,6 +112,10 @@ class SchedulerConfig:
 @dataclasses.dataclass
 class ZeroConfig:
     stage: int = 0
+    #: ZeRO++ qgZ: gradients reduced over int8 (engine: stage 0, gas 1, no fp16, world > 1)
+    zero_quantized_gradients: bool = False
+    #: ZeRO++ LoCo on top of qgZ: ``{"err_beta": 0.8}``, or None
+    zeropp_loco_param: Optional[Dict[str, Any]] = None
 
 
 def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
@@ -114,6 +123,13 @@ def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
     stage = values.pop("stage", 0)
     if not isinstance(stage, int) or not 0 <= stage <= 3:
         raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, got {stage!r}")
+    qgz = values.pop(ZERO_QUANTIZED_GRADIENTS, False)
+    loco = values.pop(ZEROPP_LOCO_PARAM, None)
+    if loco is not None:
+        if not isinstance(loco, dict) or set(loco) - {"err_beta"}:
+            raise DeepSpeedConfigError(f"zero_optimization.{ZEROPP_LOCO_PARAM} takes {{'err_beta': float}}, "
+                                       f"got {loco!r}")
+        loco = {"err_beta": float(loco.get("err_beta", ZEROPP_LOCO_ERR_BETA_DEFAULT))}
     for key, value in values.items():
         if key.startswith("offload") or key.startswith("cpu_offload"):
             if value not in _DISABLED and not (isinstance(value, dict) and value.get("device", "none") == "none"):
@@ -121,14 +137,15 @@ def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
         elif key not in ZERO_DEFAULTS:
             raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_MULTI_DEVICE})")
         elif value != ZERO_DEFAULTS[key]:
-            raise NotImplementedError(f"zero_optimization.{key}={value!r} is not ported: one device has nothing "
-                                      f"to bucket, overlap or partition ({ROADMAP_MULTI_DEVICE})")
-    return ZeroConfig(stage=stage)
+            raise NotImplementedError(f"zero_optimization.{key}={value!r} is not ported: the port's step has "
+                                      f"nothing to bucket, overlap or partition ({ROADMAP_MULTI_DEVICE})")
+    return ZeroConfig(stage=stage, zero_quantized_gradients=bool(qgz), zeropp_loco_param=loco)
 
 
 class DeepSpeedConfig:
     """Parse and validate the training config; resolve the batch triangle
-    (``train_batch_size = micro × gas × dp`` with dp = 1)."""
+    (``train_batch_size = micro × gas × dp``, dp the process group's world
+    size, 1 without one)."""
 
     def __init__(self, config: Union[str, Dict]):
         if isinstance(config, str):
@@ -151,6 +168,10 @@ class DeepSpeedConfig:
                                           "(see ROADMAP Queue 1)")
 
         self.zero_config = _zero_config(pd.get(ZERO_OPTIMIZATION))
+        self.dp_world_size = dp_world_size()
+        if self.dp_world_size > 1 and self.zero_config.stage > 0:
+            raise NotImplementedError(f"ZeRO stage {self.zero_config.stage} over {self.dp_world_size} data-parallel "
+                                      f"ranks: partitioning is not ported, stage 0 runs ({ROADMAP_MULTI_DEVICE})")
         self.fp16_config = _block(FP16Config, FP16, pd.get(FP16))
         self.bf16_config = _block(BF16Config, BFLOAT16, pd.get(BFLOAT16, pd.get(BFLOAT16_OLD)))
         self.optimizer_config = _block(OptimizerConfig, OPTIMIZER, pd[OPTIMIZER]) if OPTIMIZER in pd else None
@@ -170,7 +191,7 @@ class DeepSpeedConfig:
 
     def _configure_train_batch_size(self):
         """ref: runtime/config.py _configure_train_batch_size (JAX ``config.py:478-515``)."""
-        dp = DP_WORLD_SIZE
+        dp = self.dp_world_size
         tb, mb, gas = self.train_batch_size, self.train_micro_batch_size_per_gpu, self.gradient_accumulation_steps
         if all(x is None for x in (tb, mb, gas)):
             raise DeepSpeedConfigError("At least one of train_batch_size, train_micro_batch_size_per_gpu, "

@@ -26,6 +26,9 @@ WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
 WALL_CLOCK_BREAKDOWN_DEFAULT = False
 
 ZERO_OPTIMIZATION = "zero_optimization"
+ZERO_QUANTIZED_GRADIENTS = "zero_quantized_gradients"
+ZEROPP_LOCO_PARAM = "zeropp_loco_param"
+ZEROPP_LOCO_ERR_BETA_DEFAULT = 0.8
 
 SPARSE_ATTENTION = "sparse_attention"
 

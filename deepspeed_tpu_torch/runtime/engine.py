@@ -1,8 +1,8 @@
 """The training engine (port of ``deepspeed_tpu/runtime/engine.py``
 ``DeepSpeedEngine``; ref: ``deepspeed/runtime/engine.py``).
 
-One device.  The state is the model's parameters in the compute dtype, an
-float32 master copy when that dtype is not float32 (JAX ``TrainState``,
+The state is the model's parameters in the compute dtype, a float32
+master copy when that dtype is not float32 (JAX ``TrainState``,
 ``engine.py:70-80``), the optimizer's moments and the loss-scaler state.
 ``train_batch`` runs one optimizer step over ``gradient_accumulation_steps``
 contiguous micro-batches, with the arithmetic of the JAX step
@@ -18,11 +18,35 @@ contiguous micro-batches, with the arithmetic of the JAX step
      moments keep their values (``torch.where`` on the device, no host sync);
   4. the master recast into the compute-dtype parameters.
 
-ZeRO stages 0-2 are the same single-device update here (partitioning comes
-with the multi-device slice); stage 3 raises.  The returned loss is a device
-tensor: reading it is the caller's sync.
+Data parallelism.  The ranks of the default process group are the JAX
+mesh's ``data`` axis.  The state is replicated (ZeRO stage 0; rank 0's
+parameters are broadcast at construction); ``train_batch`` takes the global
+batch, and rank r differentiates its contiguous share of each micro-batch.
+The gradients then become the mean over the ranks on one of two wires:
+
+  * the float32 wire: an all-reduce and mean per gradient tensor, what the
+    JAX engine's GSPMD step computes;
+  * the ZeRO++ quantized wire (``zero_quantized_gradients``), the JAX manual
+    data-parallel step (``_build_compressed_train_step`` :944-1037), taken
+    when ``_manual_ddp_eligible`` holds (stage 0, gas 1, no fp16, world > 1;
+    otherwise a warning and the float32 wire): per gradient tensor,
+    ``padded_quant_allreduce`` (qgZ: int8 all-to-all reduce-scatter and
+    int8 all-gather, kernels K4a/K4b), then ``_apply_grads`` with the norm
+    ``sqrt(pmean(norm²))``.  With ``zeropp_loco_param`` (LoCo, JAX
+    ``_maybe_loco_wrap`` :298-358) the local gradients are not clipped; the
+    update quantizes each of them plus ``err_beta`` times its error state
+    (one float32 tensor per parameter beside the moments), takes the pmean
+    of the new error, and clips the reduced gradients.
+
+The quantized wire carries each tensor in the JAX package's layout: flax
+kernels are the transposes of ``nn.Linear`` weights, so the 256-element
+blocks cover the same elements and every code and scale equals the JAX
+engine's.  ZeRO stages 1-2 are the single-device update on one rank and
+raise over several (partitioning is not ported); stage 3 raises.  The
+returned loss is a device tensor: reading it is the caller's sync.
 """
 
+import contextlib
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -31,10 +55,12 @@ import torch
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
+from ..comm import comm
 from ..models.llama import causal_lm_loss
 from ..ops.adam import FusedAdam
 from ..ops.optimizer import global_norm
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
+from .comm.compressed import padded_quant_allreduce
 from .config import ROADMAP_OFFLOAD, ROADMAP_TRAINING_FEATURES, DeepSpeedConfig
 from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, ONEBIT_OPTIMIZERS
 from .fp16.loss_scaler import StaticLossScaler, create_loss_scaler, found_inf_or_nan
@@ -62,11 +88,19 @@ class DeepSpeedEngine:
                                       "single-device update here")
         self.compute_dtype = config.precision_dtype
         self.gas = config.gradient_accumulation_steps
+        self.dp_rank, self.dp_world = comm.get_rank(), comm.get_world_size()
+        if self.dp_world != config.dp_world_size:
+            raise ValueError(f"the config was resolved for {config.dp_world_size} data-parallel ranks, the process "
+                             f"group has {self.dp_world}: create the process group first")
 
         # ---- state: compute-dtype params + f32 master (JAX TrainState)
         self.module = model.to(self.device)
         if params is not None:
             self.module.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()}, strict=True)
+        if self.dp_world > 1:
+            with torch.no_grad():   # replicated state: every rank starts from rank 0's (ref: _broadcast_model)
+                for t in self.module.state_dict().values():
+                    comm.broadcast(t, 0)
         self.use_master = self.compute_dtype != torch.float32
         with torch.no_grad():
             float_params = [p for p in self.module.parameters() if p.is_floating_point()]
@@ -84,6 +118,7 @@ class DeepSpeedEngine:
             self.loss_scaler.init_scale == 1.0 and self.compute_dtype != torch.float16
         self.lr_base, self.lr_schedule = self._build_lr_schedule(lr_scheduler)
         self.optimizer = self._build_optimizer(optimizer)
+        self._configure_gradient_wire()
         if lr_scheduler is None or callable(lr_scheduler) and not hasattr(lr_scheduler, "step"):
             self.lr_scheduler = LRSchedulerShim(self.lr_schedule)
         else:
@@ -99,7 +134,9 @@ class DeepSpeedEngine:
         self._last_batch = None
         n_params = sum(p.numel() for p in self.params)
         log_dist(f"DeepSpeedEngine: device={self.device} zero_stage={self.zero_stage} dtype={self.compute_dtype} "
-                 f"gas={self.gas} params={n_params / 1e6:.1f}M", ranks=[0])
+                 f"gas={self.gas} params={n_params / 1e6:.1f}M dp_world={self.dp_world} "
+                 f"wire={'qgZ' if self.qgz else 'fp32'}{'+LoCo' if self.loco_error is not None else ''}",
+                 ranks=[0])
 
     # ------------------------------------------------------------------ build
 
@@ -138,6 +175,48 @@ class DeepSpeedEngine:
             params.setdefault("adam_w_mode", True)    # the reference's FusedAdam flag
         return FusedAdam(target, lr=self.lr_schedule, **params)
 
+    def _manual_ddp_eligible(self) -> bool:
+        """The JAX engine's condition for its manual data-parallel step
+        (``engine.py:915-922``): a data axis larger than 1 (every other axis
+        is 1 here), ZeRO stage 0, gas 1 and no fp16."""
+        return self.dp_world > 1 and self.zero_stage == 0 and self.gas == 1 and self.compute_dtype != torch.float16
+
+    def _configure_gradient_wire(self) -> None:
+        """Decide once which wire the gradients take (JAX ``_qgz_active``
+        :924-942 and ``_maybe_loco_wrap`` :310-323, with their warnings),
+        and for qgZ the bytes it moves per step (``:1016-1026``)."""
+        zc = self._config.zero_config
+        self.qgz = bool(zc.zero_quantized_gradients) and self._manual_ddp_eligible()
+        if zc.zero_quantized_gradients and not self.qgz:
+            logger.warning("zero_quantized_gradients needs a pure-DP mesh, zero stage 0, gas=1 and non-fp16 "
+                           "compute — gradients stay on the fp32 wire")
+        loco = zc.zeropp_loco_param
+        if loco is not None and not self.qgz:
+            logger.warning("zeropp_loco_param set but LoCo transport needs zero_quantized_gradients plus the "
+                           "manual-DDP requirements (pure-DP mesh, stage 0, gas=1, non-fp16) — ignored")
+        # the quantized wire carries nn.Linear weights transposed, in the JAX
+        # package's [in, out] kernel layout (see the module docstring)
+        linear = {id(m.weight) for m in self.module.modules() if isinstance(m, nn.Linear)}
+        self._wire_transposed = [id(p) in linear for p in self.params]
+        self.loco_beta = loco["err_beta"] if loco is not None and self.qgz else None
+        #: LoCo's error state, one float32 tensor per parameter in the wire's layout
+        self.loco_error: Optional[List[torch.Tensor]] = None
+        if self.loco_beta is not None:
+            self.loco_error = [torch.zeros_like(self._to_wire(p, t), dtype=torch.float32)
+                               for p, t in zip(self.params, self._wire_transposed)]
+            log_dist(f"ZeRO++ LoCo gradient transport active (err_beta={self.loco_beta})", ranks=[0])
+        self._compressed_wire_bytes = 0
+        if self.qgz:
+            # per direction: the int8 payload padded to world·256, and one
+            # float32 scale per 256-element block
+            unit = self.dp_world * 256
+            padded = [-(-p.numel() // unit) * unit for p in self.params]
+            self._compressed_wire_bytes = sum(2 * (n + 4 * (n // 256)) for n in padded)
+
+    @staticmethod
+    def _to_wire(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+        return t.t() if transposed else t
+
     # ---------------------------------------------------------------- batches
 
     def _to_device(self, batch):
@@ -174,6 +253,79 @@ class DeepSpeedEngine:
         for p in self.params:
             p.grad = None
 
+    def _rank_micro_batch(self, batch, i: int):
+        """Micro-batch ``i`` of the global batch (its rows ``[i·B/gas,
+        (i+1)·B/gas)``, as JAX splits it) and, of those, this rank's
+        contiguous share (JAX shards dim 0 over ``data``)."""
+        out = {}
+        for k, v in batch.items():
+            if v.dim() == 0:
+                out[k] = v
+                continue
+            rows, rem = divmod(v.shape[0], self.gas * self.dp_world)
+            if rem or not rows:
+                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows: not a multiple of gas {self.gas} × "
+                                 f"{self.dp_world} data-parallel ranks")
+            start = (i * self.dp_world + self.dp_rank) * rows
+            out[k] = v[start:start + rows]
+        return out
+
+    # ------------------------------------------------------------------ the wire
+
+    @contextlib.contextmanager
+    def _timed_wire(self):
+        """Record the qgZ exchange into the CommsLogger (JAX :1315-1324)
+        with its bytes and its host time, on every step but the first
+        (which loads the kernels).  While the logger is on, the exchange is
+        fenced with synchronizes so the time is its own."""
+        timed = comm.comms_logger() is not None and self.global_steps > 0
+        cuda = self.device.type == "cuda"
+        if timed and cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.time()
+        yield
+        if timed:
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            comm._record("all_to_all_quant_reduce", t0, self._compressed_wire_bytes)
+
+    def _reduce_over_ranks(self, grads: List[torch.Tensor], loss: torch.Tensor):
+        """The gradients and the loss as means over the data-parallel ranks
+        (unchanged on one rank; under LoCo the gradients stay local here and
+        the update reduces them)."""
+        if self.dp_world == 1:
+            return grads, loss
+        loss = comm.all_reduce(loss.reshape(1), comm.ReduceOp.AVG).reshape(())
+        if self.loco_error is not None:
+            return grads, loss
+        if not self.qgz:
+            return [comm.all_reduce(g, comm.ReduceOp.AVG) for g in grads], loss
+        # qgZ (JAX :981-987): the wire takes each gradient in the compute
+        # dtype and gives it back in that dtype
+        out = []
+        with self._timed_wire():
+            for g, t in zip(grads, self._wire_transposed):
+                full = padded_quant_allreduce(self._to_wire(g, t).to(self.compute_dtype))
+                out.append(self._to_wire(full.float(), t).contiguous())
+        return out, loss
+
+    def _loco_reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """LoCo (JAX ``_maybe_loco_wrap`` :332-355): each local gradient plus
+        ``err_beta`` times its error goes on the qgZ wire; the new error
+        state is the pmean of what the wire lost; the reduced gradients are
+        clipped by their own global norm."""
+        out = []
+        with self._timed_wire():
+            for i, (g, t) in enumerate(zip(grads, self._wire_transposed)):
+                full, err = padded_quant_allreduce(self._to_wire(g, t), error=self.loco_error[i],
+                                                   err_beta=self.loco_beta)
+                self.loco_error[i] = comm.all_reduce(err, comm.ReduceOp.AVG)
+                out.append(self._to_wire(full, t).contiguous())
+        clip = self._config.gradient_clipping
+        if clip and clip > 0:
+            torch._foreach_mul_(out, torch.clamp(clip / (global_norm(out) + 1e-6), max=1.0))
+        return out
+
     # ------------------------------------------------------------------ update
 
     @torch.no_grad()
@@ -186,7 +338,15 @@ class DeepSpeedEngine:
         torch._foreach_mul_(grads, inv)
         found_inf = None if self.static_unity else found_inf_or_nan(grads)
         grad_norm = global_norm(grads)
-        if cfg.gradient_clipping and cfg.gradient_clipping > 0:
+        if self.qgz:
+            # per-rank values in the manual step (JAX :795-802): reduce so
+            # that every rank clips with the same scale
+            grad_norm = comm.all_reduce(grad_norm.square().reshape(1), comm.ReduceOp.AVG).sqrt().reshape(())
+            if found_inf is not None:
+                found_inf = comm.all_reduce(found_inf.int().reshape(1), comm.ReduceOp.MAX).reshape(()).bool()
+        if self.loco_error is not None:
+            grads = self._loco_reduce(grads)   # clips the reduced gradients itself
+        elif cfg.gradient_clipping and cfg.gradient_clipping > 0:
             clip_scale = torch.clamp(cfg.gradient_clipping / (grad_norm + 1e-6), max=1.0)
             torch._foreach_mul_(grads, clip_scale)
         target = self.master if self.use_master else self.params
@@ -232,12 +392,11 @@ class DeepSpeedEngine:
         self._pending, self._pending_loss = None, None
         loss_sum = None
         for i in range(self.gas):
-            mb = {k: (v if v.dim() == 0 else v.reshape((self.gas, v.shape[0] // self.gas) + v.shape[1:])[i])
-                  for k, v in batch.items()}
-            loss = self._backward_micro(mb).float()
+            loss = self._backward_micro(self._rank_micro_batch(batch, i)).float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         grads, self._pending = self._pending, None
-        metrics = self._apply_grads(grads, loss_sum / self.gas)
+        grads, loss = self._reduce_over_ranks(grads, loss_sum / self.gas)
+        metrics = self._apply_grads(grads, loss)
         if t0 is not None:
             log_dist(f"train_batch {1e3 * (time.perf_counter() - t0):.1f} ms (host, not synchronized)", ranks=[0])
         return metrics.loss
@@ -252,6 +411,9 @@ class DeepSpeedEngine:
         """Accumulate the gradients of one micro-batch (ref: engine.py:2204):
         of ``loss`` from ``forward`` when it carries a graph, else of a fresh
         forward of ``batch`` (or the last forwarded batch)."""
+        if self.qgz:
+            raise RuntimeError("the imperative forward/backward/step path does not support compressed gradient "
+                               "transport; use train_batch()")
         for p in self.params:
             p.grad = None
         if loss is None or loss.grad_fn is None:
@@ -277,7 +439,8 @@ class DeepSpeedEngine:
         if not self.is_gradient_accumulation_boundary():
             return None
         grads, self._pending = self._pending, None
-        metrics = self._apply_grads(grads, self._pending_loss / self._micro_step_count)
+        grads, loss = self._reduce_over_ranks(grads, self._pending_loss / self._micro_step_count)
+        metrics = self._apply_grads(grads, loss)
         self._pending_loss, self._micro_step_count = None, 0
         self.lr_scheduler.step()
         return metrics

@@ -1,6 +1,7 @@
 """The PyTorch port's CUDA kernels on the card: K3 (paged attention),
-K1/K2a/K2b (flash attention forward and backward) and K6a/K6b/K6c
-(block-sparse attention forward and backward).  Every test is marked
+K1/K2a/K2b (flash attention forward and backward), K6a/K6b/K6c
+(block-sparse attention forward and backward) and K4a/K4b/K5a/K5b (block
+int8/int4 quantize and dequantize).  Every test is marked
 ``cuda`` and skips without a GPU.  This file imports nothing of the JAX
 package, so a GPU host without JAX runs it on its own:
 
@@ -305,3 +306,63 @@ def test_sparse_self_attention_on_the_card_matches_the_cpu_path():
         results[dev] = [t.detach().cpu() for t in (out, q.grad, k.grad, v.grad)]
     for a, b_ in zip(results["cuda"], results["cpu"]):
         torch.testing.assert_close(a, b_, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------- K4a, K4b, K5a, K5b
+
+
+def _quant_input(block, nb, dtype, seed):
+    """Blocks at scales 1e-6..1e3, an all-zero block, and a block of ±(k + ½)
+    with absmax 7: int4's scale is exactly 1 there, so x/scale lands on
+    ties (round half to even)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 10.0**(torch.rand((nb, 1), generator=gen, device="cuda") * 9 - 6)
+    x = torch.randn((nb, block), generator=gen, device="cuda") * scale
+    x[1] = 0
+    ties = (torch.arange(block, device="cuda") % 7 + 0.5) * (1 - 2 * (torch.arange(block, device="cuda") % 2))
+    ties[0] = 7.0
+    x[2] = ties
+    return x.reshape(-1).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block,nb", [(256, 4096), (256, 1001), (64, 37), (1024, 9), (100, 13)])
+def test_quant_kernels_match_plain(dtype, block, nb):
+    """K4a/K4b and K5a/K5b against their plain versions on the same CUDA
+    tensors: codes, scales and dequantized values identical (both divide
+    with a correctly rounded divide, round half to even and multiply once)."""
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    from deepspeed_tpu_torch.ops import quantizer as plain
+    x = _quant_input(block, nb, dtype, seed=block + nb)
+    kernels = (qk.quantize_int8_cuda, qk.dequantize_int8_cuda, qk.quantize_int4_cuda, qk.dequantize_int4_cuda)
+    before = [k.launches for k in kernels]
+    for quant, dequant, pq, pd in ((qk.quantize_int8_cuda, qk.dequantize_int8_cuda, plain.quantize_int8,
+                                    plain.dequantize_int8),
+                                   (qk.quantize_int4_cuda, qk.dequantize_int4_cuda, plain.quantize_int4,
+                                    plain.dequantize_int4)):
+        if quant is qk.quantize_int4_cuda and block % 2:
+            continue
+        q, s = quant(x, block)
+        want_q, want_s = pq(x, block)
+        out = dequant(q, s, (2, nb * block // 2) if nb % 2 == 0 else (nb * block, ))
+        torch.cuda.synchronize()
+        assert torch.equal(q, want_q) and torch.equal(s, want_s)
+        assert torch.equal(out, pd(q, s, out.shape))
+        # the zero block: scale 1 and code 0, which int4 stores as 8 in each nibble
+        assert float(s[1]) == 1.0 and bool((q[1] == (0 if quant is qk.quantize_int8_cuda else 0x88)).all())
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    assert launched == ([1, 1, 1, 1] if block % 2 == 0 else [1, 1, 0, 0])
+
+
+def test_quant_kernels_reject_what_they_do_not_take():
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    x = torch.zeros(4096, device="cuda")
+    with pytest.raises(ValueError, match="block 2048"):
+        qk.quantize_int8_cuda(x, 2048)
+    with pytest.raises(ValueError, match="even"):
+        qk.quantize_int4_cuda(x[:4095], 63)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qk.quantize_int8_cuda(x.half(), 256)
+    q, s = qk.quantize_int8_cuda(x, 256)
+    with pytest.raises(ValueError, match="codes and float32 scales"):
+        qk.dequantize_int8_cuda(q.view(torch.uint8), s, (4096, ))

@@ -39,6 +39,13 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.inference.v2.ragged",
     "deepspeed_tpu_torch.inference.v2.scheduler",
     "deepspeed_tpu_torch.inference.v2.engine_v2",
+    "deepspeed_tpu_torch.comm",
+    "deepspeed_tpu_torch.comm.comm",
+    "deepspeed_tpu_torch.comm.mesh",
+    "deepspeed_tpu_torch.ops.quantizer",
+    "deepspeed_tpu_torch.ops.quant_kernels",
+    "deepspeed_tpu_torch.runtime.comm",
+    "deepspeed_tpu_torch.runtime.comm.compressed",
 ]
 
 _PROBE = """

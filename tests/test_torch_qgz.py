@@ -1,0 +1,372 @@
+"""Data-parallel training over two gloo ranks on the CPU, with the ZeRO++
+quantized gradient wire (``deepspeed_tpu_torch/runtime/comm/compressed.py``,
+the engine's qgZ and LoCo steps), against the JAX package on a
+``MeshSpec(data=2)`` mesh of two of the eight CPU devices.
+
+  (a) the four collective functions on identical per-rank inputs, bits 8
+      and 4, sizes that need padding: bit-identical to the JAX functions
+      under ``shard_map``, evaluated op by op (compiled, XLA rewrites the
+      divide by qmax and contracts products into sums: last-bit
+      differences, see ``tests/test_torch_quant.py``);
+  (b) 3 qgZ steps and 3 LoCo steps of the engine (the tiny Llama of
+      ``tests/unit/runtime/test_onebit_transport.py``, f32, AdamW lr 1e-3,
+      clipping 1.0) against the JAX engine on the same weights: losses
+      within rtol 1e-4; parameters within 1e-5 on all but 0.1% of the
+      elements and within 2·lr·steps on the rest (Adam moves a parameter by
+      about lr whatever its gradient, so a code that flips on a rounding
+      boundary of x/scale can move it by up to lr either way);
+  (c) the two ranks' parameters are bit-identical after the steps;
+  (d) qgZ within 5e-2 of the port's float32-wire control;
+  (e) the CommsLogger's byte count equals the JAX formula;
+  (f) stage 2 over two ranks raises; qgZ with gas 2 warns once and runs the
+      float32 wire.
+
+Each test spawns its ranks (``torch.multiprocessing``, spawn) that
+rendezvous through a file under ``tmp_path``; the rank functions are in this
+module, which imports no JAX at its top (JAX is imported inside the tests),
+so a rank starts without it.  A rank that fails or hangs fails its test
+within ``RANK_TIMEOUT_S``.
+"""
+
+import logging
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+WORLD = 2
+RANK_TIMEOUT_S = 240
+LR, STEPS, BATCH, SEQ = 1e-3, 3, 8, 32
+
+
+def _rank_entry(rank, init_method, fn, args, queue):
+    import deepspeed_tpu_torch.comm.comm as comm
+    torch.set_num_threads(2)
+    try:
+        comm.init_distributed(dist_backend="gloo", init_method=init_method, rank=rank, world_size=WORLD,
+                              timeout=RANK_TIMEOUT_S // 2, verbose=False)
+        queue.put((rank, fn(rank, *args), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if comm.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_ranks(tmp_dir, fn, *args):
+    """``fn(rank, *args)`` on each of two gloo ranks; returns their results
+    in rank order, or raises with a failed rank's traceback."""
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    init = f"file://{tmp_dir}/rendezvous"
+    procs = [ctx.Process(target=_rank_entry, args=(r, init, fn, args, queue)) for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in range(WORLD):
+            rank, out, err = queue.get(timeout=RANK_TIMEOUT_S)
+            if err is not None:
+                raise AssertionError(f"rank {rank} failed:\n{err}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    return [results[r] for r in range(WORLD)]
+
+
+# ---------------------------------------------------------------- (a) collectives
+
+#: name → (function, bits, elements per rank, with an error state)
+COLLECTIVES = {
+    f"{fn}-int{bits}": (fn, bits, n, err)
+    for bits in (8, 4)
+    for fn, n, err in (("all_to_all_quant_reduce", 3 * WORLD * 256, False), ("quantized_all_gather", 3 * 256, False),
+                       ("padded_quant_allreduce", 1000, False), ("padded_quant_allreduce_error", 1000, True),
+                       ("loco_all_to_all_quant_reduce", 2 * WORLD * 256, True))
+}
+
+
+def _collective_inputs(name):
+    """Per-rank gradients ``[WORLD, n]`` with block scales from 1e-4 to 1e2,
+    and an error state (or None)."""
+    _, bits, n, err = COLLECTIVES[name]
+    rng = np.random.default_rng(bits * 100 + n)
+    scales = np.repeat(10.0**rng.uniform(-4, 2, size=(WORLD, -(-n // 64))), 64, axis=1)[:, :n]
+    x = (rng.normal(size=(WORLD, n)) * scales).astype(np.float32)
+    e = (rng.normal(size=(WORLD, n)) * 1e-2).astype(np.float32) if err else None
+    return x, e
+
+
+def _port_collective(name, x, e):
+    from deepspeed_tpu_torch.runtime.comm import compressed as tc
+    fn, bits, _, _ = COLLECTIVES[name]
+    x = torch.from_numpy(x)
+    e = None if e is None else torch.from_numpy(e)
+    if fn == "all_to_all_quant_reduce":
+        out = tc.all_to_all_quant_reduce(x, bits=bits)
+    elif fn == "quantized_all_gather":
+        out = tc.quantized_all_gather(x, bits=bits)
+    elif fn == "padded_quant_allreduce":
+        out = tc.padded_quant_allreduce(x, bits=bits)
+    elif fn == "padded_quant_allreduce_error":
+        out = tc.padded_quant_allreduce(x, bits=bits, error=e, err_beta=0.8)
+    else:
+        out = tc.loco_all_to_all_quant_reduce(x, e, bits=bits, err_beta=0.8)
+    return [t.numpy() for t in (out if isinstance(out, tuple) else (out, ))]
+
+
+def _collectives_rank(rank, inputs):
+    return {name: _port_collective(name, x[rank], None if e is None else e[rank]) for name, (x, e) in inputs.items()}
+
+
+def _jax_collective(name, x, e):
+    """The JAX function under an eager (op by op) shard_map over data=2:
+    outputs ``[WORLD, ...]``."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
+    from deepspeed_tpu.runtime.comm import compressed as jc
+    fn, bits, _, _ = COLLECTIVES[name]
+    mesh = create_mesh(MeshSpec(data=WORLD), devices=jax.devices()[:WORLD])
+
+    def body(xs, es):
+        xv, ev = xs[0], es[0]
+        if fn == "all_to_all_quant_reduce":
+            out = jc.all_to_all_quant_reduce(xv, "data", bits=bits)
+        elif fn == "quantized_all_gather":
+            out = jc.quantized_all_gather(xv, "data", bits=bits)
+        elif fn == "padded_quant_allreduce":
+            out = jc.padded_quant_allreduce(xv, "data", WORLD, bits=bits)
+        elif fn == "padded_quant_allreduce_error":
+            out = jc.padded_quant_allreduce(xv, "data", WORLD, bits=bits, error=ev, err_beta=0.8)
+        else:
+            out = jc.loco_all_to_all_quant_reduce(xv, ev, "data", bits=bits, err_beta=0.8)
+        return tuple(o[None] for o in (out if isinstance(out, tuple) else (out, )))
+
+    run = jax.shard_map(body, mesh=mesh, in_specs=(P("data"), P("data")), out_specs=P("data"), check_vma=False)
+    return [np.asarray(o) for o in run(x, np.zeros_like(x) if e is None else e)]
+
+
+@pytest.fixture(scope="module")
+def collective_results(tmp_path_factory):
+    inputs = {name: _collective_inputs(name) for name in COLLECTIVES}
+    return inputs, run_ranks(tmp_path_factory.mktemp("qgz_collectives"), _collectives_rank, inputs)
+
+
+@pytest.mark.parametrize("name", list(COLLECTIVES))
+def test_collectives_are_bit_identical_to_jax(name, collective_results):
+    inputs, ranks = collective_results
+    x, e = inputs[name]
+    want = _jax_collective(name, x, e)
+    for rank, got in enumerate(ranks):
+        assert len(got[name]) == len(want)
+        for g, w in zip(got[name], want):
+            np.testing.assert_array_equal(g, w[rank], err_msg=f"{name}, rank {rank}")
+
+
+# ---------------------------------------------------------------- (b)-(f) the engine
+
+DS_BASE = {"train_batch_size": BATCH, "gradient_clipping": 1.0, "steps_per_print": 0,
+           "optimizer": {"type": "AdamW", "params": {"lr": LR}}}
+QGZ = {"stage": 0, "zero_quantized_gradients": True}
+RUNS = {"qgz": {**DS_BASE, "zero_optimization": QGZ},
+        "loco": {**DS_BASE, "zero_optimization": {**QGZ, "zeropp_loco_param": {"err_beta": 0.8}}},
+        "fp32_wire": {**DS_BASE, "zero_optimization": {"stage": 0}},
+        "qgz_gas2": {**DS_BASE, "gradient_accumulation_steps": 2, "zero_optimization": QGZ},
+        "fp32_wire_gas2": {**DS_BASE, "gradient_accumulation_steps": 2, "zero_optimization": {"stage": 0}}}
+
+
+def _tiny_port_cfg():
+    from deepspeed_tpu_torch.models import llama as tl
+    return tl.LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                          num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64, rope_theta=1e4,
+                          dtype=torch.float32, param_dtype=torch.float32, attention_impl="reference")
+
+
+def _batches():
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 256, (BATCH, SEQ)).astype(np.int32)
+    return [{"input_ids": ids, "labels": ids}] * STEPS
+
+
+class _Warnings(logging.Handler):
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def _engine_rank(rank, state):
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import llama as tl
+    from deepspeed_tpu_torch.utils.logging import logger
+    out = {}
+    for name, ds_config in RUNS.items():
+        comm.configure(enabled=True)
+        warned = _Warnings()
+        logger.addHandler(warned)
+        model = tl.LlamaForCausalLM(_tiny_port_cfg(), device="cpu")
+        eng = tds.initialize(model=model, config=ds_config, params=state, device="cpu")[0]
+        losses = [float(eng.train_batch(batch=b)) for b in _batches()]
+        logger.removeHandler(warned)
+        out[name] = {"losses": losses, "qgz": eng.qgz, "warnings": warned.messages,
+                     "params": {k: v.numpy().copy() for k, v in eng.module_state_dict().items()},
+                     "wire_bytes": eng._compressed_wire_bytes,
+                     "comms": dict(comm.comms_logger().comms_dict.get("all_to_all_quant_reduce", {})),
+                     "loco_error_abs_max": None if eng.loco_error is None else
+                     max(float(t.abs().max()) for t in eng.loco_error)}
+    try:
+        tds.initialize(model=tl.LlamaForCausalLM(_tiny_port_cfg(), device="cpu"),
+                       config={**DS_BASE, "zero_optimization": {"stage": 2}}, device="cpu")
+        out["stage2"] = None
+    except NotImplementedError as exc:
+        out["stage2"] = str(exc)
+    return out
+
+
+def _jax_engine(zero):
+    import jax
+    import jax.numpy as jnp
+
+    import deepspeed_tpu as jds
+    from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
+    from deepspeed_tpu.models import llama as jl
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+    cfg = jl.LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+                         num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64, rope_theta=1e4,
+                         dtype=jnp.float32, param_dtype=jnp.float32, scan_layers=False)
+    model = jl.LlamaForCausalLM(cfg)
+    variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, SEQ), jnp.int32))
+    mesh = create_mesh(MeshSpec(data=WORLD), devices=jax.devices()[:WORLD])
+    eng, _, _, _ = jds.initialize(model=model, mesh=mesh, params=variables["params"], dist_init_required=False,
+                                  config=JaxConfig({**DS_BASE, "zero_optimization": zero}, dp_world_size=WORLD))
+    losses = [float(eng.train_batch(batch=b)) for b in _batches()]
+    return variables, losses, jax.tree.map(np.asarray, eng.state.params)
+
+
+@pytest.fixture(scope="module")
+def engine_runs(tmp_path_factory):
+    """The JAX engine's qgZ and LoCo runs, and the port's runs on two ranks
+    from the same initial weights."""
+    import jax
+
+    from deepspeed_tpu_torch.models.convert import jax_llama_to_state_dict
+    jax_runs = {name: _jax_engine(RUNS[name]["zero_optimization"]) for name in ("qgz", "loco")}
+    variables = jax_runs["qgz"][0]
+    cfg = _tiny_port_cfg()
+    state = {k: v.numpy() for k, v in jax_llama_to_state_dict(jax.tree.map(np.asarray, variables), cfg).items()}
+    ranks = run_ranks(tmp_path_factory.mktemp("qgz_engine"), _engine_rank, state)
+    return jax_runs, ranks, cfg
+
+
+@pytest.mark.parametrize("name", ["qgz", "loco"])
+def test_engine_trajectory_matches_jax(name, engine_runs):
+    """(b) losses within rtol 1e-4; parameters within 1e-5 on all but 0.1%
+    of the elements and within 2·lr·steps on every one."""
+    from deepspeed_tpu_torch.models.convert import jax_llama_to_state_dict
+    jax_runs, ranks, cfg = engine_runs
+    _, want_losses, jparams = jax_runs[name]
+    got = ranks[0][name]
+    assert got["qgz"]
+    np.testing.assert_allclose(got["losses"], want_losses, rtol=1e-4)
+    want = jax_llama_to_state_dict({"params": jparams}, cfg)
+    diff = np.concatenate([np.abs(got["params"][k] - want[k].numpy()).ravel() for k in want])
+    beyond = int((diff > 1e-5).sum())
+    print(f"{name}: {beyond} of {diff.size} parameter elements differ from JAX by more than 1e-5 "
+          f"(max {diff.max():.3g})")
+    assert beyond <= 1e-3 * diff.size
+    assert diff.max() <= 2 * LR * STEPS
+
+
+@pytest.mark.parametrize("name", list(RUNS))
+def test_ranks_stay_bit_identical(name, engine_runs):
+    """(c) the replicated state does not fork: identical losses and
+    parameters on both ranks."""
+    _, ranks, _ = engine_runs
+    a, b = ranks[0][name], ranks[1][name]
+    assert a["losses"] == b["losses"]
+    for k in a["params"]:
+        np.testing.assert_array_equal(a["params"][k], b["params"][k], err_msg=k)
+
+
+def test_qgz_and_loco_track_the_fp32_wire(engine_runs):
+    """(d) the bound of ``test_onebit_transport.py:104``; LoCo's error state
+    is live."""
+    _, ranks, _ = engine_runs
+    base = ranks[0]["fp32_wire"]["losses"]
+    for name in ("qgz", "loco"):
+        np.testing.assert_allclose(ranks[0][name]["losses"], base, rtol=5e-2, atol=5e-2)
+    assert ranks[0]["loco"]["loco_error_abs_max"] > 0
+    assert ranks[0]["qgz"]["loco_error_abs_max"] is None
+
+
+def test_comms_logger_counts_the_jax_formula(engine_runs):
+    """(e) per step: 2·(padded + 4·padded/256) bytes per tensor, the padding
+    to world·256 included (JAX ``engine.py:1016-1026``); every step but the
+    first (which loads the kernels) is recorded."""
+    _, ranks, cfg = engine_runs
+    unit = WORLD * 256
+    shapes = [v.shape for v in ranks[0]["qgz"]["params"].values()]
+    want = sum(2 * (p + 4 * (p // 256)) for p in (-(-int(np.prod(s)) // unit) * unit for s in shapes))
+    for name in ("qgz", "loco"):
+        run = ranks[0][name]
+        assert run["wire_bytes"] == want
+        assert list(run["comms"]) == [want] and run["comms"][want][0] == STEPS - 1
+    assert ranks[0]["fp32_wire"]["comms"] == {}
+
+
+def test_unsupported_layouts_raise_or_fall_back(engine_runs):
+    """(f) ZeRO stage 2 over two ranks raises (partitioning is not ported);
+    qgZ with gas 2 warns and keeps the float32 wire, step for step the same
+    as the float32-wire run."""
+    _, ranks, _ = engine_runs
+    assert "ROADMAP Queue 1 item 4" in ranks[0]["stage2"]
+    gas2 = ranks[0]["qgz_gas2"]
+    assert not gas2["qgz"]
+    assert sum("zero_quantized_gradients needs" in m for m in gas2["warnings"]) == 1
+    assert gas2["losses"] == ranks[0]["fp32_wire_gas2"]["losses"]
+    for k, v in gas2["params"].items():
+        np.testing.assert_array_equal(v, ranks[0]["fp32_wire_gas2"]["params"][k])
+    assert not ranks[0]["qgz"]["warnings"]
+
+
+def test_mesh_spec_takes_the_data_axis_only():
+    from deepspeed_tpu_torch.comm.mesh import MeshSpec, dp_world_size
+    assert MeshSpec().resolve(2) == (1, 2, 1, 1, 1) and MeshSpec(data=4).resolve(4)[1] == 4
+    assert dp_world_size() == 1
+    for spec in (MeshSpec(tensor=2), MeshSpec(pipe=2), MeshSpec(seq=2), MeshSpec(expert=2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+            spec.resolve(2)
+    with pytest.raises(ValueError, match="does not cover"):
+        MeshSpec(data=2).resolve(4)
+
+
+def test_nccl_takes_one_card_per_rank(monkeypatch):
+    """NCCL with more ranks on a host than cards raises before any
+    rendezvous; without a card it raises too; so does a mesh with an axis
+    other than data."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm.mesh import MeshSpec
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        comm.init_distributed(dist_backend="nccl", rank=0, world_size=2, init_method="tcp://127.0.0.1:1")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        comm.init_distributed(dist_backend="nccl", rank=0, world_size=1, init_method="tcp://127.0.0.1:1")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        comm.init_distributed(dist_backend="gloo", rank=0, world_size=2, mesh_spec=MeshSpec(data=1, tensor=2))
+    assert not comm.is_initialized()
