@@ -10,13 +10,18 @@ source, all started together.  Phases:
   1. environment: card name and power limit, versions, kernel build time;
   2. K3 paged attention against its plain PyTorch version at the serving
      shapes of Llama-3-8B (H=32, n_kv=8, D=128, page 16, bf16): decode,
+     decode with every context at 2000 keys (both split over the context),
      a prefill chunk, and a mixed step with padding rows and null pages —
      error, kernel / plain / library (SDPA) time and the roofline bound;
+     float32 decode (the scalar kernel), forced empty splits, rep 1 at head
+     dim 64, one tensor-core product against torch.matmul, the merge
+     kernel against its plain version, faulty kernels the check must
+     reject, and the decode time by split count;
   3. serving: ``build_engine`` → ``put`` / ``step`` on Llama-3-8B at full
      width and depth with seeded random weights, continuous batching of 8
      requests with SplitFuse chunking, fused decode and a prefix-cache hit;
-     asserts token counts, page accounting and that every layer of every
-     forward launched K3;
+     asserts token counts, page accounting, that every layer of every
+     forward launched K3 and that decode took its split route;
   4. path parity: the kernel path against the plain path — identical greedy
      streams in float32 (2 layers, full width), and close first-step logits
      in bf16 at full depth;
@@ -91,7 +96,9 @@ from deepspeed_tpu_torch.models.llama_cache import paged_attention as paged_atte
 from deepspeed_tpu_torch.ops.op_builder import KERNEL_SOURCES, build_kernel
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delta_plain, flash_dkv_cuda,
                                                      flash_dq_cuda, flash_fwd_cuda, flash_fwd_plain)
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
+from deepspeed_tpu_torch.ops.paged_attention import (choose_n_split, merge_partials_cuda, merge_partials_plain,
+                                                     mma_probe_cuda, paged_attention_cuda,
+                                                     paged_attention_partials_cuda)
 from deepspeed_tpu_torch.ops.quant_kernels import (dequantize_int4_cuda, dequantize_int8_cuda, quantize_int4_cuda,
                                                    quantize_int8_cuda)
 from deepspeed_tpu_torch.ops.quantizer import dequantize_int4 as dequantize_int4_plain
@@ -130,6 +137,7 @@ def reset_launch_counts() -> None:
     """Every kernel's launch count to 0: done just before each path is driven."""
     for fn in LAUNCH_COUNTERS:
         fn.launches = 0
+    paged_attention_cuda.split_calls = 0
 
 
 def log(msg: str) -> None:
@@ -170,7 +178,7 @@ def phase_environment() -> dict:
 # ---------------------------------------------------------------- phase 2
 
 
-def make_case(starts, clens, c, dtype, seed):
+def make_case(starts, clens, c, dtype, seed, h=H, n_kv=N_KV, d=D):
     """A paged arena of random K/V with per-sequence block tables over
     shuffled physical pages; rows with clen 0 keep an all-null table."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -181,10 +189,14 @@ def make_case(starts, clens, c, dtype, seed):
     for i, n in enumerate(need):
         bt[i, :n] = torch.tensor(phys[:n], dtype=torch.int32)
         phys = phys[n:]
-    pages = torch.randn((n_pages, PAGE, 2, N_KV, D), generator=gen, device="cuda").to(dtype)
-    q = torch.randn((len(starts), c, H, D), generator=gen, device="cuda").to(dtype)
+    pages = torch.randn((n_pages, PAGE, 2, n_kv, d), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((len(starts), c, h, d), generator=gen, device="cuda").to(dtype)
     return dict(q=q, pages=pages, block_table=bt.cuda(), start_pos=torch.tensor(starts, dtype=torch.int32).cuda(),
                 chunk_lens=torch.tensor(clens, dtype=torch.int32).cuda(), page_size=PAGE)
+
+
+def case_args(case) -> tuple:
+    return (case["q"], case["pages"], case["block_table"], case["start_pos"], case["chunk_lens"], PAGE)
 
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -215,15 +227,16 @@ def bound_ms(case, dtype) -> tuple:
     once, every out row (zeros included) written once — against the flops
     the visible keys need."""
     esize = torch.finfo(dtype).bits // 8
-    b, c = case["q"].shape[:2]
+    b, c, h, d = case["q"].shape
+    n_kv = case["pages"].shape[3]
     starts = case["start_pos"].tolist()
     clens = case["chunk_lens"].tolist()
     live_keys = sum(s + n for s, n in zip(starts, clens) if n > 0)
     live_pages = sum(-(-(s + n) // PAGE) for s, n in zip(starts, clens) if n > 0)
-    row_bytes = H * D * esize
-    nbytes = (live_keys * 2 * N_KV * D * esize + sum(clens) * row_bytes + b * c * row_bytes +
+    row_bytes = h * d * esize
+    nbytes = (live_keys * 2 * n_kv * d * esize + sum(clens) * row_bytes + b * c * row_bytes +
               4 * (live_pages + 2 * b))
-    flops = sum(4 * H * D * (s + j + 1) for s, n in zip(starts, clens) for j in range(n))
+    flops = sum(4 * h * d * (s + j + 1) for s, n in zip(starts, clens) for j in range(n))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -233,44 +246,116 @@ def sdpa_inputs(case):
     """q [B, H, C, D], K/V gathered per sequence [B, H, S, D] (GQA heads
     repeated) and the boolean mask of what each row may see."""
     q, pages, bt = case["q"], case["pages"], case["block_table"]
-    b, c = q.shape[:2]
+    b, c, h, d = q.shape
+    n_kv = pages.shape[3]
     s_max = max(1, max(s + n for s, n in zip(case["start_pos"].tolist(), case["chunk_lens"].tolist())))
     n_pg = -(-s_max // PAGE)
-    g = pages[bt[:, :n_pg].reshape(-1).long()].reshape(b, n_pg * PAGE, 2, N_KV, D)[:, :s_max]
-    k = g[:, :, 0].repeat_interleave(H // N_KV, dim=2).transpose(1, 2).contiguous()
-    v = g[:, :, 1].repeat_interleave(H // N_KV, dim=2).transpose(1, 2).contiguous()
+    g = pages[bt[:, :n_pg].reshape(-1).long()].reshape(b, n_pg * PAGE, 2, n_kv, d)[:, :s_max]
+    k = g[:, :, 0].repeat_interleave(h // n_kv, dim=2).transpose(1, 2).contiguous()
+    v = g[:, :, 1].repeat_interleave(h // n_kv, dim=2).transpose(1, 2).contiguous()
     qpos = case["start_pos"].long()[:, None] + torch.arange(c, device="cuda")[None, :]
     mask = torch.arange(s_max, device="cuda")[None, None, :] <= qpos[..., None]
     return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
 
 
-def run_case(name, case, dtype, flush, timed=True) -> dict:
-    args = (case["q"], case["pages"], case["block_table"], case["start_pos"], case["chunk_lens"], PAGE)
-    got = paged_attention_cuda(*args)
+def k3_ratio(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+    """Largest |got − want| over the TOLERANCE limit: at most 1 passes."""
+    atol, rtol = TOLERANCE[dtype]
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+
+
+def run_case(name, case, dtype, flush, timed=True, n_split=None) -> dict:
+    args = case_args(case)
+    b, c, h, d = case["q"].shape
+    split = 1 if dtype == torch.float32 else n_split or choose_n_split(b, c, h, case["pages"].shape[3], d,
+                                                                          MAX_PAGES * PAGE)
+    got = paged_attention_cuda(*args, n_split=n_split)
     want = paged_attention_plain(*args)
     torch.cuda.synchronize()
-    atol, rtol = TOLERANCE[dtype]
-    err = (got.float() - want.float()).abs()
-    max_err = float(err.max())
-    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    max_err = float((got.float() - want.float()).abs().max())
+    ratio = k3_ratio(got, want, dtype)
     pad = case["chunk_lens"] == 0
     if bool(pad.any()) and not bool((got[pad] == 0).all()):
         raise AssertionError(f"{name}: padding rows are not zero")
-    if not ok or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: kernel disagrees with the plain version: max |err| {max_err:.3e} "
-                             f"(tolerance {atol} + {rtol}·|plain|)")
-    row = {"case": name, "max_abs_err": max_err}
+    if not ratio <= 1:
+        atol, rtol = TOLERANCE[dtype]
+        raise AssertionError(f"{name}: kernel disagrees with the plain version: max |err| {max_err:.3e}, "
+                             f"|err|/limit {ratio:.3g} (tolerance {atol} + {rtol}·|plain|)")
+    row = {"case": name, "n_split": split, "max_abs_err": max_err, "err_over_limit": ratio}
     b_ms, b_by = bound_ms(case, dtype)
     row.update(bound_ms=b_ms, bound_by=b_by)
     if timed:
-        row["ms"] = time_ms(lambda: paged_attention_cuda(*args), 20, flush)
+        row["ms"] = time_ms(lambda: paged_attention_cuda(*args, n_split=n_split), 20, flush)
         row["plain_ms"] = time_ms(lambda: paged_attention_plain(*args), 5, flush)
         qs, ks, vs, mask = sdpa_inputs(case)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), 10, flush)
+        row["bound_share"] = b_ms / row["ms"]
     log(f"  K3 {name}: " + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                                      for k, v in row.items() if k != "case"))
     return row
+
+
+def k3_mutants(decode, prefill) -> dict:
+    """Faulty kernels the check must reject, made from the kernels' outputs:
+    the split route with one split's partial dropped for the longest decode
+    row; the causal edge off by one (the key at start + c hidden: the plain
+    version one position early); one head of a row tile attending with its
+    neighbour's q.  Each must exceed the TOLERANCE limit."""
+    args = case_args(decode)
+    want = paged_attention_plain(*args)
+    longest = int(decode["start_pos"].argmax())
+    m, l, o = paged_attention_partials_cuda(*args, 4)
+    m[0, longest] = -float("inf")                 # split 0 holds keys 0..511 of the 2000-key row
+    dropped = merge_partials_cuda(m, l, o, decode["chunk_lens"])
+    pargs = list(case_args(prefill))
+    pwant = paged_attention_plain(*pargs)
+    early = paged_attention_plain(*pargs[:3], pargs[3] - 1, *pargs[4:])
+    q_swapped = pargs[0].clone()
+    q_swapped[:, :, 1] = pargs[0][:, :, 2]        # head 1 of kv group 0 takes head 2's q
+    swapped = paged_attention_cuda(*pargs)
+    swapped[:, :, 1] = paged_attention_plain(q_swapped, *pargs[1:])[:, :, 1]
+    caught = {"split_dropped": k3_ratio(dropped, want, torch.bfloat16),
+              "causal_edge_off_by_one": k3_ratio(early, pwant, torch.bfloat16),
+              "neighbour_q": k3_ratio(swapped, pwant, torch.bfloat16)}
+    log("  K3 faulty kernels' |err|/limit: " + ", ".join(f"{n}={r:.4g}" for n, r in caught.items()))
+    if not all(r > 1 for r in caught.values()):
+        raise AssertionError(f"K3: the check passes a faulty kernel: {caught}")
+    return caught
+
+
+def k3_fragments() -> dict:
+    """One m16n8k16 product through the kernel's fragment loaders against
+    torch.matmul (float32 sums of bf16 products: exact up to order)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    a, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in ((16, 16), (8, 16), (16, 8)))
+    c1, c2 = mma_probe_cuda(a, k, v)
+    err = {"q_kt": float((c1 - a.float() @ k.float().t()).abs().max()),
+           "p_v": float((c2 - a.float() @ v.float()).abs().max())}
+    log(f"  K3 one mma (ldmatrix, ldmatrix.trans) vs torch.matmul: max |err| {err}")
+    if not all(e <= 1e-4 for e in err.values()):
+        raise AssertionError(f"K3 mma fragments disagree with torch.matmul: {err}")
+    return err
+
+
+def k3_merge(decode) -> dict:
+    """The merge kernel against merge_partials_plain on the split kernel's
+    partials of the decode case (empty splits included)."""
+    args = case_args(decode)
+    n = choose_n_split(*decode["q"].shape[:3], N_KV, D, MAX_PAGES * PAGE)
+    m, l, o = paged_attention_partials_cuda(*args, n)
+    got = merge_partials_cuda(m, l, o, decode["chunk_lens"])
+    want = merge_partials_plain(m, l, o, decode["chunk_lens"])
+    torch.cuda.synchronize()
+    empty = int((m == -float("inf")).sum())
+    ratio = k3_ratio(got, want, torch.bfloat16)
+    log(f"  K3 merge kernel vs merge_partials_plain: n_split={n}, empty partials {empty} of {m.numel()}, "
+        f"|err|/limit {ratio:.4g}")
+    if not (ratio <= 1 and empty > 0):
+        raise AssertionError(f"K3 merge kernel: |err|/limit {ratio}, empty partials {empty}")
+    return {"n_split": n, "empty_partials": empty, "err_over_limit": ratio}
 
 
 def phase_kernels() -> dict:
@@ -283,12 +368,40 @@ def phase_kernels() -> dict:
     # a mixed SplitFuse step: two prefill rows, three decode rows, three
     # padding rows (chunk_len 0, all-null block table)
     mixed = ([0, 512, 900, 33, 1999, 0, 0, 0], [256, 130, 1, 1, 1, 0, 0, 0], 256)
-    rows = {}
-    for name, (starts, clens, c) in (("decode", decode), ("prefill", prefill), ("mixed", mixed)):
-        rows[name] = run_case(name, make_case(starts, clens, c, torch.bfloat16, seed=len(rows)), torch.bfloat16,
-                              flush)
+    decode_long = ([1999] * 16, [1] * 16, 1)   # every sequence at 2000 keys
+    k3_fragments()
+    cases = {name: make_case(*shape, torch.bfloat16, seed=i)
+             for i, (name, shape) in enumerate((("decode", decode), ("prefill", prefill), ("mixed", mixed),
+                                                ("decode_long", decode_long)))}
+    rows = {name: run_case(name, case, torch.bfloat16, flush) for name, case in cases.items()}
     rows["decode_f32"] = run_case("decode_f32", make_case(*decode, torch.float32, seed=7), torch.float32, flush,
                                   timed=False)
+    if not (rows["decode"]["n_split"] > 1 and rows["decode_long"]["n_split"] > 1):
+        raise AssertionError(f"decode did not take the split route: {rows['decode']}, {rows['decode_long']}")
+    # empty splits: at 8 splits of 256 keys the 1-key row and every row
+    # under 1793 keys leave splits empty; whole (one split) for comparison
+    run_case("decode_8_splits", cases["decode"], torch.bfloat16, flush, timed=False, n_split=8)
+    run_case("decode_unsplit", cases["decode"], torch.bfloat16, flush, timed=False, n_split=1)
+    # rep 1 at head dim 64: 16 heads of their own kv head, a chunk and decode
+    for name, shape in (("rep1_d64_chunk", prefill), ("rep1_d64_decode", decode)):
+        run_case(name, make_case(*shape, torch.bfloat16, seed=9, h=16, n_kv=16, d=64), torch.bfloat16, flush,
+                 timed=False)
+    k3_merge(cases["decode"])
+    k3_mutants(cases["decode"], cases["prefill"])
+    # how the decode time moves with the split, at four decode batches (the
+    # wrapper picks n_split from shapes: the lengths live on the device)
+    sweeps = {"decode": cases["decode"], "decode_long": cases["decode_long"],
+              "decode_b8": make_case([500 + 13 * i for i in range(8)], [1] * 8, 1, torch.bfloat16, seed=12),
+              "decode_b4": make_case([1000, 1300, 1700, 1999], [1] * 4, 1, torch.bfloat16, seed=13)}
+    for name, case in sweeps.items():
+        b = case["q"].shape[0]
+        sweep = {n: time_ms(lambda: paged_attention_cuda(*case_args(case), n_split=n), 20, flush)
+                 for n in range(1, 9)}
+        chosen = choose_n_split(b, 1, H, N_KV, D, MAX_PAGES * PAGE)
+        log(f"  K3 {name} (B {b}) ms by n_split (chosen {chosen}): " +
+            json.dumps({str(k): round(v, 5) for k, v in sweep.items()}))
+        if name in rows:
+            rows[name]["ms_by_n_split"] = sweep
     return rows
 
 
@@ -359,6 +472,7 @@ def phase_serving(cfg, state, smi: str) -> dict:
             reused[late] = eng.state.seqs[late].seen_tokens
     t_end = time.perf_counter()
     launches, forwards = paged_attention_cuda.launches, eng.forward_calls
+    split_calls = paged_attention_cuda.split_calls
 
     for uid in range(len(prompts)):
         got = len(eng.state.seqs[uid].generated)
@@ -374,6 +488,8 @@ def phase_serving(cfg, state, smi: str) -> dict:
         raise AssertionError(f"the shared-prefix request did not hit the prefix cache: {reused}")
     if launches != layers * forwards or launches == 0:
         raise AssertionError(f"K3 launched {launches} times over {forwards} forwards of {layers} layers")
+    if split_calls == 0:
+        raise AssertionError("no K3 call of the decode rounds took the split route")
 
     # prefill tok/s: prompt tokens computed over the time to the last first
     # token; decode tok/s: tokens of the steps after every request had its
@@ -385,7 +501,7 @@ def phase_serving(cfg, state, smi: str) -> dict:
     decode_tokens = sum(s[2] for s in decode_steps)
     decode_s = sum(s[1] - s[0] for s in decode_steps)
     res = {"requests": len(prompts), "prompt_tokens": sum(lens), "generated": sum(max_new), "steps": len(steps),
-           "forwards": forwards, "k3_launches": launches, "prefix_hits": hits,
+           "forwards": forwards, "k3_launches": launches, "k3_split_calls": split_calls, "prefix_hits": hits,
            "prefix_tokens_reused": sum(reused.values()),
            "prefill_tok_s": prefill_tokens / (t_prefilled - t0), "decode_tok_s": decode_tokens / decode_s,
            "ttft_ms_mean": 1e3 * float(np.mean(list(ttft.values()))), "ttft_ms_max": 1e3 * max(ttft.values()),
@@ -1631,7 +1747,8 @@ def main() -> int:
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40", "launches": serving["k3_launches"],
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if n != "decode_f32"), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-                "library_ms": dec["library_ms"]}]
+                "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],
+                "prefill_library_ms": k3["prefill"]["library_ms"]}]
     replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:162",
                 "flash_dq": "deepspeed_tpu/ops/flash_attention.py:287",
                 "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}

@@ -15,9 +15,12 @@ over ``torch.distributed`` (port of ``deepspeed_tpu/comm/comm.py:42-96,
   backend: gloo has no average, and it is how ``jax.lax.pmean`` reduces.
 * Every collective records its payload bytes and host time into the
   ``CommsLogger`` when ``configure(enabled=True)`` turned it on
-  (ref: ``utils/comms_logging.py``).
+  (ref: ``utils/comms_logging.py``), except inside ``unrecorded()``: there
+  a caller records one aggregate for the collectives it runs (the training
+  engine's step, which JAX runs inside one ``jit`` and logs as one entry).
 """
 
+import contextlib
 import datetime
 import os
 import time
@@ -30,6 +33,7 @@ from ..utils.logging import logger
 from .mesh import MeshSpec
 
 _COMMS_LOGGER = None
+_UNRECORDED = 0   # depth of unrecorded() blocks
 
 
 class CommsLogger:
@@ -61,8 +65,19 @@ def comms_logger() -> Optional[CommsLogger]:
     return _COMMS_LOGGER
 
 
+@contextlib.contextmanager
+def unrecorded():
+    """The collectives inside do not record themselves into the CommsLogger."""
+    global _UNRECORDED
+    _UNRECORDED += 1
+    try:
+        yield
+    finally:
+        _UNRECORDED -= 1
+
+
 def _record(name: str, t0: float, nbytes: int) -> None:
-    if _COMMS_LOGGER is not None:
+    if _COMMS_LOGGER is not None and not _UNRECORDED:
         _COMMS_LOGGER.append(name, time.time() - t0, nbytes)
 
 

@@ -313,16 +313,18 @@ class _CausalLMLoss(torch.autograd.Function):
     ``causal_lm_loss`` (``llama.py:514-557``)."""
 
     @staticmethod
-    def forward(ctx, logits, labels, loss_mask):
+    def forward(ctx, logits, labels, loss_mask, denom):
         lse = torch.logsumexp(logits.float(), dim=-1)                                   # [B, S]
         tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0].float()
         nll = lse - tgt
-        if loss_mask is not None:
-            mask = loss_mask.float()
+        mask = None if loss_mask is None else loss_mask.float()
+        if denom is not None:
+            loss = (nll if mask is None else nll * mask).sum() / denom
+        elif mask is not None:
             denom = mask.sum().clamp_min(1.0)
             loss = (nll * mask).sum() / denom
         else:
-            mask, denom = None, torch.tensor(float(nll.numel()), device=nll.device)
+            denom = torch.tensor(float(nll.numel()), device=nll.device)
             loss = nll.mean()
         ctx.save_for_backward(logits, labels, lse, denom, *([] if mask is None else [mask]))
         return loss
@@ -334,14 +336,16 @@ class _CausalLMLoss(torch.autograd.Function):
         d = torch.exp(logits.float() - lse[..., None])                                  # softmax
         d.scatter_add_(-1, labels[..., None].long(), torch.full_like(lse[..., None], -1.0))  # − onehot
         d.mul_(w[..., None])
-        return d.to(logits.dtype), None, None
+        return d.to(logits.dtype), None, None, None
 
 
-def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-                   loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, loss_mask: Optional[torch.Tensor] = None,
+                   denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy in float32 from an f32 logsumexp minus the
     target logit; with ``loss_mask`` the mean is over the masked-in tokens
-    (denominator ``max(sum, 1)``).  The gradient is ``(softmax − onehot)·w``
-    in the logits' dtype, computed from the saved logits: no [B, S, V]
-    float32 log-prob tensor is kept."""
-    return _CausalLMLoss.apply(logits, labels, loss_mask)
+    (denominator ``max(sum, 1)``).  ``denom`` replaces the denominator: a
+    data-parallel rank divides its token sum by the count over all ranks, so
+    that the ranks' sum is one mean over the global batch.  The gradient is
+    ``(softmax − onehot)·w`` in the logits' dtype, computed from the saved
+    logits: no [B, S, V] float32 log-prob tensor is kept."""
+    return _CausalLMLoss.apply(logits, labels, loss_mask, denom)

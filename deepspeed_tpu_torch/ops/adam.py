@@ -19,6 +19,9 @@ parameters are updated in place.
 ``step(found_inf=...)`` takes a device boolean: on overflow the parameters,
 the moments and the step count keep their old values, selected with
 ``torch.where`` on the device (the JAX engine's skip, without a host sync).
+The LR schedule is then evaluated at the device step + 1, as JAX evaluates
+it at ``state.step + 1`` (``adam.py:43-44``): a skipped step does not
+advance it.
 """
 
 from typing import Iterable, Optional
@@ -81,9 +84,7 @@ class FusedAdam(torch.optim.Optimizer):
             if not params:
                 continue
             b1, b2 = group["betas"]
-            # the LR schedule reads the host step: under skips it runs ahead
-            # of the device step that the bias correction reads
-            lr, wd, eps = resolve_lr(group["lr"], self.step_count), group["weight_decay"], group["eps"]
+            lr, wd, eps = resolve_lr(group["lr"], step), group["weight_decay"], group["eps"]
             grads = [p.grad.float() for p in params]
             exp_avg, exp_avg_sq = self._moments(group)
             exp_avg = [m for p, m in zip(group["params"], exp_avg) if p.grad is not None]

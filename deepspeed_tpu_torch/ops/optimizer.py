@@ -8,13 +8,20 @@ from typing import Callable, List, Sequence, Union
 
 import torch
 
-LR = Union[float, Callable[[int], float]]
+LR = Union[float, Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]]
 
 
-def resolve_lr(lr: LR, step: int) -> float:
+def resolve_lr(lr: LR, step: Union[int, torch.Tensor]) -> Union[float, torch.Tensor]:
     """``lr`` is a float or a schedule ``step -> lr`` (evaluated at the
-    optimizer's own 1-based step, as the JAX transforms do)."""
-    return float(lr(step)) if callable(lr) else float(lr)
+    optimizer's own 1-based step, as the JAX transforms do).  A host step
+    gives a float; a 0-d tensor step (the device step that an
+    overflow-skipped step leaves in place) gives what the schedule returns
+    for it, a 0-d tensor on its device for the schedules of
+    ``runtime/lr_schedules.py``, so no host sync."""
+    if not callable(lr):
+        return float(lr)
+    value = lr(step)
+    return value if isinstance(value, torch.Tensor) else float(value)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -24,8 +24,11 @@ parameters are broadcast at construction); ``train_batch`` takes the global
 batch, and rank r differentiates its contiguous share of each micro-batch.
 The gradients then become the mean over the ranks on one of two wires:
 
-  * the float32 wire: an all-reduce and mean per gradient tensor, what the
-    JAX engine's GSPMD step computes;
+  * the float32 wire, what the JAX engine's GSPMD step computes: one token
+    mean over the global micro-batch (JAX ``llama.py:535-537``).  Each rank
+    divides its token sum by the global count (with a ``loss_mask``, one
+    scalar all-reduce of the mask sum per micro-batch), and the gradients
+    and the loss are summed over the ranks, one all-reduce per tensor;
   * the ZeRO++ quantized wire (``zero_quantized_gradients``), the JAX manual
     data-parallel step (``_build_compressed_train_step`` :944-1037), taken
     when ``_manual_ddp_eligible`` holds (stage 0, gas 1, no fp16, world > 1;
@@ -44,6 +47,10 @@ blocks cover the same elements and every code and scale equals the JAX
 engine's.  ZeRO stages 1-2 are the single-device update on one rank and
 raise over several (partitioning is not ported); stage 3 raises.  The
 returned loss is a device tensor: reading it is the caller's sync.
+
+The CommsLogger sees the step as JAX logs its jitted step: the qgZ/LoCo
+exchange as one ``all_to_all_quant_reduce`` entry per step, and none of
+the collectives inside the step (``comm.unrecorded``).
 """
 
 import contextlib
@@ -232,7 +239,22 @@ class DeepSpeedEngine:
         if "labels" not in mb:
             raise KeyError("batch must contain 'labels' for the causal-LM loss")
         logits = self.module(mb["input_ids"], positions=mb.get("positions"), segment_ids=mb.get("segment_ids"))
-        return causal_lm_loss(logits, mb["labels"], mb.get("loss_mask"))
+        return causal_lm_loss(logits, mb["labels"], mb.get("loss_mask"), self._global_token_count(mb))
+
+    def _global_token_count(self, mb) -> Optional[torch.Tensor]:
+        """The denominator of the token mean on the float32 wire at world > 1:
+        the tokens (masked-in tokens, at least 1) of the whole micro-batch over
+        all ranks, so that the summed per-rank losses are JAX's one mean.
+        None on one rank and on the manual qgZ/LoCo step, which keep
+        per-device means as JAX's manual step does."""
+        if self.dp_world == 1 or self.qgz:
+            return None
+        mask = mb.get("loss_mask")
+        if mask is None:   # every rank holds as many tokens: no collective
+            return torch.tensor(float(mb["labels"].numel() * self.dp_world), device=self.device)
+        with comm.unrecorded():
+            count = comm.all_reduce(mask.float().sum().reshape(1), comm.ReduceOp.SUM)
+        return count.reshape(()).clamp_min(1.0)
 
     def _backward_micro(self, mb) -> torch.Tensor:
         """One micro-batch: backward of ``loss·scale``, grads added in float32
@@ -283,23 +305,28 @@ class DeepSpeedEngine:
         if timed and cuda:
             torch.cuda.synchronize(self.device)
         t0 = time.time()
-        yield
+        with comm.unrecorded():   # one entry for the exchange, not one per collective
+            yield
         if timed:
             if cuda:
                 torch.cuda.synchronize(self.device)
             comm._record("all_to_all_quant_reduce", t0, self._compressed_wire_bytes)
 
     def _reduce_over_ranks(self, grads: List[torch.Tensor], loss: torch.Tensor):
-        """The gradients and the loss as means over the data-parallel ranks
-        (unchanged on one rank; under LoCo the gradients stay local here and
-        the update reduces them)."""
+        """The gradients and the loss over the data-parallel ranks: sums of
+        the per-rank shares of the global token mean on the float32 wire,
+        means of the per-rank means on the manual qgZ/LoCo step (unchanged on
+        one rank; under LoCo the gradients stay local here and the update
+        reduces them)."""
         if self.dp_world == 1:
             return grads, loss
-        loss = comm.all_reduce(loss.reshape(1), comm.ReduceOp.AVG).reshape(())
+        op = comm.ReduceOp.AVG if self.qgz else comm.ReduceOp.SUM
+        with comm.unrecorded():
+            loss = comm.all_reduce(loss.reshape(1), op).reshape(())
+            if not self.qgz:
+                return [comm.all_reduce(g, op) for g in grads], loss
         if self.loco_error is not None:
             return grads, loss
-        if not self.qgz:
-            return [comm.all_reduce(g, comm.ReduceOp.AVG) for g in grads], loss
         # qgZ (JAX :981-987): the wire takes each gradient in the compute
         # dtype and gives it back in that dtype
         out = []
@@ -341,9 +368,10 @@ class DeepSpeedEngine:
         if self.qgz:
             # per-rank values in the manual step (JAX :795-802): reduce so
             # that every rank clips with the same scale
-            grad_norm = comm.all_reduce(grad_norm.square().reshape(1), comm.ReduceOp.AVG).sqrt().reshape(())
-            if found_inf is not None:
-                found_inf = comm.all_reduce(found_inf.int().reshape(1), comm.ReduceOp.MAX).reshape(()).bool()
+            with comm.unrecorded():
+                grad_norm = comm.all_reduce(grad_norm.square().reshape(1), comm.ReduceOp.AVG).sqrt().reshape(())
+                if found_inf is not None:
+                    found_inf = comm.all_reduce(found_inf.int().reshape(1), comm.ReduceOp.MAX).reshape(()).bool()
         if self.loco_error is not None:
             grads = self._loco_reduce(grads)   # clips the reduced gradients itself
         elif cfg.gradient_clipping and cfg.gradient_clipping > 0:

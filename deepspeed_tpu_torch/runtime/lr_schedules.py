@@ -1,17 +1,25 @@
 """LR schedules (port of ``deepspeed_tpu/runtime/lr_schedules.py``; ref:
 ``deepspeed/runtime/lr_schedules.py``).
 
-Each schedule is a pure function ``step -> lr`` on Python floats: the
-engine and ``FusedAdam`` evaluate it on the host at the optimizer's step,
-so the value reaches the update as a scalar argument.  The formulas are the
-JAX package's (LRRangeTest, OneCycle, WarmupLR, WarmupDecayLR,
-WarmupCosineLR), evaluated in double precision where JAX uses float32.
-``LRSchedulerShim`` gives a schedule the torch-style
-``step()/get_last_lr()/state_dict()`` surface.
+Each schedule is a pure function ``step -> lr`` written with ``torch`` ops,
+so it takes a host number or a 0-d tensor:
+
+  * a host step (a Python number) is evaluated in double precision on the
+    CPU and gives a Python float, as before;
+  * a tensor step (``FusedAdam``'s device step under a dynamic loss scale,
+    which stays put on an overflow-skipped step) is evaluated in float32 on
+    its device, as JAX evaluates the schedule at ``state.step + 1``, and gives
+    a 0-d tensor there: no host sync.
+
+The formulas are the JAX package's (LRRangeTest, OneCycle, WarmupLR,
+WarmupDecayLR, WarmupCosineLR).  ``LRSchedulerShim`` gives a schedule the
+torch-style ``step()/get_last_lr()/state_dict()`` surface.
 """
 
 import math
 from typing import Callable
+
+import torch
 
 LR_RANGE_TEST = "LRRangeTest"
 ONE_CYCLE = "OneCycle"
@@ -21,8 +29,16 @@ WARMUP_COSINE_LR = "WarmupCosineLR"
 VALID_LR_SCHEDULES = [LR_RANGE_TEST, ONE_CYCLE, WARMUP_LR, WARMUP_DECAY_LR, WARMUP_COSINE_LR]
 
 
-def _clip(x: float, lo: float, hi: float) -> float:
-    return min(max(x, lo), hi)
+def _schedule(fn: Callable[[torch.Tensor], torch.Tensor]) -> Callable:
+    """``fn`` on a floating tensor step: a tensor step in float32 on its
+    device, a host step in double on the CPU and its value back as a float."""
+
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            return fn(step.float())
+        return float(fn(torch.tensor(float(step), dtype=torch.float64)))
+
+    return schedule
 
 
 def lr_range_test(lr_range_test_min_lr=1e-3, lr_range_test_step_size=2000, lr_range_test_step_rate=1.0,
@@ -32,10 +48,10 @@ def lr_range_test(lr_range_test_min_lr=1e-3, lr_range_test_step_size=2000, lr_ra
     def schedule(step):
         interval = step / lr_range_test_step_size
         if lr_range_test_staircase:
-            interval = math.floor(interval)
+            interval = torch.floor(interval)
         return lr_range_test_min_lr * (1.0 + interval * lr_range_test_step_rate)
 
-    return schedule
+    return _schedule(schedule)
 
 
 def one_cycle(cycle_min_lr=0.0, cycle_max_lr=1e-3, decay_lr_rate=0.0, cycle_first_step_size=2000,
@@ -46,25 +62,22 @@ def one_cycle(cycle_min_lr=0.0, cycle_max_lr=1e-3, decay_lr_rate=0.0, cycle_firs
     total_cycle = cycle_first_step_size + second
 
     def schedule(step):
-        step = float(step)
-        if step <= cycle_first_step_size:
-            frac = _clip(step / cycle_first_step_size, 0.0, 1.0)
-        else:
-            frac = 1.0 - _clip((step - cycle_first_step_size) / second, 0.0, 1.0)
-        if step <= total_cycle:
-            return cycle_min_lr + (cycle_max_lr - cycle_min_lr) * frac
-        decay = 1.0
+        up = torch.clamp(step / cycle_first_step_size, 0.0, 1.0)
+        down = torch.clamp((step - cycle_first_step_size) / second, 0.0, 1.0)
+        frac = torch.where(step <= cycle_first_step_size, up, 1.0 - down)
+        in_cycle = cycle_min_lr + (cycle_max_lr - cycle_min_lr) * frac
+        decay = torch.ones_like(step)
         if decay_step_size > 0:
-            decay = (1.0 + decay_lr_rate)**(-math.floor(max(step - total_cycle, 0.0) / decay_step_size))
-        return cycle_min_lr * decay
+            decay = (1.0 + decay_lr_rate)**(-torch.floor(torch.clamp_min(step - total_cycle, 0.0) / decay_step_size))
+        return torch.where(step <= total_cycle, in_cycle, cycle_min_lr * decay)
 
-    return schedule
+    return _schedule(schedule)
 
 
-def _warmup_gamma(step: float, warmup_num_steps: int, warmup_type: str) -> float:
+def _warmup_gamma(step: torch.Tensor, warmup_num_steps: int, warmup_type: str) -> torch.Tensor:
     if warmup_type == "log":
-        return _clip(math.log(max(step, 1.0)) / math.log(warmup_num_steps), 0.0, 1.0)
-    return _clip(step / warmup_num_steps, 0.0, 1.0)
+        return torch.clamp(torch.log(torch.clamp_min(step, 1.0)) / math.log(warmup_num_steps), 0.0, 1.0)
+    return torch.clamp(step / warmup_num_steps, 0.0, 1.0)
 
 
 def warmup_lr(warmup_min_lr=0.0, warmup_max_lr=1e-3, warmup_num_steps=1000, warmup_type="log", **_) -> Callable:
@@ -72,26 +85,23 @@ def warmup_lr(warmup_min_lr=0.0, warmup_max_lr=1e-3, warmup_num_steps=1000, warm
     warmup_num_steps = max(2, warmup_num_steps)
 
     def schedule(step):
-        return warmup_min_lr + (warmup_max_lr - warmup_min_lr) * _warmup_gamma(float(step), warmup_num_steps,
-                                                                               warmup_type)
+        return warmup_min_lr + (warmup_max_lr - warmup_min_lr) * _warmup_gamma(step, warmup_num_steps, warmup_type)
 
-    return schedule
+    return _schedule(schedule)
 
 
 def warmup_decay_lr(total_num_steps, warmup_min_lr=0.0, warmup_max_lr=1e-3, warmup_num_steps=1000,
                     warmup_type="log", **_) -> Callable:
     """ref: lr_schedules.py:723 WarmupDecayLR (warmup then linear decay to 0)."""
-    base = warmup_lr(warmup_min_lr, warmup_max_lr, warmup_num_steps, warmup_type)
     warmup_num_steps_ = max(2, warmup_num_steps)
 
     def schedule(step):
-        step = float(step)
-        if step < warmup_num_steps_:
-            return base(step)
-        decay = _clip((total_num_steps - step) / max(float(total_num_steps - warmup_num_steps_), 1.0), 0.0, 1.0)
-        return warmup_max_lr * decay
+        warm = warmup_min_lr + (warmup_max_lr - warmup_min_lr) * _warmup_gamma(step, warmup_num_steps_, warmup_type)
+        decay = torch.clamp((total_num_steps - step) / max(float(total_num_steps - warmup_num_steps_), 1.0), 0.0,
+                            1.0)
+        return torch.where(step < warmup_num_steps_, warm, warmup_max_lr * decay)
 
-    return schedule
+    return _schedule(schedule)
 
 
 def warmup_cosine_lr(total_num_steps, warmup_min_ratio=0.0, warmup_num_steps=1000, cos_min_ratio=1e-4,
@@ -100,14 +110,12 @@ def warmup_cosine_lr(total_num_steps, warmup_min_ratio=0.0, warmup_num_steps=100
     warmup_num_steps_ = max(2, warmup_num_steps)
 
     def schedule(step):
-        step = float(step)
-        if step < warmup_num_steps_:
-            g = _warmup_gamma(step, warmup_num_steps_, warmup_type)
-            return lr * (warmup_min_ratio + (1.0 - warmup_min_ratio) * g)
-        progress = _clip((step - warmup_num_steps_) / max(1.0, total_num_steps - warmup_num_steps_), 0.0, 1.0)
-        return lr * (cos_min_ratio + (1.0 - cos_min_ratio) * 0.5 * (1.0 + math.cos(math.pi * progress)))
+        warm = warmup_min_ratio + (1.0 - warmup_min_ratio) * _warmup_gamma(step, warmup_num_steps_, warmup_type)
+        progress = torch.clamp((step - warmup_num_steps_) / max(1.0, total_num_steps - warmup_num_steps_), 0.0, 1.0)
+        cos = cos_min_ratio + (1.0 - cos_min_ratio) * 0.5 * (1.0 + torch.cos(math.pi * progress))
+        return lr * torch.where(step < warmup_num_steps_, warm, cos)
 
-    return schedule
+    return _schedule(schedule)
 
 
 SCHEDULE_BUILDERS = {

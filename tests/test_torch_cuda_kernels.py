@@ -18,7 +18,9 @@ from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngi
                                               build_engine)
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaForCausalLM, init_weights_
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache, paged_attention
-from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
+from deepspeed_tpu_torch.ops.paged_attention import (choose_n_split, merge_partials_cuda, merge_partials_plain,
+                                                     mma_probe_cuda, paged_attention_cuda,
+                                                     paged_attention_partials_cuda, paged_attention_partials_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -29,39 +31,95 @@ def _needs_gpu():
         pytest.skip("needs an NVIDIA GPU")
 
 
-def _case(c, dtype, d=64, h=8, n_kv=2, page=16, seed=0):
+def _case(c, dtype, d=64, h=8, n_kv=2, page=16, seed=0, clens=None):
     """A prefill row, a continuation row, a decode-depth row and a padding
-    row (chunk_len 0, all-null block table) over shuffled physical pages."""
+    row (chunk_len 0, all-null block table) over shuffled physical pages;
+    the table holds 5 pages more than the longest row needs (null pages)."""
     rng = np.random.default_rng(seed)
     start = np.array([0, 5, 40, 0], np.int32)
-    clens = np.array([c, max(c - 1, 1), 1, 0], np.int32)
-    max_pages = 4
+    clens = np.array(clens if clens is not None else [c, max(c - 1, 1), 1, 0], np.int32)
+    need = [-(-(int(s) + int(n)) // page) if n else 0 for s, n in zip(start, clens)]
+    max_pages = max(need) + 5
     bt = np.zeros((4, max_pages), np.int32)
-    phys = list(rng.permutation(np.arange(1, 13)))
-    for i in range(3):
-        n = -(-(int(start[i]) + c) // page)
+    phys = list(rng.permutation(np.arange(1, sum(need) + 1)))
+    for i, n in enumerate(need):
         bt[i, :n] = phys[:n]
         phys = phys[n:]
-    pages = torch.from_numpy(rng.normal(size=(13, page, 2, n_kv, d)).astype(np.float32)).cuda().to(dtype)
+    pages = torch.from_numpy(rng.normal(size=(sum(need) + 1, page, 2, n_kv, d)).astype(np.float32)).cuda().to(dtype)
     q = torch.from_numpy(rng.normal(size=(4, c, h, d)).astype(np.float32)).cuda().to(dtype)
     return q, pages, torch.from_numpy(bt).cuda(), torch.from_numpy(start).cuda(), torch.from_numpy(clens).cuda(), page
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c", [1, 4])
-def test_paged_attention_kernel_matches_plain(dtype, c):
-    """K3 against its plain version on the same CUDA tensors.  Tolerance:
-    float32 differs only in summation order; bf16 rounds p and the output
-    at other points, a few ulps of 2^-8."""
-    args = _case(c, dtype)
-    before = paged_attention_cuda.launches
-    got = paged_attention_cuda(*args)
+K3_CASES = [pytest.param(torch.float32, 64, c, 1, id=f"f32-c{c}") for c in (1, 4, 256)] + \
+    [pytest.param(torch.bfloat16, d, c, n, id=f"bf16-d{d}-c{c}-split{n or 'auto'}")
+     for d in (64, 128) for c in (1, 4, 256) for n in (None, 1, 3)]
+
+
+@pytest.mark.parametrize("dtype,d,c,n_split", K3_CASES)
+def test_paged_attention_kernel_matches_plain(dtype, d, c, n_split):
+    """K3 against its plain version on the same CUDA tensors, at decode (c
+    1: rep·C = 4 rows, the 16-row CTA whose warps split each key tile), a
+    short chunk and a 256-row chunk (64-row CTAs), whole and split over the
+    context (bf16; ``None``: the wrapper's choice).  Tolerance: float32
+    differs only in summation order; bf16 rounds p and the output at other
+    points, a few ulps of 2^-8."""
+    args = _case(c, dtype, d=d)
+    before = (paged_attention_cuda.launches, paged_attention_cuda.split_calls)
+    got = paged_attention_cuda(*args) if n_split is None else paged_attention_cuda(*args, n_split=n_split)
     want = paged_attention(*args)
     torch.cuda.synchronize()
-    assert paged_attention_cuda.launches == before + 1
+    split = n_split if n_split is not None else (
+        1 if dtype == torch.float32 else choose_n_split(4, c, 8, 2, d, args[2].shape[1] * 16))
+    assert (paged_attention_cuda.launches, paged_attention_cuda.split_calls) == (before[0] + 1,
+                                                                                 before[1] + (split > 1))
     tol = 1e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     assert bool((got[3] == 0).all())
+
+
+def test_paged_attention_kernel_mixed_padding_rows():
+    """A mixed SplitFuse batch inside one C = 256 chunk: a prefill row, a
+    130-row continuation, a decode row (its rep heads in one row tile, the
+    rest of its chunk padding) and a padding row; rows at c >= chunk_len
+    are zeros, whole or split."""
+    args = _case(256, torch.bfloat16, d=128, clens=[256, 130, 1, 0])
+    want = paged_attention(*args).float()
+    for n_split in (1, 2):
+        got = paged_attention_cuda(*args, n_split=n_split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+        assert bool((got[1, 130:] == 0).all()) and bool((got[2, 1:] == 0).all()) and bool((got[3] == 0).all())
+
+
+def test_paged_attention_merge_kernel_matches_plain():
+    """The merge kernel against ``merge_partials_plain`` on the partials the
+    first kernel wrote (empty splits included: the decode-depth row has 41
+    keys of a 4-split table), and those partials against the plain ones."""
+    q, pages, bt, sp, cl, page = _case(1, torch.bfloat16, d=128)
+    m, l, o = paged_attention_partials_cuda(q, pages, bt, sp, cl, page, 4)
+    pm, pl, po = paged_attention_partials_plain(q, pages, bt, sp, cl, page, 4)
+    torch.cuda.synchronize()
+    assert bool(((m == -np.inf) == (pm == -np.inf)).all())
+    live = pm != -np.inf
+    torch.testing.assert_close(m[live], pm[live], atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l[live], pl[live], atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(o[live], po[live], atol=1e-2, rtol=1e-2)
+    got = merge_partials_cuda(m, l, o, cl)
+    want = merge_partials_plain(m, l, o, cl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+
+
+def test_paged_attention_mma_fragments():
+    """One m16n8k16 product through the kernel's ldmatrix / ldmatrix.trans
+    fragment loaders against torch.matmul in float32 (exact sums of bf16
+    products)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16) for s in ((16, 16), (8, 16), (16, 8)))
+    c1, c2 = mma_probe_cuda(a, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(c1, a.float() @ k.float().t(), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(c2, a.float() @ v.float(), atol=1e-5, rtol=1e-5)
 
 
 def test_paged_attention_kernel_rejects_what_it_does_not_take():

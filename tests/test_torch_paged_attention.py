@@ -1,9 +1,11 @@
 """K3 paged attention of the PyTorch port (``deepspeed_tpu_torch``) against
 the JAX package: the plain ``paged_attention`` and the in-place
 ``write_pages`` against ``deepspeed_tpu.models.llama_cache``'s, on the CPU,
-from the same seeded numpy inputs.  The CUDA kernel itself runs only on a
-GPU (``tests/test_torch_cuda_kernels.py``); here its wrapper must refuse
-CPU tensors rather than fall back."""
+from the same seeded numpy inputs; the split route's plain partials and
+their merge against the same golden; the kernels' row map and split choice.
+The CUDA kernels themselves run only on a GPU
+(``tests/test_torch_cuda_kernels.py``); here their wrappers must refuse CPU
+tensors rather than fall back."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +20,13 @@ from deepspeed_tpu_torch.ops import paged_attention as port_op
 ATOL = 2e-5   # float32: the two frameworks' einsum/softmax summation orders
 
 
-def _setup(b=4, c=4, h=8, n_kv=4, d=32, page_size=8, max_pages=6, seed=0):
+def _setup(b=4, c=4, h=8, n_kv=4, d=32, page_size=8, max_pages=6, seed=0, starts=(0, 5, 13, 0)):
     """numpy inputs: an arena holding per-sequence histories (unused block
     table slots point at the null page 0), this chunk's q/k/v, and a batch of
     a prefill row, a continuation row, a decode-depth row and a padding row
     (chunk_len 0, all-null block table)."""
     rng = np.random.default_rng(seed)
-    start_pos = np.array([0, 5, 13, 0][:b], np.int32)
+    start_pos = np.array(starts[:b], np.int32)
     chunk_lens = np.array([c, max(c - 1, 1), 1, 0][:b], np.int32)
     block_table = np.zeros((b, max_pages), np.int32)
     next_page = 1
@@ -137,3 +139,81 @@ def test_entry_points_raise_without_gpu():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# ---------------------------------------------------------------- the split route
+
+
+def test_row_tiles_are_position_major():
+    """A 64-row tile spans 64/rep consecutive chunk positions, each with its
+    rep heads side by side; a decode row's rep heads share one 16-row tile."""
+    assert port_op.tile_rows(4, 1) == 16 and port_op.tile_rows(1, 16) == 16
+    assert port_op.tile_rows(4, 256) == 64 and port_op.tile_rows(1, 17) == 64
+    rows = [port_op.tile_row(3, i, 4, 64) for i in range(64)]
+    assert [c for c, _ in rows] == [48 + i // 4 for i in range(64)]
+    assert [r for _, r in rows] == [i % 4 for i in range(64)]
+    assert [port_op.tile_row(0, i, 4, 16) for i in range(4)] == [(0, 0), (0, 1), (0, 2), (0, 3)]
+    assert {port_op.tile_row(0, i, 1, 64)[1] for i in range(64)} == {0}   # rep 1: one head per position
+
+
+def test_n_split_comes_from_shapes(monkeypatch):
+    """Llama-3-8B (H 32, n_kv 8, D 128), a 128-page table of 16: 16 decode
+    rows make 128 CTAs, so four splits pass 3 × 132; 8 decode rows make 64,
+    seven splits; a prefill chunk (4 × 256 rows, 512 CTAs) and a mixed step
+    (8 × 256, 1024 CTAs) stay whole.  At most one split per 256 keys, and
+    the partials stay within the scratch budget (scaled down here to bind)."""
+    cap = 128 * 16
+    assert port_op.choose_n_split(16, 1, 32, 8, 128, cap) == 4
+    assert port_op.choose_n_split(8, 1, 32, 8, 128, cap) == 7
+    assert port_op.choose_n_split(1, 1, 32, 8, 128, cap) == 8       # 8 CTAs: the key cap binds
+    assert port_op.choose_n_split(1, 1, 32, 8, 128, 600) == 2       # 600 keys: two splits of >= 256
+    assert port_op.choose_n_split(4, 256, 32, 8, 128, cap) == 1
+    assert port_op.choose_n_split(8, 256, 32, 8, 128, cap) == 1
+    assert port_op.choose_n_split(1, 1, 32, 32, 64, cap) == 8       # rep 1: 32 CTAs
+    # the partials of one decode split at B 16 are 16 · 32 · 130 · 4 B = 266,240 B
+    monkeypatch.setattr(port_op, "SPLIT_SCRATCH_BYTES", 2 * 266_240)
+    assert port_op.choose_n_split(16, 1, 32, 8, 128, cap) == 2
+    for keys, n in ((2048, 3), (2048, 1), (48, 5), (1000, 4)):
+        length = port_op.split_len(keys, n)
+        assert length % port_op.KEYS_PER_TILE == 0 and length * n >= keys and (length - 64) * n < keys
+
+
+SPLIT_CASES = [pytest.param(dict(c=4, h=8, n_kv=2), n, id=f"gqa-chunk-split{n}") for n in (1, 2, 4)] + \
+    [pytest.param(dict(c=1, h=8, n_kv=8), 3, id="mha-decode-split3"),
+     pytest.param(dict(c=4, h=8, n_kv=2, page_size=16, max_pages=20), 7, id="gqa-chunk-split7")]
+
+
+@pytest.mark.parametrize("shape,n_split", SPLIT_CASES)
+def test_merged_partials_match_jax(shape, n_split):
+    """The split route in plain form: each split's partial (m in base 2, l,
+    unnormalised O), merged, against the JAX golden at the f32 ATOL.  The
+    histories reach 200 keys over 256-key tables, so with 4 or 7 splits the
+    short rows leave whole splits empty (m = -inf), and the padding row
+    (chunk_len 0) sees nothing in any split."""
+    x = _setup(**{"max_pages": 32, **shape}, starts=(0, 70, 200, 0))
+    jax_pages = _jax_written(x)
+    want = np.asarray(jax_paged_attention(jnp.asarray(x["q"]), jax_pages, jnp.asarray(x["block_table"]),
+                                          jnp.asarray(x["start_pos"]), jnp.asarray(x["chunk_lens"]),
+                                          x["page_size"]))
+    args = (torch.from_numpy(x["q"]), _port_written(x), torch.from_numpy(x["block_table"]),
+            torch.from_numpy(x["start_pos"]), torch.from_numpy(x["chunk_lens"]), x["page_size"])
+    m, l, o = port_op.paged_attention_partials_plain(*args, n_split)
+    assert m.shape == (n_split, ) + x["q"].shape[:3] and o.shape == (n_split, ) + x["q"].shape
+    assert bool((m[:, 3] == -np.inf).all()) and bool((l[:, 3] == 0).all())   # padding row: empty everywhere
+    if n_split >= 4:
+        assert bool((m[1:, 0, 0] == -np.inf).all())    # the 1-key row: every split past the first is empty
+    o = torch.where((m == -np.inf)[..., None], torch.nan, o)   # an empty split's O is never read
+    got = port_op.merge_partials_plain(m, l, o, args[4]).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_array_equal(got[3], 0.0)
+
+
+def test_split_wrappers_refuse_cpu_tensors():
+    x = _setup(c=1, h=8, n_kv=2)
+    t = [torch.from_numpy(x[k]) for k in ("q", "pages", "block_table", "start_pos", "chunk_lens")]
+    m, l, o = port_op.paged_attention_partials_plain(*t, x["page_size"], 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_op.merge_partials_cuda(m, l, o, t[4])
+    with pytest.raises(ValueError, match="CUDA"):
+        port_op.paged_attention_partials_cuda(t[0].to(torch.bfloat16), t[1].to(torch.bfloat16), *t[2:],
+                                              x["page_size"], 2)

@@ -8,16 +8,21 @@ the engine's qgZ and LoCo steps), against the JAX package on a
       under ``shard_map``, evaluated op by op (compiled, XLA rewrites the
       divide by qmax and contracts products into sums: last-bit
       differences, see ``tests/test_torch_quant.py``);
-  (b) 3 qgZ steps and 3 LoCo steps of the engine (the tiny Llama of
-      ``tests/unit/runtime/test_onebit_transport.py``, f32, AdamW lr 1e-3,
-      clipping 1.0) against the JAX engine on the same weights: losses
-      within rtol 1e-4; parameters within 1e-5 on all but 0.1% of the
-      elements and within 2·lr·steps on the rest (Adam moves a parameter by
-      about lr whatever its gradient, so a code that flips on a rounding
-      boundary of x/scale can move it by up to lr either way);
+  (b) 3 qgZ steps, 3 LoCo steps and 3 float32-wire steps (without and with
+      a ``loss_mask`` that hides 3/4 of rank 1's tokens) of the engine (the
+      tiny Llama of ``tests/unit/runtime/test_onebit_transport.py``, f32,
+      AdamW lr 1e-3, clipping 1.0) against the JAX engine on the same
+      weights: losses within rtol 1e-4; parameters within 1e-5 on all but
+      0.1% of the elements and within 2·lr·steps on the rest (Adam moves a
+      parameter by about lr whatever its gradient, so a code that flips on a
+      rounding boundary of x/scale can move it by up to lr either way).  On
+      the float32 wire JAX takes one token mean over the global batch, so
+      with the mask a per-rank mean would be wrong;
   (c) the two ranks' parameters are bit-identical after the steps;
   (d) qgZ within 5e-2 of the port's float32-wire control;
-  (e) the CommsLogger's byte count equals the JAX formula;
+  (e) the CommsLogger's whole record of the steps equals the JAX engine's:
+      one ``all_to_all_quant_reduce`` entry of the JAX formula's bytes per
+      qgZ or LoCo step after the first, nothing for the float32 wire;
   (f) stage 2 over two ranks raises; qgZ with gas 2 warns once and runs the
       float32 wire.
 
@@ -181,6 +186,7 @@ QGZ = {"stage": 0, "zero_quantized_gradients": True}
 RUNS = {"qgz": {**DS_BASE, "zero_optimization": QGZ},
         "loco": {**DS_BASE, "zero_optimization": {**QGZ, "zeropp_loco_param": {"err_beta": 0.8}}},
         "fp32_wire": {**DS_BASE, "zero_optimization": {"stage": 0}},
+        "fp32_wire_masked": {**DS_BASE, "zero_optimization": {"stage": 0}},
         "qgz_gas2": {**DS_BASE, "gradient_accumulation_steps": 2, "zero_optimization": QGZ},
         "fp32_wire_gas2": {**DS_BASE, "gradient_accumulation_steps": 2, "zero_optimization": {"stage": 0}}}
 
@@ -192,10 +198,29 @@ def _tiny_port_cfg():
                           dtype=torch.float32, param_dtype=torch.float32, attention_impl="reference")
 
 
-def _batches():
+#: the runs whose batches carry a loss_mask
+MASKED = ("fp32_wire_masked", )
+#: the runs held against the JAX engine
+JAX_RUNS = ("qgz", "loco", "fp32_wire", "fp32_wire_masked")
+
+
+def _batches(masked=False):
+    """The global batch, repeated; rank r takes rows [4r, 4r + 4).  With
+    ``masked``, a loss_mask that keeps all of rank 0's tokens and the first
+    quarter of each of rank 1's rows."""
     rng = np.random.default_rng(0)
     ids = rng.integers(0, 256, (BATCH, SEQ)).astype(np.int32)
-    return [{"input_ids": ids, "labels": ids}] * STEPS
+    batch = {"input_ids": ids, "labels": ids}
+    if masked:
+        mask = np.ones((BATCH, SEQ), np.float32)
+        mask[BATCH // WORLD:, SEQ // 4:] = 0
+        batch["loss_mask"] = mask
+    return [batch] * STEPS
+
+
+def _comms_counts(comms_dict):
+    """A CommsLogger's record without its times: {name: {bytes: count}}."""
+    return {name: {size: entry[0] for size, entry in sizes.items()} for name, sizes in comms_dict.items()}
 
 
 class _Warnings(logging.Handler):
@@ -215,17 +240,17 @@ def _engine_rank(rank, state):
     from deepspeed_tpu_torch.utils.logging import logger
     out = {}
     for name, ds_config in RUNS.items():
-        comm.configure(enabled=True)
         warned = _Warnings()
         logger.addHandler(warned)
         model = tl.LlamaForCausalLM(_tiny_port_cfg(), device="cpu")
         eng = tds.initialize(model=model, config=ds_config, params=state, device="cpu")[0]
-        losses = [float(eng.train_batch(batch=b)) for b in _batches()]
+        comm.configure(enabled=True)   # a fresh logger: the record of the steps alone
+        losses = [float(eng.train_batch(batch=b)) for b in _batches(name in MASKED)]
         logger.removeHandler(warned)
         out[name] = {"losses": losses, "qgz": eng.qgz, "warnings": warned.messages,
                      "params": {k: v.numpy().copy() for k, v in eng.module_state_dict().items()},
                      "wire_bytes": eng._compressed_wire_bytes,
-                     "comms": dict(comm.comms_logger().comms_dict.get("all_to_all_quant_reduce", {})),
+                     "comms": _comms_counts(comm.comms_logger().comms_dict),
                      "loco_error_abs_max": None if eng.loco_error is None else
                      max(float(t.abs().max()) for t in eng.loco_error)}
     try:
@@ -237,11 +262,14 @@ def _engine_rank(rank, state):
     return out
 
 
-def _jax_engine(zero):
+def _jax_engine(name):
+    """The JAX engine's run ``name`` on MeshSpec(data=2): its initial
+    variables, losses, final parameters and CommsLogger record."""
     import jax
     import jax.numpy as jnp
 
     import deepspeed_tpu as jds
+    from deepspeed_tpu.comm import comm as jcomm
     from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
     from deepspeed_tpu.models import llama as jl
     from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
@@ -252,19 +280,25 @@ def _jax_engine(zero):
     variables = jax.jit(model.init)(jax.random.PRNGKey(0), jnp.zeros((1, SEQ), jnp.int32))
     mesh = create_mesh(MeshSpec(data=WORLD), devices=jax.devices()[:WORLD])
     eng, _, _, _ = jds.initialize(model=model, mesh=mesh, params=variables["params"], dist_init_required=False,
-                                  config=JaxConfig({**DS_BASE, "zero_optimization": zero}, dp_world_size=WORLD))
-    losses = [float(eng.train_batch(batch=b)) for b in _batches()]
-    return variables, losses, jax.tree.map(np.asarray, eng.state.params)
+                                  config=JaxConfig(RUNS[name], dp_world_size=WORLD))
+    saved = jcomm._COMMS_LOGGER
+    jcomm.configure(enabled=True)
+    try:
+        losses = [float(eng.train_batch(batch=b)) for b in _batches(name in MASKED)]
+        comms = _comms_counts(jcomm.comms_logger().comms_dict)
+    finally:
+        jcomm._COMMS_LOGGER = saved
+    return variables, losses, jax.tree.map(np.asarray, eng.state.params), comms
 
 
 @pytest.fixture(scope="module")
 def engine_runs(tmp_path_factory):
-    """The JAX engine's qgZ and LoCo runs, and the port's runs on two ranks
-    from the same initial weights."""
+    """The JAX engine's qgZ, LoCo and float32-wire runs, and the port's runs
+    on two ranks from the same initial weights."""
     import jax
 
     from deepspeed_tpu_torch.models.convert import jax_llama_to_state_dict
-    jax_runs = {name: _jax_engine(RUNS[name]["zero_optimization"]) for name in ("qgz", "loco")}
+    jax_runs = {name: _jax_engine(name) for name in JAX_RUNS}
     variables = jax_runs["qgz"][0]
     cfg = _tiny_port_cfg()
     state = {k: v.numpy() for k, v in jax_llama_to_state_dict(jax.tree.map(np.asarray, variables), cfg).items()}
@@ -272,15 +306,15 @@ def engine_runs(tmp_path_factory):
     return jax_runs, ranks, cfg
 
 
-@pytest.mark.parametrize("name", ["qgz", "loco"])
+@pytest.mark.parametrize("name", JAX_RUNS)
 def test_engine_trajectory_matches_jax(name, engine_runs):
     """(b) losses within rtol 1e-4; parameters within 1e-5 on all but 0.1%
     of the elements and within 2·lr·steps on every one."""
     from deepspeed_tpu_torch.models.convert import jax_llama_to_state_dict
     jax_runs, ranks, cfg = engine_runs
-    _, want_losses, jparams = jax_runs[name]
+    _, want_losses, jparams, _ = jax_runs[name]
     got = ranks[0][name]
-    assert got["qgz"]
+    assert got["qgz"] == (name in ("qgz", "loco"))
     np.testing.assert_allclose(got["losses"], want_losses, rtol=1e-4)
     want = jax_llama_to_state_dict({"params": jparams}, cfg)
     diff = np.concatenate([np.abs(got["params"][k] - want[k].numpy()).ravel() for k in want])
@@ -316,16 +350,21 @@ def test_qgz_and_loco_track_the_fp32_wire(engine_runs):
 def test_comms_logger_counts_the_jax_formula(engine_runs):
     """(e) per step: 2·(padded + 4·padded/256) bytes per tensor, the padding
     to world·256 included (JAX ``engine.py:1016-1026``); every step but the
-    first (which loads the kernels) is recorded."""
-    _, ranks, cfg = engine_runs
+    first (which loads the kernels) is recorded, once: the collectives inside
+    the step (the wire's all-to-alls and all-gathers, the loss and norm
+    reductions, the float32 wire) record nothing, as in the JAX engine's
+    jitted step.  The whole record, names, sizes and counts, equals the JAX
+    engine's."""
+    jax_runs, ranks, cfg = engine_runs
     unit = WORLD * 256
     shapes = [v.shape for v in ranks[0]["qgz"]["params"].values()]
     want = sum(2 * (p + 4 * (p // 256)) for p in (-(-int(np.prod(s)) // unit) * unit for s in shapes))
     for name in ("qgz", "loco"):
-        run = ranks[0][name]
-        assert run["wire_bytes"] == want
-        assert list(run["comms"]) == [want] and run["comms"][want][0] == STEPS - 1
-    assert ranks[0]["fp32_wire"]["comms"] == {}
+        for rank in ranks:
+            assert rank[name]["wire_bytes"] == want
+            assert rank[name]["comms"] == {"all_to_all_quant_reduce": {want: STEPS - 1}} == jax_runs[name][3]
+    for name in ("fp32_wire", "fp32_wire_masked"):
+        assert ranks[0][name]["comms"] == {} == jax_runs[name][3]
 
 
 def test_unsupported_layouts_raise_or_fall_back(engine_runs):

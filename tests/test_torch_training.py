@@ -166,6 +166,34 @@ def test_fused_adam_skips_on_overflow_without_host_sync():
     assert torch.isfinite(opt.state[p]["exp_avg"]).all()
 
 
+def test_fused_adam_lr_schedule_reads_the_device_step_after_a_skip():
+    """lr(s) = 0.1·s; a step, an overflow-skipped step, a step, from p = 1
+    with a constant gradient (each Adam update is then −lr).  JAX evaluates
+    the schedule at ``state.step + 1`` and its engine keeps the state on a
+    skip (``deepspeed_tpu/runtime/engine.py:824-831``), so the two updates
+    take lr(1) and lr(2): p = 1 − 0.1 − 0.2 = 0.7.  The port's device step
+    gives the same, with no host sync; a schedule read at the host's step
+    count would take lr(3) and end at 0.6."""
+
+    def sched(step):
+        return 0.1 * step
+
+    opt = jax_fused_adam(lr=sched)
+    jp = [jnp.ones((4, ), jnp.float32)]
+    state = opt.init(jp)
+    p = torch.ones(4)
+    topt = FusedAdam([p], lr=sched)
+    for g, skip in ((1.0, False), (float("inf"), True), (1.0, False)):
+        updates, new_state = opt.update([jnp.full((4, ), g, jnp.float32)], state, jp)
+        if not skip:
+            jp, state = [x + u for x, u in zip(jp, updates)], new_state
+        p.grad = torch.full((4, ), g)
+        topt.step(found_inf=torch.tensor(skip))
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp[0]), rtol=1e-6)
+    np.testing.assert_allclose(p.numpy(), 0.7, atol=1e-5)   # float32 steps of 0.1 and 0.2 (0.6 with lr(3))
+    assert int(topt._device_step) == 2 and topt.step_count == 3
+
+
 # ------------------------------------------------------------------ LR schedules
 
 SCHEDULES = [
@@ -182,12 +210,18 @@ SCHEDULES = [
 
 @pytest.mark.parametrize("name,params", SCHEDULES, ids=[f"{n}-{i}" for i, (n, _) in enumerate(SCHEDULES)])
 def test_lr_schedules_match_jax(name, params):
-    """The JAX schedules run in float32, the port's in double: rtol 2e-6
-    (float32 ``cos`` near the end of the cosine decay is off by ~1e-6)."""
+    """The JAX schedules run in float32, the port's in double for a host
+    step: rtol 2e-6 (float32 ``cos`` near the end of the cosine decay is off
+    by ~1e-6).  A 0-d int32 tensor step (FusedAdam's device step) is
+    evaluated in float32 as JAX evaluates it, and stays a tensor."""
     jfn = jlr.get_lr_schedule(name, params, base_lr=3e-3)
     tfn = tlr.get_lr_schedule(name, params, base_lr=3e-3)
     for step in (0, 1, 2, 3, 4, 5, 7, 8, 9, 12, 19, 20, 25):
-        np.testing.assert_allclose(tfn(step), float(jfn(step)), rtol=2e-6, atol=1e-12, err_msg=f"step {step}")
+        want = float(jfn(step))
+        np.testing.assert_allclose(tfn(step), want, rtol=2e-6, atol=1e-12, err_msg=f"step {step}")
+        got = tfn(torch.tensor(step, dtype=torch.int32))
+        assert isinstance(got, torch.Tensor) and got.dtype == torch.float32 and got.dim() == 0
+        np.testing.assert_allclose(float(got), want, rtol=2e-6, atol=1e-12, err_msg=f"tensor step {step}")
     with pytest.raises(ValueError):
         tlr.get_lr_schedule("Nope", {})
 
@@ -454,3 +488,29 @@ def test_fp16_engine_skips_overflow_on_device():
     eng.train_batch(batch={"input_ids": ids, "labels": ids})
     assert eng.skipped_steps == 1 and eng.loss_scale == 2.0**29
     assert all(torch.equal(a, b) for a, b in zip(before, eng.master))
+
+
+def test_fp16_engine_lr_after_an_overflow_matches_jax():
+    """fp16 with a dynamic scale of 2^19 and hysteresis 1: step 1 overflows
+    on both engines (the scale halves to 2^18), steps 2 and 3 do not.  JAX's
+    schedule (WarmupLR, linear over 10 steps) reads the optimizer state's
+    step, which the skip left at 0, so steps 2 and 3 take lr(1) and lr(2);
+    read at the host's step they would take lr(2) and lr(3), and move every
+    parameter by about 2e-4 more.  Losses within the f32 test's 1e-5; the
+    float32 masters within the f32 test's 2e-5 on all but 1e-2 of the
+    entries (on this CPU ~1e-3 lie beyond it: the fp16 gradients of the two
+    frameworks differ in the last fp16 bit, and the first Adam update after
+    the skip is lr·sign(g), which flips for entries whose gradient is below
+    that noise), every entry within 2·sum(lr)."""
+    extra = {"fp16": {"enabled": True, "initial_scale_power": 19, "hysteresis": 1}}
+    variables, want, jparams = _jax_trajectory(jnp.float16, extra)
+    eng = _port_engine(variables, dataclasses.replace(TCFG, dtype=torch.float16), extra)
+    losses = [float(eng.train_batch(batch=b)) for b in _batches()]
+    assert eng.skipped_steps == 1 and eng.loss_scale == 2.0**18
+    assert not np.isfinite(want[0][1]) and np.isfinite([r[1] for r in want[1:]]).all()
+    np.testing.assert_allclose(losses, [r[0] for r in want], rtol=1e-5)
+    jstate = jax_llama_to_state_dict(jparams, TCFG)
+    names = [n for n, _ in eng.module.named_parameters()]
+    got = np.concatenate([m.numpy().ravel() for m in eng.master])
+    ref = np.concatenate([jstate[n].numpy().ravel() for n in names])
+    _assert_params_close(got, ref, [1e-4, 2e-4], 2e-5, 1e-2)
