@@ -30,6 +30,7 @@ source, all started together.  Phases:
      Llama-3-8B (B 1, S 4096, 32/8 heads of 128), bf16 and f32, causal and
      full, with a query offset and with Sk > Sq — error, kernel / plain /
      library (SDPA forward, SDPA backward) time and the roofline bound;
+     K2b launched twice on each case gives bit-identical dk and dv;
   6. training: ``initialize`` → ``train_batch`` on Llama-125M at the JAX
      package's bench configuration (B 24, S 1024, bf16, AdamW, ZeRO-2,
      remat ``flash_saveable``), full width and depth with seeded random
@@ -732,6 +733,11 @@ def flash_case(shape: str, dtype, causal: bool, sq: int, sk: int, q_offset: int,
         raise AssertionError(f"{label}: kernel disagrees with the plain version, |err|/limit {bad}")
     if causal and sk > sq + q_offset and (dk[:, sq + q_offset:].any() or dv[:, sq + q_offset:].any()):
         raise AssertionError(f"{label}: keys above the diagonal got nonzero dk/dv")
+    # K2b sums inside one block in a fixed order, no atomics: a second
+    # launch gives the same bits
+    dk2, dv2 = flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+    if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+        raise AssertionError(f"{label}: two K2b launches gave different dk/dv")
     if causal and dtype == torch.bfloat16 and sq == sk:
         mutants = flash_mutants(q, k, v, causal, q_offset, o, lse, dq, dk, dv)
         wants = {out: (want, vector) for outs in outputs.values() for out, (_, want, vector) in outs.items()}

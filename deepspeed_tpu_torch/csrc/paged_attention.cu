@@ -57,6 +57,8 @@
 //     and l = 0 where a row sees no key of the split) to f32 scratch, and
 //     paged_merge_kernel combines the partials, writes out and zeroes the
 //     rows at c >= chunk_lens.  With n_split = 1 the first kernel writes out.
+// The cp.async, ldmatrix and mma.sync helpers live in csrc/mma_tile.cuh,
+// shared with the bf16 K1 and K2b of csrc/flash_attention.cu.
 // TMA is not used (the pages are scattered 16-row blocks).  Left for later:
 // wgmma with a warp-specialised producer, and decode split across a cluster
 // instead of through global scratch.
@@ -71,26 +73,16 @@
 
 #include <atomic>
 
+#include "mma_tile.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace ds_tile;
 
 constexpr int kMaxDevices = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeysPerTile = 64;
-
-// global -> shared, 16 bytes; pred false fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // the shared-memory opt-in above 48 KB is a per-device attribute of each
 // kernel instantiation: set it on a device's first launch only
@@ -328,60 +320,6 @@ cudaError_t launch_f32_rows(const void* q, const void* pages, const int* block_t
 // ============================================================ bf16: tensor cores
 
 constexpr int kTcStages = 3;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and register i of lane l holds row l/4, columns 2(l%4), 2(l%4)+1 of it
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-// the same, each matrix transposed: register i of lane l holds rows
-// 2(l%4), 2(l%4)+1 of column l/4
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c[16x8] += a[16x16] · b[16x8], bf16 in, f32 accumulate.  Fragments (g =
-// lane / 4, t = lane % 4): a = {(g, 2t..), (g+8, 2t..), (g, 2t+8..), (g+8,
-// 2t+8..)}, b = {(k 2t.., n g), (k 2t+8.., n g)}, c = {(g, 2t), (g, 2t+1),
-// (g+8, 2t), (g+8, 2t+1)}.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// A fragment of rows 0..15, columns 0..15 of a row-major tile at p (row stride ld)
-__device__ __forceinline__ void load_a_frag(unsigned (&a)[4], const bf16* p, int ld, int lane) {
-  ldsm_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
-}
-// B fragments of S = A·Kᵀ for keys 0..7 (r[0], r[1]) and 8..15 (r[2], r[3]),
-// depth 0..15, from K rows [key][depth] at p
-__device__ __forceinline__ void load_k_frags(unsigned (&r)[4], const bf16* p, int ld, int lane) {
-  ldsm_x4(r, p + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
-}
-// B fragments of O = P·V for columns 0..7 (r[0], r[1]) and 8..15 (r[2], r[3]),
-// keys 0..15, from V rows [key][column] at p
-__device__ __forceinline__ void load_v_frags(unsigned (&r)[4], const bf16* p, int ld, int lane) {
-  ldsm_x4_trans(r, p + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + (lane >> 4) * 8);
-}
 
 template <int D>
 __host__ __device__ constexpr int tc_ld() {

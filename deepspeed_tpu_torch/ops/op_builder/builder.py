@@ -8,7 +8,8 @@ compiled on first use into a shared library
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 under ``deepspeed_tpu_torch/build/`` (git-ignored), named by a hash of its
-source and flags so an edited source never loads a stale library.  No
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited source
+or header never loads a stale library.  No
 PyTorch headers are compiled, so a build takes seconds.  A missing ``nvcc``
 or a failed build raises; nothing falls back.
 """
@@ -52,8 +53,13 @@ def find_nvcc() -> str:
 
 
 def so_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives: hashed on its source and flags."""
+    """Where kernel ``name``'s library lives: hashed on its source, every
+    shared header ``csrc/*.cuh`` (a source may include any of them) and the
+    flags."""
     h = hashlib.sha256((PACKAGE_ROOT / KERNEL_SOURCES[name]).read_bytes())
+    for header in sorted((PACKAGE_ROOT / "csrc").glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 

@@ -181,6 +181,9 @@ FLASH_CASES = [
     pytest.param(True, 8, 2, 128, 128, 128, 0, id="causal-gqa-d128"),
     pytest.param(True, 6, 2, 64, 256, 384, 128, id="q-offset-rep3"),
     pytest.param(True, 4, 2, 128, 128, 256, 0, id="sk-gt-sq"),
+    pytest.param(True, 16, 2, 128, 256, 256, 0, id="causal-rep8-d128"),
+    pytest.param(True, 4, 2, 64, 192, 256, 64, id="tail-sq192-q-offset"),
+    pytest.param(True, 6, 2, 128, 256, 256, 0, id="causal-rep3-d128"),
 ]
 
 
@@ -222,6 +225,20 @@ def test_flash_kernels_match_plain(dtype, causal, h, hk, d, sq, sk, q_offset):
         assert not dk[:, sq + q_offset:].any() and not dv[:, sq + q_offset:].any()
     after = (fa.flash_fwd_cuda.launches, fa.flash_dq_cuda.launches, fa.flash_dkv_cuda.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", [FLASH_CASES[2], FLASH_CASES[-2], FLASH_CASES[-1]])
+def test_flash_dkv_kernel_is_deterministic(causal, h, hk, d, sq, sk, q_offset):
+    """K2b sums over the query heads and q tiles inside one block in a fixed
+    order (no atomics): two launches give bit-identical dk and dv."""
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = _flash_inputs(h, hk, d, sq, sk, torch.bfloat16, seed=3)
+    o, lse = fa.flash_fwd_cuda(q, k, v, causal, q_offset)
+    _, delta = fa.flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
+    dk1, dv1 = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+    dk2, dv2 = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 def test_flash_kernels_reject_what_they_do_not_take():
