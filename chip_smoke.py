@@ -30,7 +30,9 @@ source, all started together.  Phases:
      Llama-3-8B (B 1, S 4096, 32/8 heads of 128), bf16 and f32, causal and
      full, with a query offset and with Sk > Sq — error, kernel / plain /
      library (SDPA forward, SDPA backward) time and the roofline bound;
-     K2b launched twice on each case gives bit-identical dk and dv;
+     K2a and K2b launched twice on each case give bit-identical dq, delta,
+     dk and dv; two bf16 GQA cases whose blocks hold rows that are not
+     valid (rep 3, and an Sq tail with a query offset);
   6. training: ``initialize`` → ``train_batch`` on Llama-125M at the JAX
      package's bench configuration (B 24, S 1024, bf16, AdamW, ZeRO-2,
      remat ``flash_saveable``), full width and depth with seeded random
@@ -45,11 +47,13 @@ source, all started together.  Phases:
      BERT-large's attention (B 4, 16 heads of 64, S 4096, block 16, bf16)
      for seven layouts (DeepSpeed's documented fixed example, fixed
      unidirectional, BigBird, BSLongformer, variable, local window, dense),
-     with faulty kernels the check must reject, a key padding mask, float32
-     at S 1024 and head dim 128 at block 64; kernel / plain / library (SDPA
-     with the layout as a token mask) time and the roofline bound for the
-     fixed example and BigBird, and a layout with global blocks against a
-     local one of the same density (the straggler's share);
+     with faulty kernels the check must reject, a key padding mask (and one
+     that leaves rows with no visible key: o exactly 0, lse 3e38), float32
+     at S 1024, head dim 128 at blocks 32, 64 and 128; kernel / plain /
+     library (SDPA with the layout as a token mask) time and the roofline
+     bound for the fixed example and BigBird, and a layout with global
+     blocks against a local one of the same density (the straggler's
+     share);
   9. the sparse path through its entry points: ``DeepSpeedConfig`` with the
      documented ``sparse_attention`` block → ``make_sparsity_config`` →
      ``SparseSelfAttention`` forward and backward on CUDA tensors, three
@@ -627,6 +631,10 @@ def phase_profile(cfg, state) -> dict:
 
 # training shapes: Llama-125M at the bench configuration, and Llama-3-8B
 FLASH_SHAPES = {"bench": dict(b=24, s=1024, h=12, hk=12, d=64), "llama3-8b": dict(b=1, s=4096, h=32, hk=8, d=128)}
+# untimed shapes whose blocks hold rows that are not valid: at rep 3 a block
+# has 63 rows (21 positions) and the last one stops at Sq; at rep 2 with a
+# query offset the rows end at Sq 192, below the 256 keys
+FLASH_EDGE_SHAPES = {"rep3": dict(b=2, h=6, hk=2, d=128), "tail": dict(b=2, h=4, hk=2, d=64)}
 # Kernel against plain, element by element.  o, dq, dk, dv:
 #   |kernel − plain| <= a·|plain| + b·rms(vector) + f·rms(tensor),
 # the vector being the D values of one head at one query row (o, dq) or key
@@ -705,7 +713,7 @@ def flash_bounds(b, sq, sk, h, hk, d, dtype, vis) -> dict:
 
 
 def flash_case(shape: str, dtype, causal: bool, sq: int, sk: int, q_offset: int, flush, timed: bool) -> dict:
-    g = FLASH_SHAPES[shape]
+    g = FLASH_SHAPES[shape] if shape in FLASH_SHAPES else FLASH_EDGE_SHAPES[shape]
     b, h, hk, d = g["b"], g["h"], g["hk"], g["d"]
     gen = torch.Generator(device="cuda").manual_seed(sq + sk + q_offset + int(causal))
     q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
@@ -733,8 +741,11 @@ def flash_case(shape: str, dtype, causal: bool, sq: int, sk: int, q_offset: int,
         raise AssertionError(f"{label}: kernel disagrees with the plain version, |err|/limit {bad}")
     if causal and sk > sq + q_offset and (dk[:, sq + q_offset:].any() or dv[:, sq + q_offset:].any()):
         raise AssertionError(f"{label}: keys above the diagonal got nonzero dk/dv")
-    # K2b sums inside one block in a fixed order, no atomics: a second
-    # launch gives the same bits
+    # K2a and K2b sum inside one block in a fixed order, no atomics: a
+    # second launch gives the same bits
+    dq2, delta2 = flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
+    if not (torch.equal(dq, dq2) and torch.equal(delta, delta2)):
+        raise AssertionError(f"{label}: two K2a launches gave different dq/delta")
     dk2, dv2 = flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
     if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
         raise AssertionError(f"{label}: two K2b launches gave different dk/dv")
@@ -790,6 +801,8 @@ def phase_flash_kernels() -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             flash_case(shape, dtype, True, s // 2, s, s // 2, flush, timed=False)   # queries at an offset
             flash_case(shape, dtype, True, s // 2, s, 0, flush, timed=False)        # keys past the last query
+    flash_case("rep3", torch.bfloat16, True, 256, 384, 128, flush, timed=False)
+    flash_case("tail", torch.bfloat16, True, 192, 256, 64, flush, timed=False)
     del flush
     torch.cuda.empty_cache()
     return timed
@@ -1112,9 +1125,11 @@ def sparse_mutants(q, k, v, layout, block, causal, kpm, got) -> dict:
     return out
 
 
-def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True) -> dict:
+def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True, empty_rows=False) -> dict:
     """Hold K6a/K6b/K6c to their plain versions on one layout; with
-    ``mutants``, fail unless the check rejects each faulty kernel.
+    ``mutants``, fail unless the check rejects each faulty kernel.  A row
+    with no visible key must get exactly 0 in o (and 3e38 in lse, see
+    ``sparse_ratio``); with ``empty_rows`` the case must have such rows.
     Returns per kernel the largest |kernel − plain|."""
     h, block = cfg.num_heads, cfg.block
     layout = np.asarray(cfg.make_layout(s))
@@ -1129,6 +1144,11 @@ def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True) -> d
     bad = {n: r for n, r in ratios.items() if not r <= 1}
     if bad:
         raise AssertionError(f"{label}: kernel disagrees with the plain version, |err|/limit {bad}")
+    empty = want["lse"] == EMPTY_ROW_LSE
+    if bool(got["o"][empty].any()):
+        raise AssertionError(f"{label}: a row with no visible key got a nonzero o")
+    if empty_rows and not bool(empty.any()):
+        raise AssertionError(f"{label}: the case has no row without a visible key")
     # a kv block no row admits gets zero dk/dv
     dead_cols = torch.from_numpy(layout.sum(-2) == 0).cuda().repeat_interleave(block, dim=1)   # [H, S]
     if bool(dead_cols.any()) and (got["dk"][:, dead_cols].any() or got["dv"][:, dead_cols].any()):
@@ -1239,6 +1259,15 @@ def phase_sparse_kernels() -> dict:
     for name in ("fixed", "fixed_uni"):
         cfg, causal = sparse_configs(h, SPARSE_BLOCK)[name]
         check(f"{name} bf16 key_padding_mask", cfg, causal, b, s, d, torch.bfloat16, kpm=kpm)
+    # rows with no visible key: kpm masks batch row 2 whole and keys 1024..2047
+    # of row 0, which hold every key the local window admits to the rows of
+    # blocks 65..127
+    kpm_empty = torch.ones((b, s), dtype=torch.bool, device="cuda")
+    kpm_empty[2] = False
+    kpm_empty[0, 1024:2048] = False
+    cfg, causal = sparse_configs(h, SPARSE_BLOCK)["local"]
+    check("local bf16 key_padding_mask, rows with no visible key", cfg, causal, b, s, d, torch.bfloat16,
+          kpm=kpm_empty, empty_rows=True)
     for name, (cfg, causal) in sparse_configs(h, SPARSE_BLOCK).items():
         check(f"{name} f32 S1024", cfg, causal, b, 1024, d, torch.float32, mutants=False)
     for dtype in (torch.bfloat16, torch.float32):
@@ -1246,6 +1275,10 @@ def phase_sparse_kernels() -> dict:
             cfg, causal = sparse_configs(h, 64)[name]
             check(f"{name} {str(dtype)[6:]} D128 block 64", cfg, causal, b, s, 128, dtype,
                   mutants=dtype == torch.bfloat16)
+    # K6a's tiles of 2 and 4 warps: block 32, and block 128 (two sub-tiles of 64)
+    for block in (32, 128):
+        cfg, causal = sparse_configs(h, block)["fixed_uni"]
+        check(f"fixed_uni bf16 D128 block {block}", cfg, causal, b, s, 128, torch.bfloat16)
     log(f"  max |kernel - plain|: " + json.dumps(errs))
 
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")

@@ -5,7 +5,7 @@
 //   K1  flash_fwd_kernel  <- _fwd2_kernel (:162), driven by _flash_fwd2 (:207)
 //   K2a flash_dq_kernel   <- _dq2_kernel  (:287), driven by _flash_bwd2 (:340)
 //   K2b flash_dkv_kernel  <- _dkv2_kernel (:309), driven by _flash_bwd2 (:340)
-// (bf16 K1 and K2b are flash_fwd_kernel_tc and flash_dkv_kernel_tc.)
+// (bf16 runs flash_fwd_kernel_tc, flash_dq_kernel_tc and flash_dkv_kernel_tc.)
 //
 // Layout (all contiguous; the Python wrappers in ops/flash_attention.py check
 // shapes, dtypes and alignment):
@@ -51,8 +51,8 @@
 //     keys) of every tile product, so the softmax between products needs
 //     only the warp's own rows.
 //
-// bf16, K1 and K2b: the tensor-core tile of csrc/mma_tile.cuh (shared with
-// K3), mma.sync m16n8k16 with every operand read by ldmatrix:
+// bf16: the tensor-core tile of csrc/mma_tile.cuh (shared with K3), mma.sync
+// m16n8k16 with every operand read by ldmatrix:
 //   * K1 (flash_fwd_kernel_tc): the warp's Q fragments are loaded once and
 //     stay in registers; S = Q·Kᵀ, the row statistics m and l and the O
 //     accumulator stay in registers; the online softmax runs in base 2
@@ -63,6 +63,18 @@
 //     ring's last stage before the ring reaches it.  A warp whose rows all
 //     lie before a tile skips it; a tile every row of the warp sees in full
 //     skips the mask.  D 128: 3 × 34 KB of ring, two blocks per SM.
+//   * K2a (flash_dq_kernel_tc): K1's grid, rows, ring and skips.  The Q and
+//     dO tiles are staged together in the ring's last stage; each warp holds
+//     its Q and dO A fragments in registers for the whole block, computes
+//     delta for its rows once (a lane quad per row, reading O once) and
+//     keeps delta and lse (base 2) in registers.  Per 16 keys of a tile, all
+//     in registers: S = Q·Kᵀ and dP = dO·Vᵀ (K and V rows by load_k_frags),
+//     P = exp2(S·scale_log2 − lse₂) (0 where masked and on rows past Sq),
+//     dS = P(dP − delta)·scale packed into A fragments as K1 packs P, and
+//     dQ += dS·K (K rows by load_v_frags).  dQ stays in f32 registers and is
+//     written once: no atomics, dq and delta are deterministic.  Only the
+//     ring is shared memory (55 KB at D 64, 104 KB at D 128), so four and
+//     two blocks fit on an SM.
 //   * K2b (flash_dkv_kernel_tc): the block's K and V rows are staged once;
 //     Q, dO, lse and delta of each q tile come through a 3-stage cp.async
 //     ring.  Per q tile and warp (16 keys), all in registers: Sᵀ = K·Qᵀ,
@@ -75,16 +87,14 @@
 //     blocks per SM (faster on the H100 than K/V fragments held in
 //     registers with q tiles of 64 at two blocks per SM, PERF.md); at
 //     D 128, dK and dV alone are 128 registers a lane: two blocks per SM.
-// K2a (both dtypes) and the float32 K1 and K2b use nvcuda::wmma 16x16x16
-// (bf16) or plain f32 FMA on the CUDA cores (float32), with scores and
-// accumulators passing through shared memory between products; the float32
-// kernels serve float32 training and check the algorithm at full precision.
-// Later work: K2a on the mma.sync tile, then wgmma and TMA.
+// float32 K1, K2a and K2b use plain f32 FMA on the CUDA cores, with scores
+// and accumulators passing through shared memory between products; they
+// serve float32 training and check the algorithm at full precision.
+// Later work: wgmma and TMA for all three.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -94,7 +104,6 @@
 
 namespace {
 
-using namespace nvcuda;
 using namespace ds_tile;
 
 constexpr int kMaxDevices = 64;
@@ -102,27 +111,22 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 64;     // rows of a K1/K2a block; keys of a kv tile and of a K2b block
 constexpr int kQTile = 32;    // query rows of a float32 K2b q tile
-constexpr int kStages = 3;    // cp.async ring of the bf16 K1 and K2b
+constexpr int kStages = 3;    // cp.async ring of the bf16 K1, K2a and K2b
 constexpr float kMask = -0.7f * 3.402823466e+38f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
-struct Pad {  // elements that pad a shared row by 16 bytes (keeps wmma's 32-byte alignment)
+struct Pad {  // elements that pad a shared row by 16 bytes
   static constexpr int value = 16 / sizeof(T);
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -143,35 +147,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 // only.
 template <typename T, bool B_COL, int NF, int KD>
 struct WarpGemm;
-
-template <bool B_COL, int NF, int KD>
-struct WarpGemm<__nv_bfloat16, B_COL, NF, KD> {
-  __device__ static void run(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb, float* C, int ldc,
-                             bool accumulate) {
-    using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      if (accumulate)
-        wmma::load_matrix_sync(acc[f], C + 16 * f, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc[f], 0.f);
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + kk, lda);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b;
-        wmma::load_matrix_sync(b, B_COL ? B + 16 * f * ldb + kk : B + kk * ldb + 16 * f, ldb);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < NF; ++f) wmma::store_matrix_sync(C + 16 * f, acc[f], ldc, wmma::mem_row_major);
-  }
-};
 
 template <bool B_COL, int NF, int KD>
 struct WarpGemm<float, B_COL, NF, KD> {
@@ -568,6 +543,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ---------------------------------------------------------------- K2a
 
+// float32 K2a (the bf16 one is flash_dq_kernel_tc below)
+
 template <typename T, int D>
 struct DqSmem {
   static constexpr int LDT = D + Pad<T>::value;
@@ -675,6 +652,218 @@ __global__ void __launch_bounds__(kThreads)
     if (!rows.valid(r)) continue;
     T* dst = dq + (((long long)b * Sq + rows.pos(r)) * H + rows.head(kv, r)) * D;
     for (int d = lane; d < D; d += 32) dst[d] = from_float<T>(dq_s[r * L::LDO + d]);
+  }
+}
+
+// bf16 K2a on the tensor cores (see the file's head): K1's grid, blockIdx.x =
+// batch · HK + kv head, blockIdx.y from the last q tile to the first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
+    flash_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                       const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+                       bf16* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk, int H, int HK,
+                       int q_offset, int causal, float scale, float scale_log2) {
+  constexpr int KT = kRows;   // keys of a tile
+  constexpr int KD = D / 16;  // depth slices of Q·Kᵀ and dO·Vᵀ
+  constexpr int DB = D / 8;   // column blocks of dQ
+  constexpr int LD = tc_ld<D>();
+  constexpr int CH = D / 8;   // 16-byte chunks of a row
+  constexpr int STAGE = fwd_tc_stage<D>();
+  constexpr int KEY_STEP = kThreads / CH;
+  static_assert(2 * kRows * LD <= STAGE, "the Q and dO tiles are staged in one ring stage");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* kv_s = reinterpret_cast<bf16*>(smem_raw);  // [kStages][K, V][KT][LD]
+  bf16* q_s = kv_s + (kStages - 1) * STAGE;         // Q [kRows][LD], then dO, until the ring reaches its last stage
+  bf16* do_s = q_s + kRows * LD;
+
+  const int rep = H / HK;
+  const int qpb = kRows / rep;
+  const RowMap rows{rep, qpb, (int)(gridDim.y - 1 - blockIdx.y) * qpb, Sq};
+  const int kv = blockIdx.x % HK;
+  const int b = blockIdx.x / HK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane >> 2, tig = lane & 3;
+
+  // Q and dO tiles -> the last stage; rows past Sq and past rep·qpb are zeros
+  for (int i = threadIdx.x; i < kRows * CH; i += kThreads) {
+    const int r = i / CH, ch = i % CH;
+    const bool ok = rows.valid(r);
+    long long off = 0;
+    if (ok) off = (((long long)b * Sq + rows.pos(r)) * H + rows.head(kv, r)) * D + ch * 8;
+    cp_async16(q_s + r * LD + ch * 8, q + off, ok);
+    cp_async16(do_s + r * LD + ch * 8, dout + off, ok);
+  }
+  cp_async_commit();
+
+  const int last_pos = min(rows.q0 + qpb, Sq) - 1;
+  const int n_tiles = causal ? min(Sk / KT, (q_offset + last_pos) / KT + 1) : Sk / KT;
+
+  // K1's ring: a thread copies 16-byte chunk my_ch of keys j0, j0 + KEY_STEP,
+  // ... of a tile; its K and V sources step by one tile of keys per load
+  const long long key_stride = (long long)HK * D;
+  const int my_ch = threadIdx.x % CH, j0 = threadIdx.x / CH;
+  const long long off0 = ((long long)b * Sk + j0) * key_stride + (long long)kv * D + my_ch * 8;
+  const bf16* k_src = k + off0;
+  const bf16* v_src = v + off0;
+  bf16* dst0 = kv_s + j0 * LD + my_ch * 8;
+  auto load_tile = [&](int stage) {
+    bf16* dst = dst0 + stage * STAGE;
+#pragma unroll
+    for (int j = 0; j < KT / KEY_STEP; ++j) {
+      cp_async16(dst + j * KEY_STEP * LD, k_src + j * KEY_STEP * key_stride, true);
+      cp_async16(dst + (KT + j * KEY_STEP) * LD, v_src + j * KEY_STEP * key_stride, true);
+    }
+    cp_async_commit();
+    k_src += KT * key_stride;
+    v_src += KT * key_stride;
+  };
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) {
+      load_tile(t);
+    } else {
+      cp_async_commit();  // empty groups keep the ring's wait counts
+    }
+  }
+
+  // this thread's two rows and the key positions they see, as in K1
+  constexpr int kAllKeys = 0x7fffffff;
+  const int r0 = warp * 16;
+  const int ra = r0 + group, rb = ra + 8;
+  const int qpos_a = rows.valid(ra) ? q_offset + rows.pos(ra) : kAllKeys;
+  const int qpos_b = rows.valid(rb) ? q_offset + rows.pos(rb) : kAllKeys;
+  bool warp_rows = false;
+  int warp_qmax = 0, warp_qmin = kAllKeys;
+  for (int i = 0; i < 16; ++i) {
+    if (!rows.valid(r0 + i)) continue;
+    const int p = q_offset + rows.pos(r0 + i);
+    warp_qmax = warp_rows ? max(warp_qmax, p) : p;
+    warp_qmin = min(warp_qmin, p);
+    warp_rows = true;
+  }
+
+  cp_async_wait<kStages - 1>();  // the Q and dO tiles
+  __syncthreads();
+  unsigned qa[KD][4], da[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    load_a_frag(qa[kk], q_s + r0 * LD + kk * 16, LD, lane);
+    load_a_frag(da[kk], do_s + r0 * LD + kk * 16, LD, lane);
+  }
+
+  // delta = rowsum(dO·O) in f32 for the thread's two rows: the row's lane
+  // quad reads O once, each lane every fourth 16-byte chunk, and sums over
+  // the quad.  -lse in base 2 beside it; -inf on a row that is not valid
+  // gives p = 0 there.
+  float delta_r[2], nlse2[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    const bool ok = rows.valid(r);  // the same for the quad
+    float acc = 0.f;
+    if (ok) {
+      const bf16* orow = o + (((long long)b * Sq + rows.pos(r)) * H + rows.head(kv, r)) * D;
+#pragma unroll
+      for (int c = 0; c < CH / 4; ++c) {
+        const int ch = tig + 4 * c;
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + ch * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(do_s + r * LD + ch * 8);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+          acc = fmaf(df.x, of.x, acc);
+          acc = fmaf(df.y, of.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    delta_r[half] = acc;
+    nlse2[half] = -INFINITY;
+    if (ok) {
+      const long long st = ((long long)b * H + rows.head(kv, r)) * Sq + rows.pos(r);
+      if (tig == 0) delta[st] = acc;
+      nlse2[half] = -kLog2e * lse[st];
+    }
+  }
+
+  float acc[DB][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t landed
+    __syncthreads();               // and every warp is done with tile t - 1 (and the Q and dO tiles)
+    if (t + kStages - 1 < n_tiles) {
+      load_tile((t + kStages - 1) % kStages);
+    } else {
+      cp_async_commit();
+    }
+    const int kbase = t * KT;
+    if (!warp_rows || (causal && kbase > warp_qmax)) continue;  // every key in the warp's rows' future
+    const bf16* k_s = kv_s + (t % kStages) * STAGE;
+    const bf16* v_s = k_s + KT * LD;
+    const bool full = !causal || kbase + KT - 1 <= warp_qmin;
+
+    // 16 keys at a time: S and dP of the warp's rows, dS, then dQ += dS·K.
+    // D 64 keeps the loop rolled, which fits 128 registers (four blocks per
+    // SM) with no spill; D 128 unrolls it (PERF.md)
+#pragma unroll (D == 64 ? 1 : kRows / 16)
+    for (int j = 0; j < KT / 16; ++j) {
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned kf[4], vf[4];
+        load_k_frags(kf, k_s + j * 16 * LD + kk * 16, LD, lane);
+        load_k_frags(vf, v_s + j * 16 * LD + kk * 16, LD, lane);
+        mma_bf16(s[0], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[1], qa[kk], kf[2], kf[3]);
+        mma_bf16(dp[0], da[kk], vf[0], vf[1]);
+        mma_bf16(dp[1], da[kk], vf[2], vf[3]);
+      }
+      // dS = P(dP − delta)·scale with P = exp2(S·scale_log2 − lse₂), 0 where
+      // masked, rounded to bf16 into the A fragment of dS·K
+      unsigned dsa[4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e >> 1;  // 0: row a, 1: row b
+          const int key = kbase + j * 16 + nb * 8 + tig * 2 + (e & 1);
+          const bool ok = full || key <= (row ? qpos_b : qpos_a);
+          const float p = ok ? exp2f(fmaf(s[nb][e], scale_log2, nlse2[row])) : 0.f;
+          x[e] = p * (dp[nb][e] - delta_r[row]) * scale;
+        }
+        dsa[nb * 2] = pack_bf16(x[0], x[1]);
+        dsa[nb * 2 + 1] = pack_bf16(x[2], x[3]);
+      }
+#pragma unroll
+      for (int dp2 = 0; dp2 < DB / 2; ++dp2) {
+        unsigned kf[4];
+        load_v_frags(kf, k_s + j * 16 * LD + dp2 * 16, LD, lane);
+        mma_bf16(acc[2 * dp2], dsa, kf[0], kf[1]);
+        mma_bf16(acc[2 * dp2 + 1], dsa, kf[2], kf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (!rows.valid(r)) continue;
+    bf16* dst = dq + (((long long)b * Sq + rows.pos(r)) * H + rows.head(kv, r)) * D + tig * 2;
+#pragma unroll
+    for (int db = 0; db < DB; ++db)
+      *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) =
+          __floats2bfloat162_rn(acc[db][half * 2], acc[db][half * 2 + 1]);
   }
 }
 
@@ -1073,13 +1262,24 @@ template <typename T, int D>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
                void* dq_out, float* delta, const Dims& n, cudaStream_t st) {
   static std::atomic<bool> done[kMaxDevices];
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = opt_in(kernel, DqSmem<T, D>::bytes, done);
-  if (err != cudaSuccess) return err;
-  kernel<<<n.row_grid(), kThreads, DqSmem<T, D>::bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, static_cast<T*>(dq_out), delta, n.Sq, n.Sk, n.H, n.HK, n.q_offset, n.causal,
-      n.scale());
+  if constexpr (is_bf16<T>) {
+    auto kernel = flash_dq_kernel_tc<D>;
+    constexpr size_t bytes = fwd_tc_bytes<D>();
+    cudaError_t err = opt_in(kernel, bytes, done);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(n.B * n.HK, n.row_tiles()), kThreads, bytes, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, static_cast<bf16*>(dq_out), delta, n.Sq,
+        n.Sk, n.H, n.HK, n.q_offset, n.causal, n.scale(), n.scale_log2());
+  } else {
+    auto kernel = flash_dq_kernel<T, D>;
+    cudaError_t err = opt_in(kernel, DqSmem<T, D>::bytes, done);
+    if (err != cudaSuccess) return err;
+    kernel<<<n.row_grid(), kThreads, DqSmem<T, D>::bytes, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(o),
+        static_cast<const T*>(dout), lse, static_cast<T*>(dq_out), delta, n.Sq, n.Sk, n.H, n.HK, n.q_offset,
+        n.causal, n.scale());
+  }
   return cudaGetLastError();
 }
 

@@ -2,8 +2,10 @@
 // (sm_90a): cp.async staging and mma.sync m16n8k16 bf16 products whose
 // operands are read from shared memory with ldmatrix.
 //
-// Included by csrc/paged_attention.cu (K3, paged_attention_tc_kernel) and
-// csrc/flash_attention.cu (K1 flash_fwd_kernel_tc, K2b flash_dkv_kernel_tc).
+// Included by csrc/paged_attention.cu (K3, paged_attention_tc_kernel),
+// csrc/flash_attention.cu (K1 flash_fwd_kernel_tc, K2a flash_dq_kernel_tc,
+// K2b flash_dkv_kernel_tc) and csrc/sparse_attention.cu (K6a
+// sparse_fwd_kernel_tc; K6b and K6c take its cp.async helpers).
 // phase 2 of chip_smoke.py holds one product through these loaders against
 // torch.matmul (mma_probe_kernel in paged_attention.cu).
 //
@@ -12,9 +14,11 @@
 // reads of one matrix hit distinct banks:
 //   load_a_frag   A of a product, rows of a row-major tile (Q, K, V rows);
 //   load_k_frags  B of a product "against rows": C = A·Rᵀ, R row-major
-//                 [n][depth] (K for Q·Kᵀ, Q for K·Qᵀ, dO for V·dOᵀ);
+//                 [n][depth] (K for Q·Kᵀ, V for dO·Vᵀ, Q for K·Qᵀ, dO for
+//                 V·dOᵀ);
 //   load_v_frags  B of a product "times rows": C = A·R, R row-major
-//                 [depth][n] (V for P·V, dO for Pᵀ·dO, Q for dSᵀ·Q).
+//                 [depth][n] (V for P·V, K for dS·K, dO for Pᵀ·dO, Q for
+//                 dSᵀ·Q).
 // A C fragment of S blocks 2j and 2j + 1 (columns 16j..16j+15) becomes the
 // A fragment of a product of depth 16 by pack_bf16, with no shared memory:
 //   a[0] = pack(c_2j[0], c_2j[1])   a[1] = pack(c_2j[2], c_2j[3])

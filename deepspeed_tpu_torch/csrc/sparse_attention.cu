@@ -4,6 +4,7 @@
 // Replaces the Pallas TPU kernels of
 // deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:
 //   K6a sparse_fwd_kernel <- _kernel     (:35),  driven by _fwd_impl (:257)
+//       (bf16: sparse_fwd_kernel_tc)
 //   K6b sparse_dq_kernel  <- _dq_kernel  (:125), driven by _bwd_impl (:307)
 //   K6c sparse_dkv_kernel <- _dkv_kernel (:152), driven by _bwd_impl (:307)
 //
@@ -37,8 +38,8 @@
 // layout (density 0.26 at S 4096) is bound by tensor-core operations, a
 // BigBird layout (density 0.023) by HBM bytes.  Either way the bound is far
 // below what these kernels take: at block 16 a tile is 16×16×64, so loads,
-// the softmax and the shared-memory round trips between the products, not
-// the products, set the time.
+// the softmax and (K6b, K6c) the shared-memory round trips between the
+// products, not the products, set the time.
 //
 // Design.  The TPU kernels run a sequential grid (B·H, nb, L) whose last axis
 // pads every row to the widest row's L and carries the softmax state in VMEM
@@ -49,12 +50,8 @@
 //     sub-tiles of BT keys (queries), and writes its output once.  No
 //     padding tile is read, no atomics: results are deterministic.
 //   * A CTA is BT / 16 warps; each warp owns a 16-row strip of every tile
-//     product, so the softmax between two products reads the warp's own rows
-//     from shared memory and needs only __syncwarp.  At block 16 a CTA is one
-//     warp and its 16 rows are one nvcuda::wmma row of fragments.
-//   * The K/V (K6a, K6b) or Q/dO/lse/delta (K6c) sub-tiles are staged with
-//     cp.async, double-buffered where shared memory allows: the next
-//     sub-tile's loads overlap this one's math.
+//     product, so the softmax between two products needs only the warp's
+//     own rows.  At block 16 a CTA is one warp.
 //   * With causal, the sub-tiles wholly after the tile's last query (K6a,
 //     K6b) or wholly before its first key (K6c) are masked everywhere; the
 //     tables are ascending, so they form a suffix (prefix), found by binary
@@ -62,13 +59,32 @@
 //   * CTAs are launched heaviest (head, block) first, from row_order /
 //     col_order: the rows and columns of global blocks, which admit every
 //     block (L = nb), start first instead of trailing the grid.
-//   * The products run on the tensor cores in bf16 with f32 accumulators
-//     (16×16×16 wmma fragments); scores and accumulators pass through shared
-//     memory in f32.  float32 uses f32 FMA on the CUDA cores.
+//   * bf16 K6a (sparse_fwd_kernel_tc) runs on the tensor-core tile of
+//     csrc/mma_tile.cuh, mma.sync m16n8k16, as the bf16 flash forward K1
+//     does: the warp's Q fragments are loaded once and stay in registers;
+//     S of a BT-key sub-tile (BT / 8 blocks of 8 keys), the row statistics
+//     and the O accumulator stay in registers; a thread masks its own two
+//     columns of each 8-key block by the causal position and kpm (a bit per
+//     score); p = exp2(s·scale·log2 e − m), 0 where masked, with a row's max
+//     and sum over its lane quad by two shuffles; p goes rounded to bf16
+//     straight into the A fragments of P·V.  The K/V sub-tiles come through
+//     a 3-stage cp.async ring that the CTA's warps share, and the Q sub-tile
+//     is staged in the ring's last stage before the ring reaches it, so the
+//     ring is all the shared memory a CTA takes: at block 16 and D 64 a
+//     one-warp CTA holds 13.5 KB, 15 CTAs an SM (2 stages, 9 KB, were no
+//     faster on the H100, PERF.md).  A warp whose rows all precede a
+//     sub-tile skips it; a sub-tile with no kpm that the warp's rows see in
+//     full skips the mask.  lse leaves in natural log (m·ln 2 + log l).
+//   * K6b, K6c and the float32 K6a run 16×16×16 nvcuda::wmma fragments
+//     (bf16) or f32 FMA on the CUDA cores (float32), with scores and
+//     accumulators passing through shared memory in f32; K/V (K6b) or
+//     Q/dO/lse/delta (K6c) sub-tiles are double-buffered with cp.async where
+//     shared memory allows.
 //   * delta is computed once, by K6b, and read by K6c on the same stream
 //     (the TPU K6c recomputes it for every tile).
-// Later work: split a global row (column) over several CTAs, wgmma with
-// register accumulators.
+// Later work: K6b and K6c on the mma.sync tile; split a global row (column)
+// over several CTAs; at block 16, share each K/V sub-tile among the row
+// blocks whose block lists are the same (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,14 +95,18 @@
 #include <atomic>
 #include <type_traits>
 
+#include "mma_tile.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace ds_tile;
 
 constexpr int kMaxDevices = 64;
 constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may use on sm_90
 constexpr float kMask = -0.7f * 3.402823466e+38f;
 constexpr float kEmptyLse = 3e38f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
 struct Pad {  // elements that pad a shared row by 16 bytes (keeps wmma's 32-byte alignment)
@@ -117,17 +137,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// global -> shared, 16 bytes, asynchronous
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Copy ROWS contiguous rows of COLS elements (row stride COLS in global) into
 // shared rows of ld elements, by all NT threads of the block.
 template <typename T, int COLS, int ROWS, int NT>
@@ -137,7 +146,7 @@ __device__ __forceinline__ void async_rows(T* dst, int ld, const T* src) {
 #pragma unroll
   for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NT) {
     const int r = i / CHUNKS, ch = i % CHUNKS;
-    cp_async16(dst + r * ld + ch * VEC, src + (long long)r * COLS + ch * VEC);
+    cp_async16(dst + r * ld + ch * VEC, src + (long long)r * COLS + ch * VEC, true);
   }
 }
 
@@ -258,6 +267,8 @@ __device__ __forceinline__ bool key_kept(const uint8_t* kpm, long long b_off, in
 }
 
 // ---------------------------------------------------------------- K6a
+
+// float32 K6a (the bf16 one is sparse_fwd_kernel_tc below)
 
 template <typename T, int D, int BT>
 struct FwdSmem {
@@ -388,6 +399,216 @@ __global__ void __launch_bounds__(2 * BT)
     T* dst = o + (head + pos) * D;
     for (int d = lane; d < D; d += 32) dst[d] = from_float<T>(live ? o_w[i * L::LDO + d] / denom : 0.f);
     if (lane == 0) lse[head + pos] = live ? m[i] + logf(denom) : kEmptyLse;
+  }
+}
+
+// shared memory and occupancy of the bf16 K6a: a ring of K/V sub-tiles
+// only (the Q sub-tile is staged in its last stage before the ring reaches
+// it); at most 128 registers a thread at D 64 and 255 at D 128
+template <int D, int BT>
+struct FwdTc {
+  static constexpr int STAGES = 3;
+  static constexpr int LD = D + 8;          // bf16 rows padded by 16 bytes
+  static constexpr int STAGE = 2 * BT * LD;  // K rows, then V rows
+  static constexpr size_t bytes = sizeof(bf16) * STAGES * STAGE;
+  static constexpr int MIN_BLOCKS = (D == 64 ? 512 : 256) / (2 * BT);
+};
+
+// bf16 K6a on the tensor cores (see the file's head): the CTAs, the
+// sub-tiles and the causal cut of sparse_fwd_kernel; per warp, 16 query rows
+// with S, the softmax statistics and O in registers.
+template <int D, int BT>
+__global__ void __launch_bounds__(2 * BT, FwdTc<D, BT>::MIN_BLOCKS)
+    sparse_fwd_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const uint8_t* __restrict__ kpm, const int* __restrict__ row_ptr,
+                         const int* __restrict__ row_idx, const int* __restrict__ row_order, bf16* __restrict__ o,
+                         float* __restrict__ lse, int B, int H, int S, int block, int causal, float scale_log2) {
+  using L = FwdTc<D, BT>;
+  constexpr int NT = 2 * BT;      // BT / 16 warps
+  constexpr int STAGES = L::STAGES;
+  constexpr int NB = BT / 8;      // S blocks of 8 keys
+  constexpr int KD = D / 16;      // depth slices of Q·Kᵀ
+  constexpr int DB = D / 8;       // column blocks of O
+  constexpr int LD = L::LD;
+  constexpr int STAGE = L::STAGE;
+  constexpr int CH = D / 8;       // 16-byte chunks of a row
+  constexpr int ROW_STEP = NT / CH;
+  static_assert(BT % ROW_STEP == 0 && NB * 4 <= 32, "a sub-tile's rows split over the CTA; keep bits fit 32");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][K, V][BT][LD]
+  bf16* q_s = ring + (STAGES - 1) * STAGE;          // [BT][LD], until the ring reaches its last stage
+
+  const int nb = S / block, subs = block / BT;
+  const TileId id(row_order, B, nb, subs);
+  const int row0 = id.blk * block + id.part * BT;
+  const long long head = ((long long)id.b * H + id.h) * S;  // row offset of (b, h)
+  const long long b_off = (long long)id.b * S;
+  const int hb = id.h * nb + id.blk;
+  const int* cols = row_idx + row_ptr[hb];
+  int n_tiles = (row_ptr[hb + 1] - row_ptr[hb]) * subs;
+  if (causal) n_tiles = count_upto(cols, n_tiles, subs, block, BT, row0 + BT - 1);
+
+  // a thread copies 16-byte chunk my_ch of rows j0, j0 + ROW_STEP, ... of a
+  // sub-tile
+  const int my_ch = threadIdx.x % CH, j0 = threadIdx.x / CH;
+  const long long my_off = (head + j0) * D + my_ch * 8;
+  bf16* dst0 = ring + j0 * LD + my_ch * 8;
+#pragma unroll
+  for (int j = 0; j < BT / ROW_STEP; ++j)
+    cp_async16(q_s + (j0 + j * ROW_STEP) * LD + my_ch * 8, q + my_off + (long long)(row0 + j * ROW_STEP) * D, true);
+  cp_async_commit();
+  auto load_tile = [&](int t, int stage) {
+    const long long off = my_off + (long long)sub_tile_pos(cols, t, subs, block, BT) * D;
+    bf16* dst = dst0 + stage * STAGE;
+#pragma unroll
+    for (int j = 0; j < BT / ROW_STEP; ++j) {
+      cp_async16(dst + j * ROW_STEP * LD, k + off + j * ROW_STEP * D, true);
+      cp_async16(dst + (BT + j * ROW_STEP) * LD, v + off + j * ROW_STEP * D, true);
+    }
+    cp_async_commit();
+  };
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) {
+      load_tile(st, st);
+    } else {
+      cp_async_commit();  // empty groups keep the ring's wait counts
+    }
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane >> 2, tig = lane & 3;
+  const int wr0 = row0 + warp * 16;                 // the warp's first row
+  const int qpos_a = wr0 + group, qpos_b = qpos_a + 8;  // this thread's two rows
+
+  cp_async_wait<STAGES - 1>();  // the Q sub-tile
+  __syncthreads();
+  unsigned qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) load_a_frag(qa[kk], q_s + warp * 16 * LD + kk * 16, LD, lane);
+
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in base 2
+  float acc[DB][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // sub-tile t landed
+    __syncthreads();              // and every warp is done with sub-tile t - 1 (and the Q sub-tile)
+    if (t + STAGES - 1 < n_tiles) {
+      load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    } else {
+      cp_async_commit();
+    }
+    const int key0 = sub_tile_pos(cols, t, subs, block, BT);
+    if (causal && key0 > wr0 + 15) continue;  // every key after the warp's rows
+    const bf16* k_s = ring + (t % STAGES) * STAGE;
+    const bf16* v_s = k_s + BT * LD;
+
+    float s[NB][4];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int p = 0; p < NB / 2; ++p) {
+        unsigned kf[4];
+        load_k_frags(kf, k_s + p * 16 * LD + kk * 16, LD, lane);
+        mma_bf16(s[2 * p], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * p + 1], qa[kk], kf[2], kf[3]);
+      }
+    }
+
+    // bit 4·i + e: score e of block i is kept (causal position and kpm); a
+    // tile with no kpm that every row of the warp sees in full keeps all
+    unsigned keep = ~0u;
+    if (kpm != nullptr || (causal && key0 + BT - 1 > wr0)) {
+      keep = 0u;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int key = key0 + i * 8 + tig * 2;
+        const bool k0 = key_kept(kpm, b_off, key), k1 = key_kept(kpm, b_off, key + 1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = e < 2 ? qpos_a : qpos_b;
+          if ((e & 1 ? k1 : k0) && (!causal || key + (e & 1) <= qpos)) keep |= 1u << (4 * i + e);
+        }
+      }
+    }
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = (keep >> (4 * i + e) & 1u) ? s[i][e] * scale_log2 : kMask;
+      mx_a = fmaxf(mx_a, fmaxf(s[i][0], s[i][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[i][2], s[i][3]));
+    }
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+    mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+    mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+    const float mn_a = fmaxf(m_a, mx_a);  // finite: kMask is finite
+    const float mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f(m_a - mn_a);
+    const float alpha_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    l_a *= alpha_a;
+    l_b *= alpha_b;
+#pragma unroll
+    for (int db = 0; db < DB; ++db) {
+      acc[db][0] *= alpha_a;
+      acc[db][1] *= alpha_a;
+      acc[db][2] *= alpha_b;
+      acc[db][3] *= alpha_b;
+    }
+
+    // p = exp2(s − m) where kept, else 0; l sums it in f32, P·V takes it
+    // rounded to bf16 from the A fragments (blocks 2j and 2j + 1: 16 keys)
+#pragma unroll
+    for (int j = 0; j < NB / 2; ++j) {
+      unsigned pa[4];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = 2 * j + half;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[e] = (keep >> (4 * i + e) & 1u) ? exp2f(s[i][e] - (e < 2 ? mn_a : mn_b)) : 0.f;
+        l_a += p[0] + p[1];
+        l_b += p[2] + p[3];
+        pa[half * 2] = pack_bf16(p[0], p[1]);
+        pa[half * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DB / 2; ++dp) {
+        unsigned vf[4];
+        load_v_frags(vf, v_s + j * 16 * LD + dp * 16, LD, lane);
+        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // a row's l: the sum over its lane quad.  l = 0 (no admitted key, or all
+  // masked): o = 0 and lse = 3e38, so its backward is exactly 0
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int pos = half ? qpos_b : qpos_a;
+    const float l = half ? l_b : l_a;
+    const bool live = l > 0.f;
+    const float denom = fmaxf(l, 1e-30f);
+    const float inv = live ? 1.f / denom : 0.f;
+    bf16* dst = o + (head + pos) * D + tig * 2;
+#pragma unroll
+    for (int db = 0; db < DB; ++db)
+      *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) =
+          __floats2bfloat162_rn(acc[db][half * 2] * inv, acc[db][half * 2 + 1] * inv);
+    if (tig == 0) lse[head + pos] = live ? (half ? m_b : m_a) * kLn2 + logf(denom) : kEmptyLse;
   }
 }
 
@@ -697,14 +918,26 @@ template <typename T, int D, int BT>
 cudaError_t fwd(const void* q, const void* k, const void* v, const uint8_t* kpm, const int* row_ptr,
                 const int* row_idx, const int* row_order, void* o, float* lse, const Dims& n, cudaStream_t st) {
   static std::atomic<bool> done[kMaxDevices];
-  auto kernel = sparse_fwd_kernel<T, D, BT>;
-  constexpr size_t bytes = FwdSmem<T, D, BT>::bytes;
-  static_assert(bytes <= kSmemLimit, "K6a tile does not fit in shared memory");
-  cudaError_t err = opt_in(kernel, bytes, done);
-  if (err != cudaSuccess) return err;
-  kernel<<<n.grid(BT), 2 * BT, bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                            static_cast<const T*>(v), kpm, row_ptr, row_idx, row_order,
-                                            static_cast<T*>(o), lse, n.B, n.H, n.S, n.block, n.causal, n.scale);
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto kernel = sparse_fwd_kernel_tc<D, BT>;
+    constexpr size_t bytes = FwdTc<D, BT>::bytes;
+    static_assert(bytes <= kSmemLimit, "K6a ring does not fit in shared memory");
+    cudaError_t err = opt_in(kernel, bytes, done);
+    if (err != cudaSuccess) return err;
+    kernel<<<n.grid(BT), 2 * BT, bytes, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                              static_cast<const bf16*>(v), kpm, row_ptr, row_idx, row_order,
+                                              static_cast<bf16*>(o), lse, n.B, n.H, n.S, n.block, n.causal,
+                                              n.scale * 1.4426950408889634f);
+  } else {
+    auto kernel = sparse_fwd_kernel<T, D, BT>;
+    constexpr size_t bytes = FwdSmem<T, D, BT>::bytes;
+    static_assert(bytes <= kSmemLimit, "K6a tile does not fit in shared memory");
+    cudaError_t err = opt_in(kernel, bytes, done);
+    if (err != cudaSuccess) return err;
+    kernel<<<n.grid(BT), 2 * BT, bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                              static_cast<const T*>(v), kpm, row_ptr, row_idx, row_order,
+                                              static_cast<T*>(o), lse, n.B, n.H, n.S, n.block, n.causal, n.scale);
+  }
   return cudaGetLastError();
 }
 

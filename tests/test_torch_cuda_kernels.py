@@ -227,18 +227,25 @@ def test_flash_kernels_match_plain(dtype, causal, h, hk, d, sq, sk, q_offset):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
 
 
-@pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", [FLASH_CASES[2], FLASH_CASES[-2], FLASH_CASES[-1]])
-def test_flash_dkv_kernel_is_deterministic(causal, h, hk, d, sq, sk, q_offset):
-    """K2b sums over the query heads and q tiles inside one block in a fixed
-    order (no atomics): two launches give bit-identical dk and dv."""
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+@pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", [FLASH_CASES[2], FLASH_CASES[3], FLASH_CASES[-3],
+                                                          FLASH_CASES[-2], FLASH_CASES[-1]])
+def test_flash_dkv_kernel_is_deterministic(kernel, causal, h, hk, d, sq, sk, q_offset):
+    """K2b (``dkv``) sums over the query heads and q tiles inside one block,
+    K2a (``dq``) over the kv tiles of its rows, each in a fixed order (no
+    atomics): two launches give bit-identical dk and dv, or dq and delta."""
     from deepspeed_tpu_torch.ops import flash_attention as fa
     q, k, v, do = _flash_inputs(h, hk, d, sq, sk, torch.bfloat16, seed=3)
     o, lse = fa.flash_fwd_cuda(q, k, v, causal, q_offset)
     _, delta = fa.flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
-    dk1, dv1 = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
-    dk2, dv2 = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+    if kernel == "dq":
+        first = fa.flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
+        second = fa.flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
+    else:
+        first = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
+        second = fa.flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
     torch.cuda.synchronize()
-    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_kernels_reject_what_they_do_not_take():
@@ -342,6 +349,39 @@ def test_sparse_kernels_match_plain(dtype, block, d, causal, use_kpm):
     assert not _within(dk_faulty, want[1], tol)
     after = (sk.sparse_attn_fwd_cuda.launches, sk.sparse_attn_dq_cuda.launches, sk.sparse_attn_dkv_cuda.launches)
     assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("block,d", [(16, 64), (32, 128), (64, 64), (128, 128)])
+def test_sparse_fwd_kernel_rows_with_no_visible_key(block, d):
+    """K6a on rows that see no key: head 1's row block 1 admits no block, and
+    kpm masks every key of batch row 1 and, in batch row 0, the keys of
+    blocks 2..5, every key that the local window (the block and the one
+    before it, causal) admits to blocks 3..5.  Those rows read exactly 0 in
+    o and 3e38 in lse; the others agree with the plain version in bf16."""
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    b, h, s = 2, 3, 8 * block
+    layout = np.zeros((h, 8, 8), np.int64)
+    layout[:, np.arange(8), np.arange(8)] = 1
+    layout[:, np.arange(1, 8), np.arange(7)] = 1
+    layout[1, 1, :] = 0
+    tables = sk.build_tables(layout, "cuda")
+    rng = np.random.default_rng(block + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).cuda().to(torch.bfloat16)
+               for _ in range(3))
+    kpm = torch.ones((b, s), dtype=torch.bool, device="cuda")
+    kpm[1] = False
+    kpm[0, 2 * block:6 * block] = False
+    o, lse = sk.sparse_attn_fwd_cuda(q, k, v, tables, block, True, None, kpm)
+    want_o, want_lse = sk.sparse_attn_fwd_plain(q, k, v, tables, block, True, None, kpm)
+    torch.cuda.synchronize()
+    empty = torch.zeros((b, h, s), dtype=torch.bool, device="cuda")
+    empty[1] = True
+    empty[0, :, 3 * block:6 * block] = True
+    empty[:, 1, block:2 * block] = True
+    assert torch.equal(want_lse == sk.EMPTY_ROW_LSE, empty)
+    assert not o[empty].any() and bool((lse[empty] == sk.EMPTY_ROW_LSE).all())
+    tol = FLASH_TOL[torch.bfloat16]
+    assert _within(o, want_o, tol) and _within(lse[~empty], want_lse[~empty], tol, vector=False)
 
 
 def test_sparse_kernels_reject_what_they_do_not_take():
