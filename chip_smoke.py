@@ -7,7 +7,9 @@ Needs one CUDA GPU (Hopper: the kernels are built for sm_90a) and ``nvcc``;
 builds every kernel from ``deepspeed_tpu_torch/csrc``, one ``nvcc`` per
 source, all started together.  Phases:
 
-  1. environment: card name and power limit, versions, kernel build time;
+  1. environment: card name and power limit, versions, kernel build time,
+     and ptxas's registers of the bf16 K6b/K6c instantiations (a spill
+     fails the run);
   2. K3 paged attention against its plain PyTorch version at the serving
      shapes of Llama-3-8B (H=32, n_kv=8, D=128, page 16, bf16): decode,
      decode with every context at 2000 keys (both split over the context),
@@ -53,12 +55,16 @@ source, all started together.  Phases:
      library (SDPA with the layout as a token mask) time and the roofline
      bound for the fixed example and BigBird, and a layout with global
      blocks against a local one of the same density (the straggler's
-     share);
+     share); the documented example's row and column groups (the CTAs of
+     the bf16 K6b and K6c), K6b and K6c launched twice on every case with
+     bit-identical dq, delta, dk and dv, and a K6c that loses one group
+     member's dk among the faulty kernels;
   9. the sparse path through its entry points: ``DeepSpeedConfig`` with the
      documented ``sparse_attention`` block → ``make_sparsity_config`` →
      ``SparseSelfAttention`` forward and backward on CUDA tensors, three
      iterations — K6a/K6b/K6c launches per call, finite gradients, outputs
-     against the plain versions, peak memory and a profiled iteration;
+     against the plain versions, peak memory, and each kernel's device time
+     inside the path (CUDA events around its launch);
  10. K4a/K4b/K5a/K5b block quantization against their plain versions at
      the qgZ wire's shapes (the 24,576,000-element embedding of Llama-125M
      in f32 and bf16, a padded norm weight, 1001 blocks), codes, scales and
@@ -82,6 +88,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -177,7 +184,31 @@ def phase_environment() -> dict:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"    {line.strip()}")
     log(f"kernels built in {time.perf_counter() - t_all:.2f} s")
-    return {"card": smi}
+    regs = ptxas_report(built["sparse_attention"][0], ("sparse_dq_kernel_tc", "sparse_dkv_kernel_tc"))
+    log("  sparse_dq_kernel_tc / sparse_dkv_kernel_tc (D, CTA rows): " + json.dumps(regs))
+    spills = {k: r for k, r in regs.items() if r["spill_bytes"]}
+    if spills:
+        raise AssertionError(f"ptxas spills in the bf16 K6b/K6c: {spills}")
+    return {"card": smi, "sparse_bwd_registers": regs}
+
+
+def ptxas_report(output: str, names) -> dict:
+    """``name D=.. ROWS=..`` → registers and spill bytes of each instantiation
+    of the kernels ``names`` (``template <int D, int ROWS>``), from nvcc's
+    ``-Xptxas -v`` output; empty when the library was already built."""
+    out, key = {}, None
+    for line in output.splitlines():
+        if "Compiling entry" in line or "Function properties for" in line:
+            key = None
+            m = re.search(r"(" + "|".join(names) + r")ILi(\d+)ELi(\d+)E", line)
+            if m:
+                key = f"{m.group(1)} D={m.group(2)} ROWS={m.group(3)}"
+                out.setdefault(key, {"registers": None, "spill_bytes": 0})
+        elif key and "spill" in line:
+            out[key]["spill_bytes"] += sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif key and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1103,18 +1134,19 @@ def sparse_ratio(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict) ->
     return tolerance_ratio(got, want, tol, vector=True)
 
 
-def sparse_mutants(q, k, v, layout, block, causal, kpm, got) -> dict:
-    """Faulty kernels the check must reject, made from the kernel's outputs:
-    K6a that drops the first admitted kv block of the first row block (of
-    head 0) that admits two; K6b that zeroes that row block's dq; K6c that
-    zeroes dk and dv of head 0's widest column (a global column where the
-    layout has one)."""
+def sparse_mutants(q, k, v, layout, block, causal, kpm, got, tables) -> dict:
+    """Faulty kernels the check must reject, made from the kernel's outputs,
+    as name → (output, faulty tensor): K6a that drops the first admitted kv
+    block of the first row block (of head 0) that admits two; K6b that zeroes
+    that row block's dq; K6c that zeroes dk and dv of head 0's widest column
+    (a global column where the layout has one); and, where a column group
+    holds two blocks or more, K6c that loses the dk of its second member."""
     counts = layout[0].sum(-1)
     r = int(np.argmax(counts >= 2))
     cut = layout[:1].copy()
     cut[0, r, np.nonzero(layout[0, r])[0][0]] = 0
-    o_cut, lse_cut = sparse_attn_fwd_plain(q[:, :1], k[:, :1], v[:, :1], build_tables(cut, "cuda"), block, causal,
-                                           None, kpm)
+    o_cut, lse_cut = sparse_attn_fwd_plain(q[:, :1], k[:, :1], v[:, :1], build_tables(cut, block, "cuda"), block,
+                                           causal, None, kpm)
     rows = slice(r * block, (r + 1) * block)
     out = {n: got[n].clone() for n in ("o", "lse", "dq", "dk", "dv")}
     out["o"][:, 0, rows], out["lse"][:, 0, rows] = o_cut[:, 0, rows], lse_cut[:, 0, rows]
@@ -1122,7 +1154,15 @@ def sparse_mutants(q, k, v, layout, block, causal, kpm, got) -> dict:
     c = int(np.argmax(layout[0].sum(-2)))
     out["dk"][:, 0, c * block:(c + 1) * block] = 0
     out["dv"][:, 0, c * block:(c + 1) * block] = 0
-    return out
+    faulty = {n: (n, t) for n, t in out.items()}
+    groups = tables.col_groups.cpu().numpy()
+    multi = groups[(groups >= 0).sum(1) >= 2]
+    if len(multi):
+        h, blk = divmod(int(multi[0, 1]), layout.shape[1])
+        dk = got["dk"].clone()
+        dk[:, h, blk * block:(blk + 1) * block] = 0
+        faulty["dk_group_member"] = ("dk", dk)
+    return faulty
 
 
 def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True, empty_rows=False) -> dict:
@@ -1133,7 +1173,7 @@ def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True, empt
     Returns per kernel the largest |kernel − plain|."""
     h, block = cfg.num_heads, cfg.block
     layout = np.asarray(cfg.make_layout(s))
-    tables = build_tables(layout, "cuda")
+    tables = build_tables(layout, block, "cuda")
     q, k, v, do = sparse_inputs(b, h, s, d, dtype, seed=s + d + block + int(causal))
     got = sparse_kernels(q, k, v, do, tables, block, causal, kpm)
     want = sparse_plain(q, k, v, do, got, tables, block, causal, kpm)
@@ -1153,9 +1193,15 @@ def sparse_case(label, cfg, causal, b, s, d, dtype, kpm=None, mutants=True, empt
     dead_cols = torch.from_numpy(layout.sum(-2) == 0).cuda().repeat_interleave(block, dim=1)   # [H, S]
     if bool(dead_cols.any()) and (got["dk"][:, dead_cols].any() or got["dv"][:, dead_cols].any()):
         raise AssertionError(f"{label}: a kv block no row admits got nonzero dk/dv")
+    # a second launch of K6b and K6c gives bit-identical dq, delta, dk and dv
+    again = sparse_attn_dq_cuda(q, k, v, got["o"], got["lse"], do, tables, block, causal, None, kpm)
+    again += sparse_attn_dkv_cuda(q, k, v, do, got["lse"], got["delta"], tables, block, causal, None, kpm)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, got[n]) for a, n in zip(again, ("dq", "delta", "dk", "dv"))):
+        raise AssertionError(f"{label}: two launches of K6b/K6c differ")
     if mutants:
-        faulty = sparse_mutants(q, k, v, layout, block, causal, kpm, got)
-        caught = {n: sparse_ratio(n, m, want[n], tol) for n, m in faulty.items()}
+        faulty = sparse_mutants(q, k, v, layout, block, causal, kpm, got, tables)
+        caught = {n: sparse_ratio(out, m, want[out], tol) for n, (out, m) in faulty.items()}
         log(f"  {label}: faulty kernels' |err|/limit " + ", ".join(f"{n}={r:.3g}" for n, r in caught.items()))
         if not all(r > 1 for r in caught.values()):
             raise AssertionError(f"{label}: the check passes a faulty kernel: {caught}")
@@ -1182,11 +1228,16 @@ def sparse_bounds(layout, block, b, d, causal, tables, dtype) -> dict:
     h, nb, _ = layout.shape
     x = b * h * nb * block * d * (torch.finfo(dtype).bits // 8)      # one [B, H, S, D] tensor
     st = b * h * nb * block * 4                                        # one [B, H, S] f32 statistic
-    rows = 4 * sum(t.numel() for t in (tables.row_ptr, tables.row_idx, tables.row_order))
-    cols = 4 * sum(t.numel() for t in (tables.col_ptr, tables.col_idx, tables.col_order))
+    def table_bytes(*ts):
+        return 4 * sum(t.numel() for t in ts)
+
+    rows = table_bytes(tables.row_ptr, tables.row_idx, tables.row_order)
+    # the bf16 K6b and K6c read the group tables in place of the order tables
+    row_groups = table_bytes(tables.row_ptr, tables.row_idx, tables.row_groups, tables.row_group_order)
+    col_groups = table_bytes(tables.col_ptr, tables.col_idx, tables.col_groups, tables.col_group_order)
     nbytes = {"sparse_attn_fwd": 3 * x + rows + x + st,                # q k v → o lse
-              "sparse_attn_dq": 5 * x + st + rows + x + st,            # q k v o do lse → dq delta
-              "sparse_attn_dkv": 4 * x + 2 * st + cols + 2 * x}        # q k v do lse delta → dk dv
+              "sparse_attn_dq": 5 * x + st + row_groups + x + st,      # q k v o do lse → dq delta
+              "sparse_attn_dkv": 4 * x + 2 * st + col_groups + 2 * x}  # q k v do lse delta → dk dv
     pairs = b * visible_pairs(layout, block, causal)
     out = {}
     for name, per_pair in zip(SPARSE_NAMES, (4, 6, 8)):
@@ -1202,7 +1253,7 @@ def sparse_timing(label, cfg, causal, flush, plain=True, library=True, tables=No
     b, s, d, dtype = SPARSE_B, SPARSE_S, SPARSE_D, torch.bfloat16
     block = cfg.block
     layout = np.asarray(cfg.make_layout(s))
-    tables = tables if tables is not None else build_tables(layout, "cuda")
+    tables = tables if tables is not None else build_tables(layout, block, "cuda")
     q, k, v, do = sparse_inputs(b, cfg.num_heads, s, d, dtype, seed=1)
     got = sparse_kernels(q, k, v, do, tables, block, causal)
     rows = {n: {"case": label, "density": float(layout.mean())} for n in SPARSE_NAMES}
@@ -1250,6 +1301,14 @@ def phase_sparse_kernels() -> dict:
         for n, e in sparse_case(*args, **kwargs).items():
             errs[n] = max(errs[n], e)
 
+    # the documented example's groups: the 4 rows of a local window admit one
+    # list, as do the 3 plain columns of a window and a head's 64 global columns
+    t = build_tables(sparse_configs(h, SPARSE_BLOCK)["fixed"][0].make_layout(s), SPARSE_BLOCK, "cuda")
+    groups = {"row_groups": t.row_groups.shape[0], "col_groups": t.col_groups.shape[0],
+              "row_blocks": t.row_order.numel()}
+    log(f"  fixed S{s} block {SPARSE_BLOCK}: CTAs of the bf16 K6b/K6c per batch row " + json.dumps(groups))
+    if (groups["row_groups"], groups["col_groups"]) != (1024, 1280):
+        raise AssertionError(f"fixed layout groups {groups}, expected 1024 row and 1280 column groups")
     for name, (cfg, causal) in sparse_configs(h, SPARSE_BLOCK).items():
         check(f"{name} bf16 B{b} S{s} D{d} block {SPARSE_BLOCK}", cfg, causal, b, s, d, torch.bfloat16)
     # padded sequences: the last 10% of batch row 1's keys and a scattered 5% of row 3's
@@ -1294,16 +1353,21 @@ def phase_sparse_kernels() -> dict:
     cfg_l = LocalSlidingWindowSparsityConfig(h, SPARSE_BLOCK, num_sliding_window_blocks=5, attention="bidirectional")
     straggler["bslongformer"] = sparse_timing("bslongformer", cfg_g, False, flush, plain=False, library=False)
     straggler["local5"] = sparse_timing("local5", cfg_l, False, flush, plain=False, library=False)
-    t = build_tables(cfg_g.make_layout(s), "cuda")
-    natural = torch.arange(t.row_order.numel(), dtype=torch.int32, device="cuda")
+    t = build_tables(cfg_g.make_layout(s), SPARSE_BLOCK, "cuda")
+
+    def natural(order):
+        return torch.arange(order.numel(), dtype=torch.int32, device="cuda")
+
     straggler["bslongformer_table_order"] = sparse_timing(
         "bslongformer table order", cfg_g, False, flush, plain=False, library=False,
-        tables=dataclasses.replace(t, row_order=natural, col_order=natural))
+        tables=dataclasses.replace(t, row_order=natural(t.row_order), col_order=natural(t.col_order),
+                                   row_group_order=natural(t.row_group_order),
+                                   col_group_order=natural(t.col_group_order)))
     share = {n: 1 - straggler["local5"][n]["ms"] / straggler["bslongformer"][n]["ms"] for n in SPARSE_NAMES}
     log("  straggler share (1 - local5 / bslongformer): " + json.dumps(share))
     del flush
     torch.cuda.empty_cache()
-    return {"errs": errs, "timed": timed, "straggler": straggler, "straggler_share": share}
+    return {"errs": errs, "timed": timed, "straggler": straggler, "straggler_share": share, "groups": groups}
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1365,31 +1429,58 @@ def phase_sparse_path(smi: str) -> dict:
     return res
 
 
+def launch_events(fn):
+    """Run ``fn`` with a pair of CUDA events recorded on the launch stream
+    around every K6a/K6b/K6c launch (the wrappers' ``_launch``): returns
+    ``fn``'s result and [(kernel, start, end)] in launch order, to be read
+    after a synchronize."""
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    marks, launch = [], sk._launch
+
+    def timed(name, f, q, *args):
+        stream = torch.cuda.current_stream(q.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        launch(name, f, q, *args)
+        end.record(stream)
+        marks.append((name.replace("_cuda", ""), start, end))
+
+    sk._launch = timed
+    try:
+        return fn(), marks
+    finally:
+        sk._launch = launch
+
+
 def profile_sparse_iteration(attn, q, k, v, do) -> dict:
-    """One forward and backward under torch.profiler: the device time by
-    kernel; the busy share is that device time over the wall time of the
-    next, identical iteration, not profiled, which also reads the span from
-    the first launch to the last on the card with CUDA events.  Where the
-    profiler records no device event, its fields are null."""
+    """One forward and backward, its kernels timed in the path: each K6a,
+    K6b and K6c launch between two CUDA events on its stream, and the span
+    from the iteration's first event to its last.  The busy share is the
+    kernels' device time over the wall time of the next, identical
+    iteration.  torch.profiler, over a third iteration, adds the device time
+    by kernel where it records device events (as the third profiler session
+    of the whole script it records none)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    _, marks = launch_events(lambda: torch.autograd.grad(attn(q, k, v), (q, k, v), do))
+    torch.cuda.synchronize()
+    kernel_ms = {n: s_.elapsed_time(e) for n, s_, e in marks}
+    if sorted(kernel_ms) != sorted(SPARSE_NAMES) or len(marks) != 3:
+        raise AssertionError(f"one iteration launched {[m[0] for m in marks]}, expected one each of {SPARSE_NAMES}")
+    span_ms = marks[0][1].elapsed_time(marks[-1][2])
+    t0 = time.perf_counter()
+    torch.autograd.grad(attn(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.autograd.grad(attn(q, k, v), (q, k, v), do)
         torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    torch.autograd.grad(attn(q, k, v), (q, k, v), do)
-    end.record()
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = {e.key: e.self_device_time_total for e in rows}
-    busy_ms = sum(dev_us.values()) / 1e3 if rows else None
-    top = sorted(((u / 1e3, n) for n, u in dev_us.items() if u > 0), reverse=True)[:6]
-    res = {"wall_ms": wall_ms, "device_span_ms": start.elapsed_time(end), "device_ms": busy_ms,
-           "device_busy_share": busy_ms / wall_ms if rows else None, "device_ops": sum(e.count for e in rows),
-           "top_kernels_ms": [[n[:70], t] for t, n in top]}
+    top = sorted(((e.self_device_time_total / 1e3, e.key) for e in rows if e.self_device_time_total > 0),
+                 reverse=True)[:6]
+    res = {"kernel_ms": kernel_ms, "kernels_ms": sum(kernel_ms.values()), "device_span_ms": span_ms,
+           "wall_ms": wall_ms, "device_busy_share": sum(kernel_ms.values()) / wall_ms,
+           "profiler_device_ops": sum(e.count for e in rows), "profiler_top_kernels_ms": [[n[:70], t] for t, n in top]}
     log("  sparse path profile: " + json.dumps(res))
     return res
 

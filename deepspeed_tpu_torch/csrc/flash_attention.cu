@@ -987,12 +987,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // global -> shared, 4 bytes; pred false fills the destination with zeros
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = smem_addr(smem);
-  const int src_bytes = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes));
-}
-
 // shared memory and occupancy of the bf16 K2b (see the file's head)
 template <int D>
 struct DkvTc {

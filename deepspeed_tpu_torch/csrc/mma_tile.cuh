@@ -5,7 +5,8 @@
 // Included by csrc/paged_attention.cu (K3, paged_attention_tc_kernel),
 // csrc/flash_attention.cu (K1 flash_fwd_kernel_tc, K2a flash_dq_kernel_tc,
 // K2b flash_dkv_kernel_tc) and csrc/sparse_attention.cu (K6a
-// sparse_fwd_kernel_tc; K6b and K6c take its cp.async helpers).
+// sparse_fwd_kernel_tc, K6b sparse_dq_kernel_tc, K6c sparse_dkv_kernel_tc;
+// the float32 kernels take its cp.async helpers).
 // phase 2 of chip_smoke.py holds one product through these loaders against
 // torch.matmul (mma_probe_kernel in paged_attention.cu).
 //
@@ -37,6 +38,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   const int src_bytes = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes));
+}
+// global -> shared, 4 bytes (a float32 row statistic); pred false writes a zero
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

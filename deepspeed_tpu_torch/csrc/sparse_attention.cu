@@ -6,7 +6,9 @@
 //   K6a sparse_fwd_kernel <- _kernel     (:35),  driven by _fwd_impl (:257)
 //       (bf16: sparse_fwd_kernel_tc)
 //   K6b sparse_dq_kernel  <- _dq_kernel  (:125), driven by _bwd_impl (:307)
+//       (bf16: sparse_dq_kernel_tc)
 //   K6c sparse_dkv_kernel <- _dkv_kernel (:152), driven by _bwd_impl (:307)
+//       (bf16: sparse_dkv_kernel_tc)
 //
 // Layout (all contiguous; ops/sparse_attention/kernel.py checks shapes,
 // dtypes and alignment):
@@ -16,6 +18,10 @@
 //   block), ascending (CSR); col_ptr, col_idx: the admitted q blocks of each
 //   (head, kv block), ascending; row_order, col_order [H·nb]: (head, block)
 //   ids by descending count, the launch order.  nb = S / block.
+//   row_groups [G_r, W_r]: up to max(1, 64 / block) (head, q block) ids of
+//   one head whose admitted lists are identical, ascending, -1 after the
+//   last; col_groups [G_c, W_c] the same over the transposed CSR;
+//   row_group_order, col_group_order: the groups by descending list length.
 // Scores are s = q·k · scale.  A score is masked when its key is not
 // admitted by kpm or, with causal, lies after the query (token positions,
 // inside admitted blocks); a masked score is the finite MASK and its p is 0,
@@ -36,60 +42,74 @@
 // q, k, v, o (and do, dq, dk, dv) are each moved once.  At BERT-large's
 // attention (D = 64) with block 16, the DeepSpeed documentation's fixed
 // layout (density 0.26 at S 4096) is bound by tensor-core operations, a
-// BigBird layout (density 0.023) by HBM bytes.  Either way the bound is far
-// below what these kernels take: at block 16 a tile is 16×16×64, so loads,
-// the softmax and (K6b, K6c) the shared-memory round trips between the
-// products, not the products, set the time.
+// BigBird layout (density 0.023) by HBM bytes.  At block 16 a tile is
+// 16×16×64, so what a CTA loads per product, not the products, sets the
+// time: each row block that reads its own copy of its list's K/V sub-tiles
+// reads ~4.5 GB of L2 a call at the fixed layout (PERF.md).
 //
 // Design.  The TPU kernels run a sequential grid (B·H, nb, L) whose last axis
 // pads every row to the widest row's L and carries the softmax state in VMEM
 // across grid steps.  Here:
-//   * One CTA owns one query tile of BT = min(block, 64) rows (K6a, K6b), or
-//     one key tile of BT keys (K6c), of one (batch, head): it loops over that
-//     row's (column's) own admitted blocks, each cut into block / BT
-//     sub-tiles of BT keys (queries), and writes its output once.  No
+//   * A CTA owns a part of one (batch, head) and loops over its own list of
+//     admitted blocks, cut into sub-tiles, and writes its output once.  No
 //     padding tile is read, no atomics: results are deterministic.
-//   * A CTA is BT / 16 warps; each warp owns a 16-row strip of every tile
-//     product, so the softmax between two products needs only the warp's
-//     own rows.  At block 16 a CTA is one warp.
 //   * With causal, the sub-tiles wholly after the tile's last query (K6a,
 //     K6b) or wholly before its first key (K6c) are masked everywhere; the
-//     tables are ascending, so they form a suffix (prefix), found by binary
+//     lists are ascending, so they form a suffix (prefix), found by binary
 //     search and never loaded.
-//   * CTAs are launched heaviest (head, block) first, from row_order /
-//     col_order: the rows and columns of global blocks, which admit every
-//     block (L = nb), start first instead of trailing the grid.
-//   * bf16 K6a (sparse_fwd_kernel_tc) runs on the tensor-core tile of
-//     csrc/mma_tile.cuh, mma.sync m16n8k16, as the bf16 flash forward K1
-//     does: the warp's Q fragments are loaded once and stay in registers;
-//     S of a BT-key sub-tile (BT / 8 blocks of 8 keys), the row statistics
-//     and the O accumulator stay in registers; a thread masks its own two
-//     columns of each 8-key block by the causal position and kpm (a bit per
-//     score); p = exp2(s·scale·log2 e − m), 0 where masked, with a row's max
-//     and sum over its lane quad by two shuffles; p goes rounded to bf16
-//     straight into the A fragments of P·V.  The K/V sub-tiles come through
-//     a 3-stage cp.async ring that the CTA's warps share, and the Q sub-tile
-//     is staged in the ring's last stage before the ring reaches it, so the
-//     ring is all the shared memory a CTA takes: at block 16 and D 64 a
-//     one-warp CTA holds 13.5 KB, 15 CTAs an SM (2 stages, 9 KB, were no
-//     faster on the H100, PERF.md).  A warp whose rows all precede a
-//     sub-tile skips it; a sub-tile with no kpm that the warp's rows see in
-//     full skips the mask.  lse leaves in natural log (m·ln 2 + log l).
-//   * K6b, K6c and the float32 K6a run 16×16×16 nvcuda::wmma fragments
-//     (bf16) or f32 FMA on the CUDA cores (float32), with scores and
-//     accumulators passing through shared memory in f32; K/V (K6b) or
-//     Q/dO/lse/delta (K6c) sub-tiles are double-buffered with cp.async where
-//     shared memory allows.
+//   * CTAs are launched heaviest first, from the order tables: the rows and
+//     columns of global blocks, which admit every block (L = nb), start
+//     first instead of trailing the grid.
+//   * bf16 runs on the tensor-core tile of csrc/mma_tile.cuh, mma.sync
+//     m16n8k16 with every operand read by ldmatrix, as the flash kernels of
+//     csrc/flash_attention.cu do.  Each warp owns 16 rows (queries, or keys
+//     in K6c) of every product, so a row's softmax or gradient needs only
+//     its lane quad; a thread masks its own scores by the causal position
+//     and kpm; p and ds go from the C fragments, rounded to bf16, straight
+//     into the A fragments of the next product; only the cp.async rings are
+//     shared memory.  A warp whose rows all precede a sub-tile (K6a, K6b),
+//     or whose keys all follow it (K6c), skips it; a sub-tile that every
+//     row of the warp sees in full with no kpm skips the mask.
+//   * bf16 K6a (sparse_fwd_kernel_tc): one CTA per query tile of BT =
+//     min(block, 64) rows (BT / 16 warps); K1's register softmax (base 2,
+//     S, m, l and O in registers) over sub-tiles of BT keys through a
+//     3-stage ring, with the Q sub-tile staged in the ring's last stage.  At
+//     block 16 a one-warp CTA holds 13.5 KB, 15 CTAs an SM.
+//   * bf16 K6b (sparse_dq_kernel_tc), K2a's design over the CSR: one CTA per
+//     row group, the up to 64 // block row blocks of one head that admit the
+//     same list, so each K/V sub-tile of the list is loaded once for all of
+//     them (at the fixed layout's block 16: 1024 CTAs a batch row, not 4096,
+//     and a quarter of the loads).  The CTA has ROWS = 16, 32 or 64 rows
+//     (the widest group's members, rounded up to a power of two) and ROWS /
+//     16 warps; a warp owns 16 rows of one member.  Q and dO are staged in
+//     the ring's last stage and kept as A fragments; delta and lse (base 2)
+//     of the thread's two rows in registers; per 16 keys S = Q·Kᵀ,
+//     dP = dO·Vᵀ, dS = P(dP − delta)·scale, dQ += dS·K, all in registers.
+//     A ring stage holds ROWS keys, ROWS / 16 chunks of 16 keys of the
+//     list; the causal cut is the group's last row, and each warp stops at
+//     its own last row.  dq is written once.
+//   * bf16 K6c (sparse_dkv_kernel_tc), K2b's design over the transposed
+//     CSR: one CTA per column group (up to 64 keys of one head's kv blocks
+//     that the same q blocks admit); the K and V rows are staged once and
+//     each warp keeps dK and dV of its 16 keys in f32 registers; Q, dO, lse
+//     and delta of QT = 32 (16 at ROWS 16) queries of the common list come
+//     through a 3-stage ring; per 16 queries of a stage Sᵀ = K·Qᵀ,
+//     Pᵀ = exp2(Sᵀ·scale_log2 − lse₂), dV += bf16(Pᵀ)·dO, dPᵀ = V·dOᵀ,
+//     dSᵀ = Pᵀ(dPᵀ − delta)·scale rounded to bf16, dK += dSᵀ·Q (16 queries,
+//     not 32, at a time keep D 64 at 128 registers with no spill: four CTAs
+//     of 4 warps an SM).  The causal prefix is cut at the group's first key
+//     and per warp, per 16 queries, at its own.
+//   * float32 K6a, K6b and K6c run f32 FMA on the CUDA cores, with scores
+//     and accumulators passing through shared memory; one CTA per tile of
+//     BT rows (keys) of one block, BT / 16 warps.
 //   * delta is computed once, by K6b, and read by K6c on the same stream
 //     (the TPU K6c recomputes it for every tile).
-// Later work: K6b and K6c on the mma.sync tile; split a global row (column)
-// over several CTAs; at block 16, share each K/V sub-tile among the row
-// blocks whose block lists are the same (PERF.md).
+// Later work: split a global row (column) over several CTAs; the row group
+// table for K6a (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -99,31 +119,27 @@
 
 namespace {
 
-using namespace nvcuda;
 using namespace ds_tile;
 
 constexpr int kMaxDevices = 64;
 constexpr size_t kSmemLimit = 232448;  // dynamic shared memory a block may use on sm_90
 constexpr float kMask = -0.7f * 3.402823466e+38f;
 constexpr float kEmptyLse = 3e38f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T>
-struct Pad {  // elements that pad a shared row by 16 bytes (keeps wmma's 32-byte alignment)
+struct Pad {  // elements that pad a shared row by 16 bytes
   static constexpr int value = 16 / sizeof(T);
 };
 
+// the float32 kernels' element conversions (they are instantiated for float only)
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -150,42 +166,13 @@ __device__ __forceinline__ void async_rows(T* dst, int ld, const T* src) {
   }
 }
 
-// One warp: C[16 x 16*NF] (+)= A[16 x KD] * B[KD x 16*NF].  A is row-major
-// (lda); B is row-major (ldb) or, with B_COL, given as its transpose
-// [16*NF x KD] row-major (ldb); C is f32 row-major (ldc).  All in shared
-// memory.  The C tile is read (when accumulating) and written by this warp
-// only.
+// One warp: C[16 x 16*NF] (+)= A[16 x KD] * B[KD x 16*NF] in f32 on the CUDA
+// cores (the float32 kernels).  A is row-major (lda); B is row-major (ldb)
+// or, with B_COL, given as its transpose [16*NF x KD] row-major (ldb); C is
+// row-major (ldc).  All in shared memory.  The C tile is read (when
+// accumulating) and written by this warp only.
 template <typename T, bool B_COL, int NF, int KD>
 struct WarpGemm;
-
-template <bool B_COL, int NF, int KD>
-struct WarpGemm<__nv_bfloat16, B_COL, NF, KD> {
-  __device__ static void run(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb, float* C, int ldc,
-                             bool accumulate) {
-    using BLayout = typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      if (accumulate)
-        wmma::load_matrix_sync(acc[f], C + 16 * f, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc[f], 0.f);
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, A + kk, lda);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> b;
-        wmma::load_matrix_sync(b, B_COL ? B + 16 * f * ldb + kk : B + kk * ldb + 16 * f, ldb);
-        wmma::mma_sync(acc[f], a, b, acc[f]);
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < NF; ++f) wmma::store_matrix_sync(C + 16 * f, acc[f], ldc, wmma::mem_row_major);
-  }
-};
 
 template <bool B_COL, int NF, int KD>
 struct WarpGemm<float, B_COL, NF, KD> {
@@ -889,6 +876,461 @@ __global__ void __launch_bounds__(2 * BT)
   }
 }
 
+// ---------------------------------------------------------------- bf16 K6b, K6c
+
+// The group a bf16 backward CTA owns, decoded from blockIdx.x: batch
+// fastest, then the part of the block (block / ROWS parts where a block is
+// wider than the CTA), then the group in the launch order.  Row r of the CTA
+// is row r % rpm of member r / rpm (rpm = min(block, ROWS) rows a member).
+template <int ROWS>
+struct GroupTile {
+  int b, h, hb0, rpm, part, width;
+  const int* members;  // width entries, ascending, -1 after the last
+  __device__ GroupTile(const int* groups, const int* order, int B, int nb, int block, int w) : width(w) {
+    rpm = block < ROWS ? block : ROWS;
+    const int parts = block / rpm;
+    int id = blockIdx.x;
+    b = id % B;
+    id /= B;
+    part = id % parts;
+    id /= parts;
+    members = groups + (long long)order[id] * w;
+    hb0 = members[0];
+    h = hb0 / nb;
+  }
+  // token position of row r of the CTA, -1 where the group has no such member
+  __device__ int pos(int r, int nb, int block) const {
+    const int m = r / rpm;
+    const int hb = m < width ? members[m] : -1;
+    return hb < 0 ? -1 : (hb % nb) * block + part * rpm + r % rpm;
+  }
+};
+
+// shared memory of the bf16 K6c: the CTA's K and V rows, then a ring of
+// {Q [QT][LD], dO [QT][LD], lse [QT], delta [QT]}; at most 128 registers a
+// thread at D 64 and 255 at D 128 (FwdTc's MIN_BLOCKS)
+template <int D, int ROWS>
+struct DkvTc {
+  static constexpr int STAGES = 3;
+  static constexpr int QT = ROWS == 16 ? 16 : 32;  // queries of a ring stage
+  static constexpr int LD = D + 8;
+  static constexpr size_t kv_bytes = sizeof(bf16) * 2 * ROWS * LD;
+  static constexpr size_t stage_bytes = sizeof(bf16) * 2 * QT * LD + sizeof(float) * 2 * QT;
+  static constexpr size_t bytes = kv_bytes + STAGES * stage_bytes;
+};
+
+// bf16 K6b on the tensor cores (see the file's head): one CTA per row group;
+// K6a's ring of ROWS keys a stage (ROWS / 16 chunks of 16 keys of the
+// group's list), Q and dO staged in its last stage.
+template <int D, int ROWS>
+__global__ void __launch_bounds__(2 * ROWS, FwdTc<D, ROWS>::MIN_BLOCKS)
+    sparse_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        const uint8_t* __restrict__ kpm, const int* __restrict__ row_ptr,
+                        const int* __restrict__ row_idx, const int* __restrict__ groups,
+                        const int* __restrict__ group_order, bf16* __restrict__ dq, float* __restrict__ delta,
+                        int B, int H, int S, int block, int width, int causal, float scale, float scale_log2) {
+  using L = FwdTc<D, ROWS>;
+  constexpr int NT = 2 * ROWS;   // ROWS / 16 warps
+  constexpr int STAGES = L::STAGES;
+  constexpr int KT = ROWS;       // keys of a ring stage
+  constexpr int KC = KT / 16;    // its chunks of 16 keys
+  constexpr int KD = D / 16;     // depth slices of Q·Kᵀ and dO·Vᵀ
+  constexpr int DB = D / 8;      // column blocks of dQ
+  constexpr int LD = L::LD;
+  constexpr int STAGE = L::STAGE;
+  constexpr int CH = D / 8;      // 16-byte chunks of a row
+  constexpr int ROW_STEP = NT / CH;
+  static_assert(16 % ROW_STEP == 0 && 2 * ROWS * LD <= STAGE, "a chunk's rows split over the CTA; Q, dO fit a stage");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][K, V][KT][LD]
+  bf16* q_s = ring + (STAGES - 1) * STAGE;          // Q [ROWS][LD], then dO, until the ring reaches its last stage
+  bf16* do_s = q_s + ROWS * LD;
+
+  const int nb = S / block, subs = block / 16;  // chunks of 16 keys a block
+  const GroupTile<ROWS> g(groups, group_order, B, nb, block, width);
+  const long long head = ((long long)g.b * H + g.h) * S;  // row offset of (b, h)
+  const long long b_off = (long long)g.b * S;
+  const int* cols = row_idx + row_ptr[g.hb0];
+  int n_chunks = (row_ptr[g.hb0 + 1] - row_ptr[g.hb0]) * subs;
+  if (causal) {
+    int last = 0;  // the group's last row: its last member's (members ascend)
+    for (int m = 0; m < ROWS / g.rpm; ++m) {
+      const int p = g.pos(m * g.rpm + g.rpm - 1, nb, block);
+      if (p >= 0) last = p;
+    }
+    n_chunks = count_upto(cols, n_chunks, subs, block, 16, last);
+  }
+  const int n_tiles = (n_chunks + KC - 1) / KC;
+
+  // a thread copies 16-byte chunk my_ch of rows j0, j0 + ROW_STEP, ...: of
+  // the CTA's Q and dO rows, and of each stage's K and V rows (row r of a
+  // stage is key r % 16 of its chunk r / 16)
+  const int my_ch = threadIdx.x % CH, j0 = threadIdx.x / CH;
+#pragma unroll
+  for (int j = 0; j < ROWS / ROW_STEP; ++j) {
+    const int r = j0 + j * ROW_STEP;
+    const int p = g.pos(r, nb, block);
+    const long long off = p < 0 ? 0 : (head + p) * D + my_ch * 8;
+    cp_async16(q_s + r * LD + my_ch * 8, q + off, p >= 0);
+    cp_async16(do_s + r * LD + my_ch * 8, dout + off, p >= 0);
+  }
+  cp_async_commit();
+  auto load_tile = [&](int t, int stage) {
+    bf16* dst = ring + stage * STAGE + my_ch * 8;
+#pragma unroll
+    for (int j = 0; j < KT / ROW_STEP; ++j) {
+      const int r = j0 + j * ROW_STEP;
+      const int c = t * KC + (r >> 4);
+      const bool ok = c < n_chunks;
+      const long long off = ok ? (head + sub_tile_pos(cols, c, subs, block, 16) + (r & 15)) * D + my_ch * 8 : 0;
+      cp_async16(dst + r * LD, k + off, ok);
+      cp_async16(dst + (KT + r) * LD, v + off, ok);
+    }
+    cp_async_commit();
+  };
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) {
+      load_tile(st, st);
+    } else {
+      cp_async_commit();  // empty groups keep the ring's wait counts
+    }
+  }
+
+  // the warp's 16 rows are consecutive positions of one member, or none
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 16;
+  const int wpos = g.pos(r0, nb, block);
+  const bool warp_rows = wpos >= 0;
+  const int qpos_a = wpos + group, qpos_b = qpos_a + 8;  // this thread's two rows
+
+  cp_async_wait<STAGES - 1>();  // Q and dO
+  __syncthreads();
+  unsigned qa[KD][4], da[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    load_a_frag(qa[kk], q_s + r0 * LD + kk * 16, LD, lane);
+    load_a_frag(da[kk], do_s + r0 * LD + kk * 16, LD, lane);
+  }
+
+  // delta = rowsum(dO·O) in f32 for the thread's two rows, as K2a: the row's
+  // lane quad reads O once and sums over the quad; -lse in base 2 beside it
+  // (-inf for an empty row's 3e38: p = 0)
+  float delta_r[2] = {0.f, 0.f}, nlse2[2] = {-INFINITY, -INFINITY};
+  if (warp_rows) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + group + 8 * half;
+      const long long row = head + (half ? qpos_b : qpos_a);
+      const bf16* orow = o + row * D;
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH / 4; ++c) {
+        const int ch = tig + 4 * c;
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + ch * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(do_s + r * LD + ch * 8);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+          acc = fmaf(df.x, of.x, acc);
+          acc = fmaf(df.y, of.y, acc);
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      delta_r[half] = acc;
+      if (tig == 0) delta[row] = acc;
+      nlse2[half] = -kLog2e * lse[row];
+    }
+  }
+
+  float acc[DB][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db) acc[db][0] = acc[db][1] = acc[db][2] = acc[db][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // tile t landed
+    __syncthreads();              // and every warp is done with tile t - 1 (and Q, dO)
+    if (t + STAGES - 1 < n_tiles) {
+      load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+    } else {
+      cp_async_commit();
+    }
+    if (!warp_rows) continue;
+    const bf16* k_s = ring + (t % STAGES) * STAGE;
+    const bf16* v_s = k_s + KT * LD;
+    const int n_here = min(KC, n_chunks - t * KC);
+    // 16 keys at a time: S and dP of the warp's rows, dS, then dQ += dS·K.
+    // D 64 keeps the loop rolled, as K2a (unrolled it was 3% slower, PERF.md)
+#pragma unroll(D == 64 ? 1 : KC)
+    for (int j = 0; j < KC; ++j) {
+      if (j >= n_here) break;
+      const int key0 = sub_tile_pos(cols, t * KC + j, subs, block, 16);
+      if (causal && key0 > wpos + 15) break;  // this and every later chunk after the warp's rows
+      const bool full = kpm == nullptr && (!causal || key0 + 15 <= wpos);
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nb2 = 0; nb2 < 2; ++nb2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb2][e] = dp[nb2][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned kf[4], vf[4];
+        load_k_frags(kf, k_s + j * 16 * LD + kk * 16, LD, lane);
+        load_k_frags(vf, v_s + j * 16 * LD + kk * 16, LD, lane);
+        mma_bf16(s[0], qa[kk], kf[0], kf[1]);
+        mma_bf16(s[1], qa[kk], kf[2], kf[3]);
+        mma_bf16(dp[0], da[kk], vf[0], vf[1]);
+        mma_bf16(dp[1], da[kk], vf[2], vf[3]);
+      }
+      // dS = P(dP − delta)·scale with P = exp2(S·scale_log2 − lse₂), 0 where
+      // masked, rounded to bf16 into the A fragment of dS·K
+      unsigned dsa[4];
+#pragma unroll
+      for (int nb2 = 0; nb2 < 2; ++nb2) {
+        const int key = key0 + nb2 * 8 + tig * 2;
+        const bool k0 = full || key_kept(kpm, b_off, key), k1 = full || key_kept(kpm, b_off, key + 1);
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e >> 1;  // 0: row a, 1: row b
+          const bool ok = full || ((e & 1 ? k1 : k0) && (!causal || key + (e & 1) <= (row ? qpos_b : qpos_a)));
+          const float p = ok ? exp2f(fmaf(s[nb2][e], scale_log2, nlse2[row])) : 0.f;
+          x[e] = p * (dp[nb2][e] - delta_r[row]) * scale;
+        }
+        dsa[nb2 * 2] = pack_bf16(x[0], x[1]);
+        dsa[nb2 * 2 + 1] = pack_bf16(x[2], x[3]);
+      }
+#pragma unroll
+      for (int dp2 = 0; dp2 < DB / 2; ++dp2) {
+        unsigned kf[4];
+        load_v_frags(kf, k_s + j * 16 * LD + dp2 * 16, LD, lane);
+        mma_bf16(acc[2 * dp2], dsa, kf[0], kf[1]);
+        mma_bf16(acc[2 * dp2 + 1], dsa, kf[2], kf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!warp_rows) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    bf16* dst = dq + (head + (half ? qpos_b : qpos_a)) * D + tig * 2;
+#pragma unroll
+    for (int db = 0; db < DB; ++db)
+      *reinterpret_cast<__nv_bfloat162*>(dst + db * 8) =
+          __floats2bfloat162_rn(acc[db][half * 2], acc[db][half * 2 + 1]);
+  }
+}
+
+// bf16 K6c on the tensor cores (see the file's head): one CTA per column
+// group; K2b's products per warp of 16 keys over the group's common list of
+// q blocks, QT queries (QT / 16 chunks of 16) a ring stage.
+template <int D, int ROWS>
+__global__ void __launch_bounds__(2 * ROWS, FwdTc<D, ROWS>::MIN_BLOCKS)
+    sparse_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const uint8_t* __restrict__ kpm,
+                         const int* __restrict__ col_ptr, const int* __restrict__ col_idx,
+                         const int* __restrict__ groups, const int* __restrict__ group_order, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int B, int H, int S, int block, int width, int causal, float scale,
+                         float scale_log2) {
+  using L = DkvTc<D, ROWS>;
+  constexpr int NT = 2 * ROWS;   // ROWS / 16 warps
+  constexpr int STAGES = L::STAGES;
+  constexpr int QT = L::QT;
+  constexpr int QC = QT / 16;    // chunks of 16 queries a stage
+  constexpr int KD = D / 16;     // depth slices of K·Qᵀ and V·dOᵀ
+  constexpr int DB = D / 8;      // column blocks of dK, dV
+  constexpr int LD = L::LD;
+  constexpr int CH = D / 8;      // 16-byte chunks of a row
+  constexpr int ROW_STEP = NT / CH;
+  static_assert(16 % ROW_STEP == 0 && 2 * QT <= NT, "a chunk's rows and a stage's statistics split over the CTA");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [ROWS][LD]
+  bf16* v_s = k_s + ROWS * LD;                    // [ROWS][LD]
+  unsigned char* ring = smem_raw + L::kv_bytes;   // [STAGES] of {Q [QT][LD], dO [QT][LD], lse [QT], delta [QT]}
+
+  const int nb = S / block, subs = block / 16;  // chunks of 16 queries a block
+  const GroupTile<ROWS> g(groups, group_order, B, nb, block, width);
+  const long long head = ((long long)g.b * H + g.h) * S;
+  const long long b_off = (long long)g.b * S;
+  const int* rows = col_idx + col_ptr[g.hb0];
+  const int n_chunks = (col_ptr[g.hb0 + 1] - col_ptr[g.hb0]) * subs;
+  // with causal, the q chunks wholly before the group's first key see none of it
+  const int c0 = causal ? count_upto(rows, n_chunks, subs, block, 16, g.pos(0, nb, block) - 16) : 0;
+  const int n_it = (n_chunks - c0 + QC - 1) / QC;
+
+  // K, V rows of the CTA's keys (zeros where the group has no member)
+  const int my_ch = threadIdx.x % CH, j0 = threadIdx.x / CH;
+#pragma unroll
+  for (int j = 0; j < ROWS / ROW_STEP; ++j) {
+    const int r = j0 + j * ROW_STEP;
+    const int p = g.pos(r, nb, block);
+    const long long off = p < 0 ? 0 : (head + p) * D + my_ch * 8;
+    cp_async16(k_s + r * LD + my_ch * 8, k + off, p >= 0);
+    cp_async16(v_s + r * LD + my_ch * 8, v + off, p >= 0);
+  }
+  cp_async_commit();
+
+  // stage it holds chunks c0 + it·QC ...: a thread copies 16-byte chunk
+  // my_ch of rows j0, j0 + ROW_STEP, ... of Q and dO, and thread i < 2·QT
+  // one lse (i < QT) or delta value
+  const float* stat_src = threadIdx.x < QT ? lse : delta;
+  auto load_q_tile = [&](int it, int stage) {
+    unsigned char* st = ring + stage * L::stage_bytes;
+    bf16* q_dst = reinterpret_cast<bf16*>(st) + my_ch * 8;
+    bf16* do_dst = q_dst + QT * LD;
+#pragma unroll
+    for (int j = 0; j < QT / ROW_STEP; ++j) {
+      const int r = j0 + j * ROW_STEP;
+      const int c = c0 + it * QC + (r >> 4);
+      const bool ok = c < n_chunks;
+      const long long off = ok ? (head + sub_tile_pos(rows, c, subs, block, 16) + (r & 15)) * D + my_ch * 8 : 0;
+      cp_async16(q_dst + r * LD, q + off, ok);
+      cp_async16(do_dst + r * LD, dout + off, ok);
+    }
+    if (threadIdx.x < 2 * QT) {
+      const int i = threadIdx.x % QT;
+      const int c = c0 + it * QC + (i >> 4);
+      const bool ok = c < n_chunks;
+      const long long off = ok ? head + sub_tile_pos(rows, c, subs, block, 16) + (i & 15) : 0;
+      cp_async4(reinterpret_cast<float*>(st + sizeof(bf16) * 2 * QT * LD) + threadIdx.x, stat_src + off, ok);
+    }
+    cp_async_commit();
+  };
+  for (int it = 0; it < STAGES - 1; ++it) {
+    if (it < n_it) {
+      load_q_tile(it, it);
+    } else {
+      cp_async_commit();  // empty groups keep the ring's wait counts
+    }
+  }
+
+  float dk_acc[DB][4], dv_acc[DB][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[db][e] = dv_acc[db][e] = 0.f;
+
+  // the warp's 16 keys are consecutive positions of one member, or none
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = lane >> 2, tig = lane & 3;
+  const int kw0 = g.pos(warp * 16, nb, block);
+  const bool warp_keys = kw0 >= 0;
+  const int key_a = kw0 + group, key_b = key_a + 8;  // this thread's two keys
+  const bool kept_a = warp_keys && key_kept(kpm, b_off, key_a);
+  const bool kept_b = warp_keys && key_kept(kpm, b_off, key_b);
+
+  cp_async_wait<STAGES - 1>();  // K and V
+  __syncthreads();
+  const bf16* k_w = k_s + warp * 16 * LD;  // the warp's K and V rows, A operands of K·Qᵀ and V·dOᵀ
+  const bf16* v_w = v_s + warp * 16 * LD;
+  // c = (the warp's K or V rows at a_rows) · (16 rows at r)ᵀ over the depth D
+  auto product_t = [&](float (&c)[2][4], const bf16* a_rows, const bf16* r) {
+    c[0][0] = c[0][1] = c[0][2] = c[0][3] = c[1][0] = c[1][1] = c[1][2] = c[1][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      unsigned a[4], bf[4];
+      load_a_frag(a, a_rows + kk * 16, LD, lane);
+      load_k_frags(bf, r + kk * 16, LD, lane);
+      mma_bf16(c[0], a, bf[0], bf[1]);
+      mma_bf16(c[1], a, bf[2], bf[3]);
+    }
+  };
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<STAGES - 2>();  // stage it landed
+    __syncthreads();              // and every warp is done with stage it - 1
+    if (it + STAGES - 1 < n_it) {
+      load_q_tile(it + STAGES - 1, (it + STAGES - 1) % STAGES);
+    } else {
+      cp_async_commit();
+    }
+    if (!warp_keys) continue;
+    const unsigned char* st = ring + (it % STAGES) * L::stage_bytes;
+    const bf16* q_t = reinterpret_cast<const bf16*>(st);
+    const bf16* do_t = q_t + QT * LD;
+    const float* lse_t = reinterpret_cast<const float*>(st + sizeof(bf16) * 2 * QT * LD);
+    const float* delta_t = lse_t + QT;
+    // one chunk of 16 queries at a time: Pᵀ and dPᵀ of 16 queries live, not
+    // QT (the products over QT at once spilled 56 bytes at 128 registers;
+    // unrolled, this loop fits 128 with no spill and is as fast, PERF.md)
+#pragma unroll
+    for (int j = 0; j < QC; ++j) {
+      const int c = c0 + it * QC + j;
+      if (c >= n_chunks) break;
+      const int q0 = sub_tile_pos(rows, c, subs, block, 16);  // the chunk's first query
+      if (causal && kw0 > q0 + 15) continue;  // every query of the chunk before the warp's keys
+      // every (key, query) pair of the warp visible: no mask
+      const bool full = kpm == nullptr && (!causal || kw0 + 15 <= q0);
+
+      // Pᵀ = exp2(K·Qᵀ·scale_log2 − lse₂), 0 where masked
+      float pt[2][4];
+      product_t(pt, k_w, q_t + j * 16 * LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int col = j * 16 + i * 8 + tig * 2;
+        const int qpos = q0 + i * 8 + tig * 2;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = full || ((e < 2 ? kept_a : kept_b) && (!causal || (e < 2 ? key_a : key_b) <= qpos + (e & 1)));
+          pt[i][e] = ok ? exp2f(fmaf(pt[i][e], scale_log2, -kLog2e * ((e & 1) ? l2.y : l2.x))) : 0.f;
+        }
+      }
+      // dV += bf16(Pᵀ)·dO
+      {
+        const unsigned pa[4] = {pack_bf16(pt[0][0], pt[0][1]), pack_bf16(pt[0][2], pt[0][3]),
+                                pack_bf16(pt[1][0], pt[1][1]), pack_bf16(pt[1][2], pt[1][3])};
+#pragma unroll
+        for (int dp = 0; dp < DB / 2; ++dp) {
+          unsigned bf[4];
+          load_v_frags(bf, do_t + j * 16 * LD + dp * 16, LD, lane);
+          mma_bf16(dv_acc[2 * dp], pa, bf[0], bf[1]);
+          mma_bf16(dv_acc[2 * dp + 1], pa, bf[2], bf[3]);
+        }
+      }
+      // dPᵀ = V·dOᵀ; dSᵀ = Pᵀ(dPᵀ − delta)·scale rounded to bf16; dK += dSᵀ·Q
+      float dpt[2][4];
+      product_t(dpt, v_w, do_t + j * 16 * LD);
+      unsigned da[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + j * 16 + i * 8 + tig * 2);
+        da[i * 2] = pack_bf16(pt[i][0] * (dpt[i][0] - d2.x) * scale, pt[i][1] * (dpt[i][1] - d2.y) * scale);
+        da[i * 2 + 1] = pack_bf16(pt[i][2] * (dpt[i][2] - d2.x) * scale, pt[i][3] * (dpt[i][3] - d2.y) * scale);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DB / 2; ++dp) {
+        unsigned bf[4];
+        load_v_frags(bf, q_t + j * 16 * LD + dp * 16, LD, lane);
+        mma_bf16(dk_acc[2 * dp], da, bf[0], bf[1]);
+        mma_bf16(dk_acc[2 * dp + 1], da, bf[2], bf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!warp_keys) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long long off = (head + (half ? key_b : key_a)) * D + tig * 2;
+#pragma unroll
+    for (int db = 0; db < DB; ++db) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + db * 8) =
+          __floats2bfloat162_rn(dk_acc[db][half * 2], dk_acc[db][half * 2 + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + db * 8) =
+          __floats2bfloat162_rn(dv_acc[db][half * 2], dv_acc[db][half * 2 + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launch
 
 // The shared-memory opt-in is a per-device attribute of each instantiation:
@@ -927,7 +1369,7 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const uint8_t* kpm,
     kernel<<<n.grid(BT), 2 * BT, bytes, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                               static_cast<const bf16*>(v), kpm, row_ptr, row_idx, row_order,
                                               static_cast<bf16*>(o), lse, n.B, n.H, n.S, n.block, n.causal,
-                                              n.scale * 1.4426950408889634f);
+                                              n.scale * kLog2e);
   } else {
     auto kernel = sparse_fwd_kernel<T, D, BT>;
     constexpr size_t bytes = FwdSmem<T, D, BT>::bytes;
@@ -941,6 +1383,88 @@ cudaError_t fwd(const void* q, const void* k, const void* v, const uint8_t* kpm,
   return cudaGetLastError();
 }
 
+// rows of a bf16 K6b/K6c CTA: min(block, 64) for each member of the widest
+// group, rounded up to a power of two; 0 where the groups do not fit
+inline int group_rows(int block, int width) {
+  const int rpm = block < 64 ? block : 64;
+  if (width < 1 || width * rpm > 64) return 0;
+  int p = 1;
+  while (p < width) p *= 2;
+  return p * rpm;
+}
+
+// the tables of the bf16 backward kernels: the groups, their launch order and count
+struct Groups {
+  const int* groups;
+  const int* order;
+  int count, width;
+  // one CTA per (batch, part of a block, group)
+  unsigned grid(const Dims& n) const {
+    const int rows = group_rows(n.block, width);
+    return (unsigned)n.B * count * (n.block > rows ? n.block / rows : 1);
+  }
+};
+
+template <int D, int ROWS>
+cudaError_t dq_tc(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+                  const uint8_t* kpm, const int* row_ptr, const int* row_idx, const Groups& g, void* dq_out,
+                  float* delta, const Dims& n, cudaStream_t st) {
+  static std::atomic<bool> done[kMaxDevices];
+  auto kernel = sparse_dq_kernel_tc<D, ROWS>;
+  constexpr size_t bytes = FwdTc<D, ROWS>::bytes;
+  static_assert(bytes <= kSmemLimit, "K6b ring does not fit in shared memory");
+  cudaError_t err = opt_in(kernel, bytes, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<g.grid(n), 2 * ROWS, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, kpm, row_ptr, row_idx, g.groups, g.order,
+      static_cast<bf16*>(dq_out), delta, n.B, n.H, n.S, n.block, g.width, n.causal, n.scale,
+      n.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D, int ROWS>
+cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                   const float* delta, const uint8_t* kpm, const int* col_ptr, const int* col_idx, const Groups& g,
+                   void* dk_out, void* dv_out, const Dims& n, cudaStream_t st) {
+  static std::atomic<bool> done[kMaxDevices];
+  auto kernel = sparse_dkv_kernel_tc<D, ROWS>;
+  constexpr size_t bytes = DkvTc<D, ROWS>::bytes;
+  static_assert(bytes <= kSmemLimit, "K6c ring does not fit in shared memory");
+  cudaError_t err = opt_in(kernel, bytes, done);
+  if (err != cudaSuccess) return err;
+  kernel<<<g.grid(n), 2 * ROWS, bytes, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), lse, delta, kpm, col_ptr, col_idx, g.groups, g.order,
+      static_cast<bf16*>(dk_out), static_cast<bf16*>(dv_out), n.B, n.H, n.S, n.block, g.width, n.causal, n.scale,
+      n.scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// the bf16 instantiation for (D, CTA rows): f(D, ROWS) with tag arguments
+template <typename F>
+int dispatch_groups(const Dims& n, const Groups& g, F&& f) {
+  if (n.block != 16 && n.block != 32 && n.block != 64 && n.block != 128) return (int)cudaErrorInvalidValue;
+  if (n.S % n.block || g.count < 1) return (int)cudaErrorInvalidValue;
+  const int rows = group_rows(n.block, g.width);
+  using R16 = std::integral_constant<int, 16>;
+  using R32 = std::integral_constant<int, 32>;
+  using R64 = std::integral_constant<int, 64>;
+  if (n.D == 64) {
+    using DC = std::integral_constant<int, 64>;
+    if (rows == 16) return f(DC{}, R16{});
+    if (rows == 32) return f(DC{}, R32{});
+    if (rows == 64) return f(DC{}, R64{});
+  } else if (n.D == 128) {
+    using DC = std::integral_constant<int, 128>;
+    if (rows == 16) return f(DC{}, R16{});
+    if (rows == 32) return f(DC{}, R32{});
+    if (rows == 64) return f(DC{}, R64{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// float32 K6b and K6c (the bf16 ones take dq_tc and dkv_tc)
 template <typename T, int D, int BT>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
                const uint8_t* kpm, const int* row_ptr, const int* row_idx, const int* row_order, void* dq_out,
@@ -976,9 +1500,10 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
 }
 
 // The instantiation for (dtype, D, block): f(T*, D, BT) with tag arguments.
-// dtype 0 = float32, 1 = bfloat16; head dims 64 and 128; blocks 16, 32, 64
-// and 128.  The tile is BT = min(block, 64) rows, 32 for float32 at head dim
-// 128 (whose 64-row K6c tile would not fit in shared memory).
+// dtype 0 = float32, 1 = bfloat16 (only with BF16: the bf16 backward takes
+// dispatch_groups); head dims 64 and 128; blocks 16, 32, 64 and 128.  The
+// tile is BT = min(block, 64) rows, 32 for float32 at head dim 128 (whose
+// 64-row K6c tile would not fit in shared memory).
 template <typename T, int D, typename F>
 int with_tile(int block, F&& f) {
   using DC = std::integral_constant<int, D>;
@@ -992,12 +1517,14 @@ int with_tile(int block, F&& f) {
   }
 }
 
-template <typename F>
+template <bool BF16, typename F>
 int dispatch(int dtype, const Dims& n, F&& f) {
   if (n.block != 16 && n.block != 32 && n.block != 64 && n.block != 128) return (int)cudaErrorInvalidValue;
   if (n.S % n.block) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && n.D == 64) return with_tile<__nv_bfloat16, 64>(n.block, f);
-  if (dtype == 1 && n.D == 128) return with_tile<__nv_bfloat16, 128>(n.block, f);
+  if constexpr (BF16) {
+    if (dtype == 1 && n.D == 64) return with_tile<__nv_bfloat16, 64>(n.block, f);
+    if (dtype == 1 && n.D == 128) return with_tile<__nv_bfloat16, 128>(n.block, f);
+  }
   if (dtype == 0 && n.D == 64) return with_tile<float, 64>(n.block, f);
   if (dtype == 0 && n.D == 128) return with_tile<float, 128>(n.block, f);
   return (int)cudaErrorInvalidValue;
@@ -1012,7 +1539,7 @@ int ds_sparse_attn_fwd(const void* q, const void* k, const void* v, const void* 
                        const void* row_idx, const void* row_order, void* o, void* lse, int B, int H, int S, int D,
                        int block, int causal, float scale, int dtype, void* stream) {
   const Dims n{B, H, S, D, block, causal, scale};
-  return dispatch(dtype, n, [&](auto tag, auto d, auto bt) {
+  return dispatch<true>(dtype, n, [&](auto tag, auto d, auto bt) {
     using T = std::remove_pointer_t<decltype(tag)>;
     return (int)fwd<T, decltype(d)::value, decltype(bt)::value>(
         q, k, v, static_cast<const uint8_t*>(kpm), static_cast<const int*>(row_ptr), static_cast<const int*>(row_idx),
@@ -1020,31 +1547,59 @@ int ds_sparse_attn_fwd(const void* q, const void* k, const void* v, const void* 
   });
 }
 
+// dq and dkv: bf16 launches one CTA per group (groups, group_order,
+// n_groups, width = the groups' second dimension); float32 one per tile of
+// the order table (row_order, col_order).
 int ds_sparse_attn_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const void* lse,
-                      const void* kpm, const void* row_ptr, const void* row_idx, const void* row_order, void* dq_out,
-                      void* delta, int B, int H, int S, int D, int block, int causal, float scale, int dtype,
+                      const void* kpm, const void* row_ptr, const void* row_idx, const void* row_order,
+                      const void* row_groups, const void* row_group_order, void* dq_out, void* delta, int n_groups,
+                      int width, int B, int H, int S, int D, int block, int causal, float scale, int dtype,
                       void* stream) {
   const Dims n{B, H, S, D, block, causal, scale};
-  return dispatch(dtype, n, [&](auto tag, auto d, auto bt) {
+  const auto* kp = static_cast<const uint8_t*>(kpm);
+  const auto* ptr = static_cast<const int*>(row_ptr);
+  const auto* idx = static_cast<const int*>(row_idx);
+  auto* dl = static_cast<float*>(delta);
+  auto* ls = static_cast<const float*>(lse);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const Groups g{static_cast<const int*>(row_groups), static_cast<const int*>(row_group_order), n_groups, width};
+    return dispatch_groups(n, g, [&](auto d, auto rows) {
+      return (int)dq_tc<decltype(d)::value, decltype(rows)::value>(q, k, v, o, dout, ls, kp, ptr, idx, g, dq_out,
+                                                                   dl, n, st);
+    });
+  }
+  return dispatch<false>(dtype, n, [&](auto tag, auto d, auto bt) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return (int)dq<T, decltype(d)::value, decltype(bt)::value>(
-        q, k, v, o, dout, static_cast<const float*>(lse), static_cast<const uint8_t*>(kpm),
-        static_cast<const int*>(row_ptr), static_cast<const int*>(row_idx), static_cast<const int*>(row_order),
-        dq_out, static_cast<float*>(delta), n, static_cast<cudaStream_t>(stream));
+    return (int)dq<T, decltype(d)::value, decltype(bt)::value>(q, k, v, o, dout, ls, kp, ptr, idx,
+                                                               static_cast<const int*>(row_order), dq_out, dl, n, st);
   });
 }
 
 int ds_sparse_attn_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                        const void* delta, const void* kpm, const void* col_ptr, const void* col_idx,
-                       const void* col_order, void* dk_out, void* dv_out, int B, int H, int S, int D, int block,
-                       int causal, float scale, int dtype, void* stream) {
+                       const void* col_order, const void* col_groups, const void* col_group_order, void* dk_out,
+                       void* dv_out, int n_groups, int width, int B, int H, int S, int D, int block, int causal,
+                       float scale, int dtype, void* stream) {
   const Dims n{B, H, S, D, block, causal, scale};
-  return dispatch(dtype, n, [&](auto tag, auto d, auto bt) {
+  const auto* kp = static_cast<const uint8_t*>(kpm);
+  const auto* ptr = static_cast<const int*>(col_ptr);
+  const auto* idx = static_cast<const int*>(col_idx);
+  auto* ls = static_cast<const float*>(lse);
+  auto* dl = static_cast<const float*>(delta);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const Groups g{static_cast<const int*>(col_groups), static_cast<const int*>(col_group_order), n_groups, width};
+    return dispatch_groups(n, g, [&](auto d, auto rows) {
+      return (int)dkv_tc<decltype(d)::value, decltype(rows)::value>(q, k, v, dout, ls, dl, kp, ptr, idx, g, dk_out,
+                                                                    dv_out, n, st);
+    });
+  }
+  return dispatch<false>(dtype, n, [&](auto tag, auto d, auto bt) {
     using T = std::remove_pointer_t<decltype(tag)>;
-    return (int)dkv<T, decltype(d)::value, decltype(bt)::value>(
-        q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<const uint8_t*>(kpm), static_cast<const int*>(col_ptr), static_cast<const int*>(col_idx),
-        static_cast<const int*>(col_order), dk_out, dv_out, n, static_cast<cudaStream_t>(stream));
+    return (int)dkv<T, decltype(d)::value, decltype(bt)::value>(q, k, v, dout, ls, dl, kp, ptr, idx,
+                                                                static_cast<const int*>(col_order), dk_out, dv_out,
+                                                                n, st);
   });
 }
 

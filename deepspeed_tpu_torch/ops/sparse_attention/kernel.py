@@ -18,7 +18,10 @@ attends to no key emits zeros and lse = 3e38, so its backward is exactly 0.
 The index tables (``BlockSparseTables``) are built once per layout and device
 (``SparseLayout.tables``) with one vectorised ``np.nonzero`` each, where the
 JAX op rebuilds its gather maps in Python, one ``np.nonzero`` per (head, row),
-on every forward and backward.
+on every forward and backward.  Beside the CSR they group the row blocks (and
+the kv blocks) of one head whose lists are identical, up to 64 rows to a
+group: the bf16 K6b and K6c run one CTA per group, so the sub-tiles of a
+common list are loaded once for all its members.
 
 The forward and the backward are ``torch.library`` custom ops
 (``ds_torch::sparse_attn_fwd``, ``ds_torch::sparse_attn_bwd``), as the flash
@@ -57,31 +60,52 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ---------------------------------------------------------------- index tables
 
 
+#: rows (K6b: queries; K6c: keys) of a bf16 backward CTA: a group's members fill at most this many
+GROUP_ROWS = 64
+
+
 @dataclass(frozen=True)
 class BlockSparseTables:
-    """The index tables of one ``[H, nb, nb]`` layout on one device, int32.
+    """The index tables of one ``[H, nb, nb]`` layout over blocks of
+    ``block`` tokens on one device, int32.
 
     ``row_ptr`` ``[H·nb + 1]`` and ``row_idx``: CSR of the kv blocks each
     (head, q block) admits, ascending (K6a, K6b); ``col_ptr`` and
     ``col_idx``: the transposed CSR, the q blocks that admit each (head, kv
     block) (K6c); ``row_order`` and ``col_order`` ``[H·nb]``: the
-    (head, block) ids by descending count, the kernels' launch order.
+    (head, block) ids by descending count, the launch order of K6a and the
+    float32 K6b and K6c.
+
+    ``row_groups`` ``[G_r, W_r]``: the (head, q block) ids of one head whose
+    admitted lists are identical, at most ``max(1, 64 // block)`` to a
+    group, ascending, -1 after a group's last member; ``W_r`` is the most
+    members any group has.  Every (head, q block) lies in exactly one group.
+    ``col_groups`` ``[G_c, W_c]``: the same over the transposed CSR.
+    ``row_group_order``, ``col_group_order``: the groups by descending list
+    length, the launch order of the bf16 K6b and K6c (one CTA per group).
     """
     num_heads: int
     num_blocks: int
+    block: int
     row_ptr: torch.Tensor
     row_idx: torch.Tensor
     row_order: torch.Tensor
     col_ptr: torch.Tensor
     col_idx: torch.Tensor
     col_order: torch.Tensor
+    row_groups: torch.Tensor
+    row_group_order: torch.Tensor
+    col_groups: torch.Tensor
+    col_group_order: torch.Tensor
 
     def tensors(self) -> List[torch.Tensor]:
-        return [self.row_ptr, self.row_idx, self.row_order, self.col_ptr, self.col_idx, self.col_order]
+        return [self.row_ptr, self.row_idx, self.row_order, self.col_ptr, self.col_idx, self.col_order,
+                self.row_groups, self.row_group_order, self.col_groups, self.col_group_order]
 
     @classmethod
-    def of_tensors(cls, tensors: List[torch.Tensor], num_heads: int, num_blocks: int) -> "BlockSparseTables":
-        return cls(num_heads, num_blocks, *tensors)
+    def of_tensors(cls, tensors: List[torch.Tensor], num_heads: int, num_blocks: int,
+                   block: int) -> "BlockSparseTables":
+        return cls(num_heads, num_blocks, block, *tensors)
 
 
 def _csr(layout: np.ndarray):
@@ -95,14 +119,39 @@ def _csr(layout: np.ndarray):
     return ptr.astype(np.int32), cols.astype(np.int32), order.astype(np.int32)
 
 
-def build_tables(layout: np.ndarray, device: Union[str, torch.device] = "cpu") -> BlockSparseTables:
-    """The row and column tables of ``layout`` ``[H, nb, nb]`` on ``device``."""
+def _groups(layout: np.ndarray, width: int):
+    """``[H, nb, nb]`` bool → (groups ``[G, W]``, order ``[G]``): the rows of
+    one head with identical admitted lists, ``width`` at most to a group in
+    ascending order (-1 pads), the groups by their first row, and their
+    launch order by descending list length."""
+    h, nb, _ = layout.shape
+    rows = layout.reshape(h * nb, nb)
+    heads = np.repeat(np.arange(h), nb)[:, None]
+    _, cls = np.unique(np.concatenate([heads, rows], axis=1), axis=0, return_inverse=True)
+    ids = np.lexsort((np.arange(h * nb), cls.reshape(-1)))   # by list, rows ascending within one
+    same = cls.reshape(-1)[ids]
+    pos = np.arange(h * nb)
+    run_start = np.maximum.accumulate(np.where(np.r_[True, same[1:] != same[:-1]], pos, 0))
+    slot = (pos - run_start) % width
+    gid = np.cumsum(slot == 0) - 1
+    groups = np.full((gid[-1] + 1, slot.max() + 1), -1, np.int64)
+    groups[gid, slot] = ids
+    groups = groups[np.argsort(groups[:, 0], kind="stable")]
+    order = np.argsort(-rows.sum(-1)[groups[:, 0]], kind="stable")
+    return groups.astype(np.int32), order.astype(np.int32)
+
+
+def build_tables(layout: np.ndarray, block: int, device: Union[str, torch.device] = "cpu") -> BlockSparseTables:
+    """The row and column tables of ``layout`` ``[H, nb, nb]`` over blocks of
+    ``block`` tokens on ``device``."""
     lay = np.asarray(layout)
     if lay.ndim != 3 or lay.shape[1] != lay.shape[2]:
         raise ValueError(f"layout must be [H, nb, nb], got {lay.shape}")
     lay = lay != 0
-    arrays = _csr(lay) + _csr(lay.transpose(0, 2, 1))
-    return BlockSparseTables(lay.shape[0], lay.shape[1],
+    width = max(1, GROUP_ROWS // int(block))
+    arrays = (_csr(lay) + _csr(lay.transpose(0, 2, 1)) + _groups(lay, width)
+              + _groups(lay.transpose(0, 2, 1), width))
+    return BlockSparseTables(lay.shape[0], lay.shape[1], int(block),
                              *(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays))
 
 
@@ -135,7 +184,7 @@ class SparseLayout:
     def tables(self, device: Union[str, torch.device]) -> BlockSparseTables:
         key = _device_key(device)
         if key not in self._tables:
-            self._tables[key] = build_tables(self.layout, key)
+            self._tables[key] = build_tables(self.layout, self.block, key)
         return self._tables[key]
 
 
@@ -144,9 +193,9 @@ class SparseLayout:
 
 def _check_layout_fits(q: torch.Tensor, tables: BlockSparseTables, block: int) -> None:
     b, h, s, d = q.shape
-    if s % block or s // block != tables.num_blocks or h != tables.num_heads:
-        raise ValueError(f"layout [{tables.num_heads}, {tables.num_blocks}, {tables.num_blocks}] with block {block} "
-                         f"does not fit q {tuple(q.shape)}")
+    if s % block or s // block != tables.num_blocks or h != tables.num_heads or block != tables.block:
+        raise ValueError(f"layout [{tables.num_heads}, {tables.num_blocks}, {tables.num_blocks}] of block "
+                         f"{tables.block} with block {block} does not fit q {tuple(q.shape)}")
 
 
 def _head_rows(tables: BlockSparseTables, h: int, device: torch.device):
@@ -266,8 +315,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i, i, i, i, i, i, f, i, p]   # B, H, S, D, block, causal, scale, dtype, stream
     lib.ds_sparse_attn_fwd.argtypes = [p] * 9 + dims
-    lib.ds_sparse_attn_dq.argtypes = [p] * 12 + dims
-    lib.ds_sparse_attn_dkv.argtypes = [p] * 12 + dims
+    lib.ds_sparse_attn_dq.argtypes = [p] * 14 + [i, i] + dims    # ..., n_groups, width, dims
+    lib.ds_sparse_attn_dkv.argtypes = [p] * 14 + [i, i] + dims
     for fn in (lib.ds_sparse_attn_fwd, lib.ds_sparse_attn_dq, lib.ds_sparse_attn_dkv):
         fn.restype = i
     lib.ds_sparse_attn_error_string.argtypes = [i]
@@ -336,7 +385,9 @@ def sparse_attn_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         do: torch.Tensor, tables: BlockSparseTables, block: int, causal: bool = False,
                         scale: Optional[float] = None, key_padding_mask: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6b: ``(dq [B, H, S, D], delta [B, H, S] f32)``; K6c reads delta."""
+    """Launch K6b: ``(dq [B, H, S, D], delta [B, H, S] f32)``; K6c reads delta.
+    bf16 launches one CTA per row group (``tables.row_groups``), float32 one
+    per tile of ``row_order``."""
     _check("sparse_attn_dq_cuda", q, k, v, tables, block, key_padding_mask, o, lse, do)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3] or o.dtype != q.dtype \
             or do.dtype != q.dtype or lse.dtype != torch.float32:
@@ -346,7 +397,8 @@ def sparse_attn_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if q.numel():
         _launch("sparse_attn_dq_cuda", _lib().ds_sparse_attn_dq, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(key_padding_mask), tables.row_ptr.data_ptr(),
-                tables.row_idx.data_ptr(), tables.row_order.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+                tables.row_idx.data_ptr(), tables.row_order.data_ptr(), tables.row_groups.data_ptr(),
+                tables.row_group_order.data_ptr(), dq.data_ptr(), delta.data_ptr(), *tables.row_groups.shape,
                 *_dims(q, block, causal, scale))
         sparse_attn_dq_cuda.launches += 1
     return dq, delta
@@ -356,7 +408,8 @@ def sparse_attn_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: 
                          delta: torch.Tensor, tables: BlockSparseTables, block: int, causal: bool = False,
                          scale: Optional[float] = None, key_padding_mask: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K6c: ``(dk, dv) [B, H, S, D]`` over the transposed table."""
+    """Launch K6c: ``(dk, dv) [B, H, S, D]`` over the transposed table, one
+    CTA per column group in bf16 (``tables.col_groups``)."""
     _check("sparse_attn_dkv_cuda", q, k, v, tables, block, key_padding_mask, do, lse, delta)
     stat = q.shape[:3]
     if do.shape != q.shape or do.dtype != q.dtype or lse.shape != stat or delta.shape != stat \
@@ -366,7 +419,8 @@ def sparse_attn_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: 
     if q.numel():
         _launch("sparse_attn_dkv_cuda", _lib().ds_sparse_attn_dkv, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(key_padding_mask), tables.col_ptr.data_ptr(),
-                tables.col_idx.data_ptr(), tables.col_order.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                tables.col_idx.data_ptr(), tables.col_order.data_ptr(), tables.col_groups.data_ptr(),
+                tables.col_group_order.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tables.col_groups.shape,
                 *_dims(q, block, causal, scale))
         sparse_attn_dkv_cuda.launches += 1
     return dk, dv
@@ -392,7 +446,7 @@ def sparse_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, tables: L
                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6a on a CUDA tensor, ``sparse_attn_fwd_plain`` on a CPU tensor.
     ``tables`` is ``BlockSparseTables.tensors()``."""
-    t = BlockSparseTables.of_tensors(tables, q.shape[1], q.shape[2] // block)
+    t = BlockSparseTables.of_tensors(tables, q.shape[1], q.shape[2] // block, block)
     if _device_kind(q) == "cuda":
         return sparse_attn_fwd_cuda(q, k, v, t, block, causal, scale, key_padding_mask)
     return sparse_attn_fwd_plain(q, k, v, t, block, causal, scale, key_padding_mask)
@@ -408,7 +462,7 @@ def sparse_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.
                     do: torch.Tensor, tables: List[torch.Tensor], key_padding_mask: Optional[torch.Tensor],
                     block: int, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K6b then K6c on a CUDA tensor, ``sparse_attn_bwd_plain`` on a CPU tensor."""
-    t = BlockSparseTables.of_tensors(tables, q.shape[1], q.shape[2] // block)
+    t = BlockSparseTables.of_tensors(tables, q.shape[1], q.shape[2] // block, block)
     if _device_kind(q) == "cuda":
         dq, delta = sparse_attn_dq_cuda(q, k, v, o, lse, do, t, block, causal, scale, key_padding_mask)
         dk, dv = sparse_attn_dkv_cuda(q, k, v, do, lse, delta, t, block, causal, scale, key_padding_mask)

@@ -299,31 +299,56 @@ def _sparse_layout(h, nb, seed):
     return layout
 
 
+def _fixed_layout(h, nb, block):
+    """DeepSpeed's fixed layout, bidirectional windows of 4 blocks with one
+    global column each: the 4 rows of a window, its 3 plain columns and the
+    global columns admit identical lists, so the bf16 K6b and K6c run groups
+    of 2–4 blocks in one CTA."""
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+    return FixedSparsityConfig(h, block, num_local_blocks=4, num_global_blocks=1).make_layout(nb * block)
+
+
 SPARSE_CASES = [
-    pytest.param(16, 64, False, False, id="b16-d64"),
-    pytest.param(16, 64, True, True, id="b16-d64-causal-kpm"),
-    pytest.param(32, 128, True, False, id="b32-d128-causal"),
-    pytest.param(64, 64, False, True, id="b64-d64-kpm"),
-    pytest.param(128, 128, True, False, id="b128-d128-causal"),
+    pytest.param(16, 64, False, False, "random", id="b16-d64"),
+    pytest.param(16, 64, True, True, "random", id="b16-d64-causal-kpm"),
+    pytest.param(32, 128, True, False, "random", id="b32-d128-causal"),
+    pytest.param(64, 64, False, True, "random", id="b64-d64-kpm"),
+    pytest.param(128, 128, True, False, "random", id="b128-d128-causal"),
+    pytest.param(16, 64, True, True, "fixed", id="b16-d64-causal-kpm-fixed"),
+    pytest.param(32, 128, True, True, "fixed", id="b32-d128-causal-kpm-fixed"),
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("block,d,causal,use_kpm", SPARSE_CASES)
-def test_sparse_kernels_match_plain(dtype, block, d, causal, use_kpm):
-    """K6a (o, lse), K6b (dq, delta) and K6c (dk, dv) against their plain
-    versions on the same CUDA tensors (``FLASH_TOL``); the empty q row emits
-    zeros with lse 3e38 and the empty kv column gets zero dk and dv."""
+def _sparse_inputs(block, d, use_kpm, kind, dtype):
+    """B 2, H 3, S 512: the layout, its tables on the card, q, k, v, do and
+    the key padding mask (or None)."""
     from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
     b, h, s = 2, 3, 512
-    layout = _sparse_layout(h, s // block, seed=block + d)
-    tables = sk.build_tables(layout, "cuda")
+    if kind == "fixed":
+        layout = _fixed_layout(h, s // block, block)
+    else:
+        layout = _sparse_layout(h, s // block, seed=block + d)
+    tables = sk.build_tables(layout, block, "cuda")
     rng = np.random.default_rng(block)
     q, k, v, do = (torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).cuda().to(dtype)
                    for _ in range(4))
     kpm = None
     if use_kpm:
         kpm = torch.from_numpy(rng.random((b, s)) > 0.2).cuda()
+    return layout, tables, q, k, v, do, kpm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("block,d,causal,use_kpm,kind", SPARSE_CASES)
+def test_sparse_kernels_match_plain(dtype, block, d, causal, use_kpm, kind):
+    """K6a (o, lse), K6b (dq, delta) and K6c (dk, dv) against their plain
+    versions on the same CUDA tensors (``FLASH_TOL``).  Random layout: the
+    empty q row emits zeros with lse 3e38, the empty kv column gets zero dk
+    and dv, and the check rejects a K6c that loses the global column's dk.
+    Fixed layout: the groups hold 2–4 blocks, and the check rejects a K6c
+    that loses the dk of one member of a group."""
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    layout, tables, q, k, v, do, kpm = _sparse_inputs(block, d, use_kpm, kind, dtype)
     args = (tables, block, causal, None, kpm)
     tol = FLASH_TOL[dtype]
     before = (sk.sparse_attn_fwd_cuda.launches, sk.sparse_attn_dq_cuda.launches, sk.sparse_attn_dkv_cuda.launches)
@@ -339,16 +364,41 @@ def test_sparse_kernels_match_plain(dtype, block, d, causal, use_kpm):
     assert _within(delta, sk.sparse_attn_delta_plain(o, do), tol, vector=False)
     for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert _within(g, w, tol), name
-    rows = slice(block, 2 * block)
-    assert not o[:, 1, rows].any() and bool((lse[:, 1, rows] == sk.EMPTY_ROW_LSE).all())
-    cols = slice(2 * block, 3 * block)
-    assert not dk[:, 1, cols].any() and not dv[:, 1, cols].any()
-    # the check rejects a K6c that loses the global column's dk
     dk_faulty = dk.clone()
-    dk_faulty[:, 0, :block] = 0
+    if kind == "random":
+        rows = slice(block, 2 * block)
+        assert not o[:, 1, rows].any() and bool((lse[:, 1, rows] == sk.EMPTY_ROW_LSE).all())
+        cols = slice(2 * block, 3 * block)
+        assert not dk[:, 1, cols].any() and not dv[:, 1, cols].any()
+        dk_faulty[:, 0, :block] = 0   # the global column of head 0
+    else:
+        widths = [int((g >= 0).sum(1).max()) for g in (tables.row_groups, tables.col_groups)]
+        assert widths == [64 // block] * 2, widths
+        groups = tables.col_groups.cpu().numpy()
+        hb = int(groups[(groups >= 0).sum(1) >= 2][0, 1])   # the second member of a column group
+        h, blk = divmod(hb, layout.shape[1])
+        dk_faulty[:, h, blk * block:(blk + 1) * block] = 0
     assert not _within(dk_faulty, want[1], tol)
     after = (sk.sparse_attn_fwd_cuda.launches, sk.sparse_attn_dq_cuda.launches, sk.sparse_attn_dkv_cuda.launches)
     assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("block,d,causal,use_kpm,kind", SPARSE_CASES)
+def test_sparse_backward_kernels_are_deterministic(block, d, causal, use_kpm, kind):
+    """The bf16 K6b sums over its list, and K6c over the rows of its column
+    group, in a fixed order inside one CTA (no atomics): two launches give
+    bit-identical dq and delta, and dk and dv."""
+    from deepspeed_tpu_torch.ops.sparse_attention import kernel as sk
+    _, tables, q, k, v, do, kpm = _sparse_inputs(block, d, use_kpm, kind, torch.bfloat16)
+    args = (tables, block, causal, None, kpm)
+    o, lse = sk.sparse_attn_fwd_cuda(q, k, v, *args)
+    first = sk.sparse_attn_dq_cuda(q, k, v, o, lse, do, *args)
+    second = sk.sparse_attn_dq_cuda(q, k, v, o, lse, do, *args)
+    delta = first[1]
+    first += sk.sparse_attn_dkv_cuda(q, k, v, do, lse, delta, *args)
+    second += sk.sparse_attn_dkv_cuda(q, k, v, do, lse, delta, *args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
 
 
 @pytest.mark.parametrize("block,d", [(16, 64), (32, 128), (64, 64), (128, 128)])
@@ -364,7 +414,7 @@ def test_sparse_fwd_kernel_rows_with_no_visible_key(block, d):
     layout[:, np.arange(8), np.arange(8)] = 1
     layout[:, np.arange(1, 8), np.arange(7)] = 1
     layout[1, 1, :] = 0
-    tables = sk.build_tables(layout, "cuda")
+    tables = sk.build_tables(layout, block, "cuda")
     rng = np.random.default_rng(block + d)
     q, k, v = (torch.from_numpy(rng.normal(size=(b, h, s, d)).astype(np.float32)).cuda().to(torch.bfloat16)
                for _ in range(3))
@@ -389,15 +439,15 @@ def test_sparse_kernels_reject_what_they_do_not_take():
     layout = _sparse_layout(2, 8, seed=0)
     q = torch.randn((1, 2, 64, 64), device="cuda")
     with pytest.raises(ValueError, match="block"):
-        sk.sparse_attn_fwd_cuda(q, q, q, sk.build_tables(layout, "cuda"), 8)
-    tables = sk.build_tables(_sparse_layout(2, 4, seed=0), "cuda")
+        sk.sparse_attn_fwd_cuda(q, q, q, sk.build_tables(layout, 8, "cuda"), 8)
+    tables = sk.build_tables(_sparse_layout(2, 4, seed=0), 16, "cuda")
     with pytest.raises(ValueError, match="head dim"):
         sk.sparse_attn_fwd_cuda(q[..., :32].contiguous(), q[..., :32].contiguous(), q[..., :32].contiguous(),
                                 tables, 16)
     with pytest.raises(ValueError, match="dtype"):
         sk.sparse_attn_fwd_cuda(q.half(), q.half(), q.half(), tables, 16)
     with pytest.raises(ValueError, match="int32"):
-        sk.sparse_attn_fwd_cuda(q, q, q, sk.build_tables(_sparse_layout(2, 4, seed=0), "cpu"), 16)
+        sk.sparse_attn_fwd_cuda(q, q, q, sk.build_tables(_sparse_layout(2, 4, seed=0), 16, "cpu"), 16)
 
 
 def test_sparse_self_attention_on_the_card_matches_the_cpu_path():

@@ -32,31 +32,32 @@ DOC_FIXED = {"mode": "fixed", "block": 16, "different_layout_per_head": True, "n
              "num_different_global_patterns": 4}
 
 
-def _configs(m):
+def _configs(m, block=BLK):
     """(name, config, causal) for the configs of the JAX tests and a few
-    more knobs, built by module ``m`` (the JAX package's or the port's)."""
+    more knobs, built by module ``m`` (the JAX package's or the port's) over
+    blocks of ``block`` tokens."""
     return [
-        ("dense", m.DenseSparsityConfig(num_heads=H, block=BLK), False),
-        ("fixed-bi", m.FixedSparsityConfig(num_heads=H, block=BLK, num_local_blocks=4, num_global_blocks=1), False),
-        ("fixed-uni", m.FixedSparsityConfig(num_heads=H, block=BLK, num_local_blocks=4, attention="unidirectional"),
+        ("dense", m.DenseSparsityConfig(num_heads=H, block=block), False),
+        ("fixed-bi", m.FixedSparsityConfig(num_heads=H, block=block, num_local_blocks=4, num_global_blocks=1), False),
+        ("fixed-uni", m.FixedSparsityConfig(num_heads=H, block=block, num_local_blocks=4, attention="unidirectional"),
          True),
-        ("fixed-per-head", m.FixedSparsityConfig(num_heads=H, block=BLK, different_layout_per_head=True,
+        ("fixed-per-head", m.FixedSparsityConfig(num_heads=H, block=block, different_layout_per_head=True,
                                                  num_local_blocks=4, num_global_blocks=1,
                                                  horizontal_global_attention=True, num_different_global_patterns=4),
          False),
-        ("bigbird", m.BigBirdSparsityConfig(num_heads=H, block=BLK, num_random_blocks=1, num_sliding_window_blocks=3,
+        ("bigbird", m.BigBirdSparsityConfig(num_heads=H, block=block, num_random_blocks=1, num_sliding_window_blocks=3,
                                             num_global_blocks=1), False),
-        ("bigbird-uni-per-head", m.BigBirdSparsityConfig(num_heads=H, block=BLK, different_layout_per_head=True,
+        ("bigbird-uni-per-head", m.BigBirdSparsityConfig(num_heads=H, block=block, different_layout_per_head=True,
                                                          num_random_blocks=2, attention="unidirectional", seed=3),
          True),
-        ("bslongformer", m.BSLongformerSparsityConfig(num_heads=H, block=BLK, num_sliding_window_blocks=3,
+        ("bslongformer", m.BSLongformerSparsityConfig(num_heads=H, block=block, num_sliding_window_blocks=3,
                                                       global_block_indices=[0]), False),
-        ("bslongformer-ranges", m.BSLongformerSparsityConfig(num_heads=H, block=BLK, global_block_indices=[0, 5],
+        ("bslongformer-ranges", m.BSLongformerSparsityConfig(num_heads=H, block=block, global_block_indices=[0, 5],
                                                              global_block_end_indices=[2, 6]), False),
-        ("local", m.LocalSlidingWindowSparsityConfig(num_heads=H, block=BLK, num_sliding_window_blocks=3), True),
-        ("variable", m.VariableSparsityConfig(num_heads=H, block=BLK, num_random_blocks=1, local_window_blocks=[2, 4],
+        ("local", m.LocalSlidingWindowSparsityConfig(num_heads=H, block=block, num_sliding_window_blocks=3), True),
+        ("variable", m.VariableSparsityConfig(num_heads=H, block=block, num_random_blocks=1, local_window_blocks=[2, 4],
                                               global_block_indices=[0]), False),
-        ("variable-uni-per-head", m.VariableSparsityConfig(num_heads=H, block=BLK, different_layout_per_head=True,
+        ("variable-uni-per-head", m.VariableSparsityConfig(num_heads=H, block=block, different_layout_per_head=True,
                                                            num_random_blocks=2, local_window_blocks=[1, 3],
                                                            global_block_indices=[1], global_block_end_indices=[3],
                                                            attention="unidirectional", seed=7), True),
@@ -101,7 +102,7 @@ def test_tables_are_the_row_and_column_gather_maps(name, cfg, causal):
     order as JAX's padded ``_row_gather_maps`` / ``_col_gather_maps``, and the
     launch order puts the widest rows and columns first."""
     layout = cfg.make_layout(S)
-    t = tk.build_tables(layout)
+    t = tk.build_tables(layout, BLK)
     for (ptr, idx, order), (cols, valid) in (
             ((t.row_ptr, t.row_idx, t.row_order), jsa.sparse_self_attention._row_gather_maps(layout)),
             ((t.col_ptr, t.col_idx, t.col_order), jpk._col_gather_maps(layout))):
@@ -111,6 +112,56 @@ def test_tables_are_the_row_and_column_gather_maps(name, cfg, causal):
         assert got == want
         counts = (ptr[1:] - ptr[:-1])[order.long()]
         assert sorted(order.tolist()) == list(range(len(order))) and bool((counts[:-1] >= counts[1:]).all())
+
+
+@pytest.mark.parametrize("block", [16, 32, 64])
+@pytest.mark.parametrize("name", IDS)
+def test_group_tables_hold_blocks_with_identical_lists(name, block):
+    """The bf16 K6b and K6c run one CTA per group.  A group's members have the
+    identical row of JAX's ``_row_gather_maps`` (row groups) or
+    ``_col_gather_maps`` (column groups), lie in one head and ascend; every
+    (head, block) lies in exactly one group; no group holds more than 64 rows
+    and a list's blocks fill as few groups as that allows; the launch order
+    is by descending list length."""
+    cfg = _configs(tsa, block)[IDS.index(name)][1]
+    layout = cfg.make_layout(16 * block)
+    h, nb = layout.shape[:2]
+    t = tk.build_tables(layout, block)
+    width = max(1, 64 // block)
+    for groups, order, (cols, valid) in (
+            (t.row_groups, t.row_group_order, jsa.sparse_self_attention._row_gather_maps(layout)),
+            (t.col_groups, t.col_group_order, jpk._col_gather_maps(layout))):
+        assert groups.dtype == order.dtype == torch.int32 and groups.dim() == 2
+        g = groups.numpy()
+        lists = [tuple(c[v]) for c, v in zip(cols.reshape(h * nb, -1), valid.reshape(h * nb, -1))]
+        assert sorted(g[g >= 0].tolist()) == list(range(h * nb))
+        n_members = (g >= 0).sum(1)
+        assert n_members.max() == g.shape[1] and n_members.max() <= width
+        per_list = {}
+        for row, n in zip(g, n_members):
+            m = row[:n]
+            assert (row[n:] == -1).all() and (np.diff(m) > 0).all() and len(set(m // nb)) == 1
+            assert len({lists[i] for i in m}) == 1
+            per_list.setdefault((m[0] // nb, lists[m[0]]), []).append(n)
+        for key, sizes in per_list.items():
+            blocks = sum(1 for i in range(h * nb) if (i // nb, lists[i]) == key)
+            assert len(sizes) == -(-blocks // width), key
+        counts = [len(lists[g[i, 0]]) for i in order.tolist()]
+        assert sorted(order.tolist()) == list(range(len(g))) and counts == sorted(counts, reverse=True)
+
+
+def test_group_counts_at_the_documented_fixed_layout():
+    """DeepSpeed's documented fixed example at S 4096, block 16, 16 heads: the
+    4 rows of a local window admit one list (1024 row groups a batch row, not
+    4096 row blocks), and so do the 3 plain columns of a window and the 64
+    global columns of a head (1280 column groups); the sub-tiles the groups
+    load fall from 274,432 to 68,608 (rows) and 69,632 (columns)."""
+    layout = tsa.make_sparsity_config(dict(DOC_FIXED), num_heads=16).make_layout(4096)
+    t = tk.build_tables(layout, 16)
+    assert tuple(t.row_groups.shape) == (1024, 4) and tuple(t.col_groups.shape) == (1280, 4)
+    for ptr, groups, want in ((t.row_ptr, t.row_groups, 68608), (t.col_ptr, t.col_groups, 69632)):
+        first = groups[:, 0].long()
+        assert int(ptr[-1]) == 274432 and int((ptr[first + 1] - ptr[first]).sum()) == want
 
 
 # ---------------------------------------------------------------- forward
@@ -180,7 +231,7 @@ def test_plain_forward_matches_pallas_kernel(causal):
     q, k, v = _qkv(b, h, s, d, seed=0)
     want_o, want_lse = jpk._fwd_impl(*map(jnp.asarray, (q, k, v)), layout, block, causal=causal, interpret=True,
                                      emit_lse=True)
-    tables = tk.build_tables(layout)
+    tables = tk.build_tables(layout, block)
     o, lse = tk.sparse_attn_fwd_plain(*map(torch.from_numpy, (q, k, v)), tables, block, causal=causal)
     np.testing.assert_allclose(o.numpy(), np.asarray(want_o), atol=FWD_TOL, rtol=FWD_TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0].reshape(b, h, s), atol=FWD_TOL,
@@ -215,7 +266,7 @@ def test_fully_masked_and_empty_rows_emit_zeros_and_big_lse():
     for layout in (_masked_row_layout(), _empty_rows_cols_layout()):
         h, nb = layout.shape[:2]
         q, k, v = _qkv(1, h, nb * block, 32, seed=3)
-        tables = tk.build_tables(layout)
+        tables = tk.build_tables(layout, block)
         o, lse = tk.sparse_attn_fwd_plain(*map(torch.from_numpy, (q, k, v)), tables, block, causal=True)
         want = _jax_golden(q, k, v, layout, True, block=block)
         np.testing.assert_allclose(o.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
@@ -303,7 +354,7 @@ def test_plain_backward_pieces():
     backward; ``do`` is taken in q's dtype."""
     q, k, v, do = map(torch.from_numpy, _qkv(seed=9, n=4))
     layout = PORT_CONFIGS[IDS.index("fixed-per-head")][1].make_layout(S)
-    tables = tk.build_tables(layout)
+    tables = tk.build_tables(layout, BLK)
     o, lse = tk.sparse_attn_fwd_plain(q, k, v, tables, BLK)
     torch.testing.assert_close(tk.sparse_attn_delta_plain(o, do), torch.einsum("bhsd,bhsd->bhs", o, do))
     via_op = torch.ops.ds_torch.sparse_attn_bwd(q, k, v, o, lse, do, tables.tensors(), None, BLK, False,
@@ -368,7 +419,7 @@ def test_wrapper_and_registry_match_jax_wrapper():
 
 def test_cuda_wrappers_refuse_cpu_tensors_and_unsupported_shapes():
     q, k, v = map(torch.from_numpy, _qkv())
-    tables = tk.build_tables(tsa.DenseSparsityConfig(num_heads=H, block=BLK).make_layout(S))
+    tables = tk.build_tables(tsa.DenseSparsityConfig(num_heads=H, block=BLK).make_layout(S), BLK)
     with pytest.raises(ValueError, match="CUDA"):
         tk.sparse_attn_fwd_cuda(q, k, v, tables, BLK)
     with pytest.raises(ValueError, match="does not fit"):
