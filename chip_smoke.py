@@ -69,21 +69,30 @@ source, all started together.  Phases:
      the qgZ wire's shapes (the 24,576,000-element embedding of Llama-125M
      in f32 and bf16, a padded norm weight, 1001 blocks), codes, scales and
      dequantized values identical, with two faulty kernels the check must
-     reject; kernel / plain time and the bound;
+     reject; kernel / plain time and the bound; then the grouped K4a/K4b on
+     one qgZ step's real table (the 111 gradients of Llama-125M at W 2, bf16
+     input): the send buffer, the received copies, the shards and the
+     gathered tensors identical to the plain versions, two faulty grouped
+     kernels rejected, per-step device ms beside the per-step bound;
  11. data-parallel training through the entry points: two spawned ranks on
      the one card over gloo (NCCL takes one card per rank), each
      ``initialize`` → ``train_batch`` on Llama-125M at full width and depth
      with ``zero_quantized_gradients`` (12 of the 24 rows per rank) —
-     K4a/K4b launches (2 per parameter tensor per step), K1/K2 once per
-     layer, step and wire time, tokens/s, peak memory, bit-identical ranks,
-     the CommsLogger's bytes; then LoCo, a float32-wire control and the
-     int4 collectives (K5a/K5b) against their plain versions.
+     K4a/K4b launches (2 each per step, the grouped exchange), 4 wire
+     collectives per step, K1/K2 once per layer, step and wire time,
+     tokens/s, peak memory, bit-identical ranks, the CommsLogger's bytes,
+     one step's real gradients through the grouped exchange equal to the
+     per-tensor route bit for bit, the codec's ms per step with host issue
+     included on both routes; then LoCo (K4b 3 per step), a float32-wire
+     control and the int4 collectives (K5a/K5b) against their plain
+     versions.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
 there is no GPU or any phase fails.
 """
 
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -111,12 +120,14 @@ from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delt
 from deepspeed_tpu_torch.ops.paged_attention import (choose_n_split, merge_partials_cuda, merge_partials_plain,
                                                      mma_probe_cuda, paged_attention_cuda,
                                                      paged_attention_partials_cuda)
-from deepspeed_tpu_torch.ops.quant_kernels import (dequantize_int4_cuda, dequantize_int8_cuda, quantize_int4_cuda,
-                                                   quantize_int8_cuda)
+from deepspeed_tpu_torch.ops.quant_kernels import (SegmentTable, dequantize_int4_cuda, dequantize_int8_cuda,
+                                                   quantize_int4_cuda, quantize_int8_cuda)
 from deepspeed_tpu_torch.ops.quantizer import dequantize_int4 as dequantize_int4_plain
 from deepspeed_tpu_torch.ops.quantizer import dequantize_int8 as dequantize_int8_plain
+from deepspeed_tpu_torch.ops.quantizer import dequantize_int8_grouped as dequantize_int8_grouped_plain
 from deepspeed_tpu_torch.ops.quantizer import quantize_int4 as quantize_int4_plain
 from deepspeed_tpu_torch.ops.quantizer import quantize_int8 as quantize_int8_plain
+from deepspeed_tpu_torch.ops.quantizer import quantize_int8_grouped as quantize_int8_grouped_plain
 from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig, BSLongformerSparsityConfig,
                                                       DenseSparsityConfig, FixedSparsityConfig,
                                                       LocalSlidingWindowSparsityConfig, SparseSelfAttention,
@@ -1571,12 +1582,107 @@ def quant_bounds(n: int, in_bytes: int) -> dict:
     return {k: (v / HBM_BYTES_PER_S * 1e3, "bytes") for k, v in nbytes.items()}
 
 
+def llama_125m_wire_shapes() -> list:
+    """The shapes of Llama-125M's 111 gradients as the qgZ wire carries them
+    (the engine's order; ``nn.Linear`` weights transposed)."""
+    model = LlamaForCausalLM(llama_125m(), device="meta")
+    linear = {id(m.weight) for m in model.modules() if isinstance(m, torch.nn.Linear)}
+    return [tuple(p.t().shape) if id(p) in linear else tuple(p.shape) for p in model.parameters()
+            if p.is_floating_point()]
+
+
+def grouped_step_bounds(table: SegmentTable, in_bytes: int) -> dict:
+    """Least time of one qgZ step's grouped launches: K4a over the step's
+    tensors (``in_bytes`` an element, unpadded: the padding is not read) and
+    over the f32 shards; K4b over the received copies (identity) and the
+    gathered codes (into f32 tensors, cut).  Each input read once, each
+    output written once, at the HBM rate."""
+    rows, shard_rows, b = table.rows, table.chunk, table.block
+    k4a = in_bytes * table.total + rows * (b + 4) + shard_rows * (4 * b + b + 4)
+    k4b = rows * (b + 4) + 4 * rows * b + rows * (b + 4) + 4 * table.total
+    return {"quantize_int8": k4a / HBM_BYTES_PER_S * 1e3, "dequantize_int8": k4b / HBM_BYTES_PER_S * 1e3}
+
+
+def grouped_mutants(x, table, q, s, through) -> dict:
+    """Faulty grouped kernels the check must reject: K4a that ignores each
+    tensor's end (a block past n_t reads the next tensor's elements, not
+    zeros: the real kernel fed a table whose counts are the padded ones, over
+    an input with room behind it), and K4b that writes rank 1's chunk where
+    rank 0's belongs (the real kernel fed the code rows with the two chunks
+    swapped)."""
+    want_q, want_s = quantize_int8_grouped_plain(x, table)
+    want_out = dequantize_int8_grouped_plain(want_q, want_s, table, through)
+    ignore_ends = copy.copy(table)
+    records, row_segments = table.device_tables(x.device)
+    records = records.clone()
+    records[:, 0] = torch.tensor([c * table.world * table.block for c in table.chunk_rows], device=x.device)
+    ignore_ends._on_device = {x.device: (records, row_segments)}
+    roomy = torch.cat([x, torch.zeros(table.world * table.block, dtype=x.dtype, device=x.device)])[:table.total]
+    bad_q, bad_s = quantize_int8_cuda(roomy, table.block, ignore_ends)
+    c = table.chunk
+    swapped = dequantize_int8_cuda(torch.cat([q[c:2 * c], q[:c], q[2 * c:]]),
+                                   torch.cat([s[c:2 * c], s[:c], s[2 * c:]]), (table.total, ), table, through)
+    torch.cuda.synchronize()
+    caught = {"k4a_ignores_tensor_ends": not (torch.equal(bad_q, want_q) and torch.equal(bad_s, want_s)),
+              "k4b_rank_chunks_swapped": not torch.equal(swapped, want_out),
+              "rows_off_by_ignored_ends": int((bad_q != want_q).any(dim=1).sum()),
+              "values_off_by_swap": int((swapped != want_out).sum())}
+    log(f"  faulty grouped kernels: {json.dumps(caught)}")
+    if not (caught["k4a_ignores_tensor_ends"] and caught["k4b_rank_chunks_swapped"]):
+        raise AssertionError(f"the check passes a faulty grouped quant kernel: {caught}")
+    return caught
+
+
+def quant_step(flush) -> dict:
+    """One qgZ step's grouped launches on the step's real table (the 111
+    Llama-125M gradients at W 2, bf16 input as the bench configuration sends
+    them): the send buffer (K4a), the received copies (K4b, identity), the
+    f32 shards (K4a, identity) and the gathered tensors (K4b, through bf16),
+    each bit-identical to its plain version; two faulty grouped kernels;
+    per-step device ms (each launch cold) beside the per-step bound."""
+    table = SegmentTable([int(np.prod(s)) for s in llama_125m_wire_shapes()], DP_WORLD, QUANT_BLOCK)
+    x = quant_input(table.rows * QUANT_BLOCK, torch.float32, seed=14)[:table.total]
+    x = x.to(torch.bfloat16)
+    q, s = quantize_int8_cuda(x, QUANT_BLOCK, table)
+    received = (DP_WORLD, table.chunk * QUANT_BLOCK)
+    recv = dequantize_int8_cuda(q, s, received)
+    reduced = recv.sum(dim=0) / torch.full_like(recv[0], DP_WORLD)
+    q2, s2 = quantize_int8_cuda(reduced, QUANT_BLOCK)
+    out = dequantize_int8_cuda(q, s, (table.total, ), table, torch.bfloat16)
+    torch.cuda.synchronize()
+    want_q, want_s = quantize_int8_grouped_plain(x, table)
+    want_q2, want_s2 = quantize_int8_plain(reduced, QUANT_BLOCK)
+    same = {"send": torch.equal(q, want_q) and torch.equal(s, want_s),
+            "received": torch.equal(recv, dequantize_int8_plain(want_q, want_s, received)),
+            "shards": torch.equal(q2, want_q2) and torch.equal(s2, want_s2),
+            "gathered": torch.equal(out, dequantize_int8_grouped_plain(want_q, want_s, table, torch.bfloat16))}
+    if not all(same.values()) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"grouped quant kernels differ from their plain versions on the step's table: {same}")
+    log(f"  step table: {len(table)} tensors, {table.total} elements, {table.rows} code rows (chunk {table.chunk}); "
+        f"grouped K4a/K4b identical to the plain versions: {json.dumps(same)}")
+    mutants = grouped_mutants(x, table, q, s, torch.bfloat16)
+    launches = {"k4a_send": lambda: quantize_int8_cuda(x, QUANT_BLOCK, table),
+                "k4b_received": lambda: dequantize_int8_cuda(q, s, received),
+                "k4a_shards": lambda: quantize_int8_cuda(reduced, QUANT_BLOCK),
+                "k4b_gathered": lambda: dequantize_int8_cuda(q, s, (table.total, ), table, torch.bfloat16)}
+    ms = {k: time_ms(fn, 10, flush) for k, fn in launches.items()}
+    bounds = grouped_step_bounds(table, 2)
+    step = {"quantize_int8": ms["k4a_send"] + ms["k4a_shards"],
+            "dequantize_int8": ms["k4b_received"] + ms["k4b_gathered"]}
+    res = {"tensors": len(table), "elements": table.total, "rows": table.rows, "launch_ms": ms, "step_ms": step,
+           "step_bound_ms": bounds, "step_bound_ms_f32_input": grouped_step_bounds(table, 4),
+           "codec_ms": sum(ms.values()), "codec_bound_ms": sum(bounds.values()), "mutants": mutants}
+    log("  grouped step: " + json.dumps({k: v for k, v in res.items() if k != "mutants"}))
+    return res
+
+
 def phase_quant_kernels() -> dict:
     """K4a/K4b/K5a/K5b against their plain versions at the wire's shapes:
     the embedding's 24,576,000 elements in f32 and bf16, a 768-element norm
     weight padded to 1024, an nb (1001) that is not a multiple of the 8
     blocks of a CTA; two faulty kernels must be rejected; kernel / plain time
-    (cold L2) at the embedding's shape beside the bound."""
+    (cold L2) at the embedding's shape beside the bound; then the grouped
+    K4a/K4b on one qgZ step's real table (``quant_step``)."""
     x = quant_input(QUANT_N, torch.float32, seed=10)
     errs = quant_check("embedding f32", x)
     for label, t in (("embedding bf16", quant_input(QUANT_N, torch.bfloat16, seed=11)),
@@ -1603,9 +1709,10 @@ def phase_quant_kernels() -> dict:
                       "plain_ms": time_ms(plain, 5, flush), "bound_ms": t_bound, "bound_by": by, "library_ms": None}
         log(f"  {name}: " + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                                       for k, v in rows[name].items()))
+    step = quant_step(flush)
     del flush
     torch.cuda.empty_cache()
-    return {"rows": rows, "mutants": mutants}
+    return {"rows": rows, "mutants": mutants, "step": step}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -1617,36 +1724,48 @@ DP_DS_CONFIG = {**BENCH_DS_CONFIG, "zero_optimization": {"stage": 0, "zero_quant
 QUANT_COUNTERS = (quantize_int8_cuda, dequantize_int8_cuda, quantize_int4_cuda, dequantize_int4_cuda)
 
 
-def quant_replay_ms(numels, rank: int) -> float:
-    """Device ms of one qgZ step's codec launches on this card's own: per
-    tensor K4a over the padded gradient and over its shard, K4b over the
-    received copies and over the gathered tensor, at the shapes of the
-    step, timed with CUDA events while the other rank waits at a barrier
-    (two ranks' CUDA contexts time-slice the card, so events inside the
-    shared step would count the other rank's work too)."""
+def quant_replay_ms(numels, rank: int) -> dict:
+    """Ms of one qgZ step's exchange on this card, host issue included (CUDA
+    events around 3 calls, no spin ahead of them), with its collectives
+    replaced by device copies of the same sizes (the rank's own codes stand
+    in for what it would receive), timed while the other rank waits at a
+    barrier (two ranks' CUDA contexts time-slice the card, so events inside
+    the shared step would count the other rank's work too), for both routes
+    over the step's gradients in bf16, as the engine feeds them:
+      * ``per_tensor``: ``padded_quant_allreduce`` of each tensor (the
+        engine's route before the grouped exchange), 444 launches of K4a/K4b;
+      * ``grouped``: ``GroupedQuantAllreduce``, the engine's exchange, 4."""
+    from unittest import mock
+
     from deepspeed_tpu_torch.comm import comm
-    unit = DP_WORLD * 256
-    xs = [torch.randn(-(-n // unit) * unit, device="cuda") for n in numels]
+    from deepspeed_tpu_torch.runtime.comm import GroupedQuantAllreduce, padded_quant_allreduce
+    xs = [torch.randn(n, device="cuda").to(torch.bfloat16) for n in numels]
+    wire = GroupedQuantAllreduce([(n, ) for n in numels], torch.bfloat16, "cuda")
+    routes = (("per_tensor", lambda: [padded_quant_allreduce(x) for x in xs]), ("grouped", lambda: wire(xs)))
 
-    def step():
-        for x in xs:
-            q, s = quantize_int8_cuda(x)
-            dequantize_int8_cuda(q, s, (DP_WORLD, x.numel() // DP_WORLD))
-            q, s = quantize_int8_cuda(x[:x.numel() // DP_WORLD])
-            dequantize_int8_cuda(torch.cat([q] * DP_WORLD), torch.cat([s] * DP_WORLD), (x.numel(), ))
+    def all_to_all(out, t, group=None):
+        return out.copy_(t)
 
-    ms = None
+    def all_gather(out, t, group=None):
+        out.view(DP_WORLD, *t.shape).copy_(t)
+        return out
+
+    ms = {}
     for turn in range(DP_WORLD):
         comm.barrier()
         if turn == rank:
-            step()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(3):
-                step()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / 3
+            with mock.patch.object(comm, "all_to_all_single", all_to_all), \
+                    mock.patch.object(comm, "all_gather_into_tensor", all_gather):
+                for name, step in routes:
+                    step()
+                    torch.cuda.synchronize()
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(3):
+                        step()
+                    end.record()
+                    end.synchronize()
+                    ms[name] = start.elapsed_time(end) / 3
     comm.barrier()
     return ms
 
@@ -1668,10 +1787,12 @@ def dp_batch():
 def dp_train(ds_config: dict, steps: int, timed_from=None) -> dict:
     """A fresh engine on this rank (seeded weights, broadcast from rank 0) and
     ``steps`` train_batch calls on the repeated global batch; the steps from
-    ``timed_from`` on are timed as one window ended by a fetch of the loss."""
+    ``timed_from`` on are timed as one window ended by a fetch of the loss.
+    ``collectives``: the calls of each collective over the steps."""
     from deepspeed_tpu_torch.comm import comm
     engine = build_trainer(llama_125m(), ds_config)
     batch = dp_batch()
+    calls = comm.call_counts.copy()
     losses = []
     for i in range(steps):
         if i == timed_from:
@@ -1680,7 +1801,7 @@ def dp_train(ds_config: dict, steps: int, timed_from=None) -> dict:
             t0 = time.perf_counter()
         losses.append(engine.train_batch(batch=batch))
     float(losses[-1])                    # the value fetch ends the window
-    res = {"engine": engine, "losses": [float(l) for l in losses]}
+    res = {"engine": engine, "losses": [float(l) for l in losses], "collectives": dict(comm.call_counts - calls)}
     if timed_from is not None:
         n = steps - timed_from
         window_s = time.perf_counter() - t0
@@ -1695,7 +1816,7 @@ def dp_rank(rank: int) -> dict:
     float32-wire control, and the int4 collectives over the embedding's
     gradient against their plain versions on CPU copies."""
     from deepspeed_tpu_torch.comm import comm
-    from deepspeed_tpu_torch.runtime.comm import all_to_all_quant_reduce, quantized_all_gather
+    from deepspeed_tpu_torch.runtime.comm import all_to_all_quant_reduce, padded_quant_allreduce, quantized_all_gather
     comm.configure(enabled=True)
     acc = get_accelerator()
     acc.reset_peak_memory_stats()
@@ -1708,12 +1829,17 @@ def dp_rank(rank: int) -> dict:
            "comms": {str(k): v[0] for k, v in comm.comms_logger().comms_dict["all_to_all_quant_reduce"].items()},
            "digest": param_digest(engine), "peak_mem_gb": acc.max_memory_allocated() / 1e9,
            "backend": comm.get_backend()}
-    res["qgz"]["kernel_ms_per_step"] = quant_replay_ms(res["numels"], rank)
-    # the embedding's gradient of this rank's rows, for the int4 calls
+    res["qgz"]["codec_ms_per_step"] = quant_replay_ms(res["numels"], rank)
+    # one step's gradients of this rank's rows: the grouped exchange against
+    # the per-tensor route, and the embedding's for the int4 calls
     rows = {k: v[rank * BENCH_B // DP_WORLD:(rank + 1) * BENCH_B // DP_WORLD] for k, v in dp_batch().items()}
-    emb = engine.module.embed_tokens.weight
-    grad = torch.autograd.grad(engine.forward(rows), [emb])[0].float()
-    del engine
+    grads = torch.autograd.grad(engine.forward(rows), engine.params)
+    wire = [engine._to_wire(g.float(), t) for g, t in zip(grads, engine._wire_transposed)]
+    grouped = engine._wire(wire)
+    per_tensor = [padded_quant_allreduce(g.to(engine.compute_dtype)).float() for g in wire]
+    res["grouped_equals_per_tensor"] = all(torch.equal(a, b) for a, b in zip(grouped, per_tensor))
+    grad = grads[[id(p) for p in engine.params].index(id(engine.module.embed_tokens.weight))].float()
+    del engine, grads, wire, grouped, per_tensor
     torch.cuda.empty_cache()
 
     for counter in QUANT_COUNTERS:
@@ -1729,7 +1855,10 @@ def dp_rank(rank: int) -> dict:
 
     loco_cfg = {**DP_DS_CONFIG, "zero_optimization": {**DP_DS_CONFIG["zero_optimization"],
                                                       "zeropp_loco_param": {"err_beta": 0.8}}}
+    for counter in QUANT_COUNTERS:
+        counter.launches = 0
     loco = dp_train(loco_cfg, DP_LOCO_STEPS)
+    loco["launches"] = {f.__name__: f.launches for f in (quantize_int8_cuda, dequantize_int8_cuda)}
     engine = loco.pop("engine")
     res["loco"] = {**loco, "error_abs_max": max(float(e.abs().max()) for e in engine.loco_error),
                    "digest": param_digest(engine)}
@@ -1800,9 +1929,13 @@ def phase_data_parallel(smi: str) -> dict:
     checks = {
         "qgz_active": r0["qgz_active"] and r1["qgz_active"] and not r0["control"]["qgz_active"],
         "backend_gloo": r0["backend"] == "gloo",
-        "k4a_k4b_2_per_tensor_per_step": all(
-            r["launches"]["quantize_int8_cuda"] == r["launches"]["dequantize_int8_cuda"] == 2 * n_tensors * steps
+        "k4a_k4b_2_per_step": all(
+            r["launches"]["quantize_int8_cuda"] == r["launches"]["dequantize_int8_cuda"] == 2 * steps
             for r in (r0, r1)),
+        "wire_4_collectives_per_step": all(
+            r["qgz"]["collectives"] == {"all_to_all_single": 2 * steps, "all_gather_into_tensor": 2 * steps,
+                                        "all_reduce": 2 * steps} for r in (r0, r1)),
+        "grouped_equals_per_tensor": r0["grouped_equals_per_tensor"] and r1["grouped_equals_per_tensor"],
         "k1_k2_once_per_layer": all(r["launches"][k] == layers * steps for r in (r0, r1)
                                     for k in ("flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda")),
         "k5_launched": all(r["int4_launches"] == {"quantize_int4_cuda": 2, "dequantize_int4_cuda": 2}
@@ -1815,6 +1948,9 @@ def phase_data_parallel(smi: str) -> dict:
         "losses_equal_on_ranks": r0["qgz"]["losses"] == r1["qgz"]["losses"],
         "comms_bytes_formula": r0["wire_bytes"] == want_bytes and list(r0["comms"]) == [str(want_bytes)],
         "loco_error_nonzero": r0["loco"]["error_abs_max"] > 0,
+        "loco_k4a_2_k4b_3_per_step": all(r["loco"]["launches"] == {"quantize_int8_cuda": 2 * DP_LOCO_STEPS,
+                                                                   "dequantize_int8_cuda": 3 * DP_LOCO_STEPS}
+                                         for r in (r0, r1)),
         "qgz_within_5e-2_of_fp32_wire": bool(np.allclose(r0["qgz"]["losses"][:DP_CONTROL_STEPS],
                                                          r0["control"]["losses"], rtol=5e-2, atol=5e-2)),
     }
@@ -1824,7 +1960,8 @@ def phase_data_parallel(smi: str) -> dict:
            "n_tensors": n_tensors, "step_ms": [r["qgz"]["step_ms"] for r in (r0, r1)],
            "tok_s_both_ranks": BENCH_B * BENCH_S / (max(r["qgz"]["step_ms"] for r in (r0, r1)) / 1e3),
            "wire_ms_per_step": [r["qgz"]["wire_ms_per_step"] for r in (r0, r1)],
-           "quant_kernel_ms_per_step_alone": [r["qgz"]["kernel_ms_per_step"] for r in (r0, r1)],
+           "codec_ms_per_step_alone": [r["qgz"]["codec_ms_per_step"] for r in (r0, r1)],
+           "collectives": r0["qgz"]["collectives"], "loco_collectives": r0["loco"]["collectives"],
            "peak_mem_gb": [r["peak_mem_gb"] for r in (r0, r1)], "wire_bytes_per_step": r0["wire_bytes"],
            "losses_qgz": q["losses"], "losses_fp32_wire": r0["control"]["losses"], "losses_loco": r0["loco"]["losses"],
            "loco_error_abs_max": r0["loco"]["error_abs_max"], "launches": r0["launches"],
@@ -1902,10 +2039,14 @@ def main() -> int:
     for name in QUANT_NAMES:
         row = quant["rows"][name]     # the embedding's shape, the wire's largest tensor
         launches = dp["launches"] if "int8" in name else dp["int4_launches"]
-        kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/quant.cu",
-                        "replaces": QUANT_REPLACES[name], "launches": launches[f"{name}_cuda"],
-                        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None})
+        entry = {"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/quant.cu",
+                 "replaces": QUANT_REPLACES[name], "launches": launches[f"{name}_cuda"],
+                 "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}
+        if "int8" in name:   # the grouped launches of one qgZ step (phase 10's step table)
+            entry.update(launches_per_step=launches[f"{name}_cuda"] / (DP_WARMUP + DP_TIMED),
+                         step_ms=quant["step"]["step_ms"][name], step_bound_ms=quant["step"]["step_bound_ms"][name])
+        kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

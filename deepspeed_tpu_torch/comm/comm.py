@@ -18,8 +18,10 @@ over ``torch.distributed`` (port of ``deepspeed_tpu/comm/comm.py:42-96,
   (ref: ``utils/comms_logging.py``), except inside ``unrecorded()``: there
   a caller records one aggregate for the collectives it runs (the training
   engine's step, which JAX runs inside one ``jit`` and logs as one entry).
+  ``call_counts`` counts every collective's calls, recorded or not.
 """
 
+import collections
 import contextlib
 import datetime
 import os
@@ -34,6 +36,8 @@ from .mesh import MeshSpec
 
 _COMMS_LOGGER = None
 _UNRECORDED = 0   # depth of unrecorded() blocks
+#: calls of each collective in this process, inside unrecorded() blocks too
+call_counts = collections.Counter()
 
 
 class CommsLogger:
@@ -171,6 +175,7 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None) -> torc
         raise ValueError(f"Unsupported reduce op {op}")
     t0 = time.time()
     dist.all_reduce(tensor, op=_TORCH_OPS[op], group=group)
+    call_counts["all_reduce"] += 1
     if op == ReduceOp.AVG:
         tensor.div_(get_world_size(group))
     _record("all_reduce", t0, _nbytes(tensor))
@@ -181,6 +186,7 @@ def all_gather_into_tensor(output_tensor: torch.Tensor, tensor: torch.Tensor, gr
     """Every rank's ``tensor``, concatenated along dim 0 in rank order."""
     t0 = time.time()
     dist.all_gather_into_tensor(output_tensor, tensor, group=group)
+    call_counts["all_gather_into_tensor"] += 1
     _record("all_gather_into_tensor", t0, _nbytes(tensor))
     return output_tensor
 
@@ -190,6 +196,7 @@ def all_to_all_single(output: torch.Tensor, tensor: torch.Tensor, group=None) ->
     rank ``d``; chunk ``s`` of ``output`` came from rank ``s``."""
     t0 = time.time()
     dist.all_to_all_single(output, tensor, group=group)
+    call_counts["all_to_all_single"] += 1
     _record("all_to_all_single", t0, _nbytes(tensor))
     return output
 
@@ -197,5 +204,6 @@ def all_to_all_single(output: torch.Tensor, tensor: torch.Tensor, group=None) ->
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     t0 = time.time()
     dist.broadcast(tensor, src=src, group=group)
+    call_counts["broadcast"] += 1
     _record("broadcast", t0, _nbytes(tensor))
     return tensor

@@ -19,6 +19,11 @@ by XLA on the CPU, the JAX functions differ in the last bit: the divide by
 the constant qmax becomes a product with ``fl(1/qmax)``, and products are
 contracted into the sums and differences that consume them; PERF.md.)
 
+``quantize_int8_grouped`` / ``dequantize_int8_grouped`` are the plain
+versions of the grouped K4a/K4b: a step's tensors in one rank-major code
+buffer laid out by a ``SegmentTable`` (``ops/quant_kernels.py``), computed
+tensor by tensor with ``quantize_int8`` / ``dequantize_int8``.
+
 int4 packs in the *halves* layout (``quantizer.py:48-53``): byte ``i`` of a
 block holds element ``i`` in its low nibble and element ``i + block/2`` in
 its high nibble, each stored as ``code + 8`` (1..15).
@@ -26,7 +31,7 @@ its high nibble, each stored as ``code + 8`` (1..15).
 ``pack_signs`` / ``unpack_signs`` (1-bit) wait for the 1-bit optimizers.
 """
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -53,9 +58,51 @@ def quantize_int8(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torc
     return q, scale
 
 
-def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """What K4b computes: ``q · scale`` in float32, reshaped to ``shape``."""
-    return (q.float() * scale[:, None]).reshape(shape)
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int],
+                    through: Optional[torch.dtype] = None) -> torch.Tensor:
+    """What K4b computes: ``q · scale`` in float32, reshaped to ``shape``;
+    with ``through``, each value as that dtype holds it (widened back)."""
+    out = (q.float() * scale[:, None]).reshape(shape)
+    return out if through in (None, torch.float32) else out.to(through).float()
+
+
+def quantize_int8_grouped(x: torch.Tensor, table) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the grouped K4a computes: each tensor of the flat ``x``
+    (``[table.total]``, the tensors back to back) padded with zeros to
+    ``world·block`` and quantized on its own, its blocks laid out rank-major:
+    ``(q [world·chunk, block] int8, scales [world·chunk] f32)``."""
+    w, c_all, block = table.world, table.chunk, table.block
+    if x.numel() != table.total:
+        raise ValueError(f"the grouped input holds {x.numel()} values, the table {table.total}")
+    q = torch.empty((w, c_all, block), dtype=torch.int8, device=x.device)
+    s = torch.empty((w, c_all), dtype=torch.float32, device=x.device)
+    flat = x.reshape(-1)
+    for n, first, c, off in table.segments():
+        padded = torch.zeros(w * c * block, dtype=torch.float32, device=x.device)
+        padded[:n] = flat[first:first + n].float()
+        qt, st = quantize_int8(padded, block)
+        q[:, off:off + c] = qt.view(w, c, block)
+        s[:, off:off + c] = st.view(w, c)
+    return q.view(w * c_all, block), s.view(w * c_all)
+
+
+def dequantize_int8_grouped(q: torch.Tensor, scale: torch.Tensor, table,
+                            through: Optional[torch.dtype] = None) -> torch.Tensor:
+    """What the grouped K4b computes: the rank-major rows of ``q`` back in
+    the tensors' order, each tensor dequantized on its own and cut to its
+    size: float32 ``[table.total]`` (through ``through`` as in
+    ``dequantize_int8``)."""
+    w, c_all, block = table.world, table.chunk, table.block
+    if tuple(q.shape) != (w * c_all, block) or tuple(scale.shape) != (w * c_all, ):
+        raise ValueError(f"codes {tuple(q.shape)} and scales {tuple(scale.shape)} are not the table's "
+                         f"[{w * c_all}, {block}] and [{w * c_all}]")
+    out = torch.empty(table.total, dtype=torch.float32, device=q.device)
+    qv, sv = q.view(w, c_all, block), scale.view(w, c_all)
+    for n, first, c, off in table.segments():
+        rows = qv[:, off:off + c].reshape(w * c, block)
+        out[first:first + n] = dequantize_int8(rows, sv[:, off:off + c].reshape(w * c), (w * c * block, ),
+                                               through)[:n]
+    return out
 
 
 def quantize_int4(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:

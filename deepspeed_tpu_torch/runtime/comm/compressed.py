@@ -24,15 +24,29 @@ The reduction over the W copies is a sum then a divide by W, as
 origin: callers pass one tensor at a time (never a flattened bucket of
 several), or every code and scale would differ from the reference.
 
+``GroupedQuantAllreduce`` is ``padded_quant_allreduce`` over a whole list
+of tensors (the JAX engine's ``jax.tree.map`` of it over the gradients,
+``deepspeed_tpu/runtime/engine.py:984-987``) in 2 launches of the grouped
+K4a, 2 of the grouped K4b and 4 collectives, instead of 2 + 2 launches and
+4 collectives per tensor: each tensor is still padded apart (a
+``SegmentTable``), and the codes of all of them travel in one buffer per
+direction.  Every code, scale and dequantized value equals the per-tensor
+route's at any world size.  The mean over the W received copies is one
+``sum(dim=0)`` over ``[W, Σ shards]`` where the per-tensor route sums each
+``[W, shard_t]``: at W = 2 a sum has one order, so the reduced values are
+bit-identical too; at W >= 3 the order is torch's, and may differ in the
+last bit.
+
 ``compressed_allreduce`` (the 1-bit wire) waits for the 1-bit optimizers.
 """
 
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ...comm import comm
-from ...ops.quant_kernels import dequantize_int4, dequantize_int8, quantize_int4, quantize_int8
+from ...ops.quant_kernels import SegmentTable, dequantize_int4, dequantize_int8, quantize_int4, quantize_int8
 
 
 def _codec(bits: int):
@@ -116,3 +130,61 @@ def loco_all_to_all_quant_reduce(x: torch.Tensor, error: torch.Tensor, group=Non
     fed = x.reshape(-1).float() + err_beta * error.reshape(-1).float()
     reduced, deq = all_to_all_quant_reduce(fed, group, bits=bits, block=block, return_local_dequant=True)
     return reduced, (fed - deq).reshape(x.shape).to(error.dtype)
+
+
+class GroupedQuantAllreduce:
+    """The grouped qgZ exchange over a fixed list of tensor shapes: the
+    ``SegmentTable`` of the shapes at the group's world size (blocks of 256),
+    and a flat buffer of the wire's input ``dtype`` whose views take a step's
+    tensors in one ``torch._foreach_copy_`` (the cast to ``dtype``
+    included).  int8 only (``bits=8``), as the JAX engine's qgZ step.  Built
+    once, called once per step."""
+
+    def __init__(self, shapes: Sequence[Sequence[int]], dtype: torch.dtype = torch.float32, device=None, group=None,
+                 bits: int = 8):
+        if bits != 8:
+            raise ValueError(f"the grouped qgZ exchange is int8 (bits=8), got bits={bits}: "
+                             "use padded_quant_allreduce per tensor")
+        self.group = group
+        self.dtype = dtype
+        self.shapes = [tuple(s) for s in shapes]
+        self.world = comm.get_world_size(group)
+        self.table = SegmentTable([math.prod(s) for s in self.shapes], self.world)
+        self.inputs = torch.empty(self.table.total, dtype=dtype, device=device)
+        self.input_views = self._views(self.inputs)
+
+    def _views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        return [v.view(s) for v, s in zip(flat.split(self.table.numels), self.shapes)]
+
+    def __call__(self, xs: Sequence[torch.Tensor], errors: Optional[Sequence[torch.Tensor]] = None,
+                 err_beta: float = 0.8):
+        """``padded_quant_allreduce`` of every ``x`` (taken as ``dtype``),
+        widened to float32: the reduced tensors in the shapes of ``xs``, views
+        of one buffer.  With ``errors`` (in the same shapes; the wire's dtype
+        float32, as LoCo feeds it): LoCo, and also the new errors."""
+        table, block, world = self.table, self.table.block, self.world
+        if len(xs) != len(table) or (errors is not None and len(errors) != len(table)):
+            raise ValueError(f"the exchange was built for {len(table)} tensors, got {len(xs)}"
+                             + ("" if errors is None else f" and {len(errors)} errors"))
+        if errors is not None and self.dtype != torch.float32:
+            raise ValueError(f"LoCo feeds the grouped exchange float32 (x + err_beta·error), not {self.dtype}")
+        src = self.inputs
+        torch._foreach_copy_(self.input_views, list(xs))
+        if errors is not None:   # in place: the inputs become x + err_beta·error
+            torch._foreach_add_(self.input_views, torch._foreach_mul([e.float() for e in errors], err_beta))
+        q, s = quantize_int8(src, block, table)
+        local_deq = dequantize_int8(q, s, (table.total, ), table) if errors is not None else None
+        q_recv, s_recv = torch.empty_like(q), torch.empty_like(s)
+        comm.all_to_all_single(q_recv, q, self.group)
+        comm.all_to_all_single(s_recv, s, self.group)
+        total = dequantize_int8(q_recv, s_recv, (world, table.chunk * block)).sum(dim=0)
+        reduced = total / torch.full_like(total, world)   # a true divide on every device (see ops/quantizer.py)
+        q, s = quantize_int8(reduced, block)
+        all_q = q.new_empty((world * q.shape[0], block))
+        all_s = s.new_empty((world * s.shape[0], ))
+        comm.all_gather_into_tensor(all_q, q, self.group)
+        comm.all_gather_into_tensor(all_s, s, self.group)
+        full = dequantize_int8(all_q, all_s, (table.total, ), table, through=self.dtype)
+        if errors is None:
+            return self._views(full)
+        return self._views(full), self._views(src - local_deq)

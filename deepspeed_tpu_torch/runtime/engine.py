@@ -32,14 +32,17 @@ The gradients then become the mean over the ranks on one of two wires:
   * the ZeRO++ quantized wire (``zero_quantized_gradients``), the JAX manual
     data-parallel step (``_build_compressed_train_step`` :944-1037), taken
     when ``_manual_ddp_eligible`` holds (stage 0, gas 1, no fp16, world > 1;
-    otherwise a warning and the float32 wire): per gradient tensor,
-    ``padded_quant_allreduce`` (qgZ: int8 all-to-all reduce-scatter and
-    int8 all-gather, kernels K4a/K4b), then ``_apply_grads`` with the norm
-    ``sqrt(pmean(norm²))``.  With ``zeropp_loco_param`` (LoCo, JAX
-    ``_maybe_loco_wrap`` :298-358) the local gradients are not clipped; the
-    update quantizes each of them plus ``err_beta`` times its error state
-    (one float32 tensor per parameter beside the moments), takes the pmean
-    of the new error, and clips the reduced gradients.
+    otherwise a warning and the float32 wire): ``padded_quant_allreduce``
+    of every gradient tensor (qgZ: int8 all-to-all reduce-scatter and int8
+    all-gather), all of them in one grouped exchange
+    (``GroupedQuantAllreduce``: 2 launches each of the grouped kernels
+    K4a/K4b and 4 collectives a step, every tensor still padded apart), then
+    ``_apply_grads`` with the norm ``sqrt(pmean(norm²))``.  With
+    ``zeropp_loco_param`` (LoCo, JAX ``_maybe_loco_wrap`` :298-358) the
+    local gradients are not clipped; the update quantizes each of them plus
+    ``err_beta`` times its error state (one float32 tensor per parameter
+    beside the moments) in the same grouped exchange, takes the pmean of the
+    new error per tensor, and clips the reduced gradients.
 
 The quantized wire carries each tensor in the JAX package's layout: flax
 kernels are the transposes of ``nn.Linear`` weights, so the 256-element
@@ -67,7 +70,7 @@ from ..models.llama import causal_lm_loss
 from ..ops.adam import FusedAdam
 from ..ops.optimizer import global_norm
 from ..utils.logging import log_dist, logger
-from .comm.compressed import padded_quant_allreduce
+from .comm.compressed import GroupedQuantAllreduce
 from .config import ROADMAP_OFFLOAD, ROADMAP_TRAINING_FEATURES, DeepSpeedConfig
 from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, ONEBIT_OPTIMIZERS
 from .fp16.loss_scaler import StaticLossScaler, create_loss_scaler, found_inf_or_nan
@@ -212,13 +215,19 @@ class DeepSpeedEngine:
             self.loco_error = [torch.zeros_like(self._to_wire(p, t), dtype=torch.float32)
                                for p, t in zip(self.params, self._wire_transposed)]
             log_dist(f"ZeRO++ LoCo gradient transport active (err_beta={self.loco_beta})", ranks=[0])
+        #: the grouped exchange of the step's gradients in the wire's layout;
+        #: its input is the compute dtype (LoCo: float32, as JAX feeds it)
+        self._wire: Optional[GroupedQuantAllreduce] = None
+        if self.qgz:
+            shapes = [self._to_wire(p, t).shape for p, t in zip(self.params, self._wire_transposed)]
+            self._wire = GroupedQuantAllreduce(shapes, torch.float32 if self.loco_beta is not None else
+                                               self.compute_dtype, self.device)
+        # per direction: every code row of the table (each tensor padded to
+        # world·block) and its float32 scale
         self._compressed_wire_bytes = 0
         if self.qgz:
-            # per direction: the int8 payload padded to world·256, and one
-            # float32 scale per 256-element block
-            unit = self.dp_world * 256
-            padded = [-(-p.numel() // unit) * unit for p in self.params]
-            self._compressed_wire_bytes = sum(2 * (n + 4 * (n // 256)) for n in padded)
+            table = self._wire.table
+            self._compressed_wire_bytes = 2 * table.rows * (table.block + 4)
 
     @staticmethod
     def _to_wire(t: torch.Tensor, transposed: bool) -> torch.Tensor:
@@ -328,12 +337,10 @@ class DeepSpeedEngine:
         if self.loco_error is not None:
             return grads, loss
         # qgZ (JAX :981-987): the wire takes each gradient in the compute
-        # dtype and gives it back in that dtype
-        out = []
+        # dtype and gives it back in that dtype (widened to float32 here)
         with self._timed_wire():
-            for g, t in zip(grads, self._wire_transposed):
-                full = padded_quant_allreduce(self._to_wire(g, t).to(self.compute_dtype))
-                out.append(self._to_wire(full.float(), t).contiguous())
+            full = self._wire([self._to_wire(g, t) for g, t in zip(grads, self._wire_transposed)])
+            out = [self._to_wire(f, t).contiguous() for f, t in zip(full, self._wire_transposed)]
         return out, loss
 
     def _loco_reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -341,13 +348,11 @@ class DeepSpeedEngine:
         ``err_beta`` times its error goes on the qgZ wire; the new error
         state is the pmean of what the wire lost; the reduced gradients are
         clipped by their own global norm."""
-        out = []
         with self._timed_wire():
-            for i, (g, t) in enumerate(zip(grads, self._wire_transposed)):
-                full, err = padded_quant_allreduce(self._to_wire(g, t), error=self.loco_error[i],
-                                                   err_beta=self.loco_beta)
-                self.loco_error[i] = comm.all_reduce(err, comm.ReduceOp.AVG)
-                out.append(self._to_wire(full, t).contiguous())
+            full, err = self._wire([self._to_wire(g, t) for g, t in zip(grads, self._wire_transposed)],
+                                   errors=self.loco_error, err_beta=self.loco_beta)
+            self.loco_error = [comm.all_reduce(e, comm.ReduceOp.AVG) for e in err]
+            out = [self._to_wire(f, t).contiguous() for f, t in zip(full, self._wire_transposed)]
         clip = self._config.gradient_clipping
         if clip and clip > 0:
             torch._foreach_mul_(out, torch.clamp(clip / (global_norm(out) + 1e-6), max=1.0))

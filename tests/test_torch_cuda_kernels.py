@@ -531,3 +531,106 @@ def test_quant_kernels_reject_what_they_do_not_take():
     q, s = qk.quantize_int8_cuda(x, 256)
     with pytest.raises(ValueError, match="codes and float32 scales"):
         qk.dequantize_int8_cuda(q.view(torch.uint8), s, (4096, ))
+
+
+#: a mixed table: sizes that are and are not multiples of the block, and
+#: cuts (1001, 333) that leave the next tensors' starts off 16-byte alignment
+GROUPED_NUMELS = (768, 1000, 4096, 65536, 300, 1001, 333, 24576)
+
+
+def _grouped_input(dtype, seed, lead=0):
+    """The tensors of GROUPED_NUMELS back to back (the fifth all zero), as a
+    view that starts ``lead`` elements into its storage."""
+    total = sum(GROUPED_NUMELS)
+    x = _quant_input(256, -(-(total + lead) // 256), torch.float32, seed)[:total + lead].clone()
+    start = lead + sum(GROUPED_NUMELS[:4])
+    x[start:start + GROUPED_NUMELS[4]] = 0
+    return x.to(dtype)[lead:]
+
+
+@pytest.mark.parametrize("lead", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("block", [256, 96])
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_grouped_quant_kernels_match_plain(dtype, world, block, lead):
+    """The grouped K4a/K4b on a mixed table against their plain versions on
+    the same CUDA tensors, bit for bit: the rank-major codes and scales, the
+    values back in tensor order (through bf16 where the input is bf16), and
+    the identity layout of the received copies.  Block 96 takes the generic
+    kernels; a misaligned input takes the scalar loads."""
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    from deepspeed_tpu_torch.ops import quantizer as plain
+    x = _grouped_input(dtype, seed=world * block + lead, lead=lead)
+    table = qk.SegmentTable(GROUPED_NUMELS, world, block)
+    before = [k.launches for k in (qk.quantize_int8_cuda, qk.dequantize_int8_cuda)]
+    q, s = qk.quantize_int8_cuda(x, block, table)
+    through = dtype if dtype == torch.bfloat16 else None
+    out = qk.dequantize_int8_cuda(q, s, (table.total, ), table, through)
+    received = qk.dequantize_int8_cuda(q, s, (world, table.chunk * block))
+    torch.cuda.synchronize()
+    want_q, want_s = plain.quantize_int8_grouped(x, table)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert torch.equal(out, plain.dequantize_int8_grouped(want_q, want_s, table, through))
+    assert torch.equal(received, plain.dequantize_int8(want_q, want_s, received.shape))
+    zero = slice(table.chunk_offsets[4], table.chunk_offsets[4] + table.chunk_rows[4])
+    assert bool((s.view(world, -1)[:, zero] == 1.0).all())
+    assert [k.launches - b for k, b in zip((qk.quantize_int8_cuda, qk.dequantize_int8_cuda), before)] == [1, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_one_segment_launch_equals_the_single_tensor_call(dtype):
+    """A one-tensor table at world 1 is the identity layout: the grouped
+    launch gives the single-tensor call's codes, scales and values."""
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    from deepspeed_tpu_torch.ops import quantizer as plain
+    x = _quant_input(256, 4096, dtype, seed=7)
+    table = qk.SegmentTable([x.numel()], 1)
+    q, s = qk.quantize_int8_cuda(x, 256, table)
+    q1, s1 = qk.quantize_int8_cuda(x, 256)
+    out = qk.dequantize_int8_cuda(q, s, (x.numel(), ), table)
+    out1 = qk.dequantize_int8_cuda(q1, s1, (x.numel(), ))
+    torch.cuda.synchronize()
+    want_q, want_s = plain.quantize_int8(x, 256)
+    assert torch.equal(q, q1) and torch.equal(s, s1) and torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert torch.equal(out, out1) and torch.equal(out, plain.dequantize_int8(want_q, want_s, (x.numel(), )))
+
+
+def test_k4b_takes_codes_that_start_off_a_word_boundary():
+    """Codes viewed one byte into their storage (valid, contiguous int8)
+    dequantize as the aligned ones do, in the grouped and the identity
+    layout: the kernel takes byte loads there instead of 4-byte words."""
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    from deepspeed_tpu_torch.ops import quantizer as plain
+    table = qk.SegmentTable(GROUPED_NUMELS, 2)
+    q, s = qk.quantize_int8_cuda(_grouped_input(torch.float32, seed=11), 256, table)
+    odd = torch.empty(q.numel() + 1, dtype=torch.int8, device=q.device)[1:].view(q.shape)
+    odd.copy_(q)
+    assert odd.data_ptr() % 4 == 1 and odd.is_contiguous()
+    out = qk.dequantize_int8_cuda(odd, s, (table.total, ), table)
+    received = qk.dequantize_int8_cuda(odd, s, (2, table.chunk * 256))
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain.dequantize_int8_grouped(q, s, table))
+    assert torch.equal(received, plain.dequantize_int8(q, s, received.shape))
+
+
+def test_grouped_quant_kernels_reject_what_they_do_not_take():
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    table = qk.SegmentTable(GROUPED_NUMELS, 2)
+    x = _grouped_input(torch.float32, seed=3)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qk.quantize_int8_cuda(x.half(), 256, table)
+    with pytest.raises(ValueError, match="flat"):
+        qk.quantize_int8_cuda(x[:-1], 256, table)
+    with pytest.raises(ValueError, match="differs from the table"):
+        qk.quantize_int8_cuda(x, 128, table)
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.quantize_int8_cuda(torch.stack([x, x], 1)[:, 0], 256, table)
+    q, s = qk.quantize_int8_cuda(x, 256, table)
+    with pytest.raises(ValueError, match="not the table's"):
+        qk.dequantize_int8_cuda(q[:-2], s[:-2], (table.total, ), table)
+    with pytest.raises(ValueError, match="does not hold"):
+        qk.dequantize_int8_cuda(q, s, (table.total - 1, ), table)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qk.dequantize_int8_cuda(q, s, (table.total, ), table, through=torch.float16)
+    with pytest.raises(ValueError, match="codes and float32 scales"):
+        qk.dequantize_int8_cuda(q.view(torch.uint8), s, (table.total, ), table)

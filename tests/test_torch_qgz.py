@@ -4,10 +4,12 @@ the engine's qgZ and LoCo steps), against the JAX package on a
 ``MeshSpec(data=2)`` mesh of two of the eight CPU devices.
 
   (a) the four collective functions on identical per-rank inputs, bits 8
-      and 4, sizes that need padding: bit-identical to the JAX functions
-      under ``shard_map``, evaluated op by op (compiled, XLA rewrites the
-      divide by qmax and contracts products into sums: last-bit
-      differences, see ``tests/test_torch_quant.py``);
+      and 4, sizes that need padding, and the grouped exchange over a list
+      of tensors (with and without a LoCo error): bit-identical to the JAX
+      functions under ``shard_map`` (the grouped exchange to
+      ``padded_quant_allreduce`` of each tensor), evaluated op by op
+      (compiled, XLA rewrites the divide by qmax and contracts products
+      into sums: last-bit differences, see ``tests/test_torch_quant.py``);
   (b) 3 qgZ steps, 3 LoCo steps and 3 float32-wire steps (without and with
       a ``loss_mask`` that hides 3/4 of rank 1's tokens) of the engine (the
       tiny Llama of ``tests/unit/runtime/test_onebit_transport.py``, f32,
@@ -24,7 +26,9 @@ the engine's qgZ and LoCo steps), against the JAX package on a
       one ``all_to_all_quant_reduce`` entry of the JAX formula's bytes per
       qgZ or LoCo step after the first, nothing for the float32 wire;
   (f) stage 2 over two ranks raises; qgZ with gas 2 warns once and runs the
-      float32 wire.
+      float32 wire;
+  (g) a qgZ step makes 4 collectives for the wire (2 all-to-alls, 2
+      all-gathers) besides its loss and norm all-reduces.
 
 Each test spawns its ranks (``torch.multiprocessing``, spawn) that
 rendezvous through a file under ``tmp_path``; the rank functions are in this
@@ -34,6 +38,7 @@ within ``RANK_TIMEOUT_S``.
 """
 
 import logging
+import math
 import traceback
 
 import numpy as np
@@ -97,17 +102,30 @@ COLLECTIVES = {
                        ("padded_quant_allreduce", 1000, False), ("padded_quant_allreduce_error", 1000, True),
                        ("loco_all_to_all_quant_reduce", 2 * WORLD * 256, True))
 }
+#: the tensors of the grouped exchange (int8 only): sizes that need padding,
+#: 2-D shapes, and an all-zero tensor (the last)
+GROUPED_SHAPES = ((768, ), (40, 25), (64, 64), (256, 256), (3, 100))
+GROUPED_SIZES = [math.prod(s) for s in GROUPED_SHAPES]
+COLLECTIVES.update({f"{fn}-int8": (fn, 8, sum(GROUPED_SIZES), err)
+                    for fn, err in (("grouped_quant_allreduce", False), ("grouped_quant_allreduce_error", True))})
 
 
 def _collective_inputs(name):
     """Per-rank gradients ``[WORLD, n]`` with block scales from 1e-4 to 1e2,
     and an error state (or None)."""
-    _, bits, n, err = COLLECTIVES[name]
+    fn, bits, n, err = COLLECTIVES[name]
     rng = np.random.default_rng(bits * 100 + n)
     scales = np.repeat(10.0**rng.uniform(-4, 2, size=(WORLD, -(-n // 64))), 64, axis=1)[:, :n]
     x = (rng.normal(size=(WORLD, n)) * scales).astype(np.float32)
+    if fn.startswith("grouped"):
+        x[:, -GROUPED_SIZES[-1]:] = 0.0
     e = (rng.normal(size=(WORLD, n)) * 1e-2).astype(np.float32) if err else None
     return x, e
+
+
+def _grouped(flat):
+    """A rank's flat ``[n]`` as the grouped exchange's list of tensors."""
+    return [t.reshape(s) for t, s in zip(flat.split(GROUPED_SIZES), GROUPED_SHAPES)]
 
 
 def _port_collective(name, x, e):
@@ -123,6 +141,13 @@ def _port_collective(name, x, e):
         out = tc.padded_quant_allreduce(x, bits=bits)
     elif fn == "padded_quant_allreduce_error":
         out = tc.padded_quant_allreduce(x, bits=bits, error=e, err_beta=0.8)
+    elif fn == "grouped_quant_allreduce":
+        wire = tc.GroupedQuantAllreduce(GROUPED_SHAPES, x.dtype, bits=bits)
+        out = torch.cat([t.reshape(-1) for t in wire(_grouped(x))])
+    elif fn == "grouped_quant_allreduce_error":
+        wire = tc.GroupedQuantAllreduce(GROUPED_SHAPES, x.dtype, bits=bits)
+        full, err = wire(_grouped(x), errors=_grouped(e), err_beta=0.8)
+        out = tuple(torch.cat([t.reshape(-1) for t in ts]) for ts in (full, err))
     else:
         out = tc.loco_all_to_all_quant_reduce(x, e, bits=bits, err_beta=0.8)
     return [t.numpy() for t in (out if isinstance(out, tuple) else (out, ))]
@@ -136,6 +161,7 @@ def _jax_collective(name, x, e):
     """The JAX function under an eager (op by op) shard_map over data=2:
     outputs ``[WORLD, ...]``."""
     import jax
+    import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
@@ -153,6 +179,14 @@ def _jax_collective(name, x, e):
             out = jc.padded_quant_allreduce(xv, "data", WORLD, bits=bits)
         elif fn == "padded_quant_allreduce_error":
             out = jc.padded_quant_allreduce(xv, "data", WORLD, bits=bits, error=ev, err_beta=0.8)
+        elif fn.startswith("grouped"):   # the JAX engine's tree.map of padded_quant_allreduce
+            starts = np.cumsum([0] + GROUPED_SIZES)
+            pieces = [(xv[a:b].reshape(s), ev[a:b].reshape(s)) for a, b, s in zip(starts, starts[1:], GROUPED_SHAPES)]
+            if fn == "grouped_quant_allreduce":
+                out = jnp.concatenate([jc.padded_quant_allreduce(xt, "data", WORLD).reshape(-1) for xt, _ in pieces])
+            else:
+                pairs = [jc.padded_quant_allreduce(xt, "data", WORLD, error=et, err_beta=0.8) for xt, et in pieces]
+                out = tuple(jnp.concatenate([p[i].reshape(-1) for p in pairs]) for i in range(2))
         else:
             out = jc.loco_all_to_all_quant_reduce(xv, ev, "data", bits=bits, err_beta=0.8)
         return tuple(o[None] for o in (out if isinstance(out, tuple) else (out, )))
@@ -245,12 +279,15 @@ def _engine_rank(rank, state):
         model = tl.LlamaForCausalLM(_tiny_port_cfg(), device="cpu")
         eng = tds.initialize(model=model, config=ds_config, params=state, device="cpu")[0]
         comm.configure(enabled=True)   # a fresh logger: the record of the steps alone
+        calls = comm.call_counts.copy()
         losses = [float(eng.train_batch(batch=b)) for b in _batches(name in MASKED)]
+        calls = comm.call_counts - calls
         logger.removeHandler(warned)
         out[name] = {"losses": losses, "qgz": eng.qgz, "warnings": warned.messages,
                      "params": {k: v.numpy().copy() for k, v in eng.module_state_dict().items()},
                      "wire_bytes": eng._compressed_wire_bytes,
                      "comms": _comms_counts(comm.comms_logger().comms_dict),
+                     "collectives": dict(calls), "n_params": len(eng.params),
                      "loco_error_abs_max": None if eng.loco_error is None else
                      max(float(t.abs().max()) for t in eng.loco_error)}
     try:
@@ -380,6 +417,18 @@ def test_unsupported_layouts_raise_or_fall_back(engine_runs):
     for k, v in gas2["params"].items():
         np.testing.assert_array_equal(v, ranks[0]["fp32_wire_gas2"]["params"][k])
     assert not ranks[0]["qgz"]["warnings"]
+
+
+def test_qgz_step_takes_4_collectives(engine_runs):
+    """(g) per qgZ step the grouped exchange's 2 all-to-alls (codes, scales)
+    and 2 all-gathers, besides the loss and grad-norm all-reduces (444 per
+    step for Llama-125M's 111 tensors on the per-tensor route); LoCo adds
+    its per-tensor pmean of the new error."""
+    _, ranks, _ = engine_runs
+    wire = {"all_to_all_single": 2 * STEPS, "all_gather_into_tensor": 2 * STEPS}
+    for rank in ranks:
+        assert rank["qgz"]["collectives"] == {**wire, "all_reduce": 2 * STEPS}
+        assert rank["loco"]["collectives"] == {**wire, "all_reduce": (2 + rank["loco"]["n_params"]) * STEPS}
 
 
 def test_mesh_spec_takes_the_data_axis_only():

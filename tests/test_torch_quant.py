@@ -165,3 +165,111 @@ def test_wrappers_raise_on_what_they_do_not_take():
         tqk.dequantize_int4_cuda(q, s, (1024, ))
     with pytest.raises(ValueError, match="CUDA device"):
         tqk.dequantize_int8_cuda(q, s, (1024, ))
+
+
+# ------------------------------------------------------------ the grouped codec
+
+#: one step's tensors: sizes that are and are not multiples of 256, the
+#: all-zero tensor (index 4) and the int8 tie block (index 5)
+GROUPED_NUMELS = (768, 1000, 4096, 65536, 300, 256)
+
+
+def _grouped_values(dtype: str) -> torch.Tensor:
+    rng = np.random.default_rng(17)
+    parts = [(rng.normal(size=n) * 10.0**rng.uniform(-6, 3)).astype(np.float32) for n in GROUPED_NUMELS[:4]]
+    parts += [np.zeros(GROUPED_NUMELS[4], np.float32), _values(256, 127.0, seed=5).reshape(24, 256)[5]]
+    return _pair(np.concatenate(parts), dtype)[1]
+
+
+def _padded(x: torch.Tensor, unit: int) -> torch.Tensor:
+    return torch.cat([x.float(), torch.zeros((-x.numel()) % unit)])
+
+
+def test_segment_table_layout():
+    table = tqk.SegmentTable([768, 1000, 4096], world=2)
+    assert table.offsets == (0, 768, 1768) and table.total == 5864
+    assert table.chunk_rows == (2, 2, 8) and table.chunk_offsets == (0, 2, 4)
+    assert (table.chunk, table.rows) == (12, 24)
+    records, row_segments = table.device_tables("cpu")
+    np.testing.assert_array_equal(records.numpy(), [[768, 0, 2, 0], [1000, 768, 2, 2], [4096, 1768, 8, 4]])
+    np.testing.assert_array_equal(row_segments.numpy(), [0, 0, 1, 1] + [2] * 8)
+    assert table.device_tables(torch.device("cpu"))[0] is records   # copied once
+    for bad in (dict(numels=[]), dict(numels=[5, 0]), dict(numels=[5], world=0), dict(numels=[5], block=2048)):
+        with pytest.raises(ValueError):
+            tqk.SegmentTable(**{"world": 2, **bad})
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_grouped_codec_matches_the_per_tensor_codec(dtype, world):
+    """The plain grouped K4a/K4b (what the CUDA kernels compute) against the
+    per-tensor codec of ``padded_quant_allreduce``: each tensor padded apart
+    to world·256.  Codes and scales equal, mapped back from the rank-major
+    layout; the received copies (a) dequantized in the identity layout; the
+    gathered tensors (b) and LoCo's ``local_deq`` (c) in tensor order, cut
+    and rounded through the input's dtype, equal."""
+    x = _grouped_values(dtype)
+    table = tqk.SegmentTable(GROUPED_NUMELS, world)
+    q, s = tqk.quantize_int8(x, 256, table)
+    assert q.shape == (table.rows, 256) and s.shape == (table.rows, )
+    qv, sv = q.view(world, table.chunk, 256), s.view(world, table.chunk)
+    received = tqk.dequantize_int8(q, s, (world, table.chunk * 256)).view(world, table.chunk, 256)
+    through = x.dtype if dtype == "bf16" else None
+    gathered = tqk.dequantize_int8(q, s, (table.total, ), table, through)
+    for n, first, c, off in table.segments():
+        want_q, want_s = tq.quantize_int8(_padded(x[first:first + n], world * 256), 256)
+        assert torch.equal(qv[:, off:off + c], want_q.view(world, c, 256))
+        assert torch.equal(sv[:, off:off + c], want_s.view(world, c))
+        deq = tq.dequantize_int8(want_q, want_s, (world * c * 256, ))
+        assert torch.equal(received[:, off:off + c].reshape(-1), deq)
+        want = deq[:n] if through is None else deq[:n].to(through).float()
+        assert torch.equal(gathered[first:first + n], want)
+    zero = slice(table.chunk_offsets[4], table.chunk_offsets[4] + table.chunk_rows[4])
+    assert bool((sv[:, zero] == 1.0).all()) and not qv[:, zero].any()
+    tie = qv[0, table.chunk_offsets[5]].int()
+    np.testing.assert_array_equal(tie.numpy(), np.clip(np.round(x[-256:].float().numpy()), -127, 127))
+
+
+def test_grouped_codec_dispatch_and_checks():
+    """CPU tensors run the plain grouped versions (no launch is counted);
+    the kernel wrappers take nothing but CUDA tensors, and both raise on a
+    table that does not fit."""
+    x = _grouped_values("f32")
+    table = tqk.SegmentTable(GROUPED_NUMELS, 2)
+    counts = [f.launches for f in (tqk.quantize_int8_cuda, tqk.dequantize_int8_cuda)]
+    q, s = tqk.quantize_int8(x, 256, table)
+    want_q, want_s = tq.quantize_int8_grouped(x, table)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert torch.equal(tqk.dequantize_int8(q, s, (table.total, ), table), tq.dequantize_int8_grouped(q, s, table))
+    assert counts == [f.launches for f in (tqk.quantize_int8_cuda, tqk.dequantize_int8_cuda)]
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        tqk.quantize_int8_cuda(x, 256, table)
+    with pytest.raises(ValueError, match="flat"):
+        tqk.quantize_int8_cuda(x[:-1], 256, table)
+    with pytest.raises(ValueError, match="differs from the table"):
+        tqk.quantize_int8(x, 128, table)
+    with pytest.raises(ValueError, match="not the table's"):
+        tqk.dequantize_int8_cuda(q[:-1], s[:-1], (table.total, ), table)
+    with pytest.raises(ValueError, match="does not hold"):
+        tqk.dequantize_int8_cuda(q, s, (table.total + 1, ), table)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tqk.dequantize_int8_cuda(q, s, (table.total, ), table)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tqk.dequantize_int8(q, s, (table.total, ), table, through=torch.float16)
+    with pytest.raises(ValueError, match=f"the table {table.total}"):
+        tq.quantize_int8_grouped(x[:-1], table)
+
+
+def test_grouped_exchange_rejects_what_it_does_not_take():
+    """The grouped exchange is int8, takes the tensors it was built for, and
+    feeds LoCo float32; each check raises before any collective."""
+    from deepspeed_tpu_torch.runtime.comm import GroupedQuantAllreduce
+    xs = [torch.zeros(768), torch.zeros(4, 25)]
+    with pytest.raises(ValueError, match="bits=8"):
+        GroupedQuantAllreduce([x.shape for x in xs], bits=4)
+    wire = GroupedQuantAllreduce([x.shape for x in xs], torch.bfloat16)
+    assert wire.table.numels == (768, 100) and wire.table.block == 256 and wire.inputs.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="built for 2 tensors"):
+        wire(xs[:1])
+    with pytest.raises(ValueError, match="float32"):
+        wire(xs, errors=[torch.zeros_like(x) for x in xs])
