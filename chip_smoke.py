@@ -85,7 +85,20 @@ source, all started together.  Phases:
      per-tensor route bit for bit, the codec's ms per step with host issue
      included on both routes; then LoCo (K4b 3 per step), a float32-wire
      control and the int4 collectives (K5a/K5b) against their plain
-     versions.
+     versions;
+ 12. the serving stack above the engine (run after phase 4, on phase 3's
+     weights): ``ServingEngine`` on a wall clock over ``build_engine`` with
+     a ``TieredKVManager``, 16 open-loop requests (prompts 64-1024, two
+     pairs sharing a 512-token prefix, 32-64 new tokens, two priority
+     classes) into a device arena of ~40% of the mix's pages, so KV
+     pressure preempts by demoting to the host tier — TTFT and TPOT p50/p99,
+     goodput, decode tok/s, preemptions, demotions and promotions, staged
+     bytes and the d2h/h2d GB/s of ``export_pages``/``import_pages``, wall
+     and peak memory; every request done with its tokens, every promoted
+     block re-exported equal to the bytes imported and among the demoted
+     snapshots', pages and host tier accounted for, K3 launches == layers x
+     forwards; then one request migrated out after 8 tokens and resubmitted
+     with its snapshot, its tokens equal to the bare engine's.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -102,6 +115,7 @@ import subprocess
 import sys
 import time
 import traceback
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -138,6 +152,8 @@ from deepspeed_tpu_torch.ops.sparse_attention.kernel import (EMPTY_ROW_LSE, buil
                                                              sparse_attn_dq_cuda, sparse_attn_fwd_cuda,
                                                              sparse_attn_fwd_plain)
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.serving import RequestState, ServingEngine, WallClock
+from deepspeed_tpu_torch.serving.kvtier import TierConfig, TieredKVManager
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -1973,6 +1989,236 @@ def phase_data_parallel(smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 12
+
+FRONTEND_REQUESTS = 16
+FRONTEND_ARRIVAL_S = 2.0           # open-loop arrivals at seeded offsets over the first ~2 s
+FRONTEND_ARENA_SHARE = 0.4         # device arena: ~40% of the mix's pages
+FRONTEND_DEADLINE_S = 120.0        # every request's end-to-end deadline (goodput counts those met)
+MIGRATION_AFTER = 8                # decoded tokens before the migration check's export
+
+
+class StagingMeter:
+    """Wraps one engine's ``export_pages``/``import_pages`` (instance
+    attributes, so the serving stack's calls go through it): bytes and
+    fenced seconds of each direction, and for every import a re-export of
+    the same pages held against the imported bytes, plus whether those
+    bytes are a block the tier demoted (its crc32 among the demotions')."""
+
+    def __init__(self, engine, tier=None):
+        self.kv = engine.kv
+        self.export, self.import_ = engine.kv.export_pages, engine.kv.import_pages
+        self.d2h_bytes = self.h2d_bytes = 0
+        self.d2h_s = self.h2d_s = 0.0
+        self.exports = self.imports = 0
+        self.demoted_crcs = set()
+        self.reexport_equal = []       # (bytes equal, the block was a demoted snapshot's)
+        engine.kv.export_pages = self._export
+        engine.kv.import_pages = self._import
+        if tier is not None:
+            demote = tier.demote_sequence
+
+            def demote_sequence(uid):
+                handle = demote(uid)
+                snap = tier.host.peek_seq(uid)
+                if handle is not None and snap is not None:
+                    self.demoted_crcs.update(snap.crcs)
+                return handle
+
+            tier.demote_sequence = demote_sequence
+
+    def _export(self, arena, pages):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = self.export(arena, pages)          # ends in its device -> host copy
+        self.d2h_s += time.perf_counter() - t0
+        self.d2h_bytes += block.nbytes
+        self.exports += 1
+        return block
+
+    def _import(self, arena, pages, block):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.import_(arena, pages, block)
+        torch.cuda.synchronize()
+        self.h2d_s += time.perf_counter() - t0
+        self.h2d_bytes += block.nbytes
+        self.imports += 1
+        again = self.export(out, pages)
+        crc = zlib.crc32(np.ascontiguousarray(block).tobytes())
+        self.reexport_equal.append((bool(np.array_equal(again, block)), crc in self.demoted_crcs))
+        return out
+
+    def rates(self) -> dict:
+        return {"staged_d2h_bytes": self.d2h_bytes, "staged_h2d_bytes": self.h2d_bytes,
+                "exports": self.exports, "imports": self.imports,
+                "d2h_gb_s": self.d2h_bytes / self.d2h_s / 1e9 if self.d2h_s else None,
+                "h2d_gb_s": self.h2d_bytes / self.h2d_s / 1e9 if self.h2d_s else None}
+
+
+class StepMeter:
+    """Wraps an engine's ``dispatch_step``/``complete_step``: wall seconds
+    and tokens of each step from its dispatch to its readback, and whether
+    it was pure decode (every row one token)."""
+
+    def __init__(self, engine):
+        self.steps = []
+        dispatch, complete = engine.dispatch_step, engine.complete_step
+        starts = {}
+
+        def dispatch_step(plan=None):
+            t0 = time.perf_counter()
+            inf = dispatch(plan)
+            if inf is not None:
+                starts[id(inf)] = t0
+            return inf
+
+        def complete_step(inf):
+            out = complete(inf)
+            decode = inf.kind == "multi" or all(n == 1 for _, n, _, _ in inf.rows)
+            self.steps.append((time.perf_counter() - starts.pop(id(inf)), sum(map(len, out.values())), decode))
+            return out
+
+        engine.dispatch_step, engine.complete_step = dispatch_step, complete_step
+
+    def decode_tok_s(self) -> float:
+        secs = sum(s for s, _, d in self.steps if d)
+        return sum(n for _, n, d in self.steps if d) / secs if secs else 0.0
+
+
+def frontend_mix(vocab: int, seed: int = 12) -> list:
+    """16 open-loop requests: prompts of 64-1024 tokens, two pairs sharing a
+    512-token prefix, 32-64 new tokens, two priority classes (every fourth
+    request urgent), arrivals at seeded offsets over the first ~2 s."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(64, 1025, FRONTEND_REQUESTS)
+    for i in (1, 3, 9, 11):
+        lens[i] = max(lens[i], 600)             # long enough to share a 512-token prefix
+    prompts = [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+    prompts[3] = prompts[1][:512] + prompts[3][512:]
+    prompts[11] = prompts[9][:512] + prompts[11][512:]
+    arrivals = np.sort(rng.uniform(0.0, FRONTEND_ARRIVAL_S, FRONTEND_REQUESTS))
+    return [dict(prompt=p, max_new_tokens=int(rng.integers(32, 65)), arrival_ts=float(t),
+                 priority=0.0 if i % 4 == 0 else 1.0, deadline=float(t) + FRONTEND_DEADLINE_S)
+            for i, (p, t) in enumerate(zip(prompts, arrivals))]
+
+
+def migration_check(cfg, state, rng) -> dict:
+    """One request alone on its own engine (the same weights, no prefix
+    cache): generated by the bare engine, then served, migrated out after
+    ``MIGRATION_AFTER`` tokens (``begin_migration`` → every chunk exported →
+    ``complete_migration``) and resubmitted with its ``kv_snapshot``.  Both
+    runs are batch 1 with the same shapes; the tokens must be equal."""
+    econf = dataclasses.replace(engine_config(torch.bfloat16, 128), enable_prefix_cache=False,
+                                decode_steps_per_dispatch=1)
+    eng = build_engine(cfg, state, econf, device="cuda")
+    prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+    golden = eng.generate([prompt], max_new_tokens=40)[0]
+    meter = StagingMeter(eng)
+    serve = ServingEngine(eng, clock=WallClock())
+    req = serve.submit(prompt, max_new_tokens=40)
+    for _ in range(200):
+        if req.state is RequestState.DECODE and len(req.tokens) >= MIGRATION_AFTER:
+            break
+        serve.tick()
+    exporter = serve.begin_migration(req.uid, chunk_pages=8)
+    if exporter is None:
+        raise AssertionError(f"migration refused in state {req.state} with {len(req.tokens)} tokens")
+    while not exporter.step_chunk():
+        pass
+    snap = exporter.snapshot
+    serve.complete_migration(req.uid)
+    again = serve.submit(prompt, max_new_tokens=40, resume_tokens=list(req.tokens), kv_snapshot=snap)
+    serve.drain()
+    res = {"tokens_equal": list(again.tokens) == golden, "migrated_after": len(req.tokens),
+           "snapshot_pages": snap.n_pages, "snapshot_bytes": snap.n_bytes, "snapshot_dtype": snap.dtype,
+           "kv_imports": serve.stats.kv_imports, "reexport_equal": all(e for e, _ in meter.reexport_equal),
+           "forwards": eng.forward_calls, **meter.rates()}
+    del serve, eng
+    return res
+
+
+def phase_serving_frontend(cfg, state, smi: str) -> dict:
+    """The serving stack above the engine: ``ServingEngine`` (wall clock) on
+    ``build_engine`` with a ``TieredKVManager``, 16 open-loop requests of
+    two priority classes into a device arena of ~40% of the mix's pages, so
+    KV pressure preempts by demoting to the host tier and re-admission
+    promotes back; then the migration check."""
+    layers = cfg.num_hidden_layers
+    mix = frontend_mix(cfg.vocab_size)
+    demand = sum(-(-(len(a["prompt"]) + a["max_new_tokens"]) // PAGE) for a in mix)
+    num_pages = int(FRONTEND_ARENA_SHARE * demand) + 1
+    econf = dataclasses.replace(engine_config(torch.bfloat16, num_pages), decode_steps_per_dispatch=1)
+    eng = build_engine(cfg, state, econf, device="cuda")
+    eng.generate([list(range(1, 20))], max_new_tokens=9)   # warm-up: cuBLAS handles, allocator
+    eng.kv.prefix_cache.evict(eng.kv.prefix_cache.cached_pages)
+    tier = TieredKVManager(eng, config=TierConfig(host_capacity_pages=4 * num_pages))
+    staging = StagingMeter(eng, tier)
+    steps = StepMeter(eng)
+    clock = WallClock()
+    serve = ServingEngine(eng, clock=clock)
+    serve.attach_tier(tier)
+    page_bytes = sum(t[0].numel() * t.element_size() for t in eng.cache)
+
+    acc = get_accelerator()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    reset_launch_counts()
+    eng.forward_calls = 0
+    clock.reset()
+    serve.rebase_epoch()
+    t0 = time.perf_counter()
+    reqs = serve.run(mix)
+    wall = time.perf_counter() - t0
+    launches, forwards = paged_attention_cuda.launches, eng.forward_calls
+    peak = acc.max_memory_allocated() / 1e9
+
+    summary = serve.summary()
+    pc = eng.kv.prefix_cache
+    host_used = tier.host.pages_used
+    by_class = {}
+    for prio in (0.0, 1.0):
+        ttfts = [r.ttft for r, a in zip(reqs, mix) if a["priority"] == prio and r.ttft is not None]
+        by_class[f"priority_{prio:g}_ttft_s_p50"] = float(np.percentile(ttfts, 50)) if ttfts else None
+    checks = {
+        "all_done_with_their_tokens": all(r.state is RequestState.DONE and len(r.tokens) == a["max_new_tokens"]
+                                          for r, a in zip(reqs, mix)),
+        "demoted_and_promoted": tier.stats["demotions"] >= 1 and tier.stats["promotions"] >= 1,
+        "promoted_reexport_equals_demoted_bytes": bool(staging.reexport_equal) and all(
+            e for e, _ in staging.reexport_equal) and any(d for _, d in staging.reexport_equal),
+        "pages_accounted": not eng.state.seqs and eng.kv.allocator.free_pages + pc.cached_pages == num_pages - 1,
+        "host_tier_accounted": not serve._parked and host_used == sum(tier.host._lru.values())
+        and host_used <= tier.host.capacity_pages,
+        "k3_launches_layers_x_forwards": launches == layers * forwards and launches > 0,
+    }
+    reset_launch_counts()
+    migration = migration_check(cfg, state, np.random.default_rng(13))
+    mig_launches = paged_attention_cuda.launches
+    checks["migration_tokens_equal"] = migration["tokens_equal"] and migration["kv_imports"] == 1 \
+        and migration["reexport_equal"]
+    checks["migration_k3_launches"] = mig_launches == layers * migration["forwards"]
+    res = {"card": smi, "requests": len(reqs), "prompt_tokens": sum(len(a["prompt"]) for a in mix),
+           "generated": sum(len(r.tokens) for r in reqs), "arena_pages": num_pages, "mix_pages": demand,
+           "page_bytes": page_bytes, "ttft_s": {k: summary["ttft"][k] for k in ("p50", "p99")},
+           "tpot_s": {k: summary["tpot"][k] for k in ("p50", "p99")}, **by_class,
+           "goodput_rps": summary["goodput_rps"], "decode_tok_s": steps.decode_tok_s(),
+           "output_tok_s": sum(len(r.tokens) for r in reqs) / wall, "preemptions": summary["preemptions"],
+           "demotions": tier.stats["demotions"], "promotions": tier.stats["promotions"],
+           "prefix_demotions": tier.stats["prefix_demotions"], "prefix_promotions": tier.stats["prefix_promotions"],
+           "kv_imports": summary["kv_imports"], "kv_import_fallbacks": summary["kv_import_fallbacks"],
+           **staging.rates(), "host_pages_after": host_used, "steps": len(steps.steps), "forwards": forwards,
+           "k3_launches": launches, "wall_s": wall, "peak_mem_gb": peak, "migration": migration,
+           "migration_k3_launches": mig_launches, "checks": checks}
+    log("  serving frontend: " + json.dumps(res))
+    del serve, tier, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"serving-frontend phase failed {bad}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1991,6 +2237,8 @@ def main() -> int:
     phase_profile(cfg, state)
     log("== phase 4: path parity")
     phase_parity_bf16(cfg, state)
+    log("== phase 12: the serving frontend on Llama-3-8B (open-loop mix, host KV tier, migration)")
+    frontend = phase_serving_frontend(cfg, state, env["card"])
     del state
     torch.cuda.empty_cache()
     phase_parity_f32()
@@ -2011,7 +2259,10 @@ def main() -> int:
     dp = phase_data_parallel(env["card"])
     dec = k3["decode"]
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
-                "replaces": "deepspeed_tpu/ops/paged_attention.py:40", "launches": serving["k3_launches"],
+                "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
+                "launches": serving["k3_launches"] + frontend["k3_launches"],
+                "launches_by_path": {"serving_step": serving["k3_launches"],
+                                     "serving_frontend": frontend["k3_launches"]},
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if n != "decode_f32"), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],

@@ -170,14 +170,16 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None) -> torch.Tensor:
-    """Reduce ``tensor`` over the group, in place; AVG is SUM / world."""
+    """Reduce ``tensor`` over the group, in place; AVG is SUM / world, a
+    true divide as ``jax.lax.pmean``'s (by a tensor: CUDA turns a divide by a
+    Python number into a product with its reciprocal)."""
     if op not in _TORCH_OPS:
         raise ValueError(f"Unsupported reduce op {op}")
     t0 = time.time()
     dist.all_reduce(tensor, op=_TORCH_OPS[op], group=group)
     call_counts["all_reduce"] += 1
     if op == ReduceOp.AVG:
-        tensor.div_(get_world_size(group))
+        tensor.div_(torch.full_like(tensor, get_world_size(group)))
     _record("all_reduce", t0, _nbytes(tensor))
     return tensor
 

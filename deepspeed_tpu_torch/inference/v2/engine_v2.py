@@ -18,10 +18,13 @@ Against the JAX engine:
     forward, the counterpart of donating it through ``jit``;
   * the fused k-round decode is a Python loop of k forward calls whose
     tokens stay on the device; ``complete_step`` is the only readback;
-  * PyTorch runs eagerly, so there is no step-program cache to compile.
-    Speculative decoding, tensor-parallel serving, quantized weights, the
-    AOT step set and step-anatomy hooks come with later slices: the
-    constructor raises on a config that asks for them.
+  * PyTorch runs eagerly, so there is no step-program cache to compile:
+    a ``StepAnatomy`` attached with ``set_anatomy`` records the schedule,
+    dispatch, device and sample/accept segments of each step as the JAX
+    engine's hooks do, and its compile count stays 0.
+  * Speculative decoding, tensor-parallel serving, quantized weights and
+    the AOT step set come with later slices: the constructor raises on a
+    config that asks for them, and ``set_spec`` on a request that does.
 """
 
 import dataclasses
@@ -33,6 +36,7 @@ import torch
 from ...accelerator import DeviceLike, resolve_device
 from ...models.llama import LlamaConfig
 from ...models.llama_cache import LlamaForCausalLMWithCache, PagedKVConfig, init_kv_cache
+from ...telemetry.step_anatomy import NULL_ANATOMY
 from ...utils.logging import logger
 from .ragged import BlockedKVCache, RaggedBatch, StateManager
 from .scheduler import SchedulerConfig, SplitFuseScheduler, StepPlan
@@ -111,6 +115,12 @@ class InferenceEngineV2:
         self._max_new: Dict[int, int] = {}
         #: model forward passes run so far (one per layer stack traversal)
         self.forward_calls = 0
+        # per-step anatomy (telemetry/step_anatomy.py): NULL by default, one
+        # attribute read and one predicate per hook when disabled
+        self.anatomy = NULL_ANATOMY
+        #: the serving frontend's per-step verify-round accounting; always
+        #: empty, as speculative decoding is not ported
+        self.last_spec_round: Dict[int, object] = {}
         logger.info(f"InferenceEngineV2: {cfg.num_hidden_layers} layers on {self.device}, attention "
                     f"{cfg.attention_impl}, KV arena {kvcfg.num_pages} pages x {kvcfg.page_size} tokens "
                     f"({self.econfig.kv_dtype})")
@@ -135,6 +145,24 @@ class InferenceEngineV2:
     def flush(self, uid: int) -> None:
         self.state.flush(uid)
         self._max_new.pop(uid, None)
+
+    def set_anatomy(self, anatomy):
+        """Attach a :class:`~...telemetry.step_anatomy.StepAnatomy` recorder
+        (None restores the NULL recorder).  ``dispatch_step`` opens its step
+        window and ``complete_step`` closes it, as in the JAX engine; the
+        port compiles no step program, so the recorder's compile count
+        stays 0 and no segment is ever ``compile_wait``.  The recorder's
+        clock should be the serving clock when a frontend drives this
+        engine."""
+        self.anatomy = anatomy if anatomy is not None else NULL_ANATOMY
+        return self.anatomy
+
+    def set_spec(self, uid: int, enabled: bool) -> None:
+        """Per-sequence speculation opt-in (the serving frontend's
+        per-request control): a no-op for ``enabled=False``; speculative
+        decoding itself is not ported (ROADMAP.md Queue 1 item 2)."""
+        if enabled:
+            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP.md Queue 1 item 2)")
 
     def preempt(self, uid: int):
         """Evict one sequence under KV pressure (serving frontend): pages
@@ -193,6 +221,9 @@ class InferenceEngineV2:
             remaining = self._max_new.get(s.uid, self.econfig.max_new_tokens) - len(s.generated)
             self.kv.ensure_capacity(s, min(k, remaining))
         rb: RaggedBatch = self.state.pack([(s, 1) for s in seqs], 1, pad_to=batch)
+        anat = self.anatomy
+        if anat.enabled:
+            anat.note_shape("multi_decode", batch, k)
         toks = self._to_device(rb.tokens[:, 0])
         start_pos = self._to_device(rb.start_pos)
         block_tables = self._to_device(rb.block_tables)
@@ -201,6 +232,8 @@ class InferenceEngineV2:
         for i in range(k):
             toks = self._forward_last(toks[:, None], start_pos + i, block_tables, chunk_lens)
             out[:, i] = toks
+        if anat.enabled:
+            anat.mark("dispatch")
         inf = InFlightStep("multi")
         inf.tokens = out
         inf.seqs = list(seqs)
@@ -208,7 +241,10 @@ class InferenceEngineV2:
         return inf
 
     def _complete_multi(self, inf: InFlightStep) -> Dict[int, List[int]]:
+        anat = self.anatomy
         toks = inf.tokens.cpu().numpy()
+        if anat.enabled:
+            anat.device_mark()
         out: Dict[int, List[int]] = {}
         eos = self.econfig.eos_token_id
         k = inf.k
@@ -231,6 +267,8 @@ class InferenceEngineV2:
             self.state.truncate(s, len(s.tokens))
             self.state.note_progress(s)
             out[s.uid] = list(s.generated[before:])
+        if anat.enabled:
+            anat.mark("sample_accept")
         return out
 
     def _bucket_batch(self, n: int) -> int:
@@ -253,9 +291,25 @@ class InferenceEngineV2:
     def dispatch_step(self, plan: Optional[StepPlan] = None) -> Optional[InFlightStep]:
         """Plan (unless given one) and ENQUEUE one step on the device
         without waiting for its outputs.  Returns None when there is
-        nothing to run (empty plan)."""
-        if plan is None:
-            plan = self.scheduler.plan(self.state)
+        nothing to run (empty plan).  With a ``StepAnatomy`` attached this
+        opens the step window (idempotent: a frontend that planned first
+        opened it itself); an empty or failed dispatch closes it here."""
+        anat = self.anatomy
+        if anat.enabled:
+            anat.step_begin()
+        inflight = None
+        try:
+            if plan is None:
+                plan = self.scheduler.plan(self.state)
+                if anat.enabled:
+                    anat.mark("schedule")
+            inflight = self._dispatch_inner(plan)
+            return inflight
+        finally:
+            if inflight is None and anat.enabled:
+                anat.step_end()
+
+    def _dispatch_inner(self, plan: StepPlan) -> Optional[InFlightStep]:
         k_cfg = self.econfig.decode_steps_per_dispatch
         if k_cfg > 1 and plan.decode and not plan.prefill:
             # OVERSHOOT policy: always run the full k rung and discard
@@ -280,8 +334,14 @@ class InferenceEngineV2:
         chunk = 1 if chunk == 1 else self.econfig.scheduler.prefill_chunk
         batch = self._bucket_batch(len(work))
         rb: RaggedBatch = self.state.pack(work, chunk, pad_to=batch)
+        anat = self.anatomy
+        if anat.enabled:
+            anat.note_shape("mixed" if plan.prefill and plan.decode else "prefill" if plan.prefill else "decode",
+                            batch, chunk)
         next_tok = self._forward_last(self._to_device(rb.tokens), self._to_device(rb.start_pos),
                                       self._to_device(rb.block_tables), self._to_device(rb.chunk_lens))
+        if anat.enabled:
+            anat.mark("dispatch")
         inf = InFlightStep("single")
         inf.tokens = next_tok
         inf.rows = [(int(uid), int(rb.chunk_lens[i]), self.state.seqs[uid], i)
@@ -292,13 +352,21 @@ class InferenceEngineV2:
         """Read the in-flight step's tokens back (the step's only device →
         host copy) and fold them into engine state.  Rows whose sequence was
         flushed while the step was in flight are skipped by object
-        identity; their tokens are discarded whole, never half-applied."""
-        if inf.kind == "multi":
-            return self._complete_multi(inf)
-        return self._complete_single(inf)
+        identity; their tokens are discarded whole, never half-applied.
+        Closes the anatomy step window even when the readback raises."""
+        try:
+            if inf.kind == "multi":
+                return self._complete_multi(inf)
+            return self._complete_single(inf)
+        finally:
+            if self.anatomy.enabled:
+                self.anatomy.step_end()
 
     def _complete_single(self, inf: InFlightStep) -> Dict[int, List[int]]:
+        anat = self.anatomy
         next_tok = inf.tokens.cpu().numpy()
+        if anat.enabled:
+            anat.device_mark()
         out: Dict[int, List[int]] = {}
         eos = self.econfig.eos_token_id
         for uid, n, seq, i in inf.rows:
@@ -315,6 +383,8 @@ class InferenceEngineV2:
             if len(seq.generated) >= self._max_new.get(uid, self.econfig.max_new_tokens) or \
                     (eos is not None and tok == eos):
                 seq.done = True
+        if anat.enabled:
+            anat.mark("sample_accept")
         return out
 
     # ----------------------------------------------------------- generate

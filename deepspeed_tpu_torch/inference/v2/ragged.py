@@ -1,6 +1,7 @@
 """Ragged-batching state: blocked KV allocator, sequence descriptors,
 batch packing.  The port's own copy of ``deepspeed_tpu/inference/v2/ragged.py``
-(plain Python and numpy; the port imports nothing of the JAX package).
+(plain Python and numpy, and torch for the arena's KV staging; the port
+imports nothing of the JAX package).
 
 Reference: ``deepspeed/inference/v2/ragged/`` —
   BlockedAllocator   (blocked_allocator.py)  → :class:`BlockedAllocator`
@@ -18,6 +19,38 @@ from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+
+#: the host (numpy) dtype of a staged block for each arena dtype: numpy has
+#: no bfloat16, so its bits travel as uint16
+_HOST_DTYPES = {torch.float32: np.float32, torch.float16: np.float16, torch.bfloat16: np.uint16}
+
+
+def host_dtype(dtype: torch.dtype):
+    """The numpy dtype that a staged block of a ``dtype`` arena takes."""
+    if dtype not in _HOST_DTYPES:
+        raise ValueError(f"KV staging supports {sorted(str(d) for d in _HOST_DTYPES)}, not {dtype}")
+    return _HOST_DTYPES[dtype]
+
+
+def arena_block_shape(arena) -> Optional[Tuple[int, ...]]:
+    """The per-page geometry ``(L, page, 2, n_kv, hd)`` of the port's arena,
+    a list of L ``[P, page, 2, n_kv, hd]`` tensors of one shape and dtype
+    (the reference's one ``[L, P, page, 2, n_kv, hd]`` array, whose page
+    geometry is ``(shape[0],) + shape[2:]``); None for any other layout."""
+    if not isinstance(arena, (list, tuple)) or not arena or not all(isinstance(a, torch.Tensor) for a in arena):
+        return None
+    first = arena[0]
+    if first.dim() != 5 or any(a.shape != first.shape or a.dtype != first.dtype for a in arena):
+        return None
+    return (len(arena), ) + tuple(first.shape[1:])
+
+
+def arena_dtype_name(arena) -> str:
+    """The reference's name of the arena's element type (``"bfloat16"``,
+    ``"float32"``): ``str(torch.bfloat16)`` is ``"torch.bfloat16"``."""
+    return str(arena[0].dtype).replace("torch.", "")
 
 
 class BlockedAllocator:
@@ -398,20 +431,63 @@ class BlockedKVCache:
         self.allocator.free(seq.pages)
         seq.pages = []
 
-    def export_pages(self, arena, pages: Sequence[int]) -> np.ndarray:
-        """Stage KV pages device→host — not ported yet.  The JAX version
-        materialises ``np.asarray(arena)`` and checks dtypes by their JAX
-        names, which is wrong for a list of CUDA tensors with torch dtypes;
-        it moves with the serving stack (ROADMAP.md Queue 1, "Serving stack
-        above the engine")."""
-        raise NotImplementedError("export_pages is not ported yet: see ROADMAP.md Queue 1, "
-                                  "serving stack above the engine (KV page staging)")
+    def _page_index(self, what: str, pages: Sequence[int]) -> np.ndarray:
+        idx = np.asarray(list(pages), np.int64)
+        if idx.size and not ((idx > 0) & (idx < self.num_pages)).all():
+            raise ValueError(f"{what}: page ids out of range: {idx.tolist()}")
+        return idx
 
-    def import_pages(self, arena, pages: Sequence[int], block: np.ndarray):
-        """Scatter host-staged KV pages back — not ported yet, see
-        :meth:`export_pages`."""
-        raise NotImplementedError("import_pages is not ported yet: see ROADMAP.md Queue 1, "
-                                  "serving stack above the engine (KV page staging)")
+    def export_pages(self, arena: Sequence[torch.Tensor], pages: Sequence[int]) -> np.ndarray:
+        """Stage the KV blocks of ``pages`` device→host: per layer one
+        ``index_select`` over the page axis on the arena's device, stacked
+        into the reference's block layout ``[L, len(pages), page, 2, n_kv,
+        hd]`` and copied to the host once.  ``arena`` is the engine's list of
+        L ``[P, page, 2, n_kv, hd]`` tensors.  A bfloat16 block comes back
+        as its bits, a ``uint16`` array (numpy has no bfloat16): the same
+        bytes the reference stages, so their crc32s agree.  Exporting the
+        reserved null page (0) or an out-of-range id is a caller bug."""
+        idx = self._page_index("export_pages", pages)
+        if arena_block_shape(arena) is None:
+            raise ValueError("export_pages: the arena must be a list of equal [P, page, 2, n_kv, hd] tensors")
+        layer = arena[0]
+        if idx.size == 0:
+            return np.empty((len(arena), 0) + tuple(layer.shape[1:]), host_dtype(layer.dtype))
+        index = torch.from_numpy(idx).to(layer.device)
+        block = torch.stack([a.index_select(0, index) for a in arena])
+        if layer.dtype == torch.bfloat16:
+            return block.view(torch.int16).cpu().numpy().view(np.uint16)
+        return block.cpu().numpy()
+
+    def import_pages(self, arena: Sequence[torch.Tensor], pages: Sequence[int], block: np.ndarray):
+        """Scatter a host-staged KV block back into ``pages`` of ``arena``
+        (h2d: the inverse of :meth:`export_pages`): one host→device copy,
+        then one ``index_copy_`` per layer, in place.  Returns the arena.
+        The block must match the arena's per-page geometry and its staging
+        dtype exactly; a mismatched block is rejected rather than cast (KV
+        bytes of another geometry are garbage, not data)."""
+        idx = self._page_index("import_pages", pages)
+        geometry = arena_block_shape(arena)
+        if geometry is None:
+            raise ValueError("import_pages: the arena must be a list of equal [P, page, 2, n_kv, hd] tensors")
+        want = (geometry[0], idx.size) + tuple(geometry[1:])
+        if tuple(block.shape) != want:
+            raise ValueError(f"import_pages: block shape {tuple(block.shape)} != "
+                             f"arena slice {want}")
+        layer = arena[0]
+        if np.dtype(block.dtype) != np.dtype(host_dtype(layer.dtype)):
+            raise ValueError(f"import_pages: block dtype {block.dtype} != the staging dtype "
+                             f"{np.dtype(host_dtype(layer.dtype))} of a {arena_dtype_name(arena)} arena")
+        if idx.size == 0:
+            return arena
+        host = torch.from_numpy(np.ascontiguousarray(block).view(np.int16) if layer.dtype == torch.bfloat16
+                                else np.ascontiguousarray(block))
+        src = host.to(layer.device)
+        if layer.dtype == torch.bfloat16:
+            src = src.view(torch.bfloat16)
+        index = torch.from_numpy(idx).to(layer.device)
+        for a, b in zip(arena, src):
+            a.index_copy_(0, index, b)
+        return arena
 
     def arena_stats(self) -> dict:
         """Point-in-time arena occupancy for the ``kv/*`` telemetry

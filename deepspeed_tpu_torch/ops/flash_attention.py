@@ -159,6 +159,14 @@ def _launch(name: str, fn, *args) -> None:
         raise RuntimeError(f"{name}: launch failed: {_lib().ds_flash_error_string(status).decode()}")
 
 
+def _check_offset(name: str, q_offset: int) -> None:
+    """A negative offset leaves causal rows with no visible key, which no
+    route defines alike (the JAX table gives their block no kv block), so
+    every wrapper refuses it."""
+    if int(q_offset) < 0:
+        raise ValueError(f"{name}: q_offset must be >= 0, got {q_offset}")
+
+
 def _dims(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int):
     b, sq, h, d = q.shape
     return (b, sq, k.shape[1], h, k.shape[2], d, int(q_offset), int(bool(causal)), _DTYPE_CODES[q.dtype])
@@ -171,6 +179,7 @@ def _on_device(t: torch.Tensor):
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                    q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1: ``(o [B, Sq, H, D], lse [B, H, Sq] f32)``."""
+    _check_offset("flash_fwd_cuda", q_offset)
     _check("flash_fwd_cuda", q, k, v)
     b, sq, h, _ = q.shape
     o = torch.empty_like(q)
@@ -186,6 +195,7 @@ def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bo
 def flash_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
                   do: torch.Tensor, causal: bool = True, q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2a: ``(dq [B, Sq, H, D], delta [B, H, Sq] f32)``; K2b reads delta."""
+    _check_offset("flash_dq_cuda", q_offset)
     _check("flash_dq_cuda", q, k, v, o, lse, do)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (q.shape[0], q.shape[2], q.shape[1]) \
             or o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
@@ -206,6 +216,7 @@ def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.
                    q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2b: ``(dk, dv) [B, Sk, HK, D]``, summed over each kv head's
     query heads in the block (no atomics: deterministic)."""
+    _check_offset("flash_dkv_cuda", q_offset)
     _check("flash_dkv_cuda", q, k, v, do, lse, delta)
     stat = (q.shape[0], q.shape[2], q.shape[1])
     if do.shape != q.shape or do.dtype != q.dtype or lse.shape != stat or delta.shape != stat \
@@ -239,6 +250,7 @@ def _device_kind(t: torch.Tensor) -> str:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
               q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on a CUDA tensor, ``flash_fwd_plain`` on a CPU tensor."""
+    _check_offset("flash_fwd", q_offset)
     if _device_kind(q) == "cuda":
         return flash_fwd_cuda(q, k, v, causal, q_offset)
     return flash_fwd_plain(q, k, v, causal, q_offset)
@@ -254,6 +266,7 @@ def _flash_fwd_fake(q, k, v, causal, q_offset):
 def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
               do: torch.Tensor, causal: bool, q_offset: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K2a then K2b on a CUDA tensor, ``flash_bwd_plain`` on a CPU tensor."""
+    _check_offset("flash_bwd", q_offset)
     if _device_kind(q) == "cuda":
         dq, delta = flash_dq_cuda(q, k, v, o, lse, do, causal, q_offset)
         dk, dv = flash_dkv_cuda(q, k, v, do, lse, delta, causal, q_offset)
@@ -292,9 +305,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     Dispatch follows the JAX op (``flash_attention.py:525-534``): a mask
     (``segment_ids``, ``sliding_window``) or a sequence length that is not a
     multiple of 128 takes ``chunked_attention``, and ``q_position_offset``
-    with either raises.  Everything else goes through ``ds_torch::flash_fwd``
+    with either raises, as does a negative offset.  Everything else goes through ``ds_torch::flash_fwd``
     (K1 on a GPU) with K2a/K2b as its gradient.
     """
+    _check_offset("flash_attention", q_position_offset)
     if segment_ids is not None or (sliding_window and sliding_window > 0) \
             or q.shape[1] % SEQ_MULTIPLE or k.shape[1] % SEQ_MULTIPLE:
         if q_position_offset:

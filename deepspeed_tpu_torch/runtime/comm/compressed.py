@@ -19,10 +19,12 @@ Two translations of the JAX program, both the same function:
   * ``jax.vmap`` of the dequantization over the W received copies is one
     launch over ``[W·nb, block]``: blocks are independent.
 
-The reduction over the W copies is a sum then a divide by W, as
-``jnp.mean`` computes it.  Quantization blocks start at each tensor's own
-origin: callers pass one tensor at a time (never a flattened bucket of
-several), or every code and scale would differ from the reference.
+The reduction over the W copies is a sum then a product with fl(1/W), as
+``jnp.mean`` computes it even op by op (a true divide by W differs from it
+in the last bit at W = 3, 5, 6, ...).  Quantization blocks start at each
+tensor's own origin: callers pass one tensor at a time (never a flattened
+bucket of several), or every code and scale would differ from the
+reference.
 
 ``GroupedQuantAllreduce`` is ``padded_quant_allreduce`` over a whole list
 of tensors (the JAX engine's ``jax.tree.map`` of it over the gradients,
@@ -33,9 +35,9 @@ K4a, 2 of the grouped K4b and 4 collectives, instead of 2 + 2 launches and
 direction.  Every code, scale and dequantized value equals the per-tensor
 route's at any world size.  The mean over the W received copies is one
 ``sum(dim=0)`` over ``[W, Σ shards]`` where the per-tensor route sums each
-``[W, shard_t]``: at W = 2 a sum has one order, so the reduced values are
-bit-identical too; at W >= 3 the order is torch's, and may differ in the
-last bit.
+``[W, shard_t]``: the reduced values are bit-identical too, held at W = 3
+against JAX on the CPU and between the two routes on an H100
+(``tests/test_torch_qgz.py``).
 
 ``compressed_allreduce`` (the 1-bit wire) waits for the 1-bit optimizers.
 """
@@ -78,7 +80,7 @@ def all_to_all_quant_reduce(x: torch.Tensor, group=None, bits: int = 8, block: i
     comm.all_to_all_single(q_recv, q, group)
     comm.all_to_all_single(s_recv, s, group)
     total = dequantize(q_recv, s_recv, (world, shard)).sum(dim=0)
-    reduced = total / torch.full_like(total, world)   # a true divide on every device (see ops/quantizer.py)
+    reduced = total * torch.full_like(total, 1.0 / world)   # jnp.mean's sum · fl(1/W), on every device
     if return_local_dequant:
         return reduced, local_deq
     return reduced
@@ -178,7 +180,7 @@ class GroupedQuantAllreduce:
         comm.all_to_all_single(q_recv, q, self.group)
         comm.all_to_all_single(s_recv, s, self.group)
         total = dequantize_int8(q_recv, s_recv, (world, table.chunk * block)).sum(dim=0)
-        reduced = total / torch.full_like(total, world)   # a true divide on every device (see ops/quantizer.py)
+        reduced = total * torch.full_like(total, 1.0 / world)   # jnp.mean's sum · fl(1/W), on every device
         q, s = quantize_int8(reduced, block)
         all_q = q.new_empty((world * q.shape[0], block))
         all_s = s.new_empty((world * s.shape[0], ))

@@ -1,0 +1,120 @@
+"""Admission control: bound the queue, refuse what can never run, and gate
+sequence starts on real KV/batch headroom.
+
+The raw v2 engine accepts every ``put()`` and only discovers over-commit
+mid-step, when ``BlockedAllocator.allocate`` raises "KV cache exhausted"
+inside ``StateManager.pack`` — killing the whole serving step, innocent
+batchmates included.  The controller moves that failure to the request
+boundary (ref: the reference's ragged manager bounds
+``max_ragged_sequence_count`` / ``max_tracked_sequences`` at config time;
+FastGen's frontend backpressures instead of crashing):
+
+* ``submit``-time:  queue-depth bound (backpressure) and an *infeasibility*
+  check — a request whose prompt+output can never fit ``max_pages_per_seq``
+  pages, the position table, or the whole arena is rejected immediately
+  with a reason, not parked forever.
+* ``start``-time:  a queued request is only handed to the engine when a
+  batch slot is free and the arena can hold its (resume-)prompt plus one
+  decode page — evicting cold prefix-cache pages if that's what it takes
+  (the same pressure valve ``ensure_capacity`` uses mid-step).
+"""
+
+import dataclasses
+from typing import Optional, Tuple
+
+from .request import ServingRequest
+
+
+@dataclasses.dataclass(frozen=True)
+class AdmissionConfig:
+    # backpressure bound on QUEUED requests (submit() rejects past this);
+    # <=0 disables the bound
+    max_queue_depth: int = 256
+    # pages kept free beyond a starting request's prompt demand, so running
+    # decodes have room to grow before the preemption valve must open
+    kv_headroom_pages: int = 0
+
+
+class AdmissionController:
+
+    def __init__(self, config: AdmissionConfig, engine):
+        self.config = config
+        self.engine = engine
+
+    # ------------------------------------------------------------- submit
+
+    def submit_ok(self, req: ServingRequest, queue_depth: int) -> Tuple[bool, Optional[str]]:
+        """Admit into the QUEUE?  Returns (ok, reject_reason)."""
+        kv = self.engine.kv
+        total_tokens = len(req.prompt) + req.max_new_tokens
+        if total_tokens > kv.max_pages_per_seq * kv.page_size:
+            return False, "exceeds_max_pages_per_seq"
+        max_pos = getattr(self.engine.cfg, "max_position_embeddings", None)
+        if max_pos is not None and total_tokens > max_pos:
+            return False, "exceeds_max_position_embeddings"
+        # the whole arena (page 0 is the reserved null page) could not hold
+        # this request even running alone — including the start-time headroom
+        # can_start will demand, so everything QUEUED is eventually STARTABLE
+        # (a queued-but-never-startable head would block the queue forever)
+        if -(-total_tokens // kv.page_size) + self.config.kv_headroom_pages \
+                > kv.num_pages - 1:
+            return False, "exceeds_kv_arena"
+        if self.config.max_queue_depth > 0 and queue_depth >= self.config.max_queue_depth:
+            return False, "queue_full"
+        return True, None
+
+    def retry_after_hint(self, queue_depth: int,
+                         ewma_step_s: Optional[float]) -> float:
+        """Deterministic retry-after for a ``queue_full`` rejection: the
+        estimated time for the standing queue to drain — queue depth times
+        the observed per-step seconds (1.0 before the first step, the
+        VirtualClock unit).  A conservative upper bound, so callers that
+        can probe cheaply (``ServingEngine.submit``'s hinted wait) re-check
+        as capacity frees instead of sitting out the whole estimate.  An
+        informed wait beats the blind exponential ladder: the client (or
+        the fleet router) comes back when capacity plausibly exists
+        instead of probing through geometric guesses."""
+        per_step = ewma_step_s if ewma_step_s else 1.0
+        return round(max(1, queue_depth) * per_step, 6)
+
+    # -------------------------------------------------------------- start
+
+    def _start_pages(self, req: ServingRequest) -> int:
+        """Pages a (resume-)prefill needs up front: the full engine prompt
+        (original prompt + already-generated tokens) plus one decode page of
+        slack — capped at the request's FINAL page count, so the demand never
+        exceeds what submit_ok proved feasible (without the cap, a prompt
+        ending exactly on a page boundary would demand one page more than it
+        can ever use and deadlock at the head of the queue).  Prefix-cache
+        hits only reduce this, so it is a safe bound."""
+        kv = self.engine.kv
+        final = -(-(len(req.prompt) + req.max_new_tokens) // kv.page_size)
+        return min(-(-len(req.engine_tokens()) // kv.page_size) + 1, final)
+
+    def can_start(self, req: ServingRequest, reserved_pages: int = 0) -> bool:
+        """Hand ``req`` to the engine now?  May evict cache-only prefix
+        pages to make room (they are reclaimable capacity, not commitments —
+        same policy as ``BlockedKVCache.ensure_capacity``).  Batch capacity
+        counts EVERY live engine sequence, not just frontend-admitted ones —
+        mixed use (direct ``engine.put()`` callers) must not overflow
+        ``StateManager.pack``'s batch bound.  ``reserved_pages``: pages
+        already promised to requests admitted earlier in the SAME tick —
+        ``put()`` allocates nothing until the step packs, so without the
+        reservation every queued request would be tested against the same
+        free-page count and the arena over-committed straight into
+        preemption churn."""
+        if len(self.engine.state.seqs) >= self.engine.state.max_batch:
+            return False
+        kv = self.engine.kv
+        need = self._start_pages(req) + self.config.kv_headroom_pages + reserved_pages
+        shortfall = need - kv.allocator.free_pages
+        if shortfall > 0 and kv.prefix_cache is not None \
+                and shortfall <= kv.prefix_cache.cached_pages:
+            # only touch the cache when it could plausibly cover the gap —
+            # a blocked head request probed every tick must not drain the
+            # cache (and everyone's future prefix hits) for zero admissions.
+            # cached_pages over-counts shared/pinned entries, so this can
+            # still evict without admitting, but never when provably futile
+            kv.prefix_cache.evict(shortfall)
+            shortfall = need - kv.allocator.free_pages
+        return shortfall <= 0

@@ -1,0 +1,124 @@
+"""Clock abstraction for the serving loop.
+
+The frontend never calls ``time`` directly: all timestamps (arrival,
+deadline, TTFT/TPOT) come from a clock object, so the SAME loop runs in
+two modes:
+
+* :class:`WallClock` — real serving: ``now()`` is monotonic wall time and
+  engine steps take however long they take.
+* :class:`VirtualClock` — deterministic CPU tests and the load harness's
+  ``--dryrun``: time advances only when the loop says so (one configurable
+  cost unit per engine step), so percentile latencies are reproducible
+  bit-for-bit across runs and machines.  This is what lets the SLA harness
+  be a tier-1 CPU test instead of a flaky timing test.
+"""
+
+import time
+
+
+class VirtualClock:
+    """Deterministic logical time; the serving loop advances it explicitly."""
+
+    def __init__(self, start: float = 0.0):
+        self._now = float(start)
+
+    def now(self) -> float:
+        return self._now
+
+    def reset(self) -> None:
+        """Re-zero.  Callers that build expensive state (engine warmup)
+        before serving reset the clock so t=0 means 'serving starts', not
+        'process started'; on a virtual clock construction costs nothing so
+        this is a no-op unless time was explicitly advanced."""
+        self._now = 0.0
+
+    def advance(self, dt: float) -> None:
+        # explicit raise, not assert: time-domain integrity must hold under
+        # ``python -O`` too — a negative (or NaN) step cost would silently
+        # rewind every timestamp derived from this clock
+        if not dt >= 0:
+            raise ValueError(f"virtual clock cannot go backwards (dt={dt})")
+        self._now += dt
+
+    def wait_until(self, ts: float) -> None:
+        """Jump to ``ts`` (idle gap between arrivals).  A ``ts`` in the
+        past — a stale deadline, an out-of-order arrival — CLAMPS to
+        ``now()``: the clock never rewinds (telemetry timestamps and
+        latency accounting assume monotonic time).  NaN is rejected."""
+        ts = float(ts)
+        if ts != ts:
+            raise ValueError("wait_until(NaN)")
+        if ts > self._now:
+            self._now = ts
+
+    def on_step(self, cost: float) -> float:
+        """One engine step consumed ``cost`` virtual seconds.  Returns the
+        charged duration (clocks that account the cost themselves return it;
+        WallClock returns None and the caller measures real elapsed time)."""
+        self.advance(cost)
+        return cost
+
+
+class WallClock:
+    """Monotonic wall time (zeroed at construction so timestamps are small
+    and comparable with VirtualClock-based configs)."""
+
+    def __init__(self):
+        self._t0 = time.monotonic()
+
+    def now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def reset(self) -> None:
+        """Re-zero so t=0 is 'serving starts' (see VirtualClock.reset —
+        engine build/warmup before the drive loop must not age the
+        workload's arrival timestamps and deadlines past before it runs)."""
+        self._t0 = time.monotonic()
+
+    def wait_until(self, ts: float) -> None:
+        delta = ts - self.now()
+        if delta > 0:
+            time.sleep(delta)
+
+    def on_step(self, cost: float) -> None:
+        # real time already passed during the step; None tells the caller
+        # to measure the wall-clock duration itself
+        return None
+
+
+class ReplicaClockView:
+    """Per-replica view of one shared :class:`VirtualClock` for the fleet
+    simulator.
+
+    N replicas of a fleet step CONCURRENTLY in a real deployment, so a
+    simulated round in which every replica runs one tick must advance time
+    by the SLOWEST replica's step cost — not the sum (which would model the
+    replicas taking turns and erase the fleet's throughput scaling).  Each
+    replica's ServingEngine gets a view: ``now()`` reads the shared clock,
+    ``on_step`` RECORDS the cost instead of advancing, and the fleet driver
+    advances the shared clock once per round by ``max(take_cost())`` over
+    the replicas that ticked."""
+
+    def __init__(self, shared: VirtualClock):
+        self.shared = shared
+        self._pending_cost = 0.0
+
+    def now(self) -> float:
+        return self.shared.now()
+
+    def wait_until(self, ts: float) -> None:
+        self.shared.wait_until(ts)
+
+    def on_step(self, cost: float) -> float:
+        # same backwards-time stance as VirtualClock.advance: a negative
+        # recorded cost would silently shrink the fleet round
+        if not cost >= 0:
+            raise ValueError(f"replica step cost cannot be negative (cost={cost})")
+        self._pending_cost = max(self._pending_cost, cost)
+        return cost
+
+    def take_cost(self) -> float:
+        """Drain the cost recorded since the last take (the fleet driver
+        calls this once per replica per round)."""
+        cost, self._pending_cost = self._pending_cost, 0.0
+        return cost

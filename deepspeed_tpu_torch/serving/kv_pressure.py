@@ -1,0 +1,88 @@
+"""KV-pressure manager: make the next engine step feasible, or shed load.
+
+Without this, a decode step that needs one more page than the arena has
+raises ``KV cache exhausted`` from inside ``StateManager.pack`` — after
+some batchmates already allocated theirs, so even the survivors' step is
+lost.  The manager preflights the scheduler's plan against
+``BlockedAllocator.free_pages`` and closes any gap in escalation order:
+
+1. evict cold prefix-cache pages (pure cache — reclaimable, costs a future
+   prefill speedup, never correctness);
+2. preempt the YOUNGEST sequence (latest arrival — it has the least sunk
+   prefill/decode work and, under FCFS, the weakest claim): release its
+   pages via ``BlockedKVCache.release`` and hand the descriptor back to the
+   frontend for requeue-with-tokens-preserved (recompute-on-resume).
+   Decodes are preempted before prefills only via youth order falling out
+   of FCFS admission; a mid-prefill victim loses only its partial pages.
+
+When a host KV tier is attached (``serving/kvtier`` — set via
+``ServingEngine``), step 2 becomes DEMOTION-FIRST: the victim's pages are
+staged to the host tier before ``preempt`` frees them, so its resume
+promotes the staged copy back instead of recomputing the prompt.  A
+failed demotion (transient fault, host tier full) degrades to the plain
+evict+recompute above — slower, never wrong.
+
+The worst-case demand is evaluated at the single-token rung (k=1): the
+fused multi-decode path already self-shrinks ``k`` under page pressure
+(``engine_v2.step``), so k=1 feasibility guarantees the step runs.
+"""
+
+from typing import Callable, List, Optional
+
+from ..inference.v2.ragged import SequenceDescriptor
+from ..utils.logging import logger
+
+
+class KVPressureManager:
+
+    def __init__(self, engine, youth_key: Optional[Callable[[int], tuple]] = None):
+        """``youth_key(uid)`` orders preemption victims — HIGHEST key is
+        evicted first (youngest).  Default: uid order (uids are allocated
+        monotonically by the frontend, so this is arrival order)."""
+        self.engine = engine
+        self.youth_key = youth_key or (lambda uid: uid)
+        #: optional TieredKVManager (serving/kvtier): when set, victims are
+        #: demoted to the host tier before preemption (demotion-first)
+        self.tier = None
+
+    def resolve(self):
+        """Evict cache pages / preempt sequences until the planned step fits.
+        Returns (preempted descriptors for the frontend to requeue, the
+        final feasible StepPlan — valid until the state next mutates, so the
+        caller can hand it straight to ``engine.step(plan)`` instead of
+        re-planning)."""
+        engine = self.engine
+        kv = engine.kv
+        evicted: List[SequenceDescriptor] = []
+        while True:
+            plan = engine.scheduler.plan(engine.state)
+            need = engine.single_step_page_demand(plan)
+            shortfall = need - kv.allocator.free_pages
+            if shortfall <= 0:
+                return evicted, plan
+            if kv.prefix_cache is not None:
+                if kv.prefix_cache.evict(shortfall) > 0:
+                    continue  # re-check: cache pages may have covered it
+            victims = [s for s in plan.decode] + [s for s, _ in plan.prefill]
+            # paused sequences (mid-KV-migration) hold pages but take no
+            # step work, so they never appear in the plan — they are still
+            # preemptible capacity (the migration layer detects the
+            # eviction and falls back to recompute-on-resume)
+            victims += [s for s in engine.state.seqs.values()
+                        if s.paused and not s.done]
+            if not victims:
+                # nothing to shed — pack() would raise; surface a clear error
+                raise RuntimeError(
+                    f"KV pressure unresolvable: step needs {need} pages, "
+                    f"{kv.allocator.free_pages} free, nothing preemptible")
+            victim = max(victims, key=lambda s: self.youth_key(s.uid))
+            if self.tier is not None:
+                # demotion-first: stage the victim's KV host-side while its
+                # pages are still valid; the frontend attaches the handle
+                # in _on_preempted so the resume promotes, not recomputes.
+                # None (failed/refused demotion) falls through to plain
+                # evict+recompute.
+                self.tier.demote_sequence(victim.uid)
+            logger.debug(f"KV pressure: preempting uid={victim.uid} "
+                         f"({len(victim.pages)} pages, shortfall {shortfall})")
+            evicted.append(engine.preempt(victim.uid))

@@ -1,0 +1,680 @@
+"""Tiered paged KV: a host (CPU-memory, optionally file-backed "nvme")
+tier under :class:`~...inference.v2.ragged.BlockedKVCache`.
+
+PAPER.md's L6 swap layer (``runtime/swap_tensor/`` — the ZeRO-Offload/
+Infinity blueprint) applied to inference state: the device arena is the
+hardest capacity wall in the fleet, and today every cold sequence either
+squats in HBM or is evicted and recomputed from scratch.  This module adds
+the missing rung between those extremes:
+
+* **Demotion** — a cold sequence's KV pages (or a cold prefix-cache
+  chain's pages) are staged device→host as crc-tagged
+  :class:`~..kvtransfer.KVSnapshot` chunks, reusing the r13 ``kvtransfer``
+  gather path (``BlockedKVCache.export_pages``).  The device pages are
+  then released; the host copy is the sequence's state of record.
+* **Promotion** — the host pages are scattered back (``import_pages`` via
+  ``kvtransfer.import_snapshot``) when the sequence resumes.  The h2d
+  transfer is issued as a **double-buffered prefetch** ahead of admission
+  (``prefetch_depth`` concurrent transfers), so under the virtual clock's
+  cost model it hides under the intervening device windows — the same
+  upload/compute overlap discipline as r6's ``HostStreamedOptimizer``.
+  Only the non-hidden remainder stalls admission, and it is attributed
+  (``phase/promote`` spans, the ``promote_wait`` step-anatomy segment,
+  the ``kv/tier_prefetch_hidden_frac`` gauge).
+* **Fallback ladder** — every host-tier miss or fault degrades to the
+  recompute-on-resume path the serving engine already has: slower, never
+  wrong.  A torn or bit-rotted host page is rejected by the snapshot crc
+  *before* any scatter.
+
+Fault-injection sites: ``kv.demote`` fires per demotion (sequence or
+prefix page), ``kv.promote`` per promotion claim — ``os_error`` at either
+degrades to eviction/recompute; ``InjectedCrash`` and ``DeviceLossError``
+propagate (docs/RESILIENCE.md).
+"""
+
+import dataclasses
+import os
+import zlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ...inference.v2.ragged import arena_block_shape, arena_dtype_name, prefix_chain_hashes
+from ...resilience import fault_injection as _fi
+from ...resilience.fault_injection import DeviceLossError, InjectedCrash
+from ...utils.logging import logger
+from ..kvtransfer import KVSnapshot
+
+__all__ = ["TierConfig", "HostKVHandle", "HostKVTier", "TieredKVManager"]
+
+# kinds the tier's degradable-failure handling must never absorb:
+# simulated driver death and injected device loss re-raise through every
+# tier edge (chaos tests assert this)
+_FATAL = (InjectedCrash, DeviceLossError)
+
+
+@dataclasses.dataclass(frozen=True)
+class TierConfig:
+    #: host-tier capacity in KV pages (sequence snapshots + prefix pages
+    #: combined).  The tier LRU-evicts its own entries to stay under it;
+    #: an evicted parked entry silently degrades that resume to recompute.
+    host_capacity_pages: int = 256
+    #: h2d promotion cost, clock-seconds per page (VirtualClock cost
+    #: model).  0.0 — the default — makes promotion free, so every
+    #: existing golden is unchanged; benches set it nonzero to measure the
+    #: prefetch-hidden fraction.
+    h2d_page_s: float = 0.0
+    #: concurrent promotion transfers (double buffering, the r6
+    #: discipline): a third prefetch issued while two are in flight starts
+    #: when the oldest of the two completes.
+    prefetch_depth: int = 2
+    #: demote prefix-cache pages evicted under pressure to the host tier
+    #: (the warm-on-host prefix tier); sequence park/preempt demotion is
+    #: always on.
+    demote_prefix: bool = True
+    #: file-backed "nvme" mode: when set, staged chunk bytes live in this
+    #: directory instead of host RAM (crcs and geometry stay in memory, so
+    #: torn files are still rejected at promote).  None = CPU memory.
+    spill_dir: Optional[str] = None
+    #: capacity-pressure demotion watermarks (ROADMAP kvtier depth item):
+    #: occupancy fractions in [0, 1].  When DEVICE arena occupancy
+    #: (allocated / usable pages) reaches ``device_watermark_hi``,
+    #: :meth:`TieredKVManager.enforce_watermarks` demotes coldest-first —
+    #: LRU-leaf prefix-cache pages, staged host-side via the demoter hook
+    #: — until occupancy is back at ``device_watermark_lo`` (hysteresis:
+    #: nothing happens between lo and hi, so the sweep never thrashes at
+    #: the boundary).  Likewise ``host_watermark_hi``/``lo`` bound the
+    #: HOST tier by dropping its LRU-coldest entries (a dropped parked
+    #: snapshot degrades that resume to recompute — slower, never wrong).
+    #: None (the default) disables that side entirely; every pre-existing
+    #: golden is unchanged.
+    device_watermark_hi: Optional[float] = None
+    device_watermark_lo: Optional[float] = None
+    host_watermark_hi: Optional[float] = None
+    host_watermark_lo: Optional[float] = None
+
+    def __post_init__(self):
+        for hi, lo in ((self.device_watermark_hi, self.device_watermark_lo),
+                       (self.host_watermark_hi, self.host_watermark_lo)):
+            if hi is not None:
+                assert lo is not None and 0.0 <= lo <= hi <= 1.0, \
+                    f"watermarks need 0 <= lo <= hi <= 1, got lo={lo} hi={hi}"
+
+
+class HostKVHandle:
+    """What rides on ``ServingRequest.kv_snapshot`` for a parked/demoted
+    request: a *name* for the host-tier entry, not the bytes — the tier
+    owns the snapshot (and may LRU-evict it, degrading the resume to
+    recompute).  The serving engine resolves the handle at admission via
+    :meth:`TieredKVManager.claim`."""
+
+    __slots__ = ("uid", "n_pages", "tier")
+
+    def __init__(self, uid: int, n_pages: int, tier: "TieredKVManager"):
+        self.uid = uid
+        self.n_pages = n_pages
+        self.tier = tier
+
+    def __repr__(self):
+        return f"HostKVHandle(uid={self.uid}, n_pages={self.n_pages})"
+
+
+class _HostPrefixPage:
+    """One prefix-cache page staged host-side: the page's token tuple and
+    parent digest (the same chain identity the device cache keys by) plus
+    the staged block ``[L, 1, page, 2, n_kv, hd]`` and its crc."""
+
+    __slots__ = ("tokens", "parent", "block", "crc", "shape", "dtype", "path")
+
+    def __init__(self, tokens, parent, block, crc, shape, dtype, path=None):
+        self.tokens = tokens
+        self.parent = parent
+        self.block = block      # None in spill mode (bytes live at ``path``)
+        self.crc = crc
+        self.shape = shape
+        self.dtype = dtype
+        self.path = path
+
+
+class HostKVTier:
+    """Bounded host page store: sequence snapshots keyed by uid, prefix
+    pages keyed by chain digest, one LRU across both kinds.  Capacity is
+    counted in pages; inserting evicts LRU entries until the newcomer
+    fits (an entry larger than the whole tier is refused)."""
+
+    def __init__(self, capacity_pages: int, spill_dir: Optional[str] = None):
+        if capacity_pages < 1:
+            raise ValueError(f"host tier needs >= 1 page, got {capacity_pages}")
+        self.capacity_pages = int(capacity_pages)
+        self.spill_dir = spill_dir
+        if spill_dir is not None:
+            os.makedirs(spill_dir, exist_ok=True)
+        #: uid -> complete KVSnapshot (chunk bytes on disk in spill mode)
+        self._seq: Dict[int, KVSnapshot] = {}
+        #: chain digest -> _HostPrefixPage
+        self._prefix: Dict[int, _HostPrefixPage] = {}
+        #: unified LRU: ("seq", uid) / ("px", digest) -> n_pages
+        self._lru: "OrderedDict[Tuple[str, int], int]" = OrderedDict()
+        self.pages_used = 0
+        self.stats = {"seq_put": 0, "seq_taken": 0, "prefix_put": 0,
+                      "lru_evicted_pages": 0, "rejected_oversize": 0}
+        #: optional eviction sink ``on_evict(kind, key)`` with kind
+        #: "seq"/"px" — the TieredKVManager forwards prefix drops to the
+        #: fleet directory as host-tier retracts
+        self.on_evict = None
+
+    # ------------------------------------------------------------ capacity
+
+    def _evict_for(self, need: int) -> bool:
+        """Make room for ``need`` pages; False when impossible."""
+        if need > self.capacity_pages:
+            self.stats["rejected_oversize"] += 1
+            return False
+        while self.pages_used + need > self.capacity_pages:
+            victim = next(iter(self._lru), None)
+            if victim is None:
+                return False
+            self._drop(victim)
+            self.stats["lru_evicted_pages"] += 1
+        return True
+
+    def _drop(self, key: Tuple[str, int]) -> None:
+        n = self._lru.pop(key)
+        self.pages_used -= n
+        kind, ident = key
+        if kind == "seq":
+            snap = self._seq.pop(ident)
+            self._unlink(p for p, _, _ in getattr(snap, "_spill_meta", ()))
+        else:
+            ent = self._prefix.pop(ident)
+            self._unlink([ent.path] if ent.path else ())
+        if self.on_evict is not None:
+            self.on_evict(kind, ident)
+
+    def _unlink(self, paths) -> None:
+        for p in paths:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    # ----------------------------------------------------------- sequences
+
+    def put_seq(self, uid: int, snapshot: KVSnapshot) -> bool:
+        """Store (or replace) the parked snapshot for ``uid``; False when
+        it cannot fit even after LRU eviction (caller degrades to plain
+        eviction/recompute)."""
+        key = ("seq", uid)
+        if key in self._lru:
+            self._drop(key)
+        n = snapshot.n_pages
+        if not self._evict_for(n):
+            return False
+        if self.spill_dir is not None:
+            self._spill_seq(uid, snapshot)
+        self._seq[uid] = snapshot
+        self._lru[key] = n
+        self.pages_used += n
+        self.stats["seq_put"] += 1
+        return True
+
+    def peek_seq(self, uid: int) -> Optional[KVSnapshot]:
+        snap = self._seq.get(uid)
+        if snap is not None:
+            self._lru.move_to_end(("seq", uid))
+        return snap
+
+    def take_seq(self, uid: int) -> Optional[KVSnapshot]:
+        """Remove and return ``uid``'s snapshot, loading spilled chunk
+        bytes back into memory; None when absent (LRU-evicted — that
+        resume recomputes)."""
+        if uid not in self._seq:
+            return None
+        n = self._lru.pop(("seq", uid))
+        self.pages_used -= n
+        snap = self._seq.pop(uid)
+        meta = getattr(snap, "_spill_meta", None)
+        if meta:
+            snap.chunks = [np.fromfile(p, dtype=np.dtype(dt)).reshape(shape)
+                           for p, shape, dt in meta]
+            self._unlink(p for p, _, _ in meta)
+            del snap._spill_meta
+        self.stats["seq_taken"] += 1
+        return snap
+
+    def discard_seq(self, uid: int) -> None:
+        if uid in self._seq:
+            self._drop(("seq", uid))
+
+    # ------------------------------------------------------- prefix pages
+
+    def put_prefix(self, digest: int, entry: _HostPrefixPage) -> bool:
+        key = ("px", digest)
+        if key in self._lru:
+            self._drop(key)
+        if not self._evict_for(1):
+            return False
+        if self.spill_dir is not None and entry.block is not None:
+            entry.path = os.path.join(
+                self.spill_dir, f"px_{digest & 0xFFFFFFFFFFFFFFFF:016x}.bin")
+            _write_file(entry.path, np.ascontiguousarray(entry.block).tobytes())
+            entry.block = None
+        self._prefix[digest] = entry
+        self._lru[key] = 1
+        self.pages_used += 1
+        self.stats["prefix_put"] += 1
+        return True
+
+    def get_prefix(self, digest: int) -> Optional[_HostPrefixPage]:
+        ent = self._prefix.get(digest)
+        if ent is not None:
+            self._lru.move_to_end(("px", digest))
+        return ent
+
+    def prefix_block(self, ent: _HostPrefixPage) -> np.ndarray:
+        """The entry's staged block, loaded from disk in spill mode."""
+        if ent.block is not None:
+            return ent.block
+        return np.fromfile(ent.path, dtype=np.dtype(ent.dtype)).reshape(ent.shape)
+
+    def drop_prefix(self, digest: int) -> None:
+        if digest in self._prefix:
+            self._drop(("px", digest))
+
+    def held_prefix_digests(self) -> List[int]:
+        return list(self._prefix)
+
+    # --------------------------------------------------------- spill mode
+
+    def _spill_seq(self, uid: int, snapshot: KVSnapshot) -> None:
+        meta = []
+        for i, block in enumerate(snapshot.chunks):
+            p = os.path.join(self.spill_dir, f"seq_{uid}_{i}.bin")
+            _write_file(p, np.ascontiguousarray(block).tobytes())
+            meta.append((p, tuple(block.shape), str(block.dtype)))
+        snapshot._spill_meta = meta
+        snapshot.chunks = []
+
+
+def _write_file(path: str, data: bytes) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:  # atomic-ok: os.replace below; crcs re-verified on load
+        f.write(data)
+    os.replace(tmp, path)
+
+
+class TieredKVManager:
+    """Drives one engine's host KV tier: demotes cold sequences and cold
+    prefix chains, promotes them back with prefetch, and accounts the
+    overlap.  Attach via ``ServingEngine``'s ``tier`` — the frontend then
+    parks/resumes requests through it and ``KVPressureManager`` prefers
+    demotion over evict+recompute."""
+
+    def __init__(self, engine, config: Optional[TierConfig] = None,
+                 metrics=None):
+        self.engine = engine          # the InferenceEngineV2
+        self.config = config or TierConfig()
+        self.metrics = metrics
+        self.host = HostKVTier(self.config.host_capacity_pages,
+                               spill_dir=self.config.spill_dir)
+        self.host.on_evict = self._on_host_evict
+        #: uid -> (t_start, t_ready, transfer_s): issued promote prefetches
+        self._prefetch: Dict[int, Tuple[float, float, float]] = {}
+        #: completion times of in-flight transfers (the double-buffer bound)
+        self._slots: List[float] = []
+        self.stats = {"demotions": 0, "promotions": 0, "demote_faults": 0,
+                      "promote_faults": 0, "promote_fallbacks": 0,
+                      "prefix_demotions": 0, "prefix_promotions": 0,
+                      "transfer_s": 0.0, "hidden_s": 0.0,
+                      "watermark_demotions": 0, "watermark_host_drops": 0}
+        #: host-tier publish bus, mirroring ``PrefixCacheManager.listener``:
+        #: ``listener(event, digest)`` with "host_publish" (a prefix page
+        #: entered the host tier) / "host_evict" (it left) — the fleet
+        #: ReplicaPool wires this to the PrefixDirectory host tier
+        self.listener = None
+        # hook the device prefix cache's eviction path: pages about to be
+        # freed under pressure are staged host-side first (warm-on-host)
+        pc = engine.kv.prefix_cache
+        if pc is not None and self.config.demote_prefix:
+            pc.demoter = self._demote_prefix_page
+        # export_prefix (kvtransfer) reads this to extend donor staging
+        # with host-resident pages — saturated-warm imports can source
+        # from the host tier without touching the donor's device arena
+        engine._kv_tier = self
+
+    # ------------------------------------------------------------- helpers
+
+    def _count(self, name: str, n: int = 1) -> None:
+        if self.metrics is not None:
+            self.metrics.counter(name).inc(n)
+
+    def _notify(self, event: str, digest: int) -> None:
+        if self.listener is not None:
+            self.listener(event, digest)
+
+    def _on_host_evict(self, kind: str, ident: int) -> None:
+        if kind == "px":
+            self._notify("host_evict", ident)
+
+    @property
+    def hidden_frac(self) -> Optional[float]:
+        """Fraction of total promotion transfer seconds that hid under
+        device windows (issued-ahead prefetch); None before any charged
+        promotion."""
+        if self.stats["transfer_s"] <= 0:
+            return None
+        return self.stats["hidden_s"] / self.stats["transfer_s"]
+
+    # ------------------------------------------------------------ demotion
+
+    def demote_sequence(self, uid: int) -> Optional["HostKVHandle"]:
+        """Stage a live sequence's KV pages to the host tier (one complete
+        crc-tagged snapshot) — called BEFORE the sequence is preempted, so
+        the pages are still valid to gather.  Returns a handle to ride on
+        the request, or None on any degradable failure (unsupported arena
+        layout, transient I/O fault, host tier full): the caller proceeds
+        with plain eviction and the resume recomputes.  ``InjectedCrash``
+        and ``DeviceLossError`` propagate — driver death is never absorbed."""
+        seq = self.engine.state.seqs.get(uid)
+        kv = self.engine.kv
+        arena = self.engine.cache
+        if seq is None or seq.seen_tokens <= 0 or arena_block_shape(arena) is None:
+            return None
+        try:
+            _fi.check("kv.demote")   # chaos site: failed d2h demotion
+            n_pages = -(-seq.seen_tokens // kv.page_size)
+            block = kv.export_pages(arena, list(seq.pages[:n_pages]))
+        except _FATAL:
+            raise
+        except OSError as e:
+            self.stats["demote_faults"] += 1
+            logger.warning(f"kvtier: demotion of uid={uid} failed ({e}); "
+                           "falling back to evict+recompute")
+            return None
+        snapshot = KVSnapshot(
+            tokens=list(seq.tokens), seen_tokens=seq.seen_tokens,
+            page_size=kv.page_size,
+            block_shape=arena_block_shape(arena), dtype=arena_dtype_name(arena),
+            source="kvtier")
+        snapshot.add_chunk(block)
+        snapshot.complete = True
+        if not self.host.put_seq(uid, snapshot):
+            self.stats["demote_faults"] += 1
+            logger.warning(f"kvtier: host tier cannot hold uid={uid} "
+                           f"({snapshot.n_pages} pages); evict+recompute")
+            return None
+        self.stats["demotions"] += 1
+        self._count("kv/demote")
+        return HostKVHandle(uid, snapshot.n_pages, self)
+
+    def handle_for(self, uid: int) -> Optional["HostKVHandle"]:
+        """A fresh handle for ``uid``'s parked host entry, if it still
+        exists (the pressure path demotes inside ``KVPressureManager.
+        resolve``; the frontend picks the handle up in ``_on_preempted``)."""
+        snap = self.host.peek_seq(uid)
+        if snap is None:
+            return None
+        return HostKVHandle(uid, snap.n_pages, self)
+
+    def discard(self, uid: int) -> None:
+        """Drop ``uid``'s host entry and any pending prefetch (the request
+        reached a terminal without resuming)."""
+        self.host.discard_seq(uid)
+        self._prefetch.pop(uid, None)
+
+    def enforce_watermarks(self) -> Dict[str, int]:
+        """Capacity-pressure demotion: act when either tier's occupancy
+        crosses its configured HIGH watermark, demote/drop **coldest
+        first**, and stop once occupancy is back at the LOW watermark —
+        classic hysteresis, so a tier sitting between lo and hi is never
+        touched and the sweep cannot thrash at the boundary.  Called every
+        serving tick (``ServingEngine.tick``); a no-op with the default
+        (None) watermarks.
+
+        * **device side** — evicts LRU-leaf prefix-cache pages
+          (``PrefixCacheManager.evict``), which stages each page host-side
+          first via the demoter hook when ``demote_prefix`` is on: cold
+          chains leave the arena but stay warm-on-host.  Pages pinned by
+          live sequences are never touched (evict's refcount rule), so the
+          sweep may legitimately fall short of the low watermark.
+        * **host side** — drops the host tier's LRU-coldest entries
+          (sequence snapshots and prefix pages alike, one LRU); a dropped
+          parked snapshot degrades that resume to recompute (the ladder's
+          never-wrong fallback) and a dropped prefix page just loses
+          warmth.
+
+        Returns ``{"device_demoted": pages, "host_dropped": pages}``."""
+        cfg = self.config
+        out = {"device_demoted": 0, "host_dropped": 0}
+        if cfg.device_watermark_hi is not None:
+            alloc = self.engine.kv.allocator
+            usable = alloc.num_pages - 1          # page 0 is the null page
+            used = usable - alloc.free_pages
+            if usable > 0 and used / usable >= cfg.device_watermark_hi:
+                # free down to the low watermark: target_used = lo * usable
+                excess = used - int(cfg.device_watermark_lo * usable)
+                pc = self.engine.kv.prefix_cache
+                if pc is not None and excess > 0:
+                    freed = pc.evict(excess)
+                    out["device_demoted"] = freed
+                    self.stats["watermark_demotions"] += freed
+        if cfg.host_watermark_hi is not None:
+            cap = self.host.capacity_pages
+            if self.host.pages_used / cap >= cfg.host_watermark_hi:
+                target = int(cfg.host_watermark_lo * cap)
+                while self.host.pages_used > target:
+                    victim = next(iter(self.host._lru), None)
+                    if victim is None:
+                        break
+                    dropped = self.host._lru[victim]
+                    self.host._drop(victim)   # coldest-first: LRU head
+                    out["host_dropped"] += dropped
+                self.stats["watermark_host_drops"] += out["host_dropped"]
+        if out["device_demoted"] or out["host_dropped"]:
+            self._count("kv/watermark_demote",
+                        out["device_demoted"] + out["host_dropped"])
+        return out
+
+    def _demote_prefix_page(self, digest: int, page_id: int, tokens: tuple,
+                            parent: Optional[int]) -> None:
+        """``PrefixCacheManager.evict``'s demoter hook, invoked BEFORE the
+        page is freed: stage the evicted chain page host-side so the prefix
+        stays warm-on-host.  Best-effort: any degradable failure just
+        loses the warmth (the chain goes cold, exactly as without a tier);
+        ``InjectedCrash``/``DeviceLossError`` propagate."""
+        arena = self.engine.cache
+        if arena_block_shape(arena) is None:
+            return
+        try:
+            _fi.check("kv.demote")   # same chaos site as sequence demotion
+            block = self.engine.kv.export_pages(arena, [page_id])
+        except _FATAL:
+            raise
+        except OSError as e:
+            self.stats["demote_faults"] += 1
+            logger.warning(f"kvtier: prefix demotion dropped ({e})")
+            return
+        ent = _HostPrefixPage(
+            tokens=tuple(tokens), parent=parent, block=block,
+            crc=zlib.crc32(np.ascontiguousarray(block).tobytes()),
+            shape=tuple(block.shape), dtype=str(block.dtype))
+        if self.host.put_prefix(digest, ent):
+            self.stats["prefix_demotions"] += 1
+            self._count("kv/demote")
+            self._notify("host_publish", digest)
+
+    # ----------------------------------------------------------- promotion
+
+    def prefetch(self, uid: int, n_pages: int, now: float) -> None:
+        """Issue the promote transfer for ``uid`` ahead of its admission
+        (at resume/requeue time).  Double-buffered: at most
+        ``prefetch_depth`` transfers overlap; a later issue queues behind
+        the oldest in-flight slot.  Idempotent per uid — a re-issue keeps
+        the earlier (better) window."""
+        if uid in self._prefetch or n_pages <= 0:
+            return
+        transfer = n_pages * self.config.h2d_page_s
+        busy = sorted(t for t in self._slots if t > now)
+        self._slots = busy
+        depth = max(1, self.config.prefetch_depth)
+        start = now if len(busy) < depth else busy[len(busy) - depth]
+        t_ready = start + transfer
+        if transfer > 0:
+            self._slots.append(t_ready)
+        self._prefetch[uid] = (start, t_ready, transfer)
+
+    def _settle_transfer(self, issued, n_pages: int, now: float):
+        """Settle a promote transfer at admission: ``(stall_s, window)``
+        where ``stall_s`` is the non-hidden remainder the admission must
+        wait out and ``window`` the ``(t_start, t_ready)`` interval for
+        span attribution (None when the transfer is free).  ``issued`` is
+        the prefetch record, or None for a direct (unprefetched) claim —
+        then the whole transfer stalls."""
+        transfer = n_pages * self.config.h2d_page_s
+        if transfer <= 0:
+            return 0.0, None
+        if issued is None:
+            start, t_ready = now, now + transfer
+            self._slots.append(t_ready)
+        else:
+            start, t_ready, transfer = issued
+        stall = max(0.0, t_ready - now)
+        self.stats["transfer_s"] += transfer
+        self.stats["hidden_s"] += max(0.0, transfer - stall)
+        return stall, (start, t_ready)
+
+    def claim(self, uid: int, tokens, now: float):
+        """Resolve a parked request's :class:`HostKVHandle` at admission:
+        fire the ``kv.promote`` chaos site, take the host snapshot, and
+        settle the prefetch window.  Returns ``(snapshot, stall_s,
+        window)``; snapshot None on any degradable failure (entry
+        LRU-evicted, token drift, transient fault) — the caller falls back
+        to recompute.  Integrity is NOT checked here: ``import_snapshot``
+        verifies every chunk crc before any scatter, so a torn host page
+        is rejected there and the same fallback runs."""
+        issued = self._prefetch.pop(uid, None)
+        try:
+            _fi.check("kv.promote")  # chaos site: failed h2d promotion
+        except _FATAL:
+            raise
+        except OSError as e:
+            self.host.discard_seq(uid)
+            self.stats["promote_faults"] += 1
+            logger.warning(f"kvtier: promotion of uid={uid} failed ({e}); "
+                           "recompute-on-resume")
+            return None, 0.0, None
+        snap = self.host.take_seq(uid)
+        if snap is None:
+            self.stats["promote_fallbacks"] += 1
+            return None, 0.0, None
+        if list(snap.tokens) != [int(t) for t in tokens]:
+            # the request's history moved past the parked snapshot (stale
+            # entry from an earlier park): recompute owns it
+            self.stats["promote_fallbacks"] += 1
+            return None, 0.0, None
+        stall, window = self._settle_transfer(issued, snap.n_pages, now)
+        self.stats["promotions"] += 1
+        self._count("kv/promote")
+        return snap, stall, window
+
+    # ---------------------------------------------------- prefix promotion
+
+    def host_prefix_depth(self, tokens, start_depth: int = 0) -> int:
+        """How many chain pages of ``tokens`` from ``start_depth`` onward
+        the HOST tier holds (token-verified contiguous run) — the
+        warm-on-host half of a tiered warmth answer."""
+        return len(self._host_chain(tokens, start_depth))
+
+    def _host_chain(self, tokens, start_depth: int,
+                    max_depth: Optional[int] = None):
+        P = self.engine.kv.page_size
+        chain = prefix_chain_hashes(tokens, P)
+        hi = len(chain) if max_depth is None else min(len(chain), max_depth)
+        out = []
+        for i in range(start_depth, hi):
+            ent = self.host.get_prefix(chain[i])
+            if ent is None or ent.tokens != tuple(tokens[i * P:(i + 1) * P]):
+                break
+            out.append((chain[i], ent))
+        return out
+
+    def host_prefix_blocks(self, tokens, start_depth: int,
+                           max_depth: Optional[int] = None) -> List[np.ndarray]:
+        """Crc-verified staged blocks continuing ``tokens``'s chain from
+        ``start_depth`` — the donor-side source for saturated-warm prefix
+        exports that must not touch the device arena.  A corrupt entry is
+        dropped and the run stops there (shorter warmth, never wrong KV)."""
+        blocks = []
+        for digest, ent in self._host_chain(tokens, start_depth, max_depth):
+            block = self.host.prefix_block(ent)
+            if zlib.crc32(np.ascontiguousarray(block).tobytes()) != ent.crc:
+                logger.warning("kvtier: corrupt host prefix page rejected "
+                               "by crc before scatter")
+                self.host.drop_prefix(digest)
+                break
+            blocks.append(block)
+        return blocks
+
+    def promote_prefix(self, tokens, now: float):
+        """Fill the device prefix cache's missing chain tail for
+        ``tokens`` from host pages (allocate → crc-checked scatter →
+        ``adopt``, the import_prefix contract) so the subsequent
+        ``match()`` attaches them instead of recomputing their KV.
+        Returns ``(pages_promoted, stall_s, window)``.  Consumed host
+        entries are dropped — the device copy is the warm one now.  Every
+        failure degrades: 0 pages promoted, prefill recomputes."""
+        kv = self.engine.kv
+        pc = kv.prefix_cache
+        arena = self.engine.cache
+        if pc is None or arena_block_shape(arena) is None:
+            return 0, 0.0, None
+        # same usable cap as match(): the engine must still compute >= 1
+        # prompt token, so a page covering the final token is useless
+        max_depth = max(0, (len(tokens) - 1) // kv.page_size)
+        have = pc.held_depth(tokens)
+        run = self._host_chain(tokens, have, max_depth)
+        if not run:
+            return 0, 0.0, None
+        try:
+            _fi.check("kv.promote")  # chaos site: failed h2d promotion
+        except _FATAL:
+            raise
+        except OSError as e:
+            self.stats["promote_faults"] += 1
+            logger.warning(f"kvtier: prefix promotion failed ({e}); "
+                           "prefill recomputes")
+            return 0, 0.0, None
+        blocks = []
+        for digest, ent in run:
+            block = self.host.prefix_block(ent)
+            if zlib.crc32(np.ascontiguousarray(block).tobytes()) != ent.crc:
+                logger.warning("kvtier: corrupt host prefix page rejected "
+                               "by crc before scatter")
+                self.host.drop_prefix(digest)
+                break
+            blocks.append((digest, block))
+        if not blocks:
+            return 0, 0.0, None
+        n = len(blocks)
+        if n > kv.allocator.free_pages:
+            pc.evict(n - kv.allocator.free_pages)
+            if pc.held_depth(tokens) != have or n > kv.allocator.free_pages:
+                # the sweep ate this very chain (or came up short): the
+                # host copies survive for a later attempt
+                return 0, 0.0, None
+        pages = kv.allocator.allocate(n)
+        try:
+            stacked = np.concatenate([b for _, b in blocks], axis=1)
+            self.engine.cache = kv.import_pages(self.engine.cache, pages,
+                                                np.ascontiguousarray(stacked))
+        except BaseException:
+            kv.allocator.free(pages)
+            raise
+        pc.adopt(list(tokens[:(have + n) * kv.page_size]), have, pages)
+        for digest, _ in blocks:
+            self.host.drop_prefix(digest)   # device-warm now; emits host_evict
+        stall, window = self._settle_transfer(None, n, now)
+        self.stats["prefix_promotions"] += n
+        self._count("kv/promote")
+        return n, stall, window

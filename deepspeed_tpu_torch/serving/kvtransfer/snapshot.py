@@ -1,0 +1,399 @@
+"""Host-staged KV migration: export a sequence's paged KV device→host,
+carry it as a crc-tagged :class:`KVSnapshot`, and import it into another
+engine's arena so decode resumes there with byte-identical outputs.
+
+This is the serving-side application of PAPER.md's L6 host-staging
+machinery (``swap_tensor`` / host-memory-kind shardings — the
+ZeRO-Offload/Infinity mapping): instead of optimizer shards, the staged
+payload is a request's KV pages, and the consumer is another replica of
+the fleet (DistServe-style prefill/decode disaggregation, Splitwise-style
+phase splitting — see docs/SERVING.md "Disaggregated serving").
+
+Protocol pieces:
+
+* :class:`KVSnapshot` — the host-side container: the sequence's full token
+  history + seen boundary at export time, the arena's per-page geometry,
+  and the staged page blocks in export order, each crc32-tagged.
+  ``verify()`` re-checksums every chunk; a torn or bit-rotted snapshot is
+  rejected at import (→ the caller's recompute fallback), never silently
+  decoded into wrong KV.
+* :class:`KVExporter` — incremental device→host export of one PAUSED
+  sequence, ``chunk_pages`` pages per :meth:`step_chunk` call, so a fleet
+  driver interleaves export chunks with the source replica's ongoing
+  decode steps instead of stalling them behind one bulk d2h.  The source
+  sequence must stay paused and intact between chunks; if it was preempted
+  (pages released) mid-flight the exporter raises :class:`SnapshotAborted`
+  and the caller falls back to the token path.
+* :func:`import_snapshot` — allocate fresh pages on the target engine,
+  scatter the staged blocks into its arena, and materialize a sequence
+  whose next step continues generation exactly where the source stopped
+  (the same contract as recompute-on-resume, minus the recompute).
+
+Fault-injection sites: ``kv.export`` fires per export chunk, ``kv.import``
+fires before any target-side mutation — chaos tests drive torn snapshots,
+crash-mid-import and import-reject→recompute through the exact production
+paths (docs/RESILIENCE.md).
+"""
+
+import dataclasses
+import zlib
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ...inference.v2.ragged import SequenceDescriptor, arena_block_shape, arena_dtype_name
+from ...resilience import fault_injection as _fi
+from ...utils.logging import logger
+
+__all__ = ["KVSnapshot", "KVExporter", "import_snapshot",
+           "export_prefix", "import_prefix",
+           "SnapshotError", "SnapshotIntegrityError", "SnapshotAborted",
+           "KVImportError"]
+
+
+class SnapshotError(RuntimeError):
+    """Base class for KV snapshot export/import failures."""
+
+
+class SnapshotIntegrityError(SnapshotError):
+    """A staged chunk's crc32 no longer matches its payload (torn copy,
+    bit rot in host staging, truncation in transit)."""
+
+
+class SnapshotAborted(SnapshotError):
+    """The source sequence changed out from under an in-flight export
+    (preempted / flushed / resumed): the staged prefix is unusable."""
+
+
+class KVImportError(SnapshotError):
+    """The target engine cannot take this snapshot (geometry/dtype/token
+    mismatch, no page capacity, unsupported arena layout)."""
+
+
+def _crc(block: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(block).tobytes())
+
+
+@dataclasses.dataclass
+class KVSnapshot:
+    """One sequence's host-staged KV state.
+
+    ``tokens``/``seen_tokens`` pin WHAT the pages mean: pages ``i`` of the
+    export order hold the KV of token positions ``[i*page_size,
+    (i+1)*page_size)`` of ``tokens``, valid through ``seen_tokens``.
+    ``block_shape`` is the arena's per-page geometry ``(L, page_size, 2,
+    n_kv, head_dim)`` and ``dtype`` its element type — both must match the
+    importing arena exactly.  ``chunks`` are the staged blocks in export
+    order (``[L, n_i, page, 2, n_kv, hd]`` each) with one crc32 per chunk;
+    ``complete`` flips only after the LAST chunk landed, so a partially
+    exported snapshot (source died mid-flight) is structurally unusable."""
+    tokens: List[int]
+    seen_tokens: int
+    page_size: int
+    block_shape: Tuple[int, ...]
+    dtype: str
+    chunks: List[np.ndarray] = dataclasses.field(default_factory=list)
+    crcs: List[int] = dataclasses.field(default_factory=list)
+    complete: bool = False
+    source: Optional[str] = None          # provenance tag (replica id), logs only
+
+    @property
+    def n_pages(self) -> int:
+        return sum(int(c.shape[1]) for c in self.chunks)
+
+    @property
+    def n_bytes(self) -> int:
+        return sum(int(c.nbytes) for c in self.chunks)
+
+    def add_chunk(self, block: np.ndarray) -> None:
+        self.chunks.append(block)
+        self.crcs.append(_crc(block))
+
+    def verify(self) -> None:
+        """Re-checksum every staged chunk; raises on any mismatch.  An
+        incomplete snapshot fails here too — importing a prefix of a
+        sequence's KV would silently attend to garbage for the tail."""
+        if not self.complete:
+            raise SnapshotIntegrityError(
+                f"snapshot incomplete: {self.n_pages} page(s) staged, export "
+                "never finished")
+        for i, (block, crc) in enumerate(zip(self.chunks, self.crcs)):
+            if _crc(block) != crc:
+                raise SnapshotIntegrityError(
+                    f"snapshot chunk {i} crc mismatch "
+                    f"({block.shape[1]} page(s)) — torn or corrupted staging")
+
+
+class KVExporter:
+    """Chunked device→host export of one paused sequence's KV pages.
+
+    Construction snapshots the sequence's identity (token history, seen
+    boundary, page list) — the caller pauses the sequence first, so these
+    are stable for the export's lifetime.  Each :meth:`step_chunk` stages
+    the next ``chunk_pages`` pages through
+    :meth:`~....inference.v2.ragged.BlockedKVCache.export_pages` and
+    returns True once the snapshot is complete; the fleet driver calls it
+    once per round so the d2h copies overlap the source replica's ongoing
+    decode steps for everything else it is serving."""
+
+    def __init__(self, engine, uid: int, chunk_pages: int = 4,
+                 source: Optional[str] = None):
+        if chunk_pages < 1:
+            raise ValueError(f"chunk_pages must be >= 1, got {chunk_pages}")
+        seq = engine.state.seqs[uid]
+        kv = engine.kv
+        arena = engine.cache
+        geometry = arena_block_shape(arena)
+        if geometry is None:
+            raise KVImportError(
+                "KV export supports the per-layer arena only (a list of L "
+                "[P, page, 2, n_kv, hd] tensors of one shape and dtype)")
+        self.engine = engine
+        self.uid = uid
+        self.chunk_pages = int(chunk_pages)
+        self._seq = seq
+        # pages covering [0, seen_tokens): the trailing partial page is
+        # exported whole — positions past ``seen_tokens`` inside it are
+        # never attended on the importer either (kernels mask at start_pos)
+        n_pages = -(-seq.seen_tokens // kv.page_size)
+        self._pages = list(seq.pages[:n_pages])
+        self._next = 0
+        self.snapshot = KVSnapshot(
+            tokens=list(seq.tokens), seen_tokens=seq.seen_tokens,
+            page_size=kv.page_size,
+            block_shape=geometry, dtype=arena_dtype_name(arena), source=source)
+
+    @property
+    def remaining_pages(self) -> int:
+        return len(self._pages) - self._next
+
+    def _check_source(self) -> None:
+        seq = self.engine.state.seqs.get(self.uid)
+        if seq is not self._seq or not seq.paused or seq.done:
+            raise SnapshotAborted(
+                f"uid {self.uid}: source sequence preempted/flushed/resumed "
+                "mid-export — staged prefix unusable")
+        if seq.pages[:len(self._pages)] != self._pages:
+            raise SnapshotAborted(
+                f"uid {self.uid}: source page table changed mid-export")
+
+    def step_chunk(self) -> bool:
+        """Stage the next chunk; returns True when the snapshot completed.
+        Idempotent after completion."""
+        if self.snapshot.complete:
+            return True
+        _fi.check("kv.export")   # chaos site: torn/failed d2h staging
+        self._check_source()
+        lo = self._next
+        hi = min(lo + self.chunk_pages, len(self._pages))
+        if hi > lo:
+            block = self.engine.kv.export_pages(self.engine.cache,
+                                                self._pages[lo:hi])
+            self.snapshot.add_chunk(block)
+        self._next = hi
+        if self._next >= len(self._pages):
+            self.snapshot.complete = True
+        return self.snapshot.complete
+
+
+def _validate_arena(snapshot: "KVSnapshot", kv, arena) -> None:
+    """The importability gate BOTH import paths (migration sequence,
+    prefix adoption) share: the per-layer arena, matching page geometry
+    and dtype.  One rule — a future layout change cannot diverge the two
+    paths."""
+    want = arena_block_shape(arena)
+    if want is None:
+        raise KVImportError("KV import supports the per-layer arena only (a "
+                            "list of L [P, page, 2, n_kv, hd] tensors)")
+    if snapshot.page_size != kv.page_size:
+        raise KVImportError(f"page_size mismatch: snapshot {snapshot.page_size} "
+                            f"vs engine {kv.page_size}")
+    if tuple(snapshot.block_shape) != want:
+        raise KVImportError(f"arena geometry mismatch: snapshot "
+                            f"{tuple(snapshot.block_shape)} vs engine {want}")
+    if snapshot.dtype != arena_dtype_name(arena):
+        raise KVImportError(f"arena dtype mismatch: snapshot {snapshot.dtype} "
+                            f"vs engine {arena_dtype_name(arena)}")
+
+
+def import_snapshot(engine, uid: int, tokens: Sequence[int],
+                    snapshot: KVSnapshot, max_new_tokens: int):
+    """Materialize ``snapshot`` as sequence ``uid`` on ``engine``: verify
+    integrity, validate geometry, allocate fresh pages, scatter the staged
+    blocks host→device, and register a descriptor whose next step continues
+    generation exactly where the source stopped.
+
+    ``tokens`` is the caller's authoritative history (``prompt + tokens
+    generated so far``) and must equal the snapshot's — a snapshot carrying
+    a different history would resume the wrong request.  Raises a
+    :class:`SnapshotError` subclass on any rejection; the caller falls back
+    to the recompute-on-resume token path.  On failure nothing leaks: pages
+    are allocated only after every validation and freed if the scatter
+    itself fails, so allocator refcounts never drift."""
+    _fi.check("kv.import")   # chaos site: crash/device-loss mid-import
+    snapshot.verify()
+    kv = engine.kv
+    arena = engine.cache
+    _validate_arena(snapshot, kv, arena)
+    if list(snapshot.tokens) != [int(t) for t in tokens]:
+        raise KVImportError("token history mismatch: snapshot does not carry "
+                            "this request's prompt + generated tokens")
+    if uid in engine.state.seqs:
+        raise KVImportError(f"uid {uid} already live on the target engine")
+    n = snapshot.n_pages
+    if n != -(-snapshot.seen_tokens // kv.page_size):
+        raise KVImportError(f"snapshot pages ({n}) do not cover its seen "
+                            f"boundary ({snapshot.seen_tokens})")
+    if n > kv.max_pages_per_seq:
+        raise KVImportError(f"snapshot needs {n} pages > max_pages_per_seq="
+                            f"{kv.max_pages_per_seq}")
+    shortfall = n - kv.allocator.free_pages
+    if shortfall > 0 and kv.prefix_cache is not None:
+        kv.prefix_cache.evict(shortfall)
+        shortfall = n - kv.allocator.free_pages
+    if shortfall > 0:
+        raise KVImportError(f"target arena short {shortfall} page(s) for the "
+                            f"{n}-page import")
+    pages = kv.allocator.allocate(n)
+    try:
+        new_arena = arena
+        off = 0
+        for block in snapshot.chunks:
+            cnt = int(block.shape[1])
+            new_arena = kv.import_pages(new_arena, pages[off:off + cnt], block)
+            off += cnt
+    except BaseException:
+        kv.allocator.free(pages)
+        raise
+    engine.cache = new_arena
+    seq = SequenceDescriptor(uid=uid, tokens=list(snapshot.tokens), pages=pages,
+                             seen_tokens=snapshot.seen_tokens)
+    engine.state.seqs[uid] = seq
+    engine._max_new[uid] = int(max_new_tokens)
+    # publish the imported full pages to the target's prefix cache: the
+    # decode replica becomes warm for affinity routing exactly as if it had
+    # prefilled the prompt itself
+    engine.state.note_progress(seq)
+    logger.debug(f"kvtransfer: imported uid={uid} ({n} pages, "
+                 f"{snapshot.n_bytes} bytes, source={snapshot.source})")
+    return seq
+
+
+# --------------------------------------------------------- prefix transfer
+#
+# The fleet prefix directory's hot-prefix import (docs/SERVING.md "Prefix
+# directory"): unlike a migration snapshot — one request's whole KV state,
+# consumed by resuming that request — a PREFIX snapshot carries only the
+# immutable FULL pages of a shared prompt prefix, and its consumer is the
+# target replica's PrefixCacheManager: the pages are adopted as cache
+# entries so the NEXT admission's match() attaches them, exactly as if the
+# target had prefilled the prompt itself.  Same staleness stance as the
+# migration ladder: every rejection falls back to recompute, never to
+# wrong KV.
+
+
+def export_prefix(engine, tokens: Sequence[int],
+                  source: Optional[str] = None) -> Optional["KVSnapshot"]:
+    """Stage the full prefix-cache pages ``engine`` holds for ``tokens``
+    device→host as a complete :class:`KVSnapshot` (tokens truncated to the
+    staged depth).  Returns None when the engine holds nothing usable —
+    the evict-after-publish staleness race: the directory promised warmth
+    the donor has since evicted, and the caller's recompute fallback owns
+    the request.  Read-only on the donor: no refcounts taken, no LRU
+    touched (the donor never sees this request).  The ``kv.export`` chaos
+    site fires once per staging, like a migration chunk.
+
+    When the donor has a host KV tier attached (``serving/kvtier``), the
+    staged run is EXTENDED with warm-on-host pages continuing the chain
+    past the device-held depth: those blocks are already host-side
+    (crc-verified on read), so a saturated-warm donor can serve the import
+    without touching its device arena at all."""
+    kv = engine.kv
+    pc = kv.prefix_cache
+    arena = engine.cache
+    if pc is None or arena_block_shape(arena) is None:
+        return None
+    pages = [page for _, page in pc._walk(tokens)]
+    tier = getattr(engine, "_kv_tier", None)
+    host_blocks = []
+    if tier is not None:
+        # the same usable cap _walk applies: never stage a page covering
+        # the final token (the importer must still compute >= 1 token)
+        max_depth = max(0, (len(tokens) - 1) // kv.page_size)
+        host_blocks = tier.host_prefix_blocks(tokens, start_depth=len(pages),
+                                              max_depth=max_depth)
+    if not pages and not host_blocks:
+        return None
+    _fi.check("kv.export")   # chaos site: torn/failed d2h staging
+    depth = len(pages) + len(host_blocks)
+    snapshot = KVSnapshot(
+        tokens=[int(t) for t in tokens[:depth * kv.page_size]],
+        seen_tokens=depth * kv.page_size, page_size=kv.page_size,
+        block_shape=arena_block_shape(arena), dtype=arena_dtype_name(arena),
+        source=source)
+    if pages:
+        snapshot.add_chunk(kv.export_pages(arena, pages))
+    for block in host_blocks:
+        snapshot.add_chunk(block)
+    snapshot.complete = True
+    return snapshot
+
+
+def import_prefix(engine, snapshot: "KVSnapshot") -> int:
+    """Adopt ``snapshot``'s full prefix pages into ``engine``'s prefix
+    cache: verify integrity, validate geometry, allocate pages for the
+    MISSING tail of the chain (pages the target already holds are skipped),
+    scatter host→device, and publish the chain entries so the next
+    admission's ``match()`` attaches them.  Returns pages imported (0 =
+    target already warm).  Raises a :class:`SnapshotError` subclass on any
+    rejection — the caller dispatches cold and the ordinary prefill
+    recomputes; torn staging is caught by ``verify()`` here, never decoded
+    into wrong KV.  On failure nothing leaks: pages are allocated after
+    every validation and freed if the scatter fails."""
+    _fi.check("prefix.import")   # chaos site: crash/device-loss mid-import
+    snapshot.verify()
+    kv = engine.kv
+    pc = kv.prefix_cache
+    arena = engine.cache
+    if pc is None:
+        raise KVImportError("target engine has no prefix cache")
+    _validate_arena(snapshot, kv, arena)
+    n = snapshot.n_pages
+    if n * kv.page_size != len(snapshot.tokens) \
+            or snapshot.seen_tokens != len(snapshot.tokens):
+        raise KVImportError(
+            f"prefix snapshot must carry exactly its full pages' tokens: "
+            f"{n} page(s) vs {len(snapshot.tokens)} token(s), seen "
+            f"{snapshot.seen_tokens}")
+    # pages the target already published are skipped — held entries along
+    # one chain are always a prefix run (register/adopt insert root→leaf,
+    # eviction removes leaves), so the missing set is a contiguous tail
+    have = pc.held_depth(snapshot.tokens)
+    if have >= n:
+        return 0
+    shortfall = (n - have) - kv.allocator.free_pages
+    if shortfall > 0:
+        pc.evict(shortfall)
+        # the LRU sweep may have evicted THIS chain's own held prefix —
+        # recompute the boundary, or the adopted tail would hang off a
+        # hole in the chain and match() could never reach it
+        have = pc.held_depth(snapshot.tokens)
+    missing = n - have
+    shortfall = missing - kv.allocator.free_pages
+    if shortfall > 0:
+        raise KVImportError(f"target arena short {shortfall} page(s) for the "
+                            f"{missing}-page prefix import")
+    block = snapshot.chunks[0] if len(snapshot.chunks) == 1 \
+        else np.concatenate(snapshot.chunks, axis=1)
+    pages = kv.allocator.allocate(missing)
+    try:
+        engine.cache = kv.import_pages(engine.cache, pages,
+                                       np.ascontiguousarray(block[:, have:n]))
+    except BaseException:
+        kv.allocator.free(pages)
+        raise
+    # ownership of the allocation's refcounts transfers to the cache
+    pc.adopt(snapshot.tokens, have, pages)
+    logger.debug(f"kvtransfer: prefix import of {missing} page(s) "
+                 f"(held {have}, source={snapshot.source})")
+    return missing

@@ -1,0 +1,203 @@
+"""Request lifecycle: the unit the SLA frontend schedules.
+
+Reference: FastGen's serving methodology (``blogs/deepspeed-fastgen`` —
+first-token + per-token SLAs under Poisson-arrival load) and Orca-style
+iteration-level scheduling.  The v2 engine itself only knows *sequences*
+(``inference/v2/ragged.py SequenceDescriptor``); a :class:`ServingRequest`
+is the envelope around one — arrival time, deadline, output budget, and a
+state machine the frontend drives:
+
+    QUEUED → PREFILL → DECODE → DONE
+       │        │         │
+       │        └→ EVICTED ┘→ QUEUED   (KV-pressure preemption; resume
+       │                  ▲             recomputes the generated tokens'
+       │                  │             KV from the extended prompt)
+       │            DECODE → PARKED → QUEUED  (kvtier: KV demoted to the
+       │                        │              host tier; resume promotes
+       │                        │              it back — no recompute)
+       │  {PREFILL|DECODE} → MIGRATING → MIGRATED  (KV handed off to
+       │                        │         another replica — kvtransfer;
+       │                        │         late-prefill pause = the
+       │                        │         DistServe boundary)
+       │                        └→ {PREFILL|DECODE}  (migration aborted:
+       │                                              resume in place)
+       └→ REJECTED                      (admission: queue full / infeasible)
+    any non-terminal → TIMED_OUT        (deadline passed)
+
+Terminal states: DONE, TIMED_OUT, REJECTED, MIGRATED.  EVICTED is
+transient — the frontend immediately requeues (or times out) the victim;
+it appears in the history so preemption events are auditable per request.
+MIGRATING is the host-staging window of a KV migration: the request's
+engine sequence is paused (pages byte-stable for chunked export) and the
+fleet router either hands it off (MIGRATED — the request continues on a
+decode replica), aborts back to DECODE, or loses it to preemption
+(EVICTED — recompute-on-resume, the migration's fallback ladder).
+PARKED is the tiered-KV idle state (docs/SERVING.md "Tiered KV"): the
+request left the engine with its KV demoted to the host tier; resume
+re-enqueues it and admission promotes the pages back device-side, falling
+back to recompute on any host-tier miss or fault.
+"""
+
+import dataclasses
+import enum
+from typing import Callable, List, Optional, Sequence, Tuple
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    PREFILL = "prefill"
+    DECODE = "decode"
+    MIGRATING = "migrating"   # paused for KV export (serving/kvtransfer)
+    PARKED = "parked"         # idle; KV demoted to the host tier (serving/kvtier)
+    DONE = "done"
+    EVICTED = "evicted"
+    TIMED_OUT = "timed_out"
+    REJECTED = "rejected"
+    MIGRATED = "migrated"     # handed off to another replica with its KV
+
+    @property
+    def terminal(self) -> bool:
+        return self in (RequestState.DONE, RequestState.TIMED_OUT,
+                        RequestState.REJECTED, RequestState.MIGRATED)
+
+
+_ALLOWED = {
+    RequestState.QUEUED: {RequestState.PREFILL, RequestState.TIMED_OUT, RequestState.REJECTED},
+    RequestState.PREFILL: {RequestState.DECODE, RequestState.EVICTED, RequestState.TIMED_OUT,
+                           RequestState.MIGRATING},
+    RequestState.DECODE: {RequestState.DONE, RequestState.EVICTED, RequestState.TIMED_OUT,
+                          RequestState.MIGRATING, RequestState.PARKED},
+    # an idle session parked mid-decode: its KV was demoted to the host
+    # tier and its engine sequence released; resume() re-enqueues it and
+    # admission promotes the host pages back (or recomputes on any
+    # host-tier fallback — slower, never wrong)
+    RequestState.PARKED: {RequestState.QUEUED, RequestState.TIMED_OUT},
+    # a migration can begin LATE IN PREFILL (the DistServe boundary: the
+    # final chunk + first-token sampling run on the decode replica, so the
+    # staging pause lands in TTFT, never TPOT) or mid-DECODE (short
+    # prompts whose whole prefill fit one chunk); an abort resumes the
+    # phase the pause interrupted
+    RequestState.MIGRATING: {RequestState.PREFILL, RequestState.DECODE,
+                             RequestState.MIGRATED,
+                             RequestState.EVICTED, RequestState.TIMED_OUT},
+    RequestState.EVICTED: {RequestState.QUEUED, RequestState.TIMED_OUT},
+    RequestState.DONE: set(),
+    RequestState.TIMED_OUT: set(),
+    RequestState.REJECTED: set(),
+    RequestState.MIGRATED: set(),
+}
+
+
+@dataclasses.dataclass
+class ServingRequest:
+    """One user request moving through the frontend.
+
+    ``tokens`` accumulates every generated token across preemptions: on
+    eviction the engine-side sequence (and its KV pages) is destroyed, but
+    the request keeps what it already produced and resumes by prefilling
+    ``prompt + tokens`` — greedy decode then continues with the identical
+    next token, so a preempted request's final output equals an
+    unpreempted run's.
+    """
+    uid: int
+    prompt: List[int]
+    arrival_ts: float
+    max_new_tokens: int
+    deadline: Optional[float] = None          # absolute timestamp, clock domain
+    priority: float = 0.0                     # lower = more urgent; FCFS within a class
+    stream: Optional[Callable] = None         # stream(request, new_tokens, ts)
+    state: RequestState = RequestState.QUEUED
+    admitted_ts: Optional[float] = None       # first admission only (queue-wait metric)
+    first_token_ts: Optional[float] = None
+    finish_ts: Optional[float] = None
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    preemptions: int = 0
+    reject_reason: Optional[str] = None
+    #: clock-seconds the client should wait before retrying a TRANSIENT
+    #: rejection (queue_full): the admission controller's queue-drain
+    #: estimate, not a blind backoff.  None on structural rejections —
+    #: retrying an infeasible request can never help.
+    retry_after: Optional[float] = None
+    history: List[Tuple[RequestState, float]] = dataclasses.field(default_factory=list)
+    # speculative decoding (inference/v2/spec): per-request opt-in/out
+    # (None = the engine's default — on whenever the engine carries a
+    # SpecConfig) and lifetime acceptance accounting, folded in from
+    # ``engine.last_spec_round`` each tick this request speculated
+    spec: Optional[bool] = None
+    spec_proposed: int = 0            # draft tokens fed to verify dispatches
+    spec_accepted: int = 0            # drafts the model's argmax confirmed
+    spec_rollback_pages: int = 0      # KV pages rolled back for rejected drafts
+    # host-staged KV state to import at admission instead of recomputing
+    # the prompt (serving/kvtransfer KVSnapshot, or a kvtier HostKVHandle
+    # naming an entry parked in the engine-local host tier; consumed — and
+    # cleared — on first admission whether the import succeeds or falls back)
+    kv_snapshot: Optional[object] = None
+    #: promotion transfer windows ``(t_start, t_ready)`` the host tier
+    #: charged this request (kvtier prefetch): telemetry carves them out of
+    #: the surrounding QUEUED interval as ``phase/promote`` spans, so a
+    #: resume's TTFT splits into queue wait vs h2d promotion
+    promote_windows: List[Tuple[float, float]] = dataclasses.field(default_factory=list)
+    #: telemetry label for PARKED intervals: "parked" for an idle-session
+    #: park, "tool_stall" when a session parked this request MID-GENERATION
+    #: awaiting a tool result (serving/sessions).  A phase label, not a
+    #: state — the PARKED machinery (demote/promote/resume ladder) is
+    #: identical; only span/why_slow attribution differs.
+    park_phase: str = "parked"
+
+    def __post_init__(self):
+        self.prompt = list(self.prompt)
+        self.history.append((self.state, self.arrival_ts))
+
+    def to(self, state: RequestState, ts: float) -> None:
+        if state not in _ALLOWED[self.state]:
+            raise ValueError(f"request {self.uid}: illegal transition "
+                             f"{self.state.value} -> {state.value}")
+        self.state = state
+        self.history.append((state, ts))
+
+    # ------------------------------------------------------------- metrics
+
+    @property
+    def remaining_new_tokens(self) -> int:
+        return max(0, self.max_new_tokens - len(self.tokens))
+
+    @property
+    def spec_acceptance(self) -> Optional[float]:
+        """Accepted / proposed draft tokens over this request's lifetime;
+        None if it never speculated (spec off, or no draftable history)."""
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Time to first token, from ARRIVAL (queue wait included — the
+        user-visible latency, the quantity FastGen's first-token SLA bounds)."""
+        if self.first_token_ts is None:
+            return None
+        return self.first_token_ts - self.arrival_ts
+
+    @property
+    def tpot(self) -> Optional[float]:
+        """Time per output token after the first (the per-token SLA)."""
+        if self.first_token_ts is None or self.finish_ts is None or len(self.tokens) < 2:
+            return None
+        return (self.finish_ts - self.first_token_ts) / (len(self.tokens) - 1)
+
+    @property
+    def queue_wait(self) -> Optional[float]:
+        if self.admitted_ts is None:
+            return None
+        return self.admitted_ts - self.arrival_ts
+
+    @property
+    def met_deadline(self) -> bool:
+        """Completed AND within deadline — the goodput numerator."""
+        if self.state is not RequestState.DONE:
+            return False
+        return self.deadline is None or self.finish_ts <= self.deadline
+
+    def engine_tokens(self) -> List[int]:
+        """The token list to (re)admit into the engine: original prompt plus
+        everything generated before any preemption (recompute-on-resume)."""
+        return list(self.prompt) + list(self.tokens)

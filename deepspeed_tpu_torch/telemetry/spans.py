@@ -1,0 +1,164 @@
+"""Phase-span derivation: turn a request's state history into trace spans.
+
+The serving layers already keep an exact, timestamped state history per
+request (``ServingRequest.history`` / ``FleetRequest.history``) — the
+tracer does not shadow it with live open/close bookkeeping on the hot
+path.  Instead, when a request (or a failed-over replica attempt) ends,
+its history is folded into contiguous **phase spans** here:
+
+    queued    — QUEUED (admission queue, preemption requeue, backoff)
+    prefill   — PREFILL (prompt + recompute-on-resume KV build)
+    decode    — DECODE
+    migrating — MIGRATING (paused for chunked KV export — the per-request
+                migration cost of disaggregated serving)
+    pending   — fleet-level router queue time (before dispatch, between
+                failover displacement and re-dispatch)
+
+Phase spans TILE the request's lifetime exactly — consecutive history
+entries share boundary timestamps — which is the property
+``scripts/trace_report.py`` verifies against the recorded TTFT/TPOT
+accounting (sum of phases == ttft + tpot*(n-1) == e2e for completed
+requests).  ``clamp_start`` exists for resumed fleet attempts: their
+``ServingRequest.arrival_ts`` is backdated to the CLIENT arrival (so
+replica-side aging/deadlines stay correct), but the attempt's spans must
+start at its dispatch or they would double-count the previous attempt's
+time."""
+
+from typing import List, Optional, Tuple
+
+from ..serving.request import RequestState, ServingRequest
+from .trace import Span, Tracer
+
+__all__ = ["PHASE_OF_STATE", "phase_intervals", "emit_attempt_spans"]
+
+# RequestState -> phase name; EVICTED is transient (the requeue lands at
+# the same timestamp) but named so a non-zero-length eviction window —
+# e.g. a future async release — would still be visible, not silently
+# merged into queue time.
+PHASE_OF_STATE = {
+    RequestState.QUEUED: "queued",
+    RequestState.PREFILL: "prefill",
+    RequestState.DECODE: "decode",
+    RequestState.EVICTED: "evicted",
+    # host-staging window of a KV migration (serving/kvtransfer): the
+    # request is paused on the source replica while its pages export — the
+    # per-request migration cost the disaggregation bench accounts for
+    RequestState.MIGRATING: "migrating",
+    # idle session with its KV demoted to the host tier (serving/kvtier):
+    # zero device pages held; ends at resume() re-enqueue
+    RequestState.PARKED: "parked",
+}
+
+
+def _carve_promote(intervals: List[Tuple[str, float, float]],
+                   windows: List[Tuple[float, float]]
+                   ) -> List[Tuple[str, float, float]]:
+    """Carve h2d promotion transfer windows (``ServingRequest.
+    promote_windows``) out of the ``parked``/``queued`` intervals they
+    overlap, as ``promote`` pieces.  The pieces PARTITION each original
+    interval (tiling preserved exactly): a resume's TTFT then splits into
+    genuine queue wait vs promotion transfer instead of lumping both into
+    ``queued``.  Windows never overlap other phases — the engine stalls
+    admission until ``t_ready`` before stamping PREFILL."""
+    if not windows:
+        return intervals
+    # merge overlapping/adjacent windows (seq + prefix promotes can abut)
+    merged: List[List[float]] = []
+    for w0, w1 in sorted(windows):
+        if merged and w0 <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], w1)
+        else:
+            merged.append([w0, w1])
+    out: List[Tuple[str, float, float]] = []
+    for phase, t0, t1 in intervals:
+        if phase not in ("parked", "tool_stall", "queued"):
+            out.append((phase, t0, t1))
+            continue
+        cur = t0
+        for w0, w1 in merged:
+            lo, hi = max(cur, w0), min(t1, w1)
+            if hi <= lo:
+                continue
+            if lo > cur:
+                out.append((phase, cur, lo))
+            out.append(("promote", lo, hi))
+            cur = hi
+        if t1 > cur:
+            out.append((phase, cur, t1))
+    return out
+
+
+def phase_intervals(history: List[Tuple[RequestState, float]],
+                    end_ts: Optional[float] = None,
+                    clamp_start: Optional[float] = None,
+                    tail_phase: Optional[str] = None,
+                    park_phase: str = "parked"
+                    ) -> List[Tuple[str, float, float]]:
+    """Fold a state history into ``(phase, t0, t1)`` intervals.
+
+    ``end_ts`` closes the last non-terminal state (required for displaced
+    attempts whose history never reached a terminal entry); terminal
+    entries are points and close the walk.  Zero-length intervals are
+    dropped.  ``clamp_start`` clips every interval's start (see module
+    docstring).
+
+    ``tail_phase`` relabels the OPEN tail — the stretch from the last
+    recorded transition to ``end_ts`` — with a caller-supplied phase
+    name.  The fleet router uses ``"fenced"`` for lease-expired/fenced
+    attempts: the router credits the phases it observed up to the last
+    transition it could know about, and attributes the remainder of the
+    attempt window — work served outside the replica's lease, later
+    discarded by the fence — to ``phase/fenced``, so transport-mode
+    traces still tile [arrival, terminal] exactly
+    (scripts/trace_report.py).
+
+    ``park_phase`` relabels PARKED intervals (``ServingRequest.
+    park_phase``): ``"tool_stall"`` when a session parked the request
+    mid-generation awaiting a tool result — same machinery, different
+    attribution (a tool stall is the AGENT's latency, an idle park the
+    user's think time)."""
+    out: List[Tuple[str, float, float]] = []
+    for i, (state, ts) in enumerate(history):
+        if state.terminal:
+            break
+        open_tail = i + 1 >= len(history)
+        if not open_tail:
+            nxt = history[i + 1][1]
+        elif end_ts is not None:
+            nxt = end_ts
+        else:
+            break  # open-ended non-terminal tail with no close time: skip
+        t0 = ts if clamp_start is None else max(ts, clamp_start)
+        if nxt > t0 and state in PHASE_OF_STATE:
+            if open_tail and tail_phase is not None:
+                phase = tail_phase
+            elif state is RequestState.PARKED:
+                phase = park_phase
+            else:
+                phase = PHASE_OF_STATE[state]
+            out.append((phase, t0, nxt))
+    return out
+
+
+def emit_attempt_spans(tracer: Tracer, req: ServingRequest, trace_id: int,
+                       parent_id: Optional[int], track: str,
+                       end_ts: Optional[float] = None,
+                       clamp_start: Optional[float] = None,
+                       tail_phase: Optional[str] = None) -> List[Span]:
+    """Materialize one serving attempt's phase spans (children of
+    ``parent_id``) plus its preemption span events.  Used by the serving
+    frontend at request terminal and by the fleet router for the partial
+    attempt a replica death (or lease expiry — ``tail_phase="fenced"``)
+    displaced."""
+    spans = []
+    intervals = phase_intervals(req.history, end_ts=end_ts,
+                                clamp_start=clamp_start,
+                                tail_phase=tail_phase,
+                                park_phase=getattr(req, "park_phase",
+                                                   "parked"))
+    intervals = _carve_promote(intervals,
+                               getattr(req, "promote_windows", None) or [])
+    for phase, t0, t1 in intervals:
+        spans.append(tracer.add_span(f"phase/{phase}", trace_id, t0, t1,
+                                     parent_id=parent_id, track=track))
+    return spans

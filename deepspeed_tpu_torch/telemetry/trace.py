@@ -1,0 +1,284 @@
+"""Deterministic distributed tracing over the pluggable serving clock.
+
+One trace follows one unit of work end-to-end — a training step through
+its fwd/bwd/optim (and streamed-optimizer upload/compute/download)
+phases, or a serving request from fleet submission through per-replica
+attempts, preemptions and failover to its terminal state.  Spans form a
+tree per ``trace_id``: each has a ``span_id``, optional ``parent_id``, a
+``track`` (the Chrome-trace thread it renders on: ``router``,
+``replica0`` ...), attributes, and point-in-time events.
+
+Two properties distinguish this from a wall-clock tracer:
+
+* **Pluggable clock** — timestamps come from whatever object exposes
+  ``now()``: ``VirtualClock`` / ``ReplicaClockView`` (deterministic
+  simulation time) or ``WallClock`` / the default perf-counter clock
+  (real time).  A :class:`~..serving.fleet.sim.FleetSimulator` run on a
+  seeded workload therefore produces a **bit-reproducible** trace — the
+  exported Chrome JSON is byte-identical across runs and machines, which
+  turns traces into regression artifacts instead of debugging ephemera.
+* **Deterministic ids** — ``trace_id`` / ``span_id`` are per-tracer
+  monotonic counters, not random 128-bit ids; same program order, same
+  ids.
+
+Overhead contract: the disabled path (:data:`NULL_TRACER`) allocates
+NOTHING per call — every method returns the shared :data:`NULL_SPAN`
+singleton, so instrumented hot loops (per-token delivery) cost one
+attribute read + one predicate when tracing is off.  The test suite pins
+this with tracemalloc.
+"""
+
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+__all__ = ["Span", "SpanEvent", "Tracer", "NullTracer", "NULL_SPAN", "NULL_TRACER",
+           "PerfClock"]
+
+
+class PerfClock:
+    """Default tracer clock: ``time.perf_counter`` zeroed at construction
+    (matches WallClock's small-comparable-timestamps convention)."""
+
+    def __init__(self):
+        self._t0 = time.perf_counter()
+
+    def now(self) -> float:
+        return time.perf_counter() - self._t0
+
+
+SpanEvent = Tuple[str, float, Optional[dict]]  # (name, ts, attrs)
+
+
+class Span:
+    """One timed operation.  Mutable until :meth:`Tracer.end`; ``end_ts``
+    is None while open."""
+
+    __slots__ = ("name", "trace_id", "span_id", "parent_id", "track",
+                 "start_ts", "end_ts", "attrs", "events")
+
+    def __init__(self, name: str, trace_id: int, span_id: int,
+                 parent_id: Optional[int], track: str, start_ts: float,
+                 attrs: Optional[dict] = None):
+        self.name = name
+        self.trace_id = trace_id
+        self.span_id = span_id
+        self.parent_id = parent_id
+        self.track = track
+        self.start_ts = start_ts
+        self.end_ts: Optional[float] = None
+        self.attrs: Dict[str, Any] = dict(attrs) if attrs else {}
+        self.events: List[SpanEvent] = []
+
+    # -- convenience mutators (no-ops on NULL_SPAN via subclass) ----------
+
+    def set(self, **attrs) -> "Span":
+        self.attrs.update(attrs)
+        return self
+
+    def event(self, name: str, ts: float, attrs: Optional[dict] = None) -> "Span":
+        self.events.append((name, ts, dict(attrs) if attrs else None))
+        return self
+
+    @property
+    def duration(self) -> Optional[float]:
+        return None if self.end_ts is None else self.end_ts - self.start_ts
+
+    def __repr__(self):
+        return (f"Span({self.name!r}, trace={self.trace_id}, id={self.span_id}, "
+                f"parent={self.parent_id}, track={self.track!r}, "
+                f"[{self.start_ts}, {self.end_ts}])")
+
+
+class _NullSpan(Span):
+    """Shared inert span: every mutator is a no-op returning self, so
+    ``tracer.start_span(...).set(...).event(...)`` chains are safe (and
+    allocation-free) when tracing is disabled."""
+
+    def __init__(self):
+        super().__init__("null", 0, 0, None, "null", 0.0)
+
+    def set(self, **attrs) -> "Span":
+        return self
+
+    def event(self, name, ts, attrs=None) -> "Span":
+        return self
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _SpanCtx:
+    """Context manager wrapper from :meth:`Tracer.span`."""
+
+    __slots__ = ("_tracer", "span")
+
+    def __init__(self, tracer: "Tracer", span: Span):
+        self._tracer = tracer
+        self.span = span
+
+    def __enter__(self) -> Span:
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc is not None:
+            self.span.attrs.setdefault("error", f"{exc_type.__name__}: {exc}")
+        self._tracer.end(self.span)
+
+
+class Tracer:
+    """Span collector with deterministic ids and a pluggable clock.
+
+    ``clock``: any object with ``now() -> float`` (VirtualClock,
+    WallClock, ReplicaClockView, :class:`PerfClock`).  ``max_spans``
+    bounds retention: past it the OLDEST finished spans are dropped and
+    counted in ``dropped_spans`` (a long-lived wall-clock server must not
+    grow without bound; exporters report the loss instead of hiding it).
+    """
+
+    enabled = True
+
+    def __init__(self, clock=None, max_spans: int = 100_000, recorder=None):
+        self.clock = clock if clock is not None else PerfClock()
+        self.max_spans = int(max_spans)
+        #: optional retention sink (telemetry/flight_recorder.py): every
+        #: FINISHED span is mirrored into the recorder's bounded per-track
+        #: ring as it retains here, so crash-scoped dumps still hold the
+        #: recent request phases after this tracer's own retention (or a
+        #: clear()) let them go.  None = no mirroring (zero overhead).
+        self.recorder = recorder
+        # bounded deque: retention eviction is O(1) per span even once the
+        # cap is reached (a list's del spans[:1] would memmove max_spans
+        # entries per append on exactly the long-lived-server path the cap
+        # exists for); finished spans, materialization order
+        self.spans = deque(maxlen=self.max_spans if self.max_spans > 0 else None)
+        self.dropped_spans = 0
+        self._next_span = 1
+        self._next_trace = 1
+
+    # ------------------------------------------------------------- ids
+
+    def new_trace_id(self) -> int:
+        tid = self._next_trace
+        self._next_trace += 1
+        return tid
+
+    def reserve_span_id(self) -> int:
+        """Allocate a span id without materializing the span — callers
+        that parent children before the parent's extent is known (a fleet
+        attempt span, closed only when the attempt ends) reserve the id
+        up front and materialize via :meth:`add_span` later."""
+        sid = self._next_span
+        self._next_span += 1
+        return sid
+
+    # ------------------------------------------------------------ spans
+
+    def now(self) -> float:
+        return self.clock.now()
+
+    def start_span(self, name: str, trace_id: Optional[int] = None,
+                   parent: Optional[Span] = None, parent_id: Optional[int] = None,
+                   track: str = "main", start_ts: Optional[float] = None,
+                   attrs: Optional[dict] = None) -> Span:
+        if parent is not None and parent is not NULL_SPAN:
+            trace_id = trace_id if trace_id is not None else parent.trace_id
+            parent_id = parent_id if parent_id is not None else parent.span_id
+        if trace_id is None:
+            trace_id = self.new_trace_id()
+        return Span(name, trace_id, self.reserve_span_id(), parent_id, track,
+                    self.clock.now() if start_ts is None else start_ts, attrs)
+
+    def end(self, span: Span, end_ts: Optional[float] = None) -> Span:
+        if span is NULL_SPAN:
+            return span
+        span.end_ts = self.clock.now() if end_ts is None else end_ts
+        if span.end_ts < span.start_ts:  # clock-domain mixups must not
+            span.end_ts = span.start_ts  # produce negative durations
+        self._retain(span)
+        return span
+
+    def span(self, name: str, **kw) -> _SpanCtx:
+        """``with tracer.span("engine/step", track="engine") as s:`` —
+        ends (and retains) the span on exit, tagging exceptions."""
+        return _SpanCtx(self, self.start_span(name, **kw))
+
+    def add_span(self, name: str, trace_id: int, start_ts: float, end_ts: float,
+                 parent_id: Optional[int] = None, span_id: Optional[int] = None,
+                 track: str = "main", attrs: Optional[dict] = None,
+                 events: Optional[List[SpanEvent]] = None) -> Span:
+        """Materialize a finished span retroactively (timestamps already
+        known — e.g. phase spans derived from a request's state history at
+        terminal time).  ``span_id`` accepts a previously reserved id."""
+        span = Span(name, trace_id, span_id if span_id is not None
+                    else self.reserve_span_id(), parent_id, track, start_ts, attrs)
+        span.end_ts = max(end_ts, start_ts)
+        if events:
+            span.events.extend(events)
+        self._retain(span)
+        return span
+
+    def _retain(self, span: Span) -> None:
+        if self.spans.maxlen is not None and len(self.spans) == self.spans.maxlen:
+            self.dropped_spans += 1  # the deque evicts the oldest span
+        self.spans.append(span)
+        if self.recorder is not None:
+            self.recorder.observe(span)
+
+    # ---------------------------------------------------------- queries
+
+    def finished(self, trace_id: Optional[int] = None) -> List[Span]:
+        if trace_id is None:
+            return list(self.spans)
+        return [s for s in self.spans if s.trace_id == trace_id]
+
+    def clear(self) -> None:
+        self.spans.clear()
+
+
+class NullTracer:
+    """Disabled tracer: every method returns a shared singleton and
+    allocates nothing.  ``enabled`` is the one-predicate guard hot paths
+    use to skip even building attribute dicts."""
+
+    enabled = False
+    spans: tuple = ()
+    dropped_spans = 0
+    recorder = None
+
+    def new_trace_id(self) -> int:
+        return 0
+
+    def reserve_span_id(self) -> int:
+        return 0
+
+    def now(self) -> float:
+        return 0.0
+
+    def start_span(self, *a, **kw) -> Span:
+        return NULL_SPAN
+
+    def end(self, span, end_ts=None) -> Span:
+        return NULL_SPAN
+
+    def span(self, *a, **kw) -> "NullTracer":
+        return self
+
+    def add_span(self, *a, **kw) -> Span:
+        return NULL_SPAN
+
+    def finished(self, trace_id=None) -> tuple:
+        return ()
+
+    def clear(self) -> None:
+        pass
+
+    # context-manager protocol so ``with tracer.span(...)`` works disabled
+    def __enter__(self) -> Span:
+        return NULL_SPAN
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+NULL_TRACER = NullTracer()

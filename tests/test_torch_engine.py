@@ -163,8 +163,12 @@ def test_port_engine_counts_forwards_and_rejects_unported_options(weights):
     for bad in ({"tensor_parallel": 2}, {"spec": object()}):
         with pytest.raises(NotImplementedError):
             build_engine(TCFG, state, RaggedInferenceEngineConfig(**bad), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.kv.export_pages(eng.cache, [1])
+    # KV staging is ported (tests/test_torch_serving_kv_migration.py): it
+    # stages a real page and refuses the reserved null page
+    assert eng.kv.export_pages(eng.cache, [1]).shape == (TCFG.num_hidden_layers, 1, KV["page_size"], 2,
+                                                          TCFG.num_key_value_heads, TCFG.head_dim)
+    with pytest.raises(ValueError, match="out of range"):
+        eng.kv.export_pages(eng.cache, [0])
 
 
 def test_configs_mirror_jax_fields():

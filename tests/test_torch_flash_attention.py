@@ -137,3 +137,24 @@ def test_dispatch_masked_paths_match_jax():
     want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), causal=True, sliding_window=48, interpret=True)
     got = tfa.flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True, sliding_window=48)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+NEGATIVE_OFFSET_CALLS = {
+    "flash_fwd_cuda": lambda q, k, v, o, lse, do: tfa.flash_fwd_cuda(q, k, v, True, -64),
+    "flash_dq_cuda": lambda q, k, v, o, lse, do: tfa.flash_dq_cuda(q, k, v, o, lse, do, True, -64),
+    "flash_dkv_cuda": lambda q, k, v, o, lse, do: tfa.flash_dkv_cuda(q, k, v, do, lse, lse, True, -64),
+    "flash_fwd": lambda q, k, v, o, lse, do: tfa.flash_fwd(q, k, v, True, -64),
+    "flash_bwd": lambda q, k, v, o, lse, do: tfa.flash_bwd(q, k, v, o, lse, do, True, -64),
+    "flash_attention": lambda q, k, v, o, lse, do: tfa.flash_attention(q, k, v, causal=True, q_position_offset=-64),
+}
+
+
+@pytest.mark.parametrize("name", list(NEGATIVE_OFFSET_CALLS))
+def test_negative_q_offset_is_rejected(name):
+    """Causal rows with ``q_offset < 0`` see no key; the routes do not define
+    them alike (JAX's table gives their block no kv block, the plain version
+    attends uniformly), so every wrapper raises before any launch."""
+    q, k, v, do = map(torch.from_numpy, _inputs(sq=128, sk=128))
+    o, lse = tfa.flash_fwd_plain(q, k, v, True, 0)
+    with pytest.raises(ValueError, match="q_offset must be >= 0"):
+        NEGATIVE_OFFSET_CALLS[name](q, k, v, o, lse, do)

@@ -46,6 +46,28 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.quant_kernels",
     "deepspeed_tpu_torch.runtime.comm",
     "deepspeed_tpu_torch.runtime.comm.compressed",
+    "deepspeed_tpu_torch.resilience",
+    "deepspeed_tpu_torch.resilience.events",
+    "deepspeed_tpu_torch.resilience.fault_injection",
+    "deepspeed_tpu_torch.resilience.retry",
+    "deepspeed_tpu_torch.telemetry",
+    "deepspeed_tpu_torch.telemetry.trace",
+    "deepspeed_tpu_torch.telemetry.step_anatomy",
+    "deepspeed_tpu_torch.telemetry.spans",
+    "deepspeed_tpu_torch.serving",
+    "deepspeed_tpu_torch.serving.request",
+    "deepspeed_tpu_torch.serving.clock",
+    "deepspeed_tpu_torch.serving.metrics",
+    "deepspeed_tpu_torch.serving.admission",
+    "deepspeed_tpu_torch.serving.kv_pressure",
+    "deepspeed_tpu_torch.serving.engine",
+    "deepspeed_tpu_torch.serving.kvtransfer",
+    "deepspeed_tpu_torch.serving.kvtransfer.snapshot",
+    "deepspeed_tpu_torch.serving.kvtier",
+    "deepspeed_tpu_torch.serving.kvtier.tier",
+    "deepspeed_tpu_torch.serving.sessions",
+    "deepspeed_tpu_torch.serving.sessions.session",
+    "deepspeed_tpu_torch.serving.sessions.manager",
 ]
 
 _PROBE = """

@@ -28,7 +28,12 @@ the engine's qgZ and LoCo steps), against the JAX package on a
   (f) stage 2 over two ranks raises; qgZ with gas 2 warns once and runs the
       float32 wire;
   (g) a qgZ step makes 4 collectives for the wire (2 all-to-alls, 2
-      all-gathers) besides its loss and norm all-reduces.
+      all-gathers) besides its loss and norm all-reduces;
+  (h) the collectives of (a) at W = 3 (three ranks, three CPU devices),
+      where the mean's sum · fl(1/3) and a true divide by 3 differ, and
+      ``comm.all_reduce(AVG)`` against JAX's eager ``pmean``; on a card,
+      three ranks sharing it: the grouped exchange against the per-tensor
+      route, and AVG against SUM then a divide by a tensor, bit for bit.
 
 Each test spawns its ranks (``torch.multiprocessing``, spawn) that
 rendezvous through a file under ``tmp_path``; the rank functions are in this
@@ -51,11 +56,11 @@ RANK_TIMEOUT_S = 240
 LR, STEPS, BATCH, SEQ = 1e-3, 3, 8, 32
 
 
-def _rank_entry(rank, init_method, fn, args, queue):
+def _rank_entry(rank, world, init_method, fn, args, queue):
     import deepspeed_tpu_torch.comm.comm as comm
     torch.set_num_threads(2)
     try:
-        comm.init_distributed(dist_backend="gloo", init_method=init_method, rank=rank, world_size=WORLD,
+        comm.init_distributed(dist_backend="gloo", init_method=init_method, rank=rank, world_size=world,
                               timeout=RANK_TIMEOUT_S // 2, verbose=False)
         queue.put((rank, fn(rank, *args), None))
     except BaseException:
@@ -66,18 +71,18 @@ def _rank_entry(rank, init_method, fn, args, queue):
             torch.distributed.destroy_process_group()
 
 
-def run_ranks(tmp_dir, fn, *args):
-    """``fn(rank, *args)`` on each of two gloo ranks; returns their results
-    in rank order, or raises with a failed rank's traceback."""
+def run_ranks(tmp_dir, fn, *args, world=WORLD):
+    """``fn(rank, *args)`` on each of ``world`` gloo ranks; returns their
+    results in rank order, or raises with a failed rank's traceback."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     init = f"file://{tmp_dir}/rendezvous"
-    procs = [ctx.Process(target=_rank_entry, args=(r, init, fn, args, queue)) for r in range(WORLD)]
+    procs = [ctx.Process(target=_rank_entry, args=(r, world, init, fn, args, queue)) for r in range(world)]
     for p in procs:
         p.start()
     results = {}
     try:
-        for _ in range(WORLD):
+        for _ in range(world):
             rank, out, err = queue.get(timeout=RANK_TIMEOUT_S)
             if err is not None:
                 raise AssertionError(f"rank {rank} failed:\n{err}")
@@ -88,49 +93,61 @@ def run_ranks(tmp_dir, fn, *args):
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=10)
-    assert [p.exitcode for p in procs] == [0] * WORLD
-    return [results[r] for r in range(WORLD)]
+    assert [p.exitcode for p in procs] == [0] * world
+    return [results[r] for r in range(world)]
 
 
 # ---------------------------------------------------------------- (a) collectives
 
-#: name → (function, bits, elements per rank, with an error state)
-COLLECTIVES = {
-    f"{fn}-int{bits}": (fn, bits, n, err)
-    for bits in (8, 4)
-    for fn, n, err in (("all_to_all_quant_reduce", 3 * WORLD * 256, False), ("quantized_all_gather", 3 * 256, False),
-                       ("padded_quant_allreduce", 1000, False), ("padded_quant_allreduce_error", 1000, True),
-                       ("loco_all_to_all_quant_reduce", 2 * WORLD * 256, True))
-}
 #: the tensors of the grouped exchange (int8 only): sizes that need padding,
 #: 2-D shapes, and an all-zero tensor (the last)
 GROUPED_SHAPES = ((768, ), (40, 25), (64, 64), (256, 256), (3, 100))
-GROUPED_SIZES = [math.prod(s) for s in GROUPED_SHAPES]
-COLLECTIVES.update({f"{fn}-int8": (fn, 8, sum(GROUPED_SIZES), err)
-                    for fn, err in (("grouped_quant_allreduce", False), ("grouped_quant_allreduce_error", True))})
+#: the same without the 256 × 256 tensor, for W = 3 (the eager JAX reference
+#: takes seconds per thousand blocks)
+GROUPED_SHAPES_SMALL = ((768, ), (40, 25), (64, 64), (3, 100))
 
 
-def _collective_inputs(name):
-    """Per-rank gradients ``[WORLD, n]`` with block scales from 1e-4 to 1e2,
+def _collective_table(world, grouped_shapes):
+    """name → (function, bits, elements per rank, with an error state, the
+    grouped exchange's shapes or None) at ``world`` ranks."""
+    table = {
+        f"{fn}-int{bits}": (fn, bits, n, err, None)
+        for bits in (8, 4)
+        for fn, n, err in (("all_to_all_quant_reduce", 3 * world * 256, False), ("quantized_all_gather", 3 * 256, False),
+                           ("padded_quant_allreduce", 1000, False), ("padded_quant_allreduce_error", 1000, True),
+                           ("loco_all_to_all_quant_reduce", 2 * world * 256, True))
+    }
+    table.update({f"{fn}-int8": (fn, 8, sum(math.prod(s) for s in grouped_shapes), err, grouped_shapes)
+                  for fn, err in (("grouped_quant_allreduce", False), ("grouped_quant_allreduce_error", True))})
+    return table
+
+
+COLLECTIVES = _collective_table(WORLD, GROUPED_SHAPES)
+#: W = 3: a mean over 3 copies is where sum / 3 and sum · fl(1/3) differ
+COLLECTIVES_W3 = _collective_table(3, GROUPED_SHAPES_SMALL)
+
+
+def _collective_inputs(spec, world=WORLD):
+    """Per-rank gradients ``[world, n]`` with block scales from 1e-4 to 1e2,
     and an error state (or None)."""
-    fn, bits, n, err = COLLECTIVES[name]
+    fn, bits, n, err, shapes = spec
     rng = np.random.default_rng(bits * 100 + n)
-    scales = np.repeat(10.0**rng.uniform(-4, 2, size=(WORLD, -(-n // 64))), 64, axis=1)[:, :n]
-    x = (rng.normal(size=(WORLD, n)) * scales).astype(np.float32)
+    scales = np.repeat(10.0**rng.uniform(-4, 2, size=(world, -(-n // 64))), 64, axis=1)[:, :n]
+    x = (rng.normal(size=(world, n)) * scales).astype(np.float32)
     if fn.startswith("grouped"):
-        x[:, -GROUPED_SIZES[-1]:] = 0.0
-    e = (rng.normal(size=(WORLD, n)) * 1e-2).astype(np.float32) if err else None
+        x[:, -math.prod(shapes[-1]):] = 0.0
+    e = (rng.normal(size=(world, n)) * 1e-2).astype(np.float32) if err else None
     return x, e
 
 
-def _grouped(flat):
+def _grouped(flat, shapes):
     """A rank's flat ``[n]`` as the grouped exchange's list of tensors."""
-    return [t.reshape(s) for t, s in zip(flat.split(GROUPED_SIZES), GROUPED_SHAPES)]
+    return [t.reshape(s) for t, s in zip(flat.split([math.prod(s) for s in shapes]), shapes)]
 
 
-def _port_collective(name, x, e):
+def _port_collective(spec, x, e):
     from deepspeed_tpu_torch.runtime.comm import compressed as tc
-    fn, bits, _, _ = COLLECTIVES[name]
+    fn, bits, _, _, shapes = spec
     x = torch.from_numpy(x)
     e = None if e is None else torch.from_numpy(e)
     if fn == "all_to_all_quant_reduce":
@@ -142,32 +159,33 @@ def _port_collective(name, x, e):
     elif fn == "padded_quant_allreduce_error":
         out = tc.padded_quant_allreduce(x, bits=bits, error=e, err_beta=0.8)
     elif fn == "grouped_quant_allreduce":
-        wire = tc.GroupedQuantAllreduce(GROUPED_SHAPES, x.dtype, bits=bits)
-        out = torch.cat([t.reshape(-1) for t in wire(_grouped(x))])
+        wire = tc.GroupedQuantAllreduce(shapes, x.dtype, bits=bits)
+        out = torch.cat([t.reshape(-1) for t in wire(_grouped(x, shapes))])
     elif fn == "grouped_quant_allreduce_error":
-        wire = tc.GroupedQuantAllreduce(GROUPED_SHAPES, x.dtype, bits=bits)
-        full, err = wire(_grouped(x), errors=_grouped(e), err_beta=0.8)
+        wire = tc.GroupedQuantAllreduce(shapes, x.dtype, bits=bits)
+        full, err = wire(_grouped(x, shapes), errors=_grouped(e, shapes), err_beta=0.8)
         out = tuple(torch.cat([t.reshape(-1) for t in ts]) for ts in (full, err))
     else:
         out = tc.loco_all_to_all_quant_reduce(x, e, bits=bits, err_beta=0.8)
     return [t.numpy() for t in (out if isinstance(out, tuple) else (out, ))]
 
 
-def _collectives_rank(rank, inputs):
-    return {name: _port_collective(name, x[rank], None if e is None else e[rank]) for name, (x, e) in inputs.items()}
+def _collectives_rank(rank, table, inputs):
+    return {name: _port_collective(table[name], x[rank], None if e is None else e[rank])
+            for name, (x, e) in inputs.items()}
 
 
-def _jax_collective(name, x, e):
-    """The JAX function under an eager (op by op) shard_map over data=2:
-    outputs ``[WORLD, ...]``."""
+def _jax_collective(spec, x, e, world=WORLD):
+    """The JAX function under an eager (op by op) shard_map over ``world``
+    CPU devices: outputs ``[world, ...]``."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
 
     from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
     from deepspeed_tpu.runtime.comm import compressed as jc
-    fn, bits, _, _ = COLLECTIVES[name]
-    mesh = create_mesh(MeshSpec(data=WORLD), devices=jax.devices()[:WORLD])
+    fn, bits, _, _, shapes = spec
+    mesh = create_mesh(MeshSpec(data=world), devices=jax.devices()[:world])
 
     def body(xs, es):
         xv, ev = xs[0], es[0]
@@ -176,16 +194,16 @@ def _jax_collective(name, x, e):
         elif fn == "quantized_all_gather":
             out = jc.quantized_all_gather(xv, "data", bits=bits)
         elif fn == "padded_quant_allreduce":
-            out = jc.padded_quant_allreduce(xv, "data", WORLD, bits=bits)
+            out = jc.padded_quant_allreduce(xv, "data", world, bits=bits)
         elif fn == "padded_quant_allreduce_error":
-            out = jc.padded_quant_allreduce(xv, "data", WORLD, bits=bits, error=ev, err_beta=0.8)
+            out = jc.padded_quant_allreduce(xv, "data", world, bits=bits, error=ev, err_beta=0.8)
         elif fn.startswith("grouped"):   # the JAX engine's tree.map of padded_quant_allreduce
-            starts = np.cumsum([0] + GROUPED_SIZES)
-            pieces = [(xv[a:b].reshape(s), ev[a:b].reshape(s)) for a, b, s in zip(starts, starts[1:], GROUPED_SHAPES)]
+            starts = np.cumsum([0] + [math.prod(s) for s in shapes])
+            pieces = [(xv[a:b].reshape(s), ev[a:b].reshape(s)) for a, b, s in zip(starts, starts[1:], shapes)]
             if fn == "grouped_quant_allreduce":
-                out = jnp.concatenate([jc.padded_quant_allreduce(xt, "data", WORLD).reshape(-1) for xt, _ in pieces])
+                out = jnp.concatenate([jc.padded_quant_allreduce(xt, "data", world).reshape(-1) for xt, _ in pieces])
             else:
-                pairs = [jc.padded_quant_allreduce(xt, "data", WORLD, error=et, err_beta=0.8) for xt, et in pieces]
+                pairs = [jc.padded_quant_allreduce(xt, "data", world, error=et, err_beta=0.8) for xt, et in pieces]
                 out = tuple(jnp.concatenate([p[i].reshape(-1) for p in pairs]) for i in range(2))
         else:
             out = jc.loco_all_to_all_quant_reduce(xv, ev, "data", bits=bits, err_beta=0.8)
@@ -197,19 +215,118 @@ def _jax_collective(name, x, e):
 
 @pytest.fixture(scope="module")
 def collective_results(tmp_path_factory):
-    inputs = {name: _collective_inputs(name) for name in COLLECTIVES}
-    return inputs, run_ranks(tmp_path_factory.mktemp("qgz_collectives"), _collectives_rank, inputs)
+    inputs = {name: _collective_inputs(spec) for name, spec in COLLECTIVES.items()}
+    return inputs, run_ranks(tmp_path_factory.mktemp("qgz_collectives"), _collectives_rank, COLLECTIVES, inputs)
 
 
 @pytest.mark.parametrize("name", list(COLLECTIVES))
 def test_collectives_are_bit_identical_to_jax(name, collective_results):
     inputs, ranks = collective_results
     x, e = inputs[name]
-    want = _jax_collective(name, x, e)
+    want = _jax_collective(COLLECTIVES[name], x, e)
     for rank, got in enumerate(ranks):
         assert len(got[name]) == len(want)
         for g, w in zip(got[name], want):
             np.testing.assert_array_equal(g, w[rank], err_msg=f"{name}, rank {rank}")
+
+
+def _avg_input(world, n=4096):
+    """Per-rank ``[world, n]`` multiples of 2^-10 below 2^10: every sum of
+    them is exact, so gloo's ring order (at W = 3 it is not JAX's
+    ((x0 + x1) + x2)) cannot show and the test sees only the divide."""
+    rng = np.random.default_rng(world)
+    return (rng.integers(-2**20, 2**20, size=(world, n)) * 2.0**-10).astype(np.float32)
+
+
+def _world3_rank(rank, table, inputs, avg):
+    from deepspeed_tpu_torch.comm import comm
+    out = _collectives_rank(rank, table, inputs)
+    out["all_reduce_avg"] = comm.all_reduce(torch.from_numpy(avg[rank].copy()), comm.ReduceOp.AVG).numpy()
+    return out
+
+
+@pytest.fixture(scope="module")
+def collective_results_w3(tmp_path_factory):
+    inputs = {name: _collective_inputs(spec, 3) for name, spec in COLLECTIVES_W3.items()}
+    avg = _avg_input(3)
+    ranks = run_ranks(tmp_path_factory.mktemp("qgz_collectives_w3"), _world3_rank, COLLECTIVES_W3, inputs, avg,
+                      world=3)
+    return inputs, avg, ranks
+
+
+@pytest.mark.parametrize("name", list(COLLECTIVES_W3))
+def test_collectives_at_world_3_are_bit_identical_to_jax(name, collective_results_w3):
+    """At W = 3 the mean over the received copies is ``jnp.mean``'s
+    sum · fl(1/3), which a true divide by 3 misses in the last bit on about
+    a fifth of the values."""
+    inputs, _, ranks = collective_results_w3
+    x, e = inputs[name]
+    want = _jax_collective(COLLECTIVES_W3[name], x, e, world=3)
+    for rank, got in enumerate(ranks):
+        assert len(got[name]) == len(want)
+        for g, w in zip(got[name], want):
+            np.testing.assert_array_equal(g, w[rank], err_msg=f"{name}, rank {rank}")
+
+
+def test_all_reduce_avg_at_world_3_matches_jax_pmean(collective_results_w3):
+    """``comm.all_reduce(AVG)`` over 3 gloo ranks equals JAX's eager
+    ``jax.lax.pmean`` over 3 CPU devices: a true divide of the sum by 3."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
+    _, avg, ranks = collective_results_w3
+    mesh = create_mesh(MeshSpec(data=3), devices=jax.devices()[:3])
+    run = jax.shard_map(lambda xs: jax.lax.pmean(xs, "data"), mesh=mesh, in_specs=P("data"), out_specs=P("data"),
+                        check_vma=False)
+    want = np.asarray(run(avg))
+    assert not np.array_equal(want[0], avg.sum(axis=0) * np.float32(1 / 3))   # the two forms differ here
+    for rank, got in enumerate(ranks):
+        np.testing.assert_array_equal(got["all_reduce_avg"], want[rank], err_msg=f"rank {rank}")
+
+
+def _card_world3_rank(rank, x, e, avg):
+    """On the one card (cuda:0, shared by the 3 gloo ranks): the grouped
+    exchange against ``padded_quant_allreduce`` of each tensor, without and
+    with LoCo's error, and AVG against SUM then a divide by a tensor.
+    Returns the count of values that differ in each comparison."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.runtime.comm import compressed as tc
+    x, e, avg = (torch.from_numpy(a[rank]).cuda() for a in (x, e, avg))
+    xs, es = _grouped(x, GROUPED_SHAPES), _grouped(e, GROUPED_SHAPES)
+    wire = tc.GroupedQuantAllreduce(GROUPED_SHAPES, torch.float32, device="cuda")
+    grouped = torch.cat([t.reshape(-1) for t in wire(xs)])
+    per_tensor = torch.cat([tc.padded_quant_allreduce(t).reshape(-1) for t in xs])
+    full, err = wire(xs, errors=es, err_beta=0.8)
+    pairs = [tc.padded_quant_allreduce(t, error=et, err_beta=0.8) for t, et in zip(xs, es)]
+    got_avg = comm.all_reduce(avg.clone(), comm.ReduceOp.AVG)
+    total = comm.all_reduce(avg.clone(), comm.ReduceOp.SUM)
+    torch.cuda.synchronize()
+    return {"grouped": int((grouped != per_tensor).sum()),
+            "grouped_loco": int((torch.cat([t.reshape(-1) for t in full]) !=
+                                 torch.cat([p[0].reshape(-1) for p in pairs])).sum()),
+            "grouped_loco_error": int((torch.cat([t.reshape(-1) for t in err]) !=
+                                       torch.cat([p[1].reshape(-1) for p in pairs])).sum()),
+            "avg": int((got_avg != total / torch.full_like(total, 3)).sum()),
+            "avg_vs_scalar_divide": int((got_avg != total / 3).sum()), "n": grouped.numel()}
+
+
+@pytest.mark.cuda
+def test_world_3_on_the_card(tmp_path):
+    """Three gloo ranks on the one card: the grouped exchange equals the
+    per-tensor route bit for bit at W = 3 (each sums its ``[3, ·]`` copies
+    with CUDA's ``sum(dim=0)``), and AVG is a true divide by 3 (CUDA turns a
+    divide by a Python number into a product with its reciprocal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from deepspeed_tpu_torch.ops.op_builder import build_kernel
+    build_kernel("quant")   # once, before the ranks load it
+    x, e = _collective_inputs(_collective_table(3, GROUPED_SHAPES)["grouped_quant_allreduce_error-int8"], 3)
+    avg = np.random.default_rng(3).normal(size=(3, 100_000)).astype(np.float32)
+    ranks = run_ranks(tmp_path, _card_world3_rank, x, e, avg, world=3)
+    print("W = 3 on the card, values that differ per rank:", ranks)
+    for got in ranks:
+        assert got["grouped"] == got["grouped_loco"] == got["grouped_loco_error"] == got["avg"] == 0, got
 
 
 # ---------------------------------------------------------------- (b)-(f) the engine
