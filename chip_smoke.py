@@ -13,7 +13,8 @@ source, all started together.  Phases:
   2. K3 paged attention against its plain PyTorch version at the serving
      shapes of Llama-3-8B (H=32, n_kv=8, D=128, page 16, bf16): decode,
      decode with every context at 2000 keys (both split over the context),
-     a prefill chunk, and a mixed step with padding rows and null pages —
+     a prefill chunk, a mixed step with padding rows and null pages, and the
+     speculative verify shape (8 rows of C = 5 at contexts 64-1024) —
      error, kernel / plain / library (SDPA) time and the roofline bound;
      float32 decode (the scalar kernel), forced empty splits, rep 1 at head
      dim 64, one tensor-core product against torch.matmul, the merge
@@ -21,9 +22,10 @@ source, all started together.  Phases:
      reject, and the decode time by split count;
   3. serving: ``build_engine`` → ``put`` / ``step`` on Llama-3-8B at full
      width and depth with seeded random weights, continuous batching of 8
-     requests with SplitFuse chunking, fused decode and a prefix-cache hit;
-     asserts token counts, page accounting, that every layer of every
-     forward launched K3 and that decode took its split route;
+     requests with SplitFuse chunking, fused decode and a prefix-cache hit,
+     each step a replay of a CUDA graph captured at its key's first
+     dispatch; asserts token counts, page accounting, that every layer of
+     every forward launched K3 and that decode took its split route;
   4. path parity: the kernel path against the plain path — identical greedy
      streams in float32 (2 layers, full width), and close first-step logits
      in bf16 at full depth;
@@ -98,7 +100,18 @@ source, all started together.  Phases:
      block re-exported equal to the bytes imported and among the demoted
      snapshots', pages and host tier accounted for, K3 launches == layers x
      forwards; then one request migrated out after 8 tokens and resubmitted
-     with its snapshot, its tokens equal to the bare engine's.
+     with its snapshot, its tokens equal to the bare engine's;
+ 13. the step set as CUDA graphs, and speculative decoding (run after phase
+     12, on phase 3's weights): ``warm_all`` captures the six keys of a
+     spec engine (decode, the 256-token chunk, the fused rungs of 2, 4 and
+     8 rounds, the verify of 5 positions), each key's replay against its
+     eager step on a real packed batch (tokens and KV arena bit for bit),
+     K3's kernels inside a profiled replay, the fused rung's wall ms per
+     round and device busy share eager and as a graph on the same batch;
+     phase 3's greedy mix plus two prompts that repeat a pattern served
+     with and without speculation (verify rounds, acceptance, rollback
+     pages, pages accounted); then float32 at phase 4's setting, where the
+     spec and plain streams must be equal but for reported rounding ties.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -110,6 +123,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -124,7 +138,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
-                                              build_engine)
+                                              SpecConfig, build_engine)
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, init_weights_
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache
 from deepspeed_tpu_torch.models.llama_cache import paged_attention as paged_attention_plain
@@ -432,10 +446,12 @@ def phase_kernels() -> dict:
     # padding rows (chunk_len 0, all-null block table)
     mixed = ([0, 512, 900, 33, 1999, 0, 0, 0], [256, 130, 1, 1, 1, 0, 0, 0], 256)
     decode_long = ([1999] * 16, [1] * 16, 1)   # every sequence at 2000 keys
+    # a speculative verify round: 8 rows of the last token and 4 drafts
+    verify = ([int(x) for x in rng.integers(64, 1020, 8)], [5] * 8, 5)
     k3_fragments()
     cases = {name: make_case(*shape, torch.bfloat16, seed=i)
              for i, (name, shape) in enumerate((("decode", decode), ("prefill", prefill), ("mixed", mixed),
-                                                ("decode_long", decode_long)))}
+                                                ("decode_long", decode_long), ("verify", verify)))}
     rows = {name: run_case(name, case, torch.bfloat16, flush) for name, case in cases.items()}
     rows["decode_f32"] = run_case("decode_f32", make_case(*decode, torch.float32, seed=7), torch.float32, flush,
                                   timed=False)
@@ -489,6 +505,15 @@ def engine_config(dtype: torch.dtype, num_pages: int) -> RaggedInferenceEngineCo
                                        decode_steps_per_dispatch=8)
 
 
+def serving_mix(vocab: int) -> tuple:
+    """Phase 3's 8 requests: prompts of 64-1024 tokens, the last sharing
+    512 tokens with the second, and 32-64 new tokens each."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in (64, 1024, 300, 700, 128, 512, 900, 100)]
+    prompts[7] = prompts[1][:512] + prompts[7]             # shares 32 full pages with request 1
+    return prompts, rng.integers(32, 65, len(prompts)).tolist()
+
+
 def phase_serving(cfg, state, smi: str) -> dict:
     layers = cfg.num_hidden_layers
     log(f"  depth {layers} of {PRESETS['llama3-8b'].num_hidden_layers} layers, full width "
@@ -500,11 +525,8 @@ def phase_serving(cfg, state, smi: str) -> dict:
     pc.evict(pc.cached_pages)
     free0 = eng.kv.allocator.free_pages
 
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (64, 1024, 300, 700, 128, 512, 900, 100)]
-    prompts[7] = prompts[1][:512] + prompts[7]             # shares 32 full pages with request 1
+    prompts, max_new = serving_mix(cfg.vocab_size)
     lens = [len(p) for p in prompts]
-    max_new = rng.integers(32, 65, len(prompts)).tolist()
     late = 7                                               # admitted once request 1 has its first token
 
     acc = get_accelerator()
@@ -2219,6 +2241,312 @@ def phase_serving_frontend(cfg, state, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 13
+
+SPEC_MAX_DRAFT = 4
+STEP_SET = [(8, 1), (8, 256), ("multi", 8, 2), ("multi", 8, 4), ("multi", 8, 8), ("verify", 8, SPEC_MAX_DRAFT + 1)]
+# a token whose two best logits are closer than this share of its best
+# logit is a rounding tie: the verify forward's GEMMs take other shapes than
+# the decode forward's, so float32 sums may round the other way there
+TIE_MARGIN = 1e-4
+# in bfloat16 the spec stream may leave the plain one only for a token whose
+# logit lies within this many bf16 ulps of the best one: the cache-free model
+# that judges it is a bf16 computation too, and orders candidates that close
+# (two or three of them) otherwise than either engine
+BF16_TIE_ULPS = 4
+
+
+def pattern_prompts(vocab: int, seed: int = 21) -> list:
+    """Two prompts that repeat a 32-token pattern (4 and 6 times), so the
+    n-gram drafter proposes from the first decode round on."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, 32).tolist() * n for n in (4, 6)]
+
+
+def graph_pool_bytes(pool) -> int:
+    """Bytes of the caching allocator's segments that belong to a graph pool."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot() if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def key_batches(eng, prompts, max_new, rng) -> dict:
+    """One real packed batch per step-set key, packed without advancing the
+    engine: phase 3's 8 prompts prefilled to their first token (decode, the
+    fused rounds, verify with 4 random draft tokens a row) and 8 fresh
+    prompts' first 256-token chunk."""
+    vocab = eng.cfg.vocab_size
+    for uid, (p, n) in enumerate(zip(prompts, max_new)):
+        eng.put([uid], [p], max_new_tokens=n)
+    while not all(s.in_decode for s in eng.state.seqs.values()):
+        eng.step()
+    eng.put(list(range(100, 108)), [rng.integers(0, vocab, 300).tolist() for _ in range(8)], max_new_tokens=8)
+    decode = [eng.state.seqs[u] for u in range(8)]
+    fresh = [eng.state.seqs[u] for u in range(100, 108)]
+    out = {}
+    for key in STEP_SET:
+        if key[0] == "multi":
+            for s in decode:
+                eng.kv.ensure_capacity(s, key[2])
+            rb = eng.state.pack([(s, 1) for s in decode], 1, pad_to=8)
+            arrays = (rb.tokens[:, 0], rb.start_pos, rb.block_tables, rb.chunk_lens)
+        elif key[0] == "verify":
+            for s in decode:
+                s.tokens.extend(rng.integers(0, vocab, SPEC_MAX_DRAFT).tolist())
+            rb = eng.state.pack([(s, 1 + SPEC_MAX_DRAFT) for s in decode], key[2], pad_to=8)
+            for s in decode:
+                del s.tokens[-SPEC_MAX_DRAFT:]
+            arrays = (rb.tokens, rb.start_pos, rb.block_tables, rb.chunk_lens)
+        else:
+            work = [(s, 1) for s in decode] if key[1] == 1 else [(s, key[1]) for s in fresh]
+            rb = eng.state.pack(work, key[1], pad_to=8)
+            arrays = (rb.tokens, rb.start_pos, rb.block_tables, rb.chunk_lens)
+        out[key] = tuple(np.ascontiguousarray(a) for a in arrays)
+    return out
+
+
+def graph_equals_eager(eng, key, arrays) -> dict:
+    """The key's step run eagerly (``model.hidden`` + the LM head and
+    argmax) and one replay of its graph, from the same arena: tokens and
+    every arena byte must be identical."""
+    fn, prog = eng._step_fn(key)[0], eng._step_fns[key]
+    before = [t.clone() for t in eng.cache]
+    eager = fn(*(torch.from_numpy(a).cuda() for a in arrays))
+    eager_arena = [t.clone() for t in eng.cache]
+    for t, s in zip(eng.cache, before):
+        t.copy_(s)
+    graph = prog.run(arrays)
+    torch.cuda.synchronize()
+    row = {"tokens_equal": torch.equal(eager, graph),
+           "arena_equal": all(torch.equal(a, b) for a, b in zip(eager_arena, eng.cache)),
+           "pages_written": int((eager_arena[0] != before[0]).flatten(1).any(1).sum()),
+           "capture_s": prog.capture_s, "deltas": prog.counts.deltas}
+    del before, eager_arena
+    return row
+
+
+def device_profile(fn) -> tuple:
+    """``fn()`` once under torch.profiler: its device rows (kernels,
+    memcpy/memset) as {name: (count, device us)}."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of ``fn()`` (ending in its readback)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def serve_greedy(eng, prompts, max_new) -> list:
+    """Every prompt put at once, stepped until all are done; the streams."""
+    uids = list(range(len(prompts)))
+    for uid, (p, n) in enumerate(zip(prompts, max_new)):
+        eng.put([uid], [p], max_new_tokens=n)
+    for _ in range(2000):
+        if all(eng.state.seqs[u].done for u in uids):
+            break
+        eng.step()
+    else:
+        raise AssertionError("serving made no progress in 2000 steps")
+    streams = [list(eng.state.seqs[u].generated) for u in uids]
+    for u in uids:
+        eng.flush(u)
+    return streams
+
+
+def spec_vs_plain(spec_eng, plain_eng, prompts, max_new) -> dict:
+    """The same greedy requests through a spec engine and a spec-less one;
+    pages must all return after each."""
+    res = {}
+    streams = {}
+    for name, eng in (("spec", spec_eng), ("plain", plain_eng)):
+        pc = eng.kv.prefix_cache
+        if pc is not None:
+            pc.evict(pc.cached_pages)
+        free0 = eng.kv.allocator.free_pages
+        streams[name] = serve_greedy(eng, prompts, max_new)
+        cached = pc.cached_pages if pc is not None else 0
+        res[f"{name}_pages_accounted"] = eng.kv.allocator.free_pages + cached == free0
+    st = spec_eng.spec_stats
+    pairs = [(a, b) for s, p in zip(streams["spec"], streams["plain"]) for a, b in zip(s, p)]
+    res.update(verify_rounds=st.rounds, proposed=st.proposed, accepted=st.accepted, emitted=st.emitted,
+               acceptance_rate=st.acceptance_rate, rollback_pages=st.rollback_pages,
+               tokens_equal_share=sum(a == b for a, b in pairs) / len(pairs),
+               streams_equal=streams["spec"] == streams["plain"])
+    return res, streams
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0**(math.floor(math.log2(abs(x))) - 7) if x else 2.0**-133
+
+
+def first_difference_margins(cfg, state, prompts, streams) -> list:
+    """Where the spec stream leaves the plain one: the position, the plain
+    stream's top-2 logit margin there, and each stream's token's rank (the
+    tokens with a strictly larger logit) and gap below the best logit, from
+    the cache-free model (plain attention, the weights' dtype) on the prompt
+    and the plain tokens before it (the same for both streams up to there)."""
+    model = LlamaForCausalLM(dataclasses.replace(cfg, attention_impl="reference"), device="meta")
+    model.load_state_dict(state, strict=True, assign=True)
+    out = []
+    for i, (p, s, q) in enumerate(zip(prompts, streams["spec"], streams["plain"])):
+        j = next((j for j, (a, b) in enumerate(zip(s, q)) if a != b), None)
+        if j is None:
+            continue
+        ids = torch.tensor([p + q[:j]], dtype=torch.int64, device="cuda")
+        with torch.no_grad():
+            logits = model(ids)[0, -1].float()
+        top = torch.topk(logits, 2).values
+        margin = float(top[0] - top[1])
+        out.append({"request": i, "position": j, "margin": margin, "top_logit": float(top[0]),
+                    "tie": margin <= TIE_MARGIN * abs(float(top[0])), "spec_token": s[j], "plain_token": q[j],
+                    "spec_rank": int((logits > logits[s[j]]).sum()), "plain_rank": int((logits > logits[q[j]]).sum()),
+                    "spec_gap": float(top[0] - logits[s[j]]), "plain_gap": float(top[0] - logits[q[j]])})
+    return out
+
+
+def phase_step_graphs(cfg, state, smi: str) -> dict:
+    """The step set as CUDA graphs and speculative decoding on Llama-3-8B
+    (phase 3's width, depth and weights, bf16), then the float32 exactness
+    of speculation at phase 4's setting."""
+    layers = cfg.num_hidden_layers
+    econf = dataclasses.replace(engine_config(torch.bfloat16, 1024), spec=SpecConfig(max_draft=SPEC_MAX_DRAFT))
+    eng = build_engine(cfg, state, econf, device="cuda")
+    reset_launch_counts()
+    eng.forward_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = eng.warm_all()
+    warm_s = time.perf_counter() - t0
+    rewarm = eng.warm_all()
+    pool = graph_pool_bytes(eng._graphs.pool)
+    captures = {eng._key_label(k): eng._step_fns[k].capture_s for k in STEP_SET}
+    log(f"  warm_all: {json.dumps(warm)} in {warm_s:.2f} s; again: {json.dumps(rewarm)}")
+    log(f"  capture s by key (warm run included): {json.dumps(captures)}; graph pool {pool} B")
+    checks = {"warm_all_captured_6": warm["compiled"] == len(warm["keys"]) == len(eng.step_shape_set()) == 6
+              and warm["fallback"] == 0 and eng.step_shape_set() == STEP_SET,
+              "rewarm_all_cached": rewarm["cached"] == 6 and rewarm["compiled"] == 0}
+
+    prompts, max_new = serving_mix(cfg.vocab_size)
+    batches = key_batches(eng, prompts, [64] * 8, np.random.default_rng(14))
+    by_key = {eng._key_label(k): graph_equals_eager(eng, k, a) for k, a in batches.items()}
+    log("  graph == eager by key: " + json.dumps(by_key))
+    checks["graph_equals_eager_bit_for_bit"] = all(r["tokens_equal"] and r["arena_equal"] and r["pages_written"] > 0
+                                                   for r in by_key.values())
+
+    # K3 inside the graph: one replay of the fused rung of 8 rounds
+    multi = ("multi", 8, 8)
+    rows = device_profile(lambda: eng._step_fns[multi].run(batches[multi]))
+    k3_events = sum(n for name, (n, _) in rows.items() if "paged_attention" in name)
+    log(f"  profiled replay of {eng._key_label(multi)}: {k3_events} K3 kernel events, {len(rows)} device rows")
+    checks["k3_runs_inside_the_graph"] = k3_events == layers * 8
+    # and inside the verify graph: its capture recorded one forward of
+    # `layers` K3 launches, and a profiled replay shows them on the device
+    verify = STEP_SET[-1]
+    vprog = eng._step_fns[verify]
+    rows = device_profile(lambda: vprog.run(batches[verify]))
+    k3_verify_events = sum(n for name, (n, _) in rows.items() if "paged_attention" in name)
+    log(f"  profiled replay of {eng._key_label(verify)}: {k3_verify_events} K3 kernel events; "
+        f"capture deltas {vprog.counts.deltas}")
+    checks["k3_runs_inside_the_verify_graph"] = k3_verify_events == layers and vprog.counts.deltas[:2] == (1, layers)
+
+    # the fused rung of 8 rounds on the same batch, eager (a Python loop of
+    # forwards through model.hidden, as the engine dispatched it before the
+    # step graphs) and as one replay; device busy share from one profiled
+    # round of each over its unprofiled wall time
+    arrays = batches[multi]
+
+    def eager():
+        eng._forward_multi(8, *(torch.from_numpy(a).cuda() for a in arrays)).cpu()
+
+    def graph():
+        eng._step_fns[multi].run(arrays).cpu()
+
+    rounds = {}
+    for name, fn in (("eager", eager), ("graph", graph), ("graph_again", graph), ("eager_again", eager)):
+        fn()
+        rounds[name] = wall_ms(fn) / 8
+    for name, fn in (("eager", eager), ("graph", graph)):
+        busy = sum(us for _, us in device_profile(fn).values()) / 1e3 / 8
+        rounds[f"{name}_device_ms"] = busy
+        rounds[f"{name}_busy_share"] = busy / min(rounds[name], rounds[f"{name}_again"])
+    # one verify round (8 rows x 5 positions) the same two ways
+    rounds["verify_eager"] = wall_ms(lambda: eng._forward_verify(
+        *(torch.from_numpy(a).cuda() for a in batches[verify])).cpu())
+    rounds["verify_graph"] = wall_ms(lambda: vprog.run(batches[verify]).cpu())
+    log(f"  fused rung (per round) and verify round, wall ms ({smi}): " + json.dumps(rounds))
+    for u in list(eng.state.seqs):
+        eng.flush(u)
+
+    # speculation: phase 3's greedy mix plus two pattern prompts, with and without
+    plain_eng = build_engine(cfg, state, engine_config(torch.bfloat16, 1024), device="cuda")
+    plain_eng.warm_all()
+    mix = prompts + pattern_prompts(cfg.vocab_size)
+    # the K3 launches of the serving run's verify rounds: what the verify
+    # graph's replays added to the counter over that run
+    launches0, rounds0 = vprog.counts.get(paged_attention_cuda), eng.spec_stats.rounds
+    spec, streams = spec_vs_plain(eng, plain_eng, mix, max_new + [64, 64])
+    verify_launches = vprog.counts.get(paged_attention_cuda) - launches0
+    spec["verify_k3_launches"] = verify_launches
+    # where a bf16 spec stream leaves the plain one, the spec token must be
+    # within a few bf16 ulps of the best logit there
+    diffs = first_difference_margins(cfg, state, mix, streams)
+    spec["first_differences"] = [{"margin_share": d["margin"] / abs(d["top_logit"]),
+                                  "spec_gap_ulps": d["spec_gap"] / bf16_ulp(d["top_logit"]),
+                                  "plain_gap_ulps": d["plain_gap"] / bf16_ulp(d["top_logit"]),
+                                  "spec_rank": d["spec_rank"], "plain_rank": d["plain_rank"]} for d in diffs]
+    log("  speculation, bf16 (seeded random weights: the acceptance rate says nothing of a real model's): "
+        + json.dumps(spec))
+    checks["verify_rounds"] = spec["verify_rounds"] >= 1
+    checks["verify_k3_launches_layers_x_rounds"] = verify_launches == layers * (eng.spec_stats.rounds - rounds0) > 0
+    checks["bf16_differences_are_ties"] = all(d["spec_gap"] <= BF16_TIE_ULPS * bf16_ulp(d["top_logit"])
+                                              for d in diffs)
+    checks["pages_accounted_after_drain"] = spec["spec_pages_accounted"] and spec["plain_pages_accounted"]
+    launches, forwards = paged_attention_cuda.launches, eng.forward_calls + plain_eng.forward_calls
+    checks["k3_launches_layers_x_forwards"] = launches == layers * forwards and launches > 0
+    del eng, plain_eng, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 exactness at phase 4's setting
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32, state32 = llama3_8b(2, torch.float32, seed=1)
+    rng = np.random.default_rng(2)
+    prompts32 = [rng.integers(0, cfg32.vocab_size, n).tolist() for n in (40, 300, 700)] + \
+        pattern_prompts(cfg32.vocab_size)
+    econf32 = engine_config(torch.float32, 256)
+    spec32_eng = build_engine(cfg32, state32, dataclasses.replace(econf32, spec=SpecConfig(max_draft=SPEC_MAX_DRAFT)),
+                              device="cuda")
+    f32, streams = spec_vs_plain(spec32_eng, build_engine(cfg32, state32, econf32, device="cuda"), prompts32,
+                                 [64] * len(prompts32))
+    f32["differences"] = first_difference_margins(cfg32, state32, prompts32, streams)
+    f32["rounding_ties"] = sum(d["tie"] for d in f32["differences"])
+    log("  speculation, float32 (2 layers): " + json.dumps(f32))
+    checks["f32_spec_equals_plain_but_ties"] = f32["verify_rounds"] >= 1 and all(d["tie"] for d in f32["differences"])
+    del spec32_eng, state32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res = {"card": smi, "warm_all": warm, "warm_all_s": warm_s, "capture_s": captures, "graph_pool_bytes": pool,
+           "graph_vs_eager": by_key, "k3_events_in_replay": k3_events, "k3_events_in_verify_replay": k3_verify_events,
+           "fused_round": rounds, "spec_bf16": spec, "spec_f32": f32, "k3_launches": launches,
+           "verify_k3_launches": verify_launches, "forwards": forwards, "checks": checks}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"step-graph phase failed {bad}: {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2239,6 +2567,8 @@ def main() -> int:
     phase_parity_bf16(cfg, state)
     log("== phase 12: the serving frontend on Llama-3-8B (open-loop mix, host KV tier, migration)")
     frontend = phase_serving_frontend(cfg, state, env["card"])
+    log("== phase 13: the step set as CUDA graphs, and speculative decoding, on Llama-3-8B")
+    graphs = phase_step_graphs(cfg, state, env["card"])
     del state
     torch.cuda.empty_cache()
     phase_parity_f32()
@@ -2257,16 +2587,22 @@ def main() -> int:
     quant = phase_quant_kernels()
     log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire")
     dp = phase_data_parallel(env["card"])
-    dec = k3["decode"]
+    dec, ver = k3["decode"], k3["verify"]
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
-                "launches": serving["k3_launches"] + frontend["k3_launches"],
+                "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"],
+                # a partition of "launches": phase 13's are the verify
+                # rounds of its spec serving run and the rest of the phase
                 "launches_by_path": {"serving_step": serving["k3_launches"],
-                                     "serving_frontend": frontend["k3_launches"]},
+                                     "serving_frontend": frontend["k3_launches"],
+                                     "step_graphs": graphs["k3_launches"] - graphs["verify_k3_launches"],
+                                     "verify": graphs["verify_k3_launches"]},
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if n != "decode_f32"), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],
-                "prefill_library_ms": k3["prefill"]["library_ms"]}]
+                "prefill_library_ms": k3["prefill"]["library_ms"], "verify_ms": ver["ms"],
+                "verify_plain_ms": ver["plain_ms"], "verify_bound_ms": ver["bound_ms"],
+                "verify_library_ms": ver["library_ms"]}]
     replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:162",
                 "flash_dq": "deepspeed_tpu/ops/flash_attention.py:287",
                 "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}

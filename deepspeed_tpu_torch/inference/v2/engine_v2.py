@@ -16,21 +16,25 @@ Against the JAX engine:
     ``prefill_chunk``), so scheduling — and therefore the tokens — match;
   * the KV arena (one tensor per layer) is written in place by each
     forward, the counterpart of donating it through ``jit``;
-  * the fused k-round decode is a Python loop of k forward calls whose
-    tokens stay on the device; ``complete_step`` is the only readback;
-  * PyTorch runs eagerly, so there is no step-program cache to compile:
-    a ``StepAnatomy`` attached with ``set_anatomy`` records the schedule,
-    dispatch, device and sample/accept segments of each step as the JAX
-    engine's hooks do, and its compile count stays 0.
-  * Speculative decoding, tensor-parallel serving, quantized weights and
-    the AOT step set come with later slices: the constructor raises on a
-    config that asks for them, and ``set_spec`` on a request that does.
+  * the fused k-round decode is a loop of k forward calls whose tokens
+    stay on the device; ``complete_step`` is the only readback;
+  * the step programs: where the JAX engine jits one program per key of
+    ``step_shape_set`` ((batch, chunk), the fused rung's ("multi", batch,
+    k), the verify ("verify", batch, max_draft + 1)), the port captures
+    one CUDA graph per key on the card (``step_graphs.GraphStep``), lazily
+    at the key's first dispatch or up front in ``warm_all``; on the CPU a
+    program runs its step eagerly (``step_graphs.EagerStep``).  Captures
+    land in the ``StepAnatomy`` compile log as the JAX engine's compiles do;
+  * speculative decoding (``spec/``): the n-gram drafter, one verify
+    forward over max_draft + 1 positions, accept-longest-prefix and the
+    ``truncate`` rollback, greedy-parity by construction;
+  * tensor-parallel serving and quantized weights come with later slices:
+    the constructor raises on a config that asks for them.
 """
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ...accelerator import DeviceLike, resolve_device
@@ -40,6 +44,8 @@ from ...telemetry.step_anatomy import NULL_ANATOMY
 from ...utils.logging import logger
 from .ragged import BlockedKVCache, RaggedBatch, StateManager
 from .scheduler import SchedulerConfig, SplitFuseScheduler, StepPlan
+from .spec import SpecConfig, SpecStats, make_drafter
+from .step_graphs import EagerStep, GraphSpace, GraphStep, padding_arrays
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +61,19 @@ class RaggedInferenceEngineConfig:
     # KV page reuse across shared prompt prefixes
     # (ref: inference/v2/ragged/prefix_cache_manager.py)
     enable_prefix_cache: bool = True
-    # pure-decode rounds run back to back in ONE dispatch, tokens fed
-    # device-side from round to round; sequences hitting EOS mid-block
-    # have their surplus tokens discarded host-side
+    # pure-decode rounds run back to back in ONE dispatch (one graph on
+    # the card), tokens fed device-side from round to round; sequences
+    # hitting EOS mid-block have their surplus tokens discarded host-side
     decode_steps_per_dispatch: int = 8
-    # not ported yet (later slices): must stay at their defaults
+    # not ported yet (a later slice): must stay at its default
     tensor_parallel: int = 1
-    spec: Optional[object] = None
+    # speculative decoding (spec/): a drafter proposes up to k tokens per
+    # pure-decode round and ONE (k+1)-position verify dispatch emits
+    # accepted+1 of them, greedy-parity by construction.  Greedy only; on
+    # pure-decode rounds speculation takes precedence over the fused
+    # multi-step rung (which stays the fallback when no row drafts or KV
+    # pages are short).  None disables.
+    spec: Optional[SpecConfig] = None
 
 
 class InFlightStep:
@@ -71,13 +83,15 @@ class InFlightStep:
     dispatch (sequence descriptors by OBJECT identity, so a flush that
     replaced a uid while the step was in flight is detectable)."""
 
-    __slots__ = ("kind", "tokens", "rows", "seqs", "k")
+    __slots__ = ("kind", "tokens", "rows", "seqs", "drafts", "base_len", "k")
 
     def __init__(self, kind: str):
-        self.kind = kind          # "single" | "multi"
-        self.tokens = None        # device tensor: sampled tokens
+        self.kind = kind          # "single" | "multi" | "spec"
+        self.tokens = None        # device tensor: sampled tokens / argmax
         self.rows = None          # single: [(uid, n, seq, row_index)]
-        self.seqs = None          # multi: descriptor list at dispatch
+        self.seqs = None          # multi/spec: descriptor list at dispatch
+        self.drafts = None        # spec: per-row draft token lists
+        self.base_len = None      # spec: pre-splice history lengths
         self.k = None             # multi: fused rounds in the dispatch
 
 
@@ -93,8 +107,26 @@ class InferenceEngineV2:
                  engine_config: Optional[RaggedInferenceEngineConfig] = None, device: DeviceLike = "cuda",
                  seed: int = 0):
         self.econfig = engine_config or RaggedInferenceEngineConfig()
-        if self.econfig.spec is not None:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP.md Queue 1)")
+        # speculative decoding: greedy-only (the accept rule is an argmax
+        # identity — under sampling, emitted tokens would need the full
+        # rejection-sampling correction, not implemented), and the verify
+        # slots must be charged against the scheduler's token budget
+        if self.econfig.spec is not None and not self.econfig.greedy:
+            logger.warning("spec decoding requires greedy sampling "
+                           "(accept-longest-prefix parity is an argmax identity); "
+                           "disabling speculation")
+            self.econfig = dataclasses.replace(self.econfig, spec=None)
+        if self.econfig.spec is not None and self.econfig.scheduler.spec_verify_tokens == 0:
+            self.econfig = dataclasses.replace(
+                self.econfig, scheduler=dataclasses.replace(self.econfig.scheduler,
+                                                            spec_verify_tokens=self.econfig.spec.max_draft))
+        self.drafter = make_drafter(self.econfig.spec) if self.econfig.spec is not None else None
+        self.spec_stats = SpecStats()
+        # uid -> (proposed, accepted, rollback_pages) of the LAST step's
+        # verify round (cleared every step): the serving frontend folds
+        # these into per-request acceptance accounting and metrics
+        self.last_spec_round: Dict[int, Tuple[int, int, int]] = {}
+        self._spec_on: Dict[int, bool] = {}
         if self.econfig.tensor_parallel != 1:
             raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP.md Queue 1)")
         self.device = resolve_device(device)
@@ -118,9 +150,12 @@ class InferenceEngineV2:
         # per-step anatomy (telemetry/step_anatomy.py): NULL by default, one
         # attribute read and one predicate per hook when disabled
         self.anatomy = NULL_ANATOMY
-        #: the serving frontend's per-step verify-round accounting; always
-        #: empty, as speculative decoding is not ported
-        self.last_spec_round: Dict[int, object] = {}
+        #: step-set key -> its program (GraphStep on the card, EagerStep on
+        #: the CPU), built lazily at the key's first dispatch or in warm_all
+        self._step_fns: Dict[tuple, object] = {}
+        self._fresh_compile = False
+        #: the capture stream and graph pool of this engine's step graphs
+        self._graphs = GraphSpace(self.device) if self.device.type == "cuda" else None
         logger.info(f"InferenceEngineV2: {cfg.num_hidden_layers} layers on {self.device}, attention "
                     f"{cfg.attention_impl}, KV arena {kvcfg.num_pages} pages x {kvcfg.page_size} tokens "
                     f"({self.econfig.kv_dtype})")
@@ -145,24 +180,35 @@ class InferenceEngineV2:
     def flush(self, uid: int) -> None:
         self.state.flush(uid)
         self._max_new.pop(uid, None)
+        self._spec_on.pop(uid, None)
+        self.last_spec_round.pop(uid, None)
 
     def set_anatomy(self, anatomy):
         """Attach a :class:`~...telemetry.step_anatomy.StepAnatomy` recorder
         (None restores the NULL recorder).  ``dispatch_step`` opens its step
-        window and ``complete_step`` closes it, as in the JAX engine; the
-        port compiles no step program, so the recorder's compile count
-        stays 0 and no segment is ever ``compile_wait``.  The recorder's
-        clock should be the serving clock when a frontend drives this
-        engine."""
+        window and ``complete_step`` closes it, as in the JAX engine; a
+        step program built at its first dispatch is a compile
+        (``compile_wait``), one built by ``warm_all`` an ``aot`` compile.
+        The recorder's clock should be the serving clock when a frontend
+        drives this engine."""
         self.anatomy = anatomy if anatomy is not None else NULL_ANATOMY
         return self.anatomy
 
+    def _note_compile(self, key: str) -> None:
+        """One step program built at its first dispatch: the dispatch pays
+        the build (on the card the warm run and the capture), so its
+        segment is tagged ``compile_wait`` and the compile tracker records
+        the miss (warm-up vs steady-state — the regression guard)."""
+        self._fresh_compile = True
+        self.anatomy.note_compile(key)
+
     def set_spec(self, uid: int, enabled: bool) -> None:
-        """Per-sequence speculation opt-in (the serving frontend's
-        per-request control): a no-op for ``enabled=False``; speculative
-        decoding itself is not ported (ROADMAP.md Queue 1 item 2)."""
-        if enabled:
-            raise NotImplementedError("speculative decoding is not ported yet (ROADMAP.md Queue 1 item 2)")
+        """Per-sequence speculation opt-in/out (the serving frontend's
+        per-request control).  No-op when the engine carries no spec
+        config — a request asking for speculation on a spec-less engine
+        just decodes normally."""
+        if self.econfig.spec is not None:
+            self._spec_on[uid] = bool(enabled)
 
     def preempt(self, uid: int):
         """Evict one sequence under KV pressure (serving frontend): pages
@@ -170,6 +216,8 @@ class InferenceEngineV2:
         Unlike ``flush`` the uid must exist — preempting a finished/unknown
         sequence is a frontend bug, not a no-op."""
         self._max_new.pop(uid, None)
+        self._spec_on.pop(uid, None)
+        self.last_spec_round.pop(uid, None)
         return self.state.preempt(uid)
 
     def single_step_page_demand(self, plan: Optional[StepPlan] = None) -> int:
@@ -185,9 +233,6 @@ class InferenceEngineV2:
                 sum(self.kv.pages_needed(s, n) for s, n in plan.prefill))
 
     # ------------------------------------------------------------ forward
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
 
     def _sample(self, row_logits: torch.Tensor) -> torch.Tensor:
         """[B, V] logits → [B] int32 tokens, greedy or categorical."""
@@ -206,6 +251,279 @@ class InferenceEngineV2:
         rows = hidden[torch.arange(hidden.shape[0], device=hidden.device), last]   # [B, E]
         return self._sample(self.model.logits(rows))
 
+    @torch.no_grad()
+    def _forward_multi(self, k: int, tokens0, start_pos, block_tables, chunk_lens) -> torch.Tensor:
+        """``k`` fused decode rounds, each row's token fed back on the
+        device: [B] tokens → [B, k]."""
+        out = torch.empty((tokens0.shape[0], k), dtype=torch.int32, device=tokens0.device)
+        toks = tokens0
+        for i in range(k):
+            toks = self._forward_last(toks[:, None], start_pos + i, block_tables, chunk_lens)
+            out[:, i] = toks
+        return out
+
+    @torch.no_grad()
+    def _forward_verify(self, tokens, start_pos, block_tables, chunk_lens) -> torch.Tensor:
+        """The speculative verify forward: one chunked forward, the LM head
+        over EVERY position, and the argmax there (the model's own
+        next-token choice after each fed prefix): [B, W] → [B, W] int32."""
+        self.forward_calls += 1
+        hidden = self.model.hidden(tokens, start_pos, block_tables, self.cache, chunk_lens)
+        return torch.argmax(self.model.logits(hidden), dim=-1).to(torch.int32)
+
+    # ------------------------------------------------------- step programs
+
+    def _step_fn(self, key) -> Tuple[Callable, List[tuple]]:
+        """A step-set key's step function over device tensors and the shapes
+        of its inputs (tokens, start_pos, block_tables, chunk_lens)."""
+        maxp = self.kv.max_pages_per_seq
+        if key[0] == "multi":
+            _, b, k = key
+            return (lambda *a: self._forward_multi(k, *a)), [(b, ), (b, ), (b, maxp), (b, )]
+        if key[0] == "verify":
+            _, b, w = key
+            return self._forward_verify, [(b, w), (b, ), (b, maxp), (b, )]
+        b, c = key
+        return self._forward_last, [(b, c), (b, ), (b, maxp), (b, )]
+
+    def _build_program(self, key):
+        """The program of one step-set key: on the card its warm run and
+        capture (``GraphStep``), on the CPU an ``EagerStep``."""
+        fn, shapes = self._step_fn(key)
+        if self._graphs is not None:
+            return GraphStep(self, self._graphs, fn, padding_arrays(shapes))
+        return EagerStep(fn, self.device)
+
+    def _program(self, key):
+        """The key's program, built at its first dispatch (a compile)."""
+        prog = self._step_fns.get(key)
+        if prog is None:
+            logger.info(f"InferenceEngineV2: building step program {self._key_label(key)}")
+            self._note_compile(self._key_label(key))
+            prog = self._step_fns[key] = self._build_program(key)
+        return prog
+
+    @staticmethod
+    def _key_label(key) -> str:
+        if key[0] == "multi":
+            return f"multi:b{key[1]}:k{key[2]}"
+        if key[0] == "verify":
+            return f"verify:b{key[1]}:w{key[2]}"
+        return f"step:b{key[0]}:c{key[1]}"
+
+    def step_shape_set(self) -> List[tuple]:
+        """Enumerate every program key steady-state serving can reach,
+        straight from the scheduler's bucket table: batch buckets are the
+        ``decode_bucket`` multiples up to ``max_seqs``; chunk buckets are
+        {1, prefill_chunk} (the only two the single-step path produces);
+        the fused-decode rung adds its halving ladder (k_cfg, k_cfg/2,
+        ..., 2 — exactly the pressure fallbacks ``_dispatch_inner``
+        walks); a drafter adds one verify width (``max_draft + 1``).  A
+        steady-state dispatch outside this set would be an engine bug, and
+        the ``engine/recompile_steady_state`` guard would name it."""
+        sched = self.econfig.scheduler
+        q = sched.decode_bucket
+        maxb = self.state.max_batch
+        batches = sorted({min(maxb, m * q) for m in range(1, -(-maxb // q) + 1)})
+        keys: List[tuple] = [(b, c) for b in batches for c in sorted({1, sched.prefill_chunk})]
+        k_cfg = self.econfig.decode_steps_per_dispatch
+        if k_cfg > 1:
+            ks = set()
+            k = k_cfg
+            while k > 1:
+                ks.add(k)
+                k //= 2
+            keys += [("multi", b, k) for b in batches for k in sorted(ks)]
+        if self.drafter is not None:
+            width = self.econfig.spec.max_draft + 1
+            keys += [("verify", b, width) for b in batches]
+        return keys
+
+    def warm_all(self) -> Dict[str, object]:
+        """Build the full reachable step set (``step_shape_set``) up front,
+        so steady-state serving never captures inside a dispatch: on the
+        card one CUDA graph per key, on the CPU one all-padding eager run
+        per key.  Returns ``{"compiled", "cached", "fallback", "keys"}`` as
+        the JAX engine's ``warm_all`` does.
+
+        Failure stance: an ``engine.aot_compile`` chaos injection on one key
+        leaves that key to be built lazily at its first dispatch; only
+        ``InjectedCrash`` (simulated process death) propagates.  A real
+        capture error is raised, never served through an eager route.  Each
+        key built here lands in the compile log as ``aot=True``, exempt from
+        the steady-state-recompile guard."""
+        from ...resilience import fault_injection as _fi
+        anat = self.anatomy
+        compiled = cached = fallback = 0
+        keys = self.step_shape_set()
+        for key in keys:
+            if key in self._step_fns:
+                cached += 1
+                continue
+            label = self._key_label(key)
+            try:
+                _fi.check("engine.aot_compile")
+            except _fi.InjectedCrash:
+                raise
+            except Exception as e:
+                fallback += 1
+                logger.warning(f"InferenceEngineV2: building {label} up front failed ({e}); "
+                               "it is built at its first dispatch")
+                continue
+            prog = self._step_fns[key] = self._build_program(key)
+            if self._graphs is None:
+                # on the CPU a key counts as built after one all-padding
+                # dispatch; on the card the capture's warm run is that
+                prog.warm(padding_arrays(self._step_fn(key)[1]), self.generator)
+            compiled += 1
+            anat.note_compile(label, aot=True)
+        if anat.enabled and compiled:
+            # inside an open step window the build time is attributed
+            # explicitly; outside one, mark() is a no-op by design
+            anat.mark("aot_compile")
+        return {"compiled": compiled, "cached": cached, "fallback": fallback,
+                "keys": [self._key_label(k) for k in keys]}
+
+    def warm_verify(self, batch_sizes: Sequence[int]) -> None:
+        """Build the speculative verify program for the given raw batch
+        sizes (bucketed, width pinned at ``max_draft + 1``) and run one
+        ALL-PADDING dispatch per bucket: every row has chunk_len 0 and an
+        all-null block table, so KV writes land in the null page 0 and
+        engine state is untouched.  No-op without a spec config."""
+        if self.drafter is None:
+            return
+        width = self.econfig.spec.max_draft + 1
+        for b in sorted({self._bucket_batch(n) for n in batch_sizes}):
+            key = ("verify", b, width)
+            self._program(key).run(padding_arrays(self._step_fn(key)[1]))
+
+    # --------------------------------------------------------- speculation
+
+    def _plan_drafts(self, seqs) -> List[List[int]]:
+        """Draft up to ``max_draft`` tokens per decode row, then shrink
+        under pressure.  Per-row caps keep the verify dispatch feasible by
+        construction: a draft never proposes past the row's ``max_new``
+        limit (emitting ``accepted + 1`` tokens, only ``remaining - 1``
+        drafts can ever be useful), the verify-slot width the scheduler
+        charges (``spec_verify_tokens``), the position table, or its page
+        capacity.  Aggregate demand self-shrinks the same way the fused
+        rung does — halve every draft until the arena can take the round
+        AND the round's total fed tokens (1 + draft per row) fit the
+        SplitFuse ``token_budget`` — so the KV-pressure preflight's k=1
+        guarantee still holds when every draft reaches zero."""
+        spec = self.econfig.spec
+        sched = self.econfig.scheduler
+        width = min(spec.max_draft, sched.spec_verify_tokens or spec.max_draft)
+        cap = min(self.kv.max_pages_per_seq * self.kv.page_size, self.cfg.max_position_embeddings)
+        drafts: List[List[int]] = []
+        for s in seqs:
+            if not self._spec_on.get(s.uid, True):
+                drafts.append([])
+                continue
+            limit = self._max_new.get(s.uid, self.econfig.max_new_tokens)
+            room = min(width, limit - len(s.generated) - 1, cap - len(s.tokens))
+            drafts.append(self.drafter.draft(s.tokens, room) if room > 0 else [])
+        while any(drafts) and (sum(1 + len(d) for d in drafts) > sched.token_budget or sum(
+                self.kv.pages_needed(s, 1 + len(d)) for s, d in zip(seqs, drafts)) > self.kv.allocator.free_pages):
+            drafts = [d[:len(d) // 2] for d in drafts]
+        return drafts
+
+    def _dispatch_spec(self, seqs, drafts: List[List[int]]) -> InFlightStep:
+        """Enqueue one draft-verify round for a pure-decode batch: feed
+        ``[last_sampled, draft_0 .. draft_{d-1}]`` per row through the
+        verify program.  The accept fold (``_complete_spec``) accepts the
+        longest prefix of drafts matching the model's per-position argmax,
+        emits ``accepted + 1`` tokens (the argmax after the last accepted
+        draft rides along as the bonus/correction token), and rolls
+        rejected tokens' KV back via ``StateManager.truncate``."""
+        from ...resilience import fault_injection as _fi
+        anat = self.anatomy
+        width = self.econfig.spec.max_draft + 1
+        batch = self._bucket_batch(len(seqs))
+        base_len = [len(s.tokens) for s in seqs]
+        # drafts ride in the token history for pack() (sliced back out in
+        # the fold — they are verify INPUTS, not accepted output)
+        for s, d in zip(seqs, drafts):
+            s.tokens.extend(d)
+        try:
+            rb: RaggedBatch = self.state.pack([(s, 1 + len(d)) for s, d in zip(seqs, drafts)], width, pad_to=batch)
+            if anat.enabled:
+                anat.mark("verify_plan")
+            prog = self._program(("verify", batch, width))
+            if anat.enabled:
+                anat.note_shape("spec_verify", batch, width)
+            _fi.check("engine.verify_step")  # chaos site: device loss mid-verify
+            argmax = prog.run((rb.tokens, rb.start_pos, rb.block_tables, rb.chunk_lens))
+            if anat.enabled:
+                anat.mark("compile_wait" if self._fresh_compile else "dispatch")
+        except BaseException:
+            # a failed verify dispatch must never bake unverified drafts
+            # into the history: restore every row's token list so a caller
+            # that survives the error decodes from exactly the pre-round
+            # state
+            for s, L in zip(seqs, base_len):
+                del s.tokens[L:]
+            raise
+        inf = InFlightStep("spec")
+        inf.tokens = argmax
+        inf.seqs = list(seqs)
+        inf.drafts = drafts
+        inf.base_len = base_len
+        return inf
+
+    def _complete_spec(self, inf: InFlightStep) -> Dict[int, List[int]]:
+        anat = self.anatomy
+        seqs, drafts, base_len = inf.seqs, inf.drafts, inf.base_len
+        try:
+            argmax = inf.tokens.cpu().numpy()
+        except BaseException:
+            # the deferred readback surfaced a device failure: restore every
+            # still-live row's history as the dispatch-path handler does
+            for s, L in zip(seqs, base_len):
+                if self.state.seqs.get(s.uid) is s:
+                    del s.tokens[L:]
+            raise
+        if anat.enabled:
+            anat.device_mark()
+        out: Dict[int, List[int]] = {}
+        eos = self.econfig.eos_token_id
+        self.spec_stats.rounds += 1
+        for i, (s, d) in enumerate(zip(seqs, drafts)):
+            if self.state.seqs.get(s.uid) is not s:
+                continue  # flushed while in flight (pipelined tick)
+            L = base_len[i]
+            s.seen_tokens += 1 + len(d)
+            # g[j] = the model's choice for history index L+j given the
+            # prefix through index L-1+j; draft j is accepted iff it
+            # equals g[j]
+            g = [int(t) for t in argmax[i, :1 + len(d)]]
+            a = 0
+            while a < len(d) and d[a] == g[a]:
+                a += 1
+            del s.tokens[L:]
+            before = len(s.generated)
+            limit = self._max_new.get(s.uid, self.econfig.max_new_tokens)
+            for t in d[:a] + [g[a]]:
+                s.tokens.append(int(t))
+                s.generated.append(int(t))
+                if len(s.generated) >= limit or (eos is not None and int(t) == eos):
+                    s.done = True
+                    break
+            # rollback: rejected drafts' KV lies past the accepted boundary
+            # — clamp seen_tokens and return wholly-surplus pages to the
+            # arena THIS step
+            freed = self.state.truncate(s, min(L + a, len(s.tokens)))
+            self.state.note_progress(s)
+            out[s.uid] = list(s.generated[before:])
+            self.spec_stats.proposed += len(d)
+            self.spec_stats.accepted += a
+            self.spec_stats.emitted += len(out[s.uid])
+            self.spec_stats.rollback_pages += freed
+            self.last_spec_round[s.uid] = (len(d), a, freed)
+        if anat.enabled:
+            anat.mark("sample_accept")
+        return out
+
     # --------------------------------------------------------------- step
 
     def _dispatch_multi(self, seqs, k: int) -> InFlightStep:
@@ -222,20 +540,14 @@ class InferenceEngineV2:
             self.kv.ensure_capacity(s, min(k, remaining))
         rb: RaggedBatch = self.state.pack([(s, 1) for s in seqs], 1, pad_to=batch)
         anat = self.anatomy
+        prog = self._program(("multi", batch, k))
         if anat.enabled:
             anat.note_shape("multi_decode", batch, k)
-        toks = self._to_device(rb.tokens[:, 0])
-        start_pos = self._to_device(rb.start_pos)
-        block_tables = self._to_device(rb.block_tables)
-        chunk_lens = self._to_device(rb.chunk_lens)
-        out = torch.empty((batch, k), dtype=torch.int32, device=self.device)
-        for i in range(k):
-            toks = self._forward_last(toks[:, None], start_pos + i, block_tables, chunk_lens)
-            out[:, i] = toks
+        toks = prog.run((rb.tokens[:, 0], rb.start_pos, rb.block_tables, rb.chunk_lens))
         if anat.enabled:
-            anat.mark("dispatch")
+            anat.mark("compile_wait" if self._fresh_compile else "dispatch")
         inf = InFlightStep("multi")
-        inf.tokens = out
+        inf.tokens = toks
         inf.seqs = list(seqs)
         inf.k = k
         return inf
@@ -295,6 +607,7 @@ class InferenceEngineV2:
         opens the step window (idempotent: a frontend that planned first
         opened it itself); an empty or failed dispatch closes it here."""
         anat = self.anatomy
+        self._fresh_compile = False
         if anat.enabled:
             anat.step_begin()
         inflight = None
@@ -310,6 +623,21 @@ class InferenceEngineV2:
                 anat.step_end()
 
     def _dispatch_inner(self, plan: StepPlan) -> Optional[InFlightStep]:
+        anat = self.anatomy
+        # per-step spec accounting: entries describe THIS step's verify
+        # round only (the serving frontend reads them right after the
+        # step's completion)
+        self.last_spec_round.clear()
+        if self.drafter is not None and plan.decode and not plan.prefill:
+            # speculation outranks the fused rung on pure-decode rounds; a
+            # round where no row drafts (cold history, per-request opt-out,
+            # page pressure shrank every draft to zero) falls through to
+            # the fused/single-step rungs
+            drafts = self._plan_drafts(plan.decode)
+            if anat.enabled:
+                anat.mark("draft_plan")
+            if any(drafts):
+                return self._dispatch_spec(plan.decode, drafts)
         k_cfg = self.econfig.decode_steps_per_dispatch
         if k_cfg > 1 and plan.decode and not plan.prefill:
             # OVERSHOOT policy: always run the full k rung and discard
@@ -334,14 +662,13 @@ class InferenceEngineV2:
         chunk = 1 if chunk == 1 else self.econfig.scheduler.prefill_chunk
         batch = self._bucket_batch(len(work))
         rb: RaggedBatch = self.state.pack(work, chunk, pad_to=batch)
-        anat = self.anatomy
+        prog = self._program((batch, chunk))
         if anat.enabled:
             anat.note_shape("mixed" if plan.prefill and plan.decode else "prefill" if plan.prefill else "decode",
                             batch, chunk)
-        next_tok = self._forward_last(self._to_device(rb.tokens), self._to_device(rb.start_pos),
-                                      self._to_device(rb.block_tables), self._to_device(rb.chunk_lens))
+        next_tok = prog.run((rb.tokens, rb.start_pos, rb.block_tables, rb.chunk_lens))
         if anat.enabled:
-            anat.mark("dispatch")
+            anat.mark("compile_wait" if self._fresh_compile else "dispatch")
         inf = InFlightStep("single")
         inf.tokens = next_tok
         inf.rows = [(int(uid), int(rb.chunk_lens[i]), self.state.seqs[uid], i)
@@ -355,6 +682,8 @@ class InferenceEngineV2:
         identity; their tokens are discarded whole, never half-applied.
         Closes the anatomy step window even when the readback raises."""
         try:
+            if inf.kind == "spec":
+                return self._complete_spec(inf)
             if inf.kind == "multi":
                 return self._complete_multi(inf)
             return self._complete_single(inf)

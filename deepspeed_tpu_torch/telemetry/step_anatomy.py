@@ -52,8 +52,9 @@ A **compile tracker** rides along: every JIT cache miss the engine
 reports (``note_compile``) is tagged warm-up or — after
 :meth:`mark_steady` — an *unexpected steady-state recompile*, the
 regression guard the AOT roadmap item will be held to (a serving step
-set that recompiles mid-measurement is not AOT).  The PyTorch engine runs
-eagerly and compiles nothing, so on it the tracker stays empty.
+set that recompiles mid-measurement is not AOT).  On the PyTorch engine a
+compile is the build of one step program: a CUDA graph's capture on the
+card, the first eager dispatch of a key on the CPU.
 
 Overhead contract: the disabled path (:data:`NULL_ANATOMY`) allocates
 NOTHING per call — one attribute read + one predicate per hook, pinned

@@ -77,6 +77,31 @@ def test_paged_attention_kernel_matches_plain(dtype, d, c, n_split):
     assert bool((got[3] == 0).all())
 
 
+@pytest.mark.parametrize("n_split", [None, 1, 2])
+def test_paged_attention_kernel_at_the_verify_shape(n_split):
+    """K3 at the speculative verify round of Llama-3-8B (the engine's
+    ("verify", 8, 5) key): 8 rows of C = 5 (the last token and 4 drafts),
+    32/8 heads of 128, bf16, contexts 64-1024 over shuffled pages, whole and
+    split over the context, against the plain version (tolerance as above)."""
+    rng = np.random.default_rng(5)
+    page, b, c = 16, 8, 5
+    start = rng.integers(64, 1020, b).astype(np.int32)
+    need = [-(-(int(s) + c) // page) for s in start]
+    bt = np.zeros((b, 65), np.int32)
+    phys = list(rng.permutation(np.arange(1, sum(need) + 1)))
+    for i, n in enumerate(need):
+        bt[i, :n] = phys[:n]
+        phys = phys[n:]
+    pages = torch.from_numpy(rng.normal(size=(sum(need) + 1, page, 2, 8, 128)).astype(np.float32)).cuda()
+    q = torch.from_numpy(rng.normal(size=(b, c, 32, 128)).astype(np.float32)).cuda()
+    args = (q.to(torch.bfloat16), pages.to(torch.bfloat16), torch.from_numpy(bt).cuda(),
+            torch.from_numpy(start).cuda(), torch.full((b, ), c, dtype=torch.int32, device="cuda"), page)
+    got = paged_attention_cuda(*args) if n_split is None else paged_attention_cuda(*args, n_split=n_split)
+    want = paged_attention(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
 def test_paged_attention_kernel_mixed_padding_rows():
     """A mixed SplitFuse batch inside one C = 256 chunk: a prefill row, a
     130-row continuation, a decode row (its rep heads in one row tile, the

@@ -160,9 +160,10 @@ def test_port_engine_counts_forwards_and_rejects_unported_options(weights):
                                                                  decode_steps_per_dispatch=4), device="cpu")
     eng.generate([[1, 2, 3]], max_new_tokens=5)     # 1 prefill step + 1 fused rung of 4 rounds
     assert eng.forward_calls == 5
-    for bad in ({"tensor_parallel": 2}, {"spec": object()}):
-        with pytest.raises(NotImplementedError):
-            build_engine(TCFG, state, RaggedInferenceEngineConfig(**bad), device="cpu")
+    # speculative decoding is ported (tests/test_torch_spec_decode.py);
+    # tensor-parallel serving is not
+    with pytest.raises(NotImplementedError):
+        build_engine(TCFG, state, RaggedInferenceEngineConfig(tensor_parallel=2), device="cpu")
     # KV staging is ported (tests/test_torch_serving_kv_migration.py): it
     # stages a real page and refuses the reserved null page
     assert eng.kv.export_pages(eng.cache, [1]).shape == (TCFG.num_hidden_layers, 1, KV["page_size"], 2,

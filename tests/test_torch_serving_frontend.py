@@ -222,28 +222,38 @@ def _anatomy(be):
     assert anat.total_steps > 0 and anat._cur is None and serve._anat_steps_seen == anat.total_steps
     summary = {k: v for k, v in anat.summary().items() if k != "compiles"}
     shapes = {k: {f: v for f, v in agg.items() if f != "compiles"} for k, agg in anat.by_shape().items()}
-    return {"summary": summary, "by_shape": shapes, "serve": serve_view(serve, reqs)}, len(anat.compiles)
+    compiles = [(c.key, c.step_index, c.steady, c.aot) for c in anat.compiles]
+    return {"summary": summary, "by_shape": shapes, "serve": serve_view(serve, reqs)}, compiles
 
 
 def test_step_anatomy_windows_match_jax(backends):
     """The step windows, their shapes and their times on the virtual clock
-    equal the JAX engine's; the port compiles nothing, so its compile log
-    stays empty where the JAX engine logs its step programs."""
+    equal the JAX engine's, and so does the compile log: the port builds a
+    step program at the first dispatch of each key, where the JAX engine
+    compiles one."""
     want, jax_compiles = _anatomy(backends["jax"])
     got, port_compiles = _anatomy(backends["port"])
     assert got == want
-    assert port_compiles == 0 < jax_compiles
+    assert port_compiles == jax_compiles and len(jax_compiles) > 0
 
 
 def test_engine_spec_hooks(backends):
-    """``set_spec(uid, False)`` is a no-op, ``set_spec(uid, True)`` raises
-    (speculative decoding is not ported), ``last_spec_round`` stays empty."""
-    eng = backends["port"].engine()
-    eng.put([0], [[5, 9, 2]], max_new_tokens=2)
-    eng.set_spec(0, False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    """On an engine without a spec config ``set_spec`` is a no-op either
+    way and ``last_spec_round`` stays empty; with one, ``set_spec`` records
+    the request's choice until the request leaves — as in the JAX engine."""
+    views = {}
+    for name, be in backends.items():
+        eng = be.engine()
+        eng.put([0], [[5, 9, 2]], max_new_tokens=2)
+        eng.set_spec(0, False)
         eng.set_spec(0, True)
-    eng.step()
-    assert eng.last_spec_round == {}
-    eng.preempt(0)
-    assert eng.last_spec_round == {} and eng.anatomy.enabled is False
+        eng.step()
+        plain = (dict(eng._spec_on), dict(eng.last_spec_round))
+        eng.preempt(0)
+        spec_eng = be.engine(spec=be.v2.SpecConfig(max_draft=4))
+        spec_eng.put([0], [[5, 9, 2]], max_new_tokens=2)
+        spec_eng.set_spec(0, False)
+        recorded = dict(spec_eng._spec_on)
+        spec_eng.flush(0)
+        views[name] = (plain, recorded, dict(spec_eng._spec_on), eng.anatomy.enabled)
+    assert views["port"] == views["jax"] == (({}, {}), {0: False}, {}, False)

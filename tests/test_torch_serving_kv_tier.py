@@ -9,11 +9,11 @@ prefetched promotion hidden under later steps, an unhinted resume that
 stalls, KV-pressure preemption that demotes and promotes back, the tier
 against evict-and-recompute on the clock, a prefix evicted to the host and
 promoted back, the host tier's capacity, the device and host watermarks,
-and a seeded audit of random park/resume/preempt interleavings.  Each run
-makes the JAX test's assertions; tokens, states, serving and tier stats,
-the clock and page accounting must be equal across the two.  Left out: the
-speculative-decoding case (not ported) and the fleet directory's host tier
-(the fleet is not ported).
+and a seeded audit of random park/resume/preempt interleavings, and park and
+resume under speculative decoding.  Each run makes the JAX test's
+assertions; tokens, states, serving and tier stats, the clock and page
+accounting must be equal across the two.  Left out: the fleet directory's
+host tier (the fleet is not ported).
 """
 
 import numpy as np
@@ -68,6 +68,27 @@ def _park_resume(be, prefix_cache):
     assert tier.stats["demotions"] == tier.stats["promotions"] == 1
     assert serve.stats.kv_imports >= 1 and serve.stats.kv_import_fallbacks == 0
     return _tier_view(serve, tier, [r1, r2])
+
+
+def _park_resume_spec(be):
+    """``test_kv_tier.py:114``: with speculation on, the resumed stream
+    still equals the never-parked golden (the verify loop replays from the
+    imported KV exactly)."""
+    spec = be.v2.SpecConfig(max_draft=4)
+    (p1, ) = _prompts(3, (9, ))
+    golden = be.generate([p1], 10, spec=spec)
+    serve, tier = be.serve(tier=True, spec=spec)
+    r1 = serve.submit(p1, max_new_tokens=10)
+    _decode_until(serve, be, r1)
+    assert serve.park(r1.uid)
+    serve.tick()
+    assert serve.resume(r1.uid)
+    serve.drain()
+    assert r1.state is be.RequestState.DONE and [list(r1.tokens)] == golden
+    assert tier.stats["promotions"] == 1
+    view = _tier_view(serve, tier, [r1])
+    view["spec_stats"] = vars(serve.engine.spec_stats)
+    return view
 
 
 def _prefetch_hides_transfer(be):
@@ -249,6 +270,7 @@ def _property_audit(be, seed=0):
 SCENARIOS = {
     "park_resume_prefix_cache": lambda be: _park_resume(be, True),
     "park_resume_no_prefix_cache": lambda be: _park_resume(be, False),
+    "park_resume_spec": _park_resume_spec,
     "prefetch_hides_transfer": _prefetch_hides_transfer,
     "unhinted_resume_stalls": _unhinted_resume_stalls,
     "pressure_demotes_and_promotes": _pressure_demotes_and_promotes,

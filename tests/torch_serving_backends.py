@@ -34,6 +34,7 @@ class Backend:
         self.kvtier = importlib.import_module(f"{root}.serving.kvtier")
         self.sessions = importlib.import_module(f"{root}.serving.sessions")
         self.telemetry = importlib.import_module(f"{root}.telemetry")
+        self.fault_injection = importlib.import_module(f"{root}.resilience.fault_injection")
         self.v2 = importlib.import_module(f"{root}.inference.v2")
         self.sched = importlib.import_module(f"{root}.inference.v2.scheduler")
         self.cache_mod = importlib.import_module(f"{root}.models.llama_cache")
@@ -41,9 +42,10 @@ class Backend:
         self.RequestState = self.serving.RequestState
         self._goldens = {}
 
-    def engine(self, num_pages=64, max_seqs=8, prefill_chunk=8, max_pages_per_seq=8, **overrides):
+    def engine(self, num_pages=64, max_seqs=8, prefill_chunk=8, max_pages_per_seq=8, decode_bucket=4, **overrides):
         kv = self.cache_mod.PagedKVConfig(num_pages=num_pages, page_size=PAGE, max_pages_per_seq=max_pages_per_seq)
-        sched = self.sched.SchedulerConfig(**{**SCHED, "max_seqs": max_seqs, "prefill_chunk": prefill_chunk})
+        sched = self.sched.SchedulerConfig(**{**SCHED, "max_seqs": max_seqs, "prefill_chunk": prefill_chunk,
+                                              "decode_bucket": decode_bucket})
         overrides.setdefault("decode_steps_per_dispatch", 1)
         overrides.setdefault("kv_dtype", self.dtype)
         econf = self.v2.RaggedInferenceEngineConfig(kv=kv, scheduler=sched, **overrides)
