@@ -111,7 +111,24 @@ source, all started together.  Phases:
      phase 3's greedy mix plus two prompts that repeat a pattern served
      with and without speculation (verify rounds, acceptance, rollback
      pages, pages accounted); then float32 at phase 4's setting, where the
-     spec and plain streams must be equal but for reported rounding ties.
+     spec and plain streams must be equal but for reported rounding ties;
+ 14. the serving fleet (run after phase 13, on phase 3's weights): three
+     replicas of one engine factory sharing the weights on the card, a
+     ``PrefixDirectory`` and its routing policy, ``warm_all`` on each, then
+     ``FleetSimulator`` on a wall clock over 24 Poisson requests (8/s, three
+     512-token prefix groups, 32-64 new tokens) with the last replica
+     killed at 1.0 s and recovered at 2.5 s — TTFT/TPOT p50/p99, goodput,
+     e2e p50, round and tick ms, the recovery split into build, ``warm_all``
+     and probe, affinity hits and prefix imports, each engine's forwards
+     and K3 launches, memory before and after the kill and after the
+     recovery; every request done with its tokens, one kill that requeued
+     work, the recovered replica healthy and serving, no tick error, pages
+     accounted, K3 == layers x the forwards of every engine made (the
+     killed one included), the dead engine collected and its arena
+     returned; a profiled decode round's busy share; then the JAX fleet
+     test's kill mid-decode in float32 at phase 4's setting, its streams
+     equal to ``generate`` but for rounding ties, twice with equal
+     summaries.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -129,6 +146,7 @@ import subprocess
 import sys
 import time
 import traceback
+import weakref
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -2547,6 +2565,343 @@ def phase_step_graphs(cfg, state, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 14
+
+FLEET_REPLICAS = 3
+FLEET_PAGES = 512                  # 512 pages of 16 tokens: 1 GiB of bf16 KV a replica
+FLEET_REQUESTS = 24
+FLEET_RATE = 8.0                   # Poisson arrivals, requests/s
+FLEET_PREFIX_GROUPS = 3
+FLEET_PREFIX_PAGES = 32            # a 512-token shared prefix per group
+FLEET_SUFFIX = 64                  # lognormal suffix tokens around this
+FLEET_DEADLINE = (10.0, 0.5)       # deadline: arrival + 10 s + 0.5 s a new token
+FLEET_KILL = 1.0                   # kill the last replica then ...
+FLEET_RECOVER = 2.5                # ... and recover it, as bench_router.py's run_point does
+# a replica holds at most 2 requests queued beyond its 8 running ones; the
+# rest wait in the router's queue, so a recovered replica takes its share
+FLEET_QUEUE_DEPTH = 2
+FLEET_MEM_SLACK = 64 << 20
+
+
+def fleet_workload(vocab: int, seed: int = 15) -> list:
+    """``scripts/bench_router.py``'s ``_workload`` at Llama-3-8B's sizes:
+    Poisson arrivals whose prompts share page-aligned group prefixes (512
+    tokens) followed by a lognormal suffix, 32-64 new tokens each."""
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(1, vocab, FLEET_PREFIX_PAGES * PAGE).tolist() for _ in range(FLEET_PREFIX_GROUPS)]
+    t, out = 0.0, []
+    for _ in range(FLEET_REQUESTS):
+        t += float(rng.exponential(1.0 / FLEET_RATE))
+        group = int(rng.integers(0, FLEET_PREFIX_GROUPS))
+        suffix = int(np.clip(rng.lognormal(np.log(FLEET_SUFFIX), 0.4), 2, 4 * FLEET_SUFFIX))
+        n_new = int(rng.integers(32, 65))
+        out.append({"arrival_ts": round(t, 6), "prompt": prefixes[group] + rng.integers(1, vocab, suffix).tolist(),
+                    "max_new_tokens": n_new,
+                    "deadline": round(t + FLEET_DEADLINE[0] + FLEET_DEADLINE[1] * n_new, 6)})
+    return out
+
+
+def arena_bytes(eng) -> int:
+    return sum(t.numel() * t.element_size() for t in eng.cache)
+
+
+def graph_k3(eng) -> int:
+    """K3 launches the engine's graph replays added (``ReplayCounts``)."""
+    return sum(prog.counts.get(paged_attention_cuda) for prog in eng._step_fns.values()
+               if hasattr(prog, "counts"))
+
+
+def fleet_round_profile(router, pool, vocab: int) -> dict:
+    """A fleet round in decode: 8 fresh requests a replica, stepped until
+    every one decodes; then the wall time of one round (each replica's
+    tick, ending in its readback) and the device time of the next round
+    under torch.profiler, over that wall time (the profiler slows the
+    host).  The fleet then drains."""
+    from deepspeed_tpu_torch.serving.fleet import FleetSimulator
+    rng = np.random.default_rng(16)
+    n = 8 * len(pool.rids)
+    for _ in range(n):
+        router.submit(rng.integers(1, vocab, 64).tolist(), max_new_tokens=64, arrival_ts=pool.clock.now())
+    router.dispatch_pending(pool.clock.now())
+
+    def fleet_round():
+        router.dispatch_pending(pool.clock.now())
+        for rid in pool.rids:
+            pool.tick(rid)
+        router.poll(pool.clock.now())
+
+    for _ in range(50):
+        seqs = [s for rid in pool.rids for s in pool.replica(rid).serve.engine.state.seqs.values()]
+        if router.queue_depth == 0 and all(pool.replica(rid).serve.load_stats()["queue_depth"] == 0
+                                           for rid in pool.rids) and all(s.in_decode for s in seqs):
+            break
+        fleet_round()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet_round()
+    wall = time.perf_counter() - t0
+    rows = device_profile(fleet_round)
+    busy_ms = sum(us for _, us in rows.values()) / 1e3
+    FleetSimulator(router).run([])
+    return {"round_ms": 1e3 * wall, "device_ms": busy_ms, "busy_share": busy_ms / (1e3 * wall),
+            "k3_events": sum(c for name, (c, _) in rows.items() if "paged_attention" in name),
+            "device_ops": sum(c for c, _ in rows.values())}
+
+
+def fleet_failover_f32() -> dict:
+    """``tests/unit/inference/test_fleet_router.py``'s
+    ``test_kill_mid_decode_failover_outputs_identical`` on the card at
+    phase 4's setting (float32, TF32 off, Llama-3-8B width, 2 layers, prefix
+    cache on): two replicas on a ``VirtualClock``, round-robin, replica 0
+    killed mid-decode at t = 4 and recovered at t = 10.  Every stream must
+    equal a single engine's ``generate`` but for rounding ties (phase 13's
+    rule), and a second run must give the same ``router.summary()``."""
+    from deepspeed_tpu_torch.serving import VirtualClock
+    from deepspeed_tpu_torch.serving.fleet import FleetSimulator, ReplicaPool, ReplicaState, RoundRobinPolicy, Router
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, state = llama3_8b(2, torch.float32, seed=1)
+    econf = engine_config(torch.float32, 256)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 300, 700, 120)]
+    golden = build_engine(cfg, state, econf, device="cuda").generate(prompts, max_new_tokens=48)
+    runs = []
+    for _ in range(2):
+        pool = ReplicaPool(lambda: build_engine(cfg, state, econf, device="cuda"), 2, clock=VirtualClock())
+        router = Router(pool, RoundRobinPolicy())
+        at_kill = {}                 # fid -> tokens delivered when its replica died
+        real_kill = pool.kill
+
+        def kill(rid, reason="killed", router=router, real_kill=real_kill, at_kill=at_kill):
+            at_kill.update({fr.fid: len(fr.tokens) for fr in router.requests
+                            if fr._current is not None and fr._current[0] == rid})
+            return real_kill(rid, reason)
+        pool.kill = kill
+        reqs = FleetSimulator(router).run(
+            [dict(prompt=p, max_new_tokens=48, arrival_ts=0.5 * i) for i, p in enumerate(prompts)],
+            schedule=[(4.0, "kill", 0), (10.0, "recover", 0)])
+        victims = [r for r in reqs if r.failovers]
+        runs.append({"tokens": [list(r.tokens) for r in reqs], "summary": router.summary(),
+                     "done": all(r.state.name == "DONE" for r in reqs),
+                     "mid_stream_victims": sum(1 for r in victims if 0 < at_kill.get(r.fid, 0) < r.max_new_tokens),
+                     "victims": len(victims), "tokens_at_kill": at_kill,
+                     "replica0": [h[2] for h in pool.health.history if h[0] == 0] == [
+                         ReplicaState.DEAD, ReplicaState.RECOVERING, ReplicaState.HEALTHY]})
+        del pool, router
+    diffs = first_difference_margins(cfg, state, prompts, {"spec": runs[0]["tokens"], "plain": golden})
+    res = {"streams_equal_generate": runs[0]["tokens"] == golden, "differences": diffs,
+           "rounding_ties": sum(d["tie"] for d in diffs), "victims": runs[0]["victims"],
+           "mid_stream_victims": runs[0]["mid_stream_victims"], "tokens_at_kill": runs[0]["tokens_at_kill"],
+           "summaries_equal": runs[0]["summary"] == runs[1]["summary"],
+           "tokens_equal_across_runs": runs[0]["tokens"] == runs[1]["tokens"],
+           "failover": runs[0]["summary"]["failover"]}
+    res["ok"] = (all(r["done"] and r["replica0"] for r in runs) and res["mid_stream_victims"] >= 1
+                 and all(d["tie"] for d in diffs) and res["summaries_equal"] and res["tokens_equal_across_runs"])
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_fleet(cfg, state, smi: str) -> dict:
+    """The serving fleet on Llama-3-8B: three replicas of one engine
+    factory over phase 3's weights on one card, a ``PrefixDirectory`` and
+    its routing policy, ``warm_all`` on each, then ``FleetSimulator`` on a
+    wall clock over ``fleet_workload`` with the last replica killed at
+    ``FLEET_KILL`` s and recovered at ``FLEET_RECOVER`` s (``scripts/
+    bench_router.py``'s ``run_point``); then a profiled decode round, and
+    the float32 failover scenario."""
+    from deepspeed_tpu_torch.serving import ServingConfig
+    from deepspeed_tpu_torch.serving.admission import AdmissionConfig
+    from deepspeed_tpu_torch.serving.fleet import (FleetSimulator, PrefixDirectory, PrefixDirectoryPolicy,
+                                                   ReplicaPool, ReplicaState, Router)
+    layers = cfg.num_hidden_layers
+    econf = engine_config(torch.bfloat16, FLEET_PAGES)
+    made = []                       # every engine the factory built: a weak reference and its counts
+
+    def factory():
+        t0 = time.perf_counter()
+        eng = build_engine(cfg, state, econf, device="cuda")
+        made.append({"ref": weakref.ref(eng), "build_s": time.perf_counter() - t0, "forwards": None, "graph_k3": None})
+        return eng
+
+    weights = {t.data_ptr() for t in state.values()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    clock = WallClock()
+    directory = PrefixDirectory(page_size=PAGE)
+    pool = ReplicaPool(factory, FLEET_REPLICAS, clock=clock, prefix_directory=directory,
+                       serving_config=ServingConfig(admission=AdmissionConfig(max_queue_depth=FLEET_QUEUE_DEPTH)))
+    router = Router(pool, PrefixDirectoryPolicy(directory))
+    engines = [pool.replica(rid).serve.engine for rid in pool.rids]
+    shared = all({p.data_ptr() for p in e.model.parameters()} <= weights for e in engines)
+    warm = []
+    for e in engines:
+        t0 = time.perf_counter()
+        warm.append((e.warm_all()["compiled"], time.perf_counter() - t0))
+    per_engine_mem = [arena_bytes(e) + graph_pool_bytes(e._graphs.pool) for e in engines]
+    log(f"  {FLEET_REPLICAS} replicas built in {sum(m['build_s'] for m in made):.2f} s, weights shared: {shared}; "
+        f"warm_all (keys, s): {warm}; arena {arena_bytes(engines[0])} B and graph pool "
+        f"{graph_pool_bytes(engines[0]._graphs.pool)} B a replica; {torch.cuda.memory_allocated() - mem0} B "
+        f"allocated beside the weights")
+    del engines, e
+
+    # instruments: tick errors, the kill (the dead engine's counts and the
+    # memory around it), the recovery (build, warm_all, probe), round times
+    errors, kill_info, rec_info, mem, tick_s = [], {}, {}, {}, []
+    record_error = pool.health.record_error
+
+    def on_error(rid, exc):
+        errors.append((rid, repr(exc)))
+        return record_error(rid, exc)
+    pool.health.record_error = on_error
+    real_kill, real_recover, real_warm, real_tick = pool.kill, pool.recover, pool._warm_replacement, pool.tick
+
+    def kill(rid, reason="killed"):
+        rep = pool.replica(rid)
+        if rep.serve is not None:
+            eng = rep.serve.engine
+            rec = next(m for m in made if m["ref"]() is eng)
+            rec.update(forwards=eng.forward_calls, graph_k3=graph_k3(eng), arena=arena_bytes(eng))
+            kill_info.update(queued=len(rep.serve._queue), active=len(rep.serve._active),
+                             in_flight_step=rep.serve._inflight is not None,
+                             stream_idle=torch.cuda.current_stream().query())
+            del eng, rec
+        mem["before_kill"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        victims = real_kill(rid, reason)
+        kill_info["kill_s"] = time.perf_counter() - t0
+        kill_info["dead_engine_collected"] = made[rid]["ref"]() is None
+        mem["after_kill"] = torch.cuda.memory_allocated()
+        return victims
+
+    def recover(rid):
+        rec_info["recover_call_ts"] = clock.now()
+        t0 = time.perf_counter()
+        n_made = len(made)
+        real_recover(rid)
+        rec_info["recover_s"] = time.perf_counter() - t0
+        rec_info["build_s"] = sum(m["build_s"] for m in made[n_made:])
+        eng = pool.replica(rid).serve.engine
+        rec_info["fresh_arena"], rec_info["fresh_graph_pool"] = arena_bytes(eng), graph_pool_bytes(eng._graphs.pool)
+        del eng
+        mem["after_recovery"] = torch.cuda.memory_allocated()
+
+    def warm_replacement(rid):
+        t0 = time.perf_counter()
+        real_warm(rid)
+        rec_info["warm_all_s"] = time.perf_counter() - t0
+
+    def tick(rid):
+        t0 = time.perf_counter()
+        out = real_tick(rid)
+        tick_s.append((rid, time.perf_counter() - t0))
+        return out
+    real_warmup = router.warmup_replica
+
+    def warmup_replica(rid):
+        t0 = time.perf_counter()
+        out = real_warmup(rid)
+        rec_info["warmup_imports_s"] = time.perf_counter() - t0
+        return out
+    pool.kill, pool.recover, pool._warm_replacement, pool.tick = kill, recover, warm_replacement, tick
+    router.warmup_replica = warmup_replica
+
+    arrivals = fleet_workload(cfg.vocab_size)
+    victim = FLEET_REPLICAS - 1
+    schedule = [(FLEET_KILL, "kill", victim), (FLEET_RECOVER, "recover", victim)]
+    for m in made:
+        m["ref"]().forward_calls = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pool.rebase_clock()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = FleetSimulator(router)
+    reqs = sim.run(arrivals, schedule=schedule)
+    wall = time.perf_counter() - t0
+    launches, split_calls = paged_attention_cuda.launches, paged_attention_cuda.split_calls
+    peak = torch.cuda.max_memory_allocated()
+    live = {rid: pool.replica(rid).serve.engine for rid in pool.rids}
+    for m in made:
+        eng = m["ref"]()
+        if eng is not None:
+            m.update(forwards=eng.forward_calls, graph_k3=graph_k3(eng))
+    del eng
+    forwards = sum(m["forwards"] for m in made)
+    summary = router.summary()
+
+    history = [(rid, a.name, b.name, ts, why) for rid, a, b, ts, why in pool.health.history]
+    t_dead = next(ts for rid, _, b, ts, _ in history if rid == victim and b == "DEAD")
+    t_recovering = next(ts for rid, _, b, ts, _ in history if rid == victim and b == "RECOVERING")
+    t_healthy = next((ts for rid, _, b, ts, _ in history if rid == victim and b == "HEALTHY"), None)
+    served_after = sum(1 for r in reqs if r.state.name == "DONE"
+                       and any(rid == victim and ts >= (t_healthy or math.inf) for rid, ts in r.dispatches))
+    pages = {rid: {"free": e.kv.allocator.free_pages, "cached": e.kv.prefix_cache.cached_pages,
+                   "live": len(e.state.seqs)} for rid, e in live.items()}
+    by_engine = [{"replica": i if i < FLEET_REPLICAS else victim, "forwards": m["forwards"],
+                  "k3_launches": layers * m["forwards"], "graph_replay_k3": m["graph_k3"],
+                  "build_s": m["build_s"]} for i, m in enumerate(made)]
+    round_ticks = {}
+    for rid, dt in tick_s:
+        round_ticks.setdefault(rid, []).append(dt)
+    res = {"card": smi, "replicas": FLEET_REPLICAS, "requests": len(reqs),
+           "prompt_tokens": sum(len(a["prompt"]) for a in arrivals),
+           "generated": sum(len(r.tokens) for r in reqs), "wall_s": wall, "rounds": sim.rounds,
+           "round_wall_ms_mean": 1e3 * wall / sim.rounds,
+           "tick_ms_p50_by_replica": {rid: 1e3 * float(np.median(v)) for rid, v in round_ticks.items()},
+           "ttft_s": {k: summary["ttft"][k] for k in ("p50", "p99")},
+           "tpot_s": {k: summary["tpot"][k] for k in ("p50", "p99")},
+           "e2e_s_p50": summary["e2e"]["p50"], "goodput_rps": summary["goodput_rps"],
+           "affinity": summary["affinity"], "prefix_imports": router.stats["prefix_imports"],
+           "warmup_imports": router.stats["warmup_imports"], "failover": summary["failover"],
+           # on the fleet's clock: the kill, the scheduled recover call
+           # (the fresh engine's build and warm_all inside it), RECOVERING
+           # (the directory's warm-up imports follow), HEALTHY after the
+           # probe tick
+           "recovery": {"dead_ts": t_dead, "recovering_ts": t_recovering, "healthy_ts": t_healthy,
+                        "kill_to_healthy_s": None if t_healthy is None else t_healthy - t_dead, **rec_info,
+                        "recovering_to_healthy_s": None if t_healthy is None else t_healthy - t_recovering},
+           "kill": kill_info, "served_after_recovery": served_after, "history": history, "tick_errors": errors,
+           "by_engine": by_engine, "k3_launches": launches, "k3_split_calls": split_calls, "forwards": forwards,
+           "memory": {"weights": sum(t.numel() * t.element_size() for t in state.values()), **mem,
+                      "peak": peak, "per_replica": per_engine_mem[0]}, "pages": pages}
+    expected_history = [(victim, "HEALTHY", "DEAD"), (victim, "DEAD", "RECOVERING"), (victim, "RECOVERING", "HEALTHY")]
+    fresh = rec_info.get("fresh_arena", 0) + rec_info.get("fresh_graph_pool", 0)
+    checks = {
+        "weights_shared": shared,
+        "all_done_with_their_tokens": all(r.state.name == "DONE" and len(r.tokens) == a["max_new_tokens"]
+                                          for r, a in zip(reqs, arrivals)),
+        "one_kill_requeued": summary["failover"]["kills"] == 1 and summary["failover"]["requeued"] >= 1,
+        "recovered_healthy_and_serving": t_healthy is not None and served_after >= 1,
+        "no_tick_error": not errors,
+        "only_scheduled_transitions": [h[:3] for h in history] == expected_history,
+        "directory_routed_warm": summary["affinity"]["hits"] >= 1,
+        "pages_accounted": all(p["live"] == 0 and p["free"] + p["cached"] == FLEET_PAGES - 1 for p in pages.values()),
+        "k3_launches_layers_x_forwards_of_every_engine": launches == layers * forwards > 0
+        and len(made) == FLEET_REPLICAS + 1 and all(m["forwards"] is not None for m in made),
+        "dead_engine_collected": kill_info.get("dead_engine_collected", False),
+        "kill_frees_the_arena": mem["after_kill"] <= mem["before_kill"] - made[victim]["arena"] + FLEET_MEM_SLACK,
+        "recovery_memory_bounded": mem["after_recovery"] <= mem["before_kill"] + fresh + FLEET_MEM_SLACK,
+    }
+    pool.kill, pool.recover, pool._warm_replacement, pool.tick = real_kill, real_recover, real_warm, real_tick
+    router.warmup_replica = real_warmup
+    res["profiled_round"] = fleet_round_profile(router, pool, cfg.vocab_size)
+    log(f"  fleet ({smi}): " + json.dumps(res))
+    del live, pool, router, reqs, sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["f32_failover"] = fleet_failover_f32()
+    log("  fleet failover, float32 (2 layers): " + json.dumps(res["f32_failover"]))
+    checks["f32_failover_equals_generate_but_ties"] = res["f32_failover"]["ok"]
+    res["checks"] = checks
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"fleet phase failed {bad}: {json.dumps(checks)}")
+    return res
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2569,6 +2924,8 @@ def main() -> int:
     frontend = phase_serving_frontend(cfg, state, env["card"])
     log("== phase 13: the step set as CUDA graphs, and speculative decoding, on Llama-3-8B")
     graphs = phase_step_graphs(cfg, state, env["card"])
+    log("== phase 14: the serving fleet on Llama-3-8B (3 replicas on one card, a kill and a recovery)")
+    fleet = phase_fleet(cfg, state, env["card"])
     del state
     torch.cuda.empty_cache()
     phase_parity_f32()
@@ -2590,13 +2947,14 @@ def main() -> int:
     dec, ver = k3["decode"], k3["verify"]
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
-                "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"],
+                "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"]
+                + fleet["k3_launches"],
                 # a partition of "launches": phase 13's are the verify
                 # rounds of its spec serving run and the rest of the phase
                 "launches_by_path": {"serving_step": serving["k3_launches"],
                                      "serving_frontend": frontend["k3_launches"],
                                      "step_graphs": graphs["k3_launches"] - graphs["verify_k3_launches"],
-                                     "verify": graphs["verify_k3_launches"]},
+                                     "verify": graphs["verify_k3_launches"], "fleet": fleet["k3_launches"]},
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if n != "decode_f32"), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],

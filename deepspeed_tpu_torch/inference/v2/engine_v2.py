@@ -675,6 +675,13 @@ class InferenceEngineV2:
                     for i, uid in enumerate(rb.uids) if uid >= 0]
         return inf
 
+    def wait_step(self, inf: InFlightStep) -> None:
+        """Block until a dispatched step's device work is done, without
+        folding its tokens into engine state (the serving frontend's
+        ``close``: a dropped engine must have nothing in flight)."""
+        if inf.tokens is not None and inf.tokens.is_cuda:
+            torch.cuda.current_stream(inf.tokens.device).synchronize()
+
     def complete_step(self, inf: InFlightStep) -> Dict[int, List[int]]:
         """Read the in-flight step's tokens back (the step's only device →
         host copy) and fold them into engine state.  Rows whose sequence was

@@ -1203,10 +1203,20 @@ class ServingEngine:
         self._trace_ctx.pop(uid, None)
 
     def close(self) -> None:
-        """Detach from the engine: restore dict-insertion step ordering and
-        release the scheduler's reference to this frontend (a long-lived
-        engine must not keep a discarded frontend — and its per-request
-        stats log — reachable through order_key)."""
+        """Detach from the engine: wait for a step still in flight, restore
+        dict-insertion step ordering and release the scheduler's reference
+        to this frontend (a long-lived engine must not keep a discarded
+        frontend — and its per-request stats log — reachable through
+        order_key).
+
+        The in-flight step (``async_dispatch``) is waited for and dropped
+        unfolded: on the card it is a queued graph replay writing the
+        engine's arena, and the fleet drops a killed replica's engine right
+        after ``close``."""
+        if self._inflight is not None:
+            inf, _, _ = self._inflight
+            self._inflight = None
+            self.engine.wait_step(inf)
         if self.engine.scheduler.order_key is self._seq_order_key:
             self.engine.scheduler.order_key = None
 

@@ -9,9 +9,8 @@ Two drivers share the Session bookkeeping and the tool-stall ladder:
   request through the engine's host KV tier (``serve.park(uid,
   phase="tool_stall")``), prefetch a lead interval before the seeded
   tool result lands, then resume — the r22 prefetch-hidden contract.
-* :class:`FleetSessionCoordinator` — in the JAX package, the same loop
-  over a fleet ``Router`` (here it raises: the fleet is not ported yet),
-  implementing the
+* :class:`FleetSessionCoordinator` — the same loop over a fleet
+  :class:`~..fleet.router.Router`, implementing the
   :class:`~..fleet.sim.FleetSimulator` controller protocol
   (``pending()/poll(now)/next_wake(now)/marker()``).  Turns are routed
   with ``session=sid`` so the ``session_affinity`` policy can pin the
@@ -260,12 +259,83 @@ class SessionManager(_SessionDriverBase):
         raise RuntimeError(f"session loop exceeded max_steps={max_steps}")
 
 
-class FleetSessionCoordinator:
-    """The fleet-side session driver (the ``FleetSimulator`` controller over
-    a fleet ``Router``).  The fleet (``serving/fleet/``) is not ported yet:
-    constructing one raises and names the ROADMAP item that brings it."""
+class FleetSessionCoordinator(_SessionDriverBase):
+    """Fleet-side session driver: the :class:`FleetSimulator` controller
+    that submits each turn through the router (``session=sid`` so the
+    affinity policy can pin it), parks/resumes tool stalls on whichever
+    replica currently runs the request, and re-parks a stalled request
+    that failover resurrected on a survivor mid-stall."""
 
-    def __init__(self, router=None, sessions: Optional[List[dict]] = None,
+    def __init__(self, router, sessions: List[dict],
                  config: Optional[SessionConfig] = None):
-        raise NotImplementedError("FleetSessionCoordinator drives the serving fleet (serving/fleet/), "
-                                  "which is not ported yet: ROADMAP.md Queue 1 item 1, the fleet")
+        super().__init__(sessions, config)
+        self.router = router
+        self._frs: Dict[object, object] = {}    # sid -> live FleetRequest
+
+    # ------------------------------------------------------------- verbs
+
+    def _submit_turn(self, sess, prompt, now):
+        mnt = sess.cur["spec"]["max_new_tokens"]
+        try:
+            _fi.check("session.route")
+            fr = self.router.submit(prompt, max_new_tokens=mnt,
+                                    arrival_ts=now, session=sess.sid)
+        except _fi.InjectedCrash:
+            raise
+        except OSError:
+            # the session-routing edge failed: this turn degrades to
+            # stateless routing (no session tag, no stickiness) — counted,
+            # never a crash; the NEXT turn re-enters the sticky path
+            self.stats["route_faults"] += 1
+            fr = self.router.submit(prompt, max_new_tokens=mnt,
+                                    arrival_ts=now)
+        self._frs[sess.sid] = fr
+
+    def _fleet_req(self, sess):
+        return self._frs[sess.sid]
+
+    def _req_state(self, sess):
+        from ..fleet.router import FleetState
+        fr = self._fleet_req(sess)
+        if fr.state is FleetState.DONE:
+            return RequestState.DONE
+        if fr.state in (FleetState.TIMED_OUT, FleetState.REJECTED):
+            return RequestState.TIMED_OUT
+        # PENDING/DISPATCHED (incl. a failover in flight): still working.
+        # Report DECODE once tokens exist so the stall ladder can park.
+        return (RequestState.DECODE if fr.tokens else RequestState.PREFILL)
+
+    def _req_tokens(self, sess):
+        return list(self._fleet_req(sess).tokens)
+
+    def _park(self, sess):
+        return self.router.park_request(self._fleet_req(sess),
+                                        phase="tool_stall")
+
+    def _prefetch(self, sess):
+        return self.router.prefetch_resume_request(self._fleet_req(sess))
+
+    def _resume(self, sess):
+        return self.router.resume_request(self._fleet_req(sess))
+
+    # ------------------------------------------------ failover awareness
+
+    def _poll_active(self, sess, now):
+        # the fleet path has no per-token stream into the session: fold
+        # the router's first-token observation instant (idempotent — the
+        # first call wins, so a failover's re-delivery cannot move it)
+        ftt = self._fleet_req(sess).first_token_ts
+        if ftt is not None:
+            sess.note_first_token(ftt)
+        super()._poll_active(sess, now)
+
+    def _poll_stalled(self, sess, now):
+        # a sticky-replica death displaced the parked request and failover
+        # resurrected it generating on a survivor: re-park it for the
+        # stall's remainder (bytes are unaffected — greedy continuation —
+        # but the stall's TIMING contract is the session's to keep)
+        if now < sess.cur["resume_at"] \
+                and self.router.request_decoding(self._fleet_req(sess)) \
+                and self._park(sess):
+            self.stats["reparks"] += 1
+        super()._poll_stalled(sess, now)

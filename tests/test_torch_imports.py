@@ -50,10 +50,16 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.resilience.events",
     "deepspeed_tpu_torch.resilience.fault_injection",
     "deepspeed_tpu_torch.resilience.retry",
+    "deepspeed_tpu_torch.resilience.atomic_io",
+    "deepspeed_tpu_torch.resilience.watchdog",
     "deepspeed_tpu_torch.telemetry",
     "deepspeed_tpu_torch.telemetry.trace",
     "deepspeed_tpu_torch.telemetry.step_anatomy",
     "deepspeed_tpu_torch.telemetry.spans",
+    "deepspeed_tpu_torch.telemetry.metrics",
+    "deepspeed_tpu_torch.telemetry.slo",
+    "deepspeed_tpu_torch.telemetry.export",
+    "deepspeed_tpu_torch.telemetry.flight_recorder",
     "deepspeed_tpu_torch.serving",
     "deepspeed_tpu_torch.serving.request",
     "deepspeed_tpu_torch.serving.clock",
@@ -68,6 +74,16 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.serving.sessions",
     "deepspeed_tpu_torch.serving.sessions.session",
     "deepspeed_tpu_torch.serving.sessions.manager",
+    "deepspeed_tpu_torch.serving.fleet",
+    "deepspeed_tpu_torch.serving.fleet.tenancy",
+    "deepspeed_tpu_torch.serving.fleet.health",
+    "deepspeed_tpu_torch.serving.fleet.transport",
+    "deepspeed_tpu_torch.serving.fleet.pool",
+    "deepspeed_tpu_torch.serving.fleet.policies",
+    "deepspeed_tpu_torch.serving.fleet.prefix_directory",
+    "deepspeed_tpu_torch.serving.fleet.router",
+    "deepspeed_tpu_torch.serving.fleet.autoscale",
+    "deepspeed_tpu_torch.serving.fleet.sim",
 ]
 
 _PROBE = """

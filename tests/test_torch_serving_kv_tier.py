@@ -12,8 +12,8 @@ promoted back, the host tier's capacity, the device and host watermarks,
 and a seeded audit of random park/resume/preempt interleavings, and park and
 resume under speculative decoding.  Each run makes the JAX test's
 assertions; tokens, states, serving and tier stats, the clock and page
-accounting must be equal across the two.  Left out: the fleet directory's
-host tier (the fleet is not ported).
+accounting must be equal across the two.  The fleet directory's host tier
+(``test_kv_tier.py:303``) runs in ``tests/test_torch_serving_fleet_directory.py``.
 """
 
 import numpy as np

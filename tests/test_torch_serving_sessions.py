@@ -8,15 +8,15 @@ transition table, the tool-call detector, turn bookkeeping, and the
 through the host KV tier — every transcript equal to a fresh engine
 replaying the session turn by turn — with the park's ``tool_stall`` label,
 and with stall parking switched off.  The session specs are built here from
-a seed (the JAX package's generator is a fleet module, not ported).  Each
-run makes the JAX test's assertions; transcripts, turn records, manager,
-serving and tier stats must be equal across the two.  The fleet-side
-``FleetSessionCoordinator`` raises in the port.
+a seed.  Each run makes the JAX test's assertions; transcripts, turn
+records, manager, serving and tier stats must be equal across the two.  The
+fleet-side ``FleetSessionCoordinator`` runs the scenarios of
+``tests/unit/resilience/test_session_chaos.py`` over both packages.
 """
 
 import numpy as np
 import pytest
-from torch_serving_backends import make_backends
+from torch_serving_backends import make_backends, unit_scenario
 
 
 @pytest.fixture(scope="module")
@@ -192,7 +192,17 @@ def test_session_scenario_matches_jax(backends, name):
     assert got == want
 
 
-def test_fleet_session_coordinator_is_not_ported():
-    from deepspeed_tpu_torch.serving.sessions import FleetSessionCoordinator
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 1, the fleet"):
-        FleetSessionCoordinator(router=None, sessions=[])
+CHAOS = "resilience/test_session_chaos.py"
+FLEET_CASES = ["kill_sticky_replica_mid_stall_harvests_and_reparks", "kill_sticky_replica_between_turns_rehomes"]
+
+
+@pytest.mark.parametrize("name", FLEET_CASES)
+def test_fleet_session_scenario_matches_jax(name, tmp_path):
+    """The fleet side: ``FleetSessionCoordinator`` driving sessions through
+    a router under a sticky replica's death (``test_session_chaos.py``,
+    run unchanged over both packages by ``unit_scenario``): transcripts,
+    coordinator stats, request streams, ``router.summary()``, the health
+    history and page accounting equal across the two packages."""
+    want = unit_scenario(CHAOS, f"test_{name}", "jax", tmp_path)
+    got = unit_scenario(CHAOS, f"test_{name}", "port", tmp_path)
+    assert got == want

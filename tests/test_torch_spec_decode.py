@@ -29,7 +29,6 @@ import pytest
 from torch_serving_backends import page_view, request_view
 
 from deepspeed_tpu.models.llama import LlamaForCausalLM as JaxLlama
-from deepspeed_tpu.telemetry import MetricsRegistry
 
 PROMPTS = [[5, 9, 2, 7, 1], [3, 3, 8], [1, 2, 3, 1, 2, 3, 1, 2], [11, 4, 6, 2]]
 
@@ -241,7 +240,7 @@ def _serving_parity_and_metrics(be, reference):
     baseline = spec_serve(be, spec=False)
     base_reqs = [baseline.submit(p, max_new_tokens=10) for p in PROMPTS]
     baseline.drain()
-    metrics = MetricsRegistry()
+    metrics = be.telemetry.MetricsRegistry()
     serve = spec_serve(be, metrics=metrics)
     reqs = [serve.submit(p, max_new_tokens=10) for p in PROMPTS]
     serve.drain()
