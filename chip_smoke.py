@@ -69,9 +69,13 @@ source, all started together.  Phases:
      inside the path (CUDA events around its launch);
  10. K4a/K4b/K5a/K5b block quantization against their plain versions at
      the qgZ wire's shapes (the 24,576,000-element embedding of Llama-125M
-     in f32 and bf16, a padded norm weight, 1001 blocks), codes, scales and
-     dequantized values identical, with two faulty kernels the check must
-     reject; kernel / plain time and the bound; then the grouped K4a/K4b on
+     in f32 and bf16, a padded norm weight, 1001 blocks, the embedding as a
+     view one element into its storage, blocks of 64), codes, scales and
+     dequantized values identical and K5a on the route each case should
+     take (``q4_kernel_256``, or ``q4_kernel_any`` for the view and block
+     64), with three faulty kernels the check must reject; kernel / plain
+     time and the bound, K5a's also on bf16 input and on the misaligned
+     view; then the grouped K4a/K4b on
      one qgZ step's real table (the 111 gradients of Llama-125M at W 2, bf16
      input): the send buffer, the received copies, the shards and the
      gathered tensors identical to the plain versions, two faulty grouped
@@ -86,8 +90,8 @@ source, all started together.  Phases:
      one step's real gradients through the grouped exchange equal to the
      per-tensor route bit for bit, the codec's ms per step with host issue
      included on both routes; then LoCo (K4b 3 per step), a float32-wire
-     control and the int4 collectives (K5a/K5b) against their plain
-     versions;
+     control and the int4 collectives (K5a/K5b, K5a on ``q4_kernel_256``)
+     against their plain versions;
  12. the serving stack above the engine (run after phase 4, on phase 3's
      weights): ``ServingEngine`` on a wall clock over ``build_engine`` with
      a ``TieredKVManager``, 16 open-loop requests (prompts 64-1024, two
@@ -166,8 +170,8 @@ from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delt
 from deepspeed_tpu_torch.ops.paged_attention import (choose_n_split, merge_partials_cuda, merge_partials_plain,
                                                      mma_probe_cuda, paged_attention_cuda,
                                                      paged_attention_partials_cuda)
-from deepspeed_tpu_torch.ops.quant_kernels import (SegmentTable, dequantize_int4_cuda, dequantize_int8_cuda,
-                                                   quantize_int4_cuda, quantize_int8_cuda)
+from deepspeed_tpu_torch.ops.quant_kernels import (Q4_ROUTES, SegmentTable, dequantize_int4_cuda,
+                                                   dequantize_int8_cuda, quantize_int4_cuda, quantize_int8_cuda)
 from deepspeed_tpu_torch.ops.quantizer import dequantize_int4 as dequantize_int4_plain
 from deepspeed_tpu_torch.ops.quantizer import dequantize_int8 as dequantize_int8_plain
 from deepspeed_tpu_torch.ops.quantizer import dequantize_int8_grouped as dequantize_int8_grouped_plain
@@ -209,6 +213,7 @@ def reset_launch_counts() -> None:
     for fn in LAUNCH_COUNTERS:
         fn.launches = 0
     paged_attention_cuda.split_calls = 0
+    quantize_int4_cuda.routes = dict.fromkeys(Q4_ROUTES, 0)
 
 
 def log(msg: str) -> None:
@@ -1580,21 +1585,23 @@ def quant_input(n: int, dtype: torch.dtype, seed: int) -> torch.Tensor:
     return x.reshape(-1).to(dtype)
 
 
-def quant_check(label: str, x: torch.Tensor) -> dict:
+def quant_check(label: str, x: torch.Tensor, route: str, block: int = QUANT_BLOCK) -> dict:
     """The four kernels on ``x`` against their plain versions on the same
-    CUDA tensors: codes, scales and dequantized values must be identical.
-    The dequantize kernels run at the shape the W=2 wire gives them,
-    [2·nb/2, 256] into [2, n/2].  Returns per kernel the largest
+    CUDA tensors: codes, scales and dequantized values must be identical,
+    and K5a's launch must have taken ``route`` (``Q4_ROUTES``).  The
+    dequantize kernels run at the shape the W=2 wire gives them,
+    [2·nb/2, block] into [2, n/2].  Returns per kernel the largest
     |kernel − plain| (0 when they agree)."""
     n = x.numel()
     out = {}
+    routes = dict(quantize_int4_cuda.routes)
     for bits, quant, dequant in ((8, quantize_int8_cuda, dequantize_int8_cuda),
                                  (4, quantize_int4_cuda, dequantize_int4_cuda)):
         pq, pd = (quantize_int8_plain, dequantize_int8_plain) if bits == 8 else (quantize_int4_plain,
                                                                                  dequantize_int4_plain)
-        q, s = quant(x, QUANT_BLOCK)
-        want_q, want_s = pq(x, QUANT_BLOCK)
-        shape = (2, n // 2) if n % (2 * QUANT_BLOCK) == 0 else (n, )
+        q, s = quant(x, block)
+        want_q, want_s = pq(x, block)
+        shape = (2, n // 2) if n % (2 * block) == 0 else (n, )
         deq = dequant(q, s, shape)
         want_deq = pd(q, s, shape)
         torch.cuda.synchronize()
@@ -1603,27 +1610,38 @@ def quant_check(label: str, x: torch.Tensor) -> dict:
         out[f"dequantize_int{bits}"] = float((deq - want_deq).abs().max())
         if not same or not bool(torch.isfinite(deq).all()):
             raise AssertionError(f"{label}: int{bits} kernels differ from the plain versions: {out}")
-    log(f"  {label}: n {n}, codes, scales and dequantized values identical to the plain versions")
+    took = [k for k, v in quantize_int4_cuda.routes.items() if v != routes[k]]
+    if took != [route]:
+        raise AssertionError(f"{label}: K5a took {took}, expected {route}")
+    log(f"  {label}: n {n}, block {block}, codes, scales and dequantized values identical to the plain versions; "
+        f"K5a took {route}")
     return out
 
 
 def quant_mutants(x: torch.Tensor) -> dict:
     """Faulty kernels the check must reject, made from the kernels' outputs:
-    K4a that rounds x/scale half away from zero, and K5a that swaps the
-    halves of its bytes (element i in the high nibble, i + 128 in the low)."""
+    K4a that rounds x/scale half away from zero, K5a that swaps the halves of
+    its bytes (element i in the high nibble, i + 128 in the low), and K5a
+    that packs element i with element i + 4, the next lane's, in place of
+    i + 128."""
     q8, s8 = quantize_int8_cuda(x, QUANT_BLOCK)
     r = x.float().reshape(-1, QUANT_BLOCK) / s8[:, None]
     away = torch.clamp(torch.sign(r) * torch.floor(r.abs() + 0.5), -127, 127).to(torch.int8)
     q4, _ = quantize_int4_cuda(x, QUANT_BLOCK)
     swapped = (q4 >> 4) | (q4 << 4)
+    codes = torch.cat([q4 & 0xF, q4 >> 4], dim=1)   # code + 8 of each element, in order
+    half = QUANT_BLOCK // 2
+    neighbour = codes[:, :half] | (codes[:, 4:half + 4] << 4)
     want8, _ = quantize_int8_plain(x, QUANT_BLOCK)
     want4, _ = quantize_int4_plain(x, QUANT_BLOCK)
     torch.cuda.synchronize()
     caught = {"round_half_away": not torch.equal(away, want8), "int4_halves_swapped": not torch.equal(swapped, want4),
+              "int4_packs_lane_neighbour": not torch.equal(neighbour, want4),
               "codes_off_by_round_half_away": int((away != want8).sum()),
-              "bytes_off_by_swap": int((swapped != want4).sum())}
+              "bytes_off_by_swap": int((swapped != want4).sum()),
+              "bytes_off_by_neighbour": int((neighbour != want4).sum())}
     log(f"  faulty kernels: {json.dumps(caught)}")
-    if not (caught["round_half_away"] and caught["int4_halves_swapped"]):
+    if not (caught["round_half_away"] and caught["int4_halves_swapped"] and caught["int4_packs_lane_neighbour"]):
         raise AssertionError(f"the check passes a faulty quant kernel: {caught}")
     return caught
 
@@ -1736,16 +1754,25 @@ def phase_quant_kernels() -> dict:
     """K4a/K4b/K5a/K5b against their plain versions at the wire's shapes:
     the embedding's 24,576,000 elements in f32 and bf16, a 768-element norm
     weight padded to 1024, an nb (1001) that is not a multiple of the 8
-    blocks of a CTA; two faulty kernels must be rejected; kernel / plain time
-    (cold L2) at the embedding's shape beside the bound; then the grouped
-    K4a/K4b on one qgZ step's real table (``quant_step``)."""
+    blocks of a CTA, the embedding in f32 as a view one element into its
+    storage (K5a's ``q4_kernel_any``), and blocks of 64 (``q4_kernel_any``);
+    three faulty kernels must be rejected; kernel / plain time (cold L2) at
+    the embedding's shape beside the bound, and K5a's in bf16 and on the
+    misaligned view; then the grouped K4a/K4b on one qgZ step's real table
+    (``quant_step``)."""
     x = quant_input(QUANT_N, torch.float32, seed=10)
-    errs = quant_check("embedding f32", x)
-    for label, t in (("embedding bf16", quant_input(QUANT_N, torch.bfloat16, seed=11)),
-                     ("norm 768 padded to 1024", torch.cat([quant_input(1024, torch.float32, seed=12)[:768],
-                                                            torch.zeros(256, device="cuda")])),
-                     ("nb 1001", quant_input(1001 * QUANT_BLOCK, torch.float32, seed=13))):
-        for k, v in quant_check(label, t).items():
+    x_bf16 = quant_input(QUANT_N, torch.bfloat16, seed=11)
+    x_odd = torch.cat([torch.zeros(1, device="cuda"), x])[1:]
+    fast, other = Q4_ROUTES
+    errs = quant_check("embedding f32", x, fast)
+    for label, t, route, block in (
+            ("embedding bf16", x_bf16, fast, QUANT_BLOCK),
+            ("norm 768 padded to 1024", torch.cat([quant_input(1024, torch.float32, seed=12)[:768],
+                                                   torch.zeros(256, device="cuda")]), fast, QUANT_BLOCK),
+            ("nb 1001", quant_input(1001 * QUANT_BLOCK, torch.float32, seed=13), fast, QUANT_BLOCK),
+            ("embedding f32 misaligned by one element", x_odd, other, QUANT_BLOCK),
+            ("nb 1001 at block 64", quant_input(1001 * QUANT_BLOCK, torch.float32, seed=15), other, 64)):
+        for k, v in quant_check(label, t, route, block).items():
             errs[k] = max(errs[k], v)
     mutants = quant_mutants(x)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
@@ -1763,8 +1790,14 @@ def phase_quant_kernels() -> dict:
         kernel, plain = timed[name]
         rows[name] = {"case": f"f32 n={QUANT_N}", "max_abs_err": errs[name], "ms": time_ms(kernel, 20, flush),
                       "plain_ms": time_ms(plain, 5, flush), "bound_ms": t_bound, "bound_by": by, "library_ms": None}
-        log(f"  {name}: " + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                                      for k, v in rows[name].items()))
+    # K5a on bf16 input (q4_kernel_256) and on the misaligned f32 view (q4_kernel_any)
+    rows["quantize_int4"].update(
+        bf16_ms=time_ms(lambda: quantize_int4_cuda(x_bf16, QUANT_BLOCK), 20, flush),
+        bf16_plain_ms=time_ms(lambda: quantize_int4_plain(x_bf16, QUANT_BLOCK), 5, flush),
+        bf16_bound_ms=quant_bounds(QUANT_N, 2)["quantize_int4"][0],
+        misaligned_ms=time_ms(lambda: quantize_int4_cuda(x_odd, QUANT_BLOCK), 20, flush))
+    for name, row in rows.items():
+        log(f"  {name}: " + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in row.items()))
     step = quant_step(flush)
     del flush
     torch.cuda.empty_cache()
@@ -1900,10 +1933,12 @@ def dp_rank(rank: int) -> dict:
 
     for counter in QUANT_COUNTERS:
         counter.launches = 0
+    quantize_int4_cuda.routes = dict.fromkeys(Q4_ROUTES, 0)
     shard = all_to_all_quant_reduce(grad, bits=4)
     full = quantized_all_gather(shard, bits=4)
     torch.cuda.synchronize()
     res["int4_launches"] = {f.__name__: f.launches for f in (quantize_int4_cuda, dequantize_int4_cuda)}
+    res["int4_routes"] = dict(quantize_int4_cuda.routes)
     shard_cpu = all_to_all_quant_reduce(grad.cpu(), bits=4)
     full_cpu = quantized_all_gather(shard_cpu, bits=4)
     res["int4_identical"] = torch.equal(shard.cpu(), shard_cpu) and torch.equal(full.cpu(), full_cpu)
@@ -1996,6 +2031,7 @@ def phase_data_parallel(smi: str) -> dict:
                                     for k in ("flash_fwd_cuda", "flash_dq_cuda", "flash_dkv_cuda")),
         "k5_launched": all(r["int4_launches"] == {"quantize_int4_cuda": 2, "dequantize_int4_cuda": 2}
                            for r in (r0, r1)),
+        "k5a_took_q4_kernel_256": all(r["int4_routes"] == {"q4_kernel_256": 2, "q4_kernel_any": 0} for r in (r0, r1)),
         "int4_identical_to_plain": r0["int4_identical"] and r1["int4_identical"],
         "losses_finite_falling": all(np.isfinite(r0["qgz"]["losses"])) and
         r0["qgz"]["losses"][-1] < r0["qgz"]["losses"][0],
@@ -2021,7 +2057,7 @@ def phase_data_parallel(smi: str) -> dict:
            "peak_mem_gb": [r["peak_mem_gb"] for r in (r0, r1)], "wire_bytes_per_step": r0["wire_bytes"],
            "losses_qgz": q["losses"], "losses_fp32_wire": r0["control"]["losses"], "losses_loco": r0["loco"]["losses"],
            "loco_error_abs_max": r0["loco"]["error_abs_max"], "launches": r0["launches"],
-           "int4_launches": r0["int4_launches"], "checks": checks}
+           "int4_launches": r0["int4_launches"], "int4_routes": r0["int4_routes"], "checks": checks}
     log("  data parallel: " + json.dumps(res))
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
@@ -2991,6 +3027,9 @@ def main() -> int:
         if "int8" in name:   # the grouped launches of one qgZ step (phase 10's step table)
             entry.update(launches_per_step=launches[f"{name}_cuda"] / (DP_WARMUP + DP_TIMED),
                          step_ms=quant["step"]["step_ms"][name], step_bound_ms=quant["step"]["step_bound_ms"][name])
+        if name == "quantize_int4":   # its launches by kernel, and its bf16 and misaligned-view times
+            entry.update(routes=dp["int4_routes"], bf16_ms=row["bf16_ms"], bf16_plain_ms=row["bf16_plain_ms"],
+                         bf16_bound_ms=row["bf16_bound_ms"], misaligned_ms=row["misaligned_ms"])
         kernels.append(entry)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

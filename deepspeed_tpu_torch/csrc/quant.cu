@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/quant_kernels.py:
 //   K4a q8_kernel_256 / q8_kernel_any   <- _q8_kernel  (:31, quantize_int8_pallas :74)
 //   K4b dq8_kernel_256 / dq8_kernel_any <- _dq8_kernel (:39, dequantize_int8_pallas :103)
-//   K5a q4_kernel                       <- _q4_kernel  (:44, quantize_int4_pallas :126)
+//   K5a q4_kernel_256 / q4_kernel_any   <- _q4_kernel  (:44, quantize_int4_pallas :126)
 //   K5b dq4_kernel                      <- _dq4_kernel (:56, dequantize_int4_pallas :154)
 // They carry the ZeRO++ quantized gradient wire (qgZ): every gradient tensor
 // is quantized before the all-to-all and the all-gather and dequantized
@@ -81,10 +81,23 @@
 // Other blocks up to 1024 take q8_kernel_any / dq8_kernel_any: lane l holds
 // elements l, l + 32, ... (one coalesced access per step), the same grouped
 // layout.  No path hands the work to the plain version.
-// K5a/K5b (int4, one tensor a launch): one warp per block, lane l holds
-// elements l, l+32, ...; for K5a the warp writes its block's codes to shared
-// memory (1 KB per warp) and lane l packs the bytes l, l+32, ...: code i in
-// the low nibble, code i + block/2 (held by another lane) in the high one.
+// K5a (int4, one tensor a launch, one warp a block).  Byte i of a packed row
+// joins code i and code i + block/2.  At block 256 on input aligned for its
+// loads (16 bytes f32, 8 bytes bf16), q4_kernel_256 gives lane l elements
+// 4l..4l+3 and 128+4l..128+4l+3, K4a's layout: two 16-byte (f32) or 8-byte
+// (bf16) loads, each warp instruction one contiguous span.  Those are exactly
+// the pairs of bytes 4l..4l+3, so the lane packs its 4 bytes in registers and
+// stores them as one 4-byte word (128 contiguous bytes a warp instruction):
+// no shared memory, no exchange between lanes.  (The bf16 alternative, one
+// 16-byte load of 8l..8l+7 and a __shfl_xor_sync(.., 16) of 4 codes with the
+// lane holding the other half, measured 2-4% slower on an H100:
+// scripts/bench_int4_layouts.py.)  Every other call, other even blocks up to
+// 1024 and a view whose start is off that alignment (an odd storage offset),
+// takes q4_kernel_any: lane l holds elements l, l+32, ..., writes its codes
+// to shared memory (1 KB a warp) and packs the bytes l, l+32, ..., code i +
+// block/2 being held by another lane.  ds_quant_q4 chooses, and reports
+// which it launched.
+// K5b: one warp per block, lane l writes elements l, l+32, ...
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,13 +166,35 @@ __device__ __forceinline__ int lane_elem(int lane, int k) {
   return PER_ACCESS == 4 ? (k < 4 ? 4 * lane + k : 128 + 4 * lane + k - 4) : 8 * lane + k;
 }
 
+// Two bf16 of a 32-bit word as floats (little-endian: the even element in
+// the low half).
+__device__ __forceinline__ void unpack_bf16x2(uint32_t w, float& even, float& odd) {
+  even = __uint_as_float(w << 16);
+  odd = __uint_as_float(w & 0xffff0000u);
+}
+
+// Lane l's 8 elements of a 256-block in K4a's layout (lane_elem<4>): v[0..3]
+// = elements 4l..4l+3, v[4..7] = 128+4l..128+4l+3.  The caller has checked
+// that src is aligned for the loads.
+__device__ __forceinline__ void load_halves(const float* src, int lane, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(src) + lane);
+  const float4 b = __ldg(reinterpret_cast<const float4*>(src + 128) + lane);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load_halves(const __nv_bfloat16* src, int lane, float (&v)[8]) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(src) + lane);
+  const uint2 b = __ldg(reinterpret_cast<const uint2*>(src + 128) + lane);
+  const uint32_t w[4] = {a.x, a.y, b.x, b.y};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) unpack_bf16x2(w[k], v[2 * k], v[2 * k + 1]);
+}
+
 // Lane `lane`'s 8 elements of a block starting at src, of which the first
 // `valid` exist (zeros past them).
 __device__ __forceinline__ void load8(const float* src, int lane, int valid, float (&v)[8]) {
   if (aligned16(src) && valid == 256) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(src) + lane);
-    const float4 b = __ldg(reinterpret_cast<const float4*>(src + 128) + lane);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w; v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    load_halves(src, lane, v);
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -174,10 +209,7 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* src, int lane, int va
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + lane);
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {   // little-endian: element 2k in the low half
-      v[2 * k] = __uint_as_float(w[k] << 16);
-      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-    }
+    for (int k = 0; k < 4; ++k) unpack_bf16x2(w[k], v[2 * k], v[2 * k + 1]);
   } else {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
@@ -328,9 +360,35 @@ __device__ __forceinline__ float load_block(const T* xb, int block, float qmax, 
   return warp_absmax_scale(amax, qmax);
 }
 
+// Block 256, input aligned for load_halves; 8 warps a CTA, one block a warp.
+// Byte 4l+k of the row = (code of v[k]) + 8 | ((code of v[4+k]) + 8) << 4.
 template <typename T>
-__global__ void q4_kernel(const T* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ scales,
-                          long long nblocks, int block) {
+__global__ void q4_kernel_256(const T* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ scales,
+                              long long nblocks) {
+  const long long b = (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
+  if (b >= nblocks) return;   // a whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  float v[8];
+  load_halves(x + b * 256, lane, v);
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  const float scale = warp_absmax_scale(amax, 7.f);
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t lo = (uint32_t)((int)code(v[k], scale, 7.f) + 8);
+    const uint32_t hi = (uint32_t)((int)code(v[4 + k], scale, 7.f) + 8);
+    w |= (lo | hi << 4) << (8 * k);
+  }
+  reinterpret_cast<uint32_t*>(q + b * 128)[lane] = w;
+  if (lane == 0) scales[b] = scale;
+}
+
+// Any even block up to 1024, any alignment.
+template <typename T>
+__global__ void q4_kernel_any(const T* __restrict__ x, uint8_t* __restrict__ q, float* __restrict__ scales,
+                              long long nblocks, int block) {
   const long long b = (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (b >= nblocks) return;
   const int lane = threadIdx.x & 31;
@@ -430,19 +488,28 @@ int ds_quant_dq8(const void* q, const void* scales, void* out, const void* table
   return (int)cudaGetLastError();
 }
 
-int ds_quant_q4(const void* x, int dtype, void* q, void* scales, long long nblocks, int block, void* stream) {
-  if (nblocks <= 0 || block <= 0 || block > kMaxBlock || block % 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(grid_for(nblocks)), threads(kWarpsPerCta * 32);
-  if (dtype == 0)
-    q4_kernel<float><<<grid, threads, 0, s>>>(static_cast<const float*>(x), static_cast<uint8_t*>(q),
-                                              static_cast<float*>(scales), nblocks, block);
-  else if (dtype == 1)
-    q4_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(static_cast<const __nv_bfloat16*>(x),
-                                                      static_cast<uint8_t*>(q), static_cast<float*>(scales),
-                                                      nblocks, block);
-  else
+// Writes the kernel it launched to *route: 0 = q4_kernel_256, 1 =
+// q4_kernel_any.
+int ds_quant_q4(const void* x, int dtype, void* q, void* scales, long long nblocks, int block, int* route,
+                void* stream) {
+  if (nblocks <= 0 || block <= 0 || block > kMaxBlock || block % 2 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_for(nblocks)), threads(kWarpsPerCta * 32);
+  const float* xf = static_cast<const float*>(x);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  uint8_t* qo = static_cast<uint8_t*>(q);
+  float* so = static_cast<float*>(scales);
+  // load_halves reads 16 bytes (f32) or 8 bytes (bf16) at a time
+  const bool fast = block == 256 && (reinterpret_cast<uintptr_t>(x) & (dtype == 0 ? 15 : 7)) == 0;
+  *route = fast ? 0 : 1;
+  if (fast) {
+    if (dtype == 0) q4_kernel_256<float><<<grid, threads, 0, s>>>(xf, qo, so, nblocks);
+    else q4_kernel_256<__nv_bfloat16><<<grid, threads, 0, s>>>(xb, qo, so, nblocks);
+  } else {
+    if (dtype == 0) q4_kernel_any<float><<<grid, threads, 0, s>>>(xf, qo, so, nblocks, block);
+    else q4_kernel_any<__nv_bfloat16><<<grid, threads, 0, s>>>(xb, qo, so, nblocks, block);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,9 @@ from .op_builder import load_kernel
 
 #: the largest block the kernels take (32 values per lane of one warp)
 MAX_BLOCK = 1024
+#: K5a's kernels, by the route number ``ds_quant_q4`` reports: block 256 on
+#: input aligned for its vector loads, and every other call
+Q4_ROUTES = ("q4_kernel_256", "q4_kernel_any")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -105,7 +108,7 @@ def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_quant_q8.argtypes = [p, i, p, p, p, p, ll, ll, ll, i, p]
     lib.ds_quant_dq8.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, p]
-    lib.ds_quant_q4.argtypes = [p, i, p, p, ll, i, p]
+    lib.ds_quant_q4.argtypes = [p, i, p, p, ll, i, ctypes.POINTER(i), p]
     lib.ds_quant_dq4.argtypes = [p, p, p, ll, i, p]
     for fn in (lib.ds_quant_q8, lib.ds_quant_dq8, lib.ds_quant_q4, lib.ds_quant_dq4):
         fn.restype = i
@@ -209,14 +212,17 @@ def dequantize_int8_cuda(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[i
 
 
 def quantize_int4_cuda(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K5a: ``(packed [n/block, block/2] uint8, scales [n/block] f32)``."""
+    """Launch K5a: ``(packed [n/block, block/2] uint8, scales [n/block] f32)``.
+    ``quantize_int4_cuda.routes`` counts the launches by kernel (``Q4_ROUTES``)."""
     nb = _check_input("quantize_int4_cuda", x, block, int4=True)
     q = torch.empty((nb, block // 2), dtype=torch.uint8, device=x.device)
     s = torch.empty((nb, ), dtype=torch.float32, device=x.device)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         _launch("quantize_int4_cuda", _lib().ds_quant_q4, x.data_ptr(), _DTYPE_CODES[x.dtype], q.data_ptr(),
-                s.data_ptr(), nb, block)
+                s.data_ptr(), nb, block, ctypes.byref(route))
     quantize_int4_cuda.launches += 1
+    quantize_int4_cuda.routes[Q4_ROUTES[route.value]] += 1
     return q, s
 
 
@@ -236,6 +242,7 @@ quantize_int8_cuda.launches = 0
 dequantize_int8_cuda.launches = 0
 quantize_int4_cuda.launches = 0
 dequantize_int4_cuda.launches = 0
+quantize_int4_cuda.routes = dict.fromkeys(Q4_ROUTES, 0)
 
 
 def _device_kind(t: torch.Tensor) -> str:

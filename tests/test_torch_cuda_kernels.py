@@ -515,17 +515,40 @@ def _quant_input(block, nb, dtype, seed):
     return x.reshape(-1).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("block,nb", [(256, 4096), (256, 1001), (64, 37), (1024, 9), (100, 13)])
-def test_quant_kernels_match_plain(dtype, block, nb):
+#: (dtype, block, nb, storage offset of x in elements); ids as
+#: ``block-nb-dtype``, ``-offsetK`` for a contiguous view K elements into its
+#: storage (f32 1-3: off 16 bytes; bf16 1: off 8 bytes, 4: 8 but not 16)
+QUANT_CASES = [pytest.param(dtype, block, nb, 0, id=f"{block}-{nb}-{name}")
+               for block, nb in ((256, 4096), (256, 1001), (64, 37), (1024, 9), (100, 13))
+               for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))] + \
+    [pytest.param(dtype, 256, 1001, offset, id=f"256-1001-{name}-offset{offset}")
+     for dtype, name, offsets in ((torch.float32, "f32", (1, 2, 3)), (torch.bfloat16, "bf16", (1, 4)))
+     for offset in offsets]
+
+
+def _q4_route(x, block):
+    """The K5a kernel ``ds_quant_q4`` takes for ``x``: q4_kernel_256 at block
+    256 where x starts on its loads' alignment (16 bytes f32, 8 bytes bf16),
+    else q4_kernel_any."""
+    fast = block == 256 and x.data_ptr() % (16 if x.dtype == torch.float32 else 8) == 0
+    return "q4_kernel_256" if fast else "q4_kernel_any"
+
+
+@pytest.mark.parametrize("dtype,block,nb,offset", QUANT_CASES)
+def test_quant_kernels_match_plain(dtype, block, nb, offset):
     """K4a/K4b and K5a/K5b against their plain versions on the same CUDA
     tensors: codes, scales and dequantized values identical (both divide
-    with a correctly rounded divide, round half to even and multiply once)."""
+    with a correctly rounded divide, round half to even and multiply once),
+    with K5a's launch on the route its block and alignment choose."""
     from deepspeed_tpu_torch.ops import quant_kernels as qk
     from deepspeed_tpu_torch.ops import quantizer as plain
     x = _quant_input(block, nb, dtype, seed=block + nb)
+    if offset:
+        x = torch.cat([torch.full((offset, ), 5.0, dtype=dtype, device="cuda"), x])[offset:]
+        assert x.storage_offset() == offset and x.is_contiguous()
     kernels = (qk.quantize_int8_cuda, qk.dequantize_int8_cuda, qk.quantize_int4_cuda, qk.dequantize_int4_cuda)
     before = [k.launches for k in kernels]
+    routes_before = dict(qk.quantize_int4_cuda.routes)
     for quant, dequant, pq, pd in ((qk.quantize_int8_cuda, qk.dequantize_int8_cuda, plain.quantize_int8,
                                     plain.dequantize_int8),
                                    (qk.quantize_int4_cuda, qk.dequantize_int4_cuda, plain.quantize_int4,
@@ -542,6 +565,10 @@ def test_quant_kernels_match_plain(dtype, block, nb):
         assert float(s[1]) == 1.0 and bool((q[1] == (0 if quant is qk.quantize_int8_cuda else 0x88)).all())
     launched = [k.launches - b for k, b in zip(kernels, before)]
     assert launched == ([1, 1, 1, 1] if block % 2 == 0 else [1, 1, 0, 0])
+    routes = {k: v - routes_before[k] for k, v in qk.quantize_int4_cuda.routes.items()}
+    want = {} if block % 2 else {_q4_route(x, block): 1}
+    assert {k: v for k, v in routes.items() if v} == want
+    assert (block, offset) != (256, 0) or want == {"q4_kernel_256": 1}
 
 
 def test_quant_kernels_reject_what_they_do_not_take():

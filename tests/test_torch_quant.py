@@ -54,11 +54,17 @@ CODECS = {8: (jq.quantize_int8, jq.dequantize_int8, tq.quantize_int8, tq.dequant
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("block", [64, 256, 1024])
-@pytest.mark.parametrize("bits", [8, 4])
-def test_codec_is_bit_identical_to_jax(bits, block, dtype):
+@pytest.mark.parametrize("bits,offset", [(8, 0), (4, 0), (4, 1)], ids=["8", "4", "4-offset1"])
+def test_codec_is_bit_identical_to_jax(bits, offset, block, dtype):
+    """The plain codec against the JAX package's; at ``offset`` 1 the port's
+    int4 input is a contiguous view one element into its storage (the
+    misaligned input the card's K5a takes on ``q4_kernel_any``)."""
     jquant, jdequant, tquant, tdequant, qmax = CODECS[bits]
     x = _values(block, qmax, seed=block + bits)
     jx, tx = _pair(x, dtype)
+    if offset:
+        tx = torch.cat([torch.full((offset, ), 5.0, dtype=tx.dtype), tx])[offset:]
+        assert tx.storage_offset() == offset and tx.is_contiguous()
     jcodes, jscale = jquant(jx, block)
     tcodes, tscale = tquant(tx, block)
     assert tcodes.dtype == (torch.int8 if bits == 8 else torch.uint8) and tscale.dtype == torch.float32
