@@ -132,7 +132,21 @@ source, all started together.  Phases:
      returned; a profiled decode round's busy share; then the JAX fleet
      test's kill mid-decode in float32 at phase 4's setting, its streams
      equal to ``generate`` but for rounding ties, twice with equal
-     summaries.
+     summaries;
+ 15. training features (run after phase 7, on fresh Llama-125M trainers
+     built as phase 6's): ``initialize(training_data=)`` and
+     ``train_batch(data_iter=...)`` over a seeded token dataset (batches in
+     the loader's order), 4 steps with a synchronous ``save_checkpoint``
+     after step 2 and an async one after step 3 (state bytes, save s split
+     into state, manifest and publish, GB/s), a control run of two fresh
+     engines, a resume from step 2 equal to the uninterrupted run by the
+     control's criterion (bit for bit if the control is), the async tag
+     against a host copy taken at its save, the fallback from a corrupt
+     ``latest`` (``resilience/ckpt_fallback``), LAMB/Lion/Adagrad/SGD 3
+     steps each (step ms, the optimizer step's device ms, losses falling),
+     progressive layer drop (theta and mask per step), the synchronized
+     ``train_batch`` timer and the CSV monitor's files; K1/K2a/K2b once per
+     layer per step throughout.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -145,9 +159,12 @@ import gc
 import hashlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import weakref
@@ -187,7 +204,13 @@ from deepspeed_tpu_torch.ops.sparse_attention.kernel import (EMPTY_ROW_LSE, buil
                                                              sparse_attn_delta_plain, sparse_attn_dkv_cuda,
                                                              sparse_attn_dq_cuda, sparse_attn_fwd_cuda,
                                                              sparse_attn_fwd_plain)
+from deepspeed_tpu_torch.checkpoint import engine as checkpoint_engine
+from deepspeed_tpu_torch.resilience import atomic_io
+from deepspeed_tpu_torch.resilience import events as resilience_events
+from deepspeed_tpu_torch.runtime import checkpoint_engine as state_writers
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, RepeatingLoader
+from deepspeed_tpu_torch.utils.timer import TRAIN_BATCH_TIMER
 from deepspeed_tpu_torch.serving import RequestState, ServingEngine, WallClock
 from deepspeed_tpu_torch.serving.kvtier import TierConfig, TieredKVManager
 
@@ -926,12 +949,16 @@ def llama_125m(**overrides) -> LlamaConfig:
     return dataclasses.replace(PRESETS["125m"], **{**fields, **overrides})
 
 
-def build_trainer(cfg: LlamaConfig, ds_config: dict, seed: int = 0, state=None):
-    model = LlamaForCausalLM(cfg, device="cuda")
+def build_trainer(cfg: LlamaConfig, ds_config: dict, seed: int = 0, state=None, device="cuda", **init_kw):
+    """``initialize`` over a seeded Llama; returns the engine (``with_loader``
+    in ``init_kw``: the engine and the training loader)."""
+    with_loader = init_kw.pop("with_loader", False)
+    model = LlamaForCausalLM(cfg, device=device)
     if state is None:
-        init_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
-    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=ds_config, params=state)
-    return engine
+        init_weights_(model, torch.Generator(device=device).manual_seed(seed))
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(model=model, config=ds_config, params=state,
+                                                          device=device, **init_kw)
+    return (engine, loader) if with_loader else engine
 
 
 def phase_training(smi: str) -> dict:
@@ -1140,6 +1167,305 @@ def phase_training_parity_bf16() -> dict:
                for n in e["qkv_grads"]]
     if not (all(np.isfinite(res["losses"]["flash"])) and all(within)):
         raise AssertionError(f"bf16 training parity out of tolerance: {res}")
+    return res
+
+
+# ---------------------------------------------------------------- phase 15
+
+FEATURE_STEPS = 4                  # the checkpoint run: save after step 2 (sync) and 3 (async)
+# Adagrad's first update is lr·sign(g) on every parameter: 1e-2 overshoots at this width
+FEATURE_OPTIMIZERS = {"Lamb": {"lr": 1e-2, "weight_decay": 0.01}, "Lion": {"lr": 1e-4, "weight_decay": 0.01},
+                      "Adagrad": {"lr": 1e-3}, "SGD": {"lr": 1e-1, "momentum": 0.9}}
+FEATURE_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.001}
+
+
+def feature_dataset(cfg: LlamaConfig, rows: int, seq: int, seed: int = 15) -> list:
+    """A seeded token dataset of ``FEATURE_STEPS`` global batches and a short
+    tail (dropped by the loader)."""
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (FEATURE_STEPS * rows + rows - 1, seq),
+                                               dtype=np.int32)
+    return [{"input_ids": r, "labels": r} for r in ids]
+
+
+class RecordingIter:
+    """An iterator that keeps the ``input_ids`` of every batch it hands out."""
+
+    def __init__(self, it):
+        self.it, self.seen = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.it)
+        self.seen.append(batch["input_ids"])
+        return batch
+
+
+def state_snapshot(engine) -> dict:
+    """Every tensor of the engine's training state, copied to the host."""
+    return state_writers.to_host(checkpoint_engine.engine_state(engine))
+
+
+def snapshot_differences(a, b, where="state") -> list:
+    """The paths at which two host state trees differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor):
+        return [] if isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b) else [where]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [where]
+        return [d for k in a for d in snapshot_differences(a[k], b[k], f"{where}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [where]
+        return [d for i, (x, y) in enumerate(zip(a, b)) for d in snapshot_differences(x, y, f"{where}[{i}]")]
+    return [] if a == b else [where]
+
+
+class SaveMeter:
+    """Times the phases of ``save_checkpoint`` through instance-free
+    wrappers of the state write, the manifest and the whole save (the
+    publish is the rest: meta.json, the fence, ``latest``, retention)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def save(self, engine, save_dir, tag, cuda: bool):
+        times = {"state_s": 0.0, "manifest_s": 0.0}
+        saves = {cls: cls.save for cls in (state_writers.CheckpointEngine, state_writers.AsyncCheckpointEngine)}
+        manifest = atomic_io.write_manifest
+
+        def timed(key, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    times[key] += time.perf_counter() - t0
+            return run
+
+        for cls, fn in saves.items():
+            cls.save = timed("state_s", fn)
+        atomic_io.write_manifest = timed("manifest_s", manifest)
+        try:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.save_checkpoint(save_dir, tag=tag)
+            total = time.perf_counter() - t0
+        finally:
+            for cls, fn in saves.items():
+                cls.save = fn
+            atomic_io.write_manifest = manifest
+        path = os.path.join(save_dir, tag, "state", state_writers.STATE_FILE)
+        row = {"tag": tag, "engine": engine._config.checkpoint_config.checkpoint_engine,
+               "state_bytes": os.path.getsize(path), "save_s": total, **times,
+               "publish_s": total - times["state_s"] - times["manifest_s"]}
+        row["save_gb_s"] = row["state_bytes"] / 1e9 / total
+        self.rows.append(row)
+        return row
+
+
+def timed_load(engine, load_dir, tag=None, cuda=True) -> dict:
+    """``load_checkpoint`` on the host clock, ended by a synchronize."""
+    t0 = time.perf_counter()
+    path, _ = engine.load_checkpoint(load_dir, tag=tag)
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(path, "state", state_writers.STATE_FILE))
+    return {"tag": os.path.basename(path), "load_s": seconds, "load_gb_s": nbytes / 1e9 / seconds}
+
+
+def optimizer_run(cfg, ds_config, batch, steps, device) -> dict:
+    """``steps`` steps on one repeated batch: losses, the host step ms
+    (each step ended by a synchronize) and the optimizer step's device ms
+    (CUDA events around ``optimizer.step``)."""
+    engine = build_trainer(cfg, ds_config, device=device)
+    cuda = device == "cuda"
+    events, step = [], engine.optimizer.step
+
+    def timed_step(*a, **k):
+        if not cuda:
+            return step(*a, **k)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*a, **k)
+        end.record()
+        events.append((start, end))
+        return out
+
+    engine.optimizer.step = timed_step
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))    # the value fetch syncs
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    if cuda:
+        torch.cuda.synchronize()
+    return {"engine": engine, "losses": losses, "step_ms": step_ms,
+            "optimizer_step_ms": [s.elapsed_time(e) for s, e in events]}
+
+
+def phase_training_features(smi: str, cfg: LlamaConfig = None, rows: int = BENCH_B, seq: int = BENCH_S,
+                            device: str = "cuda") -> dict:
+    """Llama-125M as phase 6 trains it, through the training features of
+    ``initialize``: the dataloader, crash-safe checkpoints (sync, async),
+    the fallback from a corrupt ``latest``, LAMB/Lion/Adagrad/SGD,
+    progressive layer drop, the synchronized timers and the CSV monitor.
+    ``device="cpu"`` with a tiny ``cfg`` rehearses it without a card."""
+    cuda = device == "cuda"
+    cfg = cfg or llama_125m()
+    layers = cfg.num_hidden_layers
+    base = {**BENCH_DS_CONFIG, "train_batch_size": rows}
+    work = tempfile.mkdtemp(prefix=".smoke_phase15_", dir=os.path.dirname(os.path.abspath(__file__)))
+    save_dir = os.path.join(work, "ckpt")
+    monitored = {**base, "wall_clock_breakdown": True,
+                 "csv_monitor": {"enabled": True, "output_path": os.path.join(work, "csv"), "job_name": "phase15"}}
+    data = feature_dataset(cfg, rows, seq)
+    res = {"card": smi}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    try:
+        # ---- the dataloader, the checkpoint run and its control
+        engine, loader = build_trainer(cfg, monitored, training_data=data, with_loader=True, device=device)
+        if len(loader) != FEATURE_STEPS or loader.batch_size != rows:
+            raise AssertionError(f"loader of {len(loader)} batches of {loader.batch_size} rows")
+        it = RecordingIter(iter(RepeatingLoader(loader)))
+        meter, losses, at_async = SaveMeter(), [], None
+        resilience_events.clear()
+        for step in range(1, FEATURE_STEPS + 1):
+            losses.append(float(engine.train_batch(data_iter=it)))
+            if step == 2:
+                meter.save(engine, save_dir, "step2", cuda)
+            if step == 3:
+                engine._config.checkpoint_config.checkpoint_engine = "async"
+                at_async = state_snapshot(engine)
+                meter.save(engine, save_dir, "step3", cuda)
+        order_ok = all(np.array_equal(b, np.stack([d["input_ids"] for d in data[i * rows:(i + 1) * rows]]))
+                       for i, b in enumerate(it.seen))
+        timer = engine.timers(TRAIN_BATCH_TIMER)
+        res.update(loader={"batches": len(loader), "rows": loader.batch_size, "order_ok": order_ok,
+                           "batches_taken": len(it.seen)},
+                   losses=losses, saves=meter.rows,
+                   train_batch_timer_ms=[1e3 * t for t in timer.elapsed_records])
+        csv_dir = os.path.join(work, "csv", "phase15")
+        res["csv_files"] = sorted(os.listdir(csv_dir))
+        res["csv_rows"] = {f: sum(1 for _ in open(os.path.join(csv_dir, f))) - 1 for f in res["csv_files"]}
+        resilience_events.attach_monitor(None)
+        del engine
+        gc.collect()
+
+        control = build_trainer(cfg, base, training_data=data, with_loader=True, device=device)
+        it = iter(control[1])
+        control_losses = [float(control[0].train_batch(data_iter=it)) for _ in range(FEATURE_STEPS)]
+        del control
+        gc.collect()
+        res["control_losses"] = control_losses
+        control_bitwise = control_losses == losses
+
+        resumed = build_trainer(cfg, base, seed=1, device=device)
+        res["load_step2"] = timed_load(resumed, save_dir, tag="step2", cuda=cuda)
+        it = iter(RepeatingLoader(DeepSpeedDataLoader(data, rows)))
+        next(it), next(it)
+        res["resumed_losses"] = [float(resumed.train_batch(data_iter=it)) for _ in range(FEATURE_STEPS - 2)]
+        del resumed
+        gc.collect()
+
+        def rel(a, b):
+            return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+        res["control_rel_diff"] = rel(control_losses, losses)
+        res["resumed_rel_diff"] = rel(res["resumed_losses"], losses[2:])
+        # the control's criterion: bit-identical if the control is, else
+        # within twice the control's own run-to-run difference
+        resume_ok = res["resumed_losses"] == losses[2:] if control_bitwise else \
+            res["resumed_rel_diff"] <= 2 * res["control_rel_diff"]
+        res["control_bitwise"] = control_bitwise
+
+        # ---- the async tag against the host copy taken at its save; the fallback
+        loaded = build_trainer(cfg, base, seed=2, device=device)
+        res["load_step3"] = timed_load(loaded, save_dir, tag="step3", cuda=cuda)
+        async_diff = snapshot_differences(state_snapshot(loaded), at_async)
+        broken = os.path.join(work, "broken")
+        shutil.copytree(save_dir, broken, copy_function=os.link)   # hard links: no bytes copied
+        os.remove(os.path.join(broken, "latest"))
+        with open(os.path.join(broken, "latest"), "w") as f:
+            f.write("no_such_tag")
+        resilience_events.clear()
+        res["fallback"] = timed_load(loaded, broken, cuda=cuda)
+        res["fallback"]["events"] = sorted({e[0] for e in resilience_events.recent("resilience/")})
+        del loaded
+        gc.collect()
+
+        # ---- the new optimizers
+        ids = torch.from_numpy(np.stack([d["input_ids"] for d in data[:rows]])).to(device)
+        batch = {"input_ids": ids, "labels": ids}
+        res["optimizers"] = {}
+        for name, params in FEATURE_OPTIMIZERS.items():
+            before = (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)
+            run = optimizer_run(cfg, {**base, "optimizer": {"type": name, "params": params}}, batch, 3, device)
+            after = (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)
+            run["optimizer"] = type(run.pop("engine").optimizer).__name__
+            run["launches_per_step"] = [(a - b) / 3 for a, b in zip(after, before)]
+            res["optimizers"][name] = run
+            gc.collect()
+
+        # ---- progressive layer drop
+        run = build_trainer(cfg, {**base, "progressive_layer_drop": FEATURE_PLD}, device=device)
+        pld = {"theta": [], "mask": [], "losses": []}
+        before = (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)
+        for _ in range(3):
+            pld["losses"].append(float(run.train_batch(batch=batch)))
+            pld["mask"].append(run._pld_scale.tolist())
+            pld["theta"].append(run.progressive_layer_drop.get_theta())
+        after = (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)
+        pld["launches_per_step"] = [(a - b) / 3 for a, b in zip(after, before)]
+        res["pld"] = pld
+        del run
+        gc.collect()
+    finally:
+        resilience_events.attach_monitor(None)
+        shutil.rmtree(work, ignore_errors=True)
+    res["launches"] = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                               (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)))
+    res["phase_s"] = time.perf_counter() - t_phase
+    if cuda:
+        res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+    log("  training features: " + json.dumps(res))
+
+    # ---- the checks
+    steps = FEATURE_STEPS * 2 + 2 + 3 * len(FEATURE_OPTIMIZERS) + 3   # A, control, resumed, optimizers, PLD
+    checks = {
+        "loader_order": res["loader"]["order_ok"] and res["loader"]["batches_taken"] == FEATURE_STEPS,
+        "losses_finite": all(np.isfinite(losses + control_losses + res["resumed_losses"] + pld["losses"])),
+        "resume_equals_uninterrupted": resume_ok,
+        "async_tag_equals_state_at_save": not async_diff,
+        "fallback_to_newest_valid": res["fallback"]["tag"] == "step3"
+        and "resilience/ckpt_fallback" in res["fallback"]["events"],
+        "optimizers_finite": all(np.isfinite(r["losses"]).all() for r in res["optimizers"].values()),
+        "optimizers_falling": all(r["losses"][-1] < r["losses"][0] for r in res["optimizers"].values()),
+        "pld_theta": pld["theta"] == [(1 - 0.5) * float(np.exp(-0.001 * s)) + 0.5 for s in (1, 2, 3)],
+        "pld_masks": all(len(m) == layers for m in pld["mask"]),
+        "timer_records": len(res["train_batch_timer_ms"]) == FEATURE_STEPS,
+        "csv_monitor": {"Train_Samples_train_loss.csv", "resilience_ckpt_published.csv"} <= set(res["csv_files"])
+        and res["csv_rows"]["Train_Samples_train_loss.csv"] == FEATURE_STEPS,
+        "ckpt_events_published": res["csv_rows"].get("resilience_ckpt_published.csv") == 2,
+    }
+    if cuda:
+        checks["k1_k2_once_per_layer_per_step"] = \
+            all(r["launches_per_step"] == [layers] * 3 for r in res["optimizers"].values()) \
+            and pld["launches_per_step"] == [layers] * 3 \
+            and list(res["launches"].values()) == [layers * steps] * 3
+        checks["k3_not_launched"] = paged_attention_cuda.launches == 0
+    res["checks"] = checks
+    log("  training features checks: " + json.dumps(checks))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15 failed {failed}: async diff {async_diff[:5]}")
     return res
 
 
@@ -2972,6 +3298,8 @@ def main() -> int:
     log("== phase 7: training parity")
     phase_training_parity_f32()
     phase_training_parity_bf16()
+    log("== phase 15: training features on Llama-125M (dataloader, checkpoints, optimizers, PLD, timers, monitor)")
+    features = phase_training_features(env["card"])
     log("== phase 8: K6a/K6b/K6c block-sparse attention vs their plain versions")
     sparse = phase_sparse_kernels()
     log("== phase 9: the sparse path: DeepSpeedConfig -> SparseSelfAttention forward and backward")
@@ -3003,7 +3331,9 @@ def main() -> int:
     for name, where in replaces.items():
         row = flash["bench"][name]     # the training path's shapes
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": where, "launches": training["launches"][name],
+                        "replaces": where, "launches": training["launches"][name] + features["launches"][name],
+                        "launches_by_path": {"training": training["launches"][name],
+                                             "training_features": features["launches"][name]},
                         "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})

@@ -16,37 +16,60 @@ import os
 __version__ = "0.1.0"
 
 
-def initialize(model=None, config=None, optimizer=None, lr_scheduler=None, params=None, device=None,
-               training_data=None, dist_init_required=None):
+def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None, lr_scheduler=None,
+               distributed_port=29500, mpu=None, dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, loss_fn=None, model_inputs_fn=None, params=None, device=None):
     """Create a training engine (port of ``deepspeed_tpu.initialize``; ref:
     ``deepspeed/__init__.py:69``).
 
     ``model`` is an ``nn.Module`` (``models.llama.LlamaForCausalLM``);
-    ``config`` the DeepSpeed JSON dict or path; ``params`` an optional state
-    dict loaded into the model; ``optimizer`` an optional factory
-    ``params -> torch.optim.Optimizer``.  The engine runs on ``device``,
-    CUDA unless the caller passes ``device="cpu"`` (no GPU raises).  Returns
-    ``(engine, optimizer, None, lr_scheduler)``.
+    ``config`` the DeepSpeed JSON dict or path (else ``config_params``, else
+    ``args.deepspeed_config``); ``params`` an optional state dict loaded into
+    the model; ``optimizer`` an optional factory ``params ->
+    torch.optim.Optimizer``; ``loss_fn(outputs, batch)`` and
+    ``model_inputs_fn(batch) -> (args, kwargs)`` replace the causal-LM loss
+    and the model's inputs.  The engine runs on ``device``, CUDA unless the
+    caller passes ``device="cpu"`` (no GPU raises).  Returns ``(engine,
+    optimizer, training_dataloader, lr_scheduler)``: with ``training_data``
+    the loader is a ``DeepSpeedDataLoader`` of global micro-batches
+    (``train_batch_size // gradient_accumulation_steps`` rows, through
+    ``collate_fn``), which ``engine.train_batch(data_iter=...)`` takes
+    ``gradient_accumulation_steps`` at a time.
 
     Data parallelism runs over the default ``torch.distributed`` process
     group.  Without one, ``comm.init_distributed`` creates it (from the
     launcher's ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``) when
     ``dist_init_required`` is True, or when it is None and the environment
     names a world larger than 1; otherwise the engine trains one rank.
+    ``model_parameters``, ``distributed_port`` and ``mpu`` are the
+    reference's: the engine trains every floating parameter of ``model``, and
+    a Megatron-style ``mpu`` raises (tensor and pipeline parallelism are not
+    ported).
     """
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None and hasattr(args, "deepspeed_config"):
+        config = args.deepspeed_config
     if config is None:
         raise ValueError("deepspeed_tpu_torch.initialize: config is required")
-    if training_data is not None:
-        raise NotImplementedError("training_data / the DeepSpeed dataloader is not ported (ROADMAP Queue 1, dataloader): "
-                                  "pass batches to engine.train_batch(batch=...) or data_iter=")
     from .comm import comm
+    from .comm.mesh import ROADMAP_MULTI_DEVICE
     from .runtime.config import DeepSpeedConfig
+    from .runtime.dataloader import DeepSpeedDataLoader
     from .runtime.engine import DeepSpeedEngine
+    if mpu is not None:
+        raise NotImplementedError(f"a model-parallel unit (mpu=) needs tensor/pipeline parallelism "
+                                  f"({ROADMAP_MULTI_DEVICE})")
     if dist_init_required or (dist_init_required is None and int(os.environ.get("WORLD_SIZE", 1)) > 1):
         comm.init_distributed()
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
     engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer, lr_scheduler=lr_scheduler,
-                             params=params, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             params=params, device=device, loss_fn=loss_fn, model_inputs_fn=model_inputs_fn)
+    dataloader = None
+    if training_data is not None:
+        micro_global = ds_config.train_batch_size // ds_config.gradient_accumulation_steps
+        dataloader = DeepSpeedDataLoader(training_data, batch_size=micro_global, collate_fn=collate_fn)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler
+

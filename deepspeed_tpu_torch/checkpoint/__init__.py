@@ -1,0 +1,13 @@
+"""Checkpointing (port of ``deepspeed_tpu/checkpoint``): the crash-safe
+save/load of the training engine and the float32 consolidation (ref:
+``deepspeed/utils/zero_to_fp32.py``).  Universal checkpoints wait for ZeRO
+partitioning (ROADMAP Queue 1 item 8)."""
+
+from .engine import (checkpoint_tag_valid, find_newest_valid_tag, list_tags, load_checkpoint, read_meta,
+                     save_checkpoint)
+from .zero_to_fp32 import (convert_zero_checkpoint_to_fp32_state_dict, get_fp32_state_dict_from_zero_checkpoint,
+                           load_state_dict_from_zero_checkpoint)
+
+__all__ = ["checkpoint_tag_valid", "find_newest_valid_tag", "list_tags", "load_checkpoint", "read_meta",
+           "save_checkpoint", "convert_zero_checkpoint_to_fp32_state_dict",
+           "get_fp32_state_dict_from_zero_checkpoint", "load_state_dict_from_zero_checkpoint"]

@@ -19,7 +19,7 @@ SEQ_AXIS = "seq"
 TENSOR_AXIS = "tensor"
 MESH_AXES = (PIPE_AXIS, DATA_AXIS, EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
 
-ROADMAP_MULTI_DEVICE = ("ROADMAP Queue 1 item 4, multi-device training (ZeRO 1-3 partitioning, pipeline/tensor/"
+ROADMAP_MULTI_DEVICE = ("ROADMAP Queue 1 item 6, multi-device training (ZeRO 1-3 partitioning, pipeline/tensor/"
                         "sequence/expert parallel)")
 
 

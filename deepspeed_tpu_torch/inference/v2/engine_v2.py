@@ -128,7 +128,7 @@ class InferenceEngineV2:
         self.last_spec_round: Dict[int, Tuple[int, int, int]] = {}
         self._spec_on: Dict[int, bool] = {}
         if self.econfig.tensor_parallel != 1:
-            raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP.md Queue 1)")
+            raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP.md Queue 1 item 6)")
         self.device = resolve_device(device)
         kvcfg = self.econfig.kv
         self.cfg = cfg

@@ -21,9 +21,18 @@ Leaf mapping (flax ``DenseGeneral`` kernels are ``[in..., out...]``;
   mlp/down_proj/kernel [I, E]          → layers.i.mlp.down_proj.weight [E, I]
   {input,post_attention}_layernorm/weight, norm/weight [E] → unchanged
   lm_head/kernel [E, V]                → lm_head.weight [V, E]        (absent when tied)
+
+``jax_train_state_to_engine`` carries a whole JAX training state across: a
+``deepspeed_tpu`` engine's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
+engine.state)``) goes into a port engine built over the same model config —
+parameters, float32 master, the optimizer's moments (any state tree shaped
+like the parameters, by the JAX state's field names: Adam/LAMB ``exp_avg``
+and ``exp_avg_sq``, Lion ``exp_avg``, Adagrad ``accum``, SGD ``momentum``)
+and its step, the loss scaler, the skipped steps and the step count.  A JAX
+run can then be continued by the port.
 """
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -75,3 +84,40 @@ def jax_llama_to_state_dict(params: Mapping, cfg: LlamaConfig) -> Dict[str, torc
     if not cfg.tie_word_embeddings:
         state["lm_head.weight"] = _as_np(p["lm_head"]["kernel"]).T
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}
+
+
+def _fields(x: Any) -> Dict[str, Any]:
+    """A NamedTuple's (or a mapping's) fields as a dict."""
+    return dict(x._asdict()) if hasattr(x, "_asdict") else dict(x)
+
+
+@torch.no_grad()
+def jax_train_state_to_engine(state: Any, engine, cfg: LlamaConfig):
+    """Load a JAX ``TrainState`` (as numpy) into the port ``engine`` (see
+    the module docstring); returns the engine."""
+    from ..runtime.fp16.loss_scaler import LossScalerState
+    fields = _fields(state)
+    engine.module.load_state_dict(jax_llama_to_state_dict(fields["params"], cfg), strict=True)
+    if engine.use_master:
+        master = jax_llama_to_state_dict(fields["master"], cfg)
+        for name, m in zip(engine.param_names, engine.master):
+            m.copy_(master[name])
+    target = engine.master if engine.use_master else engine.params
+    opt = engine.optimizer
+    opt_fields = _fields(fields["opt_state"])
+    step = opt_fields.pop("step", None)
+    for key, tree in opt_fields.items():
+        if isinstance(tree, tuple) and not tree:   # SGD without momentum keeps no state
+            continue
+        moments = jax_llama_to_state_dict(tree, cfg)
+        for name, t in zip(engine.param_names, target):
+            opt.state[t][key] = moments[name].to(device=t.device, dtype=torch.float32)
+    if step is not None:
+        opt.step_count = int(np.asarray(step))
+        opt._device_step = None   # rebuilt from step_count at the next overflow-checked step
+    engine.scaler_state = LossScalerState(**{k: torch.as_tensor(np.array(v)).to(engine.device)
+                                             for k, v in _fields(fields["scaler"]).items()})
+    engine.skipped.fill_(int(np.asarray(fields["skipped_steps"])))
+    engine.global_steps = int(np.asarray(fields["step"]))
+    engine.global_samples = engine.global_steps * engine.train_batch_size()
+    return engine

@@ -146,7 +146,7 @@ def get_attention_impl(name: str) -> Callable:
         return flash_attention
     if name in ("ulysses", "fpdt", "ring"):
         raise NotImplementedError(f"attention_impl {name!r} is sequence-parallel attention over several devices: "
-                                  "not ported yet (ROADMAP Queue 1, multi-device training)")
+                                  "not ported yet (ROADMAP Queue 1 item 6, multi-device training)")
     raise ValueError(f"Unknown attention impl {name!r} (reference | chunked | flash)")
 
 
@@ -202,16 +202,23 @@ class LlamaBlock(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None, self_attn: Optional[nn.Module] = None):
         super().__init__()
+        self.cfg = cfg
         self.self_attn = self_attn if self_attn is not None else LlamaAttention(cfg, device=device)
         self.mlp = LlamaMLP(cfg, device=device)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
                                                 device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = x + self.self_attn(self.input_layernorm(x), positions, segment_ids)
-        return h + self.mlp(self.post_attention_layernorm(h))
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
+                pld_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pld_scale`` (a 0-d tensor) gates both residual deltas of the
+        block in the compute dtype, as JAX's ``s * ...`` with ``s =
+        pld_scale.astype(cfg.dtype)`` (progressive layer drop)."""
+        attn = self.self_attn(self.input_layernorm(x), positions, segment_ids)
+        s = None if pld_scale is None else pld_scale.to(self.cfg.dtype)
+        h = x + (attn if s is None else s * attn)
+        mlp = self.mlp(self.post_attention_layernorm(h))
+        return h + (mlp if s is None else s * mlp)
 
 
 def remat_context_fn(policy: str) -> Optional[Callable]:
@@ -271,10 +278,17 @@ class LlamaForCausalLM(nn.Module):
             return x.to(self.cfg.dtype) @ self.embed_tokens.weight.to(self.cfg.dtype).T
         return dense(x, self.lm_head, self.cfg.dtype)
 
+    #: the engine passes ``pld_scale`` when progressive layer drop is configured
+    supports_pld = True
+
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                segment_ids: Optional[torch.Tensor] = None, pld_scale=None) -> torch.Tensor:
-        if pld_scale is not None:
-            raise NotImplementedError("progressive layer drop is not ported (ROADMAP Queue 1, training features)")
+                segment_ids: Optional[torch.Tensor] = None, pld_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``pld_scale`` (``[L]``, progressive layer drop's ``mask/keep_p``)
+        gates layer ``l``'s residual deltas by ``pld_scale[l]``; it reaches
+        each block through the remat ``checkpoint`` call."""
+        if pld_scale is not None and pld_scale.shape != (self.cfg.num_hidden_layers, ):
+            raise ValueError(f"pld_scale has shape {tuple(pld_scale.shape)}, expected "
+                             f"({self.cfg.num_hidden_layers},)")
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
         x = self.embed(input_ids)
@@ -283,11 +297,12 @@ class LlamaForCausalLM(nn.Module):
             from torch.utils.checkpoint import checkpoint
             context_fn = remat_context_fn(self.cfg.remat_policy)
             kw = {} if context_fn is None else {"context_fn": context_fn}
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            s = None if pld_scale is None else pld_scale[i]
             if remat:
-                x = checkpoint(layer, x, positions, segment_ids, use_reentrant=False, **kw)
+                x = checkpoint(layer, x, positions, segment_ids, s, use_reentrant=False, **kw)
             else:
-                x = layer(x, positions, segment_ids)
+                x = layer(x, positions, segment_ids, s)
         return self.logits(x)
 
 

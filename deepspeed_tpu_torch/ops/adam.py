@@ -17,11 +17,10 @@ line above is one ``torch._foreach_*`` launch over all parameters.  The
 parameters are updated in place.
 
 ``step(found_inf=...)`` takes a device boolean: on overflow the parameters,
-the moments and the step count keep their old values, selected with
-``torch.where`` on the device (the JAX engine's skip, without a host sync).
-The LR schedule is then evaluated at the device step + 1, as JAX evaluates
-it at ``state.step + 1`` (``adam.py:43-44``): a skipped step does not
-advance it.
+the moments and the step count keep their old values (``MasterOptimizer``,
+``ops/optimizer.py``), and the LR schedule is evaluated at the device
+step + 1, as JAX evaluates it at ``state.step + 1`` (``adam.py:43-44``): a
+skipped step does not advance it.
 """
 
 from typing import Iterable, Optional
@@ -29,7 +28,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from .optimizer import LR, add_weight_decay, resolve_lr
+from .optimizer import LR, MasterOptimizer, add_weight_decay, resolve_lr
 
 
 def _bias_correction(beta: float, step):
@@ -40,7 +39,7 @@ def _bias_correction(beta: float, step):
     return float(np.float32(1.0) - np.float32(beta)**np.float32(step))
 
 
-class FusedAdam(torch.optim.Optimizer):
+class FusedAdam(MasterOptimizer):
 
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, adam_w_mode: bool = True, bias_correction: bool = True,
@@ -49,36 +48,12 @@ class FusedAdam(torch.optim.Optimizer):
             raise ValueError("FusedAdam does not support the AMSGrad variant (parity with ref fused_adam.py)")
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
                                       adam_w_mode=adam_w_mode, bias_correction=bias_correction))
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.dtype != torch.float32:
-                    raise ValueError(f"FusedAdam updates float32 parameters (a master copy), got {p.dtype}")
-        #: optimizer steps taken (host count; the device count differs only
-        #: after steps skipped on overflow)
-        self.step_count = 0
-        self._device_step = None
-
-    def _moments(self, group):
-        for p in group["params"]:
-            st = self.state[p]
-            if not st:
-                st["exp_avg"] = torch.zeros_like(p)
-                st["exp_avg_sq"] = torch.zeros_like(p)
-        return ([self.state[p]["exp_avg"] for p in group["params"]],
-                [self.state[p]["exp_avg_sq"] for p in group["params"]])
 
     @torch.no_grad()
     def step(self, closure=None, found_inf: Optional[torch.Tensor] = None):
         if closure is not None:
             raise ValueError("FusedAdam.step takes no closure")
-        self.step_count += 1
-        if found_inf is None:
-            step = self.step_count
-        else:
-            if self._device_step is None:
-                dev = self.param_groups[0]["params"][0].device
-                self._device_step = torch.full((), self.step_count - 1, dtype=torch.int32, device=dev)
-            step = self._device_step + 1
+        step = self._begin_step(found_inf)
         for group in self.param_groups:
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
@@ -86,9 +61,7 @@ class FusedAdam(torch.optim.Optimizer):
             b1, b2 = group["betas"]
             lr, wd, eps = resolve_lr(group["lr"], step), group["weight_decay"], group["eps"]
             grads = [p.grad.float() for p in params]
-            exp_avg, exp_avg_sq = self._moments(group)
-            exp_avg = [m for p, m in zip(group["params"], exp_avg) if p.grad is not None]
-            exp_avg_sq = [v for p, v in zip(group["params"], exp_avg_sq) if p.grad is not None]
+            exp_avg, exp_avg_sq = self._state_lists(params, ("exp_avg", "exp_avg_sq"))
             if not group["adam_w_mode"]:
                 grads = add_weight_decay(grads, params, wd)
             # without a skip the moments update in place; with one the new
@@ -121,10 +94,7 @@ class FusedAdam(torch.optim.Optimizer):
             if not skip:
                 torch._foreach_add_(params, upd)
                 continue
-            keep = found_inf.bool()
             torch._foreach_add_(upd, params)   # upd now holds the new parameters
-            for old, new in ((params, upd), (exp_avg, m), (exp_avg_sq, v)):
-                torch._foreach_copy_(old, [torch.where(keep, o, n) for o, n in zip(old, new)])
-        if found_inf is not None:
-            self._device_step = torch.where(found_inf.bool(), self._device_step, step)
+            self._keep_on_overflow(found_inf, ((params, upd), (exp_avg, m), (exp_avg_sq, v)))
+        self._end_step(found_inf, step)
         return None

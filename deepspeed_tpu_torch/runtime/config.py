@@ -9,8 +9,11 @@ process group), ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
 ``zero_optimization`` (``stage``; ``zero_quantized_gradients`` and
 ``zeropp_loco_param``, the ZeRO++ quantized gradient wire),
 ``gradient_clipping``, ``gradient_predivide_factor``, ``steps_per_print``,
-``wall_clock_breakdown`` and ``sparse_attention`` (kept as the raw dict, as
-the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``).
+``wall_clock_breakdown``, ``sparse_attention`` (kept as the raw dict, as
+the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
+``progressive_layer_drop``, ``checkpoint`` and ``nebula`` (the checkpoint
+engine and retention), and the monitor blocks ``tensorboard``, ``wandb``,
+``csv_monitor`` and ``comet``.
 Any other key with a non-default value raises
 ``NotImplementedError`` naming the ROADMAP item that brings it, and so does
 a ZeRO stage above 0 over more than one data-parallel rank (partitioning is
@@ -25,16 +28,20 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..comm.mesh import ROADMAP_MULTI_DEVICE, dp_world_size
-from .constants import (BFLOAT16, BFLOAT16_OLD, COMPRESSION_TRAINING, FP16, GRADIENT_ACCUMULATION_STEPS,
-                        GRADIENT_CLIPPING, GRADIENT_CLIPPING_DEFAULT, GRADIENT_PREDIVIDE_FACTOR,
-                        GRADIENT_PREDIVIDE_FACTOR_DEFAULT, MOE, OPTIMIZER, PIPELINE, PROGRESSIVE_LAYER_DROP, SCHEDULER,
-                        SEQUENCE_PARALLEL_SIZE, SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL,
+from .constants import (BFLOAT16, BFLOAT16_OLD, CHECKPOINT, CHECKPOINT_TAG_VALIDATION_MODES, COMET,
+                        COMPRESSION_TRAINING, CSV_MONITOR, FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
+                        GRADIENT_CLIPPING_DEFAULT, GRADIENT_PREDIVIDE_FACTOR, GRADIENT_PREDIVIDE_FACTOR_DEFAULT, MOE,
+                        NEBULA, OPTIMIZER, PIPELINE, PROGRESSIVE_LAYER_DROP, SCHEDULER, SEQUENCE_PARALLEL_SIZE,
+                        SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL, TENSORBOARD,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, WALL_CLOCK_BREAKDOWN,
-                        WALL_CLOCK_BREAKDOWN_DEFAULT, ZERO_OPTIMIZATION, ZERO_QUANTIZED_GRADIENTS,
+                        WALL_CLOCK_BREAKDOWN_DEFAULT, WANDB, ZERO_OPTIMIZATION, ZERO_QUANTIZED_GRADIENTS,
                         ZEROPP_LOCO_ERR_BETA_DEFAULT, ZEROPP_LOCO_PARAM)
 
-ROADMAP_OFFLOAD = "ROADMAP Queue 1, ZeRO-3 and offload"
-ROADMAP_TRAINING_FEATURES = "ROADMAP Queue 1, training features (compression, progressive layer drop, 1-bit)"
+ROADMAP_OFFLOAD = "ROADMAP Queue 1 items 6 and 8, ZeRO-3 and offload"
+ROADMAP_UNIVERSAL = "ROADMAP Queue 1 item 8, universal checkpoints"
+#: the training features still unported: compression and the 1-bit family
+ROADMAP_TRAINING_FEATURES = ("ROADMAP Queue 1 item 7, compressed comm (compression training, the 1-bit "
+                             "optimizers)")
 
 #: top-level keys the port does not implement → the ROADMAP item that brings them
 UNPORTED_KEYS = {
@@ -43,11 +50,11 @@ UNPORTED_KEYS = {
     SEQUENCE_PARALLEL_SIZE: ROADMAP_MULTI_DEVICE,
     MOE: ROADMAP_MULTI_DEVICE,
     COMPRESSION_TRAINING: ROADMAP_TRAINING_FEATURES,
-    PROGRESSIVE_LAYER_DROP: ROADMAP_TRAINING_FEATURES,
 }
 _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS, OPTIMIZER,
                      SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, ZERO_OPTIMIZATION, GRADIENT_CLIPPING,
-                     GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION}
+                     GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION,
+                     PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET}
 #: the JAX package's ZeRO knobs besides ``stage`` and the quantized gradient
 #: wire, with their defaults: the port's step has nothing to bucket, overlap
 #: or partition
@@ -118,6 +125,82 @@ class ZeroConfig:
     zeropp_loco_param: Optional[Dict[str, Any]] = None
 
 
+@dataclasses.dataclass
+class PLDConfig:
+    """``progressive_layer_drop`` (JAX ``engine.py:191-195``)."""
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+@dataclasses.dataclass
+class TensorBoardConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class WandbConfig:
+    enabled: bool = False
+    group: Optional[str] = None
+    team: Optional[str] = None
+    project: str = "deepspeed"
+
+
+@dataclasses.dataclass
+class CSVConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class CometConfig:
+    enabled: bool = False
+    samples_log_interval: int = 100
+    project: Optional[str] = None
+    workspace: Optional[str] = None
+    api_key: Optional[str] = None
+    experiment_name: Optional[str] = None
+    experiment_key: Optional[str] = None
+    online: Optional[bool] = None
+    mode: Optional[str] = None
+
+
+@dataclasses.dataclass
+class MonitorConfig:
+    """ref: monitor/config.py DeepSpeedMonitorConfig (one top-level block
+    per backend)."""
+    tensorboard: TensorBoardConfig = dataclasses.field(default_factory=TensorBoardConfig)
+    comet: CometConfig = dataclasses.field(default_factory=CometConfig)
+    wandb: WandbConfig = dataclasses.field(default_factory=WandbConfig)
+    csv_monitor: CSVConfig = dataclasses.field(default_factory=CSVConfig)
+    #: MonitorMaster forwards at most this many events (0 = unbounded)
+    max_events: int = 0
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    """The ``checkpoint`` block (JAX ``config.py:265``)."""
+    tag_validation: str = "Warn"
+    load_universal: bool = False
+    #: "torch" (or JAX's "orbax"): synchronous; "async"/"nebula": background writer
+    checkpoint_engine: str = "torch"
+    #: keep-last-K retention after each publish; None/0 keeps everything
+    keep_last_n: Optional[int] = None
+    #: crc32-verify the whole tag (the state file included) before a load
+    verify_checksums_on_load: bool = True
+
+    def __post_init__(self):
+        if str(self.tag_validation).capitalize() not in CHECKPOINT_TAG_VALIDATION_MODES:
+            raise DeepSpeedConfigError(f"tag_validation must be one of {CHECKPOINT_TAG_VALIDATION_MODES}")
+        if self.load_universal:
+            raise NotImplementedError(f"checkpoint.load_universal is not ported ({ROADMAP_UNIVERSAL})")
+        if self.keep_last_n is not None:
+            self.keep_last_n = int(self.keep_last_n)
+
+
 def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
     values = dict(values or {})
     stage = values.pop("stage", 0)
@@ -181,6 +264,12 @@ class DeepSpeedConfig:
         self.steps_per_print = pd.get(STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT)
         self.wall_clock_breakdown = pd.get(WALL_CLOCK_BREAKDOWN, WALL_CLOCK_BREAKDOWN_DEFAULT)
         self.sparse_attention = pd.get(SPARSE_ATTENTION, None)
+        self.pld_config = _block(PLDConfig, PROGRESSIVE_LAYER_DROP, pd.get(PROGRESSIVE_LAYER_DROP))
+        self.checkpoint_config = _block(CheckpointConfig, CHECKPOINT, pd.get(CHECKPOINT))
+        self.monitor_config = MonitorConfig(tensorboard=_block(TensorBoardConfig, TENSORBOARD, pd.get(TENSORBOARD)),
+                                            wandb=_block(WandbConfig, WANDB, pd.get(WANDB)),
+                                            csv_monitor=_block(CSVConfig, CSV_MONITOR, pd.get(CSV_MONITOR)),
+                                            comet=_block(CometConfig, COMET, pd.get(COMET)))
 
         self.train_batch_size = pd.get(TRAIN_BATCH_SIZE)
         self.train_micro_batch_size_per_gpu = pd.get(TRAIN_MICRO_BATCH_SIZE_PER_GPU)

@@ -10,6 +10,12 @@ SCHEDULER = "scheduler"
 ADAM_OPTIMIZER = "adam"
 ADAMW_OPTIMIZER = "adamw"
 FUSED_ADAM_OPTIMIZER = "fusedadam"
+CPU_ADAM_OPTIMIZER = "cpuadam"
+LAMB_OPTIMIZER = "lamb"
+FUSED_LAMB_OPTIMIZER = "fusedlamb"
+LION_OPTIMIZER = "lion"
+ADAGRAD_OPTIMIZER = "adagrad"
+SGD_OPTIMIZER = "sgd"
 ONEBIT_OPTIMIZERS = ("onebitadam", "zerooneadam", "onebitlamb")
 
 FP16 = "fp16"
@@ -38,3 +44,11 @@ PIPELINE = "pipeline"
 MOE = "moe"
 COMPRESSION_TRAINING = "compression_training"
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+NEBULA = "nebula"
+TENSORBOARD = "tensorboard"
+WANDB = "wandb"
+CSV_MONITOR = "csv_monitor"
+COMET = "comet"

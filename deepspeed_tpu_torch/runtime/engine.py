@@ -54,6 +54,24 @@ returned loss is a device tensor: reading it is the caller's sync.
 The CommsLogger sees the step as JAX logs its jitted step: the qgZ/LoCo
 exchange as one ``all_to_all_quant_reduce`` entry per step, and none of
 the collectives inside the step (``comm.unrecorded``).
+
+Hooks, as in JAX: ``model_inputs_fn(batch) -> (args, kwargs)`` feeds the
+model and ``loss_fn(outputs, batch)`` reduces its outputs to the loss
+(defaults: ``input_ids`` (+ ``positions``, ``segment_ids``) and the
+causal-LM token mean).  On the float32 wire at world > 1 a custom loss
+must equal the JAX GSPMD step's over the global micro-batch for any loss,
+not only a mean: every rank gathers the micro-batch's outputs from all
+ranks (``_GatherRows``) and evaluates ``loss_fn`` over them and the global
+micro-batch, and the gradient comes back to each rank for its own rows.
+The manual qgZ/LoCo step keeps per-rank losses, as JAX's manual step does.
+
+Also ported: the optimizers of the JAX engine's ``OPTIMIZER_FACTORIES``
+(Adam/AdamW, LAMB, Lion, Adagrad, SGD; the 1-bit family raises),
+progressive layer drop (the mask of the step that starts with ``n`` steps
+taken is drawn from ``n`` alone, ``runtime/progressive_layer_drop.py``), the
+synchronized timers of ``wall_clock_breakdown``, the monitor, ``eval_batch``
+and the crash-safe ``save_checkpoint``/``load_checkpoint``
+(``checkpoint/engine.py``).
 """
 
 import contextlib
@@ -66,15 +84,80 @@ from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
 from ..comm import comm
+from ..comm.mesh import ROADMAP_MULTI_DEVICE
 from ..models.llama import causal_lm_loss
+from ..ops.adagrad import SGD, Adagrad
 from ..ops.adam import FusedAdam
+from ..ops.lamb import FusedLamb
+from ..ops.lion import FusedLion
 from ..ops.optimizer import global_norm
 from ..utils.logging import log_dist, logger
+from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER,
+                           NoopTimer, SynchronizedWallClockTimer, ThroughputTimer)
 from .comm.compressed import GroupedQuantAllreduce
 from .config import ROADMAP_OFFLOAD, ROADMAP_TRAINING_FEATURES, DeepSpeedConfig
-from .constants import ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, ONEBIT_OPTIMIZERS
+from .constants import (ADAGRAD_OPTIMIZER, ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
+                        FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER, ONEBIT_OPTIMIZERS, SGD_OPTIMIZER)
 from .fp16.loss_scaler import StaticLossScaler, create_loss_scaler, found_inf_or_nan
 from .lr_schedules import LRSchedulerShim, get_lr_schedule
+from .progressive_layer_drop import ProgressiveLayerDrop, pld_scale_for_step
+
+#: the optimizers of the JAX engine's ``OPTIMIZER_FACTORIES`` (``engine.py:54-67``)
+#: that the port builds; the 1-bit family raises (``ONEBIT_OPTIMIZERS``)
+OPTIMIZER_FACTORIES = {
+    ADAM_OPTIMIZER: FusedAdam,
+    ADAMW_OPTIMIZER: FusedAdam,
+    FUSED_ADAM_OPTIMIZER: FusedAdam,
+    CPU_ADAM_OPTIMIZER: FusedAdam,
+    LAMB_OPTIMIZER: FusedLamb,
+    FUSED_LAMB_OPTIMIZER: FusedLamb,
+    LION_OPTIMIZER: FusedLion,
+    ADAGRAD_OPTIMIZER: Adagrad,
+    SGD_OPTIMIZER: SGD,
+}
+
+
+def _default_model_inputs(batch):
+    """The model's positional and keyword inputs from a micro-batch (JAX
+    ``engine.py:91``): ``input_ids``, and ``positions``/``segment_ids`` when
+    present."""
+    kw = {}
+    for k in ("positions", "segment_ids"):
+        if k in batch:
+            kw[k] = batch[k]
+    return (batch["input_ids"], ), kw
+
+
+def _default_loss_fn(outputs, batch):
+    """The causal-LM token mean of ``labels`` (and ``loss_mask``) (JAX
+    ``engine.py:99``).  The engine calls ``causal_lm_loss`` itself for this
+    default, with the global token count as the denominator on the float32
+    wire at world > 1."""
+    if "labels" not in batch:
+        raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
+                       "pass loss_fn= to initialize() for custom losses")
+    return causal_lm_loss(outputs, batch["labels"], batch.get("loss_mask"))
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather along dim 0 over the data-parallel ranks, in rank order.
+    The backward hands back this rank's rows of the gradient unreduced:
+    every rank computes the same loss over the gathered rows, so each holds
+    the whole gradient of the gathered tensor, and its rows of it are its
+    share of the parameters' gradient (the float32 wire sums the shares)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        world, rank = comm.get_world_size(), comm.get_rank()
+        ctx.rows, ctx.rank = x.shape[0], rank
+        out = x.new_empty((world * x.shape[0], ) + tuple(x.shape[1:]))
+        with comm.unrecorded():
+            comm.all_gather_into_tensor(out, x.contiguous())
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
 
 
 class StepMetrics(NamedTuple):
@@ -89,9 +172,12 @@ class StepMetrics(NamedTuple):
 class DeepSpeedEngine:
 
     def __init__(self, model: nn.Module, config: DeepSpeedConfig, optimizer: Optional[Callable] = None,
-                 lr_scheduler=None, params: Optional[Dict[str, torch.Tensor]] = None, device: DeviceLike = None):
+                 lr_scheduler=None, params: Optional[Dict[str, torch.Tensor]] = None, device: DeviceLike = None,
+                 loss_fn: Optional[Callable] = None, model_inputs_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
         self._config = config
+        self.loss_fn = loss_fn or _default_loss_fn
+        self.model_inputs_fn = model_inputs_fn or _default_model_inputs
         self.zero_stage = config.zero_optimization_stage
         if self.zero_stage == 3:
             raise NotImplementedError(f"ZeRO stage 3 is not ported ({ROADMAP_OFFLOAD}); stages 0-2 are one "
@@ -113,7 +199,10 @@ class DeepSpeedEngine:
                     comm.broadcast(t, 0)
         self.use_master = self.compute_dtype != torch.float32
         with torch.no_grad():
-            float_params = [p for p in self.module.parameters() if p.is_floating_point()]
+            named = [(n, p) for n, p in self.module.named_parameters() if p.is_floating_point()]
+            #: the names of ``params`` (and of ``master``), in order
+            self.param_names: List[str] = [n for n, _ in named]
+            float_params = [p for _, p in named]
             self.master: List[torch.Tensor] = [p.detach().float().clone() for p in float_params] \
                 if self.use_master else []
             for p in float_params:
@@ -137,6 +226,21 @@ class DeepSpeedEngine:
         self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)
         self.global_steps = 0
         self.global_samples = 0
+
+        # ---- timers and monitor (JAX engine.py:161-165)
+        self.timers = SynchronizedWallClockTimer(self.device) if config.wall_clock_breakdown else NoopTimer()
+        self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
+                                          steps_per_output=config.steps_per_print, device=self.device)
+        self.monitor = self._build_monitor()
+
+        # ---- progressive layer drop (JAX engine.py:189-195)
+        self.progressive_layer_drop = None
+        if config.pld_config.enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(theta=config.pld_config.theta,
+                                                               gamma=config.pld_config.gamma)
+        self._pld_scale: Optional[torch.Tensor] = None
+        #: the custom loss over the gathered micro-batch (float32 wire, world > 1)
+        self._gather_loss = self.loss_fn is not _default_loss_fn and self.dp_world > 1 and not self.qgz
         self.last_metrics: Optional[StepMetrics] = None
         self._pending: Optional[List[torch.Tensor]] = None
         self._pending_loss: Optional[torch.Tensor] = None
@@ -175,15 +279,30 @@ class DeepSpeedEngine:
         params.pop("torch_adam", None)
         if name in ONEBIT_OPTIMIZERS:
             raise NotImplementedError(f"optimizer {cfg.type} is not ported ({ROADMAP_TRAINING_FEATURES})")
-        if name not in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER):
-            raise NotImplementedError(f"optimizer {cfg.type} is not ported: the PyTorch package has Adam, AdamW "
-                                      "and FusedAdam (ROADMAP Queue 1, training features)")
-        if name == ADAMW_OPTIMIZER or cfg is None:
+        if name not in OPTIMIZER_FACTORIES:
+            raise ValueError(f"Unknown optimizer {cfg.type}; known: "
+                             f"{sorted(list(OPTIMIZER_FACTORIES) + list(ONEBIT_OPTIMIZERS))}")
+        if name == ADAMW_OPTIMIZER:
             params.setdefault("weight_decay", 0.01)   # JAX adamw() default
             params["adam_w_mode"] = True
-        else:
+        elif OPTIMIZER_FACTORIES[name] is FusedAdam:
             params.setdefault("adam_w_mode", True)    # the reference's FusedAdam flag
-        return FusedAdam(target, lr=self.lr_schedule, **params)
+        return OPTIMIZER_FACTORIES[name](target, lr=self.lr_schedule, **params)
+
+    def _build_monitor(self):
+        """The MonitorMaster of the config's monitor blocks, attached to the
+        ``resilience/*`` event bus when enabled (JAX ``engine.py:423-436``);
+        None if it cannot be built (a monitor must never break training)."""
+        try:
+            from ..monitor.monitor import MonitorMaster
+            monitor = MonitorMaster(self._config.monitor_config)
+            if monitor.enabled:
+                from ..resilience import events as res_events
+                res_events.attach_monitor(monitor)
+            return monitor
+        except Exception as e:
+            logger.debug(f"monitor disabled: {e}")
+            return None
 
     def _manual_ddp_eligible(self) -> bool:
         """The JAX engine's condition for its manual data-parallel step
@@ -242,13 +361,40 @@ class DeepSpeedEngine:
             out[k] = t.to(self.device)
         return out
 
-    def _microbatch_loss(self, mb) -> torch.Tensor:
-        """The causal-LM loss of one micro-batch: ``input_ids`` and ``labels``,
-        optionally ``positions``, ``segment_ids`` and ``loss_mask``."""
-        if "labels" not in mb:
-            raise KeyError("batch must contain 'labels' for the causal-LM loss")
-        logits = self.module(mb["input_ids"], positions=mb.get("positions"), segment_ids=mb.get("segment_ids"))
-        return causal_lm_loss(logits, mb["labels"], mb.get("loss_mask"), self._global_token_count(mb))
+    def _microbatch_loss(self, mb, training: bool = False, global_mb=None) -> torch.Tensor:
+        """The loss of one micro-batch (JAX ``_microbatch_loss`` :659): the
+        model on ``model_inputs_fn(mb)`` (with this step's PLD gate when
+        training), then ``loss_fn``.  The default loss is the causal-LM token
+        mean (with the global token count on the float32 wire at world > 1);
+        a custom one at world > 1 sees the gathered outputs and ``global_mb``."""
+        args, kwargs = self.model_inputs_fn(mb)
+        if training and self.progressive_layer_drop is not None and getattr(self.module, "supports_pld", False):
+            kwargs["pld_scale"] = self._pld_scale
+        outputs = self.module(*args, **kwargs)
+        if self.loss_fn is _default_loss_fn:
+            if "labels" not in mb:
+                raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
+                               "pass loss_fn= to initialize() for custom losses")
+            return causal_lm_loss(outputs, mb["labels"], mb.get("loss_mask"), self._global_token_count(mb))
+        if self._gather_loss:
+            if global_mb is None:
+                raise NotImplementedError("a custom loss_fn over several data-parallel ranks needs the global "
+                                          "micro-batch: use train_batch, not forward/backward/step "
+                                          f"({ROADMAP_MULTI_DEVICE})")
+            if not isinstance(outputs, torch.Tensor):
+                raise NotImplementedError("a custom loss_fn over several data-parallel ranks gathers the model's "
+                                          f"output, which must be one tensor ({ROADMAP_MULTI_DEVICE})")
+            return self.loss_fn(_GatherRows.apply(outputs), global_mb)
+        return self.loss_fn(outputs, mb)
+
+    def _step_pld_scale(self) -> None:
+        """The PLD gate of the step that starts now (JAX draws it at the
+        state's step, before the increment): drawn on the CPU, copied once."""
+        if self.progressive_layer_drop is None:
+            return
+        scale = pld_scale_for_step(self.progressive_layer_drop, self.module.cfg.num_hidden_layers,
+                                   self.global_steps)
+        self._pld_scale = scale.to(self.device)
 
     def _global_token_count(self, mb) -> Optional[torch.Tensor]:
         """The denominator of the token mean on the float32 wire at world > 1:
@@ -265,12 +411,12 @@ class DeepSpeedEngine:
             count = comm.all_reduce(mask.float().sum().reshape(1), comm.ReduceOp.SUM)
         return count.reshape(()).clamp_min(1.0)
 
-    def _backward_micro(self, mb) -> torch.Tensor:
+    def _backward_micro(self, mb, global_mb=None) -> torch.Tensor:
         """One micro-batch: backward of ``loss·scale``, grads added in float32
         into the pending sums.  Returns the (unscaled) loss."""
         for p in self.params:
             p.grad = None
-        loss = self._microbatch_loss(mb)
+        loss = self._microbatch_loss(mb, training=True, global_mb=global_mb)
         self._accumulate(loss)
         return loss.detach()
 
@@ -284,10 +430,11 @@ class DeepSpeedEngine:
         for p in self.params:
             p.grad = None
 
-    def _rank_micro_batch(self, batch, i: int):
+    def _rank_micro_batch(self, batch, i: int, ranks: Optional[int] = None):
         """Micro-batch ``i`` of the global batch (its rows ``[i·B/gas,
         (i+1)·B/gas)``, as JAX splits it) and, of those, this rank's
-        contiguous share (JAX shards dim 0 over ``data``)."""
+        contiguous share (JAX shards dim 0 over ``data``); with ``ranks=
+        dp_world``, the shares of every rank (the whole micro-batch)."""
         out = {}
         for k, v in batch.items():
             if v.dim() == 0:
@@ -297,8 +444,11 @@ class DeepSpeedEngine:
             if rem or not rows:
                 raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows: not a multiple of gas {self.gas} × "
                                  f"{self.dp_world} data-parallel ranks")
-            start = (i * self.dp_world + self.dp_rank) * rows
-            out[k] = v[start:start + rows]
+            if ranks is None:
+                start, take = (i * self.dp_world + self.dp_rank) * rows, rows
+            else:
+                start, take = i * self.dp_world * rows, ranks * rows
+            out[k] = v[start:start + take]
         return out
 
     # ------------------------------------------------------------------ the wire
@@ -331,7 +481,8 @@ class DeepSpeedEngine:
             return grads, loss
         op = comm.ReduceOp.AVG if self.qgz else comm.ReduceOp.SUM
         with comm.unrecorded():
-            loss = comm.all_reduce(loss.reshape(1), op).reshape(())
+            if not self._gather_loss:   # a gathered loss is already the global one on every rank
+                loss = comm.all_reduce(loss.reshape(1), op).reshape(())
             if not self.qgz:
                 return [comm.all_reduce(g, op) for g in grads], loss
         if self.loco_error is not None:
@@ -413,7 +564,9 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None, batch=None) -> torch.Tensor:
         """One optimizer step over ``gas`` contiguous micro-batches (JAX
-        ``engine.py:1274``).  Returns the mean loss as a device tensor."""
+        ``engine.py:1274``): ``batch`` is the global batch, or ``data_iter``
+        yields its ``gas`` global micro-batches (``DeepSpeedDataLoader``).
+        Returns the mean loss as a device tensor."""
         if batch is None:
             if data_iter is None:
                 raise ValueError("provide data_iter or batch")
@@ -421,24 +574,62 @@ class DeepSpeedEngine:
             batch = {k: np.concatenate([np.asarray(m[k]) for m in micro]) for k in micro[0]} \
                 if self.gas > 1 else micro[0]
         batch = self._to_device(batch)
-        t0 = time.perf_counter() if self._config.wall_clock_breakdown else None
+        self.tput_timer.start()
+        self.timers(TRAIN_BATCH_TIMER).start()
+        self._step_pld_scale()
         self._pending, self._pending_loss = None, None
         loss_sum = None
         for i in range(self.gas):
-            loss = self._backward_micro(self._rank_micro_batch(batch, i)).float()
+            global_mb = self._rank_micro_batch(batch, i, ranks=self.dp_world) if self._gather_loss else None
+            loss = self._backward_micro(self._rank_micro_batch(batch, i), global_mb).float()
             loss_sum = loss if loss_sum is None else loss_sum + loss
         grads, self._pending = self._pending, None
         grads, loss = self._reduce_over_ranks(grads, loss_sum / self.gas)
         metrics = self._apply_grads(grads, loss)
-        if t0 is not None:
-            log_dist(f"train_batch {1e3 * (time.perf_counter() - t0):.1f} ms (host, not synchronized)", ranks=[0])
+        self.timers(TRAIN_BATCH_TIMER).stop()
+        self.tput_timer.stop(global_step=True)
+        self._after_step(metrics, [TRAIN_BATCH_TIMER])
         return metrics.loss
+
+    def _after_step(self, metrics: StepMetrics, timer_names) -> None:
+        """The PLD theta, the monitor's rows and the timers' log at a
+        ``steps_per_print`` boundary (JAX ``train_batch`` :1329-1341)."""
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        self._write_monitor(metrics)
+        spp = self._config.steps_per_print
+        if self._config.wall_clock_breakdown and spp and self.global_steps % spp == 0:
+            self.timers.log(timer_names)
+
+    def _write_monitor(self, metrics: StepMetrics) -> None:
+        """``Train/Samples/{train_loss,lr,loss_scale}`` at the global sample
+        count (JAX ``_write_monitor`` :1473); reads the loss (a host sync)
+        only when a monitor is on."""
+        if self.monitor is not None and self.monitor.enabled:
+            self.monitor.write_events([
+                ("Train/Samples/train_loss", float(metrics.loss), self.global_samples),
+                ("Train/Samples/lr", float(metrics.lr), self.global_samples),
+                ("Train/Samples/loss_scale", float(metrics.loss_scale), self.global_samples),
+            ])
 
     def forward(self, batch) -> torch.Tensor:
         """The loss of one micro-batch, with its autograd graph when grad is
         enabled (the imperative ``forward``/``backward``/``step`` path)."""
         self._last_batch = batch = self._to_device(batch)
-        return self._microbatch_loss(batch)
+        self.timers(FORWARD_GLOBAL_TIMER).start()
+        loss = self._microbatch_loss(batch)
+        self.timers(FORWARD_GLOBAL_TIMER).stop()
+        return loss
+
+    __call__ = forward
+
+    def eval_batch(self, data_iter=None, batch=None) -> torch.Tensor:
+        """The loss of one micro-batch without gradients (JAX ``engine.py:1438``):
+        ``batch``, or the next one of ``data_iter``."""
+        if batch is None:
+            batch = next(data_iter)
+        with torch.no_grad():
+            return self.forward(batch)
 
     def backward(self, loss: Optional[torch.Tensor] = None, batch=None) -> torch.Tensor:
         """Accumulate the gradients of one micro-batch (ref: engine.py:2204):
@@ -447,17 +638,21 @@ class DeepSpeedEngine:
         if self.qgz:
             raise RuntimeError("the imperative forward/backward/step path does not support compressed gradient "
                                "transport; use train_batch()")
+        self.timers(BACKWARD_GLOBAL_TIMER).start()
         for p in self.params:
             p.grad = None
         if loss is None or loss.grad_fn is None:
             batch = self._to_device(batch) if batch is not None else self._last_batch
             if batch is None:
                 raise ValueError("call forward(batch) first or pass batch=")
-            loss = self._microbatch_loss(batch)
+            if self._micro_step_count == 0:
+                self._step_pld_scale()
+            loss = self._microbatch_loss(batch, training=True)
         self._accumulate(loss)
         loss = loss.detach().float()
         self._pending_loss = loss if self._pending_loss is None else self._pending_loss + loss
         self._micro_step_count += 1
+        self.timers(BACKWARD_GLOBAL_TIMER).stop()
         return loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -471,12 +666,36 @@ class DeepSpeedEngine:
             raise RuntimeError("backward() must run before step()")
         if not self.is_gradient_accumulation_boundary():
             return None
+        self.timers(STEP_GLOBAL_TIMER).start()
         grads, self._pending = self._pending, None
         grads, loss = self._reduce_over_ranks(grads, self._pending_loss / self._micro_step_count)
         metrics = self._apply_grads(grads, loss)
         self._pending_loss, self._micro_step_count = None, 0
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        self._after_step(metrics, [FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
         self.lr_scheduler.step()
         return metrics
+
+    # ------------------------------------------------------------ checkpoints
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Crash-safe save of the whole training state under
+        ``<save_dir>/<tag>`` (``checkpoint/engine.py``; JAX ``engine.py:1563``)."""
+        from ..checkpoint.engine import save_checkpoint as _save
+        return _save(self, save_dir, tag=tag, client_state=client_state or {}, save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Restore a checkpoint into this engine; returns ``(path,
+        client_state)``, or ``(None, {})`` without a ``latest`` file (JAX
+        ``engine.py:1585``)."""
+        from ..checkpoint.engine import load_checkpoint as _load
+        out = _load(self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+                    load_module_only=load_module_only)
+        if out[0] is not None and self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        return out
 
     # ------------------------------------------------------------- properties
 

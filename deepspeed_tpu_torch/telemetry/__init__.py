@@ -5,9 +5,9 @@ JSONL :mod:`exporters <.export>` with atomic writes, the :mod:`metrics
 <.metrics>` registry (counters / gauges / fixed-log-bucket histograms),
 the multi-window SLO :mod:`burn monitor <.slo>`, the fleet's :mod:`flight
 recorder <.flight_recorder>`, the per-step :mod:`anatomy <.step_anatomy>`
-recorder and the request-lifecycle :mod:`spans <.spans>` — the port's own
-copies of the JAX package's ``telemetry/`` modules (numpy and the stdlib
-only).  The event registry is still to come (ROADMAP.md Queue 1).
+recorder, the request-lifecycle :mod:`spans <.spans>` and the :mod:`event
+registry <.event_registry>` of every event name — the port's own copies of
+the JAX package's ``telemetry/`` modules (numpy and the stdlib only).
 """
 
 from .export import load_chrome_trace, spans_to_jsonl, to_chrome_trace, write_chrome_trace, write_jsonl

@@ -84,6 +84,22 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.serving.fleet.router",
     "deepspeed_tpu_torch.serving.fleet.autoscale",
     "deepspeed_tpu_torch.serving.fleet.sim",
+    "deepspeed_tpu_torch.telemetry.event_registry",
+    "deepspeed_tpu_torch.utils.timer",
+    "deepspeed_tpu_torch.utils.zero_to_fp32",
+    "deepspeed_tpu_torch.monitor",
+    "deepspeed_tpu_torch.monitor.monitor",
+    "deepspeed_tpu_torch.runtime.dataloader",
+    "deepspeed_tpu_torch.runtime.progressive_layer_drop",
+    "deepspeed_tpu_torch.runtime.bf16_optimizer",
+    "deepspeed_tpu_torch.runtime.fp16.fused_optimizer",
+    "deepspeed_tpu_torch.runtime.checkpoint_engine",
+    "deepspeed_tpu_torch.checkpoint",
+    "deepspeed_tpu_torch.checkpoint.engine",
+    "deepspeed_tpu_torch.checkpoint.zero_to_fp32",
+    "deepspeed_tpu_torch.ops.lamb",
+    "deepspeed_tpu_torch.ops.lion",
+    "deepspeed_tpu_torch.ops.adagrad",
 ]
 
 _PROBE = """

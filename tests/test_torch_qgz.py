@@ -526,7 +526,7 @@ def test_unsupported_layouts_raise_or_fall_back(engine_runs):
     qgZ with gas 2 warns and keeps the float32 wire, step for step the same
     as the float32-wire run."""
     _, ranks, _ = engine_runs
-    assert "ROADMAP Queue 1 item 4" in ranks[0]["stage2"]
+    assert "ROADMAP Queue 1 item 6" in ranks[0]["stage2"]
     gas2 = ranks[0]["qgz_gas2"]
     assert not gas2["qgz"]
     assert sum("zero_quantized_gradients needs" in m for m in gas2["warnings"]) == 1
@@ -553,7 +553,7 @@ def test_mesh_spec_takes_the_data_axis_only():
     assert MeshSpec().resolve(2) == (1, 2, 1, 1, 1) and MeshSpec(data=4).resolve(4)[1] == 4
     assert dp_world_size() == 1
     for spec in (MeshSpec(tensor=2), MeshSpec(pipe=2), MeshSpec(seq=2), MeshSpec(expert=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             spec.resolve(2)
     with pytest.raises(ValueError, match="does not cover"):
         MeshSpec(data=2).resolve(4)
@@ -572,6 +572,6 @@ def test_nccl_takes_one_card_per_rank(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
         comm.init_distributed(dist_backend="nccl", rank=0, world_size=1, init_method="tcp://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
         comm.init_distributed(dist_backend="gloo", rank=0, world_size=2, mesh_spec=MeshSpec(data=1, tensor=2))
     assert not comm.is_initialized()

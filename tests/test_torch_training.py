@@ -95,10 +95,12 @@ def test_remat_rejects_unknown_policy_and_multi_device_attention():
     with pytest.raises(ValueError, match="remat_policy"):
         model(ids)
     for impl in ("ulysses", "fpdt", "ring"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             tl.get_attention_impl(impl)
-    with pytest.raises(NotImplementedError, match="progressive layer drop"):
-        model(ids, pld_scale=torch.ones(3))
+    # progressive layer drop is ported (tests/test_torch_training_features.py):
+    # a gate of the wrong length is refused
+    with pytest.raises(ValueError, match="pld_scale"):
+        model(ids, pld_scale=torch.ones(2))
 
 
 @pytest.mark.parametrize("impl", ["reference", "chunked", "flash"])
@@ -307,7 +309,7 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
     assert DeepSpeedConfig({**base, "zero_optimization": {"stage": 1, "overlap_comm": None}}).zero_config.stage == 1
     unported = [{"pipeline": {"stages": 2}}, {"tensor_parallel": {"autotp_size": 2}}, {"sequence_parallel_size": 2},
                 {"moe": {"enabled": True}}, {"compression_training": {"weight_quantization": {}}},
-                {"progressive_layer_drop": {"enabled": True}},
+                {"checkpoint": {"load_universal": True}},
                 {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
                 {"zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}, {"flops_profiler": {"enabled": True}}]
     for extra in unported:
@@ -317,6 +319,10 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
         DeepSpeedConfig({**base, "fp16": {"enabled": True}, "bf16": {"enabled": True}})
     with pytest.raises(DeepSpeedConfigError):
         DeepSpeedConfig({**base, "zero_optimization": {"stage": 4}})
+    # ported since: progressive layer drop, the checkpoint block, the monitors
+    c = DeepSpeedConfig({**base, "progressive_layer_drop": {"enabled": True, "theta": 0.4},
+                         "checkpoint": {"keep_last_n": 2}, "csv_monitor": {"enabled": False}})
+    assert c.pld_config.enabled and c.pld_config.theta == 0.4 and c.checkpoint_config.keep_last_n == 2
 
 
 # ------------------------------------------------------------------ the engine
@@ -466,8 +472,11 @@ def test_initialize_surface():
     for bad in ({"zero_optimization": {"stage": 3}}, {"optimizer": {"type": "OneBitAdam"}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tds.initialize(model=model, config={"train_batch_size": 2, **bad}, device="cpu")
-    with pytest.raises(NotImplementedError, match="dataloader"):
-        tds.initialize(model=model, config={"train_batch_size": 2}, training_data=[1], device="cpu")
+    # the dataloader is ported (tests/test_torch_training_features.py): the
+    # third element is a loader of global micro-batches
+    loader = tds.initialize(model=model, config={"train_batch_size": 2}, training_data=[np.zeros(4)] * 5,
+                            device="cpu")[2]
+    assert loader.batch_size == 2 and len(loader) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             tds.initialize(model=model, config={"train_batch_size": 2})
