@@ -19,7 +19,12 @@ source, all started together.  Phases:
      float32 decode (the scalar kernel), forced empty splits, rep 1 at head
      dim 64, one tensor-core product against torch.matmul, the merge
      kernel against its plain version, faulty kernels the check must
-     reject, and the decode time by split count;
+     reject, and the decode time by split count; then the zoo's rows: head
+     dims 80 and 96 at Llama-3-8B's decode and prefill shapes, Falcon-7B's 71
+     heads on one kv head at decode and a 256-token chunk, a window of 4096
+     over 6000-key contexts at decode and prefill, alibi at 32 heads of 64 —
+     each timed beside its bound, plain and SDPA (same mask or bias) — and
+     in float32, with five faulty kernels of those routes rejected;
   3. serving: ``build_engine`` → ``put`` / ``step`` on Llama-3-8B at full
      width and depth with seeded random weights, continuous batching of 8
      requests with SplitFuse chunking, fused decode and a prefix-cache hit,
@@ -146,7 +151,22 @@ source, all started together.  Phases:
      steps each (step ms, the optimizer step's device ms, losses falling),
      progressive layer drop (theta and mask per step), the synchronized
      ``train_batch`` timer and the CSV monitor's files; K1/K2a/K2b once per
-     layer per step throughout.
+     layer per step throughout;
+ 16. Falcon-7B at full width and depth (run after phase 14's weights are
+     dropped): the published ``tiiuae/falcon-7b`` config in code, seeded
+     bf16 weights made on the card under HF's names and converted in memory
+     by ``FalconPolicy``; phase 3's mix and checks (K3 == 32 x forwards), a
+     profiled decode round (K3's device ms), phase 4's bf16 logits parity,
+     and a short bf16 greedy run equal on the kernel and plain paths but
+     for rounding ties;
+ 17. the zoo through ``build_hf_engine`` from a directory: OPT-6.7B
+     (``pytorch_model.bin``), Phi-2 (head dim 80), Phi-3-mini-4k (96, fused
+     projections), Mistral-7B-v0.1 (window 4096, one 4608-token request),
+     Qwen2-7B (q/k/v biases) and Falcon-RW-1B (alibi) — each written by this
+     script (``model.safetensors`` by its own writer) at its published widths
+     cut to ZOO_LAYERS layers; phase 3's mix and checks (K3 == layers x
+     forwards), then float32 greedy streams identical on the kernel and
+     plain paths; each directory removed after its model.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -177,9 +197,10 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
-                                              SpecConfig, build_engine)
+                                              SpecConfig, build_engine, build_hf_engine)
+from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, init_weights_
-from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache
+from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache, kv_heads
 from deepspeed_tpu_torch.models.llama_cache import paged_attention as paged_attention_plain
 from deepspeed_tpu_torch.ops.op_builder import KERNEL_SOURCES, build_kernel
 from deepspeed_tpu_torch.ops.flash_attention import (flash_bwd_plain, flash_delta_plain, flash_dkv_cuda,
@@ -301,25 +322,32 @@ def ptxas_report(output: str, names) -> dict:
 # ---------------------------------------------------------------- phase 2
 
 
-def make_case(starts, clens, c, dtype, seed, h=H, n_kv=N_KV, d=D):
+def make_case(starts, clens, c, dtype, seed, h=H, n_kv=N_KV, d=D, max_pages=MAX_PAGES, window=0, slopes=None):
     """A paged arena of random K/V with per-sequence block tables over
-    shuffled physical pages; rows with clen 0 keep an all-null table."""
+    shuffled physical pages; rows with clen 0 keep an all-null table.
+    ``window`` (> 0) and ``slopes`` (alibi, float32 [H]) ride with the case."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     need = [-(-(s + n) // PAGE) if n > 0 else 0 for s, n in zip(starts, clens)]
     n_pages = 1 + sum(need)
     phys = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(seed)) + 1).tolist()
-    bt = torch.zeros((len(starts), MAX_PAGES), dtype=torch.int32)
+    bt = torch.zeros((len(starts), max_pages), dtype=torch.int32)
     for i, n in enumerate(need):
         bt[i, :n] = torch.tensor(phys[:n], dtype=torch.int32)
         phys = phys[n:]
     pages = torch.randn((n_pages, PAGE, 2, n_kv, d), generator=gen, device="cuda").to(dtype)
     q = torch.randn((len(starts), c, h, d), generator=gen, device="cuda").to(dtype)
     return dict(q=q, pages=pages, block_table=bt.cuda(), start_pos=torch.tensor(starts, dtype=torch.int32).cuda(),
-                chunk_lens=torch.tensor(clens, dtype=torch.int32).cuda(), page_size=PAGE)
+                chunk_lens=torch.tensor(clens, dtype=torch.int32).cuda(), page_size=PAGE, window=window,
+                slopes=None if slopes is None else torch.as_tensor(slopes, dtype=torch.float32).cuda())
 
 
 def case_args(case) -> tuple:
     return (case["q"], case["pages"], case["block_table"], case["start_pos"], case["chunk_lens"], PAGE)
+
+
+def case_masks(case) -> dict:
+    """The case's window and alibi slopes as K3's keyword arguments."""
+    return {"sliding_window": case.get("window", 0), "alibi_slopes": case.get("slopes")}
 
 
 def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
@@ -344,9 +372,10 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
 
 
 def bound_ms(case, dtype) -> tuple:
-    """Least time for the work: the bytes it must move — each live KV byte,
-    the q rows of real queries (a padding row's output is zero whatever its
-    q holds), the live block-table entries, start_pos and chunk_lens read
+    """Least time for the work: the bytes it must move — each live KV byte
+    (with a window, the keys some row of the sequence sees), the q rows of
+    real queries (a padding row's output is zero whatever its q holds), the
+    live block-table entries, start_pos and chunk_lens (and the slopes) read
     once, every out row (zeros included) written once — against the flops
     the visible keys need."""
     esize = torch.finfo(dtype).bits // 8
@@ -354,12 +383,14 @@ def bound_ms(case, dtype) -> tuple:
     n_kv = case["pages"].shape[3]
     starts = case["start_pos"].tolist()
     clens = case["chunk_lens"].tolist()
-    live_keys = sum(s + n for s, n in zip(starts, clens) if n > 0)
-    live_pages = sum(-(-(s + n) // PAGE) for s, n in zip(starts, clens) if n > 0)
+    w = case.get("window", 0) or 1 << 40
+    first = [max(0, s - w + 1) for s in starts]     # the first key the sequence's first row sees
+    live_keys = sum(s + n - f for s, n, f in zip(starts, clens, first) if n > 0)
+    live_pages = sum(-(-(s + n) // PAGE) - f // PAGE for s, n, f in zip(starts, clens, first) if n > 0)
     row_bytes = h * d * esize
     nbytes = (live_keys * 2 * n_kv * d * esize + sum(clens) * row_bytes + b * c * row_bytes +
-              4 * (live_pages + 2 * b))
-    flops = sum(4 * h * d * (s + j + 1) for s, n in zip(starts, clens) for j in range(n))
+              4 * (live_pages + 2 * b) + (4 * h if case.get("slopes") is not None else 0))
+    flops = sum(4 * h * d * min(w, s + j + 1) for s, n in zip(starts, clens) for j in range(n))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -377,8 +408,15 @@ def sdpa_inputs(case):
     k = g[:, :, 0].repeat_interleave(h // n_kv, dim=2).transpose(1, 2).contiguous()
     v = g[:, :, 1].repeat_interleave(h // n_kv, dim=2).transpose(1, 2).contiguous()
     qpos = case["start_pos"].long()[:, None] + torch.arange(c, device="cuda")[None, :]
-    mask = torch.arange(s_max, device="cuda")[None, None, :] <= qpos[..., None]
-    return q.transpose(1, 2).contiguous(), k, v, mask[:, None]
+    kpos = torch.arange(s_max, device="cuda")
+    mask = kpos[None, None, :] <= qpos[..., None]
+    if case.get("window"):
+        mask = mask & (kpos[None, None, :] > qpos[..., None] - case["window"])
+    mask = mask[:, None]
+    if case.get("slopes") is not None:   # alibi as an additive bias, -inf where hidden
+        bias = case["slopes"][:, None, None] * kpos.float() / math.sqrt(d)            # [H, 1, S]
+        mask = torch.where(mask, bias[None].to(q.dtype), float("-inf"))
+    return q.transpose(1, 2).contiguous(), k, v, mask
 
 
 def k3_ratio(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
@@ -390,12 +428,12 @@ def k3_ratio(got: torch.Tensor, want: torch.Tensor, dtype) -> float:
 
 
 def run_case(name, case, dtype, flush, timed=True, n_split=None) -> dict:
-    args = case_args(case)
+    args, masks = case_args(case), case_masks(case)
     b, c, h, d = case["q"].shape
     split = 1 if dtype == torch.float32 else n_split or choose_n_split(b, c, h, case["pages"].shape[3], d,
-                                                                          MAX_PAGES * PAGE)
-    got = paged_attention_cuda(*args, n_split=n_split)
-    want = paged_attention_plain(*args)
+                                                                          case["block_table"].shape[1] * PAGE)
+    got = paged_attention_cuda(*args, n_split=n_split, **masks)
+    want = paged_attention_plain(*args, **masks)
     torch.cuda.synchronize()
     max_err = float((got.float() - want.float()).abs().max())
     ratio = k3_ratio(got, want, dtype)
@@ -410,8 +448,8 @@ def run_case(name, case, dtype, flush, timed=True, n_split=None) -> dict:
     b_ms, b_by = bound_ms(case, dtype)
     row.update(bound_ms=b_ms, bound_by=b_by)
     if timed:
-        row["ms"] = time_ms(lambda: paged_attention_cuda(*args, n_split=n_split), 20, flush)
-        row["plain_ms"] = time_ms(lambda: paged_attention_plain(*args), 5, flush)
+        row["ms"] = time_ms(lambda: paged_attention_cuda(*args, n_split=n_split, **masks), 20, flush)
+        row["plain_ms"] = time_ms(lambda: paged_attention_plain(*args, **masks), 5, flush)
         qs, ks, vs, mask = sdpa_inputs(case)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         row["library_ms"] = time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), 10, flush)
@@ -481,6 +519,91 @@ def k3_merge(decode) -> dict:
     return {"n_split": n, "empty_partials": empty, "err_over_limit": ratio}
 
 
+# the zoo's K3 shapes (phases 16 and 17): Falcon-7B's 71 query heads on one
+# kv head of 64; Mistral-7B's window of 4096 over 6000-key contexts; Falcon-RW-1B's
+# alibi over 32 heads of 64 (MHA); Phi-2's and Phi-3's head dims 80 and 96 at
+# Llama-3-8B's heads
+WINDOW = 4096
+WINDOW_PAGES = 384                 # 6144 keys a sequence
+WINDOW_SHORT = 32                  # an untimed window short enough that one key is visible in the output
+
+
+def zoo_shapes(rng) -> dict:
+    """name → (starts, chunk lens, C, make_case keywords) of the zoo's K3 rows."""
+    from deepspeed_tpu_torch.models.falcon import alibi_slopes
+    ctx = rng.integers(1, 2001, 16)
+    ctx[0], ctx[-1] = 1, 2000
+    decode = ([int(x) - 1 for x in ctx], [1] * 16, 1)
+    prefill = ([0, 256, 768, 1536], [256, 256, 256, 200], 256)
+    wctx = rng.integers(5000, 6001, 16)
+    wctx[0] = 6000
+    wdecode = ([int(x) - 1 for x in wctx], [1] * 16, 1)
+    wprefill = ([5744, 5400, 4100, 3000], [256, 256, 256, 256], 256)
+    falcon = dict(h=71, n_kv=1, d=64)
+    window = dict(max_pages=WINDOW_PAGES, window=WINDOW)
+    alibi = dict(h=32, n_kv=32, d=64, slopes=alibi_slopes(32))
+    return {"d80_decode": (*decode, dict(d=80)), "d80_prefill": (*prefill, dict(d=80)),
+            "d96_decode": (*decode, dict(d=96)), "d96_prefill": (*prefill, dict(d=96)),
+            "falcon7b_decode": (*decode, falcon), "falcon7b_chunk": (*prefill, falcon),
+            "window_decode": (*wdecode, window), "window_prefill": (*wprefill, window),
+            "alibi_decode": (*decode, alibi)}
+
+
+def k3_zoo(flush) -> dict:
+    """The zoo's K3 rows against the plain version, timed in bf16 (with the
+    SDPA library call on the same mask or bias), and in float32 (the scalar
+    kernel's variants) untimed; then the faulty kernels of the zoo's
+    routes."""
+    rng = np.random.default_rng(30)
+    shapes = zoo_shapes(rng)
+    cases = {name: make_case(starts, clens, c, torch.bfloat16, seed=40 + i, **kw)
+             for i, (name, (starts, clens, c, kw)) in enumerate(shapes.items())}
+    rows = {name: run_case(name, case, torch.bfloat16, flush) for name, case in cases.items()}
+    for name in ("d80_decode", "d96_prefill", "falcon7b_decode", "window_decode", "window_prefill", "alibi_decode"):
+        starts, clens, c, kw = shapes[name]
+        rows[f"{name}_f32"] = run_case(f"{name}_f32", make_case(starts, clens, c, torch.float32, seed=60, **kw),
+                                       torch.float32, flush, timed=False)
+    for name in ("falcon7b_decode", "window_decode"):   # split and unsplit must agree with the plain version
+        run_case(f"{name}_unsplit", cases[name], torch.bfloat16, flush, timed=False, n_split=1)
+    if not (rows["falcon7b_decode"]["n_split"] > 1 and rows["window_decode"]["n_split"] > 1):
+        raise AssertionError("the zoo's decode rows did not take the split route")
+    starts, clens, c, _ = shapes["d80_decode"]
+    short = make_case(starts, clens, c, torch.bfloat16, seed=61, window=WINDOW_SHORT)
+    run_case("window_short_decode", short, torch.bfloat16, flush, timed=False)
+    k3_zoo_mutants(cases, short)
+    return rows
+
+
+def k3_zoo_mutants(cases, short) -> dict:
+    """Faulty kernels of the zoo's routes the check must reject (each beyond
+    the TOLERANCE limit): the window ignored; the window one key too short
+    (at a window of WINDOW_SHORT keys, where one key shows); each head with
+    its neighbour's alibi slope; Falcon-7B's second row tile (heads 64-70)
+    with the first tile's output; head dim 80 with its last 16 dims lost."""
+    bf = torch.bfloat16
+
+    def against_plain(case, got, **masks):
+        return k3_ratio(got, paged_attention_plain(*case_args(case), **(masks or case_masks(case))), bf)
+
+    w, a, f, d80 = cases["window_decode"], cases["alibi_decode"], cases["falcon7b_decode"], cases["d80_decode"]
+    second_tile = paged_attention_cuda(*case_args(f))
+    second_tile[:, :, 64:71] = second_tile[:, :, 0:7]
+    tail = paged_attention_cuda(*case_args(d80))
+    tail[..., 64:] = 0
+    caught = {"window_ignored": against_plain(w, paged_attention_cuda(*case_args(w))),
+              "window_off_by_one": against_plain(short, paged_attention_cuda(*case_args(short),
+                                                                                sliding_window=WINDOW_SHORT - 1),
+                                                 sliding_window=WINDOW_SHORT),
+              "alibi_neighbour_slope": against_plain(a, paged_attention_cuda(*case_args(a),
+                                                                             alibi_slopes=a["slopes"].roll(1))),
+              "rep71_second_tile": against_plain(f, second_tile),
+              "d80_tail_lost": against_plain(d80, tail)}
+    log("  K3 zoo faulty kernels' |err|/limit: " + ", ".join(f"{n}={r:.4g}" for n, r in caught.items()))
+    if not all(r > 1 for r in caught.values()):
+        raise AssertionError(f"K3: the check passes a faulty zoo kernel: {caught}")
+    return caught
+
+
 def phase_kernels() -> dict:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(0)
@@ -527,6 +650,7 @@ def phase_kernels() -> dict:
             json.dumps({str(k): round(v, 5) for k, v in sweep.items()}))
         if name in rows:
             rows[name]["ms_by_n_split"] = sweep
+    rows.update(k3_zoo(flush))
     return rows
 
 
@@ -543,8 +667,8 @@ def llama3_8b(layers: int, dtype: torch.dtype, seed: int) -> tuple:
     return cfg, model.state_dict()
 
 
-def engine_config(dtype: torch.dtype, num_pages: int) -> RaggedInferenceEngineConfig:
-    return RaggedInferenceEngineConfig(kv=PagedKVConfig(num_pages=num_pages, page_size=PAGE, max_pages_per_seq=MAX_PAGES),
+def engine_config(dtype: torch.dtype, num_pages: int, max_pages: int = MAX_PAGES) -> RaggedInferenceEngineConfig:
+    return RaggedInferenceEngineConfig(kv=PagedKVConfig(num_pages=num_pages, page_size=PAGE, max_pages_per_seq=max_pages),
                                        scheduler=SchedulerConfig(token_budget=512, max_seqs=8, prefill_chunk=256,
                                                                  decode_bucket=8),
                                        max_new_tokens=64, kv_dtype=dtype, enable_prefix_cache=True,
@@ -561,17 +685,23 @@ def serving_mix(vocab: int) -> tuple:
 
 
 def phase_serving(cfg, state, smi: str) -> dict:
-    layers = cfg.num_hidden_layers
-    log(f"  depth {layers} of {PRESETS['llama3-8b'].num_hidden_layers} layers, full width "
-        f"(hidden {cfg.hidden_size}, {cfg.num_attention_heads}/{cfg.num_key_value_heads} heads, "
-        f"vocab {cfg.vocab_size}), bf16")
     eng = build_engine(cfg, state, engine_config(torch.bfloat16, 1024), device="cuda")
+    return serve_mix(eng, *serving_mix(cfg.vocab_size), smi)
+
+
+def serve_mix(eng, prompts, max_new, smi: str) -> dict:
+    """Phase 3's serving run on ``eng``: the requests put at once but the
+    eighth (admitted when the second has its first token), stepped to the
+    end; tokens, pages, the prefix hit, K3 == layers x forwards and the
+    split route checked; tok/s and TTFT."""
+    cfg = eng.cfg
+    layers = cfg.num_hidden_layers
+    log(f"  {layers} layers, hidden {cfg.hidden_size}, {cfg.num_attention_heads}/{kv_heads(cfg)} heads of "
+        f"{cfg.hidden_size // cfg.num_attention_heads}, vocab {cfg.vocab_size}, {cfg.dtype}")
     eng.generate([list(range(1, 20))], max_new_tokens=9)  # warm-up: cuBLAS handles, allocator
     pc = eng.kv.prefix_cache
     pc.evict(pc.cached_pages)
     free0 = eng.kv.allocator.free_pages
-
-    prompts, max_new = serving_mix(cfg.vocab_size)
     lens = [len(p) for p in prompts]
     late = 7                                               # admitted once request 1 has its first token
 
@@ -744,9 +874,11 @@ def phase_profile(cfg, state) -> dict:
     rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = {e.key: e.self_device_time_total for e in rows}
     busy_ms = sum(dev_us.values()) / 1e3
+    k3_ms = sum(v for n, v in dev_us.items() if "paged_attention_tc_kernel" in n or "paged_merge_kernel" in n) / 1e3
     top = sorted(((v / 1e3, n) for n, v in dev_us.items() if v > 0), reverse=True)[:8]
     res = {"rounds": k, "wall_ms_per_round": 1e3 * wall_plain / k, "profiled_wall_ms_per_round": 1e3 * wall / k,
-           "device_ms_per_round": busy_ms / k, "device_busy_share": busy_ms / (1e3 * wall_plain),
+           "device_ms_per_round": busy_ms / k, "k3_device_ms_per_round": k3_ms / k,
+           "device_busy_share": busy_ms / (1e3 * wall_plain),
            "device_busy_share_profiled": busy_ms / (1e3 * wall), "device_ops_per_round": sum(e.count for e in rows) / k,
            "top_kernels_ms_per_round": [[n[:60], t / k] for t, n in top]}
     log("  decode profile: " + json.dumps(res))
@@ -3267,6 +3399,299 @@ def phase_fleet(cfg, state, smi: str) -> dict:
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phases 16 and 17
+
+# the published config.json of each checkpoint, in code (the weights are
+# seeded, made under HF's names); phase 17 cuts each to ZOO_LAYERS layers
+FALCON_7B = {"model_type": "falcon", "vocab_size": 65024, "hidden_size": 4544, "num_hidden_layers": 32,
+             "num_attention_heads": 71, "multi_query": True, "parallel_attn": True, "new_decoder_architecture": False,
+             "alibi": False, "bias": False, "layer_norm_epsilon": 1e-5, "tie_word_embeddings": True,
+             "torch_dtype": "bfloat16"}                                                 # tiiuae/falcon-7b
+ZOO = {
+    "opt-6.7b": ({"model_type": "opt", "vocab_size": 50272, "hidden_size": 4096, "ffn_dim": 16384,
+                  "num_hidden_layers": 32, "num_attention_heads": 32, "max_position_embeddings": 2048,
+                  "do_layer_norm_before": True, "word_embed_proj_dim": 4096, "torch_dtype": "float16"}, "bin"),
+    "phi-2": ({"model_type": "phi", "vocab_size": 51200, "hidden_size": 2560, "intermediate_size": 10240,
+               "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+               "partial_rotary_factor": 0.4, "rope_theta": 10000.0, "layer_norm_eps": 1e-5,
+               "max_position_embeddings": 2048, "tie_word_embeddings": False, "qk_layernorm": False,
+               "torch_dtype": "float16"}, "safetensors"),
+    "phi-3-mini-4k": ({"model_type": "phi3", "vocab_size": 32064, "hidden_size": 3072, "intermediate_size": 8192,
+                       "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+                       "max_position_embeddings": 4096, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+                       "sliding_window": 2047, "tie_word_embeddings": False, "torch_dtype": "bfloat16"},
+                      "safetensors"),
+    "mistral-7b-v0.1": ({"model_type": "mistral", "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+                         "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+                         "max_position_embeddings": 32768, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+                         "sliding_window": 4096, "tie_word_embeddings": False, "torch_dtype": "bfloat16"},
+                        "safetensors"),
+    "qwen2-7b": ({"model_type": "qwen2", "vocab_size": 152064, "hidden_size": 3584, "intermediate_size": 18944,
+                  "num_hidden_layers": 28, "num_attention_heads": 28, "num_key_value_heads": 4,
+                  "max_position_embeddings": 131072, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+                  "sliding_window": 131072, "use_sliding_window": False, "max_window_layers": 28,
+                  "tie_word_embeddings": False, "torch_dtype": "bfloat16"}, "safetensors"),
+    "falcon-rw-1b": ({"model_type": "falcon", "vocab_size": 50304, "hidden_size": 2048, "num_hidden_layers": 24,
+                      "num_attention_heads": 32, "multi_query": False, "parallel_attn": False,
+                      "new_decoder_architecture": False, "alibi": True, "bias": True, "layer_norm_epsilon": 1e-5,
+                      "tie_word_embeddings": True, "torch_dtype": "bfloat16"}, "safetensors"),
+}
+ZOO_LAYERS = 2
+# Mistral's long request: 4608 tokens, so its window of 4096 bites in prefill and decode
+MISTRAL_LONG = 4608
+ZOO_MAX_PAGES = 320                # 5120 keys a sequence: the long request and its new tokens
+SAFETENSORS_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16", torch.int64: "I64",
+                     torch.int32: "I32", torch.bool: "BOOL"}
+
+
+def hf_shapes(hf: dict) -> dict:
+    """The HF state dict's tensor names and shapes of a config (the names
+    ``save_pretrained`` writes; tied heads left out)."""
+    t, e, layers, v = hf["model_type"], hf["hidden_size"], hf["num_hidden_layers"], hf["vocab_size"]
+    h = hf["num_attention_heads"]
+    d = e // h
+    out = {}
+    if t == "falcon":
+        kv = 1 if hf["multi_query"] else h
+        rows = (h + 2 * kv) * d if kv == 1 else 3 * h * d
+        out["transformer.word_embeddings.weight"] = (v, e)
+        for i in range(layers):
+            p = f"transformer.h.{i}"
+            lns = ("input_layernorm", ) + (() if hf["parallel_attn"] else ("post_attention_layernorm", ))
+            for ln in lns:
+                out[f"{p}.{ln}.weight"] = out[f"{p}.{ln}.bias"] = (e, )
+            mats = {"self_attention.query_key_value": (rows, e), "self_attention.dense": (e, e),
+                    "mlp.dense_h_to_4h": (4 * e, e), "mlp.dense_4h_to_h": (e, 4 * e)}
+            for name, shape in mats.items():
+                out[f"{p}.{name}.weight"] = shape
+                if hf["bias"]:
+                    out[f"{p}.{name}.bias"] = (shape[0], )
+        out["transformer.ln_f.weight"] = out["transformer.ln_f.bias"] = (e, )
+    elif t == "opt":
+        f = hf["ffn_dim"]
+        out["model.decoder.embed_tokens.weight"] = (v, e)
+        out["model.decoder.embed_positions.weight"] = (hf["max_position_embeddings"] + 2, e)
+        for i in range(layers):
+            p = f"model.decoder.layers.{i}"
+            mats = {"self_attn.q_proj": (e, e), "self_attn.k_proj": (e, e), "self_attn.v_proj": (e, e),
+                    "self_attn.out_proj": (e, e), "fc1": (f, e), "fc2": (e, f)}
+            for name, shape in mats.items():
+                out[f"{p}.{name}.weight"], out[f"{p}.{name}.bias"] = shape, (shape[0], )
+            for ln in ("self_attn_layer_norm", "final_layer_norm"):
+                out[f"{p}.{ln}.weight"] = out[f"{p}.{ln}.bias"] = (e, )
+        out["model.decoder.final_layer_norm.weight"] = out["model.decoder.final_layer_norm.bias"] = (e, )
+    elif t == "phi":
+        f = hf["intermediate_size"]
+        out["model.embed_tokens.weight"] = (v, e)
+        for i in range(layers):
+            p = f"model.layers.{i}"
+            mats = {"self_attn.q_proj": (e, e), "self_attn.k_proj": (e, e), "self_attn.v_proj": (e, e),
+                    "self_attn.dense": (e, e), "mlp.fc1": (f, e), "mlp.fc2": (e, f)}
+            for name, shape in mats.items():
+                out[f"{p}.{name}.weight"], out[f"{p}.{name}.bias"] = shape, (shape[0], )
+            out[f"{p}.input_layernorm.weight"] = out[f"{p}.input_layernorm.bias"] = (e, )
+        out["model.final_layernorm.weight"] = out["model.final_layernorm.bias"] = (e, )
+        out["lm_head.weight"], out["lm_head.bias"] = (v, e), (v, )
+    else:   # the Llama layout: mistral, qwen2 (q/k/v biases), phi3 (fused qkv and gate_up)
+        kv, f = hf["num_key_value_heads"], hf["intermediate_size"]
+        out["model.embed_tokens.weight"] = (v, e)
+        for i in range(layers):
+            p = f"model.layers.{i}"
+            if t == "phi3":
+                mats = {"self_attn.qkv_proj": ((h + 2 * kv) * d, e), "mlp.gate_up_proj": (2 * f, e)}
+            else:
+                mats = {"self_attn.q_proj": (h * d, e), "self_attn.k_proj": (kv * d, e),
+                        "self_attn.v_proj": (kv * d, e), "mlp.gate_proj": (f, e), "mlp.up_proj": (f, e)}
+            mats.update({"self_attn.o_proj": (e, h * d), "mlp.down_proj": (e, f)})
+            for name, shape in mats.items():
+                out[f"{p}.{name}.weight"] = shape
+                if t == "qwen2" and name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+                    out[f"{p}.{name}.bias"] = (shape[0], )
+            out[f"{p}.input_layernorm.weight"] = out[f"{p}.post_attention_layernorm.weight"] = (e, )
+        out["model.norm.weight"] = (e, )
+        out["lm_head.weight"] = (v, e)
+    return out
+
+
+def seeded_hf_state(shapes: dict, dtype, seed: int) -> dict:
+    """Seeded weights on the card under HF's names: norm scales 1, norm
+    biases 0, other biases N(0, 0.02²), embeddings N(0, 0.02²), matrices
+    N(0, 1/fan_in)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, shape in shapes.items():
+        t = torch.empty(shape, dtype=dtype, device="cuda")
+        norm = re.search(r"(norm|ln_f|ln_attn|ln_mlp)\.", name) is not None
+        if norm:
+            t.fill_(1.0 if name.endswith("weight") else 0.0)
+        elif name.endswith("bias") or "embed" in name:
+            t.normal_(0.0, 0.02, generator=gen)
+        else:
+            t.normal_(0.0, shape[1]**-0.5, generator=gen)
+        out[name] = t
+    return out
+
+
+def write_safetensors(filename: str, tensors: dict) -> None:
+    """A ``.safetensors`` file: the 8-byte little-endian header length, the
+    JSON header (padded with spaces to 8 bytes), then every tensor's bytes."""
+    import struct
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(filename, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy())
+
+
+def write_checkpoint(path: str, hf: dict, state: dict, fmt: str) -> int:
+    """``config.json`` and the weights (``model.safetensors`` or
+    ``pytorch_model.bin``) in ``path``; returns the weights' bytes."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    if fmt == "safetensors":
+        filename = os.path.join(path, "model.safetensors")
+        write_safetensors(filename, state)
+    else:
+        filename = os.path.join(path, "pytorch_model.bin")
+        torch.save({k: v.cpu() for k, v in state.items()}, filename)
+    return os.path.getsize(filename)
+
+
+def greedy_ties(eng_a, eng_b, prompts, streams_a, streams_b) -> list:
+    """Where stream b leaves stream a (prompts within one prefill chunk): the
+    position, and whether it is a bf16 rounding tie — the two tokens are each
+    other's runner-up on both paths' logits of the context before it, within
+    BF16_TIE_ULPS ulps of the best."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, streams_a, streams_b)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        tie = True
+        for eng in (eng_a, eng_b):
+            eng.kv.prefix_cache.evict(eng.kv.prefix_cache.cached_pages)   # the context prefills whole
+            logits = first_step_logits(eng, p + a[:j])
+            top = float(logits.max())
+            near = set(torch.nonzero(logits >= top - BF16_TIE_ULPS * bf16_ulp(top)).flatten().tolist())
+            tie = tie and {a[j], b[j]} <= near
+        out.append({"request": i, "position": j, "tokens": [a[j], b[j]], "tie": tie})
+    return out
+
+
+def greedy_parity_bf16(cfg, state) -> dict:
+    """A short bf16 greedy run, kernel path against plain path: streams equal
+    but for rounding ties (``greedy_ties``)."""
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 120, 200)]
+    engines, streams = {}, {}
+    for impl in ("flash", "reference"):
+        engines[impl] = build_engine(dataclasses.replace(cfg, attention_impl=impl), state,
+                                     engine_config(cfg.dtype, 128), device="cuda")
+        streams[impl] = serve_greedy(engines[impl], prompts, [8] * len(prompts))
+    ties = greedy_ties(engines["reference"], engines["flash"], prompts, streams["reference"], streams["flash"])
+    res = {"streams_equal": streams["flash"] == streams["reference"], "first_differences": ties}
+    log(f"  bf16 greedy parity (kernel vs plain, {len(prompts)} x 8 tokens): {json.dumps(res)}")
+    if not all(t["tie"] for t in ties):
+        raise AssertionError(f"bf16 greedy streams differ beyond a rounding tie: {ties}")
+    return res
+
+
+def phase_falcon_7b(smi: str) -> dict:
+    """Falcon-7B at full width and depth: seeded bf16 weights made on the
+    card under HF's names, through ``FalconPolicy.convert`` in memory (no
+    disk); phase 3's serving mix, profile and bf16 parity."""
+    policy = FalconPolicy()
+    cfg = dataclasses.replace(policy.build_config(FALCON_7B), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    state = policy.convert(seeded_hf_state(hf_shapes(FALCON_7B), torch.bfloat16, seed=16), cfg)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    log(f"  Falcon-7B weights: {nbytes / 1e9:.2f} GB bf16, made and converted in {time.perf_counter() - t0:.2f} s")
+    serving = phase_serving(cfg, state, smi)
+    profile = phase_profile(cfg, state)
+    parity = phase_parity_bf16(cfg, state)
+    greedy = greedy_parity_bf16(cfg, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serving": serving, "profile": profile, "parity": parity, "greedy": greedy, "weight_bytes": nbytes}
+
+
+def zoo_mix(name: str, vocab: int) -> tuple:
+    """Phase 3's mix; Mistral's adds one request of MISTRAL_LONG tokens."""
+    prompts, max_new = serving_mix(vocab)
+    if name.startswith("mistral"):
+        prompts.append(np.random.default_rng(17).integers(0, vocab, MISTRAL_LONG).tolist())
+        max_new.append(32)
+    return prompts, max_new
+
+
+def zoo_parity_f32(name: str, eng) -> dict:
+    """The model's weights in float32 through the kernel path and the plain
+    path: identical greedy streams (TF32 off), the window biting for
+    Mistral."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(eng.cfg, dtype=torch.float32, param_dtype=torch.float32)
+    state = {k: v.float() for k, v in eng.model.state_dict().items()}
+    rng = np.random.default_rng(18)
+    lens = (40, 300, 700) + ((4400, ) if name.startswith("mistral") else ())
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    streams = {}
+    for impl in ("flash", "reference"):
+        e = build_engine(dataclasses.replace(cfg, attention_impl=impl), state,
+                         engine_config(torch.float32, 512, ZOO_MAX_PAGES), device="cuda")
+        streams[impl] = serve_greedy(e, prompts, [12] * len(prompts))
+        del e
+    if streams["flash"] != streams["reference"]:
+        raise AssertionError(f"{name}: f32 greedy streams differ between the kernel and the plain path: {streams}")
+    return {"f32_streams_identical": True, "prompt_lens": list(lens)}
+
+
+def phase_zoo(smi: str) -> dict:
+    """Each zoo checkpoint written to a directory at its published widths,
+    cut to ZOO_LAYERS layers, and served through ``build_hf_engine``: phase
+    3's mix (tokens, pages, K3 == layers x forwards), then the float32
+    kernel path against the plain path; the directory is removed after."""
+    root = tempfile.mkdtemp(prefix="zoo_")
+    out = {}
+    try:
+        for i, (name, (published, fmt)) in enumerate(ZOO.items()):
+            hf = dict(published, num_hidden_layers=ZOO_LAYERS)
+            path = os.path.join(root, name)
+            t0 = time.perf_counter()
+            state = seeded_hf_state(hf_shapes(hf), torch.bfloat16, seed=170 + i)
+            nbytes = write_checkpoint(path, hf, state, fmt)
+            del state
+            t_write = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            eng = build_hf_engine(path, engine_config(torch.bfloat16, 1024, ZOO_MAX_PAGES), device="cuda")
+            t_load = time.perf_counter() - t0
+            log(f"  {name} ({ZOO_LAYERS} of {published['num_hidden_layers']} layers): {fmt} {nbytes / 1e9:.2f} GB, "
+                f"written in {t_write:.2f} s, build_hf_engine {t_load:.2f} s")
+            res = serve_mix(eng, *zoo_mix(name, eng.cfg.vocab_size), smi)
+            res.update(zoo_parity_f32(name, eng), format=fmt, weight_bytes=nbytes, write_s=t_write, load_s=t_load,
+                       window=getattr(eng.cfg, "sliding_window", 0), alibi=getattr(eng.cfg, "alibi", False),
+                       head_dim=eng.cfg.hidden_size // eng.cfg.num_attention_heads)
+            out[name] = res
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            shutil.rmtree(path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not any(r["format"] == "safetensors" for r in out.values()):
+        raise AssertionError("no zoo checkpoint loaded from safetensors")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible; the port's smoke run needs one", file=sys.stderr)
@@ -3289,8 +3714,13 @@ def main() -> int:
     log("== phase 14: the serving fleet on Llama-3-8B (3 replicas on one card, a kill and a recovery)")
     fleet = phase_fleet(cfg, state, env["card"])
     del state
+    gc.collect()            # the engines' cycles hold their weights and arenas
     torch.cuda.empty_cache()
     phase_parity_f32()
+    log("== phase 16: serving Falcon-7B at full width and depth (HF names through FalconPolicy)")
+    falcon = phase_falcon_7b(env["card"])
+    log(f"== phase 17: the zoo through build_hf_engine from a directory ({ZOO_LAYERS} layers of each)")
+    zoo = phase_zoo(env["card"])
     log("== phase 5: K1/K2a/K2b flash attention vs their plain versions")
     flash = phase_flash_kernels()
     log("== phase 6: training Llama-125M")
@@ -3309,22 +3739,28 @@ def main() -> int:
     log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire")
     dp = phase_data_parallel(env["card"])
     dec, ver = k3["decode"], k3["verify"]
+    zoo_launches = sum(r["k3_launches"] for r in zoo.values())
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
                 "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"]
-                + fleet["k3_launches"],
+                + fleet["k3_launches"] + falcon["serving"]["k3_launches"] + zoo_launches,
                 # a partition of "launches": phase 13's are the verify
                 # rounds of its spec serving run and the rest of the phase
                 "launches_by_path": {"serving_step": serving["k3_launches"],
                                      "serving_frontend": frontend["k3_launches"],
                                      "step_graphs": graphs["k3_launches"] - graphs["verify_k3_launches"],
-                                     "verify": graphs["verify_k3_launches"], "fleet": fleet["k3_launches"]},
-                "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if n != "decode_f32"), "ms": dec["ms"],
+                                     "verify": graphs["verify_k3_launches"], "fleet": fleet["k3_launches"],
+                                     "falcon_7b": falcon["serving"]["k3_launches"], "zoo": zoo_launches},
+                "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if not n.endswith("_f32")), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],
                 "prefill_library_ms": k3["prefill"]["library_ms"], "verify_ms": ver["ms"],
                 "verify_plain_ms": ver["plain_ms"], "verify_bound_ms": ver["bound_ms"],
-                "verify_library_ms": ver["library_ms"]}]
+                "verify_library_ms": ver["library_ms"],
+                # phase 2's zoo rows (head dims 80/96, Falcon-7B's 71:1, window, alibi)
+                "zoo_rows": {n: {k: k3[n][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                        "max_abs_err", "n_split")}
+                             for n in zoo_shapes(np.random.default_rng(30))}}]
     replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:162",
                 "flash_dq": "deepspeed_tpu/ops/flash_attention.py:287",
                 "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}

@@ -13,6 +13,15 @@
 //   out[b, c, h] = softmax_k(q·k / sqrt(D), k <= start_pos[b] + c) @ V   for c <  chunk_lens[b]
 //   out[b, c, h] = 0                                                     for c >= chunk_lens[b]
 //
+// Two masked variants, compile-time (VAR), so the full-attention route is
+// the code it was: a sliding window (Mistral; key k visible when qpos −
+// window < k <= qpos, and the page loop starts at the first tile that holds
+// a visible key, so a windowed decode reads O(window) keys), and alibi
+// (Falcon-RW: slopes[h]·k·scale added to the scaled logits before the
+// online max, as the plain version does).  Head dims 64, 80, 96 and 128:
+// multiples of 16, so the k16 steps of Q·Kᵀ and the n8 blocks of P·V divide
+// them and a row is a whole number of 16-byte chunks.
+//
 // Query head h = kv·rep + r reads kv head kv (GQA, rep = H / n_kv).  QK and PV
 // accumulate in f32; p is rounded to V's dtype before PV, with the softmax
 // denominator l summed over the unrounded f32 p, as the TPU kernel (:75-77)
@@ -25,7 +34,7 @@
 // keys 0.01841 ms (bytes), a prefill chunk of 4 × 256 rows 0.0114 ms
 // (operations), a mixed SplitFuse step 0.01065 ms (bytes).
 //
-// Design, bf16 (D 64 and 128): paged_attention_tc_kernel.
+// Design, bf16 (D 64, 80, 96, 128): paged_attention_tc_kernel.
 //   * Row tiles, position-major inside a kv group.  A CTA of 4 warps owns
 //     ROWS query rows of one (sequence, kv head); row i is chunk position
 //     c0 + i / rep, head kv·rep + i % rep.  A 64-row tile spans 64 / rep
@@ -50,6 +59,9 @@
 //     rows 16w..16w+15 against every key of a tile.  rep·C <= 16 (decode):
 //     16 rows, and warp w takes keys 16w..16w+15 of every tile, so no warp
 //     idles; the four warps merge (m, l, O) through shared memory at the end.
+//     A group wider than a tile (Falcon-7B's 71 heads on one kv head) takes
+//     several 64-row tiles, each reading the group's keys: at decode a tile
+//     of 64 rows and one of 7, whose warps 1-3 hold no row and skip the math.
 //   * The context split over the grid (flash-decoding) when the grid is
 //     small: the wrapper picks n_split from shapes only (the lengths live on
 //     the device); split s covers keys [s·L, (s+1)·L), L a multiple of 64.
@@ -72,6 +84,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <climits>
 
 #include "mma_tile.cuh"
 
@@ -83,6 +96,10 @@ constexpr int kMaxDevices = 64;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKeysPerTile = 64;
+// the masked variants of both kernels (template argument VAR)
+constexpr int kFull = 0;
+constexpr int kWindow = 1;
+constexpr int kAlibi = 2;
 
 // the shared-memory opt-in above 48 KB is a per-device attribute of each
 // kernel instantiation: set it on a device's first launch only
@@ -124,17 +141,18 @@ constexpr size_t f32_smem_bytes() {
 // RPW: query rows per warp; a block owns ROWS = kWarps * RPW consecutive
 // group-major rows (row = r·C + c) of one (sequence, kv head).  Scalar f32
 // math on the CUDA cores, KV tiles of 64 keys double-buffered by cp.async.
-template <int D, int RPW>
+template <int D, int RPW, int VAR>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ pages,
                                const int* __restrict__ block_table, const int* __restrict__ start_pos,
                                const int* __restrict__ chunk_lens, float* __restrict__ out, int C, int H, int n_kv,
                                int page_size, int max_pages, long long q_sb, long long q_sc, long long q_sh,
-                               float scale) {
+                               float scale, int window, const float* __restrict__ slopes) {
   constexpr int VEC = kF32Vec;
   constexpr int LD = D + VEC;  // padded shared row: lane j's 16-byte reads of key j hit distinct banks
   constexpr int CHUNKS = D / VEC;
-  constexpr int DPL = D / 32;  // output dims per lane
+  constexpr int DPL = (D + 31) / 32;     // output dims per lane (D 80: the last lanes hold fewer)
+  constexpr bool kWhole = D % 32 == 0;  // every lane holds DPL dims
   constexpr int ROWS = kWarps * RPW;
   constexpr int KT = kKeysPerTile;
   constexpr int KPL = KT / 32;  // keys per lane in QK
@@ -154,15 +172,20 @@ __global__ void __launch_bounds__(kThreads)
   const int start = start_pos[b];
   const int clen = chunk_lens[b];
 
-  // the last key a valid row of this block may see bounds the page loop
-  int last_key = -1;
+  // the last key a valid row of this block may see bounds the page loop; a
+  // window also bounds its start
+  int last_key = -1, first_pos = INT_MAX;
   for (int i = 0; i < ROWS; ++i) {
     const int rg = row0 + i;
-    if (rg < rows_total && rg % C < clen) last_key = max(last_key, start + rg % C);
+    if (rg < rows_total && rg % C < clen) {
+      last_key = max(last_key, start + rg % C);
+      first_pos = min(first_pos, start + rg % C);
+    }
   }
   last_key = min(last_key, max_pages * page_size - 1);
   const int n_keys = last_key + 1;
   const int n_tiles = (n_keys + KT - 1) / KT;
+  const int t0 = VAR == kWindow && last_key >= 0 ? max(0, first_pos - window + 1) / KT : 0;
 
   for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
     const int rg = row0 + i / D;
@@ -202,8 +225,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int dd = 0; dd < DPL; ++dd) acc[i][dd] = 0.f;
   }
 
-  if (n_tiles > 0) load_tile(0, 0);
-  for (int t = 0; t < n_tiles; ++t) {
+  if (n_tiles > t0) load_tile(t0, t0 % kF32Stages);
+  for (int t = t0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {
       load_tile(t + 1, (t + 1) % kF32Stages);
     } else {
@@ -223,7 +246,9 @@ __global__ void __launch_bounds__(kThreads)
       const int qpos = start + rg % C;
       const int first_key = t * KT;
       if (first_key > qpos) continue;  // whole tile in this row's future
+      if (VAR == kWindow && first_key + KT <= qpos - window + 1) continue;  // before the row's window
       const float* qr = q_s + lr * D;
+      const float slope = VAR == kAlibi ? slopes[kv * rep + rg / C] : 0.f;
 
       float s[KPL];
       float tmax = -INFINITY;
@@ -240,11 +265,15 @@ __global__ void __launch_bounds__(kThreads)
           dot = fmaf(qr[ch * VEC + 2], kf.z, dot);
           dot = fmaf(qr[ch * VEC + 3], kf.w, dot);
         }
-        s[u] = (first_key + j <= qpos) ? dot * scale : -INFINITY;
+        const int key = first_key + j;
+        bool vis = key <= qpos;
+        if (VAR == kWindow) vis = vis && key > qpos - window;
+        if (VAR == kAlibi) dot += slope * (float)key;
+        s[u] = vis ? dot * scale : -INFINITY;
         tmax = fmaxf(tmax, s[u]);
       }
       tmax = warp_max(tmax);
-      const float m_new = fmaxf(m[i], tmax);  // finite: key first_key <= qpos is visible
+      const float m_new = fmaxf(m[i], tmax);  // finite: the tile holds a visible key of the row
       const float alpha = expf(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
@@ -260,11 +289,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int dd = 0; dd < DPL; ++dd) acc[i][dd] *= alpha;
       const int j_end = min(KT, qpos - first_key + 1);
-      for (int j = 0; j < j_end; ++j) {
+      const int j_begin = VAR == kWindow ? max(0, qpos - window + 1 - first_key) : 0;
+      for (int j = j_begin; j < j_end; ++j) {
         const float p = p_w[j];
         const float* vr = v_s + j * LD + lane * DPL;
 #pragma unroll
-        for (int dd = 0; dd < DPL; ++dd) acc[i][dd] = fmaf(p, vr[dd], acc[i][dd]);
+        for (int dd = 0; dd < DPL; ++dd)
+          if (kWhole || lane * DPL + dd < D) acc[i][dd] = fmaf(p, vr[dd], acc[i][dd]);
       }
       __syncwarp();
     }
@@ -281,16 +312,18 @@ __global__ void __launch_bounds__(kThreads)
     const bool valid = c < clen;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int dd = 0; dd < DPL; ++dd) o[dd] = valid ? acc[i][dd] / denom : 0.f;
+    for (int dd = 0; dd < DPL; ++dd)
+      if (kWhole || lane * DPL + dd < D) o[dd] = valid ? acc[i][dd] / denom : 0.f;
   }
 }
 
-template <int D, int RPW>
+template <int D, int RPW, int VAR>
 cudaError_t launch_f32(const void* q, const void* pages, const int* block_table, const int* start_pos,
                        const int* chunk_lens, void* out, int B, int C, int H, int n_kv, int page_size, int max_pages,
-                       long long q_sb, long long q_sc, long long q_sh, cudaStream_t stream) {
+                       long long q_sb, long long q_sc, long long q_sh, int window, const float* slopes,
+                       cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<D, RPW>();
-  auto kernel = paged_attention_f32_kernel<D, RPW>;
+  auto kernel = paged_attention_f32_kernel<D, RPW, VAR>;
   static std::atomic<bool> opted_in[kMaxDevices];
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
@@ -300,21 +333,22 @@ cudaError_t launch_f32(const void* q, const void* pages, const int* block_table,
   const float scale = (float)(1.0 / sqrt((double)D));
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(pages),
                                            block_table, start_pos, chunk_lens, static_cast<float*>(out), C, H, n_kv,
-                                           page_size, max_pages, q_sb, q_sc, q_sh, scale);
+                                           page_size, max_pages, q_sb, q_sc, q_sh, scale, window, slopes);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int VAR>
 cudaError_t launch_f32_rows(const void* q, const void* pages, const int* block_table, const int* start_pos,
                             const int* chunk_lens, void* out, int B, int C, int H, int n_kv, int page_size,
-                            int max_pages, long long q_sb, long long q_sc, long long q_sh, cudaStream_t stream) {
+                            int max_pages, long long q_sb, long long q_sc, long long q_sh, int window,
+                            const float* slopes, cudaStream_t stream) {
   // decode (rep·C <= 4 rows): one row per warp; otherwise four rows per
   // warp so each staged KV tile serves 16 query rows
   if ((H / n_kv) * C <= kWarps)
-    return launch_f32<D, 1>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size, max_pages,
-                            q_sb, q_sc, q_sh, stream);
-  return launch_f32<D, 4>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size, max_pages,
-                          q_sb, q_sc, q_sh, stream);
+    return launch_f32<D, 1, VAR>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size,
+                                 max_pages, q_sb, q_sc, q_sh, window, slopes, stream);
+  return launch_f32<D, 4, VAR>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size,
+                               max_pages, q_sb, q_sc, q_sh, window, slopes, stream);
 }
 
 // ============================================================ bf16: tensor cores
@@ -336,14 +370,14 @@ __host__ __device__ constexpr size_t tc_smem_bytes() {
 
 // ROWS = 64: warp w takes rows 16w..16w+15 and every key of a tile.
 // ROWS = 16 (decode): warp w takes rows 0..15 and keys 16w..16w+15 of a tile.
-template <int D, int ROWS>
+template <int D, int ROWS, int VAR>
 __global__ void __launch_bounds__(kThreads, 2)
     paged_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pages,
                               const int* __restrict__ block_table, const int* __restrict__ start_pos,
                               const int* __restrict__ chunk_lens, bf16* __restrict__ out, float* __restrict__ part_m,
                               float* __restrict__ part_l, float* __restrict__ part_o, int C, int H, int n_kv,
                               int page_size, int max_pages, long long q_sb, long long q_sc, long long q_sh,
-                              float scale_log2, int split_len) {
+                              float scale_log2, int split_len, int window, const float* __restrict__ slopes) {
   constexpr bool KSPLIT = ROWS == 16;
   constexpr int KT = kKeysPerTile;
   constexpr int WKEYS = KSPLIT ? KT / kWarps : KT;  // keys of a tile one warp takes
@@ -379,8 +413,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int c_lo = row0 / rep;
   const int c_hi = min((row0 + ROWS - 1) / rep, clen - 1);
   const int n_keys = c_lo <= c_hi ? min(start + c_hi, max_pages * page_size - 1) + 1 : 0;
-  const int k_begin = split * split_len;
-  const int k_end = min(k_begin + split_len, n_keys);
+  int k_begin = split * split_len;
+  if (VAR == kWindow)  // from the tile holding the first key the earliest row's window sees
+    k_begin = max(k_begin, max(0, start + c_lo - window + 1) / KT * KT);
+  const int k_end = min((split + 1) * split_len, n_keys);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + KT - 1) / KT : 0;
 
   // partial row (c, h) of this split
@@ -417,6 +453,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // a thread copies one 16-byte column chunk of KT / (kThreads / CH) keys,
   // K and V from one page lookup
   constexpr int KEY_STEP = kThreads / CH;
+  constexpr int LOADERS = KEY_STEP * CH;  // D 80 and 96: the last 8 threads copy nothing
   const int my_ch = threadIdx.x % CH;
   const int* bt_row = block_table + (long long)b * max_pages;
   const bf16* kv_col = pages + (long long)kv * D + my_ch * 8;  // K of slot 0 of page 0, this chunk
@@ -428,7 +465,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     int pidx = key / page_size;  // the page of key, and its slot, stepped along
     int slot = key - pidx * page_size;
 #pragma unroll
-    for (int j = j0; j < KT; j += KEY_STEP) {
+    for (int j = j0; j < KT && (LOADERS == kThreads || threadIdx.x < LOADERS); j += KEY_STEP) {
       const bool ok = key < k_end;
       const bf16* src = pages;
       if (ok) src = kv_col + ((long long)bt_row[pidx] * page_size + slot) * slot_stride;
@@ -452,6 +489,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int gb = ga + 8;
   const int qpos_a = (ga < rows_total && ga / rep < clen) ? start + ga / rep : -1;
   const int qpos_b = (gb < rows_total && gb / rep < clen) ? start + gb / rep : -1;
+  const float slope_a = VAR == kAlibi && ga < rows_total ? slopes[kv * rep + ga % rep] : 0.f;
+  const float slope_b = VAR == kAlibi && gb < rows_total ? slopes[kv * rep + gb % rep] : 0.f;
   // the last key any row of the warp sees (-1: the warp has no valid row),
   // and the last key every valid row sees
   int warp_qmax = -1, warp_qmin = -1;
@@ -486,6 +525,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     const int kbase = k_begin + t * KT + wkey0;
     if (kbase > warp_qmax) continue;  // the warp's keys are in all its rows' future
+    if (VAR == kWindow && kbase + WKEYS <= warp_qmin - window + 1) continue;  // before all its rows' windows
     const bf16* k_s = kv_s + (t % kTcStages) * STAGE + wkey0 * LD;
     const bf16* v_s = k_s + KT * LD;
 
@@ -507,7 +547,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     // A slice every valid row sees in full needs no mask: the invalid rows
     // of the warp then hold scores of zero q rows, which are never written
     // (their outputs are zeros, their partials are dropped by chunk_lens).
-    const bool full = kbase + WKEYS - 1 <= warp_qmin;
+    // With a window, a slice is seen in full when it also starts inside the
+    // latest row's window.  Alibi adds slope·key to the logit (the base-2
+    // scale multiplies both).
+    const bool full = kbase + WKEYS - 1 <= warp_qmin && (VAR != kWindow || kbase > warp_qmax - window);
     float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
@@ -515,7 +558,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < 4; ++e) {
         const int key = kbase + nb * 8 + tig * 2 + (e & 1);
         const int qp = e < 2 ? qpos_a : qpos_b;
-        s[nb][e] = (full || (key <= qp && key < n_keys)) ? s[nb][e] * scale_log2 : -INFINITY;
+        bool vis = key <= qp && key < n_keys;
+        if (VAR == kWindow) vis = vis && key > qp - window;
+        float x = s[nb][e];
+        if (VAR == kAlibi) x += (e < 2 ? slope_a : slope_b) * (float)key;
+        s[nb][e] = (full || vis) ? x * scale_log2 : -INFINITY;
       }
       mx_a = fmaxf(mx_a, fmaxf(s[nb][0], s[nb][1]));
       mx_b = fmaxf(mx_b, fmaxf(s[nb][2], s[nb][3]));
@@ -658,21 +705,32 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (out != nullptr) {
         const float inv = c < clen ? 1.f / lsum : 0.f;
         bf16* dst = out + (((long long)b * C + c) * H + h) * D + col0;
+        if constexpr (PER % 8 == 0) {
 #pragma unroll
-        for (int e = 0; e < PER; e += 8) {
-          uint4 v;
-          v.x = pack_bf16(acc[e] * inv, acc[e + 1] * inv);
-          v.y = pack_bf16(acc[e + 2] * inv, acc[e + 3] * inv);
-          v.z = pack_bf16(acc[e + 4] * inv, acc[e + 5] * inv);
-          v.w = pack_bf16(acc[e + 6] * inv, acc[e + 7] * inv);
-          *reinterpret_cast<uint4*>(dst + e) = v;
+          for (int e = 0; e < PER; e += 8) {
+            uint4 v;
+            v.x = pack_bf16(acc[e] * inv, acc[e + 1] * inv);
+            v.y = pack_bf16(acc[e + 2] * inv, acc[e + 3] * inv);
+            v.z = pack_bf16(acc[e + 4] * inv, acc[e + 5] * inv);
+            v.w = pack_bf16(acc[e + 6] * inv, acc[e + 7] * inv);
+            *reinterpret_cast<uint4*>(dst + e) = v;
+          }
+        } else {  // D 80: 10 columns a thread, 4-byte aligned
+#pragma unroll
+          for (int e = 0; e < PER; e += 2)
+            *reinterpret_cast<__nv_bfloat162*>(dst + e) = __floats2bfloat162_rn(acc[e] * inv, acc[e + 1] * inv);
         }
       } else {
         const long long pr = part_row(c, h);
         float* dst = part_o + pr * D + col0;
+        if constexpr (PER % 4 == 0) {
 #pragma unroll
-        for (int e = 0; e < PER; e += 4)
-          *reinterpret_cast<float4*>(dst + e) = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+          for (int e = 0; e < PER; e += 4)
+            *reinterpret_cast<float4*>(dst + e) = make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < PER; e += 2) *reinterpret_cast<float2*>(dst + e) = make_float2(acc[e], acc[e + 1]);
+        }
         if (col0 == 0) {
           part_m[pr] = big;
           part_l[pr] = lsum;
@@ -682,13 +740,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int D, int ROWS>
+template <int D, int ROWS, int VAR>
 cudaError_t launch_tc(const void* q, const void* pages, const int* block_table, const int* start_pos,
                       const int* chunk_lens, void* out, float* part_m, float* part_l, float* part_o, int B, int C,
                       int H, int n_kv, int page_size, int max_pages, long long q_sb, long long q_sc, long long q_sh,
-                      int n_split, int split_len, cudaStream_t stream) {
+                      int n_split, int split_len, int window, const float* slopes, cudaStream_t stream) {
   constexpr size_t smem = tc_smem_bytes<D>();
-  auto kernel = paged_attention_tc_kernel<D, ROWS>;
+  auto kernel = paged_attention_tc_kernel<D, ROWS, VAR>;
   static std::atomic<bool> opted_in[kMaxDevices];
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
@@ -697,22 +755,64 @@ cudaError_t launch_tc(const void* q, const void* pages, const int* block_table, 
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(pages), block_table,
                                            start_pos, chunk_lens, static_cast<bf16*>(out), part_m, part_l, part_o, C,
-                                           H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, scale_log2, split_len);
+                                           H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, scale_log2, split_len,
+                                           window, slopes);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int VAR>
 cudaError_t launch_tc_rows(int tile_rows, const void* q, const void* pages, const int* block_table,
                            const int* start_pos, const int* chunk_lens, void* out, float* part_m, float* part_l,
                            float* part_o, int B, int C, int H, int n_kv, int page_size, int max_pages, long long q_sb,
-                           long long q_sc, long long q_sh, int n_split, int split_len, cudaStream_t stream) {
+                           long long q_sc, long long q_sh, int n_split, int split_len, int window, const float* slopes,
+                           cudaStream_t stream) {
   if (tile_rows == 16)
-    return launch_tc<D, 16>(q, pages, block_table, start_pos, chunk_lens, out, part_m, part_l, part_o, B, C, H, n_kv,
-                            page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, stream);
+    return launch_tc<D, 16, VAR>(q, pages, block_table, start_pos, chunk_lens, out, part_m, part_l, part_o, B, C, H,
+                                 n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, window, slopes,
+                                 stream);
   if (tile_rows == 64)
-    return launch_tc<D, 64>(q, pages, block_table, start_pos, chunk_lens, out, part_m, part_l, part_o, B, C, H, n_kv,
-                            page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, stream);
+    return launch_tc<D, 64, VAR>(q, pages, block_table, start_pos, chunk_lens, out, part_m, part_l, part_o, B, C, H,
+                                 n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, window, slopes,
+                                 stream);
   return cudaErrorInvalidValue;
+}
+
+// one attention launch at head dim D and variant VAR: the tensor-core kernel
+// for bf16 (split or not), the scalar kernel for f32 (unsplit)
+template <int D, int VAR>
+cudaError_t launch_attention(int dtype, int tile_rows, const void* q, const void* pages, const int* block_table,
+                             const int* start_pos, const int* chunk_lens, void* out, float* part_m, float* part_l,
+                             float* part_o, int B, int C, int H, int n_kv, int page_size, int max_pages,
+                             long long q_sb, long long q_sc, long long q_sh, int n_split, int split_len, int window,
+                             const float* slopes, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_tc_rows<D, VAR>(tile_rows, q, pages, block_table, start_pos, chunk_lens, out, part_m, part_l, part_o,
+                                  B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, window,
+                                  slopes, stream);
+  if (dtype == 0 && n_split == 1)
+    return launch_f32_rows<D, VAR>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size,
+                                   max_pages, q_sb, q_sc, q_sh, window, slopes, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_variant(int dtype, int tile_rows, const void* q, const void* pages, const int* block_table,
+                           const int* start_pos, const int* chunk_lens, void* out, float* part_m, float* part_l,
+                           float* part_o, int B, int C, int H, int n_kv, int page_size, int max_pages, long long q_sb,
+                           long long q_sc, long long q_sh, int n_split, int split_len, int window, const float* slopes,
+                           cudaStream_t stream) {
+  if (window > 0 && slopes != nullptr) return cudaErrorInvalidValue;  // no model takes both
+  if (window > 0)
+    return launch_attention<D, kWindow>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, out, part_m,
+                                        part_l, part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split,
+                                        split_len, window, slopes, stream);
+  if (slopes != nullptr)
+    return launch_attention<D, kAlibi>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, out, part_m,
+                                       part_l, part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split,
+                                       split_len, window, slopes, stream);
+  return launch_attention<D, kFull>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, out, part_m,
+                                    part_l, part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split,
+                                    split_len, window, slopes, stream);
 }
 
 // ============================================================ the merge of split partials
@@ -725,7 +825,7 @@ __global__ void __launch_bounds__(kThreads)
     paged_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
                        const float* __restrict__ part_o, const int* __restrict__ chunk_lens, bf16* __restrict__ out,
                        int n_split, long long rows, int C, int H) {
-  constexpr int E = D / 32;  // columns per lane
+  constexpr int E = D % 64 == 0 ? D / 32 : 2 * ((D + 63) / 64);  // columns per lane
   const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int lane = threadIdx.x & 31;
@@ -733,6 +833,9 @@ __global__ void __launch_bounds__(kThreads)
   const int c = (int)((row / H) % C);
   float big = -INFINITY;
   for (int s = 0; s < n_split; ++s) big = fmaxf(big, part_m[s * rows + row]);
+  // D 64 and 128: lane l holds columns [l·E, (l+1)·E); D 80 and 96: column
+  // pairs l, l + 32, ... (E / 2 of them, the last ones past D unused)
+  auto col = [&](int e) { return D % 64 == 0 ? lane * E + e : (e / 2 * 32 + lane) * 2 + e % 2; };
   float acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
@@ -744,16 +847,18 @@ __global__ void __launch_bounds__(kThreads)
       if (ms == -INFINITY) continue;
       const float w = exp2f(ms - big);
       lsum += w * part_l[s * rows + row];
-      const float* src = part_o + (s * rows + row) * D + lane * E;
+      const float* src = part_o + (s * rows + row) * D;
 #pragma unroll
-      for (int e = 0; e < E; ++e) acc[e] += w * src[e];
+      for (int e = 0; e < E; ++e)
+        if (D % 64 == 0 || col(e) < D) acc[e] += w * src[col(e)];
     }
   }
   const float inv = valid ? 1.f / lsum : 0.f;
-  bf16* dst = out + row * D + lane * E;
+  bf16* dst = out + row * D;
 #pragma unroll
   for (int e = 0; e < E; e += 2)
-    *reinterpret_cast<__nv_bfloat162*>(dst + e) = __floats2bfloat162_rn(acc[e] * inv, acc[e + 1] * inv);
+    if (D % 64 == 0 || col(e) < D)
+      *reinterpret_cast<__nv_bfloat162*>(dst + col(e)) = __floats2bfloat162_rn(acc[e] * inv, acc[e + 1] * inv);
 }
 
 // one warp: c1 = a · kᵀ and c2 = a · v through the fragment loaders and the
@@ -795,7 +900,9 @@ __global__ void mma_probe_kernel(const bf16* __restrict__ a, const bf16* __restr
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides of q are in elements.
+// dtype: 0 = float32, 1 = bfloat16.  Strides of q are in elements.  D is 64,
+// 80, 96 or 128.  window > 0: a sliding window; slopes (float32 [H], or
+// null): alibi; not both.
 // bfloat16: tile_rows (16 or 64) is the CTA shape, n_split the context split;
 // with n_split = 1 the kernel writes out, otherwise out is unused and the
 // partials go to part_m, part_l [n_split, B, C, H] and part_o [n_split, B, C,
@@ -805,26 +912,33 @@ extern "C" {
 int ds_paged_attention(const void* q, const void* pages, const int* block_table, const int* start_pos,
                        const int* chunk_lens, void* out, float* part_m, float* part_l, float* part_o, int B, int C,
                        int H, int n_kv, int D, int page_size, int max_pages, long long q_sb, long long q_sc,
-                       long long q_sh, int dtype, int tile_rows, int n_split, int split_len, void* stream) {
+                       long long q_sh, int dtype, int tile_rows, int n_split, int split_len, int window,
+                       const float* slopes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_split < 1 || (n_split > 1 && (part_m == nullptr || part_l == nullptr || part_o == nullptr)) ||
-      (n_split == 1 && out == nullptr) || split_len < 1 || split_len % kKeysPerTile)
+      (n_split == 1 && out == nullptr) || split_len < 1 || split_len % kKeysPerTile || window < 0)
     return (int)cudaErrorInvalidValue;
   void* dst = n_split == 1 ? out : nullptr;
-  if (dtype == 1 && D == 128)
-    return launch_tc_rows<128>(tile_rows, q, pages, block_table, start_pos, chunk_lens, dst, part_m, part_l, part_o, B,
-                               C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, s);
-  if (dtype == 1 && D == 64)
-    return launch_tc_rows<64>(tile_rows, q, pages, block_table, start_pos, chunk_lens, dst, part_m, part_l, part_o, B,
-                              C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len, s);
-  if (n_split != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 128)
-    return launch_f32_rows<128>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size,
-                                max_pages, q_sb, q_sc, q_sh, s);
-  if (dtype == 0 && D == 64)
-    return launch_f32_rows<64>(q, pages, block_table, start_pos, chunk_lens, out, B, C, H, n_kv, page_size,
-                               max_pages, q_sb, q_sc, q_sh, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch_variant<64>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, dst, part_m, part_l,
+                                part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len,
+                                window, slopes, s);
+    case 80:
+      return launch_variant<80>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, dst, part_m, part_l,
+                                part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len,
+                                window, slopes, s);
+    case 96:
+      return launch_variant<96>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, dst, part_m, part_l,
+                                part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len,
+                                window, slopes, s);
+    case 128:
+      return launch_variant<128>(dtype, tile_rows, q, pages, block_table, start_pos, chunk_lens, dst, part_m, part_l,
+                                 part_o, B, C, H, n_kv, page_size, max_pages, q_sb, q_sc, q_sh, n_split, split_len,
+                                 window, slopes, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // out [B, C, H, D] bf16 from the partials of ds_paged_attention
@@ -833,14 +947,13 @@ int ds_paged_merge(const float* part_m, const float* part_l, const float* part_o
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rows = (long long)B * C * H;
   const unsigned blocks = (unsigned)((rows + kWarps - 1) / kWarps);
-  if (D == 128) {
-    paged_merge_kernel<128><<<blocks, kThreads, 0, s>>>(part_m, part_l, part_o, chunk_lens, static_cast<bf16*>(out),
-                                                        n_split, rows, C, H);
-  } else if (D == 64) {
-    paged_merge_kernel<64><<<blocks, kThreads, 0, s>>>(part_m, part_l, part_o, chunk_lens, static_cast<bf16*>(out),
-                                                       n_split, rows, C, H);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  bf16* o = static_cast<bf16*>(out);
+  switch (D) {
+    case 64: paged_merge_kernel<64><<<blocks, kThreads, 0, s>>>(part_m, part_l, part_o, chunk_lens, o, n_split, rows, C, H); break;
+    case 80: paged_merge_kernel<80><<<blocks, kThreads, 0, s>>>(part_m, part_l, part_o, chunk_lens, o, n_split, rows, C, H); break;
+    case 96: paged_merge_kernel<96><<<blocks, kThreads, 0, s>>>(part_m, part_l, part_o, chunk_lens, o, n_split, rows, C, H); break;
+    case 128: paged_merge_kernel<128><<<blocks, kThreads, 0, s>>>(part_m, part_l, part_o, chunk_lens, o, n_split, rows, C, H); break;
+    default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,10 @@ build_hf_engine``.  The serving loop composes:
 
   SplitFuseScheduler (scheduler.py)  — token-budget step planning
   StateManager/BlockedKVCache (ragged.py) — page allocation + batch packing
-  LlamaForCausalLMWithCache (models/llama_cache.py) — one chunked forward
-    serving prefill, continuation and decode
+  the family's paged twin (``build_cache_model``: models/llama_cache.py for
+    Llama, Mistral, Qwen2, InternLM and Phi-3; models/cache_zoo.py for
+    Falcon, OPT and Phi) — one chunked forward serving prefill,
+    continuation and decode
   K3 paged attention (ops/paged_attention.py → csrc/paged_attention.cu)
 
 Against the JAX engine:
@@ -38,8 +40,8 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ...accelerator import DeviceLike, resolve_device
-from ...models.llama import LlamaConfig
-from ...models.llama_cache import LlamaForCausalLMWithCache, PagedKVConfig, init_kv_cache
+from ...models.cache_zoo import build_cache_model
+from ...models.llama_cache import PagedKVConfig, init_kv_cache
 from ...telemetry.step_anatomy import NULL_ANATOMY
 from ...utils.logging import logger
 from .ragged import BlockedKVCache, RaggedBatch, StateManager
@@ -96,14 +98,15 @@ class InFlightStep:
 
 
 class InferenceEngineV2:
-    """Continuous-batching engine over a paged-KV Llama model.
+    """Continuous-batching engine over a paged-KV model of any served family
+    (``build_cache_model``).
 
     ``params`` is the model's state dict (tensors or numpy arrays, e.g. from
-    ``models/convert.py``); tensors already on ``device`` in ``param_dtype``
-    are used in place, not copied, so two engines built from one state dict
-    share their weights."""
+    ``models/convert.py`` or an HF policy); tensors already on ``device`` in
+    ``param_dtype`` are used in place, not copied, so two engines built from
+    one state dict share their weights."""
 
-    def __init__(self, cfg: LlamaConfig, params: Mapping[str, object],
+    def __init__(self, cfg, params: Mapping[str, object],
                  engine_config: Optional[RaggedInferenceEngineConfig] = None, device: DeviceLike = "cuda",
                  seed: int = 0):
         self.econfig = engine_config or RaggedInferenceEngineConfig()
@@ -133,10 +136,13 @@ class InferenceEngineV2:
         kvcfg = self.econfig.kv
         self.cfg = cfg
         # built on the meta device: the state dict's tensors become the
-        # weights (assign=True), so nothing is allocated twice
-        model = LlamaForCausalLMWithCache(cfg, page_size=kvcfg.page_size, device="meta")
+        # weights (assign=True), so nothing is allocated twice; ``bind``
+        # makes the rest (Falcon-RW's alibi slopes) once, so every step
+        # graph reads the same tensor
+        model = build_cache_model(cfg, kvcfg.page_size, device="meta")
         state = {k: torch.as_tensor(v).to(device=self.device, dtype=cfg.param_dtype) for k, v in params.items()}
         model.load_state_dict(state, strict=True, assign=True)
+        model.bind(self.device)
         self.model = model.eval().requires_grad_(False)
         self.kv = BlockedKVCache(kvcfg.num_pages, kvcfg.page_size, kvcfg.max_pages_per_seq,
                                  enable_prefix_cache=self.econfig.enable_prefix_cache)
@@ -748,10 +754,10 @@ class InferenceEngineV2:
         return outs
 
 
-def build_engine(cfg: LlamaConfig, params: Mapping[str, object],
+def build_engine(cfg, params: Mapping[str, object],
                  engine_config: Optional[RaggedInferenceEngineConfig] = None, device: DeviceLike = "cuda",
                  seed: int = 0) -> InferenceEngineV2:
-    """Factory (ref: inference/v2/engine_factory.py:69 build_hf_engine —
-    there it loads an HF checkpoint; here the weights are a state dict, e.g.
-    the JAX package's params through ``models/convert.py``)."""
+    """The engine over a state dict, e.g. the JAX package's params through
+    ``models/convert.py`` (an HF checkpoint directory goes through
+    ``engine_factory.build_hf_engine``)."""
     return InferenceEngineV2(cfg, params, engine_config, device=device, seed=seed)

@@ -17,10 +17,21 @@ Leaf mapping (flax ``DenseGeneral`` kernels are ``[in..., out...]``;
   {q,k,v}_proj/kernel [E, N, D]        → layers.i.self_attn.{q,k,v}_proj.weight [N·D, E]
   {q,k,v}_proj/bias [N, D]             → ….bias [N·D]                 (attention_bias)
   o_proj/kernel [H, D, E]              → layers.i.self_attn.o_proj.weight [E, H·D]
+  o_proj/bias [E]                      → ….bias                       (attention_out_bias)
   mlp/{gate,up}_proj/kernel [E, I]     → layers.i.mlp.{gate,up}_proj.weight [I, E]
   mlp/down_proj/kernel [I, E]          → layers.i.mlp.down_proj.weight [E, I]
   {input,post_attention}_layernorm/weight, norm/weight [E] → unchanged
   lm_head/kernel [E, V]                → lm_head.weight [V, E]        (absent when tied)
+
+``jax_falcon_to_state_dict``, ``jax_opt_to_state_dict`` and
+``jax_phi_to_state_dict`` carry the JAX cache twins of ``models/cache_zoo.py``
+across by the same rules, leaf by leaf (``_flax_to_state``): the stack ``h``
+(Falcon) or ``layers`` (OPT, Phi, and Llama's under ``model``), scanned or
+unrolled (``h_{i}``, ``layers_{i}``), becomes ``h.{i}`` / ``layers.{i}``;
+flax LayerNorm's ``scale`` becomes ``weight``; a 3-d kernel is an attention
+projection, ``[E, N, D]`` in, ``[H, D, E]`` out (``o_proj``, ``dense``,
+``out_proj``); every leaf of the tree is carried, so the tree's biases are
+the config's.
 
 ``jax_train_state_to_engine`` carries a whole JAX training state across: a
 ``deepspeed_tpu`` engine's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
@@ -32,7 +43,7 @@ and its step, the loss scaler, the skipped steps and the step count.  A JAX
 run can then be continued by the port.
 """
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -46,44 +57,75 @@ def _as_np(x) -> np.ndarray:
     return np.asarray(getattr(x, "value", x))
 
 
-def _layer_state(layer: Mapping, prefix: str, cfg: LlamaConfig) -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
-    attn = layer["self_attn"]
-    for name in ("q_proj", "k_proj", "v_proj"):
-        kernel = _as_np(attn[name]["kernel"])                      # [E, N, D]
-        out[f"{prefix}.self_attn.{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T
-        if cfg.attention_bias:
-            out[f"{prefix}.self_attn.{name}.bias"] = _as_np(attn[name]["bias"]).reshape(-1)
-    o = _as_np(attn["o_proj"]["kernel"])                          # [H, D, E]
-    out[f"{prefix}.self_attn.o_proj.weight"] = o.reshape(-1, o.shape[-1]).T
-    for name in ("gate_proj", "up_proj", "down_proj"):
-        out[f"{prefix}.mlp.{name}.weight"] = _as_np(layer["mlp"][name]["kernel"]).T
-    for name in ("input_layernorm", "post_attention_layernorm"):
-        out[f"{prefix}.{name}.weight"] = _as_np(layer[name]["weight"])
-    return out
-
-
 def _slice_tree(tree, i: int):
     if isinstance(tree, Mapping):
         return {k: _slice_tree(v, i) for k, v in tree.items()}
     return _as_np(tree)[i]
 
 
+#: the 3-d kernels laid out [H, D, E] (attention output projections)
+_OUT_PROJECTIONS = ("o_proj", "dense", "out_proj")
+
+
+def _leaf_state(name: str, leaf: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
+    """One flax leaf of module ``name`` → its state-dict suffix and array."""
+    if leaf == "kernel":
+        if x.ndim == 3:
+            x = x.reshape(-1, x.shape[-1]) if name in _OUT_PROJECTIONS else x.reshape(x.shape[0], -1)
+        return "weight", x.T
+    if leaf == "bias":
+        return "bias", x.reshape(-1)
+    if leaf in ("embedding", "scale", "weight"):
+        return "weight", x
+    raise KeyError(f"unknown flax leaf {name}/{leaf}")
+
+
+def _flax_to_state(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping) and not any(isinstance(v, Mapping) for v in sub.values()):
+            for leaf, x in sub.items():
+                suffix, arr = _leaf_state(key, leaf, _as_np(x))
+                out[f"{prefix}{key}.{suffix}"] = arr
+        else:
+            _flax_to_state(sub, f"{prefix}{key}.", out)
+
+
+def _zoo_state(params: Mapping, stack: str, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A JAX cache twin's params (scanned ``stack`` or unrolled
+    ``{stack}_{i}``) as the port's state dict."""
+    p = dict(params["params"] if "params" in params else params)
+    if stack in p:
+        scanned = p.pop(stack)
+        layers = [_slice_tree(scanned, i) for i in range(num_layers)]
+    else:
+        layers = [p.pop(f"{stack}_{i}") for i in range(num_layers)]
+    state: Dict[str, np.ndarray] = {}
+    _flax_to_state(p, "", state)
+    for i, layer in enumerate(layers):
+        _flax_to_state(layer, f"{stack}.{i}.", state)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}
+
+
 def jax_llama_to_state_dict(params: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """The port's state dict (contiguous CPU tensors in the tree's dtype)."""
-    p = params["params"] if "params" in params else params
-    model = p["model"]
-    if "layers" in model:
-        layers = [_slice_tree(model["layers"], i) for i in range(cfg.num_hidden_layers)]
-    else:
-        layers = [model[f"layers_{i}"] for i in range(cfg.num_hidden_layers)]
-    state: Dict[str, np.ndarray] = {"embed_tokens.weight": _as_np(p["embed_tokens"]["embedding"]),
-                                    "norm.weight": _as_np(p["norm"]["weight"])}
-    for i, layer in enumerate(layers):
-        state.update(_layer_state(layer, f"layers.{i}", cfg))
-    if not cfg.tie_word_embeddings:
-        state["lm_head.weight"] = _as_np(p["lm_head"]["kernel"]).T
-    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}
+    p = dict(params["params"] if "params" in params else params)
+    p.update(p.pop("model"))   # the trunk's layers sit under ``model`` in the JAX tree
+    return _zoo_state(p, "layers", cfg.num_hidden_layers)
+
+
+def jax_falcon_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``FalconForCausalLMWithCache`` params → ``cache_zoo.FalconForCausalLMWithCache``'s state dict."""
+    return _zoo_state(params, "h", cfg.num_hidden_layers)
+
+
+def jax_opt_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``OPTForCausalLMWithCache`` params → ``cache_zoo.OPTForCausalLMWithCache``'s state dict."""
+    return _zoo_state(params, "layers", cfg.num_hidden_layers)
+
+
+def jax_phi_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``PhiForCausalLMWithCache`` params → ``cache_zoo.PhiForCausalLMWithCache``'s state dict."""
+    return _zoo_state(params, "layers", cfg.num_hidden_layers)
 
 
 def _fields(x: Any) -> Dict[str, Any]:

@@ -31,7 +31,7 @@ twin (``llama_cache.py``) loads the same state dict.
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +40,22 @@ from torch import nn
 from ..accelerator import DeviceLike, resolve_device
 from ..ops.attention import chunked_attention, reference_attention
 from ..ops.flash_attention import flash_attention
+
+
+_REQUIRED = object()
+
+
+def hf_value(hf_cfg, name: str, default=_REQUIRED):
+    """Field ``name`` of an HF config: a mapping read from ``config.json``
+    or any object with attributes (a ``SimpleNamespace``, a transformers
+    config).  A missing or null field gives ``default``; a missing required
+    one raises ``KeyError``."""
+    value = hf_cfg.get(name) if isinstance(hf_cfg, Mapping) else getattr(hf_cfg, name, None)
+    if value is None:
+        if default is _REQUIRED:
+            raise KeyError(f"the HF config has no {name!r}")
+        return default
+    return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +77,8 @@ class LlamaConfig:
     # (its plain version on a CPU tensor), "reference" the plain version
     attention_impl: str = "flash"
     attention_bias: bool = False  # qkv bias (Qwen2-style checkpoints)
+    attention_out_bias: bool = False  # o_proj bias (InternLM-1, Llama with attention_bias)
+    sliding_window: int = 0  # 0 = full attention; > 0 = Mistral's window (serving twin)
     # per-block activation checkpointing of the cache-free model (training)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
@@ -68,6 +86,40 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def from_hf(hf_cfg, **overrides) -> "LlamaConfig":
+        """From an HF config (``config.json`` as a mapping, or a namespace),
+        with JAX's rules (``llama.py:57-87``): ``use_sliding_window=False``
+        turns the window off (Qwen2 ships ``sliding_window`` 32768 unused);
+        ``max_window_layers`` >= the layer count means no layer is windowed,
+        and a smaller positive one (mixed full and windowed layers) raises."""
+        layers = hf_value(hf_cfg, "num_hidden_layers")
+        heads = hf_value(hf_cfg, "num_attention_heads")
+        window = hf_value(hf_cfg, "sliding_window", 0) if hf_value(hf_cfg, "use_sliding_window", True) else 0
+        fields = dict(
+            vocab_size=hf_value(hf_cfg, "vocab_size"),
+            hidden_size=hf_value(hf_cfg, "hidden_size"),
+            intermediate_size=hf_value(hf_cfg, "intermediate_size"),
+            num_hidden_layers=layers,
+            num_attention_heads=heads,
+            num_key_value_heads=hf_value(hf_cfg, "num_key_value_heads", heads),
+            max_position_embeddings=hf_value(hf_cfg, "max_position_embeddings"),
+            rope_theta=hf_value(hf_cfg, "rope_theta", 10000.0),
+            rms_norm_eps=hf_value(hf_cfg, "rms_norm_eps", 1e-5),
+            tie_word_embeddings=hf_value(hf_cfg, "tie_word_embeddings", False),
+            attention_bias=hf_value(hf_cfg, "attention_bias", False),
+            sliding_window=window,
+        )
+        mwl = hf_value(hf_cfg, "max_window_layers", None)
+        if window and mwl is not None:
+            if mwl >= layers:
+                fields["sliding_window"] = 0
+            elif mwl > 0:
+                raise NotImplementedError(f"mixed full/window attention (max_window_layers={mwl} of {layers}) is "
+                                          "not supported, as in the JAX package's scanned layers")
+        fields.update(overrides)
+        return LlamaConfig(**fields)
 
 
 PRESETS = {
@@ -160,7 +212,7 @@ class LlamaAttention(nn.Module):
         self.q_proj = _linear(cfg, e, cfg.num_attention_heads * hd, cfg.attention_bias, device)
         self.k_proj = _linear(cfg, e, cfg.num_key_value_heads * hd, cfg.attention_bias, device)
         self.v_proj = _linear(cfg, e, cfg.num_key_value_heads * hd, cfg.attention_bias, device)
-        self.o_proj = _linear(cfg, cfg.num_attention_heads * hd, e, False, device)
+        self.o_proj = _linear(cfg, cfg.num_attention_heads * hd, e, cfg.attention_out_bias, device)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         """x [B, S, E] → post-RoPE q [B, S, H, D], k/v [B, S, KV, D]."""
@@ -179,6 +231,10 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.cfg.sliding_window:
+            raise NotImplementedError("the cache-free (training) forward with a sliding window is not ported: "
+                                      "K1/K2 take no window (ROADMAP Queue 1 item 5); the serving twin "
+                                      "(llama_cache.py) honours it")
         q, k, v = self.qkv(x, positions)
         attn = get_attention_impl(self.cfg.attention_impl)
         return self.out(attn(q, k, v, causal=True, segment_ids=segment_ids))

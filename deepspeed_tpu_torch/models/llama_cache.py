@@ -29,9 +29,18 @@ class PagedKVConfig:
     max_pages_per_seq: int = 8
 
 
-def init_kv_cache(cfg: LlamaConfig, kv: PagedKVConfig, dtype=torch.bfloat16, device=None) -> List[torch.Tensor]:
-    """One zeroed ``[P, page, 2, n_kv, hd]`` arena per layer."""
-    shape = (kv.num_pages, kv.page_size, 2, cfg.num_key_value_heads, cfg.head_dim)
+def kv_heads(cfg) -> int:
+    """The KV head count of any family's config: ``num_key_value_heads``
+    (Llama, Phi), ``num_kv_heads`` (Falcon), or none (OPT: MHA), as JAX's
+    ``init_kv_cache`` reads it."""
+    return getattr(cfg, "num_key_value_heads", None) or getattr(cfg, "num_kv_heads", None) \
+        or cfg.num_attention_heads
+
+
+def init_kv_cache(cfg, kv: PagedKVConfig, dtype=torch.bfloat16, device=None) -> List[torch.Tensor]:
+    """One zeroed ``[P, page, 2, n_kv, hd]`` arena per layer, for any model
+    family's config (JAX ``llama_cache.py:42-51``)."""
+    shape = (kv.num_pages, kv.page_size, 2, kv_heads(cfg), cfg.hidden_size // cfg.num_attention_heads)
     return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_hidden_layers)]
 
 
@@ -65,7 +74,8 @@ def write_pages(pages: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, b
 
 
 def paged_attention(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Tensor, start_pos: torch.Tensor,
-                    chunk_lens: Optional[torch.Tensor], page_size: int) -> torch.Tensor:
+                    chunk_lens: Optional[torch.Tensor], page_size: int, sliding_window: int = 0,
+                    alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of a chunk's queries against (history + chunk) keys — the
     plain PyTorch version of the K3 kernel (``ops/paged_attention.py``).
 
@@ -73,6 +83,10 @@ def paged_attention(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Ten
     chunk's K/V already written; block_table: [B, max_pages]; start_pos: [B]
     = context length before this chunk; chunk_lens: [B] or None — query rows
     at/after a row's chunk_len (ragged padding) get zero output.
+    ``sliding_window`` > 0 (Mistral) hides keys k <= qpos − window;
+    ``alibi_slopes`` [H] (Falcon-RW) adds slope·k·scale to the scaled logits
+    (softmax is shift-invariant per row, so the per-key form is HF's alibi),
+    as JAX's ``paged_attention`` (``llama_cache.py:82-126``).
     """
     b, c, h, d = q.shape
     max_pages = block_table.shape[1]
@@ -84,11 +98,16 @@ def paged_attention(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Ten
     if n_kv != h:
         k = k.repeat_interleave(h // n_kv, dim=2)
         v = v.repeat_interleave(h // n_kv, dim=2)
-    logits = torch.einsum("bcnd,bknd->bnck", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    scale = 1.0 / math.sqrt(d)
+    logits = torch.einsum("bcnd,bknd->bnck", q.float(), k.float()) * scale
     ar = torch.arange(c, device=q.device)
     qpos = start_pos.long()[:, None] + ar[None, :]                             # [B, C]
     kpos = torch.arange(max_pages * page_size, device=q.device)                # [S_kv]
+    if alibi_slopes is not None:
+        logits = logits + alibi_slopes.float()[None, :, None, None] * kpos.float() * scale
     mask = kpos[None, None, :] <= qpos[..., None]                              # [B, C, S_kv]
+    if sliding_window:
+        mask = mask & (kpos[None, None, :] > qpos[..., None] - sliding_window)
     logits = torch.where(mask[:, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bnck,bknd->bcnd", probs.to(v.dtype), v)
@@ -99,21 +118,26 @@ def paged_attention(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Ten
 
 
 def paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, page_size,
-                         attention_impl: str = "reference") -> torch.Tensor:
-    """Write this chunk's K/V into the arena (in place), then attend the
-    chunk's queries against (history + chunk).  q/k/v are post-projection,
-    post-RoPE [B, C, N(H|KV), D].  Returns out [B, C, H, D].
+                         attention_impl: str = "reference", sliding_window: int = 0,
+                         alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The paged attention of every family's cache twin: write this chunk's
+    K/V into the arena (in place), then attend the chunk's queries against
+    (history + chunk).  q/k/v are post-projection, post-RoPE [B, C, N(H|KV),
+    D].  Returns out [B, C, H, D].
 
     ``attention_impl="flash"`` goes through the K3 kernel's wrapper, which
-    launches the CUDA kernel for a GPU tensor and runs the plain version
-    only for a CPU tensor; ``"reference"`` runs the plain version."""
+    launches the CUDA kernel for a GPU tensor (the window and the alibi
+    slopes included) and runs the plain version only for a CPU tensor;
+    ``"reference"`` runs the plain version."""
     write_pages(pages, k, v, block_table, start_pos, page_size, chunk_lens)
     if attention_impl == "flash":
         from ..ops.paged_attention import paged_attention as paged_attention_op
-        return paged_attention_op(q, pages, block_table, start_pos, chunk_lens, page_size)
+        return paged_attention_op(q, pages, block_table, start_pos, chunk_lens, page_size,
+                                  sliding_window=sliding_window, alibi_slopes=alibi_slopes)
     if attention_impl != "reference":
         raise ValueError(f"unknown attention_impl {attention_impl!r} (flash | reference)")
-    return paged_attention(q, pages, block_table, start_pos, chunk_lens, page_size)
+    return paged_attention(q, pages, block_table, start_pos, chunk_lens, page_size,
+                           sliding_window=sliding_window, alibi_slopes=alibi_slopes)
 
 
 class LlamaAttentionCache(LlamaAttention):
@@ -125,7 +149,7 @@ class LlamaAttentionCache(LlamaAttention):
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens=None):
         q, k, v = self.qkv(x, positions)
         out = paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
-                                   attention_impl=self.cfg.attention_impl)
+                                   attention_impl=self.cfg.attention_impl, sliding_window=self.cfg.sliding_window)
         return self.out(out)
 
 
@@ -152,6 +176,10 @@ class LlamaForCausalLMWithCache(LlamaForCausalLM):
 
     def _make_block(self, cfg, device):
         return LlamaBlockCache(cfg, self.page_size, device=device)
+
+    def bind(self, device: torch.device) -> None:
+        """Nothing but weights to make (the engine's hook for the twins that
+        hold more, ``cache_zoo._CacheTwin.bind``)."""
 
     def hidden(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
         if len(cache) != len(self.layers):

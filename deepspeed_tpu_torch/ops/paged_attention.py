@@ -15,6 +15,12 @@ the grid is small the context is split over ``n_split`` CTAs per tile
 device), each writes a partial ``(m, l, O)`` and a second kernel merges them
 (plain version ``merge_partials_plain``).  float32 runs the scalar kernel,
 unsplit.
+
+Head dims 64, 80, 96 and 128; any other raises (the Pallas kernel packs any
+D: ROADMAP Queue 2).  ``sliding_window`` (Mistral) and ``alibi_slopes``
+(Falcon-RW) select the kernels' masked variants, one per call, on both
+routes: a split past a row's window writes an empty partial (m = -inf) and
+the merge drops it, so windowed decodes split as full ones do.
 """
 
 import ctypes
@@ -27,7 +33,7 @@ import torch
 from ..models.llama_cache import paged_attention as paged_attention_plain
 from .op_builder import load_kernel
 
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: keys of one KV tile; a split covers a multiple of it
 KEYS_PER_TILE = 64
@@ -48,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     """The kernel's library, built on first use, with its C signatures."""
     lib = load_kernel("paged_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_paged_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, i, i, p]
+    lib.ds_paged_attention.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, ll, i, i, i, i, i, p, p]
     lib.ds_paged_attention.restype = i
     lib.ds_paged_merge.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.ds_paged_merge.restype = i
@@ -103,13 +109,16 @@ def split_len(max_keys: int, n_split: int) -> int:
 
 def paged_attention_partials_plain(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Tensor,
                                    start_pos: torch.Tensor, chunk_lens: Optional[torch.Tensor], page_size: int,
-                                   n_split: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                                   n_split: int, sliding_window: int = 0,
+                                   alibi_slopes: Optional[torch.Tensor] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The partials of the split route, plainly: split s covers keys
     [s·L, (s+1)·L) (``split_len``); for each row, m_s = max of its visible
-    logits there in base 2 (s·log2(e)/sqrt(D), -inf where it sees none),
-    l_s = Σ 2^(s − m_s) in f32, O_s = Σ p·v with p rounded to V's dtype.
-    Returns m, l [n_split, B, C, H] and O [n_split, B, C, H, D], float32;
-    rows at c >= chunk_lens have m = -inf."""
+    logits there in base 2 ((s + slope·k)·log2(e)/sqrt(D), -inf where it
+    sees none; a window hides k <= qpos − window), l_s = Σ 2^(s − m_s) in
+    f32, O_s = Σ p·v with p rounded to V's dtype.  Returns m, l [n_split,
+    B, C, H] and O [n_split, B, C, H, D], float32; rows at c >= chunk_lens
+    have m = -inf."""
     b, c, h, d = q.shape
     max_pages = block_table.shape[1]
     n_kv = pages.shape[3]
@@ -117,13 +126,18 @@ def paged_attention_partials_plain(q: torch.Tensor, pages: torch.Tensor, block_t
     g = pages[block_table.reshape(-1).long()].reshape(b, s_kv, 2, n_kv, d)
     k = g[:, :, 0].repeat_interleave(h // n_kv, dim=2)
     v = g[:, :, 1].repeat_interleave(h // n_kv, dim=2)
-    logits = torch.einsum("bcnd,bknd->bcnk", q.float(), k.float()) * (math.log2(math.e) / math.sqrt(d))
+    kpos = torch.arange(s_kv, device=q.device)
+    logits = torch.einsum("bcnd,bknd->bcnk", q.float(), k.float())
+    if alibi_slopes is not None:
+        logits = logits + alibi_slopes.float()[:, None] * kpos.float()
+    logits = logits * (math.log2(math.e) / math.sqrt(d))
     ar = torch.arange(c, device=q.device)
     qpos = start_pos.long()[:, None] + ar[None, :]                                     # [B, C]
     if chunk_lens is not None:
         qpos = torch.where(ar[None, :] < chunk_lens.long()[:, None], qpos, -1)
-    kpos = torch.arange(s_kv, device=q.device)
     visible = kpos[None, None, :] <= qpos[..., None]                                   # [B, C, S_kv]
+    if sliding_window:
+        visible = visible & (kpos[None, None, :] > qpos[..., None] - sliding_window)
     length = split_len(s_kv, n_split)
     ms, ls, os_ = [], [], []
     for s in range(n_split):
@@ -196,13 +210,13 @@ def _checked(q, pages, block_table, start_pos, chunk_lens, page_size):
     if ps != page_size or two != 2 or pd != d or h % n_kv:
         raise ValueError(f"paged_attention_cuda: pages {tuple(pages.shape)} do not fit q {tuple(q.shape)} "
                          f"with page_size {page_size}")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"paged_attention_cuda: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     vec = 16 // q.element_size()   # the kernels copy 16-byte vectors of q and pages
     if (q.stride(-1) != 1 or any(s % vec for s in q.stride()[:3]) or q.data_ptr() % 16 or not pages.is_contiguous()
             or pages.data_ptr() % 16):
         raise ValueError("paged_attention_cuda: q needs a unit last stride, the others multiples of 16 bytes, "
                          "and q and pages 16-byte-aligned buffers, pages contiguous")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"paged_attention_cuda: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
     max_pages = block_table.shape[1] if block_table.dim() == 2 else -1
     _check_index("block_table", block_table, (b, max_pages), dev)
     _check_index("start_pos", start_pos, (b, ), dev)
@@ -212,7 +226,20 @@ def _checked(q, pages, block_table, start_pos, chunk_lens, page_size):
     return dev, b, c, h, d, n_kv, max_pages, chunk_lens
 
 
-def _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, shapes, out, partials, n_split):
+def _check_masks(sliding_window: int, alibi_slopes: Optional[torch.Tensor], h: int, dev: torch.device) -> None:
+    """A window and alibi slopes as the kernels take them: one or neither;
+    slopes a contiguous float32 [H] tensor on the card."""
+    if sliding_window < 0 or (sliding_window and alibi_slopes is not None):
+        raise ValueError(f"paged_attention_cuda takes a sliding window >= 0 or alibi slopes, not both "
+                         f"(window {sliding_window})")
+    if alibi_slopes is not None and (alibi_slopes.device != dev or alibi_slopes.dtype != torch.float32
+                                     or not alibi_slopes.is_contiguous() or tuple(alibi_slopes.shape) != (h, )):
+        raise ValueError(f"paged_attention_cuda: alibi_slopes must be a contiguous float32 tensor of shape ({h},) "
+                         f"on {dev}, got {alibi_slopes.dtype} {tuple(alibi_slopes.shape)} on {alibi_slopes.device}")
+
+
+def _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, shapes, out, partials, n_split,
+                      sliding_window=0, alibi_slopes=None):
     """The first kernel on checked inputs: writes ``out`` (n_split 1) or
     the partials (m, l, O)."""
     dev, b, c, h, d, n_kv, max_pages = shapes
@@ -225,6 +252,7 @@ def _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, s
                                       chunk_lens.data_ptr(), None if out is None else out.data_ptr(), part_m, part_l,
                                       part_o, b, c, h, n_kv, d, page_size, max_pages, q.stride(0), q.stride(1),
                                       q.stride(2), _DTYPE_CODES[q.dtype], tile_rows(h // n_kv, c), n_split, length,
+                                      sliding_window, None if alibi_slopes is None else alibi_slopes.data_ptr(),
                                       torch.cuda.current_stream(dev).cuda_stream)
 
     _raise_on(_on_device(dev, launch), "paged_attention_cuda")
@@ -249,18 +277,21 @@ def _launch_merge(m, l, o, chunk_lens, out) -> None:
 
 def paged_attention_partials_cuda(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Tensor,
                                   start_pos: torch.Tensor, chunk_lens: Optional[torch.Tensor], page_size: int,
-                                  n_split: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                                  n_split: int, sliding_window: int = 0,
+                                  alibi_slopes: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The first kernel of the split route alone (bfloat16, ``n_split`` > 1):
     the partials ``paged_attention_partials_plain`` computes, m and l
     [n_split, B, C, H] and O [n_split, B, C, H, D], float32."""
     dev, b, c, h, d, n_kv, max_pages, chunk_lens = _checked(q, pages, block_table, start_pos, chunk_lens, page_size)
+    _check_masks(sliding_window, alibi_slopes, h, dev)
     if q.dtype != torch.bfloat16 or n_split < 2:
         raise ValueError(f"paged_attention_partials_cuda: the split route takes bfloat16 and n_split > 1, "
                          f"got {q.dtype} and {n_split}")
     partials = _empty_partials(b, c, h, d, n_split, dev)
     if partials[2].numel():
         _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, (dev, b, c, h, d, n_kv, max_pages),
-                          None, partials, n_split)
+                          None, partials, n_split, sliding_window, alibi_slopes)
     return partials
 
 
@@ -303,20 +334,24 @@ def mma_probe_cuda(a: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[t
 
 
 def paged_attention_cuda(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Tensor, start_pos: torch.Tensor,
-                         chunk_lens: Optional[torch.Tensor], page_size: int,
-                         n_split: Optional[int] = None) -> torch.Tensor:
+                         chunk_lens: Optional[torch.Tensor], page_size: int, n_split: Optional[int] = None,
+                         sliding_window: int = 0, alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K3 on ``torch.cuda.current_stream()``.
 
-    q: [B, C, H, D] (unit last stride); pages: [P, page_size, 2, n_kv, D]
-    contiguous, q's dtype (bfloat16 or float32); block_table: [B, max_pages],
-    start_pos / chunk_lens: [B], int32.  ``chunk_lens=None`` means every row
-    is real.  ``n_split`` (bfloat16) overrides ``choose_n_split``; float32
-    takes 1 only.  Returns out [B, C, H, D].  Raises on anything the kernels
-    do not take and on a launch that fails.  The block table's entries must
-    be page ids below P; they stay on the device, unchecked, as checking them
-    would synchronise with it.
+    q: [B, C, H, D] (unit last stride, D in ``SUPPORTED_HEAD_DIMS``); pages:
+    [P, page_size, 2, n_kv, D] contiguous, q's dtype (bfloat16 or float32);
+    block_table: [B, max_pages], start_pos / chunk_lens: [B], int32.
+    ``chunk_lens=None`` means every row is real.  ``n_split`` (bfloat16)
+    overrides ``choose_n_split``; float32 takes 1 only.  ``sliding_window``
+    > 0 hides keys k <= qpos − window; ``alibi_slopes`` (float32 [H] on the
+    card) adds slope·k·scale to the scaled logits; not both.  Returns out
+    [B, C, H, D].  Raises on anything the kernels do not take and on a
+    launch that fails.  The block table's entries must be page ids below P;
+    they stay on the device, unchecked, as checking them would synchronise
+    with it.
     """
     dev, b, c, h, d, n_kv, max_pages, chunk_lens = _checked(q, pages, block_table, start_pos, chunk_lens, page_size)
+    _check_masks(sliding_window, alibi_slopes, h, dev)
     if q.dtype == torch.float32:
         if n_split not in (None, 1):
             raise ValueError("paged_attention_cuda: float32 runs unsplit")
@@ -330,10 +365,12 @@ def paged_attention_cuda(q: torch.Tensor, pages: torch.Tensor, block_table: torc
         return out
     shapes = (dev, b, c, h, d, n_kv, max_pages)
     if n_split == 1:
-        _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, shapes, out, None, 1)
+        _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, shapes, out, None, 1,
+                          sliding_window, alibi_slopes)
     else:
         partials = _empty_partials(b, c, h, d, n_split, dev)
-        _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, shapes, None, partials, n_split)
+        _launch_attention(q, pages, block_table, start_pos, chunk_lens, page_size, shapes, None, partials, n_split,
+                          sliding_window, alibi_slopes)
         _launch_merge(*partials, chunk_lens, out)
         paged_attention_cuda.split_calls += 1
     paged_attention_cuda.launches += 1
@@ -347,10 +384,13 @@ paged_attention_cuda.split_calls = 0
 
 
 def paged_attention(q: torch.Tensor, pages: torch.Tensor, block_table: torch.Tensor, start_pos: torch.Tensor,
-                    chunk_lens: Optional[torch.Tensor], page_size: int) -> torch.Tensor:
+                    chunk_lens: Optional[torch.Tensor], page_size: int, sliding_window: int = 0,
+                    alibi_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 on a CUDA tensor, the plain PyTorch version on a CPU tensor."""
     if q.is_cuda:
-        return paged_attention_cuda(q, pages, block_table, start_pos, chunk_lens, page_size)
+        return paged_attention_cuda(q, pages, block_table, start_pos, chunk_lens, page_size,
+                                    sliding_window=sliding_window, alibi_slopes=alibi_slopes)
     if q.device.type == "cpu":
-        return paged_attention_plain(q, pages, block_table, start_pos, chunk_lens, page_size)
+        return paged_attention_plain(q, pages, block_table, start_pos, chunk_lens, page_size,
+                                     sliding_window=sliding_window, alibi_slopes=alibi_slopes)
     raise ValueError(f"paged_attention: unsupported device {q.device}")

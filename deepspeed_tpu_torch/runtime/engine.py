@@ -65,6 +65,14 @@ ranks (``_GatherRows``) and evaluates ``loss_fn`` over them and the global
 micro-batch, and the gradient comes back to each rank for its own rows.
 The manual qgZ/LoCo step keeps per-rank losses, as JAX's manual step does.
 
+``forward``, ``eval_batch`` and ``backward`` take the global micro-batch, as
+``train_batch`` does, and return JAX's loss over all of it (its ``forward``
+and ``backward``, ``engine.py:1381``/``:1394``): each rank computes its own
+rows, and the shares of the token mean are summed over the ranks
+(``_SumOverRanks``; a gathered custom loss is already the global one).  The
+gradient stays the rank's share, which ``step()`` sums as ``train_batch``
+does.
+
 Also ported: the optimizers of the JAX engine's ``OPTIMIZER_FACTORIES``
 (Adam/AdamW, LAMB, Lion, Adagrad, SGD; the 1-bit family raises),
 progressive layer drop (the mask of the step that starts with ``n`` steps
@@ -86,6 +94,8 @@ from ..accelerator import DeviceLike, resolve_device
 from ..comm import comm
 from ..comm.mesh import ROADMAP_MULTI_DEVICE
 from ..models.llama import causal_lm_loss
+from ..resilience import fault_injection
+from ..telemetry.trace import NULL_TRACER
 from ..ops.adagrad import SGD, Adagrad
 from ..ops.adam import FusedAdam
 from ..ops.lamb import FusedLamb
@@ -160,6 +170,22 @@ class _GatherRows(torch.autograd.Function):
         return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of a scalar over the data-parallel ranks.  The backward hands
+    the gradient back unreduced: each rank's share of the loss is taken over
+    its own rows, so its gradient is that rank's share of the parameters'
+    gradient (the float32 wire sums the shares)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        with comm.unrecorded():
+            return comm.all_reduce(x.detach().clone().reshape(1), comm.ReduceOp.SUM).reshape(())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 class StepMetrics(NamedTuple):
     """Device tensors of one optimizer step (JAX ``StepMetrics``)."""
     loss: torch.Tensor
@@ -232,6 +258,10 @@ class DeepSpeedEngine:
         self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
                                           steps_per_output=config.steps_per_print, device=self.device)
         self.monitor = self._build_monitor()
+        # ---- telemetry (JAX engine.py:176-181): one engine/step trace a
+        # train_batch with fwd_bwd/optim children, off until set_telemetry()
+        self.tracer = NULL_TRACER
+        self.metrics_registry = None
 
         # ---- progressive layer drop (JAX engine.py:189-195)
         self.progressive_layer_drop = None
@@ -366,7 +396,7 @@ class DeepSpeedEngine:
         model on ``model_inputs_fn(mb)`` (with this step's PLD gate when
         training), then ``loss_fn``.  The default loss is the causal-LM token
         mean (with the global token count on the float32 wire at world > 1);
-        a custom one at world > 1 sees the gathered outputs and ``global_mb``."""
+        a custom one sees the gathered outputs when ``global_mb`` is given."""
         args, kwargs = self.model_inputs_fn(mb)
         if training and self.progressive_layer_drop is not None and getattr(self.module, "supports_pld", False):
             kwargs["pld_scale"] = self._pld_scale
@@ -375,12 +405,9 @@ class DeepSpeedEngine:
             if "labels" not in mb:
                 raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
                                "pass loss_fn= to initialize() for custom losses")
-            return causal_lm_loss(outputs, mb["labels"], mb.get("loss_mask"), self._global_token_count(mb))
-        if self._gather_loss:
-            if global_mb is None:
-                raise NotImplementedError("a custom loss_fn over several data-parallel ranks needs the global "
-                                          "micro-batch: use train_batch, not forward/backward/step "
-                                          f"({ROADMAP_MULTI_DEVICE})")
+            return causal_lm_loss(outputs, mb["labels"], mb.get("loss_mask"),
+                                  self._global_token_count(mb, per_rank=training and self.qgz))
+        if global_mb is not None:
             if not isinstance(outputs, torch.Tensor):
                 raise NotImplementedError("a custom loss_fn over several data-parallel ranks gathers the model's "
                                           f"output, which must be one tensor ({ROADMAP_MULTI_DEVICE})")
@@ -396,13 +423,13 @@ class DeepSpeedEngine:
                                    self.global_steps)
         self._pld_scale = scale.to(self.device)
 
-    def _global_token_count(self, mb) -> Optional[torch.Tensor]:
-        """The denominator of the token mean on the float32 wire at world > 1:
-        the tokens (masked-in tokens, at least 1) of the whole micro-batch over
-        all ranks, so that the summed per-rank losses are JAX's one mean.
-        None on one rank and on the manual qgZ/LoCo step, which keep
-        per-device means as JAX's manual step does."""
-        if self.dp_world == 1 or self.qgz:
+    def _global_token_count(self, mb, per_rank: bool = False) -> Optional[torch.Tensor]:
+        """The denominator of the token mean at world > 1: the tokens
+        (masked-in tokens, at least 1) of the whole micro-batch over all
+        ranks, so that the summed per-rank losses are JAX's one mean.  None
+        on one rank and with ``per_rank`` (the manual qgZ/LoCo step, which
+        keeps per-device means as JAX's manual step does)."""
+        if self.dp_world == 1 or per_rank:
             return None
         mask = mb.get("loss_mask")
         if mask is None:   # every rank holds as many tokens: no collective
@@ -430,19 +457,21 @@ class DeepSpeedEngine:
         for p in self.params:
             p.grad = None
 
-    def _rank_micro_batch(self, batch, i: int, ranks: Optional[int] = None):
+    def _rank_micro_batch(self, batch, i: int, ranks: Optional[int] = None, gas: Optional[int] = None):
         """Micro-batch ``i`` of the global batch (its rows ``[i·B/gas,
         (i+1)·B/gas)``, as JAX splits it) and, of those, this rank's
         contiguous share (JAX shards dim 0 over ``data``); with ``ranks=
-        dp_world``, the shares of every rank (the whole micro-batch)."""
+        dp_world``, the shares of every rank (the whole micro-batch).
+        ``gas=1`` takes ``batch`` as one global micro-batch."""
+        gas = self.gas if gas is None else gas
         out = {}
         for k, v in batch.items():
             if v.dim() == 0:
                 out[k] = v
                 continue
-            rows, rem = divmod(v.shape[0], self.gas * self.dp_world)
+            rows, rem = divmod(v.shape[0], gas * self.dp_world)
             if rem or not rows:
-                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows: not a multiple of gas {self.gas} × "
+                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows: not a multiple of gas {gas} × "
                                  f"{self.dp_world} data-parallel ranks")
             if ranks is None:
                 start, take = (i * self.dp_world + self.dp_rank) * rows, rows
@@ -471,17 +500,18 @@ class DeepSpeedEngine:
                 torch.cuda.synchronize(self.device)
             comm._record("all_to_all_quant_reduce", t0, self._compressed_wire_bytes)
 
-    def _reduce_over_ranks(self, grads: List[torch.Tensor], loss: torch.Tensor):
+    def _reduce_over_ranks(self, grads: List[torch.Tensor], loss: torch.Tensor, reduce_loss: bool = True):
         """The gradients and the loss over the data-parallel ranks: sums of
         the per-rank shares of the global token mean on the float32 wire,
         means of the per-rank means on the manual qgZ/LoCo step (unchanged on
         one rank; under LoCo the gradients stay local here and the update
-        reduces them)."""
+        reduces them).  ``reduce_loss=False``: ``loss`` is the global one
+        already."""
         if self.dp_world == 1:
             return grads, loss
         op = comm.ReduceOp.AVG if self.qgz else comm.ReduceOp.SUM
         with comm.unrecorded():
-            if not self._gather_loss:   # a gathered loss is already the global one on every rank
+            if reduce_loss:
                 loss = comm.all_reduce(loss.reshape(1), op).reshape(())
             if not self.qgz:
                 return [comm.all_reduce(g, op) for g in grads], loss
@@ -574,18 +604,28 @@ class DeepSpeedEngine:
             batch = {k: np.concatenate([np.asarray(m[k]) for m in micro]) for k in micro[0]} \
                 if self.gas > 1 else micro[0]
         batch = self._to_device(batch)
+        # the chaos site around the step (JAX :1290): one ``is None`` test
+        # when no plan is armed
+        fault_injection.check("engine.step")
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()
-        self._step_pld_scale()
-        self._pending, self._pending_loss = None, None
-        loss_sum = None
-        for i in range(self.gas):
-            global_mb = self._rank_micro_batch(batch, i, ranks=self.dp_world) if self._gather_loss else None
-            loss = self._backward_micro(self._rank_micro_batch(batch, i), global_mb).float()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-        grads, self._pending = self._pending, None
-        grads, loss = self._reduce_over_ranks(grads, loss_sum / self.gas)
-        metrics = self._apply_grads(grads, loss)
+        step_span = self.tracer.start_span("engine/step", track="engine",
+                                           attrs={"global_step": self.global_steps} if self.tracer.enabled else None)
+        try:
+            with self.tracer.span("engine/fwd_bwd", parent=step_span, track="engine"):
+                self._step_pld_scale()
+                self._pending, self._pending_loss = None, None
+                loss_sum = None
+                for i in range(self.gas):
+                    global_mb = self._rank_micro_batch(batch, i, ranks=self.dp_world) if self._gather_loss else None
+                    loss = self._backward_micro(self._rank_micro_batch(batch, i), global_mb).float()
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
+                grads, self._pending = self._pending, None
+                grads, loss = self._reduce_over_ranks(grads, loss_sum / self.gas, reduce_loss=not self._gather_loss)
+            with self.tracer.span("engine/optim", parent=step_span, track="engine"):
+                metrics = self._apply_grads(grads, loss)
+        finally:
+            self.tracer.end(step_span)
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
         self._after_step(metrics, [TRAIN_BATCH_TIMER])
@@ -612,29 +652,43 @@ class DeepSpeedEngine:
                 ("Train/Samples/loss_scale", float(metrics.loss_scale), self.global_samples),
             ])
 
+    def _global_micro_loss(self, batch, training: bool = False) -> torch.Tensor:
+        """JAX's loss of the global micro-batch ``batch``: this rank's rows
+        through the model, the per-rank shares summed over the ranks (a
+        gathered custom loss is the global one already).  It keeps the graph
+        of this rank's share."""
+        if self.dp_world == 1:
+            return self._microbatch_loss(batch, training=training)
+        custom = self.loss_fn is not _default_loss_fn
+        loss = self._microbatch_loss(self._rank_micro_batch(batch, 0, gas=1), training=training,
+                                     global_mb=batch if custom else None)
+        return loss if custom else _SumOverRanks.apply(loss)
+
     def forward(self, batch) -> torch.Tensor:
-        """The loss of one micro-batch, with its autograd graph when grad is
-        enabled (the imperative ``forward``/``backward``/``step`` path)."""
+        """The loss of one global micro-batch (JAX ``engine.py:1381``), with
+        the graph of this rank's share when grad is enabled (the imperative
+        ``forward``/``backward``/``step`` path)."""
         self._last_batch = batch = self._to_device(batch)
         self.timers(FORWARD_GLOBAL_TIMER).start()
-        loss = self._microbatch_loss(batch)
+        loss = self._global_micro_loss(batch)
         self.timers(FORWARD_GLOBAL_TIMER).stop()
         return loss
 
     __call__ = forward
 
     def eval_batch(self, data_iter=None, batch=None) -> torch.Tensor:
-        """The loss of one micro-batch without gradients (JAX ``engine.py:1438``):
-        ``batch``, or the next one of ``data_iter``."""
+        """The loss of one global micro-batch without gradients (JAX
+        ``engine.py:1438``): ``batch``, or the next one of ``data_iter``."""
         if batch is None:
             batch = next(data_iter)
         with torch.no_grad():
             return self.forward(batch)
 
     def backward(self, loss: Optional[torch.Tensor] = None, batch=None) -> torch.Tensor:
-        """Accumulate the gradients of one micro-batch (ref: engine.py:2204):
-        of ``loss`` from ``forward`` when it carries a graph, else of a fresh
-        forward of ``batch`` (or the last forwarded batch)."""
+        """Accumulate the gradients of one global micro-batch (ref:
+        engine.py:2204): of ``loss`` from ``forward`` when it carries a graph,
+        else of a fresh forward of ``batch`` (or the last forwarded batch).
+        Returns JAX's loss of the micro-batch (``engine.py:1394``)."""
         if self.qgz:
             raise RuntimeError("the imperative forward/backward/step path does not support compressed gradient "
                                "transport; use train_batch()")
@@ -647,7 +701,7 @@ class DeepSpeedEngine:
                 raise ValueError("call forward(batch) first or pass batch=")
             if self._micro_step_count == 0:
                 self._step_pld_scale()
-            loss = self._microbatch_loss(batch, training=True)
+            loss = self._global_micro_loss(batch, training=True)
         self._accumulate(loss)
         loss = loss.detach().float()
         self._pending_loss = loss if self._pending_loss is None else self._pending_loss + loss
@@ -668,13 +722,21 @@ class DeepSpeedEngine:
             return None
         self.timers(STEP_GLOBAL_TIMER).start()
         grads, self._pending = self._pending, None
-        grads, loss = self._reduce_over_ranks(grads, self._pending_loss / self._micro_step_count)
+        grads, loss = self._reduce_over_ranks(grads, self._pending_loss / self._micro_step_count, reduce_loss=False)
         metrics = self._apply_grads(grads, loss)
         self._pending_loss, self._micro_step_count = None, 0
         self.timers(STEP_GLOBAL_TIMER).stop()
         self._after_step(metrics, [FORWARD_GLOBAL_TIMER, BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
         self.lr_scheduler.step()
         return metrics
+
+    def set_telemetry(self, tracer=None, metrics=None):
+        """Attach a telemetry ``Tracer`` and/or ``MetricsRegistry`` (JAX
+        ``engine.py:1455``): every later ``train_batch`` emits one
+        ``engine/step`` trace with ``engine/fwd_bwd`` and ``engine/optim``
+        children; ``set_telemetry()`` detaches both."""
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics_registry = metrics
 
     # ------------------------------------------------------------ checkpoints
 

@@ -147,6 +147,48 @@ def test_paged_attention_mma_fragments():
     torch.testing.assert_close(c2, a.float() @ v.float(), atol=1e-5, rtol=1e-5)
 
 
+ZOO_VARIANTS = {"d80": dict(d=80), "d96": dict(d=96), "rep71": dict(h=71, n_kv=1, d=64),
+                "window": dict(window=24), "alibi": dict(h=8, n_kv=8, alibi=True)}
+
+
+@pytest.mark.parametrize("variant", list(ZOO_VARIANTS))
+@pytest.mark.parametrize("dtype,c,n_split", [(torch.float32, 1, 1), (torch.float32, 256, 1), (torch.bfloat16, 1, None),
+                                             (torch.bfloat16, 1, 1), (torch.bfloat16, 1, 3),
+                                             (torch.bfloat16, 256, None), (torch.bfloat16, 256, 2)])
+def test_paged_attention_zoo_variants_match_plain(variant, dtype, c, n_split):
+    """The zoo's K3 routes against the plain version: head dims 80 and 96,
+    Falcon-7B's 71 query heads on one kv head (two 64-row tiles at decode), a
+    sliding window shorter than the contexts, alibi slopes; f32 (the scalar
+    kernel) and bf16, whole and split (tolerance as above)."""
+    from deepspeed_tpu_torch.models.falcon import alibi_slopes
+    kw = dict(ZOO_VARIANTS[variant])
+    window, alibi = kw.pop("window", 0), kw.pop("alibi", False)
+    args = _case(c, dtype, **kw)
+    masks = {"sliding_window": window,
+             "alibi_slopes": torch.from_numpy(alibi_slopes(kw["h"])).cuda() if alibi else None}
+    got = paged_attention_cuda(*args, n_split=n_split, **masks)
+    want = paged_attention(*args, **masks)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert bool((got[3] == 0).all())
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_paged_attention_merge_kernel_at_head_dims_80_and_96(d):
+    """The merge kernel at the head dims whose rows are not whole 64-column
+    lane groups, against ``merge_partials_plain`` on the kernel's partials."""
+    q, pages, bt, sp, cl, page = _case(1, torch.bfloat16, d=d)
+    m, l, o = paged_attention_partials_cuda(q, pages, bt, sp, cl, page, 3, sliding_window=30)
+    pm, pl, po = paged_attention_partials_plain(q, pages, bt, sp, cl, page, 3, sliding_window=30)
+    torch.cuda.synchronize()
+    live = pm != -np.inf
+    assert bool(((m == -np.inf) == ~live).all())
+    torch.testing.assert_close(o[live], po[live], atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(merge_partials_cuda(m, l, o, cl).float(), merge_partials_plain(m, l, o, cl),
+                               atol=1e-2, rtol=1e-2)
+
+
 def test_paged_attention_kernel_rejects_what_it_does_not_take():
     q, pages, bt, sp, cl, page = _case(1, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
@@ -155,6 +197,11 @@ def test_paged_attention_kernel_rejects_what_it_does_not_take():
         paged_attention_cuda(q, pages, bt.long(), sp, cl, page)
     with pytest.raises(ValueError, match="dtype"):
         paged_attention_cuda(q, pages.to(torch.bfloat16), bt, sp, cl, page)
+    slopes = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="not both"):
+        paged_attention_cuda(q, pages, bt, sp, cl, page, sliding_window=4, alibi_slopes=slopes)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        paged_attention_cuda(q, pages, bt, sp, cl, page, alibi_slopes=slopes[:4])
 
 
 def test_engine_kernel_path_matches_plain_path():

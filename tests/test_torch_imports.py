@@ -1,7 +1,7 @@
 """Import hygiene of the PyTorch port: ``deepspeed_tpu_torch`` and
-``chip_smoke.py`` load neither JAX nor flax nor pydantic (absent where the
-card is) nor any module of the JAX package ``deepspeed_tpu`` (whose
-``__init__`` imports JAX)."""
+``chip_smoke.py`` load neither JAX nor flax nor pydantic nor transformers nor
+safetensors (absent where the card is) nor any module of the JAX package
+``deepspeed_tpu`` (whose ``__init__`` imports JAX)."""
 
 import ast
 import json
@@ -18,6 +18,10 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.models.llama",
     "deepspeed_tpu_torch.models.llama_cache",
     "deepspeed_tpu_torch.models.convert",
+    "deepspeed_tpu_torch.models.falcon",
+    "deepspeed_tpu_torch.models.opt",
+    "deepspeed_tpu_torch.models.phi",
+    "deepspeed_tpu_torch.models.cache_zoo",
     "deepspeed_tpu_torch.ops.paged_attention",
     "deepspeed_tpu_torch.ops.attention",
     "deepspeed_tpu_torch.ops.flash_attention",
@@ -39,6 +43,9 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.inference.v2.ragged",
     "deepspeed_tpu_torch.inference.v2.scheduler",
     "deepspeed_tpu_torch.inference.v2.engine_v2",
+    "deepspeed_tpu_torch.inference.v2.checkpoint_io",
+    "deepspeed_tpu_torch.inference.v2.engine_factory",
+    "deepspeed_tpu_torch.inference.v2.model_implementations",
     "deepspeed_tpu_torch.comm",
     "deepspeed_tpu_torch.comm.comm",
     "deepspeed_tpu_torch.comm.mesh",
@@ -104,7 +111,7 @@ SLICE_MODULES = [
 
 _PROBE = """
 import importlib, json, sys
-for name in ("jax", "jaxlib", "flax", "pydantic"):
+for name in ("jax", "jaxlib", "flax", "pydantic", "transformers", "safetensors"):
     sys.modules[name] = None          # any import of them raises ImportError
 for m in {modules!r}:
     importlib.import_module(m)
@@ -119,7 +126,8 @@ def test_port_imports_without_jax():
     assert res.returncode == 0, res.stderr
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     assert not [m for m in loaded if m == "deepspeed_tpu" or m.startswith("deepspeed_tpu.")]
-    assert not [m for m in loaded if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "pydantic")]
+    assert not [m for m in loaded
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton", "pydantic", "transformers", "safetensors")]
 
 
 def _imported_modules(path: Path):
@@ -135,5 +143,5 @@ def test_port_sources_and_chip_smoke_import_no_jax_package():
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "pydantic", "deepspeed_tpu"), \
+            assert root not in ("jax", "jaxlib", "flax", "pydantic", "transformers", "safetensors", "deepspeed_tpu"), \
                 f"{f.relative_to(REPO)} imports {mod}"
