@@ -22,7 +22,8 @@ source, all started together.  Phases:
      reject, and the decode time by split count; then the zoo's rows: head
      dims 80 and 96 at Llama-3-8B's decode and prefill shapes, Falcon-7B's 71
      heads on one kv head at decode and a 256-token chunk, a window of 4096
-     over 6000-key contexts at decode and prefill, alibi at 32 heads of 64 —
+     over 6000-key contexts at decode and prefill, alibi at 32 heads of 64,
+     Qwen1.5-MoE's 16 heads on 16 kv heads of 128 at decode and prefill —
      each timed beside its bound, plain and SDPA (same mask or bias) — and
      in float32, with five faulty kernels of those routes rejected;
   3. serving: ``build_engine`` → ``put`` / ``step`` on Llama-3-8B at full
@@ -166,7 +167,30 @@ source, all started together.  Phases:
      script (``model.safetensors`` by its own writer) at its published widths
      cut to ZOO_LAYERS layers; phase 3's mix and checks (K3 == layers x
      forwards), then float32 greedy streams identical on the kernel and
-     plain paths; each directory removed after its model.
+     plain paths; each directory removed after its model;
+ 18. Qwen1.5-MoE-A2.7B at full width and depth (after phase 17): the
+     published ``Qwen/Qwen1.5-MoE-A2.7B`` config in code (60 experts, top-4,
+     a shared expert, 16 heads of 128), 14.31 B seeded bf16 parameters made
+     on the card under HF's names and converted in memory by
+     ``Qwen2MoePolicy``; phase 3's mix and checks (K3 == 24 x forwards), a
+     profiled decode round, bf16 greedy streams equal on the kernel and plain
+     paths but for rounding ties, phase 4's logits parity with every routing
+     flip between the two bf16 paths reported (layer, token, both routers'
+     margins; each token's first flip within BF16_TIE_ULPS bf16 ulps, each
+     later one within them or with its router input moved further than
+     any not yet flipped token's), and the expert histogram per layer;
+ 19. Mixtral-8x7B through ``build_hf_engine`` from a directory: the
+     published ``mistralai/Mixtral-8x7B-v0.1`` config cut to MIXTRAL_LAYERS
+     of 32 layers, written as ``model.safetensors``, served dropless;
+     phase 17's mix and checks, then float32 greedy streams identical on the
+     kernel and plain paths;
+ 20. MoE training: ``initialize`` → ``train_batch`` on Mixtral-8x7B's widths
+     at one layer (1.71 B parameters), B 2, S 1024, bf16, AdamW, remat,
+     ``make_mixtral_loss_fn`` — step ms, tokens/s, K1/K2a/K2b once per layer
+     per step, the dropped share of the router's choices and ``l_aux``; then
+     3 float32 steps of a 2-layer Mixtral (hidden 1024, D 64, tokens dropped)
+     on the kernel path against the plain path, within phase 7's
+     tolerances.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -198,8 +222,11 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
                                               SpecConfig, build_engine, build_hf_engine)
-from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy
+from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy, Qwen2MoePolicy
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, init_weights_
+from deepspeed_tpu_torch.models.mixtral import PRESETS as MIXTRAL_PRESETS
+from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, make_mixtral_loss_fn
+from deepspeed_tpu_torch.moe import MoE
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache, kv_heads
 from deepspeed_tpu_torch.models.llama_cache import paged_attention as paged_attention_plain
 from deepspeed_tpu_torch.ops.op_builder import KERNEL_SOURCES, build_kernel
@@ -519,13 +546,15 @@ def k3_merge(decode) -> dict:
     return {"n_split": n, "empty_partials": empty, "err_over_limit": ratio}
 
 
-# the zoo's K3 shapes (phases 16 and 17): Falcon-7B's 71 query heads on one
+# the zoo's K3 shapes (phases 16-18): Falcon-7B's 71 query heads on one
 # kv head of 64; Mistral-7B's window of 4096 over 6000-key contexts; Falcon-RW-1B's
 # alibi over 32 heads of 64 (MHA); Phi-2's and Phi-3's head dims 80 and 96 at
-# Llama-3-8B's heads
+# Llama-3-8B's heads; Qwen1.5-MoE's 16 heads of 128 (MHA); Mixtral's are
+# Llama-3-8B's (32:8, D 128)
 WINDOW = 4096
 WINDOW_PAGES = 384                 # 6144 keys a sequence
 WINDOW_SHORT = 32                  # an untimed window short enough that one key is visible in the output
+QWEN_MOE_HEADS = dict(h=16, n_kv=16, d=128)   # Qwen1.5-MoE-A2.7B's attention (phase 18)
 
 
 def zoo_shapes(rng) -> dict:
@@ -546,7 +575,8 @@ def zoo_shapes(rng) -> dict:
             "d96_decode": (*decode, dict(d=96)), "d96_prefill": (*prefill, dict(d=96)),
             "falcon7b_decode": (*decode, falcon), "falcon7b_chunk": (*prefill, falcon),
             "window_decode": (*wdecode, window), "window_prefill": (*wprefill, window),
-            "alibi_decode": (*decode, alibi)}
+            "alibi_decode": (*decode, alibi),
+            "qwen_moe_decode": (*decode, QWEN_MOE_HEADS), "qwen_moe_prefill": (*prefill, QWEN_MOE_HEADS)}
 
 
 def k3_zoo(flush) -> dict:
@@ -3492,24 +3522,53 @@ def hf_shapes(hf: dict) -> dict:
             out[f"{p}.input_layernorm.weight"] = out[f"{p}.input_layernorm.bias"] = (e, )
         out["model.final_layernorm.weight"] = out["model.final_layernorm.bias"] = (e, )
         out["lm_head.weight"], out["lm_head.bias"] = (v, e), (v, )
-    else:   # the Llama layout: mistral, qwen2 (q/k/v biases), phi3 (fused qkv and gate_up)
+    else:   # the Llama layout: mistral, qwen2 (q/k/v biases), phi3 (fused qkv and gate_up), mixtral and
+        # qwen2_moe (expert banks; Qwen2-MoE with q/k/v biases)
         kv, f = hf["num_key_value_heads"], hf["intermediate_size"]
         out["model.embed_tokens.weight"] = (v, e)
         for i in range(layers):
             p = f"model.layers.{i}"
             if t == "phi3":
-                mats = {"self_attn.qkv_proj": ((h + 2 * kv) * d, e), "mlp.gate_up_proj": (2 * f, e)}
+                mats = {"self_attn.qkv_proj": ((h + 2 * kv) * d, e), "mlp.gate_up_proj": (2 * f, e),
+                        "mlp.down_proj": (e, f)}
             else:
                 mats = {"self_attn.q_proj": (h * d, e), "self_attn.k_proj": (kv * d, e),
-                        "self_attn.v_proj": (kv * d, e), "mlp.gate_proj": (f, e), "mlp.up_proj": (f, e)}
-            mats.update({"self_attn.o_proj": (e, h * d), "mlp.down_proj": (e, f)})
+                        "self_attn.v_proj": (kv * d, e)}
+                mats.update(moe_mlp_shapes(hf, i) if t in ("mixtral", "qwen2_moe") else
+                            {"mlp.gate_proj": (f, e), "mlp.up_proj": (f, e), "mlp.down_proj": (e, f)})
+            mats["self_attn.o_proj"] = (e, h * d)
             for name, shape in mats.items():
                 out[f"{p}.{name}.weight"] = shape
-                if t == "qwen2" and name in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj"):
+                if t in ("qwen2", "qwen2_moe") and name in ("self_attn.q_proj", "self_attn.k_proj",
+                                                             "self_attn.v_proj"):
                     out[f"{p}.{name}.bias"] = (shape[0], )
             out[f"{p}.input_layernorm.weight"] = out[f"{p}.post_attention_layernorm.weight"] = (e, )
         out["model.norm.weight"] = (e, )
         out["lm_head.weight"] = (v, e)
+    return out
+
+
+def moe_mlp_shapes(hf: dict, i: int) -> dict:
+    """Layer ``i``'s MLP under HF's names: Mixtral's ``block_sparse_moe``
+    (router and experts w1/w3/w2), Qwen2-MoE's sparse ``mlp`` (router,
+    experts, shared expert and its gate) or, in a mixed stack, dense ``mlp``."""
+    e = hf["hidden_size"]
+    if hf["model_type"] == "mixtral":
+        f, n = hf["intermediate_size"], hf["num_local_experts"]
+        out = {"block_sparse_moe.gate": (n, e)}
+        for x in range(n):
+            q = f"block_sparse_moe.experts.{x}"
+            out.update({f"{q}.w1": (f, e), f"{q}.w3": (f, e), f"{q}.w2": (e, f)})
+        return out
+    if i in hf.get("mlp_only_layers", []) or (i + 1) % hf.get("decoder_sparse_step", 1):
+        f = hf["intermediate_size"]
+        return {"mlp.gate_proj": (f, e), "mlp.up_proj": (f, e), "mlp.down_proj": (e, f)}
+    m, si, n = hf["moe_intermediate_size"], hf["shared_expert_intermediate_size"], hf["num_experts"]
+    out = {"mlp.gate": (n, e), "mlp.shared_expert_gate": (1, e), "mlp.shared_expert.gate_proj": (si, e),
+           "mlp.shared_expert.up_proj": (si, e), "mlp.shared_expert.down_proj": (e, si)}
+    for x in range(n):
+        out.update({f"mlp.experts.{x}.gate_proj": (m, e), f"mlp.experts.{x}.up_proj": (m, e),
+                    f"mlp.experts.{x}.down_proj": (e, m)})
     return out
 
 
@@ -3655,6 +3714,40 @@ def zoo_parity_f32(name: str, eng) -> dict:
     return {"f32_streams_identical": True, "prompt_lens": list(lens)}
 
 
+def serve_checkpoint_dir(root: str, name: str, published: dict, layers: int, fmt: str, seed: int, smi: str) -> dict:
+    """A checkpoint at its published widths, cut to ``layers`` layers, written
+    to a directory under ``root`` and served through ``build_hf_engine``:
+    phase 3's mix (tokens, pages, K3 == layers x forwards, its steps
+    captured as CUDA graphs), then the float32 kernel path against the plain
+    path; the directory is removed after."""
+    hf = dict(published, num_hidden_layers=layers)
+    path = os.path.join(root, name)
+    t0 = time.perf_counter()
+    state = seeded_hf_state(hf_shapes(hf), torch.bfloat16, seed=seed)
+    nbytes = write_checkpoint(path, hf, state, fmt)
+    del state
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = build_hf_engine(path, engine_config(torch.bfloat16, 1024, ZOO_MAX_PAGES), device="cuda")
+    t_load = time.perf_counter() - t0
+    log(f"  {name} ({layers} of {published['num_hidden_layers']} layers): {fmt} {nbytes / 1e9:.2f} GB, "
+        f"written in {t_write:.2f} s, build_hf_engine {t_load:.2f} s")
+    res = serve_mix(eng, *zoo_mix(name, eng.cfg.vocab_size), smi)
+    graphs = sum(hasattr(prog, "graph") for prog in eng._step_fns.values())
+    if graphs == 0:
+        raise AssertionError(f"{name}: no step of the mix ran as a captured CUDA graph")
+    log(f"  {name}: the mix's {graphs} step programs ran as captured CUDA graphs")
+    res.update(zoo_parity_f32(name, eng), step_graphs=graphs, format=fmt, weight_bytes=nbytes, write_s=t_write,
+               load_s=t_load,
+               window=getattr(eng.cfg, "sliding_window", 0), alibi=getattr(eng.cfg, "alibi", False),
+               head_dim=eng.cfg.hidden_size // eng.cfg.num_attention_heads)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(path)
+    return res
+
+
 def phase_zoo(smi: str) -> dict:
     """Each zoo checkpoint written to a directory at its published widths,
     cut to ZOO_LAYERS layers, and served through ``build_hf_engine``: phase
@@ -3664,32 +3757,351 @@ def phase_zoo(smi: str) -> dict:
     out = {}
     try:
         for i, (name, (published, fmt)) in enumerate(ZOO.items()):
-            hf = dict(published, num_hidden_layers=ZOO_LAYERS)
-            path = os.path.join(root, name)
-            t0 = time.perf_counter()
-            state = seeded_hf_state(hf_shapes(hf), torch.bfloat16, seed=170 + i)
-            nbytes = write_checkpoint(path, hf, state, fmt)
-            del state
-            t_write = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            eng = build_hf_engine(path, engine_config(torch.bfloat16, 1024, ZOO_MAX_PAGES), device="cuda")
-            t_load = time.perf_counter() - t0
-            log(f"  {name} ({ZOO_LAYERS} of {published['num_hidden_layers']} layers): {fmt} {nbytes / 1e9:.2f} GB, "
-                f"written in {t_write:.2f} s, build_hf_engine {t_load:.2f} s")
-            res = serve_mix(eng, *zoo_mix(name, eng.cfg.vocab_size), smi)
-            res.update(zoo_parity_f32(name, eng), format=fmt, weight_bytes=nbytes, write_s=t_write, load_s=t_load,
-                       window=getattr(eng.cfg, "sliding_window", 0), alibi=getattr(eng.cfg, "alibi", False),
-                       head_dim=eng.cfg.hidden_size // eng.cfg.num_attention_heads)
-            out[name] = res
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
-            shutil.rmtree(path)
+            out[name] = serve_checkpoint_dir(root, name, published, ZOO_LAYERS, fmt, 170 + i, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if not any(r["format"] == "safetensors" for r in out.values()):
         raise AssertionError("no zoo checkpoint loaded from safetensors")
     return out
+
+
+# ---------------------------------------------------------------- phases 18-20
+
+# the published config.json of each MoE checkpoint, in code (seeded weights)
+QWEN_MOE = {"model_type": "qwen2_moe", "vocab_size": 151936, "hidden_size": 2048, "intermediate_size": 5632,
+            "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632, "num_hidden_layers": 24,
+            "num_attention_heads": 16, "num_key_value_heads": 16, "num_experts": 60, "num_experts_per_tok": 4,
+            "norm_topk_prob": False, "decoder_sparse_step": 1, "mlp_only_layers": [],
+            "max_position_embeddings": 8192, "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}                   # Qwen/Qwen1.5-MoE-A2.7B
+MIXTRAL_8X7B = {"model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+                "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+                "max_position_embeddings": 32768, "rope_theta": 1000000.0, "rms_norm_eps": 1e-5,
+                "num_local_experts": 8, "num_experts_per_tok": 2, "router_aux_loss_coef": 0.02,
+                "sliding_window": None, "tie_word_embeddings": False,
+                "torch_dtype": "bfloat16"}                                              # mistralai/Mixtral-8x7B-v0.1
+# phase 19's cut: one Mixtral layer is 2.9 GB of bf16, the 32 (93 GB) do not fit one card
+MIXTRAL_LAYERS = 2
+# phase 20: Mixtral-8x7B's widths at one layer, B 2 of S 1024, bf16
+MOE_TRAIN_LAYERS, MOE_TRAIN_B, MOE_TRAIN_S = 1, 2, 1024
+MOE_TRAIN_WARMUP, MOE_TRAIN_TIMED = 2, 3
+MOE_DS_CONFIG = {"train_batch_size": MOE_TRAIN_B, "optimizer": {"type": "AdamW",
+                                                                "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                 "bf16": {"enabled": True}, "moe": {"enabled": True, "expert_parallel_size": 1},
+                 "steps_per_print": 0}
+ROUTER_SUFFIXES = ("mlp.gate", "block_sparse_moe.gate")
+
+
+def routed_first_step(eng, prompt) -> tuple:
+    """``first_step_logits`` with every router's float32 logits of the
+    prompt's tokens and its input, recorded by forward hooks on the eager
+    forward: (logits, [L, n, E], [L, n, d])."""
+    outs, ins = [], []
+
+    def record(mod, args, out):
+        outs.append(out.detach().clone())
+        ins.append(args[0].detach().float().clone())
+
+    hooks = [m.register_forward_hook(record) for name, m in eng.model.named_modules() if name.endswith(ROUTER_SUFFIXES)]
+    try:
+        logits = first_step_logits(eng, prompt)
+    finally:
+        for h in hooks:
+            h.remove()
+    chunk = eng.econfig.scheduler.prefill_chunk
+    return logits, *(torch.stack([r.view(-1, chunk, r.shape[-1])[0, :len(prompt)] for r in rec]) for rec in (outs, ins))
+
+
+def expert_histogram(routers: torch.Tensor, k: int) -> list:
+    """Per layer, the top-k choices each expert took."""
+    idx = torch.topk(routers, k, dim=-1).indices
+    return [torch.bincount(i.flatten(), minlength=routers.shape[-1]).tolist() for i in idx]
+
+
+def routing_flips(ra: torch.Tensor, rb: torch.Tensor, k: int, xa=None, xb=None) -> list:
+    """Each (layer, token) whose top-k expert set differs between two paths'
+    router logits ([L, n, E]), in layer order: the experts each chose, each
+    path's margin at its top-k boundary (its k-th largest logit minus its
+    (k+1)-th) beside BF16_TIE_ULPS bf16 ulps of the token's largest |logit|
+    (a logit is a sum of products of that order, so its rounding is too),
+    and the layer of the token's first flip.  A token's first flip must be a
+    rounding tie: both margins within.  A flip moves that token's hidden
+    state by much more than rounding (another expert's output), so its later
+    flips may have larger margins.  Given the
+    routers' inputs ([L, n, d]), each flip also carries its token's relative
+    input difference between the paths (``input_diff``) beside the largest
+    one among the tokens that had not flipped before that layer
+    (``unflipped_max``): the measure of how far the earlier flip moved it."""
+    out, first = [], {}
+    for layer, (a, b) in enumerate(zip(ra.float(), rb.float())):
+        sa, ia = torch.sort(a, dim=-1, descending=True, stable=True)
+        sb, ib = torch.sort(b, dim=-1, descending=True, stable=True)
+        differ = (ia[:, :k].sort(-1).values != ib[:, :k].sort(-1).values).any(-1)
+        diff = None
+        if xa is not None:
+            diff = ((xa[layer] - xb[layer]).norm(dim=-1) / xb[layer].norm(dim=-1)).tolist()
+            clean = [d for t, d in enumerate(diff) if t not in first]
+        for t in torch.nonzero(differ).flatten().tolist():
+            margins = [float(s[t, k - 1] - s[t, k]) for s in (sa, sb)]
+            limits = [BF16_TIE_ULPS * bf16_ulp(float(s[t].abs().max())) for s in (sa, sb)]
+            first.setdefault(t, layer)
+            flip = {"layer": layer, "token": t, "experts": [ia[t, :k].tolist(), ib[t, :k].tolist()],
+                    "margins": margins, "limits": limits, "first_flip_layer": first[t],
+                    "tie": all(m <= lim for m, lim in zip(margins, limits))}
+            if diff is not None:
+                flip.update(input_diff=diff[t], unflipped_max=max(clean, default=0.0))
+            out.append(flip)
+    return out
+
+
+def moe_parity_bf16(cfg, state) -> dict:
+    """Phase 4's bf16 logits parity on an MoE model, with its routing flips:
+    the bf16 kernel path and the bf16 plain path, each held against the
+    plain path in float32 on the same (upcast) weights, within phase 4's
+    bounds; each token whose top-k set differs between the two bf16 paths is
+    reported (``routing_flips``): each token's first flip must be a
+    rounding tie, and each later flip beyond one must carry a router input
+    moved further between the paths than any not yet flipped token's at
+    that layer (its earlier flip moved it).  The float32
+    weights replace ``state``'s bf16 tensors one by one (both copies of
+    Qwen1.5-MoE, 86 GB, do not fit the card): ``state`` holds float32
+    after, and no engine may hold its bf16 tensors."""
+    k = cfg.num_experts_per_tok
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 200).tolist()
+    logits, routers, inputs = {}, {}, {}
+    for impl in ("flash", "reference"):
+        eng = build_engine(dataclasses.replace(cfg, attention_impl=impl), state, engine_config(cfg.dtype, 64),
+                           device="cuda")
+        logits[impl], routers[impl], inputs[impl] = routed_first_step(eng, prompt)
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in list(state):
+        state[name] = state[name].float()
+    f32 = dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32, attention_impl="reference")
+    eng = build_engine(f32, state, engine_config(torch.float32, 64), device="cuda")
+    logits["f32"], routers["f32"], _ = routed_first_step(eng, prompt)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((logits[a] - logits[b]).norm() / logits[b].norm())
+
+    flips = routing_flips(routers["flash"], routers["reference"], k, inputs["flash"], inputs["reference"])
+    firsts = [f for f in flips if f["first_flip_layer"] == f["layer"]]
+    laters = [f for f in flips if f["first_flip_layer"] < f["layer"]]
+    hist = expert_histogram(routers["flash"], k)
+    res = {"kernel_vs_plain": rel("flash", "reference"), "kernel_vs_f32": rel("flash", "f32"),
+           "plain_vs_f32": rel("reference", "f32"),
+           "max_abs_kernel_vs_plain": float((logits["flash"] - logits["reference"]).abs().max()),
+           "argmax_equal": bool(logits["flash"].argmax() == logits["reference"].argmax()),
+           "router_decisions": len(hist) * len(prompt), "routing_flips": len(flips), "first_flips": len(firsts),
+           "first_flips_not_ties": [f for f in firsts if not f["tie"]],
+           "max_first_flip_margin_ulps": max((max(m / lim * BF16_TIE_ULPS for m, lim in zip(f["margins"], f["limits"]))
+                                              for f in firsts), default=0.0),
+           "later_flips": len(laters), "later_flips_beyond_ties": sum(not f["tie"] for f in laters),
+           "later_flips_unexplained": [f for f in laters if not f["tie"] and f["input_diff"] <= f["unflipped_max"]],
+           "routing_flips_vs_f32": len(routing_flips(routers["flash"], routers["f32"], k)), "flips": flips[:8]}
+    log(f"  bf16 parity ({cfg.num_hidden_layers} layers, relative L2 of logits; routing flips kernel vs plain): "
+        + json.dumps(res))
+    log(f"  later flips: {len(laters)}, of which {sum(f['input_diff'] > f['unflipped_max'] for f in laters)} with "
+        f"the token's router input moved further than any not yet flipped token's; those beyond ties:")
+    for f in laters:
+        if f["tie"]:
+            continue
+        ulps = [round(m / lim * BF16_TIE_ULPS, 2) for m, lim in zip(f["margins"], f["limits"])]
+        log(f"  later flip: layer {f['layer']} token {f['token']} (first flip at layer {f['first_flip_layer']}): "
+            f"margins {ulps} ulps; input differs by {f['input_diff']:.4g} "
+            f"(tokens not yet flipped: at most {f['unflipped_max']:.4g})")
+    used = [sum(c > 0 for c in h) for h in hist]
+    log(f"  experts chosen by the {len(prompt)} prompt tokens (top-{k}), per layer: used "
+        f"{min(used)}-{max(used)} of {len(hist[0])}, the busiest took {max(max(h) for h in hist)} of "
+        f"{k * len(prompt)}; layer 0: {hist[0]}; layer {len(hist) - 1}: {hist[-1]}")
+    e = res["plain_vs_f32"]
+    if not (np.isfinite(res["kernel_vs_plain"]) and res["kernel_vs_plain"] <= 2 * e
+            and res["kernel_vs_f32"] <= 1.5 * e):
+        raise AssertionError(f"bf16 kernel path out of tolerance: {res}")
+    if res["first_flips_not_ties"]:
+        raise AssertionError(f"a token's first routing flip beyond bf16 rounding between the kernel and plain paths: "
+                             f"{res['first_flips_not_ties']}")
+    if res["later_flips_unexplained"]:
+        raise AssertionError(f"a later routing flip beyond bf16 rounding whose router input moved no further than "
+                             f"a not yet flipped token's: {res['later_flips_unexplained']}")
+    res["experts_used_per_layer"] = used
+    return res
+
+
+def phase_qwen_moe(smi: str) -> dict:
+    """Qwen1.5-MoE-A2.7B at full width and depth: seeded bf16 weights made on
+    the card under HF's names, through ``Qwen2MoePolicy.convert`` in memory;
+    phase 3's mix and checks (K3 == 24 x forwards), a profiled decode
+    round, the bf16 greedy streams of the kernel and plain paths equal but
+    for rounding ties, then phase 4's logits parity with the routing flips
+    and the expert histogram."""
+    policy = Qwen2MoePolicy()
+    cfg = dataclasses.replace(policy.build_config(QWEN_MOE), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    state = policy.convert(seeded_hf_state(hf_shapes(QWEN_MOE), torch.bfloat16, seed=18), cfg)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    n_params = sum(t.numel() for t in state.values())
+    log(f"  Qwen1.5-MoE-A2.7B weights: {n_params / 1e9:.2f} B parameters, {nbytes / 1e9:.2f} GB bf16, made and "
+        f"converted in {time.perf_counter() - t0:.2f} s")
+    serving = phase_serving(cfg, state, smi)
+    gc.collect()
+    profile = phase_profile(cfg, state)
+    gc.collect()
+    greedy = greedy_parity_bf16(cfg, state)
+    gc.collect()
+    parity = moe_parity_bf16(cfg, state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serving": serving, "profile": profile, "greedy": greedy, "parity": parity, "weight_bytes": nbytes,
+            "params": n_params}
+
+
+def phase_mixtral_dir(smi: str) -> dict:
+    """Mixtral-8x7B at its published widths, cut to MIXTRAL_LAYERS layers,
+    written as safetensors and served through ``build_hf_engine`` (phase
+    17's mix, K3 == layers x forwards, float32 kernel and plain streams
+    identical)."""
+    root = tempfile.mkdtemp(prefix="moe_")
+    try:
+        free = shutil.disk_usage(root).free
+        log(f"  {free / 1e9:.1f} GB free under {tempfile.gettempdir()}")
+        return serve_checkpoint_dir(root, "mixtral-8x7b", MIXTRAL_8X7B, MIXTRAL_LAYERS, "safetensors", 190, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def record_moe_layers(model) -> tuple:
+    """Forward hooks on every ``MoE`` layer: a list each forward appends
+    ``(l_aux, exp_counts, capacity)`` to (the recompute under remat too)."""
+    rec = []
+
+    def hook(mod, args, out):
+        rec.append((out[1].detach(), out[2].detach(), mod.capacity(args[0].shape[0] * args[0].shape[1], True)))
+
+    return rec, [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, MoE)]
+
+
+def dropped_share(counts: torch.Tensor, capacity: int) -> float:
+    """The share of the top-k choices past their expert's capacity."""
+    return float(torch.clamp(counts - capacity, min=0).sum() / counts.sum())
+
+
+def phase_moe_training(smi: str) -> dict:
+    """``initialize`` → ``train_batch`` on Mixtral-8x7B's widths at
+    MOE_TRAIN_LAYERS layer, B 2 of S 1024, bf16, AdamW, remat
+    ``flash_saveable``, ``make_mixtral_loss_fn``: step ms, tokens/s, K1/K2a/K2b
+    once per layer per step, the dropped share of the router's choices and
+    ``l_aux``; then the float32 parity of the kernel path against the plain
+    path (``moe_training_parity_f32``)."""
+    cfg = dataclasses.replace(MIXTRAL_PRESETS["mixtral-8x7b"], num_hidden_layers=MOE_TRAIN_LAYERS,
+                              max_position_embeddings=MOE_TRAIN_S, remat=True, remat_policy="flash_saveable",
+                              attention_impl="flash")
+    ids = torch.from_numpy(np.random.default_rng(20).integers(0, cfg.vocab_size, (MOE_TRAIN_B, MOE_TRAIN_S),
+                                                              dtype=np.int32)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    acc = get_accelerator()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model = MixtralForCausalLM(cfg, device="cuda")
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(20))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=MOE_DS_CONFIG, device="cuda",
+                                                loss_fn=make_mixtral_loss_fn(cfg))
+    t_build = time.perf_counter() - t0
+    rec, hooks = record_moe_layers(engine.module)
+    losses = [float(engine.train_batch(batch=batch)) for _ in range(MOE_TRAIN_WARMUP)]
+    t0 = time.perf_counter()
+    for _ in range(MOE_TRAIN_TIMED):
+        loss = engine.train_batch(batch=batch)
+        losses.append(float(loss))
+    step_s = (time.perf_counter() - t0) / MOE_TRAIN_TIMED
+    for h in hooks:
+        h.remove()
+    steps = MOE_TRAIN_WARMUP + MOE_TRAIN_TIMED
+    launches = (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)
+    layers = cfg.num_hidden_layers
+    if launches != (layers * steps, ) * 3:
+        raise AssertionError(f"K1/K2a/K2b launched {launches} times over {steps} steps of {layers} layers")
+    if paged_attention_cuda.launches:
+        raise AssertionError("the training path launched the serving kernel K3")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling on a repeated batch: {losses}")
+    l_aux, counts, capacity = rec[-1]
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    expert_params = 3 * cfg.num_local_experts * cfg.hidden_size * cfg.intermediate_size * layers
+    active = n_params - expert_params * (1 - cfg.num_experts_per_tok / cfg.num_local_experts)
+    tok_s = MOE_TRAIN_B * MOE_TRAIN_S / step_s
+    flops_per_token = 6 * active + 12 * layers * cfg.hidden_size * MOE_TRAIN_S
+    res = {"params": n_params, "active_params": active, "build_s": t_build, "step_ms": 1e3 * step_s,
+           "tok_s": tok_s, "mfu_active": tok_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+           "peak_mem_gb": acc.max_memory_allocated() / 1e9, "losses": losses, "steps": steps,
+           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), launches)), "l_aux": float(l_aux),
+           "capacity": capacity, "expert_counts": counts.tolist(), "dropped_share": dropped_share(counts, capacity),
+           "card": smi}
+    log("  MoE training: " + json.dumps(res))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["parity_f32"] = moe_training_parity_f32()
+    return res
+
+
+def moe_training_parity_f32() -> dict:
+    """3 AdamW steps with clipping, float32, a 2-layer Mixtral at hidden
+    1024 (16 heads of 64 on 4 KV heads, 8 experts of 2048, top-2, capacity
+    factor 1.0 so that tokens are dropped), B 4, S 512: the kernel path
+    against the chunked path on the same weights and batches, within phase
+    7's tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = MixtralConfig(vocab_size=32000, hidden_size=1024, intermediate_size=2048, num_hidden_layers=2,
+                        num_attention_heads=16, num_key_value_heads=4, max_position_embeddings=512,
+                        num_local_experts=8, num_experts_per_tok=2, capacity_factor=1.0, dtype=torch.float32,
+                        remat=True, remat_policy="flash_saveable")
+    ds_config = {"train_batch_size": 4, "gradient_clipping": 1.0,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+    rng = np.random.default_rng(21)
+    batches = []
+    for _ in range(3):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 512), dtype=np.int32)).cuda()
+        batches.append({"input_ids": ids, "labels": ids})
+    state, runs, params, dropped = None, {}, {}, {}
+    for impl in ("flash", "chunked"):
+        reset_launch_counts()
+        model = MixtralForCausalLM(dataclasses.replace(cfg, attention_impl=impl), device="cuda")
+        if state is None:
+            init_weights_(model, torch.Generator(device="cuda").manual_seed(21))
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds_config, params=state, device="cuda",
+                                                 loss_fn=make_mixtral_loss_fn(cfg))
+        rec, hooks = record_moe_layers(eng.module)
+        runs[impl] = run_steps(eng, batches)
+        for h in hooks:
+            h.remove()
+        dropped[impl] = max(dropped_share(c, cap) for _, c, cap in rec)
+        params[impl] = {k: v.clone() for k, v in eng.module.state_dict().items()}
+        if (flash_fwd_cuda.launches > 0) != (impl == "flash"):
+            raise AssertionError(f"{impl}: K1 launched {flash_fwd_cuda.launches} times")
+        del eng, model
+    d = run_differences(runs["flash"], runs["chunked"])
+    diff = torch.cat([(params["flash"][k] - params["chunked"][k]).abs().flatten() for k in params["flash"]])
+    res = {"losses_kernel": runs["flash"]["losses"], "losses_plain": runs["chunked"]["losses"],
+           "grad_norms_kernel": runs["flash"]["grad_norms"], "kernel_vs_plain": d, "max_param_abs": float(diff.max()),
+           "share_param_beyond_2e-5": float((diff > 2e-5).float().mean()), "max_dropped_share": dropped}
+    log("  f32 MoE training parity (hidden 1024, 2 layers, drops): " + json.dumps(res))
+    if not (d["loss"] <= 1e-5 and d["grad_norm"] <= 1e-5 and max(d["qkv_grads"].values()) <= 1e-5
+            and res["share_param_beyond_2e-5"] < 1e-4 and res["max_param_abs"] <= 2 * 3e-4
+            and min(dropped.values()) > 0):
+        raise AssertionError(f"f32 MoE training parity out of tolerance (or no token dropped): {res}")
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -3721,6 +4133,10 @@ def main() -> int:
     falcon = phase_falcon_7b(env["card"])
     log(f"== phase 17: the zoo through build_hf_engine from a directory ({ZOO_LAYERS} layers of each)")
     zoo = phase_zoo(env["card"])
+    log("== phase 18: serving Qwen1.5-MoE-A2.7B at full width and depth (HF names through Qwen2MoePolicy)")
+    qwen_moe = phase_qwen_moe(env["card"])
+    log(f"== phase 19: Mixtral-8x7B through build_hf_engine from a directory ({MIXTRAL_LAYERS} of 32 layers)")
+    mixtral = phase_mixtral_dir(env["card"])
     log("== phase 5: K1/K2a/K2b flash attention vs their plain versions")
     flash = phase_flash_kernels()
     log("== phase 6: training Llama-125M")
@@ -3730,6 +4146,8 @@ def main() -> int:
     phase_training_parity_bf16()
     log("== phase 15: training features on Llama-125M (dataloader, checkpoints, optimizers, PLD, timers, monitor)")
     features = phase_training_features(env["card"])
+    log(f"== phase 20: training Mixtral-8x7B's widths ({MOE_TRAIN_LAYERS} layer) with the router loss")
+    moe_training = phase_moe_training(env["card"])
     log("== phase 8: K6a/K6b/K6c block-sparse attention vs their plain versions")
     sparse = phase_sparse_kernels()
     log("== phase 9: the sparse path: DeepSpeedConfig -> SparseSelfAttention forward and backward")
@@ -3743,21 +4161,24 @@ def main() -> int:
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
                 "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"]
-                + fleet["k3_launches"] + falcon["serving"]["k3_launches"] + zoo_launches,
+                + fleet["k3_launches"] + falcon["serving"]["k3_launches"] + zoo_launches
+                + qwen_moe["serving"]["k3_launches"] + mixtral["k3_launches"],
                 # a partition of "launches": phase 13's are the verify
                 # rounds of its spec serving run and the rest of the phase
                 "launches_by_path": {"serving_step": serving["k3_launches"],
                                      "serving_frontend": frontend["k3_launches"],
                                      "step_graphs": graphs["k3_launches"] - graphs["verify_k3_launches"],
                                      "verify": graphs["verify_k3_launches"], "fleet": fleet["k3_launches"],
-                                     "falcon_7b": falcon["serving"]["k3_launches"], "zoo": zoo_launches},
+                                     "falcon_7b": falcon["serving"]["k3_launches"], "zoo": zoo_launches,
+                                     "qwen_moe": qwen_moe["serving"]["k3_launches"],
+                                     "mixtral": mixtral["k3_launches"]},
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if not n.endswith("_f32")), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],
                 "prefill_library_ms": k3["prefill"]["library_ms"], "verify_ms": ver["ms"],
                 "verify_plain_ms": ver["plain_ms"], "verify_bound_ms": ver["bound_ms"],
                 "verify_library_ms": ver["library_ms"],
-                # phase 2's zoo rows (head dims 80/96, Falcon-7B's 71:1, window, alibi)
+                # phase 2's zoo rows (head dims 80/96, Falcon-7B's 71:1, window, alibi, Qwen1.5-MoE's 16:16)
                 "zoo_rows": {n: {k: k3[n][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                         "max_abs_err", "n_split")}
                              for n in zoo_shapes(np.random.default_rng(30))}}]
@@ -3767,9 +4188,11 @@ def main() -> int:
     for name, where in replaces.items():
         row = flash["bench"][name]     # the training path's shapes
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": where, "launches": training["launches"][name] + features["launches"][name],
+                        "replaces": where, "launches": training["launches"][name] + features["launches"][name]
+                        + moe_training["launches"][name],
                         "launches_by_path": {"training": training["launches"][name],
-                                             "training_features": features["launches"][name]},
+                                             "training_features": features["launches"][name],
+                                             "moe_training": moe_training["launches"][name]},
                         "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})

@@ -9,8 +9,9 @@ build_hf_engine``.  The serving loop composes:
   StateManager/BlockedKVCache (ragged.py) — page allocation + batch packing
   the family's paged twin (``build_cache_model``: models/llama_cache.py for
     Llama, Mistral, Qwen2, InternLM and Phi-3; models/cache_zoo.py for
-    Falcon, OPT and Phi) — one chunked forward serving prefill,
-    continuation and decode
+    Falcon, OPT, Phi and Qwen2-MoE; models/mixtral_cache.py for Mixtral,
+    served dropless) — one chunked forward serving prefill, continuation
+    and decode
   K3 paged attention (ops/paged_attention.py → csrc/paged_attention.cu)
 
 Against the JAX engine:

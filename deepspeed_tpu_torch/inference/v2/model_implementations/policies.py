@@ -7,15 +7,18 @@ dict → the state dict of the family's paged twin (``build_cache_model``).
 The port's modules keep torch's ``[out, in]`` weights, so most tensors map
 by name; the fused ones are split by rows: Phi-3's ``qkv_proj`` and
 ``gate_up_proj``, Falcon's ``query_key_value`` in its MQA, new-architecture
-(per KV group ``[q…, k, v]``) and per-head MHA layouts (JAX ``:366-470``).
+(per KV group ``[q…, k, v]``) and per-head MHA layouts (JAX ``:366-470``);
+the MoE families' per-expert ``[out, in]`` weights are stacked into the
+twins' ``[E, in, out]`` banks (JAX ``_experts``).
 A policy makes the twin's keys from the config and takes each from the
 checkpoint: a tensor the twin needs and the checkpoint lacks raises
 ``KeyError``; tensors the twin does not use (rotary caches) are left.
 Tensors keep their dtype and device, and a split makes contiguous copies,
 so a checkpoint already on the card converts there.
 
-Served: llama, mistral, qwen2, internlm, phi3 (Llama twin), opt, phi and
-falcon (``models/cache_zoo.py``).  The other model types of the JAX
+Served: llama, mistral, qwen2, internlm, phi3 (Llama twin), opt, phi,
+falcon and qwen2_moe (``models/cache_zoo.py``), and mixtral
+(``models/mixtral_cache.py``).  The other model types of the JAX
 registry raise ``NotImplementedError`` naming their ROADMAP item; an
 unknown one raises ``ValueError``.
 """
@@ -25,11 +28,13 @@ from typing import Callable, Dict, Mapping
 
 import torch
 
-from ....models.cache_zoo import ROADMAP_MOE, build_cache_model
+from ....models.cache_zoo import build_cache_model
 from ....models.falcon import FalconConfig
 from ....models.llama import LlamaConfig, hf_value
+from ....models.mixtral import MixtralConfig
 from ....models.opt import OPTConfig
 from ....models.phi import PhiConfig
+from ....models.qwen2_moe import Qwen2MoeConfig
 
 ROADMAP_V1 = "ROADMAP Queue 1 item 5.4 (the v1 engine, inference/quantization.py, and the v1-only families)"
 
@@ -185,6 +190,50 @@ class FalconPolicy(InferenceV2Policy):
                      "transformer.word_embeddings.weight")
 
 
+def stack_experts(sd: Mapping, fmt: str, num_experts: int) -> torch.Tensor:
+    """``[E, in, out]`` from the per-expert ``[out, in]`` weights named
+    ``fmt.format(e=e)`` (JAX ``_experts``)."""
+    return torch.stack([sd[fmt.format(e=e)].T for e in range(num_experts)])
+
+
+class MixtralPolicy(InferenceV2Policy):
+    """The Llama layout with ``block_sparse_moe.{gate, experts.{e}.w1/w3/w2}``:
+    HF's w1 is the gate projection, w3 the up and w2 the down (JAX ``:258``)."""
+    model_type = "mixtral"
+
+    def build_config(self, hf_cfg):
+        return MixtralConfig.from_hf(hf_cfg)
+
+    def convert(self, sd, cfg):
+        expanded = dict(sd)
+        for i in range(cfg.num_hidden_layers):
+            p = f"model.layers.{i}.block_sparse_moe.experts"
+            for ours, theirs in (("w_gate", "w1"), ("w_up", "w3"), ("w_down", "w2")):
+                expanded[f"{p}.{ours}"] = stack_experts(sd, f"{p}.{{e}}.{theirs}.weight", cfg.num_local_experts)
+        return _take(expanded, cfg, lambda k: "model." + k, "model.embed_tokens.weight")
+
+
+class Qwen2MoePolicy(InferenceV2Policy):
+    """The Llama layout with q/k/v biases; a sparse layer's ``mlp.{gate,
+    experts.{e}.{gate,up,down}_proj, shared_expert.*, shared_expert_gate}``,
+    a dense one's ``mlp.{gate,up,down}_proj`` (JAX ``:473``)."""
+    model_type = "qwen2_moe"
+
+    def build_config(self, hf_cfg):
+        return Qwen2MoeConfig.from_hf(hf_cfg)
+
+    def convert(self, sd, cfg):
+        expanded = dict(sd)
+        for i in range(cfg.num_hidden_layers):
+            if cfg.layer_is_sparse(i):
+                p = f"model.layers.{i}.mlp"
+                for proj in ("gate", "up", "down"):
+                    expanded[f"{p}.w_{proj}"] = stack_experts(sd, f"{p}.experts.{{e}}.{proj}_proj.weight",
+                                                              cfg.num_experts)
+        shared = lambda k: re.sub(r"\.mlp\.shared_(gate|up|down)_proj\.", r".mlp.shared_expert.\1_proj.", k)
+        return _take(expanded, cfg, lambda k: "model." + shared(k), "model.embed_tokens.weight")
+
+
 class UnportedPolicy(InferenceV2Policy):
     """A model type of the JAX registry the port does not serve yet."""
 
@@ -210,9 +259,12 @@ POLICY_REGISTRY = {
     "opt": OPTPolicy(),
     "phi": PhiPolicy(),
     "falcon": FalconPolicy(),
-    **{t: UnportedPolicy(t, ROADMAP_MOE) for t in ("mixtral", "qwen2_moe", "megatron-gpt-moe")},
+    "mixtral": MixtralPolicy(),
+    "qwen2_moe": Qwen2MoePolicy(),
+    # megatron-gpt-moe is Megatron GPT (the v1 engine's NeoX twin) with an expert bank
     **{t: UnportedPolicy(t, ROADMAP_V1)
-       for t in ("megatron-gpt", "bloom", "gpt_neox", "gptj", "gpt_neo", "bert", "distilbert", "clip", "qwen")},
+       for t in ("megatron-gpt", "megatron-gpt-moe", "bloom", "gpt_neox", "gptj", "gpt_neo", "bert", "distilbert",
+                 "clip", "qwen")},
 }
 
 

@@ -1,5 +1,5 @@
 """Paged-KV serving twins of the non-Llama families (port of
-``deepspeed_tpu/models/cache_zoo.py``): Falcon, OPT and Phi.
+``deepspeed_tpu/models/cache_zoo.py``): Falcon, OPT, Phi and Qwen2-MoE.
 
 Each twin serves one chunked forward for prefill, continuation and decode
 as ``llama_cache.LlamaForCausalLMWithCache`` does: ``hidden(input_ids,
@@ -18,10 +18,13 @@ dtype, as flax's do.
 Falcon-RW's alibi slopes are a float32 ``[H]`` tensor the model makes once
 on its device (``bind``), so a captured step graph reads the same tensor on
 every replay; Mistral's window is the int ``cfg.sliding_window`` of the
-Llama twin.  ``build_cache_model`` picks a config's twin, this registry's or
-the Llama one; Mixtral and Qwen2-MoE have none yet (ROADMAP Queue 1 item 5.3).
+Llama twin.  Qwen2-MoE's twin is the Llama twin with its sparse (or, in a
+mixed stack, dense) MLP per layer (JAX ``cache_zoo.py:321-380``); Mixtral's
+is ``mixtral_cache.py``.  ``build_cache_model`` picks a config's twin, this
+registry's or the Llama one, and serves Mixtral dropless.
 """
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -31,11 +34,12 @@ from torch import nn
 from ..accelerator import DeviceLike, resolve_device
 from .falcon import FalconConfig, alibi_slopes
 from .llama import LlamaConfig, _linear, apply_rope, dense, rotary_embedding
-from .llama_cache import LlamaForCausalLMWithCache, paged_attention_core
+from .llama_cache import LlamaAttentionCache, LlamaForCausalLMWithCache, paged_attention_core
+from .mixtral import MixtralConfig
+from .mixtral_cache import MixtralForCausalLMWithCache
 from .opt import OPTConfig
 from .phi import PhiConfig, apply_partial_rope
-
-ROADMAP_MOE = "ROADMAP Queue 1 item 5.3 (MoE: Mixtral, Qwen2-MoE)"
+from .qwen2_moe import Qwen2MoeBlock, Qwen2MoeConfig
 
 
 class LayerNorm(nn.Module):
@@ -342,21 +346,48 @@ class PhiForCausalLMWithCache(_CacheTwin):
         return dense(self.final_layernorm(x), self.lm_head, self.cfg.dtype)
 
 
-#: config class → its paged twin (JAX ``CACHE_MODEL_REGISTRY``); Qwen2-MoE's
-#: twin comes with the MoE gating (``ROADMAP_MOE``)
+# ---------------------------------------------------------------- qwen2-moe
+
+
+class Qwen2MoeBlockCache(Qwen2MoeBlock):
+    """A Qwen2-MoE layer over the paged arena: the sparse MLP, or the dense
+    one in a mixed stack's ``mlp_only``/off-step layers."""
+
+    def __init__(self, cfg: Qwen2MoeConfig, page_size: int, sparse: bool = True, device=None):
+        super().__init__(cfg, sparse=sparse, device=device,
+                         self_attn=LlamaAttentionCache(cfg.as_llama(), page_size, device=device))
+
+    def forward(self, x, positions, pages, block_table, start_pos, chunk_lens=None):
+        h = x + self.self_attn(self.input_layernorm(x), positions, pages, block_table, start_pos, chunk_lens)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class Qwen2MoeForCausalLMWithCache(LlamaForCausalLMWithCache):
+    """The Llama twin's forward over Qwen2-MoE layers (``layers.{i}``,
+    each sparse or dense by ``cfg.layer_is_sparse(i)``)."""
+
+    def _make_block(self, cfg, device, layer: int) -> nn.Module:
+        return Qwen2MoeBlockCache(cfg, self.page_size, sparse=cfg.layer_is_sparse(layer), device=device)
+
+
+#: config class → its paged twin (JAX ``CACHE_MODEL_REGISTRY``, with Mixtral,
+#: which JAX's ``build_cache_model`` picks by hand)
 CACHE_MODEL_REGISTRY = {
     FalconConfig: FalconForCausalLMWithCache,
     OPTConfig: OPTForCausalLMWithCache,
     PhiConfig: PhiForCausalLMWithCache,
+    Qwen2MoeConfig: Qwen2MoeForCausalLMWithCache,
+    MixtralConfig: MixtralForCausalLMWithCache,
 }
 
 
 def build_cache_model(cfg, page_size: int, device: DeviceLike = "cuda"):
     """The paged twin of a config's family (JAX ``engine_v2.py:39-56``):
-    ``CACHE_MODEL_REGISTRY``'s Falcon, OPT and Phi, else Llama.  The MoE
-    families (Mixtral, Qwen2-MoE) raise: their gating is not ported."""
-    if type(cfg).__name__ in ("MixtralConfig", "Qwen2MoeConfig"):
-        raise NotImplementedError(f"{type(cfg).__name__} has no paged twin in the port yet ({ROADMAP_MOE})")
+    ``CACHE_MODEL_REGISTRY``'s, else Llama.  Mixtral is served dropless: a
+    config with ``drop_tokens`` is replaced by one without (capacity drops
+    would zero routed tokens at random and leave HF's outputs)."""
+    if isinstance(cfg, MixtralConfig) and cfg.drop_tokens:
+        cfg = dataclasses.replace(cfg, drop_tokens=False)
     for cfg_cls, model_cls in CACHE_MODEL_REGISTRY.items():
         if isinstance(cfg, cfg_cls):
             return model_cls(cfg, page_size=page_size, device=device)

@@ -31,7 +31,13 @@ unrolled (``h_{i}``, ``layers_{i}``), becomes ``h.{i}`` / ``layers.{i}``;
 flax LayerNorm's ``scale`` becomes ``weight``; a 3-d kernel is an attention
 projection, ``[E, N, D]`` in, ``[H, D, E]`` out (``o_proj``, ``dense``,
 ``out_proj``); every leaf of the tree is carried, so the tree's biases are
-the config's.
+the config's.  ``jax_mixtral_to_state_dict`` and ``jax_qwen2_moe_to_state_dict``
+do the same for the MoE families (scanned ``layers`` or unrolled
+``layers_{i}``, as a Qwen2-MoE mixed stack is): their expert banks
+(``w_gate``, ``w_up``, ``w_down``, ``[E, in, out]``) keep the JAX layout, and
+a router's kernel ``[hidden, E]`` becomes its ``gate.weight`` ``[E,
+hidden]``.  The training and the serving twins of a family share their
+names, so one function serves both.
 
 ``jax_train_state_to_engine`` carries a whole JAX training state across: a
 ``deepspeed_tpu`` engine's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
@@ -65,6 +71,8 @@ def _slice_tree(tree, i: int):
 
 #: the 3-d kernels laid out [H, D, E] (attention output projections)
 _OUT_PROJECTIONS = ("o_proj", "dense", "out_proj")
+#: the MoE expert banks, parameters of their module kept in the JAX layout
+_EXPERT_BANKS = ("w_gate", "w_up", "w_down")
 
 
 def _leaf_state(name: str, leaf: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -77,17 +85,20 @@ def _leaf_state(name: str, leaf: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
         return "bias", x.reshape(-1)
     if leaf in ("embedding", "scale", "weight"):
         return "weight", x
+    if leaf in _EXPERT_BANKS:
+        return leaf, x
     raise KeyError(f"unknown flax leaf {name}/{leaf}")
 
 
-def _flax_to_state(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
+def _flax_to_state(tree: Mapping, prefix: str, out: Dict[str, np.ndarray], module: str = "") -> None:
+    """The leaves of ``tree`` (module ``module``'s, at ``prefix``) and of
+    its submodules."""
     for key, sub in tree.items():
-        if isinstance(sub, Mapping) and not any(isinstance(v, Mapping) for v in sub.values()):
-            for leaf, x in sub.items():
-                suffix, arr = _leaf_state(key, leaf, _as_np(x))
-                out[f"{prefix}{key}.{suffix}"] = arr
+        if isinstance(sub, Mapping):
+            _flax_to_state(sub, f"{prefix}{key}.", out, key)
         else:
-            _flax_to_state(sub, f"{prefix}{key}.", out)
+            suffix, arr = _leaf_state(module, key, _as_np(sub))
+            out[prefix + suffix] = arr
 
 
 def _zoo_state(params: Mapping, stack: str, num_layers: int) -> Dict[str, torch.Tensor]:
@@ -125,6 +136,19 @@ def jax_opt_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
 
 def jax_phi_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """JAX ``PhiForCausalLMWithCache`` params → ``cache_zoo.PhiForCausalLMWithCache``'s state dict."""
+    return _zoo_state(params, "layers", cfg.num_hidden_layers)
+
+
+def jax_mixtral_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``MixtralForCausalLM`` (or its cache twin) params → the state dict
+    of ``mixtral.MixtralForCausalLM`` and ``mixtral_cache.MixtralForCausalLMWithCache``."""
+    return _zoo_state(params, "layers", cfg.num_hidden_layers)
+
+
+def jax_qwen2_moe_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``Qwen2MoeForCausalLM`` (or its cache twin) params → the state
+    dict of ``qwen2_moe.Qwen2MoeForCausalLM`` and
+    ``cache_zoo.Qwen2MoeForCausalLMWithCache``."""
     return _zoo_state(params, "layers", cfg.num_hidden_layers)
 
 

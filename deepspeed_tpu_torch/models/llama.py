@@ -316,12 +316,14 @@ class LlamaForCausalLM(nn.Module):
         self.cfg = cfg
         self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
                                                dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList([self._make_block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
+        self.layers = nn.ModuleList([self._make_block(cfg, dev, i) for i in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, dev)
         self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, cfg.hidden_size, cfg.vocab_size, False,
                                                                      dev)
 
-    def _make_block(self, cfg: LlamaConfig, device) -> nn.Module:
+    def _make_block(self, cfg: LlamaConfig, device, layer: int) -> nn.Module:
+        """Block ``layer`` of the stack (a family whose layers differ, as
+        Qwen2-MoE's dense and sparse ones, reads the index)."""
         return LlamaBlock(cfg, device=device)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -366,7 +368,9 @@ class LlamaForCausalLM(nn.Module):
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights from ``generator`` (on the model's device), after
     flax's initialisers: embeddings N(0, 0.02), projections N(0, 1/fan_in)
-    (lecun normal, untruncated), norm scales 1, biases 0."""
+    (lecun normal, untruncated), norm scales 1, biases 0; a module with
+    weights of its own kind (the MoE routers and expert banks) initialises
+    them by its ``init_weights_(generator)``."""
     for mod in model.modules():
         if isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, generator=generator)
@@ -376,6 +380,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.bias.zero_()
         elif isinstance(mod, RMSNorm):
             mod.weight.fill_(1.0)
+        elif hasattr(mod, "init_weights_"):
+            mod.init_weights_(generator)
     return model
 
 

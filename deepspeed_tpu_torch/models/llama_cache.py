@@ -174,7 +174,7 @@ class LlamaForCausalLMWithCache(LlamaForCausalLM):
         self.page_size = page_size
         super().__init__(cfg, device=device)
 
-    def _make_block(self, cfg, device):
+    def _make_block(self, cfg, device, layer: int):
         return LlamaBlockCache(cfg, self.page_size, device=device)
 
     def bind(self, device: torch.device) -> None:

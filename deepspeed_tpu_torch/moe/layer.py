@@ -1,0 +1,87 @@
+"""The MoE layer (port of ``deepspeed_tpu/moe/layer.py``; ref:
+``deepspeed/moe/layer.py:17 MoE`` → ``sharded_moe.py:533 MOELayer``).
+
+A drop-in FFN: ``[B, S, d]`` → ``(out [B, S, d], l_aux, exp_counts)``; the
+caller adds ``coef · l_aux`` to its loss.  One device is one group of B·S
+tokens (``tokens_per_group``): capacity = max(ceil(k·B·S/E·factor),
+``min_capacity``), ``capacity_factor`` when ``train`` and
+``eval_capacity_factor`` otherwise, or B·S with ``drop_tokens=False``.
+
+The gate (``Router``) computes float32 logits from float32 inputs and a
+float32 weight, whatever dtype the weight is kept in: JAX's gate is a
+float32 ``Dense`` with a float32 parameter (``layer.py:52-57``), and a
+served checkpoint keeps it in bf16 (``build_hf_engine``), so both operands
+are upcast before the product.
+
+Every step of the forward has static shapes and no host sync (``one_hot``
+with its class count, ``cumsum``, ``gather``, ``index_add_``,
+``index_put``, indexing by long tensors), so the paged Mixtral twin serves
+through it, with ``train=False`` and no drops (C = B·S), inside a captured
+CUDA graph, as JAX's twin calls its layer.
+"""
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .experts import ExpertsFFN
+from .mappings import drop_tokens, gather_tokens
+from .sharded_moe import _capacity, dispatch_combine, top1_gating, topk_gating
+
+
+class Router(nn.Module):
+    """A gate ``[n_out, hidden]``: float32 logits of float32 ``x``."""
+
+    def __init__(self, hidden_size: int, num_out: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((num_out, hidden_size), dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.float(), self.weight.float())
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, 1.0 / math.sqrt(self.weight.shape[1]), generator=generator)
+
+
+class MoE(nn.Module):
+    """ref: ``MoE(hidden_size, expert, num_experts, ep_size, k,
+    capacity_factor, eval_capacity_factor, min_capacity, drop_tokens,
+    use_rts, noisy_gate_policy)``; ``generator`` draws the ``RSample`` noise
+    of top-1 gating in training (JAX's ``gating`` rng; None: no noise)."""
+
+    def __init__(self, hidden_size: int, num_experts: int = 1, intermediate_size: Optional[int] = None, k: int = 1,
+                 capacity_factor: float = 1.0, eval_capacity_factor: float = 1.0, min_capacity: int = 4,
+                 drop_tokens: bool = True, noisy_gate_policy: Optional[str] = None, dtype=torch.bfloat16,
+                 param_dtype=torch.float32, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_experts, self.k = num_experts, k
+        self.capacity_factor, self.eval_capacity_factor = capacity_factor, eval_capacity_factor
+        self.min_capacity, self.drop_tokens = min_capacity, drop_tokens
+        self.noisy_gate_policy, self.generator = noisy_gate_policy, generator
+        self.gate = Router(hidden_size, num_experts, torch.float32, device)
+        self.experts = ExpertsFFN(num_experts, hidden_size, intermediate_size or 4 * hidden_size, dtype, param_dtype,
+                                  device)
+
+    def capacity(self, tokens: int, train: bool) -> int:
+        if not self.drop_tokens:
+            return tokens
+        factor = self.capacity_factor if train else self.eval_capacity_factor
+        return _capacity(tokens, self.num_experts, factor, self.min_capacity, self.k)
+
+    def forward(self, x: torch.Tensor, train: bool = True):
+        b, s, d = x.shape
+        tokens = drop_tokens(x, dim=1).reshape(b * s, d)
+        logits = self.gate(tokens)
+        capacity = self.capacity(b * s, train)
+        if self.k == 1:
+            noisy = self.noisy_gate_policy if train and self.generator is not None else None
+            gating = top1_gating(logits, capacity, noisy, self.generator)
+        else:
+            gating = topk_gating(logits, self.k, capacity, self.drop_tokens)
+        out = dispatch_combine(tokens, gating, self.num_experts, capacity, self.experts)
+        out = gather_tokens(out.reshape(b, s, d).to(x.dtype), dim=1)
+        return out, gating.l_aux, gating.exp_counts

@@ -12,7 +12,8 @@ process group), ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
 ``wall_clock_breakdown``, ``sparse_attention`` (kept as the raw dict, as
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
 ``progressive_layer_drop``, ``checkpoint`` and ``nebula`` (the checkpoint
-engine and retention), and the monitor blocks ``tensorboard``, ``wandb``,
+engine and retention), ``moe`` (``expert_parallel_size`` 1: the experts on
+one device), and the monitor blocks ``tensorboard``, ``wandb``,
 ``csv_monitor`` and ``comet``.
 Any other key with a non-default value raises
 ``NotImplementedError`` naming the ROADMAP item that brings it, and so does
@@ -48,13 +49,12 @@ UNPORTED_KEYS = {
     PIPELINE: ROADMAP_MULTI_DEVICE,
     TENSOR_PARALLEL: ROADMAP_MULTI_DEVICE,
     SEQUENCE_PARALLEL_SIZE: ROADMAP_MULTI_DEVICE,
-    MOE: ROADMAP_MULTI_DEVICE,
     COMPRESSION_TRAINING: ROADMAP_TRAINING_FEATURES,
 }
 _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS, OPTIMIZER,
                      SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, ZERO_OPTIMIZATION, GRADIENT_CLIPPING,
                      GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION,
-                     PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET}
+                     PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET, MOE}
 #: the JAX package's ZeRO knobs besides ``stage`` and the quantized gradient
 #: wire, with their defaults: the port's step has nothing to bucket, overlap
 #: or partition
@@ -131,6 +131,37 @@ class PLDConfig:
     enabled: bool = False
     theta: float = 0.5
     gamma: float = 0.001
+
+
+@dataclasses.dataclass
+class MoEConfig:
+    """``moe`` (JAX ``config.py:329``): the expert-parallel degree, and the
+    reference's layer defaults.  The engine reads none of those: the layer
+    takes them as arguments (``moe.MoE``, or a model's config such as
+    ``MixtralConfig``), so a non-default one raises rather than being
+    ignored.  Experts on more than one device raise."""
+    enabled: bool = False
+    expert_parallel_size: int = 1
+    num_experts: int = 1
+    top_k: int = 1
+    capacity_factor: float = 1.0
+    eval_capacity_factor: float = 1.0
+    min_capacity: int = 4
+    drop_tokens: bool = True
+    use_rts: bool = True
+    noisy_gate_policy: Optional[str] = None
+
+    def __post_init__(self):
+        if not isinstance(self.expert_parallel_size, int) or self.expert_parallel_size < 1:
+            raise DeepSpeedConfigError(f"moe.expert_parallel_size must be >= 1, got {self.expert_parallel_size!r}")
+        if self.expert_parallel_size > 1:
+            raise NotImplementedError(f"moe.expert_parallel_size={self.expert_parallel_size}: expert parallelism is "
+                                      f"not ported ({ROADMAP_MULTI_DEVICE})")
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            if f.name not in ("enabled", "expert_parallel_size") and value != f.default:
+                raise NotImplementedError(f"moe.{f.name}={value!r} is not read by the engine: the MoE layer takes "
+                                          "it as an argument (deepspeed_tpu_torch.moe.MoE, or the model's config)")
 
 
 @dataclasses.dataclass
@@ -266,6 +297,7 @@ class DeepSpeedConfig:
         self.sparse_attention = pd.get(SPARSE_ATTENTION, None)
         self.pld_config = _block(PLDConfig, PROGRESSIVE_LAYER_DROP, pd.get(PROGRESSIVE_LAYER_DROP))
         self.checkpoint_config = _block(CheckpointConfig, CHECKPOINT, pd.get(CHECKPOINT))
+        self.moe = _block(MoEConfig, MOE, pd.get(MOE))
         self.monitor_config = MonitorConfig(tensorboard=_block(TensorBoardConfig, TENSORBOARD, pd.get(TENSORBOARD)),
                                             wandb=_block(WandbConfig, WANDB, pd.get(WANDB)),
                                             csv_monitor=_block(CSVConfig, CSV_MONITOR, pd.get(CSV_MONITOR)),

@@ -58,7 +58,11 @@ the collectives inside the step (``comm.unrecorded``).
 Hooks, as in JAX: ``model_inputs_fn(batch) -> (args, kwargs)`` feeds the
 model and ``loss_fn(outputs, batch)`` reduces its outputs to the loss
 (defaults: ``input_ids`` (+ ``positions``, ``segment_ids``) and the
-causal-LM token mean).  On the float32 wire at world > 1 a custom loss
+causal-LM token mean); a model that returns ``(logits, l_aux)``, as
+``MixtralForCausalLM`` does, trains through its ``loss_fn``
+(``make_mixtral_loss_fn``).  A model with ``MoE`` layers trains on one
+data-parallel rank: JAX's gating groups per data shard and its mean of
+``l_aux`` over them are not ported, so a larger world raises.  On the float32 wire at world > 1 a custom loss
 must equal the JAX GSPMD step's over the global micro-batch for any loss,
 not only a mean: every rank gathers the micro-batch's outputs from all
 ranks (``_GatherRows``) and evaluates ``loss_fn`` over them and the global
@@ -94,6 +98,7 @@ from ..accelerator import DeviceLike, resolve_device
 from ..comm import comm
 from ..comm.mesh import ROADMAP_MULTI_DEVICE
 from ..models.llama import causal_lm_loss
+from ..moe.layer import MoE
 from ..resilience import fault_injection
 from ..telemetry.trace import NULL_TRACER
 from ..ops.adagrad import SGD, Adagrad
@@ -211,6 +216,12 @@ class DeepSpeedEngine:
         self.compute_dtype = config.precision_dtype
         self.gas = config.gradient_accumulation_steps
         self.dp_rank, self.dp_world = comm.get_rank(), comm.get_world_size()
+        if self.dp_world > 1 and any(isinstance(m, MoE) for m in model.modules()):
+            # JAX forms one gating group per data shard and averages l_aux over
+            # them; a rank's own coef·l_aux summed over the ranks would be W×
+            raise NotImplementedError(f"a model with MoE layers over {self.dp_world} data-parallel ranks: the "
+                                      f"router loss and capacity groups per rank are not ported "
+                                      f"({ROADMAP_MULTI_DEVICE})")
         if self.dp_world != config.dp_world_size:
             raise ValueError(f"the config was resolved for {config.dp_world_size} data-parallel ranks, the process "
                              f"group has {self.dp_world}: create the process group first")

@@ -18,7 +18,8 @@ on the CPU.
     and OPT-350M, Phi with ``qk_layernorm``, Phi-3's fused projections,
     Llama with ``attention_bias``, Qwen2, InternLM), bit for bit;
   * every model type the port does not serve raises naming its ROADMAP
-    item; an unknown one raises ``ValueError``.
+    item (5.4, the v1 families); an unknown one raises ``ValueError``, and a
+    config of no served family has no paged twin (``TypeError``).
 """
 
 import dataclasses
@@ -170,20 +171,19 @@ def test_policy_equals_the_jax_policy_carried_across(case):
 def test_every_unserved_model_type_raises_naming_its_item():
     from deepspeed_tpu.inference.v2.model_implementations.policies import POLICY_REGISTRY as JAX_REGISTRY
     assert set(tpol.POLICY_REGISTRY) == set(JAX_REGISTRY)
-    served = {"llama", "mistral", "qwen2", "internlm", "phi3", "opt", "phi", "falcon"}
+    served = {"llama", "mistral", "qwen2", "internlm", "phi3", "opt", "phi", "falcon", "mixtral", "qwen2_moe"}
     for model_type, policy in tpol.POLICY_REGISTRY.items():
         if model_type in served:
             continue
-        item = "5.3" if model_type in ("mixtral", "qwen2_moe", "megatron-gpt-moe") else "5.4"
-        with pytest.raises(NotImplementedError, match=rf"item {item}"):
+        with pytest.raises(NotImplementedError, match=r"item 5\.4"):
             tpol.convert_hf_state_dict({}, {"model_type": model_type})
     with pytest.raises(ValueError, match="no inference policy"):
         tpol.policy_for("not-a-model")
     with pytest.raises(NotImplementedError, match="item 5.4"):
         build_hf_engine("/nonexistent", quantization_mode="wf6af16", device="cpu")
 
-    class MixtralConfig:
+    class UnknownConfig:
         pass
 
-    with pytest.raises(NotImplementedError, match="item 5.3"):
-        build_cache_model(MixtralConfig(), 16, device="meta")
+    with pytest.raises(TypeError, match="no paged twin"):
+        build_cache_model(UnknownConfig(), 16, device="meta")

@@ -22,6 +22,14 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.models.opt",
     "deepspeed_tpu_torch.models.phi",
     "deepspeed_tpu_torch.models.cache_zoo",
+    "deepspeed_tpu_torch.models.mixtral",
+    "deepspeed_tpu_torch.models.mixtral_cache",
+    "deepspeed_tpu_torch.models.qwen2_moe",
+    "deepspeed_tpu_torch.moe",
+    "deepspeed_tpu_torch.moe.sharded_moe",
+    "deepspeed_tpu_torch.moe.experts",
+    "deepspeed_tpu_torch.moe.mappings",
+    "deepspeed_tpu_torch.moe.layer",
     "deepspeed_tpu_torch.ops.paged_attention",
     "deepspeed_tpu_torch.ops.attention",
     "deepspeed_tpu_torch.ops.flash_attention",

@@ -308,7 +308,7 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
     assert (c.gradient_clipping, c.gradient_predivide_factor, c.steps_per_print) == (1.0, 2.0, 5)
     assert DeepSpeedConfig({**base, "zero_optimization": {"stage": 1, "overlap_comm": None}}).zero_config.stage == 1
     unported = [{"pipeline": {"stages": 2}}, {"tensor_parallel": {"autotp_size": 2}}, {"sequence_parallel_size": 2},
-                {"moe": {"enabled": True}}, {"compression_training": {"weight_quantization": {}}},
+                {"moe": {"enabled": True, "expert_parallel_size": 2}}, {"compression_training": {"weight_quantization": {}}},
                 {"checkpoint": {"load_universal": True}},
                 {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
                 {"zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}, {"flops_profiler": {"enabled": True}}]
