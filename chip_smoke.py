@@ -190,7 +190,34 @@ source, all started together.  Phases:
      per step, the dropped share of the router's choices and ``l_aux``; then
      3 float32 steps of a 2-layer Mixtral (hidden 1024, D 64, tokens dropped)
      on the kernel path against the plain path, within phase 7's
-     tolerances.
+     tolerances;
+ 21. the v1 engine (after phase 19): GPT-NeoX at the published
+     ``EleutherAI/pythia-6.9b`` config in code (32 layers, 32 heads of 128,
+     13.7 GB of seeded bf16 weights) through ``init_inference`` with kernel
+     injection, ``generate`` 64 tokens for 4 prompts of 448 in one [4, 512]
+     buffer — K1 == 32 x forwards, ms a forward, tok/s; phase 4's bound on
+     the bf16 logits against the plain path and float32; float32 greedy
+     streams identical on both paths at 2 layers; GPT-J (head dim 256)
+     refused by injection; then GPT-2 (124M) trained 5 steps through
+     ``initialize`` with ``attention_impl="flash"`` (B 8, S 1024, bf16):
+     K1/K2a/K2b 12 a step, losses finite;
+ 22. weight-only int8 serving (after phase 14, on phase 3's weights):
+     ``quantize_inference_params`` on the card, phase 3's mix through
+     ``InferenceEngineV2`` — K3 == 32 x forwards, K4b == the quantized
+     tensors x forwards (a layer's weights dequantized to bf16 just before
+     the layer), every step a CUDA graph, the resident bytes against bf16's,
+     a profiled decode round (K4b's device ms); greedy streams equal to a
+     bf16 engine's over the weights dequantized once but for rounding ties;
+     K4b's block-128 bf16 store against its plain version, timed beside its
+     bound;
+ 23. the v1 families through ``build_hf_engine`` from directories:
+     bigscience/bloom-7b1, EleutherAI/pythia-6.9b, EleutherAI/gpt-j-6b,
+     EleutherAI/gpt-neo-2.7B, bert-large-uncased and
+     openai/clip-vit-large-patch14 at their published widths cut to
+     V1_ZOO_LAYERS layers, seeded weights in the published dtype, each
+     served by the float32 v1 route on the card and on the CPU: outputs
+     within V1_F32_TOL (TF32 off), the causal models' greedy streams equal
+     but for float32 ties; write and load seconds.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -222,7 +249,11 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
                                               SpecConfig, build_engine, build_hf_engine)
-from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy, Qwen2MoePolicy
+from deepspeed_tpu_torch.inference.quantization import _quantize_leaf, quantize_inference_params
+from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy, Qwen2MoePolicy, policy_for
+from deepspeed_tpu_torch.models import gpt_family
+from deepspeed_tpu_torch.models.gpt2 import PRESETS as GPT2_PRESETS
+from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
 from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, init_weights_
 from deepspeed_tpu_torch.models.mixtral import PRESETS as MIXTRAL_PRESETS
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, make_mixtral_loss_fn
@@ -381,20 +412,27 @@ def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Mean device time of ``fn`` with a cold L2: every launch is preceded
     by a write of ``flush`` (larger than the 50 MB L2) and a ~1 ms device
     spin, which keeps the card busy while the host enqueues the timed work,
-    so host launch latency stays out of the reading."""
+    so host launch latency stays out of the reading.  The collector is off
+    while it runs: a full collection of the objects earlier phases left
+    (tens of ms) between ``start.record()`` and the launch would be read as
+    device time."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
+    gc.disable()
+    try:
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+    finally:
+        gc.enable()
     return total / iters
 
 
@@ -832,6 +870,8 @@ def first_step_logits(eng, prompt) -> torch.Tensor:
     rb = eng.state.pack([(seq, len(prompt))], eng.econfig.scheduler.prefill_chunk, pad_to=eng._bucket_batch(1))
     dev = [torch.from_numpy(a).cuda() for a in (rb.tokens, rb.start_pos, rb.block_tables, rb.chunk_lens)]
     with torch.no_grad():
+        if getattr(eng, "dequantizer", None) is not None:   # int8 weights: the tensors outside the layers, as a step does
+            eng.dequantizer.before_step()
         logits = eng.model(dev[0], dev[1], dev[2], eng.cache, dev[3])[0, len(prompt) - 1].float()
     eng.flush(uid)
     return logits
@@ -905,9 +945,11 @@ def phase_profile(cfg, state) -> dict:
     dev_us = {e.key: e.self_device_time_total for e in rows}
     busy_ms = sum(dev_us.values()) / 1e3
     k3_ms = sum(v for n, v in dev_us.items() if "paged_attention_tc_kernel" in n or "paged_merge_kernel" in n) / 1e3
+    k4b_ms = sum(v for n, v in dev_us.items() if "dq8_kernel" in n) / 1e3    # int8 weights (phase 22)
     top = sorted(((v / 1e3, n) for n, v in dev_us.items() if v > 0), reverse=True)[:8]
     res = {"rounds": k, "wall_ms_per_round": 1e3 * wall_plain / k, "profiled_wall_ms_per_round": 1e3 * wall / k,
            "device_ms_per_round": busy_ms / k, "k3_device_ms_per_round": k3_ms / k,
+           "k4b_device_ms_per_round": k4b_ms / k,
            "device_busy_share": busy_ms / (1e3 * wall_plain),
            "device_busy_share_profiled": busy_ms / (1e3 * wall), "device_ops_per_round": sum(e.count for e in rows) / k,
            "top_kernels_ms_per_round": [[n[:60], t / k] for t, n in top]}
@@ -4104,6 +4146,449 @@ def moe_training_parity_f32() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phases 21-23
+
+# EleutherAI/pythia-6.9b's config.json, in code (the weights are seeded)
+PYTHIA_6_9B = {"model_type": "gpt_neox", "vocab_size": 50432, "hidden_size": 4096, "intermediate_size": 16384,
+               "num_hidden_layers": 32, "num_attention_heads": 32, "rotary_pct": 0.25, "rotary_emb_base": 10000,
+               "use_parallel_residual": True, "layer_norm_eps": 1e-5, "max_position_embeddings": 2048,
+               "hidden_act": "gelu", "tie_word_embeddings": False, "torch_dtype": "float16"}
+# EleutherAI/gpt-j-6b's (head dim 256: kernel injection must refuse it)
+GPTJ_6B = {"model_type": "gptj", "vocab_size": 50400, "n_embd": 4096, "n_layer": 28, "n_head": 16, "rotary_dim": 64,
+           "n_positions": 2048, "layer_norm_epsilon": 1e-5, "activation_function": "gelu_new",
+           "tie_word_embeddings": False, "torch_dtype": "float32"}
+V1_PROMPTS, V1_PROMPT_LEN, V1_NEW = 4, 448, 64       # one [4, 512] buffer: every forward takes K1
+GPT2_B, GPT2_S, GPT2_STEPS = 8, 1024, 5
+GPT2_DS_CONFIG = {"train_batch_size": GPT2_B, "optimizer": {"type": "AdamW", "params": {"lr": 1e-4,
+                                                                                     "weight_decay": 0.01}},
+                  "gradient_clipping": 1.0, "bf16": {"enabled": True}, "steps_per_print": 0}
+# phase 23: each published config.json in code, with its checkpoint's dtype;
+# the layer-count fields each family's config cuts
+V1_ZOO = {
+    "bloom-7b1": ({"model_type": "bloom", "vocab_size": 250880, "hidden_size": 4096, "n_layer": 30, "n_head": 32,
+                   "layer_norm_epsilon": 1e-5, "tie_word_embeddings": True, "torch_dtype": "float16"},
+                  torch.float16, ("n_layer", )),
+    "pythia-6.9b": (PYTHIA_6_9B, torch.float16, ("num_hidden_layers", )),
+    "gpt-j-6b": (GPTJ_6B, torch.float32, ("n_layer", )),
+    "gpt-neo-2.7B": ({"model_type": "gpt_neo", "vocab_size": 50257, "hidden_size": 2560, "num_layers": 32,
+                      "num_heads": 20, "intermediate_size": None, "max_position_embeddings": 2048,
+                      "attention_layers": ["global", "local"] * 16, "window_size": 256, "layer_norm_epsilon": 1e-5,
+                      "torch_dtype": "float32"}, torch.float32, ("num_layers", )),
+    "bert-large-uncased": ({"model_type": "bert", "vocab_size": 30522, "hidden_size": 1024, "num_hidden_layers": 24,
+                            "num_attention_heads": 16, "intermediate_size": 4096, "max_position_embeddings": 512,
+                            "type_vocab_size": 2, "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+                            "position_embedding_type": "absolute", "torch_dtype": "float32"},
+                           torch.float32, ("num_hidden_layers", )),
+    "clip-vit-large-patch14": ({"model_type": "clip", "projection_dim": 768, "torch_dtype": "float32",
+                                "text_config": {"vocab_size": 49408, "hidden_size": 768, "intermediate_size": 3072,
+                                                "num_attention_heads": 12, "num_hidden_layers": 12,
+                                                "max_position_embeddings": 77, "layer_norm_eps": 1e-5,
+                                                "hidden_act": "quick_gelu", "eos_token_id": 2},
+                                "vision_config": {"hidden_size": 1024, "intermediate_size": 4096,
+                                                  "num_attention_heads": 16, "num_hidden_layers": 24,
+                                                  "image_size": 224, "patch_size": 14, "num_channels": 3,
+                                                  "layer_norm_eps": 1e-5, "hidden_act": "quick_gelu"}},
+                               torch.float32, ("text_config.num_hidden_layers", "vision_config.num_hidden_layers")),
+}
+V1_ZOO_LAYERS = 2
+# float32 on the card (TF32 off) against the port's CPU forward: the two
+# sum their matmuls in other orders, ~1e-6 relative a product, so the
+# outputs of two layers and the head agree within 1e-4 of their largest
+# magnitude
+V1_F32_TOL = 1e-4
+
+
+def seed_weights_(model, seed: int, device="cuda"):
+    """Seeded weights for any model: matrices (and embeddings, the patch
+    kernel) N(0, 1/fan_in), norm scales 1, biases and the other vectors
+    N(0, 0.02²)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                p.normal_(0.0, p[0].numel()**-0.5, generator=gen)
+            elif name.endswith("weight"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def f32_stream_differences(model, prompts, got, want) -> list:
+    """Where stream ``got`` leaves ``want``: the position and the top-2
+    margin of ``model``'s logits there; a tie when the margin is within
+    TIE_MARGIN of the top logit (phase 13's float32 criterion)."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        with torch.no_grad():
+            logits = model(torch.tensor([list(p) + list(b[:j])], device=next(model.parameters()).device))[0, -1]
+        top = torch.topk(logits.float(), 2).values
+        out.append({"row": i, "position": j, "tie": float(top[0] - top[1]) <= TIE_MARGIN * abs(float(top[0]))})
+    return out
+
+
+def train_gpt2(smi: str) -> dict:
+    """GPT-2 (124M, ``gpt2``'s config) through ``initialize`` with
+    ``attention_impl="flash"``: B 8, S 1024, bf16, 5 steps; K1/K2a/K2b once
+    per layer a step (remat ``flash_saveable``), losses finite."""
+    cfg = dataclasses.replace(GPT2_PRESETS["gpt2-125m"], attention_impl="flash", remat=True,
+                              remat_policy="flash_saveable")
+    model = init_weights_(GPT2LMHeadModel(cfg, device="cuda"), torch.Generator(device="cuda").manual_seed(21))
+    engine = deepspeed_tpu_torch.initialize(model=model, config=GPT2_DS_CONFIG, device="cuda")[0]
+    rng = np.random.default_rng(21)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (GPT2_B, GPT2_S), dtype=np.int64)).cuda()
+               for _ in range(GPT2_STEPS)]
+    reset_launch_counts()
+    losses, times = [], []
+    for ids in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch={"input_ids": ids, "labels": ids})))
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_fwd": flash_fwd_cuda.launches, "flash_dq": flash_dq_cuda.launches,
+                "flash_dkv": flash_dkv_cuda.launches}
+    layers = cfg.num_hidden_layers
+    step_s = float(np.median(times[1:]))
+    res = {"params": sum(p.numel() for p in engine.params), "losses": losses, "step_ms": 1e3 * step_s,
+           "tok_s": GPT2_B * GPT2_S / step_s, "launches": launches, "card": smi}
+    log("  GPT-2 training: " + json.dumps(res))
+    if launches != dict.fromkeys(launches, layers * GPT2_STEPS):
+        raise AssertionError(f"K1/K2a/K2b launched {launches} over {GPT2_STEPS} steps of {layers} layers")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"GPT-2 losses not finite: {losses}")
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_v1_engine(smi: str) -> dict:
+    """The v1 engine at full width and depth: GPT-NeoX at pythia-6.9b's
+    config with seeded bf16 weights, ``init_inference`` with kernel
+    injection, ``generate`` 64 tokens for 4 prompts of 448 (one [4, 512]
+    buffer: every forward through K1, 32 launches a forward); the same
+    weights on the plain path and in float32 (phase 4's bound on the bf16
+    logits), float32 greedy streams at 2 layers identical on both paths,
+    GPT-J (head dim 256) refused by injection; then GPT-2 training."""
+    cfg = gpt_family.GPTNeoXConfig.from_hf(PYTHIA_6_9B, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    layers = cfg.num_hidden_layers
+    model = seed_weights_(gpt_family.GPTNeoXForCausalLM(cfg, device="cuda"), seed=22)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    eng = deepspeed_tpu_torch.init_inference(model=model, config={"dtype": "bf16", "replace_with_kernel_inject": True},
+                                             device="cuda")
+    if eng.module.cfg.attention_impl != "flash":
+        raise AssertionError("kernel injection did not select the flash attention")
+    rng = np.random.default_rng(22)
+    prompts = rng.integers(0, cfg.vocab_size, (V1_PROMPTS, V1_PROMPT_LEN))
+    eng.generate(prompts, max_new_tokens=2)                               # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, max_new_tokens=V1_NEW)                  # ends in its readback
+    wall = time.perf_counter() - t0
+    launches = flash_fwd_cuda.launches
+    res = {"weight_bytes": nbytes, "layers": layers, "head_dim": cfg.head_dim, "buffer": list(tokens.shape),
+           "forwards": V1_NEW, "k1_launches": launches, "ms_per_forward": 1e3 * wall / V1_NEW,
+           "tok_s": V1_PROMPTS * V1_NEW / wall, "card": smi}
+    checks = {"k1_launches_layers_x_forwards": launches == layers * V1_NEW,
+              "tokens_shape": tokens.shape == (V1_PROMPTS, V1_PROMPT_LEN + V1_NEW)}
+
+    # phase 4's bound: the bf16 logits of the kernel path and of the plain
+    # path on the same weights, both against float32
+    ids = torch.from_numpy(tokens[:, :V1_PROMPT_LEN + V1_NEW]).cuda()
+    plain = deepspeed_tpu_torch.init_inference(model=model, config={"dtype": "bf16"}, device="cuda")
+    logits = {"flash": eng.forward(ids)[:, -1].float(), "reference": plain.forward(ids)[:, -1].float()}
+    del plain
+    f32 = gpt_family.GPTNeoXForCausalLM(dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32),
+                                        device="meta")
+    f32.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, strict=True, assign=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        logits["f32"] = f32(ids)[:, -1].float()
+    del f32
+    torch.cuda.empty_cache()
+    e = rel_l2(logits["reference"], logits["f32"])
+    parity = {"kernel_vs_plain": rel_l2(logits["flash"], logits["reference"]),
+              "kernel_vs_f32": rel_l2(logits["flash"], logits["f32"]), "plain_vs_f32": e}
+    res["bf16_parity"] = parity
+    checks["bf16_logits_within_phase_4_bound"] = (parity["kernel_vs_plain"] <= 2 * e
+                                                  and parity["kernel_vs_f32"] <= 1.5 * e)
+    del eng, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # float32 at 2 layers: greedy streams identical on the kernel and plain paths
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2, dtype=torch.float32, param_dtype=torch.float32)
+    small = seed_weights_(gpt_family.GPTNeoXForCausalLM(cfg2, device="cuda"), seed=23)
+    streams = {}
+    for name, inject in (("flash", True), ("reference", False)):
+        e2 = deepspeed_tpu_torch.init_inference(model=small, config={"dtype": "fp32",
+                                                                     "replace_with_kernel_inject": inject},
+                                                device="cuda")
+        reset_launch_counts()
+        streams[name] = e2.generate(prompts, max_new_tokens=V1_NEW)[:, V1_PROMPT_LEN:].tolist()
+        if inject:
+            checks["f32_k1_launches"] = flash_fwd_cuda.launches == 2 * V1_NEW
+    res["f32_differences"] = f32_stream_differences(small, prompts.tolist(), streams["flash"], streams["reference"])
+    checks["f32_streams_identical"] = streams["flash"] == streams["reference"]
+    del small, e2
+    # GPT-J at head dim 256: injection refuses it
+    gptj = gpt_family.GPTJForCausalLM(gpt_family.GPTJConfig.from_hf(GPTJ_6B), device="meta")
+    try:
+        deepspeed_tpu_torch.init_inference(model=gptj, config={"replace_with_kernel_inject": True}, device="cuda")
+        checks["gptj_injection_raises"] = False
+    except NotImplementedError as err:
+        res["gptj_injection"] = str(err)
+        checks["gptj_injection_raises"] = "head dim 256" in str(err) and "item 5" in str(err)
+    log("  v1 engine: " + json.dumps(res))
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["gpt2_training"] = train_gpt2(smi)
+    res["checks"] = checks
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"v1 engine phase failed {bad}: {json.dumps(res)}")
+    return res
+
+
+def k4b_block128_bf16(node: dict, shape, flush) -> dict:
+    """K4b at block 128 with its bf16 store on one quantized weight: equal to
+    the plain version (the float32 product rounded once to bf16), timed cold
+    beside the bound (codes and scales read once, the bf16 written once)."""
+    q, s = node["q"], node["scale"]
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.bfloat16, device="cuda")
+    dequantize_int8_cuda(q, s, shape, out=out)
+    want = dequantize_int8_plain(q, s, shape).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(shape), want):
+        raise AssertionError(f"K4b's bf16 store differs from the plain version at {tuple(shape)}")
+    nbytes = q.numel() + 4 * s.numel() + 2 * n
+    return {"shape": list(shape), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: dequantize_int8_cuda(q, s, shape, out=out), 20, flush),
+            "plain_ms": time_ms(lambda: dequantize_int8_plain(q, s, shape).to(torch.bfloat16), 5, flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+# phase 22's leaves quantized on the card and again on the CPU, bit for bit
+INT8_CPU_LEAVES = ("embed_tokens.weight", "layers.0.self_attn.q_proj.weight", "layers.0.mlp.down_proj.weight")
+
+
+def int8_codes_match_cpu(qp, state) -> dict:
+    """The card's codes and scales of INT8_CPU_LEAVES against
+    ``_quantize_leaf`` of the same bf16 tensors on the CPU (the arithmetic
+    the CPU tests hold bit-identical to the JAX package's), bit for bit."""
+    out = {}
+    for name in INT8_CPU_LEAVES:
+        t = state[name].cpu()
+        want = _quantize_leaf(t.t() if name in qp.transposed else t, qp.group)
+        got = qp.tree[name]
+        out[name] = (torch.equal(got["q"].cpu(), want["q"])
+                     and torch.equal(got["scale"].cpu().view(torch.int32), want["scale"].view(torch.int32)))
+    return out
+
+
+def int8_weight_errors(qp, state, deq) -> dict:
+    """Each quantized tensor's relative error ||deq - W|| / ||W|| beside the
+    most int8 rounding allows, computed from the bf16 weights W alone (not
+    from the codes): a code is off by at most half its group's step, scale/2
+    with scale = amax/127, and the bf16 store rounds the product by at most
+    2^-9 of itself, so ||deq - W|| <= q + 2^-9 (||W|| + q) with q =
+    sqrt(sum over groups of 128 (scale/2)^2).  The bound is widened by 1e-3
+    of itself for the float32 sums."""
+    res = {}
+    for name, shape in qp.shapes.items():
+        w = state[name].float()
+        g = (w.t() if name in qp.transposed else w).reshape(-1)
+        g = torch.nn.functional.pad(g, (0, (-g.numel()) % qp.group)).view(-1, qp.group)
+        q = float(((g.abs().amax(dim=1) / 127 / 2)**2).sum().mul(qp.group).sqrt())
+        norm = float(w.norm())
+        err = float((deq[name].float() - w).norm())
+        res[name] = (err / norm, (q + 2**-9 * (norm + q)) / norm * 1.001)
+    return res
+
+
+def phase_int8_serving(cfg, state, smi: str, bf16_rounding: float) -> dict:
+    """Weight-only int8 serving of Llama-3-8B (phase 3's weights, before they
+    are freed): ``quantize_inference_params`` on the card, phase 3's mix
+    through ``InferenceEngineV2`` (K3 == layers x forwards, K4b == the
+    quantized tensors x forwards, every step a CUDA graph), a profiled decode
+    round, the greedy streams against a bf16 engine over the same weights
+    dequantized once (equal but for rounding ties), and K4b's block-128
+    bf16 store against its plain version."""
+    t0 = time.perf_counter()
+    qp = quantize_inference_params(state, dtype=torch.bfloat16, cfg=cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    bf16_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    leaves = len(qp.shapes)
+    eng = build_engine(cfg, qp, engine_config(torch.bfloat16, 1024), device="cuda")
+    prompts, max_new = serving_mix(cfg.vocab_size)
+    serving = serve_mix(eng, prompts, max_new, smi)
+    k4b = dequantize_int8_cuda.launches
+    graphs = [hasattr(prog, "graph") for prog in eng._step_fns.values()]
+    res = {"quantize_s": quant_s, "quantized_tensors": leaves, "resident_weight_bytes": qp.nbytes,
+           "bf16_weight_bytes": bf16_bytes, "resident_share": qp.nbytes / bf16_bytes,
+           "scratch_bytes": eng.dequantizer.scratch_bytes,
+           "with_scratch_share": (qp.nbytes + eng.dequantizer.scratch_bytes) / bf16_bytes,
+           "serving": serving, "k4b_launches": k4b,
+           "step_programs": len(graphs), "card": smi}
+    checks = {"k4b_quantized_tensors_x_forwards": k4b == leaves * serving["forwards"] > 0,
+              "steps_are_graphs": len(graphs) > 0 and all(graphs),
+              "resident_at_most_55_percent": qp.nbytes <= 0.55 * bf16_bytes}
+    codes = int8_codes_match_cpu(qp, state)
+    res["codes_equal_cpu"] = codes
+    checks["codes_and_scales_equal_cpu"] = all(codes.values())
+    int8_streams = serve_greedy(eng, prompts, max_new)
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 200).tolist()
+    int8_logits = first_step_logits(eng, prompt)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["profile"] = phase_profile(cfg, qp)
+    deq = qp.dequantize()
+    # every tensor within int8 rounding of phase 3's weights; and the logits:
+    # each tensor's error moves them by at most its own relative size (the
+    # norms rescale the residual stream; a tensor's output is a part of it),
+    # and the tensors' errors are independent, so they add in quadrature
+    errors = int8_weight_errors(qp, state, deq)
+    worst = max(errors, key=lambda k: errors[k][0] / errors[k][1])
+    ref = build_engine(cfg, state, engine_config(cfg.dtype, 64), device="cuda")
+    bf16_logits = first_step_logits(ref, prompt)
+    del ref
+    logits_rel = float((int8_logits - bf16_logits).norm() / bf16_logits.norm())
+    # plus phase 4's allowance for two bf16 paths' own rounding (2e)
+    logits_bound = math.sqrt(sum(b**2 for _, b in errors.values())) + 2 * bf16_rounding
+    res["weight_error"] = {"worst_share_of_bound": errors[worst][0] / errors[worst][1], "worst": worst,
+                           "embed_tokens": list(errors["embed_tokens.weight"])}
+    res["logits_vs_bf16_weights"] = {"relative_l2": logits_rel, "bound": logits_bound}
+    checks["each_tensor_within_int8_rounding"] = all(e <= b for e, b in errors.values())
+    checks["logits_within_int8_rounding"] = logits_rel <= logits_bound
+    plain = build_engine(cfg, deq, engine_config(torch.bfloat16, 1024), device="cuda")
+    bf16_streams = serve_greedy(plain, prompts, max_new)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffs = first_difference_margins(cfg, deq, prompts, {"spec": int8_streams, "plain": bf16_streams})
+    res["stream_differences"] = [{"request": d["request"], "position": d["position"],
+                                  "gap_ulps": d["spec_gap"] / bf16_ulp(d["top_logit"])} for d in diffs]
+    checks["streams_equal_but_ties"] = all(d["spec_gap"] <= BF16_TIE_ULPS * bf16_ulp(d["top_logit"]) for d in diffs)
+    del deq
+    gc.collect()
+    torch.cuda.empty_cache()
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    res["k4b_bf16"] = {name: k4b_block128_bf16(qp.tree[name], qp.shapes[name], flush)
+                       for name in ("embed_tokens.weight", "layers.0.mlp.down_proj.weight")}
+    del flush, qp
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["checks"] = checks
+    log("  int8 serving: " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"int8 serving phase failed {bad}")
+    return res
+
+
+def cut_layers(hf: dict, fields, layers: int) -> dict:
+    """The config with each layer-count field (``a.b`` for a nested one) at
+    ``layers``; GPT-Neo's ``attention_layers`` cut with it."""
+    hf = copy.deepcopy(hf)
+    for field in fields:
+        node = hf
+        *path, last = field.split(".")
+        for key in path:
+            node = node[key]
+        node[last] = layers
+    if "attention_layers" in hf:
+        hf["attention_layers"] = hf["attention_layers"][:layers]
+    return hf
+
+
+def v1_inputs(model_type: str, hf: dict, seed: int) -> tuple:
+    """The forward's inputs: 2 rows of 16 token ids (CLIP's text holds its
+    EOS id, and 224-pixel NHWC images)."""
+    rng = np.random.default_rng(seed)
+    if model_type == "clip":
+        text = hf["text_config"]
+        ids = rng.integers(3, text["vocab_size"], (2, 16))
+        ids[:, 9] = text["eos_token_id"]
+        vision = hf["vision_config"]
+        pixels = rng.normal(size=(2, vision["image_size"], vision["image_size"], vision["num_channels"]))
+        return torch.from_numpy(ids), torch.from_numpy(pixels.astype(np.float32))
+    return (torch.from_numpy(rng.integers(0, hf["vocab_size"], (2, 16))), )
+
+
+def serve_v1_dir(root: str, name: str, seed: int, smi: str, layers: int = V1_ZOO_LAYERS, device="cuda") -> dict:
+    """One v1 checkpoint at its published widths, cut to ``layers`` layers:
+    seeded weights in the published dtype under HF's names, written to a
+    directory, served by ``build_hf_engine``'s fp32 v1 route on ``device``
+    and on the CPU; outputs within V1_F32_TOL of the CPU's, and the causal
+    models' greedy streams equal but for float32 ties."""
+    published, dtype, fields = V1_ZOO[name]
+    hf = cut_layers(published, fields, layers)
+    policy = policy_for(hf["model_type"])
+    t0 = time.perf_counter()
+    model = seed_weights_(policy.build_model(policy.build_config(hf), device=device), seed, device)
+    probe = {"transformer.": None, "cls.predictions.decoder.weight": None, "cls.predictions.decoder.bias": None}
+    state = {policy.hf_name(k, probe): v.to(dtype) for k, v in model.state_dict().items()}
+    del model
+    path = os.path.join(root, name)
+    nbytes = write_checkpoint(path, hf, state, "safetensors")
+    del state
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = build_hf_engine(path, device=device)
+    t_load = time.perf_counter() - t0
+    ref = build_hf_engine(path, device="cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False            # CLIP's patch convolution
+    inputs = v1_inputs(hf["model_type"], hf, seed)
+    got, want = eng.forward(*inputs), ref.forward(*inputs)
+    got, want = (got, want) if isinstance(got, tuple) else ((got, ), (want, ))
+    errs = [float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    res = {"layers": layers, "dtype": str(dtype), "weight_bytes": nbytes, "write_s": t_write, "load_s": t_load,
+           "engine": type(eng).__name__, "max_err_of_max": max(errs), "card": smi}
+    ok = type(eng).__name__ == "InferenceEngine" and max(errs) <= V1_F32_TOL and all(
+        bool(torch.isfinite(g).all()) for g in got)
+    if hf["model_type"] not in ("bert", "clip"):
+        streams = [e.generate(inputs[0].numpy(), max_new_tokens=8)[:, 16:].tolist() for e in (eng, ref)]
+        res["stream_differences"] = f32_stream_differences(ref.module, inputs[0].tolist(), *streams)
+        res["streams_equal"] = streams[0] == streams[1]
+        ok = ok and all(d["tie"] for d in res["stream_differences"])
+    res["ok"] = ok
+    log(f"  {name} ({layers} layers, {dtype}): {nbytes / 1e9:.2f} GB written in {t_write:.2f} s, "
+        f"build_hf_engine {t_load:.2f} s: " + json.dumps(res))
+    del eng, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(path)
+    return res
+
+
+def phase_v1_zoo(smi: str, device="cuda") -> dict:
+    """The v1 families through ``build_hf_engine`` from directories
+    (``serve_v1_dir``): BLOOM-7b1, Pythia-6.9B, GPT-J-6B, GPT-Neo-2.7B,
+    BERT-large and CLIP-ViT-L/14, each cut to V1_ZOO_LAYERS layers
+    (``device="cpu"`` rehearses the phase against itself on the CPU)."""
+    root = tempfile.mkdtemp(prefix="v1_zoo_")
+    try:
+        out = {name: serve_v1_dir(root, name, 230 + i, smi, device=device) for i, name in enumerate(V1_ZOO)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = [name for name, r in out.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"v1 families off their CPU forward: {bad}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible; the port's smoke run needs one", file=sys.stderr)
@@ -4118,13 +4603,15 @@ def main() -> int:
     serving = phase_serving(cfg, state, env["card"])
     phase_profile(cfg, state)
     log("== phase 4: path parity")
-    phase_parity_bf16(cfg, state)
+    parity = phase_parity_bf16(cfg, state)
     log("== phase 12: the serving frontend on Llama-3-8B (open-loop mix, host KV tier, migration)")
     frontend = phase_serving_frontend(cfg, state, env["card"])
     log("== phase 13: the step set as CUDA graphs, and speculative decoding, on Llama-3-8B")
     graphs = phase_step_graphs(cfg, state, env["card"])
     log("== phase 14: the serving fleet on Llama-3-8B (3 replicas on one card, a kill and a recovery)")
     fleet = phase_fleet(cfg, state, env["card"])
+    log("== phase 22: weight-only int8 serving of Llama-3-8B (K4b's bf16 store a layer at a time)")
+    int8 = phase_int8_serving(cfg, state, env["card"], parity["plain_vs_f32"])
     del state
     gc.collect()            # the engines' cycles hold their weights and arenas
     torch.cuda.empty_cache()
@@ -4137,6 +4624,10 @@ def main() -> int:
     qwen_moe = phase_qwen_moe(env["card"])
     log(f"== phase 19: Mixtral-8x7B through build_hf_engine from a directory ({MIXTRAL_LAYERS} of 32 layers)")
     mixtral = phase_mixtral_dir(env["card"])
+    log("== phase 21: the v1 engine on GPT-NeoX at pythia-6.9b's config (K1 through kernel injection); GPT-2 training")
+    v1 = phase_v1_engine(env["card"])
+    log(f"== phase 23: the v1 families through build_hf_engine from directories ({V1_ZOO_LAYERS} layers of each)")
+    v1_zoo = phase_v1_zoo(env["card"])
     log("== phase 5: K1/K2a/K2b flash attention vs their plain versions")
     flash = phase_flash_kernels()
     log("== phase 6: training Llama-125M")
@@ -4162,7 +4653,7 @@ def main() -> int:
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
                 "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"]
                 + fleet["k3_launches"] + falcon["serving"]["k3_launches"] + zoo_launches
-                + qwen_moe["serving"]["k3_launches"] + mixtral["k3_launches"],
+                + qwen_moe["serving"]["k3_launches"] + mixtral["k3_launches"] + int8["serving"]["k3_launches"],
                 # a partition of "launches": phase 13's are the verify
                 # rounds of its spec serving run and the rest of the phase
                 "launches_by_path": {"serving_step": serving["k3_launches"],
@@ -4171,7 +4662,7 @@ def main() -> int:
                                      "verify": graphs["verify_k3_launches"], "fleet": fleet["k3_launches"],
                                      "falcon_7b": falcon["serving"]["k3_launches"], "zoo": zoo_launches,
                                      "qwen_moe": qwen_moe["serving"]["k3_launches"],
-                                     "mixtral": mixtral["k3_launches"]},
+                                     "mixtral": mixtral["k3_launches"], "int8_serving": int8["serving"]["k3_launches"]},
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if not n.endswith("_f32")), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],
@@ -4187,12 +4678,13 @@ def main() -> int:
                 "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}
     for name, where in replaces.items():
         row = flash["bench"][name]     # the training path's shapes
+        by_path = {"training": training["launches"][name], "training_features": features["launches"][name],
+                   "moe_training": moe_training["launches"][name],
+                   "gpt2_training": v1["gpt2_training"]["launches"][name]}
+        if name == "flash_fwd":
+            by_path["v1_engine"] = v1["k1_launches"]
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
-                        "replaces": where, "launches": training["launches"][name] + features["launches"][name]
-                        + moe_training["launches"][name],
-                        "launches_by_path": {"training": training["launches"][name],
-                                             "training_features": features["launches"][name],
-                                             "moe_training": moe_training["launches"][name]},
+                        "replaces": where, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
@@ -4209,13 +4701,19 @@ def main() -> int:
     for name in QUANT_NAMES:
         row = quant["rows"][name]     # the embedding's shape, the wire's largest tensor
         launches = dp["launches"] if "int8" in name else dp["int4_launches"]
+        total = launches[f"{name}_cuda"] + (int8["k4b_launches"] if name == "dequantize_int8" else 0)
         entry = {"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/quant.cu",
-                 "replaces": QUANT_REPLACES[name], "launches": launches[f"{name}_cuda"],
+                 "replaces": QUANT_REPLACES[name], "launches": total,
                  "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}
         if "int8" in name:   # the grouped launches of one qgZ step (phase 10's step table)
             entry.update(launches_per_step=launches[f"{name}_cuda"] / (DP_WARMUP + DP_TIMED),
                          step_ms=quant["step"]["step_ms"][name], step_bound_ms=quant["step"]["step_bound_ms"][name])
+        if name == "dequantize_int8":   # the int8 weights of phase 22: block 128, the bf16 store
+            k4b = int8["k4b_bf16"]["embed_tokens.weight"]
+            entry.update(launches_by_path={"data_parallel": launches[f"{name}_cuda"],
+                                           "int8_serving": int8["k4b_launches"]},
+                         block128_bf16={k: k4b[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")})
         if name == "quantize_int4":   # its launches by kernel, and its bf16 and misaligned-view times
             entry.update(routes=dp["int4_routes"], bf16_ms=row["bf16_ms"], bf16_plain_ms=row["bf16_plain_ms"],
                          bf16_bound_ms=row["bf16_bound_ms"], misaligned_ms=row["misaligned_ms"])

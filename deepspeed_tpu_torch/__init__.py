@@ -7,8 +7,9 @@ flax.  Every Pallas TPU kernel on a ported path becomes a hand-written
 Hopper kernel under ``csrc/``, built on first use (``ops/op_builder``).
 
 Importing this package loads nothing heavy: ``initialize`` imports the
-training runtime when called, and the serving path is imported from its
-module, e.g. ``from deepspeed_tpu_torch.inference.v2 import build_engine``.
+training runtime when called, ``init_inference`` the v1 inference engine,
+and the serving path is imported from its module, e.g.
+``from deepspeed_tpu_torch.inference.v2 import build_engine``.
 """
 
 import os
@@ -73,3 +74,11 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
         dataloader = DeepSpeedDataLoader(training_data, batch_size=micro_global, collate_fn=collate_fn)
     return engine, engine.optimizer, dataloader, engine.lr_scheduler
 
+
+
+def init_inference(model=None, config=None, **kwargs):
+    """Build the v1 inference engine (port of ``deepspeed_tpu.init_inference``;
+    ref: ``deepspeed/__init__.py:291``): ``InferenceEngine(model, config,
+    params=None, device="cuda", generator=None)``."""
+    from .inference.engine import InferenceEngine
+    return InferenceEngine(model=model, config=config or {}, **kwargs)

@@ -44,8 +44,11 @@ class CommsLogger:
     """Per-collective counters (ref: utils/comms_logging.py:67 CommsLogger):
     ``comms_dict[name][msg_size] = [count, total seconds]``."""
 
-    def __init__(self, verbose: bool = False):
+    def __init__(self, verbose: bool = False, debug: bool = False, prof_all: bool = True, prof_ops=None):
         self.verbose = verbose
+        self.debug = debug
+        self.prof_all = prof_all
+        self.prof_ops = list(prof_ops or [])
         self.comms_dict = {}
 
     def append(self, name, latency, msg_size):
@@ -57,12 +60,18 @@ class CommsLogger:
             logger.info(f"comm op: {name} | time (ms): {latency*1e3:.2f} | msg size: {msg_size}")
 
 
-def configure(enabled: bool = False, verbose: bool = False) -> None:
+def configure(deepspeed_config=None, enabled: Optional[bool] = None, prof_all: Optional[bool] = None, prof_ops=None,
+              verbose: Optional[bool] = None, debug: Optional[bool] = None) -> None:
     """Turn the comms logger on (ref: comm/comm.py:72 configure): a fresh
-    ``CommsLogger`` records every collective from here on."""
+    ``CommsLogger`` records every collective from here on, when ``enabled``
+    or the config's ``comms_logger`` block is; the keywords override the
+    block's fields (JAX ``comm.py:70``)."""
     global _COMMS_LOGGER
-    if enabled:
-        _COMMS_LOGGER = CommsLogger(verbose=verbose)
+    cfg = getattr(deepspeed_config, "comms_config", None)
+    if enabled or (cfg is not None and cfg.enabled):
+        pick = lambda value, field, default: value if value is not None else getattr(cfg, field, default)
+        _COMMS_LOGGER = CommsLogger(verbose=pick(verbose, "verbose", False), debug=pick(debug, "debug", False),
+                                    prof_all=pick(prof_all, "prof_all", True), prof_ops=pick(prof_ops, "prof_ops", []))
 
 
 def comms_logger() -> Optional[CommsLogger]:

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/quant_kernels.py:
 //   K4a q8_kernel_256 / q8_kernel_any   <- _q8_kernel  (:31, quantize_int8_pallas :74)
-//   K4b dq8_kernel_256 / dq8_kernel_any <- _dq8_kernel (:39, dequantize_int8_pallas :103)
+//   K4b dq8_kernel_halves / dq8_kernel_any <- _dq8_kernel (:39, dequantize_int8_pallas :103)
 //   K5a q4_kernel_256 / q4_kernel_any   <- _q4_kernel  (:44, quantize_int4_pallas :126)
 //   K5b dq4_kernel                      <- _dq4_kernel (:56, dequantize_int4_pallas :154)
 // They carry the ZeRO++ quantized gradient wire (qgZ): every gradient tensor
@@ -18,6 +18,9 @@
 //   int4: q[i] = (code[i] + 8) | (code[i + block/2] + 8) << 4
 //                                              -> uint8 [nblocks, block/2]
 //   dequant: out[i] = float(code[i]) * scale   -> f32   [nblocks, block]
+//            (K4b also stores bf16, the f32 product rounded once: the
+//            weight-only int8 serving of deepspeed_tpu_torch/inference/
+//            quantization.py, block 128, dq8_kernel_halves<128>)
 // The int4 packing is the halves layout of the JAX package
 // (deepspeed_tpu/ops/quantizer.py:48-53), not an interleave.
 //
@@ -67,7 +70,8 @@
 //     __shfl_xor_sync gives the block's absmax to every lane; each lane
 //     stores its 8 codes in one 8-byte (bf16) or two 4-byte (f32) stores.
 //     K4b reads codes 4l.. and 128+4l.. (two 4-byte loads) and writes their
-//     values with two 16-byte stores.  (Eight contiguous f32 a lane, 32 bytes
+//     values with two 16-byte stores (dq8_kernel_halves<256>; block 128, the
+//     weight-only serving layout, is its first half, dq8_kernel_halves<128>).  (Eight contiguous f32 a lane, 32 bytes
 //     apart from lane to lane, made each 16-byte instruction cover 1 KB at
 //     half density, and K4b ran slower than the scalar kernel it replaced.)
 //   * one row a warp: the 64 warps of an SM hold 16-64 KB of loads in flight,
@@ -223,6 +227,22 @@ __device__ __forceinline__ float through_bf16(float v, bool round) {
   return round ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// K4b's stores: float32, or bfloat16 rounded once (to nearest even) from the
+// float32 product.  store4 writes four contiguous values in one 16-byte
+// (f32) or 8-byte (bf16) store, at an address store4_ok has checked.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ bool store4_ok(const float* p) { return aligned16(p); }
+__device__ __forceinline__ bool store4_ok(const __nv_bfloat16* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; }
+__device__ __forceinline__ void store4(float* p, const float* f) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* f) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]), hi = __floats2bfloat162_rn(f[2], f[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                            *reinterpret_cast<const uint32_t*>(&hi));
+}
+
 __device__ __forceinline__ uint32_t pack4(const float (&v)[8], int k0, float scale) {
   uint32_t w = 0;
 #pragma unroll
@@ -292,45 +312,52 @@ __global__ void q8_kernel_any(const T* __restrict__ x, int8_t* __restrict__ q, f
 
 // ------------------------------------------------------------------ K4b
 
-// Grid as K4a's.  Lane l reads codes 4l.. and 128+4l.. (two 4-byte loads)
-// and writes their values with two 16-byte stores: each warp instruction
-// covers 512 contiguous bytes of output.
-__global__ void dq8_kernel_256(const int8_t* __restrict__ q, const float* __restrict__ scales,
-                               float* __restrict__ out, Layout L, bool round_bf16) {
+// Blocks of 256 (the qgZ wire) and 128 (the weight-only int8 layout of
+// inference/quantization.py).  Grid as K4a's, one warp a row, taken in
+// BLOCK/128 halves of 128 codes: lane l reads codes 128h+4l..128h+4l+3 of
+// half h (one 4-byte load, 128 contiguous bytes a warp instruction) and
+// writes their values with one 16-byte (f32) or 8-byte (bf16) store (512 or
+// 256 contiguous bytes a warp instruction).  At 256 this is K4a's layout.
+template <int BLOCK, typename OutT>
+__global__ void dq8_kernel_halves(const int8_t* __restrict__ q, const float* __restrict__ scales,
+                                  OutT* __restrict__ out, Layout L, bool round_bf16) {
+  static_assert(BLOCK == 128 || BLOCK == 256, "a whole number of 128-code halves, at most two");
+  constexpr int kHalves = BLOCK / 128;
   const int lane = threadIdx.x & 31;
   const long long d = blockIdx.y;
   const long long r = (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (r >= L.chunk) return;
   long long elem;
   int valid;
-  locate(L, d, r, 256, elem, valid);
+  locate(L, d, r, BLOCK, elem, valid);
   if (valid == 0) return;   // a row of padding: nothing to write
   const long long row = d * L.chunk + r;
-  const int8_t* qr = q + row * 256;
-  const uint32_t codes[2] = {__ldg(reinterpret_cast<const uint32_t*>(qr) + lane),
-                             __ldg(reinterpret_cast<const uint32_t*>(qr + 128) + lane)};
+  const int8_t* qr = q + row * BLOCK;
+  uint32_t codes[kHalves];  // every load issued before the first store
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h) codes[h] = __ldg(reinterpret_cast<const uint32_t*>(qr + 128 * h) + lane);
   const float s = __ldg(scales + row);
-  float f[8];
+  OutT* dst = out + elem;
+  const bool vector = store4_ok(dst) && valid == BLOCK;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = (int)(int8_t)((codes[i >> 2] >> (8 * (i & 3))) & 0xffu);
-    f[i] = through_bf16((float)c * s, round_bf16);
-  }
-  float* dst = out + elem;
-  if (aligned16(dst) && valid == 256) {
-    reinterpret_cast<float4*>(dst)[lane] = make_float4(f[0], f[1], f[2], f[3]);
-    reinterpret_cast<float4*>(dst + 128)[lane] = make_float4(f[4], f[5], f[6], f[7]);
-  } else {
+  for (int h = 0; h < kHalves; ++h) {
+    float f[4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int e = lane_elem<4>(lane, i);
-      if (e < valid) dst[e] = f[i];
+    for (int i = 0; i < 4; ++i) f[i] = through_bf16((float)(int)(int8_t)((codes[h] >> (8 * i)) & 0xffu) * s, round_bf16);
+    const int e0 = 128 * h + 4 * lane;
+    if (vector) {
+      store4(dst + e0, f);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (e0 + i < valid) store_out(dst + e0 + i, f[i]);
     }
   }
 }
 
+template <typename OutT>
 __global__ void dq8_kernel_any(const int8_t* __restrict__ q, const float* __restrict__ scales,
-                               float* __restrict__ out, Layout L, int block, bool round_bf16) {
+                               OutT* __restrict__ out, Layout L, int block, bool round_bf16) {
   const long long d = blockIdx.y;
   const long long r = (long long)blockIdx.x * kWarpsPerCta + (threadIdx.x >> 5);
   if (r >= L.chunk) return;
@@ -340,7 +367,7 @@ __global__ void dq8_kernel_any(const int8_t* __restrict__ q, const float* __rest
   const long long row = d * L.chunk + r;
   const float s = scales[row];
   const int8_t* qb = q + row * block;
-  for (int i = threadIdx.x & 31; i < valid; i += 32) out[elem + i] = through_bf16((float)qb[i] * s, round_bf16);
+  for (int i = threadIdx.x & 31; i < valid; i += 32) store_out(out + elem + i, through_bf16((float)qb[i] * s, round_bf16));
 }
 
 // ------------------------------------------------------------------ K5a, K5b
@@ -469,22 +496,45 @@ int ds_quant_q8(const void* x, int dtype, void* q, void* scales, const void* tab
   return (int)cudaGetLastError();
 }
 
-// round_bf16: write each value as bfloat16 would hold it (then widened).
+}  // extern "C"
+
+namespace {
+
+template <typename OutT>
+void launch_dq8(const int8_t* q, const float* scales, OutT* out, const Layout& L, long long rows, int block,
+                bool round_bf16, cudaStream_t s) {
+  const dim3 grid = grouped_grid(L.chunk, rows);
+  const int threads = kWarpsPerCta * 32;
+  // the 256 and 128 paths read the codes as 4-byte words: codes that start
+  // off a 4-byte boundary (a view at an odd storage offset) take the generic kernel
+  const bool words = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+  if (block == 256 && words)
+    dq8_kernel_halves<256, OutT><<<grid, threads, 0, s>>>(q, scales, out, L, round_bf16);
+  else if (block == 128 && words)
+    dq8_kernel_halves<128, OutT><<<grid, threads, 0, s>>>(q, scales, out, L, round_bf16);
+  else
+    dq8_kernel_any<OutT><<<grid, threads, 0, s>>>(q, scales, out, L, block, round_bf16);
+}
+
+}  // namespace
+
+extern "C" {
+
+// round_bf16: write each float32 value as bfloat16 would hold it (then
+// widened).  out_dtype: 0 = float32, 1 = bfloat16 (each product rounded once).
 int ds_quant_dq8(const void* q, const void* scales, void* out, const void* table, const void* row_seg,
-                 long long n0, long long chunk, long long rows, int block, int round_bf16, void* stream) {
-  if (!layout_ok(table, row_seg, n0, chunk, rows, block)) return (int)cudaErrorInvalidValue;
+                 long long n0, long long chunk, long long rows, int block, int round_bf16, int out_dtype,
+                 void* stream) {
+  if (!layout_ok(table, row_seg, n0, chunk, rows, block) || (out_dtype != 0 && out_dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const Layout L{static_cast<const long long*>(table), static_cast<const int*>(row_seg), n0, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* qi = static_cast<const int8_t*>(q);
   const float* si = static_cast<const float*>(scales);
-  float* o = static_cast<float*>(out);
-  const int threads = kWarpsPerCta * 32;
-  // the 256 path reads the codes as 4-byte words: codes that start off a
-  // 4-byte boundary (a view at an odd storage offset) take the generic kernel
-  if (block == 256 && (reinterpret_cast<uintptr_t>(q) & 3) == 0)
-    dq8_kernel_256<<<grouped_grid(chunk, rows), threads, 0, s>>>(qi, si, o, L, round_bf16 != 0);
+  if (out_dtype == 0)
+    launch_dq8(qi, si, static_cast<float*>(out), L, rows, block, round_bf16 != 0, s);
   else
-    dq8_kernel_any<<<grouped_grid(chunk, rows), threads, 0, s>>>(qi, si, o, L, block, round_bf16 != 0);
+    launch_dq8(qi, si, static_cast<__nv_bfloat16*>(out), L, rows, block, false, s);
   return (int)cudaGetLastError();
 }
 

@@ -31,8 +31,14 @@ Against the JAX engine:
   * speculative decoding (``spec/``): the n-gram drafter, one verify
     forward over max_draft + 1 positions, accept-longest-prefix and the
     ``truncate`` rollback, greedy-parity by construction;
-  * tensor-parallel serving and quantized weights come with later slices:
-    the constructor raises on a config that asks for them.
+  * weight-only int8 (``params`` a ``QuantizedParams``, JAX ``:232-266``):
+    the codes and scales stay resident and each forward dequantizes the
+    weights with K4b, the tensors outside the layers first and each layer's
+    just before it runs, into scratch buffers its parameters view
+    (``inference/quantization.LayerDequantizer``), so the step stays one
+    CUDA graph;
+  * tensor-parallel serving comes with a later slice: the constructor
+    raises on a config that asks for it.
 """
 
 import dataclasses
@@ -45,6 +51,7 @@ from ...models.cache_zoo import build_cache_model
 from ...models.llama_cache import PagedKVConfig, init_kv_cache
 from ...telemetry.step_anatomy import NULL_ANATOMY
 from ...utils.logging import logger
+from ..quantization import LayerDequantizer, QuantizedParams
 from .ragged import BlockedKVCache, RaggedBatch, StateManager
 from .scheduler import SchedulerConfig, SplitFuseScheduler, StepPlan
 from .spec import SpecConfig, SpecStats, make_drafter
@@ -105,7 +112,8 @@ class InferenceEngineV2:
     ``params`` is the model's state dict (tensors or numpy arrays, e.g. from
     ``models/convert.py`` or an HF policy); tensors already on ``device`` in
     ``param_dtype`` are used in place, not copied, so two engines built from
-    one state dict share their weights."""
+    one state dict share their weights.  A ``QuantizedParams``
+    (``inference/quantization.py``) serves its int8 weights."""
 
     def __init__(self, cfg, params: Mapping[str, object],
                  engine_config: Optional[RaggedInferenceEngineConfig] = None, device: DeviceLike = "cuda",
@@ -141,9 +149,17 @@ class InferenceEngineV2:
         # makes the rest (Falcon-RW's alibi slopes) once, so every step
         # graph reads the same tensor
         model = build_cache_model(cfg, kvcfg.page_size, device="meta")
-        state = {k: torch.as_tensor(v).to(device=self.device, dtype=cfg.param_dtype) for k, v in params.items()}
+        #: the per-layer dequantization of a weight-only int8 state, or None
+        self.dequantizer = LayerDequantizer(params, self.device) if isinstance(params, QuantizedParams) else None
+        if self.dequantizer is not None:
+            state = {k: v if k in params.shapes else v.to(dtype=cfg.param_dtype)
+                     for k, v in self.dequantizer.state().items()}
+        else:
+            state = {k: torch.as_tensor(v).to(device=self.device, dtype=cfg.param_dtype) for k, v in params.items()}
         model.load_state_dict(state, strict=True, assign=True)
         model.bind(self.device)
+        if self.dequantizer is not None:
+            self.dequantizer.attach(model.layers if hasattr(model, "layers") else model.h)
         self.model = model.eval().requires_grad_(False)
         self.kv = BlockedKVCache(kvcfg.num_pages, kvcfg.page_size, kvcfg.max_pages_per_seq,
                                  enable_prefix_cache=self.econfig.enable_prefix_cache)
@@ -248,12 +264,18 @@ class InferenceEngineV2:
         probs = torch.softmax(row_logits.float() / self.econfig.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self.generator)[:, 0].to(torch.int32)
 
+    def _hidden(self, tokens, start_pos, block_tables, chunk_lens) -> torch.Tensor:
+        """One forward of the layer stack (the int8 weights dequantized on the way)."""
+        self.forward_calls += 1
+        if self.dequantizer is not None:
+            self.dequantizer.before_step()
+        return self.model.hidden(tokens, start_pos, block_tables, self.cache, chunk_lens)
+
     @torch.no_grad()
     def _forward_last(self, tokens, start_pos, block_tables, chunk_lens) -> torch.Tensor:
         """One chunked forward; sample from the logits of each row's LAST
         real token (the LM head runs over those rows only)."""
-        self.forward_calls += 1
-        hidden = self.model.hidden(tokens, start_pos, block_tables, self.cache, chunk_lens)
+        hidden = self._hidden(tokens, start_pos, block_tables, chunk_lens)
         last = torch.clamp(chunk_lens.long() - 1, min=0)
         rows = hidden[torch.arange(hidden.shape[0], device=hidden.device), last]   # [B, E]
         return self._sample(self.model.logits(rows))
@@ -274,8 +296,7 @@ class InferenceEngineV2:
         """The speculative verify forward: one chunked forward, the LM head
         over EVERY position, and the argmax there (the model's own
         next-token choice after each fed prefix): [B, W] → [B, W] int32."""
-        self.forward_calls += 1
-        hidden = self.model.hidden(tokens, start_pos, block_tables, self.cache, chunk_lens)
+        hidden = self._hidden(tokens, start_pos, block_tables, chunk_lens)
         return torch.argmax(self.model.logits(hidden), dim=-1).to(torch.int32)
 
     # ------------------------------------------------------- step programs

@@ -39,6 +39,18 @@ a router's kernel ``[hidden, E]`` becomes its ``gate.weight`` ``[E,
 hidden]``.  The training and the serving twins of a family share their
 names, so one function serves both.
 
+The v1-only families go across by the same rules: ``jax_gpt2_to_state_dict``
+(stack ``h``), ``jax_gpt_family_to_state_dict`` (BLOOM, GPT-J and GPT-Neo
+stack ``h``, GPT-NeoX ``layers``), ``jax_bert_to_state_dict`` (the stack
+``encoder`` under ``bert``, for BERT and DistilBERT) and
+``jax_clip_to_state_dict`` (each tower's unrolled ``layers_{i}``).  Their
+fused projections (``query_key_value`` ``[E, H, 3, D]``, GPT-2's ``c_attn``
+``[E, 3, H, D]``) flatten their output axes in order; GPT-2's attention
+``c_proj`` and BERT's attention ``output`` are output projections; the raw
+parameters (``position_embedding``, ``class_embedding``, ``logit_scale``)
+keep their names, and CLIP's patch kernel ``[ph, pw, C, E]`` becomes the
+``Conv2d`` weight ``[E, C, ph, pw]``.
+
 ``jax_train_state_to_engine`` carries a whole JAX training state across: a
 ``deepspeed_tpu`` engine's ``TrainState`` as numpy (``jax.tree.map(np.asarray,
 engine.state)``) goes into a port engine built over the same model config —
@@ -69,23 +81,27 @@ def _slice_tree(tree, i: int):
     return _as_np(tree)[i]
 
 
-#: the 3-d kernels laid out [H, D, E] (attention output projections)
-_OUT_PROJECTIONS = ("o_proj", "dense", "out_proj")
-#: the MoE expert banks, parameters of their module kept in the JAX layout
-_EXPERT_BANKS = ("w_gate", "w_up", "w_down")
+#: the kernels of more than two axes laid out [H, D, E] (attention output
+#: projections; GPT-2's MLP ``c_proj`` and BERT's layer ``output`` are 2-d)
+_OUT_PROJECTIONS = ("o_proj", "dense", "out_proj", "c_proj", "output")
+#: parameters of their module kept in the JAX layout: the MoE expert banks,
+#: CLIP's raw position and class embeddings and its logit scale
+_RAW_LEAVES = ("w_gate", "w_up", "w_down", "position_embedding", "class_embedding", "logit_scale")
 
 
 def _leaf_state(name: str, leaf: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
     """One flax leaf of module ``name`` → its state-dict suffix and array."""
     if leaf == "kernel":
-        if x.ndim == 3:
+        if x.ndim == 4 and name == "patch_embedding":   # flax Conv [ph, pw, C, E] → Conv2d [E, C, ph, pw]
+            return "weight", x.transpose(3, 2, 0, 1)
+        if x.ndim > 2:
             x = x.reshape(-1, x.shape[-1]) if name in _OUT_PROJECTIONS else x.reshape(x.shape[0], -1)
         return "weight", x.T
     if leaf == "bias":
         return "bias", x.reshape(-1)
     if leaf in ("embedding", "scale", "weight"):
         return "weight", x
-    if leaf in _EXPERT_BANKS:
+    if leaf in _RAW_LEAVES:
         return leaf, x
     raise KeyError(f"unknown flax leaf {name}/{leaf}")
 
@@ -101,20 +117,34 @@ def _flax_to_state(tree: Mapping, prefix: str, out: Dict[str, np.ndarray], modul
             out[prefix + suffix] = arr
 
 
-def _zoo_state(params: Mapping, stack: str, num_layers: int) -> Dict[str, torch.Tensor]:
-    """A JAX cache twin's params (scanned ``stack`` or unrolled
-    ``{stack}_{i}``) as the port's state dict."""
-    p = dict(params["params"] if "params" in params else params)
+def _tree_state(tree: Mapping, stack: str, num_layers: int, prefix: str, state: Dict[str, np.ndarray]) -> None:
+    """The leaves of ``tree`` (a layer stack ``stack`` scanned, or unrolled
+    as ``{stack}_{i}``) into ``state`` under ``prefix``."""
+    p = dict(tree)
     if stack in p:
         scanned = p.pop(stack)
         layers = [_slice_tree(scanned, i) for i in range(num_layers)]
     else:
         layers = [p.pop(f"{stack}_{i}") for i in range(num_layers)]
-    state: Dict[str, np.ndarray] = {}
-    _flax_to_state(p, "", state)
+    _flax_to_state(p, prefix, state)
     for i, layer in enumerate(layers):
-        _flax_to_state(layer, f"{stack}.{i}.", state)
+        _flax_to_state(layer, f"{prefix}{stack}.{i}.", state)
+
+
+def _torch_state(state: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in state.items()}
+
+
+def _unwrap(params: Mapping) -> Dict[str, Any]:
+    return dict(params["params"] if "params" in params else params)
+
+
+def _zoo_state(params: Mapping, stack: str, num_layers: int) -> Dict[str, torch.Tensor]:
+    """A JAX model's params (scanned ``stack`` or unrolled ``{stack}_{i}``)
+    as the port's state dict."""
+    state: Dict[str, np.ndarray] = {}
+    _tree_state(_unwrap(params), stack, num_layers, "", state)
+    return _torch_state(state)
 
 
 def jax_llama_to_state_dict(params: Mapping, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
@@ -150,6 +180,42 @@ def jax_qwen2_moe_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]
     dict of ``qwen2_moe.Qwen2MoeForCausalLM`` and
     ``cache_zoo.Qwen2MoeForCausalLMWithCache``."""
     return _zoo_state(params, "layers", cfg.num_hidden_layers)
+
+
+def jax_gpt2_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``GPT2LMHeadModel`` params → ``gpt2.GPT2LMHeadModel``'s state dict."""
+    return _zoo_state(params, "h", cfg.num_hidden_layers)
+
+
+def jax_gpt_family_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX BLOOM, GPT-NeoX, GPT-J or GPT-Neo params → the state dict of the
+    matching ``gpt_family`` model (GPT-NeoX stacks ``layers``, the others ``h``)."""
+    from .gpt_family import GPTNeoXConfig
+    return _zoo_state(params, "layers" if isinstance(cfg, GPTNeoXConfig) else "h", cfg.num_hidden_layers)
+
+
+def jax_bert_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``BertForMaskedLM`` / ``BertForSequenceClassification`` (or a bare
+    ``BertModel``'s) params → the port's state dict."""
+    p = _unwrap(params)
+    state: Dict[str, np.ndarray] = {}
+    if "bert" in p:
+        _tree_state(p.pop("bert"), "encoder", cfg.num_hidden_layers, "bert.", state)
+        _flax_to_state(p, "", state)
+    else:
+        _tree_state(p, "encoder", cfg.num_hidden_layers, "", state)
+    return _torch_state(state)
+
+
+def jax_clip_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """JAX ``ClipModel`` params → ``clip.ClipModel``'s state dict (``cfg`` a
+    ``ClipConfig``)."""
+    p = _unwrap(params)
+    state: Dict[str, np.ndarray] = {}
+    for tower, tcfg in (("text_model", cfg.text), ("vision_model", cfg.vision)):
+        _tree_state(p.pop(tower), "layers", tcfg.num_hidden_layers, tower + ".", state)
+    _flax_to_state(p, "", state)
+    return _torch_state(state)
 
 
 def _fields(x: Any) -> Dict[str, Any]:

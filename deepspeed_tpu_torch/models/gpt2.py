@@ -1,0 +1,138 @@
+"""GPT-2 causal LM (port of ``deepspeed_tpu/models/gpt2.py``).
+
+Learned absolute positions, pre-LN blocks with biases, a tanh-GELU MLP (4×)
+and a tied LM head.  Attention follows ``cfg.attention_impl`` through
+``get_attention_impl`` (``"flash"``: K1/K2a/K2b on a GPU at head dim 64).
+``cfg.remat`` wraps each block in ``torch.utils.checkpoint`` under
+``cfg.remat_policy``, as the Llama model does (``llama.remat_context_fn``).
+Parameter names mirror the JAX tree with the layers unrolled (``h.{i}.attn.
+c_attn``, ``h.{i}.mlp.c_fc``, ...) and torch's ``[out, in]`` weights.
+"""
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..accelerator import DeviceLike, resolve_device
+from .cache_zoo import LayerNorm
+from .llama import _linear, causal_lm_loss, dense, get_attention_impl, hf_value, remat_context_fn
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    layer_norm_epsilon: float = 1e-5
+    tie_word_embeddings: bool = True
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    attention_impl: str = "reference"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def from_hf(hf_cfg, **overrides) -> "GPT2Config":
+        fields = dict(vocab_size=hf_value(hf_cfg, "vocab_size"), n_positions=hf_value(hf_cfg, "n_positions", 1024),
+                      hidden_size=hf_value(hf_cfg, "n_embd", None) or hf_value(hf_cfg, "hidden_size", 768),
+                      num_hidden_layers=hf_value(hf_cfg, "n_layer", None) or hf_value(hf_cfg, "num_hidden_layers", 12),
+                      num_attention_heads=hf_value(hf_cfg, "n_head", None) or hf_value(hf_cfg, "num_attention_heads",
+                                                                                          12),
+                      layer_norm_epsilon=hf_value(hf_cfg, "layer_norm_epsilon", 1e-5))
+        fields.update(overrides)
+        return GPT2Config(**fields)
+
+
+PRESETS = {
+    "gpt2-125m": GPT2Config(),
+    "gpt2-medium": GPT2Config(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16),
+    "gpt2-large": GPT2Config(hidden_size=1280, num_hidden_layers=36, num_attention_heads=20),
+    "gpt2-xl": GPT2Config(hidden_size=1600, num_hidden_layers=48, num_attention_heads=25),
+    "tiny": GPT2Config(vocab_size=128, n_positions=64, hidden_size=64, num_hidden_layers=2, num_attention_heads=4),
+}
+
+
+class GPT2Attention(nn.Module):
+
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.hidden_size
+        self.c_attn = _linear(cfg, e, 3 * e, True, device)
+        self.c_proj = _linear(cfg, e, e, True, device)
+
+    def forward(self, x, segment_ids=None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = dense(x, self.c_attn, cfg.dtype).view(b, s, 3, cfg.num_attention_heads, cfg.head_dim).unbind(dim=2)
+        out = get_attention_impl(cfg.attention_impl)(q, k, v, causal=True, segment_ids=segment_ids)
+        return dense(out.reshape(b, s, -1), self.c_proj, cfg.dtype)
+
+
+class GPT2MLP(nn.Module):
+
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.c_fc = _linear(cfg, cfg.hidden_size, 4 * cfg.hidden_size, True, device)
+        self.c_proj = _linear(cfg, 4 * cfg.hidden_size, cfg.hidden_size, True, device)
+
+    def forward(self, x):
+        dt = self.cfg.dtype
+        return dense(F.gelu(dense(x, self.c_fc, dt), approximate="tanh"), self.c_proj, dt)
+
+
+class GPT2Block(nn.Module):
+
+    def __init__(self, cfg: GPT2Config, device=None):
+        super().__init__()
+        ln = lambda: LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, device)
+        self.ln_1, self.attn, self.ln_2, self.mlp = ln(), GPT2Attention(cfg, device), ln(), GPT2MLP(cfg, device)
+
+    def forward(self, x, segment_ids=None):
+        h = x + self.attn(self.ln_1(x), segment_ids)
+        return h + self.mlp(self.ln_2(h))
+
+
+class GPT2LMHeadModel(nn.Module):
+    """GPT-2 (``transformers.GPT2LMHeadModel``'s surface): ``input_ids``
+    [B, S] → logits [B, S, V] in the compute dtype."""
+
+    def __init__(self, cfg: GPT2Config, device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        emb = lambda n: nn.utils.skip_init(nn.Embedding, n, cfg.hidden_size, device=dev, dtype=cfg.param_dtype)
+        self.wte, self.wpe = emb(cfg.vocab_size), emb(cfg.n_positions)
+        self.h = nn.ModuleList([GPT2Block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, dev)
+        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, cfg.hidden_size, cfg.vocab_size, False, dev)
+
+    def forward(self, input_ids: torch.Tensor, positions=None, segment_ids=None) -> torch.Tensor:
+        cfg = self.cfg
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
+        x = F.embedding(input_ids.long(), self.wte.weight).to(cfg.dtype) + \
+            F.embedding(positions.long(), self.wpe.weight).to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+            context_fn = remat_context_fn(cfg.remat_policy)
+            kw = {} if context_fn is None else {"context_fn": context_fn}
+        for block in self.h:
+            x = checkpoint(block, x, segment_ids, use_reentrant=False, **kw) if remat else block(x, segment_ids)
+        x = self.ln_f(x)
+        if self.lm_head is None:
+            return x.to(cfg.dtype) @ self.wte.weight.to(cfg.dtype).T
+        return dense(x, self.lm_head, cfg.dtype)
+
+
+gpt2_lm_loss = causal_lm_loss

@@ -1,0 +1,7 @@
+"""Module injection (port of ``deepspeed_tpu/module_inject``): an HF model
+or checkpoint directory → the port's model and weights.  The tensor-parallel
+rules (``tp_rules``) come with tensor parallelism (ROADMAP Queue 1 item 6)."""
+
+from .replace_module import replace_module, replace_transformer_layer
+
+__all__ = ["replace_module", "replace_transformer_layer"]

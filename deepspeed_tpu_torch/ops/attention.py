@@ -35,16 +35,20 @@ def _mask_scores(s: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor, causal
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True, *,
-                        segment_ids: Optional[torch.Tensor] = None, sliding_window: int = 0) -> torch.Tensor:
+                        segment_ids: Optional[torch.Tensor] = None, sliding_window: int = 0,
+                        attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain softmax attention, q [B, Sq, H, D], k/v [B, Sk, KV, D], GQA by
     repeating each kv head over its query group; float32 logits, probs cast
     to v's dtype before the PV product.  ``sliding_window > 0`` restricts
     each query to the last W keys; ``segment_ids`` [B, S] masks across
-    packed sequences."""
+    packed sequences; ``attn_bias`` (broadcastable to [B, H, Sq, Sk], e.g.
+    BLOOM's alibi) is added to the scaled scores in float32."""
     _, sq, nh, hd = q.shape
     sk = k.shape[1]
     k, v = _repeat_kv(k, v, nh)
     logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
+    if attn_bias is not None:
+        logits = logits + attn_bias.float()
     logits = _mask_scores(logits, torch.arange(sq, device=q.device), torch.arange(sk, device=q.device), causal,
                           sliding_window, segment_ids, segment_ids)
     probs = torch.softmax(logits, dim=-1)

@@ -107,7 +107,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_kernel("quant")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_quant_q8.argtypes = [p, i, p, p, p, p, ll, ll, ll, i, p]
-    lib.ds_quant_dq8.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, p]
+    lib.ds_quant_dq8.argtypes = [p, p, p, p, p, ll, ll, ll, i, i, i, p]
     lib.ds_quant_q4.argtypes = [p, i, p, p, ll, i, ctypes.POINTER(i), p]
     lib.ds_quant_dq4.argtypes = [p, p, p, ll, i, p]
     for fn in (lib.ds_quant_q8, lib.ds_quant_dq8, lib.ds_quant_q4, lib.ds_quant_dq4):
@@ -145,8 +145,10 @@ def _check_input(name: str, x: torch.Tensor, block: int, int4: bool, table: Opti
 
 
 def _check_codes(name: str, q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int], code_dtype,
-                 per_byte: int, table: Optional[SegmentTable] = None) -> Tuple[int, int]:
-    """Raise on what the dequantize kernels do not take; return (rows, block)."""
+                 per_byte: int, table: Optional[SegmentTable] = None, cut: bool = False) -> Tuple[int, int]:
+    """Raise on what the dequantize kernels do not take; return (rows, block).
+    With ``cut``, ``shape`` may hold fewer values than the codes, down to
+    one more than all rows but the last (the last row's padding is not written)."""
     if q.dtype != code_dtype or scale.dtype != torch.float32:
         raise ValueError(f"{name} takes {code_dtype} codes and float32 scales, got {q.dtype} and {scale.dtype}")
     if q.dim() != 2 or scale.shape != (q.shape[0], ) or q.numel() == 0:
@@ -158,7 +160,7 @@ def _check_codes(name: str, q: torch.Tensor, scale: torch.Tensor, shape: Sequenc
     if table is not None and (nblocks, block) != (table.rows, table.block):
         raise ValueError(f"{name}: codes {tuple(q.shape)} are not the table's [{table.rows}, {table.block}]")
     values = table.total if table is not None else nblocks * block
-    if math.prod(shape) != values:
+    if math.prod(shape) != values and not (cut and table is None and values - block < math.prod(shape) < values):
         raise ValueError(f"{name}: shape {tuple(shape)} does not hold {values} values")
     if not (q.is_cuda and scale.is_cuda and q.device == scale.device):
         raise ValueError(f"{name} needs codes and scales on one CUDA device, got {q.device} and {scale.device}")
@@ -195,20 +197,35 @@ def quantize_int8_cuda(x: torch.Tensor, block: int = 256,
     return q, s
 
 
+def _check_out(name: str, out: Optional[torch.Tensor], n: int, device) -> None:
+    if out is None:
+        return
+    if out.dtype not in _DTYPE_CODES or out.numel() != n or not out.is_contiguous() or out.device != device:
+        raise ValueError(f"{name}: out must be a contiguous float32 or bfloat16 tensor of {n} values on {device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on {out.device}")
+
+
 def dequantize_int8_cuda(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int],
-                         table: Optional[SegmentTable] = None, through: Optional[torch.dtype] = None) -> torch.Tensor:
+                         table: Optional[SegmentTable] = None, through: Optional[torch.dtype] = None,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K4b: ``q · scale`` in float32, reshaped to ``shape``.  With a
     table, the rank-major rows go back to the tensors' order, each cut to its
     size (``shape`` holds ``table.total`` values).  ``through=torch.bfloat16``
-    writes each value as ``.to(torch.bfloat16).float()`` gives it."""
-    nb, block = _check_codes("dequantize_int8_cuda", q, scale, shape, torch.int8, 1, table)
+    writes each value as ``.to(torch.bfloat16).float()`` gives it.  ``out``
+    (float32 or bfloat16, ``prod(shape)`` values) receives the result in
+    place, and then ``shape`` may drop the last code row's padding; a
+    bfloat16 ``out`` holds each product rounded once, as ``.to(torch.bfloat16)``."""
+    nb, block = _check_codes("dequantize_int8_cuda", q, scale, shape, torch.int8, 1, table, cut=out is not None)
     round_bf16 = _round_bf16(through)
-    out = torch.empty((table.total if table is not None else nb * block, ), dtype=torch.float32, device=q.device)
+    n = math.prod(shape)
+    _check_out("dequantize_int8_cuda", out, n, q.device)
+    if out is None:
+        out = torch.empty((n, ), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _launch("dequantize_int8_cuda", _lib().ds_quant_dq8, q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                *_layout(table, q.device, nb, nb * block), block, round_bf16)
+                *_layout(table, q.device, nb, n), block, round_bf16, _DTYPE_CODES[out.dtype])
     dequantize_int8_cuda.launches += 1
-    return out.reshape(shape)
+    return out.view(shape)
 
 
 def quantize_int4_cuda(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -265,15 +282,21 @@ def quantize_int8(x: torch.Tensor, block: int = 256,
 
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int],
-                    table: Optional[SegmentTable] = None, through: Optional[torch.dtype] = None) -> torch.Tensor:
+                    table: Optional[SegmentTable] = None, through: Optional[torch.dtype] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4b on CUDA tensors; on CPU tensors ``quantizer.dequantize_int8``, or
-    with a table ``quantizer.dequantize_int8_grouped``."""
+    with a table ``quantizer.dequantize_int8_grouped``, copied into ``out``
+    when one is given (a bfloat16 ``out`` rounds each product once)."""
     if _device_kind(q) == "cuda":
-        return dequantize_int8_cuda(q, scale, shape, table, through)
+        return dequantize_int8_cuda(q, scale, shape, table, through, out)
     _round_bf16(through)
+    if out is not None:
+        _check_out("dequantize_int8", out, math.prod(shape), q.device)
     if table is None:
-        return quantizer.dequantize_int8(q, scale, shape, through)
-    return quantizer.dequantize_int8_grouped(q, scale, table, through).reshape(shape)
+        values = quantizer.dequantize_int8(q, scale, shape, through)
+    else:
+        values = quantizer.dequantize_int8_grouped(q, scale, table, through).reshape(shape)
+    return values if out is None else out.view(shape).copy_(values)
 
 
 def quantize_int4(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -31,6 +31,7 @@ its high nibble, each stored as ``code + 8`` (1..15).
 ``pack_signs`` / ``unpack_signs`` (1-bit) wait for the 1-bit optimizers.
 """
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -60,9 +61,13 @@ def quantize_int8(x: torch.Tensor, block: int = 256) -> Tuple[torch.Tensor, torc
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor, shape: Sequence[int],
                     through: Optional[torch.dtype] = None) -> torch.Tensor:
-    """What K4b computes: ``q · scale`` in float32, reshaped to ``shape``;
-    with ``through``, each value as that dtype holds it (widened back)."""
-    out = (q.float() * scale[:, None]).reshape(shape)
+    """What K4b computes: ``q · scale`` in float32, cut to ``shape``'s size
+    (the last row's padding dropped) and reshaped to it; with ``through``,
+    each value as that dtype holds it (widened back)."""
+    out = (q.float() * scale[:, None]).reshape(-1)
+    if -1 not in shape:
+        out = out[:math.prod(shape)]
+    out = out.reshape(shape)
     return out if through in (None, torch.float32) else out.to(through).float()
 
 

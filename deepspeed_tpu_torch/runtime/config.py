@@ -13,8 +13,10 @@ process group), ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
 ``progressive_layer_drop``, ``checkpoint`` and ``nebula`` (the checkpoint
 engine and retention), ``moe`` (``expert_parallel_size`` 1: the experts on
-one device), and the monitor blocks ``tensorboard``, ``wandb``,
-``csv_monitor`` and ``comet``.
+one device), the monitor blocks ``tensorboard``, ``wandb``,
+``csv_monitor`` and ``comet``, ``activation_checkpointing`` (onto the
+model's ``remat_policy``, ``runtime/activation_checkpointing``),
+``flops_profiler`` (``profiling/``) and ``comms_logger`` (``comm.configure``).
 Any other key with a non-default value raises
 ``NotImplementedError`` naming the ROADMAP item that brings it, and so does
 a ZeRO stage above 0 over more than one data-parallel rank (partitioning is
@@ -29,8 +31,9 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from ..comm.mesh import ROADMAP_MULTI_DEVICE, dp_world_size
-from .constants import (BFLOAT16, BFLOAT16_OLD, CHECKPOINT, CHECKPOINT_TAG_VALIDATION_MODES, COMET,
-                        COMPRESSION_TRAINING, CSV_MONITOR, FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING,
+from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKPOINT, CHECKPOINT_TAG_VALIDATION_MODES,
+                        COMET, COMMS_LOGGER, COMPRESSION_TRAINING, CSV_MONITOR, DATA_EFFICIENCY, EIGENVALUE, ELASTICITY,
+                        FLOPS_PROFILER, FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING, HYBRID_ENGINE,
                         GRADIENT_CLIPPING_DEFAULT, GRADIENT_PREDIVIDE_FACTOR, GRADIENT_PREDIVIDE_FACTOR_DEFAULT, MOE,
                         NEBULA, OPTIMIZER, PIPELINE, PROGRESSIVE_LAYER_DROP, SCHEDULER, SEQUENCE_PARALLEL_SIZE,
                         SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL, TENSORBOARD,
@@ -43,6 +46,9 @@ ROADMAP_UNIVERSAL = "ROADMAP Queue 1 item 8, universal checkpoints"
 #: the training features still unported: compression and the 1-bit family
 ROADMAP_TRAINING_FEATURES = ("ROADMAP Queue 1 item 7, compressed comm (compression training, the 1-bit "
                              "optimizers)")
+ROADMAP_HYBRID_ENGINE = "ROADMAP Queue 1 item 5.4, the hybrid engine (it comes with item 7's linear/)"
+ROADMAP_EIGENVALUE = "ROADMAP Queue 1 item 7, MoQ and the eigenvalue"
+ROADMAP_AUXILIARIES = "ROADMAP Queue 1 item 8, offload and auxiliaries"
 
 #: top-level keys the port does not implement → the ROADMAP item that brings them
 UNPORTED_KEYS = {
@@ -50,11 +56,16 @@ UNPORTED_KEYS = {
     TENSOR_PARALLEL: ROADMAP_MULTI_DEVICE,
     SEQUENCE_PARALLEL_SIZE: ROADMAP_MULTI_DEVICE,
     COMPRESSION_TRAINING: ROADMAP_TRAINING_FEATURES,
+    HYBRID_ENGINE: ROADMAP_HYBRID_ENGINE,
+    EIGENVALUE: ROADMAP_EIGENVALUE,
+    ELASTICITY: ROADMAP_AUXILIARIES,
+    DATA_EFFICIENCY: ROADMAP_AUXILIARIES,
 }
 _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_ACCUMULATION_STEPS, OPTIMIZER,
                      SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, ZERO_OPTIMIZATION, GRADIENT_CLIPPING,
                      GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION,
-                     PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET, MOE}
+                     PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET, MOE,
+                     ACTIVATION_CHECKPOINTING, FLOPS_PROFILER, COMMS_LOGGER}
 #: the JAX package's ZeRO knobs besides ``stage`` and the quantized gradient
 #: wire, with their defaults: the port's step has nothing to bucket, overlap
 #: or partition
@@ -162,6 +173,48 @@ class MoEConfig:
             if f.name not in ("enabled", "expert_parallel_size") and value != f.default:
                 raise NotImplementedError(f"moe.{f.name}={value!r} is not read by the engine: the MoE layer takes "
                                           "it as an argument (deepspeed_tpu_torch.moe.MoE, or the model's config)")
+
+
+@dataclasses.dataclass
+class ActivationCheckpointingConfig:
+    """``activation_checkpointing`` (JAX ``config.py:188``): the policy knobs
+    that ``runtime/activation_checkpointing.policy_from_config`` maps onto
+    the model's ``remat_policy``.  ``partition_activations`` over more than
+    one rank and ``cpu_checkpointing`` raise (tensor-parallel activation
+    shards and host offload are not ported)."""
+    partition_activations: bool = False
+    contiguous_memory_optimization: bool = False
+    cpu_checkpointing: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+    def __post_init__(self):
+        if self.cpu_checkpointing:
+            raise NotImplementedError(f"activation_checkpointing.cpu_checkpointing: host offload of activations is "
+                                      f"not ported ({ROADMAP_AUXILIARIES})")
+
+
+@dataclasses.dataclass
+class FlopsProfilerConfig:
+    """``flops_profiler`` (JAX ``config.py:201``; ref: profiling/config.py)."""
+    enabled: bool = False
+    recompute_fwd_factor: float = 0.0
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+@dataclasses.dataclass
+class CommsLoggerConfig:
+    """``comms_logger`` (JAX ``config.py:212``; ref: comm/config.py)."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: list = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -298,6 +351,13 @@ class DeepSpeedConfig:
         self.pld_config = _block(PLDConfig, PROGRESSIVE_LAYER_DROP, pd.get(PROGRESSIVE_LAYER_DROP))
         self.checkpoint_config = _block(CheckpointConfig, CHECKPOINT, pd.get(CHECKPOINT))
         self.moe = _block(MoEConfig, MOE, pd.get(MOE))
+        self.activation_checkpointing_config = _block(ActivationCheckpointingConfig, ACTIVATION_CHECKPOINTING,
+                                                      pd.get(ACTIVATION_CHECKPOINTING))
+        if self.activation_checkpointing_config.partition_activations and self.dp_world_size > 1:
+            raise NotImplementedError(f"activation_checkpointing.partition_activations over {self.dp_world_size} "
+                                      f"ranks: activation shards need tensor parallelism ({ROADMAP_MULTI_DEVICE})")
+        self.flops_profiler_config = _block(FlopsProfilerConfig, FLOPS_PROFILER, pd.get(FLOPS_PROFILER))
+        self.comms_config = _block(CommsLoggerConfig, COMMS_LOGGER, pd.get(COMMS_LOGGER))
         self.monitor_config = MonitorConfig(tensorboard=_block(TensorBoardConfig, TENSORBOARD, pd.get(TENSORBOARD)),
                                             wandb=_block(WandbConfig, WANDB, pd.get(WANDB)),
                                             csv_monitor=_block(CSVConfig, CSV_MONITOR, pd.get(CSV_MONITOR)),

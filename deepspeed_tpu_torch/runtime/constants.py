@@ -52,3 +52,11 @@ TENSORBOARD = "tensorboard"
 WANDB = "wandb"
 CSV_MONITOR = "csv_monitor"
 COMET = "comet"
+
+ACTIVATION_CHECKPOINTING = "activation_checkpointing"
+FLOPS_PROFILER = "flops_profiler"
+COMMS_LOGGER = "comms_logger"
+HYBRID_ENGINE = "hybrid_engine"
+EIGENVALUE = "eigenvalue"
+ELASTICITY = "elasticity"
+DATA_EFFICIENCY = "data_efficiency"

@@ -81,12 +81,16 @@ Also ported: the optimizers of the JAX engine's ``OPTIMIZER_FACTORIES``
 (Adam/AdamW, LAMB, Lion, Adagrad, SGD; the 1-bit family raises),
 progressive layer drop (the mask of the step that starts with ``n`` steps
 taken is drawn from ``n`` alone, ``runtime/progressive_layer_drop.py``), the
-synchronized timers of ``wall_clock_breakdown``, the monitor, ``eval_batch``
-and the crash-safe ``save_checkpoint``/``load_checkpoint``
-(``checkpoint/engine.py``).
+synchronized timers of ``wall_clock_breakdown``, the monitor, ``eval_batch``,
+the crash-safe ``save_checkpoint``/``load_checkpoint``
+(``checkpoint/engine.py``), the flops profiler (``flops_profiler``: the step
+at ``profile_step`` counted, printed and published through
+``set_telemetry``'s registry), ``activation_checkpointing`` (the model's
+remat policy) and ``comms_logger``.
 """
 
 import contextlib
+import dataclasses
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -111,8 +115,9 @@ from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLO
                            NoopTimer, SynchronizedWallClockTimer, ThroughputTimer)
 from .comm.compressed import GroupedQuantAllreduce
 from .config import ROADMAP_OFFLOAD, ROADMAP_TRAINING_FEATURES, DeepSpeedConfig
-from .constants import (ADAGRAD_OPTIMIZER, ADAM_OPTIMIZER, ADAMW_OPTIMIZER, CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER,
-                        FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER, LION_OPTIMIZER, ONEBIT_OPTIMIZERS, SGD_OPTIMIZER)
+from .constants import (ACTIVATION_CHECKPOINTING, ADAGRAD_OPTIMIZER, ADAM_OPTIMIZER, ADAMW_OPTIMIZER,
+                        CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER, FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER,
+                        LION_OPTIMIZER, ONEBIT_OPTIMIZERS, SGD_OPTIMIZER)
 from .fp16.loss_scaler import StaticLossScaler, create_loss_scaler, found_inf_or_nan
 from .lr_schedules import LRSchedulerShim, get_lr_schedule
 from .progressive_layer_drop import ProgressiveLayerDrop, pld_scale_for_step
@@ -226,6 +231,10 @@ class DeepSpeedEngine:
             raise ValueError(f"the config was resolved for {config.dp_world_size} data-parallel ranks, the process "
                              f"group has {self.dp_world}: create the process group first")
 
+        # ---- the comms logger and activation checkpointing (config blocks)
+        comm.configure(deepspeed_config=config)
+        self._configure_activation_checkpointing(model)
+
         # ---- state: compute-dtype params + f32 master (JAX TrainState)
         self.module = model.to(self.device)
         if params is not None:
@@ -269,6 +278,12 @@ class DeepSpeedEngine:
         self.tput_timer = ThroughputTimer(batch_size=config.train_batch_size,
                                           steps_per_output=config.steps_per_print, device=self.device)
         self.monitor = self._build_monitor()
+        # ---- flops profiler (JAX engine.py:169-173)
+        self.flops_profiler = None
+        if config.flops_profiler_config.enabled:
+            from ..profiling.flops_profiler import FlopsProfiler
+            self.flops_profiler = FlopsProfiler(model=self.module, ds_engine=self,
+                                                recompute_fwd_factor=config.flops_profiler_config.recompute_fwd_factor)
         # ---- telemetry (JAX engine.py:176-181): one engine/step trace a
         # train_batch with fwd_bwd/optim children, off until set_telemetry()
         self.tracer = NULL_TRACER
@@ -294,6 +309,23 @@ class DeepSpeedEngine:
                  ranks=[0])
 
     # ------------------------------------------------------------------ build
+
+    def _configure_activation_checkpointing(self, model: nn.Module) -> None:
+        """An ``activation_checkpointing`` block turns the model's per-block
+        remat on under the block's policy (``checkpointing.policy_from_config``,
+        JAX ``_policy_from_config``): the model's config gains ``remat=True``
+        and that ``remat_policy``."""
+        if ACTIVATION_CHECKPOINTING not in self._config._param_dict:
+            return
+        from .activation_checkpointing import checkpointing
+        checkpointing.configure(deepspeed_config=self._config)
+        cfg = getattr(model, "cfg", None)
+        if cfg is None or not dataclasses.is_dataclass(cfg) or not hasattr(cfg, "remat_policy"):
+            logger.warning("activation_checkpointing: the model's config has no remat_policy; checkpoint its "
+                           "blocks with runtime.activation_checkpointing.checkpointing.checkpoint")
+            return
+        policy = checkpointing.policy_from_config(self._config.activation_checkpointing_config)
+        model.cfg = dataclasses.replace(cfg, remat=True, remat_policy=policy)
 
     def _build_lr_schedule(self, client_scheduler):
         cfg = self._config
@@ -618,6 +650,10 @@ class DeepSpeedEngine:
         # the chaos site around the step (JAX :1290): one ``is None`` test
         # when no plan is armed
         fault_injection.check("engine.step")
+        prof_cfg = self._config.flops_profiler_config
+        profiling_now = self.flops_profiler is not None and self.global_steps == prof_cfg.profile_step
+        if profiling_now:
+            self.flops_profiler.start_profile(example_batch=batch)
         self.tput_timer.start()
         self.timers(TRAIN_BATCH_TIMER).start()
         step_span = self.tracer.start_span("engine/step", track="engine",
@@ -639,6 +675,13 @@ class DeepSpeedEngine:
             self.tracer.end(step_span)
         self.timers(TRAIN_BATCH_TIMER).stop()
         self.tput_timer.stop(global_step=True)
+        if profiling_now:   # JAX :1327-1335
+            self.flops_profiler.stop_profile()
+            self.flops_profiler.print_model_profile(profile_step=self.global_steps - 1,
+                                                    module_depth=prof_cfg.module_depth,
+                                                    top_modules=prof_cfg.top_modules, detailed=prof_cfg.detailed,
+                                                    output_file=prof_cfg.output_file)
+            self.flops_profiler.end_profile()
         self._after_step(metrics, [TRAIN_BATCH_TIMER])
         return metrics.loss
 
@@ -745,9 +788,12 @@ class DeepSpeedEngine:
         """Attach a telemetry ``Tracer`` and/or ``MetricsRegistry`` (JAX
         ``engine.py:1455``): every later ``train_batch`` emits one
         ``engine/step`` trace with ``engine/fwd_bwd`` and ``engine/optim``
-        children; ``set_telemetry()`` detaches both."""
+        children, and the flops profiler, when on, publishes its gauges into
+        the registry; ``set_telemetry()`` detaches both."""
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics_registry = metrics
+        if self.flops_profiler is not None:
+            self.flops_profiler.attach_metrics(metrics)
 
     # ------------------------------------------------------------ checkpoints
 

@@ -733,3 +733,47 @@ def test_grouped_quant_kernels_reject_what_they_do_not_take():
         qk.dequantize_int8_cuda(q, s, (table.total, ), table, through=torch.float16)
     with pytest.raises(ValueError, match="codes and float32 scales"):
         qk.dequantize_int8_cuda(q.view(torch.uint8), s, (table.total, ), table)
+
+
+@pytest.mark.parametrize("block, out_dtype", [(128, torch.bfloat16), (128, torch.float32), (256, torch.bfloat16),
+                                              (100, torch.bfloat16)])
+@pytest.mark.parametrize("cut", [0, 37], ids=["whole", "cut"])
+def test_k4b_store_into_out_matches_plain(block, out_dtype, cut):
+    """K4b into a float32 or bfloat16 ``out`` (block 128: the int8 weights of
+    ``inference/quantization.py``): the float32 product rounded once, as the
+    plain version's ``.to(out.dtype)``, with the last row's padding cut; an
+    ``out`` one element into its storage takes the scalar stores."""
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    from deepspeed_tpu_torch.ops import quantizer as plain
+    q, s = qk.quantize_int8_cuda(_quant_input(block, 1001, torch.float32, seed=12), block)
+    n = q.numel() - cut
+    for lead in (0, 1):
+        out = torch.empty(n + lead, dtype=out_dtype, device="cuda")[lead:]
+        got = qk.dequantize_int8_cuda(q, s, (n, ), out=out)
+        want = plain.dequantize_int8(q, s, (n, )).to(out_dtype)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == out.data_ptr() and torch.equal(got, want)
+
+
+def test_int8_engine_dequantizes_each_layer_before_it_runs():
+    """A 2-layer Llama-3-8B-width engine over int8 weights: greedy tokens equal
+    to an engine over the weights dequantized once, every step a CUDA graph,
+    K4b launched once per quantized tensor per forward."""
+    from deepspeed_tpu_torch.inference.quantization import quantize_inference_params
+    from deepspeed_tpu_torch.ops import quant_kernels as qk
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=2, dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    model = init_weights_(LlamaForCausalLMWithCache(cfg, page_size=16, device="cuda"),
+                          torch.Generator(device="cuda").manual_seed(0))
+    qp = quantize_inference_params(model.state_dict(), cfg=cfg)
+    econf = RaggedInferenceEngineConfig(kv=PagedKVConfig(num_pages=64, page_size=16, max_pages_per_seq=16),
+                                        scheduler=SchedulerConfig(token_budget=256, max_seqs=4, prefill_chunk=64,
+                                                                  decode_bucket=4), kv_dtype=torch.bfloat16)
+    prompts = [list(range(5, 70)), list(range(100, 120))]
+    eng = build_engine(cfg, qp, econf, device="cuda")
+    qk.dequantize_int8_cuda.launches = 0
+    got = eng.generate(prompts, max_new_tokens=8)
+    assert qk.dequantize_int8_cuda.launches == len(qp.shapes) * eng.forward_calls > 0
+    assert all(hasattr(prog, "graph") for prog in eng._step_fns.values())
+    want = build_engine(cfg, qp.dequantize(), econf, device="cuda").generate(prompts, max_new_tokens=8)
+    assert got == want

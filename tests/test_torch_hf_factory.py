@@ -17,8 +17,10 @@ on the CPU.
     ``models/convert.py`` (Falcon's three ``query_key_value`` layouts, OPT
     and OPT-350M, Phi with ``qk_layernorm``, Phi-3's fused projections,
     Llama with ``attention_bias``, Qwen2, InternLM), bit for bit;
-  * every model type the port does not serve raises naming its ROADMAP
-    item (5.4, the v1 families); an unknown one raises ``ValueError``, and a
+  * every model type of the JAX registry is served, by the paged engine or
+    (the v1 families) by the v1 engine, so none is left to raise naming its
+    ROADMAP item; ``quantization_mode`` on a family without a paged twin
+    raises as JAX's does; an unknown model type raises ``ValueError``, and a
     config of no served family has no paged twin (``TypeError``).
 """
 
@@ -168,19 +170,18 @@ def test_policy_equals_the_jax_policy_carried_across(case):
     build_cache_model(cfg, 4, device="meta").load_state_dict(state, strict=True, assign=True)
 
 
-def test_every_unserved_model_type_raises_naming_its_item():
+def test_every_unserved_model_type_raises_naming_its_item(tmp_path):
     from deepspeed_tpu.inference.v2.model_implementations.policies import POLICY_REGISTRY as JAX_REGISTRY
     assert set(tpol.POLICY_REGISTRY) == set(JAX_REGISTRY)
-    served = {"llama", "mistral", "qwen2", "internlm", "phi3", "opt", "phi", "falcon", "mixtral", "qwen2_moe"}
-    for model_type, policy in tpol.POLICY_REGISTRY.items():
-        if model_type in served:
-            continue
-        with pytest.raises(NotImplementedError, match=r"item 5\.4"):
-            tpol.convert_hf_state_dict({}, {"model_type": model_type})
+    paged = {"llama", "mistral", "qwen2", "internlm", "phi3", "opt", "phi", "falcon", "mixtral", "qwen2_moe", "qwen"}
+    assert {t for t, p in tpol.POLICY_REGISTRY.items() if p.paged} == paged
+    unserved = [t for t, p in tpol.POLICY_REGISTRY.items() if not p.paged and not hasattr(p, "build_model")]
+    assert unserved == []
     with pytest.raises(ValueError, match="no inference policy"):
         tpol.policy_for("not-a-model")
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        build_hf_engine("/nonexistent", quantization_mode="wf6af16", device="cpu")
+    (tmp_path / "config.json").write_text('{"model_type": "gpt_neo"}')
+    with pytest.raises(NotImplementedError, match="paged"):
+        build_hf_engine(str(tmp_path), quantization_mode="wf6af16", device="cpu")
 
     class UnknownConfig:
         pass

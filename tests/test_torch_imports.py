@@ -115,6 +115,21 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.ops.lamb",
     "deepspeed_tpu_torch.ops.lion",
     "deepspeed_tpu_torch.ops.adagrad",
+    "deepspeed_tpu_torch.models.gpt_family",
+    "deepspeed_tpu_torch.models.gpt2",
+    "deepspeed_tpu_torch.models.bert",
+    "deepspeed_tpu_torch.models.clip",
+    "deepspeed_tpu_torch.ops.transformer",
+    "deepspeed_tpu_torch.inference.engine",
+    "deepspeed_tpu_torch.inference.quantization",
+    "deepspeed_tpu_torch.module_inject",
+    "deepspeed_tpu_torch.module_inject.replace_module",
+    "deepspeed_tpu_torch.profiling",
+    "deepspeed_tpu_torch.profiling.config",
+    "deepspeed_tpu_torch.profiling.flops_profiler",
+    "deepspeed_tpu_torch.profiling.flops_profiler.profiler",
+    "deepspeed_tpu_torch.runtime.activation_checkpointing",
+    "deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing",
 ]
 
 _PROBE = """

@@ -311,7 +311,7 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
                 {"moe": {"enabled": True, "expert_parallel_size": 2}}, {"compression_training": {"weight_quantization": {}}},
                 {"checkpoint": {"load_universal": True}},
                 {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
-                {"zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}, {"flops_profiler": {"enabled": True}}]
+                {"zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}, {"hybrid_engine": {"enabled": True}}]
     for extra in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DeepSpeedConfig({**base, **extra})
@@ -319,10 +319,12 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
         DeepSpeedConfig({**base, "fp16": {"enabled": True}, "bf16": {"enabled": True}})
     with pytest.raises(DeepSpeedConfigError):
         DeepSpeedConfig({**base, "zero_optimization": {"stage": 4}})
-    # ported since: progressive layer drop, the checkpoint block, the monitors
+    # ported since: progressive layer drop, the checkpoint block, the monitors, the flops profiler
     c = DeepSpeedConfig({**base, "progressive_layer_drop": {"enabled": True, "theta": 0.4},
-                         "checkpoint": {"keep_last_n": 2}, "csv_monitor": {"enabled": False}})
+                         "checkpoint": {"keep_last_n": 2}, "csv_monitor": {"enabled": False},
+                         "flops_profiler": {"enabled": True}})
     assert c.pld_config.enabled and c.pld_config.theta == 0.4 and c.checkpoint_config.keep_last_n == 2
+    assert c.flops_profiler_config.enabled
 
 
 # ------------------------------------------------------------------ the engine
