@@ -8,8 +8,8 @@ builds every kernel from ``deepspeed_tpu_torch/csrc``, one ``nvcc`` per
 source, all started together.  Phases:
 
   1. environment: card name and power limit, versions, kernel build time,
-     and ptxas's registers of the bf16 K6b/K6c instantiations (a spill
-     fails the run);
+     and ptxas's registers of the bf16 K6b/K6c and K1/K2a/K2b
+     instantiations (a spill fails the run);
   2. K3 paged attention against its plain PyTorch version at the serving
      shapes of Llama-3-8B (H=32, n_kv=8, D=128, page 16, bf16): decode,
      decode with every context at 2000 keys (both split over the context),
@@ -42,7 +42,12 @@ source, all started together.  Phases:
      library (SDPA forward, SDPA backward) time and the roofline bound;
      K2a and K2b launched twice on each case give bit-identical dq, delta,
      dk and dv; two bf16 GQA cases whose blocks hold rows that are not
-     valid (rep 3, and an Sq tail with a query offset);
+     valid (rep 3, and an Sq tail with a query offset); then the zoo's
+     training shapes (B 2, S 2048): Phi-2's head dim 80 and Phi-3-mini's
+     96 (32 heads on 32), and Falcon-7B's 71 query heads of 64 on one kv
+     head (the wrappers' repeated-KV route), causal in bf16 and float32,
+     each timed beside its bound, plain and SDPA, and in bf16 with a query
+     offset;
   6. training: ``initialize`` → ``train_batch`` on Llama-125M at the JAX
      package's bench configuration (B 24, S 1024, bf16, AdamW, ZeRO-2,
      remat ``flash_saveable``), full width and depth with seeded random
@@ -217,7 +222,18 @@ source, all started together.  Phases:
      V1_ZOO_LAYERS layers, seeded weights in the published dtype, each
      served by the float32 v1 route on the card and on the CPU: outputs
      within V1_F32_TOL (TF32 off), the causal models' greedy streams equal
-     but for float32 ties; write and load seconds.
+     but for float32 ties; write and load seconds;
+ 24. training the dense zoo (after phase 20): Phi-2 at its published width
+     and full depth (32 layers, head dim 80, 2.78 B parameters) through
+     ``initialize`` → ``train_batch``, bf16, AdamW, remat ``flash_saveable``,
+     B 2 of S 2048 — step ms, tokens/s, MFU, peak memory, K1/K2a/K2b once
+     per layer per step; then Phi-3-mini-4k (head dim 96, its window
+     dropped), Falcon-7B (71:1), Falcon-RW-1B (alibi: no kernel, as JAX),
+     OPT-6.7B, Mistral-7B at S 8192 with its 4096 window (the chunked path,
+     as JAX), Qwen2-7B and InternLM-7B at their published widths cut to
+     ZOO_LAYERS layers: one float32 step on the kernel path against the
+     plain path within phase 7's tolerances, three bf16 steps with finite
+     losses, K1/K2a/K2b once per layer per step (0 where no kernel runs).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -252,11 +268,14 @@ from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngi
 from deepspeed_tpu_torch.inference.quantization import _quantize_leaf, quantize_inference_params
 from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy, Qwen2MoePolicy, policy_for
 from deepspeed_tpu_torch.models import gpt_family
+from deepspeed_tpu_torch.models.falcon import FalconConfig, FalconForCausalLM
 from deepspeed_tpu_torch.models.gpt2 import PRESETS as GPT2_PRESETS
 from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
-from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, init_weights_
+from deepspeed_tpu_torch.models.llama import PRESETS, LlamaConfig, LlamaForCausalLM, causal_lm_loss, init_weights_
 from deepspeed_tpu_torch.models.mixtral import PRESETS as MIXTRAL_PRESETS
 from deepspeed_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM, make_mixtral_loss_fn
+from deepspeed_tpu_torch.models.opt import OPTConfig, OPTForCausalLM
+from deepspeed_tpu_torch.models.phi import PhiConfig, PhiForCausalLM
 from deepspeed_tpu_torch.moe import MoE
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache, kv_heads
 from deepspeed_tpu_torch.models.llama_cache import paged_attention as paged_attention_plain
@@ -352,23 +371,28 @@ def phase_environment() -> dict:
     log(f"kernels built in {time.perf_counter() - t_all:.2f} s")
     regs = ptxas_report(built["sparse_attention"][0], ("sparse_dq_kernel_tc", "sparse_dkv_kernel_tc"))
     log("  sparse_dq_kernel_tc / sparse_dkv_kernel_tc (D, CTA rows): " + json.dumps(regs))
-    spills = {k: r for k, r in regs.items() if r["spill_bytes"]}
+    flash_regs = ptxas_report(built["flash_attention"][0], ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
+                                                            "flash_dkv_kernel_tc"))
+    log("  flash_fwd_kernel_tc / flash_dq_kernel_tc / flash_dkv_kernel_tc (D): " + json.dumps(flash_regs))
+    spills = {k: r for k, r in {**regs, **flash_regs}.items() if r["spill_bytes"]}
     if spills:
-        raise AssertionError(f"ptxas spills in the bf16 K6b/K6c: {spills}")
-    return {"card": smi, "sparse_bwd_registers": regs}
+        raise AssertionError(f"ptxas spills in the bf16 K6b/K6c or K1/K2a/K2b: {spills}")
+    return {"card": smi, "sparse_bwd_registers": regs, "flash_registers": flash_regs}
 
 
 def ptxas_report(output: str, names) -> dict:
-    """``name D=.. ROWS=..`` → registers and spill bytes of each instantiation
-    of the kernels ``names`` (``template <int D, int ROWS>``), from nvcc's
-    ``-Xptxas -v`` output; empty when the library was already built."""
+    """``name D=..`` (``ROWS=..``) → registers and spill bytes of each
+    instantiation of the kernels ``names`` (``template <int D>`` or
+    ``template <int D, int ROWS>``), from nvcc's ``-Xptxas -v`` output;
+    empty when the library was already built."""
     out, key = {}, None
     for line in output.splitlines():
         if "Compiling entry" in line or "Function properties for" in line:
             key = None
-            m = re.search(r"(" + "|".join(names) + r")ILi(\d+)ELi(\d+)E", line)
+            m = re.search(r"(" + "|".join(names) + r")I((?:Li\d+E)+)E", line)
             if m:
-                key = f"{m.group(1)} D={m.group(2)} ROWS={m.group(3)}"
+                args = re.findall(r"Li(\d+)E", m.group(2))
+                key = f"{m.group(1)} D={args[0]}" + (f" ROWS={args[1]}" if len(args) > 1 else "")
                 out.setdefault(key, {"registers": None, "spill_bytes": 0})
         elif key and "spill" in line:
             out[key]["spill_bytes"] += sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
@@ -961,6 +985,10 @@ def phase_profile(cfg, state) -> dict:
 
 # training shapes: Llama-125M at the bench configuration, and Llama-3-8B
 FLASH_SHAPES = {"bench": dict(b=24, s=1024, h=12, hk=12, d=64), "llama3-8b": dict(b=1, s=4096, h=32, hk=8, d=128)}
+# the zoo's training shapes (phase 24): Phi-2's head dim 80, Phi-3-mini's 96,
+# and Falcon-7B's 71 query heads on one kv head (the repeated-KV route)
+FLASH_ZOO_SHAPES = {"phi-2": dict(b=2, s=2048, h=32, hk=32, d=80), "phi-3-mini": dict(b=2, s=2048, h=32, hk=32, d=96),
+                    "falcon-7b": dict(b=2, s=2048, h=71, hk=1, d=64)}
 # untimed shapes whose blocks hold rows that are not valid: at rep 3 a block
 # has 63 rows (21 positions) and the last one stops at Sq; at rep 2 with a
 # query offset the rows end at Sq 192, below the 256 keys
@@ -1027,7 +1055,8 @@ def visible_keys(sq: int, sk: int, causal: bool, q_offset: int) -> int:
 def flash_bounds(b, sq, sk, h, hk, d, dtype, vis) -> dict:
     """Least time of each kernel: each input read once and each output
     written once, against 4/6/8·B·H·D·vis flops (QK+PV; QK, dO·Vᵀ, dS·K;
-    QK, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) at the bf16 tensor-core peak."""
+    QK, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q) at the dtype's peak (bf16: the tensor cores;
+    float32: the CUDA cores, where the float32 kernels compute)."""
     e = torch.finfo(dtype).bits // 8
     qb, kvb, st = b * sq * h * d * e, b * sk * hk * d * e, b * h * sq * 4
     nbytes = {"flash_fwd": qb + 2 * kvb + qb + st,                         # q k v → o lse
@@ -1037,13 +1066,13 @@ def flash_bounds(b, sq, sk, h, hk, d, dtype, vis) -> dict:
     out = {}
     for name in nbytes:
         t_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = flops[name] * b * h * d * vis / PEAK_FLOPS[torch.bfloat16] * 1e3
+        t_ops = flops[name] * b * h * d * vis / PEAK_FLOPS[dtype] * 1e3
         out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     return out
 
 
 def flash_case(shape: str, dtype, causal: bool, sq: int, sk: int, q_offset: int, flush, timed: bool) -> dict:
-    g = FLASH_SHAPES[shape] if shape in FLASH_SHAPES else FLASH_EDGE_SHAPES[shape]
+    g = {**FLASH_SHAPES, **FLASH_ZOO_SHAPES, **FLASH_EDGE_SHAPES}[shape]
     b, h, hk, d = g["b"], g["h"], g["hk"], g["d"]
     gen = torch.Generator(device="cuda").manual_seed(sq + sk + q_offset + int(causal))
     q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
@@ -1133,6 +1162,11 @@ def phase_flash_kernels() -> dict:
             flash_case(shape, dtype, True, s // 2, s, 0, flush, timed=False)        # keys past the last query
     flash_case("rep3", torch.bfloat16, True, 256, 384, 128, flush, timed=False)
     flash_case("tail", torch.bfloat16, True, 192, 256, 64, flush, timed=False)
+    for shape, g in FLASH_ZOO_SHAPES.items():
+        s = g["s"]
+        timed[shape] = flash_case(shape, torch.bfloat16, True, s, s, 0, flush, timed=True)
+        timed[f"{shape} f32"] = flash_case(shape, torch.float32, True, s, s, 0, flush, timed=True)
+        flash_case(shape, torch.bfloat16, True, s // 2, s, s // 2, flush, timed=False)   # queries at an offset
     del flush
     torch.cuda.empty_cache()
     return timed
@@ -4589,6 +4623,205 @@ def phase_v1_zoo(smi: str, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 24
+
+# internlm/internlm-7b's config.json, in code (q/k/v and o_proj biases)
+INTERNLM_7B = {"model_type": "internlm", "vocab_size": 103168, "hidden_size": 4096, "intermediate_size": 11008,
+               "num_hidden_layers": 32, "num_attention_heads": 32, "max_position_embeddings": 2048,
+               "rms_norm_eps": 1e-6, "bias": True, "torch_dtype": "float16"}
+ZOO_TRAIN_B, ZOO_TRAIN_S = 2, 2048         # Phi-2 at full width and depth
+ZOO_TRAIN_WARMUP, ZOO_TRAIN_TIMED = 2, 3
+ZOO_TRAIN_DS_CONFIG = {"train_batch_size": ZOO_TRAIN_B, "optimizer": {"type": "AdamW",
+                                                                      "params": {"lr": 1e-4, "weight_decay": 0.01}},
+                       "bf16": {"enabled": True}, "steps_per_print": 0}
+# the 2-layer rows: published config, sequence length, and why K1 does not
+# run where it does not (JAX runs no kernel there either).  Phi-3-mini-4k's
+# 2047-key window is dropped so that K1 takes its head dim 96 (with it, its
+# training takes the chunked path, as Mistral's does)
+ZOO_TRAIN = {
+    "phi-3-mini-4k": ({**ZOO["phi-3-mini-4k"][0], "sliding_window": 0}, 2048, None),
+    "falcon-7b": (FALCON_7B, 2048, None),
+    "falcon-rw-1b": (ZOO["falcon-rw-1b"][0], 2048, "alibi: the plain attention with the bias, as JAX"),
+    "opt-6.7b": (ZOO["opt-6.7b"][0], 2048, None),
+    "mistral-7b-v0.1": (ZOO["mistral-7b-v0.1"][0], 8192, "window 4096 < S: the chunked path, as JAX"),
+    "qwen2-7b": (ZOO["qwen2-7b"][0], 2048, None),
+    "internlm-7b": (INTERNLM_7B, 2048, None),
+}
+ZOO_TRAIN_BF16_STEPS = 3
+
+
+def training_model(cfg, device="cuda"):
+    """The cache-free training model of a config's family."""
+    models = {FalconConfig: FalconForCausalLM, OPTConfig: OPTForCausalLM, PhiConfig: PhiForCausalLM,
+              LlamaConfig: LlamaForCausalLM}
+    return models[type(cfg)](cfg, device=device)
+
+
+def flash_launches() -> tuple:
+    return flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches
+
+
+def train_phi_2(smi: str) -> dict:
+    """Phi-2 (``microsoft/phi-2``'s published config: hidden 2560, 32 heads
+    of 80, vocab 51200) at full depth through ``initialize`` →
+    ``train_batch``: bf16, AdamW, remat ``flash_saveable``, seeded weights,
+    B 2 of S 2048; step ms, tokens/s, MFU (``bench.py:160-162``), and
+    K1/K2a/K2b once per layer per step at head dim 80."""
+    hf = ZOO["phi-2"][0]
+    cfg = dataclasses.replace(policy_for("phi").build_config(hf), remat=True, remat_policy="flash_saveable",
+                              attention_impl="flash")
+    layers = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(24).integers(0, cfg.vocab_size, (ZOO_TRAIN_B, ZOO_TRAIN_S),
+                                                              dtype=np.int32)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    acc = get_accelerator()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = seed_weights_(training_model(cfg), seed=24)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=ZOO_TRAIN_DS_CONFIG, device="cuda")
+    t_build = time.perf_counter() - t0
+    reset_launch_counts()
+    losses = [float(engine.train_batch(batch=batch)) for _ in range(ZOO_TRAIN_WARMUP)]
+    t0 = time.perf_counter()
+    for _ in range(ZOO_TRAIN_TIMED):
+        loss = engine.train_batch(batch=batch)
+    losses.append(float(loss))                                            # the value fetch syncs
+    step_s = (time.perf_counter() - t0) / ZOO_TRAIN_TIMED
+    steps = ZOO_TRAIN_WARMUP + ZOO_TRAIN_TIMED
+    launches = flash_launches()
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    tok_s = ZOO_TRAIN_B * ZOO_TRAIN_S / step_s
+    flops_per_token = 6 * n_params + 12 * layers * cfg.hidden_size * ZOO_TRAIN_S
+    res = {"params": n_params, "layers": layers, "head_dim": cfg.head_dim, "build_s": t_build,
+           "step_ms": 1e3 * step_s, "tok_s": tok_s, "mfu": tok_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+           "peak_mem_gb": acc.max_memory_allocated() / 1e9, "losses": losses, "steps": steps,
+           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), launches)), "card": smi}
+    log("  Phi-2 training: " + json.dumps(res))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if launches != (layers * steps, ) * 3:
+        raise AssertionError(f"Phi-2: K1/K2a/K2b launched {launches} times over {steps} steps of {layers} layers")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"Phi-2: losses not finite and falling on a repeated batch: {losses}")
+    return res
+
+
+def f64_run(cfg, state, batch) -> dict:
+    """The first batch's loss, global grad norm and q/k/v gradients of the
+    plain path in float64 (``run_steps``'s first step, without the engine)."""
+    model = training_model(dataclasses.replace(cfg, dtype=torch.float64, param_dtype=torch.float64))
+    model.load_state_dict({k: v.double() for k, v in state.items()})
+    loss = causal_lm_loss(model(batch["input_ids"]), batch["labels"])
+    loss.backward()
+    run = {"losses": [float(loss)], "grads": {n: p.grad for n, p in model.named_parameters() if n.split(".")[-2] in QKV},
+           "grad_norms": [math.sqrt(sum(float(p.grad.square().sum()) for p in model.parameters()))]}
+    del model
+    return run
+
+
+def zoo_training_row(name: str, smi: str) -> dict:
+    """One family at its published widths cut to ZOO_LAYERS layers, B 1:
+    one float32 AdamW step (clipping) on the kernel path and on the plain
+    path (``chunked``) from the same seeded weights, held to phase 7's
+    tolerances, then ZOO_TRAIN_BF16_STEPS bf16 steps with finite losses;
+    K1/K2a/K2b once per layer per step on the kernel path (0 where the
+    family's attention takes no kernel, with the reason).
+
+    Phase 7's float32 rule (loss, grad norm and each q/k/v gradient within
+    1e-5 relative of the plain path) assumes that float32 rounding moves
+    those by less.  At OPT's seeded widths it does not: both float32 paths
+    lie ~1.4e-3 from the float64 gradients of the attention projections (a
+    ReLU MLP's common component in every token's K and V makes the
+    backward cancel), so a measure passes either by that rule or by phase
+    7's bf16 rule one precision up — the kernel path within 1.5× the plain
+    path's own distance to the float64 plain path.  The key bias's gradient
+    is zero up to rounding (it shifts a row's scores alike) and is not
+    compared."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hf, seq, no_kernel = ZOO_TRAIN[name]
+    cfg = policy_for(hf["model_type"]).build_config(cut_layers(hf, ["num_hidden_layers"], ZOO_LAYERS))
+    kernel_impl = "reference" if getattr(cfg, "alibi", False) else "flash"
+    plain_impl = kernel_impl if kernel_impl == "reference" else "chunked"
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, remat=True, remat_policy="flash_saveable",
+                              attention_impl=kernel_impl)
+    ds_config = {"train_batch_size": 1, "gradient_clipping": 1.0, "steps_per_print": 0,
+                 "optimizer": {"type": "AdamW", "params": {"lr": 1e-5, "weight_decay": 0.01}}}
+    rng = np.random.default_rng(25)
+    batches = []
+    for _ in range(1 + ZOO_TRAIN_BF16_STEPS):
+        ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, seq), dtype=np.int32)).cuda()
+        batches.append({"input_ids": ids, "labels": ids})
+    model = seed_weights_(training_model(cfg), seed=25)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    t0 = time.perf_counter()
+    runs, launches = {}, {}
+    for path, impl in (("kernel", kernel_impl), ("plain", plain_impl)):
+        reset_launch_counts()
+        eng, *_ = deepspeed_tpu_torch.initialize(model=training_model(dataclasses.replace(cfg, attention_impl=impl)),
+                                                 config=ds_config, params=state, device="cuda")
+        runs[path] = run_steps(eng, batches[:1])
+        launches[path] = flash_launches()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs["f64"] = f64_run(dataclasses.replace(cfg, attention_impl=plain_impl), state, batches[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run in runs.values():
+        run["grads"] = {n: g for n, g in run["grads"].items() if not n.endswith("k_proj.bias")}
+    d = run_differences(runs["kernel"], runs["plain"])
+    e_kernel, e_plain = run_differences(runs["kernel"], runs["f64"]), run_differences(runs["plain"], runs["f64"])
+    within = {m: d[m] <= 1e-5 or e_kernel[m] <= 1.5 * e_plain[m] for m in ("loss", "grad_norm")}
+    within.update({n: d["qkv_grads"][n] <= 1e-5 or e_kernel["qkv_grads"][n] <= 1.5 * e_plain["qkv_grads"][n]
+                   for n in d["qkv_grads"]})
+    reset_launch_counts()
+    eng, *_ = deepspeed_tpu_torch.initialize(model=training_model(dataclasses.replace(cfg, dtype=torch.bfloat16)),
+                                             config={**ds_config, "bf16": {"enabled": True}}, params=state,
+                                             device="cuda")
+    bf16_losses = [float(eng.train_batch(batch=b)) for b in batches[1:]]
+    bf16_launches = flash_launches()
+    n_params = sum(p.numel() for p in eng.module.parameters())
+    del eng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = cfg.num_hidden_layers
+    # run_steps: one forward and backward for the grads, then one train_batch
+    want_f32 = (0, 0, 0) if no_kernel else (2 * layers, ) * 3
+    want_bf16 = (0, 0, 0) if no_kernel else (layers * ZOO_TRAIN_BF16_STEPS, ) * 3
+    heads = (cfg.num_attention_heads, getattr(cfg, "num_key_value_heads",
+                                              getattr(cfg, "num_kv_heads", cfg.num_attention_heads)))
+    res = {"params": n_params, "layers": layers, "seq": seq, "head_dim": cfg.head_dim, "heads": heads,
+           "attention": no_kernel or "K1/K2a/K2b", "loss_f32": runs["kernel"]["losses"][0],
+           "kernel_vs_plain_f32": d, "kernel_vs_f64": e_kernel, "plain_vs_f64": e_plain, "bf16_losses": bf16_losses,
+           "launches_f32": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), launches["kernel"])),
+           "launches_bf16": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), bf16_launches)),
+           "seconds": time.perf_counter() - t0, "card": smi}
+    log(f"  {name} training ({layers} layers, S {seq}): " + json.dumps(res))
+    if launches["kernel"] != want_f32 or bf16_launches != want_bf16 or any(launches["plain"]):
+        raise AssertionError(f"{name}: K1/K2a/K2b launched {launches} (f32) and {bf16_launches} (bf16), expected "
+                             f"{want_f32} on the kernel path, {want_bf16} in bf16 and none on the plain path")
+    if not all(within.values()):
+        raise AssertionError(f"{name}: f32 kernel path out of phase 7's tolerances: "
+                             f"{sorted(m for m, ok in within.items() if not ok)}")
+    if not all(np.isfinite(bf16_losses)):
+        raise AssertionError(f"{name}: bf16 losses not finite: {bf16_losses}")
+    return res
+
+
+def phase_zoo_training(smi: str) -> dict:
+    res = {"phi-2": train_phi_2(smi)}
+    for name in ZOO_TRAIN:
+        res[name] = zoo_training_row(name, smi)
+    res["launches"] = {k: res["phi-2"]["launches"][k] + sum(res[n]["launches_f32"][k] + res[n]["launches_bf16"][k]
+                                                            for n in ZOO_TRAIN)
+                       for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU visible; the port's smoke run needs one", file=sys.stderr)
@@ -4639,6 +4872,8 @@ def main() -> int:
     features = phase_training_features(env["card"])
     log(f"== phase 20: training Mixtral-8x7B's widths ({MOE_TRAIN_LAYERS} layer) with the router loss")
     moe_training = phase_moe_training(env["card"])
+    log(f"== phase 24: training the dense zoo (Phi-2 at full depth; {ZOO_LAYERS} layers of seven more families)")
+    zoo_training = phase_zoo_training(env["card"])
     log("== phase 8: K6a/K6b/K6c block-sparse attention vs their plain versions")
     sparse = phase_sparse_kernels()
     log("== phase 9: the sparse path: DeepSpeedConfig -> SparseSelfAttention forward and backward")
@@ -4680,14 +4915,19 @@ def main() -> int:
         row = flash["bench"][name]     # the training path's shapes
         by_path = {"training": training["launches"][name], "training_features": features["launches"][name],
                    "moe_training": moe_training["launches"][name],
-                   "gpt2_training": v1["gpt2_training"]["launches"][name]}
+                   "gpt2_training": v1["gpt2_training"]["launches"][name],
+                   "zoo_training": zoo_training["launches"][name]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
                         "replaces": where, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        # phase 5's zoo rows: head dims 80 and 96, Falcon-7B's 71:1 (bf16 and f32)
+                        "zoo_rows": {s: {k: flash[s][name][k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                                                                        "bound_by", "library_ms", "max_abs_err")}
+                                     for s in flash if s not in FLASH_SHAPES}})
     replaces = {"sparse_attn_fwd": "deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:35",
                 "sparse_attn_dq": "deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:125",
                 "sparse_attn_dkv": "deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:152"}

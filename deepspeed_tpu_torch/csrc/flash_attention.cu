@@ -90,6 +90,18 @@
 // float32 K1, K2a and K2b use plain f32 FMA on the CUDA cores, with scores
 // and accumulators passing through shared memory between products; they
 // serve float32 training and check the algorithm at full precision.
+//
+// Head dims 64, 80, 96 and 128, in bf16 and float32.  At D 80 and 96 (Phi-2,
+// Phi-3) a row is 10 or 12 chunks of 16 bytes, which do not divide the 128
+// threads: the ring loaders of K1 and K2a and K2b's q-tile loader run on 120
+// threads (the last 8 copy nothing) and stop at the tile's last row.  The
+// padded shared rows (D + 8: 176 and 208 bytes, odd multiples of 16) keep
+// ldmatrix free of bank conflicts as at D 64 and 128; K2a's delta spreads 10
+// chunks over a lane quad; the float32 products give half the lanes a third
+// column.  ptxas (-O3, sm_90a): K1 162 / 172, K2a 208 / 220, K2b 178 / 204
+// registers at D 80 / 96, no spill, two blocks per SM each.  A kv head with
+// more than 64 query heads (Falcon-7B's 71) does not fit one block's rows:
+// the wrappers repeat K and V to H heads first (ops/flash_attention.py).
 // Later work: wgmma and TMA for all three.
 
 #include <cuda_bf16.h>
@@ -151,19 +163,21 @@ struct WarpGemm;
 template <bool B_COL, int NF, int KD>
 struct WarpGemm<float, B_COL, NF, KD> {
   __device__ static void run(const float* A, int lda, const float* B, int ldb, float* C, int ldc, bool accumulate) {
-    constexpr int CPL = NF / 2;  // columns per lane: 16*NF columns over 32 lanes
+    constexpr int COLS = 16 * NF;
+    constexpr int CPL = (COLS + 31) / 32;  // columns per lane; D 80: the last one on lanes 0-15 only
     const int lane = threadIdx.x & 31;
+    auto col_ok = [&](int c) { return COLS % 32 == 0 || lane + 32 * c < COLS; };
     float acc[16][CPL];
 #pragma unroll
     for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[i][c] = accumulate ? C[i * ldc + lane + 32 * c] : 0.f;
+      for (int c = 0; c < CPL; ++c) acc[i][c] = accumulate && col_ok(c) ? C[i * ldc + lane + 32 * c] : 0.f;
     for (int kk = 0; kk < KD; ++kk) {
       float b[CPL];
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int n = lane + 32 * c;
-        b[c] = B_COL ? B[n * ldb + kk] : B[kk * ldb + n];
+        b[c] = !col_ok(c) ? 0.f : B_COL ? B[n * ldb + kk] : B[kk * ldb + n];
       }
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
@@ -176,7 +190,8 @@ struct WarpGemm<float, B_COL, NF, KD> {
 #pragma unroll
     for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int c = 0; c < CPL; ++c) C[i * ldc + lane + 32 * c] = acc[i][c];
+      for (int c = 0; c < CPL; ++c)
+        if (col_ok(c)) C[i * ldc + lane + 32 * c] = acc[i][c];
   }
 };
 
@@ -383,12 +398,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   const bf16* k_src = k + off0;
   const bf16* v_src = v + off0;
   bf16* dst0 = kv_s + j0 * LD + my_ch * 8;
+  // D 80 and 96 (10 and 12 chunks a row): KEY_STEP · CH = 120 threads load,
+  // the last 8 copy nothing, and the last step of keys stops at the tile
+  auto tile_row_ok = [&](int key) {
+    return (KEY_STEP * CH == kThreads || threadIdx.x < KEY_STEP * CH) && (KT % KEY_STEP == 0 || key < KT);
+  };
   auto load_tile = [&](int stage) {
     bf16* dst = dst0 + stage * STAGE;
 #pragma unroll
-    for (int j = 0; j < KT / KEY_STEP; ++j) {
-      cp_async16(dst + j * KEY_STEP * LD, k_src + j * KEY_STEP * key_stride, true);
-      cp_async16(dst + (KT + j * KEY_STEP) * LD, v_src + j * KEY_STEP * key_stride, true);
+    for (int j = 0; j < (KT + KEY_STEP - 1) / KEY_STEP; ++j) {
+      if (tile_row_ok(j0 + j * KEY_STEP)) {
+        cp_async16(dst + j * KEY_STEP * LD, k_src + j * KEY_STEP * key_stride, true);
+        cp_async16(dst + (KT + j * KEY_STEP) * LD, v_src + j * KEY_STEP * key_stride, true);
+      }
     }
     cp_async_commit();
     k_src += KT * key_stride;
@@ -707,12 +729,19 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
   const bf16* k_src = k + off0;
   const bf16* v_src = v + off0;
   bf16* dst0 = kv_s + j0 * LD + my_ch * 8;
+  // D 80 and 96 (10 and 12 chunks a row): KEY_STEP · CH = 120 threads load,
+  // the last 8 copy nothing, and the last step of keys stops at the tile
+  auto tile_row_ok = [&](int key) {
+    return (KEY_STEP * CH == kThreads || threadIdx.x < KEY_STEP * CH) && (KT % KEY_STEP == 0 || key < KT);
+  };
   auto load_tile = [&](int stage) {
     bf16* dst = dst0 + stage * STAGE;
 #pragma unroll
-    for (int j = 0; j < KT / KEY_STEP; ++j) {
-      cp_async16(dst + j * KEY_STEP * LD, k_src + j * KEY_STEP * key_stride, true);
-      cp_async16(dst + (KT + j * KEY_STEP) * LD, v_src + j * KEY_STEP * key_stride, true);
+    for (int j = 0; j < (KT + KEY_STEP - 1) / KEY_STEP; ++j) {
+      if (tile_row_ok(j0 + j * KEY_STEP)) {
+        cp_async16(dst + j * KEY_STEP * LD, k_src + j * KEY_STEP * key_stride, true);
+        cp_async16(dst + (KT + j * KEY_STEP) * LD, v_src + j * KEY_STEP * key_stride, true);
+      }
     }
     cp_async_commit();
     k_src += KT * key_stride;
@@ -764,8 +793,9 @@ __global__ void __launch_bounds__(kThreads, D == 64 ? 4 : 2)
     if (ok) {
       const bf16* orow = o + (((long long)b * Sq + rows.pos(r)) * H + rows.head(kv, r)) * D;
 #pragma unroll
-      for (int c = 0; c < CH / 4; ++c) {
+      for (int c = 0; c < (CH + 3) / 4; ++c) {
         const int ch = tig + 4 * c;
+        if (CH % 4 != 0 && ch >= CH) break;  // D 80: 10 chunks, lanes 2 and 3 of the quad take two
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + ch * 8);
         const uint4 dv = *reinterpret_cast<const uint4*>(do_s + r * LD + ch * 8);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -1014,8 +1044,8 @@ __global__ void __launch_bounds__(kThreads, DkvTc<D>::MIN_BLOCKS)
   constexpr int DB = D / 8;    // column blocks of dK, dV
   constexpr int LD = L::LD;
   constexpr int CH = D / 8;    // 16-byte chunks of a row
-  constexpr int ROW_STEP = kThreads / CH;
-  static_assert(QT % ROW_STEP == 0 && 2 * QT <= kThreads, "a q tile's rows and statistics split over the block");
+  constexpr int ROW_STEP = kThreads / CH;  // D 80 and 96: 120 threads load, the last 8 copy no row
+  static_assert(2 * QT <= kThreads, "a q tile's statistics split over the block");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [kRows][LD]
@@ -1062,11 +1092,14 @@ __global__ void __launch_bounds__(kThreads, DkvTc<D>::MIN_BLOCKS)
     bf16* do_dst = q_dst + QT * LD;
     const long long off = (((long long)b * Sq + p0 + j0) * H + h) * D + my_ch * 8;
 #pragma unroll
-    for (int j = 0; j < QT / ROW_STEP; ++j) {
-      const bool ok = p0 + j0 + j * ROW_STEP < Sq;
-      const long long o = off + j * ROW_STEP * row_stride;
-      cp_async16(q_dst + j * ROW_STEP * LD, ok ? q + o : q, ok);
-      cp_async16(do_dst + j * ROW_STEP * LD, ok ? dout + o : dout, ok);
+    for (int j = 0; j < (QT + ROW_STEP - 1) / ROW_STEP; ++j) {
+      const int row = j0 + j * ROW_STEP;
+      if ((ROW_STEP * CH == kThreads || threadIdx.x < ROW_STEP * CH) && (QT % ROW_STEP == 0 || row < QT)) {
+        const bool ok = p0 + row < Sq;
+        const long long o = off + j * ROW_STEP * row_stride;
+        cp_async16(q_dst + j * ROW_STEP * LD, ok ? q + o : q, ok);
+        cp_async16(do_dst + j * ROW_STEP * LD, ok ? dout + o : dout, ok);
+      }
     }
     if (threadIdx.x < 2 * QT) {
       const bool ok = p0 + stat_i < Sq;
@@ -1302,13 +1335,17 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* dout, c
   return cudaGetLastError();
 }
 
-// dtype 0 = float32, 1 = bfloat16; head dims 64 and 128
+// dtype 0 = float32, 1 = bfloat16; head dims 64, 80, 96 and 128
 #define DS_FLASH_DISPATCH(FN, ...)                                                   \
   do {                                                                               \
     if (n.H % n.HK || n.H / n.HK > kRows || n.Sk % kRows) return (int)cudaErrorInvalidValue; \
     if (dtype == 1 && n.D == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);    \
+    if (dtype == 1 && n.D == 80) return (int)FN<__nv_bfloat16, 80>(__VA_ARGS__);    \
+    if (dtype == 1 && n.D == 96) return (int)FN<__nv_bfloat16, 96>(__VA_ARGS__);    \
     if (dtype == 1 && n.D == 128) return (int)FN<__nv_bfloat16, 128>(__VA_ARGS__);  \
     if (dtype == 0 && n.D == 64) return (int)FN<float, 64>(__VA_ARGS__);            \
+    if (dtype == 0 && n.D == 80) return (int)FN<float, 80>(__VA_ARGS__);            \
+    if (dtype == 0 && n.D == 96) return (int)FN<float, 96>(__VA_ARGS__);            \
     if (dtype == 0 && n.D == 128) return (int)FN<float, 128>(__VA_ARGS__);          \
     return (int)cudaErrorInvalidValue;                                               \
   } while (0)

@@ -8,9 +8,9 @@
     with ``attention_impl="flash"`` where its config has that field, as JAX
     does, so its attention runs K1 on the card at sequence lengths that
     are a multiple of 128 (others take the chunked path, JAX's dispatch).
-    K1 takes head dims 64 and 128 only: any other head dim, or an attention
-    bias K1 does not take (BLOOM's alibi), raises rather than quietly
-    running the plain attention;
+    K1 takes head dims 64, 80, 96 and 128: any other head dim (GPT-J's
+    256), or an attention bias K1 does not take (BLOOM's and Falcon-RW's
+    alibi), raises rather than quietly running the plain attention;
   * ``forward`` runs the model under ``torch.no_grad`` with its floating
     parameters cast to ``config.dtype``;
   * ``generate`` decodes greedily, or samples from the engine's
@@ -39,7 +39,8 @@ from ..utils.logging import log_dist, logger
 DTYPES = {"fp16": torch.float16, "half": torch.float16, "float16": torch.float16, "bf16": torch.bfloat16,
           "bfloat16": torch.bfloat16, "fp32": torch.float32, "float32": torch.float32, "float": torch.float32}
 #: the kernel gap that kernel injection names when K1 cannot take a model
-ROADMAP_FLASH_GAP = "ROADMAP Queue 1 item 5, the kernel gaps: K1/K2 take head dims 64 and 128 and no attention bias"
+ROADMAP_FLASH_GAP = ("ROADMAP Queue 1 item 5, the kernel gaps: K1/K2 take head dims 64, 80, 96 and 128 and no "
+                     "attention bias")
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
 """The port's model zoo (port of ``deepspeed_tpu/models``): the training
-forwards of Llama, Mixtral and Qwen2-MoE, the paged serving twins of the
+forwards of Llama (Mistral, Qwen2, InternLM and Phi-3 through its config),
+Falcon, OPT, Phi, Mixtral and Qwen2-MoE, the paged serving twins of the
 families the v2 engine serves (``llama_cache.py``, ``mixtral_cache.py``,
 ``cache_zoo.py``), and the cache-free models of the v1-only families
 (``gpt_family.py``, ``gpt2.py``, ``bert.py``, ``clip.py``)."""

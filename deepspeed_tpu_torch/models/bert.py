@@ -19,8 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from .cache_zoo import LayerNorm
-from .llama import _linear, dense, hf_value
+from .llama import LayerNorm, _linear, dense, hf_value
 
 
 @dataclasses.dataclass(frozen=True)

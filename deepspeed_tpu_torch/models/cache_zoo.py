@@ -12,8 +12,12 @@ Parameter names mirror the JAX twin's tree with the layers unrolled (``h.{i}``
 for Falcon, ``layers.{i}`` for OPT and Phi) and torch's ``[out, in]``
 weights, so ``models/convert.py`` carries a JAX tree across and the HF
 policies (``inference/v2/model_implementations/policies.py``) map a
-checkpoint by name.  LayerNorms compute in float32 and cast to the compute
-dtype, as flax's do.
+checkpoint by name.  A twin's layer is its family's training block
+(``falcon.FalconBlock``, ``opt.OPTBlock``, ``phi.PhiBlock``) over the paged
+attention here, which keeps the training attention's projections, so the
+training and serving models share their names.  LayerNorms
+(``llama.LayerNorm``) compute in float32 and cast to the compute dtype, as
+flax's do.
 
 Falcon-RW's alibi slopes are a float32 ``[H]`` tensor the model makes once
 on its device (``bind``), so a captured step graph reads the same tensor on
@@ -28,34 +32,17 @@ import dataclasses
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from .falcon import FalconConfig, alibi_slopes
-from .llama import LlamaConfig, _linear, apply_rope, dense, rotary_embedding
+from .falcon import FalconAttention, FalconBlock, FalconConfig, FalconForCausalLM, alibi_slopes
+from .llama import LlamaConfig
 from .llama_cache import LlamaAttentionCache, LlamaForCausalLMWithCache, paged_attention_core
 from .mixtral import MixtralConfig
 from .mixtral_cache import MixtralForCausalLMWithCache
-from .opt import OPTConfig
-from .phi import PhiConfig, apply_partial_rope
+from .opt import OPTAttention, OPTBlock, OPTConfig, OPTForCausalLM
+from .phi import PhiAttention, PhiBlock, PhiConfig, PhiForCausalLM
 from .qwen2_moe import Qwen2MoeBlock, Qwen2MoeConfig
-
-
-class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm``: float32 statistics, scale (``weight``) and
-    ``bias`` in ``param_dtype``, the result cast to the compute dtype."""
-
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype, param_dtype: torch.dtype, device=None):
-        super().__init__()
-        self.eps = eps
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=param_dtype))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=param_dtype))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1], ), self.weight.float(), self.bias.float(),
-                            self.eps).to(self.dtype)
 
 
 def _positions(input_ids: torch.Tensor, start_pos: torch.Tensor) -> torch.Tensor:
@@ -83,84 +70,33 @@ class _CacheTwin(nn.Module):
 # ------------------------------------------------------------------- falcon
 
 
-class FalconAttentionCache(nn.Module):
+class FalconAttentionCache(FalconAttention):
+    """The training attention's projections over the paged arena."""
 
     def __init__(self, cfg: FalconConfig, page_size: int, device=None):
-        super().__init__()
-        self.cfg, self.page_size = cfg, page_size
-        h, kv, d, e = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
-        self.q_proj = _linear(cfg, e, h * d, cfg.bias, device)
-        self.k_proj = _linear(cfg, e, kv * d, cfg.bias, device)
-        self.v_proj = _linear(cfg, e, kv * d, cfg.bias, device)
-        self.dense = _linear(cfg, h * d, e, cfg.bias, device)
+        super().__init__(cfg, device)
+        self.page_size = page_size
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens, slopes):
-        cfg = self.cfg
-        b, s, _ = x.shape
-        d = cfg.head_dim
-        q = dense(x, self.q_proj, cfg.dtype).view(b, s, cfg.num_attention_heads, d)
-        k = dense(x, self.k_proj, cfg.dtype).view(b, s, cfg.num_kv_heads, d)
-        v = dense(x, self.v_proj, cfg.dtype).view(b, s, cfg.num_kv_heads, d)
-        if not cfg.alibi:   # Falcon-RW: alibi in the attention instead of rotary
-            cos, sin = rotary_embedding(positions, d, cfg.rope_theta)
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        out = paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
-                                   attention_impl=cfg.attention_impl, alibi_slopes=slopes)
-        return dense(out.reshape(b, s, -1), self.dense, cfg.dtype)
+        q, k, v = self.qkv(x, positions)
+        return self.out(paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
+                                             attention_impl=self.cfg.attention_impl, alibi_slopes=slopes))
 
 
-class FalconBlockCache(nn.Module):
-    """Falcon-7B: ``x + attn(ln(x)) + mlp(ln(x))`` off ``input_layernorm``;
-    the new architecture with ``ln_attn`` and ``ln_mlp``; Falcon-RW:
-    sequential ``h = x + attn(ln1(x)); h + mlp(ln2(h))``."""
-
-    def __init__(self, cfg: FalconConfig, page_size: int, device=None):
-        super().__init__()
-        self.cfg = cfg
-        ln = lambda: LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, device)
-        if not cfg.parallel_attn:
-            self.input_layernorm, self.post_attention_layernorm = ln(), ln()
-        elif cfg.num_ln_in_parallel_attn == 2:
-            self.ln_attn, self.ln_mlp = ln(), ln()
-        else:
-            self.input_layernorm = ln()
-        self.self_attention = FalconAttentionCache(cfg, page_size, device)
-        ffn = cfg.ffn_hidden_size or 4 * cfg.hidden_size
-        self.dense_h_to_4h = _linear(cfg, cfg.hidden_size, ffn, cfg.bias, device)
-        self.dense_4h_to_h = _linear(cfg, ffn, cfg.hidden_size, cfg.bias, device)
-
-    def mlp(self, x):
-        dt = self.cfg.dtype
-        return dense(F.gelu(dense(x, self.dense_h_to_4h, dt)), self.dense_4h_to_h, dt)
-
-    def forward(self, x, positions, pages, block_table, start_pos, chunk_lens, slopes):
-        cfg = self.cfg
-        attn = lambda a_in: self.self_attention(a_in, positions, pages, block_table, start_pos, chunk_lens, slopes)
-        if not cfg.parallel_attn:
-            h = x + attn(self.input_layernorm(x))
-            return h + self.mlp(self.post_attention_layernorm(h))
-        if cfg.num_ln_in_parallel_attn == 2:
-            attn_in, mlp_in = self.ln_attn(x), self.ln_mlp(x)
-        else:
-            attn_in = mlp_in = self.input_layernorm(x)
-        return x + attn(attn_in) + self.mlp(mlp_in)
-
-
-class FalconForCausalLMWithCache(_CacheTwin):
+class FalconForCausalLMWithCache(_CacheTwin, FalconForCausalLM):
+    """The training model's embedding and head over paged blocks."""
 
     def __init__(self, cfg: FalconConfig, page_size: int = 16, device: DeviceLike = "cuda"):
-        super().__init__()
+        self.page_size = page_size
+        super().__init__(cfg, device=device)
         dev = resolve_device(device)
-        self.cfg, self.page_size = cfg, page_size
-        self.word_embeddings = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
-                                                  dtype=cfg.param_dtype)
-        self.h = nn.ModuleList([FalconBlockCache(cfg, page_size, dev) for _ in range(cfg.num_hidden_layers)])
-        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, dev)
-        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, cfg.hidden_size, cfg.vocab_size, False, dev)
         #: Falcon-RW's float32 [H] alibi slopes on the model's device (``bind``)
         self.alibi_slopes: Optional[torch.Tensor] = None
         if dev.type != "meta":
             self.bind(dev)
+
+    def _make_block(self, cfg: FalconConfig, device) -> nn.Module:
+        return FalconBlock(cfg, device, FalconAttentionCache(cfg, self.page_size, device))
 
     def bind(self, device: torch.device) -> None:
         if self.cfg.alibi and self.alibi_slopes is None:
@@ -171,179 +107,82 @@ class FalconForCausalLMWithCache(_CacheTwin):
         if self.cfg.alibi and self.alibi_slopes is None:
             raise RuntimeError("FalconForCausalLMWithCache: call bind(device) after loading a meta-built model")
         positions = _positions(input_ids, start_pos)
-        x = F.embedding(input_ids.long(), self.word_embeddings.weight).to(self.cfg.dtype)
+        x = self.embed(input_ids)
         for layer, pages in zip(self.h, cache):
             x = layer(x, positions, pages, block_table, start_pos, chunk_lens, self.alibi_slopes)
         return x
-
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ln_f(x)
-        if self.lm_head is None:
-            return x @ self.word_embeddings.weight.to(self.cfg.dtype).T
-        return dense(x, self.lm_head, self.cfg.dtype)
 
 
 # ---------------------------------------------------------------------- opt
 
 
-class OPTAttentionCache(nn.Module):
+class OPTAttentionCache(OPTAttention):
+    """The training attention's projections over the paged arena."""
 
     def __init__(self, cfg: OPTConfig, page_size: int, device=None):
-        super().__init__()
-        self.cfg, self.page_size = cfg, page_size
-        e = cfg.hidden_size
-        self.q_proj, self.k_proj, self.v_proj, self.out_proj = (_linear(cfg, e, e, True, device) for _ in range(4))
+        super().__init__(cfg, device)
+        self.page_size = page_size
 
     def forward(self, x, pages, block_table, start_pos, chunk_lens):
-        cfg = self.cfg
-        b, s, _ = x.shape
-        shape = (b, s, cfg.num_attention_heads, cfg.head_dim)
-        q, k, v = (dense(x, p, cfg.dtype).view(shape) for p in (self.q_proj, self.k_proj, self.v_proj))
-        out = paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
-                                   attention_impl=cfg.attention_impl)
-        return dense(out.reshape(b, s, -1), self.out_proj, cfg.dtype)
+        q, k, v = self.qkv(x)
+        return self.out(paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
+                                             attention_impl=self.cfg.attention_impl))
 
 
-class OPTBlockCache(nn.Module):
-    """Pre-LN (``do_layer_norm_before``) or post-LN (OPT-350M) with a ReLU MLP."""
-
-    def __init__(self, cfg: OPTConfig, page_size: int, device=None):
-        super().__init__()
-        self.cfg = cfg
-        self.self_attn_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, cfg.dtype, cfg.param_dtype, device)
-        self.self_attn = OPTAttentionCache(cfg, page_size, device)
-        self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, cfg.dtype, cfg.param_dtype, device)
-        self.fc1 = _linear(cfg, cfg.hidden_size, cfg.ffn_dim, True, device)
-        self.fc2 = _linear(cfg, cfg.ffn_dim, cfg.hidden_size, True, device)
-
-    def forward(self, x, pages, block_table, start_pos, chunk_lens):
-        cfg = self.cfg
-        pre = cfg.do_layer_norm_before
-        h = x + self.self_attn(self.self_attn_layer_norm(x) if pre else x, pages, block_table, start_pos, chunk_lens)
-        if not pre:
-            h = self.self_attn_layer_norm(h)
-        m = dense(F.relu(dense(self.final_layer_norm(h) if pre else h, self.fc1, cfg.dtype)), self.fc2, cfg.dtype)
-        out = h + m
-        return out if pre else self.final_layer_norm(out)
-
-
-class OPTForCausalLMWithCache(_CacheTwin):
+class OPTForCausalLMWithCache(_CacheTwin, OPTForCausalLM):
+    """The training model's embeddings and head over paged blocks."""
 
     def __init__(self, cfg: OPTConfig, page_size: int = 16, device: DeviceLike = "cuda"):
-        super().__init__()
-        dev = resolve_device(device)
-        self.cfg, self.page_size = cfg, page_size
-        proj = cfg.word_embed_proj_dim or cfg.hidden_size
-        self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, proj, device=dev, dtype=cfg.param_dtype)
-        self.embed_positions = nn.utils.skip_init(nn.Embedding, cfg.max_position_embeddings + 2, cfg.hidden_size,
-                                                  device=dev, dtype=cfg.param_dtype)
-        self.project_in = self.project_out = None
-        if cfg.word_embed_proj_dim:
-            self.project_in = _linear(cfg, proj, cfg.hidden_size, False, dev)
-            self.project_out = _linear(cfg, cfg.hidden_size, proj, False, dev)
-        self.layers = nn.ModuleList([OPTBlockCache(cfg, page_size, dev) for _ in range(cfg.num_hidden_layers)])
-        self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, cfg.dtype, cfg.param_dtype, dev) \
-            if cfg.do_layer_norm_before else None
-        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, proj, cfg.vocab_size, False, dev)
+        self.page_size = page_size
+        super().__init__(cfg, device=device)
+
+    def _make_block(self, cfg: OPTConfig, device) -> nn.Module:
+        return OPTBlock(cfg, device, OPTAttentionCache(cfg, self.page_size, device))
 
     def hidden(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
-        cfg = self.cfg
         _check_cache(cache, self.layers)
         # pad-region positions may pass the learned table: clamp (JAX does)
-        positions = torch.clamp(_positions(input_ids, start_pos), max=cfg.max_position_embeddings - 1)
-        x = F.embedding(input_ids.long(), self.embed_tokens.weight).to(cfg.dtype)
-        if self.project_in is not None:
-            x = dense(x, self.project_in, cfg.dtype)
-        x = x + F.embedding(positions + 2, self.embed_positions.weight).to(cfg.dtype)
+        positions = torch.clamp(_positions(input_ids, start_pos), max=self.cfg.max_position_embeddings - 1)
+        x = self.embed(input_ids, positions)
         for layer, pages in zip(self.layers, cache):
             x = layer(x, pages, block_table, start_pos, chunk_lens)
         return x
-
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        if self.final_layer_norm is not None:
-            x = self.final_layer_norm(x)
-        if self.project_out is not None:
-            x = dense(x, self.project_out, cfg.dtype)
-        if self.lm_head is None:
-            return x @ self.embed_tokens.weight.to(cfg.dtype).T
-        return dense(x, self.lm_head, cfg.dtype)
 
 
 # ---------------------------------------------------------------------- phi
 
 
-class PhiAttentionCache(nn.Module):
+class PhiAttentionCache(PhiAttention):
+    """The training attention's projections, ``qk_layernorm`` and partial
+    rotary over the paged arena."""
 
     def __init__(self, cfg: PhiConfig, page_size: int, device=None):
-        super().__init__()
-        self.cfg, self.page_size = cfg, page_size
-        h, kv, d, e = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
-        self.q_proj = _linear(cfg, e, h * d, True, device)
-        self.k_proj = _linear(cfg, e, kv * d, True, device)
-        self.v_proj = _linear(cfg, e, kv * d, True, device)
-        self.dense = _linear(cfg, h * d, e, True, device)
-        if cfg.qk_layernorm:   # per head, over D, before the rotary (Phi-1/1.5)
-            self.q_layernorm = LayerNorm(d, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
-            self.k_layernorm = LayerNorm(d, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
+        super().__init__(cfg, device)
+        self.page_size = page_size
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens):
-        cfg = self.cfg
-        b, s, _ = x.shape
-        d = cfg.head_dim
-        q = dense(x, self.q_proj, cfg.dtype).view(b, s, cfg.num_attention_heads, d)
-        k = dense(x, self.k_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, d)
-        v = dense(x, self.v_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, d)
-        if cfg.qk_layernorm:
-            q, k = self.q_layernorm(q), self.k_layernorm(k)
-        cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta)
-        q, k = apply_partial_rope(q, cos, sin, cfg.rotary_dim), apply_partial_rope(k, cos, sin, cfg.rotary_dim)
-        out = paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
-                                   attention_impl=cfg.attention_impl)
-        return dense(out.reshape(b, s, -1), self.dense, cfg.dtype)
+        q, k, v = self.qkv(x, positions)
+        return self.out(paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, self.page_size,
+                                             attention_impl=self.cfg.attention_impl))
 
 
-class PhiBlockCache(nn.Module):
-    """``x + attn(ln(x)) + mlp(ln(x))`` with a tanh-GELU MLP."""
-
-    def __init__(self, cfg: PhiConfig, page_size: int, device=None):
-        super().__init__()
-        self.cfg = cfg
-        self.input_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
-        self.self_attn = PhiAttentionCache(cfg, page_size, device)
-        self.fc1 = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, True, device)
-        self.fc2 = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, True, device)
-
-    def forward(self, x, positions, pages, block_table, start_pos, chunk_lens):
-        dt = self.cfg.dtype
-        h = self.input_layernorm(x)
-        attn = self.self_attn(h, positions, pages, block_table, start_pos, chunk_lens)
-        mlp = dense(F.gelu(dense(h, self.fc1, dt), approximate="tanh"), self.fc2, dt)
-        return x + attn + mlp
-
-
-class PhiForCausalLMWithCache(_CacheTwin):
+class PhiForCausalLMWithCache(_CacheTwin, PhiForCausalLM):
+    """The training model's embedding and head over paged blocks."""
 
     def __init__(self, cfg: PhiConfig, page_size: int = 16, device: DeviceLike = "cuda"):
-        super().__init__()
-        dev = resolve_device(device)
-        self.cfg, self.page_size = cfg, page_size
-        self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
-                                               dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList([PhiBlockCache(cfg, page_size, dev) for _ in range(cfg.num_hidden_layers)])
-        self.final_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, dev)
-        self.lm_head = _linear(cfg, cfg.hidden_size, cfg.vocab_size, True, dev)
+        self.page_size = page_size
+        super().__init__(cfg, device=device)
+
+    def _make_block(self, cfg: PhiConfig, device) -> nn.Module:
+        return PhiBlock(cfg, device, PhiAttentionCache(cfg, self.page_size, device))
 
     def hidden(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
         _check_cache(cache, self.layers)
         positions = _positions(input_ids, start_pos)
-        x = F.embedding(input_ids.long(), self.embed_tokens.weight).to(self.cfg.dtype)
+        x = self.embed(input_ids)
         for layer, pages in zip(self.layers, cache):
             x = layer(x, positions, pages, block_table, start_pos, chunk_lens)
         return x
-
-    def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(self.final_layernorm(x), self.lm_head, self.cfg.dtype)
 
 
 # ---------------------------------------------------------------- qwen2-moe

@@ -18,8 +18,7 @@ from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
 from .bert import bidirectional_attention
-from .cache_zoo import LayerNorm
-from .llama import dense
+from .llama import LayerNorm, dense
 
 
 @dataclasses.dataclass(frozen=True)

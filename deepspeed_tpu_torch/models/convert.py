@@ -24,8 +24,10 @@ Leaf mapping (flax ``DenseGeneral`` kernels are ``[in..., out...]``;
   lm_head/kernel [E, V]                → lm_head.weight [V, E]        (absent when tied)
 
 ``jax_falcon_to_state_dict``, ``jax_opt_to_state_dict`` and
-``jax_phi_to_state_dict`` carry the JAX cache twins of ``models/cache_zoo.py``
-across by the same rules, leaf by leaf (``_flax_to_state``): the stack ``h``
+``jax_phi_to_state_dict`` carry the JAX training models (``FalconForCausalLM``,
+``OPTForCausalLM``, ``PhiForCausalLM``) and their cache twins across to the
+port's (``models/{falcon,opt,phi}.py``, ``models/cache_zoo.py``) by the same
+rules, leaf by leaf (``_flax_to_state``): the stack ``h``
 (Falcon) or ``layers`` (OPT, Phi, and Llama's under ``model``), scanned or
 unrolled (``h_{i}``, ``layers_{i}``), becomes ``h.{i}`` / ``layers.{i}``;
 flax LayerNorm's ``scale`` becomes ``weight``; a 3-d kernel is an attention
@@ -155,17 +157,20 @@ def jax_llama_to_state_dict(params: Mapping, cfg: LlamaConfig) -> Dict[str, torc
 
 
 def jax_falcon_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """JAX ``FalconForCausalLMWithCache`` params → ``cache_zoo.FalconForCausalLMWithCache``'s state dict."""
+    """JAX ``FalconForCausalLM`` (or its cache twin) params → the state dict of
+    ``falcon.FalconForCausalLM`` and ``cache_zoo.FalconForCausalLMWithCache``."""
     return _zoo_state(params, "h", cfg.num_hidden_layers)
 
 
 def jax_opt_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """JAX ``OPTForCausalLMWithCache`` params → ``cache_zoo.OPTForCausalLMWithCache``'s state dict."""
+    """JAX ``OPTForCausalLM`` (or its cache twin) params → the state dict of
+    ``opt.OPTForCausalLM`` and ``cache_zoo.OPTForCausalLMWithCache``."""
     return _zoo_state(params, "layers", cfg.num_hidden_layers)
 
 
 def jax_phi_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
-    """JAX ``PhiForCausalLMWithCache`` params → ``cache_zoo.PhiForCausalLMWithCache``'s state dict."""
+    """JAX ``PhiForCausalLM`` (or its cache twin) params → the state dict of
+    ``phi.PhiForCausalLM`` and ``cache_zoo.PhiForCausalLMWithCache``."""
     return _zoo_state(params, "layers", cfg.num_hidden_layers)
 
 

@@ -4,7 +4,7 @@ Learned absolute positions, pre-LN blocks with biases, a tanh-GELU MLP (4×)
 and a tied LM head.  Attention follows ``cfg.attention_impl`` through
 ``get_attention_impl`` (``"flash"``: K1/K2a/K2b on a GPU at head dim 64).
 ``cfg.remat`` wraps each block in ``torch.utils.checkpoint`` under
-``cfg.remat_policy``, as the Llama model does (``llama.remat_context_fn``).
+``cfg.remat_policy``, as the Llama model does (``llama.block_runner``).
 Parameter names mirror the JAX tree with the layers unrolled (``h.{i}.attn.
 c_attn``, ``h.{i}.mlp.c_fc``, ...) and torch's ``[out, in]`` weights.
 """
@@ -16,8 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from .cache_zoo import LayerNorm
-from .llama import _linear, causal_lm_loss, dense, get_attention_impl, hf_value, remat_context_fn
+from .llama import LayerNorm, _linear, block_runner, causal_lm_loss, dense, get_attention_impl, hf_value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,13 +121,9 @@ class GPT2LMHeadModel(nn.Module):
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
         x = F.embedding(input_ids.long(), self.wte.weight).to(cfg.dtype) + \
             F.embedding(positions.long(), self.wpe.weight).to(cfg.dtype)
-        remat = cfg.remat and torch.is_grad_enabled()
-        if remat:
-            from torch.utils.checkpoint import checkpoint
-            context_fn = remat_context_fn(cfg.remat_policy)
-            kw = {} if context_fn is None else {"context_fn": context_fn}
+        run = block_runner(cfg)
         for block in self.h:
-            x = checkpoint(block, x, segment_ids, use_reentrant=False, **kw) if remat else block(x, segment_ids)
+            x = run(block, x, segment_ids)
         x = self.ln_f(x)
         if self.lm_head is None:
             return x.to(cfg.dtype) @ self.wte.weight.to(cfg.dtype).T

@@ -35,9 +35,8 @@ from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
 from ..ops.attention import reference_attention
-from .cache_zoo import LayerNorm
 from .falcon import alibi_slopes
-from .llama import _linear, dense, get_attention_impl, hf_value, rotary_embedding
+from .llama import LayerNorm, _linear, dense, get_attention_impl, hf_value, rotary_embedding
 from .phi import apply_partial_rope
 
 

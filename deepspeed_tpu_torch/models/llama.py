@@ -14,7 +14,10 @@ the serving twin ``"flash"`` means the paged kernel K3, as in JAX.
 
 ``cfg.remat`` wraps each block in ``torch.utils.checkpoint`` under
 ``cfg.remat_policy`` (``nothing_saveable``, ``flash_saveable``,
-``flash_only``; see ``remat_context_fn``).
+``flash_only``; see ``remat_context_fn``), through ``block_runner``, which
+every cache-free model of the port shares.  A ``sliding_window`` reaches the
+attention impl as JAX's does (``llama.py:395-399``): the flash op sends it to
+the chunked path, as JAX's does, so no kernel runs for a window.
 
 Numerics follow the JAX modules: weights live in ``param_dtype`` and are
 cast to ``dtype`` at use (flax ``DenseGeneral``/``Embed`` promote the same
@@ -78,7 +81,7 @@ class LlamaConfig:
     attention_impl: str = "flash"
     attention_bias: bool = False  # qkv bias (Qwen2-style checkpoints)
     attention_out_bias: bool = False  # o_proj bias (InternLM-1, Llama with attention_bias)
-    sliding_window: int = 0  # 0 = full attention; > 0 = Mistral's window (serving twin)
+    sliding_window: int = 0  # 0 = full attention; > 0 = Mistral's window
     # per-block activation checkpointing of the cache-free model (training)
     remat: bool = True
     remat_policy: str = "nothing_saveable"
@@ -171,6 +174,22 @@ class RMSNorm(nn.Module):
         return (normed * self.weight.float()).to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: float32 statistics, scale (``weight``) and
+    ``bias`` in ``param_dtype``, the result cast to the compute dtype."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype, param_dtype: torch.dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=param_dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device, dtype=param_dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (x.shape[-1], ), self.weight.float(), self.bias.float(),
+                            self.eps).to(self.dtype)
+
+
 def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float):
     """RoPE tables in float32: ``positions`` [B, S] → cos, sin [B, S, D/2]."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
@@ -231,13 +250,10 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.cfg.sliding_window:
-            raise NotImplementedError("the cache-free (training) forward with a sliding window is not ported: "
-                                      "K1/K2 take no window (ROADMAP Queue 1 item 5); the serving twin "
-                                      "(llama_cache.py) honours it")
         q, k, v = self.qkv(x, positions)
         attn = get_attention_impl(self.cfg.attention_impl)
-        return self.out(attn(q, k, v, causal=True, segment_ids=segment_ids))
+        kw = {"sliding_window": self.cfg.sliding_window} if self.cfg.sliding_window else {}
+        return self.out(attn(q, k, v, causal=True, segment_ids=segment_ids, **kw))
 
 
 class LlamaMLP(nn.Module):
@@ -305,6 +321,19 @@ def remat_context_fn(policy: str) -> Optional[Callable]:
     return functools.partial(create_selective_checkpoint_contexts, choose)
 
 
+def block_runner(cfg) -> Callable:
+    """How a cache-free model runs one of its blocks, ``run(block, *args)``:
+    under ``torch.utils.checkpoint`` with ``cfg.remat_policy`` when
+    ``cfg.remat`` and gradients are on (JAX's ``nn.remat`` around each
+    block), else a plain call."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return lambda block, *args: block(*args)
+    from torch.utils.checkpoint import checkpoint
+    context_fn = remat_context_fn(cfg.remat_policy)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return lambda block, *args: checkpoint(block, *args, use_reentrant=False, **kw)
+
+
 class LlamaForCausalLM(nn.Module):
     """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
     compute dtype.  Attention follows ``cfg.attention_impl`` through
@@ -350,17 +379,9 @@ class LlamaForCausalLM(nn.Module):
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
         x = self.embed(input_ids)
-        remat = self.cfg.remat and torch.is_grad_enabled()
-        if remat:
-            from torch.utils.checkpoint import checkpoint
-            context_fn = remat_context_fn(self.cfg.remat_policy)
-            kw = {} if context_fn is None else {"context_fn": context_fn}
+        run = block_runner(self.cfg)
         for i, layer in enumerate(self.layers):
-            s = None if pld_scale is None else pld_scale[i]
-            if remat:
-                x = checkpoint(layer, x, positions, segment_ids, s, use_reentrant=False, **kw)
-            else:
-                x = layer(x, positions, segment_ids, s)
+            x = run(layer, x, positions, segment_ids, None if pld_scale is None else pld_scale[i])
         return self.logits(x)
 
 

@@ -24,7 +24,7 @@ from torch import nn
 
 from ..accelerator import DeviceLike
 from ..moe.layer import MoE
-from .llama import LlamaAttention, LlamaConfig, LlamaForCausalLM, RMSNorm, causal_lm_loss, hf_value
+from .llama import LlamaAttention, LlamaConfig, LlamaForCausalLM, RMSNorm, block_runner, causal_lm_loss, hf_value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,18 +142,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
         x = self.embed(input_ids)
         l_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        remat = self.cfg.remat and torch.is_grad_enabled()
-        if remat:
-            from torch.utils.checkpoint import checkpoint
-
-            from .llama import remat_context_fn
-            context_fn = remat_context_fn(self.cfg.remat_policy)
-            kw = {} if context_fn is None else {"context_fn": context_fn}
+        run = block_runner(self.cfg)
         for layer in self.layers:
-            if remat:
-                x, l_aux_i = checkpoint(layer, x, positions, segment_ids, use_reentrant=False, **kw)
-            else:
-                x, l_aux_i = layer(x, positions, segment_ids)
+            x, l_aux_i = run(layer, x, positions, segment_ids)
             l_aux = l_aux + l_aux_i
         return self.logits(x), l_aux
 

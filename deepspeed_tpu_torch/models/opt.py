@@ -1,18 +1,25 @@
-"""The OPT family's config (port of ``deepspeed_tpu/models/opt.py:27-58``).
+"""The OPT family (port of ``deepspeed_tpu/models/opt.py``): its config, the
+attention and block, and the cache-free training model ``OPTForCausalLM``
+(JAX ``:59-157``).
 
 Token embeddings and learned positions (offset 2), MHA with biases, a ReLU
 MLP, LayerNorms with bias: pre-LN (``do_layer_norm_before``, every size but
 350M) or post-LN, and OPT-350M's ``word_embed_proj_dim`` (embeddings of 512
-projected to the 1024 of the decoder and back).  Served by
-``cache_zoo.OPTForCausalLMWithCache``; the training model is not ported
-(ROADMAP Queue 1 item 5).
+projected to the 1024 of the decoder and back).  Attention follows
+``cfg.attention_impl`` (``"flash"``: K1/K2a/K2b on the card).  Served by
+``cache_zoo.OPTForCausalLMWithCache``, which shares ``OPTBlock`` and the
+projections of ``OPTAttention``.
 """
 
 import dataclasses
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
-from .llama import hf_value
+from ..accelerator import DeviceLike, resolve_device
+from .llama import LayerNorm, _linear, block_runner, dense, get_attention_impl, hf_value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,8 +35,12 @@ class OPTConfig:
     tie_word_embeddings: bool = True
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # serving twin: "flash" runs K3 on a GPU tensor (its plain version on a CPU one)
+    # "flash": K1/K2a/K2b in the training model, K3 in the serving twin, on a
+    # GPU tensor (their plain versions on a CPU one); "reference" | "chunked"
     attention_impl: str = "flash"
+    # per-block activation checkpointing of the training model (``llama.block_runner``)
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
 
     @property
     def head_dim(self) -> int:
@@ -52,3 +63,111 @@ class OPTConfig:
                       tie_word_embeddings=hf_value(hf_cfg, "tie_word_embeddings", True))
         fields.update(overrides)
         return OPTConfig(**fields)
+
+
+class OPTAttention(nn.Module):
+    """The biased q/k/v and ``out_proj`` projections, and the cache-free
+    attention (the paged twin, ``cache_zoo.OPTAttentionCache``, shares the
+    projections)."""
+
+    def __init__(self, cfg: OPTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        e = cfg.hidden_size
+        self.q_proj, self.k_proj, self.v_proj, self.out_proj = (_linear(cfg, e, e, True, device) for _ in range(4))
+
+    def qkv(self, x: torch.Tensor):
+        cfg = self.cfg
+        shape = (*x.shape[:2], cfg.num_attention_heads, cfg.head_dim)
+        return tuple(dense(x, p, cfg.dtype).view(shape) for p in (self.q_proj, self.k_proj, self.v_proj))
+
+    def out(self, attn: torch.Tensor) -> torch.Tensor:
+        b, s = attn.shape[:2]
+        return dense(attn.reshape(b, s, -1), self.out_proj, self.cfg.dtype)
+
+    def forward(self, x: torch.Tensor, segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q, k, v = self.qkv(x)
+        return self.out(get_attention_impl(self.cfg.attention_impl)(q, k, v, causal=True, segment_ids=segment_ids))
+
+
+class OPTBlock(nn.Module):
+    """Pre-LN (``do_layer_norm_before``) or post-LN (OPT-350M) with a ReLU
+    MLP; ``forward(x, *attn_args)`` hands ``attn_args`` to ``self_attn``
+    (the cache-free attention, or the paged twin's when given)."""
+
+    def __init__(self, cfg: OPTConfig, device=None, self_attn: Optional[nn.Module] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.self_attn_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, cfg.dtype, cfg.param_dtype, device)
+        self.self_attn = self_attn if self_attn is not None else OPTAttention(cfg, device)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, cfg.dtype, cfg.param_dtype, device)
+        self.fc1 = _linear(cfg, cfg.hidden_size, cfg.ffn_dim, True, device)
+        self.fc2 = _linear(cfg, cfg.ffn_dim, cfg.hidden_size, True, device)
+
+    def forward(self, x: torch.Tensor, *attn_args) -> torch.Tensor:
+        cfg = self.cfg
+        pre = cfg.do_layer_norm_before
+        h = x + self.self_attn(self.self_attn_layer_norm(x) if pre else x, *attn_args)
+        if not pre:
+            h = self.self_attn_layer_norm(h)
+        m = dense(F.relu(dense(self.final_layer_norm(h) if pre else h, self.fc1, cfg.dtype)), self.fc2, cfg.dtype)
+        out = h + m
+        return out if pre else self.final_layer_norm(out)
+
+
+class OPTForCausalLM(nn.Module):
+    """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
+    compute dtype; each block under ``cfg.remat``'s checkpoint.  The paged
+    twin (``cache_zoo``) subclasses it with its own blocks (``_make_block``)
+    and shares ``embed`` and ``logits``."""
+
+    def __init__(self, cfg: OPTConfig, device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        proj = cfg.word_embed_proj_dim or cfg.hidden_size
+        self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, proj, device=dev, dtype=cfg.param_dtype)
+        self.embed_positions = nn.utils.skip_init(nn.Embedding, cfg.max_position_embeddings + 2, cfg.hidden_size,
+                                                  device=dev, dtype=cfg.param_dtype)
+        self.project_in = self.project_out = None
+        if cfg.word_embed_proj_dim:   # OPT-350M: project_in/out around the stack
+            self.project_in = _linear(cfg, proj, cfg.hidden_size, False, dev)
+            self.project_out = _linear(cfg, cfg.hidden_size, proj, False, dev)
+        self.layers = nn.ModuleList([self._make_block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
+        # HF: the final LayerNorm exists only for pre-LN OPT
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, cfg.dtype, cfg.param_dtype, dev) \
+            if cfg.do_layer_norm_before else None
+        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, proj, cfg.vocab_size, False, dev)
+
+    def _make_block(self, cfg: OPTConfig, device) -> nn.Module:
+        return OPTBlock(cfg, device)
+
+    def embed(self, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Token embeddings (through ``project_in``) plus the learned
+        positions, offset by 2 (HF's padding convention)."""
+        cfg = self.cfg
+        x = F.embedding(input_ids.long(), self.embed_tokens.weight).to(cfg.dtype)
+        if self.project_in is not None:
+            x = dense(x, self.project_in, cfg.dtype)
+        return x + F.embedding(positions.long() + 2, self.embed_positions.weight).to(cfg.dtype)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The final LayerNorm, ``project_out`` and the head over hidden rows."""
+        cfg = self.cfg
+        if self.final_layer_norm is not None:
+            x = self.final_layer_norm(x)
+        if self.project_out is not None:
+            x = dense(x, self.project_out, cfg.dtype)
+        if self.lm_head is None:
+            return x @ self.embed_tokens.weight.to(cfg.dtype).T
+        return dense(x, self.lm_head, cfg.dtype)
+
+    def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
+        x = self.embed(input_ids, positions)
+        run = block_runner(self.cfg)
+        for layer in self.layers:
+            x = run(layer, x, segment_ids)
+        return self.logits(x)

@@ -1,19 +1,26 @@
-"""The Phi-1/Phi-2 family's config and partial rotary (port of
-``deepspeed_tpu/models/phi.py:23-70``).
+"""The Phi-1/Phi-2 family (port of ``deepspeed_tpu/models/phi.py``): its
+config, the partial rotary, the attention and block, and the cache-free
+training model ``PhiForCausalLM`` (JAX ``:73-155``).
 
 A LayerNorm (with bias) feeds parallel attention and MLP branches that share
 one residual; biases on every projection and the LM head; rotary on the first
 ``partial_rotary_factor`` of each head; a tanh-GELU MLP; optional per-head
-``qk_layernorm`` (Phi-1/1.5).  Served by ``cache_zoo.PhiForCausalLMWithCache``;
-the training model is not ported (ROADMAP Queue 1 item 5).  Phi-3 is a
-Llama layout (``inference/v2/model_implementations/policies.py``).
+``qk_layernorm`` (Phi-1/1.5).  Attention follows ``cfg.attention_impl``
+(``"flash"``: K1/K2a/K2b on the card, at Phi-2's head dim 80).  Served by
+``cache_zoo.PhiForCausalLMWithCache``, which shares ``PhiBlock`` and the
+projections of ``PhiAttention``.  Phi-3 is a Llama layout
+(``inference/v2/model_implementations/policies.py``).
 """
 
 import dataclasses
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
-from .llama import hf_value
+from ..accelerator import DeviceLike, resolve_device
+from .llama import LayerNorm, _linear, block_runner, dense, get_attention_impl, hf_value, rotary_embedding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +39,12 @@ class PhiConfig:
     qk_layernorm: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
-    # serving twin: "flash" runs K3 on a GPU tensor (its plain version on a CPU one)
+    # "flash": K1/K2a/K2b in the training model, K3 in the serving twin, on a
+    # GPU tensor (their plain versions on a CPU one); "reference" | "chunked"
     attention_impl: str = "flash"
+    # per-block activation checkpointing of the training model (``llama.block_runner``)
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
 
     @property
     def head_dim(self) -> int:
@@ -72,3 +83,100 @@ def apply_partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, ro
     c, s = cos[:, :, None, :], sin[:, :, None, :]
     rotated = torch.cat([r1 * c - r2 * s, r2 * c + r1 * s], dim=-1)
     return torch.cat([rotated.to(x.dtype), keep], dim=-1)
+
+
+class PhiAttention(nn.Module):
+    """The biased q/k/v and ``dense`` projections, ``qk_layernorm`` and the
+    partial rotary, and the cache-free attention (the paged twin,
+    ``cache_zoo.PhiAttentionCache``, shares the rest)."""
+
+    def __init__(self, cfg: PhiConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, kv, d, e = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
+        self.q_proj = _linear(cfg, e, h * d, True, device)
+        self.k_proj = _linear(cfg, e, kv * d, True, device)
+        self.v_proj = _linear(cfg, e, kv * d, True, device)
+        self.dense = _linear(cfg, h * d, e, True, device)
+        if cfg.qk_layernorm:   # per head, over D, before the rotary (Phi-1/1.5)
+            self.q_layernorm = LayerNorm(d, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
+            self.k_layernorm = LayerNorm(d, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """x [B, S, E] → q [B, S, H, D], k/v [B, S, KV, D] after the partial rotary."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        d = cfg.head_dim
+        q = dense(x, self.q_proj, cfg.dtype).view(b, s, cfg.num_attention_heads, d)
+        k = dense(x, self.k_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, d)
+        v = dense(x, self.v_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, d)
+        if cfg.qk_layernorm:
+            q, k = self.q_layernorm(q), self.k_layernorm(k)
+        cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta)
+        return apply_partial_rope(q, cos, sin, cfg.rotary_dim), apply_partial_rope(k, cos, sin, cfg.rotary_dim), v
+
+    def out(self, attn: torch.Tensor) -> torch.Tensor:
+        b, s = attn.shape[:2]
+        return dense(attn.reshape(b, s, -1), self.dense, self.cfg.dtype)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        q, k, v = self.qkv(x, positions)
+        return self.out(get_attention_impl(self.cfg.attention_impl)(q, k, v, causal=True, segment_ids=segment_ids))
+
+
+class PhiBlock(nn.Module):
+    """``x + attn(ln(x)) + mlp(ln(x))`` with a tanh-GELU MLP;
+    ``forward(x, *attn_args)`` hands ``attn_args`` to ``self_attn`` (the
+    cache-free attention, or the paged twin's when given)."""
+
+    def __init__(self, cfg: PhiConfig, device=None, self_attn: Optional[nn.Module] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
+        self.self_attn = self_attn if self_attn is not None else PhiAttention(cfg, device)
+        self.fc1 = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, True, device)
+        self.fc2 = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, True, device)
+
+    def forward(self, x: torch.Tensor, *attn_args) -> torch.Tensor:
+        dt = self.cfg.dtype
+        h = self.input_layernorm(x)
+        attn = self.self_attn(h, *attn_args)
+        mlp = dense(F.gelu(dense(h, self.fc1, dt), approximate="tanh"), self.fc2, dt)
+        return x + attn + mlp
+
+
+class PhiForCausalLM(nn.Module):
+    """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
+    compute dtype; each block under ``cfg.remat``'s checkpoint.  The paged
+    twin (``cache_zoo``) subclasses it with its own blocks (``_make_block``)
+    and shares ``embed`` and ``logits``."""
+
+    def __init__(self, cfg: PhiConfig, device: DeviceLike = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
+                                               dtype=cfg.param_dtype)
+        self.layers = nn.ModuleList([self._make_block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
+        self.final_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, dev)
+        self.lm_head = _linear(cfg, cfg.hidden_size, cfg.vocab_size, True, dev)
+
+    def _make_block(self, cfg: PhiConfig, device) -> nn.Module:
+        return PhiBlock(cfg, device)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(input_ids.long(), self.embed_tokens.weight).to(self.cfg.dtype)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.final_layernorm(x), self.lm_head, self.cfg.dtype)
+
+    def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if positions is None:
+            positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
+        x = self.embed(input_ids)
+        run = block_runner(self.cfg)
+        for layer in self.layers:
+            x = run(layer, x, positions, segment_ids)
+        return self.logits(x)

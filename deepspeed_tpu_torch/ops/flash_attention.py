@@ -10,9 +10,15 @@ Pallas TPU kernels of that module:
 
 ``flash_attention`` takes q ``[B, Sq, H, D]`` and k/v ``[B, Sk, HK, D]`` (the
 JAX layout; the kernels read the same memory as the packed ``[B, S, N·D]``
-view).  GQA is native: query head ``h`` reads kv head ``h // (H // HK)`` and
-K/V are never repeated.  Query row ``i`` sits at position ``q_offset + i``;
-with ``causal`` it sees the keys at positions ``<= q_offset + i``.
+view), head dims 64, 80, 96 and 128.  GQA is native: query head ``h`` reads
+kv head ``h // (H // HK)`` and K/V are not repeated, as long as a kv head's
+query heads fit one block of the kernels (``MAX_REP`` = 64).  Beyond that
+(Falcon-7B's 71 query heads on one kv head) each wrapper takes JAX's
+repeated-KV route (``flash_attention.py:114-128``, ``:425-427``): K and V are
+repeated to H heads before the kernel, and K2b's dk and dv are summed back
+over each kv head's repeats (``:457``) in a fixed order.  Query row ``i``
+sits at position ``q_offset + i``; with ``causal`` it sees the keys at
+positions ``<= q_offset + i``.
 
 The forward and the backward are ``torch.library`` custom ops
 (``ds_torch::flash_fwd`` and ``ds_torch::flash_bwd``), so that a selective
@@ -50,7 +56,10 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: sequence lengths the kernels take (``flash_attention.py:525-534``):
 #: anything else goes to ``chunked_attention``
 SEQ_MULTIPLE = 128
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 80, 96, 128)
+#: query heads one kv head's block of K1/K2a/K2b takes (``kRows`` of
+#: ``csrc/flash_attention.cu``); more take the repeated-KV route
+MAX_REP = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # ---------------------------------------------------------------- plain versions
@@ -129,24 +138,38 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def kernel_kv_heads(h: int, hk: int) -> int:
+    """The kv heads K1/K2a/K2b run over for H query heads on HK kv heads:
+    HK, or H on the repeated-KV route (more than ``MAX_REP`` query heads a
+    kv head, as JAX's ``_gqa_native_ok`` sends Falcon-7B's 71:1 there)."""
+    return hk if h // hk <= MAX_REP else h
+
+
+def check_shapes(name: str, q_shape, k_shape, v_shape) -> None:
+    """Raise ``ValueError`` on q/k/v shapes the kernels do not take, after
+    the repeated-KV route: the head dim, GQA's H a multiple of HK, the key
+    length a multiple of 64."""
+    if len(q_shape) != 4 or len(k_shape) != 4 or tuple(k_shape) != tuple(v_shape):
+        raise ValueError(f"{name}: q must be [B, Sq, H, D] and k/v [B, Sk, HK, D], "
+                         f"got {tuple(q_shape)}, {tuple(k_shape)}, {tuple(v_shape)}")
+    b, sq, h, d = q_shape
+    _, sk, hk, dk = k_shape
+    if k_shape[0] != b or dk != d or h % hk:
+        raise ValueError(f"{name}: k/v {tuple(k_shape)} do not fit q {tuple(q_shape)} (GQA needs H a multiple "
+                         f"of HK)")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if sk % 64:
+        raise ValueError(f"{name}: key length {sk} is not a multiple of 64")
+
+
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *rest: torch.Tensor) -> None:
     """Raise on anything the kernels do not take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(f"{name} needs CUDA tensors, got q on {q.device}, k on {k.device}, v on {v.device}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name} takes bfloat16 or float32 q/k/v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{name}: q must be [B, Sq, H, D] and k/v [B, Sk, HK, D], "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, sq, h, d = q.shape
-    _, sk, hk, dk = k.shape
-    if k.shape[0] != b or dk != d or h % hk or h // hk > 64:
-        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} (GQA needs H a multiple "
-                         f"of HK, at most 64 query heads per kv head)")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {d} not in {SUPPORTED_HEAD_DIMS}")
-    if sk % 64:
-        raise ValueError(f"{name}: key length {sk} is not a multiple of 64")
+    check_shapes(name, q.shape, k.shape, v.shape)
     for t in (q, k, v) + rest:
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: every tensor must be contiguous, 16-byte aligned and on {q.device}")
@@ -176,11 +199,21 @@ def _on_device(t: torch.Tensor):
     return torch.cuda.device(t.device)   # the kernels launch on the current device
 
 
+def _kernel_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K and V as the kernels take them: repeated to H heads on the
+    repeated-KV route (``kernel_kv_heads``), else unchanged."""
+    h, hk = q.shape[2], k.shape[2]
+    if kernel_kv_heads(h, hk) == hk:
+        return k, v
+    return k.repeat_interleave(h // hk, dim=2), v.repeat_interleave(h // hk, dim=2)
+
+
 def flash_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                    q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K1: ``(o [B, Sq, H, D], lse [B, H, Sq] f32)``."""
     _check_offset("flash_fwd_cuda", q_offset)
     _check("flash_fwd_cuda", q, k, v)
+    k, v = _kernel_kv(q, k, v)
     b, sq, h, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -200,6 +233,7 @@ def flash_dq_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (q.shape[0], q.shape[2], q.shape[1]) \
             or o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError("flash_dq_cuda: o and do must match q, lse must be [B, H, Sq] float32")
+    k, v = _kernel_kv(q, k, v)
     b, sq, h, _ = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -215,13 +249,17 @@ def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.
                    delta: torch.Tensor, causal: bool = True,
                    q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2b: ``(dk, dv) [B, Sk, HK, D]``, summed over each kv head's
-    query heads in the block (no atomics: deterministic)."""
+    query heads in the block (no atomics: deterministic); on the
+    repeated-KV route the kernel's per-query-head dk and dv are then summed
+    over each kv head's repeats (one reduction, a fixed order)."""
     _check_offset("flash_dkv_cuda", q_offset)
     _check("flash_dkv_cuda", q, k, v, do, lse, delta)
     stat = (q.shape[0], q.shape[2], q.shape[1])
     if do.shape != q.shape or do.dtype != q.dtype or lse.shape != stat or delta.shape != stat \
             or lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise ValueError("flash_dkv_cuda: do must match q, lse and delta must be [B, H, Sq] float32")
+    b, sk, hk, d = k.shape
+    k, v = _kernel_kv(q, k, v)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if k.numel():
@@ -229,6 +267,8 @@ def flash_dkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.
             _launch("flash_dkv_cuda", _lib().ds_flash_dkv, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k, causal, q_offset))
         flash_dkv_cuda.launches += 1
+    if k.shape[2] != hk:   # the repeated-KV route: sum each kv head's repeats
+        dk, dv = (t.view(b, sk, hk, -1, d).sum(dim=3) for t in (dk, dv))
     return dk, dv
 
 

@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.models import llama as tl
 from deepspeed_tpu_torch.resilience import events
 from deepspeed_tpu_torch.resilience.fault_injection import InjectedCrash, configure_fault_injection
 from deepspeed_tpu_torch.runtime import checkpoint_engine as ce
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "unit"))
 

@@ -257,6 +257,16 @@ FLASH_CASES = [
     pytest.param(True, 4, 2, 64, 192, 256, 64, id="tail-sq192-q-offset"),
     pytest.param(True, 6, 2, 128, 256, 256, 0, id="causal-rep3-d128"),
 ]
+# the zoo's shapes: head dims 80 (Phi-2) and 96 (Phi-3), and Falcon-7B's 71
+# query heads on one kv head (the wrappers' repeated-KV route)
+ZOO_FLASH_CASES = [
+    pytest.param(True, 4, 4, 80, 256, 256, 0, id="causal-mha-d80"),
+    pytest.param(True, 4, 2, 80, 192, 256, 64, id="tail-q-offset-d80"),
+    pytest.param(False, 4, 4, 96, 128, 128, 0, id="full-mha-d96"),
+    pytest.param(True, 6, 2, 96, 256, 384, 128, id="q-offset-rep3-d96"),
+    pytest.param(True, 71, 1, 64, 256, 256, 0, id="causal-falcon-7b-71:1"),
+    pytest.param(True, 71, 1, 64, 128, 256, 128, id="q-offset-falcon-7b-71:1"),
+]
 
 
 def _flash_inputs(h, hk, d, sq, sk, dtype, seed=0):
@@ -269,7 +279,7 @@ def _flash_inputs(h, hk, d, sq, sk, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", FLASH_CASES)
+@pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", FLASH_CASES + ZOO_FLASH_CASES)
 def test_flash_kernels_match_plain(dtype, causal, h, hk, d, sq, sk, q_offset):
     """K1, K2a (dq and delta) and K2b against their plain versions on the
     same CUDA tensors, element by element against each row's or key's own
@@ -301,7 +311,7 @@ def test_flash_kernels_match_plain(dtype, causal, h, hk, d, sq, sk, q_offset):
 
 @pytest.mark.parametrize("kernel", ["dkv", "dq"])
 @pytest.mark.parametrize("causal,h,hk,d,sq,sk,q_offset", [FLASH_CASES[2], FLASH_CASES[3], FLASH_CASES[-3],
-                                                          FLASH_CASES[-2], FLASH_CASES[-1]])
+                                                          FLASH_CASES[-2], FLASH_CASES[-1]] + ZOO_FLASH_CASES)
 def test_flash_dkv_kernel_is_deterministic(kernel, causal, h, hk, d, sq, sk, q_offset):
     """K2b (``dkv``) sums over the query heads and q tiles inside one block,
     K2a (``dq``) over the kv tiles of its rows, each in a fixed order (no

@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngi
                                               build_engine)
 from deepspeed_tpu_torch.models.convert import jax_llama_to_state_dict
 from deepspeed_tpu_torch.models.llama import LlamaConfig
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 JCFG = JaxLlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128, rope_theta=1e4,

@@ -18,6 +18,7 @@ import torch
 from deepspeed_tpu.ops import flash_attention as jfa
 from deepspeed_tpu_torch.ops.attention import chunked_attention
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 TOL = 2e-5
 BLOCK = 64

@@ -35,20 +35,11 @@ from deepspeed_tpu_torch.inference.v2.model_implementations import policies as t
 from deepspeed_tpu_torch.models import convert
 from deepspeed_tpu_torch.models import gpt2 as tgpt2
 from deepspeed_tpu_torch.models import gpt_family as tgf
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture; other modules import it from here)
 
 V, E, H, L, I, P = 96, 64, 4, 2, 128, 64
 LOGIT_TOL = 2e-5   # of the largest |output|
 IDS = np.array([[5, 9, 2, 7, 1, 3, 11, 4, 8, 6, 10, 12, 14, 13, 15, 0]], np.int64)
-
-
-@pytest.fixture(autouse=True)
-def one_intra_op_thread():
-    """The models here are tiny: one intra-op thread computes them as fast,
-    and keeps the parallel test workers from oversubscribing the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def seeded_params(model, *args, seed: int = 0):

@@ -35,6 +35,7 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, PagedKVConfig, 
 from deepspeed_tpu_torch.inference.v2 import checkpoint_io
 from deepspeed_tpu_torch.inference.v2.model_implementations import policies as tpol
 from deepspeed_tpu_torch.models import convert
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 KV = dict(num_pages=48, page_size=4, max_pages_per_seq=12)
 SCHED = dict(token_budget=64, max_seqs=4, prefill_chunk=8, decode_bucket=4)

@@ -37,7 +37,7 @@ from deepspeed_tpu_torch.inference.v2 import (InferenceEngineV2, PagedKVConfig, 
                                               SchedulerConfig, build_hf_engine)
 from deepspeed_tpu_torch.inference.v2.model_implementations import policies as tpol
 from deepspeed_tpu_torch.ops import quant_kernels as tqk
-from test_torch_gpt_family import one_intra_op_thread  # noqa: F401 (autouse fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 KV = dict(num_pages=48, page_size=4, max_pages_per_seq=12)
 SCHED = dict(token_budget=64, max_seqs=4, prefill_chunk=8, decode_bucket=4)

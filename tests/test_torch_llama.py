@@ -17,6 +17,7 @@ from deepspeed_tpu.models import llama_cache as jlc
 from deepspeed_tpu_torch.models import llama as tl
 from deepspeed_tpu_torch.models import llama_cache as tlc
 from deepspeed_tpu_torch.models.convert import jax_llama_to_state_dict
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 JCFG = jl.LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128, rope_theta=1e4,

@@ -31,6 +31,7 @@ from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh, set_global_mesh
 from deepspeed_tpu.moe import sharded_moe as jmoe
 from deepspeed_tpu.moe.layer import MoE as JaxMoE
 from deepspeed_tpu_torch.moe import MoE, mappings, sharded_moe as tmoe
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 WEIGHT_TOL = 1e-6   # combine weights and l_aux, absolute (they are O(1))
 

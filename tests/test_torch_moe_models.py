@@ -50,6 +50,7 @@ from deepspeed_tpu_torch.models import convert
 from deepspeed_tpu_torch.models import mixtral as tmix
 from deepspeed_tpu_torch.models import qwen2_moe as tqwen
 from deepspeed_tpu_torch.models.llama_cache import init_kv_cache
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 LOGIT_TOL = 2e-5   # of the largest |logit|
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}

@@ -16,6 +16,7 @@ from deepspeed_tpu.models.llama_cache import _write_pages as jax_write_pages
 from deepspeed_tpu.models.llama_cache import paged_attention as jax_paged_attention
 from deepspeed_tpu_torch.models import llama_cache as port
 from deepspeed_tpu_torch.ops import paged_attention as port_op
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 2e-5   # float32: the two frameworks' einsum/softmax summation orders
 

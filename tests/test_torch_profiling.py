@@ -38,7 +38,7 @@ from deepspeed_tpu_torch.profiling.flops_profiler.profiler import causal_pairs
 from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.telemetry.metrics import MetricsRegistry
-from test_torch_gpt_family import one_intra_op_thread  # noqa: F401 (autouse fixture)
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 CFG = tl.LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
                      num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=256, rope_theta=1e4,

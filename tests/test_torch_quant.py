@@ -20,6 +20,7 @@ from deepspeed_tpu.ops import quant_kernels as jqk
 from deepspeed_tpu.ops import quantizer as jq
 from deepspeed_tpu_torch.ops import quant_kernels as tqk
 from deepspeed_tpu_torch.ops import quantizer as tq
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 
 def _values(block: int, qmax: float, seed: int) -> np.ndarray:

@@ -20,6 +20,7 @@ on the controller.
 
 import pytest
 from torch_serving_backends import assert_clean, make_backends, plain, unit_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 TRANSPORT = "inference/test_fleet_transport.py"
 CONTROL = "inference/test_control_loops.py"

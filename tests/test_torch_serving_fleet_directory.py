@@ -21,6 +21,7 @@ snapshot and the clock must be equal across the two packages.
 
 import pytest
 from torch_serving_backends import unit_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 DIRECTORY = "inference/test_prefix_directory.py"
 MIGRATION = "inference/test_kv_migration.py"

@@ -22,6 +22,7 @@ and the port follows the frontend.
 
 import pytest
 from torch_serving_backends import plain, span_view, unit_fixture, unit_module, unit_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 METRICS = "telemetry/test_tracer_metrics.py"
 RECORDER = "telemetry/test_flight_recorder.py"

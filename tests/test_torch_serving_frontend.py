@@ -16,6 +16,7 @@ counters and page accounting must be equal.
 import numpy as np
 import pytest
 from torch_serving_backends import assert_clean, make_backends, page_view, serve_view
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

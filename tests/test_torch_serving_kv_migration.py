@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from torch_serving_backends import PAGE, assert_clean, make_backends, serve_view
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 #: float32 K/V of two implementations: |port - jax| <= ATOL + RTOL·|jax|
 BLOCK_RTOL, BLOCK_ATOL = 1e-5, 1e-5

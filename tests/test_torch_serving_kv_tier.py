@@ -19,6 +19,7 @@ accounting must be equal across the two.  The fleet directory's host tier
 import numpy as np
 import pytest
 from torch_serving_backends import PAGE, assert_clean, make_backends, serve_view
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ fleet-side ``FleetSessionCoordinator`` runs the scenarios of
 import numpy as np
 import pytest
 from torch_serving_backends import make_backends, unit_scenario
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ from deepspeed_tpu.ops.sparse_attention import pallas_kernel as jpk
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 from deepspeed_tpu_torch.ops.sparse_attention import kernel as tk
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 FWD_TOL, GRAD_TOL = 2e-5, 5e-5
 B, H, S, D, BLK = 2, 4, 64, 16, 8

@@ -29,6 +29,7 @@ import pytest
 from torch_serving_backends import page_view, request_view
 
 from deepspeed_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 PROMPTS = [[5, 9, 2, 7, 1], [3, 3, 8], [1, 2, 3, 1, 2, 3, 1, 2], [11, 4, 6, 2]]
 

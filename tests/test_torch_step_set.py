@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.inference.v2.step_graphs import KERNEL_COUNTERS, Replay
 from deepspeed_tpu_torch.models.llama import PRESETS, init_weights_
 from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache
 from deepspeed_tpu_torch.ops.paged_attention import paged_attention_cuda
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 #: ``test_async_dispatch.py``'s prompts (the repetitive ones engage the drafter)
 PROMPTS = [[5, 9, 2, 7, 1], [3, 3, 8], [1, 2, 3, 1, 2, 3, 1, 2], [11, 4, 6, 2], [9, 1, 4, 9, 1, 4, 9],

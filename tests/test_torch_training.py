@@ -29,6 +29,7 @@ from deepspeed_tpu_torch.ops.adam import FusedAdam
 from deepspeed_tpu_torch.runtime import lr_schedules as tlr
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as tls
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 # ------------------------------------------------------------------ loss
 

@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader, Repeatin
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "unit"))
 
 from test_torch_qgz import run_ranks  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 TCFG = tl.LlamaConfig(vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
                       num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=64, rope_theta=10000.0,

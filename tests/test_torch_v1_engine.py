@@ -120,3 +120,28 @@ def test_kernel_injection_sets_flash_and_refuses_what_k1_cannot_take():
     bloom = tgf.BloomForCausalLM(tgf.BloomConfig(vocab_size=96, hidden_size=128, num_attention_heads=2), device="meta")
     with pytest.raises(NotImplementedError, match="alibi.*item 5"):
         tds.init_inference(model=bloom, config={"replace_with_kernel_inject": True}, device="cpu")
+
+
+def test_kernel_injection_takes_head_dim_96_and_still_refuses_gptj_and_alibi():
+    """K1/K2 take head dims 80 and 96: a GPT-NeoX at D 96 (GPT-NeoX-20B's and
+    GPT-Neo-1.3B's head dim) is injected, its logits those of the plain
+    model; GPT-J's 256 and Falcon-RW's alibi are still refused, naming the
+    kernel gap (ROADMAP Queue 1 item 5)."""
+    from deepspeed_tpu_torch.models import falcon as tfalcon
+    cfg = tgf.GPTNeoXConfig(**{**NEOX, "hidden_size": 192}, dtype=torch.float32)
+    assert cfg.head_dim == 96
+    model = tl.init_weights_(tgf.GPTNeoXForCausalLM(cfg, device="cpu"), torch.Generator().manual_seed(1))
+    plain = tds.init_inference(model=model, config={"dtype": "fp32"}, device="cpu")
+    eng = tds.init_inference(model=model, config={"dtype": "fp32", "replace_with_kernel_inject": True}, device="cpu")
+    assert {m.cfg.attention_impl for m in eng.module.modules() if hasattr(m, "cfg")} == {"flash"}
+    ids = torch.arange(128).remainder(96)[None]
+    want = plain.forward(ids)
+    np.testing.assert_allclose(eng.forward(ids).numpy(), want.numpy(), rtol=0, atol=LOGIT_TOL * want.abs().max().item())
+    gptj = tgf.GPTJForCausalLM(tgf.GPTJConfig(vocab_size=96, hidden_size=512, num_attention_heads=2), device="meta")
+    with pytest.raises(NotImplementedError, match="head dim 256.*item 5"):
+        tds.init_inference(model=gptj, config={"replace_with_kernel_inject": True}, device="cpu")
+    rw = tfalcon.FalconConfig(vocab_size=96, hidden_size=128, num_hidden_layers=1, num_attention_heads=2,
+                              num_kv_heads=2, parallel_attn=False, alibi=True, attention_impl="reference")
+    with pytest.raises(NotImplementedError, match="alibi.*item 5"):
+        tds.init_inference(model=tfalcon.FalconForCausalLM(rw, device="meta"),
+                           config={"replace_with_kernel_inject": True}, device="cpu")

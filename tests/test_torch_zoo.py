@@ -36,6 +36,7 @@ from deepspeed_tpu_torch.models.llama_cache import paged_attention as plain_page
 from deepspeed_tpu_torch.models.opt import OPTConfig
 from deepspeed_tpu_torch.models.phi import PhiConfig
 from deepspeed_tpu_torch.ops.paged_attention import merge_partials_plain, paged_attention_partials_plain
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse fixture)
 
 PAGE, PAGES, MAXP = 4, 16, 6
 CHUNK = 8
