@@ -233,7 +233,24 @@ source, all started together.  Phases:
      as JAX), Qwen2-7B and InternLM-7B at their published widths cut to
      ZOO_LAYERS layers: one float32 step on the kernel path against the
      plain path within phase 7's tolerances, three bf16 steps with finite
-     losses, K1/K2a/K2b once per layer per step (0 where no kernel runs).
+     losses, K1/K2a/K2b once per layer per step (0 where no kernel runs);
+ 25. ZeRO over several ranks on the one card (one spawn of four gloo
+     ranks: stages 0 and 3 at W = 4, 6 rows a rank; then three of them form
+     a new process group for stages 0, 1 and 2 at W = 3, 8 rows a rank; at
+     W = 3 stage 3's layout refuses the vocab of 32000): ``initialize`` →
+     ``train_batch`` on Llama-125M at phase 6's configuration (bf16, AdamW,
+     remat ``flash_saveable``, B 24 of S 1024), one warm-up and one timed
+     step each — per stage and rank the losses,
+     step ms, the comm layer's ms a step (each collective fenced by
+     synchronizes), collectives a step by kind, state bytes (parameters,
+     master, moments) against the reckoning of the partition, peak memory,
+     K1/K2a/K2b launches a step (12 each); the ranks' gathered parameters
+     bit-identical, losses within bf16's tolerance of stage 0's, stage 3's
+     peak below stage 0's; both routes of gloo's reduce-scatter of CUDA
+     tensors timed on the stage-2 gradient buffer (0.54 GB), agreeing; then
+     float32 at 2 layers of 125M width in the same spawn, every stage
+     against stage 0 (losses within rtol 1e-5, parameters within 1e-6 on
+     all but 1e-3 of the entries).
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -2629,6 +2646,303 @@ def phase_data_parallel(smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 25
+
+#: world → the ZeRO stages trained over it (stage 3 at W = 4: 32000 % 3 != 0)
+ZERO_RUNS = {3: (0, 1, 2), 4: (0, 3)}
+# one warm-up step, one timed (two timed steps took the whole script past ~520 s)
+ZERO_STEPS, ZERO_TIMED_FROM = 2, 1
+#: the order in which each world times the two reduce-scatter routes (alternated across worlds)
+ZERO_RS_ORDER = {4: ("native", "all_to_all"), 3: ("all_to_all", "native")}
+ZERO_PARITY_LAYERS, ZERO_PARITY_STEPS = 2, 2
+ZERO_TIMEOUT_S = 600
+FLASH_COUNTERS = (flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda)
+#: the comm layer's collectives the wire meter times
+WIRE_NAMES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "broadcast", "all_to_all_single")
+
+
+class WireMeter:
+    """The host seconds inside the comm layer's collectives, each fenced by
+    CUDA synchronizes before and after (gloo copies CUDA tensors through
+    host memory, so a collective waits for the work before it anyway)."""
+
+    def __init__(self):
+        from deepspeed_tpu_torch.comm import comm
+        self.comm, self.seconds, self._saved = comm, 0.0, {}
+
+    def _timed(self, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            return out
+        return run
+
+    def __enter__(self):
+        for name in WIRE_NAMES:
+            self._saved[name] = getattr(self.comm, name)
+            setattr(self.comm, name, self._timed(self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.comm, name, fn)
+        return False
+
+
+def zero_reckoning(n: int, world: int, stage: int) -> dict:
+    """The state bytes one rank holds of Llama-125M's ``n`` parameters (every
+    tensor has a dim that 3 and 4 divide): bf16 parameters, a float32 master
+    and two float32 moments, the master and moments a 1/world slice from
+    stage 1, the parameters too at stage 3."""
+    state = n // world if stage >= 1 else n
+    return {"params": 2 * (n // world if stage >= 3 else n), "master": 4 * state, "moments": 8 * state}
+
+
+def device_hash(t: torch.Tensor) -> int:
+    """A hash of ``t``'s bits computed on the card: its 16- or 32-bit words
+    times (i + 1)·0x1E3779B97F4A7C15, summed with int64 wraparound (an
+    integer sum: the same whatever the order).  A word that differs
+    changes the sum by d·w, which is not 0 mod 2^64 for |d| < 2^32 and
+    i < 2^31."""
+    words = t.detach().contiguous().view(-1)
+    words = words.view(torch.int16 if words.element_size() == 2 else torch.int32).to(torch.int64)
+    weights = torch.arange(1, words.numel() + 1, device=words.device, dtype=torch.int64) * 0x1E3779B97F4A7C15
+    return int((words * weights).sum())
+
+
+def zero_digest(engine) -> tuple:
+    """The hash of each whole parameter (a collective at stage 3) and whole master tensor."""
+    tensors = list(engine.module_state_dict().values()) + list((engine.full_master() or {}).values())
+    return tuple(device_hash(t) for t in tensors)
+
+
+def zero_stage_run(stage: int, cfg: LlamaConfig, dtype: torch.dtype, steps: int, meter: WireMeter,
+                   timed_from=None, keep_params: bool = False) -> dict:
+    """One engine at ``stage`` on this rank, ``steps`` train_batch calls on
+    the repeated global batch (the steps from ``timed_from`` on timed as one
+    window ended by a fetch of the loss); its figures, and with
+    ``keep_params`` its whole parameters."""
+    from deepspeed_tpu_torch.comm import comm
+    t_start = time.perf_counter()
+    acc = get_accelerator()
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    ds = {**BENCH_DS_CONFIG, "zero_optimization": {"stage": stage}}
+    if dtype == torch.float32:
+        ds = {k: v for k, v in ds.items() if k != "bf16"}
+    engine = build_trainer(cfg, ds)
+    batch = dp_batch()
+    reset_launch_counts()
+    calls, wire, losses = comm.call_counts.copy(), meter.seconds, []
+    for i in range(steps):
+        if i == timed_from:
+            float(losses[-1])
+            calls, wire, t0 = comm.call_counts.copy(), meter.seconds, time.perf_counter()
+        losses.append(engine.train_batch(batch=batch))
+    float(losses[-1])                    # the value fetch ends the window
+    timed = steps - (timed_from or 0)
+    res = {"losses": [float(l) for l in losses], "partitioned": engine.zero is not None,
+           "launches": {f.__name__: f.launches for f in FLASH_COUNTERS},
+           "collectives_per_step": {k: v / timed for k, v in (comm.call_counts - calls).items()},
+           "wire_ms_per_step": 1e3 * (meter.seconds - wire) / timed, "state_bytes": engine.state_bytes(),
+           "peak_mem_gb": acc.max_memory_allocated() / 1e9}
+    if timed_from is not None:
+        res["step_ms"] = 1e3 * (time.perf_counter() - t0) / timed
+    res["digest"] = zero_digest(engine)
+    whole = engine.module_state_dict()
+    res["n_params"] = sum(v.numel() for v in whole.values())
+    # numpy, not tensors: a queue would share a tensor's storage with the parent through a handle
+    res["params"] = {k: v.detach().float().cpu().numpy() for k, v in whole.items()} if keep_params else None
+    res["seconds"] = time.perf_counter() - t_start
+    del engine
+    return res
+
+
+def reduce_scatter_routes(n: int, world: int) -> dict:
+    """ms of one ``comm.reduce_scatter_tensor`` of ``n`` float32 elements on
+    the card by each route of gloo (its own collective, ``native``; one
+    all-to-all and a sum in rank order, ``all_to_all``, the engine's), in
+    ``ZERO_RS_ORDER[world]``, each fenced by a barrier and synchronizes; and
+    whether the two agree."""
+    from deepspeed_tpu_torch.comm import comm
+    x = torch.randn(n, device="cuda", generator=torch.Generator("cuda").manual_seed(comm.get_rank()))
+    key, saved, ms, got = ("gloo", "cuda"), comm.REDUCE_SCATTER_ROUTES[("gloo", "cuda")], {}, {}
+    try:
+        for route in ZERO_RS_ORDER[world]:
+            comm.REDUCE_SCATTER_ROUTES[key] = route
+            out = torch.empty(n // world, device="cuda")
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comm.reduce_scatter_tensor(out, x)
+            torch.cuda.synchronize()
+            ms[route], got[route] = 1e3 * (time.perf_counter() - t0), out
+    finally:
+        comm.REDUCE_SCATTER_ROUTES[key] = saved
+    return {"ms": ms, "agree": bool(torch.allclose(got["native"], got["all_to_all"], rtol=1e-5, atol=1e-5))}
+
+
+def zero_rank(rank: int, world: int) -> dict:
+    """Phase 25 on one rank: the bf16 stages of ``ZERO_RUNS[world]`` at full
+    depth, then the float32 parity runs at 2 layers (rank 0 returns their
+    whole parameters)."""
+    out = {"bf16": {}, "f32": {}}
+    with WireMeter() as meter:
+        for stage in ZERO_RUNS[world]:
+            out["bf16"][stage] = zero_stage_run(stage, llama_125m(), torch.bfloat16, ZERO_STEPS, meter,
+                                                timed_from=ZERO_TIMED_FROM)
+        # the stage-2 gradient buffer: every parameter in float32
+        out["rs_routes"] = reduce_scatter_routes(out["bf16"][ZERO_RUNS[world][0]]["n_params"], world)
+        parity = llama_125m(num_hidden_layers=ZERO_PARITY_LAYERS, dtype=torch.float32)
+        for stage in ZERO_RUNS[world]:
+            out["f32"][stage] = zero_stage_run(stage, parity, torch.float32, ZERO_PARITY_STEPS, meter,
+                                               keep_params=rank == 0)
+    return out
+
+
+def zero_rank_main(rank: int, init_methods, queue) -> None:
+    """A spawned rank of phase 25 (the ranks share the one card, cuda:0,
+    over gloo): each world of ``ZERO_RUNS`` in turn, largest first, over a
+    process group of its own (``init_methods[world]``); the ranks beyond a
+    world's size stop before it.  Puts ``{world: zero_rank(...)}``."""
+    from deepspeed_tpu_torch.comm import comm
+    try:
+        torch.cuda.set_device(0)
+        out = {}
+        for world in sorted(ZERO_RUNS, reverse=True):
+            if rank >= world:
+                break
+            comm.init_distributed(dist_backend="gloo", init_method=init_methods[world], rank=rank, world_size=world,
+                                  timeout=ZERO_TIMEOUT_S, verbose=False)
+            out[world] = zero_rank(rank, world)
+            torch.distributed.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if comm.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(target, n: int, timeout: float, groups=(None, )) -> list:
+    """``target(rank, init_methods, queue)`` on ``n`` spawned processes,
+    ``init_methods`` a free localhost TCP address for each key of
+    ``groups``; their results in rank order, or raises with a failed
+    rank's traceback.  Every process is joined (or terminated) before it
+    returns."""
+    import multiprocessing
+    import socket
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_methods = {}
+    for key in groups:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            init_methods[key] = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, init_methods, queue)) for r in range(n)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        for _ in range(n):
+            rank, res, err = queue.get(timeout=timeout)
+            if err is not None:
+                raise AssertionError(f"rank {rank} of {n} failed:\n{err}")
+            ranks[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"ranks exited with {[p.exitcode for p in procs]}")
+    return [ranks[r] for r in range(n)]
+
+
+def share_beyond(got: dict, want: dict, tight: float) -> tuple:
+    """The share of all entries of ``got`` further than ``tight`` from
+    ``want``, and the largest distance."""
+    diff = np.concatenate([np.abs(got[k] - want[k]).reshape(-1) for k in want])
+    return float((diff > tight).mean()), float(diff.max())
+
+
+def phase_zero(smi: str) -> dict:
+    layers = PRESETS["125m"].num_hidden_layers
+    res, checks = {"card": smi}, {}
+    launches = {f.__name__: 0 for f in FLASH_COUNTERS}
+    t0 = time.perf_counter()
+    spawned = spawn_ranks(zero_rank_main, max(ZERO_RUNS), ZERO_TIMEOUT_S * len(ZERO_RUNS), groups=tuple(ZERO_RUNS))
+    res["spawn_s"] = time.perf_counter() - t0
+    for world, stages in ZERO_RUNS.items():
+        ranks = [r[world] for r in spawned[:world]]
+        base = ranks[0]["bf16"][0]
+        n = base["n_params"]
+        per_stage = {}
+        for stage in stages:
+            runs = [r["bf16"][stage] for r in ranks]
+            want = zero_reckoning(n, world, stage)
+            for r in runs:
+                for k in launches:
+                    launches[k] += r["launches"][k]
+            tag = f"w{world}_s{stage}"
+            checks[f"{tag}_partitioned"] = all(r["partitioned"] == (stage > 0) for r in runs)
+            checks[f"{tag}_k1_k2_12_per_step"] = all(r["launches"][k] == layers * ZERO_STEPS for r in runs
+                                                     for k in r["launches"])
+            checks[f"{tag}_ranks_bit_identical"] = len({r["digest"] for r in runs}) == 1
+            checks[f"{tag}_losses_equal_on_ranks"] = all(r["losses"] == runs[0]["losses"] for r in runs)
+            checks[f"{tag}_losses_finite"] = bool(np.all(np.isfinite(runs[0]["losses"])))
+            checks[f"{tag}_losses_within_bf16_of_stage0"] = bool(np.allclose(runs[0]["losses"], base["losses"],
+                                                                             rtol=1e-2, atol=0))
+            checks[f"{tag}_state_bytes_reckoned"] = all(r["state_bytes"] == want for r in runs)
+            per_stage[stage] = {
+                "losses": runs[0]["losses"], "step_ms": [r["step_ms"] for r in runs],
+                "wire_ms_per_step": [r["wire_ms_per_step"] for r in runs],
+                "collectives_per_step": runs[0]["collectives_per_step"], "state_bytes": runs[0]["state_bytes"],
+                "state_gb": sum(runs[0]["state_bytes"].values()) / 1e9, "reckoned_bytes": want,
+                "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+                "launches_per_step": {k: v / ZERO_STEPS for k, v in runs[0]["launches"].items()},
+                "run_s": [r["seconds"] for r in runs],
+                "tok_s_all_ranks": BENCH_B * BENCH_S / (max(r["step_ms"] for r in runs) / 1e3)}
+        if 3 in stages:
+            checks[f"w{world}_stage3_peak_below_stage0"] = all(
+                r["bf16"][3]["peak_mem_gb"] < r["bf16"][0]["peak_mem_gb"] for r in ranks)
+        parity = {}
+        f32 = ranks[0]["f32"]
+        for stage, run in f32.items():
+            if stage == 0:
+                continue
+            share, worst = share_beyond(run["params"], f32[0]["params"], 1e-6)
+            rel = float(np.max(np.abs(np.array(run["losses"]) - f32[0]["losses"]) / np.abs(f32[0]["losses"])))
+            parity[stage] = {"losses": run["losses"], "loss_rel": rel, "share_beyond_1e-6": share, "max_abs": worst,
+                             "run_s": run["seconds"]}
+            checks[f"w{world}_s{stage}_f32_losses_rtol_1e-5"] = rel <= 1e-5
+            checks[f"w{world}_s{stage}_f32_params_1e-6"] = share <= 1e-3 and worst <= 2 * 1e-4 * ZERO_PARITY_STEPS
+            checks[f"w{world}_s{stage}_f32_ranks_bit_identical"] = len({r["f32"][stage]["digest"] for r in ranks}) == 1
+        checks[f"w{world}_reduce_scatter_routes_agree"] = all(r["rs_routes"]["agree"] for r in ranks)
+        res[f"w{world}"] = {"stages": per_stage, "f32_parity": parity, "f32_stage0_losses": f32[0]["losses"],
+                            "rows_per_rank": BENCH_B // world,
+                            "reduce_scatter_ms": {"order": ZERO_RS_ORDER[world],
+                                                  **{route: [r["rs_routes"]["ms"][route] for r in ranks]
+                                                     for route in ZERO_RS_ORDER[world]}}}
+        log(f"  zero W = {world}: " + json.dumps(res[f"w{world}"]))
+    res["launches"] = launches
+    res["checks"] = checks
+    log(f"  zero: one spawn of {max(ZERO_RUNS)} ranks, {res['spawn_s']:.1f} s")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"ZeRO phase failed {bad}")
+    return res
+
+
 # ---------------------------------------------------------------- phase 12
 
 FRONTEND_REQUESTS = 16
@@ -4882,6 +5196,8 @@ def main() -> int:
     quant = phase_quant_kernels()
     log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire")
     dp = phase_data_parallel(env["card"])
+    log("== phase 25: ZeRO stages 0-2 over 3 ranks and 0/3 over 4 ranks on Llama-125M (gloo, one card)")
+    zero = phase_zero(env["card"])
     dec, ver = k3["decode"], k3["verify"]
     zoo_launches = sum(r["k3_launches"] for r in zoo.values())
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -4916,7 +5232,7 @@ def main() -> int:
         by_path = {"training": training["launches"][name], "training_features": features["launches"][name],
                    "moe_training": moe_training["launches"][name],
                    "gpt2_training": v1["gpt2_training"]["launches"][name],
-                   "zoo_training": zoo_training["launches"][name]}
+                   "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",

@@ -12,9 +12,18 @@ and the serving path is imported from its module, e.g.
 ``from deepspeed_tpu_torch.inference.v2 import build_engine``.
 """
 
+import importlib
 import os
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """``deepspeed_tpu_torch.zero`` is ``runtime.zero`` (JAX exports ``ds.zero``),
+    imported on first use."""
+    if name == "zero":
+        return importlib.import_module(".runtime.zero", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None, lr_scheduler=None,

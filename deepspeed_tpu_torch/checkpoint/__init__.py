@@ -1,7 +1,8 @@
 """Checkpointing (port of ``deepspeed_tpu/checkpoint``): the crash-safe
 save/load of the training engine and the float32 consolidation (ref:
-``deepspeed/utils/zero_to_fp32.py``).  Universal checkpoints wait for ZeRO
-partitioning (ROADMAP Queue 1 item 8)."""
+``deepspeed/utils/zero_to_fp32.py``).  The files hold whole tensors
+whatever the ZeRO stage and world; universal checkpoints are ROADMAP Queue 1
+item 8."""
 
 from .engine import (checkpoint_tag_valid, find_newest_valid_tag, list_tags, load_checkpoint, read_meta,
                      save_checkpoint)

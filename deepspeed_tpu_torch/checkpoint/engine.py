@@ -34,8 +34,14 @@ valid tag with a warning; an explicitly requested tag is never substituted.
 Tensors load onto the engine's device (``map_location``), whatever device
 saved them, and into the engine's own parameters, master and optimizer.
 
-Over several data-parallel ranks (a replicated state) rank 0 writes and
-every rank waits at a barrier before the save returns.
+Whatever the ZeRO stage and the world, the files hold whole tensors, as
+JAX saves each array as its global logical array (its
+``checkpoint/engine.py:7-11``): every rank gathers its partitioned state
+(parameters, master, moments; ``engine_state``), rank 0 writes, and every
+rank waits at a barrier before the save returns.  A load cuts each whole
+tensor to the loading engine's partition (``restore_engine_state``), so a
+checkpoint saved at any stage and world loads at any other, and
+``zero_to_fp32`` reads it as a stage-0 one.
 """
 
 import json
@@ -173,13 +179,14 @@ def _apply_retention(save_dir: str, keep_last_n: Optional[int], current_tag: str
 # ------------------------------------------------------------ the state
 
 def engine_state(engine) -> dict:
-    """The engine's state tree (live tensors: a synchronous save writes them
-    at once, the async engine copies them to host before it returns)."""
-    names = engine.param_names
+    """The engine's state tree, whole tensors (live ones where the state is
+    not partitioned: a synchronous save writes them at once, the async
+    engine copies them to host before it returns).  A collective over the
+    ranks when the state is partitioned: every rank calls."""
     return {
-        "params": engine.module.state_dict(),
-        "master": dict(zip(names, engine.master)) if engine.use_master else None,
-        "opt_state": engine.optimizer.state_dict(),
+        "params": engine.module_state_dict(),
+        "master": engine.full_master(),
+        "opt_state": engine.full_optimizer_state_dict(),
         "step": engine.global_steps,
         "scaler": engine.scaler_state._asdict(),
         "skipped_steps": engine.skipped,
@@ -195,14 +202,13 @@ def restore_engine_state(engine, restored: dict, load_optimizer_states: bool = T
     state, the scaler and the skip count (JAX restores all but ``opt_state``
     under ``load_module_only`` or without ``load_optimizer_states``)."""
     from ..runtime.fp16.loss_scaler import LossScalerState
-    engine.module.load_state_dict(restored["params"], strict=True)
+    engine.load_module_state_dict(restored["params"])
     if engine.use_master:
         if restored["master"] is None:
             raise ValueError("the checkpoint holds no float32 master (a float32 run): the engine trains with one")
-        for name, m in zip(engine.param_names, engine.master):
-            m.copy_(restored["master"][name])
+        engine.load_full_master(restored["master"])
     if load_optimizer_states and not load_module_only:
-        engine.optimizer.load_state_dict(restored["opt_state"])
+        engine.load_full_optimizer_state_dict(restored["opt_state"])
     engine.scaler_state = LossScalerState(**{k: v.to(engine.device) for k, v in restored["scaler"].items()})
     engine.skipped.copy_(restored["skipped_steps"])
     if engine.loco_error is not None and restored.get("loco_error") is not None:
@@ -228,10 +234,11 @@ def save_checkpoint(engine, save_dir, tag=None, client_state=None, save_latest=T
     kind = "async" if (pd.get("nebula") or {}).get("enabled", False) else \
         (ckpt_cfg.checkpoint_engine or "torch")
     ck = make_checkpoint_engine(kind)
+    state = engine_state(engine)   # every rank: the gathers of a partitioned state
     if writer:
         os.makedirs(path, exist_ok=True)
         # [site ckpt.state_save] is polled inside the engine's retried save
-        ck.save(engine_state(engine), os.path.join(path, "state"))
+        ck.save(state, os.path.join(path, "state"))
         meta = {
             "tag": str(tag),
             "global_steps": engine.global_steps,

@@ -59,10 +59,9 @@ def load_state_dict_from_zero_checkpoint(engine, checkpoint_dir: str, tag: Optio
     parameters (cast to their dtype) and the float32 master (ref:
     zero_to_fp32.load_state_dict_from_zero_checkpoint)."""
     sd = get_fp32_state_dict_from_zero_checkpoint(checkpoint_dir, tag=tag)
-    engine.module.load_state_dict(sd, strict=True)
+    engine.load_module_state_dict(sd)
     if engine.use_master:
-        for name, m in zip(engine.param_names, engine.master):
-            m.copy_(sd[name])
+        engine.load_full_master(sd)
     return engine
 
 

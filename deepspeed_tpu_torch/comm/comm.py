@@ -19,6 +19,12 @@ over ``torch.distributed`` (port of ``deepspeed_tpu/comm/comm.py:42-96,
   a caller records one aggregate for the collectives it runs (the training
   engine's step, which JAX runs inside one ``jit`` and logs as one entry).
   ``call_counts`` counts every collective's calls, recorded or not.
+* ``reduce_scatter_tensor`` takes its route from the backend and the
+  tensor's device (``REDUCE_SCATTER_ROUTES``): the process group's own
+  collective, except gloo on CUDA tensors, which it takes but which run
+  faster as one ``all_to_all_single`` and a sum of the received chunks in
+  rank order (``chip_smoke.py`` phase 25 times both routes on the card;
+  ``PERF.md`` §6).
 """
 
 import collections
@@ -209,6 +215,37 @@ def all_to_all_single(output: torch.Tensor, tensor: torch.Tensor, group=None) ->
     dist.all_to_all_single(output, tensor, group=group)
     call_counts["all_to_all_single"] += 1
     _record("all_to_all_single", t0, _nbytes(tensor))
+    return output
+
+
+#: (backend, device type) → how ``reduce_scatter_tensor`` runs: "native"
+#: (the process group's reduce-scatter) or "all_to_all" (an all-to-all of
+#: the chunks, then their sum in rank order; SUM and AVG only)
+REDUCE_SCATTER_ROUTES = {("gloo", "cpu"): "native", ("gloo", "cuda"): "all_to_all", ("nccl", "cuda"): "native"}
+
+
+def reduce_scatter_tensor(output: torch.Tensor, tensor: torch.Tensor, op: str = ReduceOp.SUM,
+                          group=None) -> torch.Tensor:
+    """Chunk ``r`` of ``tensor`` (dim 0 split in world equal parts), reduced
+    over the ranks, into ``output`` on rank ``r`` (JAX ``comm.py:305``)."""
+    if op not in _TORCH_OPS:
+        raise ValueError(f"Unsupported reduce op {op}")
+    t0 = time.time()
+    route = REDUCE_SCATTER_ROUTES.get((get_backend(group), tensor.device.type), "native")
+    if route == "all_to_all" and op != ReduceOp.MAX:
+        received = torch.empty_like(tensor)
+        dist.all_to_all_single(received, tensor, group=group)
+        chunks = received.view(get_world_size(group), -1)
+        out = output.view(-1)
+        out.copy_(chunks[0])
+        for chunk in chunks[1:]:
+            out.add_(chunk)
+    else:
+        dist.reduce_scatter_tensor(output, tensor, op=_TORCH_OPS[op], group=group)
+    call_counts["reduce_scatter_tensor"] += 1
+    if op == ReduceOp.AVG:
+        output.div_(torch.full_like(output, get_world_size(group)))
+    _record("reduce_scatter_tensor", t0, _nbytes(tensor))
     return output
 
 

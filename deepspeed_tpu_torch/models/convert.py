@@ -61,14 +61,24 @@ like the parameters, by the JAX state's field names: Adam/LAMB ``exp_avg``
 and ``exp_avg_sq``, Lion ``exp_avg``, Adagrad ``accum``, SGD ``momentum``)
 and its step, the loss scaler, the skipped steps and the step count.  A JAX
 run can then be continued by the port.
+
+``jax_leaves`` goes the other way for the ZeRO partition rules
+(``runtime/zero/partition.py``): for each parameter of a port Llama, the
+shape of its JAX leaf in the unrolled tree (``scan_layers=False``), whether
+the port tensor is that leaf's transpose (an ``nn.Linear`` weight), and the
+leaf's logical axes (JAX ``llama.py``; a leaf without them, as a
+``DenseGeneral`` bias, has none).
 """
 
-from typing import Any, Dict, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from .llama import LlamaConfig
+from ..axes import EMBED, HEAD_DIM, HEADS, KV_HEADS, MLP, VOCAB
+from .llama import LlamaConfig, RMSNorm
 
 
 def _as_np(x) -> np.ndarray:
@@ -223,6 +233,61 @@ def jax_clip_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
     return _torch_state(state)
 
 
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """A port parameter's JAX leaf: its shape, the port tensor's, whether
+    the port tensor is the leaf's transpose (reshaped), and the leaf's
+    logical axes (``()`` for a leaf without them)."""
+    shape: Tuple[int, ...]
+    port_shape: Tuple[int, ...]
+    transposed: bool
+    logical: Tuple[Optional[str], ...]
+
+
+#: the logical axes of a Llama ``nn.Linear`` kernel, by the module's name
+#: (JAX ``llama.py:384-426``, ``:509``), in the kernel's [in..., out...] order
+_LINEAR_AXES = {"q_proj": (EMBED, HEADS, HEAD_DIM), "k_proj": (EMBED, KV_HEADS, HEAD_DIM),
+                "v_proj": (EMBED, KV_HEADS, HEAD_DIM), "o_proj": (HEADS, HEAD_DIM, EMBED), "gate_proj": (EMBED, MLP),
+                "up_proj": (EMBED, MLP), "down_proj": (MLP, EMBED), "lm_head": (EMBED, VOCAB)}
+
+
+def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
+    """For each parameter of a port ``LlamaForCausalLM`` (a Llama-family
+    model: Llama, Mistral, Qwen2, InternLM, Phi-3), its JAX leaf.  A
+    parameter of another kind raises ``NotImplementedError``."""
+    cfg = model.cfg
+    hd = cfg.head_dim
+    out: Dict[str, JaxLeaf] = {}
+    for mname, mod in model.named_modules():
+        short = mname.rsplit(".", 1)[-1]
+        for pname, p in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            shape = tuple(p.shape)
+            if isinstance(mod, nn.Embedding) and short == "embed_tokens":
+                leaf = JaxLeaf(shape, shape, False, (VOCAB, EMBED))
+            elif isinstance(mod, RMSNorm):
+                leaf = JaxLeaf(shape, shape, False, (EMBED, ))
+            elif isinstance(mod, nn.Linear) and short in _LINEAR_AXES and pname == "weight":
+                axes = _LINEAR_AXES[short]
+                fan_out, fan_in = shape
+                if short == "o_proj":
+                    kernel = (fan_in // hd, hd, fan_out)
+                elif len(axes) == 3:
+                    kernel = (fan_in, fan_out // hd, hd)
+                else:
+                    kernel = (fan_in, fan_out)
+                leaf = JaxLeaf(kernel, shape, True, axes)
+            elif isinstance(mod, nn.Linear) and short in ("q_proj", "k_proj", "v_proj") and pname == "bias":
+                leaf = JaxLeaf((shape[0] // hd, hd), shape, False, ())
+            elif isinstance(mod, nn.Linear) and short == "o_proj" and pname == "bias":
+                leaf = JaxLeaf(shape, shape, False, ())
+            else:
+                raise NotImplementedError(f"parameter {name!r}: its JAX leaf is known for the Llama family only, "
+                                          "so it cannot be partitioned over several ranks (ROADMAP Queue 1 item 6)")
+            out[name] = leaf
+    return out
+
+
 def _fields(x: Any) -> Dict[str, Any]:
     """A NamedTuple's (or a mapping's) fields as a dict."""
     return dict(x._asdict()) if hasattr(x, "_asdict") else dict(x)
@@ -234,12 +299,9 @@ def jax_train_state_to_engine(state: Any, engine, cfg: LlamaConfig):
     the module docstring); returns the engine."""
     from ..runtime.fp16.loss_scaler import LossScalerState
     fields = _fields(state)
-    engine.module.load_state_dict(jax_llama_to_state_dict(fields["params"], cfg), strict=True)
+    engine.load_module_state_dict(jax_llama_to_state_dict(fields["params"], cfg))
     if engine.use_master:
-        master = jax_llama_to_state_dict(fields["master"], cfg)
-        for name, m in zip(engine.param_names, engine.master):
-            m.copy_(master[name])
-    target = engine.master if engine.use_master else engine.params
+        engine.load_full_master(jax_llama_to_state_dict(fields["master"], cfg))
     opt = engine.optimizer
     opt_fields = _fields(fields["opt_state"])
     step = opt_fields.pop("step", None)
@@ -247,8 +309,9 @@ def jax_train_state_to_engine(state: Any, engine, cfg: LlamaConfig):
         if isinstance(tree, tuple) and not tree:   # SGD without momentum keeps no state
             continue
         moments = jax_llama_to_state_dict(tree, cfg)
-        for name, t in zip(engine.param_names, target):
-            opt.state[t][key] = moments[name].to(device=t.device, dtype=torch.float32)
+        for i, (name, t) in enumerate(zip(engine.param_names, engine._targets)):
+            full = moments[name].to(device=t.device, dtype=torch.float32)
+            opt.state[t][key] = full if engine.zero is None else engine.zero.local_state(i, full).clone()
     if step is not None:
         opt.step_count = int(np.asarray(step))
         opt._device_step = None   # rebuilt from step_count at the next overflow-checked step

@@ -16,6 +16,11 @@ plain tensor ops: ``torch._foreach_*`` over all tensors, the per-tensor
 norms through ``torch._foreach_norm``, and one trust ratio per tensor from
 them on the device.  On overflow (``step(found_inf=...)``) the parameters,
 the moments and the step keep their values (``MasterOptimizer``).
+
+The trust ratio is per whole tensor.  When the optimizer holds slices of
+the tensors (ZeRO over several ranks), the engine sets ``reduce_norms(params,
+w_norm, u_norm)``, which turns the slices' norms into the whole tensors'
+(``runtime/zero/partitioned.py``).
 """
 
 from typing import Iterable, Optional
@@ -33,6 +38,8 @@ class FusedLamb(MasterOptimizer):
                  min_coeff: float = 0.01):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
                                       bias_correction=bias_correction, max_coeff=max_coeff, min_coeff=min_coeff))
+        #: the slices' norms → the whole tensors' (set by a partitioning engine)
+        self.reduce_norms = None
 
     @torch.no_grad()
     def step(self, closure=None, found_inf: Optional[torch.Tensor] = None):
@@ -73,6 +80,8 @@ class FusedLamb(MasterOptimizer):
                 torch._foreach_add_(upd, torch._foreach_mul(params, wd))
             w_norm = torch.stack(torch._foreach_norm(params))
             u_norm = torch.stack(torch._foreach_norm(upd))
+            if self.reduce_norms is not None:
+                w_norm, u_norm = self.reduce_norms(params, w_norm, u_norm)
             one = torch.ones_like(w_norm)
             trust = torch.where(u_norm > 0, torch.where(w_norm > 0, w_norm / u_norm, one), one)
             coef = (-lr) * trust.clamp(group["min_coeff"], group["max_coeff"])

@@ -6,8 +6,12 @@ runs where pydantic is not installed).  Keys the port implements: the batch
 triangle (``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``, over the data-parallel world size of the
 process group), ``optimizer``, ``scheduler``, ``fp16``, ``bf16``,
-``zero_optimization`` (``stage``; ``zero_quantized_gradients`` and
-``zeropp_loco_param``, the ZeRO++ quantized gradient wire),
+``zero_optimization`` (``stage`` 0-3 at any world size, partitioned over
+several ranks by ``runtime/zero``; ``mics_shard_size`` and
+``zero_hpz_partition_size``, the partition group; ``zero_quantized_gradients``
+and ``zeropp_loco_param``, the ZeRO++ quantized gradient wire; every other
+knob of the JAX package's ``DeepSpeedZeroConfig`` is read and recorded, as
+there, where the port's step has no use for it),
 ``gradient_clipping``, ``gradient_predivide_factor``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``sparse_attention`` (kept as the raw dict, as
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
@@ -18,9 +22,9 @@ one device), the monitor blocks ``tensorboard``, ``wandb``,
 model's ``remat_policy``, ``runtime/activation_checkpointing``),
 ``flops_profiler`` (``profiling/``) and ``comms_logger`` (``comm.configure``).
 Any other key with a non-default value raises
-``NotImplementedError`` naming the ROADMAP item that brings it, and so does
-a ZeRO stage above 0 over more than one data-parallel rank (partitioning is
-not ported).
+``NotImplementedError`` naming the ROADMAP item that brings it; in
+``zero_optimization`` so do qwZ (``zero_quantized_weights``, item 7) and
+offload (``offload_param``/``offload_optimizer`` to a device, item 8).
 """
 
 import dataclasses
@@ -38,10 +42,11 @@ from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKP
                         NEBULA, OPTIMIZER, PIPELINE, PROGRESSIVE_LAYER_DROP, SCHEDULER, SEQUENCE_PARALLEL_SIZE,
                         SPARSE_ATTENTION, STEPS_PER_PRINT, STEPS_PER_PRINT_DEFAULT, TENSOR_PARALLEL, TENSORBOARD,
                         TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, WALL_CLOCK_BREAKDOWN,
-                        WALL_CLOCK_BREAKDOWN_DEFAULT, WANDB, ZERO_OPTIMIZATION, ZERO_QUANTIZED_GRADIENTS,
+                        WALL_CLOCK_BREAKDOWN_DEFAULT, WANDB, ZERO_OPTIMIZATION,
                         ZEROPP_LOCO_ERR_BETA_DEFAULT, ZEROPP_LOCO_PARAM)
 
-ROADMAP_OFFLOAD = "ROADMAP Queue 1 items 6 and 8, ZeRO-3 and offload"
+ROADMAP_OFFLOAD = "ROADMAP Queue 1 item 8, offload"
+ROADMAP_QWZ = "ROADMAP Queue 1 item 7, compressed comm (qwZ, the quantized weight all-gather of ZeRO-3)"
 ROADMAP_UNIVERSAL = "ROADMAP Queue 1 item 8, universal checkpoints"
 #: the training features still unported: compression and the 1-bit family
 ROADMAP_TRAINING_FEATURES = ("ROADMAP Queue 1 item 7, compressed comm (compression training, the 1-bit "
@@ -66,17 +71,6 @@ _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_
                      GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION,
                      PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET, MOE,
                      ACTIVATION_CHECKPOINTING, FLOPS_PROFILER, COMMS_LOGGER}
-#: the JAX package's ZeRO knobs besides ``stage`` and the quantized gradient
-#: wire, with their defaults: the port's step has nothing to bucket, overlap
-#: or partition
-ZERO_DEFAULTS = {
-    "contiguous_gradients": True, "reduce_scatter": True, "reduce_bucket_size": 500_000_000,
-    "use_multi_rank_bucket_allreduce": True, "allgather_partitions": True, "allgather_bucket_size": 500_000_000,
-    "overlap_comm": None, "load_from_fp32_weights": True, "elastic_checkpoint": False, "offload_param": None,
-    "offload_optimizer": None, "sub_group_size": 1_000_000_000, "round_robin_gradients": False,
-    "ignore_unused_parameters": True, "zero_quantized_weights": False, "zero_hpz_partition_size": 1,
-    "mics_shard_size": -1,
-}
 _DISABLED = ({}, None, False, 0, 1)   # values of an unported key that leave it off
 
 
@@ -129,11 +123,65 @@ class SchedulerConfig:
 
 @dataclasses.dataclass
 class ZeroConfig:
+    """``zero_optimization`` (JAX ``DeepSpeedZeroConfig``, ``config.py:115-151``;
+    ref: ``runtime/zero/config.py``).  The engine reads ``stage``, the
+    partition group (``mics_shard_size``, ``zero_hpz_partition_size``:
+    ``runtime/zero/mics.py``) and the quantized gradient wire; the bucket,
+    overlap, prefetch and persistence knobs are recorded, as the JAX engine
+    records them, for a step that has no buckets to size (each collective of
+    the port's step is one flat buffer, ``runtime/zero/partitioned.py``).
+    The ``stage3_*`` names are aliases of the fields without the prefix."""
     stage: int = 0
+    contiguous_gradients: bool = True
+    reduce_scatter: bool = True
+    reduce_bucket_size: int = 500_000_000
+    use_multi_rank_bucket_allreduce: bool = True
+    allgather_partitions: bool = True
+    allgather_bucket_size: int = 500_000_000
+    overlap_comm: Optional[bool] = None
+    load_from_fp32_weights: bool = True
+    elastic_checkpoint: bool = False
+    offload_param: Optional[Dict[str, Any]] = None
+    offload_optimizer: Optional[Dict[str, Any]] = None
+    sub_group_size: int = 1_000_000_000
+    cpu_offload_param: Optional[bool] = None
+    cpu_offload_use_pin_memory: Optional[bool] = None
+    cpu_offload: Optional[bool] = None
+    prefetch_bucket_size: int = 50_000_000
+    param_persistence_threshold: int = 100_000
+    model_persistence_threshold: int = int(1e30)
+    max_live_parameters: int = 1_000_000_000
+    max_reuse_distance: int = 1_000_000_000
+    gather_16bit_weights_on_model_save: bool = False
+    module_granularity_threshold: int = 0
+    use_all_reduce_for_fetch_params: bool = False
+    stage3_gather_fp16_weights_on_model_save: bool = False
+    ignore_unused_parameters: bool = True
+    legacy_stage1: bool = False
+    round_robin_gradients: bool = False
+    #: hpZ: the size of the group the stage-3 parameters shard over
+    zero_hpz_partition_size: int = 1
+    #: qwZ (item 7): raises when on
+    zero_quantized_weights: bool = False
+    zero_quantized_nontrainable_weights: bool = False
     #: ZeRO++ qgZ: gradients reduced over int8 (engine: stage 0, gas 1, no fp16, world > 1)
     zero_quantized_gradients: bool = False
     #: ZeRO++ LoCo on top of qgZ: ``{"err_beta": 0.8}``, or None
     zeropp_loco_param: Optional[Dict[str, Any]] = None
+    #: MiCS: the size of the group everything shards over at stage 3 (-1: all ranks)
+    mics_shard_size: int = -1
+    mics_hierarchical_params_gather: bool = False
+    memory_efficient_linear: bool = True
+    pipeline_loading_checkpoint: bool = False
+    override_module_apply: bool = True
+    log_trace_cache_warnings: bool = False
+
+
+#: ``stage3_*`` names → the ``ZeroConfig`` fields they alias (JAX ``Field(alias=...)``)
+ZERO_ALIASES = {f"stage3_{n}": n for n in ("prefetch_bucket_size", "param_persistence_threshold",
+                                            "model_persistence_threshold", "max_live_parameters",
+                                            "max_reuse_distance", "gather_16bit_weights_on_model_save",
+                                            "module_granularity_threshold", "use_all_reduce_for_fetch_params")}
 
 
 @dataclasses.dataclass
@@ -285,28 +333,36 @@ class CheckpointConfig:
             self.keep_last_n = int(self.keep_last_n)
 
 
+def _offloaded(value) -> bool:
+    """Does an ``offload_*`` block (or a ``cpu_offload*`` flag) move state off the device."""
+    if isinstance(value, dict):
+        return value.get("device", "none") not in (None, "none")
+    return bool(value)
+
+
 def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
-    values = dict(values or {})
-    stage = values.pop("stage", 0)
-    if not isinstance(stage, int) or not 0 <= stage <= 3:
-        raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, got {stage!r}")
-    qgz = values.pop(ZERO_QUANTIZED_GRADIENTS, False)
-    loco = values.pop(ZEROPP_LOCO_PARAM, None)
+    values = {ZERO_ALIASES.get(k, k): v for k, v in dict(values or {}).items()}
+    known = {f.name for f in dataclasses.fields(ZeroConfig)}
+    extra = sorted(set(values) - known)
+    if extra:
+        raise DeepSpeedConfigError(f"unknown keys in {ZERO_OPTIMIZATION!r}: {extra} (known: {sorted(known)})")
+    cfg = ZeroConfig(**values)
+    if not isinstance(cfg.stage, int) or not 0 <= cfg.stage <= 3:
+        raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, got {cfg.stage!r}")
+    for key in ("offload_param", "offload_optimizer", "cpu_offload_param", "cpu_offload"):
+        if _offloaded(getattr(cfg, key)):
+            raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_OFFLOAD})")
+    for key in ("zero_quantized_weights", "zero_quantized_nontrainable_weights"):
+        if getattr(cfg, key):
+            raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_QWZ})")
+    loco = cfg.zeropp_loco_param
     if loco is not None:
         if not isinstance(loco, dict) or set(loco) - {"err_beta"}:
             raise DeepSpeedConfigError(f"zero_optimization.{ZEROPP_LOCO_PARAM} takes {{'err_beta': float}}, "
                                        f"got {loco!r}")
-        loco = {"err_beta": float(loco.get("err_beta", ZEROPP_LOCO_ERR_BETA_DEFAULT))}
-    for key, value in values.items():
-        if key.startswith("offload") or key.startswith("cpu_offload"):
-            if value not in _DISABLED and not (isinstance(value, dict) and value.get("device", "none") == "none"):
-                raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_OFFLOAD})")
-        elif key not in ZERO_DEFAULTS:
-            raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_MULTI_DEVICE})")
-        elif value != ZERO_DEFAULTS[key]:
-            raise NotImplementedError(f"zero_optimization.{key}={value!r} is not ported: the port's step has "
-                                      f"nothing to bucket, overlap or partition ({ROADMAP_MULTI_DEVICE})")
-    return ZeroConfig(stage=stage, zero_quantized_gradients=bool(qgz), zeropp_loco_param=loco)
+        cfg.zeropp_loco_param = {"err_beta": float(loco.get("err_beta", ZEROPP_LOCO_ERR_BETA_DEFAULT))}
+    cfg.zero_quantized_gradients = bool(cfg.zero_quantized_gradients)
+    return cfg
 
 
 class DeepSpeedConfig:
@@ -336,9 +392,6 @@ class DeepSpeedConfig:
 
         self.zero_config = _zero_config(pd.get(ZERO_OPTIMIZATION))
         self.dp_world_size = dp_world_size()
-        if self.dp_world_size > 1 and self.zero_config.stage > 0:
-            raise NotImplementedError(f"ZeRO stage {self.zero_config.stage} over {self.dp_world_size} data-parallel "
-                                      f"ranks: partitioning is not ported, stage 0 runs ({ROADMAP_MULTI_DEVICE})")
         self.fp16_config = _block(FP16Config, FP16, pd.get(FP16))
         self.bf16_config = _block(BF16Config, BFLOAT16, pd.get(BFLOAT16, pd.get(BFLOAT16_OLD)))
         self.optimizer_config = _block(OptimizerConfig, OPTIMIZER, pd[OPTIMIZER]) if OPTIMIZER in pd else None

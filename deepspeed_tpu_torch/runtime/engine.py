@@ -47,9 +47,20 @@ The gradients then become the mean over the ranks on one of two wires:
 The quantized wire carries each tensor in the JAX package's layout: flax
 kernels are the transposes of ``nn.Linear`` weights, so the 256-element
 blocks cover the same elements and every code and scale equals the JAX
-engine's.  ZeRO stages 1-2 are the single-device update on one rank and
-raise over several (partitioning is not ported); stage 3 raises.  The
-returned loss is a device tensor: reading it is the caller's sync.
+engine's.  The returned loss is a device tensor: reading it is the caller's
+sync.
+
+ZeRO stages 1-3 on one rank are the single-device update, as JAX at
+``data=1`` shards nothing.  Over several ranks they partition the state as
+the JAX package's shardings do (``runtime/zero/partitioned.py``, a Llama-
+family model): the master and the moments from stage 1, the reduced
+gradients from stage 2 (reduce-scattered), the compute-dtype parameters at
+stage 3 (gathered block by block around each block's forward, and again for
+its remat recompute).  The arithmetic stays the JAX step's; the global
+norm, ``found_inf`` and LAMB's norms are reduced over the slices.
+``module_state_dict()`` and the checkpoints hold whole tensors whatever the
+stage; a layout in which nothing shards (MiCS over one rank, no dim the
+world divides) runs stage 0.
 
 The CommsLogger sees the step as JAX logs its jitted step: the qgZ/LoCo
 exchange as one ``all_to_all_quant_reduce`` entry per step, and none of
@@ -91,6 +102,7 @@ remat policy) and ``comms_logger``.
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional
 
@@ -114,13 +126,14 @@ from ..utils.logging import log_dist, logger
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER,
                            NoopTimer, SynchronizedWallClockTimer, ThroughputTimer)
 from .comm.compressed import GroupedQuantAllreduce
-from .config import ROADMAP_OFFLOAD, ROADMAP_TRAINING_FEATURES, DeepSpeedConfig
+from .config import ROADMAP_TRAINING_FEATURES, DeepSpeedConfig
 from .constants import (ACTIVATION_CHECKPOINTING, ADAGRAD_OPTIMIZER, ADAM_OPTIMIZER, ADAMW_OPTIMIZER,
                         CPU_ADAM_OPTIMIZER, FUSED_ADAM_OPTIMIZER, FUSED_LAMB_OPTIMIZER, LAMB_OPTIMIZER,
                         LION_OPTIMIZER, ONEBIT_OPTIMIZERS, SGD_OPTIMIZER)
 from .fp16.loss_scaler import StaticLossScaler, create_loss_scaler, found_inf_or_nan
 from .lr_schedules import LRSchedulerShim, get_lr_schedule
 from .progressive_layer_drop import ProgressiveLayerDrop, pld_scale_for_step
+from .zero.partitioned import PartitionedState
 
 #: the optimizers of the JAX engine's ``OPTIMIZER_FACTORIES`` (``engine.py:54-67``)
 #: that the port builds; the 1-bit family raises (``ONEBIT_OPTIMIZERS``)
@@ -215,9 +228,6 @@ class DeepSpeedEngine:
         self.loss_fn = loss_fn or _default_loss_fn
         self.model_inputs_fn = model_inputs_fn or _default_model_inputs
         self.zero_stage = config.zero_optimization_stage
-        if self.zero_stage == 3:
-            raise NotImplementedError(f"ZeRO stage 3 is not ported ({ROADMAP_OFFLOAD}); stages 0-2 are one "
-                                      "single-device update here")
         self.compute_dtype = config.precision_dtype
         self.gas = config.gradient_accumulation_steps
         self.dp_rank, self.dp_world = comm.get_rank(), comm.get_world_size()
@@ -244,16 +254,32 @@ class DeepSpeedEngine:
                 for t in self.module.state_dict().values():
                     comm.broadcast(t, 0)
         self.use_master = self.compute_dtype != torch.float32
-        with torch.no_grad():
-            named = [(n, p) for n, p in self.module.named_parameters() if p.is_floating_point()]
-            #: the names of ``params`` (and of ``master``), in order
-            self.param_names: List[str] = [n for n, _ in named]
-            float_params = [p for _, p in named]
-            self.master: List[torch.Tensor] = [p.detach().float().clone() for p in float_params] \
-                if self.use_master else []
-            for p in float_params:
-                p.data = p.data.to(self.compute_dtype)
-        self.params: List[nn.Parameter] = float_params
+        #: the module's state-dict names, in order (stage 3 moves the
+        #: parameters out of the module)
+        self._state_names = list(self.module.state_dict())
+        named = [(n, p) for n, p in self.module.named_parameters() if p.is_floating_point()]
+        #: the names of ``params`` (and of ``master``), in order
+        self.param_names: List[str] = [n for n, _ in named]
+        float_params = [p for _, p in named]
+        #: the partitioned state of stages 1-3 over several ranks, or None
+        self.zero: Optional[PartitionedState] = None
+        if self.dp_world > 1 and self.zero_stage >= 1:
+            zero = PartitionedState(self.module, self.param_names, self.zero_stage, config.zero_config)
+            self.zero = zero if zero.active else None
+        if self.zero is not None:
+            #: the compute-dtype parameters (this rank's slices at stage 3),
+            #: the float32 master (this rank's slices), and the tensors the
+            #: optimizer updates (the master, or in float32 the parameters' slices)
+            self.params, self.master, self._targets = self.zero.setup(self.module, float_params, self.compute_dtype,
+                                                                      self.use_master)
+        else:
+            with torch.no_grad():
+                self.master: List[torch.Tensor] = [p.detach().float().clone() for p in float_params] \
+                    if self.use_master else []
+                for p in float_params:
+                    p.data = p.data.to(self.compute_dtype)
+            self.params: List[nn.Parameter] = float_params
+            self._targets = self.master if self.use_master else self.params
 
         # ---- loss scaling, LR schedule, optimizer
         self.loss_scaler = create_loss_scaler(config.fp16_config, self.compute_dtype)
@@ -263,6 +289,8 @@ class DeepSpeedEngine:
             self.loss_scaler.init_scale == 1.0 and self.compute_dtype != torch.float16
         self.lr_base, self.lr_schedule = self._build_lr_schedule(lr_scheduler)
         self.optimizer = self._build_optimizer(optimizer)
+        if self.zero is not None and hasattr(self.optimizer, "reduce_norms"):
+            self.optimizer.reduce_norms = self.zero.lamb_norms   # LAMB's trust ratio per whole tensor
         self._configure_gradient_wire()
         if lr_scheduler is None or callable(lr_scheduler) and not hasattr(lr_scheduler, "step"):
             self.lr_scheduler = LRSchedulerShim(self.lr_schedule)
@@ -302,9 +330,13 @@ class DeepSpeedEngine:
         self._pending_loss: Optional[torch.Tensor] = None
         self._micro_step_count = 0
         self._last_batch = None
-        n_params = sum(p.numel() for p in self.params)
+        #: the last global batch ``train_batch`` took (``utils/tensor_fragment`` recomputes its gradients)
+        self.last_batch = None
+        n_params = sum(p.numel() for p in self.params) if self.zero is None else \
+            sum(math.prod(pp.shape) for pp in self.zero.param_parts)
         log_dist(f"DeepSpeedEngine: device={self.device} zero_stage={self.zero_stage} dtype={self.compute_dtype} "
                  f"gas={self.gas} params={n_params / 1e6:.1f}M dp_world={self.dp_world} "
+                 f"partitioned={self.zero is not None} "
                  f"wire={'qgZ' if self.qgz else 'fp32'}{'+LoCo' if self.loco_error is not None else ''}",
                  ranks=[0])
 
@@ -339,7 +371,7 @@ class DeepSpeedEngine:
         return base_lr, (lambda step: base_lr)
 
     def _build_optimizer(self, client_optimizer):
-        target = self.master if self.use_master else self.params
+        target = self._targets
         if client_optimizer is not None:
             if isinstance(client_optimizer, torch.optim.Optimizer) or not callable(client_optimizer):
                 raise TypeError("optimizer= must be a factory params -> torch.optim.Optimizer: the engine builds "
@@ -492,6 +524,14 @@ class DeepSpeedEngine:
 
     def _accumulate(self, loss: torch.Tensor) -> None:
         (loss * self.scaler_state.cur_scale).float().backward()
+        if self.zero is not None and self.zero_stage >= 2:
+            # stage 3's backward reduce-scattered its gradients block by block
+            if self.zero_stage == 2:
+                self.zero.reduce_micro([p.grad for p in self.params], self.params)
+            for p in self.params:
+                p.grad = None
+            self._pending = self.zero.pending
+            return
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self._pending is None:
             self._pending = [g.float() for g in grads]
@@ -556,6 +596,8 @@ class DeepSpeedEngine:
         with comm.unrecorded():
             if reduce_loss:
                 loss = comm.all_reduce(loss.reshape(1), op).reshape(())
+            if self.zero is not None and self.zero_stage >= 2:   # reduce-scattered already
+                return grads, loss
             if not self.qgz:
                 return [comm.all_reduce(g, op) for g in grads], loss
         if self.loco_error is not None:
@@ -592,8 +634,11 @@ class DeepSpeedEngine:
         if cfg.gradient_predivide_factor != 1.0:
             inv = inv / cfg.gradient_predivide_factor
         torch._foreach_mul_(grads, inv)
-        found_inf = None if self.static_unity else found_inf_or_nan(grads)
-        grad_norm = global_norm(grads)
+        if self.zero is not None:
+            grad_norm, found_inf = self.zero.norm_and_found_inf(grads, check_inf=not self.static_unity)
+        else:
+            found_inf = None if self.static_unity else found_inf_or_nan(grads)
+            grad_norm = global_norm(grads)
         if self.qgz:
             # per-rank values in the manual step (JAX :795-802): reduce so
             # that every rank clips with the same scale
@@ -606,16 +651,19 @@ class DeepSpeedEngine:
         elif cfg.gradient_clipping and cfg.gradient_clipping > 0:
             clip_scale = torch.clamp(cfg.gradient_clipping / (grad_norm + 1e-6), max=1.0)
             torch._foreach_mul_(grads, clip_scale)
-        target = self.master if self.use_master else self.params
-        for t, g in zip(target, grads):
+        if self.zero is not None:
+            grads = self.zero.state_grads(grads)
+        for t, g in zip(self._targets, grads):
             t.grad = g
         if found_inf is None:
             self.optimizer.step()
         else:
             self.optimizer.step(found_inf=found_inf)
-        for t in target:
+        for t in self._targets:
             t.grad = None
-        if self.use_master:
+        if self.zero is not None:
+            self.zero.refresh_params(self.compute_dtype)
+        elif self.use_master:
             torch._foreach_copy_([p.data for p in self.params], self.master)
         self.scaler_state = self.loss_scaler.update(self.scaler_state, found_inf)
         if found_inf is None:
@@ -646,7 +694,7 @@ class DeepSpeedEngine:
             micro = [next(data_iter) for _ in range(self.gas)]
             batch = {k: np.concatenate([np.asarray(m[k]) for m in micro]) for k in micro[0]} \
                 if self.gas > 1 else micro[0]
-        batch = self._to_device(batch)
+        self.last_batch = batch = self._to_device(batch)
         # the chaos site around the step (JAX :1290): one ``is None`` test
         # when no plan is armed
         fault_injection.check("engine.step")
@@ -662,6 +710,8 @@ class DeepSpeedEngine:
             with self.tracer.span("engine/fwd_bwd", parent=step_span, track="engine"):
                 self._step_pld_scale()
                 self._pending, self._pending_loss = None, None
+                if self.zero is not None:
+                    self.zero.pending = None
                 loss_sum = None
                 for i in range(self.gas):
                     global_mb = self._rank_micro_batch(batch, i, ranks=self.dp_world) if self._gather_loss else None
@@ -776,6 +826,8 @@ class DeepSpeedEngine:
             return None
         self.timers(STEP_GLOBAL_TIMER).start()
         grads, self._pending = self._pending, None
+        if self.zero is not None:
+            self.zero.pending = None
         grads, loss = self._reduce_over_ranks(grads, self._pending_loss / self._micro_step_count, reduce_loss=False)
         metrics = self._apply_grads(grads, loss)
         self._pending_loss, self._micro_step_count = None, 0
@@ -847,5 +899,85 @@ class DeepSpeedEngine:
     def get_lr(self):
         return [float(self.lr_schedule(self.global_steps))]
 
-    def module_state_dict(self):
-        return self.module.state_dict()
+    def module_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with whole tensors whatever the stage (JAX
+        returns global arrays); at stage 3 a collective over the ranks."""
+        if self.zero is None or self.zero_stage < 3:
+            return self.module.state_dict()
+        sd = self.module.state_dict()
+        sd.update(zip(self.param_names, self.zero.full_params()))
+        return {k: sd[k] for k in self._state_names}
+
+    @torch.no_grad()
+    def load_module_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Load whole tensors (``module_state_dict``'s) into the model: at
+        stage 3 each rank keeps its slices."""
+        if self.zero is None or self.zero_stage < 3:
+            self.module.load_state_dict(sd, strict=True)
+            return
+        missing = set(self._state_names) - set(sd)
+        if missing:
+            raise KeyError(f"state dict lacks {sorted(missing)}")
+        params = set(self.param_names)
+        self.module.load_state_dict({k: v for k, v in sd.items() if k not in params}, strict=False)
+        for i, name in enumerate(self.param_names):
+            self.zero.set_full_param(i, sd[name].to(device=self.device, dtype=self.compute_dtype), master=False)
+
+    @torch.no_grad()
+    def set_full_param(self, name: str, value: torch.Tensor) -> None:
+        """Write the whole value of parameter ``name`` (port layout) into
+        the compute-dtype parameter (this rank's slice at stage 3) and the
+        float32 master (its slice from stage 1)."""
+        i = self.param_names.index(name)
+        value = value.to(self.device)
+        if self.zero is not None:
+            self.zero.set_full_param(i, value)
+            return
+        self.params[i].data.copy_(value)
+        if self.use_master:
+            self.master[i].copy_(value)
+
+    def full_master(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The float32 master by parameter name, whole tensors (None in float32)."""
+        if not self.use_master:
+            return None
+        tensors = self.master if self.zero is None else self.zero.full_state(self.master)
+        return dict(zip(self.param_names, tensors))
+
+    @torch.no_grad()
+    def load_full_master(self, master: Dict[str, torch.Tensor]) -> None:
+        for i, (name, m) in enumerate(zip(self.param_names, self.master)):
+            value = master[name].to(device=m.device, dtype=torch.float32)
+            m.copy_(value if self.zero is None else self.zero.local_state(i, value))
+
+    def full_optimizer_state_dict(self) -> dict:
+        """The optimizer's ``state_dict()`` with each per-parameter tensor
+        whole (port layout), as a stage-0 engine's."""
+        sd = self.optimizer.state_dict()
+        if self.zero is None:
+            return sd
+        # the packed per-tensor dicts are the optimizer's own: copy before replacing
+        state = sd["state"] = {i: dict(st) for i, st in sd["state"].items()}
+        keys = sorted({k for st in state.values() for k, v in st.items()
+                       if isinstance(v, torch.Tensor) and v.dim() > 0})
+        for key in keys:
+            for i, f in enumerate(self.zero.full_state([state[i][key] for i in range(len(self._targets))])):
+                state[i][key] = f
+        return sd
+
+    def load_full_optimizer_state_dict(self, sd: dict) -> None:
+        """Load ``full_optimizer_state_dict``'s form: each rank keeps its slices."""
+        if self.zero is not None:
+            sd = {**sd, "state": {i: {k: (self.zero.local_state(i, v.to(self.device)).clone()
+                                         if isinstance(v, torch.Tensor) and v.dim() > 0 else v)
+                                      for k, v in st.items()}
+                                  for i, st in sd["state"].items()}}
+        self.optimizer.load_state_dict(sd)
+
+    def state_bytes(self) -> Dict[str, int]:
+        """The bytes of training state this rank holds: its compute-dtype
+        parameters, float32 master and optimizer moments."""
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        moments = [v for st in self.optimizer.state.values() for v in st.values()
+                   if isinstance(v, torch.Tensor) and v.dim() > 0]
+        return {"params": nbytes(self.params), "master": nbytes(self.master), "moments": nbytes(moments)}

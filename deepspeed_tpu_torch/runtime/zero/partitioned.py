@@ -1,0 +1,381 @@
+"""The training state of ZeRO stages 1-3 over several data-parallel ranks:
+what the JAX package's GSPMD step does with its shardings, done with
+explicit collectives on ``torch.distributed``.
+
+Each parameter has three partitions (``partition.py``): its own
+(``module_inject/tp_rules.py``: sharded at stage 3), its float32 master's
+and moments' (stage >= 1) and its reduced gradient's (stage >= 2).  Rank r
+keeps only its slice of each.  The step's arithmetic is the JAX step's,
+which does not depend on the stage:
+
+  * stage 1: the gradients are summed whole over the ranks (the float32
+    wire of stage 0); each rank updates its slice of the master and the
+    moments;
+  * stage 2: each micro-batch's gradients are reduce-scattered in float32
+    onto the slices and accumulated there, never summed whole;
+  * stage 3: the compute-dtype parameters are slices too.  Each block of the
+    model (an element of a ``ModuleList``, such as ``layers``; the rest of
+    the model is one more unit, around the whole forward) is gathered by a
+    forward pre-hook (``_GatherUnit``, an ``autograd.Function``: one
+    all-gather of the block's slices) and released by the forward hook, so
+    no whole weight outlives its block.  Under remat
+    (``torch.utils.checkpoint``) the recompute gathers again; the
+    function's backward reduce-scatters the block's gradients onto the
+    slices (and releases what the recompute gathered).
+
+Then, on the slices: ``found_inf`` is reduced with a sum of counts over the
+ranks (a rank sees only its slices); the global norm is the sum of squares
+over the slices, summed over the ranks, plus each whole tensor's once;
+LAMB's trust ratio takes its norms per whole tensor (``lamb_norms``); the
+optimizer updates the slices, and the new compute-dtype parameters are
+all-gathered (stages 1-2) or cast in place (stage 3).  In float32 the
+optimizer's tensors are views of the parameters (the JAX state has no
+separate master there).
+
+Every collective of a step is one flat buffer of the tensors concerned
+(``all_gather_parts``, ``reduce_scatter_parts``); bf16 and fp16 slices
+are gathered as their bit patterns, bit for bit.  The collectives are not
+recorded into the CommsLogger (``comm.unrecorded``), as JAX logs its jitted
+step.
+"""
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ...comm import comm
+from ...comm.mesh import get_global_mesh
+from ...models.convert import jax_leaves
+from ...module_inject.tp_rules import param_shardings
+from ..fp16.loss_scaler import found_inf_or_nan
+from .mics import resolve_partition_axes
+from .partition import Partition, grad_shardings, master_and_optstate_shardings
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """The contiguous ``t`` as its bytes: an all-gather moves bit patterns
+    (gloo gathers no 16-bit floats)."""
+    return t.view(-1).view(torch.uint8)
+
+
+def all_gather_parts(parts: Sequence[Partition], local: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The whole JAX-shaped tensors from every rank's slices (``local``: this
+    rank's, of one dtype): one all-gather of the sharded ones; a whole
+    tensor is returned as it is."""
+    out: List[Optional[torch.Tensor]] = list(local)
+    idx = [i for i, p in enumerate(parts) if p.sharded]
+    if not idx:
+        return out
+    world = comm.get_world_size()
+    flat = torch.cat([local[i].reshape(-1) for i in idx])
+    full = flat.new_empty((world, flat.numel()))
+    with comm.unrecorded():
+        comm.all_gather_into_tensor(_bytes(full), _bytes(flat))
+    off = 0
+    for i in idx:
+        p = parts[i]
+        n = p.local_numel
+        out[i] = full[:, off:off + n].reshape((world, ) + p.local_shape).movedim(0, p.dim).reshape(p.jax_shape)
+        off += n
+    return out
+
+
+def reduce_scatter_parts(parts: Sequence[Partition], full: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The sum over the ranks of the JAX-shaped float32 tensors ``full``,
+    this rank's slice of each: one reduce-scatter of the sharded ones and
+    one all-reduce of the whole ones."""
+    world = comm.get_world_size()
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    sharded = [i for i, p in enumerate(parts) if p.sharded]
+    whole = [i for i, p in enumerate(parts) if not p.sharded]
+    with comm.unrecorded():
+        if sharded:
+            total = sum(parts[i].local_numel for i in sharded)
+            buf = full[sharded[0]].new_empty((world, total))
+            off = 0
+            for i in sharded:
+                p, n = parts[i], parts[i].local_numel
+                d = p.dim
+                split = full[i].reshape(p.jax_shape[:d] + (world, p.jax_shape[d] // world) + p.jax_shape[d + 1:])
+                buf[:, off:off + n].view((world, ) + p.local_shape).copy_(split.movedim(d, 0))
+                off += n
+            mine = buf.new_empty(total)
+            comm.reduce_scatter_tensor(mine, buf.view(-1))
+            off = 0
+            for i in sharded:
+                n = parts[i].local_numel
+                out[i] = mine[off:off + n].view(parts[i].local_shape)
+                off += n
+        if whole:
+            flat = torch.cat([full[i].reshape(-1) for i in whole])
+            comm.all_reduce(flat, comm.ReduceOp.SUM)
+            off = 0
+            for i in whole:
+                n = full[i].numel()
+                out[i] = flat[off:off + n].view(parts[i].jax_shape)
+                off += n
+    return out
+
+
+class _GatherUnit(torch.autograd.Function):
+    """Forward: the unit's whole compute-dtype parameters from the ranks'
+    slices.  Backward: their gradients reduce-scattered in float32 onto this
+    rank's slices (added into the partitioned state's pending sums); the
+    slices themselves get no ``.grad``."""
+
+    @staticmethod
+    def forward(ctx, unit, *shards):
+        ctx.unit = unit
+        return tuple(unit.gather(shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ctx.unit.reduce(grads)
+        ctx.unit.release()
+        return (None, ) * (1 + len(grads))
+
+
+class _Unit:
+    """The parameters of one gathered unit (a block, or the rest of the
+    model), and the module attributes they fill while gathered."""
+
+    def __init__(self, zero: "PartitionedState", idxs: List[int], owners: List[Tuple[nn.Module, str]]):
+        self.zero = zero
+        self.idxs = idxs
+        self.owners = owners
+
+    def gather(self, shards) -> List[torch.Tensor]:
+        z = self.zero
+        parts = [z.param_parts[i] for i in self.idxs]
+        full = all_gather_parts(parts, list(shards))
+        return [p.port_view(f if p.sharded else f.clone()) for p, f in zip(parts, full)]
+
+    def reduce(self, grads) -> None:
+        z = self.zero
+        parts = [z.grad_parts[i] for i in self.idxs]
+        full = [p.jax_view(g.float()) for p, g in zip(parts, grads)]
+        z.add_pending(self.idxs, reduce_scatter_parts(parts, full))
+
+    def fill(self) -> None:
+        shards = [self.zero.params[i] for i in self.idxs]
+        full = _GatherUnit.apply(self, *shards)
+        for (mod, attr), t in zip(self.owners, full):
+            mod.__dict__[attr] = t
+
+    def release(self) -> None:
+        for mod, attr in self.owners:
+            mod.__dict__[attr] = None
+
+
+def _units(module: nn.Module) -> List[Tuple[str, nn.Module]]:
+    """The gathered units of ``module``: each element of its outermost
+    ``ModuleList``s, then the module itself (its remaining parameters)."""
+    units: List[Tuple[str, nn.Module]] = []
+    for name, mod in module.named_modules():
+        if isinstance(mod, nn.ModuleList) and not any(name.startswith(u + ".") for u, _ in units):
+            units.extend((f"{name}.{i}" if name else str(i), child) for i, child in enumerate(mod))
+    return units + [("", module)]
+
+
+class PartitionedState:
+    """The partitions of a model's parameters for ZeRO ``stage`` over the
+    process group, and the slices this rank keeps (see the module
+    docstring).  ``active`` is False when nothing is sharded (no dim divides
+    the world, or MiCS takes one rank): the engine then runs stage 0."""
+
+    def __init__(self, module: nn.Module, names: Sequence[str], stage: int, zero_config):
+        mesh = get_global_mesh()
+        self.stage = stage
+        self.rank = comm.get_rank()
+        leaves = jax_leaves(module)
+        param_axes, state_axes = resolve_partition_axes(mesh, zero_config, stage)
+        params = param_shardings(leaves, mesh, stage, fsdp_axes=param_axes)
+        state = master_and_optstate_shardings(params, mesh, stage, zero_axes=state_axes)
+        grads = grad_shardings(params, mesh, stage, zero_axes=state_axes)
+        self.names = list(names)
+        self.param_parts = [params[n] for n in self.names]
+        self.state_parts = [state[n] for n in self.names]
+        self.grad_parts = [grads[n] for n in self.names]
+        self.active = any(p.sharded for p in self.state_parts + self.grad_parts + self.param_parts)
+        self.params: List[torch.Tensor] = []
+        self.targets: List[torch.Tensor] = []
+        self.pending: Optional[List[torch.Tensor]] = None
+        self.use_master = False
+        self._units: List[_Unit] = []
+
+    # ------------------------------------------------------------ set-up
+
+    @torch.no_grad()
+    def setup(self, module: nn.Module, params: Sequence[nn.Parameter], compute_dtype: torch.dtype,
+              use_master: bool) -> Tuple[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor]]:
+        """Take the module's (whole, replicated) float parameters: keep this
+        rank's master slices, cast the parameters to ``compute_dtype`` and,
+        at stage 3, replace them by their slices.  Returns ``(params,
+        master, optimizer targets)``."""
+        self.use_master = use_master
+        r = self.rank
+        master = [sp.local(sp.jax_view(p.detach().float()), r).clone() for sp, p in zip(self.state_parts, params)] \
+            if use_master else []
+        for p in params:
+            p.data = p.data.to(compute_dtype)
+        if self.stage < 3:
+            self.params = list(params)
+        else:
+            self.params = [nn.Parameter(pp.local(pp.jax_view(p.detach()), r).clone(), requires_grad=p.requires_grad)
+                           for pp, p in zip(self.param_parts, params)]
+            self._install_units(module)
+        if use_master:
+            self.targets = master
+        else:
+            self.targets = [self._own_view(i) for i in range(len(self.names))]
+        return self.params, master, self.targets
+
+    def _own_view(self, i: int) -> torch.Tensor:
+        """This rank's slice of parameter ``i`` under the state partition, a
+        view of the parameter (float32 training: the optimizer's tensor)."""
+        pp, sp, p = self.param_parts[i], self.state_parts[i], self.params[i]
+        if pp.sharded:   # stage 3: the parameter is the slice
+            return p.data
+        return sp.local(sp.jax_view(p.data) if self.stage < 3 else p.data, self.rank)
+
+    def _install_units(self, module: nn.Module) -> None:
+        """Move the parameters out of the module into the units that gather
+        them, and hook each unit's forward."""
+        index = {n: i for i, n in enumerate(self.names)}
+        claimed = set()
+        for prefix, mod in _units(module):
+            idxs, owners = [], []
+            for pname, _ in mod.named_parameters():
+                name = f"{prefix}.{pname}" if prefix else pname
+                if name in claimed or name not in index:
+                    continue
+                claimed.add(name)
+                owner_name, _, attr = name.rpartition(".")
+                owner = module.get_submodule(owner_name)
+                idxs.append(index[name])
+                owners.append((owner, attr))
+            if not idxs:
+                continue
+            unit = _Unit(self, idxs, owners)
+            for owner, attr in owners:
+                del owner._parameters[attr]
+            unit.release()
+            mod.register_forward_pre_hook(lambda m, a, u=unit: u.fill())
+            mod.register_forward_hook(lambda m, a, o, u=unit: u.release())
+            self._units.append(unit)
+
+    # ------------------------------------------------------------ gradients
+
+    def add_pending(self, idxs: Sequence[int], slices: Sequence[torch.Tensor]) -> None:
+        """Add reduced gradient slices into the step's float32 sums."""
+        if self.pending is None:
+            self.pending = [torch.zeros(g.local_shape, dtype=torch.float32, device=self.targets[0].device)
+                            for g in self.grad_parts]
+        for i, s in zip(idxs, slices):
+            self.pending[i].add_(s)
+
+    def reduce_micro(self, grads: Sequence[Optional[torch.Tensor]], like: Sequence[torch.Tensor]) -> None:
+        """Stage 2: one micro-batch's whole local gradients (port layout;
+        None as zeros) reduce-scattered onto the slices."""
+        full = [gp.jax_view(g.float() if g is not None else torch.zeros_like(p, dtype=torch.float32))
+                for gp, g, p in zip(self.grad_parts, grads, like)]
+        self.add_pending(range(len(full)), reduce_scatter_parts(self.grad_parts, full))
+
+    def state_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The reduced gradients on the optimizer's slices: stage 1 cuts
+        them from the whole sums; from stage 2 they are the slices."""
+        if self.stage >= 2:
+            return list(grads)
+        return [sp.local(sp.jax_view(g), self.rank) for sp, g in zip(self.state_parts, grads)]
+
+    def norm_and_found_inf(self, grads: Sequence[torch.Tensor],
+                           check_inf: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The global norm of the reduced gradients (``grads`` in the
+        gradient partition) and, with ``check_inf``, whether any value is
+        not finite, the same on every rank."""
+        sharded = [self.stage >= 2 and p.sharded for p in self.grad_parts]
+        sq = torch.stack(torch._foreach_norm([g.float() for g in grads])).square()
+        mask = torch.tensor(sharded, device=sq.device)
+        local = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+        whole = torch.where(mask, torch.zeros_like(sq), sq).sum()
+        inf = found_inf_or_nan(list(grads)).float() if check_inf else None
+        if any(sharded):
+            vec = torch.stack([local, inf if inf is not None else torch.zeros_like(local)])
+            with comm.unrecorded():
+                comm.all_reduce(vec, comm.ReduceOp.SUM)
+            local, inf = vec[0], (vec[1] if inf is not None else None)
+        norm = (local + whole).sqrt()
+        return norm, (None if inf is None else inf > 0)
+
+    def lamb_norms(self, params: Sequence[torch.Tensor], w_norm: torch.Tensor,
+                   u_norm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """LAMB's per-tensor norms of the parameter and the update, of the
+        whole tensors: the squares of the sharded slices' norms summed over
+        the ranks (one all-reduce)."""
+        by_id = {id(t): sp.sharded for t, sp in zip(self.targets, self.state_parts)}
+        sharded = [by_id[id(p)] for p in params]
+        if not any(sharded):
+            return w_norm, u_norm
+        mask = torch.tensor(sharded, device=w_norm.device)
+        sq = torch.stack([w_norm, u_norm]).square()
+        red = torch.where(mask, sq, torch.zeros_like(sq))
+        with comm.unrecorded():
+            comm.all_reduce(red, comm.ReduceOp.SUM)
+        sq = torch.where(mask, red, sq).sqrt()
+        return sq[0], sq[1]
+
+    # ------------------------------------------------------------ parameters
+
+    @torch.no_grad()
+    def refresh_params(self, compute_dtype: torch.dtype) -> None:
+        """The compute-dtype parameters from the updated optimizer slices:
+        cast in place where the parameter is partitioned as its state, else
+        all-gathered whole."""
+        gather = [i for i in range(len(self.names)) if self.param_parts[i].spec != self.state_parts[i].spec]
+        for i in range(len(self.names)):
+            if i not in gather and self.use_master:
+                self._param_jax(i).copy_(self.targets[i])
+        if not gather:
+            return
+        local = [self.targets[i].to(compute_dtype) for i in gather]
+        full = all_gather_parts([self.state_parts[i] for i in gather], local)
+        for i, f in zip(gather, full):
+            self._param_jax(i).copy_(f)
+
+    def _param_jax(self, i: int) -> torch.Tensor:
+        """Parameter ``i`` as this rank holds it, JAX-shaped (a view)."""
+        p = self.params[i].data
+        return self.param_parts[i].jax_view(p) if self.stage < 3 else p
+
+    def full_params(self, idxs: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+        """Whole compute-dtype parameters ``idxs`` (all by default), port
+        layout (a collective at stage 3)."""
+        idxs = range(len(self.names)) if idxs is None else idxs
+        if self.stage < 3:
+            return [self.params[i].detach() for i in idxs]
+        parts = [self.param_parts[i] for i in idxs]
+        full = all_gather_parts(parts, [self.params[i].detach() for i in idxs])
+        return [p.port_view(f).contiguous() for p, f in zip(parts, full)]
+
+    def full_state(self, local: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Whole port-layout tensors from slices in the state partition
+        (the master, a moment: one collective)."""
+        full = all_gather_parts(self.state_parts, [t.detach() for t in local])
+        return [p.port_view(f).contiguous() for p, f in zip(self.state_parts, full)]
+
+    def local_state(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's state slice of tensor ``i`` from its whole port-layout value."""
+        sp = self.state_parts[i]
+        return sp.local(sp.jax_view(full), self.rank)
+
+    @torch.no_grad()
+    def set_full_param(self, i: int, value: torch.Tensor, master: bool = True) -> None:
+        """Write the whole value of parameter ``i`` (port layout) into this
+        rank's parameter (its slice at stage 3) and, with ``master``, its
+        master slice."""
+        pp = self.param_parts[i]
+        own = pp.local(pp.jax_view(value), self.rank) if self.stage >= 3 else pp.jax_view(value)
+        self._param_jax(i).copy_(own)
+        if master and self.use_master:
+            self.targets[i].copy_(self.local_state(i, value))

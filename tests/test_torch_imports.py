@@ -46,6 +46,17 @@ SLICE_MODULES = [
     "deepspeed_tpu_torch.runtime.lr_schedules",
     "deepspeed_tpu_torch.runtime.fp16.loss_scaler",
     "deepspeed_tpu_torch.runtime.engine",
+    "deepspeed_tpu_torch.runtime.zero",
+    "deepspeed_tpu_torch.runtime.zero.partition",
+    "deepspeed_tpu_torch.runtime.zero.partitioned",
+    "deepspeed_tpu_torch.runtime.zero.partition_parameters",
+    "deepspeed_tpu_torch.runtime.zero.mics",
+    "deepspeed_tpu_torch.runtime.zero.tiling",
+    "deepspeed_tpu_torch.runtime.sparse_tensor",
+    "deepspeed_tpu_torch.module_inject.tp_rules",
+    "deepspeed_tpu_torch.utils.groups",
+    "deepspeed_tpu_torch.utils.tensor_fragment",
+    "deepspeed_tpu_torch.axes",
     "deepspeed_tpu_torch.ops.op_builder",
     "deepspeed_tpu_torch.inference.v2",
     "deepspeed_tpu_torch.inference.v2.ragged",

@@ -308,11 +308,14 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
     assert c.precision_dtype == torch.bfloat16 and c.zero_optimization_stage == 2
     assert (c.gradient_clipping, c.gradient_predivide_factor, c.steps_per_print) == (1.0, 2.0, 5)
     assert DeepSpeedConfig({**base, "zero_optimization": {"stage": 1, "overlap_comm": None}}).zero_config.stage == 1
+    # the JAX package's bucket knobs are read and recorded (tests/test_torch_zero.py has them all)
+    assert DeepSpeedConfig({**base, "zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}
+                           ).zero_config.reduce_bucket_size == 10
     unported = [{"pipeline": {"stages": 2}}, {"tensor_parallel": {"autotp_size": 2}}, {"sequence_parallel_size": 2},
                 {"moe": {"enabled": True, "expert_parallel_size": 2}}, {"compression_training": {"weight_quantization": {}}},
                 {"checkpoint": {"load_universal": True}},
                 {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
-                {"zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}, {"hybrid_engine": {"enabled": True}}]
+                {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, {"hybrid_engine": {"enabled": True}}]
     for extra in unported:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DeepSpeedConfig({**base, **extra})
@@ -472,9 +475,12 @@ def test_initialize_surface():
     assert eng.zero_optimization_stage() == 1 and eng.zero_optimization()
     assert eng.loss_scale == 1.0 and eng.skipped_steps == 0 and eng.get_global_grad_norm() is None
     assert len(eng.master) == len(list(model.parameters())) and all(m.dtype == torch.float32 for m in eng.master)
-    for bad in ({"zero_optimization": {"stage": 3}}, {"optimizer": {"type": "OneBitAdam"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tds.initialize(model=model, config={"train_batch_size": 2, **bad}, device="cpu")
+    # stage 3 on one rank is the single-device update, as JAX at data=1
+    eng3 = tds.initialize(model=model, config={"train_batch_size": 2, "zero_optimization": {"stage": 3}},
+                          device="cpu")[0]
+    assert eng3.zero_optimization_stage() == 3 and eng3.zero is None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tds.initialize(model=model, config={"train_batch_size": 2, "optimizer": {"type": "OneBitAdam"}}, device="cpu")
     # the dataloader is ported (tests/test_torch_training_features.py): the
     # third element is a loader of global micro-batches
     loader = tds.initialize(model=model, config={"train_batch_size": 2}, training_data=[np.zeros(4)] * 5,
