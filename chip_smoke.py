@@ -251,6 +251,29 @@ source, all started together.  Phases:
      float32 at 2 layers of 125M width in the same spawn, every stage
      against stage 0 (losses within rtol 1e-5, parameters within 1e-6 on
      all but 1e-3 of the entries).
+ 26. offload, after phase 24 (phase 1 prints the host's ``MemTotal`` and
+     ``MemAvailable``): Phi-2 as phase 24 trains it but at 8 of its 32
+     blocks (widths kept, for the script's time), first without offload
+     (two steps: the reference), then with the host-optimizer tier
+     (``offload_optimizer: {device: cpu}``: float32 master and moments in
+     pinned host memory, Adam on the host CPU; one step, then the updated
+     weights' loss by ``eval_batch``) and the host-streamed tier
+     (``pipeline_read``, 10 groups, two staged at once on the card; a warm,
+     a flushed timed and a serialized probe step) — step ms and its split
+     (forward/backward, gradients device -> host, host Adam or the stream
+     pipeline, parameters host -> device), tokens/s, peak device GB against
+     the reference's, pinned host bytes against 12 B a parameter,
+     K1/K2a/K2b once per layer per step (and per eval forward), the first
+     two losses against the reference's; Llama-125M as phase 6 trains
+     it with the NVMe tier (swap files in a temporary directory; bytes read
+     and written a step against 12 B a parameter; a rebuilt engine resuming
+     the swap files continues exactly), with ``offload_param`` at stage 3
+     (host copies a step: 2 per block and one for the rest; peak below, and
+     losses within bf16 of, the engine without offload),
+     ``offload_states``/``reload_states`` (the device frees the state's
+     bytes; it comes back bit for bit), and phase 15's step-2 checkpoint
+     converted to universal atoms and loaded into a fresh ZeRO-2 engine,
+     whose next loss equals the resumed engine's.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -354,7 +377,13 @@ def reset_launch_counts() -> None:
     quantize_int4_cuda.routes = dict.fromkeys(Q4_ROUTES, 0)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's heading gets the script's seconds so far."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -367,11 +396,24 @@ def card() -> str:
 # ---------------------------------------------------------------- phase 1
 
 
+def host_memory() -> dict:
+    """``MemTotal`` and ``MemAvailable`` of ``/proc/meminfo``, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(value.split()[0]) * 1024
+    return out
+
+
 def phase_environment() -> dict:
     smi = card()
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    mem = host_memory()
+    log(f"host memory: MemTotal {mem['MemTotal'] / 1e9:.2f} GB, MemAvailable {mem['MemAvailable'] / 1e9:.2f} GB")
     t_all = time.perf_counter()
 
     def build(name):
@@ -394,7 +436,7 @@ def phase_environment() -> dict:
     spills = {k: r for k, r in {**regs, **flash_regs}.items() if r["spill_bytes"]}
     if spills:
         raise AssertionError(f"ptxas spills in the bf16 K6b/K6c or K1/K2a/K2b: {spills}")
-    return {"card": smi, "sparse_bwd_registers": regs, "flash_registers": flash_regs}
+    return {"card": smi, "sparse_bwd_registers": regs, "flash_registers": flash_regs, "host_memory": mem}
 
 
 def ptxas_report(output: str, names) -> dict:
@@ -1189,6 +1231,282 @@ def phase_flash_kernels() -> dict:
     return timed
 
 
+# ---------------------------------------------------------------- phase 26
+
+#: Phi-2's depth in this phase (32 in phase 24; widths kept): a quarter of
+#: the blocks, for the script's time
+OFFLOAD_PHI2_LAYERS = 8
+#: tier b's groups: two staged groups of the state (3 x 4 B a parameter / 10 each)
+OFFLOAD_BUFFER_COUNT = 10
+OFFLOAD_STAGING_LIMIT = 8e9
+OFFLOAD_LLAMA_TIMED = 2
+
+
+def offload_split(engine, wall_s: float) -> dict:
+    """Tier a's step in parts: the forward, backward and norm (the rest of
+    the wall), the gradients device -> host, the host optimizer, the new
+    parameters host -> device (the tier's own fenced seconds)."""
+    split = {k: 1e3 * v for k, v in engine._host_opt.last_split.items()}
+    return {"fwd_bwd_ms": 1e3 * wall_s - sum(split.values()),
+            "grads_d2h_ms": split["d2h_s"], "host_adam_ms": split["host_opt_s"], "params_h2d_ms": split["h2d_s"]}
+
+
+def phi_2_offload_run(tier: str, zero: dict, smi: str) -> dict:
+    """Phi-2 as phase 24 trains it (published widths, B 2 of S 2048, bf16,
+    AdamW, remat ``flash_saveable``, seed 24) at ``OFFLOAD_PHI2_LAYERS``
+    blocks: ``plain`` (no offload) two steps, the second timed; tier a one
+    timed step, then the loss of the updated weights on the same batch
+    (``eval_batch``, the plain run's second loss); tier b one warm step, one
+    flushed timed step and one serialized probe (``measure_stream_overlap``'s
+    two modes)."""
+    hf = ZOO["phi-2"][0]
+    cfg = dataclasses.replace(policy_for("phi").build_config(hf), remat=True, remat_policy="flash_saveable",
+                              attention_impl="flash", num_hidden_layers=OFFLOAD_PHI2_LAYERS)
+    layers = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(24).integers(0, cfg.vocab_size, (ZOO_TRAIN_B, ZOO_TRAIN_S),
+                                                              dtype=np.int32)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    acc = get_accelerator()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = seed_weights_(training_model(cfg), seed=24)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={**ZOO_TRAIN_DS_CONFIG, "zero_optimization": zero},
+                                                device="cuda")
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.params)
+    before = flash_launches()
+    report, split = None, None
+    if tier in ("plain", "a"):
+        losses = [float(engine.train_batch(batch=batch))] if tier == "plain" else []
+        acc.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        wall_s = time.perf_counter() - t0
+        steps = len(losses)
+        if tier == "a":
+            split = offload_split(engine, wall_s)
+            losses.append(float(engine.eval_batch(batch=batch)))
+    else:
+        losses = [float(engine.train_batch(batch=batch))]                 # warm
+        acc.synchronize()
+        t0 = time.perf_counter()
+        engine._nvme_step_mode = "flush"
+        loss = engine.train_batch(batch=batch)
+        engine._nvme_step_mode = None
+        acc.synchronize()
+        wall_s = time.perf_counter() - t0
+        losses.append(float(loss))
+        engine._nvme_step_mode = "serialize"
+        losses.append(float(engine.train_batch(batch=batch)))
+        engine._nvme_step_mode = None
+        report = engine._nvme_opt.overlap_report()
+        split = {"fwd_bwd_ms": 1e3 * (wall_s - report["pipelined_wall_s"]),
+                 "stream_pipeline_ms": 1e3 * report["pipelined_wall_s"],
+                 "probe_upload_ms": 1e3 * report["upload_s"], "probe_adam_ms": 1e3 * report["compute_s"],
+                 "probe_download_ms": 1e3 * report["download_s"]}
+        steps = 3
+    launches = tuple(a - b for a, b in zip(flash_launches(), before))
+    res = {"tier": tier, "params": n_params, "layers": layers, "build_s": build_s, "step_ms": 1e3 * wall_s,
+           "split": split, "tok_s": ZOO_TRAIN_B * ZOO_TRAIN_S / wall_s,
+           "peak_mem_gb": acc.max_memory_allocated() / 1e9, "pinned_host_bytes": engine.offload_bytes(),
+           "reckoned_state_bytes": 12 * n_params, "losses": losses, "steps": steps,
+           "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), launches)), "card": smi}
+    if report is not None:
+        res["overlap"] = {k: v for k, v in report.items() if k != "per_group"}
+        res["staging_bytes"] = engine._nvme_opt.staging_bytes()
+        res["groups"] = engine._nvme_opt.n_groups
+    log(f"  Phi-2 ({layers} layers), offload tier {tier}: " + json.dumps(res))
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def llama_offload_run(zero: dict, steps: int, batch, state) -> tuple:
+    """Llama-125M as phase 6 trains it, under ``zero``: (engine, losses)."""
+    engine = build_trainer(llama_125m(), {**BENCH_DS_CONFIG, "zero_optimization": zero}, state=state)
+    return engine, [float(engine.train_batch(batch=batch)) for _ in range(steps)]
+
+
+def state_digest(engine) -> str:
+    """sha256 of the master and every optimizer state tensor, in order."""
+    h = hashlib.sha256()
+    for t in list(engine.master) + [v for st in engine.optimizer.state.values() for v in st.values()
+                                    if isinstance(v, torch.Tensor) and v.dim() > 0]:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_offload(smi: str, universal_src: dict) -> dict:
+    """The offload tiers (ZeRO-Offload and ZeRO-Infinity) and the universal
+    checkpoint on the card: Phi-2 at ``OFFLOAD_PHI2_LAYERS`` blocks without
+    offload and through tiers a (host Adam) and b (the host-streamed
+    pipeline); Llama-125M through tier c (NVMe swap files
+    under a temporary directory: bytes a step, a resume continuing exactly),
+    tier d (parameters in host memory at stage 3) against the plain engine,
+    ``offload_states``/``reload_states``; phase 15's step-2 checkpoint
+    converted to atoms and loaded into a fresh ZeRO-2 engine."""
+    t_phase = time.perf_counter()
+    res, checks = {"card": smi, "host_memory": host_memory()}, {}
+    cfg = llama_125m()
+    layers = cfg.num_hidden_layers
+    reset_launch_counts()   # the offload path's launches: every run of the phase
+    # ---- Phi-2 at OFFLOAD_PHI2_LAYERS blocks: no offload, then tiers a and b
+    plain = res["phi2_plain"] = phi_2_offload_run("plain", {"stage": 0}, smi)
+    for tier, zero in (("a", {"stage": 0, "offload_optimizer": {"device": "cpu"}}),
+                       ("b", {"stage": 0, "offload_optimizer": {"device": "cpu", "pipeline_read": True,
+                                                                 "buffer_count": OFFLOAD_BUFFER_COUNT}})):
+        run = phi_2_offload_run(tier, zero, smi)
+        res[f"phi2_{tier}"] = run
+        n = run["params"]
+        # tier a: one step and the forward of its eval
+        fwd, bwd = (2, 1) if tier == "a" else (3, 3)
+        checks[f"phi2_{tier}_k1_k2_once_per_layer_per_step"] = \
+            list(run["launches"].values()) == [run["layers"] * k for k in (fwd, bwd, bwd)]
+        checks[f"phi2_{tier}_first_loss_is_the_plain_runs"] = run["losses"][0] == plain["losses"][0]
+        # the updated weights' loss: tier a's eval, tier b's second step
+        checks[f"phi2_{tier}_second_loss_within_bf16"] = abs(run["losses"][1] - plain["losses"][1]) <= \
+            1e-2 * abs(plain["losses"][1])
+        checks[f"phi2_{tier}_losses_finite"] = bool(np.all(np.isfinite(run["losses"])))
+        checks[f"phi2_{tier}_pinned_state_is_12_bytes_a_param"] = run["pinned_host_bytes"]["optimizer"] == 12 * n
+        # the device no longer holds the master and the moments (12 B a parameter); tier b
+        # stages two groups of them at a time
+        staged = run.get("staging_bytes", 0)
+        checks[f"phi2_{tier}_peak_below_the_plain_runs"] = \
+            run["peak_mem_gb"] < plain["peak_mem_gb"] - (0.8 * 12 * n - staged) / 1e9
+    checks["phi2_b_staging_within_limit"] = res["phi2_b"]["staging_bytes"] <= OFFLOAD_STAGING_LIMIT
+
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (BENCH_B, BENCH_S),
+                                                             dtype=np.int32)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    seed_model = LlamaForCausalLM(cfg, device="cuda")
+    init_weights_(seed_model, torch.Generator(device="cuda").manual_seed(26))
+    state = {k: v.clone() for k, v in seed_model.state_dict().items()}
+    del seed_model
+
+    # ---- Llama-125M: tier c, then a resume on a copy of its swap files
+    work = tempfile.mkdtemp(prefix="smoke_nvme_")
+    try:
+        swap, swap2 = os.path.join(work, "swap"), os.path.join(work, "swap2")
+        nvme = {"stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": swap}}
+        t0 = time.perf_counter()
+        eng = build_trainer(cfg, {**BENCH_DS_CONFIG, "zero_optimization": nvme}, state=state)
+        build_s = time.perf_counter() - t0
+        nv = eng._nvme_opt
+        losses = [float(eng.train_batch(batch=batch))]
+        r0, w0 = nv.bytes_read, nv.bytes_written
+        t0 = time.perf_counter()
+        for _ in range(OFFLOAD_LLAMA_TIMED):
+            loss = eng.train_batch(batch=batch)
+        losses.append(float(loss))
+        step_s = (time.perf_counter() - t0) / OFFLOAD_LLAMA_TIMED
+        n = sum(p.numel() for p in eng.params)
+        per_step = {"read": (nv.bytes_read - r0) / OFFLOAD_LLAMA_TIMED,
+                    "written": (nv.bytes_written - w0) / OFFLOAD_LLAMA_TIMED}
+        eng.save_checkpoint(os.path.join(work, "ckpt"), tag="t")          # flushes the swap files
+        shutil.copytree(swap, swap2)
+        continued = float(eng.train_batch(batch=batch))
+        digest = hashlib.sha256(b"".join(p.detach().float().cpu().numpy().tobytes() for p in eng.params)).hexdigest()
+        del eng, nv
+        gc.collect()
+        resumed = build_trainer(cfg, {**BENCH_DS_CONFIG, "zero_optimization": {
+            "stage": 2, "offload_optimizer": {"device": "nvme", "nvme_path": swap2}}}, state=state)
+        resumed.load_checkpoint(os.path.join(work, "ckpt"), tag="t", load_optimizer_states=False)
+        resumed_loss = float(resumed.train_batch(batch=batch))
+        resumed_digest = hashlib.sha256(b"".join(p.detach().float().cpu().numpy().tobytes()
+                                                 for p in resumed.params)).hexdigest()
+        del resumed
+        gc.collect()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["llama_c"] = {"params": n, "build_s": build_s, "step_ms": 1e3 * step_s,
+                      "tok_s": BENCH_B * BENCH_S / step_s, "bytes_per_step": per_step,
+                      "reckoned_bytes_per_step": 12 * n, "losses": losses, "continued_loss": continued,
+                      "resumed_loss": resumed_loss}
+    log("  Llama-125M, offload tier c (NVMe): " + json.dumps(res["llama_c"]))
+    checks["llama_c_bytes_12_a_param_each_way"] = per_step == {"read": 12 * n, "written": 12 * n}
+    checks["llama_c_resume_exact"] = resumed_loss == continued and resumed_digest == digest
+    checks["llama_c_losses_finite"] = bool(np.all(np.isfinite(losses)))
+
+    # ---- Llama-125M: tier d at stage 3 against the engine without offload; offload_states
+    acc = get_accelerator()
+    runs = {}
+    for name, zero in (("plain", {"stage": 3}), ("d", {"stage": 3, "offload_param": {"device": "cpu"}})):
+        acc.synchronize()
+        acc.reset_peak_memory_stats()
+        base = acc.memory_allocated()
+        eng, losses = llama_offload_run(zero, 2, batch, state)
+        runs[name] = {"losses": losses, "peak_mem_gb": (acc.max_memory_allocated() - base) / 1e9,
+                      "h2d_copies_per_step": eng.zero.h2d_copies / 2 if eng.zero is not None else None,
+                      "host_param_bytes": eng.offload_bytes()["params"]}
+        if name == "plain":
+            before = state_digest(eng)
+            state_bytes = eng.state_bytes()
+            acc.synchronize()
+            m0 = acc.memory_allocated()
+            eng.offload_states(device="cpu")
+            acc.synchronize()
+            m1 = acc.memory_allocated()
+            eng.reload_states()
+            runs["offload_states"] = {"device_bytes_before": m0, "device_bytes_offloaded": m1,
+                                      "dropped": m0 - m1, "state_bytes": state_bytes["master"] + state_bytes["moments"],
+                                      "tensors": 3 * len(eng.master), "bit_for_bit": state_digest(eng) == before}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["llama_d"] = runs
+    log("  Llama-125M, offload tier d and offload_states: " + json.dumps(runs))
+    checks["llama_d_h2d_copies_2L_plus_1_per_step"] = runs["d"]["h2d_copies_per_step"] == 2 * layers + 1
+    checks["llama_d_peak_below_no_offload"] = runs["d"]["peak_mem_gb"] < runs["plain"]["peak_mem_gb"]
+    checks["llama_d_losses_within_bf16"] = bool(np.allclose(runs["d"]["losses"], runs["plain"]["losses"], rtol=1e-2,
+                                                            atol=0))
+    os_ = runs["offload_states"]
+    # the caching allocator counts whole blocks: a large tensor keeps the rest of its
+    # segment when that rest is under 1 MiB, so a little more than the state is freed
+    checks["offload_states_frees_the_state"] = os_["state_bytes"] <= os_["dropped"] <= 1.01 * os_["state_bytes"]
+    checks["offload_states_bit_for_bit"] = os_["bit_for_bit"]
+
+    # ---- the universal checkpoint: phase 15's step-2 tag as atoms into a fresh ZeRO-2 engine
+    from deepspeed_tpu_torch.checkpoint import convert_to_universal, load_universal_checkpoint
+    try:
+        t0 = time.perf_counter()
+        dst = convert_to_universal(os.path.join(universal_src["dir"], "ckpt"), os.path.join(universal_src["dir"],
+                                                                                              "universal"),
+                                   tag=universal_src["tag"])
+        convert_s = time.perf_counter() - t0
+        eng = build_trainer(cfg, BENCH_DS_CONFIG, seed=3)
+        t0 = time.perf_counter()
+        load_universal_checkpoint(eng, dst)
+        load_s = time.perf_counter() - t0
+        ids3 = torch.from_numpy(universal_src["ids"]).cuda()
+        loss = float(eng.train_batch(batch={"input_ids": ids3, "labels": ids3}))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(universal_src["dir"], ignore_errors=True)
+    res["universal"] = {"convert_s": convert_s, "load_s": load_s, "next_loss": loss,
+                        "resumed_next_loss": universal_src["resumed_loss"]}
+    log("  universal checkpoint: " + json.dumps(res["universal"]))
+    checks["universal_next_loss_equals_resumed"] = loss == universal_src["resumed_loss"]
+
+    res["launches"] = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), flash_launches()))
+    # Phi-2: 2 + 1 + 3 steps and tier a's eval forward; Llama-125M: tier c 1 + 2 + 1 (continued)
+    # + 1 (resumed), tier d and its baseline 2 + 2, the universal engine 1
+    steps_125m = 1 + OFFLOAD_LLAMA_TIMED + 2 + 2 + 2 + 1
+    phi = OFFLOAD_PHI2_LAYERS
+    checks["k1_k2_launches_layers_x_steps"] = list(res["launches"].values()) == \
+        [phi * 7 + layers * steps_125m] + [phi * 6 + layers * steps_125m] * 2
+    res["checks"] = checks
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"  offload checks ({res['phase_s']:.1f} s): " + json.dumps(checks))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"offload phase failed {bad}")
+    return res
+
+
 # ---------------------------------------------------------------- phase 6
 
 BENCH_B, BENCH_S = 24, 1024
@@ -1563,12 +1881,15 @@ def optimizer_run(cfg, ds_config, batch, steps, device) -> dict:
 
 
 def phase_training_features(smi: str, cfg: LlamaConfig = None, rows: int = BENCH_B, seq: int = BENCH_S,
-                            device: str = "cuda") -> dict:
+                            device: str = "cuda", keep_step2: bool = False) -> dict:
     """Llama-125M as phase 6 trains it, through the training features of
     ``initialize``: the dataloader, crash-safe checkpoints (sync, async),
     the fallback from a corrupt ``latest``, LAMB/Lion/Adagrad/SGD,
     progressive layer drop, the synchronized timers and the CSV monitor.
-    ``device="cpu"`` with a tiny ``cfg`` rehearses it without a card."""
+    ``device="cpu"`` with a tiny ``cfg`` rehearses it without a card.
+    ``keep_step2``: the step-2 checkpoint stays (moved to a directory of its
+    own) for phase 26's universal check, which removes it; ``res["universal"]``
+    names it with the third batch and the resumed engine's loss on it."""
     cuda = device == "cuda"
     cfg = cfg or llama_125m()
     layers = cfg.num_hidden_layers
@@ -1683,6 +2004,10 @@ def phase_training_features(smi: str, cfg: LlamaConfig = None, rows: int = BENCH
         gc.collect()
     finally:
         resilience_events.attach_monitor(None)
+        kept = None
+        if keep_step2 and os.path.isdir(save_dir):
+            kept = tempfile.mkdtemp(prefix=".smoke_phase15_step2_", dir=os.path.dirname(work))
+            os.rename(save_dir, os.path.join(kept, "ckpt"))
         shutil.rmtree(work, ignore_errors=True)
     res["launches"] = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
                                (flash_fwd_cuda.launches, flash_dq_cuda.launches, flash_dkv_cuda.launches)))
@@ -1721,6 +2046,9 @@ def phase_training_features(smi: str, cfg: LlamaConfig = None, rows: int = BENCH
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"phase 15 failed {failed}: async diff {async_diff[:5]}")
+    if kept is not None:
+        third = np.stack([d["input_ids"] for d in data[2 * rows:3 * rows]])
+        res["universal"] = {"dir": kept, "tag": "step2", "ids": third, "resumed_loss": res["resumed_losses"][0]}
     return res
 
 
@@ -4944,7 +5272,8 @@ INTERNLM_7B = {"model_type": "internlm", "vocab_size": 103168, "hidden_size": 40
                "num_hidden_layers": 32, "num_attention_heads": 32, "max_position_embeddings": 2048,
                "rms_norm_eps": 1e-6, "bias": True, "torch_dtype": "float16"}
 ZOO_TRAIN_B, ZOO_TRAIN_S = 2, 2048         # Phi-2 at full width and depth
-ZOO_TRAIN_WARMUP, ZOO_TRAIN_TIMED = 2, 3
+# one timed step (three until phase 26 needed the room)
+ZOO_TRAIN_WARMUP, ZOO_TRAIN_TIMED = 2, 1
 ZOO_TRAIN_DS_CONFIG = {"train_batch_size": ZOO_TRAIN_B, "optimizer": {"type": "AdamW",
                                                                       "params": {"lr": 1e-4, "weight_decay": 0.01}},
                        "bf16": {"enabled": True}, "steps_per_print": 0}
@@ -5183,11 +5512,14 @@ def main() -> int:
     phase_training_parity_f32()
     phase_training_parity_bf16()
     log("== phase 15: training features on Llama-125M (dataloader, checkpoints, optimizers, PLD, timers, monitor)")
-    features = phase_training_features(env["card"])
+    features = phase_training_features(env["card"], keep_step2=True)
     log(f"== phase 20: training Mixtral-8x7B's widths ({MOE_TRAIN_LAYERS} layer) with the router loss")
     moe_training = phase_moe_training(env["card"])
     log(f"== phase 24: training the dense zoo (Phi-2 at full depth; {ZOO_LAYERS} layers of seven more families)")
     zoo_training = phase_zoo_training(env["card"])
+    log(f"== phase 26: offload (host Adam and the host-streamed tier on Phi-2 at {OFFLOAD_PHI2_LAYERS} layers; "
+        "NVMe, parameters in host memory, offload_states and the universal checkpoint on Llama-125M)")
+    offload = phase_offload(env["card"], features.pop("universal"))
     log("== phase 8: K6a/K6b/K6c block-sparse attention vs their plain versions")
     sparse = phase_sparse_kernels()
     log("== phase 9: the sparse path: DeepSpeedConfig -> SparseSelfAttention forward and backward")
@@ -5232,7 +5564,8 @@ def main() -> int:
         by_path = {"training": training["launches"][name], "training_features": features["launches"][name],
                    "moe_training": moe_training["launches"][name],
                    "gpt2_training": v1["gpt2_training"]["launches"][name],
-                   "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"]}
+                   "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"],
+                   "offload": offload["launches"][name]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",

@@ -11,3 +11,4 @@ KV_HEADS = "kv_heads"
 HEAD_DIM = "head_dim"
 VOCAB = "vocab"
 LAYERS = "layers"
+POSITIONS = "positions"   # a learned position table (GPT-2's wpe; replicated)

@@ -12,7 +12,13 @@ dict in the compute dtype), ``master`` (the float32 master by parameter
 name, or None in float32), ``opt_state`` (the optimizer's ``state_dict()``:
 its moments and both step counts, the device step that overflow skips leave
 behind included), ``step``, ``scaler`` (the loss scaler's device tensors),
-``skipped_steps`` and ``loco_error`` (LoCo's error buffers, or None).
+``skipped_steps``, ``loco_error`` (LoCo's error buffers, or None), and the
+parameters' names and JAX leaves (``param_names``, ``jax_leaves``: what
+``ds_to_universal`` names and shapes its atoms by).  Under
+a streamed offload tier (``runtime/swap_tensor``) the master and the
+optimizer's state are the tier's: the host tier writes its groups into the
+tag directory (``host_opt_group*.npz``, through ``extra_state_cb``), the
+NVMe tier keeps its swap files, and the tree holds neither.
 ``meta.json`` has JAX's keys.
 
 Durability contract — the save sequence is ordered so a crash at ANY point
@@ -191,6 +197,8 @@ def engine_state(engine) -> dict:
         "scaler": engine.scaler_state._asdict(),
         "skipped_steps": engine.skipped,
         "loco_error": engine.loco_error,
+        "param_names": list(engine.param_names),
+        "jax_leaves": engine.jax_leaf_map,
     }
 
 
@@ -203,11 +211,13 @@ def restore_engine_state(engine, restored: dict, load_optimizer_states: bool = T
     under ``load_module_only`` or without ``load_optimizer_states``)."""
     from ..runtime.fp16.loss_scaler import LossScalerState
     engine.load_module_state_dict(restored["params"])
-    if engine.use_master:
+    streamed = engine._nvme_opt is not None   # the tier restores its own state (``load_checkpoint``)
+    if engine.use_master and not streamed:
         if restored["master"] is None:
-            raise ValueError("the checkpoint holds no float32 master (a float32 run): the engine trains with one")
+            raise ValueError("the checkpoint holds no float32 master (a float32 run, or a streamed offload tier's): "
+                             "the engine trains with one")
         engine.load_full_master(restored["master"])
-    if load_optimizer_states and not load_module_only:
+    if load_optimizer_states and not load_module_only and not streamed:
         engine.load_full_optimizer_state_dict(restored["opt_state"])
     engine.scaler_state = LossScalerState(**{k: v.to(engine.device) for k, v in restored["scaler"].items()})
     engine.skipped.copy_(restored["skipped_steps"])

@@ -63,11 +63,14 @@ and its step, the loss scaler, the skipped steps and the step count.  A JAX
 run can then be continued by the port.
 
 ``jax_leaves`` goes the other way for the ZeRO partition rules
-(``runtime/zero/partition.py``): for each parameter of a port Llama, the
-shape of its JAX leaf in the unrolled tree (``scan_layers=False``), whether
-the port tensor is that leaf's transpose (an ``nn.Linear`` weight), and the
-leaf's logical axes (JAX ``llama.py``; a leaf without them, as a
-``DenseGeneral`` bias, has none).
+(``runtime/zero/partition.py``) and the universal checkpoint
+(``checkpoint/ds_to_universal.py``): for each parameter of a port Llama,
+Falcon, OPT, Phi or GPT-2 training model, the shape of its JAX leaf in the
+unrolled tree (``scan_layers=False``), whether the port tensor is that
+leaf's transpose (an ``nn.Linear`` weight), the leaf's logical axes (the JAX
+models' ``with_logical_partitioning``; a leaf without them, as a
+``DenseGeneral`` bias or a flax ``LayerNorm`` outside GPT-2, has none) and
+its path in the JAX tree.
 """
 
 import dataclasses
@@ -77,8 +80,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..axes import EMBED, HEAD_DIM, HEADS, KV_HEADS, MLP, VOCAB
-from .llama import LlamaConfig, RMSNorm
+from ..axes import EMBED, HEAD_DIM, HEADS, KV_HEADS, MLP, POSITIONS, VOCAB
+from .llama import LayerNorm, LlamaConfig, RMSNorm
 
 
 def _as_np(x) -> np.ndarray:
@@ -236,54 +239,119 @@ def jax_clip_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
 @dataclasses.dataclass(frozen=True)
 class JaxLeaf:
     """A port parameter's JAX leaf: its shape, the port tensor's, whether
-    the port tensor is the leaf's transpose (reshaped), and the leaf's
-    logical axes (``()`` for a leaf without them)."""
+    the port tensor is the leaf's transpose (reshaped), the leaf's logical
+    axes (``()`` for a leaf without them) and its path in the JAX model's
+    unrolled param tree (``model/layers_0/self_attn/q_proj/kernel``)."""
     shape: Tuple[int, ...]
     port_shape: Tuple[int, ...]
     transposed: bool
     logical: Tuple[Optional[str], ...]
+    path: str = ""
 
 
-#: the logical axes of a Llama ``nn.Linear`` kernel, by the module's name
-#: (JAX ``llama.py:384-426``, ``:509``), in the kernel's [in..., out...] order
-_LINEAR_AXES = {"q_proj": (EMBED, HEADS, HEAD_DIM), "k_proj": (EMBED, KV_HEADS, HEAD_DIM),
-                "v_proj": (EMBED, KV_HEADS, HEAD_DIM), "o_proj": (HEADS, HEAD_DIM, EMBED), "gate_proj": (EMBED, MLP),
-                "up_proj": (EMBED, MLP), "down_proj": (MLP, EMBED), "lm_head": (EMBED, VOCAB)}
+#: the kinds of JAX projection behind an ``nn.Linear``: ``heads`` a
+#: ``DenseGeneral`` to ``(N, D)`` (kernel ``[E, N, D]``, bias ``[N, D]``),
+#: ``out`` one over ``(H, D)`` (kernel ``[H, D, E]``), ``dense`` a 2-d kernel,
+#: ``qkv3`` GPT-2's fused ``c_attn`` (kernel ``[E, 3, H, D]``, bias ``[3, H, D]``)
+_HEADS, _OUT, _DENSE, _QKV3 = "heads", "out", "dense", "qkv3"
+
+_Q = (_HEADS, (EMBED, HEADS, HEAD_DIM), ())
+_KV = (_HEADS, (EMBED, KV_HEADS, HEAD_DIM), ())
+_O = (_OUT, (HEADS, HEAD_DIM, EMBED), ())
+_UP = (_DENSE, (EMBED, MLP), ())
+_DOWN = (_DENSE, (MLP, EMBED), ())
+_HEAD = (_DENSE, (EMBED, VOCAB), ())
+
+#: per family, each ``nn.Linear`` by its module's name (or ``parent.name``)
+#: → (kind, the kernel's logical axes, the bias's), from the JAX models'
+#: ``with_logical_partitioning`` calls (``deepspeed_tpu/models/{llama,falcon,
+#: opt,phi,gpt2}.py``); a kernel the JAX model leaves unannotated has ``()``
+_LINEARS = {
+    "llama": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "o_proj": _O, "gate_proj": _UP, "up_proj": _UP,
+              "down_proj": _DOWN, "lm_head": _HEAD},
+    "falcon": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "dense": _O, "dense_h_to_4h": _UP,
+               "dense_4h_to_h": _DOWN, "lm_head": _HEAD},
+    "opt": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "out_proj": _O, "fc1": _UP, "fc2": _DOWN, "lm_head": _HEAD,
+            "project_in": (_DENSE, (), ()), "project_out": (_DENSE, (), ())},
+    "phi": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "dense": _O, "fc1": _UP, "fc2": _DOWN, "lm_head": _HEAD},
+    "gpt2": {"attn.c_attn": (_QKV3, (EMBED, None, HEADS, HEAD_DIM), (None, HEADS, HEAD_DIM)),
+             "attn.c_proj": (_OUT, (HEADS, HEAD_DIM, EMBED), (EMBED, )),
+             "mlp.c_fc": (_DENSE, (EMBED, MLP), (MLP, )), "mlp.c_proj": (_DENSE, (MLP, EMBED), (EMBED, )),
+             "lm_head": _HEAD},
+}
+#: per family, each ``nn.Embedding`` by name → its logical axes
+_EMBEDDINGS = {"llama": {"embed_tokens": (VOCAB, EMBED)}, "falcon": {"word_embeddings": (VOCAB, EMBED)},
+               "opt": {"embed_tokens": (VOCAB, EMBED), "embed_positions": ()}, "phi": {"embed_tokens": (VOCAB, EMBED)},
+               "gpt2": {"wte": (VOCAB, EMBED), "wpe": (POSITIONS, EMBED)}}
+
+
+def _family(model: nn.Module) -> str:
+    from .falcon import FalconForCausalLM
+    from .gpt2 import GPT2LMHeadModel
+    from .llama import LlamaForCausalLM
+    from .opt import OPTForCausalLM
+    from .phi import PhiForCausalLM
+    for cls, name in ((LlamaForCausalLM, "llama"), (FalconForCausalLM, "falcon"), (OPTForCausalLM, "opt"),
+                      (PhiForCausalLM, "phi"), (GPT2LMHeadModel, "gpt2")):
+        if type(model) is cls:
+            return name
+    raise NotImplementedError(f"{type(model).__name__}: its JAX leaves are known for the Llama, Falcon, OPT, Phi and "
+                              "GPT-2 training models only, so it cannot be partitioned over several ranks "
+                              "(ROADMAP Queue 1 item 6.1 brings Mixtral's)")
+
+
+def _jax_path(family: str, module_name: str, leaf: str) -> str:
+    """The JAX unrolled tree's path of a port module's leaf: ``<stack>.<i>``
+    becomes ``<stack>_<i>``; Llama's blocks sit under ``model``."""
+    parts = module_name.split(".") if module_name else []
+    out = []
+    for p in parts:
+        if p.isdigit() and out:
+            out[-1] = f"{out[-1]}_{p}"
+        else:
+            out.append(p)
+    if family == "llama" and out and out[0].startswith("layers_"):
+        out.insert(0, "model")
+    return "/".join(out + [leaf])
 
 
 def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
-    """For each parameter of a port ``LlamaForCausalLM`` (a Llama-family
-    model: Llama, Mistral, Qwen2, InternLM, Phi-3), its JAX leaf.  A
-    parameter of another kind raises ``NotImplementedError``."""
+    """For each parameter of a port training model of the Llama family
+    (Llama, Mistral, Qwen2, InternLM, Phi-3), Falcon, OPT, Phi or GPT-2, its
+    JAX leaf in the unrolled tree (``scan_layers=False``).  Another model
+    raises ``NotImplementedError``."""
+    family = _family(model)
     cfg = model.cfg
     hd = cfg.head_dim
+    linears, embeds = _LINEARS[family], _EMBEDDINGS[family]
     out: Dict[str, JaxLeaf] = {}
     for mname, mod in model.named_modules():
         short = mname.rsplit(".", 1)[-1]
+        pair = ".".join(mname.split(".")[-2:])
         for pname, p in mod.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
             shape = tuple(p.shape)
-            if isinstance(mod, nn.Embedding) and short == "embed_tokens":
-                leaf = JaxLeaf(shape, shape, False, (VOCAB, EMBED))
+            if isinstance(mod, nn.Embedding) and short in embeds:
+                leaf = JaxLeaf(shape, shape, False, embeds[short], _jax_path(family, mname, "embedding"))
             elif isinstance(mod, RMSNorm):
-                leaf = JaxLeaf(shape, shape, False, (EMBED, ))
-            elif isinstance(mod, nn.Linear) and short in _LINEAR_AXES and pname == "weight":
-                axes = _LINEAR_AXES[short]
-                fan_out, fan_in = shape
-                if short == "o_proj":
-                    kernel = (fan_in // hd, hd, fan_out)
-                elif len(axes) == 3:
-                    kernel = (fan_in, fan_out // hd, hd)
+                leaf = JaxLeaf(shape, shape, False, (EMBED, ), _jax_path(family, mname, "weight"))
+            elif isinstance(mod, LayerNorm):
+                # flax LayerNorm: ``scale`` and ``bias``, annotated in GPT-2 only
+                logical = (EMBED, ) if family == "gpt2" else ()
+                leaf = JaxLeaf(shape, shape, False, logical,
+                               _jax_path(family, mname, "scale" if pname == "weight" else "bias"))
+            elif isinstance(mod, nn.Linear) and (pair in linears or short in linears):
+                kind, kernel_axes, bias_axes = linears[pair] if pair in linears else linears[short]
+                if pname == "weight":
+                    fan_out, fan_in = shape
+                    jshape = {_HEADS: (fan_in, fan_out // hd, hd), _OUT: (fan_in // hd, hd, fan_out),
+                              _DENSE: (fan_in, fan_out), _QKV3: (fan_in, 3, fan_out // (3 * hd), hd)}[kind]
+                    leaf = JaxLeaf(jshape, shape, True, kernel_axes, _jax_path(family, mname, "kernel"))
                 else:
-                    kernel = (fan_in, fan_out)
-                leaf = JaxLeaf(kernel, shape, True, axes)
-            elif isinstance(mod, nn.Linear) and short in ("q_proj", "k_proj", "v_proj") and pname == "bias":
-                leaf = JaxLeaf((shape[0] // hd, hd), shape, False, ())
-            elif isinstance(mod, nn.Linear) and short == "o_proj" and pname == "bias":
-                leaf = JaxLeaf(shape, shape, False, ())
+                    jshape = {_HEADS: (shape[0] // hd, hd), _QKV3: (3, shape[0] // (3 * hd), hd)}.get(kind, shape)
+                    leaf = JaxLeaf(jshape, shape, False, bias_axes, _jax_path(family, mname, "bias"))
             else:
-                raise NotImplementedError(f"parameter {name!r}: its JAX leaf is known for the Llama family only, "
-                                          "so it cannot be partitioned over several ranks (ROADMAP Queue 1 item 6)")
+                raise NotImplementedError(f"parameter {name!r} of {type(model).__name__}: no JAX leaf is known for it")
             out[name] = leaf
     return out
 

@@ -26,6 +26,8 @@ from .optimizer import LR, MasterOptimizer, add_weight_decay, resolve_lr
 
 class Adagrad(MasterOptimizer):
 
+    STATE_NAMES = ("accum", )
+
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-2, eps: float = 1e-10, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, eps=eps, weight_decay=weight_decay))
 
@@ -60,6 +62,10 @@ class Adagrad(MasterOptimizer):
 
 
 class SGD(MasterOptimizer):
+
+    @property
+    def STATE_NAMES(self):
+        return ("momentum", ) if self.defaults["momentum"] else ()
 
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-2, momentum: float = 0.0,
                  weight_decay: float = 0.0, nesterov: bool = False):

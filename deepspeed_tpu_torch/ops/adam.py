@@ -23,7 +23,7 @@ step + 1, as JAX evaluates it at ``state.step + 1`` (``adam.py:43-44``): a
 skipped step does not advance it.
 """
 
-from typing import Iterable, Optional
+from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -39,15 +39,69 @@ def _bias_correction(beta: float, step):
     return float(np.float32(1.0) - np.float32(beta)**np.float32(step))
 
 
+def adam_hyper(lr: LR = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0,
+               adam_w_mode: bool = True, bias_correction: bool = True, amsgrad: bool = False) -> dict:
+    """``FusedAdam``'s hyper-parameters with its defaults: what the streamed
+    offload tiers, which own no optimizer object, update with."""
+    if amsgrad:
+        raise ValueError("FusedAdam does not support the AMSGrad variant (parity with ref fused_adam.py)")
+    return dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay, adam_w_mode=adam_w_mode,
+                bias_correction=bias_correction)
+
+
+def _adam_math(params, grads, exp_avg, exp_avg_sq, step, group, in_place: bool):
+    """The update of the module docstring on lists of float32 tensors: the
+    new moments (``exp_avg``/``exp_avg_sq`` themselves when ``in_place``)
+    and the update ``u``."""
+    b1, b2 = group["betas"]
+    lr, wd, eps = resolve_lr(group["lr"], step), group["weight_decay"], group["eps"]
+    if not group["adam_w_mode"]:
+        grads = add_weight_decay(grads, params, wd)
+    if in_place:
+        m, v = exp_avg, exp_avg_sq
+        torch._foreach_mul_(m, b1)
+        torch._foreach_mul_(v, b2)
+    else:
+        m, v = torch._foreach_mul(exp_avg, b1), torch._foreach_mul(exp_avg_sq, b2)
+    torch._foreach_add_(m, torch._foreach_mul(grads, 1 - b1))
+    sq = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(sq, 1 - b2)
+    torch._foreach_add_(v, sq)
+    del sq
+    if group["bias_correction"]:
+        c1, c2 = _bias_correction(b1, step), _bias_correction(b2, step)
+    else:
+        c1 = c2 = 1.0
+    denom = torch._foreach_div(v, c2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(m, c1)
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_div_(upd, denom)
+    del denom
+    if group["adam_w_mode"] and wd > 0.0:
+        torch._foreach_add_(upd, torch._foreach_mul(params, -lr * wd))
+    return m, v, upd
+
+
+@torch.no_grad()
+def adam_update_(params: List[torch.Tensor], grads: List[torch.Tensor], exp_avg: List[torch.Tensor],
+                 exp_avg_sq: List[torch.Tensor], step, hyper: dict) -> None:
+    """One ``FusedAdam`` step without a skip on lists of float32 tensors, in
+    place: the 1-based ``step`` (a host int or a 0-d tensor) and ``hyper``
+    (``adam_hyper``).  The streamed offload tiers run it per group of leaves."""
+    _, _, upd = _adam_math(params, grads, exp_avg, exp_avg_sq, step, hyper, in_place=True)
+    torch._foreach_add_(params, upd)
+
+
 class FusedAdam(MasterOptimizer):
+
+    STATE_NAMES = ("exp_avg", "exp_avg_sq")
 
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, adam_w_mode: bool = True, bias_correction: bool = True,
                  amsgrad: bool = False):
-        if amsgrad:
-            raise ValueError("FusedAdam does not support the AMSGrad variant (parity with ref fused_adam.py)")
-        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
-                                      adam_w_mode=adam_w_mode, bias_correction=bias_correction))
+        super().__init__(params, adam_hyper(lr, betas, eps, weight_decay, adam_w_mode, bias_correction, amsgrad))
 
     @torch.no_grad()
     def step(self, closure=None, found_inf: Optional[torch.Tensor] = None):
@@ -58,39 +112,12 @@ class FusedAdam(MasterOptimizer):
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
-            b1, b2 = group["betas"]
-            lr, wd, eps = resolve_lr(group["lr"], step), group["weight_decay"], group["eps"]
             grads = [p.grad.float() for p in params]
             exp_avg, exp_avg_sq = self._state_lists(params, ("exp_avg", "exp_avg_sq"))
-            if not group["adam_w_mode"]:
-                grads = add_weight_decay(grads, params, wd)
             # without a skip the moments update in place; with one the new
             # values are built beside the old ones and selected
             skip = found_inf is not None
-            if skip:
-                m, v = torch._foreach_mul(exp_avg, b1), torch._foreach_mul(exp_avg_sq, b2)
-            else:
-                m, v = exp_avg, exp_avg_sq
-                torch._foreach_mul_(m, b1)
-                torch._foreach_mul_(v, b2)
-            torch._foreach_add_(m, torch._foreach_mul(grads, 1 - b1))
-            sq = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(sq, 1 - b2)
-            torch._foreach_add_(v, sq)
-            del sq
-            if group["bias_correction"]:
-                c1, c2 = _bias_correction(b1, step), _bias_correction(b2, step)
-            else:
-                c1 = c2 = 1.0
-            denom = torch._foreach_div(v, c2)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            upd = torch._foreach_div(m, c1)
-            torch._foreach_mul_(upd, -lr)
-            torch._foreach_div_(upd, denom)
-            del denom
-            if group["adam_w_mode"] and wd > 0.0:
-                torch._foreach_add_(upd, torch._foreach_mul(params, -lr * wd))
+            m, v, upd = _adam_math(params, grads, exp_avg, exp_avg_sq, step, group, in_place=not skip)
             if not skip:
                 torch._foreach_add_(params, upd)
                 continue

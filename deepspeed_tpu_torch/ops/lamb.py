@@ -33,6 +33,8 @@ from .optimizer import LR, MasterOptimizer, resolve_lr
 
 class FusedLamb(MasterOptimizer):
 
+    STATE_NAMES = ("exp_avg", "exp_avg_sq")
+
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, bias_correction: bool = True, max_coeff: float = 10.0,
                  min_coeff: float = 0.01):

@@ -23,6 +23,8 @@ from .optimizer import LR, MasterOptimizer, resolve_lr
 
 class FusedLion(MasterOptimizer):
 
+    STATE_NAMES = ("exp_avg", )
+
     def __init__(self, params: Iterable[torch.Tensor], lr: LR = 1e-4, betas=(0.9, 0.99), weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), weight_decay=weight_decay))
 

@@ -5,7 +5,7 @@ Lists of tensors take the place of the JAX pytrees; the ``torch._foreach_*``
 ops run each step over all tensors in a few launches, the role of the
 reference's multi-tensor CUDA kernels."""
 
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -103,6 +103,20 @@ class MasterOptimizer(torch.optim.Optimizer):
         keep = found_inf.bool()
         for old, new in pairs:
             torch._foreach_copy_(old, [torch.where(keep, o, n) for o, n in zip(old, new)])
+
+    #: the per-parameter state tensors the optimizer keeps (zeros at init)
+    STATE_NAMES: Tuple[str, ...] = ()
+
+    def init_state(self, zeros: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """Create every parameter's state now, each tensor ``zeros(p)`` (the
+        host offload tier puts them in its pinned arena) instead of at the
+        first step."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                for name in self.STATE_NAMES:
+                    if name not in st:
+                        st[name] = zeros(p)
 
     def _state_lists(self, params: Sequence[torch.Tensor], names: Sequence[str]) -> List[List[torch.Tensor]]:
         """Per state name, the list of each parameter's tensor (zeros the

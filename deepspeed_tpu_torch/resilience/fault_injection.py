@@ -70,15 +70,16 @@ from . import events
 
 #: every named injection site; ``check``/``writer_fault`` reject unknown
 #: names so a typo'd plan fails loudly instead of silently never firing.
-#: The JAX package's host-optimizer and swap sites (``host_opt.save``/``load``,
-#: ``swap.write``/``read``) join with their probes, when the offload tiers are
-#: ported (ROADMAP Queue 1 item 8).
 INJECTION_SITES = frozenset({
     "ckpt.state_save",      # orbax state-tree save (checkpoint/engine.py)
     "ckpt.state_restore",   # orbax state-tree restore
     "ckpt.meta_write",      # meta.json atomic write
     "ckpt.manifest_write",  # crc32 manifest atomic write
     "ckpt.latest_publish",  # 'latest' tag-file atomic publish
+    "host_opt.save",        # host-tier host_opt_group*.npz save (runtime/swap_tensor/host_streamed_optimizer.py)
+    "host_opt.load",        # host-tier host_opt_group*.npz load
+    "swap.write",           # NVMe/disk swap write issue (runtime/swap_tensor/swapper.py over ops/aio)
+    "swap.read",            # NVMe/disk swap read issue
     "engine.step",          # training-step dispatch (runtime/engine.py)
     "engine.verify_step",   # speculative verify dispatch (inference/v2/engine_v2.py)
     "engine.aot_compile",   # AOT serving-step warm-up compile (inference/v2/engine_v2.py warm_all)

@@ -12,7 +12,10 @@ several ranks by ``runtime/zero``; ``mics_shard_size`` and
 and ``zeropp_loco_param``, the ZeRO++ quantized gradient wire; every other
 knob of the JAX package's ``DeepSpeedZeroConfig`` is read and recorded, as
 there, where the port's step has no use for it),
-``gradient_clipping``, ``gradient_predivide_factor``, ``steps_per_print``,
+the offload blocks ``offload_optimizer`` and ``offload_param`` (the tiers of
+``runtime/engine.py``: host Adam, the host-streamed and the NVMe tiers, and
+the parameters in host memory), ``gradient_clipping``,
+``gradient_predivide_factor``, ``steps_per_print``,
 ``wall_clock_breakdown``, ``sparse_attention`` (kept as the raw dict, as
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
 ``progressive_layer_drop``, ``checkpoint`` and ``nebula`` (the checkpoint
@@ -23,8 +26,10 @@ model's ``remat_policy``, ``runtime/activation_checkpointing``),
 ``flops_profiler`` (``profiling/``) and ``comms_logger`` (``comm.configure``).
 Any other key with a non-default value raises
 ``NotImplementedError`` naming the ROADMAP item that brings it; in
-``zero_optimization`` so do qwZ (``zero_quantized_weights``, item 7) and
-offload (``offload_param``/``offload_optimizer`` to a device, item 8).
+``zero_optimization`` so does qwZ (``zero_quantized_weights``, item 7), and
+so does every offload field the JAX engine stores without acting on it
+(``fast_init``, ``ratio`` below 1, the parameter tier's buffer and NVMe
+fields, the deprecated ``cpu_offload*`` flags), naming the field.
 """
 
 import dataclasses
@@ -45,15 +50,13 @@ from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKP
                         WALL_CLOCK_BREAKDOWN_DEFAULT, WANDB, ZERO_OPTIMIZATION,
                         ZEROPP_LOCO_ERR_BETA_DEFAULT, ZEROPP_LOCO_PARAM)
 
-ROADMAP_OFFLOAD = "ROADMAP Queue 1 item 8, offload"
 ROADMAP_QWZ = "ROADMAP Queue 1 item 7, compressed comm (qwZ, the quantized weight all-gather of ZeRO-3)"
-ROADMAP_UNIVERSAL = "ROADMAP Queue 1 item 8, universal checkpoints"
 #: the training features still unported: compression and the 1-bit family
 ROADMAP_TRAINING_FEATURES = ("ROADMAP Queue 1 item 7, compressed comm (compression training, the 1-bit "
                              "optimizers)")
 ROADMAP_HYBRID_ENGINE = "ROADMAP Queue 1 item 5.4, the hybrid engine (it comes with item 7's linear/)"
 ROADMAP_EIGENVALUE = "ROADMAP Queue 1 item 7, MoQ and the eigenvalue"
-ROADMAP_AUXILIARIES = "ROADMAP Queue 1 item 8, offload and auxiliaries"
+ROADMAP_AUXILIARIES = "ROADMAP Queue 1 item 8, auxiliaries (elasticity, the data pipeline, activation offload)"
 
 #: top-level keys the port does not implement → the ROADMAP item that brings them
 UNPORTED_KEYS = {
@@ -121,6 +124,68 @@ class SchedulerConfig:
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+@dataclasses.dataclass
+class OffloadParamConfig:
+    """``zero_optimization.offload_param`` (JAX ``DeepSpeedZeroOffloadParamConfig``,
+    ``config.py:88``; ref: ``runtime/zero/offload_config.py``).  The engine
+    reads ``device`` (``cpu``, or ``nvme``, which JAX keeps in host memory
+    too); ``pin_memory`` is read as the port pins its host tensors on CUDA
+    whatever it says.  JAX stores the other fields without acting on them:
+    a non-default value raises naming it."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    max_in_cpu: int = 1_000_000_000
+    pin_memory: bool = False
+
+    def __post_init__(self):
+        _check_device("offload_param", self.device)
+        for f in ("nvme_path", "buffer_count", "buffer_size", "max_in_cpu"):
+            if getattr(self, f) != OffloadParamConfig.__dataclass_fields__[f].default:
+                raise NotImplementedError(f"zero_optimization.offload_param.{f}={getattr(self, f)!r}: the JAX engine "
+                                          "stores it without acting on it (its parameters stay in host memory), so "
+                                          "the port refuses it")
+
+
+@dataclasses.dataclass
+class OffloadOptimizerConfig:
+    """``zero_optimization.offload_optimizer`` (JAX
+    ``DeepSpeedZeroOffloadOptimizerConfig``, ``config.py:98``).  The engine
+    reads ``device``, ``nvme_path``, ``pipeline_read``/``pipeline_write``
+    (the host-streamed tier) and ``buffer_count`` (its groups);
+    ``pin_memory`` as ``offload_param``'s.  ``fast_init`` and a ``ratio``
+    below 1 (at stage 3; below it JAX refuses the config) are stored by JAX
+    without acting on them: they raise naming the field."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
+    ratio: float = 1.0
+
+    def __post_init__(self):
+        _check_device("offload_optimizer", self.device)
+        if not isinstance(self.buffer_count, int) or self.buffer_count < 0:
+            raise DeepSpeedConfigError(f"offload_optimizer.buffer_count must be >= 0, got {self.buffer_count!r}")
+        if not 0.0 <= float(self.ratio) <= 1.0:
+            raise DeepSpeedConfigError(f"offload_optimizer.ratio must be in [0, 1], got {self.ratio!r}")
+        if self.fast_init:
+            raise NotImplementedError("zero_optimization.offload_optimizer.fast_init: the JAX engine stores it "
+                                      "without acting on it, so the port refuses it")
+
+
+def _check_device(block: str, device) -> None:
+    if device not in OFFLOAD_DEVICES:
+        raise DeepSpeedConfigError(f"zero_optimization.{block}.device must be one of {OFFLOAD_DEVICES}, "
+                                   f"got {device!r}")
+
+
 @dataclasses.dataclass
 class ZeroConfig:
     """``zero_optimization`` (JAX ``DeepSpeedZeroConfig``, ``config.py:115-151``;
@@ -141,8 +206,8 @@ class ZeroConfig:
     overlap_comm: Optional[bool] = None
     load_from_fp32_weights: bool = True
     elastic_checkpoint: bool = False
-    offload_param: Optional[Dict[str, Any]] = None
-    offload_optimizer: Optional[Dict[str, Any]] = None
+    offload_param: Optional[OffloadParamConfig] = None
+    offload_optimizer: Optional[OffloadOptimizerConfig] = None
     sub_group_size: int = 1_000_000_000
     cpu_offload_param: Optional[bool] = None
     cpu_offload_use_pin_memory: Optional[bool] = None
@@ -328,16 +393,11 @@ class CheckpointConfig:
         if str(self.tag_validation).capitalize() not in CHECKPOINT_TAG_VALIDATION_MODES:
             raise DeepSpeedConfigError(f"tag_validation must be one of {CHECKPOINT_TAG_VALIDATION_MODES}")
         if self.load_universal:
-            raise NotImplementedError(f"checkpoint.load_universal is not ported ({ROADMAP_UNIVERSAL})")
+            raise NotImplementedError("checkpoint.load_universal: the JAX engine stores it without reading it; load "
+                                      "a universal checkpoint with deepspeed_tpu_torch.checkpoint."
+                                      "load_universal_checkpoint(engine, dir, tag)")
         if self.keep_last_n is not None:
             self.keep_last_n = int(self.keep_last_n)
-
-
-def _offloaded(value) -> bool:
-    """Does an ``offload_*`` block (or a ``cpu_offload*`` flag) move state off the device."""
-    if isinstance(value, dict):
-        return value.get("device", "none") not in (None, "none")
-    return bool(value)
 
 
 def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
@@ -349,9 +409,21 @@ def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
     cfg = ZeroConfig(**values)
     if not isinstance(cfg.stage, int) or not 0 <= cfg.stage <= 3:
         raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, got {cfg.stage!r}")
-    for key in ("offload_param", "offload_optimizer", "cpu_offload_param", "cpu_offload"):
-        if _offloaded(getattr(cfg, key)):
-            raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_OFFLOAD})")
+    if cfg.offload_param is not None:
+        cfg.offload_param = _block(OffloadParamConfig, "offload_param", cfg.offload_param)
+    if cfg.offload_optimizer is not None:
+        cfg.offload_optimizer = _block(OffloadOptimizerConfig, "offload_optimizer", cfg.offload_optimizer)
+        if cfg.offload_optimizer.ratio < 1.0:
+            if cfg.stage != 3:   # JAX offload_ratio_check (config.py:159)
+                raise DeepSpeedConfigError("Partial offloading only supported for ZeRO Stage 3.")
+            raise NotImplementedError(f"zero_optimization.offload_optimizer.ratio={cfg.offload_optimizer.ratio}: "
+                                      "the JAX engine stores it without acting on it (all of the state is "
+                                      "offloaded), so the port refuses it")
+    for key in ("cpu_offload_param", "cpu_offload", "cpu_offload_use_pin_memory"):
+        if getattr(cfg, key):
+            raise NotImplementedError(f"zero_optimization.{key}: the JAX engine stores this deprecated flag without "
+                                      "acting on it, so the port refuses it; use offload_optimizer / offload_param "
+                                      "with a device")
     for key in ("zero_quantized_weights", "zero_quantized_nontrainable_weights"):
         if getattr(cfg, key):
             raise NotImplementedError(f"zero_optimization.{key} is not ported ({ROADMAP_QWZ})")

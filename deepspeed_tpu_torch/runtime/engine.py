@@ -52,8 +52,9 @@ sync.
 
 ZeRO stages 1-3 on one rank are the single-device update, as JAX at
 ``data=1`` shards nothing.  Over several ranks they partition the state as
-the JAX package's shardings do (``runtime/zero/partitioned.py``, a Llama-
-family model): the master and the moments from stage 1, the reduced
+the JAX package's shardings do (``runtime/zero/partitioned.py``, a model
+whose JAX leaves ``models/convert.jax_leaves`` knows: the Llama family,
+Falcon, OPT, Phi, GPT-2): the master and the moments from stage 1, the reduced
 gradients from stage 2 (reduce-scattered), the compute-dtype parameters at
 stage 3 (gathered block by block around each block's forward, and again for
 its remat recompute).  The arithmetic stays the JAX step's; the global
@@ -61,6 +62,26 @@ norm, ``found_inf`` and LAMB's norms are reduced over the slices.
 ``module_state_dict()`` and the checkpoints hold whole tensors whatever the
 stage; a layout in which nothing shards (MiCS over one rank, no dim the
 world divides) runs stage 0.
+
+Offload (ZeRO-Offload and ZeRO-Infinity; JAX ``_materialize_state``
+:501-600), by the JAX engine's rules (``_select_offload_tiers``):
+
+  a. ``offload_optimizer: {device: cpu}``: the optimizer's float32 tensors
+     and moments in pinned host memory, stepped on the host CPU
+     (``runtime/zero/offload.py``; any optimizer, stage and world);
+  b. ``{device: cpu, pipeline_read or pipeline_write: true}`` and
+  c. ``{device: nvme, nvme_path: ...}``: the master and Adam's moments in
+     host memory or in swap files, updated group by group on the device
+     (``runtime/swap_tensor``; one rank, an Adam-family optimizer, static
+     unity scaling, else a warning and tier a).  The forward and backward
+     are dispatched, the first groups' state is prefetched under the
+     backward, and the tier's loop updates the parameters in place; the
+     imperative ``backward``/``step`` raise, as JAX's;
+  d. ``offload_param: {device: cpu}``: the compute-dtype parameters in
+     pinned host memory at any stage, copied in block by block by the
+     stage-3 units of ``runtime/zero/partitioned.py``.
+
+On the CPU host and device are one memory; the tiers run their whole path.
 
 The CommsLogger sees the step as JAX logs its jitted step: the qgZ/LoCo
 exchange as one ``all_to_all_quant_reduce`` entry per step, and none of
@@ -97,7 +118,9 @@ the crash-safe ``save_checkpoint``/``load_checkpoint``
 (``checkpoint/engine.py``), the flops profiler (``flops_profiler``: the step
 at ``profile_step`` counted, printed and published through
 ``set_telemetry``'s registry), ``activation_checkpointing`` (the model's
-remat policy) and ``comms_logger``.
+remat policy), ``comms_logger``, ``offload_states``/``reload_states``,
+``measure_stream_overlap`` and the universal checkpoint's loader
+(``load_full_state``, ``checkpoint/universal.py``).
 """
 
 import contextlib
@@ -133,6 +156,7 @@ from .constants import (ACTIVATION_CHECKPOINTING, ADAGRAD_OPTIMIZER, ADAM_OPTIMI
 from .fp16.loss_scaler import StaticLossScaler, create_loss_scaler, found_inf_or_nan
 from .lr_schedules import LRSchedulerShim, get_lr_schedule
 from .progressive_layer_drop import ProgressiveLayerDrop, pld_scale_for_step
+from .zero.offload import HostOffloadOptimizer
 from .zero.partitioned import PartitionedState
 
 #: the optimizers of the JAX engine's ``OPTIMIZER_FACTORIES`` (``engine.py:54-67``)
@@ -148,6 +172,16 @@ OPTIMIZER_FACTORIES = {
     ADAGRAD_OPTIMIZER: Adagrad,
     SGD_OPTIMIZER: SGD,
 }
+
+
+def _leaf_map(module: nn.Module) -> Optional[Dict[str, dict]]:
+    from ..models.convert import jax_leaves
+    try:
+        leaves = jax_leaves(module)
+    except NotImplementedError:
+        return None
+    return {n: {"path": lf.path, "shape": list(lf.shape), "port_shape": list(lf.port_shape),
+                "transposed": lf.transposed} for n, lf in leaves.items()}
 
 
 def _default_model_inputs(batch):
@@ -261,17 +295,37 @@ class DeepSpeedEngine:
         #: the names of ``params`` (and of ``master``), in order
         self.param_names: List[str] = [n for n, _ in named]
         float_params = [p for _, p in named]
-        #: the partitioned state of stages 1-3 over several ranks, or None
+        #: each parameter's JAX leaf (path, shape, port shape, transposed):
+        #: the universal checkpoint's names and layouts; None for a model
+        #: ``models/convert.jax_leaves`` does not know
+        self.jax_leaf_map = _leaf_map(self.module)
+        # loss scaling first: the streamed offload tiers need static unity
+        self.loss_scaler = create_loss_scaler(config.fp16_config, self.compute_dtype)
+        self.scaler_state = self.loss_scaler.init_state(self.device)
+        # fp16 keeps the overflow check even at a static scale of 1 (JAX :757)
+        self.static_unity = isinstance(self.loss_scaler, StaticLossScaler) and \
+            self.loss_scaler.init_scale == 1.0 and self.compute_dtype != torch.float16
+        self._select_offload_tiers()
+        #: the partitioned state of stages 1-3 over several ranks (or of
+        #: offload_param at any stage), or None
         self.zero: Optional[PartitionedState] = None
-        if self.dp_world > 1 and self.zero_stage >= 1:
-            zero = PartitionedState(self.module, self.param_names, self.zero_stage, config.zero_config)
+        if self.dp_world > 1 and self.zero_stage >= 1 or self.param_host:
+            zero = PartitionedState(self.module, self.param_names, self.zero_stage, config.zero_config,
+                                    param_host=self.param_host)
             self.zero = zero if zero.active else None
         if self.zero is not None:
             #: the compute-dtype parameters (this rank's slices at stage 3),
             #: the float32 master (this rank's slices), and the tensors the
             #: optimizer updates (the master, or in float32 the parameters' slices)
             self.params, self.master, self._targets = self.zero.setup(self.module, float_params, self.compute_dtype,
-                                                                      self.use_master)
+                                                                      self.use_master and not self.streamed)
+        elif self.streamed:
+            # the master and the moments live in the streamed tier: the
+            # device holds the compute-dtype parameters only
+            with torch.no_grad():
+                for p in float_params:
+                    p.data = p.data.to(self.compute_dtype)
+            self.params, self.master, self._targets = float_params, [], []
         else:
             with torch.no_grad():
                 self.master: List[torch.Tensor] = [p.detach().float().clone() for p in float_params] \
@@ -281,14 +335,24 @@ class DeepSpeedEngine:
             self.params: List[nn.Parameter] = float_params
             self._targets = self.master if self.use_master else self.params
 
-        # ---- loss scaling, LR schedule, optimizer
-        self.loss_scaler = create_loss_scaler(config.fp16_config, self.compute_dtype)
-        self.scaler_state = self.loss_scaler.init_state(self.device)
-        # fp16 keeps the overflow check even at a static scale of 1 (JAX :757)
-        self.static_unity = isinstance(self.loss_scaler, StaticLossScaler) and \
-            self.loss_scaler.init_scale == 1.0 and self.compute_dtype != torch.float16
+        # ---- LR schedule, the offload tiers, optimizer
         self.lr_base, self.lr_schedule = self._build_lr_schedule(lr_scheduler)
-        self.optimizer = self._build_optimizer(optimizer)
+        #: tier a: the optimizer's tensors in host memory, stepped on the host
+        self._host_opt: Optional[HostOffloadOptimizer] = None
+        #: tiers b and c: the streamed optimizer (JAX's ``_nvme_opt``), or None
+        self._nvme_opt = None
+        self._nvme_step_mode: Optional[str] = None
+        if self.streamed:
+            if optimizer is not None:
+                raise ValueError("the streamed offload tiers run their own Adam: pass the optimizer in the config")
+            self._build_streamed_tier()
+            self.optimizer = None
+        else:
+            if self.host_optimizer:
+                self._build_host_tier()
+            self.optimizer = self._build_optimizer(optimizer)
+            if self._host_opt is not None and hasattr(self.optimizer, "init_state"):
+                self._host_opt.init_optimizer_state(self.optimizer)
         if self.zero is not None and hasattr(self.optimizer, "reduce_norms"):
             self.optimizer.reduce_norms = self.zero.lamb_norms   # LAMB's trust ratio per whole tensor
         self._configure_gradient_wire()
@@ -377,6 +441,11 @@ class DeepSpeedEngine:
                 raise TypeError("optimizer= must be a factory params -> torch.optim.Optimizer: the engine builds "
                                 "it over the float32 master parameters it owns")
             return client_optimizer(target)
+        factory, params = self._optimizer_spec()
+        return factory(target, lr=self.lr_schedule, **params)
+
+    def _optimizer_spec(self):
+        """The config's optimizer: its class and keyword arguments but the LR."""
         cfg = self._config.optimizer_config
         name = (cfg.type or "adamw").lower() if cfg is not None else "adamw"
         params = dict(cfg.params) if cfg is not None else {}
@@ -392,7 +461,7 @@ class DeepSpeedEngine:
             params["adam_w_mode"] = True
         elif OPTIMIZER_FACTORIES[name] is FusedAdam:
             params.setdefault("adam_w_mode", True)    # the reference's FusedAdam flag
-        return OPTIMIZER_FACTORIES[name](target, lr=self.lr_schedule, **params)
+        return OPTIMIZER_FACTORIES[name], params
 
     def _build_monitor(self):
         """The MonitorMaster of the config's monitor blocks, attached to the
@@ -408,6 +477,80 @@ class DeepSpeedEngine:
         except Exception as e:
             logger.debug(f"monitor disabled: {e}")
             return None
+
+    # ------------------------------------------------------------ offload
+
+    def _streamed_offload_ok(self, what: str) -> bool:
+        """JAX ``_streamed_offload_ok`` (:360-378): the streamed tiers need
+        one data-parallel rank, an Adam-family optimizer and static unity
+        scaling that is not fp16; otherwise a warning and the host tier."""
+        cfg = self._config.optimizer_config
+        name = (cfg.type or "").lower() if cfg is not None else ADAMW_OPTIMIZER
+        ok = (self.dp_world == 1 and name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER, FUSED_ADAM_OPTIMIZER, CPU_ADAM_OPTIMIZER)
+              and self.static_unity)
+        if not ok:
+            logger.warning(f"offload_optimizer {what}: the streamed update needs a single data-parallel rank, an "
+                           "Adam-family optimizer and non-fp16 static-unity scaling — falling back to the host "
+                           "optimizer tier")
+        return ok
+
+    def _select_offload_tiers(self) -> None:
+        """Which offload tiers run, by JAX's rules (``_nvme_pipelined_active``
+        :380, ``_host_streamed_active`` :390, ``_materialize_state``
+        :552-567): ``nvme`` with an ``nvme_path`` is the NVMe tier, ``cpu``
+        with ``pipeline_read``/``pipeline_write`` the host-streamed tier
+        (both if eligible), any other ``cpu``/``nvme`` the host-optimizer
+        tier; ``offload_param`` to ``cpu`` or ``nvme`` keeps the parameters in
+        host memory (JAX keeps both in host memory)."""
+        zc = self._config.zero_config
+        off = zc.offload_optimizer
+        device = off.device if off is not None else "none"
+        self.nvme_tier = device == "nvme" and bool(off.nvme_path) and self._streamed_offload_ok("device=nvme")
+        self.host_stream_tier = not self.nvme_tier and device == "cpu" and \
+            (off.pipeline_read or off.pipeline_write) and self._streamed_offload_ok("device=cpu pipelined")
+        self.streamed = self.nvme_tier or self.host_stream_tier
+        self.host_optimizer = device in ("cpu", "nvme") and not self.streamed
+        p_off = zc.offload_param
+        self.param_host = p_off is not None and p_off.device in ("cpu", "nvme")
+        if self.param_host and p_off.device == "nvme":
+            logger.warning("offload_param device=nvme: the parameters live in host memory, as in the JAX engine")
+        if self.param_host and not self.use_master and not self.streamed:
+            # the optimizer's tensors are the parameters themselves: where
+            # they live, the update runs (and its moments with it)
+            self.host_optimizer = True
+
+    def _build_host_tier(self) -> None:
+        """Tier a: the optimizer's float32 tensors copied into host memory
+        (``runtime/zero/offload.py``); the device master is dropped."""
+        if self.zero is not None:   # a partitioned master refreshes the parameters itself
+            writeback = [None if self.use_master else t for t in self._targets]
+        else:
+            writeback = [p.data for p in self.params]
+        self._host_opt = HostOffloadOptimizer(self._targets, writeback, self.device)
+        if self.use_master:
+            self.master = self._host_opt.host
+        if self.zero is not None:   # the tensors the optimizer steps (LAMB's norms are keyed by them)
+            self.zero.targets = self._host_opt.host
+        self._targets = self._host_opt.host
+        log_dist(f"offload_optimizer: the optimizer's state in host memory ({self._host_opt.arena.nbytes / 1e9:.2f} "
+                 f"GB of float32 tensors, pinned={self._host_opt.pin}), stepped on the host", ranks=[0])
+
+    def _build_streamed_tier(self) -> None:
+        """Tiers b and c over the compute-dtype parameters; their float32
+        master starts as those parameters (JAX builds it from
+        ``state.params``, already cast), or resumes from matching swap files."""
+        from ..ops.adam import adam_hyper
+        from .swap_tensor.host_streamed_optimizer import HostStreamedOptimizer
+        from .swap_tensor.pipelined_optimizer_swapper import PipelinedNVMeOptimizer
+        _, kwargs = self._optimizer_spec()
+        hyper = adam_hyper(lr=self.lr_schedule, **kwargs)
+        params = [p.data for p in self.params]
+        off = self._config.zero_config.offload_optimizer
+        if self.nvme_tier:
+            self._nvme_opt = PipelinedNVMeOptimizer(hyper, params, off.nvme_path, compute_dtype=self.compute_dtype)
+        else:
+            self._nvme_opt = HostStreamedOptimizer(hyper, params, n_groups=max(1, off.buffer_count),
+                                                   compute_dtype=self.compute_dtype)
 
     def _manual_ddp_eligible(self) -> bool:
         """The JAX engine's condition for its manual data-parallel step
@@ -524,9 +667,9 @@ class DeepSpeedEngine:
 
     def _accumulate(self, loss: torch.Tensor) -> None:
         (loss * self.scaler_state.cur_scale).float().backward()
-        if self.zero is not None and self.zero_stage >= 2:
-            # stage 3's backward reduce-scattered its gradients block by block
-            if self.zero_stage == 2:
+        if self.zero is not None and self.zero.grads_pending:
+            # the units' backward reduced their gradients block by block
+            if not self.zero.units_on:
                 self.zero.reduce_micro([p.grad for p in self.params], self.params)
             for p in self.params:
                 p.grad = None
@@ -596,7 +739,7 @@ class DeepSpeedEngine:
         with comm.unrecorded():
             if reduce_loss:
                 loss = comm.all_reduce(loss.reshape(1), op).reshape(())
-            if self.zero is not None and self.zero_stage >= 2:   # reduce-scattered already
+            if self.zero is not None and self.zero.grads_pending:   # reduced already
                 return grads, loss
             if not self.qgz:
                 return [comm.all_reduce(g, op) for g in grads], loss
@@ -653,17 +796,20 @@ class DeepSpeedEngine:
             torch._foreach_mul_(grads, clip_scale)
         if self.zero is not None:
             grads = self.zero.state_grads(grads)
-        for t, g in zip(self._targets, grads):
-            t.grad = g
-        if found_inf is None:
-            self.optimizer.step()
+        if self._host_opt is not None:   # tier a: the gradients to the host, the step there, the values back
+            self._host_opt.step(self.optimizer, grads, found_inf)
         else:
-            self.optimizer.step(found_inf=found_inf)
-        for t in self._targets:
-            t.grad = None
+            for t, g in zip(self._targets, grads):
+                t.grad = g
+            if found_inf is None:
+                self.optimizer.step()
+            else:
+                self.optimizer.step(found_inf=found_inf)
+            for t in self._targets:
+                t.grad = None
         if self.zero is not None:
             self.zero.refresh_params(self.compute_dtype)
-        elif self.use_master:
+        elif self.use_master and self._host_opt is None:
             torch._foreach_copy_([p.data for p in self.params], self.master)
         self.scaler_state = self.loss_scaler.update(self.scaler_state, found_inf)
         if found_inf is None:
@@ -719,8 +865,11 @@ class DeepSpeedEngine:
                     loss_sum = loss if loss_sum is None else loss_sum + loss
                 grads, self._pending = self._pending, None
                 grads, loss = self._reduce_over_ranks(grads, loss_sum / self.gas, reduce_loss=not self._gather_loss)
-            with self.tracer.span("engine/optim", parent=step_span, track="engine"):
-                metrics = self._apply_grads(grads, loss)
+            if self._nvme_opt is not None:
+                metrics = self._streamed_update(grads, loss, step_span)
+            else:
+                with self.tracer.span("engine/optim", parent=step_span, track="engine"):
+                    metrics = self._apply_grads(grads, loss)
         finally:
             self.tracer.end(step_span)
         self.timers(TRAIN_BATCH_TIMER).stop()
@@ -735,6 +884,80 @@ class DeepSpeedEngine:
         self._after_step(metrics, [TRAIN_BATCH_TIMER])
         return metrics.loss
 
+    def _no_imperative_streamed(self) -> None:
+        if self._nvme_opt is not None:   # JAX _build_nvme_train_step :1065
+            raise RuntimeError("the imperative forward/backward/step path does not support the streamed optimizer "
+                               "offload tiers (host-streamed, NVMe); use train_batch()")
+
+    @torch.no_grad()
+    def _streamed_update(self, grads: List[torch.Tensor], loss: torch.Tensor, step_span) -> StepMetrics:
+        """Tiers b and c (JAX ``_nvme_train_step`` :1070): the forward and
+        backward are dispatched; the first groups' state uploads (or disk
+        reads) are issued now, so they run under the backward; the norm of
+        ``g/gas`` and the clip give one scale; the tier's group loop updates
+        the parameters in place."""
+        nv = self._nvme_opt
+        nv.events.append(("step_entry_pending_writes", nv.pending_writes()))
+        mode = self._nvme_step_mode
+        if mode != "serialize":
+            nv.prefetch(0)
+            nv.prefetch(1)
+        cfg = self._config
+        inv = 1.0 / self.gas
+        if cfg.gradient_predivide_factor != 1.0:
+            inv = inv / cfg.gradient_predivide_factor
+        gnorm = global_norm(torch._foreach_mul(grads, inv))
+        scale = torch.full((), inv, dtype=torch.float32, device=self.device)
+        if cfg.gradient_clipping and cfg.gradient_clipping > 0:
+            scale = scale * torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0)
+        self.timers(STEP_GLOBAL_TIMER).start()
+        opt_span = self.tracer.start_span("engine/optim", parent=step_span, track="engine")
+        if self.tracer.enabled:
+            # the instrumentation's clock is mapped into the tracer's by offset
+            from .swap_tensor.overlap_instrumentation import now as _inst_now
+            anchor_inst, anchor_trace = _inst_now(), self.tracer.now()
+        try:
+            nv.step(grads, self.global_steps, scale, serialize=(mode == "serialize"), flush=(mode == "flush"))
+        except Exception as e:
+            opt_span.set(error=f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            if self.tracer.enabled:
+                nv.instrumentation.lift_spans(self.tracer, opt_span, track="stream", since_ts=anchor_inst,
+                                              offset=anchor_trace - anchor_inst)
+            self.tracer.end(opt_span)
+        self.timers(STEP_GLOBAL_TIMER).stop()
+        self.global_steps += 1
+        self.global_samples += cfg.train_batch_size
+        metrics = StepMetrics(loss=loss.float(), grad_norm=gnorm, found_inf=torch.zeros((), dtype=torch.bool,
+                                                                                         device=self.device),
+                              lr=float(self.lr_schedule(self.global_steps)), loss_scale=self.scaler_state.cur_scale)
+        self.last_metrics = metrics
+        spp = cfg.steps_per_print
+        if spp and self.global_steps % spp == 0:
+            log_dist(f"step={self.global_steps} loss={float(metrics.loss):.4f} lr={metrics.lr:.3e} "
+                     f"gnorm={float(gnorm):.3f}", ranks=[0])
+        return metrics
+
+    def measure_stream_overlap(self, batch, pipelined_steps: int = 1):
+        """JAX ``measure_stream_overlap`` (:1340-1363): ``pipelined_steps``
+        flushed steps and one serialized probe step (real training steps:
+        the state advances), then the streamed tier's overlap report
+        (per-group upload/compute/download seconds, the overlap fraction,
+        the transfer/compute bound)."""
+        if self._nvme_opt is None:
+            raise RuntimeError("measure_stream_overlap needs a streamed optimizer tier (offload_optimizer "
+                               "device=cpu + pipeline_read, or device=nvme)")
+        try:
+            self._nvme_step_mode = "flush"
+            for _ in range(max(1, pipelined_steps)):
+                self.train_batch(batch=batch)
+            self._nvme_step_mode = "serialize"
+            self.train_batch(batch=batch)
+        finally:
+            self._nvme_step_mode = None
+        return self._nvme_opt.overlap_report()
+
     def _after_step(self, metrics: StepMetrics, timer_names) -> None:
         """The PLD theta, the monitor's rows and the timers' log at a
         ``steps_per_print`` boundary (JAX ``train_batch`` :1329-1341)."""
@@ -747,14 +970,26 @@ class DeepSpeedEngine:
 
     def _write_monitor(self, metrics: StepMetrics) -> None:
         """``Train/Samples/{train_loss,lr,loss_scale}`` at the global sample
-        count (JAX ``_write_monitor`` :1473); reads the loss (a host sync)
-        only when a monitor is on."""
+        count (JAX ``_write_monitor`` :1473), and a streamed tier's
+        ``stream_*`` overlap figures after each fresh measurement; reads the
+        loss (a host sync) only when a monitor is on."""
         if self.monitor is not None and self.monitor.enabled:
-            self.monitor.write_events([
+            events = [
                 ("Train/Samples/train_loss", float(metrics.loss), self.global_samples),
                 ("Train/Samples/lr", float(metrics.lr), self.global_samples),
                 ("Train/Samples/loss_scale", float(metrics.loss_scale), self.global_samples),
-            ])
+            ]
+            nv = self._nvme_opt
+            ver = nv.instrumentation.version if nv is not None else 0
+            if nv is not None and ver != getattr(self, "_stream_report_ver", 0):
+                # the streamed tier's overlap, once per fresh measurement
+                rep = nv.overlap_report()
+                if rep is not None:
+                    for key in ("upload_s", "compute_s", "download_s", "overlap_fraction", "pipelined_wall_s"):
+                        if rep.get(key) is not None:
+                            events.append((f"Train/Samples/stream_{key}", float(rep[key]), self.global_samples))
+                self._stream_report_ver = ver
+            self.monitor.write_events(events)
 
     def _global_micro_loss(self, batch, training: bool = False) -> torch.Tensor:
         """JAX's loss of the global micro-batch ``batch``: this rank's rows
@@ -796,6 +1031,7 @@ class DeepSpeedEngine:
         if self.qgz:
             raise RuntimeError("the imperative forward/backward/step path does not support compressed gradient "
                                "transport; use train_batch()")
+        self._no_imperative_streamed()
         self.timers(BACKWARD_GLOBAL_TIMER).start()
         for p in self.params:
             p.grad = None
@@ -820,6 +1056,7 @@ class DeepSpeedEngine:
         """Apply the optimizer at a gradient-accumulation boundary (ref:
         engine.py:2338): the pending grads are summed over ``backward``
         calls and divided by ``gas``."""
+        self._no_imperative_streamed()
         if self._pending is None:
             raise RuntimeError("backward() must run before step()")
         if not self.is_gradient_accumulation_boundary():
@@ -854,19 +1091,101 @@ class DeepSpeedEngine:
         """Crash-safe save of the whole training state under
         ``<save_dir>/<tag>`` (``checkpoint/engine.py``; JAX ``engine.py:1563``)."""
         from ..checkpoint.engine import save_checkpoint as _save
-        return _save(self, save_dir, tag=tag, client_state=client_state or {}, save_latest=save_latest)
+        from .swap_tensor.host_streamed_optimizer import HostStreamedOptimizer
+        nv = self._nvme_opt
+        if nv is not None and not isinstance(nv, HostStreamedOptimizer):
+            # the NVMe tier's state is on disk already: the checkpoint holds
+            # the parameters and the step; the swap files are flushed durable
+            nv.swapper.flush_writes()
+            logger.warning("save_checkpoint with pipelined NVMe offload: optimizer moments stay in the nvme_path "
+                           "swap files — keep that directory alongside the checkpoint to resume exactly")
+        # the host tier's state is process memory: its groups are written
+        # into the tag directory inside the durability fence
+        extra = nv.save_state if isinstance(nv, HostStreamedOptimizer) else None
+        return _save(self, save_dir, tag=tag, client_state=client_state or {}, save_latest=save_latest,
+                     extra_state_cb=extra)
 
     def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True, load_lr_scheduler_states=True,
                         load_module_only=False):
         """Restore a checkpoint into this engine; returns ``(path,
         client_state)``, or ``(None, {})`` without a ``latest`` file (JAX
-        ``engine.py:1585``)."""
+        ``engine.py:1585``).  A streamed tier restores its own state: the
+        host tier from the tag's ``host_opt_group*.npz``, the NVMe tier from
+        its swap files; either is resynced from the loaded parameters (the
+        moments reset, with a warning) when its master does not match them."""
         from ..checkpoint.engine import load_checkpoint as _load
+        from .swap_tensor.host_streamed_optimizer import HostStreamedOptimizer
         out = _load(self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
                     load_module_only=load_module_only)
+        nv = self._nvme_opt
+        if nv is not None and out[0] is not None:
+            params = [p.data for p in self.params]
+            restored = isinstance(nv, HostStreamedOptimizer) and load_optimizer_states and nv.load_state(out[0])
+            if not nv.master_matches_params(params, self.compute_dtype):
+                logger.warning("streamed optimizer offload: the stored optimizer state does not match the loaded "
+                               "checkpoint's parameters" + (" (same shapes, another run?)" if restored else "") +
+                               " — reinitializing the master from them (Adam moments reset)")
+                nv.resync_master_from_params(params)
         if out[0] is not None and self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
         return out
+
+    # ------------------------------------------------------------ state offload
+
+    def offload_states(self, include=None, device: str = "cpu", nvme_path=None, pin_memory: bool = True,
+                       non_blocking: bool = False):
+        """Move the optimizer's state and the float32 master off the device
+        (JAX ``offload_states`` :1509; ref: ``runtime/zero/offload_states.py``,
+        used between the train and generate phases of RLHF): ``device="cpu"``
+        to host tensors (pinned on CUDA with ``pin_memory``), ``"nvme"`` to
+        swap files under ``nvme_path`` through the aio engine.  The tensors
+        keep their identity (their storage moves), so the optimizer is
+        untouched; ``reload_states`` brings them back, and is needed before
+        the next step.  A streamed tier holds no such state on the device."""
+        include = set(include or ("optimizer_states", "master_weights"))
+        self._offloaded = getattr(self, "_offloaded", {})
+        groups = {}
+        if "optimizer_states" in include and self.optimizer is not None:
+            groups["optimizer_states"] = [v for st in self.optimizer.state.values() for v in st.values()
+                                          if isinstance(v, torch.Tensor) and v.dim() > 0]
+        if "master_weights" in include and self.use_master and self.master:
+            groups["master_weights"] = list(self.master)
+        pin = pin_memory and self.device.type == "cuda"
+        for name, tensors in groups.items():
+            if not tensors or name in self._offloaded:
+                continue
+            if device == "nvme":
+                from .swap_tensor import AioSwapConfig, TensorSwapper
+                if getattr(self, "_nvme_swapper", None) is None:
+                    if nvme_path is None:
+                        raise ValueError("offload_states(device='nvme') needs nvme_path")
+                    self._nvme_swapper = TensorSwapper(nvme_path, AioSwapConfig(), pin_memory=pin)
+                self._nvme_swapper.swap_out(name, [t.data for t in tensors])
+                homes = [t.device for t in tensors]
+                for t in tensors:
+                    t.data = torch.empty(0, dtype=t.dtype)
+            elif device == "cpu":
+                homes = [t.device for t in tensors]
+                for t in tensors:
+                    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                    host.copy_(t.data, non_blocking=non_blocking)
+                    t.data = host
+                if non_blocking and self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            else:
+                raise ValueError(f"offload_states: device must be 'cpu' or 'nvme', got {device!r}")
+            self._offloaded[name] = (device, tensors, homes)
+        log_dist(f"offload_states: {sorted(groups)} -> {device}", ranks=[0])
+
+    def reload_states(self, non_blocking: bool = False):
+        """Bring back what ``offload_states`` moved (JAX :1545)."""
+        for name, (device, tensors, homes) in getattr(self, "_offloaded", {}).items():
+            values = self._nvme_swapper.swap_in(name) if device == "nvme" else [t.data for t in tensors]
+            for t, v, home in zip(tensors, values, homes):
+                t.data = v.to(home, non_blocking=non_blocking)
+        if non_blocking and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._offloaded = {}
 
     # ------------------------------------------------------------- properties
 
@@ -902,7 +1221,7 @@ class DeepSpeedEngine:
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
         """The model's state dict with whole tensors whatever the stage (JAX
         returns global arrays); at stage 3 a collective over the ranks."""
-        if self.zero is None or self.zero_stage < 3:
+        if self.zero is None or not self.zero.units_on:
             return self.module.state_dict()
         sd = self.module.state_dict()
         sd.update(zip(self.param_names, self.zero.full_params()))
@@ -912,7 +1231,7 @@ class DeepSpeedEngine:
     def load_module_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
         """Load whole tensors (``module_state_dict``'s) into the model: at
         stage 3 each rank keeps its slices."""
-        if self.zero is None or self.zero_stage < 3:
+        if self.zero is None or not self.zero.units_on:
             self.module.load_state_dict(sd, strict=True)
             return
         missing = set(self._state_names) - set(sd)
@@ -932,20 +1251,68 @@ class DeepSpeedEngine:
         value = value.to(self.device)
         if self.zero is not None:
             self.zero.set_full_param(i, value)
-            return
-        self.params[i].data.copy_(value)
-        if self.use_master:
-            self.master[i].copy_(value)
+        else:
+            self.params[i].data.copy_(value)
+            if self.use_master:
+                self.master[i].copy_(value)
+        if self._host_opt is not None and not self.use_master:   # float32: the host copy the optimizer steps
+            target = self.params[i].data if self.zero is None else self.zero.own_view(i)
+            self._host_opt.host[i].copy_(target)
+        if self._nvme_opt is not None:   # the streamed tier's master, its moments kept
+            nv = self._nvme_opt
+            master = nv.leaves("master")
+            master[i] = value.float()
+            nv.load_leaves(master, nv.leaves("mu"), nv.leaves("nu"))
+
+    @torch.no_grad()
+    def load_full_state(self, values: Dict[str, torch.Tensor],
+                        moments: Optional[Dict[str, Dict[str, torch.Tensor]]] = None, step: Optional[int] = None):
+        """Whole float32 values by parameter name (port layout) into the
+        parameters and the master; ``moments`` (``{"exp_avg": {name: ...},
+        ...}``) into the optimizer's state, wherever the tier keeps it; the
+        step into the engine's and the optimizer's count.  The universal
+        checkpoint's loader (``checkpoint/universal.py``)."""
+        names = self.param_names
+        moments = moments or {}
+        if self._nvme_opt is not None:
+            for p, n in zip(self.params, names):
+                p.data.copy_(values[n])
+            pick = lambda key: [moments[key][n] for n in names] if key in moments else None
+            self._nvme_opt.load_leaves([values[n] for n in names], pick("exp_avg"), pick("exp_avg_sq"))
+        else:
+            for n in names:
+                self.set_full_param(n, values[n])
+            for key, tree in moments.items():
+                for i, (n, t) in enumerate(zip(names, self._targets)):
+                    full = tree[n].to(device=self.device, dtype=torch.float32)
+                    local = full if self.zero is None else self.zero.local_state(i, full)
+                    st = self.optimizer.state[t]
+                    if key in st:
+                        st[key].copy_(local.reshape(st[key].shape))
+                    else:
+                        st[key] = local.to(t.device).clone()
+        if step is not None:
+            self.global_steps = int(step)
+            self.global_samples = self.global_steps * self._config.train_batch_size
+            if self.optimizer is not None:
+                self.optimizer.step_count = int(step)
+                self.optimizer._device_step = None
 
     def full_master(self) -> Optional[Dict[str, torch.Tensor]]:
-        """The float32 master by parameter name, whole tensors (None in float32)."""
-        if not self.use_master:
+        """The float32 master by parameter name, whole tensors (None in
+        float32, and under a streamed tier, whose checkpoint holds no master:
+        ``streamed_state`` reads it)."""
+        if not self.use_master or self._nvme_opt is not None:
             return None
         tensors = self.master if self.zero is None else self.zero.full_state(self.master)
         return dict(zip(self.param_names, tensors))
 
     @torch.no_grad()
     def load_full_master(self, master: Dict[str, torch.Tensor]) -> None:
+        if self._nvme_opt is not None:   # a streamed tier: its moments kept
+            nv = self._nvme_opt
+            nv.load_leaves([master[n] for n in self.param_names], nv.leaves("mu"), nv.leaves("nu"))
+            return
         for i, (name, m) in enumerate(zip(self.param_names, self.master)):
             value = master[name].to(device=m.device, dtype=torch.float32)
             m.copy_(value if self.zero is None else self.zero.local_state(i, value))
@@ -953,6 +1320,8 @@ class DeepSpeedEngine:
     def full_optimizer_state_dict(self) -> dict:
         """The optimizer's ``state_dict()`` with each per-parameter tensor
         whole (port layout), as a stage-0 engine's."""
+        if self.optimizer is None:   # a streamed tier keeps its own state
+            return {}
         sd = self.optimizer.state_dict()
         if self.zero is None:
             return sd
@@ -975,9 +1344,37 @@ class DeepSpeedEngine:
         self.optimizer.load_state_dict(sd)
 
     def state_bytes(self) -> Dict[str, int]:
-        """The bytes of training state this rank holds: its compute-dtype
-        parameters, float32 master and optimizer moments."""
+        """The bytes of training state this rank holds on its device: its
+        compute-dtype parameters, float32 master and optimizer moments
+        (what an offload tier holds in host memory counts in
+        ``offload_bytes``)."""
         nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-        moments = [v for st in self.optimizer.state.values() for v in st.values()
-                   if isinstance(v, torch.Tensor) and v.dim() > 0]
-        return {"params": nbytes(self.params), "master": nbytes(self.master), "moments": nbytes(moments)}
+        moments = [] if self.optimizer is None else [v for st in self.optimizer.state.values() for v in st.values()
+                                                     if isinstance(v, torch.Tensor) and v.dim() > 0]
+        host_opt = self._host_opt is not None
+        return {"params": 0 if self.param_host else nbytes(self.params),
+                "master": 0 if host_opt else nbytes(self.master), "moments": 0 if host_opt else nbytes(moments)}
+
+    def offload_bytes(self) -> Dict[str, int]:
+        """The bytes of host memory the offload tiers hold (pinned on CUDA):
+        the parameters (``offload_param``), the optimizer's float32 tensors
+        and moments (host-optimizer or host-streamed tier; the NVMe tier's
+        are on disk), and the host tier's chunk staging."""
+        out = {"params": 0, "optimizer": 0, "staging": 0}
+        if self.param_host and self.zero is not None:
+            out["params"] = self.zero._param_arena.nbytes
+        if self._host_opt is not None:
+            hb = self._host_opt.host_bytes()
+            out["optimizer"], out["staging"] = hb["targets"] + hb["state"], hb["staging"]
+        elif self._nvme_opt is not None and hasattr(self._nvme_opt, "host_bytes"):
+            out["optimizer"] = self._nvme_opt.host_bytes()
+        return out
+
+    def streamed_state(self) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """A streamed tier's whole state by parameter name: ``master``,
+        ``exp_avg`` and ``exp_avg_sq`` (host tensors); None without one."""
+        if self._nvme_opt is None:
+            return None
+        nv = self._nvme_opt
+        return {key: dict(zip(self.param_names, nv.leaves(which)))
+                for key, which in (("master", "master"), ("exp_avg", "mu"), ("exp_avg_sq", "nu"))}

@@ -32,6 +32,14 @@ all-gathered (stages 1-2) or cast in place (stage 3).  In float32 the
 optimizer's tensors are views of the parameters (the JAX state has no
 separate master there).
 
+With ``offload_param`` (ZeRO-Infinity's parameter offload) the
+compute-dtype slices live in host memory (pinned on CUDA, ``offload.HostArena``)
+at any stage and world: the units are installed as at stage 3, and each
+unit's gather first copies its slices in (one copy per unit and use, the
+remat recompute included; ``h2d_copies`` counts them), then all-gathers the
+sharded ones; on one rank the gather is the copy alone and the backward adds
+the unit's gradients into the pending sums.
+
 Every collective of a step is one flat buffer of the tensors concerned
 (``all_gather_parts``, ``reduce_scatter_parts``); bf16 and fp16 slices
 are gathered as their bit patterns, bit for bit.  The collectives are not
@@ -86,6 +94,8 @@ def reduce_scatter_parts(parts: Sequence[Partition], full: Sequence[torch.Tensor
     this rank's slice of each: one reduce-scatter of the sharded ones and
     one all-reduce of the whole ones."""
     world = comm.get_world_size()
+    if world == 1:   # the host-sourced units of one rank: nothing to sum
+        return list(full)
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
     sharded = [i for i, p in enumerate(parts) if p.sharded]
     whole = [i for i, p in enumerate(parts) if not p.sharded]
@@ -148,6 +158,11 @@ class _Unit:
     def gather(self, shards) -> List[torch.Tensor]:
         z = self.zero
         parts = [z.param_parts[i] for i in self.idxs]
+        if z.param_host:   # the slices live in host memory: copy them in first
+            z.h2d_copies += 1
+            shards = [s.to(z.device, non_blocking=True) for s in shards]
+            full = all_gather_parts(parts, shards)
+            return [p.port_view(f) for p, f in zip(parts, full)]
         full = all_gather_parts(parts, list(shards))
         return [p.port_view(f if p.sharded else f.clone()) for p, f in zip(parts, full)]
 
@@ -184,10 +199,21 @@ class PartitionedState:
     docstring).  ``active`` is False when nothing is sharded (no dim divides
     the world, or MiCS takes one rank): the engine then runs stage 0."""
 
-    def __init__(self, module: nn.Module, names: Sequence[str], stage: int, zero_config):
+    def __init__(self, module: nn.Module, names: Sequence[str], stage: int, zero_config, param_host: bool = False):
         mesh = get_global_mesh()
         self.stage = stage
         self.rank = comm.get_rank()
+        #: offload_param: the compute-dtype slices live in host memory and
+        #: each unit copies its own in (``_Unit.gather``); counted per copy
+        self.param_host = param_host
+        self.h2d_copies = 0
+        #: the parameters are moved out of the module into gathered units
+        #: (stage 3, or any stage with ``param_host``)
+        self.units_on = stage >= 3 or param_host
+        #: the reduced gradients accumulate in ``pending`` (stage 2
+        #: reduce-scatters each micro-batch; units reduce in their backward)
+        self.grads_pending = stage >= 2 or self.units_on
+        self.device: Optional[torch.device] = None
         leaves = jax_leaves(module)
         param_axes, state_axes = resolve_partition_axes(mesh, zero_config, stage)
         params = param_shardings(leaves, mesh, stage, fsdp_axes=param_axes)
@@ -197,7 +223,7 @@ class PartitionedState:
         self.param_parts = [params[n] for n in self.names]
         self.state_parts = [state[n] for n in self.names]
         self.grad_parts = [grads[n] for n in self.names]
-        self.active = any(p.sharded for p in self.state_parts + self.grad_parts + self.param_parts)
+        self.active = param_host or any(p.sharded for p in self.state_parts + self.grad_parts + self.param_parts)
         self.params: List[torch.Tensor] = []
         self.targets: List[torch.Tensor] = []
         self.pending: Optional[List[torch.Tensor]] = None
@@ -214,30 +240,38 @@ class PartitionedState:
         at stage 3, replace them by their slices.  Returns ``(params,
         master, optimizer targets)``."""
         self.use_master = use_master
+        self.device = params[0].device
         r = self.rank
         master = [sp.local(sp.jax_view(p.detach().float()), r).clone() for sp, p in zip(self.state_parts, params)] \
             if use_master else []
         for p in params:
             p.data = p.data.to(compute_dtype)
-        if self.stage < 3:
+        if not self.units_on:
             self.params = list(params)
         else:
-            self.params = [nn.Parameter(pp.local(pp.jax_view(p.detach()), r).clone(), requires_grad=p.requires_grad)
-                           for pp, p in zip(self.param_parts, params)]
+            slices = [pp.local(pp.jax_view(p.detach()), r) for pp, p in zip(self.param_parts, params)]
+            if self.param_host:
+                from .offload import HostArena
+                self._param_arena = HostArena(sum(t.numel() for t in slices), compute_dtype,
+                                              pin=self.device.type == "cuda")
+                slices = [self._param_arena.take(t.shape).copy_(t) for t in slices]
+            else:
+                slices = [t.clone() for t in slices]
+            self.params = [nn.Parameter(t, requires_grad=p.requires_grad) for t, p in zip(slices, params)]
             self._install_units(module)
         if use_master:
             self.targets = master
         else:
-            self.targets = [self._own_view(i) for i in range(len(self.names))]
+            self.targets = [self.own_view(i) for i in range(len(self.names))]
         return self.params, master, self.targets
 
-    def _own_view(self, i: int) -> torch.Tensor:
+    def own_view(self, i: int) -> torch.Tensor:
         """This rank's slice of parameter ``i`` under the state partition, a
         view of the parameter (float32 training: the optimizer's tensor)."""
         pp, sp, p = self.param_parts[i], self.state_parts[i], self.params[i]
         if pp.sharded:   # stage 3: the parameter is the slice
             return p.data
-        return sp.local(sp.jax_view(p.data) if self.stage < 3 else p.data, self.rank)
+        return sp.local(sp.jax_view(p.data) if not self.units_on else p.data, self.rank)
 
     def _install_units(self, module: nn.Module) -> None:
         """Move the parameters out of the module into the units that gather
@@ -270,7 +304,7 @@ class PartitionedState:
     def add_pending(self, idxs: Sequence[int], slices: Sequence[torch.Tensor]) -> None:
         """Add reduced gradient slices into the step's float32 sums."""
         if self.pending is None:
-            self.pending = [torch.zeros(g.local_shape, dtype=torch.float32, device=self.targets[0].device)
+            self.pending = [torch.zeros(g.local_shape, dtype=torch.float32, device=self.device)
                             for g in self.grad_parts]
         for i, s in zip(idxs, slices):
             self.pending[i].add_(s)
@@ -287,6 +321,8 @@ class PartitionedState:
         them from the whole sums; from stage 2 they are the slices."""
         if self.stage >= 2:
             return list(grads)
+        if self.units_on:   # whole sums, already in the JAX layout
+            return [sp.local(g, self.rank) for sp, g in zip(self.state_parts, grads)]
         return [sp.local(sp.jax_view(g), self.rank) for sp, g in zip(self.state_parts, grads)]
 
     def norm_and_found_inf(self, grads: Sequence[torch.Tensor],
@@ -319,10 +355,11 @@ class PartitionedState:
             return w_norm, u_norm
         mask = torch.tensor(sharded, device=w_norm.device)
         sq = torch.stack([w_norm, u_norm]).square()
-        red = torch.where(mask, sq, torch.zeros_like(sq))
+        # the host optimizer tier's norms are on the host: the wire takes the device's
+        red = torch.where(mask, sq, torch.zeros_like(sq)).to(self.device)
         with comm.unrecorded():
             comm.all_reduce(red, comm.ReduceOp.SUM)
-        sq = torch.where(mask, red, sq).sqrt()
+        sq = torch.where(mask, red.to(sq.device), sq).sqrt()
         return sq[0], sq[1]
 
     # ------------------------------------------------------------ parameters
@@ -338,7 +375,7 @@ class PartitionedState:
                 self._param_jax(i).copy_(self.targets[i])
         if not gather:
             return
-        local = [self.targets[i].to(compute_dtype) for i in gather]
+        local = [self.targets[i].to(device=self.device, dtype=compute_dtype) for i in gather]
         full = all_gather_parts([self.state_parts[i] for i in gather], local)
         for i, f in zip(gather, full):
             self._param_jax(i).copy_(f)
@@ -346,22 +383,22 @@ class PartitionedState:
     def _param_jax(self, i: int) -> torch.Tensor:
         """Parameter ``i`` as this rank holds it, JAX-shaped (a view)."""
         p = self.params[i].data
-        return self.param_parts[i].jax_view(p) if self.stage < 3 else p
+        return self.param_parts[i].jax_view(p) if not self.units_on else p
 
     def full_params(self, idxs: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
         """Whole compute-dtype parameters ``idxs`` (all by default), port
         layout (a collective at stage 3)."""
         idxs = range(len(self.names)) if idxs is None else idxs
-        if self.stage < 3:
+        if not self.units_on:
             return [self.params[i].detach() for i in idxs]
         parts = [self.param_parts[i] for i in idxs]
-        full = all_gather_parts(parts, [self.params[i].detach() for i in idxs])
+        full = all_gather_parts(parts, [self.params[i].detach().to(self.device) for i in idxs])
         return [p.port_view(f).contiguous() for p, f in zip(parts, full)]
 
     def full_state(self, local: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Whole port-layout tensors from slices in the state partition
         (the master, a moment: one collective)."""
-        full = all_gather_parts(self.state_parts, [t.detach() for t in local])
+        full = all_gather_parts(self.state_parts, [t.detach().to(self.device) for t in local])
         return [p.port_view(f).contiguous() for p, f in zip(self.state_parts, full)]
 
     def local_state(self, i: int, full: torch.Tensor) -> torch.Tensor:
@@ -375,7 +412,7 @@ class PartitionedState:
         rank's parameter (its slice at stage 3) and, with ``master``, its
         master slice."""
         pp = self.param_parts[i]
-        own = pp.local(pp.jax_view(value), self.rank) if self.stage >= 3 else pp.jax_view(value)
+        own = pp.local(pp.jax_view(value), self.rank) if self.units_on else pp.jax_view(value)
         self._param_jax(i).copy_(own)
         if master and self.use_master:
             self.targets[i].copy_(self.local_state(i, value))

@@ -393,14 +393,15 @@ def test_zero_to_fp32_returns_the_float32_master(tmp_path):
 
 def test_checkpoint_config_and_engine_selection():
     """``checkpoint`` block: the engine kind, retention, checksum opt-out;
-    universal checkpoints raise with their ROADMAP item; ``orbax`` (JAX's
+    ``load_universal`` (stored by JAX, never read) raises naming
+    ``load_universal_checkpoint``; ``orbax`` (JAX's
     default name) and ``torch`` are the synchronous engine."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, DeepSpeedConfigError
     c = DeepSpeedConfig({"train_batch_size": 2, "checkpoint": {"checkpoint_engine": "async", "keep_last_n": "3",
                                                                "verify_checksums_on_load": False}})
     cc = c.checkpoint_config
     assert (cc.checkpoint_engine, cc.keep_last_n, cc.verify_checksums_on_load) == ("async", 3, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="load_universal_checkpoint"):
         DeepSpeedConfig({"train_batch_size": 2, "checkpoint": {"load_universal": True}})
     with pytest.raises(DeepSpeedConfigError):
         DeepSpeedConfig({"train_batch_size": 2, "checkpoint": {"tag_validation": "sometimes"}})

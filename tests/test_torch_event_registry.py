@@ -82,3 +82,13 @@ def test_unregistered_literal_is_found(tmp_path):
     assert literals == [(3, "resilience/no_such_event")]
     assert heads == [(5, "fleet/health/")]
     assert "resilience/no_such_event" not in treg.registered_names()
+
+
+def test_port_injection_sites_equal_jax_sites():
+    """The port's named fault-injection sites are the JAX package's, the
+    offload tiers' ``host_opt.save``/``host_opt.load``/``swap.write``/
+    ``swap.read`` among them."""
+    from deepspeed_tpu.resilience import fault_injection as jfi
+    from deepspeed_tpu_torch.resilience import fault_injection as tfi
+    assert tfi.INJECTION_SITES == jfi.INJECTION_SITES
+    assert {"host_opt.save", "host_opt.load", "swap.write", "swap.read"} <= tfi.INJECTION_SITES

@@ -58,3 +58,16 @@ def test_source_edit_changes_only_its_own_so_path(package_copy):
     assert after["flash_attention"] != before["flash_attention"]
     assert {n: p for n, p in after.items() if n != "flash_attention"} == \
         {n: p for n, p in before.items() if n != "flash_attention"}
+
+
+def test_host_library_hashes_its_source_and_flags_only(package_copy):
+    """The g++-built aio engine is named by its own source and ``CXX_FLAGS``:
+    a kernel header does not rename it, an edit to its source does."""
+    name = "ds_aio"
+    before = builder.so_path(name).name
+    (package_copy / "csrc" / "extra.cuh").write_text("#pragma once\n")
+    assert builder.so_path(name).name == before
+    source = package_copy / builder.HOST_SOURCES[name]
+    source.write_text(source.read_text() + "\n// edited\n")
+    after = builder.so_path(name).name
+    assert after != before and after.startswith(f"{name}_") and after.endswith(".so")

@@ -268,7 +268,63 @@ def _property_audit(be, seed=0):
     return _tier_view(serve, tier, reqs)
 
 
+def _frontend_mix(vocab=100, n=16, seed=12):
+    """``chip_smoke.frontend_mix`` (the card's serving-frontend phase) at the
+    tiny model's scale: 16 open-loop requests, prompts of 8-80 tokens, two
+    pairs sharing an 8-page prefix, 16-32 new tokens, every fourth request
+    urgent, arrivals over the first 4 steps of the virtual clock."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(8, 81, n)
+    for i in (1, 3, 9, 11):
+        lens[i] = max(lens[i], 72)
+    prompts = [[int(x) for x in rng.integers(1, vocab, int(k))] for k in lens]
+    prompts[3] = prompts[1][:64] + prompts[3][64:]
+    prompts[11] = prompts[9][:64] + prompts[11][64:]
+    arrivals = np.sort(rng.uniform(0.0, 4.0, n))
+    return [dict(prompt=p, max_new_tokens=int(rng.integers(16, 33)), arrival_ts=float(t),
+                 priority=0.0 if i % 4 == 0 else 1.0, deadline=float(t) + 1e4)
+            for i, (p, t) in enumerate(zip(prompts, arrivals))]
+
+
+def _frontend_mix_pressure(be):
+    """The card's serving-frontend phase (``chip_smoke.phase_serving_frontend``)
+    at the tiny model's scale: its arena ratio (40% of the mix's pages, 246 of
+    613 on the card), its tier (4x the arena on the host) and its request mix.
+    Per request: its preemptions, and the demotions and promotions the tier
+    made of it (``demote_sequence`` and ``claim`` calls that moved pages)."""
+    mix = _frontend_mix()
+    demand = sum(-(-(len(a["prompt"]) + a["max_new_tokens"]) // PAGE) for a in mix)
+    num_pages = int(0.4 * demand) + 1
+    serve, tier = be.serve(tier_config=be.kvtier.TierConfig(host_capacity_pages=4 * num_pages), num_pages=num_pages,
+                           max_pages_per_seq=16, prefill_chunk=32, decode_bucket=8)
+    moved = {"demoted": [], "promoted": []}
+    demote, claim = tier.demote_sequence, tier.claim
+
+    def demote_sequence(uid):
+        handle = demote(uid)
+        if handle is not None:
+            moved["demoted"].append(uid)
+        return handle
+
+    def claim_(uid, tokens, now):
+        out = claim(uid, tokens, now)
+        if out is not None:
+            moved["promoted"].append(uid)
+        return out
+
+    tier.demote_sequence, tier.claim = demote_sequence, claim_
+    reqs = serve.run(mix)
+    assert all(r.state is be.RequestState.DONE and len(r.tokens) == a["max_new_tokens"] for r, a in zip(reqs, mix))
+    view = _tier_view(serve, tier, reqs)
+    view.update(moved, arena_pages=num_pages, mix_pages=demand,
+                per_request=[(r.uid, r.preemptions, moved["demoted"].count(r.uid), moved["promoted"].count(r.uid))
+                             for r in reqs])
+    assert serve.stats.preemptions >= 1 and tier.stats["demotions"] >= 1
+    return view
+
+
 SCENARIOS = {
+    "frontend_mix_pressure": _frontend_mix_pressure,
     "park_resume_prefix_cache": lambda be: _park_resume(be, True),
     "park_resume_no_prefix_cache": lambda be: _park_resume(be, False),
     "park_resume_spec": _park_resume_spec,
