@@ -235,9 +235,10 @@ source, all started together.  Phases:
      plain path within phase 7's tolerances, three bf16 steps with finite
      losses, K1/K2a/K2b once per layer per step (0 where no kernel runs);
  25. ZeRO over several ranks on the one card (one spawn of four gloo
-     ranks: stages 0 and 3 at W = 4, 6 rows a rank; then three of them form
-     a new process group for stages 0, 1 and 2 at W = 3, 8 rows a rank; at
-     W = 3 stage 3's layout refuses the vocab of 32000): ``initialize`` →
+     ranks: stage 3 at W = 4, 6 rows a rank, held to W = 3's stage 0; then
+     three of them form a new process group for stages 0, 1 and 2 at W = 3,
+     8 rows a rank; at W = 3 stage 3's layout refuses the vocab of 32000):
+     ``initialize`` →
      ``train_batch`` on Llama-125M at phase 6's configuration (bf16, AdamW,
      remat ``flash_saveable``, B 24 of S 1024), one warm-up and one timed
      step each — per stage and rank the losses,
@@ -250,9 +251,19 @@ source, all started together.  Phases:
      tensors timed on the stage-2 gradient buffer (0.54 GB), agreeing; then
      float32 at 2 layers of 125M width in the same spawn, every stage
      against stage 0 (losses within rtol 1e-5, parameters within 1e-6 on
-     all but 1e-3 of the entries).
+     all but 1e-3 of the entries).  Last at W = 4, expert parallelism as
+     data 2 × expert 2: Mixtral-8x7B's widths at one layer (phase 20's),
+     each rank building its 4 of 8 experts (``expert_parallel_size=2``),
+     ZeRO-2, bf16, AdamW, one row of S 1024 a rank, one warm-up and one
+     timed step — losses finite and falling, dense parameters bit-identical
+     on every rank and each bank within its expert-data group, state bytes
+     a rank against the reckoning, all-to-alls a step by kind (dispatch and
+     combine, forward twice with the remat recompute, backward once),
+     K1/K2a/K2b once a step, step and wire ms, every rank's peak; and the
+     float32 losses of expert 2 against expert 1 at 2 narrow layers (rtol
+     1e-5).
  26. offload, after phase 24 (phase 1 prints the host's ``MemTotal`` and
-     ``MemAvailable``): Phi-2 as phase 24 trains it but at 8 of its 32
+     ``MemAvailable``): Phi-2 as phase 24 trains it but at 4 of its 32
      blocks (widths kept, for the script's time), first without offload
      (two steps: the reference), then with the host-optimizer tier
      (``offload_optimizer: {device: cpu}``: float32 master and moments in
@@ -1233,9 +1244,9 @@ def phase_flash_kernels() -> dict:
 
 # ---------------------------------------------------------------- phase 26
 
-#: Phi-2's depth in this phase (32 in phase 24; widths kept): a quarter of
+#: Phi-2's depth in this phase (32 in phase 24; widths kept): an eighth of
 #: the blocks, for the script's time
-OFFLOAD_PHI2_LAYERS = 8
+OFFLOAD_PHI2_LAYERS = 4
 #: tier b's groups: two staged groups of the state (3 x 4 B a parameter / 10 each)
 OFFLOAD_BUFFER_COUNT = 10
 OFFLOAD_STAGING_LIMIT = 8e9
@@ -2976,8 +2987,10 @@ def phase_data_parallel(smi: str) -> dict:
 
 # ---------------------------------------------------------------- phase 25
 
-#: world → the ZeRO stages trained over it (stage 3 at W = 4: 32000 % 3 != 0)
-ZERO_RUNS = {3: (0, 1, 2), 4: (0, 3)}
+#: world → the ZeRO stages trained over it in bf16 at full depth (stage 3 at W = 4: 32000 % 3 != 0; W = 4's
+#: stage 3 is held to W = 3's stage 0) and in float32 at 2 layers (each world's stage 0 the reference)
+ZERO_RUNS = {3: (0, 1, 2), 4: (3, )}
+ZERO_PARITY_RUNS = {3: (0, 1, 2), 4: (0, 3)}
 # one warm-up step, one timed (two timed steps took the whole script past ~520 s)
 ZERO_STEPS, ZERO_TIMED_FROM = 2, 1
 #: the order in which each world times the two reduce-scatter routes (alternated across worlds)
@@ -2985,6 +2998,16 @@ ZERO_RS_ORDER = {4: ("native", "all_to_all"), 3: ("all_to_all", "native")}
 ZERO_PARITY_LAYERS, ZERO_PARITY_STEPS = 2, 2
 ZERO_TIMEOUT_S = 600
 FLASH_COUNTERS = (flash_fwd_cuda, flash_dq_cuda, flash_dkv_cuda)
+# phase 25's expert-parallel run at W = 4 (data 2 × expert 2, ZeRO-2, bf16): Mixtral-8x7B's widths at one
+# layer, one row of EP_S a rank, one untimed step then one timed (a step takes ~7 s, the gloo wire
+# 96% of it); and the float32 parity of expert 2 against expert 1 at 2 layers of a narrow width
+EP_SIZE, EP_LAYERS, EP_S = 2, 1, 1024
+EP_STEPS, EP_TIMED_FROM = 2, 1
+EP_PARITY = MixtralConfig(vocab_size=32000, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+                          num_attention_heads=8, num_key_value_heads=2, max_position_embeddings=256,
+                          num_local_experts=8, num_experts_per_tok=2, capacity_factor=1.0, dtype=torch.float32,
+                          remat=True, remat_policy="flash_saveable")
+EP_PARITY_S, EP_PARITY_STEPS = 256, 3
 #: the comm layer's collectives the wire meter times
 WIRE_NAMES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "broadcast", "all_to_all_single")
 
@@ -3029,6 +3052,9 @@ def zero_reckoning(n: int, world: int, stage: int) -> dict:
     return {"params": 2 * (n // world if stage >= 3 else n), "master": 4 * state, "moments": 8 * state}
 
 
+HASH_CHUNK = 1 << 24
+
+
 def device_hash(t: torch.Tensor) -> int:
     """A hash of ``t``'s bits computed on the card: its 16- or 32-bit words
     times (i + 1)·0x1E3779B97F4A7C15, summed with int64 wraparound (an
@@ -3036,9 +3062,14 @@ def device_hash(t: torch.Tensor) -> int:
     changes the sum by d·w, which is not 0 mod 2^64 for |d| < 2^32 and
     i < 2^31."""
     words = t.detach().contiguous().view(-1)
-    words = words.view(torch.int16 if words.element_size() == 2 else torch.int32).to(torch.int64)
-    weights = torch.arange(1, words.numel() + 1, device=words.device, dtype=torch.int64) * 0x1E3779B97F4A7C15
-    return int((words * weights).sum())
+    words = words.view(torch.int16 if words.element_size() == 2 else torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=words.device)
+    for start in range(0, words.numel(), HASH_CHUNK):   # chunks: a bank's int64 words would take GBs
+        chunk = words[start:start + HASH_CHUNK].to(torch.int64)
+        weights = torch.arange(start + 1, start + chunk.numel() + 1, device=words.device,
+                               dtype=torch.int64) * 0x1E3779B97F4A7C15
+        total += (chunk * weights).sum()   # int64 wraparound: the same sum in any chunking
+    return int(total)
 
 
 def zero_digest(engine) -> tuple:
@@ -3115,10 +3146,94 @@ def reduce_scatter_routes(n: int, world: int) -> dict:
     return {"ms": ms, "agree": bool(torch.allclose(got["native"], got["all_to_all"], rtol=1e-5, atol=1e-5))}
 
 
+def ep_reckoning(cfg: MixtralConfig, local_params: int, world: int, ep: int) -> dict:
+    """The state bytes one rank holds at ZeRO-2 in bf16 of a Mixtral of
+    which it holds ``local_params`` parameters (the dense ones and E/ep
+    experts of each bank): its bf16 parameters, and a float32 master and two
+    float32 moments of 1/world of the dense tensors (each has a dim 4
+    divides) and of the banks (their expert dim over (expert, data): 2
+    whole experts of 8 a rank)."""
+    banks = 3 * cfg.num_local_experts * cfg.hidden_size * cfg.intermediate_size * cfg.num_hidden_layers
+    state = (local_params - banks // ep) // world + banks // world
+    return {"params": 2 * local_params, "master": 4 * state, "moments": 8 * state}
+
+
+def ep_run(cfg: MixtralConfig, steps: int, meter: WireMeter, ep: int, seq: int, seed: int,
+           timed_from=None) -> dict:
+    """A Mixtral of ``cfg`` (its dtype: bf16 or float32 training) built with
+    this rank's experts (``expert_parallel_size=ep``), seeded, through
+    ``initialize`` at ZeRO-2 over the ranks, one row of ``seq`` a rank;
+    ``steps`` train_batch calls on one repeated global batch, those from
+    ``timed_from`` on timed as one window; its figures."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.utils import groups
+    world = comm.get_world_size()
+    t_start = time.perf_counter()
+    acc = get_accelerator()
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    model = MixtralForCausalLM(cfg, device="cuda", expert_parallel_size=ep)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
+    ds = {"train_batch_size": world, "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+          "zero_optimization": {"stage": 2}, "moe": {"enabled": True, "expert_parallel_size": ep},
+          "steps_per_print": 0}
+    if cfg.dtype == torch.bfloat16:
+        ds["bf16"] = {"enabled": True}
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds, device="cuda",
+                                                loss_fn=make_mixtral_loss_fn(cfg))
+    build_s = time.perf_counter() - t_start
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (world, seq),
+                                                                dtype=np.int32)).cuda()
+    batch = {"input_ids": ids, "labels": ids}
+    reset_launch_counts()
+    comm.all_to_all_kinds.clear()
+    calls, wire, losses = comm.call_counts.copy(), meter.seconds, []
+    for i in range(steps):
+        if i == timed_from:
+            float(losses[-1])
+            calls, wire, t0 = comm.call_counts.copy(), meter.seconds, time.perf_counter()
+        losses.append(engine.train_batch(batch=batch))
+    float(losses[-1])
+    timed = steps - (timed_from or 0)
+    peak = acc.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    banks = {n for n in engine.param_names if ".experts." in n}
+    named = list(zip(engine.param_names, engine.params))
+    res = {"losses": [float(l) for l in losses], "launches": {f.__name__: f.launches for f in FLASH_COUNTERS},
+           "all_to_alls": {f"{kind}_{way}": n for (kind, way), n in comm.all_to_all_kinds.items()},
+           "collectives_per_step": {k: v / timed for k, v in (comm.call_counts - calls).items()},
+           "wire_ms_per_step": 1e3 * (meter.seconds - wire) / timed, "state_bytes": engine.state_bytes(),
+           "peak_mem_gb": peak, "local_params": sum(p.numel() for p in engine.params),
+           "dense_digest": tuple(device_hash(p) for n, p in named if n not in banks),
+           "bank_digest": tuple(device_hash(p) for n, p in named if n in banks),
+           "expert_coord": groups.get_expert_parallel_rank(), "build_s": build_s}
+    if timed_from is not None:
+        res["step_ms"] = 1e3 * (time.perf_counter() - t0) / timed
+    res["seconds"] = time.perf_counter() - t_start
+    del engine, model
+    return res
+
+
+def expert_parallel_rank(meter: WireMeter) -> dict:
+    """Phase 25's expert-parallel run on one of the W = 4 ranks: Mixtral-
+    8x7B's widths at ``EP_LAYERS`` layer over data 2 × expert 2, then the
+    float32 parity losses of expert 2 and expert 1 at ``EP_PARITY``."""
+    cfg = dataclasses.replace(MIXTRAL_PRESETS["mixtral-8x7b"], num_hidden_layers=EP_LAYERS,
+                              max_position_embeddings=EP_S, remat=True, remat_policy="flash_saveable",
+                              attention_impl="flash")
+    out = {"bf16": ep_run(cfg, EP_STEPS, meter, EP_SIZE, EP_S, seed=25, timed_from=EP_TIMED_FROM)}
+    out["f32"] = {ep: ep_run(EP_PARITY, EP_PARITY_STEPS, meter, ep, EP_PARITY_S, seed=26)["losses"]
+                  for ep in (1, EP_SIZE)}
+    return out
+
+
 def zero_rank(rank: int, world: int) -> dict:
     """Phase 25 on one rank: the bf16 stages of ``ZERO_RUNS[world]`` at full
-    depth, then the float32 parity runs at 2 layers (rank 0 returns their
-    whole parameters)."""
+    depth, the float32 parity runs of ``ZERO_PARITY_RUNS[world]`` at 2 layers
+    (rank 0 returns their whole parameters), then at W = 4 the
+    expert-parallel Mixtral run."""
     out = {"bf16": {}, "f32": {}}
     with WireMeter() as meter:
         for stage in ZERO_RUNS[world]:
@@ -3127,9 +3242,11 @@ def zero_rank(rank: int, world: int) -> dict:
         # the stage-2 gradient buffer: every parameter in float32
         out["rs_routes"] = reduce_scatter_routes(out["bf16"][ZERO_RUNS[world][0]]["n_params"], world)
         parity = llama_125m(num_hidden_layers=ZERO_PARITY_LAYERS, dtype=torch.float32)
-        for stage in ZERO_RUNS[world]:
+        for stage in ZERO_PARITY_RUNS[world]:
             out["f32"][stage] = zero_stage_run(stage, parity, torch.float32, ZERO_PARITY_STEPS, meter,
                                                keep_params=rank == 0)
+        if world == 2 * EP_SIZE:
+            out["ep"] = expert_parallel_rank(meter)
     return out
 
 
@@ -3137,7 +3254,8 @@ def zero_rank_main(rank: int, init_methods, queue) -> None:
     """A spawned rank of phase 25 (the ranks share the one card, cuda:0,
     over gloo): each world of ``ZERO_RUNS`` in turn, largest first, over a
     process group of its own (``init_methods[world]``); the ranks beyond a
-    world's size stop before it.  Puts ``{world: zero_rank(...)}``."""
+    world's size stop before it (a rank that waited for a later world's
+    rendezvous instead backed off for ~50 s).  Puts ``{world: zero_rank(...)}``."""
     from deepspeed_tpu_torch.comm import comm
     try:
         torch.cuda.set_device(0)
@@ -3203,16 +3321,61 @@ def share_beyond(got: dict, want: dict, tight: float) -> tuple:
     return float((diff > tight).mean()), float(diff.max())
 
 
-def phase_zero(smi: str) -> dict:
+def phase_expert_parallel(spawned: list, mixtral_params: int) -> tuple:
+    """Phase 25's expert-parallel figures and checks from the W = 4 ranks,
+    and their K1/K2a/K2b launches."""
+    runs = [r[2 * EP_SIZE]["ep"]["bf16"] for r in spawned]
+    f32 = spawned[0][2 * EP_SIZE]["ep"]["f32"]
+    cfg = MIXTRAL_PRESETS["mixtral-8x7b"]
+    banks = 3 * cfg.num_local_experts * cfg.hidden_size * cfg.intermediate_size * EP_LAYERS
+    local = mixtral_params - banks + banks // EP_SIZE
+    want = ep_reckoning(dataclasses.replace(cfg, num_hidden_layers=EP_LAYERS), local, len(runs), EP_SIZE)
+    a2a = {"dispatch_forward": 2 * EP_LAYERS * EP_STEPS, "combine_forward": 2 * EP_LAYERS * EP_STEPS,
+           "dispatch_backward": EP_LAYERS * EP_STEPS, "combine_backward": EP_LAYERS * EP_STEPS}
+    losses = runs[0]["losses"]
+    rel = float(np.max(np.abs(np.array(f32[EP_SIZE]) - f32[1]) / np.abs(f32[1])))
+    by_coord = {}
+    for r in runs:
+        by_coord.setdefault(r["expert_coord"], set()).add(r["bank_digest"])
+    checks = {
+        "ep_losses_finite": bool(np.all(np.isfinite(losses))),
+        "ep_second_loss_below_first": losses[1] < losses[0],
+        "ep_losses_equal_on_ranks": all(r["losses"] == losses for r in runs),
+        "ep_dense_bit_identical_on_ranks": len({r["dense_digest"] for r in runs}) == 1,
+        "ep_banks_bit_identical_in_expert_data_groups": all(len(d) == 1 for d in by_coord.values())
+        and len({next(iter(d)) for d in by_coord.values()}) == EP_SIZE,
+        "ep_local_params": all(r["local_params"] == local for r in runs),
+        "ep_state_bytes_reckoned": all(r["state_bytes"] == want for r in runs),
+        "ep_all_to_alls_by_kind": all(r["all_to_alls"] == a2a for r in runs),
+        "ep_k1_k2_per_layer_step": all(n == EP_LAYERS * EP_STEPS for r in runs for n in r["launches"].values()),
+        "ep_f32_parity_rtol_1e-5": rel <= 1e-5,
+    }
+    res = {"config": f"Mixtral-8x7B widths, {EP_LAYERS} layer, data 2 x expert {EP_SIZE}, ZeRO-2, bf16, AdamW, "
+                     f"B {len(runs)} of S {EP_S}", "losses": losses, "step_ms": [r["step_ms"] for r in runs],
+           "wire_ms_per_step": [r["wire_ms_per_step"] for r in runs], "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+           "peak_mem_gb_sum": sum(r["peak_mem_gb"] for r in runs), "state_bytes": runs[0]["state_bytes"],
+           "reckoned_bytes": want, "local_params": runs[0]["local_params"], "all_to_alls": runs[0]["all_to_alls"],
+           "collectives_per_step": runs[0]["collectives_per_step"],
+           "launches_per_step": {k: v / EP_STEPS for k, v in runs[0]["launches"].items()},
+           "build_s": [r["build_s"] for r in runs], "run_s": [r["seconds"] for r in runs],
+           "f32_parity": {"losses_ep1": f32[1], f"losses_ep{EP_SIZE}": f32[EP_SIZE], "loss_rel": rel},
+           "tok_s_all_ranks": len(runs) * EP_S / (max(r["step_ms"] for r in runs) / 1e3)}
+    launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    return res, checks, launches
+
+
+def phase_zero(smi: str, mixtral_params: int) -> dict:
     layers = PRESETS["125m"].num_hidden_layers
     res, checks = {"card": smi}, {}
     launches = {f.__name__: 0 for f in FLASH_COUNTERS}
     t0 = time.perf_counter()
     spawned = spawn_ranks(zero_rank_main, max(ZERO_RUNS), ZERO_TIMEOUT_S * len(ZERO_RUNS), groups=tuple(ZERO_RUNS))
     res["spawn_s"] = time.perf_counter() - t0
+    # W = 4 trains stage 3 only: its losses and peaks are held to W = 3's stage 0 on the same global batch
+    base_ranks = [r[3]["bf16"][0] for r in spawned[:3]]
     for world, stages in ZERO_RUNS.items():
         ranks = [r[world] for r in spawned[:world]]
-        base = ranks[0]["bf16"][0]
+        base = base_ranks[0]
         n = base["n_params"]
         per_stage = {}
         for stage in stages:
@@ -3241,8 +3404,8 @@ def phase_zero(smi: str) -> dict:
                 "run_s": [r["seconds"] for r in runs],
                 "tok_s_all_ranks": BENCH_B * BENCH_S / (max(r["step_ms"] for r in runs) / 1e3)}
         if 3 in stages:
-            checks[f"w{world}_stage3_peak_below_stage0"] = all(
-                r["bf16"][3]["peak_mem_gb"] < r["bf16"][0]["peak_mem_gb"] for r in ranks)
+            checks[f"w{world}_stage3_peak_below_w3_stage0"] = all(
+                r["bf16"][3]["peak_mem_gb"] < min(b["peak_mem_gb"] for b in base_ranks) for r in ranks)
         parity = {}
         f32 = ranks[0]["f32"]
         for stage, run in f32.items():
@@ -3262,6 +3425,9 @@ def phase_zero(smi: str) -> dict:
                                                   **{route: [r["rs_routes"]["ms"][route] for r in ranks]
                                                      for route in ZERO_RS_ORDER[world]}}}
         log(f"  zero W = {world}: " + json.dumps(res[f"w{world}"]))
+    res["expert_parallel"], ep_checks, res["ep_launches"] = phase_expert_parallel(spawned, mixtral_params)
+    checks.update(ep_checks)
+    log("  expert parallel: " + json.dumps(res["expert_parallel"]))
     res["launches"] = launches
     res["checks"] = checks
     log(f"  zero: one spawn of {max(ZERO_RUNS)} ranks, {res['spawn_s']:.1f} s")
@@ -5528,8 +5694,9 @@ def main() -> int:
     quant = phase_quant_kernels()
     log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire")
     dp = phase_data_parallel(env["card"])
-    log("== phase 25: ZeRO stages 0-2 over 3 ranks and 0/3 over 4 ranks on Llama-125M (gloo, one card)")
-    zero = phase_zero(env["card"])
+    log("== phase 25: ZeRO stages 0-2 over 3 ranks and 3 over 4 ranks on Llama-125M; Mixtral-8x7B's widths over "
+        "data 2 x expert 2 (gloo, one card)")
+    zero = phase_zero(env["card"], moe_training["params"])
     dec, ver = k3["decode"], k3["verify"]
     zoo_launches = sum(r["k3_launches"] for r in zoo.values())
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
@@ -5565,6 +5732,7 @@ def main() -> int:
                    "moe_training": moe_training["launches"][name],
                    "gpt2_training": v1["gpt2_training"]["launches"][name],
                    "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"],
+                   "expert_parallel": zero["ep_launches"][f"{name}_cuda"],
                    "offload": offload["launches"][name]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]

@@ -12,3 +12,9 @@ HEAD_DIM = "head_dim"
 VOCAB = "vocab"
 LAYERS = "layers"
 POSITIONS = "positions"   # a learned position table (GPT-2's wpe; replicated)
+
+# MoE axes (moe/experts.py, moe/layer.py)
+EXPERTS = "experts"
+EXPERT_EMBED = "expert_embed"
+EXPERT_MLP = "expert_mlp"
+EXPERTS_GATE = "experts_gate"

@@ -19,11 +19,18 @@ over ``torch.distributed`` (port of ``deepspeed_tpu/comm/comm.py:42-96,
   a caller records one aggregate for the collectives it runs (the training
   engine's step, which JAX runs inside one ``jit`` and logs as one entry).
   ``call_counts`` counts every collective's calls, recorded or not.
+* Every collective takes a ``group`` (``None``: the default group), such as
+  the expert groups of ``utils/groups.py``.  ``AllToAll`` is the autograd
+  all-to-all of the MoE dispatch (ref: ``deepspeed/moe/sharded_moe.py``
+  ``_AllToAll``): equal splits along dim 0, its backward the same
+  all-to-all of the gradient; ``all_to_all_kinds`` counts its calls by the
+  caller's label and direction.
 * ``reduce_scatter_tensor`` takes its route from the backend and the
   tensor's device (``REDUCE_SCATTER_ROUTES``): the process group's own
   collective, except gloo on CUDA tensors, which it takes but which run
-  faster as one ``all_to_all_single`` and a sum of the received chunks in
-  rank order (``chip_smoke.py`` phase 25 times both routes on the card;
+  faster as ``all_to_all_single`` calls (of at most
+  ``ALL_TO_ALL_CHUNK_BYTES`` each) and a sum of the received chunks in rank
+  order (``chip_smoke.py`` phase 25 times both routes on the card;
   ``PERF.md`` §6).
 """
 
@@ -44,6 +51,8 @@ _COMMS_LOGGER = None
 _UNRECORDED = 0   # depth of unrecorded() blocks
 #: calls of each collective in this process, inside unrecorded() blocks too
 call_counts = collections.Counter()
+#: ``AllToAll`` calls by (label, "forward" or "backward")
+all_to_all_kinds = collections.Counter()
 
 
 class CommsLogger:
@@ -57,13 +66,26 @@ class CommsLogger:
         self.prof_ops = list(prof_ops or [])
         self.comms_dict = {}
 
-    def append(self, name, latency, msg_size):
-        entry = self.comms_dict.setdefault(name, {})
+    def append(self, raw_name, record_name, latency, msg_size):
+        """One call of ``raw_name`` (``record_name`` is the reference's
+        label for it; the counters are keyed by ``raw_name``, as JAX's)."""
+        entry = self.comms_dict.setdefault(raw_name, {})
         sz = entry.setdefault(msg_size, [0, 0.0])
         sz[0] += 1
         sz[1] += latency
         if self.verbose:
-            logger.info(f"comm op: {name} | time (ms): {latency*1e3:.2f} | msg size: {msg_size}")
+            logger.info(f"comm op: {raw_name} | time (ms): {latency*1e3:.2f} | msg size: {msg_size}")
+
+    def log_all(self, print_log: bool = True, show_straggler: bool = False):
+        """One line per collective and message size, logged when
+        ``print_log``; returns ``comms_dict`` (JAX ``comm.py:60``)."""
+        lines = ["Comms summary:"]
+        for op, sizes in self.comms_dict.items():
+            for size, (count, total) in sorted(sizes.items()):
+                lines.append(f"  {op:<24} size={size:<12} count={count:<6} total_ms={total*1e3:.2f}")
+        if print_log:
+            logger.info("\n".join(lines))
+        return self.comms_dict
 
 
 def configure(deepspeed_config=None, enabled: Optional[bool] = None, prof_all: Optional[bool] = None, prof_ops=None,
@@ -84,6 +106,15 @@ def comms_logger() -> Optional[CommsLogger]:
     return _COMMS_LOGGER
 
 
+def log_summary(show_straggler: bool = False) -> dict:
+    """The CommsLogger's summary (JAX ``comm.py:87``); ``{}`` and a warning
+    when it is off."""
+    if _COMMS_LOGGER is not None:
+        return _COMMS_LOGGER.log_all(show_straggler=show_straggler)
+    logger.warning("comms logging not enabled; call deepspeed_tpu_torch.comm.configure first")
+    return {}
+
+
 @contextlib.contextmanager
 def unrecorded():
     """The collectives inside do not record themselves into the CommsLogger."""
@@ -97,7 +128,7 @@ def unrecorded():
 
 def _record(name: str, t0: float, nbytes: int) -> None:
     if _COMMS_LOGGER is not None and not _UNRECORDED:
-        _COMMS_LOGGER.append(name, time.time() - t0, nbytes)
+        _COMMS_LOGGER.append(name, name, time.time() - t0, nbytes)
 
 
 # --------------------------------------------------------------------------
@@ -120,7 +151,7 @@ def init_distributed(dist_backend: Optional[str] = None,
     launcher exports (0 and 1 without them); ``init_method`` to
     ``tcp://MASTER_ADDR:MASTER_PORT`` (``127.0.0.1`` and
     ``distributed_port`` without them).  ``timeout`` is in seconds.
-    ``mesh_spec``, when given, must fit the world (data parallel only)."""
+    ``mesh_spec``, when given, must fit the world (its data and expert axes)."""
     world = world_size if world_size > 0 else int(os.environ.get("WORLD_SIZE", 1))
     if mesh_spec is not None:
         mesh_spec.resolve(world)
@@ -160,6 +191,31 @@ def get_world_size(group=None) -> int:
 
 def get_backend(group=None) -> Optional[str]:
     return dist.get_backend(group) if is_initialized() else None
+
+
+def get_local_rank() -> int:
+    """This rank's index on its host: the launcher's ``LOCAL_RANK`` (0 without it)."""
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
+def get_world_group():
+    """The group of every rank (JAX's ``ZERO_AXES``): the default group."""
+    return dist.group.WORLD if is_initialized() else None
+
+
+def get_all_ranks_from_group(group=None) -> list:
+    """The global ranks of ``group``, in its rank order."""
+    if not is_initialized():
+        return [0]
+    return dist.get_process_group_ranks(group if group is not None else dist.group.WORLD)
+
+
+def has_all_gather_into_tensor() -> bool:
+    return True
+
+
+def has_reduce_scatter_tensor() -> bool:
+    return True
 
 
 def barrier(group=None) -> None:
@@ -218,6 +274,11 @@ def all_to_all_single(output: torch.Tensor, tensor: torch.Tensor, group=None) ->
     return output
 
 
+#: the most bytes of a reduce-scatter's buffer that its all-to-all route
+#: sends at once: gloo stages a CUDA tensor's send and receive copies in
+#: pinned host memory and keeps them cached (a bank's 2.8 GB gradient buffer
+#: left 8 GB a rank; four ranks of phase 25 ran the host out of memory)
+ALL_TO_ALL_CHUNK_BYTES = 1 << 28
 #: (backend, device type) → how ``reduce_scatter_tensor`` runs: "native"
 #: (the process group's reduce-scatter) or "all_to_all" (an all-to-all of
 #: the chunks, then their sum in rank order; SUM and AVG only)
@@ -233,13 +294,15 @@ def reduce_scatter_tensor(output: torch.Tensor, tensor: torch.Tensor, op: str = 
     t0 = time.time()
     route = REDUCE_SCATTER_ROUTES.get((get_backend(group), tensor.device.type), "native")
     if route == "all_to_all" and op != ReduceOp.MAX:
-        received = torch.empty_like(tensor)
-        dist.all_to_all_single(received, tensor, group=group)
-        chunks = received.view(get_world_size(group), -1)
-        out = output.view(-1)
-        out.copy_(chunks[0])
-        for chunk in chunks[1:]:
-            out.add_(chunk)
+        world = get_world_size(group)
+        sent, out = tensor.view(world, -1), output.view(-1)
+        step = max(1, ALL_TO_ALL_CHUNK_BYTES // (world * tensor.element_size()))
+        for c0 in range(0, sent.shape[1], step):
+            received = torch.empty_like(sent[:, c0:c0 + step])
+            dist.all_to_all_single(received, sent[:, c0:c0 + step].contiguous(), group=group)
+            out[c0:c0 + step].copy_(received[0])
+            for chunk in received[1:]:
+                out[c0:c0 + step].add_(chunk)
     else:
         dist.reduce_scatter_tensor(output, tensor, op=_TORCH_OPS[op], group=group)
     call_counts["reduce_scatter_tensor"] += 1
@@ -247,6 +310,32 @@ def reduce_scatter_tensor(output: torch.Tensor, tensor: torch.Tensor, op: str = 
         output.div_(torch.full_like(output, get_world_size(group)))
     _record("reduce_scatter_tensor", t0, _nbytes(tensor))
     return output
+
+
+class AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over ``group`` as an autograd function: chunk
+    ``j`` of dim 0 goes to the group's rank ``j``; the backward sends the
+    gradient's chunks back the same way (ref: ``sharded_moe.py``
+    ``_AllToAll``).  Not recorded into the CommsLogger (JAX's runs inside
+    the jitted step)."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return _all_to_all(x, group, kind, "forward")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group, ctx.kind, "backward"), None, None
+
+
+def _all_to_all(x: torch.Tensor, group, kind: str, direction: str) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    with unrecorded():
+        all_to_all_single(out, x, group=group)
+    all_to_all_kinds[(kind, direction)] += 1
+    return out
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

@@ -2,18 +2,23 @@
 
 The JAX package builds one named device mesh whose axes carry every degree
 of parallelism (``pipe``, ``data``, ``expert``, ``seq``, ``tensor``).  The
-port has data parallelism only: the ``data`` axis is the default
-``torch.distributed`` process group, one rank per data-parallel replica.
-A ``MeshSpec`` that asks for any other axis above 1 raises.
+port has data and expert parallelism: the ranks of the default
+``torch.distributed`` process group are the devices of JAX's mesh, in its
+order (``MESH_AXES`` row-major), so at ``data`` D × ``expert`` ep rank
+``d·ep + e`` sits at coordinate (d, e) and an expert group is ep
+consecutive ranks.  A ``MeshSpec`` that asks for ``pipe``, ``seq`` or
+``tensor`` above 1 raises.
 
 ``Mesh`` stands for the JAX mesh where only its axis sizes are read (the
-ZeRO partition rules, ``runtime/zero``): ``get_global_mesh()`` is the
-data-only mesh over the process group, every other axis of size 1.
-ZeRO partitions over ``ZERO_AXES``, as in JAX.
+ZeRO partition rules, ``runtime/zero``; the groups, ``utils/groups.py``):
+``get_global_mesh()`` is the mesh the training engine set
+(``set_global_mesh``, as JAX's engine sets its own), else the data-only
+mesh over the process group.  ZeRO partitions over ``ZERO_AXES`` and a
+batch is split over ``BATCH_AXES``, as in JAX.
 """
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -25,14 +30,17 @@ TENSOR_AXIS = "tensor"
 MESH_AXES = (PIPE_AXIS, DATA_AXIS, EXPERT_AXIS, SEQ_AXIS, TENSOR_AXIS)
 #: the axes over which ZeRO partitions parameters, gradients and optimizer state
 ZERO_AXES = (DATA_AXIS, EXPERT_AXIS, SEQ_AXIS)
+#: the axes over which a data batch is split
+BATCH_AXES = (DATA_AXIS, EXPERT_AXIS)
 
-ROADMAP_MULTI_DEVICE = ("ROADMAP Queue 1 item 6, multi-device training (MoE over several ranks, pipeline/tensor/"
-                        "sequence/expert parallel)")
+ROADMAP_MULTI_DEVICE = "ROADMAP Queue 1 item 6, multi-device training (pipeline/tensor/sequence parallel)"
+#: what of MoE over several ranks still raises
+ROADMAP_EXPERT_PARALLEL = "ROADMAP Queue 1 item 6.1, MoE over several ranks"
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """Sizes of the mesh axes; ``data=-1`` takes every rank."""
+    """Sizes of the mesh axes; ``data=-1`` takes the ranks the others leave."""
     pipe: int = 1
     data: int = -1
     expert: int = 1
@@ -40,16 +48,22 @@ class MeshSpec:
     tensor: int = 1
 
     def resolve(self, world_size: int) -> Tuple[int, int, int, int, int]:
-        """The axis sizes over ``world_size`` ranks, in ``MESH_AXES`` order."""
-        others = {a: getattr(self, a) for a in MESH_AXES if a != DATA_AXIS}
-        wide = {a: n for a, n in others.items() if n != 1}
+        """The axis sizes over ``world_size`` ranks, in ``MESH_AXES`` order
+        (JAX ``MeshSpec.resolve``, its divisibility rule and its errors)."""
+        wide = {a: getattr(self, a) for a in (PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS) if getattr(self, a) != 1}
         if wide:
-            raise NotImplementedError(f"mesh axes {wide}: the port has data parallelism only; pipeline, expert, "
+            raise NotImplementedError(f"mesh axes {wide}: the port has data and expert parallelism; pipeline, "
                                       f"sequence and tensor parallelism are not ported ({ROADMAP_MULTI_DEVICE})")
-        data = world_size if self.data == -1 else self.data
-        if data != world_size:
-            raise ValueError(f"Mesh {self} does not cover {world_size} ranks (data={data})")
-        return (1, data, 1, 1, 1)
+        fixed = self.pipe * self.expert * self.seq * self.tensor
+        data = self.data
+        if data == -1:
+            if world_size % fixed != 0:
+                raise ValueError(f"{world_size} devices not divisible by pipe*expert*seq*tensor={fixed}")
+            data = world_size // fixed
+        if self.pipe * data * self.expert * self.seq * self.tensor != world_size:
+            raise ValueError(f"Mesh {self} does not cover {world_size} devices (pipe={self.pipe} data={data} "
+                             f"expert={self.expert} seq={self.seq} tensor={self.tensor})")
+        return (self.pipe, data, self.expert, self.seq, self.tensor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +71,47 @@ class Mesh:
     """The sizes of the mesh axes (JAX ``Mesh.shape``), by axis name."""
     shape: Dict[str, int]
 
+    def coords(self, rank: int) -> Dict[str, int]:
+        """The coordinate of ``rank`` on every axis: JAX lays its devices
+        out ``MESH_AXES`` row-major, the last axis fastest."""
+        out = {}
+        for a in reversed(MESH_AXES):
+            n = self.shape.get(a, 1)
+            out[a] = rank % n
+            rank //= n
+        return out
+
+    def rank(self, coords: Dict[str, int]) -> int:
+        """The rank at ``coords`` (absent axes at 0)."""
+        r = 0
+        for a in MESH_AXES:
+            r = r * self.shape.get(a, 1) + coords.get(a, 0)
+        return r
+
+
+def create_mesh(spec: Optional[MeshSpec] = None, world_size: Optional[int] = None) -> Mesh:
+    """The mesh of ``spec`` over ``world_size`` ranks (the process group's by default)."""
+    spec = spec or MeshSpec()
+    sizes = spec.resolve(dp_world_size() if world_size is None else world_size)
+    return Mesh(dict(zip(MESH_AXES, sizes)))
+
+
+_GLOBAL_MESH: Optional[Mesh] = None
+
+
+def set_global_mesh(mesh: Optional[Mesh]) -> None:
+    """Install the mesh ``get_global_mesh`` returns (None: the data-only mesh)."""
+    global _GLOBAL_MESH
+    _GLOBAL_MESH = mesh
+
 
 def get_global_mesh() -> Mesh:
-    """The data-only mesh over the default process group (one rank without
-    one): ``data`` is the world size, every other axis 1."""
-    return Mesh({**dict.fromkeys(MESH_AXES, 1), DATA_AXIS: dp_world_size()})
+    """The mesh the engine set, while it covers the process group's ranks;
+    else the data-only mesh over them (one rank without a process group)."""
+    world = dp_world_size()
+    if _GLOBAL_MESH is not None and axis_size(_GLOBAL_MESH, *MESH_AXES) == world:
+        return _GLOBAL_MESH
+    return Mesh({**dict.fromkeys(MESH_AXES, 1), DATA_AXIS: world})
 
 
 def axis_size(mesh: Mesh, *axes: str) -> int:
@@ -73,6 +123,6 @@ def axis_size(mesh: Mesh, *axes: str) -> int:
 
 
 def dp_world_size() -> int:
-    """The data-parallel degree: the default process group's world size, 1
-    without a process group."""
+    """The ranks of the default process group (the combined data-parallel
+    degree, ``BATCH_AXES``); 1 without a process group."""
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

@@ -65,12 +65,16 @@ run can then be continued by the port.
 ``jax_leaves`` goes the other way for the ZeRO partition rules
 (``runtime/zero/partition.py``) and the universal checkpoint
 (``checkpoint/ds_to_universal.py``): for each parameter of a port Llama,
-Falcon, OPT, Phi or GPT-2 training model, the shape of its JAX leaf in the
+Falcon, OPT, Phi, GPT-2 or Mixtral training model, the shape of its JAX leaf in the
 unrolled tree (``scan_layers=False``), whether the port tensor is that
 leaf's transpose (an ``nn.Linear`` weight), the leaf's logical axes (the JAX
 models' ``with_logical_partitioning``; a leaf without them, as a
 ``DenseGeneral`` bias or a flax ``LayerNorm`` outside GPT-2, has none) and
-its path in the JAX tree.
+its path in the JAX tree.  Mixtral's expert banks ``[E, in, out]`` keep
+the JAX layout (logical ``(experts, expert_embed, expert_mlp)``, ``w_down``
+``(experts, expert_mlp, expert_embed)``) with the whole bank's shape, also
+where the port tensor holds one rank's experts; its router's weight is the
+transpose of the kernel ``[hidden, E]`` (``(embed, experts_gate)``).
 """
 
 import dataclasses
@@ -80,7 +84,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..axes import EMBED, HEAD_DIM, HEADS, KV_HEADS, MLP, POSITIONS, VOCAB
+from ..axes import (EMBED, EXPERT_EMBED, EXPERT_MLP, EXPERTS, EXPERTS_GATE, HEAD_DIM, HEADS, KV_HEADS, MLP,
+                    POSITIONS, VOCAB)
 from .llama import LayerNorm, LlamaConfig, RMSNorm
 
 
@@ -274,13 +279,15 @@ _LINEARS = {
     "opt": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "out_proj": _O, "fc1": _UP, "fc2": _DOWN, "lm_head": _HEAD,
             "project_in": (_DENSE, (), ()), "project_out": (_DENSE, (), ())},
     "phi": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "dense": _O, "fc1": _UP, "fc2": _DOWN, "lm_head": _HEAD},
+    "mixtral": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "o_proj": _O, "lm_head": _HEAD},
     "gpt2": {"attn.c_attn": (_QKV3, (EMBED, None, HEADS, HEAD_DIM), (None, HEADS, HEAD_DIM)),
              "attn.c_proj": (_OUT, (HEADS, HEAD_DIM, EMBED), (EMBED, )),
              "mlp.c_fc": (_DENSE, (EMBED, MLP), (MLP, )), "mlp.c_proj": (_DENSE, (MLP, EMBED), (EMBED, )),
              "lm_head": _HEAD},
 }
 #: per family, each ``nn.Embedding`` by name → its logical axes
-_EMBEDDINGS = {"llama": {"embed_tokens": (VOCAB, EMBED)}, "falcon": {"word_embeddings": (VOCAB, EMBED)},
+_EMBEDDINGS = {"llama": {"embed_tokens": (VOCAB, EMBED)}, "mixtral": {"embed_tokens": (VOCAB, EMBED)},
+               "falcon": {"word_embeddings": (VOCAB, EMBED)},
                "opt": {"embed_tokens": (VOCAB, EMBED), "embed_positions": ()}, "phi": {"embed_tokens": (VOCAB, EMBED)},
                "gpt2": {"wte": (VOCAB, EMBED), "wpe": (POSITIONS, EMBED)}}
 
@@ -289,15 +296,16 @@ def _family(model: nn.Module) -> str:
     from .falcon import FalconForCausalLM
     from .gpt2 import GPT2LMHeadModel
     from .llama import LlamaForCausalLM
+    from .mixtral import MixtralForCausalLM
     from .opt import OPTForCausalLM
     from .phi import PhiForCausalLM
     for cls, name in ((LlamaForCausalLM, "llama"), (FalconForCausalLM, "falcon"), (OPTForCausalLM, "opt"),
-                      (PhiForCausalLM, "phi"), (GPT2LMHeadModel, "gpt2")):
+                      (PhiForCausalLM, "phi"), (GPT2LMHeadModel, "gpt2"), (MixtralForCausalLM, "mixtral")):
         if type(model) is cls:
             return name
-    raise NotImplementedError(f"{type(model).__name__}: its JAX leaves are known for the Llama, Falcon, OPT, Phi and "
-                              "GPT-2 training models only, so it cannot be partitioned over several ranks "
-                              "(ROADMAP Queue 1 item 6.1 brings Mixtral's)")
+    raise NotImplementedError(f"{type(model).__name__}: its JAX leaves are known for the Llama, Falcon, OPT, Phi, "
+                              "GPT-2 and Mixtral training models only, so it cannot be partitioned over several "
+                              "ranks")
 
 
 def _jax_path(family: str, module_name: str, leaf: str) -> str:
@@ -317,9 +325,11 @@ def _jax_path(family: str, module_name: str, leaf: str) -> str:
 
 def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
     """For each parameter of a port training model of the Llama family
-    (Llama, Mistral, Qwen2, InternLM, Phi-3), Falcon, OPT, Phi or GPT-2, its
-    JAX leaf in the unrolled tree (``scan_layers=False``).  Another model
-    raises ``NotImplementedError``."""
+    (Llama, Mistral, Qwen2, InternLM, Phi-3), Falcon, OPT, Phi, GPT-2 or
+    Mixtral, its JAX leaf in the unrolled tree (``scan_layers=False``).
+    Another model raises ``NotImplementedError``."""
+    from ..moe.experts import ExpertsFFN
+    from ..moe.layer import Router
     family = _family(model)
     cfg = model.cfg
     hd = cfg.head_dim
@@ -331,7 +341,13 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
         for pname, p in mod.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
             shape = tuple(p.shape)
-            if isinstance(mod, nn.Embedding) and short in embeds:
+            if isinstance(mod, ExpertsFFN):
+                logical = (EXPERTS, EXPERT_MLP, EXPERT_EMBED) if pname == "w_down" else \
+                    (EXPERTS, EXPERT_EMBED, EXPERT_MLP)
+                leaf = JaxLeaf((mod.num_experts, ) + shape[1:], shape, False, logical, _jax_path(family, mname, pname))
+            elif isinstance(mod, Router):
+                leaf = JaxLeaf(shape[::-1], shape, True, (EMBED, EXPERTS_GATE), _jax_path(family, mname, "kernel"))
+            elif isinstance(mod, nn.Embedding) and short in embeds:
                 leaf = JaxLeaf(shape, shape, False, embeds[short], _jax_path(family, mname, "embedding"))
             elif isinstance(mod, RMSNorm):
                 leaf = JaxLeaf(shape, shape, False, (EMBED, ), _jax_path(family, mname, "weight"))
@@ -378,8 +394,7 @@ def jax_train_state_to_engine(state: Any, engine, cfg: LlamaConfig):
             continue
         moments = jax_llama_to_state_dict(tree, cfg)
         for i, (name, t) in enumerate(zip(engine.param_names, engine._targets)):
-            full = moments[name].to(device=t.device, dtype=torch.float32)
-            opt.state[t][key] = full if engine.zero is None else engine.zero.local_state(i, full).clone()
+            opt.state[t][key] = engine.local_state(i, moments[name]).to(t.device).clone()
     if step is not None:
         opt.step_count = int(np.asarray(step))
         opt._device_step = None   # rebuilt from step_count at the next overflow-checked step

@@ -10,6 +10,15 @@ token mean.  The block calls the layer with its default ``train=True``, so
 the capacity factor is ``capacity_factor`` under ``eval_batch`` too, as in
 JAX (``mixtral.py:101-112``).
 
+Over several ranks each rank's layers gate its own rows as one group and
+return that group's ``l_aux``; JAX averages ``l_aux`` over the groups.  The
+loss function's ``rank_share`` is what one rank adds to the sum over the
+ranks that the engine takes (``runtime/engine.py``): its share of the token
+mean over the global micro-batch plus ``coef · l_aux_r / W``, so the sum is
+JAX's ``CE + coef · mean(l_aux)`` and each group's gradient weighs 1/W, as
+``jnp.mean``'s.  ``expert_parallel_size`` > 1 builds each MoE layer with
+this rank's experts only (``moe.MoE``'s ``ep_size``).
+
 Parameter names mirror the JAX tree with the layers unrolled
 (``layers.{i}.block_sparse_moe.{gate.weight, experts.w_gate, ...}``), so
 ``models/convert.py`` carries it across and the serving twin
@@ -98,25 +107,25 @@ PRESETS = {
 }
 
 
-def moe_layer(cfg: MixtralConfig, device=None) -> MoE:
+def moe_layer(cfg: MixtralConfig, device=None, ep_size: int = 1) -> MoE:
     return MoE(hidden_size=cfg.hidden_size, num_experts=cfg.num_local_experts,
                intermediate_size=cfg.intermediate_size, k=cfg.num_experts_per_tok,
                capacity_factor=cfg.capacity_factor, eval_capacity_factor=cfg.eval_capacity_factor,
                min_capacity=cfg.min_capacity, drop_tokens=cfg.drop_tokens, dtype=cfg.dtype,
-               param_dtype=cfg.param_dtype, device=device)
+               param_dtype=cfg.param_dtype, device=device, ep_size=ep_size)
 
 
 class MixtralBlock(nn.Module):
     """``h = x + attn(ln(x))``; ``h + moe(ln(h))``, and the layer's ``l_aux``."""
 
-    def __init__(self, cfg: MixtralConfig, device=None, self_attn: Optional[nn.Module] = None):
+    def __init__(self, cfg: MixtralConfig, device=None, self_attn: Optional[nn.Module] = None, ep_size: int = 1):
         super().__init__()
         self.cfg = cfg
         self.self_attn = self_attn if self_attn is not None else LlamaAttention(cfg.as_llama(), device=device)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
                                                 device)
-        self.block_sparse_moe = moe_layer(cfg, device)
+        self.block_sparse_moe = moe_layer(cfg, device, ep_size)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, segment_ids: Optional[torch.Tensor] = None):
         h = x + self.self_attn(self.input_layernorm(x), positions, segment_ids)
@@ -129,12 +138,14 @@ class MixtralForCausalLM(LlamaForCausalLM):
     engine with ``make_mixtral_loss_fn``.  Remat as the Llama model's."""
 
     supports_pld = False
+    expert_parallel_size = 1
 
-    def __init__(self, cfg: MixtralConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: MixtralConfig, device: DeviceLike = "cuda", expert_parallel_size: int = 1):
+        self.expert_parallel_size = expert_parallel_size   # read by _make_block during the base's __init__
         super().__init__(cfg, device=device)
 
     def _make_block(self, cfg, device, layer: int) -> nn.Module:
-        return MixtralBlock(cfg, device=device)
+        return MixtralBlock(cfg, device=device, ep_size=self.expert_parallel_size)
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None):
@@ -158,9 +169,18 @@ def mixtral_lm_loss(outputs, labels: torch.Tensor, loss_mask: Optional[torch.Ten
 
 
 def make_mixtral_loss_fn(cfg: MixtralConfig):
-    """The engine's ``loss_fn(outputs, batch)`` for ``MixtralForCausalLM``."""
+    """The engine's ``loss_fn(outputs, batch)`` for ``MixtralForCausalLM``,
+    with its ``rank_share(outputs, batch, denom, world)``: one rank's share
+    of the loss over ``world`` ranks, its token sum over ``denom`` (the
+    global token count) plus ``coef · l_aux / world``."""
 
     def loss_fn(outputs, batch):
         return mixtral_lm_loss(outputs, batch["labels"], batch.get("loss_mask"), cfg.router_aux_loss_coef)
 
+    def rank_share(outputs, batch, denom, world: int):
+        logits, l_aux = outputs
+        return causal_lm_loss(logits, batch["labels"], batch.get("loss_mask"), denom) + \
+            cfg.router_aux_loss_coef * l_aux / world
+
+    loss_fn.rank_share = rank_share
     return loss_fn

@@ -1,25 +1,31 @@
 """The sharding rules of the parameters: logical axes → mesh axes (port of
-the ZeRO-3 part of ``deepspeed_tpu/module_inject/tp_rules.py``).
+the ZeRO-3 and expert part of ``deepspeed_tpu/module_inject/tp_rules.py``).
 
 At ZeRO stage 3 the JAX package shards every ``embed`` dim over the
 data-parallel axes (``make_logical_rules`` :38-88), except on the
 vocab-facing parameters (the embedding table and ``lm_head``), which shard
 on their ``vocab`` dim and keep ``embed`` whole (``vocab_rules`` :70-88).
-Below stage 3 the parameters are whole on every rank.  A dim that the
-partition group's size does not divide cannot be sharded: JAX refuses the
-layout when it places the arrays, and the port raises a ``ValueError``
-naming the tensor, the dim and the size.
+Below stage 3 the parameters are whole on every rank.  The MoE rules
+(:56-63), at every stage: an expert bank's ``experts`` dim is sharded over
+the ``expert`` axis; its ``expert_embed`` dim takes the stage-3 axes
+without ``expert`` (which its expert dim has taken); ``expert_mlp`` takes
+the tensor axis and the router's ``experts_gate`` dim stays whole.  A dim
+that the partition group's size does not divide cannot be sharded: JAX
+refuses the layout when it places the arrays, and the port raises a
+``ValueError`` naming the tensor, the dim and the size.
 
-The port's mesh has the data axis only (``comm/mesh.py``), so the tensor
-axis, which the JAX rules also place here, stays at 1.
+The tensor axis, which the JAX rules also place here, is not ported and
+raises above 1.  An expert bank whose port tensor holds this rank's
+experts only (``moe.ExpertsFFN`` under expert parallelism) is ``held``
+over the ``expert`` axis.
 """
 
 from typing import Dict, Sequence
 
-from ..axes import EMBED, VOCAB
-from ..comm.mesh import ROADMAP_MULTI_DEVICE, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
+from ..axes import EMBED, EXPERT_EMBED, EXPERTS, VOCAB
+from ..comm.mesh import EXPERT_AXIS, ROADMAP_MULTI_DEVICE, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
 from ..models.convert import JaxLeaf
-from ..runtime.zero.partition import Partition
+from ..runtime.zero.partition import Partition, _sizes
 
 
 def param_shardings(leaves: Dict[str, JaxLeaf], mesh: Mesh, zero_stage: int,
@@ -31,15 +37,20 @@ def param_shardings(leaves: Dict[str, JaxLeaf], mesh: Mesh, zero_stage: int,
                                   f"({ROADMAP_MULTI_DEVICE})")
     axes = tuple(a for a in fsdp_axes if mesh.shape.get(a, 1) > 1)
     fsdp = axes if zero_stage >= 3 and axes else ()
-    size = axis_size(mesh, *fsdp)
+    expert = (EXPERT_AXIS, ) if mesh.shape.get(EXPERT_AXIS, 1) > 1 else ()
+    rules = {EXPERTS: expert, EXPERT_EMBED: tuple(a for a in fsdp if a != EXPERT_AXIS)}
     out = {}
     for name, leaf in leaves.items():
-        target = VOCAB if VOCAB in leaf.logical else EMBED
-        spec = tuple(fsdp if ax == target else () for ax in leaf.logical) if leaf.logical else \
-            ((), ) * len(leaf.shape)
+        # a vocab-facing leaf shards its vocab dim and keeps embed whole
+        mapping = {**rules, VOCAB: fsdp} if VOCAB in leaf.logical else {**rules, EMBED: fsdp}
+        spec = tuple(mapping.get(ax, ()) for ax in leaf.logical) if leaf.logical else ((), ) * len(leaf.shape)
         for d, entry in enumerate(spec):
-            if entry and leaf.shape[d] % size:
-                raise ValueError(f"ZeRO stage 3 shards dim {d} ({leaf.logical[d]}, size {leaf.shape[d]}) of "
-                                 f"{name!r} (JAX shape {leaf.shape}) over {size} ranks, which do not divide it")
-        out[name] = Partition(name, leaf.port_shape, leaf.shape, leaf.transposed, spec, size if any(spec) else 1)
+            if entry and leaf.shape[d] % axis_size(mesh, *entry):
+                raise ValueError(f"the layout shards dim {d} ({leaf.logical[d]}, size {leaf.shape[d]}) of {name!r} "
+                                 f"(JAX shape {leaf.shape}) over {axis_size(mesh, *entry)} ranks, which do not "
+                                 f"divide it")
+        used = tuple(a for entry in spec for a in entry)
+        held = expert if expert and leaf.port_shape[0] != leaf.shape[0] and EXPERTS in leaf.logical else ()
+        out[name] = Partition(name, leaf.port_shape, leaf.shape, leaf.transposed, spec, axis_size(mesh, *used),
+                              _sizes(mesh), held)
     return out

@@ -1,6 +1,7 @@
 """Mixture of Experts (port of ``deepspeed_tpu/moe``): top-1/top-k gating
-with capacity, the stacked expert bank and the ``MoE`` layer, on one device
-(expert parallelism: ROADMAP Queue 1 item 6)."""
+with capacity, the stacked expert bank and the ``MoE`` layer; over several
+ranks one gating group a rank, and with expert parallelism each rank's
+experts and the dispatch all-to-all."""
 
 from .experts import ExpertsFFN, swiglu_experts
 from .layer import MoE, Router

@@ -5,6 +5,13 @@ E SwiGLU FFNs held as three stacked weights ``[E, in, out]`` (the JAX
 layout, so ``models/convert.py`` carries them across unchanged), computed
 as batched products (cuBLAS), the weights cast to the compute dtype at use
 as flax does.
+
+Under expert parallelism over ``ep_size`` ranks a bank holds its rank's
+E/ep experts, ``[E/ep, in, out]``, from global expert ``first_expert`` on
+(expert ``e·E/ep`` at expert coordinate ``e``: JAX's shard of the
+``experts`` dim over the ``expert`` axis).  ``init_weights_`` draws every
+expert of the whole bank from the generator in turn and keeps its own, so
+a rank's experts equal that slice of a one-rank bank at the same seed.
 """
 
 import math
@@ -25,23 +32,57 @@ def swiglu_experts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_
 
 
 class ExpertsFFN(nn.Module):
-    """E parallel SwiGLU FFNs: ``[E, C, d]`` → ``[E, C, d]`` (JAX ``:18``)."""
+    """E parallel SwiGLU FFNs: ``[E/ep, C, d]`` → ``[E/ep, C, d]`` (JAX ``:18``);
+    ``ep_rank`` is the rank's expert coordinate."""
+
+    WEIGHTS = ("w_gate", "w_up", "w_down")
 
     def __init__(self, num_experts: int, hidden_size: int, intermediate_size: int, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, ep_size: int = 1, ep_rank: int = 0):
         super().__init__()
-        self.dtype = dtype
-        shape = (num_experts, hidden_size, intermediate_size)
+        if num_experts % ep_size:
+            raise ValueError(f"{num_experts} experts do not split over {ep_size} expert-parallel ranks")
+        self.dtype, self.num_experts = dtype, num_experts
+        self.ep_size, self.first_expert = ep_size, ep_rank * (num_experts // ep_size)
+        local = num_experts // ep_size
+        shape = (local, hidden_size, intermediate_size)
         self.w_gate = nn.Parameter(torch.empty(shape, dtype=param_dtype, device=device))
         self.w_up = nn.Parameter(torch.empty(shape, dtype=param_dtype, device=device))
-        self.w_down = nn.Parameter(torch.empty((num_experts, intermediate_size, hidden_size), dtype=param_dtype,
+        self.w_down = nn.Parameter(torch.empty((local, intermediate_size, hidden_size), dtype=param_dtype,
                                                device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return swiglu_experts(x, self.w_gate, self.w_up, self.w_down, self.dtype)
 
+    @property
+    def local_experts(self) -> int:
+        return self.num_experts // self.ep_size
+
+    @torch.no_grad()
+    def shard_(self, ep_size: int, ep_rank: int) -> None:
+        """Keep the experts of expert coordinate ``ep_rank`` of ``ep_size`` of a whole bank."""
+        if self.ep_size != 1:
+            raise ValueError(f"the bank is already split over {self.ep_size} expert-parallel ranks")
+        if self.num_experts % ep_size:
+            raise ValueError(f"{self.num_experts} experts do not split over {ep_size} expert-parallel ranks")
+        local = self.num_experts // ep_size
+        for name in self.WEIGHTS:
+            w = getattr(self, name)
+            w.data = w.data[ep_rank * local:(ep_rank + 1) * local].clone()
+        self.ep_size, self.first_expert = ep_size, ep_rank * local
+
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
-        """Each expert's matrices N(0, 1/fan_in) (``llama.init_weights_``)."""
-        for w in (self.w_gate, self.w_up, self.w_down):
-            w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator)
+        """Each expert's matrices N(0, 1/fan_in) (``llama.init_weights_``),
+        drawn expert by expert over the whole bank; the rank keeps its own."""
+        own = range(self.first_expert, self.first_expert + self.local_experts)
+        for name in self.WEIGHTS:
+            w = getattr(self, name)
+            std = 1.0 / math.sqrt(w.shape[1])
+            scratch = None
+            for j in range(self.num_experts):
+                if j in own:
+                    w[j - self.first_expert].normal_(0.0, std, generator=generator)
+                else:
+                    scratch = torch.empty_like(w[0]) if scratch is None else scratch
+                    scratch.normal_(0.0, std, generator=generator)

@@ -2,10 +2,19 @@
 ``deepspeed/moe/layer.py:17 MoE`` → ``sharded_moe.py:533 MOELayer``).
 
 A drop-in FFN: ``[B, S, d]`` → ``(out [B, S, d], l_aux, exp_counts)``; the
-caller adds ``coef · l_aux`` to its loss.  One device is one group of B·S
-tokens (``tokens_per_group``): capacity = max(ceil(k·B·S/E·factor),
+caller adds ``coef · l_aux`` to its loss.  One rank is one gating group of
+its B·S tokens (``tokens_per_group``): capacity = max(ceil(k·B·S/E·factor),
 ``min_capacity``), ``capacity_factor`` when ``train`` and
 ``eval_capacity_factor`` otherwise, or B·S with ``drop_tokens=False``.
+
+Over several ranks (the training engine calls ``set_expert_parallel``):
+JAX splits the global micro-batch into one group per rank of its batch
+axes, the contiguous rows each rank takes, so a rank's capacity and drops
+are its group's.  ``l_aux`` is this rank's group's (the model averages the
+groups' through the ranks' loss shares); ``exp_counts`` is JAX's count over
+every group, summed over the ranks outside the autograd graph.  With
+``ep_size`` > 1 the bank holds this rank's E/ep experts and the dispatch
+buffer crosses the expert group by all-to-all (``sharded_moe``).
 
 The gate (``Router``) computes float32 logits from float32 inputs and a
 float32 weight, whatever dtype the weight is kept in: JAX's gate is a
@@ -27,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..comm import comm
 from .experts import ExpertsFFN
 from .mappings import drop_tokens, gather_tokens
 from .sharded_moe import _capacity, dispatch_combine, top1_gating, topk_gating
@@ -51,12 +61,15 @@ class MoE(nn.Module):
     """ref: ``MoE(hidden_size, expert, num_experts, ep_size, k,
     capacity_factor, eval_capacity_factor, min_capacity, drop_tokens,
     use_rts, noisy_gate_policy)``; ``generator`` draws the ``RSample`` noise
-    of top-1 gating in training (JAX's ``gating`` rng; None: no noise)."""
+    of top-1 gating in training (JAX's ``gating`` rng; None: no noise).
+    ``ep_size`` > 1 builds this rank's experts only (its expert coordinate
+    is ``rank % ep_size``, the mesh's order)."""
 
     def __init__(self, hidden_size: int, num_experts: int = 1, intermediate_size: Optional[int] = None, k: int = 1,
                  capacity_factor: float = 1.0, eval_capacity_factor: float = 1.0, min_capacity: int = 4,
                  drop_tokens: bool = True, noisy_gate_policy: Optional[str] = None, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None, generator: Optional[torch.Generator] = None):
+                 param_dtype=torch.float32, device=None, generator: Optional[torch.Generator] = None,
+                 ep_size: int = 1):
         super().__init__()
         self.num_experts, self.k = num_experts, k
         self.capacity_factor, self.eval_capacity_factor = capacity_factor, eval_capacity_factor
@@ -64,7 +77,16 @@ class MoE(nn.Module):
         self.noisy_gate_policy, self.generator = noisy_gate_policy, generator
         self.gate = Router(hidden_size, num_experts, torch.float32, device)
         self.experts = ExpertsFFN(num_experts, hidden_size, intermediate_size or 4 * hidden_size, dtype, param_dtype,
-                                  device)
+                                  device, ep_size=ep_size, ep_rank=comm.get_rank() % ep_size)
+        #: the expert group of the dispatch all-to-all (``ep_size`` > 1)
+        self.ep_group = None
+        #: the ranks whose groups ``exp_counts`` sums (1: this rank's alone)
+        self.count_ranks = 1
+
+    def set_expert_parallel(self, ep_group, count_ranks: int) -> None:
+        """Route through ``ep_group`` and sum ``exp_counts`` over the
+        ``count_ranks`` ranks of the default group (the engine's set-up)."""
+        self.ep_group, self.count_ranks = ep_group, count_ranks
 
     def capacity(self, tokens: int, train: bool) -> int:
         if not self.drop_tokens:
@@ -82,6 +104,11 @@ class MoE(nn.Module):
             gating = top1_gating(logits, capacity, noisy, self.generator)
         else:
             gating = topk_gating(logits, self.k, capacity, self.drop_tokens)
-        out = dispatch_combine(tokens, gating, self.num_experts, capacity, self.experts)
+        out = dispatch_combine(tokens, gating, self.num_experts, capacity, self.experts, ep_group=self.ep_group,
+                               ep_size=self.experts.ep_size)
         out = gather_tokens(out.reshape(b, s, d).to(x.dtype), dim=1)
-        return out, gating.l_aux, gating.exp_counts
+        counts = gating.exp_counts
+        if self.count_ranks > 1:   # JAX's sum over the groups, which the gradient does not see
+            with torch.no_grad(), comm.unrecorded():
+                counts = comm.all_reduce(counts.clone(), comm.ReduceOp.SUM)
+        return out, gating.l_aux, counts

@@ -122,11 +122,17 @@ def topk_gating(logits: torch.Tensor, k: int, capacity: int, drop_tokens: bool =
 
 
 def dispatch_combine(x: torch.Tensor, gating: Gating, num_experts: int, capacity: int,
-                     expert_fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+                     expert_fn: Callable[[torch.Tensor], torch.Tensor], ep_group=None,
+                     ep_size: int = 1) -> torch.Tensor:
     """Dispatch → experts → combine for one group (JAX ``:112``).
 
     x [S, d]; ``expert_fn`` maps the dispatched ``[E, C, d]`` (zeros in the
-    empty slots) to ``[E, C, d]``.  Each kept choice's token is written to
+    empty slots) to ``[E, C, d]``.  At ``ep_size`` > 1 it holds this rank's
+    E/ep experts: the buffer's chunk of each rank's experts goes to that
+    rank of ``ep_group`` (``comm.AllToAll``), which runs its experts over
+    ``[E/ep, ep·C, d]`` (every rank's slots of them, in rank order), and
+    the outputs come back by the reverse all-to-all; JAX reshards its
+    ``[G, E, C, d]`` the same way.  Each kept choice's token is written to
     row ``expert·C + slot`` (a dropped one to a spare row past the buffer),
     and its expert's output is read back from the same row.  The routing
     weights are cast to the experts' output dtype before they weigh the
@@ -138,8 +144,25 @@ def dispatch_combine(x: torch.Tensor, gating: Gating, num_experts: int, capacity
     spare = num_experts * capacity
     rows = torch.where(gating.keep, gating.experts * capacity + gating.slots, spare).reshape(-1)   # [k*S]
     buf = x.new_zeros(spare + 1, d).index_put((rows, ), x.repeat(k, 1))
-    out = expert_fn(buf[:spare].view(num_experts, capacity, d)).reshape(spare, -1)
+    if ep_size == 1:
+        out = expert_fn(buf[:spare].view(num_experts, capacity, d)).reshape(spare, -1)
+    else:
+        out = _expert_parallel(buf[:spare].view(num_experts, capacity, d), expert_fn, ep_group, ep_size)
     out = torch.cat([out, out.new_zeros(1, out.shape[1])])
     picked = out[rows].view(k, s, -1).float()
     weights = gating.weights.to(out.dtype).float()
     return (picked * weights[..., None]).sum(0).to(out.dtype)
+
+
+def _expert_parallel(buf: torch.Tensor, expert_fn, ep_group, ep_size: int) -> torch.Tensor:
+    """``[E, C, d]`` through the experts spread over the expert group: the
+    dispatch all-to-all, this rank's experts over ``[E/ep, ep·C, d]``, the
+    combine all-to-all back; ``[E·C, d_out]`` in global expert order."""
+    from ..comm import comm
+    e, c, d = buf.shape
+    local = e // ep_size
+    got = comm.AllToAll.apply(buf, ep_group, "dispatch")                     # [ep·E/ep, C, d], by source rank
+    mine = got.view(ep_size, local, c, d).transpose(0, 1).reshape(local, ep_size * c, d)
+    out = expert_fn(mine)
+    back = out.view(local, ep_size, c, -1).transpose(0, 1).reshape(e, c, -1)  # by destination rank
+    return comm.AllToAll.apply(back, ep_group, "combine").reshape(e * c, -1)

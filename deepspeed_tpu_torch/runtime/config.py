@@ -19,8 +19,9 @@ the parameters in host memory), ``gradient_clipping``,
 ``wall_clock_breakdown``, ``sparse_attention`` (kept as the raw dict, as
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
 ``progressive_layer_drop``, ``checkpoint`` and ``nebula`` (the checkpoint
-engine and retention), ``moe`` (``expert_parallel_size`` 1: the experts on
-one device), the monitor blocks ``tensorboard``, ``wandb``,
+engine and retention), ``moe`` (``expert_parallel_size``: the ``expert``
+axis of the mesh, ``mesh_spec``, built as JAX's engine builds it), the
+monitor blocks ``tensorboard``, ``wandb``,
 ``csv_monitor`` and ``comet``, ``activation_checkpointing`` (onto the
 model's ``remat_policy``, ``runtime/activation_checkpointing``),
 ``flops_profiler`` (``profiling/``) and ``comms_logger`` (``comm.configure``).
@@ -39,7 +40,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from ..comm.mesh import ROADMAP_MULTI_DEVICE, dp_world_size
+from ..comm.mesh import ROADMAP_MULTI_DEVICE, MeshSpec, dp_world_size
 from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKPOINT, CHECKPOINT_TAG_VALIDATION_MODES,
                         COMET, COMMS_LOGGER, COMPRESSION_TRAINING, CSV_MONITOR, DATA_EFFICIENCY, EIGENVALUE, ELASTICITY,
                         FLOPS_PROFILER, FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING, HYBRID_ENGINE,
@@ -259,11 +260,11 @@ class PLDConfig:
 
 @dataclasses.dataclass
 class MoEConfig:
-    """``moe`` (JAX ``config.py:329``): the expert-parallel degree, and the
-    reference's layer defaults.  The engine reads none of those: the layer
-    takes them as arguments (``moe.MoE``, or a model's config such as
-    ``MixtralConfig``), so a non-default one raises rather than being
-    ignored.  Experts on more than one device raise."""
+    """``moe`` (JAX ``config.py:329``): the expert-parallel degree (the
+    ``expert`` axis of the engine's mesh), and the reference's layer
+    defaults.  The engine reads none of those: the layer takes them as
+    arguments (``moe.MoE``, or a model's config such as ``MixtralConfig``),
+    so a non-default one raises rather than being ignored."""
     enabled: bool = False
     expert_parallel_size: int = 1
     num_experts: int = 1
@@ -278,9 +279,6 @@ class MoEConfig:
     def __post_init__(self):
         if not isinstance(self.expert_parallel_size, int) or self.expert_parallel_size < 1:
             raise DeepSpeedConfigError(f"moe.expert_parallel_size must be >= 1, got {self.expert_parallel_size!r}")
-        if self.expert_parallel_size > 1:
-            raise NotImplementedError(f"moe.expert_parallel_size={self.expert_parallel_size}: expert parallelism is "
-                                      f"not ported ({ROADMAP_MULTI_DEVICE})")
         for f in dataclasses.fields(self):
             value = getattr(self, f.name)
             if f.name not in ("enabled", "expert_parallel_size") and value != f.default:
@@ -476,6 +474,10 @@ class DeepSpeedConfig:
         self.pld_config = _block(PLDConfig, PROGRESSIVE_LAYER_DROP, pd.get(PROGRESSIVE_LAYER_DROP))
         self.checkpoint_config = _block(CheckpointConfig, CHECKPOINT, pd.get(CHECKPOINT))
         self.moe = _block(MoEConfig, MOE, pd.get(MOE))
+        #: the engine's mesh (JAX ``engine.py:128-136``): data over the ranks
+        #: the expert axis leaves; a world it does not divide raises JAX's error
+        self.mesh_spec = MeshSpec(data=-1, expert=self.moe.expert_parallel_size)
+        self.mesh_spec.resolve(self.dp_world_size)
         self.activation_checkpointing_config = _block(ActivationCheckpointingConfig, ACTIVATION_CHECKPOINTING,
                                                       pd.get(ACTIVATION_CHECKPOINTING))
         if self.activation_checkpointing_config.partition_activations and self.dp_world_size > 1:

@@ -92,14 +92,28 @@ model and ``loss_fn(outputs, batch)`` reduces its outputs to the loss
 (defaults: ``input_ids`` (+ ``positions``, ``segment_ids``) and the
 causal-LM token mean); a model that returns ``(logits, l_aux)``, as
 ``MixtralForCausalLM`` does, trains through its ``loss_fn``
-(``make_mixtral_loss_fn``).  A model with ``MoE`` layers trains on one
-data-parallel rank: JAX's gating groups per data shard and its mean of
-``l_aux`` over them are not ported, so a larger world raises.  On the float32 wire at world > 1 a custom loss
+(``make_mixtral_loss_fn``).  A ``loss_fn`` with a ``rank_share(outputs,
+batch, denom, world)`` (the default's and Mixtral's) gives at world > 1
+each rank's share of JAX's loss over the global micro-batch (``denom`` the
+global token count), and the shares are summed.  Any other custom loss
 must equal the JAX GSPMD step's over the global micro-batch for any loss,
 not only a mean: every rank gathers the micro-batch's outputs from all
 ranks (``_GatherRows``) and evaluates ``loss_fn`` over them and the global
 micro-batch, and the gradient comes back to each rank for its own rows.
 The manual qgZ/LoCo step keeps per-rank losses, as JAX's manual step does.
+
+MoE over several ranks (JAX ``engine.py:128-136``, ``moe/layer.py``): the
+engine's mesh is ``data`` × ``expert`` (``moe.expert_parallel_size``;
+``comm/mesh.py``), each rank one gating group of its rows.  With ``expert``
+> 1 each ``MoE`` layer keeps its rank's experts (a model built whole is cut
+here; ``MixtralForCausalLM(expert_parallel_size=)`` builds them so), the
+dispatch crosses the expert group by all-to-all, the initial broadcast
+sends each bank from the first rank of its expert-data group, and the
+banks' gradients are summed in that group (``runtime/zero/partitioned.py``,
+active at every stage then).  ``module_state_dict``, the master, the
+moments and the checkpoints hold whole banks, gathered over the expert
+group.  The qgZ/LoCo wire, MiCS/hpZ and the offload tiers with ``MoE``
+layers over several ranks raise naming ROADMAP item 6.1.
 
 ``forward``, ``eval_batch`` and ``backward`` take the global micro-batch, as
 ``train_batch`` does, and return JAX's loss over all of it (its ``forward``
@@ -135,9 +149,10 @@ from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
 from ..comm import comm
-from ..comm.mesh import ROADMAP_MULTI_DEVICE
+from ..comm.mesh import EXPERT_AXIS, ROADMAP_EXPERT_PARALLEL, ROADMAP_MULTI_DEVICE, create_mesh, set_global_mesh
 from ..models.llama import causal_lm_loss
 from ..moe.layer import MoE
+from ..utils import groups
 from ..resilience import fault_injection
 from ..telemetry.trace import NULL_TRACER
 from ..ops.adagrad import SGD, Adagrad
@@ -175,12 +190,16 @@ OPTIMIZER_FACTORIES = {
 
 
 def _leaf_map(module: nn.Module) -> Optional[Dict[str, dict]]:
+    """Each parameter's JAX leaf, its port shape the whole tensor's (an
+    expert bank's whole shape is its JAX leaf's)."""
+    from ..axes import EXPERTS
     from ..models.convert import jax_leaves
     try:
         leaves = jax_leaves(module)
     except NotImplementedError:
         return None
-    return {n: {"path": lf.path, "shape": list(lf.shape), "port_shape": list(lf.port_shape),
+    return {n: {"path": lf.path, "shape": list(lf.shape),
+                "port_shape": list(lf.shape if EXPERTS in lf.logical else lf.port_shape),
                 "transposed": lf.transposed} for n, lf in leaves.items()}
 
 
@@ -197,13 +216,16 @@ def _default_model_inputs(batch):
 
 def _default_loss_fn(outputs, batch):
     """The causal-LM token mean of ``labels`` (and ``loss_mask``) (JAX
-    ``engine.py:99``).  The engine calls ``causal_lm_loss`` itself for this
-    default, with the global token count as the denominator on the float32
-    wire at world > 1."""
+    ``engine.py:99``).  The engine calls its ``rank_share``, with the global
+    token count as the denominator on the float32 wire at world > 1."""
     if "labels" not in batch:
         raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
                        "pass loss_fn= to initialize() for custom losses")
     return causal_lm_loss(outputs, batch["labels"], batch.get("loss_mask"))
+
+
+_default_loss_fn.rank_share = lambda outputs, batch, denom, world: causal_lm_loss(
+    outputs, batch["labels"], batch.get("loss_mask"), denom)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -265,15 +287,17 @@ class DeepSpeedEngine:
         self.compute_dtype = config.precision_dtype
         self.gas = config.gradient_accumulation_steps
         self.dp_rank, self.dp_world = comm.get_rank(), comm.get_world_size()
-        if self.dp_world > 1 and any(isinstance(m, MoE) for m in model.modules()):
-            # JAX forms one gating group per data shard and averages l_aux over
-            # them; a rank's own coef·l_aux summed over the ranks would be W×
-            raise NotImplementedError(f"a model with MoE layers over {self.dp_world} data-parallel ranks: the "
-                                      f"router loss and capacity groups per rank are not ported "
-                                      f"({ROADMAP_MULTI_DEVICE})")
         if self.dp_world != config.dp_world_size:
             raise ValueError(f"the config was resolved for {config.dp_world_size} data-parallel ranks, the process "
                              f"group has {self.dp_world}: create the process group first")
+        # ---- the mesh (JAX engine.py:128-136) and its expert groups
+        self.mesh = create_mesh(config.mesh_spec, self.dp_world)
+        set_global_mesh(self.mesh)
+        self.ep = self.mesh.shape[EXPERT_AXIS]
+        self.moe_layers = [m for m in model.modules() if isinstance(m, MoE)]
+        self._check_moe_features()
+        if self.ep > 1:
+            groups.create_expert_groups()
 
         # ---- the comms logger and activation checkpointing (config blocks)
         comm.configure(deepspeed_config=config)
@@ -282,11 +306,11 @@ class DeepSpeedEngine:
         # ---- state: compute-dtype params + f32 master (JAX TrainState)
         self.module = model.to(self.device)
         if params is not None:
-            self.module.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()}, strict=True)
+            params = {k: torch.as_tensor(v) for k, v in params.items()}
+            self.module.load_state_dict(self._local_experts(params), strict=True)
+        self._setup_expert_parallel()
         if self.dp_world > 1:
-            with torch.no_grad():   # replicated state: every rank starts from rank 0's (ref: _broadcast_model)
-                for t in self.module.state_dict().values():
-                    comm.broadcast(t, 0)
+            self._broadcast_state()
         self.use_master = self.compute_dtype != torch.float32
         #: the module's state-dict names, in order (stage 3 moves the
         #: parameters out of the module)
@@ -309,7 +333,7 @@ class DeepSpeedEngine:
         #: the partitioned state of stages 1-3 over several ranks (or of
         #: offload_param at any stage), or None
         self.zero: Optional[PartitionedState] = None
-        if self.dp_world > 1 and self.zero_stage >= 1 or self.param_host:
+        if self.dp_world > 1 and (self.zero_stage >= 1 or self.ep > 1) or self.param_host:
             zero = PartitionedState(self.module, self.param_names, self.zero_stage, config.zero_config,
                                     param_host=self.param_host)
             self.zero = zero if zero.active else None
@@ -387,8 +411,8 @@ class DeepSpeedEngine:
             self.progressive_layer_drop = ProgressiveLayerDrop(theta=config.pld_config.theta,
                                                                gamma=config.pld_config.gamma)
         self._pld_scale: Optional[torch.Tensor] = None
-        #: the custom loss over the gathered micro-batch (float32 wire, world > 1)
-        self._gather_loss = self.loss_fn is not _default_loss_fn and self.dp_world > 1 and not self.qgz
+        #: a custom loss without rank shares over the gathered micro-batch (float32 wire, world > 1)
+        self._gather_loss = not hasattr(self.loss_fn, "rank_share") and self.dp_world > 1 and not self.qgz
         self.last_metrics: Optional[StepMetrics] = None
         self._pending: Optional[List[torch.Tensor]] = None
         self._pending_loss: Optional[torch.Tensor] = None
@@ -405,6 +429,89 @@ class DeepSpeedEngine:
                  ranks=[0])
 
     # ------------------------------------------------------------------ build
+
+    def _check_moe_features(self) -> None:
+        """What of MoE over several ranks is not ported raises naming
+        ROADMAP item 6.1: the qgZ/LoCo wire (JAX's manual data-parallel
+        step), MiCS/hpZ and the offload tiers, with MoE layers at world > 1."""
+        if not self.moe_layers or self.dp_world == 1:
+            return
+        zc = self._config.zero_config
+        off = [b for b in ("offload_optimizer", "offload_param")
+               if getattr(zc, b) is not None and getattr(zc, b).device in ("cpu", "nvme")]
+        named = {"zero_quantized_gradients": bool(zc.zero_quantized_gradients),
+                 "zeropp_loco_param": zc.zeropp_loco_param is not None,
+                 "mics_shard_size": (zc.mics_shard_size or -1) > 0,
+                 "zero_hpz_partition_size": (zc.zero_hpz_partition_size or 1) > 1,
+                 **{b: True for b in off}}
+        on = [k for k, v in named.items() if v]
+        if on:
+            raise NotImplementedError(f"{', '.join(on)} with MoE layers over {self.dp_world} ranks is not ported "
+                                      f"({ROADMAP_EXPERT_PARALLEL})")
+
+    def _setup_expert_parallel(self) -> None:
+        """Cut whole expert banks to this rank's experts, and give every MoE
+        layer its expert group and the ranks its counts sum over."""
+        if self.ep > 1:
+            e = self.mesh.coords(self.dp_rank)[EXPERT_AXIS]
+            for m in self.moe_layers:
+                if m.experts.ep_size == 1:
+                    m.experts.shard_(self.ep, e)
+                elif m.experts.ep_size != self.ep or m.experts.first_expert != e * m.experts.local_experts:
+                    raise ValueError(f"an MoE layer built for {m.experts.ep_size} expert-parallel ranks (first expert "
+                                     f"{m.experts.first_expert}) in an engine of moe.expert_parallel_size {self.ep}")
+        elif any(m.experts.ep_size > 1 for m in self.moe_layers):
+            raise ValueError("an MoE layer built for expert parallelism in an engine of moe.expert_parallel_size 1")
+        group = groups.get_expert_parallel_group() if self.ep > 1 else None
+        for m in self.moe_layers:
+            m.set_expert_parallel(group, self.dp_world)
+
+    @torch.no_grad()
+    def _broadcast_state(self) -> None:
+        """Replicated state: every rank starts from rank 0's (ref:
+        _broadcast_model); an expert bank from the first rank of its
+        expert-data-parallel group (its expert coordinate), in that group."""
+        banks = self._banks
+        ed_group = groups.get_expert_data_parallel_group() if banks else None
+        ed_world = comm.get_world_size(ed_group) if banks else 1
+        for name, t in self.module.state_dict().items():
+            if name not in banks:
+                comm.broadcast(t, 0)
+            elif ed_world > 1:
+                comm.broadcast(t, self.mesh.coords(self.dp_rank)[EXPERT_AXIS], group=ed_group)
+
+    @property
+    def _banks(self) -> Dict[str, MoE]:
+        """Parameter name → the MoE layer of each expert bank that holds
+        this rank's experts only."""
+        return {f"{name}.experts.{w}": m for name, m in self.module.named_modules()
+                if isinstance(m, MoE) and m.experts.ep_size > 1 for w in m.experts.WEIGHTS}
+
+    def _local_experts(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole tensors by name with each expert bank cut to this rank's experts."""
+        out = dict(tensors)
+        for name, m in self._banks.items():
+            if name in out:
+                out[name] = out[name].narrow(0, m.experts.first_expert, m.experts.local_experts)
+        return out
+
+    def _whole_experts(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors by name with each expert bank gathered whole over its
+        expert group (a collective on every rank)."""
+        banks = self._banks
+        names = [n for n in tensors if n in banks]
+        if not names:
+            return tensors
+        out = dict(tensors)
+        group = groups.get_expert_parallel_group()
+        for n in names:
+            local = tensors[n].detach().contiguous()
+            whole = local.new_empty((self.ep * local.shape[0], ) + tuple(local.shape[1:]))
+            with comm.unrecorded():
+                comm.all_gather_into_tensor(whole.view(-1).view(torch.uint8), local.view(-1).view(torch.uint8),
+                                            group=group)
+            out[n] = whole
+        return out
 
     def _configure_activation_checkpointing(self, model: nn.Module) -> None:
         """An ``activation_checkpointing`` block turns the model's per-block
@@ -612,19 +719,22 @@ class DeepSpeedEngine:
     def _microbatch_loss(self, mb, training: bool = False, global_mb=None) -> torch.Tensor:
         """The loss of one micro-batch (JAX ``_microbatch_loss`` :659): the
         model on ``model_inputs_fn(mb)`` (with this step's PLD gate when
-        training), then ``loss_fn``.  The default loss is the causal-LM token
-        mean (with the global token count on the float32 wire at world > 1);
-        a custom one sees the gathered outputs when ``global_mb`` is given."""
+        training), then ``loss_fn``: its ``rank_share`` where it has one (the
+        rank's share of the loss over the global micro-batch on the float32
+        wire at world > 1); otherwise a custom one sees the gathered
+        outputs when ``global_mb`` is given."""
         args, kwargs = self.model_inputs_fn(mb)
         if training and self.progressive_layer_drop is not None and getattr(self.module, "supports_pld", False):
             kwargs["pld_scale"] = self._pld_scale
         outputs = self.module(*args, **kwargs)
-        if self.loss_fn is _default_loss_fn:
-            if "labels" not in mb:
-                raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
-                               "pass loss_fn= to initialize() for custom losses")
-            return causal_lm_loss(outputs, mb["labels"], mb.get("loss_mask"),
-                                  self._global_token_count(mb, per_rank=training and self.qgz))
+        if self.loss_fn is _default_loss_fn and "labels" not in mb:
+            raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
+                           "pass loss_fn= to initialize() for custom losses")
+        share = getattr(self.loss_fn, "rank_share", None)
+        if share is not None:
+            per_rank = training and self.qgz
+            return share(outputs, mb, self._global_token_count(mb, per_rank=per_rank),
+                         1 if per_rank else self.dp_world)
         if global_mb is not None:
             if not isinstance(outputs, torch.Tensor):
                 raise NotImplementedError("a custom loss_fn over several data-parallel ranks gathers the model's "
@@ -696,6 +806,11 @@ class DeepSpeedEngine:
                 out[k] = v
                 continue
             rows, rem = divmod(v.shape[0], gas * self.dp_world)
+            if (rem or not rows) and self.moe_layers and self.dp_world > 1:
+                # JAX gates such a micro-batch as one group across its devices
+                raise NotImplementedError(f"batch[{k!r}] has {v.shape[0]} rows, not a multiple of gas {gas} × "
+                                          f"{self.dp_world} ranks: JAX gates it as one group, the port gates each "
+                                          f"rank's rows as one group ({ROADMAP_EXPERT_PARALLEL})")
             if rem or not rows:
                 raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows: not a multiple of gas {gas} × "
                                  f"{self.dp_world} data-parallel ranks")
@@ -741,6 +856,8 @@ class DeepSpeedEngine:
                 loss = comm.all_reduce(loss.reshape(1), op).reshape(())
             if self.zero is not None and self.zero.grads_pending:   # reduced already
                 return grads, loss
+            if self.zero is not None and any(self.zero.held):   # a bank's in its expert-data group
+                return self.zero.reduce_whole(grads), loss
             if not self.qgz:
                 return [comm.all_reduce(g, op) for g in grads], loss
         if self.loco_error is not None:
@@ -998,10 +1115,10 @@ class DeepSpeedEngine:
         of this rank's share."""
         if self.dp_world == 1:
             return self._microbatch_loss(batch, training=training)
-        custom = self.loss_fn is not _default_loss_fn
+        gathered = not hasattr(self.loss_fn, "rank_share")
         loss = self._microbatch_loss(self._rank_micro_batch(batch, 0, gas=1), training=training,
-                                     global_mb=batch if custom else None)
-        return loss if custom else _SumOverRanks.apply(loss)
+                                     global_mb=batch if gathered else None)
+        return loss if gathered else _SumOverRanks.apply(loss)
 
     def forward(self, batch) -> torch.Tensor:
         """The loss of one global micro-batch (JAX ``engine.py:1381``), with
@@ -1219,18 +1336,20 @@ class DeepSpeedEngine:
         return [float(self.lr_schedule(self.global_steps))]
 
     def module_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The model's state dict with whole tensors whatever the stage (JAX
-        returns global arrays); at stage 3 a collective over the ranks."""
+        """The model's state dict with whole tensors whatever the stage and
+        the expert parallelism (JAX returns global arrays); at stage 3, or
+        with expert banks cut over the expert group, a collective."""
         if self.zero is None or not self.zero.units_on:
-            return self.module.state_dict()
+            return self._whole_experts(self.module.state_dict())
         sd = self.module.state_dict()
         sd.update(zip(self.param_names, self.zero.full_params()))
-        return {k: sd[k] for k in self._state_names}
+        return self._whole_experts({k: sd[k] for k in self._state_names})
 
     @torch.no_grad()
     def load_module_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
         """Load whole tensors (``module_state_dict``'s) into the model: at
-        stage 3 each rank keeps its slices."""
+        stage 3 each rank keeps its slices, an expert bank its experts."""
+        sd = self._local_experts(sd)
         if self.zero is None or not self.zero.units_on:
             self.module.load_state_dict(sd, strict=True)
             return
@@ -1248,7 +1367,7 @@ class DeepSpeedEngine:
         the compute-dtype parameter (this rank's slice at stage 3) and the
         float32 master (its slice from stage 1)."""
         i = self.param_names.index(name)
-        value = value.to(self.device)
+        value = self._local_experts({name: value.to(self.device)})[name]
         if self.zero is not None:
             self.zero.set_full_param(i, value)
         else:
@@ -1284,8 +1403,7 @@ class DeepSpeedEngine:
                 self.set_full_param(n, values[n])
             for key, tree in moments.items():
                 for i, (n, t) in enumerate(zip(names, self._targets)):
-                    full = tree[n].to(device=self.device, dtype=torch.float32)
-                    local = full if self.zero is None else self.zero.local_state(i, full)
+                    local = self.local_state(i, tree[n])
                     st = self.optimizer.state[t]
                     if key in st:
                         st[key].copy_(local.reshape(st[key].shape))
@@ -1305,7 +1423,7 @@ class DeepSpeedEngine:
         if not self.use_master or self._nvme_opt is not None:
             return None
         tensors = self.master if self.zero is None else self.zero.full_state(self.master)
-        return dict(zip(self.param_names, tensors))
+        return self._whole_experts(dict(zip(self.param_names, tensors)))
 
     @torch.no_grad()
     def load_full_master(self, master: Dict[str, torch.Tensor]) -> None:
@@ -1314,8 +1432,14 @@ class DeepSpeedEngine:
             nv.load_leaves([master[n] for n in self.param_names], nv.leaves("mu"), nv.leaves("nu"))
             return
         for i, (name, m) in enumerate(zip(self.param_names, self.master)):
-            value = master[name].to(device=m.device, dtype=torch.float32)
-            m.copy_(value if self.zero is None else self.zero.local_state(i, value))
+            m.copy_(self.local_state(i, master[name]).to(m.device))
+
+    def local_state(self, i: int, full: torch.Tensor) -> torch.Tensor:
+        """This rank's float32 state slice of parameter ``i`` from its whole
+        value (port layout): its experts of a bank, then its ZeRO slice."""
+        full = self._local_experts({self.param_names[i]: full.to(device=self.device, dtype=torch.float32)})
+        full = full[self.param_names[i]]
+        return full if self.zero is None else self.zero.local_state(i, full)
 
     def full_optimizer_state_dict(self) -> dict:
         """The optimizer's ``state_dict()`` with each per-parameter tensor
@@ -1330,14 +1454,16 @@ class DeepSpeedEngine:
         keys = sorted({k for st in state.values() for k, v in st.items()
                        if isinstance(v, torch.Tensor) and v.dim() > 0})
         for key in keys:
-            for i, f in enumerate(self.zero.full_state([state[i][key] for i in range(len(self._targets))])):
-                state[i][key] = f
+            full = self.zero.full_state([state[i][key] for i in range(len(self._targets))])
+            full = self._whole_experts(dict(zip(self.param_names, full)))
+            for i, name in enumerate(self.param_names):
+                state[i][key] = full[name]
         return sd
 
     def load_full_optimizer_state_dict(self, sd: dict) -> None:
         """Load ``full_optimizer_state_dict``'s form: each rank keeps its slices."""
         if self.zero is not None:
-            sd = {**sd, "state": {i: {k: (self.zero.local_state(i, v.to(self.device)).clone()
+            sd = {**sd, "state": {i: {k: (self.local_state(i, v).clone()
                                          if isinstance(v, torch.Tensor) and v.dim() > 0 else v)
                                       for k, v in st.items()}
                                   for i, st in sd["state"].items()}}

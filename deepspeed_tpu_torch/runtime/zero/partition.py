@@ -1,17 +1,21 @@
 """ZeRO stages as partitions of each tensor over the data-parallel ranks
 (port of ``deepspeed_tpu/runtime/zero/partition.py``).
 
-The JAX package makes each stage a sharding of every leaf over the ``data``
-mesh axis and lets GSPMD insert the collectives:
+The JAX package makes each stage a sharding of every leaf over the ZeRO
+mesh axes and lets GSPMD insert the collectives:
 
   stage 0 — parameters, gradients and optimizer state replicated;
   stage 1 — the float32 master and the moments sharded;
   stage 2 — the gradients too (reduce-scattered onto the state's shards);
   stage 3 — the parameters too (``module_inject/tp_rules.py``).
 
-The port keeps the rule and gives each tensor a ``Partition``: the dim of
-its JAX leaf that is sharded (or none) over ``world`` ranks.  Rank r holds
-the r-th of ``world`` equal slices of the JAX leaf along that dim.  The rule
+The port keeps the rule and gives each tensor a ``Partition``: its JAX
+leaf's partition spec (per dim, the mesh axes it is sharded over) on the
+mesh's axis sizes.  The rank at mesh coordinate c holds, on each sharded
+dim, the slice whose index is c's mixed radix over that dim's axes (the
+first axis slowest), as JAX places a ``PartitionSpec``: at data 2 ×
+expert 2 a dim over ``(data, expert)`` gives rank ``d·2 + e`` its slice,
+an expert dim over ``(expert, data)`` gives it slice ``e·2 + d``.  The rule
 reads the JAX leaf's shape, not the port tensor's: a flax kernel is the
 transpose of an ``nn.Linear`` weight (``q_proj`` is ``[E, H, D]`` in JAX
 and ``[H·D, E]`` here), and the first divisible dim of ``o_proj``'s
@@ -19,8 +23,12 @@ and ``[H·D, E]`` here), and the first divisible dim of ``o_proj``'s
 ``models/convert.py`` (``jax_leaves``), as the JAX package partitions its
 unrolled tree (``scan_layers=False``): one leaf per port tensor.
 
-A slice is a view of the port tensor (``Partition.jax_view`` then
-``local``); ``runtime/zero/partitioned.py`` moves them between the ranks.
+An expert bank under expert parallelism is itself one rank's slice over
+the ``expert`` axis (``held``): ``Partition.within_held`` is the partition
+of that port tensor over the remaining axes, on the ranks that hold the
+same experts (``group="expert_data"``, ranked by their ``d``).  That is
+the partition ``runtime/zero/partitioned.py`` moves between the ranks; its
+slices are views of the port tensor (``jax_view`` then ``local``).
 """
 
 import dataclasses
@@ -29,11 +37,15 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ...comm.mesh import ZERO_AXES, Mesh, axis_size
+from ...comm.mesh import MESH_AXES, ZERO_AXES, Mesh, axis_size
 
 #: a partition spec: per dim of the JAX leaf, the mesh axes it is sharded
 #: over (a tuple, empty where the dim is whole)
 Spec = Tuple[Tuple[str, ...], ...]
+
+
+def _sizes(mesh: Mesh) -> Tuple[Tuple[str, int], ...]:
+    return tuple((a, mesh.shape.get(a, 1)) for a in MESH_AXES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,32 +54,43 @@ class Partition:
 
     ``shape`` is the port tensor's, ``jax_shape`` its JAX leaf's
     (``transposed``: the port tensor is the leaf's transpose, reshaped);
-    ``spec`` the leaf's partition spec, ``world`` the number of slices."""
+    ``spec`` the leaf's partition spec, ``world`` the number of distinct
+    slices; ``mesh`` the axis sizes; ``held`` the axes over which the port tensor is already one rank's
+    slice; ``group`` the ranks ``local``'s rank counts in (None: all of
+    them; ``"expert_data"``: those holding the same experts)."""
     name: str
     shape: Tuple[int, ...]
     jax_shape: Tuple[int, ...]
     transposed: bool
     spec: Spec
     world: int
+    mesh: Tuple[Tuple[str, int], ...]
+    held: Tuple[str, ...] = ()
+    group: Optional[str] = None
+
+    @property
+    def dims(self) -> Tuple[int, ...]:
+        """The sharded dims of the JAX leaf."""
+        return tuple(d for d, axes in enumerate(self.spec) if axes)
 
     @property
     def dim(self) -> Optional[int]:
-        """The sharded dim of the JAX leaf, None when the tensor is whole on every rank."""
-        for d, axes in enumerate(self.spec):
-            if axes:
-                return d
-        return None
+        """The first sharded dim of the JAX leaf, None when the tensor is whole on every rank."""
+        return self.dims[0] if self.dims else None
 
     @property
     def sharded(self) -> bool:
         return self.dim is not None and self.world > 1
 
+    def _size(self, axes: Sequence[str]) -> int:
+        sizes = dict(self.mesh)
+        return math.prod(sizes.get(a, 1) for a in axes)
+
     @property
     def local_shape(self) -> Tuple[int, ...]:
         if not self.sharded:
             return self.jax_shape
-        d = self.dim
-        return self.jax_shape[:d] + (self.jax_shape[d] // self.world, ) + self.jax_shape[d + 1:]
+        return tuple(n // self._size(axes) for n, axes in zip(self.jax_shape, self.spec))
 
     @property
     def local_numel(self) -> int:
@@ -83,13 +106,39 @@ class Partition:
             return j.reshape(self.shape[1], self.shape[0]).t()
         return j.reshape(self.shape)
 
+    def index(self, d: int, rank: int) -> int:
+        """Which slice of dim ``d`` ``rank`` holds: its coordinates' mixed
+        radix over the dim's axes, the first slowest."""
+        mesh = Mesh(dict(self.mesh))
+        at = mesh.coords(rank)
+        i = 0
+        for a in self.spec[d]:
+            i = i * mesh.shape.get(a, 1) + at[a]
+        return i
+
     def local(self, j: torch.Tensor, rank: int) -> torch.Tensor:
         """Rank ``rank``'s slice of the JAX-shaped ``j`` (a view; all of it
-        when the tensor is whole)."""
+        when the tensor is whole); ``rank`` counts in ``group``."""
         if not self.sharded:
             return j
-        n = self.jax_shape[self.dim] // self.world
-        return j.narrow(self.dim, rank * n, n)
+        for d in self.dims:
+            n = self.jax_shape[d] // self._size(self.spec[d])
+            j = j.narrow(d, self.index(d, rank) * n, n)
+        return j
+
+    def within_held(self) -> "Partition":
+        """The partition of the port tensor over the axes it does not hold
+        (itself when it holds none): its JAX shape is this rank's slice
+        over ``held``, its ranks those that share the held coordinates."""
+        if not self.held:
+            return self
+        sizes = dict(self.mesh)
+        jax_shape = tuple(n // math.prod(sizes[a] for a in axes if a in self.held)
+                          for n, axes in zip(self.jax_shape, self.spec))
+        spec = tuple(tuple(a for a in axes if a not in self.held) for axes in self.spec)
+        mesh = tuple((a, 1 if a in self.held else n) for a, n in self.mesh)
+        world = math.prod(dict(mesh)[a] for axes in spec for a in axes)
+        return Partition(self.name, self.shape, jax_shape, self.transposed, spec, world, mesh, (), "expert_data")
 
 
 def _active(mesh: Mesh, zero_axes: Sequence[str]) -> Tuple[str, ...]:
@@ -97,18 +146,37 @@ def _active(mesh: Mesh, zero_axes: Sequence[str]) -> Tuple[str, ...]:
 
 
 def zero_shard_spec(spec: Spec, shape: Tuple[int, ...], mesh: Mesh, zero_axes=ZERO_AXES) -> Spec:
-    """Add the ZeRO axes to a spec (JAX ``zero_shard_spec`` :39): a spec
-    that already carries them is kept; otherwise the first dim that is
-    whole and divisible by their size (and at least as large) is sharded
-    over them; if none divides, the tensor stays whole."""
+    """Add the ZeRO axes to a spec (JAX ``zero_shard_spec`` :39).  A dim
+    that carries some of them already (an expert bank's ``expert`` dim, an
+    hpZ parameter) is extended with those no dim uses, if the extended
+    group divides it, else they go on the first whole dim they divide (a
+    spec that uses them all is kept).  Otherwise the first whole dim
+    divisible by their size (and at least as large) is sharded over them;
+    if none divides, the tensor stays whole."""
     axes = _active(mesh, zero_axes)
     if not axes:
         return spec
-    if any(a in axes for entry in spec for a in entry):
+    entries = list(spec)
+    used = {a for entry in entries for a in entry}
+    for d, cur in enumerate(entries):
+        if not any(a in axes for a in cur):
+            continue
+        missing = tuple(a for a in axes if a not in used)
+        if not missing:
+            return spec
+        full = cur + missing
+        if shape[d] % axis_size(mesh, *full) == 0:
+            entries[d] = full
+            return tuple(entries)
+        msize = axis_size(mesh, *missing)
+        for d2, n in enumerate(shape):
+            if not entries[d2] and n % msize == 0 and n >= msize:
+                entries[d2] = missing
+                return tuple(entries)
         return spec
     size = axis_size(mesh, *axes)
-    for d, dim in enumerate(shape):
-        if not spec[d] and dim % size == 0 and dim >= size:
+    for d, n in enumerate(shape):
+        if not spec[d] and n % size == 0 and n >= size:
             return spec[:d] + (axes, ) + spec[d + 1:]
     return spec
 

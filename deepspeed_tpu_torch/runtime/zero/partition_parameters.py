@@ -73,7 +73,8 @@ class GatheredParameters:
             eng = self._engine
             idxs = [i for i, n in enumerate(eng.param_names) if self._wanted(n)]
             full = eng.zero.full_params(idxs) if eng.zero is not None else [eng.params[i].detach() for i in idxs]
-            self._gathered = {eng.param_names[i]: f.clone() for i, f in zip(idxs, full)}
+            # an expert bank cut over the expert group: whole over it too
+            self._gathered = eng._whole_experts({eng.param_names[i]: f.clone() for i, f in zip(idxs, full)})
         else:
             self._gathered = {k: v.detach().clone() for k, v in self._module.named_parameters() if self._wanted(k)}
         return self

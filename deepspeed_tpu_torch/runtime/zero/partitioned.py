@@ -40,9 +40,17 @@ remat recompute included; ``h2d_copies`` counts them), then all-gathers the
 sharded ones; on one rank the gather is the copy alone and the backward adds
 the unit's gradients into the pending sums.
 
-Every collective of a step is one flat buffer of the tensors concerned
-(``all_gather_parts``, ``reduce_scatter_parts``); bf16 and fp16 slices
-are gathered as their bit patterns, bit for bit.  The collectives are not
+Expert parallelism (``moe.expert_parallel_size`` > 1): each rank's expert
+banks are its E/ep experts, partitioned over the ranks that hold the same
+experts, its expert-data-parallel group (``Partition.within_held``).  Their
+gradients are reduced, and their slices gathered, inside that group; the
+dense tensors' over the world.  The norms count each expert slice once:
+the ranks that share a slice add it on the first of them only.  The state
+is active at stage 0 too, to reduce the banks' gradients in their group.
+
+Every collective of a step is one flat buffer per group of the tensors
+concerned (``all_gather_parts``, ``reduce_scatter_parts``); bf16 and fp16
+slices are gathered as their bit patterns, bit for bit.  The collectives are not
 recorded into the CommsLogger (``comm.unrecorded``), as JAX logs its jitted
 step.
 """
@@ -53,9 +61,10 @@ import torch
 from torch import nn
 
 from ...comm import comm
-from ...comm.mesh import get_global_mesh
+from ...comm.mesh import EXPERT_AXIS, get_global_mesh
 from ...models.convert import jax_leaves
 from ...module_inject.tp_rules import param_shardings
+from ...utils import groups
 from ..fp16.loss_scaler import found_inf_or_nan
 from .mics import resolve_partition_axes
 from .partition import Partition, grad_shardings, master_and_optstate_shardings
@@ -67,19 +76,20 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(-1).view(torch.uint8)
 
 
-def all_gather_parts(parts: Sequence[Partition], local: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The whole JAX-shaped tensors from every rank's slices (``local``: this
-    rank's, of one dtype): one all-gather of the sharded ones; a whole
+def all_gather_parts(parts: Sequence[Partition], local: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The whole JAX-shaped tensors from the slices of ``group``'s ranks
+    (``local``: this rank's, of one dtype; one sharded dim each, sliced in
+    the group's rank order): one all-gather of the sharded ones; a whole
     tensor is returned as it is."""
     out: List[Optional[torch.Tensor]] = list(local)
     idx = [i for i, p in enumerate(parts) if p.sharded]
     if not idx:
         return out
-    world = comm.get_world_size()
+    world = comm.get_world_size(group)
     flat = torch.cat([local[i].reshape(-1) for i in idx])
     full = flat.new_empty((world, flat.numel()))
     with comm.unrecorded():
-        comm.all_gather_into_tensor(_bytes(full), _bytes(flat))
+        comm.all_gather_into_tensor(_bytes(full), _bytes(flat), group=group)
     off = 0
     for i in idx:
         p = parts[i]
@@ -89,20 +99,20 @@ def all_gather_parts(parts: Sequence[Partition], local: Sequence[torch.Tensor]) 
     return out
 
 
-def reduce_scatter_parts(parts: Sequence[Partition], full: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The sum over the ranks of the JAX-shaped float32 tensors ``full``,
-    this rank's slice of each: one reduce-scatter of the sharded ones and
-    one all-reduce of the whole ones."""
-    world = comm.get_world_size()
+def reduce_scatter_parts(parts: Sequence[Partition], full: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The sum over ``group``'s ranks of the JAX-shaped tensors ``full``
+    (any float dtype, summed in float32), this rank's slice of each: one
+    reduce-scatter of the sharded ones and one all-reduce of the whole ones."""
+    world = comm.get_world_size(group)
     if world == 1:   # the host-sourced units of one rank: nothing to sum
-        return list(full)
+        return [f.float() for f in full]
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
     sharded = [i for i, p in enumerate(parts) if p.sharded]
     whole = [i for i, p in enumerate(parts) if not p.sharded]
     with comm.unrecorded():
         if sharded:
             total = sum(parts[i].local_numel for i in sharded)
-            buf = full[sharded[0]].new_empty((world, total))
+            buf = full[sharded[0]].new_empty((world, total), dtype=torch.float32)
             off = 0
             for i in sharded:
                 p, n = parts[i], parts[i].local_numel
@@ -111,15 +121,15 @@ def reduce_scatter_parts(parts: Sequence[Partition], full: Sequence[torch.Tensor
                 buf[:, off:off + n].view((world, ) + p.local_shape).copy_(split.movedim(d, 0))
                 off += n
             mine = buf.new_empty(total)
-            comm.reduce_scatter_tensor(mine, buf.view(-1))
+            comm.reduce_scatter_tensor(mine, buf.view(-1), group=group)
             off = 0
             for i in sharded:
                 n = parts[i].local_numel
                 out[i] = mine[off:off + n].view(parts[i].local_shape)
                 off += n
         if whole:
-            flat = torch.cat([full[i].reshape(-1) for i in whole])
-            comm.all_reduce(flat, comm.ReduceOp.SUM)
+            flat = torch.cat([full[i].reshape(-1).float() for i in whole])
+            comm.all_reduce(flat, comm.ReduceOp.SUM, group=group)
             off = 0
             for i in whole:
                 n = full[i].numel()
@@ -161,16 +171,16 @@ class _Unit:
         if z.param_host:   # the slices live in host memory: copy them in first
             z.h2d_copies += 1
             shards = [s.to(z.device, non_blocking=True) for s in shards]
-            full = all_gather_parts(parts, shards)
+            full = z.per_group(all_gather_parts, parts, shards)
             return [p.port_view(f) for p, f in zip(parts, full)]
-        full = all_gather_parts(parts, list(shards))
+        full = z.per_group(all_gather_parts, parts, list(shards))
         return [p.port_view(f if p.sharded else f.clone()) for p, f in zip(parts, full)]
 
     def reduce(self, grads) -> None:
         z = self.zero
         parts = [z.grad_parts[i] for i in self.idxs]
         full = [p.jax_view(g.float()) for p, g in zip(parts, grads)]
-        z.add_pending(self.idxs, reduce_scatter_parts(parts, full))
+        z.add_pending(self.idxs, z.per_group(reduce_scatter_parts, parts, full))
 
     def fill(self) -> None:
         shards = [self.zero.params[i] for i in self.idxs]
@@ -203,6 +213,11 @@ class PartitionedState:
         mesh = get_global_mesh()
         self.stage = stage
         self.rank = comm.get_rank()
+        #: per partition group: its process group and this rank's place in it
+        self._groups = {None: (None, self.rank)}
+        if mesh.shape.get(EXPERT_AXIS, 1) > 1:
+            self._groups["expert_data"] = (groups.get_expert_data_parallel_group(),
+                                           groups.get_expert_data_parallel_rank())
         #: offload_param: the compute-dtype slices live in host memory and
         #: each unit copies its own in (``_Unit.gather``); counted per copy
         self.param_host = param_host
@@ -220,10 +235,13 @@ class PartitionedState:
         state = master_and_optstate_shardings(params, mesh, stage, zero_axes=state_axes)
         grads = grad_shardings(params, mesh, stage, zero_axes=state_axes)
         self.names = list(names)
-        self.param_parts = [params[n] for n in self.names]
-        self.state_parts = [state[n] for n in self.names]
-        self.grad_parts = [grads[n] for n in self.names]
-        self.active = param_host or any(p.sharded for p in self.state_parts + self.grad_parts + self.param_parts)
+        #: the partitions of the port tensors (an expert bank's within its held experts)
+        self.param_parts = [params[n].within_held() for n in self.names]
+        self.state_parts = [state[n].within_held() for n in self.names]
+        self.grad_parts = [grads[n].within_held() for n in self.names]
+        self.held = [bool(params[n].held) for n in self.names]
+        self.active = param_host or any(self.held) or \
+            any(p.sharded for p in self.state_parts + self.grad_parts + self.param_parts)
         self.params: List[torch.Tensor] = []
         self.targets: List[torch.Tensor] = []
         self.pending: Optional[List[torch.Tensor]] = None
@@ -241,15 +259,14 @@ class PartitionedState:
         master, optimizer targets)``."""
         self.use_master = use_master
         self.device = params[0].device
-        r = self.rank
-        master = [sp.local(sp.jax_view(p.detach().float()), r).clone() for sp, p in zip(self.state_parts, params)] \
+        master = [self._local(sp, sp.jax_view(p.detach().float())).clone() for sp, p in zip(self.state_parts, params)] \
             if use_master else []
         for p in params:
             p.data = p.data.to(compute_dtype)
         if not self.units_on:
             self.params = list(params)
         else:
-            slices = [pp.local(pp.jax_view(p.detach()), r) for pp, p in zip(self.param_parts, params)]
+            slices = [self._local(pp, pp.jax_view(p.detach())) for pp, p in zip(self.param_parts, params)]
             if self.param_host:
                 from .offload import HostArena
                 self._param_arena = HostArena(sum(t.numel() for t in slices), compute_dtype,
@@ -271,7 +288,49 @@ class PartitionedState:
         pp, sp, p = self.param_parts[i], self.state_parts[i], self.params[i]
         if pp.sharded:   # stage 3: the parameter is the slice
             return p.data
-        return sp.local(sp.jax_view(p.data) if not self.units_on else p.data, self.rank)
+        return self._local(sp, sp.jax_view(p.data) if not self.units_on else p.data)
+
+    # ------------------------------------------------------------ groups
+
+    def _local(self, part: Partition, j: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the JAX-shaped ``j`` under ``part``."""
+        return part.local(j, self._groups[part.group][1])
+
+    def _by_group(self, parts: Sequence[Partition]):
+        """The indices of ``parts`` by partition group, with the group's process group."""
+        out = {}
+        for i, p in enumerate(parts):
+            out.setdefault(p.group, []).append(i)
+        return [(self._groups[g][0], idx) for g, idx in out.items()]
+
+    def per_group(self, fn, parts: Sequence[Partition], tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """``fn(parts, tensors, group)`` (``all_gather_parts`` or
+        ``reduce_scatter_parts``) in each partition group; the results in
+        the order of ``parts``."""
+        out = list(tensors)
+        for group, idx in self._by_group(parts):
+            for i, f in zip(idx, fn([parts[i] for i in idx], [tensors[i] for i in idx], group)):
+                out[i] = f
+        return out
+
+    def reduce_whole(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Stages 0-1: the whole gradients summed over the ranks, an expert
+        bank's over its expert-data-parallel group (one all-reduce per group)."""
+        full = self.per_group(reduce_scatter_parts, self.grad_parts,
+                              [gp.jax_view(g) for gp, g in zip(self.grad_parts, grads)])
+        return [gp.port_view(f) for gp, f in zip(self.grad_parts, full)]
+
+    def _counted(self, parts: Sequence[Partition], sliced: Sequence[bool]) -> Tuple[List[bool], List[bool]]:
+        """Per tensor: whether its norm is summed over the ranks, and
+        whether this rank adds its value to that sum.  A dense tensor's
+        slices are summed (a whole one counts once, locally); an expert
+        bank's are summed over the world, each slice added by the first of
+        the ranks that share it (its slices, ``sliced``, by every rank)."""
+        summed, adds = [], []
+        for p, held, cut in zip(parts, self.held, sliced):
+            summed.append(held or cut)
+            adds.append(cut or not held or self._groups[p.group][1] == 0)
+        return summed, adds
 
     def _install_units(self, module: nn.Module) -> None:
         """Move the parameters out of the module into the units that gather
@@ -311,10 +370,12 @@ class PartitionedState:
 
     def reduce_micro(self, grads: Sequence[Optional[torch.Tensor]], like: Sequence[torch.Tensor]) -> None:
         """Stage 2: one micro-batch's whole local gradients (port layout;
-        None as zeros) reduce-scattered onto the slices."""
-        full = [gp.jax_view(g.float() if g is not None else torch.zeros_like(p, dtype=torch.float32))
+        None as zeros) reduce-scattered onto the slices; each is widened to
+        float32 as it is copied into the group's buffer (no whole float32
+        copy of the gradients)."""
+        full = [gp.jax_view(g if g is not None else torch.zeros_like(p, dtype=torch.float32))
                 for gp, g, p in zip(self.grad_parts, grads, like)]
-        self.add_pending(range(len(full)), reduce_scatter_parts(self.grad_parts, full))
+        self.add_pending(range(len(full)), self.per_group(reduce_scatter_parts, self.grad_parts, full))
 
     def state_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The reduced gradients on the optimizer's slices: stage 1 cuts
@@ -322,21 +383,22 @@ class PartitionedState:
         if self.stage >= 2:
             return list(grads)
         if self.units_on:   # whole sums, already in the JAX layout
-            return [sp.local(g, self.rank) for sp, g in zip(self.state_parts, grads)]
-        return [sp.local(sp.jax_view(g), self.rank) for sp, g in zip(self.state_parts, grads)]
+            return [self._local(sp, g) for sp, g in zip(self.state_parts, grads)]
+        return [self._local(sp, sp.jax_view(g)) for sp, g in zip(self.state_parts, grads)]
 
     def norm_and_found_inf(self, grads: Sequence[torch.Tensor],
                            check_inf: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The global norm of the reduced gradients (``grads`` in the
         gradient partition) and, with ``check_inf``, whether any value is
         not finite, the same on every rank."""
-        sharded = [self.stage >= 2 and p.sharded for p in self.grad_parts]
+        summed, adds = self._counted(self.grad_parts, [self.stage >= 2 and p.sharded for p in self.grad_parts])
         sq = torch.stack(torch._foreach_norm([g.float() for g in grads])).square()
-        mask = torch.tensor(sharded, device=sq.device)
+        sq = torch.where(torch.tensor(adds, device=sq.device), sq, torch.zeros_like(sq))
+        mask = torch.tensor(summed, device=sq.device)
         local = torch.where(mask, sq, torch.zeros_like(sq)).sum()
         whole = torch.where(mask, torch.zeros_like(sq), sq).sum()
         inf = found_inf_or_nan(list(grads)).float() if check_inf else None
-        if any(sharded):
+        if any(summed):
             vec = torch.stack([local, inf if inf is not None else torch.zeros_like(local)])
             with comm.unrecorded():
                 comm.all_reduce(vec, comm.ReduceOp.SUM)
@@ -349,14 +411,16 @@ class PartitionedState:
         """LAMB's per-tensor norms of the parameter and the update, of the
         whole tensors: the squares of the sharded slices' norms summed over
         the ranks (one all-reduce)."""
-        by_id = {id(t): sp.sharded for t, sp in zip(self.targets, self.state_parts)}
-        sharded = [by_id[id(p)] for p in params]
-        if not any(sharded):
+        summed, adds = self._counted(self.state_parts, [sp.sharded for sp in self.state_parts])
+        by_id = {id(t): i for i, t in enumerate(self.targets)}
+        order = [by_id[id(p)] for p in params]
+        if not any(summed[i] for i in order):
             return w_norm, u_norm
-        mask = torch.tensor(sharded, device=w_norm.device)
+        mask = torch.tensor([summed[i] for i in order], device=w_norm.device)
         sq = torch.stack([w_norm, u_norm]).square()
+        added = torch.where(torch.tensor([adds[i] for i in order], device=w_norm.device), sq, torch.zeros_like(sq))
         # the host optimizer tier's norms are on the host: the wire takes the device's
-        red = torch.where(mask, sq, torch.zeros_like(sq)).to(self.device)
+        red = torch.where(mask, added, torch.zeros_like(sq)).to(self.device)
         with comm.unrecorded():
             comm.all_reduce(red, comm.ReduceOp.SUM)
         sq = torch.where(mask, red.to(sq.device), sq).sqrt()
@@ -376,7 +440,7 @@ class PartitionedState:
         if not gather:
             return
         local = [self.targets[i].to(device=self.device, dtype=compute_dtype) for i in gather]
-        full = all_gather_parts([self.state_parts[i] for i in gather], local)
+        full = self.per_group(all_gather_parts, [self.state_parts[i] for i in gather], local)
         for i, f in zip(gather, full):
             self._param_jax(i).copy_(f)
 
@@ -392,19 +456,20 @@ class PartitionedState:
         if not self.units_on:
             return [self.params[i].detach() for i in idxs]
         parts = [self.param_parts[i] for i in idxs]
-        full = all_gather_parts(parts, [self.params[i].detach().to(self.device) for i in idxs])
+        full = self.per_group(all_gather_parts, parts, [self.params[i].detach().to(self.device) for i in idxs])
         return [p.port_view(f).contiguous() for p, f in zip(parts, full)]
 
     def full_state(self, local: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Whole port-layout tensors from slices in the state partition
         (the master, a moment: one collective)."""
-        full = all_gather_parts(self.state_parts, [t.detach().to(self.device) for t in local])
+        full = self.per_group(all_gather_parts, self.state_parts, [t.detach().to(self.device) for t in local])
         return [p.port_view(f).contiguous() for p, f in zip(self.state_parts, full)]
 
     def local_state(self, i: int, full: torch.Tensor) -> torch.Tensor:
-        """This rank's state slice of tensor ``i`` from its whole port-layout value."""
+        """This rank's state slice of tensor ``i`` from its port-layout value
+        (an expert bank: this rank's experts)."""
         sp = self.state_parts[i]
-        return sp.local(sp.jax_view(full), self.rank)
+        return self._local(sp, sp.jax_view(full))
 
     @torch.no_grad()
     def set_full_param(self, i: int, value: torch.Tensor, master: bool = True) -> None:
@@ -412,7 +477,7 @@ class PartitionedState:
         rank's parameter (its slice at stage 3) and, with ``master``, its
         master slice."""
         pp = self.param_parts[i]
-        own = pp.local(pp.jax_view(value), self.rank) if self.units_on else pp.jax_view(value)
+        own = self._local(pp, pp.jax_view(value)) if self.units_on else pp.jax_view(value)
         self._param_jax(i).copy_(own)
         if master and self.use_master:
             self.targets[i].copy_(self.local_state(i, value))

@@ -21,6 +21,9 @@ Paths are the port's parameter names (``layers.0.self_attn.q_proj.weight``;
     engine's own accumulation and reduction, unscaled as the step unscales
     them (``1/(scale·gas)`` and the predivide factor): the step's gradients
     before clipping, at the current parameters (JAX :139-195).
+
+An expert bank cut over the expert group (``moe.expert_parallel_size`` > 1)
+raises naming ROADMAP item 6.1.
 """
 
 from typing import List
@@ -37,9 +40,14 @@ def _index(engine, path: str) -> int:
     if name.startswith("params."):
         name = name[len("params."):]
     try:
-        return engine.param_names.index(name)
+        i = engine.param_names.index(name)
     except ValueError:
         raise KeyError(f"no parameter {name!r} (parameters: {engine.param_names[:4]}...)") from None
+    if name in engine._banks:
+        from ..comm.mesh import ROADMAP_EXPERT_PARALLEL
+        raise NotImplementedError(f"tensor_fragment of the expert bank {name!r} cut over {engine.ep} expert-parallel "
+                                  f"ranks is not ported ({ROADMAP_EXPERT_PARALLEL})")
+    return i
 
 
 def _state_key(engine, i: int, state_name: str) -> str:

@@ -161,11 +161,17 @@ def test_moe_layer_forward_equals_jax(k, drop):
 
 
 def test_expert_parallel_config_raises_naming_item_6():
+    """``moe.expert_parallel_size`` is the mesh's expert axis: a size the
+    world does not divide raises JAX's error (one rank here: any size above
+    1); a size that divides it resolves the mesh."""
+    from deepspeed_tpu_torch.comm.mesh import MeshSpec
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     base = {"train_batch_size": 2}
-    assert DeepSpeedConfig({**base, "moe": {"enabled": True, "expert_parallel_size": 1}}).moe.enabled
-    with pytest.raises(NotImplementedError, match="item 6"):
+    cfg = DeepSpeedConfig({**base, "moe": {"enabled": True, "expert_parallel_size": 1}})
+    assert cfg.moe.enabled and cfg.mesh_spec == MeshSpec(data=-1, expert=1)
+    with pytest.raises(ValueError, match="not divisible by pipe\\*expert\\*seq\\*tensor=2"):
         DeepSpeedConfig({**base, "moe": {"enabled": True, "expert_parallel_size": 2}})
+    assert MeshSpec(expert=2).resolve(4) == (1, 2, 2, 1, 1)
 
 
 @pytest.mark.parametrize("key,value", [("num_experts", 8), ("top_k", 2), ("capacity_factor", 1.25),
@@ -182,15 +188,19 @@ def test_moe_config_layer_fields_raise_unless_default(key, value):
 
 
 def test_moe_model_over_two_ranks_raises_naming_item_6(monkeypatch):
+    """Over two ranks a Mixtral gates each rank's rows as one group: a
+    micro-batch whose rows do not split over the ranks (JAX gates it as one
+    group) raises naming ROADMAP item 6.1, before any collective."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.models.mixtral import PRESETS, MixtralForCausalLM, make_mixtral_loss_fn
     cfg = PRESETS["tiny"]
     model = MixtralForCausalLM(cfg, device="cpu")
-    monkeypatch.setattr(comm, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2}, device="cpu",
-                                       loss_fn=make_mixtral_loss_fn(cfg))
+    engine = deepspeed_tpu_torch.initialize(model=model, config={"train_batch_size": 2}, device="cpu",
+                                            loss_fn=make_mixtral_loss_fn(cfg))[0]
+    monkeypatch.setattr(engine, "dp_world", 2)
+    ids = np.zeros((3, 8), np.int64)
+    with pytest.raises(NotImplementedError, match="item 6.1"):
+        engine.train_batch(batch={"input_ids": ids, "labels": ids})
 
 
 def test_token_mappings_are_the_identity_at_tp_1_and_raise_above():

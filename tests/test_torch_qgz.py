@@ -551,14 +551,20 @@ def test_qgz_step_takes_4_collectives(engine_runs):
 
 
 def test_mesh_spec_takes_the_data_axis_only():
+    """The data and expert axes resolve as JAX's (``expert`` takes its
+    size, ``data`` the rest); pipe, seq and tensor raise naming item 6."""
     from deepspeed_tpu_torch.comm.mesh import MeshSpec, dp_world_size
     assert MeshSpec().resolve(2) == (1, 2, 1, 1, 1) and MeshSpec(data=4).resolve(4)[1] == 4
     assert dp_world_size() == 1
-    for spec in (MeshSpec(tensor=2), MeshSpec(pipe=2), MeshSpec(seq=2), MeshSpec(expert=2)):
+    for spec in (MeshSpec(tensor=2), MeshSpec(pipe=2), MeshSpec(seq=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             spec.resolve(2)
+    assert MeshSpec(expert=2).resolve(2) == (1, 1, 2, 1, 1)
+    assert MeshSpec(expert=2).resolve(4)[1:3] == (2, 2) and MeshSpec(data=2, expert=2).resolve(4)[1:3] == (2, 2)
     with pytest.raises(ValueError, match="does not cover"):
         MeshSpec(data=2).resolve(4)
+    with pytest.raises(ValueError, match="not divisible"):
+        MeshSpec(expert=3).resolve(4)
 
 
 def test_nccl_takes_one_card_per_rank(monkeypatch):
