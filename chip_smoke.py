@@ -285,6 +285,36 @@ source, all started together.  Phases:
      bytes; it comes back bit for bit), and phase 15's step-2 checkpoint
      converted to universal atoms and loaded into a fresh ZeRO-2 engine,
      whose next loss equals the resumed engine's.
+ 27. tensor parallelism over gloo ranks sharing the card: (a) serving, on
+     phase 11's two ranks after their training: each builds its slices of
+     phase 3's Llama-3-8B (each tensor drawn whole from the same seeded
+     generator, the rank's slice kept) and serves 4 of phase 3's requests,
+     16 new tokens each, through ``InferenceEngineV2(tensor_parallel=2)``
+     (a batch of 4 rows; the steps run eagerly: a gloo collective cannot be
+     captured) — every rank's tokens equal, each request's stream equal to
+     phase 3's engine's (recorded there) up to its first difference, and
+     that a bf16 rounding tie (``greedy_ties``'s rule on both paths' logits
+     of the context before it: the step's own logits on the ranks, phase 3's
+     logits of each stream position), the first-step logits held as phase 4 holds its kernel path (within 2·e of
+     phase 3's engine's and 1.5·e of phase 4's float32 logits, e phase 4's
+     plain path's bf16 rounding error), a rank's
+     parameter bytes against the reckoning (4,015,263,744 of 8,030,261,248
+     parameters), its arena half the single card's, K3 == layers x
+     forwards on 16:4 heads, the collectives a forward (2 a layer, the
+     embedding's, the logits gather), peak memory, prefill tok/s and a
+     decode round's ms (gloo on one card: function, not speed); then float32
+     at Llama-3-8B's widths cut to 2 layers: the greedy stream of phase 4's
+     first prompt equal to its one-card stream, first-step logits within
+     1e-4 of its largest;
+     (b) training, in phase 25's W = 4 spawn as data 2 x tensor 2:
+     Llama-125M as phase 6 (bf16, AdamW, ZeRO-2, remat ``flash_saveable``,
+     S 1024) on B 8, 4 rows a data rank — a rank's 67,062,528 parameters
+     (of 134,105,856) and its state bytes against the reckoning,
+     K1/K2a/K2b 12 a step on 6:6 heads, the first loss within 1e-2 of phase
+     6's engine on the same rows; then float32 at 2 layers, stages 0 and 3,
+     losses within rtol 1e-5 of phase 25's data-parallel run of the same
+     world (W = 4, tensor 1, the same batch), the replicated tensors
+     bit-identical on every rank.
 
 Prints a ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, if
@@ -796,6 +826,14 @@ def phase_kernels() -> dict:
     for name, shape in (("rep1_d64_chunk", prefill), ("rep1_d64_decode", decode)):
         run_case(name, make_case(*shape, torch.bfloat16, seed=9, h=16, n_kv=16, d=64), torch.bfloat16, flush,
                  timed=False)
+    # phase 27's shape: Llama-3-8B's heads over tensor 2 (16:4, D 128), its batch of 4 requests at their last
+    # decode step (prompts of 64, 300, 128 and 512 tokens, 15 tokens on) at the split the wrapper picks, and a chunk
+    tp = dict(h=16, n_kv=4, d=128)
+    rows["tp_16_4_decode"] = run_case("tp_16_4_decode", make_case([79, 315, 143, 527], [1] * 4, 1, torch.bfloat16,
+                                                                  seed=14, **tp), torch.bfloat16, flush, timed=False)
+    run_case("tp_16_4_chunk", make_case(*prefill, torch.bfloat16, seed=15, **tp), torch.bfloat16, flush, timed=False)
+    if rows["tp_16_4_decode"]["n_split"] != TP_K3_SPLIT:
+        raise AssertionError(f"K3 at 16:4 chose {rows['tp_16_4_decode']['n_split']} splits, not {TP_K3_SPLIT}")
     k3_merge(cases["decode"])
     k3_mutants(cases["decode"], cases["prefill"])
     # how the decode time moves with the split, at four decode batches (the
@@ -848,7 +886,9 @@ def serving_mix(vocab: int) -> tuple:
 
 def phase_serving(cfg, state, smi: str) -> dict:
     eng = build_engine(cfg, state, engine_config(torch.bfloat16, 1024), device="cuda")
-    return serve_mix(eng, *serving_mix(cfg.vocab_size), smi)
+    res = serve_mix(eng, *serving_mix(cfg.vocab_size), smi)
+    res["tp_reference"] = tp_reference(eng, state)
+    return res
 
 
 def serve_mix(eng, prompts, max_new, smi: str) -> dict:
@@ -936,24 +976,37 @@ def serve_mix(eng, prompts, max_new, smi: str) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
+def parity_f32_prompts(vocab: int) -> list:
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, vocab, n).tolist() for n in (40, 300, 700)]
+
+
+def parity_prompt(vocab: int) -> list:
+    """Phase 4's bf16 prompt (200 tokens: one prefill chunk)."""
+    return np.random.default_rng(3).integers(0, vocab, 200).tolist()
+
+
 def phase_parity_f32() -> dict:
     """Greedy streams of the kernel path and the plain path, float32,
-    Llama-3-8B width, 2 layers: identical."""
+    Llama-3-8B width, 2 layers: identical.  The kernel path's streams and
+    its first-step logits of ``parity_prompt`` are phase 27's one-card
+    float32 reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, state = llama3_8b(2, torch.float32, seed=1)
     econf = engine_config(torch.float32, 256)
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (40, 300, 700)]
+    prompts = parity_f32_prompts(cfg.vocab_size)
     streams = {}
     for impl in ("flash", "reference"):
         eng = build_engine(dataclasses.replace(cfg, attention_impl=impl), state, econf, device="cuda")
         streams[impl] = eng.generate(prompts, max_new_tokens=24)
+        if impl == "flash":
+            logits = first_step_logits(eng, parity_prompt(cfg.vocab_size)).cpu().numpy()
         del eng
     if streams["flash"] != streams["reference"]:
         raise AssertionError(f"f32 greedy streams differ: {streams}")
     log(f"  f32 parity: {len(prompts)} greedy streams of 24 tokens identical on both paths")
-    return {"f32_streams_identical": True}
+    return {"f32_streams_identical": True, "streams": streams["flash"], "logits": logits}
 
 
 def first_step_logits(eng, prompt) -> torch.Tensor:
@@ -971,6 +1024,31 @@ def first_step_logits(eng, prompt) -> torch.Tensor:
     return logits
 
 
+def prompt_logits(eng, prompt, keep_from=None) -> torch.Tensor:
+    """The logits after a prompt's last token (with ``keep_from``, after
+    each of its tokens from that position on: [len(prompt) - keep_from, V]),
+    the prompt prefilled chunk by chunk as the engine's scheduler cuts a
+    lone request."""
+    uid = 10_000
+    first = len(prompt) - 1 if keep_from is None else keep_from
+    eng.put([uid], [prompt], max_new_tokens=1)
+    seq, chunk = eng.state.seqs[uid], eng.econfig.scheduler.prefill_chunk
+    rows = []
+    with torch.no_grad():
+        while seq.seen_tokens < len(prompt):
+            s0, n = seq.seen_tokens, min(chunk, len(prompt) - seq.seen_tokens)
+            rb = eng.state.pack([(seq, n)], chunk, pad_to=eng._bucket_batch(1))
+            dev = [torch.from_numpy(a).cuda() for a in (rb.tokens, rb.start_pos, rb.block_tables, rb.chunk_lens)]
+            if s0 + n > first:
+                rows.append(eng.model(dev[0], dev[1], dev[2], eng.cache, dev[3])[0, max(0, first - s0):n].float())
+            else:
+                eng.model(dev[0], dev[1], dev[2], eng.cache, dev[3])
+            seq.seen_tokens += n
+    eng.flush(uid)
+    logits = torch.cat(rows)
+    return logits[0] if keep_from is None else logits
+
+
 def phase_parity_bf16(cfg, state) -> dict:
     """First-step last-token logits of the bf16 kernel path and the bf16
     plain path, both held against the plain path in float32 on the same
@@ -980,8 +1058,7 @@ def phase_parity_bf16(cfg, state) -> dict:
     paths, and the residual stream carries the differences through depth,
     so the two bf16 paths may differ by about sqrt(2)·e; the kernel path must
     stay within 2·e of the plain path and within 1.5·e of float32."""
-    rng = np.random.default_rng(3)
-    prompt = rng.integers(0, cfg.vocab_size, 200).tolist()
+    prompt = parity_prompt(cfg.vocab_size)
     runs = {"flash": (cfg, state), "reference": (dataclasses.replace(cfg, attention_impl="reference"), state),
             "f32": (dataclasses.replace(cfg, dtype=torch.float32, param_dtype=torch.float32,
                                         attention_impl="reference"), None)}
@@ -1006,6 +1083,7 @@ def phase_parity_bf16(cfg, state) -> dict:
     if not (np.isfinite(res["kernel_vs_plain"]) and res["kernel_vs_plain"] <= 2 * e
             and res["kernel_vs_f32"] <= 1.5 * e):
         raise AssertionError(f"bf16 kernel path out of tolerance: {res}")
+    res["f32_logits"] = logits["f32"].cpu().numpy()   # phase 27's float32 reference (not logged)
     return res
 
 
@@ -1553,8 +1631,10 @@ def phase_training(smi: str) -> dict:
     acc = get_accelerator()
     acc.synchronize()
     acc.reset_peak_memory_stats()
-    reset_launch_counts()
     engine = build_trainer(cfg, BENCH_DS_CONFIG)
+    # phase 27's one-rank reference: the loss of the first TP_TRAIN_ROWS rows before any step
+    first_rows_loss = float(engine.eval_batch(batch={k: v[:TP_TRAIN_ROWS] for k, v in batch.items()}))
+    reset_launch_counts()
     losses = [float(engine.train_batch(batch=batch)) for _ in range(3)]   # warm-up
     windows, steps_per_window = [], 5
     for _ in range(2):
@@ -1582,7 +1662,7 @@ def phase_training(smi: str) -> dict:
            "tok_s": tok_s, "mfu": tok_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
            "peak_mem_gb": acc.max_memory_allocated() / 1e9, "losses": losses, "steps": steps,
            "launches": dict(zip(("flash_fwd", "flash_dq", "flash_dkv"), launches)),
-           "launches_per_step": launches[0] / steps, "card": smi}
+           "launches_per_step": launches[0] / steps, "card": smi, "first_rows_loss": first_rows_loss}
     log("  training: " + json.dumps(res))
     res["profile"] = profile_training_step(engine, batch)
     del engine
@@ -2884,13 +2964,18 @@ def dp_rank(rank: int) -> dict:
 
 
 def dp_rank_main(rank: int, init_method: str, queue) -> None:
-    """A spawned rank: both ranks share the one card (cuda:0) over gloo."""
+    """A spawned rank: both ranks share the one card (cuda:0) over gloo.
+    After phase 11's work the two ranks serve phase 27(a) over tensor 2."""
     from deepspeed_tpu_torch.comm import comm
     try:
         torch.cuda.set_device(0)
         comm.init_distributed(dist_backend="gloo", init_method=init_method, rank=rank, world_size=DP_WORLD,
                               timeout=DP_TIMEOUT_S, verbose=False)
-        queue.put((rank, dp_rank(rank), None))
+        out = dp_rank(rank)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["tp"] = {"bf16": tp_serve_bf16(), "f32": tp_serve_f32()}
+        queue.put((rank, out, None))
     except BaseException:
         queue.put((rank, None, traceback.format_exc()))
         raise
@@ -2982,6 +3067,7 @@ def phase_data_parallel(smi: str) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"data-parallel phase failed {bad}")
+    res["tp_ranks"] = [ranks[r]["tp"] for r in range(DP_WORLD)]   # phase 27(a)'s, checked by its phase
     return res
 
 
@@ -3079,11 +3165,12 @@ def zero_digest(engine) -> tuple:
 
 
 def zero_stage_run(stage: int, cfg: LlamaConfig, dtype: torch.dtype, steps: int, meter: WireMeter,
-                   timed_from=None, keep_params: bool = False) -> dict:
+                   timed_from=None, keep_params: bool = False, tp: int = 1, rows: int = BENCH_B) -> dict:
     """One engine at ``stage`` on this rank, ``steps`` train_batch calls on
-    the repeated global batch (the steps from ``timed_from`` on timed as one
-    window ended by a fetch of the loss); its figures, and with
-    ``keep_params`` its whole parameters."""
+    the repeated global batch (its first ``rows`` rows; the steps from
+    ``timed_from`` on timed as one window ended by a fetch of the loss),
+    over ``tp`` tensor-parallel ranks; its figures, and with ``keep_params``
+    its whole parameters."""
     from deepspeed_tpu_torch.comm import comm
     t_start = time.perf_counter()
     acc = get_accelerator()
@@ -3091,11 +3178,13 @@ def zero_stage_run(stage: int, cfg: LlamaConfig, dtype: torch.dtype, steps: int,
     torch.cuda.empty_cache()
     acc.synchronize()
     acc.reset_peak_memory_stats()
-    ds = {**BENCH_DS_CONFIG, "zero_optimization": {"stage": stage}}
+    ds = {**BENCH_DS_CONFIG, "zero_optimization": {"stage": stage}, "train_batch_size": rows}
+    if tp > 1:
+        ds["tensor_parallel"] = {"autotp_size": tp}
     if dtype == torch.float32:
         ds = {k: v for k, v in ds.items() if k != "bf16"}
     engine = build_trainer(cfg, ds)
-    batch = dp_batch()
+    batch = {k: v[:rows] for k, v in dp_batch().items()}
     reset_launch_counts()
     calls, wire, losses = comm.call_counts.copy(), meter.seconds, []
     for i in range(steps):
@@ -3113,6 +3202,12 @@ def zero_stage_run(stage: int, cfg: LlamaConfig, dtype: torch.dtype, steps: int,
     if timed_from is not None:
         res["step_ms"] = 1e3 * (time.perf_counter() - t0) / timed
     res["digest"] = zero_digest(engine)
+    if tp > 1:   # phase 27: the rank's slices, its heads and its replicated tensors (whole over its data group)
+        res["local_params"] = sum(math.prod(p.shape) for p in engine.zero.param_parts)
+        attn = engine.module.layers[0].self_attn
+        res["heads"] = (attn.n_heads, attn.n_kv)
+        idx = [i for i, n in enumerate(engine.param_names) if n not in engine._tp_cut]
+        res["replicated_digest"] = tuple(device_hash(t) for t in engine.zero.full_params(idx))
     whole = engine.module_state_dict()
     res["n_params"] = sum(v.numel() for v in whole.values())
     # numpy, not tensors: a queue would share a tensor's storage with the parent through a handle
@@ -3229,11 +3324,24 @@ def expert_parallel_rank(meter: WireMeter) -> dict:
     return out
 
 
+def tensor_parallel_rank(meter: WireMeter) -> dict:
+    """Phase 27(b) on one of phase 25's W = 4 ranks, data 2 x tensor 2:
+    Llama-125M as phase 6 on the first ``TP_TRAIN_ROWS`` rows (one warm-up
+    and one timed step), then float32 at 2 layers, stages 0 and 3, on phase
+    25's float32 batch."""
+    out = {"bf16": zero_stage_run(2, llama_125m(), torch.bfloat16, ZERO_STEPS, meter, timed_from=ZERO_TIMED_FROM,
+                                  tp=TP_SIZE, rows=TP_TRAIN_ROWS)}
+    parity = llama_125m(num_hidden_layers=ZERO_PARITY_LAYERS, dtype=torch.float32)
+    out["f32"] = {stage: zero_stage_run(stage, parity, torch.float32, ZERO_PARITY_STEPS, meter, tp=TP_SIZE)
+                  for stage in TP_PARITY_STAGES}
+    return out
+
+
 def zero_rank(rank: int, world: int) -> dict:
     """Phase 25 on one rank: the bf16 stages of ``ZERO_RUNS[world]`` at full
     depth, the float32 parity runs of ``ZERO_PARITY_RUNS[world]`` at 2 layers
-    (rank 0 returns their whole parameters), then at W = 4 the
-    expert-parallel Mixtral run."""
+    (rank 0 returns their whole parameters), then at W = 4 phase 27's
+    tensor-parallel runs and the expert-parallel Mixtral run."""
     out = {"bf16": {}, "f32": {}}
     with WireMeter() as meter:
         for stage in ZERO_RUNS[world]:
@@ -3245,6 +3353,8 @@ def zero_rank(rank: int, world: int) -> dict:
         for stage in ZERO_PARITY_RUNS[world]:
             out["f32"][stage] = zero_stage_run(stage, parity, torch.float32, ZERO_PARITY_STEPS, meter,
                                                keep_params=rank == 0)
+        if world == 2 * TP_SIZE:
+            out["tp"] = tensor_parallel_rank(meter)
         if world == 2 * EP_SIZE:
             out["ep"] = expert_parallel_rank(meter)
     return out
@@ -3364,7 +3474,49 @@ def phase_expert_parallel(spawned: list, mixtral_params: int) -> tuple:
     return res, checks, launches
 
 
-def phase_zero(smi: str, mixtral_params: int) -> dict:
+def phase_tensor_parallel_training(spawned: list, first_rows_loss: float) -> tuple:
+    """Phase 27(b)'s figures and checks from the W = 4 ranks (data 2 x
+    tensor 2), and their K1/K2a/K2b launches."""
+    world = 2 * TP_SIZE
+    runs = [r[world]["tp"] for r in spawned[:world]]
+    bf16 = [r["bf16"] for r in runs]
+    layers = PRESETS["125m"].num_hidden_layers
+    want = zero_reckoning(TP_RANK_PARAMS_125M, world // TP_SIZE, 2)
+    losses = bf16[0]["losses"]
+    f32_ref = spawned[0][world]["f32"][0]["losses"]     # phase 25's W = 4 tensor-1 float32 run, same batch
+    checks = {
+        "tp_train_local_params": all(r["local_params"] == TP_RANK_PARAMS_125M for r in bf16),
+        "tp_train_whole_params": all(r["n_params"] == TP_WHOLE_PARAMS_125M for r in bf16),
+        "tp_train_state_bytes_reckoned": all(r["state_bytes"] == want for r in bf16),
+        "tp_train_heads_6_6": all(r["heads"] == (6, 6) for r in bf16),
+        "tp_train_k1_k2_12_per_step": all(n == layers * ZERO_STEPS for r in bf16 for n in r["launches"].values()),
+        "tp_train_losses_equal_on_ranks": all(r["losses"] == losses for r in bf16),
+        "tp_train_losses_finite": bool(np.all(np.isfinite(losses))),
+        "tp_train_first_loss_within_1e-2_of_one_rank": abs(losses[0] - first_rows_loss) <= 1e-2 * abs(first_rows_loss),
+        "tp_train_ranks_bit_identical": len({r["digest"] for r in bf16}) == 1,
+    }
+    parity = {}
+    for stage in TP_PARITY_STAGES:
+        f32 = [r["f32"][stage] for r in runs]
+        rel = float(np.max(np.abs(np.array(f32[0]["losses"]) - f32_ref) / np.abs(f32_ref)))
+        parity[stage] = {"losses": f32[0]["losses"], "loss_rel": rel, "run_s": [r["seconds"] for r in f32]}
+        checks[f"tp_train_f32_s{stage}_losses_rtol_1e-5"] = rel <= 1e-5
+        checks[f"tp_train_f32_s{stage}_replicated_bit_identical"] = len({r["replicated_digest"] for r in f32}) == 1
+        checks[f"tp_train_f32_s{stage}_losses_equal_on_ranks"] = all(r["losses"] == f32[0]["losses"] for r in f32)
+    res = {"config": f"Llama-125M, data {world // TP_SIZE} x tensor {TP_SIZE}, ZeRO-2, bf16, AdamW, remat "
+                     f"flash_saveable, B {TP_TRAIN_ROWS} of S {BENCH_S} ({TP_TRAIN_ROWS * TP_SIZE // world} rows a "
+                     "data rank)", "losses": losses, "one_rank_first_loss": first_rows_loss,
+           "local_params": bf16[0]["local_params"], "state_bytes": bf16[0]["state_bytes"], "reckoned_bytes": want,
+           "step_ms": [r["step_ms"] for r in bf16], "wire_ms_per_step": [r["wire_ms_per_step"] for r in bf16],
+           "collectives_per_step": bf16[0]["collectives_per_step"], "peak_mem_gb": [r["peak_mem_gb"] for r in bf16],
+           "launches_per_step": {k: v / ZERO_STEPS for k, v in bf16[0]["launches"].items()},
+           "run_s": [r["seconds"] for r in bf16], "f32_parity": {"reference_losses": f32_ref, **parity},
+           "tok_s_all_ranks": TP_TRAIN_ROWS * BENCH_S / (max(r["step_ms"] for r in bf16) / 1e3)}
+    launches = {k: sum(r["launches"][k] for r in bf16) for k in bf16[0]["launches"]}
+    return res, checks, launches
+
+
+def phase_zero(smi: str, mixtral_params: int, first_rows_loss: float) -> dict:
     layers = PRESETS["125m"].num_hidden_layers
     res, checks = {"card": smi}, {}
     launches = {f.__name__: 0 for f in FLASH_COUNTERS}
@@ -3428,6 +3580,10 @@ def phase_zero(smi: str, mixtral_params: int) -> dict:
     res["expert_parallel"], ep_checks, res["ep_launches"] = phase_expert_parallel(spawned, mixtral_params)
     checks.update(ep_checks)
     log("  expert parallel: " + json.dumps(res["expert_parallel"]))
+    res["tensor_parallel"], tp_checks, res["tp_launches"] = phase_tensor_parallel_training(spawned, first_rows_loss)
+    checks.update(tp_checks)
+    log("== phase 27(b): tensor-parallel training in phase 25's W = 4 spawn (data 2 x tensor 2)")
+    log("  tensor parallel training: " + json.dumps(res["tensor_parallel"]))
     res["launches"] = launches
     res["checks"] = checks
     log(f"  zero: one spawn of {max(ZERO_RUNS)} ranks, {res['spawn_s']:.1f} s")
@@ -3435,6 +3591,233 @@ def phase_zero(smi: str, mixtral_params: int) -> dict:
     if bad:
         raise AssertionError(f"ZeRO phase failed {bad}")
     return res
+
+
+# ---------------------------------------------------------------- phase 27
+
+TP_SIZE = 2
+#: 4 of phase 3's requests (prompts of 64, 300, 128 and 512 tokens), 16 new tokens each
+TP_REQUESTS, TP_NEW = (0, 2, 4, 5), 16
+#: the tensor-parallel engine's batch (its max_seqs and bucket): the 4 requests
+TP_BATCH = 4
+#: a rank's parameters over tensor 2 and the whole model's: Llama-3-8B (the 266,240 norm weights whole
+#: on every rank, the rest halved) and Llama-125M (19,200 norm weights)
+TP_RANK_PARAMS_8B, TP_WHOLE_PARAMS_8B = 4_015_263_744, 8_030_261_248
+TP_RANK_PARAMS_125M, TP_WHOLE_PARAMS_125M = 67_062_528, 134_105_856
+#: phase 27(b): the global batch's rows (4 a data rank at data 2) and the float32 stages
+TP_TRAIN_ROWS, TP_PARITY_STAGES = 8, (0, 3)
+#: float32 first-step logits of tensor 2 against one card: max |diff| within this share of the largest
+TP_F32_LOGITS_TOL = 1e-4
+#: K3's decode split at a rank's 16:4 heads and phase 27's batch of 4 (``choose_n_split``)
+TP_K3_SPLIT = 8
+
+
+def tp_requests(vocab: int) -> list:
+    prompts, _ = serving_mix(vocab)
+    return [prompts[i] for i in TP_REQUESTS]
+
+
+def tp_reference(eng, state) -> dict:
+    """Phase 27's one-card reference on phase 3's engine (its prefix cache
+    emptied): the greedy streams of ``tp_requests``, each stream's logits
+    at every position ([TP_NEW, V]: row j after the prompt and the stream's
+    first j tokens; row 0 from the prompt alone, the rest from one prefill
+    of the prompt and the stream), the first-step logits of phase 4's
+    prompt, the arena's bytes and the model's parameters."""
+    cfg = eng.cfg
+    pc = eng.kv.prefix_cache
+    pc.evict(pc.cached_pages)
+    prompts = tp_requests(cfg.vocab_size)
+    streams = eng.generate(prompts, max_new_tokens=TP_NEW)
+    stream_logits = []
+    for prompt, stream in zip(prompts, streams):
+        pc.evict(pc.cached_pages)
+        first = prompt_logits(eng, prompt)[None]
+        pc.evict(pc.cached_pages)
+        rest = prompt_logits(eng, prompt + stream[:-1], keep_from=len(prompt))
+        stream_logits.append(torch.cat([first, rest]).cpu().numpy())
+    pc.evict(pc.cached_pages)
+    logits = first_step_logits(eng, parity_prompt(cfg.vocab_size)).cpu().numpy()
+    return {"streams": streams, "stream_logits": stream_logits, "logits": logits, "arena_bytes": arena_bytes(eng),
+            "n_params": sum(v.numel() for v in state.values())}
+
+
+def tp_rank_engine(layers: int, dtype: torch.dtype, seed: int, num_pages: int):
+    """This rank's slices of ``llama3_8b(layers, dtype, seed)`` (each tensor
+    drawn whole from the seeded generator, the rank's slice kept) behind a
+    ``tensor_parallel`` engine with phase 3's settings; the engine, its
+    parameter bytes and the seconds it took."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["llama3-8b"], num_hidden_layers=layers, dtype=dtype, param_dtype=dtype,
+                              attention_impl="flash")
+    model = LlamaForCausalLMWithCache(cfg, page_size=PAGE, device="cuda", tensor_parallel=TP_SIZE)
+    init_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
+    state = model.state_dict()
+    econf = dataclasses.replace(engine_config(dtype, num_pages), tensor_parallel=TP_SIZE)
+    # the 4 requests fill the batch: a step pads to 4 rows, not 8 (less of each all-reduce is padding)
+    econf = dataclasses.replace(econf, scheduler=dataclasses.replace(econf.scheduler, max_seqs=TP_BATCH,
+                                                                     decode_bucket=TP_BATCH))
+    eng = build_engine(cfg, state, econf, device="cuda")
+    del model, state
+    return eng, sum(p.numel() * p.element_size() for p in eng.model.parameters()), time.perf_counter() - t0
+
+
+def tp_serve_bf16() -> dict:
+    """Phase 27(a) on one rank: Llama-3-8B bf16 at full depth over tensor 2,
+    ``tp_requests`` stepped to the end (prefill tok/s up to the last first
+    token; a decode round's ms over the pure-decode steps' forwards), then
+    phase 4's first-step logits."""
+    from deepspeed_tpu_torch.comm import comm
+    acc = get_accelerator()
+    eng, param_bytes, build_s = tp_rank_engine(32, torch.bfloat16, 0, 1024)
+    cfg = eng.cfg
+    eng.generate([list(range(1, 20))], max_new_tokens=1)   # warm-up (one prefill step): cuBLAS, allocator
+    prompts = tp_requests(cfg.vocab_size)
+    uids = list(range(len(prompts)))
+    # the logits each request's tokens were sampled from, in order (the steps are eager here: a fused
+    # decode dispatch samples once a round, its row i the i-th sequence's)
+    sampled, step_logits = [], {u: [] for u in uids}
+    sample, complete = eng._sample, eng.complete_step
+
+    def sample_rows(row_logits):
+        sampled.append(row_logits.float().cpu().numpy())
+        return sample(row_logits)
+
+    def complete_step(inf):
+        out = complete(inf)
+        rows = inf.rows if inf.kind == "single" else [(s.uid, None, s, i) for i, s in enumerate(inf.seqs)]
+        for uid, _, _, i in rows:
+            step_logits[uid] += [sampled[m][i] for m in range(len(out.get(uid, [])))]
+        sampled.clear()
+        return out
+
+    eng._sample, eng.complete_step = sample_rows, complete_step
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    reset_launch_counts()
+    comm.tensor_parallel_kinds.clear()
+    eng.forward_calls = 0
+    t0 = time.perf_counter()
+    eng.put(uids, prompts, max_new_tokens=TP_NEW)
+    first, decode_s, decode_forwards = {}, 0.0, 0
+    while not all(eng.state.seqs[u].done for u in uids):
+        ts, f0 = time.perf_counter(), eng.forward_calls
+        out = eng.step()
+        now = time.perf_counter()
+        if len(first) == len(uids):
+            decode_s += now - ts
+            decode_forwards += eng.forward_calls - f0
+        for uid in out:
+            first.setdefault(uid, now)
+    launches, forwards = paged_attention_cuda.launches, eng.forward_calls
+    kinds = {f"{k}_{d}": n for (k, d), n in comm.tensor_parallel_kinds.items()}
+    streams = [list(eng.state.seqs[u].generated) for u in uids]
+    for u in uids:
+        eng.flush(u)
+    peak = acc.max_memory_allocated() / 1e9
+    logits = first_step_logits(eng, parity_prompt(cfg.vocab_size)).cpu().numpy()
+    res = {"streams": streams, "step_logits": [np.stack(step_logits[u]) for u in uids], "logits": logits,
+           "param_bytes": param_bytes,
+           "n_params": sum(p.numel() for p in eng.model.parameters()), "arena_bytes": arena_bytes(eng),
+           "heads": (eng.model.layers[0].self_attn.n_heads, eng.model.layers[0].self_attn.n_kv),
+           "forwards": forwards, "k3_launches": launches, "k3_split_calls": paged_attention_cuda.split_calls,
+           "collectives": kinds, "collectives_per_forward": {k: n / forwards for k, n in kinds.items()},
+           "prefill_tok_s": sum(map(len, prompts)) / (max(first.values()) - t0),
+           "decode_round_ms": 1e3 * decode_s / decode_forwards if decode_forwards else None,
+           "peak_mem_gb": peak, "build_s": build_s, "serve_s": time.perf_counter() - t0}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_serve_f32() -> dict:
+    """Phase 27(a)'s float32 check on one rank: phase 4's float32 model (2
+    layers, seed 1) over tensor 2, the greedy stream of phase 4's first
+    prompt and the first-step logits of its parity prompt."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    eng, _, _ = tp_rank_engine(2, torch.float32, 1, 256)
+    streams = eng.generate(parity_f32_prompts(eng.cfg.vocab_size)[:1], max_new_tokens=24)
+    logits = first_step_logits(eng, parity_prompt(eng.cfg.vocab_size)).cpu().numpy()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"streams": streams, "logits": logits, "seconds": time.perf_counter() - t0}
+
+
+def stream_ties(streams: dict, ref: dict) -> list:
+    """Per request whose stream leaves one card's: the position, and whether
+    it is a bf16 rounding tie — the two tokens within BF16_TIE_ULPS ulps of
+    the best logit on both paths' logits of the context before it
+    (``greedy_ties``'s rule; the contexts are equal up to there)."""
+    out = []
+    for i, (s, r) in enumerate(zip(streams["streams"], ref["streams"])):
+        j = next((j for j, (a, b) in enumerate(zip(s, r)) if a != b), None)
+        if j is None:
+            continue
+        tie = True
+        for logits in (streams["step_logits"][i][j], ref["stream_logits"][i][j]):
+            top = float(logits.max())
+            tie = tie and min(logits[s[j]], logits[r[j]]) >= top - BF16_TIE_ULPS * bf16_ulp(top)
+        out.append({"request": i, "position": j, "tokens": [s[j], r[j]], "tie": bool(tie)})
+    return out
+
+
+def phase_tensor_parallel_serving(smi: str, ranks: list, ref: dict, ref_f32: dict, parity: dict) -> tuple:
+    """Phase 27(a): phase 11's two ranks served Llama-3-8B over tensor 2
+    (``ranks``: each one's ``tp_serve_bf16`` and ``tp_serve_f32``); their
+    figures and checks against phase 3's and phase 4's one-card references,
+    and their K3 launches.  The first-step
+    logits are held as phase 4 holds its kernel path (e its plain path's
+    bf16 rounding error): within 2·e of one card's bf16 logits and 1.5·e of
+    float32."""
+    bf16, f32 = [r["bf16"] for r in ranks], [r["f32"] for r in ranks]
+    r0 = bf16[0]
+    layers = PRESETS["llama3-8b"].num_hidden_layers
+    per_forward = {"embed_forward": 1.0, "o_proj_forward": float(layers), "down_proj_forward": float(layers),
+                   "logits_forward": 1.0}
+    e = parity["plain_vs_f32"]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    logits_rel, logits_rel_f32 = rel(r0["logits"], ref["logits"]), rel(r0["logits"], parity["f32_logits"])
+    ties = stream_ties(r0, ref)
+    f32_dev = float(np.abs(f32[0]["logits"] - ref_f32["logits"]).max() / np.abs(ref_f32["logits"]).max())
+    checks = {
+        "tp_serve_rank_param_bytes_reckoned": all(r["param_bytes"] == 2 * TP_RANK_PARAMS_8B for r in bf16),
+        "tp_serve_whole_params": ref["n_params"] == TP_WHOLE_PARAMS_8B,
+        "tp_serve_tokens_equal_on_ranks": all(r["streams"] == r0["streams"] for r in bf16),
+        "tp_serve_first_tokens_equal_one_card_but_ties": all(t["tie"] for t in ties if t["position"] == 0),
+        "tp_serve_streams_equal_one_card_but_ties": all(t["tie"] for t in ties),
+        "tp_serve_16_tokens_each": all(len(s) == TP_NEW for s in r0["streams"]),
+        "tp_serve_logits_within_2e_of_one_card": logits_rel <= 2 * e,
+        "tp_serve_logits_within_1.5e_of_f32": logits_rel_f32 <= 1.5 * e,
+        "tp_serve_arena_half_one_card": all(2 * r["arena_bytes"] == ref["arena_bytes"] for r in bf16),
+        "tp_serve_heads_16_4": all(r["heads"] == (16, 4) for r in bf16),
+        "tp_serve_k3_layers_x_forwards": all(r["k3_launches"] == layers * r["forwards"] > 0 for r in bf16),
+        "tp_serve_k3_split_route_taken": all(r["k3_split_calls"] > 0 for r in bf16),
+        "tp_serve_collectives_per_forward": all(r["collectives_per_forward"] == per_forward for r in bf16),
+        "tp_serve_f32_streams_equal_one_card": all(r["streams"] == ref_f32["streams"][:1] for r in f32),
+        "tp_serve_f32_logits_1e-4": f32_dev <= TP_F32_LOGITS_TOL,
+    }
+    res = {"config": f"Llama-3-8B bf16, full depth, tensor {TP_SIZE} (gloo ranks on one card), {len(TP_REQUESTS)} "
+                     f"of phase 3's requests, {TP_NEW} new tokens each",
+           "rank_param_bytes": r0["param_bytes"], "rank_params": r0["n_params"], "whole_params": ref["n_params"],
+           "arena_bytes": r0["arena_bytes"], "one_card_arena_bytes": ref["arena_bytes"],
+           "peak_mem_gb": [r["peak_mem_gb"] for r in bf16], "forwards": r0["forwards"],
+           "k3_launches": [r["k3_launches"] for r in bf16], "k3_split_calls": [r["k3_split_calls"] for r in bf16],
+           "collectives_per_forward": r0["collectives_per_forward"],
+           "streams_equal_one_card": r0["streams"] == ref["streams"],
+           "first_tokens": [s[0] for s in r0["streams"]], "one_card_first_tokens": [s[0] for s in ref["streams"]],
+           "stream_ties": ties, "logits_rel_l2": logits_rel, "logits_rel_l2_f32": logits_rel_f32,
+           "logits_max_abs": float(np.abs(r0["logits"] - ref["logits"]).max()), "bf16_rounding_measure": e,
+           "f32_logits_max_abs_over_max": f32_dev,
+           "gloo_on_one_card_prefill_tok_s": [r["prefill_tok_s"] for r in bf16],
+           "gloo_on_one_card_decode_round_ms": [r["decode_round_ms"] for r in bf16],
+           "build_s": [r["build_s"] for r in bf16], "serve_s": [r["serve_s"] for r in bf16],
+           "f32_s": [r["seconds"] for r in f32], "card": smi}
+    launches = sum(r["k3_launches"] for r in bf16)
+    return res, checks, launches
 
 
 # ---------------------------------------------------------------- phase 12
@@ -5657,7 +6040,7 @@ def main() -> int:
     del state
     gc.collect()            # the engines' cycles hold their weights and arenas
     torch.cuda.empty_cache()
-    phase_parity_f32()
+    parity_f32 = phase_parity_f32()
     log("== phase 16: serving Falcon-7B at full width and depth (HF names through FalconPolicy)")
     falcon = phase_falcon_7b(env["card"])
     log(f"== phase 17: the zoo through build_hf_engine from a directory ({ZOO_LAYERS} layers of each)")
@@ -5692,18 +6075,27 @@ def main() -> int:
     sparse_path = phase_sparse_path(env["card"])
     log("== phase 10: K4a/K4b/K5a/K5b quantization vs their plain versions")
     quant = phase_quant_kernels()
-    log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire")
+    log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire (then phase "
+        "27(a) on the same ranks)")
     dp = phase_data_parallel(env["card"])
+    log("== phase 27(a): tensor-parallel serving of Llama-3-8B over phase 11's 2 gloo ranks on the card")
+    tp_serving, tp_checks, tp_k3 = phase_tensor_parallel_serving(env["card"], dp.pop("tp_ranks"),
+                                                                 serving.pop("tp_reference"), parity_f32, parity)
+    log("  tensor parallel serving: " + json.dumps(tp_serving))
+    bad = [k for k, ok in tp_checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tensor-parallel serving failed {bad}")
     log("== phase 25: ZeRO stages 0-2 over 3 ranks and 3 over 4 ranks on Llama-125M; Mixtral-8x7B's widths over "
         "data 2 x expert 2 (gloo, one card)")
-    zero = phase_zero(env["card"], moe_training["params"])
+    zero = phase_zero(env["card"], moe_training["params"], training["first_rows_loss"])
     dec, ver = k3["decode"], k3["verify"]
     zoo_launches = sum(r["k3_launches"] for r in zoo.values())
     kernels = [{"name": "paged_attention", "route": "cuda", "source": "deepspeed_tpu_torch/csrc/paged_attention.cu",
                 "replaces": "deepspeed_tpu/ops/paged_attention.py:40",
                 "launches": serving["k3_launches"] + frontend["k3_launches"] + graphs["k3_launches"]
                 + fleet["k3_launches"] + falcon["serving"]["k3_launches"] + zoo_launches
-                + qwen_moe["serving"]["k3_launches"] + mixtral["k3_launches"] + int8["serving"]["k3_launches"],
+                + qwen_moe["serving"]["k3_launches"] + mixtral["k3_launches"] + int8["serving"]["k3_launches"]
+                + tp_k3,
                 # a partition of "launches": phase 13's are the verify
                 # rounds of its spec serving run and the rest of the phase
                 "launches_by_path": {"serving_step": serving["k3_launches"],
@@ -5712,7 +6104,8 @@ def main() -> int:
                                      "verify": graphs["verify_k3_launches"], "fleet": fleet["k3_launches"],
                                      "falcon_7b": falcon["serving"]["k3_launches"], "zoo": zoo_launches,
                                      "qwen_moe": qwen_moe["serving"]["k3_launches"],
-                                     "mixtral": mixtral["k3_launches"], "int8_serving": int8["serving"]["k3_launches"]},
+                                     "mixtral": mixtral["k3_launches"], "int8_serving": int8["serving"]["k3_launches"],
+                                     "tp_serving": tp_k3},
                 "max_abs_err": max(r["max_abs_err"] for n, r in k3.items() if not n.endswith("_f32")), "ms": dec["ms"],
                 "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
                 "library_ms": dec["library_ms"], "prefill_ms": k3["prefill"]["ms"],
@@ -5733,7 +6126,7 @@ def main() -> int:
                    "gpt2_training": v1["gpt2_training"]["launches"][name],
                    "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"],
                    "expert_parallel": zero["ep_launches"][f"{name}_cuda"],
-                   "offload": offload["launches"][name]}
+                   "offload": offload["launches"][name], "tp_training": zero["tp_launches"][f"{name}_cuda"]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",

@@ -53,8 +53,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     names a world larger than 1; otherwise the engine trains one rank.
     ``model_parameters``, ``distributed_port`` and ``mpu`` are the
     reference's: the engine trains every floating parameter of ``model``, and
-    a Megatron-style ``mpu`` raises (tensor and pipeline parallelism are not
-    ported).
+    a Megatron-style ``mpu`` raises (the config's ``tensor_parallel`` block
+    takes the tensor degree; an outside model-parallel unit is not ported).
     """
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
@@ -65,13 +65,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     if config is None:
         raise ValueError("deepspeed_tpu_torch.initialize: config is required")
     from .comm import comm
-    from .comm.mesh import ROADMAP_MULTI_DEVICE
+    from .comm.mesh import ROADMAP_TENSOR_PARALLEL
     from .runtime.config import DeepSpeedConfig
     from .runtime.dataloader import DeepSpeedDataLoader
     from .runtime.engine import DeepSpeedEngine
     if mpu is not None:
-        raise NotImplementedError(f"a model-parallel unit (mpu=) needs tensor/pipeline parallelism "
-                                  f"({ROADMAP_MULTI_DEVICE})")
+        raise NotImplementedError(f"a model-parallel unit (mpu=) is not ported ({ROADMAP_TENSOR_PARALLEL}); set "
+                                  "the config's tensor_parallel.autotp_size")
     if dist_init_required or (dist_init_required is None and int(os.environ.get("WORLD_SIZE", 1)) > 1):
         comm.init_distributed()
     ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
@@ -83,6 +83,25 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
         dataloader = DeepSpeedDataLoader(training_data, batch_size=micro_global, collate_fn=collate_fn)
     return engine, engine.optimizer, dataloader, engine.lr_scheduler
 
+
+
+def tp_model_init(model=None, tp_size: int = 1, dtype=None, config=None):
+    """Prepare a model for tensor-parallel training (port of
+    ``deepspeed_tpu.tp_model_init``; ref: ``deepspeed/__init__.py:369``):
+    returns ``(model, TpTrainingManager)``.  The engine cuts a whole
+    Llama-family model to its rank's slices itself (``tensor_parallel.
+    autotp_size`` in its config); the manager's ``plan``/``shardings`` cover
+    trees without logical axes, as JAX's."""
+    from .runtime.tensor_parallel import TpTrainingManager, TPTrainingConfig
+    if isinstance(config, TPTrainingConfig):
+        cfg = config
+    elif isinstance(config, dict):
+        cfg = TPTrainingConfig(**{**config, "autotp_size": config.get("autotp_size", tp_size)})
+    elif config is None:
+        cfg = TPTrainingConfig(autotp_size=tp_size)
+    else:
+        raise TypeError(f"config must be TPTrainingConfig or dict, got {type(config)}")
+    return model, TpTrainingManager(model=model, tp_size=tp_size, dtype=dtype, config=cfg)
 
 
 def init_inference(model=None, config=None, **kwargs):

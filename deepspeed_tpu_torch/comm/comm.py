@@ -24,7 +24,9 @@ over ``torch.distributed`` (port of ``deepspeed_tpu/comm/comm.py:42-96,
   all-to-all of the MoE dispatch (ref: ``deepspeed/moe/sharded_moe.py``
   ``_AllToAll``): equal splits along dim 0, its backward the same
   all-to-all of the gradient; ``all_to_all_kinds`` counts its calls by the
-  caller's label and direction.
+  caller's label and direction.  The tensor-parallel layers'
+  collectives (``module_inject/layers.py``, on the tensor group) are
+  counted the same way in ``tensor_parallel_kinds``.
 * ``reduce_scatter_tensor`` takes its route from the backend and the
   tensor's device (``REDUCE_SCATTER_ROUTES``): the process group's own
   collective, except gloo on CUDA tensors, which it takes but which run
@@ -53,6 +55,9 @@ _UNRECORDED = 0   # depth of unrecorded() blocks
 call_counts = collections.Counter()
 #: ``AllToAll`` calls by (label, "forward" or "backward")
 all_to_all_kinds = collections.Counter()
+#: the tensor-parallel collectives (``module_inject/layers.py``) by
+#: (label, "forward" or "backward")
+tensor_parallel_kinds = collections.Counter()
 
 
 class CommsLogger:

@@ -2,12 +2,17 @@
 
 The JAX package builds one named device mesh whose axes carry every degree
 of parallelism (``pipe``, ``data``, ``expert``, ``seq``, ``tensor``).  The
-port has data and expert parallelism: the ranks of the default
+port has data, expert and tensor parallelism: the ranks of the default
 ``torch.distributed`` process group are the devices of JAX's mesh, in its
-order (``MESH_AXES`` row-major), so at ``data`` D × ``expert`` ep rank
-``d·ep + e`` sits at coordinate (d, e) and an expert group is ep
-consecutive ranks.  A ``MeshSpec`` that asks for ``pipe``, ``seq`` or
-``tensor`` above 1 raises.
+order (``MESH_AXES`` row-major, the last axis fastest), so at ``data`` D ×
+``expert`` ep rank ``d·ep + e`` sits at coordinate (d, e) and an expert
+group is ep consecutive ranks; at ``data`` D × ``tensor`` N rank ``d·N + t``
+sits at (d, t) and a tensor group is N consecutive ranks.  A ``MeshSpec``
+that asks for ``pipe`` or ``seq`` above 1 raises.
+
+The data-parallel degree is the process group's ranks over the model axes,
+``world // (pipe·tensor·seq)`` (JAX ``runtime/config.py:468-476``);
+``process_world_size`` is the process group's ranks.
 
 ``Mesh`` stands for the JAX mesh where only its axis sizes are read (the
 ZeRO partition rules, ``runtime/zero``; the groups, ``utils/groups.py``):
@@ -36,6 +41,8 @@ BATCH_AXES = (DATA_AXIS, EXPERT_AXIS)
 ROADMAP_MULTI_DEVICE = "ROADMAP Queue 1 item 6, multi-device training (pipeline/tensor/sequence parallel)"
 #: what of MoE over several ranks still raises
 ROADMAP_EXPERT_PARALLEL = "ROADMAP Queue 1 item 6.1, MoE over several ranks"
+#: what of tensor parallelism still raises (its second part)
+ROADMAP_TENSOR_PARALLEL = "ROADMAP Queue 1 item 6.2, tensor parallelism beyond the Llama family's dense path"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +57,10 @@ class MeshSpec:
     def resolve(self, world_size: int) -> Tuple[int, int, int, int, int]:
         """The axis sizes over ``world_size`` ranks, in ``MESH_AXES`` order
         (JAX ``MeshSpec.resolve``, its divisibility rule and its errors)."""
-        wide = {a: getattr(self, a) for a in (PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS) if getattr(self, a) != 1}
+        wide = {a: getattr(self, a) for a in (PIPE_AXIS, SEQ_AXIS) if getattr(self, a) != 1}
         if wide:
-            raise NotImplementedError(f"mesh axes {wide}: the port has data and expert parallelism; pipeline, "
-                                      f"sequence and tensor parallelism are not ported ({ROADMAP_MULTI_DEVICE})")
+            raise NotImplementedError(f"mesh axes {wide}: the port has data, expert and tensor parallelism; "
+                                      f"pipeline and sequence parallelism are not ported ({ROADMAP_MULTI_DEVICE})")
         fixed = self.pipe * self.expert * self.seq * self.tensor
         data = self.data
         if data == -1:
@@ -92,7 +99,7 @@ class Mesh:
 def create_mesh(spec: Optional[MeshSpec] = None, world_size: Optional[int] = None) -> Mesh:
     """The mesh of ``spec`` over ``world_size`` ranks (the process group's by default)."""
     spec = spec or MeshSpec()
-    sizes = spec.resolve(dp_world_size() if world_size is None else world_size)
+    sizes = spec.resolve(process_world_size() if world_size is None else world_size)
     return Mesh(dict(zip(MESH_AXES, sizes)))
 
 
@@ -108,7 +115,7 @@ def set_global_mesh(mesh: Optional[Mesh]) -> None:
 def get_global_mesh() -> Mesh:
     """The mesh the engine set, while it covers the process group's ranks;
     else the data-only mesh over them (one rank without a process group)."""
-    world = dp_world_size()
+    world = process_world_size()
     if _GLOBAL_MESH is not None and axis_size(_GLOBAL_MESH, *MESH_AXES) == world:
         return _GLOBAL_MESH
     return Mesh({**dict.fromkeys(MESH_AXES, 1), DATA_AXIS: world})
@@ -122,7 +129,7 @@ def axis_size(mesh: Mesh, *axes: str) -> int:
     return n
 
 
-def dp_world_size() -> int:
-    """The ranks of the default process group (the combined data-parallel
-    degree, ``BATCH_AXES``); 1 without a process group."""
+def process_world_size() -> int:
+    """The ranks of the default process group (the data-parallel degree
+    times the tensor degree); 1 without a process group."""
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

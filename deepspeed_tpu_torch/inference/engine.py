@@ -20,7 +20,8 @@
     EOS blanking and the ragged cut of the JAX engine.
 
 The engine runs on the card unless the caller passes ``device="cpu"``.
-Tensor parallelism (``tensor_parallel`` > 1) raises.
+Tensor parallelism (``tensor_parallel`` > 1) raises naming ROADMAP item 6.2: the v2 engine
+serves the Llama family over tensor-parallel ranks.
 """
 
 import dataclasses
@@ -31,7 +32,7 @@ import torch
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from ..comm.mesh import ROADMAP_MULTI_DEVICE
+from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
 from ..ops.flash_attention import SUPPORTED_HEAD_DIMS
 from ..utils.logging import log_dist, logger
 
@@ -84,8 +85,9 @@ class InferenceEngine:
         self.config = config if isinstance(config, DeepSpeedInferenceConfig) \
             else DeepSpeedInferenceConfig.from_dict(config)
         if self.config.tensor_parallel > 1:
-            raise NotImplementedError(f"tensor_parallel={self.config.tensor_parallel}: tensor-parallel inference is "
-                                      f"not ported ({ROADMAP_MULTI_DEVICE})")
+            raise NotImplementedError(f"tensor_parallel={self.config.tensor_parallel}: the v1 engine at tensor "
+                                      f"parallelism is not ported ({ROADMAP_TENSOR_PARALLEL}); serve through "
+                                      "InferenceEngineV2(tensor_parallel=N)")
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()}, strict=True, assign=True)

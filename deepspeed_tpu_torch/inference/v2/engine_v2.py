@@ -37,8 +37,20 @@ Against the JAX engine:
     just before it runs, into scratch buffers its parameters view
     (``inference/quantization.LayerDequantizer``), so the step stays one
     CUDA graph;
-  * tensor-parallel serving comes with a later slice: the constructor
-    raises on a config that asks for it.
+  * tensor-parallel serving (``tensor_parallel`` N, or a ``mesh`` whose
+    ``tensor`` axis is N; JAX ``_resolve_mesh``/``_setup_tp`` :309-367):
+    the process group is N ranks (gloo ranks may share one card), each
+    running this engine with the same scheduler, state manager and
+    sampling generator.  Each holds its slices of the Llama twin
+    (``models/llama_cache.py``; a whole state dict is cut here, a sliced
+    one taken as it is) and its kv heads of the arena; K3 attends over the
+    rank's heads, the row-parallel projections and the embedding
+    all-reduce, and the last tokens' logits are gathered, so every rank
+    samples the same tokens.  A gloo collective is host-side and cannot be
+    captured, so the step programs run eagerly on the card (logged once).
+    ``compile_aot_serving`` reckons a rank's bytes without allocating.
+    Weight-only int8, speculative decoding and the other families at N > 1
+    raise naming ROADMAP item 6.2.
 """
 
 import dataclasses
@@ -47,8 +59,12 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ...accelerator import DeviceLike, resolve_device
+from ...comm import comm
+from ...comm.mesh import (MESH_AXES, ROADMAP_TENSOR_PARALLEL, TENSOR_AXIS, Mesh, MeshSpec, axis_size, create_mesh,
+                          process_world_size, set_global_mesh)
 from ...models.cache_zoo import build_cache_model
-from ...models.llama_cache import PagedKVConfig, init_kv_cache
+from ...models.llama_cache import PagedKVConfig, init_kv_cache, kv_arena_shape, kv_heads
+from ...module_inject.layers import NO_TENSOR_PARALLEL, TensorParallel, set_tensor_parallel_, slice_state, tp_dims
 from ...telemetry.step_anatomy import NULL_ANATOMY
 from ...utils.logging import logger
 from ..quantization import LayerDequantizer, QuantizedParams
@@ -75,7 +91,8 @@ class RaggedInferenceEngineConfig:
     # the card), tokens fed device-side from round to round; sequences
     # hitting EOS mid-block have their surplus tokens discarded host-side
     decode_steps_per_dispatch: int = 8
-    # not ported yet (a later slice): must stay at its default
+    # tensor-parallel ranks (the process group's): the Llama family's
+    # weights and the KV arena sharded over them
     tensor_parallel: int = 1
     # speculative decoding (spec/): a drafter proposes up to k tokens per
     # pure-decode round and ONE (k+1)-position verify dispatch emits
@@ -113,11 +130,15 @@ class InferenceEngineV2:
     ``models/convert.py`` or an HF policy); tensors already on ``device`` in
     ``param_dtype`` are used in place, not copied, so two engines built from
     one state dict share their weights.  A ``QuantizedParams``
-    (``inference/quantization.py``) serves its int8 weights."""
+    (``inference/quantization.py``) serves its int8 weights.  ``mesh``
+    (``comm.mesh.Mesh`` over the process group) or the config's
+    ``tensor_parallel`` shards the engine over tensor-parallel ranks (see
+    the module docstring); ``params`` is then the whole state dict, or
+    this rank's slices of it."""
 
     def __init__(self, cfg, params: Mapping[str, object],
                  engine_config: Optional[RaggedInferenceEngineConfig] = None, device: DeviceLike = "cuda",
-                 seed: int = 0):
+                 seed: int = 0, mesh: Optional[Mesh] = None):
         self.econfig = engine_config or RaggedInferenceEngineConfig()
         # speculative decoding: greedy-only (the accept rule is an argmax
         # identity — under sampling, emitted tokens would need the full
@@ -139,24 +160,28 @@ class InferenceEngineV2:
         # these into per-request acceptance accounting and metrics
         self.last_spec_round: Dict[int, Tuple[int, int, int]] = {}
         self._spec_on: Dict[int, bool] = {}
-        if self.econfig.tensor_parallel != 1:
-            raise NotImplementedError("tensor-parallel serving is not ported yet (ROADMAP.md Queue 1 item 6)")
         self.device = resolve_device(device)
         kvcfg = self.econfig.kv
         self.cfg = cfg
+        #: the serving mesh (None: one rank) and this rank's place on its tensor axis
+        self.mesh = self._resolve_mesh(mesh)
+        self.tp = NO_TENSOR_PARALLEL
+        if self.mesh is not None:
+            self._setup_tp(params)
         # built on the meta device: the state dict's tensors become the
         # weights (assign=True), so nothing is allocated twice; ``bind``
         # makes the rest (Falcon-RW's alibi slopes) once, so every step
         # graph reads the same tensor
-        model = build_cache_model(cfg, kvcfg.page_size, device="meta")
+        model = build_cache_model(cfg, kvcfg.page_size, device="meta", tensor_parallel=self.tp.size)
         #: the per-layer dequantization of a weight-only int8 state, or None
         self.dequantizer = LayerDequantizer(params, self.device) if isinstance(params, QuantizedParams) else None
         if self.dequantizer is not None:
             state = {k: v if k in params.shapes else v.to(dtype=cfg.param_dtype)
                      for k, v in self.dequantizer.state().items()}
         else:
-            state = {k: torch.as_tensor(v).to(device=self.device, dtype=cfg.param_dtype) for k, v in params.items()}
+            state = self._rank_state(params, model)
         model.load_state_dict(state, strict=True, assign=True)
+        set_tensor_parallel_(model, self.tp)
         model.bind(self.device)
         if self.dequantizer is not None:
             self.dequantizer.attach(model.layers if hasattr(model, "layers") else model.h)
@@ -165,7 +190,8 @@ class InferenceEngineV2:
                                  enable_prefix_cache=self.econfig.enable_prefix_cache)
         self.state = StateManager(self.kv, max_batch=self.econfig.scheduler.max_seqs)
         self.scheduler = SplitFuseScheduler(self.econfig.scheduler)
-        self.cache = init_kv_cache(cfg, kvcfg, dtype=self.econfig.kv_dtype, device=self.device)
+        self.cache = init_kv_cache(cfg, kvcfg, dtype=self.econfig.kv_dtype, device=self.device,
+                                   tensor_parallel=self.tp.size)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._max_new: Dict[int, int] = {}
         #: model forward passes run so far (one per layer stack traversal)
@@ -178,10 +204,80 @@ class InferenceEngineV2:
         self._step_fns: Dict[tuple, object] = {}
         self._fresh_compile = False
         #: the capture stream and graph pool of this engine's step graphs
-        self._graphs = GraphSpace(self.device) if self.device.type == "cuda" else None
+        #: (none at tensor_parallel > 1: the steps run eagerly)
+        self._graphs = GraphSpace(self.device) if self.device.type == "cuda" and self.tp.size == 1 else None
+        if self.device.type == "cuda" and self.tp.size > 1:
+            logger.info("InferenceEngineV2: the step programs run eagerly over tensor-parallel ranks (a gloo "
+                        "collective is host-side and cannot be captured in a CUDA graph)")
         logger.info(f"InferenceEngineV2: {cfg.num_hidden_layers} layers on {self.device}, attention "
                     f"{cfg.attention_impl}, KV arena {kvcfg.num_pages} pages x {kvcfg.page_size} tokens "
                     f"({self.econfig.kv_dtype})")
+
+    # ------------------------------------------------------------------ TP
+
+    def _resolve_mesh(self, mesh: Optional[Mesh]) -> Optional[Mesh]:
+        """The serving mesh (JAX ``_resolve_mesh`` :309-330): an explicit
+        mesh wins; else ``tensor_parallel`` > 1 builds ``data`` 1 ×
+        ``tensor`` N over the process group, which must hold N ranks.  None
+        for one rank.  The mesh becomes the global one (``utils/groups``)."""
+        if mesh is not None:
+            if axis_size(mesh, *MESH_AXES) <= 1:
+                return None
+            if mesh.shape.get(TENSOR_AXIS, 1) <= 1:
+                raise ValueError(f"serving mesh {dict(mesh.shape)} has no 'tensor' axis with degree > 1 — the v2 "
+                                 "engine shards over TP only; build it with e.g. create_mesh(MeshSpec(data=1, "
+                                 "tensor=N))")
+            self._check_heads(mesh.shape[TENSOR_AXIS])
+            if axis_size(mesh, *MESH_AXES) != comm.get_world_size():
+                raise ValueError(f"serving mesh {dict(mesh.shape)} does not cover the process group's "
+                                 f"{comm.get_world_size()} ranks")
+        else:
+            tp = self.econfig.tensor_parallel
+            if tp <= 1:
+                return None
+            self._check_heads(tp)
+            world = process_world_size()
+            if world != tp:
+                raise ValueError(f"tensor_parallel={tp} but the process group has {world} ranks: start {tp} ranks "
+                                 "and create the process group first (comm.init_distributed)")
+            mesh = create_mesh(MeshSpec(data=1, tensor=tp), world)
+        if axis_size(mesh, *MESH_AXES) != mesh.shape.get(TENSOR_AXIS, 1):
+            raise NotImplementedError(f"serving mesh {dict(mesh.shape)}: the v2 engine shards over the tensor axis "
+                                      f"only ({ROADMAP_TENSOR_PARALLEL})")
+        set_global_mesh(mesh)
+        return mesh
+
+    def _check_heads(self, tp: int) -> None:
+        """``tp`` must divide the kv heads and the query heads (JAX ``:355-358``)."""
+        n_kv, heads = kv_heads(self.cfg), self.cfg.num_attention_heads
+        if n_kv % tp or heads % tp:
+            raise ValueError(f"tensor_parallel={tp} must divide num_key_value_heads={n_kv} and "
+                             f"num_attention_heads={heads}")
+
+    def _setup_tp(self, params) -> None:
+        """This rank's place on the tensor axis (JAX ``_setup_tp`` :332-367);
+        what is not ported at N > 1 raises."""
+        from ...utils import groups
+        tp = self.mesh.shape[TENSOR_AXIS]
+        if isinstance(params, QuantizedParams):
+            raise NotImplementedError("TP-sharded serving of weight-only-quantized checkpoints is not implemented "
+                                      f"(int8 blocks would need per-shard scale re-layout) ({ROADMAP_TENSOR_PARALLEL})")
+        if self.econfig.spec is not None:
+            raise NotImplementedError(f"speculative decoding over {tp} tensor-parallel ranks is not ported "
+                                      f"({ROADMAP_TENSOR_PARALLEL})")
+        groups.create_tensor_groups()
+        self.tp = TensorParallel(tp, groups.get_tensor_model_parallel_rank(), groups.get_tensor_model_parallel_group())
+        logger.info(f"InferenceEngineV2: TP-sharded serving over tensor={tp} (rank {self.tp.rank})")
+
+    def _rank_state(self, params, model) -> Dict[str, torch.Tensor]:
+        """The state dict on the device in ``param_dtype``; over tensor-parallel
+        ranks this rank's slices, cut from whole tensors (copied, so the
+        whole tensor is not held) or taken as they are."""
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        tensors = {k: torch.as_tensor(v) for k, v in params.items()}
+        whole = {k: d for k, d in tp_dims(model).items() if k in tensors and tuple(tensors[k].shape) != want[k]}
+        return {k: t.to(device=self.device, dtype=self.cfg.param_dtype, copy=k in whole)
+                for k, t in slice_state(tensors, whole, self.tp).items()}
 
     # ---------------------------------------------------------------- put
 
@@ -778,8 +874,43 @@ class InferenceEngineV2:
 
 def build_engine(cfg, params: Mapping[str, object],
                  engine_config: Optional[RaggedInferenceEngineConfig] = None, device: DeviceLike = "cuda",
-                 seed: int = 0) -> InferenceEngineV2:
+                 seed: int = 0, mesh: Optional[Mesh] = None) -> InferenceEngineV2:
     """The engine over a state dict, e.g. the JAX package's params through
     ``models/convert.py`` (an HF checkpoint directory goes through
     ``engine_factory.build_hf_engine``)."""
-    return InferenceEngineV2(cfg, params, engine_config, device=device, seed=seed)
+    return InferenceEngineV2(cfg, params, engine_config, device=device, seed=seed, mesh=mesh)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingBudget:
+    """One rank's bytes of a tensor-parallel serving step (the port's
+    counterpart of JAX's ``compiled.memory_analysis()``): its parameter
+    slices, its kv heads of the arena and the step's batch arrays (tokens,
+    start_pos, block_tables, chunk_lens, int32)."""
+    param_bytes: int
+    arena_bytes: int
+    batch_bytes: int
+
+    @property
+    def argument_size_in_bytes(self) -> int:
+        return self.param_bytes + self.arena_bytes + self.batch_bytes
+
+
+def compile_aot_serving(cfg, mesh: Mesh, engine_config: Optional[RaggedInferenceEngineConfig] = None,
+                        batch: int = 8, chunk: int = 1) -> Tuple[ServingBudget, int]:
+    """A rank's serving budget over ``mesh``'s tensor axis, allocating
+    nothing (JAX ``compile_aot_serving`` :145-171): the sharded twin and one
+    layer's arena on the ``meta`` device, so Llama-3-8B at tensor 8 is
+    reckoned without eight cards.  Returns ``(budget, n_params)``,
+    ``n_params`` the whole model's parameter count."""
+    eng_cfg = engine_config or RaggedInferenceEngineConfig()
+    kvcfg = eng_cfg.kv
+    tp = mesh.shape.get(TENSOR_AXIS, 1)
+    whole = build_cache_model(cfg, kvcfg.page_size, device="meta")
+    n_params = sum(p.numel() for p in whole.parameters())
+    model = build_cache_model(cfg, kvcfg.page_size, device="meta", tensor_parallel=tp)
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    layer = torch.empty(kv_arena_shape(cfg, kvcfg, tp), dtype=eng_cfg.kv_dtype, device="meta")
+    arena_bytes = cfg.num_hidden_layers * layer.numel() * layer.element_size()
+    batch_bytes = 4 * (batch * chunk + batch + batch * kvcfg.max_pages_per_seq + batch)
+    return ServingBudget(param_bytes, arena_bytes, batch_bytes), n_params

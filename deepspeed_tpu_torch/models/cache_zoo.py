@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
+from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
 from .falcon import FalconAttention, FalconBlock, FalconConfig, FalconForCausalLM, alibi_slopes
 from .llama import LlamaConfig
 from .llama_cache import LlamaAttentionCache, LlamaForCausalLMWithCache, paged_attention_core
@@ -220,11 +221,18 @@ CACHE_MODEL_REGISTRY = {
 }
 
 
-def build_cache_model(cfg, page_size: int, device: DeviceLike = "cuda"):
+def build_cache_model(cfg, page_size: int, device: DeviceLike = "cuda", tensor_parallel: int = 1):
     """The paged twin of a config's family (JAX ``engine_v2.py:39-56``):
     ``CACHE_MODEL_REGISTRY``'s, else Llama.  Mixtral is served dropless: a
     config with ``drop_tokens`` is replaced by one without (capacity drops
-    would zero routed tokens at random and leave HF's outputs)."""
+    would zero routed tokens at random and leave HF's outputs).  Over
+    ``tensor_parallel`` ranks a rank's slices of the Llama twin; the other
+    families raise naming ROADMAP item 6.2."""
+    if tensor_parallel > 1:
+        if type(cfg) is not LlamaConfig:
+            raise NotImplementedError(f"serving a {type(cfg).__name__} over {tensor_parallel} tensor-parallel ranks "
+                                      f"is not ported ({ROADMAP_TENSOR_PARALLEL})")
+        return LlamaForCausalLMWithCache(cfg, page_size=page_size, device=device, tensor_parallel=tensor_parallel)
     if isinstance(cfg, MixtralConfig) and cfg.drop_tokens:
         cfg = dataclasses.replace(cfg, drop_tokens=False)
     for cfg_cls, model_cls in CACHE_MODEL_REGISTRY.items():

@@ -62,6 +62,13 @@ and ``exp_avg_sq``, Lion ``exp_avg``, Adagrad ``accum``, SGD ``momentum``)
 and its step, the loss scaler, the skipped steps and the step count.  A JAX
 run can then be continued by the port.
 
+``tp_slice_state`` cuts a whole Llama-family state dict (port names; a
+JAX tree through ``jax_llama_to_state_dict`` first) to tensor-parallel rank
+t's slices by the Megatron layout of ``models/llama.py``'s
+tensor-parallel layers (q/k/v, gate, up, ``lm_head`` and the embedding on
+their output dim, o and down on their input dim); ``tp_gather_state`` puts
+every rank's slices back together.
+
 ``jax_leaves`` goes the other way for the ZeRO partition rules
 (``runtime/zero/partition.py``) and the universal checkpoint
 (``checkpoint/ds_to_universal.py``): for each parameter of a port Llama,
@@ -245,13 +252,28 @@ def jax_clip_to_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
 class JaxLeaf:
     """A port parameter's JAX leaf: its shape, the port tensor's, whether
     the port tensor is the leaf's transpose (reshaped), the leaf's logical
-    axes (``()`` for a leaf without them) and its path in the JAX model's
-    unrolled param tree (``model/layers_0/self_attn/q_proj/kernel``)."""
+    axes (``()`` for a leaf without them), its path in the JAX model's
+    unrolled param tree (``model/layers_0/self_attn/q_proj/kernel``) and,
+    for a tensor-parallel layer's tensor that holds one rank's slice, the
+    dim of the port tensor it is cut on (``tp_dim``, the whole tensor's
+    size there ``tp_size`` times the port tensor's)."""
     shape: Tuple[int, ...]
     port_shape: Tuple[int, ...]
     transposed: bool
     logical: Tuple[Optional[str], ...]
     path: str = ""
+    tp_dim: Optional[int] = None
+    tp_size: int = 1
+
+    @property
+    def whole_port_shape(self) -> Tuple[int, ...]:
+        """The port tensor's shape whole over the tensor axis (an expert
+        bank keeps its rank's experts)."""
+        if self.tp_dim is None:
+            return self.port_shape
+        shape = list(self.port_shape)
+        shape[self.tp_dim] *= self.tp_size
+        return tuple(shape)
 
 
 #: the kinds of JAX projection behind an ``nn.Linear``: ``heads`` a
@@ -327,20 +349,26 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
     """For each parameter of a port training model of the Llama family
     (Llama, Mistral, Qwen2, InternLM, Phi-3), Falcon, OPT, Phi, GPT-2 or
     Mixtral, its JAX leaf in the unrolled tree (``scan_layers=False``).
-    Another model raises ``NotImplementedError``."""
+    A tensor-parallel layer's slice has the whole tensor's leaf.  Another
+    model raises ``NotImplementedError``."""
+    from ..module_inject.layers import tp_dims
     from ..moe.experts import ExpertsFFN
     from ..moe.layer import Router
     family = _family(model)
     cfg = model.cfg
     hd = cfg.head_dim
     linears, embeds = _LINEARS[family], _EMBEDDINGS[family]
+    cut = tp_dims(model)
     out: Dict[str, JaxLeaf] = {}
     for mname, mod in model.named_modules():
         short = mname.rsplit(".", 1)[-1]
         pair = ".".join(mname.split(".")[-2:])
+        n_tp = getattr(getattr(mod, "tp", None), "size", 1)
         for pname, p in mod.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            shape = tuple(p.shape)
+            local = tuple(p.shape)
+            tp_dim = cut.get(name) if n_tp > 1 else None
+            shape = local if tp_dim is None else local[:tp_dim] + (local[tp_dim] * n_tp, ) + local[tp_dim + 1:]
             if isinstance(mod, ExpertsFFN):
                 logical = (EXPERTS, EXPERT_MLP, EXPERT_EMBED) if pname == "w_down" else \
                     (EXPERTS, EXPERT_EMBED, EXPERT_MLP)
@@ -348,7 +376,7 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
             elif isinstance(mod, Router):
                 leaf = JaxLeaf(shape[::-1], shape, True, (EMBED, EXPERTS_GATE), _jax_path(family, mname, "kernel"))
             elif isinstance(mod, nn.Embedding) and short in embeds:
-                leaf = JaxLeaf(shape, shape, False, embeds[short], _jax_path(family, mname, "embedding"))
+                leaf = JaxLeaf(shape, local, False, embeds[short], _jax_path(family, mname, "embedding"))
             elif isinstance(mod, RMSNorm):
                 leaf = JaxLeaf(shape, shape, False, (EMBED, ), _jax_path(family, mname, "weight"))
             elif isinstance(mod, LayerNorm):
@@ -362,12 +390,14 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
                     fan_out, fan_in = shape
                     jshape = {_HEADS: (fan_in, fan_out // hd, hd), _OUT: (fan_in // hd, hd, fan_out),
                               _DENSE: (fan_in, fan_out), _QKV3: (fan_in, 3, fan_out // (3 * hd), hd)}[kind]
-                    leaf = JaxLeaf(jshape, shape, True, kernel_axes, _jax_path(family, mname, "kernel"))
+                    leaf = JaxLeaf(jshape, local, True, kernel_axes, _jax_path(family, mname, "kernel"))
                 else:
                     jshape = {_HEADS: (shape[0] // hd, hd), _QKV3: (3, shape[0] // (3 * hd), hd)}.get(kind, shape)
-                    leaf = JaxLeaf(jshape, shape, False, bias_axes, _jax_path(family, mname, "bias"))
+                    leaf = JaxLeaf(jshape, local, False, bias_axes, _jax_path(family, mname, "bias"))
             else:
                 raise NotImplementedError(f"parameter {name!r} of {type(model).__name__}: no JAX leaf is known for it")
+            if tp_dim is not None:
+                leaf = dataclasses.replace(leaf, tp_dim=tp_dim, tp_size=n_tp)
             out[name] = leaf
     return out
 
@@ -404,3 +434,28 @@ def jax_train_state_to_engine(state: Any, engine, cfg: LlamaConfig):
     engine.global_steps = int(np.asarray(fields["step"]))
     engine.global_samples = engine.global_steps * engine.train_batch_size()
     return engine
+
+
+def _llama_tp_dims(cfg, tp_size: int) -> Dict[str, int]:
+    """Parameter name → the dim cut over ``tp_size`` tensor-parallel ranks,
+    from the layers of a Llama-family model built on the meta device."""
+    from ..module_inject.layers import tp_dims
+    from .llama import LlamaForCausalLM
+    return tp_dims(LlamaForCausalLM(cfg, device="meta", tensor_parallel=tp_size))
+
+
+def tp_slice_state(state: Mapping[str, Any], cfg, tp_size: int, tp_rank: int) -> Dict[str, torch.Tensor]:
+    """Rank ``tp_rank``'s slices of a whole Llama-family state dict over
+    ``tp_size`` ranks (config ``cfg``): each cut tensor narrowed to rows (or
+    columns) ``[t·n, (t+1)·n)`` (a view of the whole tensor), the rest as
+    they are."""
+    from ..module_inject.layers import TensorParallel, slice_state
+    dims = _llama_tp_dims(cfg, tp_size) if tp_size > 1 else {}
+    return slice_state({name: torch.as_tensor(v) for name, v in state.items()}, dims, TensorParallel(tp_size, tp_rank))
+
+
+def tp_gather_state(slices, cfg) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every rank's ``tp_slice_state`` (in rank order)."""
+    dims = _llama_tp_dims(cfg, len(slices)) if len(slices) > 1 else {}
+    return {name: torch.cat([torch.as_tensor(s[name]) for s in slices], dim=dims[name]) if name in dims
+            else torch.as_tensor(slices[0][name]) for name in slices[0]}

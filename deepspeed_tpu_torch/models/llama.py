@@ -24,6 +24,21 @@ cast to ``dtype`` at use (flax ``DenseGeneral``/``Embed`` promote the same
 way); RMSNorm and RoPE compute in float32 and cast back; attention
 accumulates in float32.
 
+Tensor parallelism (``tensor_parallel`` N > 1; JAX's Megatron layout from
+``module_inject/tp_rules.py``, the collectives GSPMD inserts placed by hand
+in ``module_inject/layers.py``): q/k/v, gate and up are column-parallel, o
+and down row-parallel (one all-reduce each, in the forward), the embedding
+vocab-parallel (ids outside the rank's rows look up zeros, then an
+all-reduce) and the LM head vocab-parallel, tied or not, so the cache-free
+model's logits are ``[B, S, V/N]`` on a rank; ``causal_lm_loss`` with the
+rank's ``tp`` is the vocab-parallel cross entropy.  Rank t attends over
+query heads ``[t·H/N, (t+1)·H/N)`` and kv heads ``[t·HK/N, (t+1)·HK/N)``,
+so each query head keeps its kv head.  The norms are replicated: their
+gradients are equal on every rank of a tensor group without a reduce.
+``init_weights_`` draws each cut tensor whole from the generator and keeps
+the rank's slice, one tensor at a time, so a rank holds exactly the slices
+of the one-rank model of the same seed.
+
 Parameter names mirror the JAX tree (``embed_tokens``, ``layers.{i}.
 self_attn.{q,k,v,o}_proj``, ``input_layernorm``, ``post_attention_layernorm``,
 ``mlp.{gate,up,down}_proj``, ``norm``, ``lm_head``) so that
@@ -41,6 +56,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
+from ..module_inject.layers import (NO_TENSOR_PARALLEL, ColumnParallelLinear, RowParallelLinear, TensorParallel,
+                                    VocabParallelEmbedding, all_reduce_f32, copy_to_tensor_region,
+                                    narrow_to_rank, row_parallel_dense, set_tensor_parallel_, tensor_parallel_of,
+                                    vocab_parallel_embed)
 from ..ops.attention import chunked_attention, reference_attention
 from ..ops.flash_attention import flash_attention
 
@@ -149,6 +168,25 @@ def _linear(cfg: LlamaConfig, fan_in: int, fan_out: int, bias: bool, device) -> 
     return nn.utils.skip_init(nn.Linear, fan_in, fan_out, bias=bias, device=device, dtype=cfg.param_dtype)
 
 
+def _parallel(cls, cfg: LlamaConfig, fan_in: int, fan_out: int, bias: bool, device, tp_size: int) -> nn.Linear:
+    """An uninitialised column- or row-parallel ``nn.Linear`` (``cls``) of
+    whole size ``fan_in`` → ``fan_out`` over ``tp_size`` ranks."""
+    return nn.utils.skip_init(cls, fan_in, fan_out, bias=bias, device=device, dtype=cfg.param_dtype, tp_size=tp_size)
+
+
+def check_tensor_parallel(cfg: LlamaConfig, tp_size: int) -> None:
+    """Raise unless ``tp_size`` divides the heads, the kv heads, the MLP
+    width and the vocab (JAX's serving engine raises for the heads,
+    ``engine_v2.py:355-358``; its layouts refuse the others)."""
+    if tp_size == 1:
+        return
+    dims = {"num_attention_heads": cfg.num_attention_heads, "num_key_value_heads": cfg.num_key_value_heads,
+            "intermediate_size": cfg.intermediate_size, "vocab_size": cfg.vocab_size}
+    bad = {k: v for k, v in dims.items() if v % tp_size}
+    if bad:
+        raise ValueError(f"tensor_parallel={tp_size} must divide " + ", ".join(f"{k}={v}" for k, v in bad.items()))
+
+
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax ``DenseGeneral(dtype=...)``: input, kernel and bias promoted to
     the compute dtype, then one matmul (left to cuBLAS, as the JAX package
@@ -222,31 +260,46 @@ def get_attention_impl(name: str) -> Callable:
 
 
 class LlamaAttention(nn.Module):
-    """Projections + RoPE shared by the cache-free and the paged forward."""
+    """Projections + RoPE shared by the cache-free and the paged forward;
+    over ``tp_size`` ranks a rank's heads (q/k/v column-parallel, o
+    row-parallel)."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp_size: int = 1):
         super().__init__()
+        check_tensor_parallel(cfg, tp_size)
         self.cfg = cfg
         hd, e = cfg.head_dim, cfg.hidden_size
-        self.q_proj = _linear(cfg, e, cfg.num_attention_heads * hd, cfg.attention_bias, device)
-        self.k_proj = _linear(cfg, e, cfg.num_key_value_heads * hd, cfg.attention_bias, device)
-        self.v_proj = _linear(cfg, e, cfg.num_key_value_heads * hd, cfg.attention_bias, device)
-        self.o_proj = _linear(cfg, cfg.num_attention_heads * hd, e, cfg.attention_out_bias, device)
+        col, row = ColumnParallelLinear, RowParallelLinear
+        self.q_proj = _parallel(col, cfg, e, cfg.num_attention_heads * hd, cfg.attention_bias, device, tp_size)
+        self.k_proj = _parallel(col, cfg, e, cfg.num_key_value_heads * hd, cfg.attention_bias, device, tp_size)
+        self.v_proj = _parallel(col, cfg, e, cfg.num_key_value_heads * hd, cfg.attention_bias, device, tp_size)
+        self.o_proj = _parallel(row, cfg, cfg.num_attention_heads * hd, e, cfg.attention_out_bias, device, tp_size)
+
+    @property
+    def n_heads(self) -> int:
+        """This rank's query heads."""
+        return self.q_proj.out_features // self.cfg.head_dim
+
+    @property
+    def n_kv(self) -> int:
+        """This rank's kv heads."""
+        return self.k_proj.out_features // self.cfg.head_dim
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """x [B, S, E] → post-RoPE q [B, S, H, D], k/v [B, S, KV, D]."""
+        """x [B, S, E] → post-RoPE q [B, S, H, D], k/v [B, S, KV, D] (this rank's heads)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim
-        q = dense(x, self.q_proj, cfg.dtype).view(b, s, cfg.num_attention_heads, hd)
-        k = dense(x, self.k_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, hd)
-        v = dense(x, self.v_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, hd)
+        x = copy_to_tensor_region(x, self.q_proj.tp, "qkv")
+        q = dense(x, self.q_proj, cfg.dtype).view(b, s, self.n_heads, hd)
+        k = dense(x, self.k_proj, cfg.dtype).view(b, s, self.n_kv, hd)
+        v = dense(x, self.v_proj, cfg.dtype).view(b, s, self.n_kv, hd)
         cos, sin = rotary_embedding(positions, hd, cfg.rope_theta)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def out(self, attn: torch.Tensor) -> torch.Tensor:
         b, s = attn.shape[:2]
-        return dense(attn.reshape(b, s, -1), self.o_proj, self.cfg.dtype)
+        return row_parallel_dense(attn.reshape(b, s, -1), self.o_proj, self.cfg.dtype, "o_proj")
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -257,26 +310,31 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
+    """SwiGLU; over ``tp_size`` ranks gate and up are column-parallel, down
+    row-parallel."""
 
-    def __init__(self, cfg: LlamaConfig, device=None):
+    def __init__(self, cfg: LlamaConfig, device=None, tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
-        self.gate_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device)
-        self.up_proj = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, False, device)
-        self.down_proj = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, False, device)
+        col, row = ColumnParallelLinear, RowParallelLinear
+        self.gate_proj = _parallel(col, cfg, cfg.hidden_size, cfg.intermediate_size, False, device, tp_size)
+        self.up_proj = _parallel(col, cfg, cfg.hidden_size, cfg.intermediate_size, False, device, tp_size)
+        self.down_proj = _parallel(row, cfg, cfg.intermediate_size, cfg.hidden_size, False, device, tp_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        return dense(F.silu(dense(x, self.gate_proj, dt)) * dense(x, self.up_proj, dt), self.down_proj, dt)
+        x = copy_to_tensor_region(x, self.gate_proj.tp, "mlp")
+        return row_parallel_dense(F.silu(dense(x, self.gate_proj, dt)) * dense(x, self.up_proj, dt), self.down_proj,
+                                  dt, "down_proj")
 
 
 class LlamaBlock(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig, device=None, self_attn: Optional[nn.Module] = None):
+    def __init__(self, cfg: LlamaConfig, device=None, self_attn: Optional[nn.Module] = None, tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
-        self.self_attn = self_attn if self_attn is not None else LlamaAttention(cfg, device=device)
-        self.mlp = LlamaMLP(cfg, device=device)
+        self.self_attn = self_attn if self_attn is not None else LlamaAttention(cfg, device=device, tp_size=tp_size)
+        self.mlp = LlamaMLP(cfg, device=device, tp_size=tp_size)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
                                                 device)
@@ -336,31 +394,43 @@ def block_runner(cfg) -> Callable:
 
 class LlamaForCausalLM(nn.Module):
     """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
-    compute dtype.  Attention follows ``cfg.attention_impl`` through
-    ``get_attention_impl``."""
+    compute dtype (``[B, S, V/N]``, this rank's vocab slice, over
+    ``tensor_parallel`` N ranks).  Attention follows ``cfg.attention_impl``
+    through ``get_attention_impl``.  A tensor-parallel model holds the
+    slices of the process group's rank modulo N (its tensor coordinate in
+    JAX's data × tensor layout) and runs its collectives on ``tp.group``;
+    the engine that holds it sets both
+    (``module_inject.layers.set_tensor_parallel_``)."""
 
-    def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda", tensor_parallel: int = 1):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
-                                               dtype=cfg.param_dtype)
+        check_tensor_parallel(cfg, tensor_parallel)
+        #: this rank's place on the tensor axis (its group set by the engine)
+        self.tp = TensorParallel(tensor_parallel)
+        self.embed_tokens = nn.utils.skip_init(VocabParallelEmbedding, cfg.vocab_size, cfg.hidden_size, device=dev,
+                                               dtype=cfg.param_dtype, tp_size=tensor_parallel)
         self.layers = nn.ModuleList([self._make_block(cfg, dev, i) for i in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, dev)
-        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, cfg.hidden_size, cfg.vocab_size, False,
-                                                                     dev)
+        self.lm_head = None if cfg.tie_word_embeddings else \
+            _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, cfg.vocab_size, False, dev, tensor_parallel)
+        if tensor_parallel > 1:
+            from ..comm import comm
+            set_tensor_parallel_(self, TensorParallel(tensor_parallel, comm.get_rank() % tensor_parallel))
 
     def _make_block(self, cfg: LlamaConfig, device, layer: int) -> nn.Module:
         """Block ``layer`` of the stack (a family whose layers differ, as
         Qwen2-MoE's dense and sparse ones, reads the index)."""
-        return LlamaBlock(cfg, device=device)
+        return LlamaBlock(cfg, device=device, tp_size=self.tp.size)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(input_ids.long(), self.embed_tokens.weight).to(self.cfg.dtype)
+        return vocab_parallel_embed(input_ids.long(), self.embed_tokens.weight, self.tp).to(self.cfg.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Final norm + LM head (tied: ``embed.attend``) over hidden rows."""
-        x = self.norm(x)
+        """Final norm + LM head (tied: ``embed.attend``) over hidden rows:
+        this rank's vocab slice of the logits over ``tensor_parallel`` ranks."""
+        x = copy_to_tensor_region(self.norm(x), self.tp, "lm_head")
         if self.lm_head is None:
             return x.to(self.cfg.dtype) @ self.embed_tokens.weight.to(self.cfg.dtype).T
         return dense(x, self.lm_head, self.cfg.dtype)
@@ -393,10 +463,13 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     weights of its own kind (the MoE routers and expert banks) initialises
     them by its ``init_weights_(generator)``."""
     for mod in model.modules():
+        tp = tensor_parallel_of(mod)
+        dim = getattr(mod, "tp_dim", None) if tp.size > 1 else None
         if isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, 0.02, generator=generator)
+            _draw_whole(mod.weight, dim, tp, lambda w: w.normal_(0.0, 0.02, generator=generator))
         elif isinstance(mod, nn.Linear):
-            mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=generator)
+            fan_in = mod.in_features * (tp.size if dim == 1 else 1)
+            _draw_whole(mod.weight, dim, tp, lambda w: w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, RMSNorm):
@@ -404,6 +477,19 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif hasattr(mod, "init_weights_"):
             mod.init_weights_(generator)
     return model
+
+
+def _draw_whole(param: torch.Tensor, dim: Optional[int], tp: TensorParallel, draw) -> None:
+    """``draw`` the whole tensor of which ``param`` is this rank's slice on
+    ``dim`` (``param`` itself when it is whole) and keep the slice: the
+    generator advances as for the whole tensor."""
+    if dim is None:
+        draw(param)
+        return
+    shape = list(param.shape)
+    shape[dim] *= tp.size
+    whole = draw(torch.empty(shape, dtype=param.dtype, device=param.device))
+    param.copy_(narrow_to_rank(whole, dim, tp))
 
 
 class _CausalLMLoss(torch.autograd.Function):
@@ -437,13 +523,59 @@ class _CausalLMLoss(torch.autograd.Function):
         return d.to(logits.dtype), None, None, None
 
 
+class _VocabParallelCausalLMLoss(torch.autograd.Function):
+    """``_CausalLMLoss`` over vocab-parallel logits ``[B, S, V/N]`` (rank t
+    holds columns ``[t·V/N, (t+1)·V/N)``): the row max is all-reduced
+    (MAX), then the sum of ``exp(x − max)`` and the target logit, which only
+    its owner adds (one SUM of both); every rank gets the loss.  The
+    backward is the rank's slice of ``(softmax − onehot)·w``, no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, loss_mask, denom, tp):
+        lf = logits.float()
+        m = all_reduce_f32(lf.max(dim=-1).values, tp, "loss_max", op="max")                   # [B, S]
+        n = logits.shape[-1]
+        local = labels.long() - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        tgt = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0].float()
+        sums = all_reduce_f32(torch.stack([torch.exp(lf - m[..., None]).sum(-1), torch.where(inside, tgt, 0.0)]),
+                              tp, "loss_sum")
+        lse = m + torch.log(sums[0])
+        nll = lse - sums[1]
+        mask = None if loss_mask is None else loss_mask.float()
+        if denom is not None:
+            loss = (nll if mask is None else nll * mask).sum() / denom
+        elif mask is not None:
+            denom = mask.sum().clamp_min(1.0)
+            loss = (nll * mask).sum() / denom
+        else:
+            denom = torch.tensor(float(nll.numel()), device=nll.device)
+            loss = nll.mean()
+        ctx.save_for_backward(logits, local, inside, lse, denom, *([] if mask is None else [mask]))
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, inside, lse, denom, *mask = ctx.saved_tensors
+        w = (g / denom) * mask[0] if mask else (g / denom).expand(lse.shape)
+        d = torch.exp(logits.float() - lse[..., None])                                  # softmax
+        d.scatter_add_(-1, torch.where(inside, local, 0)[..., None],
+                       torch.where(inside, -1.0, 0.0)[..., None].to(d.dtype))           # − onehot, owner only
+        d.mul_(w[..., None])
+        return d.to(logits.dtype), None, None, None, None
+
+
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, loss_mask: Optional[torch.Tensor] = None,
-                   denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   denom: Optional[torch.Tensor] = None, tp: TensorParallel = NO_TENSOR_PARALLEL) -> torch.Tensor:
     """Token-mean cross entropy in float32 from an f32 logsumexp minus the
     target logit; with ``loss_mask`` the mean is over the masked-in tokens
     (denominator ``max(sum, 1)``).  ``denom`` replaces the denominator: a
     data-parallel rank divides its token sum by the count over all ranks, so
     that the ranks' sum is one mean over the global batch.  The gradient is
     ``(softmax − onehot)·w`` in the logits' dtype, computed from the saved
-    logits: no [B, S, V] float32 log-prob tensor is kept."""
+    logits: no [B, S, V] float32 log-prob tensor is kept.  With a ``tp`` of
+    more than one rank, ``logits`` are this rank's vocab slice
+    (``_VocabParallelCausalLMLoss``)."""
+    if tp.size > 1:
+        return _VocabParallelCausalLMLoss.apply(logits, labels, loss_mask, denom, tp)
     return _CausalLMLoss.apply(logits, labels, loss_mask, denom)

@@ -10,6 +10,14 @@ returns only the logits.
 One forward serves prefill chunks, continuation chunks and decode (C=1) —
 FastGen's Dynamic SplitFuse property that all phases are the same
 computation at different chunk sizes.
+
+Over ``tensor_parallel`` N ranks (JAX's ``_setup_tp``: the training
+layout at stage 0, the arena sharded on its kv-heads dim) a rank holds the
+slices of ``models/llama.py``'s tensor-parallel layers, its arena is ``[P,
+page, 2, n_kv/N, hd]`` a layer (``init_kv_cache``), K3 attends over the
+rank's heads, o_proj and down_proj are row-parallel, and ``logits``
+gathers the vocab slices of the rows it is given over the tensor group, so
+every rank samples from the same whole logits.
 """
 
 import dataclasses
@@ -18,6 +26,7 @@ from typing import List, Optional
 
 import torch
 
+from ..module_inject.layers import gather_from_tensor_region
 from .llama import LlamaAttention, LlamaBlock, LlamaConfig, LlamaForCausalLM
 
 
@@ -37,10 +46,18 @@ def kv_heads(cfg) -> int:
         or cfg.num_attention_heads
 
 
-def init_kv_cache(cfg, kv: PagedKVConfig, dtype=torch.bfloat16, device=None) -> List[torch.Tensor]:
+def kv_arena_shape(cfg, kv: PagedKVConfig, tensor_parallel: int = 1) -> tuple:
+    """One layer's arena ``[P, page, 2, n_kv/N, hd]`` (a rank's kv heads
+    over ``tensor_parallel`` N ranks)."""
+    return (kv.num_pages, kv.page_size, 2, kv_heads(cfg) // tensor_parallel, cfg.hidden_size // cfg.num_attention_heads)
+
+
+def init_kv_cache(cfg, kv: PagedKVConfig, dtype=torch.bfloat16, device=None,
+                  tensor_parallel: int = 1) -> List[torch.Tensor]:
     """One zeroed ``[P, page, 2, n_kv, hd]`` arena per layer, for any model
-    family's config (JAX ``llama_cache.py:42-51``)."""
-    shape = (kv.num_pages, kv.page_size, 2, kv_heads(cfg), cfg.hidden_size // cfg.num_attention_heads)
+    family's config (JAX ``llama_cache.py:42-51``); a rank's kv heads over
+    ``tensor_parallel`` ranks."""
+    shape = kv_arena_shape(cfg, kv, tensor_parallel)
     return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.num_hidden_layers)]
 
 
@@ -142,8 +159,8 @@ def paged_attention_core(q, k, v, pages, block_table, start_pos, chunk_lens, pag
 
 class LlamaAttentionCache(LlamaAttention):
 
-    def __init__(self, cfg: LlamaConfig, page_size: int = 16, device=None):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: LlamaConfig, page_size: int = 16, device=None, tp_size: int = 1):
+        super().__init__(cfg, device=device, tp_size=tp_size)
         self.page_size = page_size
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens=None):
@@ -155,8 +172,9 @@ class LlamaAttentionCache(LlamaAttention):
 
 class LlamaBlockCache(LlamaBlock):
 
-    def __init__(self, cfg: LlamaConfig, page_size: int = 16, device=None):
-        super().__init__(cfg, device=device, self_attn=LlamaAttentionCache(cfg, page_size, device=device))
+    def __init__(self, cfg: LlamaConfig, page_size: int = 16, device=None, tp_size: int = 1):
+        super().__init__(cfg, device=device, self_attn=LlamaAttentionCache(cfg, page_size, device=device,
+                                                                            tp_size=tp_size), tp_size=tp_size)
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens=None):
         h = x + self.self_attn(self.input_layernorm(x), positions, pages, block_table, start_pos, chunk_lens)
@@ -168,14 +186,20 @@ class LlamaForCausalLMWithCache(LlamaForCausalLM):
     block_table, cache, chunk_lens)`` → logits [B, C, V]; ``cache`` (one
     arena per layer) is updated in place.  ``hidden`` + ``logits`` split the
     same forward so the engine can take the LM head over each row's last
-    real token only."""
+    real token only.  Over ``tensor_parallel`` ranks the logits are whole
+    on every rank (gathered over the tensor group)."""
 
-    def __init__(self, cfg: LlamaConfig, page_size: int = 16, device="cuda"):
+    def __init__(self, cfg: LlamaConfig, page_size: int = 16, device="cuda", tensor_parallel: int = 1):
         self.page_size = page_size
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, tensor_parallel=tensor_parallel)
 
     def _make_block(self, cfg, device, layer: int):
-        return LlamaBlockCache(cfg, self.page_size, device=device)
+        return LlamaBlockCache(cfg, self.page_size, device=device, tp_size=self.tp.size)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm + LM head over hidden rows: ``[..., V]``, the vocab
+        slices gathered over the tensor group."""
+        return gather_from_tensor_region(super().logits(x), self.tp, "logits")
 
     def bind(self, device: torch.device) -> None:
         """Nothing but weights to make (the engine's hook for the twins that

@@ -1,5 +1,6 @@
 """The sharding rules of the parameters: logical axes → mesh axes (port of
-the ZeRO-3 and expert part of ``deepspeed_tpu/module_inject/tp_rules.py``).
+``deepspeed_tpu/module_inject/tp_rules.py``: ``make_logical_rules``
+:38-67 and ``vocab_rules`` :70-88).
 
 At ZeRO stage 3 the JAX package shards every ``embed`` dim over the
 data-parallel axes (``make_logical_rules`` :38-88), except on the
@@ -14,16 +15,25 @@ that the partition group's size does not divide cannot be sharded: JAX
 refuses the layout when it places the arrays, and the port raises a
 ``ValueError`` naming the tensor, the dim and the size.
 
-The tensor axis, which the JAX rules also place here, is not ported and
-raises above 1.  An expert bank whose port tensor holds this rank's
-experts only (``moe.ExpertsFFN`` under expert parallelism) is ``held``
-over the ``expert`` axis.
+The tensor axis (the Megatron layout): at ``tensor`` > 1 the ``mlp``,
+``heads`` and ``kv_heads`` dims go to ``tensor`` (q/k/v, gate and up are
+column-parallel; o and down row-parallel, over their contraction dim), and
+a vocab-facing leaf's ``vocab`` dim takes ``tensor`` first, then the
+stage-3 axes.  ``expert_mlp`` over ``tensor`` raises (MoE at ``tensor`` >
+1 is item 6.2's second part).
+
+A parameter whose port tensor is one rank's slice is ``held`` over the
+axes it is sliced on: an expert bank that holds this rank's experts only
+(``moe.ExpertsFFN`` under expert parallelism) over ``expert``, a
+tensor-parallel layer's weight (``module_inject/layers.py``, the leaf's
+``tp_dim``) over ``tensor``.  ZeRO then partitions the held slice over
+the data axes (``Partition.within_held``).
 """
 
 from typing import Dict, Sequence
 
-from ..axes import EMBED, EXPERT_EMBED, EXPERTS, VOCAB
-from ..comm.mesh import EXPERT_AXIS, ROADMAP_MULTI_DEVICE, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
+from ..axes import EMBED, EXPERT_EMBED, EXPERT_MLP, EXPERTS, HEADS, KV_HEADS, MLP, VOCAB
+from ..comm.mesh import EXPERT_AXIS, ROADMAP_TENSOR_PARALLEL, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
 from ..models.convert import JaxLeaf
 from ..runtime.zero.partition import Partition, _sizes
 
@@ -32,17 +42,19 @@ def param_shardings(leaves: Dict[str, JaxLeaf], mesh: Mesh, zero_stage: int,
                     fsdp_axes: Sequence[str] = ZERO_AXES) -> Dict[str, Partition]:
     """The partition of each parameter (JAX ``param_shardings`` :100) from
     its JAX leaf; ``fsdp_axes`` restricts the stage-3 group (MiCS, hpZ)."""
-    if mesh.shape.get(TENSOR_AXIS, 1) > 1:
-        raise NotImplementedError(f"tensor parallelism ({TENSOR_AXIS}={mesh.shape[TENSOR_AXIS]}) is not ported "
-                                  f"({ROADMAP_MULTI_DEVICE})")
     axes = tuple(a for a in fsdp_axes if mesh.shape.get(a, 1) > 1)
     fsdp = axes if zero_stage >= 3 and axes else ()
     expert = (EXPERT_AXIS, ) if mesh.shape.get(EXPERT_AXIS, 1) > 1 else ()
-    rules = {EXPERTS: expert, EXPERT_EMBED: tuple(a for a in fsdp if a != EXPERT_AXIS)}
+    tensor = (TENSOR_AXIS, ) if mesh.shape.get(TENSOR_AXIS, 1) > 1 else ()
+    rules = {EXPERTS: expert, EXPERT_EMBED: tuple(a for a in fsdp if a != EXPERT_AXIS), MLP: tensor, HEADS: tensor,
+             KV_HEADS: tensor}
     out = {}
     for name, leaf in leaves.items():
-        # a vocab-facing leaf shards its vocab dim and keeps embed whole
-        mapping = {**rules, VOCAB: fsdp} if VOCAB in leaf.logical else {**rules, EMBED: fsdp}
+        if tensor and EXPERT_MLP in leaf.logical:
+            raise NotImplementedError(f"{name!r}: an expert bank over the tensor axis ({ROADMAP_TENSOR_PARALLEL})")
+        # a vocab-facing leaf shards its vocab dim (tensor, then the stage-3
+        # axes) and keeps embed whole
+        mapping = {**rules, VOCAB: tensor + fsdp} if VOCAB in leaf.logical else {**rules, EMBED: fsdp}
         spec = tuple(mapping.get(ax, ()) for ax in leaf.logical) if leaf.logical else ((), ) * len(leaf.shape)
         for d, entry in enumerate(spec):
             if entry and leaf.shape[d] % axis_size(mesh, *entry):
@@ -51,6 +63,8 @@ def param_shardings(leaves: Dict[str, JaxLeaf], mesh: Mesh, zero_stage: int,
                                  f"divide it")
         used = tuple(a for entry in spec for a in entry)
         held = expert if expert and leaf.port_shape[0] != leaf.shape[0] and EXPERTS in leaf.logical else ()
+        if tensor and leaf.tp_dim is not None:
+            held = held + tensor
         out[name] = Partition(name, leaf.port_shape, leaf.shape, leaf.transposed, spec, axis_size(mesh, *used),
                               _sizes(mesh), held)
     return out

@@ -3,20 +3,20 @@
 
 Under tensor parallelism each rank holds every token, so before the
 experts a rank keeps its 1/tp slice of the tokens (``drop_tokens``) and
-after the combine the slices are gathered back (``gather_tokens``).  The
-port has no tensor parallelism: at size 1 both are the identity, and a
-larger size raises.
+after the combine the slices are gathered back (``gather_tokens``).  At size 1
+both are the identity; MoE over tensor-parallel ranks is the second part
+of ROADMAP item 6.2, and a larger size raises.
 """
 
 import torch
 
-from ..comm.mesh import ROADMAP_MULTI_DEVICE
+from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
 
 
 def _check(tensor_parallel_size: int) -> None:
     if tensor_parallel_size != 1:
-        raise NotImplementedError(f"MoE token mappings over {tensor_parallel_size} tensor-parallel ranks: tensor "
-                                  f"parallelism is not ported ({ROADMAP_MULTI_DEVICE})")
+        raise NotImplementedError(f"MoE token mappings over {tensor_parallel_size} tensor-parallel ranks are not "
+                                  f"ported ({ROADMAP_TENSOR_PARALLEL})")
 
 
 def drop_tokens(x: torch.Tensor, dim: int = 1, tensor_parallel_size: int = 1) -> torch.Tensor:

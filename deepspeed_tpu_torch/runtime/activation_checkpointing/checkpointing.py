@@ -28,7 +28,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ...comm import comm
-from ...comm.mesh import ROADMAP_MULTI_DEVICE
+from ...comm.mesh import ROADMAP_TENSOR_PARALLEL
 from ...utils.logging import logger
 
 _CONFIG = None
@@ -124,8 +124,8 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None, cont
                                             number_checkpoints=num_checkpoints,
                                             synchronize_checkpoint_boundary=bool(synchronize), profile=bool(profile))
     if cfg.partition_activations and comm.get_world_size() > 1:
-        raise NotImplementedError(f"partition_activations over {comm.get_world_size()} ranks: activation shards "
-                                  f"need tensor parallelism ({ROADMAP_MULTI_DEVICE})")
+        raise NotImplementedError(f"partition_activations over {comm.get_world_size()} ranks is not ported "
+                                  f"({ROADMAP_TENSOR_PARALLEL})")
     _CONFIG, _MPU = cfg, mpu_
     if cfg.contiguous_memory_optimization:
         logger.debug("contiguous_memory_optimization is a no-op here (the caching allocator owns the memory)")
@@ -168,5 +168,6 @@ def partition_activations_in_checkpoint(partition_activation: bool) -> None:
         configure(partition_activations=partition_activation)
     else:
         if partition_activation and comm.get_world_size() > 1:
-            raise NotImplementedError(f"partition_activations needs tensor parallelism ({ROADMAP_MULTI_DEVICE})")
+            raise NotImplementedError(f"partition_activations over several ranks is not ported "
+                                      f"({ROADMAP_TENSOR_PARALLEL})")
         _CONFIG.partition_activations = partition_activation

@@ -20,7 +20,10 @@ the parameters in host memory), ``gradient_clipping``,
 the JAX config keeps it, for ``ops.sparse_attention.make_sparsity_config``),
 ``progressive_layer_drop``, ``checkpoint`` and ``nebula`` (the checkpoint
 engine and retention), ``moe`` (``expert_parallel_size``: the ``expert``
-axis of the mesh, ``mesh_spec``, built as JAX's engine builds it), the
+axis of the mesh, ``mesh_spec``, built as JAX's engine builds it),
+``tensor_parallel`` (``autotp_size``: the ``tensor`` axis; the batch
+triangle is then over the world over that degree, as JAX's
+``_resolve_dp_world_size``), the
 monitor blocks ``tensorboard``, ``wandb``,
 ``csv_monitor`` and ``comet``, ``activation_checkpointing`` (onto the
 model's ``remat_policy``, ``runtime/activation_checkpointing``),
@@ -40,7 +43,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from ..comm.mesh import ROADMAP_MULTI_DEVICE, MeshSpec, dp_world_size
+from ..comm.mesh import ROADMAP_MULTI_DEVICE, ROADMAP_TENSOR_PARALLEL, MeshSpec, process_world_size
 from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKPOINT, CHECKPOINT_TAG_VALIDATION_MODES,
                         COMET, COMMS_LOGGER, COMPRESSION_TRAINING, CSV_MONITOR, DATA_EFFICIENCY, EIGENVALUE, ELASTICITY,
                         FLOPS_PROFILER, FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING, HYBRID_ENGINE,
@@ -62,7 +65,6 @@ ROADMAP_AUXILIARIES = "ROADMAP Queue 1 item 8, auxiliaries (elasticity, the data
 #: top-level keys the port does not implement → the ROADMAP item that brings them
 UNPORTED_KEYS = {
     PIPELINE: ROADMAP_MULTI_DEVICE,
-    TENSOR_PARALLEL: ROADMAP_MULTI_DEVICE,
     SEQUENCE_PARALLEL_SIZE: ROADMAP_MULTI_DEVICE,
     COMPRESSION_TRAINING: ROADMAP_TRAINING_FEATURES,
     HYBRID_ENGINE: ROADMAP_HYBRID_ENGINE,
@@ -74,7 +76,7 @@ _IMPLEMENTED_KEYS = {TRAIN_BATCH_SIZE, TRAIN_MICRO_BATCH_SIZE_PER_GPU, GRADIENT_
                      SCHEDULER, FP16, BFLOAT16, BFLOAT16_OLD, ZERO_OPTIMIZATION, GRADIENT_CLIPPING,
                      GRADIENT_PREDIVIDE_FACTOR, STEPS_PER_PRINT, WALL_CLOCK_BREAKDOWN, SPARSE_ATTENTION,
                      PROGRESSIVE_LAYER_DROP, CHECKPOINT, NEBULA, TENSORBOARD, WANDB, CSV_MONITOR, COMET, MOE,
-                     ACTIVATION_CHECKPOINTING, FLOPS_PROFILER, COMMS_LOGGER}
+                     ACTIVATION_CHECKPOINTING, FLOPS_PROFILER, COMMS_LOGGER, TENSOR_PARALLEL}
 _DISABLED = ({}, None, False, 0, 1)   # values of an unported key that leave it off
 
 
@@ -256,6 +258,27 @@ class PLDConfig:
     enabled: bool = False
     theta: float = 0.5
     gamma: float = 0.001
+
+
+@dataclasses.dataclass
+class TensorParallelConfig:
+    """``tensor_parallel`` (JAX ``config.py:299-303``; ref: ``runtime/
+    tensor_parallel/config.py`` ``TPTrainingConfig``): ``autotp_size`` is
+    the ``tensor`` axis of the engine's mesh; ``tensor_parallel`` (the
+    reference's inference block) is recorded.  The injection policy and
+    the grain size, which the JAX engine reads nowhere, raise at a
+    non-default value."""
+    autotp_size: int = 1
+    tensor_parallel: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    injection_policy_tuple: Optional[Any] = None
+    tp_grain_size: int = 1
+
+    def __post_init__(self):
+        if not isinstance(self.autotp_size, int) or self.autotp_size < 1:
+            raise DeepSpeedConfigError(f"tensor_parallel.autotp_size must be >= 1, got {self.autotp_size!r}")
+        if self.injection_policy_tuple is not None or self.tp_grain_size != 1:
+            raise NotImplementedError("tensor_parallel.injection_policy_tuple and tp_grain_size are not ported "
+                                      f"({ROADMAP_TENSOR_PARALLEL})")
 
 
 @dataclasses.dataclass
@@ -461,7 +484,13 @@ class DeepSpeedConfig:
                                           "(see ROADMAP Queue 1)")
 
         self.zero_config = _zero_config(pd.get(ZERO_OPTIMIZATION))
-        self.dp_world_size = dp_world_size()
+        tp_block = pd.get(TENSOR_PARALLEL)
+        self.tensor_parallel_config = _block(TensorParallelConfig, TENSOR_PARALLEL,
+                                             tp_block if isinstance(tp_block, dict) else None)
+        tp = self.tensor_parallel_config.autotp_size
+        #: the data-parallel degree: the process group's ranks over the
+        #: tensor degree (JAX ``config.py:468-476``)
+        self.dp_world_size = max(1, process_world_size() // tp)
         self.fp16_config = _block(FP16Config, FP16, pd.get(FP16))
         self.bf16_config = _block(BF16Config, BFLOAT16, pd.get(BFLOAT16, pd.get(BFLOAT16_OLD)))
         self.optimizer_config = _block(OptimizerConfig, OPTIMIZER, pd[OPTIMIZER]) if OPTIMIZER in pd else None
@@ -476,13 +505,13 @@ class DeepSpeedConfig:
         self.moe = _block(MoEConfig, MOE, pd.get(MOE))
         #: the engine's mesh (JAX ``engine.py:128-136``): data over the ranks
         #: the expert axis leaves; a world it does not divide raises JAX's error
-        self.mesh_spec = MeshSpec(data=-1, expert=self.moe.expert_parallel_size)
-        self.mesh_spec.resolve(self.dp_world_size)
+        self.mesh_spec = MeshSpec(data=-1, expert=self.moe.expert_parallel_size, tensor=tp)
+        self.mesh_spec.resolve(process_world_size())
         self.activation_checkpointing_config = _block(ActivationCheckpointingConfig, ACTIVATION_CHECKPOINTING,
                                                       pd.get(ACTIVATION_CHECKPOINTING))
-        if self.activation_checkpointing_config.partition_activations and self.dp_world_size > 1:
-            raise NotImplementedError(f"activation_checkpointing.partition_activations over {self.dp_world_size} "
-                                      f"ranks: activation shards need tensor parallelism ({ROADMAP_MULTI_DEVICE})")
+        if self.activation_checkpointing_config.partition_activations and process_world_size() > 1:
+            raise NotImplementedError(f"activation_checkpointing.partition_activations over {process_world_size()} "
+                                      f"ranks is not ported ({ROADMAP_TENSOR_PARALLEL})")
         self.flops_profiler_config = _block(FlopsProfilerConfig, FLOPS_PROFILER, pd.get(FLOPS_PROFILER))
         self.comms_config = _block(CommsLoggerConfig, COMMS_LOGGER, pd.get(COMMS_LOGGER))
         self.monitor_config = MonitorConfig(tensorboard=_block(TensorBoardConfig, TENSORBOARD, pd.get(TENSORBOARD)),

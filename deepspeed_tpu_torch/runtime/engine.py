@@ -115,6 +115,27 @@ moments and the checkpoints hold whole banks, gathered over the expert
 group.  The qgZ/LoCo wire, MiCS/hpZ and the offload tiers with ``MoE``
 layers over several ranks raise naming ROADMAP item 6.1.
 
+Tensor parallelism (``tensor_parallel.autotp_size`` N > 1; JAX's mesh
+``data`` × ``tensor``, ``engine.py:128-136``): the model is the Llama
+family's (``LlamaForCausalLM``), cut to this rank's slices by the Megatron
+layout (``module_inject/layers.py``; a model built whole is cut here) and
+given its tensor group.  The rows of a batch split over the data axis only
+(``dp_rank``/``dp_world`` are the data coordinate and degree): the N ranks
+of a tensor group see the same rows.  The default loss is vocab-parallel
+(``causal_lm_loss`` with the model's ``tp``); the loss, the token count and
+the gradients are summed over the data-parallel group, the ranks of one
+tensor coordinate, by ``runtime/zero/partitioned.py`` at every stage (each
+tensor a rank holds is partitioned within that group); the global norm sums
+the squares of the tensor slices over the tensor group once and the
+replicated tensors' once, and ``found_inf`` is taken over every rank.  The
+initial broadcast sends the replicated tensors from rank 0 and each slice
+from the first rank of its data-parallel group.  ``module_state_dict``,
+the master, the moments and the checkpoints hold whole tensors, gathered
+over the tensor group as well, so a checkpoint loads at any tensor degree.
+MoE layers, the other families, a custom loss without ``rank_share``, the
+qgZ/LoCo wire, MiCS/hpZ and the offload tiers at ``tensor`` > 1 raise
+naming ROADMAP item 6.2.
+
 ``forward``, ``eval_batch`` and ``backward`` take the global micro-batch, as
 ``train_batch`` does, and return JAX's loss over all of it (its ``forward``
 and ``backward``, ``engine.py:1381``/``:1394``): each rank computes its own
@@ -149,8 +170,11 @@ from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
 from ..comm import comm
-from ..comm.mesh import EXPERT_AXIS, ROADMAP_EXPERT_PARALLEL, ROADMAP_MULTI_DEVICE, create_mesh, set_global_mesh
-from ..models.llama import causal_lm_loss
+from ..comm.mesh import (EXPERT_AXIS, ROADMAP_EXPERT_PARALLEL, ROADMAP_MULTI_DEVICE, ROADMAP_TENSOR_PARALLEL,
+                         TENSOR_AXIS, create_mesh, set_global_mesh)
+from ..models.llama import LlamaForCausalLM, causal_lm_loss
+from ..module_inject.layers import (NO_TENSOR_PARALLEL, TensorParallel, cut_tensor_parallel_, gather_dim,
+                                    set_tensor_parallel_, slice_state, tensor_parallel_of, tp_dims)
 from ..moe.layer import MoE
 from ..utils import groups
 from ..resilience import fault_injection
@@ -199,7 +223,7 @@ def _leaf_map(module: nn.Module) -> Optional[Dict[str, dict]]:
     except NotImplementedError:
         return None
     return {n: {"path": lf.path, "shape": list(lf.shape),
-                "port_shape": list(lf.shape if EXPERTS in lf.logical else lf.port_shape),
+                "port_shape": list(lf.shape if EXPERTS in lf.logical else lf.whole_port_shape),
                 "transposed": lf.transposed} for n, lf in leaves.items()}
 
 
@@ -228,41 +252,53 @@ _default_loss_fn.rank_share = lambda outputs, batch, denom, world: causal_lm_los
     outputs, batch["labels"], batch.get("loss_mask"), denom)
 
 
+def _vocab_parallel_loss_fn(tp: TensorParallel):
+    """The default loss over vocab-parallel logits (this rank's ``[B, S, V/N]``)."""
+
+    def loss_fn(outputs, batch):
+        return causal_lm_loss(outputs, batch["labels"], batch.get("loss_mask"), tp=tp)
+
+    loss_fn.rank_share = lambda outputs, batch, denom, world: causal_lm_loss(
+        outputs, batch["labels"], batch.get("loss_mask"), denom, tp=tp)
+    return loss_fn
+
+
 class _GatherRows(torch.autograd.Function):
-    """All-gather along dim 0 over the data-parallel ranks, in rank order.
-    The backward hands back this rank's rows of the gradient unreduced:
-    every rank computes the same loss over the gathered rows, so each holds
-    the whole gradient of the gathered tensor, and its rows of it are its
-    share of the parameters' gradient (the float32 wire sums the shares)."""
+    """All-gather along dim 0 over the data-parallel ranks (``group``), in
+    rank order.  The backward hands back this rank's rows of the gradient
+    unreduced: every rank computes the same loss over the gathered rows, so
+    each holds the whole gradient of the gathered tensor, and its rows of it
+    are its share of the parameters' gradient (the float32 wire sums the
+    shares)."""
 
     @staticmethod
-    def forward(ctx, x):
-        world, rank = comm.get_world_size(), comm.get_rank()
+    def forward(ctx, x, group):
+        world, rank = comm.get_world_size(group), comm.get_rank(group)
         ctx.rows, ctx.rank = x.shape[0], rank
         out = x.new_empty((world * x.shape[0], ) + tuple(x.shape[1:]))
         with comm.unrecorded():
-            comm.all_gather_into_tensor(out, x.contiguous())
+            comm.all_gather_into_tensor(out, x.contiguous(), group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """The sum of a scalar over the data-parallel ranks.  The backward hands
-    the gradient back unreduced: each rank's share of the loss is taken over
-    its own rows, so its gradient is that rank's share of the parameters'
-    gradient (the float32 wire sums the shares)."""
+    """The sum of a scalar over the data-parallel ranks (``group``).  The
+    backward hands the gradient back unreduced: each rank's share of the
+    loss is taken over its own rows, so its gradient is that rank's share
+    of the parameters' gradient (the float32 wire sums the shares)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         with comm.unrecorded():
-            return comm.all_reduce(x.detach().clone().reshape(1), comm.ReduceOp.SUM).reshape(())
+            return comm.all_reduce(x.detach().clone().reshape(1), comm.ReduceOp.SUM, group=group).reshape(())
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 class StepMetrics(NamedTuple):
@@ -286,18 +322,44 @@ class DeepSpeedEngine:
         self.zero_stage = config.zero_optimization_stage
         self.compute_dtype = config.precision_dtype
         self.gas = config.gradient_accumulation_steps
-        self.dp_rank, self.dp_world = comm.get_rank(), comm.get_world_size()
+        # ---- the mesh (JAX engine.py:128-136), its expert and tensor groups
+        world = comm.get_world_size()
+        self.mesh = create_mesh(config.mesh_spec, world)
+        set_global_mesh(self.mesh)
+        self.ep = self.mesh.shape[EXPERT_AXIS]
+        self.tp_size = self.mesh.shape[TENSOR_AXIS]
+        #: the data coordinate and degree (the batch axes): the ranks of one
+        #: tensor group share them
+        self.dp_rank, self.dp_world = comm.get_rank() // self.tp_size, world // self.tp_size
         if self.dp_world != config.dp_world_size:
             raise ValueError(f"the config was resolved for {config.dp_world_size} data-parallel ranks, the process "
                              f"group has {self.dp_world}: create the process group first")
-        # ---- the mesh (JAX engine.py:128-136) and its expert groups
-        self.mesh = create_mesh(config.mesh_spec, self.dp_world)
-        set_global_mesh(self.mesh)
-        self.ep = self.mesh.shape[EXPERT_AXIS]
         self.moe_layers = [m for m in model.modules() if isinstance(m, MoE)]
+        if self.tp_size > 1:
+            self._check_tensor_parallel_features(model, loss_fn)
         self._check_moe_features()
         if self.ep > 1:
             groups.create_expert_groups()
+        #: this rank's place on the tensor axis, and the data-parallel group
+        #: its collectives run in (None: every rank, at tensor 1)
+        self.tp, self.dp_group = NO_TENSOR_PARALLEL, None
+        if self.tp_size > 1:
+            groups.create_tensor_groups()
+            self.tp = TensorParallel(self.tp_size, groups.get_tensor_model_parallel_rank(),
+                                     groups.get_tensor_model_parallel_group())
+            self.dp_group = groups.get_data_parallel_group()
+            built = tensor_parallel_of(model)
+            if built.size == 1:
+                cut_tensor_parallel_(model, self.tp)
+            elif built.rank != self.tp.rank:
+                raise ValueError(f"the model holds the slices of tensor rank {built.rank}; this rank's tensor "
+                                 f"coordinate is {self.tp.rank}")
+            else:
+                set_tensor_parallel_(model, self.tp)
+            if self.loss_fn is _default_loss_fn:
+                self.loss_fn = _vocab_parallel_loss_fn(self.tp)
+        #: parameter name → the dim of the port tensor cut over the tensor axis
+        self._tp_cut: Dict[str, int] = tp_dims(model) if self.tp_size > 1 else {}
 
         # ---- the comms logger and activation checkpointing (config blocks)
         comm.configure(deepspeed_config=config)
@@ -309,7 +371,7 @@ class DeepSpeedEngine:
             params = {k: torch.as_tensor(v) for k, v in params.items()}
             self.module.load_state_dict(self._local_experts(params), strict=True)
         self._setup_expert_parallel()
-        if self.dp_world > 1:
+        if world > 1:
             self._broadcast_state()
         self.use_master = self.compute_dtype != torch.float32
         #: the module's state-dict names, in order (stage 3 moves the
@@ -333,7 +395,7 @@ class DeepSpeedEngine:
         #: the partitioned state of stages 1-3 over several ranks (or of
         #: offload_param at any stage), or None
         self.zero: Optional[PartitionedState] = None
-        if self.dp_world > 1 and (self.zero_stage >= 1 or self.ep > 1) or self.param_host:
+        if self.dp_world > 1 and (self.zero_stage >= 1 or self.ep > 1) or self.param_host or self.tp_size > 1:
             zero = PartitionedState(self.module, self.param_names, self.zero_stage, config.zero_config,
                                     param_host=self.param_host)
             self.zero = zero if zero.active else None
@@ -423,7 +485,7 @@ class DeepSpeedEngine:
         n_params = sum(p.numel() for p in self.params) if self.zero is None else \
             sum(math.prod(pp.shape) for pp in self.zero.param_parts)
         log_dist(f"DeepSpeedEngine: device={self.device} zero_stage={self.zero_stage} dtype={self.compute_dtype} "
-                 f"gas={self.gas} params={n_params / 1e6:.1f}M dp_world={self.dp_world} "
+                 f"gas={self.gas} params={n_params / 1e6:.1f}M dp_world={self.dp_world} tensor={self.tp_size} "
                  f"partitioned={self.zero is not None} "
                  f"wire={'qgZ' if self.qgz else 'fp32'}{'+LoCo' if self.loco_error is not None else ''}",
                  ranks=[0])
@@ -436,6 +498,15 @@ class DeepSpeedEngine:
         step), MiCS/hpZ and the offload tiers, with MoE layers at world > 1."""
         if not self.moe_layers or self.dp_world == 1:
             return
+        on = self._zero_wire_and_offload_features()
+        if on:
+            raise NotImplementedError(f"{', '.join(on)} with MoE layers over {self.dp_world} ranks is not ported "
+                                      f"({ROADMAP_EXPERT_PARALLEL})")
+
+    def _zero_wire_and_offload_features(self) -> List[str]:
+        """The ``zero_optimization`` features set in the config that MoE over
+        ranks and tensor parallelism do not take: the qgZ/LoCo wire,
+        MiCS/hpZ, the offload blocks."""
         zc = self._config.zero_config
         off = [b for b in ("offload_optimizer", "offload_param")
                if getattr(zc, b) is not None and getattr(zc, b).device in ("cpu", "nvme")]
@@ -444,16 +515,31 @@ class DeepSpeedEngine:
                  "mics_shard_size": (zc.mics_shard_size or -1) > 0,
                  "zero_hpz_partition_size": (zc.zero_hpz_partition_size or 1) > 1,
                  **{b: True for b in off}}
-        on = [k for k, v in named.items() if v]
-        if on:
-            raise NotImplementedError(f"{', '.join(on)} with MoE layers over {self.dp_world} ranks is not ported "
-                                      f"({ROADMAP_EXPERT_PARALLEL})")
+        return [k for k, v in named.items() if v]
+
+    def _check_tensor_parallel_features(self, model: nn.Module, loss_fn) -> None:
+        """What of tensor parallelism is not ported raises naming ROADMAP
+        item 6.2: a model other than the Llama family's
+        ``LlamaForCausalLM`` (MoE layers, the other families), q/k/v biases
+        (their JAX leaves are whole), a custom loss without ``rank_share``,
+        the qgZ/LoCo wire, MiCS/hpZ and the offload tiers."""
+        what = []
+        if type(model) is not LlamaForCausalLM or self.moe_layers:
+            what.append(f"{type(model).__name__} (the Llama family's LlamaForCausalLM is ported)")
+        elif model.cfg.attention_bias:
+            what.append("attention_bias (q/k/v biases)")
+        if loss_fn is not None and not hasattr(loss_fn, "rank_share"):
+            what.append("a custom loss_fn without rank_share (it would see vocab-parallel logits)")
+        what += self._zero_wire_and_offload_features()
+        if what:
+            raise NotImplementedError(f"{', '.join(what)} at tensor_parallel.autotp_size {self.tp_size} is not "
+                                      f"ported ({ROADMAP_TENSOR_PARALLEL})")
 
     def _setup_expert_parallel(self) -> None:
         """Cut whole expert banks to this rank's experts, and give every MoE
         layer its expert group and the ranks its counts sum over."""
         if self.ep > 1:
-            e = self.mesh.coords(self.dp_rank)[EXPERT_AXIS]
+            e = self.mesh.coords(comm.get_rank())[EXPERT_AXIS]
             for m in self.moe_layers:
                 if m.experts.ep_size == 1:
                     m.experts.shard_(self.ep, e)
@@ -470,15 +556,20 @@ class DeepSpeedEngine:
     def _broadcast_state(self) -> None:
         """Replicated state: every rank starts from rank 0's (ref:
         _broadcast_model); an expert bank from the first rank of its
-        expert-data-parallel group (its expert coordinate), in that group."""
+        expert-data-parallel group (its expert coordinate), in that group;
+        a tensor slice from the first rank of its data-parallel group (its
+        tensor coordinate), in that group."""
         banks = self._banks
         ed_group = groups.get_expert_data_parallel_group() if banks else None
         ed_world = comm.get_world_size(ed_group) if banks else 1
         for name, t in self.module.state_dict().items():
-            if name not in banks:
+            if name in self._tp_cut:
+                if self.dp_world > 1:
+                    comm.broadcast(t, self.tp.rank, group=self.dp_group)
+            elif name not in banks:
                 comm.broadcast(t, 0)
             elif ed_world > 1:
-                comm.broadcast(t, self.mesh.coords(self.dp_rank)[EXPERT_AXIS], group=ed_group)
+                comm.broadcast(t, self.mesh.coords(comm.get_rank())[EXPERT_AXIS], group=ed_group)
 
     @property
     def _banks(self) -> Dict[str, MoE]:
@@ -488,16 +579,19 @@ class DeepSpeedEngine:
                 if isinstance(m, MoE) and m.experts.ep_size > 1 for w in m.experts.WEIGHTS}
 
     def _local_experts(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Whole tensors by name with each expert bank cut to this rank's experts."""
+        """Whole tensors by name with each expert bank cut to this rank's
+        experts and each tensor slice to this rank's slice."""
         out = dict(tensors)
         for name, m in self._banks.items():
             if name in out:
                 out[name] = out[name].narrow(0, m.experts.first_expert, m.experts.local_experts)
-        return out
+        return slice_state(out, self._tp_cut, self.tp)
 
     def _whole_experts(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Tensors by name with each expert bank gathered whole over its
-        expert group (a collective on every rank)."""
+        expert group and each tensor slice over its tensor group (a
+        collective on every rank)."""
+        tensors = self._whole_tensor_slices(tensors)
         banks = self._banks
         names = [n for n in tensors if n in banks]
         if not names:
@@ -511,6 +605,17 @@ class DeepSpeedEngine:
                 comm.all_gather_into_tensor(whole.view(-1).view(torch.uint8), local.view(-1).view(torch.uint8),
                                             group=group)
             out[n] = whole
+        return out
+
+    def _whole_tensor_slices(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Tensors by name with each tensor slice gathered whole over the
+        tensor group, in rank order along its cut dim (bits moved as bytes)."""
+        names = [n for n in tensors if n in self._tp_cut]
+        if not names:
+            return tensors
+        out = dict(tensors)
+        for n in names:
+            out[n] = gather_dim(tensors[n].detach(), self.tp, self._tp_cut[n])
         return out
 
     def _configure_activation_checkpointing(self, model: nn.Module) -> None:
@@ -739,7 +844,7 @@ class DeepSpeedEngine:
             if not isinstance(outputs, torch.Tensor):
                 raise NotImplementedError("a custom loss_fn over several data-parallel ranks gathers the model's "
                                           f"output, which must be one tensor ({ROADMAP_MULTI_DEVICE})")
-            return self.loss_fn(_GatherRows.apply(outputs), global_mb)
+            return self.loss_fn(_GatherRows.apply(outputs, self.dp_group), global_mb)
         return self.loss_fn(outputs, mb)
 
     def _step_pld_scale(self) -> None:
@@ -763,7 +868,7 @@ class DeepSpeedEngine:
         if mask is None:   # every rank holds as many tokens: no collective
             return torch.tensor(float(mb["labels"].numel() * self.dp_world), device=self.device)
         with comm.unrecorded():
-            count = comm.all_reduce(mask.float().sum().reshape(1), comm.ReduceOp.SUM)
+            count = comm.all_reduce(mask.float().sum().reshape(1), comm.ReduceOp.SUM, group=self.dp_group)
         return count.reshape(()).clamp_min(1.0)
 
     def _backward_micro(self, mb, global_mb=None) -> torch.Tensor:
@@ -853,10 +958,11 @@ class DeepSpeedEngine:
         op = comm.ReduceOp.AVG if self.qgz else comm.ReduceOp.SUM
         with comm.unrecorded():
             if reduce_loss:
-                loss = comm.all_reduce(loss.reshape(1), op).reshape(())
+                loss = comm.all_reduce(loss.reshape(1), op, group=self.dp_group).reshape(())
             if self.zero is not None and self.zero.grads_pending:   # reduced already
                 return grads, loss
-            if self.zero is not None and any(self.zero.held):   # a bank's in its expert-data group
+            if self.zero is not None and (any(self.zero.held) or self.tp_size > 1):
+                # a bank's in its expert-data group, a tensor's in its data-parallel group
                 return self.zero.reduce_whole(grads), loss
             if not self.qgz:
                 return [comm.all_reduce(g, op) for g in grads], loss
@@ -1118,7 +1224,7 @@ class DeepSpeedEngine:
         gathered = not hasattr(self.loss_fn, "rank_share")
         loss = self._microbatch_loss(self._rank_micro_batch(batch, 0, gas=1), training=training,
                                      global_mb=batch if gathered else None)
-        return loss if gathered else _SumOverRanks.apply(loss)
+        return loss if gathered else _SumOverRanks.apply(loss, self.dp_group)
 
     def forward(self, batch) -> torch.Tensor:
         """The loss of one global micro-batch (JAX ``engine.py:1381``), with

@@ -24,11 +24,15 @@ and ``[H·D, E]`` here), and the first divisible dim of ``o_proj``'s
 unrolled tree (``scan_layers=False``): one leaf per port tensor.
 
 An expert bank under expert parallelism is itself one rank's slice over
-the ``expert`` axis (``held``): ``Partition.within_held`` is the partition
-of that port tensor over the remaining axes, on the ranks that hold the
-same experts (``group="expert_data"``, ranked by their ``d``).  That is
-the partition ``runtime/zero/partitioned.py`` moves between the ranks; its
-slices are views of the port tensor (``jax_view`` then ``local``).
+the ``expert`` axis (``held``), and so is a tensor-parallel layer's weight
+over the ``tensor`` axis: ``Partition.within_held`` is the partition of
+that port tensor over the remaining axes, on the ranks that hold the same
+slice (``group="expert_data"``, ranked by their ``d``, for a bank; at
+``tensor`` > 1 every tensor's, held or replicated on the tensor axis, is
+over the data-parallel group of its ``t``, ``group="data"``, ranked by
+their ``d``).  That is the partition ``runtime/zero/partitioned.py`` moves
+between the ranks; its slices are views of the port tensor (``jax_view``
+then ``local``).
 """
 
 import dataclasses
@@ -37,7 +41,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ...comm.mesh import MESH_AXES, ZERO_AXES, Mesh, axis_size
+from ...comm.mesh import EXPERT_AXIS, MESH_AXES, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
 
 #: a partition spec: per dim of the JAX leaf, the mesh axes it is sharded
 #: over (a tuple, empty where the dim is whole)
@@ -57,7 +61,8 @@ class Partition:
     ``spec`` the leaf's partition spec, ``world`` the number of distinct
     slices; ``mesh`` the axis sizes; ``held`` the axes over which the port tensor is already one rank's
     slice; ``group`` the ranks ``local``'s rank counts in (None: all of
-    them; ``"expert_data"``: those holding the same experts)."""
+    them; ``"expert_data"``: those holding the same experts; ``"data"``:
+    the data-parallel group, those of one tensor coordinate)."""
     name: str
     shape: Tuple[int, ...]
     jax_shape: Tuple[int, ...]
@@ -128,17 +133,20 @@ class Partition:
 
     def within_held(self) -> "Partition":
         """The partition of the port tensor over the axes it does not hold
-        (itself when it holds none): its JAX shape is this rank's slice
-        over ``held``, its ranks those that share the held coordinates."""
-        if not self.held:
-            return self
+        (itself when it holds none and the tensor axis is 1): its JAX shape
+        is this rank's slice over ``held``, its ranks those that share the
+        held coordinates and the tensor coordinate."""
         sizes = dict(self.mesh)
+        drop = set(self.held) | ({TENSOR_AXIS} if sizes.get(TENSOR_AXIS, 1) > 1 else set())
+        if not drop:
+            return self
         jax_shape = tuple(n // math.prod(sizes[a] for a in axes if a in self.held)
                           for n, axes in zip(self.jax_shape, self.spec))
-        spec = tuple(tuple(a for a in axes if a not in self.held) for axes in self.spec)
-        mesh = tuple((a, 1 if a in self.held else n) for a, n in self.mesh)
+        spec = tuple(tuple(a for a in axes if a not in drop) for axes in self.spec)
+        mesh = tuple((a, 1 if a in drop else n) for a, n in self.mesh)
         world = math.prod(dict(mesh)[a] for axes in spec for a in axes)
-        return Partition(self.name, self.shape, jax_shape, self.transposed, spec, world, mesh, (), "expert_data")
+        group = "expert_data" if EXPERT_AXIS in self.held else "data"
+        return Partition(self.name, self.shape, jax_shape, self.transposed, spec, world, mesh, (), group)
 
 
 def _active(mesh: Mesh, zero_axes: Sequence[str]) -> Tuple[str, ...]:

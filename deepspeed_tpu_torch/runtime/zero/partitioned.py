@@ -48,6 +48,15 @@ dense tensors' over the world.  The norms count each expert slice once:
 the ranks that share a slice add it on the first of them only.  The state
 is active at stage 0 too, to reduce the banks' gradients in their group.
 
+Tensor parallelism (``tensor`` N > 1): each rank holds its tensor slices
+(``held`` over ``tensor``) and the replicated tensors; both are
+partitioned over the data-parallel group of the rank's tensor coordinate
+(``Partition.within_held``, ``group="data"``), the state is active at
+every stage, and the gradients are reduced and the slices gathered inside
+that group.  The norms add each distinct slice once over every rank: a
+tensor slice by the ranks that hold a distinct part of it, a replicated
+tensor by the ranks of tensor coordinate 0 only.
+
 Every collective of a step is one flat buffer per group of the tensors
 concerned (``all_gather_parts``, ``reduce_scatter_parts``); bf16 and fp16
 slices are gathered as their bit patterns, bit for bit.  The collectives are not
@@ -61,7 +70,7 @@ import torch
 from torch import nn
 
 from ...comm import comm
-from ...comm.mesh import EXPERT_AXIS, get_global_mesh
+from ...comm.mesh import EXPERT_AXIS, TENSOR_AXIS, get_global_mesh
 from ...models.convert import jax_leaves
 from ...module_inject.tp_rules import param_shardings
 from ...utils import groups
@@ -218,6 +227,11 @@ class PartitionedState:
         if mesh.shape.get(EXPERT_AXIS, 1) > 1:
             self._groups["expert_data"] = (groups.get_expert_data_parallel_group(),
                                            groups.get_expert_data_parallel_rank())
+        #: the tensor degree and this rank's coordinate on it
+        self.tp_size = mesh.shape.get(TENSOR_AXIS, 1)
+        self.tp_rank = mesh.coords(self.rank)[TENSOR_AXIS]
+        if self.tp_size > 1:
+            self._groups["data"] = (groups.get_data_parallel_group(), groups.get_data_parallel_rank())
         #: offload_param: the compute-dtype slices live in host memory and
         #: each unit copies its own in (``_Unit.gather``); counted per copy
         self.param_host = param_host
@@ -239,8 +253,10 @@ class PartitionedState:
         self.param_parts = [params[n].within_held() for n in self.names]
         self.state_parts = [state[n].within_held() for n in self.names]
         self.grad_parts = [grads[n].within_held() for n in self.names]
-        self.held = [bool(params[n].held) for n in self.names]
-        self.active = param_host or any(self.held) or \
+        #: per tensor: an expert bank of this rank's experts; a tensor slice
+        self.held = [EXPERT_AXIS in params[n].held for n in self.names]
+        self.tp_sliced = [TENSOR_AXIS in params[n].held for n in self.names]
+        self.active = param_host or any(self.held) or self.tp_size > 1 or \
             any(p.sharded for p in self.state_parts + self.grad_parts + self.param_parts)
         self.params: List[torch.Tensor] = []
         self.targets: List[torch.Tensor] = []
@@ -325,7 +341,15 @@ class PartitionedState:
         whether this rank adds its value to that sum.  A dense tensor's
         slices are summed (a whole one counts once, locally); an expert
         bank's are summed over the world, each slice added by the first of
-        the ranks that share it (its slices, ``sliced``, by every rank)."""
+        the ranks that share it (its slices, ``sliced``, by every rank).  At
+        ``tensor`` > 1 every tensor's is summed over the world: a slice of
+        the partition group is added by every rank holding it, a whole one
+        by the group's first rank, and a tensor replicated over the tensor
+        axis by the ranks of tensor coordinate 0 only."""
+        if self.tp_size > 1:
+            adds = [(cut or self._groups[p.group][1] == 0) and (tp or self.tp_rank == 0)
+                    for p, tp, cut in zip(parts, self.tp_sliced, sliced)]
+            return [True] * len(parts), adds
         summed, adds = [], []
         for p, held, cut in zip(parts, self.held, sliced):
             summed.append(held or cut)

@@ -23,7 +23,8 @@ Paths are the port's parameter names (``layers.0.self_attn.q_proj.weight``;
     before clipping, at the current parameters (JAX :139-195).
 
 An expert bank cut over the expert group (``moe.expert_parallel_size`` > 1)
-raises naming ROADMAP item 6.1.
+raises naming ROADMAP item 6.1; a tensor slice cut over the tensor group
+(``tensor_parallel.autotp_size`` > 1) naming item 6.2.
 """
 
 from typing import List
@@ -47,6 +48,10 @@ def _index(engine, path: str) -> int:
         from ..comm.mesh import ROADMAP_EXPERT_PARALLEL
         raise NotImplementedError(f"tensor_fragment of the expert bank {name!r} cut over {engine.ep} expert-parallel "
                                   f"ranks is not ported ({ROADMAP_EXPERT_PARALLEL})")
+    if name in engine._tp_cut:
+        from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
+        raise NotImplementedError(f"tensor_fragment of {name!r} cut over {engine.tp_size} tensor-parallel ranks is "
+                                  f"not ported ({ROADMAP_TENSOR_PARALLEL})")
     return i
 
 

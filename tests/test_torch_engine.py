@@ -161,9 +161,10 @@ def test_port_engine_counts_forwards_and_rejects_unported_options(weights):
                                                                  decode_steps_per_dispatch=4), device="cpu")
     eng.generate([[1, 2, 3]], max_new_tokens=5)     # 1 prefill step + 1 fused rung of 4 rounds
     assert eng.forward_calls == 5
-    # speculative decoding is ported (tests/test_torch_spec_decode.py);
-    # tensor-parallel serving is not
-    with pytest.raises(NotImplementedError):
+    # speculative decoding is ported (tests/test_torch_spec_decode.py), and
+    # tensor-parallel serving (tests/test_torch_tp_serving.py): on one rank
+    # tensor_parallel=2 finds too few ranks, as JAX finds too few devices
+    with pytest.raises(ValueError, match="tensor_parallel=2"):
         build_engine(TCFG, state, RaggedInferenceEngineConfig(tensor_parallel=2), device="cpu")
     # KV staging is ported (tests/test_torch_serving_kv_migration.py): it
     # stages a real page and refuses the reserved null page

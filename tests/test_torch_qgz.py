@@ -551,12 +551,14 @@ def test_qgz_step_takes_4_collectives(engine_runs):
 
 
 def test_mesh_spec_takes_the_data_axis_only():
-    """The data and expert axes resolve as JAX's (``expert`` takes its
-    size, ``data`` the rest); pipe, seq and tensor raise naming item 6."""
-    from deepspeed_tpu_torch.comm.mesh import MeshSpec, dp_world_size
+    """The data, expert and tensor axes resolve as JAX's (``expert`` and
+    ``tensor`` take their sizes, ``data`` the rest); pipe and seq raise
+    naming item 6."""
+    from deepspeed_tpu_torch.comm.mesh import MeshSpec, process_world_size
     assert MeshSpec().resolve(2) == (1, 2, 1, 1, 1) and MeshSpec(data=4).resolve(4)[1] == 4
-    assert dp_world_size() == 1
-    for spec in (MeshSpec(tensor=2), MeshSpec(pipe=2), MeshSpec(seq=2)):
+    assert process_world_size() == 1
+    assert MeshSpec(tensor=2).resolve(2) == (1, 1, 1, 1, 2) and MeshSpec(tensor=2).resolve(6)[1] == 3
+    for spec in (MeshSpec(pipe=2), MeshSpec(seq=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
             spec.resolve(2)
     assert MeshSpec(expert=2).resolve(2) == (1, 1, 2, 1, 1)
@@ -581,5 +583,5 @@ def test_nccl_takes_one_card_per_rank(monkeypatch):
     with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
         comm.init_distributed(dist_backend="nccl", rank=0, world_size=1, init_method="tcp://127.0.0.1:1")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        comm.init_distributed(dist_backend="gloo", rank=0, world_size=2, mesh_spec=MeshSpec(data=1, tensor=2))
+        comm.init_distributed(dist_backend="gloo", rank=0, world_size=2, mesh_spec=MeshSpec(data=1, pipe=2))
     assert not comm.is_initialized()

@@ -1,0 +1,542 @@
+"""Tensor-parallel training of the Llama family (``comm/mesh.py``'s tensor
+axis, ``utils/groups.py``, ``module_inject/{layers,tp_rules}.py``,
+``runtime/tensor_parallel``, the engine and ``runtime/zero`` at data ×
+tensor, the checkpoints), against the JAX engine on ``MeshSpec(data=3,
+tensor=2)`` over the virtual CPU devices of ``tests/conftest.py``.  A tiny
+float32 Llama whose vocab (96), heads (12), kv heads (6) and MLP width (96)
+divide by 2 and by 3.
+
+  * **Layouts**: at stages 0-3 every leaf's spec and every rank's slice
+    (parameter, master and moments, gradient) equal JAX's shardings at
+    data 3 × tensor 2 (W = 6: the data axis is not a power of two); the
+    partition of a rank's tensor slice within its data-parallel group
+    (``within_held``) cuts the same slices.  No spawn.
+  * **Trajectories** (one spawn of 6 gloo ranks, run while JAX computes;
+    ranks 0-2 then re-form a 3-rank group): stages 0-3 at data 3 × tensor
+    2, 3 AdamW steps with clipping, against the JAX engine at that mesh and
+    the port's one-rank engine; tensor 3 at W = 3 against tensor 1.
+    Losses within rtol 1e-5 and the same on every rank; parameters as
+    ``tests/test_torch_zero.py`` holds them (Adam moves an entry by about lr
+    whatever its gradient: within 2e-5 on all but 1e-3 of the entries, and
+    within 6·lr everywhere); the gradient norm before clipping within rtol
+    1e-5 of the one-rank engine's at every step.
+  * **Checkpoints**: saved at data 3 × tensor 2 (stage 2), loaded at tensor
+    1 (one rank) and tensor 3 (W = 3): the whole state is identical, and
+    its universal atoms have JAX's names and shapes.
+  * ``TpTrainingManager.plan`` equals JAX's on the same trees (the stacked
+    case of JAX ``test_tp_and_zero_ctx.py:39-56`` included);
+    ``tp_model_init`` returns ``(model, manager)``; what is not ported at
+    tensor > 1 raises naming ROADMAP item 6.2; the groups' ranks.
+
+JAX is imported only inside the tests, so the ranks start without it.
+"""
+
+import os
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import deepspeed_tpu_torch as tds
+from deepspeed_tpu_torch.comm.mesh import MESH_AXES, Mesh
+from deepspeed_tpu_torch.models import llama as tl
+from deepspeed_tpu_torch.models.convert import jax_leaves, jax_llama_to_state_dict
+from deepspeed_tpu_torch.module_inject.tp_rules import param_shardings
+from deepspeed_tpu_torch.runtime.zero import grad_shardings, master_and_optstate_shardings
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "unit"))
+
+from test_torch_qgz import run_ranks  # noqa: E402
+from torch_threads import one_intra_op_thread  # noqa: F401,E402 (autouse fixture)
+
+ROWS, SEQ, STEPS, LR, CLIP = 12, 16, 3, 1e-2, 0.5
+CFG = tl.LlamaConfig(vocab_size=96, hidden_size=48, intermediate_size=96, num_hidden_layers=2, num_attention_heads=12,
+                     num_key_value_heads=6, max_position_embeddings=64, rope_theta=1e4, dtype=torch.float32,
+                     attention_impl="reference", remat=True, remat_policy="flash_saveable")
+STAGES = (0, 1, 2, 3)
+#: what raises naming item 6.2 at tensor 2: the config's extra blocks
+RAISES = {"qgz": {"zero_optimization": {"stage": 0, "zero_quantized_gradients": True}},
+          "mics": {"zero_optimization": {"stage": 3, "mics_shard_size": 3}},
+          "offload": {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}}
+
+
+def _batch(seed: int, rows: int = ROWS):
+    ids = np.random.default_rng(seed).integers(0, CFG.vocab_size, (rows, SEQ)).astype(np.int64)
+    return {"input_ids": ids, "labels": ids}
+
+
+def _config(stage: int, tp: int, dtype: str = "f32", **extra):
+    c = {"train_batch_size": ROWS, "steps_per_print": 0, "gradient_clipping": CLIP,
+         "optimizer": {"type": "AdamW", "params": {"lr": LR, "weight_decay": 0.01}},
+         "zero_optimization": {"stage": stage}, **extra}
+    if tp > 1:
+        c["tensor_parallel"] = {"autotp_size": tp}
+    if dtype == "bf16":
+        c["bf16"] = {"enabled": True}
+    return c
+
+
+def _np(sd):
+    return {k: v.detach().float().numpy().copy() for k, v in sd.items()}
+
+
+def _assert_params_close(got, want):
+    far = total = 0
+    for k, w in want.items():
+        diff = np.abs(np.asarray(got[k], np.float32) - np.asarray(w, np.float32))
+        assert diff.max() <= 6 * LR, (k, diff.max())
+        far += int((diff > 2e-5).sum())
+        total += diff.size
+    assert far <= 1e-3 * total, (far, total)
+
+
+def _mesh(data: int, tensor: int) -> Mesh:
+    return Mesh({**dict.fromkeys(MESH_AXES, 1), "data": data, "tensor": tensor})
+
+
+# ------------------------------------------------------------------ the ranks
+
+def _train(state, stage, tp, ckpt_dir=None):
+    eng = tds.initialize(model=tl.LlamaForCausalLM(CFG, device="cpu"), params=state, device="cpu",
+                         config=_config(stage, tp))[0]
+    losses, norms = [], []
+    for s in range(STEPS):
+        losses.append(float(eng.train_batch(batch=_batch(s))))
+        norms.append(float(eng.last_metrics.grad_norm))
+    out = {"losses": losses, "norms": norms, "eval": float(eng.eval_batch(batch=_batch(STEPS))),
+           "params": _np(eng.module_state_dict()), "local": _np(eng.module.state_dict()) if stage < 3 else None,
+           "bytes": eng.state_bytes()}
+    if ckpt_dir is not None:
+        eng.save_checkpoint(ckpt_dir, tag="tp2")
+        from deepspeed_tpu_torch.checkpoint.engine import engine_state
+        st = engine_state(eng)
+        out["saved"] = {"params": _np(st["params"]),
+                        "exp_avg": {n: st["opt_state"]["state"][i]["exp_avg"].numpy().copy()
+                                    for i, n in enumerate(eng.param_names)}}
+    return out
+
+
+def _loaded(state, ckpt_dir, tp):
+    """A stage-0 engine at tensor ``tp`` loading the tensor-2 checkpoint: its whole state."""
+    eng = tds.initialize(model=tl.LlamaForCausalLM(CFG, device="cpu"), params=state, device="cpu",
+                         config=_config(0, tp))[0]
+    eng.load_checkpoint(ckpt_dir, tag="tp2")
+    opt = eng.full_optimizer_state_dict()["state"]
+    return {"params": _np(eng.module_state_dict()),
+            "exp_avg": {n: opt[i]["exp_avg"].numpy().copy() for i, n in enumerate(eng.param_names)},
+            "step": eng.global_steps}
+
+
+def _rank(rank, state, ckpt_dir, init3):
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.utils import groups
+    out = {6: {}, 3: {}}
+    for stage in STAGES:
+        out[6][stage] = _train(state, stage, 2, ckpt_dir if stage == 2 else None)
+    # the groups of the last engine's mesh (data 3 x tensor 2)
+    out[6]["groups"] = {"dp": groups.get_data_parallel_world_size(), "tp": groups.get_model_parallel_world_size(),
+                        "tp_rank": groups.get_tensor_model_parallel_rank(),
+                        "dp_rank": groups.get_data_parallel_rank(),
+                        "tp_ranks": comm.get_all_ranks_from_group(groups.get_tensor_model_parallel_group()),
+                        "dp_ranks": comm.get_all_ranks_from_group(groups.get_data_parallel_group())}
+    raised = {}
+    for name, extra in RAISES.items():
+        extra = dict(extra)
+        zero = extra.pop("zero_optimization")
+        try:
+            tds.initialize(model=tl.LlamaForCausalLM(CFG, device="cpu"), device="cpu",
+                           config={**_config(0, 2), "zero_optimization": zero})
+            raised[name] = None
+        except NotImplementedError as e:
+            raised[name] = str(e)
+    from deepspeed_tpu_torch.models import mixtral as tmix
+    try:
+        mcfg = tmix.PRESETS["tiny"]
+        tds.initialize(model=tmix.MixtralForCausalLM(mcfg, device="cpu"), device="cpu",
+                       loss_fn=tmix.make_mixtral_loss_fn(mcfg),
+                       config={**_config(0, 2), "moe": {"enabled": True}})
+        raised["moe"] = None
+    except NotImplementedError as e:
+        raised["moe"] = str(e)
+    out[6]["raised"] = raised
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    if rank >= 3:
+        return out
+    comm.init_distributed(dist_backend="gloo", init_method=init3, rank=rank, world_size=3, verbose=False)
+    out[3]["train"] = _train(state, 2, 3)
+    out[3]["loaded"] = _loaded(state, ckpt_dir, 3)
+    return out
+
+
+# ------------------------------------------------------------------ JAX side
+
+def _jax_cfg():
+    import jax.numpy as jnp
+    from deepspeed_tpu.models import llama as jl
+    return jl.LlamaConfig(vocab_size=96, hidden_size=48, intermediate_size=96, num_hidden_layers=2,
+                          num_attention_heads=12, num_key_value_heads=6, max_position_embeddings=64, rope_theta=1e4,
+                          dtype=jnp.float32, scan_layers=False, remat=False, attention_impl="reference")
+
+
+def _jax_engine(stage, dtype="f32", params=None, data=3, tensor=2):
+    import jax
+    import deepspeed_tpu as jds
+    from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
+    from deepspeed_tpu.models import llama as jl
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig as JaxConfig
+    mesh = create_mesh(MeshSpec(data=data, tensor=tensor), devices=jax.devices()[:data * tensor])
+    return jds.initialize(model=jl.LlamaForCausalLM(_jax_cfg()), config=JaxConfig(_config(stage, tensor, dtype),
+                                                                                    dp_world_size=data),
+                          mesh=mesh, params=params, dist_init_required=False)[0]
+
+
+def _seeded(seed: int = 11):
+    """JAX params, every leaf N(0, 0.05²) from a numpy seed (norm scales 1),
+    and the port's state dict of them."""
+    import jax
+    import jax.numpy as jnp
+    from deepspeed_tpu.models import llama as jl
+    shapes = jax.eval_shape(jl.LlamaForCausalLM(_jax_cfg()).init, jax.random.PRNGKey(0), jnp.zeros((1, SEQ), jnp.int32))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        if "norm" in jax.tree_util.keystr(path):
+            return np.ones(s.shape, np.float32)
+        return (0.05 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(leaf, shapes)["params"]
+    return params, {k: v.numpy() for k, v in jax_llama_to_state_dict({"params": params}, CFG).items()}
+
+
+def _jax_run(params, stage):
+    import jax
+    eng = _jax_engine(stage, params=params)
+    losses = [float(eng.train_batch(batch=_batch(s))) for s in range(STEPS)]
+    state = jax_llama_to_state_dict(jax.tree.map(np.asarray, eng.state.params), CFG)
+    return {"losses": losses, "eval": float(eng.eval_batch(batch=_batch(STEPS))), "params": _np(state)}
+
+
+def _one_rank(state, ckpt_dir=None):
+    """The port's one-rank engine (stage 0): losses, norms, parameters; and
+    with ``ckpt_dir`` the tensor-2 checkpoint loaded at tensor 1."""
+    out = _train(state, 0, 1)
+    if ckpt_dir is not None:
+        out["loaded"] = _loaded(state, ckpt_dir, 1)
+    return out
+
+
+@pytest.fixture(scope="module")
+def seeded():
+    return _seeded()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, seeded):
+    """The ranks' results, the JAX engines' runs and the one-rank port's run
+    (the spawn runs while JAX computes)."""
+    params, state = seeded
+    ckpt_dir = str(tmp_path_factory.mktemp("tp_ckpt"))
+    spawn_dir = tmp_path_factory.mktemp("tp_ranks")
+    ranks = {}
+
+    def spawn():
+        try:
+            ranks["out"] = run_ranks(str(spawn_dir), _rank, state, ckpt_dir, f"file://{spawn_dir}/rendezvous3",
+                                     world=6)
+        except BaseException as e:
+            ranks["error"] = e
+
+    thread = threading.Thread(target=spawn)
+    thread.start()
+    try:
+        jax_runs = {stage: _jax_run(params, stage) for stage in (0, 3)}
+        one = _one_rank(state)
+    finally:
+        thread.join()
+    if "error" in ranks:
+        raise ranks["error"]
+    one["loaded"] = _loaded(state, ckpt_dir, 1)
+    out = ranks["out"]
+    return {"w6": [r[6] for r in out], "w3": [r[3] for r in out[:3]], "jax": jax_runs, "one": one,
+            "ckpt": ckpt_dir}
+
+
+# ------------------------------------------------------------------ layouts
+
+def _jax_layouts(stage):
+    """JAX's shardings of every leaf at data 3 x tensor 2 (built
+    abstractly), by port name: parameter, master, moments, gradient."""
+    import jax
+    from deepspeed_tpu.utils.tensor_fragment import _locate_moments
+    eng = _jax_engine(stage, "bf16")
+    eng._materialize_state(batch=_batch(0), abstract=True)
+    leaves = jax_leaves(tl.LlamaForCausalLM(CFG, device="meta"))
+    names = {leaf.path: name for name, leaf in leaves.items()}
+
+    def specs(tree):
+        flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+        out = {}
+        for path, sh in flat:
+            keys = [str(getattr(k, "key", k)) for k in path if str(getattr(k, "key", k)) != "params"]
+            out[names["/".join(keys)]] = sh
+        return out
+
+    moments = {n: _locate_moments(eng.state_shardings.opt_state, n) for n in ("exp_avg", "exp_avg_sq")}
+    return ({"param": specs(eng.state_shardings.params), "state": specs(eng.state_shardings.master),
+             "grad": specs(eng._grad_shardings), **{n: specs(getattr(c, f)) for n, (c, f, _) in moments.items()}},
+            list(eng.mesh.devices.flat))
+
+
+def _spec(entries, ndim):
+    out = []
+    for e in tuple(entries) + (None, ) * (ndim - len(tuple(entries))):
+        out.append(() if e is None else (e, ) if isinstance(e, str) else tuple(e))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_layouts_equal_the_jax_shardings(stage):
+    """Every leaf's spec and every rank's slice of a seeded tensor equal
+    JAX's at data 3 x tensor 2, for the parameter, the master, both moments
+    and the gradient; a tensor slice's partition within its data-parallel
+    group (the one the engine moves) cuts the same slices from the rank's
+    tensor slice."""
+    jax_sh, devices = _jax_layouts(stage)
+    mesh = _mesh(3, 2)
+    leaves = jax_leaves(tl.LlamaForCausalLM(CFG, device="meta", tensor_parallel=2))
+    params = param_shardings(leaves, mesh, stage)
+    ours = {"param": params, "state": master_and_optstate_shardings(params, mesh, stage),
+            "grad": grad_shardings(params, mesh, stage)}
+    ours["exp_avg"] = ours["exp_avg_sq"] = ours["state"]
+    rng = np.random.default_rng(3)
+    held = 0
+    for kind, tree in jax_sh.items():
+        assert set(tree) == set(ours[kind])
+        for name, sh in tree.items():
+            part = ours[kind][name]
+            assert part.spec == _spec(sh.spec, len(part.jax_shape)), (kind, name, sh.spec, part.spec)
+            value = rng.standard_normal(part.jax_shape).astype(np.float32)
+            index = sh.devices_indices_map(part.jax_shape)
+            inner = part.within_held()
+            for r in range(6):
+                want = value[index[devices[r]]]
+                np.testing.assert_array_equal(part.local(torch.from_numpy(value), r).numpy(), want)
+                at = mesh.coords(r)
+                mine = torch.from_numpy(value)
+                for d, axes in enumerate(part.spec):
+                    if "tensor" in axes:
+                        n = part.jax_shape[d] // 2
+                        mine = mine.narrow(d, at["tensor"] * n, n)
+                np.testing.assert_array_equal(inner.local(mine, at["data"]).numpy(), want)
+            held += "tensor" in part.held
+    assert held > 0
+
+
+# ------------------------------------------------------------------ trajectories
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_trajectory_equals_jax_at_data_3_tensor_2(stage, runs):
+    """Losses (train and eval) within rtol 1e-5 of the JAX engine's at data
+    3 x tensor 2 and of the one-rank port's, the same on every rank; the
+    parameters as JAX's (stages 0 and 3) and the one-rank port's; the
+    global norm before clipping within rtol 1e-5 of the one-rank engine's."""
+    got, one = runs["w6"][0][stage], runs["one"]
+    want = runs["jax"].get(stage, runs["jax"][0])
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got["eval"], want["eval"], rtol=1e-5)
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got["norms"], one["norms"], rtol=1e-5)
+    assert all(r[stage]["losses"] == got["losses"] and r[stage]["norms"] == got["norms"] for r in runs["w6"])
+    _assert_params_close(got["params"], want["params"])
+    _assert_params_close(got["params"], one["params"])
+
+
+def test_tensor_3_trains_as_tensor_1(runs):
+    """Tensor 3 at W = 3 (stage 2): losses and norms within rtol 1e-5 of the
+    one-rank engine's, parameters as its, the same on every rank."""
+    got, one = runs["w3"][0]["train"], runs["one"]
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-5)
+    np.testing.assert_allclose(got["norms"], one["norms"], rtol=1e-5)
+    assert all(r["train"]["losses"] == got["losses"] for r in runs["w3"])
+    _assert_params_close(got["params"], one["params"])
+
+
+@pytest.mark.parametrize("stage", (0, 1, 2))
+def test_ranks_of_a_tensor_group_hold_their_slices(stage, runs):
+    """Whole parameters are bit-identical on every rank; each rank's module
+    holds its tensor coordinate's slices of them, the norms whole and
+    bit-identical over the tensor group (their gradients are equal there
+    without a reduce)."""
+    ranks = runs["w6"]
+    for r in ranks[1:]:
+        for k, v in ranks[0][stage]["params"].items():
+            np.testing.assert_array_equal(r[stage]["params"][k], v)
+    from deepspeed_tpu_torch.module_inject.layers import tp_dims
+    cut = tp_dims(tl.LlamaForCausalLM(CFG, device="meta", tensor_parallel=2))
+    for r, res in enumerate(ranks):
+        t = r % 2
+        for k, local in res[stage]["local"].items():
+            whole = res[stage]["params"][k]
+            dim = cut.get(k)
+            if dim is None:
+                np.testing.assert_array_equal(local, whole)
+            else:
+                n = whole.shape[dim] // 2
+                np.testing.assert_array_equal(local, np.take(whole, range(t * n, (t + 1) * n), axis=dim))
+
+
+def test_tensor_parallel_state_bytes(runs):
+    """A rank's state bytes at data 3 x tensor 2: its tensor slices and the
+    replicated tensors, the moments cut over the data-parallel group from
+    stage 1 and the parameters at stage 3 (float32: no master)."""
+    leaves = jax_leaves(tl.LlamaForCausalLM(CFG, device="meta", tensor_parallel=2))
+    mesh = _mesh(3, 2)
+    for stage in STAGES:
+        params = param_shardings(leaves, mesh, stage)
+        state = master_and_optstate_shardings(params, mesh, stage)
+        per = lambda parts: sum(p.within_held().local_numel * 4 for p in parts.values())
+        want = {"params": per(params), "master": 0, "moments": 2 * per(state)}
+        assert all(r[stage]["bytes"] == want for r in runs["w6"]), (stage, runs["w6"][0][stage]["bytes"], want)
+    assert runs["w6"][0][0]["bytes"]["params"] < 4 * sum(int(np.prod(lf.shape)) for lf in leaves.values())
+
+
+# ------------------------------------------------------------------ checkpoints
+
+def test_checkpoint_at_tensor_2_loads_at_tensor_1_and_3(runs, tmp_path):
+    """The stage-2 checkpoint of data 3 x tensor 2 holds whole tensors; a
+    one-rank engine and a tensor-3 engine load it to the same whole state;
+    its universal atoms carry JAX's names and shapes."""
+    saved = runs["w6"][0][2]["saved"]
+    for got in [runs["one"]["loaded"]] + [r["loaded"] for r in runs["w3"]]:
+        assert got["step"] == STEPS
+        for k, v in saved["params"].items():
+            np.testing.assert_array_equal(got["params"][k], v)
+        for k, v in saved["exp_avg"].items():
+            np.testing.assert_array_equal(got["exp_avg"][k], v)
+    from deepspeed_tpu_torch.checkpoint import convert_to_universal, load_universal_atoms
+    from deepspeed_tpu_torch.checkpoint.ds_to_universal import canonicalize_param_name
+    atoms = load_universal_atoms(convert_to_universal(runs["ckpt"], str(tmp_path / "uni"), tag="tp2"))
+    leaves = jax_leaves(tl.LlamaForCausalLM(CFG, device="meta"))
+    for lf in leaves.values():
+        atom = atoms[canonicalize_param_name(lf.path.replace("/", "."))]
+        assert tuple(np.shape(atom["fp32"])) == lf.shape, lf.path
+
+
+# ------------------------------------------------------------------ the surface
+
+def test_unported_raise_naming_item_6_2(runs):
+    for name, msg in runs["w6"][0]["raised"].items():
+        assert msg is not None and "item 6.2" in msg, (name, msg)
+
+
+def test_groups_at_data_3_tensor_2(runs):
+    """A tensor group is 2 consecutive ranks, a data-parallel group the 3
+    ranks of one tensor coordinate (JAX's ``MESH_AXES`` order)."""
+    for r, res in enumerate(runs["w6"]):
+        g = res["groups"]
+        assert (g["dp"], g["tp"], g["tp_rank"], g["dp_rank"]) == (3, 2, r % 2, r // 2)
+        assert g["tp_ranks"] == [r - r % 2, r - r % 2 + 1]
+        assert g["dp_ranks"] == [r % 2, r % 2 + 2, r % 2 + 4]
+
+
+def _stacked_trees(backend):
+    """The trees of JAX ``test_tp_and_zero_ctx.py``'s two plan tests, with
+    leaves of ``backend`` (JAX shape structs or torch meta tensors)."""
+    L, E, H, D = 2, 32, 8, 4
+    flat = {"attn": {"q_proj": {"kernel": (32, 64)}, "o_proj": {"kernel": (64, 32)}},
+            "mlp": {"up_proj": {"kernel": (32, 128)}, "down_proj": {"kernel": (128, 32)}},
+            "norm": {"weight": (32, )}}
+    stacked = {"model": {"layers": {"self_attn": {"q_proj": {"kernel": (L, E, H, D)},
+                                                  "o_proj": {"kernel": (L, H, D, E)}}}},
+               "word_embeddings": {"kernel": (256, E)}}
+
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, dict) else backend(v) for k, v in tree.items()}
+
+    return conv(flat), conv(stacked)
+
+
+def test_tp_manager_plan_equals_jax():
+    """``TpTrainingManager.plan`` at data 2 x tensor 4 equals JAX's on the
+    same trees, the stacked tree's layer axis left alone and ``wo`` kept off
+    ``word_embeddings``; its partitions cut tensor t's slice."""
+    import jax
+    import jax.numpy as jnp
+    from deepspeed_tpu.comm.mesh import MeshSpec, create_mesh
+    from deepspeed_tpu.runtime.tensor_parallel import TpTrainingManager as JaxManager
+    from deepspeed_tpu_torch.runtime.tensor_parallel import TpTrainingManager
+    jmesh = create_mesh(MeshSpec(data=2, tensor=4), devices=jax.devices()[:8])
+    jtrees = _stacked_trees(lambda s: jax.ShapeDtypeStruct(s, jnp.float32))
+    ptrees = _stacked_trees(lambda s: torch.empty(s, device="meta"))
+    for jt, pt in zip(jtrees, ptrees):
+        want = JaxManager(tp_size=4).plan(jt, jmesh)
+        got = TpTrainingManager(tp_size=4).plan(pt, _mesh(2, 4))
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k] == tuple(want[k]), (k, got[k], want[k])
+    parts = TpTrainingManager(tp_size=4).shardings(ptrees[0], _mesh(2, 4))
+    up = parts["mlp"]["up_proj"]["kernel"]
+    value = torch.arange(32 * 128.).reshape(32, 128)
+    assert torch.equal(up.local(value, 3), value[:, 96:])      # rank 3: data 0, tensor 3
+
+
+def test_tp_model_init_returns_model_and_manager():
+    from deepspeed_tpu_torch.runtime.tensor_parallel import TpTrainingManager, TPTrainingConfig
+    model = tl.LlamaForCausalLM(CFG, device="meta")
+    m, mgr = tds.tp_model_init(model=model, tp_size=2)
+    assert m is model and isinstance(mgr, TpTrainingManager) and mgr.tp_size == 2
+    _, mgr = tds.tp_model_init(model=model, tp_size=1, config={"autotp_size": 4})
+    assert mgr.tp_size == 4 and isinstance(mgr.config, TPTrainingConfig)
+    with pytest.raises(TypeError):
+        tds.tp_model_init(model=model, config=3)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_seeded_init_keeps_the_whole_model_s_slices(rank):
+    """A tensor-parallel model seeded by ``init_weights_`` holds exactly its
+    rank's slices of the one-rank model of the same seed (each tensor
+    drawn whole, the slice kept), and ``tp_slice_state``/``tp_gather_state``
+    cut and rebuild the whole state."""
+    from deepspeed_tpu_torch.models.convert import tp_gather_state, tp_slice_state
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel, set_tensor_parallel_
+    whole = tl.init_weights_(tl.LlamaForCausalLM(CFG, device="cpu"), torch.Generator().manual_seed(4)).state_dict()
+    model = set_tensor_parallel_(tl.LlamaForCausalLM(CFG, device="cpu", tensor_parallel=2), TensorParallel(2, rank))
+    mine = tl.init_weights_(model, torch.Generator().manual_seed(4)).state_dict()
+    want = tp_slice_state(whole, CFG, 2, rank)
+    assert set(mine) == set(want)
+    for k, v in want.items():
+        torch.testing.assert_close(mine[k], v, rtol=0, atol=0)
+    back = tp_gather_state([tp_slice_state(whole, CFG, 2, t) for t in range(2)], CFG)
+    for k, v in whole.items():
+        torch.testing.assert_close(back[k], v, rtol=0, atol=0)
+
+
+def test_rank_parameter_counts_of_the_chip_configs():
+    """The reckoning ``chip_smoke.py`` phase 27 holds its ranks to: over
+    tensor 2 a rank of Llama-3-8B holds 4,015,263,744 of 8,030,261,248
+    parameters (the norm weights whole) and of Llama-125M 67,062,528 of
+    134,105,856 (meta tensors: nothing allocated)."""
+    from deepspeed_tpu_torch.models.llama_cache import LlamaForCausalLMWithCache
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    big = tl.PRESETS["llama3-8b"]
+    assert count(LlamaForCausalLMWithCache(big, device="meta", tensor_parallel=2)) == 4_015_263_744
+    assert count(LlamaForCausalLMWithCache(big, device="meta")) == 8_030_261_248
+    small = tl.PRESETS["125m"]
+    assert count(tl.LlamaForCausalLM(small, device="meta", tensor_parallel=2)) == 67_062_528
+    assert count(tl.LlamaForCausalLM(small, device="meta")) == 134_105_856
+
+
+def test_config_takes_the_tensor_parallel_block():
+    """``tensor_parallel.autotp_size`` is the mesh's tensor axis and the
+    batch triangle is over the world over it; one rank cannot hold tensor 2
+    (JAX's error); the injection policy raises naming item 6.2."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    c = DeepSpeedConfig({"train_batch_size": 4, "tensor_parallel": {"autotp_size": 1, "tensor_parallel": {"x": 1}}})
+    assert c.mesh_spec.tensor == 1 and c.dp_world_size == 1 and c.tensor_parallel_config.tensor_parallel == {"x": 1}
+    with pytest.raises(ValueError, match="not divisible"):
+        DeepSpeedConfig({"train_batch_size": 4, "tensor_parallel": {"autotp_size": 2}})
+    with pytest.raises(NotImplementedError, match="item 6.2"):
+        DeepSpeedConfig({"train_batch_size": 4, "tensor_parallel": {"tp_grain_size": 64}})

@@ -311,7 +311,7 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
     # the JAX package's bucket knobs are read and recorded (tests/test_torch_zero.py has them all)
     assert DeepSpeedConfig({**base, "zero_optimization": {"stage": 2, "reduce_bucket_size": 10}}
                            ).zero_config.reduce_bucket_size == 10
-    unported = [{"pipeline": {"stages": 2}}, {"tensor_parallel": {"autotp_size": 2}}, {"sequence_parallel_size": 2},
+    unported = [{"pipeline": {"stages": 2}}, {"sequence_parallel_size": 2},
                 {"compression_training": {"weight_quantization": {}}},
                 {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}}, {"hybrid_engine": {"enabled": True}}]
     for extra in unported:
@@ -320,6 +320,10 @@ def test_config_reads_the_training_keys_and_rejects_unported_ones():
     # ported since: the expert axis (one rank: expert 2 does not divide it, JAX's error)
     with pytest.raises(ValueError, match="not divisible by pipe"):
         DeepSpeedConfig({**base, "moe": {"enabled": True, "expert_parallel_size": 2}})
+    # ported since: the tensor axis (one rank: tensor 2 does not divide it, JAX's error)
+    with pytest.raises(ValueError, match="not divisible by pipe"):
+        DeepSpeedConfig({**base, "tensor_parallel": {"autotp_size": 2}})
+    assert DeepSpeedConfig({**base, "tensor_parallel": {"autotp_size": 1}}).mesh_spec.tensor == 1
     # ported since: the offload blocks; load_universal, which JAX never reads, names the loader
     assert DeepSpeedConfig({**base, "zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}}
                            ).zero_config.offload_optimizer.device == "cpu"
