@@ -23,9 +23,11 @@ source, all started together.  Phases:
      dims 80 and 96 at Llama-3-8B's decode and prefill shapes, Falcon-7B's 71
      heads on one kv head at decode and a 256-token chunk, a window of 4096
      over 6000-key contexts at decode and prefill, alibi at 32 heads of 64,
-     Qwen1.5-MoE's 16 heads on 16 kv heads of 128 at decode and prefill —
-     each timed beside its bound, plain and SDPA (same mask or bias) — and
-     in float32, with five faulty kernels of those routes rejected;
+     Qwen1.5-MoE's 16 heads on 16 kv heads of 128 at decode and prefill,
+     and a tensor-2 rank's heads of Llama-3-8B (16:4) and Qwen1.5-MoE
+     (8:8) at phase 27's decode batch and a chunk — each timed beside its
+     bound, plain and SDPA (same mask or bias) — and in float32, with five
+     faulty kernels of those routes rejected;
   3. serving: ``build_engine`` → ``put`` / ``step`` on Llama-3-8B at full
      width and depth with seeded random weights, continuous batching of 8
      requests with SplitFuse chunking, fused decode and a prefix-cache hit,
@@ -261,7 +263,16 @@ source, all started together.  Phases:
      combine, forward twice with the remat recompute, backward once),
      K1/K2a/K2b once a step, step and wire ms, every rank's peak; and the
      float32 losses of expert 2 against expert 1 at 2 narrow layers (rtol
-     1e-5).
+     1e-5).  Then the same Mixtral run over expert 2 × tensor 2 (each rank
+     its 4 experts at half of ``expert_mlp``, 16:4 heads, on the same 4
+     rows, 2 a data rank): a rank's 504,410,112 parameters and its state
+     bytes against the reckoning, K1/K2a/K2b once a step, one MoE all-reduce
+     a layer's forward, the first loss within 2e-3 of data 2 × expert 2's,
+     the replicated tensors bit-identical on every rank; and in float32 at
+     the 2 narrow layers, in 2 micro-batches of one row a data rank (the
+     gating groups of expert 2 × tensor 1), losses within 1e-6 of expert 2
+     × tensor 1's, the router and norms bit-identical, the first step's
+     ``exp_counts`` equal.
  26. offload, after phase 24 (phase 1 prints the host's ``MemTotal`` and
      ``MemAvailable``): Phi-2 as phase 24 trains it but at 4 of its 32
      blocks (widths kept, for the script's time), first without offload
@@ -288,9 +299,9 @@ source, all started together.  Phases:
  27. tensor parallelism over gloo ranks sharing the card: (a) serving, on
      phase 11's two ranks after their training: each builds its slices of
      phase 3's Llama-3-8B (each tensor drawn whole from the same seeded
-     generator, the rank's slice kept) and serves 4 of phase 3's requests,
-     16 new tokens each, through ``InferenceEngineV2(tensor_parallel=2)``
-     (a batch of 4 rows; the steps run eagerly: a gloo collective cannot be
+     generator, the rank's slice kept) and serves 4 of phase 3's requests
+     (their prompts' first 128 tokens), 16 new tokens each, through
+     ``InferenceEngineV2(tensor_parallel=2)`` (a batch of 4 rows; the steps run eagerly: a gloo collective cannot be
      captured) — every rank's tokens equal, each request's stream equal to
      phase 3's engine's (recorded there) up to its first difference, and
      that a bf16 rounding tie (``greedy_ties``'s rule on both paths' logits
@@ -305,7 +316,18 @@ source, all started together.  Phases:
      decode round's ms (gloo on one card: function, not speed); then float32
      at Llama-3-8B's widths cut to 2 layers: the greedy stream of phase 4's
      first prompt equal to its one-card stream, first-step logits within
-     1e-4 of its largest;
+     1e-4 of its largest.  Then Qwen1.5-MoE-A2.7B at full width and depth
+     over tensor 2 on the same ranks, each drawing phase 18's seeded HF
+     tensors one at a time and keeping its slices (never the whole model):
+     a rank's 7,159,441,408 parameters of 14,315,784,192, its arena half of
+     phase 18's, K3 == 24 × forwards on 8:8 heads, collectives a forward
+     (the embedding's, o_proj's and the MoE layer's a layer, the logits
+     gather), every rank's tokens equal, each stream equal to phase 18's
+     one-card stream up to a bf16 tie, first-step logits within 2·e of
+     phase 18's (e its plain path's bf16 rounding measure); float32 at 2
+     layers, the whole seeded model through ``Qwen2MoePolicy.convert`` cut
+     to the rank's slices by the engine (``_rank_state``): the stream of
+     phase 4's first prompt equal to one card's;
      (b) training, in phase 25's W = 4 spawn as data 2 x tensor 2:
      Llama-125M as phase 6 (bf16, AdamW, ZeRO-2, remat ``flash_saveable``,
      S 1024) on B 8, 4 rows a data rank — a rank's 67,062,528 parameters
@@ -345,7 +367,7 @@ import torch
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.v2 import (PagedKVConfig, RaggedInferenceEngineConfig, SchedulerConfig,
-                                              SpecConfig, build_engine, build_hf_engine)
+                                              SpecConfig, build_cache_model, build_engine, build_hf_engine)
 from deepspeed_tpu_torch.inference.quantization import _quantize_leaf, quantize_inference_params
 from deepspeed_tpu_torch.inference.v2.model_implementations import FalconPolicy, Qwen2MoePolicy, policy_for
 from deepspeed_tpu_torch.models import gpt_family
@@ -826,12 +848,15 @@ def phase_kernels() -> dict:
     for name, shape in (("rep1_d64_chunk", prefill), ("rep1_d64_decode", decode)):
         run_case(name, make_case(*shape, torch.bfloat16, seed=9, h=16, n_kv=16, d=64), torch.bfloat16, flush,
                  timed=False)
-    # phase 27's shape: Llama-3-8B's heads over tensor 2 (16:4, D 128), its batch of 4 requests at their last
-    # decode step (prompts of 64, 300, 128 and 512 tokens, 15 tokens on) at the split the wrapper picks, and a chunk
-    tp = dict(h=16, n_kv=4, d=128)
-    rows["tp_16_4_decode"] = run_case("tp_16_4_decode", make_case([79, 315, 143, 527], [1] * 4, 1, torch.bfloat16,
-                                                                  seed=14, **tp), torch.bfloat16, flush, timed=False)
-    run_case("tp_16_4_chunk", make_case(*prefill, torch.bfloat16, seed=15, **tp), torch.bfloat16, flush, timed=False)
+    # phase 27's shapes: a tensor-2 rank's heads of Llama-3-8B (16:4) and of Qwen1.5-MoE (8:8), D 128, its batch
+    # of 4 requests at their last decode step (phase 27's prompt lengths, 15 tokens on) at the split the wrapper
+    # picks, and a chunk; timed with their plain versions and SDPA
+    tp_decode = [n + TP_NEW - 1 for n in tp_prompt_lengths()]
+    for label, heads in (("tp_16_4", dict(h=16, n_kv=4, d=128)), ("tp_8_8", dict(h=8, n_kv=8, d=128))):
+        rows[f"{label}_decode"] = run_case(f"{label}_decode", make_case(tp_decode, [1] * 4, 1, torch.bfloat16,
+                                                                        seed=14, **heads), torch.bfloat16, flush)
+        rows[f"{label}_chunk"] = run_case(f"{label}_chunk", make_case(*prefill, torch.bfloat16, seed=15, **heads),
+                                          torch.bfloat16, flush)
     if rows["tp_16_4_decode"]["n_split"] != TP_K3_SPLIT:
         raise AssertionError(f"K3 at 16:4 chose {rows['tp_16_4_decode']['n_split']} splits, not {TP_K3_SPLIT}")
     k3_merge(cases["decode"])
@@ -2975,6 +3000,11 @@ def dp_rank_main(rank: int, init_method: str, queue) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         out["tp"] = {"bf16": tp_serve_bf16(), "f32": tp_serve_f32()}
+        out["tp_qwen"] = {"bf16": tp_serve_bf16(lambda: qwen_rank_engine(QWEN_MOE, torch.bfloat16, TP_QWEN_SEED,
+                                                                         1024)),
+                          "f32": tp_serve_f32(lambda: qwen_whole_engine(qwen_f32_hf(), torch.float32,
+                                                                        TP_QWEN_F32_SEED, 256))}
+        out["done_at"] = time.time()
         queue.put((rank, out, None))
     except BaseException:
         queue.put((rank, None, traceback.format_exc()))
@@ -3008,6 +3038,7 @@ def phase_data_parallel(smi: str) -> dict:
             if err is not None:
                 raise AssertionError(f"data-parallel rank {rank} failed:\n{err}")
             ranks[rank] = res
+        received = time.time()
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -3016,6 +3047,9 @@ def phase_data_parallel(smi: str) -> dict:
                 p.join(timeout=10)
     if any(p.exitcode != 0 for p in procs):
         raise AssertionError(f"data-parallel ranks exited with {[p.exitcode for p in procs]}")
+    done = max(r["done_at"] for r in ranks.values())
+    log(f"  phase 11 + 27(a) ranks: results handed over {received - done:.2f} s after the last rank's work, "
+        f"the ranks exited {time.time() - received:.2f} s after that")
     r0, r1 = ranks[0], ranks[1]
     steps = DP_WARMUP + DP_TIMED
     layers = PRESETS["125m"].num_hidden_layers
@@ -3068,6 +3102,7 @@ def phase_data_parallel(smi: str) -> dict:
     if bad:
         raise AssertionError(f"data-parallel phase failed {bad}")
     res["tp_ranks"] = [ranks[r]["tp"] for r in range(DP_WORLD)]   # phase 27(a)'s, checked by its phase
+    res["tp_qwen_ranks"] = [ranks[r]["tp_qwen"] for r in range(DP_WORLD)]
     return res
 
 
@@ -3094,6 +3129,16 @@ EP_PARITY = MixtralConfig(vocab_size=32000, hidden_size=512, intermediate_size=1
                           num_local_experts=8, num_experts_per_tok=2, capacity_factor=1.0, dtype=torch.float32,
                           remat=True, remat_policy="flash_saveable")
 EP_PARITY_S, EP_PARITY_STEPS = 256, 3
+# the same run over expert 2 × tensor 2 (W = 4, data 1): the same 4 rows, 2 a data rank; and its float32
+# parity at EP_PARITY in 2 micro-batches of one row a data rank (gas 2), so that each gating group is one row
+# as at data 2 × expert 2
+ETP_TP, ETP_GAS = 2, 2
+#: a rank's parameters of Mixtral-8x7B's widths at one layer over expert 2 × tensor 2 (4 experts at half of
+#: expert_mlp, attention and vocab halved, router and norms whole), of the whole model's
+ETP_RANK_PARAMS, ETP_WHOLE_PARAMS = 504_410_112, 1_713_418_240
+#: the first bf16 loss of expert 2 × tensor 2 within this share of data 2 × expert 2's; float32 losses within
+#: this of expert 2 × tensor 1's
+ETP_BF16_REL, ETP_F32_REL = 2e-3, 1e-6
 #: the comm layer's collectives the wire meter times
 WIRE_NAMES = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "broadcast", "all_to_all_single")
 
@@ -3254,12 +3299,15 @@ def ep_reckoning(cfg: MixtralConfig, local_params: int, world: int, ep: int) -> 
 
 
 def ep_run(cfg: MixtralConfig, steps: int, meter: WireMeter, ep: int, seq: int, seed: int,
-           timed_from=None) -> dict:
+           timed_from=None, tp: int = 1, gas: int = 1) -> dict:
     """A Mixtral of ``cfg`` (its dtype: bf16 or float32 training) built with
-    this rank's experts (``expert_parallel_size=ep``), seeded, through
-    ``initialize`` at ZeRO-2 over the ranks, one row of ``seq`` a rank;
-    ``steps`` train_batch calls on one repeated global batch, those from
-    ``timed_from`` on timed as one window; its figures."""
+    this rank's experts (``expert_parallel_size=ep``) and tensor slices
+    (``tensor_parallel=tp``), seeded, through ``initialize`` at ZeRO-2 over
+    the ranks; ``steps`` train_batch calls on one repeated global batch of
+    as many rows of ``seq`` as ranks, split over the data-parallel ranks
+    and ``gas`` micro-batches, those from ``timed_from`` on timed as one
+    window; its figures, with the first step's ``exp_counts`` summed over
+    its MoE forwards."""
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.utils import groups
     world = comm.get_world_size()
@@ -3269,11 +3317,14 @@ def ep_run(cfg: MixtralConfig, steps: int, meter: WireMeter, ep: int, seq: int, 
     torch.cuda.empty_cache()
     acc.synchronize()
     acc.reset_peak_memory_stats()
-    model = MixtralForCausalLM(cfg, device="cuda", expert_parallel_size=ep)
+    model = MixtralForCausalLM(cfg, device="cuda", expert_parallel_size=ep, tensor_parallel=tp)
     init_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
-    ds = {"train_batch_size": world, "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    ds = {"train_batch_size": world, "gradient_accumulation_steps": gas,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
           "zero_optimization": {"stage": 2}, "moe": {"enabled": True, "expert_parallel_size": ep},
           "steps_per_print": 0}
+    if tp > 1:
+        ds["tensor_parallel"] = {"autotp_size": tp}
     if cfg.dtype == torch.bfloat16:
         ds["bf16"] = {"enabled": True}
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=ds, device="cuda",
@@ -3284,12 +3335,18 @@ def ep_run(cfg: MixtralConfig, steps: int, meter: WireMeter, ep: int, seq: int, 
     batch = {"input_ids": ids, "labels": ids}
     reset_launch_counts()
     comm.all_to_all_kinds.clear()
+    comm.tensor_parallel_kinds.clear()
     calls, wire, losses = comm.call_counts.copy(), meter.seconds, []
+    records, hooks = record_moe_layers(engine.module)
     for i in range(steps):
         if i == timed_from:
             float(losses[-1])
             calls, wire, t0 = comm.call_counts.copy(), meter.seconds, time.perf_counter()
         losses.append(engine.train_batch(batch=batch))
+        if i == 0:   # the first step's forwards (and their recomputes under remat)
+            counts = torch.stack([c for _, c, _ in records]).sum(0).cpu().numpy()
+            for h in hooks:
+                h.remove()
     float(losses[-1])
     timed = steps - (timed_from or 0)
     peak = acc.max_memory_allocated() / 1e9
@@ -3303,7 +3360,11 @@ def ep_run(cfg: MixtralConfig, steps: int, meter: WireMeter, ep: int, seq: int, 
            "peak_mem_gb": peak, "local_params": sum(p.numel() for p in engine.params),
            "dense_digest": tuple(device_hash(p) for n, p in named if n not in banks),
            "bank_digest": tuple(device_hash(p) for n, p in named if n in banks),
-           "expert_coord": groups.get_expert_parallel_rank(), "build_s": build_s}
+           "replicated_digest": tuple(device_hash(p) for n, p in named if n not in banks and n not in engine._tp_cut),
+           "expert_coord": groups.get_expert_parallel_rank(), "tensor_coord": groups.get_tensor_model_parallel_rank(),
+           "exp_counts": counts, "tp_collectives": {f"{k}_{d}": n for (k, d), n in comm.tensor_parallel_kinds.items()},
+           "heads": (engine.module.layers[0].self_attn.n_heads, engine.module.layers[0].self_attn.n_kv),
+           "build_s": build_s}
     if timed_from is not None:
         res["step_ms"] = 1e3 * (time.perf_counter() - t0) / timed
     res["seconds"] = time.perf_counter() - t_start
@@ -3319,8 +3380,11 @@ def expert_parallel_rank(meter: WireMeter) -> dict:
                               max_position_embeddings=EP_S, remat=True, remat_policy="flash_saveable",
                               attention_impl="flash")
     out = {"bf16": ep_run(cfg, EP_STEPS, meter, EP_SIZE, EP_S, seed=25, timed_from=EP_TIMED_FROM)}
-    out["f32"] = {ep: ep_run(EP_PARITY, EP_PARITY_STEPS, meter, ep, EP_PARITY_S, seed=26)["losses"]
-                  for ep in (1, EP_SIZE)}
+    out["f32"] = {ep: ep_run(EP_PARITY, EP_PARITY_STEPS, meter, ep, EP_PARITY_S, seed=26) for ep in (1, EP_SIZE)}
+    # expert 2 × tensor 2 on the same rows, and in float32 against expert 2 × tensor 1 (the same gating groups)
+    out["etp"] = {"bf16": ep_run(cfg, EP_STEPS, meter, EP_SIZE, EP_S, seed=25, timed_from=EP_TIMED_FROM, tp=ETP_TP),
+                  "f32": ep_run(EP_PARITY, EP_PARITY_STEPS, meter, EP_SIZE, EP_PARITY_S, seed=26, tp=ETP_TP,
+                                gas=ETP_GAS)}
     return out
 
 
@@ -3435,7 +3499,7 @@ def phase_expert_parallel(spawned: list, mixtral_params: int) -> tuple:
     """Phase 25's expert-parallel figures and checks from the W = 4 ranks,
     and their K1/K2a/K2b launches."""
     runs = [r[2 * EP_SIZE]["ep"]["bf16"] for r in spawned]
-    f32 = spawned[0][2 * EP_SIZE]["ep"]["f32"]
+    f32 = {ep: run["losses"] for ep, run in spawned[0][2 * EP_SIZE]["ep"]["f32"].items()}
     cfg = MIXTRAL_PRESETS["mixtral-8x7b"]
     banks = 3 * cfg.num_local_experts * cfg.hidden_size * cfg.intermediate_size * EP_LAYERS
     local = mixtral_params - banks + banks // EP_SIZE
@@ -3470,6 +3534,59 @@ def phase_expert_parallel(spawned: list, mixtral_params: int) -> tuple:
            "build_s": [r["build_s"] for r in runs], "run_s": [r["seconds"] for r in runs],
            "f32_parity": {"losses_ep1": f32[1], f"losses_ep{EP_SIZE}": f32[EP_SIZE], "loss_rel": rel},
            "tok_s_all_ranks": len(runs) * EP_S / (max(r["step_ms"] for r in runs) / 1e3)}
+    launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
+    res["expert_x_tensor"], etp_checks, res["etp_launches"] = expert_tensor_figures(spawned, losses[0])
+    checks.update(etp_checks)
+    return res, checks, launches
+
+
+def expert_tensor_figures(spawned: list, ep_first_loss: float) -> tuple:
+    """Phase 25's expert 2 × tensor 2 run (Mixtral-8x7B's widths at one
+    layer, ZeRO-2, bf16) and its float32 parity: figures, checks and K1/K2a/K2b
+    launches.  The state a rank holds: its bf16 parameters; a float32
+    master and two moments of its dense tensors' slices over the 2 ranks
+    of its data-parallel group and of its banks' slices whole (the ranks
+    that share its expert and tensor coordinates: itself)."""
+    world = 2 * EP_SIZE
+    runs = [r[world]["ep"]["etp"]["bf16"] for r in spawned]
+    f32 = [r[world]["ep"]["etp"]["f32"] for r in spawned]
+    ref = [r[world]["ep"]["f32"][EP_SIZE] for r in spawned]      # expert 2 x tensor 1, the same gating groups
+    cfg = MIXTRAL_PRESETS["mixtral-8x7b"]
+    bank_slice = 3 * (cfg.num_local_experts // EP_SIZE) * cfg.hidden_size * (cfg.intermediate_size // ETP_TP)
+    state = (ETP_RANK_PARAMS - bank_slice) // (world // ETP_TP) + bank_slice
+    want = {"params": 2 * ETP_RANK_PARAMS, "master": 4 * state, "moments": 8 * state}
+    losses = runs[0]["losses"]
+    f32_rel = float(np.max(np.abs(np.array(f32[0]["losses"]) - ref[0]["losses"]) / np.abs(ref[0]["losses"])))
+    checks = {
+        "etp_local_params": all(r["local_params"] == ETP_RANK_PARAMS for r in runs),
+        "etp_state_bytes_reckoned": all(r["state_bytes"] == want for r in runs),
+        "etp_heads_16_4": all(r["heads"] == (16, 4) for r in runs),
+        "etp_k1_k2_once_a_step": all(n == EP_LAYERS * EP_STEPS for r in runs for n in r["launches"].values()),
+        "etp_losses_equal_on_ranks": all(r["losses"] == losses for r in runs),
+        "etp_losses_finite": bool(np.all(np.isfinite(losses))),
+        "etp_first_loss_within_2e-3_of_ep2": abs(losses[0] - ep_first_loss) <= ETP_BF16_REL * abs(ep_first_loss),
+        "etp_replicated_bit_identical": len({r["replicated_digest"] for r in runs}) == 1,
+        # one MoE all-reduce a layer's forward (the remat recompute stops before it: nothing after it is saved
+        # for the backward; it reruns the o_proj all-reduce, whose output the next norm saves)
+        "etp_one_moe_reduce_a_layer_forward": all(
+            r["tp_collectives"].get("moe_forward") == EP_LAYERS * EP_STEPS
+            and r["tp_collectives"].get("o_proj_forward") == 2 * EP_LAYERS * EP_STEPS for r in runs),
+        "etp_f32_losses_within_1e-6_of_tensor_1": f32_rel <= ETP_F32_REL,
+        "etp_f32_replicated_bit_identical": len({r["replicated_digest"] for r in f32}) == 1,
+        "etp_f32_exp_counts_equal_tensor_1": all(np.array_equal(r["exp_counts"], ref[0]["exp_counts"]) for r in f32),
+    }
+    res = {"config": f"Mixtral-8x7B widths, {EP_LAYERS} layer, expert {EP_SIZE} x tensor {ETP_TP}, ZeRO-2, bf16, "
+                     f"AdamW, the same {world} rows of S {EP_S} as data 2 x expert 2 ({ETP_TP} a data rank)",
+           "losses": losses, "ep2_first_loss": ep_first_loss, "local_params": runs[0]["local_params"],
+           "whole_params": ETP_WHOLE_PARAMS, "state_bytes": runs[0]["state_bytes"], "reckoned_bytes": want,
+           "step_ms": [r["step_ms"] for r in runs], "wire_ms_per_step": [r["wire_ms_per_step"] for r in runs],
+           "collectives_per_step": runs[0]["collectives_per_step"], "tp_collectives": runs[0]["tp_collectives"],
+           "all_to_alls": runs[0]["all_to_alls"], "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+           "launches_per_step": {k: v / EP_STEPS for k, v in runs[0]["launches"].items()},
+           "build_s": [r["build_s"] for r in runs], "run_s": [r["seconds"] for r in runs],
+           "f32_parity": {"losses_tensor_1": ref[0]["losses"], "losses_tensor_2": f32[0]["losses"],
+                          "loss_rel": f32_rel, "exp_counts": f32[0]["exp_counts"].tolist(),
+                          "run_s": [r["seconds"] for r in f32]}}
     launches = {k: sum(r["launches"][k] for r in runs) for k in runs[0]["launches"]}
     return res, checks, launches
 
@@ -3578,6 +3695,7 @@ def phase_zero(smi: str, mixtral_params: int, first_rows_loss: float) -> dict:
                                                      for route in ZERO_RS_ORDER[world]}}}
         log(f"  zero W = {world}: " + json.dumps(res[f"w{world}"]))
     res["expert_parallel"], ep_checks, res["ep_launches"] = phase_expert_parallel(spawned, mixtral_params)
+    res["etp_launches"] = res["expert_parallel"].pop("etp_launches")
     checks.update(ep_checks)
     log("  expert parallel: " + json.dumps(res["expert_parallel"]))
     res["tensor_parallel"], tp_checks, res["tp_launches"] = phase_tensor_parallel_training(spawned, first_rows_loss)
@@ -3610,11 +3728,21 @@ TP_TRAIN_ROWS, TP_PARITY_STAGES = 8, (0, 3)
 TP_F32_LOGITS_TOL = 1e-4
 #: K3's decode split at a rank's 16:4 heads and phase 27's batch of 4 (``choose_n_split``)
 TP_K3_SPLIT = 8
+#: phase 27's prompts are their first TP_PROMPT_CAP tokens: the prefill over gloo took most of the phase
+TP_PROMPT_CAP = 128
+#: phase 27(a)'s Qwen1.5-MoE-A2.7B over tensor 2: a rank's parameters (the norms, routers and shared-expert
+#: gates whole, the rest halved) and the whole model's; its float32 check at TP_QWEN_F32_LAYERS layers
+TP_QWEN_RANK_PARAMS, TP_QWEN_WHOLE_PARAMS = 7_159_441_408, 14_315_784_192
+TP_QWEN_SEED, TP_QWEN_F32_LAYERS, TP_QWEN_F32_SEED = 18, 2, 181
 
 
 def tp_requests(vocab: int) -> list:
     prompts, _ = serving_mix(vocab)
-    return [prompts[i] for i in TP_REQUESTS]
+    return [prompts[i][:TP_PROMPT_CAP] for i in TP_REQUESTS]
+
+
+def tp_prompt_lengths() -> list:
+    return [len(p) for p in tp_requests(PRESETS["llama3-8b"].vocab_size)]
 
 
 def tp_reference(eng, state) -> dict:
@@ -3662,14 +3790,46 @@ def tp_rank_engine(layers: int, dtype: torch.dtype, seed: int, num_pages: int):
     return eng, sum(p.numel() * p.element_size() for p in eng.model.parameters()), time.perf_counter() - t0
 
 
-def tp_serve_bf16() -> dict:
-    """Phase 27(a) on one rank: Llama-3-8B bf16 at full depth over tensor 2,
-    ``tp_requests`` stepped to the end (prefill tok/s up to the last first
-    token; a decode round's ms over the pure-decode steps' forwards), then
-    phase 4's first-step logits."""
+def qwen_tp_engine(cfg, state: dict, num_pages: int, t0: float):
+    """A ``tensor_parallel`` engine with phase 27's settings over ``state``
+    (whole tensors are cut to the rank's slices by the engine); the engine,
+    its parameter bytes and the seconds since ``t0``."""
+    econf = dataclasses.replace(engine_config(cfg.param_dtype, num_pages), tensor_parallel=TP_SIZE)
+    econf = dataclasses.replace(econf, scheduler=dataclasses.replace(econf.scheduler, max_seqs=TP_BATCH,
+                                                                     decode_bucket=TP_BATCH))
+    eng = build_engine(dataclasses.replace(cfg, attention_impl="flash"), state, econf, device="cuda")
+    return eng, sum(p.numel() * p.element_size() for p in eng.model.parameters()), time.perf_counter() - t0
+
+
+def qwen_rank_engine(hf: dict, dtype: torch.dtype, seed: int, num_pages: int):
+    """This rank's slices of the seeded Qwen2-MoE of ``hf``, made one tensor
+    at a time (``qwen_rank_state``), behind ``qwen_tp_engine``."""
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+    from deepspeed_tpu_torch.comm import comm
+    t0 = time.perf_counter()
+    cfg, state = qwen_rank_state(hf, dtype, seed, TensorParallel(TP_SIZE, comm.get_rank() % TP_SIZE))
+    return qwen_tp_engine(cfg, state, num_pages, t0)
+
+
+def qwen_whole_engine(hf: dict, dtype: torch.dtype, seed: int, num_pages: int):
+    """The whole seeded Qwen2-MoE of ``hf`` through ``Qwen2MoePolicy.convert``
+    behind ``qwen_tp_engine``: the engine cuts the whole banks, biases and
+    shared experts to the rank's slices (the path a user's checkpoint takes)."""
+    t0 = time.perf_counter()
+    policy = Qwen2MoePolicy()
+    cfg = dataclasses.replace(policy.build_config(hf), dtype=dtype, param_dtype=dtype)
+    return qwen_tp_engine(cfg, policy.convert(seeded_hf_state(hf_shapes(hf), dtype, seed), cfg), num_pages, t0)
+
+
+def tp_serve_bf16(make_engine=None) -> dict:
+    """Phase 27(a) on one rank: the engine ``make_engine()`` gives (Llama-3-8B
+    bf16 at full depth over tensor 2 by default), ``tp_requests`` stepped to
+    the end (prefill tok/s up to the last first token; a decode round's ms
+    over the pure-decode steps' forwards), then phase 4's first-step
+    logits."""
     from deepspeed_tpu_torch.comm import comm
     acc = get_accelerator()
-    eng, param_bytes, build_s = tp_rank_engine(32, torch.bfloat16, 0, 1024)
+    eng, param_bytes, build_s = (make_engine or (lambda: tp_rank_engine(32, torch.bfloat16, 0, 1024)))()
     cfg = eng.cfg
     eng.generate([list(range(1, 20))], max_new_tokens=1)   # warm-up (one prefill step): cuBLAS, allocator
     prompts = tp_requests(cfg.vocab_size)
@@ -3731,14 +3891,15 @@ def tp_serve_bf16() -> dict:
     return res
 
 
-def tp_serve_f32() -> dict:
-    """Phase 27(a)'s float32 check on one rank: phase 4's float32 model (2
-    layers, seed 1) over tensor 2, the greedy stream of phase 4's first
-    prompt and the first-step logits of its parity prompt."""
+def tp_serve_f32(make_engine=None) -> dict:
+    """Phase 27(a)'s float32 check on one rank: the engine ``make_engine()``
+    gives (phase 4's float32 model, 2 layers, seed 1, over tensor 2 by
+    default), the greedy stream of phase 4's first prompt and the
+    first-step logits of its parity prompt."""
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    eng, _, _ = tp_rank_engine(2, torch.float32, 1, 256)
+    eng, _, _ = (make_engine or (lambda: tp_rank_engine(2, torch.float32, 1, 256)))()
     streams = eng.generate(parity_f32_prompts(eng.cfg.vocab_size)[:1], max_new_tokens=24)
     logits = first_step_logits(eng, parity_prompt(eng.cfg.vocab_size)).cpu().numpy()
     del eng
@@ -3801,7 +3962,7 @@ def phase_tensor_parallel_serving(smi: str, ranks: list, ref: dict, ref_f32: dic
         "tp_serve_f32_logits_1e-4": f32_dev <= TP_F32_LOGITS_TOL,
     }
     res = {"config": f"Llama-3-8B bf16, full depth, tensor {TP_SIZE} (gloo ranks on one card), {len(TP_REQUESTS)} "
-                     f"of phase 3's requests, {TP_NEW} new tokens each",
+                     f"of phase 3's requests (prompts cut to {TP_PROMPT_CAP} tokens), {TP_NEW} new tokens each",
            "rank_param_bytes": r0["param_bytes"], "rank_params": r0["n_params"], "whole_params": ref["n_params"],
            "arena_bytes": r0["arena_bytes"], "one_card_arena_bytes": ref["arena_bytes"],
            "peak_mem_gb": [r["peak_mem_gb"] for r in bf16], "forwards": r0["forwards"],
@@ -3818,6 +3979,52 @@ def phase_tensor_parallel_serving(smi: str, ranks: list, ref: dict, ref_f32: dic
            "f32_s": [r["seconds"] for r in f32], "card": smi}
     launches = sum(r["k3_launches"] for r in bf16)
     return res, checks, launches
+
+
+def phase_tensor_parallel_qwen(smi: str, ranks: list, ref: dict, ref_f32: dict, e: float) -> tuple:
+    """Phase 27(a)'s Qwen1.5-MoE-A2.7B over tensor 2 on phase 11's ranks
+    (``ranks``: each one's ``tp_serve_bf16`` and ``tp_serve_f32`` of it),
+    held to phase 18's one-card engine (``ref``: its ``tp_reference``) and
+    float32 references (``ref_f32``); ``e`` is phase 18's bf16 rounding
+    measure of the plain path against float32."""
+    bf16, f32 = [r["bf16"] for r in ranks], [r["f32"] for r in ranks]
+    r0 = bf16[0]
+    layers = QWEN_MOE["num_hidden_layers"]
+    per_forward = {"embed_forward": 1.0, "o_proj_forward": float(layers), "moe_forward": float(layers),
+                   "logits_forward": 1.0}
+    logits_rel = float(np.linalg.norm(r0["logits"] - ref["logits"]) / np.linalg.norm(ref["logits"]))
+    ties = stream_ties(r0, ref)
+    f32_dev = float(np.abs(f32[0]["logits"] - ref_f32["logits"]).max() / np.abs(ref_f32["logits"]).max())
+    checks = {
+        "tp_qwen_rank_param_bytes_reckoned": all(r["param_bytes"] == 2 * TP_QWEN_RANK_PARAMS for r in bf16),
+        "tp_qwen_rank_params_reckoned": all(r["n_params"] == TP_QWEN_RANK_PARAMS for r in bf16),
+        "tp_qwen_whole_params": ref["n_params"] == TP_QWEN_WHOLE_PARAMS,
+        "tp_qwen_tokens_equal_on_ranks": all(r["streams"] == r0["streams"] for r in bf16),
+        "tp_qwen_streams_equal_one_card_but_ties": all(t["tie"] for t in ties),
+        "tp_qwen_16_tokens_each": all(len(s) == TP_NEW for s in r0["streams"]),
+        "tp_qwen_logits_within_2e_of_one_card": logits_rel <= 2 * e,
+        "tp_qwen_arena_half_one_card": all(2 * r["arena_bytes"] == ref["arena_bytes"] for r in bf16),
+        "tp_qwen_heads_8_8": all(r["heads"] == (8, 8) for r in bf16),
+        "tp_qwen_k3_layers_x_forwards": all(r["k3_launches"] == layers * r["forwards"] > 0 for r in bf16),
+        "tp_qwen_collectives_per_forward": all(r["collectives_per_forward"] == per_forward for r in bf16),
+        "tp_qwen_f32_streams_equal_one_card": all(r["streams"] == ref_f32["streams"] for r in f32),
+        "tp_qwen_f32_logits_1e-4": f32_dev <= TP_F32_LOGITS_TOL,
+    }
+    res = {"config": f"Qwen1.5-MoE-A2.7B bf16, full width and depth, tensor {TP_SIZE} (gloo ranks on one card), "
+                     f"{len(TP_REQUESTS)} of phase 3's requests (prompts cut to {TP_PROMPT_CAP} tokens), {TP_NEW} "
+                     "new tokens each", "rank_param_bytes": r0["param_bytes"], "rank_params": r0["n_params"],
+           "whole_params": ref["n_params"], "arena_bytes": r0["arena_bytes"],
+           "one_card_arena_bytes": ref["arena_bytes"], "heads": r0["heads"],
+           "peak_mem_gb": [r["peak_mem_gb"] for r in bf16], "forwards": r0["forwards"],
+           "k3_launches": [r["k3_launches"] for r in bf16], "k3_split_calls": [r["k3_split_calls"] for r in bf16],
+           "collectives_per_forward": r0["collectives_per_forward"],
+           "streams_equal_one_card": r0["streams"] == ref["streams"], "stream_ties": ties,
+           "logits_rel_l2": logits_rel, "bf16_rounding_measure": e, "f32_logits_max_abs_over_max": f32_dev,
+           "gloo_on_one_card_prefill_tok_s": [r["prefill_tok_s"] for r in bf16],
+           "gloo_on_one_card_decode_round_ms": [r["decode_round_ms"] for r in bf16],
+           "build_s": [r["build_s"] for r in bf16], "serve_s": [r["serve_s"] for r in bf16],
+           "f32_s": [r["seconds"] for r in f32], "card": smi}
+    return res, checks, sum(r["k3_launches"] for r in bf16)
 
 
 # ---------------------------------------------------------------- phase 12
@@ -4839,23 +5046,59 @@ def moe_mlp_shapes(hf: dict, i: int) -> dict:
     return out
 
 
+def seeded_hf_tensor(name: str, shape, dtype, gen: torch.Generator) -> torch.Tensor:
+    """One seeded tensor under its HF name, drawn from ``gen`` on its device:
+    norm scales 1, norm biases 0, other biases N(0, 0.02²), embeddings
+    N(0, 0.02²), matrices N(0, 1/fan_in)."""
+    t = torch.empty(shape, dtype=dtype, device=gen.device)
+    if re.search(r"(norm|ln_f|ln_attn|ln_mlp)\.", name) is not None:
+        t.fill_(1.0 if name.endswith("weight") else 0.0)
+    elif name.endswith("bias") or "embed" in name:
+        t.normal_(0.0, 0.02, generator=gen)
+    else:
+        t.normal_(0.0, shape[1]**-0.5, generator=gen)
+    return t
+
+
 def seeded_hf_state(shapes: dict, dtype, seed: int) -> dict:
-    """Seeded weights on the card under HF's names: norm scales 1, norm
-    biases 0, other biases N(0, 0.02²), embeddings N(0, 0.02²), matrices
-    N(0, 1/fan_in)."""
+    """Seeded weights on the card under HF's names (``seeded_hf_tensor``,
+    one generator in the order of ``shapes``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = {}
-    for name, shape in shapes.items():
-        t = torch.empty(shape, dtype=dtype, device="cuda")
-        norm = re.search(r"(norm|ln_f|ln_attn|ln_mlp)\.", name) is not None
-        if norm:
-            t.fill_(1.0 if name.endswith("weight") else 0.0)
-        elif name.endswith("bias") or "embed" in name:
-            t.normal_(0.0, 0.02, generator=gen)
+    return {name: seeded_hf_tensor(name, shape, dtype, gen) for name, shape in shapes.items()}
+
+
+def qwen_port_name(hf_name: str) -> tuple:
+    """The port's name of a Qwen2-MoE HF tensor (``Qwen2MoePolicy``'s
+    mapping), and the expert of a bank it is one row of (None otherwise)."""
+    m = re.fullmatch(r"model\.layers\.(\d+)\.mlp\.experts\.(\d+)\.(gate|up|down)_proj\.weight", hf_name)
+    if m:
+        return f"layers.{m[1]}.mlp.w_{m[3]}", int(m[2])
+    name = hf_name.replace(".mlp.shared_expert.", ".mlp.shared_")
+    return (name[len("model."):] if name.startswith("model.") else name), None
+
+
+def qwen_rank_state(hf: dict, dtype, seed: int, tp) -> tuple:
+    """Tensor-parallel rank ``tp.rank``'s slices of the seeded Qwen2-MoE of
+    ``hf`` (``seeded_hf_state(hf_shapes(hf), dtype, seed)`` through
+    ``Qwen2MoePolicy``, as phase 18 serves it): each HF tensor drawn whole
+    from the same generator in the same order and cut to the rank's slice
+    at once (an expert's matrix transposed into its row of the bank), so a
+    rank never holds the whole model.  Returns (config, state dict)."""
+    from deepspeed_tpu_torch.module_inject.layers import narrow_to_rank, tp_dims
+    cfg = dataclasses.replace(Qwen2MoePolicy().build_config(hf), dtype=dtype, param_dtype=dtype)
+    model = build_cache_model(cfg, PAGE, device="meta", tensor_parallel=tp.size)
+    cut = tp_dims(model)
+    state = {k: torch.empty(v.shape, dtype=dtype, device="cuda") for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, shape in hf_shapes(hf).items():
+        whole = seeded_hf_tensor(name, shape, dtype, gen)
+        port, expert = qwen_port_name(name)
+        if expert is None:
+            state[port].copy_(narrow_to_rank(whole, cut.get(port), tp))
         else:
-            t.normal_(0.0, shape[1]**-0.5, generator=gen)
-        out[name] = t
-    return out
+            state[port][expert].copy_(narrow_to_rank(whole.T, cut[port] - 1, tp))
+        del whole
+    return cfg, state
 
 
 def write_safetensors(filename: str, tensors: dict) -> None:
@@ -5226,7 +5469,33 @@ def phase_qwen_moe(smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"serving": serving, "profile": profile, "greedy": greedy, "parity": parity, "weight_bytes": nbytes,
-            "params": n_params}
+            "params": n_params, "tp_f32_reference": qwen_f32_reference()}
+
+
+def qwen_f32_hf() -> dict:
+    """Phase 27(a)'s float32 Qwen1.5-MoE: the published widths at TP_QWEN_F32_LAYERS layers."""
+    return {**QWEN_MOE, "num_hidden_layers": TP_QWEN_F32_LAYERS, "torch_dtype": "float32"}
+
+
+def qwen_f32_reference() -> dict:
+    """Phase 27(a)'s one-card float32 reference: ``qwen_f32_hf`` seeded
+    (TP_QWEN_F32_SEED) through ``Qwen2MoePolicy`` on one card, the greedy
+    stream of phase 4's first prompt and the first-step logits of its
+    parity prompt."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hf = qwen_f32_hf()
+    policy = Qwen2MoePolicy()
+    cfg = dataclasses.replace(policy.build_config(hf), dtype=torch.float32, param_dtype=torch.float32,
+                              attention_impl="flash")
+    state = policy.convert(seeded_hf_state(hf_shapes(hf), torch.float32, TP_QWEN_F32_SEED), cfg)
+    eng = build_engine(cfg, state, engine_config(torch.float32, 256), device="cuda")
+    streams = eng.generate(parity_f32_prompts(cfg.vocab_size)[:1], max_new_tokens=24)
+    logits = first_step_logits(eng, parity_prompt(cfg.vocab_size)).cpu().numpy()
+    del eng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"streams": streams, "logits": logits}
 
 
 def phase_mixtral_dir(smi: str) -> dict:
@@ -6078,15 +6347,22 @@ def main() -> int:
     log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire (then phase "
         "27(a) on the same ranks)")
     dp = phase_data_parallel(env["card"])
-    log("== phase 27(a): tensor-parallel serving of Llama-3-8B over phase 11's 2 gloo ranks on the card")
+    log("== phase 27(a): tensor-parallel serving of Llama-3-8B and Qwen1.5-MoE-A2.7B over phase 11's 2 gloo "
+        "ranks on the card")
     tp_serving, tp_checks, tp_k3 = phase_tensor_parallel_serving(env["card"], dp.pop("tp_ranks"),
                                                                  serving.pop("tp_reference"), parity_f32, parity)
     log("  tensor parallel serving: " + json.dumps(tp_serving))
+    tp_qwen, qwen_checks, tp_qwen_k3 = phase_tensor_parallel_qwen(
+        env["card"], dp.pop("tp_qwen_ranks"), qwen_moe["serving"].pop("tp_reference"),
+        qwen_moe.pop("tp_f32_reference"), qwen_moe["parity"]["plain_vs_f32"])
+    log("  tensor parallel serving of Qwen1.5-MoE-A2.7B: " + json.dumps(tp_qwen))
+    tp_checks.update(qwen_checks)
+    tp_k3 += tp_qwen_k3
     bad = [k for k, ok in tp_checks.items() if not ok]
     if bad:
         raise AssertionError(f"tensor-parallel serving failed {bad}")
     log("== phase 25: ZeRO stages 0-2 over 3 ranks and 3 over 4 ranks on Llama-125M; Mixtral-8x7B's widths over "
-        "data 2 x expert 2 (gloo, one card)")
+        "data 2 x expert 2 and expert 2 x tensor 2 (gloo, one card)")
     zero = phase_zero(env["card"], moe_training["params"], training["first_rows_loss"])
     dec, ver = k3["decode"], k3["verify"]
     zoo_launches = sum(r["k3_launches"] for r in zoo.values())
@@ -6115,7 +6391,11 @@ def main() -> int:
                 # phase 2's zoo rows (head dims 80/96, Falcon-7B's 71:1, window, alibi, Qwen1.5-MoE's 16:16)
                 "zoo_rows": {n: {k: k3[n][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                         "max_abs_err", "n_split")}
-                             for n in zoo_shapes(np.random.default_rng(30))}}]
+                             for n in zoo_shapes(np.random.default_rng(30))},
+                # phase 2's rows at a tensor-2 rank's heads: Llama-3-8B's 16:4 and Qwen1.5-MoE's 8:8
+                "tp_rows": {n: {k: k3[n][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                      "max_abs_err", "n_split")}
+                            for n in ("tp_16_4_decode", "tp_16_4_chunk", "tp_8_8_decode", "tp_8_8_chunk")}}]
     replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:162",
                 "flash_dq": "deepspeed_tpu/ops/flash_attention.py:287",
                 "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}
@@ -6126,6 +6406,7 @@ def main() -> int:
                    "gpt2_training": v1["gpt2_training"]["launches"][name],
                    "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"],
                    "expert_parallel": zero["ep_launches"][f"{name}_cuda"],
+                   "expert_x_tensor": zero["etp_launches"][f"{name}_cuda"],
                    "offload": offload["launches"][name], "tp_training": zero["tp_launches"][f"{name}_cuda"]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]

@@ -7,7 +7,9 @@ port has data, expert and tensor parallelism: the ranks of the default
 order (``MESH_AXES`` row-major, the last axis fastest), so at ``data`` D ×
 ``expert`` ep rank ``d·ep + e`` sits at coordinate (d, e) and an expert
 group is ep consecutive ranks; at ``data`` D × ``tensor`` N rank ``d·N + t``
-sits at (d, t) and a tensor group is N consecutive ranks.  A ``MeshSpec``
+sits at (d, t) and a tensor group is N consecutive ranks; at ``data`` D ×
+``expert`` E × ``tensor`` T rank ``(d·E + e)·T + t`` sits at (d, e, t), so an
+expert group's ranks are T apart.  A ``MeshSpec``
 that asks for ``pipe`` or ``seq`` above 1 raises.
 
 The data-parallel degree is the process group's ranks over the model axes,
@@ -42,7 +44,7 @@ ROADMAP_MULTI_DEVICE = "ROADMAP Queue 1 item 6, multi-device training (pipeline/
 #: what of MoE over several ranks still raises
 ROADMAP_EXPERT_PARALLEL = "ROADMAP Queue 1 item 6.1, MoE over several ranks"
 #: what of tensor parallelism still raises (its second part)
-ROADMAP_TENSOR_PARALLEL = "ROADMAP Queue 1 item 6.2, tensor parallelism beyond the Llama family's dense path"
+ROADMAP_TENSOR_PARALLEL = "ROADMAP Queue 1 item 6.2, tensor parallelism beyond the Llama family and its MoE models"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -41,16 +41,18 @@ Against the JAX engine:
     ``tensor`` axis is N; JAX ``_resolve_mesh``/``_setup_tp`` :309-367):
     the process group is N ranks (gloo ranks may share one card), each
     running this engine with the same scheduler, state manager and
-    sampling generator.  Each holds its slices of the Llama twin
-    (``models/llama_cache.py``; a whole state dict is cut here, a sliced
-    one taken as it is) and its kv heads of the arena; K3 attends over the
-    rank's heads, the row-parallel projections and the embedding
-    all-reduce, and the last tokens' logits are gathered, so every rank
-    samples the same tokens.  A gloo collective is host-side and cannot be
+    sampling generator.  Each holds its slices of the Llama, Mixtral or
+    Qwen2-MoE twin (``models/llama_cache.py``, ``mixtral_cache.py``,
+    ``cache_zoo.py``: q/k/v and their biases, each expert's FFN on its
+    ``expert_mlp`` dim, the shared expert; a whole state dict is cut here
+    tensor by tensor, a sliced one taken as it is) and its kv heads of the
+    arena; K3 attends over the rank's heads, the row-parallel projections,
+    the MoE layers' combines and the embedding all-reduce, and the last
+    tokens' logits are gathered, so every rank samples the same tokens.  A gloo collective is host-side and cannot be
     captured, so the step programs run eagerly on the card (logged once).
     ``compile_aot_serving`` reckons a rank's bytes without allocating.
-    Weight-only int8, speculative decoding and the other families at N > 1
-    raise naming ROADMAP item 6.2.
+    Weight-only int8, speculative decoding and the other families (Falcon,
+    OPT, Phi) at N > 1 raise naming ROADMAP item 6.2.
 """
 
 import dataclasses
@@ -271,8 +273,10 @@ class InferenceEngineV2:
 
     def _rank_state(self, params, model) -> Dict[str, torch.Tensor]:
         """The state dict on the device in ``param_dtype``; over tensor-parallel
-        ranks this rank's slices, cut from whole tensors (copied, so the
-        whole tensor is not held) or taken as they are."""
+        ranks this rank's slices (``tp_dims``: the layers' weights and
+        biases, the expert banks), each cut from its whole tensor as it is
+        moved (copied, so no whole tensor is held on the device) or taken as
+        it is."""
         want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
         tensors = {k: torch.as_tensor(v) for k, v in params.items()}
         whole = {k: d for k, d in tp_dims(model).items() if k in tensors and tuple(tensors[k].shape) != want[k]}
@@ -900,8 +904,10 @@ def compile_aot_serving(cfg, mesh: Mesh, engine_config: Optional[RaggedInference
                         batch: int = 8, chunk: int = 1) -> Tuple[ServingBudget, int]:
     """A rank's serving budget over ``mesh``'s tensor axis, allocating
     nothing (JAX ``compile_aot_serving`` :145-171): the sharded twin and one
-    layer's arena on the ``meta`` device, so Llama-3-8B at tensor 8 is
-    reckoned without eight cards.  Returns ``(budget, n_params)``,
+    layer's arena on the ``meta`` device, so Llama-3-8B or Mixtral-8x7B at
+    tensor 8 is reckoned without eight cards.  The bytes are JAX's
+    ``_serving_shardings``' but for a q/k/v bias, whose leaf JAX keeps
+    whole on every rank and the port cuts with its heads.  Returns ``(budget, n_params)``,
     ``n_params`` the whole model's parameter count."""
     eng_cfg = engine_config or RaggedInferenceEngineConfig()
     kvcfg = eng_cfg.kv

@@ -193,9 +193,9 @@ class Qwen2MoeBlockCache(Qwen2MoeBlock):
     """A Qwen2-MoE layer over the paged arena: the sparse MLP, or the dense
     one in a mixed stack's ``mlp_only``/off-step layers."""
 
-    def __init__(self, cfg: Qwen2MoeConfig, page_size: int, sparse: bool = True, device=None):
-        super().__init__(cfg, sparse=sparse, device=device,
-                         self_attn=LlamaAttentionCache(cfg.as_llama(), page_size, device=device))
+    def __init__(self, cfg: Qwen2MoeConfig, page_size: int, sparse: bool = True, device=None, tp_size: int = 1):
+        super().__init__(cfg, sparse=sparse, device=device, tp_size=tp_size,
+                         self_attn=LlamaAttentionCache(cfg.as_llama(), page_size, device=device, tp_size=tp_size))
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens=None):
         h = x + self.self_attn(self.input_layernorm(x), positions, pages, block_table, start_pos, chunk_lens)
@@ -204,10 +204,13 @@ class Qwen2MoeBlockCache(Qwen2MoeBlock):
 
 class Qwen2MoeForCausalLMWithCache(LlamaForCausalLMWithCache):
     """The Llama twin's forward over Qwen2-MoE layers (``layers.{i}``,
-    each sparse or dense by ``cfg.layer_is_sparse(i)``)."""
+    each sparse or dense by ``cfg.layer_is_sparse(i)``); over
+    ``tensor_parallel`` ranks one all-reduce a layer for ``o_proj`` and one
+    for the sparse MLP's mixture and shared expert (``qwen2_moe.py``)."""
 
     def _make_block(self, cfg, device, layer: int) -> nn.Module:
-        return Qwen2MoeBlockCache(cfg, self.page_size, sparse=cfg.layer_is_sparse(layer), device=device)
+        return Qwen2MoeBlockCache(cfg, self.page_size, sparse=cfg.layer_is_sparse(layer), device=device,
+                                  tp_size=self.tp.size)
 
 
 #: config class → its paged twin (JAX ``CACHE_MODEL_REGISTRY``, with Mixtral,
@@ -221,24 +224,27 @@ CACHE_MODEL_REGISTRY = {
 }
 
 
+#: the configs whose twins serve over several tensor-parallel ranks
+TENSOR_PARALLEL_CONFIGS = (LlamaConfig, MixtralConfig, Qwen2MoeConfig)
+
+
 def build_cache_model(cfg, page_size: int, device: DeviceLike = "cuda", tensor_parallel: int = 1):
     """The paged twin of a config's family (JAX ``engine_v2.py:39-56``):
     ``CACHE_MODEL_REGISTRY``'s, else Llama.  Mixtral is served dropless: a
     config with ``drop_tokens`` is replaced by one without (capacity drops
     would zero routed tokens at random and leave HF's outputs).  Over
-    ``tensor_parallel`` ranks a rank's slices of the Llama twin; the other
-    families raise naming ROADMAP item 6.2."""
-    if tensor_parallel > 1:
-        if type(cfg) is not LlamaConfig:
-            raise NotImplementedError(f"serving a {type(cfg).__name__} over {tensor_parallel} tensor-parallel ranks "
-                                      f"is not ported ({ROADMAP_TENSOR_PARALLEL})")
-        return LlamaForCausalLMWithCache(cfg, page_size=page_size, device=device, tensor_parallel=tensor_parallel)
+    ``tensor_parallel`` ranks a rank's slices of the Llama, Mixtral or
+    Qwen2-MoE twin; the other families raise naming ROADMAP item 6.2."""
+    if tensor_parallel > 1 and type(cfg) not in TENSOR_PARALLEL_CONFIGS:
+        raise NotImplementedError(f"serving a {type(cfg).__name__} over {tensor_parallel} tensor-parallel ranks "
+                                  f"is not ported ({ROADMAP_TENSOR_PARALLEL})")
     if isinstance(cfg, MixtralConfig) and cfg.drop_tokens:
         cfg = dataclasses.replace(cfg, drop_tokens=False)
+    kw = {"tensor_parallel": tensor_parallel} if tensor_parallel > 1 else {}
     for cfg_cls, model_cls in CACHE_MODEL_REGISTRY.items():
         if isinstance(cfg, cfg_cls):
-            return model_cls(cfg, page_size=page_size, device=device)
+            return model_cls(cfg, page_size=page_size, device=device, **kw)
     if not isinstance(cfg, LlamaConfig):
         raise TypeError(f"no paged twin for a {type(cfg).__name__}: the port serves LlamaConfig and "
                         f"{sorted(c.__name__ for c in CACHE_MODEL_REGISTRY)}")
-    return LlamaForCausalLMWithCache(cfg, page_size=page_size, device=device)
+    return LlamaForCausalLMWithCache(cfg, page_size=page_size, device=device, tensor_parallel=tensor_parallel)

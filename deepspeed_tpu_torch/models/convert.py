@@ -72,7 +72,7 @@ every rank's slices back together.
 ``jax_leaves`` goes the other way for the ZeRO partition rules
 (``runtime/zero/partition.py``) and the universal checkpoint
 (``checkpoint/ds_to_universal.py``): for each parameter of a port Llama,
-Falcon, OPT, Phi, GPT-2 or Mixtral training model, the shape of its JAX leaf in the
+Falcon, OPT, Phi, GPT-2, Mixtral or Qwen2-MoE training model, the shape of its JAX leaf in the
 unrolled tree (``scan_layers=False``), whether the port tensor is that
 leaf's transpose (an ``nn.Linear`` weight), the leaf's logical axes (the JAX
 models' ``with_logical_partitioning``; a leaf without them, as a
@@ -80,8 +80,12 @@ models' ``with_logical_partitioning``; a leaf without them, as a
 its path in the JAX tree.  Mixtral's expert banks ``[E, in, out]`` keep
 the JAX layout (logical ``(experts, expert_embed, expert_mlp)``, ``w_down``
 ``(experts, expert_mlp, expert_embed)``) with the whole bank's shape, also
-where the port tensor holds one rank's experts; its router's weight is the
-transpose of the kernel ``[hidden, E]`` (``(embed, experts_gate)``).
+where the port tensor holds one rank's experts or its tensor slice of
+them; its router's weight is the transpose of the kernel ``[hidden, E]``
+(``(embed, experts_gate)``).  Qwen2-MoE's banks are its sparse MLP's own
+``w_gate``/``w_up``/``w_down`` with the same axes, its shared expert
+``(expert_embed, mlp)`` then ``(mlp, expert_embed)``, and its two gates
+carry no logical axes (flax ``Dense``).
 """
 
 import dataclasses
@@ -302,6 +306,10 @@ _LINEARS = {
             "project_in": (_DENSE, (), ()), "project_out": (_DENSE, (), ())},
     "phi": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "dense": _O, "fc1": _UP, "fc2": _DOWN, "lm_head": _HEAD},
     "mixtral": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "o_proj": _O, "lm_head": _HEAD},
+    "qwen2_moe": {"q_proj": _Q, "k_proj": _KV, "v_proj": _KV, "o_proj": _O, "gate_proj": _UP, "up_proj": _UP,
+                  "down_proj": _DOWN, "lm_head": _HEAD, "shared_gate_proj": (_DENSE, (EXPERT_EMBED, MLP), ()),
+                  "shared_up_proj": (_DENSE, (EXPERT_EMBED, MLP), ()),
+                  "shared_down_proj": (_DENSE, (MLP, EXPERT_EMBED), ())},
     "gpt2": {"attn.c_attn": (_QKV3, (EMBED, None, HEADS, HEAD_DIM), (None, HEADS, HEAD_DIM)),
              "attn.c_proj": (_OUT, (HEADS, HEAD_DIM, EMBED), (EMBED, )),
              "mlp.c_fc": (_DENSE, (EMBED, MLP), (MLP, )), "mlp.c_proj": (_DENSE, (MLP, EMBED), (EMBED, )),
@@ -309,6 +317,7 @@ _LINEARS = {
 }
 #: per family, each ``nn.Embedding`` by name → its logical axes
 _EMBEDDINGS = {"llama": {"embed_tokens": (VOCAB, EMBED)}, "mixtral": {"embed_tokens": (VOCAB, EMBED)},
+               "qwen2_moe": {"embed_tokens": (VOCAB, EMBED)},
                "falcon": {"word_embeddings": (VOCAB, EMBED)},
                "opt": {"embed_tokens": (VOCAB, EMBED), "embed_positions": ()}, "phi": {"embed_tokens": (VOCAB, EMBED)},
                "gpt2": {"wte": (VOCAB, EMBED), "wpe": (POSITIONS, EMBED)}}
@@ -321,13 +330,15 @@ def _family(model: nn.Module) -> str:
     from .mixtral import MixtralForCausalLM
     from .opt import OPTForCausalLM
     from .phi import PhiForCausalLM
+    from .qwen2_moe import Qwen2MoeForCausalLM
     for cls, name in ((LlamaForCausalLM, "llama"), (FalconForCausalLM, "falcon"), (OPTForCausalLM, "opt"),
-                      (PhiForCausalLM, "phi"), (GPT2LMHeadModel, "gpt2"), (MixtralForCausalLM, "mixtral")):
+                      (PhiForCausalLM, "phi"), (GPT2LMHeadModel, "gpt2"), (MixtralForCausalLM, "mixtral"),
+                      (Qwen2MoeForCausalLM, "qwen2_moe")):
         if type(model) is cls:
             return name
     raise NotImplementedError(f"{type(model).__name__}: its JAX leaves are known for the Llama, Falcon, OPT, Phi, "
-                              "GPT-2 and Mixtral training models only, so it cannot be partitioned over several "
-                              "ranks")
+                              "GPT-2, Mixtral and Qwen2-MoE training models only, so it cannot be partitioned over "
+                              "several ranks")
 
 
 def _jax_path(family: str, module_name: str, leaf: str) -> str:
@@ -347,13 +358,15 @@ def _jax_path(family: str, module_name: str, leaf: str) -> str:
 
 def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
     """For each parameter of a port training model of the Llama family
-    (Llama, Mistral, Qwen2, InternLM, Phi-3), Falcon, OPT, Phi, GPT-2 or
-    Mixtral, its JAX leaf in the unrolled tree (``scan_layers=False``).
-    A tensor-parallel layer's slice has the whole tensor's leaf.  Another
-    model raises ``NotImplementedError``."""
+    (Llama, Mistral, Qwen2, InternLM, Phi-3), Falcon, OPT, Phi, GPT-2,
+    Mixtral or Qwen2-MoE, its JAX leaf in the unrolled tree
+    (``scan_layers=False``).  A tensor-parallel slice has the whole tensor's
+    leaf (a q/k/v bias too, whose JAX leaf carries no logical axes).
+    Another model raises ``NotImplementedError``."""
     from ..module_inject.layers import tp_dims
     from ..moe.experts import ExpertsFFN
     from ..moe.layer import Router
+    from .qwen2_moe import Qwen2MoeSparseMLP
     family = _family(model)
     cfg = model.cfg
     hd = cfg.head_dim
@@ -369,12 +382,15 @@ def jax_leaves(model: nn.Module) -> Dict[str, JaxLeaf]:
             local = tuple(p.shape)
             tp_dim = cut.get(name) if n_tp > 1 else None
             shape = local if tp_dim is None else local[:tp_dim] + (local[tp_dim] * n_tp, ) + local[tp_dim + 1:]
-            if isinstance(mod, ExpertsFFN):
+            if isinstance(mod, (ExpertsFFN, Qwen2MoeSparseMLP)):
                 logical = (EXPERTS, EXPERT_MLP, EXPERT_EMBED) if pname == "w_down" else \
                     (EXPERTS, EXPERT_EMBED, EXPERT_MLP)
-                leaf = JaxLeaf((mod.num_experts, ) + shape[1:], shape, False, logical, _jax_path(family, mname, pname))
+                experts = mod.num_experts if isinstance(mod, ExpertsFFN) else shape[0]
+                leaf = JaxLeaf((experts, ) + shape[1:], local, False, logical, _jax_path(family, mname, pname))
             elif isinstance(mod, Router):
-                leaf = JaxLeaf(shape[::-1], shape, True, (EMBED, EXPERTS_GATE), _jax_path(family, mname, "kernel"))
+                # Qwen2-MoE's gates are flax ``Dense`` kernels without logical axes
+                logical = () if family == "qwen2_moe" else (EMBED, EXPERTS_GATE)
+                leaf = JaxLeaf(shape[::-1], shape, True, logical, _jax_path(family, mname, "kernel"))
             elif isinstance(mod, nn.Embedding) and short in embeds:
                 leaf = JaxLeaf(shape, local, False, embeds[short], _jax_path(family, mname, "embedding"))
             elif isinstance(mod, RMSNorm):

@@ -26,8 +26,8 @@ accumulates in float32.
 
 Tensor parallelism (``tensor_parallel`` N > 1; JAX's Megatron layout from
 ``module_inject/tp_rules.py``, the collectives GSPMD inserts placed by hand
-in ``module_inject/layers.py``): q/k/v, gate and up are column-parallel, o
-and down row-parallel (one all-reduce each, in the forward), the embedding
+in ``module_inject/layers.py``): q/k/v (with their biases), gate and up
+are column-parallel, o and down row-parallel (one all-reduce each, in the forward), the embedding
 vocab-parallel (ids outside the rank's rows look up zeros, then an
 all-reduce) and the LM head vocab-parallel, tied or not, so the cache-free
 model's logits are ``[B, S, V/N]`` on a rank; ``causal_lm_loss`` with the

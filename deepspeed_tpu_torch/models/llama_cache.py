@@ -17,7 +17,9 @@ slices of ``models/llama.py``'s tensor-parallel layers, its arena is ``[P,
 page, 2, n_kv/N, hd]`` a layer (``init_kv_cache``), K3 attends over the
 rank's heads, o_proj and down_proj are row-parallel, and ``logits``
 gathers the vocab slices of the rows it is given over the tensor group, so
-every rank samples from the same whole logits.
+every rank samples from the same whole logits.  The MoE twins
+(``mixtral_cache.py``, ``cache_zoo.py``) share this forward over their
+own layers.
 """
 
 import dataclasses

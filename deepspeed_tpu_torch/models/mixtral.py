@@ -19,6 +19,15 @@ JAX's ``CE + coef · mean(l_aux)`` and each group's gradient weighs 1/W, as
 ``jnp.mean``'s.  ``expert_parallel_size`` > 1 builds each MoE layer with
 this rank's experts only (``moe.MoE``'s ``ep_size``).
 
+Over ``tensor_parallel`` N ranks (JAX's layout from ``tp_rules``:
+``heads``, ``kv_heads``, ``vocab`` and ``expert_mlp`` over ``tensor``) the
+attention is the Llama model's tensor-parallel path and each expert's FFN
+is cut over the tensor axis (``moe.ExpertsFFN``); the router and the norms
+are whole.  W above counts the data-parallel ranks only: the ranks of a
+tensor group gate the same rows and compute the same ``l_aux``, so it
+enters the loss once a data group.  The loss is vocab-parallel then: the
+engine hands its ``tp`` to ``rank_share``.
+
 Parameter names mirror the JAX tree with the layers unrolled
 (``layers.{i}.block_sparse_moe.{gate.weight, experts.w_gate, ...}``), so
 ``models/convert.py`` carries it across and the serving twin
@@ -107,25 +116,27 @@ PRESETS = {
 }
 
 
-def moe_layer(cfg: MixtralConfig, device=None, ep_size: int = 1) -> MoE:
+def moe_layer(cfg: MixtralConfig, device=None, ep_size: int = 1, tp_size: int = 1) -> MoE:
     return MoE(hidden_size=cfg.hidden_size, num_experts=cfg.num_local_experts,
                intermediate_size=cfg.intermediate_size, k=cfg.num_experts_per_tok,
                capacity_factor=cfg.capacity_factor, eval_capacity_factor=cfg.eval_capacity_factor,
                min_capacity=cfg.min_capacity, drop_tokens=cfg.drop_tokens, dtype=cfg.dtype,
-               param_dtype=cfg.param_dtype, device=device, ep_size=ep_size)
+               param_dtype=cfg.param_dtype, device=device, ep_size=ep_size, tp_size=tp_size)
 
 
 class MixtralBlock(nn.Module):
     """``h = x + attn(ln(x))``; ``h + moe(ln(h))``, and the layer's ``l_aux``."""
 
-    def __init__(self, cfg: MixtralConfig, device=None, self_attn: Optional[nn.Module] = None, ep_size: int = 1):
+    def __init__(self, cfg: MixtralConfig, device=None, self_attn: Optional[nn.Module] = None, ep_size: int = 1,
+                 tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
-        self.self_attn = self_attn if self_attn is not None else LlamaAttention(cfg.as_llama(), device=device)
+        self.self_attn = self_attn if self_attn is not None else \
+            LlamaAttention(cfg.as_llama(), device=device, tp_size=tp_size)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
                                                 device)
-        self.block_sparse_moe = moe_layer(cfg, device, ep_size)
+        self.block_sparse_moe = moe_layer(cfg, device, ep_size, tp_size)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, segment_ids: Optional[torch.Tensor] = None):
         h = x + self.self_attn(self.input_layernorm(x), positions, segment_ids)
@@ -134,18 +145,20 @@ class MixtralBlock(nn.Module):
 
 
 class MixtralForCausalLM(LlamaForCausalLM):
-    """``input_ids`` [B, S] → ``(logits [B, S, V], l_aux_total)``: pair the
-    engine with ``make_mixtral_loss_fn``.  Remat as the Llama model's."""
+    """``input_ids`` [B, S] → ``(logits [B, S, V], l_aux_total)`` (this
+    rank's ``[B, S, V/N]`` over ``tensor_parallel`` N): pair the engine
+    with ``make_mixtral_loss_fn``.  Remat as the Llama model's."""
 
     supports_pld = False
     expert_parallel_size = 1
 
-    def __init__(self, cfg: MixtralConfig, device: DeviceLike = "cuda", expert_parallel_size: int = 1):
+    def __init__(self, cfg: MixtralConfig, device: DeviceLike = "cuda", expert_parallel_size: int = 1,
+                 tensor_parallel: int = 1):
         self.expert_parallel_size = expert_parallel_size   # read by _make_block during the base's __init__
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, tensor_parallel=tensor_parallel)
 
     def _make_block(self, cfg, device, layer: int) -> nn.Module:
-        return MixtralBlock(cfg, device=device, ep_size=self.expert_parallel_size)
+        return MixtralBlock(cfg, device=device, ep_size=self.expert_parallel_size, tp_size=self.tp.size)
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None):
@@ -170,16 +183,17 @@ def mixtral_lm_loss(outputs, labels: torch.Tensor, loss_mask: Optional[torch.Ten
 
 def make_mixtral_loss_fn(cfg: MixtralConfig):
     """The engine's ``loss_fn(outputs, batch)`` for ``MixtralForCausalLM``,
-    with its ``rank_share(outputs, batch, denom, world)``: one rank's share
-    of the loss over ``world`` ranks, its token sum over ``denom`` (the
-    global token count) plus ``coef · l_aux / world``."""
+    with its ``rank_share(outputs, batch, denom, world, tp)``: one rank's
+    share of the loss over ``world`` data-parallel ranks, its token sum over
+    ``denom`` (the global token count) plus ``coef · l_aux / world``, over
+    vocab-parallel logits when the engine's ``tp`` has more than one rank."""
 
     def loss_fn(outputs, batch):
         return mixtral_lm_loss(outputs, batch["labels"], batch.get("loss_mask"), cfg.router_aux_loss_coef)
 
-    def rank_share(outputs, batch, denom, world: int):
+    def rank_share(outputs, batch, denom, world: int, tp):
         logits, l_aux = outputs
-        return causal_lm_loss(logits, batch["labels"], batch.get("loss_mask"), denom) + \
+        return causal_lm_loss(logits, batch["labels"], batch.get("loss_mask"), denom, tp=tp) + \
             cfg.router_aux_loss_coef * l_aux / world
 
     loss_fn.rank_share = rank_share

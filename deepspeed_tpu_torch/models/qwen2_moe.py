@@ -12,6 +12,19 @@ float32 on weights kept in ``param_dtype``.  Layers listed in
 ``mlp_only_layers``, or off ``decoder_sparse_step``, have the dense SwiGLU
 MLP at ``intermediate_size`` (a mixed stack).
 
+Over ``tensor_parallel`` N ranks (JAX's layout from ``tp_rules``, the
+collectives GSPMD inserts placed by hand): the attention is the Llama
+model's tensor-parallel path (the q/k/v biases cut with their heads); the
+expert banks are cut on ``expert_mlp`` (``w_gate``/``w_up`` column-,
+``w_down`` row-parallel), the shared expert is column- then row-parallel,
+the router and the sigmoid shared-expert gate are whole.  The routed float32
+mixture of the rank's partial expert outputs and the gated partial shared
+expert are summed on each rank and all-reduced once, in float32, before the
+cast.  The rows enter the banks and the shared expert through one
+``copy_to_tensor_region``, and the routing weights and the shared gate
+through one each, so their partial gradients are summed in the backward;
+the gates' own input is not copied.
+
 Parameter names mirror the JAX tree with the layers unrolled
 (``layers.{i}.mlp.{gate.weight, w_gate, w_up, w_down, shared_gate_proj,
 shared_up_proj, shared_down_proj, shared_expert_gate.weight}``; a dense
@@ -28,10 +41,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike
-from ..moe.experts import swiglu_experts
+from ..module_inject.layers import (ColumnParallelLinear, RowParallelLinear, TensorParallel, copy_to_tensor_region,
+                                    reduce_from_tensor_region)
+from ..moe.experts import ExpertsFFN, swiglu_experts
 from ..moe.layer import Router
 from ..moe.sharded_moe import top_k
-from .llama import LlamaAttention, LlamaConfig, LlamaForCausalLM, LlamaMLP, RMSNorm, _linear, dense, hf_value
+from .llama import (LlamaAttention, LlamaConfig, LlamaForCausalLM, LlamaMLP, RMSNorm, _draw_whole, _parallel, dense,
+                    hf_value)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,19 +134,29 @@ def mix_experts(y: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 
 class Qwen2MoeSparseMLP(nn.Module):
-    """Top-k of all experts as a dense mixture, plus the gated shared expert."""
+    """Top-k of all experts as a dense mixture, plus the gated shared
+    expert; over ``tp_size`` ranks the banks and the shared expert are this
+    rank's slices."""
 
-    def __init__(self, cfg: Qwen2MoeConfig, device=None):
+    #: the dim of each bank cut over the tensor axis (``expert_mlp``)
+    TP_DIMS = ExpertsFFN.TP_DIMS
+
+    def __init__(self, cfg: Qwen2MoeConfig, device=None, tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
         e, n, m, si = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size, cfg.shared_expert_intermediate_size
+        if m % tp_size:
+            raise ValueError(f"tensor parallelism over {tp_size} ranks does not divide moe_intermediate_size={m}")
+        #: this rank's place on the tensor axis
+        self.tp = TensorParallel(tp_size)
         self.gate = Router(e, n, cfg.param_dtype, device)
-        self.w_gate = nn.Parameter(torch.empty((n, e, m), dtype=cfg.param_dtype, device=device))
-        self.w_up = nn.Parameter(torch.empty((n, e, m), dtype=cfg.param_dtype, device=device))
-        self.w_down = nn.Parameter(torch.empty((n, m, e), dtype=cfg.param_dtype, device=device))
-        self.shared_gate_proj = _linear(cfg, e, si, False, device)
-        self.shared_up_proj = _linear(cfg, e, si, False, device)
-        self.shared_down_proj = _linear(cfg, si, e, False, device)
+        self.w_gate = nn.Parameter(torch.empty((n, e, m // tp_size), dtype=cfg.param_dtype, device=device))
+        self.w_up = nn.Parameter(torch.empty((n, e, m // tp_size), dtype=cfg.param_dtype, device=device))
+        self.w_down = nn.Parameter(torch.empty((n, m // tp_size, e), dtype=cfg.param_dtype, device=device))
+        col, row = ColumnParallelLinear, RowParallelLinear
+        self.shared_gate_proj = _parallel(col, cfg, e, si, False, device, tp_size)
+        self.shared_up_proj = _parallel(col, cfg, e, si, False, device, tp_size)
+        self.shared_down_proj = _parallel(row, cfg, si, e, False, device, tp_size)
         self.shared_expert_gate = Router(e, 1, cfg.param_dtype, device)
 
     def routing_weights(self, x: torch.Tensor) -> torch.Tensor:
@@ -142,22 +168,29 @@ class Qwen2MoeSparseMLP(nn.Module):
         return torch.zeros_like(probs).scatter(1, idx, vals)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.cfg.dtype
+        dt, tp = self.cfg.dtype, self.tp
         shape = x.shape
         t = x.reshape(-1, shape[-1])
-        y = swiglu_experts(t[None], self.w_gate, self.w_up, self.w_down, dt)         # [E, T, hidden]
-        out = mix_experts(y, self.routing_weights(t))                                # float32
-        shared = dense(F.silu(dense(t, self.shared_gate_proj, dt)) * dense(t, self.shared_up_proj, dt),
+        rows = copy_to_tensor_region(t, tp, "moe_in")
+        y = swiglu_experts(rows[None], self.w_gate, self.w_up, self.w_down, dt)      # [E, T, hidden]
+        out = mix_experts(y, copy_to_tensor_region(self.routing_weights(t), tp, "moe_weights"))   # float32
+        # the shared expert's down projection without its reduce: the sum below takes it
+        shared = dense(F.silu(dense(rows, self.shared_gate_proj, dt)) * dense(rows, self.shared_up_proj, dt),
                        self.shared_down_proj, dt)
-        out = out + torch.sigmoid(self.shared_expert_gate(t)) * shared.float()
+        gate = copy_to_tensor_region(torch.sigmoid(self.shared_expert_gate(t)), tp, "shared_gate")
+        out = reduce_from_tensor_region(out + gate * shared.float(), tp, "moe")
         return out.to(x.dtype).reshape(shape)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
-        """The expert banks N(0, 1/fan_in) (the routers and the shared
-        expert are initialised as modules of their own)."""
-        for w in (self.w_gate, self.w_up, self.w_down):
-            w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator)
+        """The expert banks N(0, 1/fan_in), each drawn whole and cut to the
+        rank's slice (the routers and the shared expert are initialised as
+        modules of their own)."""
+        for name, dim in self.TP_DIMS.items():
+            w = getattr(self, name)
+            std = 1.0 / math.sqrt(w.shape[1] * (self.tp.size if dim == 1 else 1))
+            _draw_whole(w, dim if self.tp.size > 1 else None, self.tp,
+                        lambda t: t.normal_(0.0, std, generator=generator))
 
 
 #: the dense MLP of ``mlp_only_layers`` and off-step layers (HF ``Qwen2MoeMLP``
@@ -167,14 +200,16 @@ Qwen2MoeDenseMLP = LlamaMLP
 
 class Qwen2MoeBlock(nn.Module):
 
-    def __init__(self, cfg: Qwen2MoeConfig, sparse: bool = True, device=None, self_attn: Optional[nn.Module] = None):
+    def __init__(self, cfg: Qwen2MoeConfig, sparse: bool = True, device=None, self_attn: Optional[nn.Module] = None,
+                 tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
-        self.self_attn = self_attn if self_attn is not None else LlamaAttention(cfg.as_llama(), device=device)
+        self.self_attn = self_attn if self_attn is not None else \
+            LlamaAttention(cfg.as_llama(), device=device, tp_size=tp_size)
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype, device)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, cfg.param_dtype,
                                                 device)
-        self.mlp = Qwen2MoeSparseMLP(cfg, device) if sparse else Qwen2MoeDenseMLP(cfg, device)
+        self.mlp = Qwen2MoeSparseMLP(cfg, device, tp_size) if sparse else Qwen2MoeDenseMLP(cfg, device, tp_size)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
                 pld_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -185,12 +220,14 @@ class Qwen2MoeBlock(nn.Module):
 
 
 class Qwen2MoeForCausalLM(LlamaForCausalLM):
-    """The training forward: ``input_ids`` [B, S] → logits [B, S, V]."""
+    """The training forward: ``input_ids`` [B, S] → logits [B, S, V] (this
+    rank's ``[B, S, V/N]`` over ``tensor_parallel`` N, through the Llama
+    base's vocab-parallel embedding and head)."""
 
     supports_pld = False
 
-    def __init__(self, cfg: Qwen2MoeConfig, device: DeviceLike = "cuda"):
-        super().__init__(cfg, device=device)
+    def __init__(self, cfg: Qwen2MoeConfig, device: DeviceLike = "cuda", tensor_parallel: int = 1):
+        super().__init__(cfg, device=device, tensor_parallel=tensor_parallel)
 
     def _make_block(self, cfg, device, layer: int) -> nn.Module:
-        return Qwen2MoeBlock(cfg, sparse=cfg.layer_is_sparse(layer), device=device)
+        return Qwen2MoeBlock(cfg, sparse=cfg.layer_is_sparse(layer), device=device, tp_size=self.tp.size)

@@ -29,7 +29,10 @@ reduce), ``VocabParallelEmbedding`` ``[V/N, E]``: rank ``t`` holds rows
 (or columns) ``[t·n, (t+1)·n)`` of the whole tensor, the JAX slice of the
 tensor axis.  ``tp_dim`` is the sliced dim of the port tensor.  At
 ``tensor`` 1 they are ``nn.Linear`` and ``nn.Embedding`` and run no
-collective.
+collective.  A module that holds several sliced tensors of its own (an
+expert bank, ``moe.ExpertsFFN``; Qwen2-MoE's sparse MLP) names them in
+``TP_DIMS`` (parameter → sliced dim) and carries its ``tp``: the helpers
+below cut, name and place them as they do the layers'.
 """
 
 import dataclasses
@@ -212,8 +215,7 @@ def set_tensor_parallel_(module: nn.Module, tp: TensorParallel) -> nn.Module:
     degree must be ``tp.size``."""
     for m in module.modules():
         if hasattr(m, "tp") and isinstance(m.tp, TensorParallel):
-            if isinstance(m, (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)) and \
-                    m.tp.size != tp.size:
+            if (isinstance(m, _LAYERS) or _bank_dims(m)) and m.tp.size != tp.size:
                 raise ValueError(f"{type(m).__name__} built for {m.tp.size} tensor-parallel ranks, set to {tp.size}")
             m.tp = tp
     return module
@@ -235,7 +237,21 @@ def cut_tensor_parallel_(module: nn.Module, tp: TensorParallel) -> nn.Module:
         else:
             m.out_features, m.in_features = m.weight.shape
         m.tp = tp
+    for _, m in tp_banks(module):
+        cut_bank_(m, tp)
     return set_tensor_parallel_(module, tp)
+
+
+@torch.no_grad()
+def cut_bank_(module: nn.Module, tp: TensorParallel) -> None:
+    """Cut a module's own sliced tensors (``TP_DIMS``), built whole, to rank
+    ``tp.rank``'s slices in place, and give it ``tp``."""
+    if module.tp.size != 1:
+        raise ValueError(f"{type(module).__name__} is already cut over {module.tp.size} ranks")
+    for pname, dim in _bank_dims(module).items():
+        w = getattr(module, pname)
+        w.data = narrow_to_rank(w.data, dim, tp).clone()
+    module.tp = tp
 
 
 def tensor_parallel_of(module: nn.Module) -> TensorParallel:
@@ -243,23 +259,38 @@ def tensor_parallel_of(module: nn.Module) -> TensorParallel:
     return getattr(module, "tp", NO_TENSOR_PARALLEL)
 
 
+_LAYERS = (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+
 def tp_layers(module: nn.Module):
     """(name, layer) of every tensor-parallel layer of ``module``."""
-    return [(n, m) for n, m in module.named_modules()
-            if isinstance(m, (ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding))]
+    return [(n, m) for n, m in module.named_modules() if isinstance(m, _LAYERS)]
+
+
+def _bank_dims(module: nn.Module) -> dict:
+    return getattr(module, "TP_DIMS", None) or {}
+
+
+def tp_banks(module: nn.Module):
+    """(name, module) of every module of ``module`` that holds sliced
+    tensors of its own (``TP_DIMS``)."""
+    return [(n, m) for n, m in module.named_modules() if _bank_dims(m)]
 
 
 def tp_dims(module: nn.Module) -> dict:
     """Parameter name → the dim of the port tensor sliced over the tensor
     axis, for every parameter a rank holds a slice of (a column-parallel
     layer's weight and bias, a row-parallel layer's weight, a
-    vocab-parallel table)."""
+    vocab-parallel table, an expert bank's weights)."""
     out = {}
     for name, m in tp_layers(module):
         pre = f"{name}." if name else ""
         out[pre + "weight"] = m.tp_dim
         if isinstance(m, ColumnParallelLinear) and m.bias is not None:
             out[pre + "bias"] = 0
+    for name, m in tp_banks(module):
+        pre = f"{name}." if name else ""
+        out.update({pre + pname: dim for pname, dim in _bank_dims(m).items()})
     return out
 
 

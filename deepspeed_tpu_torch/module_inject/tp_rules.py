@@ -19,21 +19,27 @@ The tensor axis (the Megatron layout): at ``tensor`` > 1 the ``mlp``,
 ``heads`` and ``kv_heads`` dims go to ``tensor`` (q/k/v, gate and up are
 column-parallel; o and down row-parallel, over their contraction dim), and
 a vocab-facing leaf's ``vocab`` dim takes ``tensor`` first, then the
-stage-3 axes.  ``expert_mlp`` over ``tensor`` raises (MoE at ``tensor`` >
-1 is item 6.2's second part).
+stage-3 axes, and an expert bank's ``expert_mlp`` dim takes ``tensor``
+(JAX :62; ``w_gate``/``w_up`` column-, ``w_down`` row-parallel).  The
+router's ``experts_gate`` dim and Qwen2-MoE's gates (no logical axes) stay
+whole.  A q/k/v bias's JAX leaf carries no logical axes, so JAX keeps it
+whole on every rank; the port holds its heads' slice, and its spec puts
+``tensor`` on the leaf's heads dim (the port tensor's cut dim).
 
 A parameter whose port tensor is one rank's slice is ``held`` over the
 axes it is sliced on: an expert bank that holds this rank's experts only
 (``moe.ExpertsFFN`` under expert parallelism) over ``expert``, a
-tensor-parallel layer's weight (``module_inject/layers.py``, the leaf's
-``tp_dim``) over ``tensor``.  ZeRO then partitions the held slice over
-the data axes (``Partition.within_held``).
+tensor-parallel slice (``module_inject/layers.py``, the leaf's
+``tp_dim``: a layer's weight, an expert bank's) over ``tensor``, a bank
+cut both ways over ``(expert, tensor)``.  ZeRO then partitions the held
+slice over the data axes left, within the ranks that share the held
+coordinates (``Partition.within_held``).
 """
 
 from typing import Dict, Sequence
 
 from ..axes import EMBED, EXPERT_EMBED, EXPERT_MLP, EXPERTS, HEADS, KV_HEADS, MLP, VOCAB
-from ..comm.mesh import EXPERT_AXIS, ROADMAP_TENSOR_PARALLEL, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
+from ..comm.mesh import EXPERT_AXIS, TENSOR_AXIS, ZERO_AXES, Mesh, axis_size
 from ..models.convert import JaxLeaf
 from ..runtime.zero.partition import Partition, _sizes
 
@@ -47,15 +53,20 @@ def param_shardings(leaves: Dict[str, JaxLeaf], mesh: Mesh, zero_stage: int,
     expert = (EXPERT_AXIS, ) if mesh.shape.get(EXPERT_AXIS, 1) > 1 else ()
     tensor = (TENSOR_AXIS, ) if mesh.shape.get(TENSOR_AXIS, 1) > 1 else ()
     rules = {EXPERTS: expert, EXPERT_EMBED: tuple(a for a in fsdp if a != EXPERT_AXIS), MLP: tensor, HEADS: tensor,
-             KV_HEADS: tensor}
+             KV_HEADS: tensor, EXPERT_MLP: tensor}
     out = {}
     for name, leaf in leaves.items():
-        if tensor and EXPERT_MLP in leaf.logical:
-            raise NotImplementedError(f"{name!r}: an expert bank over the tensor axis ({ROADMAP_TENSOR_PARALLEL})")
         # a vocab-facing leaf shards its vocab dim (tensor, then the stage-3
         # axes) and keeps embed whole
         mapping = {**rules, VOCAB: tensor + fsdp} if VOCAB in leaf.logical else {**rules, EMBED: fsdp}
         spec = tuple(mapping.get(ax, ()) for ax in leaf.logical) if leaf.logical else ((), ) * len(leaf.shape)
+        if tensor and leaf.tp_dim is not None and not any(TENSOR_AXIS in entry for entry in spec):
+            # a slice of a leaf JAX keeps whole (a q/k/v bias [N, D], cut on
+            # its leading heads dim like the port tensor [N·D])
+            if leaf.transposed or leaf.tp_dim != 0:
+                raise ValueError(f"{name!r}: a tensor slice of a leaf without a tensor axis is cut on dim "
+                                 f"{leaf.tp_dim} of a {'transposed ' if leaf.transposed else ''}port tensor")
+            spec = (tensor, ) + spec[1:]
         for d, entry in enumerate(spec):
             if entry and leaf.shape[d] % axis_size(mesh, *entry):
                 raise ValueError(f"the layout shards dim {d} ({leaf.logical[d]}, size {leaf.shape[d]}) of {name!r} "

@@ -9,9 +9,15 @@ as flax does.
 Under expert parallelism over ``ep_size`` ranks a bank holds its rank's
 E/ep experts, ``[E/ep, in, out]``, from global expert ``first_expert`` on
 (expert ``e·E/ep`` at expert coordinate ``e``: JAX's shard of the
-``experts`` dim over the ``expert`` axis).  ``init_weights_`` draws every
-expert of the whole bank from the generator in turn and keeps its own, so
-a rank's experts equal that slice of a one-rank bank at the same seed.
+``experts`` dim over the ``expert`` axis).  Under tensor parallelism over
+``tp_size`` ranks (JAX's ``expert_mlp`` over ``tensor``, ``tp_rules.py:62``)
+each expert's FFN is cut as a Megatron MLP: ``w_gate``/``w_up`` column-
+parallel (``[E/ep, in, m/N]``), ``w_down`` row-parallel (``[E/ep, m/N,
+in]``), rank ``t`` holding units ``[t·m/N, (t+1)·m/N)``, so the bank's
+output is this rank's partial sum (the MoE layer reduces it once, after the
+combine).  ``init_weights_`` draws every expert of the whole bank, whole,
+from the generator in turn and keeps its own experts' slices, so a rank's
+weights equal that slice of a one-rank bank at the same seed.
 """
 
 import math
@@ -19,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..module_inject.layers import TensorParallel, narrow_to_rank
 
 
 def swiglu_experts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
@@ -33,23 +41,30 @@ def swiglu_experts(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_
 
 class ExpertsFFN(nn.Module):
     """E parallel SwiGLU FFNs: ``[E/ep, C, d]`` → ``[E/ep, C, d]`` (JAX ``:18``);
-    ``ep_rank`` is the rank's expert coordinate."""
+    ``ep_rank`` is the rank's expert coordinate, ``tp_size`` the tensor
+    degree its FFNs are cut over (its coordinate set by
+    ``module_inject.layers.set_tensor_parallel_``)."""
 
     WEIGHTS = ("w_gate", "w_up", "w_down")
+    #: the dim of each weight cut over the tensor axis (``expert_mlp``)
+    TP_DIMS = {"w_gate": 2, "w_up": 2, "w_down": 1}
 
     def __init__(self, num_experts: int, hidden_size: int, intermediate_size: int, dtype=torch.bfloat16,
-                 param_dtype=torch.float32, device=None, ep_size: int = 1, ep_rank: int = 0):
+                 param_dtype=torch.float32, device=None, ep_size: int = 1, ep_rank: int = 0, tp_size: int = 1):
         super().__init__()
         if num_experts % ep_size:
             raise ValueError(f"{num_experts} experts do not split over {ep_size} expert-parallel ranks")
+        if intermediate_size % tp_size:
+            raise ValueError(f"tensor parallelism over {tp_size} ranks does not divide an expert width of "
+                             f"{intermediate_size}")
         self.dtype, self.num_experts = dtype, num_experts
         self.ep_size, self.first_expert = ep_size, ep_rank * (num_experts // ep_size)
-        local = num_experts // ep_size
-        shape = (local, hidden_size, intermediate_size)
-        self.w_gate = nn.Parameter(torch.empty(shape, dtype=param_dtype, device=device))
-        self.w_up = nn.Parameter(torch.empty(shape, dtype=param_dtype, device=device))
-        self.w_down = nn.Parameter(torch.empty((local, intermediate_size, hidden_size), dtype=param_dtype,
-                                               device=device))
+        #: this rank's place on the tensor axis
+        self.tp = TensorParallel(tp_size)
+        local, m = num_experts // ep_size, intermediate_size // tp_size
+        self.w_gate = nn.Parameter(torch.empty((local, hidden_size, m), dtype=param_dtype, device=device))
+        self.w_up = nn.Parameter(torch.empty((local, hidden_size, m), dtype=param_dtype, device=device))
+        self.w_down = nn.Parameter(torch.empty((local, m, hidden_size), dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return swiglu_experts(x, self.w_gate, self.w_up, self.w_down, self.dtype)
@@ -74,15 +89,17 @@ class ExpertsFFN(nn.Module):
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
         """Each expert's matrices N(0, 1/fan_in) (``llama.init_weights_``),
-        drawn expert by expert over the whole bank; the rank keeps its own."""
+        drawn whole expert by expert over the whole bank; the rank keeps its
+        experts' tensor slices."""
         own = range(self.first_expert, self.first_expert + self.local_experts)
         for name in self.WEIGHTS:
             w = getattr(self, name)
-            std = 1.0 / math.sqrt(w.shape[1])
-            scratch = None
+            dim = self.TP_DIMS[name]
+            shape = list(w.shape[1:])
+            shape[dim - 1] *= self.tp.size
+            std = 1.0 / math.sqrt(shape[0])
+            scratch = torch.empty(shape, dtype=w.dtype, device=w.device)
             for j in range(self.num_experts):
+                scratch.normal_(0.0, std, generator=generator)
                 if j in own:
-                    w[j - self.first_expert].normal_(0.0, std, generator=generator)
-                else:
-                    scratch = torch.empty_like(w[0]) if scratch is None else scratch
-                    scratch.normal_(0.0, std, generator=generator)
+                    w[j - self.first_expert].copy_(narrow_to_rank(scratch, dim - 1, self.tp))

@@ -136,9 +136,11 @@ def dispatch_combine(x: torch.Tensor, gating: Gating, num_experts: int, capacity
     row ``expert·C + slot`` (a dropped one to a spare row past the buffer),
     and its expert's output is read back from the same row.  The routing
     weights are cast to the experts' output dtype before they weigh the
-    outputs, which are summed over the choices in float32 and rounded once,
-    as JAX's einsum over ``combine.astype(expert_out.dtype)`` does
-    (``sharded_moe.py:138``)."""
+    outputs, which are summed over the choices in float32 and returned
+    unrounded: the caller rounds it once to the experts' dtype, as JAX's
+    einsum over ``combine.astype(expert_out.dtype)`` does
+    (``sharded_moe.py:138``), after summing the partial sums of a bank cut
+    over the tensor axis."""
     s, d = x.shape
     k = gating.experts.shape[0]
     spare = num_experts * capacity
@@ -151,7 +153,7 @@ def dispatch_combine(x: torch.Tensor, gating: Gating, num_experts: int, capacity
     out = torch.cat([out, out.new_zeros(1, out.shape[1])])
     picked = out[rows].view(k, s, -1).float()
     weights = gating.weights.to(out.dtype).float()
-    return (picked * weights[..., None]).sum(0).to(out.dtype)
+    return (picked * weights[..., None]).sum(0)
 
 
 def _expert_parallel(buf: torch.Tensor, expert_fn, ep_group, ep_size: int) -> torch.Tensor:

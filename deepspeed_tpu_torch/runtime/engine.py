@@ -93,9 +93,10 @@ model and ``loss_fn(outputs, batch)`` reduces its outputs to the loss
 causal-LM token mean); a model that returns ``(logits, l_aux)``, as
 ``MixtralForCausalLM`` does, trains through its ``loss_fn``
 (``make_mixtral_loss_fn``).  A ``loss_fn`` with a ``rank_share(outputs,
-batch, denom, world)`` (the default's and Mixtral's) gives at world > 1
+batch, denom, world, tp)`` (the default's and Mixtral's) gives at world > 1
 each rank's share of JAX's loss over the global micro-batch (``denom`` the
-global token count), and the shares are summed.  Any other custom loss
+global token count, ``tp`` the engine's ``TensorParallel``: the logits are
+vocab-parallel over more than one tensor rank), and the shares are summed.  Any other custom loss
 must equal the JAX GSPMD step's over the global micro-batch for any loss,
 not only a mean: every rank gathers the micro-batch's outputs from all
 ranks (``_GatherRows``) and evaluates ``loss_fn`` over them and the global
@@ -116,15 +117,22 @@ group.  The qgZ/LoCo wire, MiCS/hpZ and the offload tiers with ``MoE``
 layers over several ranks raise naming ROADMAP item 6.1.
 
 Tensor parallelism (``tensor_parallel.autotp_size`` N > 1; JAX's mesh
-``data`` × ``tensor``, ``engine.py:128-136``): the model is the Llama
-family's (``LlamaForCausalLM``), cut to this rank's slices by the Megatron
-layout (``module_inject/layers.py``; a model built whole is cut here) and
-given its tensor group.  The rows of a batch split over the data axis only
-(``dp_rank``/``dp_world`` are the data coordinate and degree): the N ranks
-of a tensor group see the same rows.  The default loss is vocab-parallel
-(``causal_lm_loss`` with the model's ``tp``); the loss, the token count and
-the gradients are summed over the data-parallel group, the ranks of one
-tensor coordinate, by ``runtime/zero/partitioned.py`` at every stage (each
+``data`` × ``tensor``, or ``data`` × ``expert`` × ``tensor`` with MoE
+layers, ``engine.py:128-136``): the model is the Llama family's
+(``LlamaForCausalLM``, q/k/v biases included), ``MixtralForCausalLM`` or
+``Qwen2MoeForCausalLM``, cut to this rank's slices by the Megatron layout
+(``module_inject/layers.py``; an expert bank on its ``expert_mlp`` dim; a
+model built whole is cut here) and given its tensor group.  The rows of a
+batch split over the data axis only (``dp_rank``/``dp_world`` are the data
+coordinate and degree): the N ranks of a tensor group see the same rows.  The loss is vocab-parallel: the
+engine hands its ``tp`` to the loss's ``rank_share``; the ranks of
+a tensor group gate the same rows, so ``l_aux`` enters the loss once a
+data group and ``exp_counts`` sums over the data-parallel group only.  At
+expert × tensor an expert group is the ranks of one data and tensor
+coordinate (N apart) and a bank, held over ``(expert, tensor)``, is
+partitioned, reduced and broadcast within the ranks that share both
+coordinates.  The loss, the token count and the gradients are summed over
+the data-parallel group, the ranks of one tensor coordinate, by ``runtime/zero/partitioned.py`` at every stage (each
 tensor a rank holds is partitioned within that group); the global norm sums
 the squares of the tensor slices over the tensor group once and the
 replicated tensors' once, and ``found_inf`` is taken over every rank.  The
@@ -132,9 +140,9 @@ initial broadcast sends the replicated tensors from rank 0 and each slice
 from the first rank of its data-parallel group.  ``module_state_dict``,
 the master, the moments and the checkpoints hold whole tensors, gathered
 over the tensor group as well, so a checkpoint loads at any tensor degree.
-MoE layers, the other families, a custom loss without ``rank_share``, the
-qgZ/LoCo wire, MiCS/hpZ and the offload tiers at ``tensor`` > 1 raise
-naming ROADMAP item 6.2.
+The other families, a custom loss without ``rank_share``, the qgZ/LoCo
+wire, MiCS/hpZ and the offload tiers at ``tensor`` > 1 raise naming
+ROADMAP item 6.2.
 
 ``forward``, ``eval_batch`` and ``backward`` take the global micro-batch, as
 ``train_batch`` does, and return JAX's loss over all of it (its ``forward``
@@ -173,6 +181,8 @@ from ..comm import comm
 from ..comm.mesh import (EXPERT_AXIS, ROADMAP_EXPERT_PARALLEL, ROADMAP_MULTI_DEVICE, ROADMAP_TENSOR_PARALLEL,
                          TENSOR_AXIS, create_mesh, set_global_mesh)
 from ..models.llama import LlamaForCausalLM, causal_lm_loss
+from ..models.mixtral import MixtralForCausalLM
+from ..models.qwen2_moe import Qwen2MoeForCausalLM
 from ..module_inject.layers import (NO_TENSOR_PARALLEL, TensorParallel, cut_tensor_parallel_, gather_dim,
                                     set_tensor_parallel_, slice_state, tensor_parallel_of, tp_dims)
 from ..moe.layer import MoE
@@ -241,26 +251,16 @@ def _default_model_inputs(batch):
 def _default_loss_fn(outputs, batch):
     """The causal-LM token mean of ``labels`` (and ``loss_mask``) (JAX
     ``engine.py:99``).  The engine calls its ``rank_share``, with the global
-    token count as the denominator on the float32 wire at world > 1."""
+    token count as the denominator on the float32 wire at world > 1 and its
+    ``TensorParallel`` (vocab-parallel logits over more than one rank)."""
     if "labels" not in batch:
         raise KeyError("batch must contain 'labels' for the default causal-LM loss; "
                        "pass loss_fn= to initialize() for custom losses")
     return causal_lm_loss(outputs, batch["labels"], batch.get("loss_mask"))
 
 
-_default_loss_fn.rank_share = lambda outputs, batch, denom, world: causal_lm_loss(
-    outputs, batch["labels"], batch.get("loss_mask"), denom)
-
-
-def _vocab_parallel_loss_fn(tp: TensorParallel):
-    """The default loss over vocab-parallel logits (this rank's ``[B, S, V/N]``)."""
-
-    def loss_fn(outputs, batch):
-        return causal_lm_loss(outputs, batch["labels"], batch.get("loss_mask"), tp=tp)
-
-    loss_fn.rank_share = lambda outputs, batch, denom, world: causal_lm_loss(
-        outputs, batch["labels"], batch.get("loss_mask"), denom, tp=tp)
-    return loss_fn
+_default_loss_fn.rank_share = lambda outputs, batch, denom, world, tp: causal_lm_loss(
+    outputs, batch["labels"], batch.get("loss_mask"), denom, tp=tp)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -356,8 +356,6 @@ class DeepSpeedEngine:
                                  f"coordinate is {self.tp.rank}")
             else:
                 set_tensor_parallel_(model, self.tp)
-            if self.loss_fn is _default_loss_fn:
-                self.loss_fn = _vocab_parallel_loss_fn(self.tp)
         #: parameter name → the dim of the port tensor cut over the tensor axis
         self._tp_cut: Dict[str, int] = tp_dims(model) if self.tp_size > 1 else {}
 
@@ -517,17 +515,19 @@ class DeepSpeedEngine:
                  **{b: True for b in off}}
         return [k for k, v in named.items() if v]
 
+    #: the models that train at ``tensor`` > 1
+    TENSOR_PARALLEL_MODELS = (LlamaForCausalLM, MixtralForCausalLM, Qwen2MoeForCausalLM)
+
     def _check_tensor_parallel_features(self, model: nn.Module, loss_fn) -> None:
         """What of tensor parallelism is not ported raises naming ROADMAP
         item 6.2: a model other than the Llama family's
-        ``LlamaForCausalLM`` (MoE layers, the other families), q/k/v biases
-        (their JAX leaves are whole), a custom loss without ``rank_share``,
-        the qgZ/LoCo wire, MiCS/hpZ and the offload tiers."""
+        ``LlamaForCausalLM``, ``MixtralForCausalLM`` and
+        ``Qwen2MoeForCausalLM`` (the other families), a custom loss without
+        ``rank_share``, the qgZ/LoCo wire, MiCS/hpZ and the offload tiers."""
         what = []
-        if type(model) is not LlamaForCausalLM or self.moe_layers:
-            what.append(f"{type(model).__name__} (the Llama family's LlamaForCausalLM is ported)")
-        elif model.cfg.attention_bias:
-            what.append("attention_bias (q/k/v biases)")
+        if type(model) not in self.TENSOR_PARALLEL_MODELS:
+            names = ", ".join(c.__name__ for c in self.TENSOR_PARALLEL_MODELS)
+            what.append(f"{type(model).__name__} (ported: {names})")
         if loss_fn is not None and not hasattr(loss_fn, "rank_share"):
             what.append("a custom loss_fn without rank_share (it would see vocab-parallel logits)")
         what += self._zero_wire_and_offload_features()
@@ -550,7 +550,7 @@ class DeepSpeedEngine:
             raise ValueError("an MoE layer built for expert parallelism in an engine of moe.expert_parallel_size 1")
         group = groups.get_expert_parallel_group() if self.ep > 1 else None
         for m in self.moe_layers:
-            m.set_expert_parallel(group, self.dp_world)
+            m.set_expert_parallel(group, self.dp_world, self.dp_group)
 
     @torch.no_grad()
     def _broadcast_state(self) -> None:
@@ -562,14 +562,18 @@ class DeepSpeedEngine:
         banks = self._banks
         ed_group = groups.get_expert_data_parallel_group() if banks else None
         ed_world = comm.get_world_size(ed_group) if banks else 1
+        at = self.mesh.coords(comm.get_rank())
+        # the first rank of a bank's expert-data group: data 0 at its expert and tensor coordinates
+        bank_src = self.mesh.rank({EXPERT_AXIS: at[EXPERT_AXIS], TENSOR_AXIS: at[TENSOR_AXIS]})
         for name, t in self.module.state_dict().items():
-            if name in self._tp_cut:
+            if name in banks:
+                if ed_world > 1:
+                    comm.broadcast(t, bank_src, group=ed_group)
+            elif name in self._tp_cut:
                 if self.dp_world > 1:
                     comm.broadcast(t, self.tp.rank, group=self.dp_group)
-            elif name not in banks:
+            else:
                 comm.broadcast(t, 0)
-            elif ed_world > 1:
-                comm.broadcast(t, self.mesh.coords(comm.get_rank())[EXPERT_AXIS], group=ed_group)
 
     @property
     def _banks(self) -> Dict[str, MoE]:
@@ -839,7 +843,7 @@ class DeepSpeedEngine:
         if share is not None:
             per_rank = training and self.qgz
             return share(outputs, mb, self._global_token_count(mb, per_rank=per_rank),
-                         1 if per_rank else self.dp_world)
+                         1 if per_rank else self.dp_world, self.tp)
         if global_mb is not None:
             if not isinstance(outputs, torch.Tensor):
                 raise NotImplementedError("a custom loss_fn over several data-parallel ranks gathers the model's "

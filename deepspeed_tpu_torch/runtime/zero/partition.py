@@ -25,7 +25,7 @@ unrolled tree (``scan_layers=False``): one leaf per port tensor.
 
 An expert bank under expert parallelism is itself one rank's slice over
 the ``expert`` axis (``held``), and so is a tensor-parallel layer's weight
-over the ``tensor`` axis: ``Partition.within_held`` is the partition of
+over the ``tensor`` axis, and a bank cut both ways over both: ``Partition.within_held`` is the partition of
 that port tensor over the remaining axes, on the ranks that hold the same
 slice (``group="expert_data"``, ranked by their ``d``, for a bank; at
 ``tensor`` > 1 every tensor's, held or replicated on the tensor axis, is

@@ -14,10 +14,11 @@ axes is the ranks that share every other coordinate (``axis_ranks``):
 * the tensor (model) parallel group of a rank is the N consecutive ranks
   that share its ``d`` (``None`` at ``tensor`` 1);
 * the expert-parallel group of a rank is the ranks that share its ``d``
-  (consecutive ranks: the dispatch all-to-all runs inside it), and its
-  expert-data-parallel group the ranks that share its ``e`` (an expert
-  bank's replicas: its gradients are reduced inside it).  At ``expert`` 1
-  the latter is the data-parallel group.
+  and ``t`` (consecutive ranks at ``tensor`` 1, T apart at ``tensor`` T:
+  the dispatch all-to-all runs inside it), and its expert-data-parallel
+  group the ranks that share its ``e`` and ``t`` (an expert bank's
+  replicas: its gradients are reduced inside it).  At ``expert`` 1 the
+  latter is the data-parallel group.
 
 ``dist.new_group`` is collective: the groups over some axes are made all
 at once, on every rank in one order, at their first lookup (which every

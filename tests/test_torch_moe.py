@@ -14,7 +14,7 @@ JAX package's (``deepspeed_tpu/moe``) on the CPU.
     within 1e-6, ``exp_counts`` equal, both in training and as the paged
     twin calls it (``train=False``, the evaluation capacity);
   * the raises: ``moe.expert_parallel_size`` 2, an MoE model on two
-    data-parallel ranks, the token mappings above tensor-parallel size 1,
+    data-parallel ranks, the token mappings at tensor-parallel size 1 and 2,
     and a non-default layer setting under ``moe``, which the engine does not
     read.
 """
@@ -204,8 +204,12 @@ def test_moe_model_over_two_ranks_raises_naming_item_6(monkeypatch):
 
 
 def test_token_mappings_are_the_identity_at_tp_1_and_raise_above():
-    x = torch.randn(2, 3, 4)
+    """Degree 1 returns the tensor itself; above it drop keeps the rank's
+    token slice and raises where the degree does not divide the token dim
+    (the collectives run in ``tests/test_torch_moe_tensor_parallel.py``)."""
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+    x = torch.randn(2, 4, 3)
     assert mappings.drop_tokens(x, 1) is x and mappings.gather_tokens(x, 1) is x
-    for fn in (mappings.drop_tokens, mappings.gather_tokens):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn(x, 1, tensor_parallel_size=2)
+    torch.testing.assert_close(mappings.drop_tokens(x, 1, TensorParallel(2, 1)), x[:, 2:], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="does not divide"):
+        mappings.drop_tokens(torch.randn(2, 3, 4), 1, TensorParallel(2, 0))
