@@ -24,8 +24,10 @@ source, all started together.  Phases:
      heads on one kv head at decode and a 256-token chunk, a window of 4096
      over 6000-key contexts at decode and prefill, alibi at 32 heads of 64,
      Qwen1.5-MoE's 16 heads on 16 kv heads of 128 at decode and prefill,
-     and a tensor-2 rank's heads of Llama-3-8B (16:4) and Qwen1.5-MoE
-     (8:8) at phase 27's decode batch and a chunk — each timed beside its
+     a tensor-2 rank's heads of Llama-3-8B (16:4) and Qwen1.5-MoE (8:8),
+     and of Phi-2 (16:16, D 80), OPT-6.7B (16:16, D 128) and Falcon-RW-1B
+     (16:16, D 64, alibi with the second rank's slopes) at phase 27's
+     decode batch and a chunk — each timed beside its
      bound, plain and SDPA (same mask or bias) — and in float32, with five
      faulty kernels of those routes rejected;
   3. serving: ``build_engine`` → ``put`` / ``step`` on Llama-3-8B at full
@@ -49,7 +51,7 @@ source, all started together.  Phases:
      96 (32 heads on 32), and Falcon-7B's 71 query heads of 64 on one kv
      head (the wrappers' repeated-KV route), causal in bf16 and float32,
      each timed beside its bound, plain and SDPA, and in bf16 with a query
-     offset;
+     offset; and a tensor-2 rank's 16 heads of Phi-2 (D 80) in bf16;
   6. training: ``initialize`` → ``train_batch`` on Llama-125M at the JAX
      package's bench configuration (B 24, S 1024, bf16, AdamW, ZeRO-2,
      remat ``flash_saveable``), full width and depth with seeded random
@@ -174,7 +176,9 @@ source, all started together.  Phases:
      script (``model.safetensors`` by its own writer) at its published widths
      cut to ZOO_LAYERS layers; phase 3's mix and checks (K3 == layers x
      forwards), then float32 greedy streams identical on the kernel and
-     plain paths; each directory removed after its model;
+     plain paths; each directory removed after its model, but
+     Falcon-RW-1B's and OPT-6.7B's, kept (with their one-card streams)
+     for phase 27(a);
  18. Qwen1.5-MoE-A2.7B at full width and depth (after phase 17): the
      published ``Qwen/Qwen1.5-MoE-A2.7B`` config in code (60 experts, top-4,
      a shared expert, 16 heads of 128), 14.31 B seeded bf16 parameters made
@@ -205,7 +209,8 @@ source, all started together.  Phases:
      buffer — K1 == 32 x forwards, ms a forward, tok/s; phase 4's bound on
      the bf16 logits against the plain path and float32; float32 greedy
      streams identical on both paths at 2 layers; GPT-J (head dim 256)
-     refused by injection; then GPT-2 (124M) trained 5 steps through
+     refused by injection; phase 27(a)'s reference (the first row's
+     logits, a short greedy buffer); then GPT-2 (124M) trained 5 steps through
      ``initialize`` with ``attention_impl="flash"`` (B 8, S 1024, bf16):
      K1/K2a/K2b 12 a step, losses finite;
  22. weight-only int8 serving (after phase 14, on phase 3's weights):
@@ -272,7 +277,16 @@ source, all started together.  Phases:
      the 2 narrow layers, in 2 micro-batches of one row a data rank (the
      gating groups of expert 2 × tensor 1), losses within 1e-6 of expert 2
      × tensor 1's, the router and norms bit-identical, the first step's
-     ``exp_counts`` equal.
+     ``exp_counts`` equal.  Then Phi-2's widths at 2 layers over data 2 ×
+     tensor 2 (ZeRO-2, bf16, one step on phase 27(b)'s rows): a rank's
+     209,784,320 parameters and its state bytes against the reckoning,
+     K1/K2a/K2b once a layer on 16:16 heads, the first loss within 2e-3 of
+     a data-4 engine's on the same rows, the replicated tensors
+     bit-identical; ``partition_activations`` on one Phi-2 block at tensor
+     2 (values and gradients equal to the unpartitioned checkpoint's, half
+     its saved bytes, one gather in the recompute); and in float32 at 2
+     narrow layers Falcon-RW (alibi), Falcon's parallel block, OPT and Phi
+     at tensor 2 within 1e-6 of tensor 1, replicated tensors bit-identical.
  26. offload, after phase 24 (phase 1 prints the host's ``MemTotal`` and
      ``MemAvailable``): Phi-2 as phase 24 trains it but at 4 of its 32
      blocks (widths kept, for the script's time), first without offload
@@ -327,7 +341,22 @@ source, all started together.  Phases:
      phase 18's (e its plain path's bf16 rounding measure); float32 at 2
      layers, the whole seeded model through ``Qwen2MoePolicy.convert`` cut
      to the rank's slices by the engine (``_rank_state``): the stream of
-     phase 4's first prompt equal to one card's;
+     phase 4's first prompt equal to one card's.  Then Phi-2 at full width
+     and depth (seeded under HF's names, each tensor cut as it is drawn):
+     a rank's 1,390,008,320 of 2,779,683,840 parameters, its arena half one
+     card's, K3 == 32 × forwards on 16:16 heads of 80, the collectives a
+     forward (two row-parallel all-reduces a parallel block), the ranks'
+     tokens equal, each stream the parent's one-card stream up to a bf16
+     tie, first-step logits within 2·e; phase 17's Falcon-RW-1B (alibi) and
+     OPT-6.7B directories through ``build_hf_engine`` at tensor 2, each
+     held to phase 17's bf16 streams up to a tie and its float32 streams
+     exactly; Falcon-7B at tensor 2 refused with JAX's error; and the v1
+     engine: pythia-6.9b (phase 21's weights) through
+     ``init_inference(tensor_parallel=2, replace_with_kernel_inject=True)``
+     — 3,429,048,320 parameters a rank, K1 == 32 × forwards on 16:16
+     heads, the last-position logits of phase 21's first row within 2·e of
+     one card's (e phase 21's), a short greedy buffer equal to one card's
+     up to a bf16 tie;
      (b) training, in phase 25's W = 4 spawn as data 2 x tensor 2:
      Llama-125M as phase 6 (bf16, AdamW, ZeRO-2, remat ``flash_saveable``,
      S 1024) on B 8, 4 rows a data rank — a rank's 67,062,528 parameters
@@ -343,6 +372,7 @@ Prints a ``{"kernels": [...]}`` line, then as its last line
 there is no GPU or any phase fails.
 """
 
+import atexit
 import copy
 import dataclasses
 import gc
@@ -818,6 +848,18 @@ def k3_zoo_mutants(cases, short) -> dict:
     return caught
 
 
+def tp_zoo_k3_heads() -> dict:
+    """label → ``make_case`` keywords of phase 27(a)'s zoo ranks at tensor 2:
+    Phi-2's, OPT-6.7B's and Falcon-RW-1B's 16 heads a rank (the last with
+    the alibi slopes of tensor rank 1's heads)."""
+    from deepspeed_tpu_torch.models.falcon import rank_alibi_slopes
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+    rw = policy_for("falcon").build_config(ZOO["falcon-rw-1b"][0])
+    slopes = rank_alibi_slopes(rw, TensorParallel(TP_SIZE, 1), "cpu").numpy()
+    return {"tp_phi2": dict(h=16, n_kv=16, d=80), "tp_opt": dict(h=16, n_kv=16, d=128),
+            "tp_falcon_rw": dict(h=16, n_kv=16, d=64, slopes=slopes)}
+
+
 def phase_kernels() -> dict:
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     rng = np.random.default_rng(0)
@@ -859,6 +901,13 @@ def phase_kernels() -> dict:
                                           torch.bfloat16, flush)
     if rows["tp_16_4_decode"]["n_split"] != TP_K3_SPLIT:
         raise AssertionError(f"K3 at 16:4 chose {rows['tp_16_4_decode']['n_split']} splits, not {TP_K3_SPLIT}")
+    # phase 27(a)'s zoo ranks at tensor 2: Phi-2 (16:16, D 80), OPT-6.7B (16:16, D 128) and Falcon-RW-1B (16:16,
+    # D 64, alibi with the second rank's slopes: heads 16-31 of the model's 32), the same batch and chunk
+    for label, heads in tp_zoo_k3_heads().items():
+        rows[f"{label}_decode"] = run_case(f"{label}_decode", make_case(tp_decode, [1] * 4, 1, torch.bfloat16,
+                                                                        seed=16, **heads), torch.bfloat16, flush)
+        rows[f"{label}_chunk"] = run_case(f"{label}_chunk", make_case(*prefill, torch.bfloat16, seed=17, **heads),
+                                          torch.bfloat16, flush)
     k3_merge(cases["decode"])
     k3_mutants(cases["decode"], cases["prefill"])
     # how the decode time moves with the split, at four decode batches (the
@@ -1162,6 +1211,8 @@ FLASH_SHAPES = {"bench": dict(b=24, s=1024, h=12, hk=12, d=64), "llama3-8b": dic
 # and Falcon-7B's 71 query heads on one kv head (the repeated-KV route)
 FLASH_ZOO_SHAPES = {"phi-2": dict(b=2, s=2048, h=32, hk=32, d=80), "phi-3-mini": dict(b=2, s=2048, h=32, hk=32, d=96),
                     "falcon-7b": dict(b=2, s=2048, h=71, hk=1, d=64)}
+# a tensor-2 rank's heads of Phi-2 in training (phase 25's data 2 x tensor 2 run: 16 of its 32 heads of 80)
+FLASH_TP_SHAPES = {"phi-2 tp2": dict(b=2, s=2048, h=16, hk=16, d=80)}
 # untimed shapes whose blocks hold rows that are not valid: at rep 3 a block
 # has 63 rows (21 positions) and the last one stops at Sq; at rep 2 with a
 # query offset the rows end at Sq 192, below the 256 keys
@@ -1245,7 +1296,7 @@ def flash_bounds(b, sq, sk, h, hk, d, dtype, vis) -> dict:
 
 
 def flash_case(shape: str, dtype, causal: bool, sq: int, sk: int, q_offset: int, flush, timed: bool) -> dict:
-    g = {**FLASH_SHAPES, **FLASH_ZOO_SHAPES, **FLASH_EDGE_SHAPES}[shape]
+    g = {**FLASH_SHAPES, **FLASH_ZOO_SHAPES, **FLASH_TP_SHAPES, **FLASH_EDGE_SHAPES}[shape]
     b, h, hk, d = g["b"], g["h"], g["hk"], g["d"]
     gen = torch.Generator(device="cuda").manual_seed(sq + sk + q_offset + int(causal))
     q, do = (torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
@@ -1340,6 +1391,10 @@ def phase_flash_kernels() -> dict:
         timed[shape] = flash_case(shape, torch.bfloat16, True, s, s, 0, flush, timed=True)
         timed[f"{shape} f32"] = flash_case(shape, torch.float32, True, s, s, 0, flush, timed=True)
         flash_case(shape, torch.bfloat16, True, s // 2, s, s // 2, flush, timed=False)   # queries at an offset
+    for shape, g in FLASH_TP_SHAPES.items():
+        s = g["s"]
+        timed[shape] = flash_case(shape, torch.bfloat16, True, s, s, 0, flush, timed=True)
+        flash_case(shape, torch.bfloat16, True, s // 2, s, s // 2, flush, timed=False)
     del flush
     torch.cuda.empty_cache()
     return timed
@@ -2988,9 +3043,11 @@ def dp_rank(rank: int) -> dict:
     return res
 
 
-def dp_rank_main(rank: int, init_method: str, queue) -> None:
+def dp_rank_main(rank: int, init_method: str, queue, tp_inputs=None) -> None:
     """A spawned rank: both ranks share the one card (cuda:0) over gloo.
-    After phase 11's work the two ranks serve phase 27(a) over tensor 2."""
+    After phase 11's work the two ranks serve phase 27(a) over tensor 2
+    (with ``tp_inputs``, the zoo's directories and the v1 engine's
+    reference, its dense zoo and v1 runs too)."""
     from deepspeed_tpu_torch.comm import comm
     try:
         torch.cuda.set_device(0)
@@ -3004,6 +3061,8 @@ def dp_rank_main(rank: int, init_method: str, queue) -> None:
                                                                          1024)),
                           "f32": tp_serve_f32(lambda: qwen_whole_engine(qwen_f32_hf(), torch.float32,
                                                                         TP_QWEN_F32_SEED, 256))}
+        if tp_inputs is not None:
+            out["tp_zoo"] = tp_zoo_rank(tp_inputs)
         out["done_at"] = time.time()
         queue.put((rank, out, None))
     except BaseException:
@@ -3014,11 +3073,12 @@ def dp_rank_main(rank: int, init_method: str, queue) -> None:
             torch.distributed.destroy_process_group()
 
 
-def phase_data_parallel(smi: str) -> dict:
+def phase_data_parallel(smi: str, tp_inputs=None) -> dict:
     """The data-parallel path through its entry points: two ranks on the one
     card (spawned; gloo: NCCL refuses two ranks on one card), each
     ``initialize`` → ``train_batch`` on Llama-125M at full width and depth
-    with ``zero_quantized_gradients`` (qgZ), 12 of the 24 rows per rank."""
+    with ``zero_quantized_gradients`` (qgZ), 12 of the 24 rows per rank;
+    then phase 27(a) on the same ranks (``tp_inputs``: ``tp_zoo_rank``'s)."""
     import multiprocessing
     import socket
     gc.collect()
@@ -3028,7 +3088,8 @@ def phase_data_parallel(smi: str) -> dict:
         port = s.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=dp_rank_main, args=(r, f"tcp://127.0.0.1:{port}", queue)) for r in range(DP_WORLD)]
+    procs = [ctx.Process(target=dp_rank_main, args=(r, f"tcp://127.0.0.1:{port}", queue, tp_inputs))
+             for r in range(DP_WORLD)]
     for p in procs:
         p.start()
     ranks = {}
@@ -3103,6 +3164,7 @@ def phase_data_parallel(smi: str) -> dict:
         raise AssertionError(f"data-parallel phase failed {bad}")
     res["tp_ranks"] = [ranks[r]["tp"] for r in range(DP_WORLD)]   # phase 27(a)'s, checked by its phase
     res["tp_qwen_ranks"] = [ranks[r]["tp_qwen"] for r in range(DP_WORLD)]
+    res["tp_zoo_ranks"] = [ranks[r].get("tp_zoo") for r in range(DP_WORLD)]
     return res
 
 
@@ -3419,6 +3481,7 @@ def zero_rank(rank: int, world: int) -> dict:
                                                keep_params=rank == 0)
         if world == 2 * TP_SIZE:
             out["tp"] = tensor_parallel_rank(meter)
+            out["zoo_tp"] = zoo_tensor_parallel_rank(meter)
         if world == 2 * EP_SIZE:
             out["ep"] = expert_parallel_rank(meter)
     return out
@@ -3450,8 +3513,8 @@ def zero_rank_main(rank: int, init_methods, queue) -> None:
             torch.distributed.destroy_process_group()
 
 
-def spawn_ranks(target, n: int, timeout: float, groups=(None, )) -> list:
-    """``target(rank, init_methods, queue)`` on ``n`` spawned processes,
+def spawn_ranks(target, n: int, timeout: float, groups=(None, ), extra=()) -> list:
+    """``target(rank, init_methods, queue, *extra)`` on ``n`` spawned processes,
     ``init_methods`` a free localhost TCP address for each key of
     ``groups``; their results in rank order, or raises with a failed
     rank's traceback.  Every process is joined (or terminated) before it
@@ -3467,7 +3530,7 @@ def spawn_ranks(target, n: int, timeout: float, groups=(None, )) -> list:
             init_methods[key] = f"tcp://127.0.0.1:{s.getsockname()[1]}"
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=target, args=(r, init_methods, queue)) for r in range(n)]
+    procs = [ctx.Process(target=target, args=(r, init_methods, queue) + tuple(extra)) for r in range(n)]
     for p in procs:
         p.start()
     ranks = {}
@@ -3700,8 +3763,11 @@ def phase_zero(smi: str, mixtral_params: int, first_rows_loss: float) -> dict:
     log("  expert parallel: " + json.dumps(res["expert_parallel"]))
     res["tensor_parallel"], tp_checks, res["tp_launches"] = phase_tensor_parallel_training(spawned, first_rows_loss)
     checks.update(tp_checks)
+    res["zoo_tensor_parallel"], zoo_checks, res["zoo_tp_launches"] = phase_zoo_tensor_parallel_training(spawned)
+    checks.update(zoo_checks)
     log("== phase 27(b): tensor-parallel training in phase 25's W = 4 spawn (data 2 x tensor 2)")
     log("  tensor parallel training: " + json.dumps(res["tensor_parallel"]))
+    log("  tensor parallel training of the dense zoo: " + json.dumps(res["zoo_tensor_parallel"]))
     res["launches"] = launches
     res["checks"] = checks
     log(f"  zero: one spawn of {max(ZERO_RUNS)} ranks, {res['spawn_s']:.1f} s")
@@ -3709,6 +3775,238 @@ def phase_zero(smi: str, mixtral_params: int, first_rows_loss: float) -> dict:
     if bad:
         raise AssertionError(f"ZeRO phase failed {bad}")
     return res
+
+
+# ---------------------------------------------------------------- phase 25: the dense zoo at data 2 x tensor 2
+
+#: Phi-2's widths cut to ZOO_LAYERS layers over data 2 x tensor 2 (ZeRO-2, bf16, one step on phase 27(b)'s
+#: rows): a rank's parameters and the whole model's; of a rank's, those held whole over its data group: the
+#: 1-D biases cut over ``tensor`` (fc1's 2 x 5120, the head's 25,600) leave no dim for ``data`` (JAX keeps them
+#: whole and puts ``data`` on them); its first loss within TP_PHI2_TRAIN_REL of data 4's (``eval_batch`` of a
+#: data-4 engine on the same rows: a step's loss comes before its update)
+TP_PHI2_TRAIN_RANK_PARAMS, TP_PHI2_TRAIN_WHOLE_PARAMS, TP_PHI2_TRAIN_DATA_WHOLE = 209_784_320, 419_543_040, 35_840
+TP_PHI2_TRAIN_REL = 2e-3
+#: float32 at 2 narrow layers (hidden 512, 8 heads of 64, vocab 4096), ZeRO-0, TP_ZOO_F32_STEPS AdamW steps on
+#: TP_ZOO_F32_ROWS rows of TP_ZOO_F32_S tokens: tensor 2's losses within TP_ZOO_F32_REL of tensor 1's (data 4)
+TP_ZOO_F32_ROWS, TP_ZOO_F32_S, TP_ZOO_F32_STEPS, TP_ZOO_F32_REL = 8, 256, 2, 1e-6
+#: one Phi-2 block (its widths, float32) under ``checkpointing.checkpoint`` at tensor 2: B 1 of this S
+TP_PARTITION_S = 1024
+
+
+def tp_zoo_f32_configs() -> dict:
+    """The narrow float32 families of phase 25's tensor-2 parity: Falcon-RW
+    (alibi: the plain attention, as JAX) and Falcon's new architecture
+    (the parallel block, 8:4 heads), OPT and Phi (16 heads' partial rotary)."""
+    narrow = dict(vocab_size=4096, hidden_size=512, num_hidden_layers=2, num_attention_heads=8,
+                  max_position_embeddings=TP_ZOO_F32_S, dtype=torch.float32, remat=True,
+                  remat_policy="flash_saveable")
+    return {"falcon-rw": FalconConfig(**narrow, num_kv_heads=8, alibi=True, parallel_attn=False, bias=True,
+                                      attention_impl="reference"),
+            "falcon-new": FalconConfig(**narrow, num_kv_heads=4, new_decoder_architecture=True,
+                                       tie_word_embeddings=False, attention_impl="flash"),
+            "opt": OPTConfig(**narrow, ffn_dim=2048, attention_impl="flash"),
+            "phi": PhiConfig(**narrow, intermediate_size=2048, num_key_value_heads=8, partial_rotary_factor=0.5,
+                             attention_impl="flash")}
+
+
+def zoo_tp_train_run(cfg, rows: torch.Tensor, steps: int, meter: WireMeter, tp: int = 1, stage: int = 0,
+                     evaluate: bool = False) -> dict:
+    """One engine of ``cfg``'s family on this rank (seeded whole, cut by the
+    engine over ``tp`` tensor-parallel ranks), ``steps`` train_batch calls
+    on ``rows`` (or with ``evaluate`` one ``eval_batch``); its figures."""
+    from deepspeed_tpu_torch.comm import comm
+    t_start = time.perf_counter()
+    acc = get_accelerator()
+    gc.collect()
+    torch.cuda.empty_cache()
+    acc.synchronize()
+    acc.reset_peak_memory_stats()
+    ds = {"train_batch_size": rows.shape[0], "steps_per_print": 0, "gradient_clipping": 1.0,
+          "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+          "zero_optimization": {"stage": stage}}
+    if cfg.dtype == torch.bfloat16:
+        ds["bf16"] = {"enabled": True}
+    if tp > 1:
+        ds["tensor_parallel"] = {"autotp_size": tp}
+    model = init_weights_(training_model(cfg), torch.Generator(device="cuda").manual_seed(25))
+    engine = deepspeed_tpu_torch.initialize(model=model, config=ds, device="cuda")[0]
+    del model
+    batch = {"input_ids": rows, "labels": rows}
+    reset_launch_counts()
+    calls, wire, t0 = comm.call_counts.copy(), meter.seconds, time.perf_counter()
+    if evaluate:
+        losses = [float(engine.eval_batch(batch=batch))]
+    else:
+        losses = [float(engine.train_batch(batch=batch)) for _ in range(steps)]
+    window_s = time.perf_counter() - t0
+    attn = first_attention(engine.module)
+    res = {"losses": losses, "launches": {f.__name__: f.launches for f in FLASH_COUNTERS},
+           "state_bytes": engine.state_bytes(), "heads": (attn.n_heads, attn.n_kv),
+           "local_params": sum(p.numel() for p in engine.module.parameters()),
+           "collectives": dict(comm.call_counts - calls), "step_ms": 1e3 * window_s / len(losses),
+           "wire_ms": 1e3 * (meter.seconds - wire) / len(losses), "peak_mem_gb": acc.max_memory_allocated() / 1e9}
+    if tp > 1:   # the replicated tensors (whole over the data group), hashed on the card; the whole model's size
+        idx = [i for i, n in enumerate(engine.param_names) if n not in engine._tp_cut]
+        res["replicated_digest"] = tuple(device_hash(t) for t in engine.zero.full_params(idx))
+        res["n_params"] = sum(v.numel() for v in engine.module_state_dict().values())
+    res["seconds"] = time.perf_counter() - t_start
+    del engine
+    return res
+
+
+def partition_activations_check() -> dict:
+    """One Phi-2 block (float32) at tensor 2 on the global mesh (data 2 x
+    tensor 2), its input x [1, TP_PARTITION_S, 2560] and positions through
+    ``checkpointing.checkpoint`` with ``partition_activations``, against the
+    reentrant ``torch.utils.checkpoint`` (which saves its inputs whole): the
+    output, x's gradient and the block's gradients, the floating bytes
+    autograd saved (``saved_tensors_hooks``), and the gathers counted in
+    the recompute."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models.phi import PhiBlock
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel, set_tensor_parallel_
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing
+    from deepspeed_tpu_torch.utils import groups
+    cfg = dataclasses.replace(policy_for("phi").build_config(ZOO["phi-2"][0]), dtype=torch.float32,
+                              param_dtype=torch.float32, attention_impl="flash")
+    tp = TensorParallel(TP_SIZE, groups.get_tensor_model_parallel_rank(), groups.get_tensor_model_parallel_group())
+    block = set_tensor_parallel_(PhiBlock(cfg, device="cuda", tp_size=TP_SIZE), tp)
+    init_weights_(block, torch.Generator(device="cuda").manual_seed(28))
+    x = torch.randn((1, TP_PARTITION_S, cfg.hidden_size), generator=torch.Generator(device="cuda").manual_seed(29),
+                    device="cuda")
+    positions = torch.arange(TP_PARTITION_S, device="cuda")[None]
+
+    def run(fn):
+        xi = x.clone().requires_grad_()
+        saved = []
+
+        def pack(t):
+            if t.is_floating_point():
+                saved.append(t.numel() * t.element_size())
+            return t
+
+        block.zero_grad(set_to_none=True)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = fn(xi, positions)
+        out.square().sum().backward()
+        return out.detach(), [xi.grad] + [p.grad for p in block.parameters()], sum(saved)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    checkpointing.configure(partition_activations=True)
+    comm.tensor_parallel_kinds.clear()
+    try:
+        out, grads, saved = run(lambda *a: checkpointing.checkpoint(block, *a))
+        kinds = {f"{k}_{d}": n for (k, d), n in comm.tensor_parallel_kinds.items()}
+    finally:
+        checkpointing.reset()
+    want, want_grads, want_saved = run(lambda *a: torch.utils.checkpoint.checkpoint(block, *a, use_reentrant=True))
+    diff = max(float((a - b).abs().max()) for a, b in zip([out] + grads, [want] + want_grads))
+    return {"values_equal": bool(torch.equal(out, want)), "grads_equal": all(torch.equal(a, b)
+                                                                             for a, b in zip(grads, want_grads)),
+            "max_abs_diff": diff, "saved_bytes": saved, "whole_saved_bytes": want_saved,
+            "gathers": kinds.get("partition_activations_backward", 0), "kinds": kinds}
+
+
+def zoo_tensor_parallel_rank(meter: WireMeter) -> dict:
+    """Slice 25's runs on one of phase 25's W = 4 ranks: Phi-2's widths at
+    ZOO_LAYERS layers (bf16, ZeRO-2) evaluated at data 4 and trained one step
+    at data 2 x tensor 2 on phase 27(b)'s rows, ``partition_activations``
+    at tensor 2, then each narrow float32 family at tensor 1 and 2."""
+    cfg = dataclasses.replace(policy_for("phi").build_config(cut_layers(ZOO["phi-2"][0], ["num_hidden_layers"],
+                                                                        ZOO_LAYERS)),
+                              remat=True, remat_policy="flash_saveable", attention_impl="flash")
+    rows = dp_batch()["input_ids"][:TP_TRAIN_ROWS]
+    out = {"phi2_data4": zoo_tp_train_run(cfg, rows, 1, meter, stage=2, evaluate=True),
+           "phi2": zoo_tp_train_run(cfg, rows, 1, meter, tp=TP_SIZE, stage=2)}
+    out["partition"] = partition_activations_check()
+    gen = np.random.default_rng(25)
+    f32_rows = torch.from_numpy(gen.integers(0, 4096, (TP_ZOO_F32_ROWS, TP_ZOO_F32_S), dtype=np.int64)).cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out["f32"] = {name: {tp: zoo_tp_train_run(c, f32_rows, TP_ZOO_F32_STEPS, meter, tp=tp) for tp in (1, TP_SIZE)}
+                  for name, c in tp_zoo_f32_configs().items()}
+    return out
+
+
+def zoo_tp_training_main(rank: int, init_methods, queue) -> None:
+    """A spawned rank of ``phase_zoo_tensor_parallel_training_alone``:
+    ``zoo_tensor_parallel_rank`` on four gloo ranks sharing the card."""
+    from deepspeed_tpu_torch.comm import comm
+    try:
+        torch.cuda.set_device(0)
+        world = 2 * TP_SIZE
+        comm.init_distributed(dist_backend="gloo", init_method=init_methods[None], rank=rank, world_size=world,
+                              timeout=ZERO_TIMEOUT_S, verbose=False)
+        with WireMeter() as meter:
+            queue.put((rank, {world: {"zoo_tp": zoo_tensor_parallel_rank(meter)}}, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if comm.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_zoo_tensor_parallel_training_alone(smi: str) -> dict:
+    """Phase 25's Phi-2 and dense-zoo runs at data 2 x tensor 2 without the
+    rest of phase 25: four ranks of their own.  Raises if a check fails."""
+    build_kernel("flash_attention")     # once here: the ranks would race to build it
+    res, checks, _ = phase_zoo_tensor_parallel_training(spawn_ranks(zoo_tp_training_main, 2 * TP_SIZE,
+                                                                    ZERO_TIMEOUT_S))
+    res["card"] = smi
+    log("  tensor parallel training of the dense zoo: " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tensor-parallel zoo training failed {bad}")
+    return res
+
+
+def phase_zoo_tensor_parallel_training(spawned: list) -> tuple:
+    """Slice 25's figures and checks from phase 25's W = 4 ranks, and their
+    K1/K2a/K2b launches."""
+    world = 2 * TP_SIZE
+    runs = [r[world]["zoo_tp"] for r in spawned[:world]]
+    phi = [r["phi2"] for r in runs]
+    ref = runs[0]["phi2_data4"]["losses"][0]
+    dp, whole = world // TP_SIZE, TP_PHI2_TRAIN_DATA_WHOLE
+    state = (TP_PHI2_TRAIN_RANK_PARAMS - whole) // dp + whole
+    want = {"params": 2 * TP_PHI2_TRAIN_RANK_PARAMS, "master": 4 * state, "moments": 8 * state}
+    loss = phi[0]["losses"][0]
+    checks = {
+        "zoo_tp_phi2_local_params": all(r["local_params"] == TP_PHI2_TRAIN_RANK_PARAMS for r in phi),
+        "zoo_tp_phi2_whole_params": all(r["n_params"] == TP_PHI2_TRAIN_WHOLE_PARAMS for r in phi),
+        "zoo_tp_phi2_state_bytes_reckoned": all(r["state_bytes"] == want for r in phi),
+        "zoo_tp_phi2_heads_16_16": all(r["heads"] == (16, 16) for r in phi),
+        "zoo_tp_phi2_k1_k2_once_per_layer": all(n == ZOO_LAYERS for r in phi for n in r["launches"].values()),
+        "zoo_tp_phi2_losses_equal_on_ranks": all(r["losses"] == phi[0]["losses"] for r in phi),
+        "zoo_tp_phi2_first_loss_within_2e-3_of_data_4": abs(loss - ref) <= TP_PHI2_TRAIN_REL * abs(ref),
+        "zoo_tp_phi2_replicated_bit_identical": len({r["replicated_digest"] for r in phi}) == 1}
+    part = [r["partition"] for r in runs]
+    checks.update({
+        "partition_values_equal": all(p["values_equal"] for p in part),
+        "partition_grads_equal": all(p["grads_equal"] for p in part),
+        "partition_saved_bytes_halved": all(2 * p["saved_bytes"] == p["whole_saved_bytes"] > 0 for p in part),
+        "partition_one_gather_in_the_recompute": all(p["gathers"] == 1 for p in part)})
+    f32 = {}
+    for name in tp_zoo_f32_configs():
+        one, two = runs[0]["f32"][name][1], [r["f32"][name][TP_SIZE] for r in runs]
+        rel = float(np.max(np.abs(np.array(two[0]["losses"]) - one["losses"]) / np.abs(one["losses"])))
+        f32[name] = {"losses_tensor_1": one["losses"], "losses_tensor_2": two[0]["losses"], "loss_rel": rel,
+                     "heads": two[0]["heads"], "run_s": [r["seconds"] for r in two]}
+        checks[f"zoo_tp_f32_{name}_losses_within_1e-6_of_tensor_1"] = rel <= TP_ZOO_F32_REL
+        checks[f"zoo_tp_f32_{name}_losses_equal_on_ranks"] = all(r["losses"] == two[0]["losses"] for r in two)
+        checks[f"zoo_tp_f32_{name}_replicated_bit_identical"] = len({r["replicated_digest"] for r in two}) == 1
+    res = {"config": f"Phi-2's widths at {ZOO_LAYERS} layers, data {world // TP_SIZE} x tensor {TP_SIZE}, ZeRO-2, "
+                     f"bf16, AdamW, remat flash_saveable, B {TP_TRAIN_ROWS} of S {BENCH_S}", "losses": phi[0]["losses"],
+           "data_4_first_loss": ref, "loss_rel": abs(loss - ref) / abs(ref), "local_params": phi[0]["local_params"],
+           "state_bytes": phi[0]["state_bytes"], "reckoned_bytes": want, "step_ms": [r["step_ms"] for r in phi],
+           "wire_ms": [r["wire_ms"] for r in phi], "collectives": phi[0]["collectives"],
+           "peak_mem_gb": [r["peak_mem_gb"] for r in phi], "launches": phi[0]["launches"],
+           "run_s": [r["seconds"] for r in phi], "data_4_run_s": [r["phi2_data4"]["seconds"] for r in runs],
+           "partition_activations": part[0], "f32_parity": f32}
+    every = [r[k] for r in runs for k in ("phi2_data4", "phi2")] + [r["f32"][n][t] for r in runs for n in f32
+                                                                     for t in (1, TP_SIZE)]
+    launches = {k: sum(r["launches"][k] for r in every) for k in phi[0]["launches"]}
+    return res, checks, launches
 
 
 # ---------------------------------------------------------------- phase 27
@@ -3781,52 +4079,60 @@ def tp_rank_engine(layers: int, dtype: torch.dtype, seed: int, num_pages: int):
     model = LlamaForCausalLMWithCache(cfg, page_size=PAGE, device="cuda", tensor_parallel=TP_SIZE)
     init_weights_(model, torch.Generator(device="cuda").manual_seed(seed))
     state = model.state_dict()
-    econf = dataclasses.replace(engine_config(dtype, num_pages), tensor_parallel=TP_SIZE)
-    # the 4 requests fill the batch: a step pads to 4 rows, not 8 (less of each all-reduce is padding)
-    econf = dataclasses.replace(econf, scheduler=dataclasses.replace(econf.scheduler, max_seqs=TP_BATCH,
-                                                                     decode_bucket=TP_BATCH))
-    eng = build_engine(cfg, state, econf, device="cuda")
+    eng = build_engine(cfg, state, tp_econf(engine_config(dtype, num_pages)), device="cuda")
     del model, state
     return eng, sum(p.numel() * p.element_size() for p in eng.model.parameters()), time.perf_counter() - t0
 
 
-def qwen_tp_engine(cfg, state: dict, num_pages: int, t0: float):
+def rank_tp_engine(cfg, state: dict, num_pages: int, t0: float):
     """A ``tensor_parallel`` engine with phase 27's settings over ``state``
     (whole tensors are cut to the rank's slices by the engine); the engine,
     its parameter bytes and the seconds since ``t0``."""
-    econf = dataclasses.replace(engine_config(cfg.param_dtype, num_pages), tensor_parallel=TP_SIZE)
-    econf = dataclasses.replace(econf, scheduler=dataclasses.replace(econf.scheduler, max_seqs=TP_BATCH,
-                                                                     decode_bucket=TP_BATCH))
+    econf = tp_econf(engine_config(cfg.param_dtype, num_pages))
     eng = build_engine(dataclasses.replace(cfg, attention_impl="flash"), state, econf, device="cuda")
     return eng, sum(p.numel() * p.element_size() for p in eng.model.parameters()), time.perf_counter() - t0
 
 
+def tp_econf(econf):
+    """``econf`` over TP_SIZE tensor-parallel ranks, its batch phase 27's 4
+    requests (a step pads to 4 rows, not 8)."""
+    econf = dataclasses.replace(econf, tensor_parallel=TP_SIZE)
+    return dataclasses.replace(econf, scheduler=dataclasses.replace(econf.scheduler, max_seqs=TP_BATCH,
+                                                                    decode_bucket=TP_BATCH))
+
+
 def qwen_rank_engine(hf: dict, dtype: torch.dtype, seed: int, num_pages: int):
     """This rank's slices of the seeded Qwen2-MoE of ``hf``, made one tensor
-    at a time (``qwen_rank_state``), behind ``qwen_tp_engine``."""
+    at a time (``qwen_rank_state``), behind ``rank_tp_engine``."""
     from deepspeed_tpu_torch.module_inject.layers import TensorParallel
     from deepspeed_tpu_torch.comm import comm
     t0 = time.perf_counter()
     cfg, state = qwen_rank_state(hf, dtype, seed, TensorParallel(TP_SIZE, comm.get_rank() % TP_SIZE))
-    return qwen_tp_engine(cfg, state, num_pages, t0)
+    return rank_tp_engine(cfg, state, num_pages, t0)
 
 
 def qwen_whole_engine(hf: dict, dtype: torch.dtype, seed: int, num_pages: int):
     """The whole seeded Qwen2-MoE of ``hf`` through ``Qwen2MoePolicy.convert``
-    behind ``qwen_tp_engine``: the engine cuts the whole banks, biases and
+    behind ``rank_tp_engine``: the engine cuts the whole banks, biases and
     shared experts to the rank's slices (the path a user's checkpoint takes)."""
     t0 = time.perf_counter()
     policy = Qwen2MoePolicy()
     cfg = dataclasses.replace(policy.build_config(hf), dtype=dtype, param_dtype=dtype)
-    return qwen_tp_engine(cfg, policy.convert(seeded_hf_state(hf_shapes(hf), dtype, seed), cfg), num_pages, t0)
+    return rank_tp_engine(cfg, policy.convert(seeded_hf_state(hf_shapes(hf), dtype, seed), cfg), num_pages, t0)
 
 
-def tp_serve_bf16(make_engine=None) -> dict:
+def first_attention(model):
+    """The first block's attention (under ``layers`` or Falcon's ``h``)."""
+    block = (model.layers if hasattr(model, "layers") else model.h)[0]
+    return block.self_attention if hasattr(block, "self_attention") else block.self_attn
+
+
+def tp_serve_bf16(make_engine=None, after=None) -> dict:
     """Phase 27(a) on one rank: the engine ``make_engine()`` gives (Llama-3-8B
     bf16 at full depth over tensor 2 by default), ``tp_requests`` stepped to
     the end (prefill tok/s up to the last first token; a decode round's ms
     over the pure-decode steps' forwards), then phase 4's first-step
-    logits."""
+    logits; ``after(eng)``'s result under ``after`` before the engine goes."""
     from deepspeed_tpu_torch.comm import comm
     acc = get_accelerator()
     eng, param_bytes, build_s = (make_engine or (lambda: tp_rank_engine(32, torch.bfloat16, 0, 1024)))()
@@ -3879,12 +4185,14 @@ def tp_serve_bf16(make_engine=None) -> dict:
     res = {"streams": streams, "step_logits": [np.stack(step_logits[u]) for u in uids], "logits": logits,
            "param_bytes": param_bytes,
            "n_params": sum(p.numel() for p in eng.model.parameters()), "arena_bytes": arena_bytes(eng),
-           "heads": (eng.model.layers[0].self_attn.n_heads, eng.model.layers[0].self_attn.n_kv),
+           "heads": (first_attention(eng.model).n_heads, first_attention(eng.model).n_kv),
            "forwards": forwards, "k3_launches": launches, "k3_split_calls": paged_attention_cuda.split_calls,
            "collectives": kinds, "collectives_per_forward": {k: n / forwards for k, n in kinds.items()},
            "prefill_tok_s": sum(map(len, prompts)) / (max(first.values()) - t0),
            "decode_round_ms": 1e3 * decode_s / decode_forwards if decode_forwards else None,
            "peak_mem_gb": peak, "build_s": build_s, "serve_s": time.perf_counter() - t0}
+    if after is not None:
+        res["after"] = after(eng)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -4025,6 +4333,323 @@ def phase_tensor_parallel_qwen(smi: str, ranks: list, ref: dict, ref_f32: dict, 
            "build_s": [r["build_s"] for r in bf16], "serve_s": [r["serve_s"] for r in bf16],
            "f32_s": [r["seconds"] for r in f32], "card": smi}
     return res, checks, sum(r["k3_launches"] for r in bf16)
+
+
+# ---------------------------------------------------------------- phase 27(a): the dense zoo and the v1 engine
+
+#: Phi-2 over tensor 2 at full width and depth: a rank's parameters (each block's LayerNorm, the ``dense`` and
+#: ``fc2`` biases and the final LayerNorm whole, the rest halved, the head's bias with the vocab), the whole
+#: model's, and the seed of its HF tensors (``seeded_hf_state``'s draws)
+TP_PHI2_RANK_PARAMS, TP_PHI2_WHOLE_PARAMS, TP_PHI2_SEED = 1_390_008_320, 2_779_683_840, 27
+#: phase 17's checkpoints served again over tensor 2 from their directories (kept until phase 27(a))
+TP_ZOO = ("falcon-rw-1b", "opt-6.7b")
+#: the v1 engine over tensor 2 (pythia-6.9b, phase 21's weights): a rank's parameters (the LayerNorms and the
+#: two row-parallel biases of each block whole, the rest halved) of the whole model's; phase 21's first prompt
+#: cut to V1_TP_PROMPT_LEN tokens and V1_TP_NEW new ones, a [1, 128] buffer (``generate`` recomputes the whole
+#: buffer a token, 2 x 32 gloo all-reduces a forward; a length that 128 does not divide takes the chunked
+#: attention, as JAX's op dispatches, not K1)
+V1_TP_RANK_PARAMS, V1_TP_WHOLE_PARAMS = 3_429_048_320, 6_857_302_016
+V1_TP_PROMPT_LEN, V1_TP_NEW = 120, 8
+
+
+def phi2_rank_state(dtype, seed: int, tp) -> tuple:
+    """Tensor-parallel rank ``tp.rank``'s slices of the seeded Phi-2
+    (``seeded_hf_state(hf_shapes(ZOO["phi-2"]), dtype, seed)`` through
+    ``PhiPolicy``): each HF tensor drawn whole from the same generator in
+    the same order and cut to the rank's slice at once, so a rank never
+    holds the whole model (``tp`` of one rank: the whole model).  Returns
+    (config, state dict)."""
+    from deepspeed_tpu_torch.module_inject.layers import narrow_to_rank, tp_dims
+    hf, policy = ZOO["phi-2"][0], policy_for("phi")
+    cfg = dataclasses.replace(policy.build_config(hf), dtype=dtype, param_dtype=dtype)
+    cut = tp_dims(build_cache_model(cfg, PAGE, device="meta", tensor_parallel=tp.size)) if tp.size > 1 else {}
+    shapes = hf_shapes(hf)
+    # the port's name of each HF tensor: the policy's own mapping, run on meta tensors
+    meta = {name: torch.empty(shape, device="meta") for name, shape in shapes.items()}
+    port_of = {id(t): k for k, t in policy.convert(meta, cfg).items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = {}
+    for name, shape in shapes.items():
+        whole = seeded_hf_tensor(name, shape, dtype, gen)
+        port = port_of[id(meta[name])]
+        state[port] = narrow_to_rank(whole, cut[port], tp).clone() if port in cut else whole
+    return cfg, state
+
+
+def phi2_tp_reference() -> dict:
+    """Phase 27(a)'s one-card Phi-2 (bf16, full width and depth, phase 3's
+    engine settings), served by the parent before phase 11's spawn:
+    ``tp_reference`` of the weights the ranks cut."""
+    from deepspeed_tpu_torch.module_inject.layers import NO_TENSOR_PARALLEL
+    t0 = time.perf_counter()
+    cfg, state = phi2_rank_state(torch.bfloat16, TP_PHI2_SEED, NO_TENSOR_PARALLEL)
+    eng = build_engine(dataclasses.replace(cfg, attention_impl="flash"), state, engine_config(torch.bfloat16, 1024),
+                       device="cuda")
+    ref = tp_reference(eng, state)
+    ref["seconds"] = time.perf_counter() - t0
+    del eng, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phi2_rank_engine():
+    """This rank's slices of the seeded Phi-2 (``phi2_rank_state``) behind
+    ``rank_tp_engine``."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.module_inject.layers import TensorParallel
+    t0 = time.perf_counter()
+    cfg, state = phi2_rank_state(torch.bfloat16, TP_PHI2_SEED, TensorParallel(TP_SIZE, comm.get_rank() % TP_SIZE))
+    return rank_tp_engine(cfg, state, 1024, t0)
+
+
+def zoo_dir_tp_engine(path: str):
+    """Phase 17's checkpoint directory through ``build_hf_engine`` over
+    tensor 2 (phase 17's engine settings, phase 27's batch): the engine
+    splits Falcon's fused ``query_key_value`` and cuts every whole tensor
+    to the rank's slices."""
+    t0 = time.perf_counter()
+    eng = build_hf_engine(path, tp_econf(engine_config(torch.bfloat16, 1024, ZOO_MAX_PAGES)), device="cuda")
+    return eng, sum(p.numel() * p.element_size() for p in eng.model.parameters()), time.perf_counter() - t0
+
+
+def zoo_f32_tp_streams(name: str, eng) -> dict:
+    """The rank's slices in float32 (TF32 off) behind a tensor-2 engine with
+    phase 17's float32 settings: the greedy streams of phase 17's float32
+    prompts (``zoo_parity_f32``'s)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(eng.cfg, dtype=torch.float32, param_dtype=torch.float32, attention_impl="flash")
+    state = {k: v.float() for k, v in eng.model.state_dict().items()}
+    econf = dataclasses.replace(engine_config(torch.float32, 512, ZOO_MAX_PAGES), tensor_parallel=TP_SIZE)
+    f32 = build_engine(cfg, state, econf, device="cuda")
+    prompts = zoo_f32_prompts(name, cfg.vocab_size)
+    streams = serve_greedy(f32, prompts, [12] * len(prompts))
+    del f32, state
+    return {"f32_streams": streams, "f32_s": time.perf_counter() - t0}
+
+
+def falcon_7b_tp_error() -> str:
+    """Falcon-7B's 71 query heads on one kv head at tensor 2: the engine's
+    error (JAX's ``_setup_tp`` text), or None if it builds."""
+    cfg = dataclasses.replace(FalconPolicy().build_config(FALCON_7B), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    try:
+        build_engine(cfg, {}, tp_econf(engine_config(torch.bfloat16, 16)), device="cuda")
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def v1_tp_rank(ref: dict) -> dict:
+    """The v1 engine over tensor 2 on one rank: phase 21's pythia-6.9b (the
+    same seeded bf16 weights, made whole and cut by the engine after kernel
+    injection) through ``init_inference(model, tensor_parallel=2,
+    replace_with_kernel_inject=True)``; the last-position logits of phase
+    21's first buffer row, a greedy run over ``ref``'s short buffer and its
+    logits at each new position, K1 launches and the collectives."""
+    from deepspeed_tpu_torch.comm import comm
+    t0 = time.perf_counter()
+    cfg = gpt_family.GPTNeoXConfig.from_hf(PYTHIA_6_9B, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    model = seed_weights_(gpt_family.GPTNeoXForCausalLM(cfg, device="cuda"), seed=22)
+    eng = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bf16"}, tensor_parallel=TP_SIZE,
+                                             replace_with_kernel_inject=True, device="cuda")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    heads = eng.module.layers[0].query_key_value.out_features // (3 * cfg.head_dim)
+    reset_launch_counts()
+    comm.tensor_parallel_kinds.clear()
+    t0 = time.perf_counter()
+    logits = eng.forward(torch.from_numpy(ref["ids"]).cuda())[:, -1].float().cpu().numpy()
+    forward_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens = eng.generate(ref["short_prompt"], max_new_tokens=V1_TP_NEW)
+    generate_s = time.perf_counter() - t0
+    step_logits = eng.forward(torch.from_numpy(tokens).cuda())[0, V1_TP_PROMPT_LEN - 1:-1].float().cpu().numpy()
+    forwards = 2 + V1_TP_NEW
+    kinds = {f"{k}_{d}": n for (k, d), n in comm.tensor_parallel_kinds.items()}
+    res = {"logits": logits, "tokens": tokens, "step_logits": step_logits, "k1_launches": flash_fwd_cuda.launches,
+           "forwards": forwards, "heads": heads, "impl": eng.module.cfg.attention_impl,
+           "n_params": sum(p.numel() for p in eng.module.parameters()),
+           "collectives_per_forward": {k: n / forwards for k, n in kinds.items()}, "build_s": build_s,
+           "forward_s": forward_s, "generate_s": generate_s}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_zoo_rank(inputs: dict) -> dict:
+    """Phase 27(a)'s dense zoo and v1 engine on one of phase 11's ranks:
+    Phi-2 at full depth (``phi2_rank_engine``), phase 17's Falcon-RW-1B and
+    OPT-6.7B directories (bf16, then their float32 streams), Falcon-7B's
+    refusal, then pythia-6.9b through the v1 engine."""
+    out = {"phi-2": tp_serve_bf16(phi2_rank_engine)}
+    for name in TP_ZOO:
+        path = inputs["dirs"][name]
+        out[name] = tp_serve_bf16(lambda path=path: zoo_dir_tp_engine(path),
+                                  after=lambda eng, name=name: zoo_f32_tp_streams(name, eng))
+    out["falcon-7b_error"] = falcon_7b_tp_error()
+    out["v1"] = v1_tp_rank(inputs["v1"])
+    return out
+
+
+def v1_stream_ties(got: dict, ref: dict) -> list:
+    """Where a rank's short greedy buffer leaves one card's: the position,
+    and whether it is a bf16 rounding tie (both tokens within BF16_TIE_ULPS
+    ulps of the best logit on both paths' logits there)."""
+    s0 = V1_TP_PROMPT_LEN
+    a, b = got["tokens"][0, s0:].tolist(), ref["short_tokens"][0, s0:].tolist()
+    j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return []
+    tie = True
+    for logits in (got["step_logits"][j], ref["short_logits"][j]):
+        top = float(logits.max())
+        tie = tie and min(logits[a[j]], logits[b[j]]) >= top - BF16_TIE_ULPS * bf16_ulp(top)
+    return [{"position": j, "tokens": [a[j], b[j]], "tie": bool(tie)}]
+
+
+def tp_zoo_serving_checks(tag: str, bf16: list, ref: dict, layers: int, heads: tuple) -> dict:
+    """A family's phase 27(a) checks over tensor 2 against its one-card
+    reference (``tp_reference``): ranks' tokens equal, each stream one
+    card's up to a bf16 tie, the arena half one card's, the rank's heads,
+    K3 == layers × forwards, and the collectives a forward (the embedding's,
+    two row-parallel all-reduces a layer, the logits gather)."""
+    r0 = bf16[0]
+    per_forward = {"embed_forward": 1.0, "o_proj_forward": float(layers), "down_proj_forward": float(layers),
+                   "logits_forward": 1.0}
+    return {f"{tag}_tokens_equal_on_ranks": all(r["streams"] == r0["streams"] for r in bf16),
+            f"{tag}_streams_equal_one_card_but_ties": all(t["tie"] for t in stream_ties(r0, ref)),
+            f"{tag}_16_tokens_each": all(len(s) == TP_NEW for s in r0["streams"]),
+            f"{tag}_arena_half_one_card": all(2 * r["arena_bytes"] == ref["arena_bytes"] for r in bf16),
+            f"{tag}_heads": all(r["heads"] == heads for r in bf16),
+            f"{tag}_k3_layers_x_forwards": all(r["k3_launches"] == layers * r["forwards"] > 0 for r in bf16),
+            f"{tag}_collectives_per_forward": all(r["collectives_per_forward"] == per_forward for r in bf16)}
+
+
+def phase_tensor_parallel_zoo(smi: str, ranks: list, refs: dict, e: float) -> tuple:
+    """Phase 27(a)'s dense zoo and v1 engine over tensor 2 on phase 11's
+    ranks (``ranks``: each one's ``tp_zoo_rank``), held to their one-card
+    references (``refs``: Phi-2's ``phi2_tp_reference``, phase 17's of
+    TP_ZOO, phase 21's of the v1 engine); ``e`` is phase 4's bf16 rounding
+    measure.  Returns the figures, the checks and the K3 and K1 launches."""
+    figures = lambda runs, ref: {
+        "rank_param_bytes": runs[0]["param_bytes"], "rank_params": runs[0]["n_params"],
+        "whole_params": ref["n_params"], "arena_bytes": runs[0]["arena_bytes"],
+        "one_card_arena_bytes": ref["arena_bytes"], "heads": runs[0]["heads"], "forwards": runs[0]["forwards"],
+        "k3_launches": [r["k3_launches"] for r in runs], "k3_split_calls": [r["k3_split_calls"] for r in runs],
+        "collectives_per_forward": runs[0]["collectives_per_forward"],
+        "streams_equal_one_card": runs[0]["streams"] == ref["streams"], "stream_ties": stream_ties(runs[0], ref),
+        "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+        "gloo_on_one_card_prefill_tok_s": [r["prefill_tok_s"] for r in runs],
+        "gloo_on_one_card_decode_round_ms": [r["decode_round_ms"] for r in runs],
+        "build_s": [r["build_s"] for r in runs], "serve_s": [r["serve_s"] for r in runs]}
+    res, checks, k3 = {"card": smi}, {}, 0
+    phi = [r["phi-2"] for r in ranks]
+    ref = refs["phi-2"]
+    layers = ZOO["phi-2"][0]["num_hidden_layers"]
+    logits_rel = float(np.linalg.norm(phi[0]["logits"] - ref["logits"]) / np.linalg.norm(ref["logits"]))
+    checks.update(tp_zoo_serving_checks("tp_phi2", phi, ref, layers, (16, 16)))
+    checks.update({"tp_phi2_rank_params_reckoned": all(r["n_params"] == TP_PHI2_RANK_PARAMS for r in phi),
+                   "tp_phi2_rank_param_bytes_reckoned": all(r["param_bytes"] == 2 * TP_PHI2_RANK_PARAMS for r in phi),
+                   "tp_phi2_whole_params": ref["n_params"] == TP_PHI2_WHOLE_PARAMS,
+                   "tp_phi2_logits_within_2e_of_one_card": logits_rel <= 2 * e})
+    res["phi-2"] = {"config": f"Phi-2 bf16, full width and depth, tensor {TP_SIZE} (gloo ranks on one card), "
+                              f"{len(TP_REQUESTS)} of phase 3's requests (prompts cut to {TP_PROMPT_CAP} tokens), "
+                              f"{TP_NEW} new tokens each", **figures(phi, ref), "logits_rel_l2": logits_rel,
+                    "bf16_rounding_measure": e, "one_card_s": ref["seconds"]}
+    k3 += sum(r["k3_launches"] for r in phi)
+    for name in TP_ZOO:
+        runs = [r[name] for r in ranks]
+        ref = refs[name]
+        hf = ZOO[name][0]
+        tag = "tp_" + name.split("-")[0] + ("_rw" if "rw" in name else "")
+        checks.update(tp_zoo_serving_checks(tag, runs, ref, ZOO_LAYERS, (16, 16)))
+        checks[f"{tag}_f32_streams_equal_one_card"] = all(r["after"]["f32_streams"] == ref["f32_streams"]
+                                                          for r in runs)
+        res[name] = {"config": f"{name} from phase 17's directory ({ZOO_LAYERS} of {hf['num_hidden_layers']} layers) "
+                               f"through build_hf_engine at tensor {TP_SIZE}", **figures(runs, ref),
+                     "f32_s": [r["after"]["f32_s"] for r in runs]}
+        k3 += sum(r["k3_launches"] for r in runs)
+    errors = [r["falcon-7b_error"] for r in ranks]
+    res["falcon-7b_error"] = errors[0]
+    checks["tp_falcon_7b_raises_jax_error"] = all(
+        m is not None and "must divide num_key_value_heads=1 and num_attention_heads=71" in m for m in errors)
+    v1 = [r["v1"] for r in ranks]
+    vref = refs["v1"]
+    ve = vref["e"]
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    v1_layers = PYTHIA_6_9B["num_hidden_layers"]
+    per_forward = {"embed_forward": 1.0, "o_proj_forward": float(v1_layers), "down_proj_forward": float(v1_layers),
+                   "logits_forward": 1.0}
+    ties = v1_stream_ties(v1[0], vref)
+    checks.update({
+        "tp_v1_injected": all(r["impl"] == "flash" for r in v1),
+        "tp_v1_rank_params_reckoned": all(r["n_params"] == V1_TP_RANK_PARAMS for r in v1),
+        "tp_v1_whole_params": vref["n_params"] == V1_TP_WHOLE_PARAMS,
+        "tp_v1_heads_16_16": all(r["heads"] == 16 for r in v1),
+        "tp_v1_logits_within_2e_of_one_card": all(rel(r["logits"], vref["logits"]) <= 2 * ve for r in v1),
+        "tp_v1_tokens_equal_on_ranks": all(np.array_equal(r["tokens"], v1[0]["tokens"]) for r in v1),
+        "tp_v1_tokens_equal_one_card_but_ties": all(t["tie"] for t in ties),
+        "tp_v1_k1_layers_x_forwards": all(r["k1_launches"] == v1_layers * r["forwards"] for r in v1),
+        "tp_v1_collectives_per_forward": all(r["collectives_per_forward"] == per_forward for r in v1)})
+    res["v1"] = {"config": f"pythia-6.9b bf16 (phase 21's weights) through init_inference(tensor_parallel="
+                           f"{TP_SIZE}, replace_with_kernel_inject=True), gloo ranks on one card; the logits of "
+                           f"phase 21's first [1, {V1_PROMPT_LEN + V1_NEW}] row, a greedy buffer of "
+                           f"{V1_TP_PROMPT_LEN} + {V1_TP_NEW}",
+                 "rank_params": v1[0]["n_params"], "whole_params": vref["n_params"],
+                 "logits_rel_l2": [rel(r["logits"], vref["logits"]) for r in v1],
+                 "logits_rel_l2_f32": [rel(r["logits"], vref["f32_logits"]) for r in v1], "bf16_rounding_measure": ve,
+                 "tokens_equal_one_card": np.array_equal(v1[0]["tokens"], vref["short_tokens"]), "ties": ties,
+                 "k1_launches": [r["k1_launches"] for r in v1], "forwards": v1[0]["forwards"],
+                 "collectives_per_forward": v1[0]["collectives_per_forward"],
+                 "build_s": [r["build_s"] for r in v1], "forward_s": [r["forward_s"] for r in v1],
+                 "generate_s": [r["generate_s"] for r in v1]}
+    return res, checks, k3, sum(r["k1_launches"] for r in v1)
+
+
+def tp_zoo_rank_main(rank: int, init_methods, queue, tp_inputs: dict) -> None:
+    """A spawned rank of ``phase_tensor_parallel_zoo_alone``: ``tp_zoo_rank``
+    on two gloo ranks sharing the card."""
+    from deepspeed_tpu_torch.comm import comm
+    try:
+        torch.cuda.set_device(0)
+        comm.init_distributed(dist_backend="gloo", init_method=init_methods[None], rank=rank, world_size=TP_SIZE,
+                              timeout=DP_TIMEOUT_S, verbose=False)
+        queue.put((rank, tp_zoo_rank(tp_inputs), None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if comm.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def phase_tensor_parallel_zoo_alone(smi: str, e: float) -> dict:
+    """Phase 27(a)'s dense zoo and v1 runs without phase 11's: TP_ZOO's
+    directories and one-card references (phase 17's way), phase 21, the
+    one-card Phi-2, then two ranks of their own; ``e`` stands for phase 4's
+    bf16 rounding measure.  Raises if a check fails."""
+    keep = tempfile.mkdtemp(prefix="zoo_tp_")
+    try:
+        refs, dirs = {}, {}
+        for i, (name, (published, fmt)) in enumerate(ZOO.items()):
+            if name in TP_ZOO:
+                r = serve_checkpoint_dir(keep, name, published, ZOO_LAYERS, fmt, 170 + i, smi, keep=True)
+                refs[name], dirs[name] = r.pop("tp_reference"), r["dir"]
+        refs["v1"] = phase_v1_engine(smi).pop("tp_reference")
+        refs["phi-2"] = phi2_tp_reference()
+        ranks = spawn_ranks(tp_zoo_rank_main, TP_SIZE, DP_TIMEOUT_S, extra=({"dirs": dirs, "v1": refs["v1"]}, ))
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    res, checks, _, _ = phase_tensor_parallel_zoo(smi, ranks, refs, e)
+    log("  tensor parallel serving of Phi-2, Falcon-RW-1B, OPT-6.7B and the v1 engine: " + json.dumps(res))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tensor-parallel zoo serving failed {bad}")
+    return res
 
 
 # ---------------------------------------------------------------- phase 12
@@ -5203,6 +5828,13 @@ def zoo_mix(name: str, vocab: int) -> tuple:
     return prompts, max_new
 
 
+def zoo_f32_prompts(name: str, vocab: int) -> list:
+    """The float32 greedy prompts of a zoo model (Mistral's one longer than its window)."""
+    rng = np.random.default_rng(18)
+    lens = (40, 300, 700) + ((4400, ) if name.startswith("mistral") else ())
+    return [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
 def zoo_parity_f32(name: str, eng) -> dict:
     """The model's weights in float32 through the kernel path and the plain
     path: identical greedy streams (TF32 off), the window biting for
@@ -5210,9 +5842,8 @@ def zoo_parity_f32(name: str, eng) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(eng.cfg, dtype=torch.float32, param_dtype=torch.float32)
     state = {k: v.float() for k, v in eng.model.state_dict().items()}
-    rng = np.random.default_rng(18)
-    lens = (40, 300, 700) + ((4400, ) if name.startswith("mistral") else ())
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    prompts = zoo_f32_prompts(name, cfg.vocab_size)
+    lens = [len(p) for p in prompts]
     streams = {}
     for impl in ("flash", "reference"):
         e = build_engine(dataclasses.replace(cfg, attention_impl=impl), state,
@@ -5221,15 +5852,17 @@ def zoo_parity_f32(name: str, eng) -> dict:
         del e
     if streams["flash"] != streams["reference"]:
         raise AssertionError(f"{name}: f32 greedy streams differ between the kernel and the plain path: {streams}")
-    return {"f32_streams_identical": True, "prompt_lens": list(lens)}
+    return {"f32_streams_identical": True, "prompt_lens": lens, "f32_streams": streams["flash"]}
 
 
-def serve_checkpoint_dir(root: str, name: str, published: dict, layers: int, fmt: str, seed: int, smi: str) -> dict:
+def serve_checkpoint_dir(root: str, name: str, published: dict, layers: int, fmt: str, seed: int, smi: str,
+                         keep: bool = False) -> dict:
     """A checkpoint at its published widths, cut to ``layers`` layers, written
     to a directory under ``root`` and served through ``build_hf_engine``:
     phase 3's mix (tokens, pages, K3 == layers x forwards, its steps
     captured as CUDA graphs), then the float32 kernel path against the plain
-    path; the directory is removed after."""
+    path; the directory is removed after, or with ``keep`` kept for phase
+    27(a) with its one-card reference (``tp_reference``)."""
     hf = dict(published, num_hidden_layers=layers)
     path = os.path.join(root, name)
     t0 = time.perf_counter()
@@ -5247,27 +5880,36 @@ def serve_checkpoint_dir(root: str, name: str, published: dict, layers: int, fmt
     if graphs == 0:
         raise AssertionError(f"{name}: no step of the mix ran as a captured CUDA graph")
     log(f"  {name}: the mix's {graphs} step programs ran as captured CUDA graphs")
+    if keep:
+        res["tp_reference"] = tp_reference(eng, eng.model.state_dict())
     res.update(zoo_parity_f32(name, eng), step_graphs=graphs, format=fmt, weight_bytes=nbytes, write_s=t_write,
                load_s=t_load,
                window=getattr(eng.cfg, "sliding_window", 0), alibi=getattr(eng.cfg, "alibi", False),
                head_dim=eng.cfg.hidden_size // eng.cfg.num_attention_heads)
+    if keep:
+        res["tp_reference"]["f32_streams"] = res.pop("f32_streams")
+        res["dir"] = path
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    shutil.rmtree(path)
+    if not keep:
+        shutil.rmtree(path)
     return res
 
 
-def phase_zoo(smi: str) -> dict:
+def phase_zoo(smi: str, keep_root=None) -> dict:
     """Each zoo checkpoint written to a directory at its published widths,
     cut to ZOO_LAYERS layers, and served through ``build_hf_engine``: phase
     3's mix (tokens, pages, K3 == layers x forwards), then the float32
-    kernel path against the plain path; the directory is removed after."""
+    kernel path against the plain path; the directory is removed after,
+    but TP_ZOO's, kept under ``keep_root`` (if given) for phase 27(a)."""
     root = tempfile.mkdtemp(prefix="zoo_")
     out = {}
     try:
         for i, (name, (published, fmt)) in enumerate(ZOO.items()):
-            out[name] = serve_checkpoint_dir(root, name, published, ZOO_LAYERS, fmt, 170 + i, smi)
+            keep = keep_root is not None and name in TP_ZOO
+            out[name] = serve_checkpoint_dir(keep_root if keep else root, name, published, ZOO_LAYERS, fmt,
+                                             170 + i, smi, keep=keep)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if not any(r["format"] == "safetensors" for r in out.values()):
@@ -5814,7 +6456,17 @@ def phase_v1_engine(smi: str) -> dict:
     res["bf16_parity"] = parity
     checks["bf16_logits_within_phase_4_bound"] = (parity["kernel_vs_plain"] <= 2 * e
                                                   and parity["kernel_vs_f32"] <= 1.5 * e)
-    del eng, model, logits
+    # phase 27(a)'s one-card reference for the v1 engine over tensor 2: the kernel path's last-position logits
+    # of the buffer's first row, and a short greedy buffer (the first prompt's first V1_TP_PROMPT_LEN tokens,
+    # V1_TP_NEW new) with its logits at each new position
+    short = prompts[:1, :V1_TP_PROMPT_LEN]
+    short_tokens = eng.generate(short, max_new_tokens=V1_TP_NEW)
+    short_logits = eng.forward(torch.from_numpy(short_tokens).cuda())[0, V1_TP_PROMPT_LEN - 1:-1].float()
+    tp_ref = {"ids": ids[:1].cpu().numpy(), "logits": logits["flash"][:1].cpu().numpy(),
+              "f32_logits": logits["f32"][:1].cpu().numpy(), "e": e, "short_prompt": short,
+              "short_tokens": short_tokens, "short_logits": short_logits.cpu().numpy(),
+              "n_params": sum(p.numel() for p in model.parameters())}
+    del eng, model, logits, short_logits
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5849,6 +6501,7 @@ def phase_v1_engine(smi: str) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"v1 engine phase failed {bad}: {json.dumps(res)}")
+    res["tp_reference"] = tp_ref
     return res
 
 
@@ -6313,7 +6966,9 @@ def main() -> int:
     log("== phase 16: serving Falcon-7B at full width and depth (HF names through FalconPolicy)")
     falcon = phase_falcon_7b(env["card"])
     log(f"== phase 17: the zoo through build_hf_engine from a directory ({ZOO_LAYERS} layers of each)")
-    zoo = phase_zoo(env["card"])
+    zoo_keep = tempfile.mkdtemp(prefix="zoo_tp_")      # TP_ZOO's directories, served again in phase 27(a)
+    atexit.register(shutil.rmtree, zoo_keep, ignore_errors=True)
+    zoo = phase_zoo(env["card"], zoo_keep)
     log("== phase 18: serving Qwen1.5-MoE-A2.7B at full width and depth (HF names through Qwen2MoePolicy)")
     qwen_moe = phase_qwen_moe(env["card"])
     log(f"== phase 19: Mixtral-8x7B through build_hf_engine from a directory ({MIXTRAL_LAYERS} of 32 layers)")
@@ -6346,9 +7001,12 @@ def main() -> int:
     quant = phase_quant_kernels()
     log("== phase 11: data-parallel training on two ranks with the ZeRO++ quantized gradient wire (then phase "
         "27(a) on the same ranks)")
-    dp = phase_data_parallel(env["card"])
-    log("== phase 27(a): tensor-parallel serving of Llama-3-8B and Qwen1.5-MoE-A2.7B over phase 11's 2 gloo "
-        "ranks on the card")
+    phi2_ref = phi2_tp_reference()
+    log(f"  phase 27(a)'s one-card Phi-2 reference: {phi2_ref['seconds']:.1f} s")
+    tp_inputs = {"dirs": {name: zoo[name]["dir"] for name in TP_ZOO}, "v1": v1.pop("tp_reference")}
+    dp = phase_data_parallel(env["card"], tp_inputs)
+    log("== phase 27(a): tensor-parallel serving of Llama-3-8B, Qwen1.5-MoE-A2.7B, Phi-2, Falcon-RW-1B and OPT-6.7B, "
+        "and the v1 engine on pythia-6.9b, over phase 11's 2 gloo ranks on the card")
     tp_serving, tp_checks, tp_k3 = phase_tensor_parallel_serving(env["card"], dp.pop("tp_ranks"),
                                                                  serving.pop("tp_reference"), parity_f32, parity)
     log("  tensor parallel serving: " + json.dumps(tp_serving))
@@ -6358,6 +7016,13 @@ def main() -> int:
     log("  tensor parallel serving of Qwen1.5-MoE-A2.7B: " + json.dumps(tp_qwen))
     tp_checks.update(qwen_checks)
     tp_k3 += tp_qwen_k3
+    zoo_refs = {"phi-2": phi2_ref, "v1": tp_inputs["v1"], **{name: zoo[name].pop("tp_reference") for name in TP_ZOO}}
+    tp_zoo, zoo_checks, tp_zoo_k3, tp_v1_k1 = phase_tensor_parallel_zoo(env["card"], dp.pop("tp_zoo_ranks"), zoo_refs,
+                                                                        parity["plain_vs_f32"])
+    log("  tensor parallel serving of Phi-2, Falcon-RW-1B, OPT-6.7B and the v1 engine: " + json.dumps(tp_zoo))
+    tp_checks.update(zoo_checks)
+    tp_k3 += tp_zoo_k3
+    shutil.rmtree(zoo_keep, ignore_errors=True)
     bad = [k for k, ok in tp_checks.items() if not ok]
     if bad:
         raise AssertionError(f"tensor-parallel serving failed {bad}")
@@ -6395,7 +7060,8 @@ def main() -> int:
                 # phase 2's rows at a tensor-2 rank's heads: Llama-3-8B's 16:4 and Qwen1.5-MoE's 8:8
                 "tp_rows": {n: {k: k3[n][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                                       "max_abs_err", "n_split")}
-                            for n in ("tp_16_4_decode", "tp_16_4_chunk", "tp_8_8_decode", "tp_8_8_chunk")}}]
+                            for n in ("tp_16_4_decode", "tp_16_4_chunk", "tp_8_8_decode", "tp_8_8_chunk")
+                            + tuple(f"{label}_{kind}" for label in tp_zoo_k3_heads() for kind in ("decode", "chunk"))}}]
     replaces = {"flash_fwd": "deepspeed_tpu/ops/flash_attention.py:162",
                 "flash_dq": "deepspeed_tpu/ops/flash_attention.py:287",
                 "flash_dkv": "deepspeed_tpu/ops/flash_attention.py:309"}
@@ -6407,15 +7073,18 @@ def main() -> int:
                    "zoo_training": zoo_training["launches"][name], "zero_ranks": zero["launches"][f"{name}_cuda"],
                    "expert_parallel": zero["ep_launches"][f"{name}_cuda"],
                    "expert_x_tensor": zero["etp_launches"][f"{name}_cuda"],
-                   "offload": offload["launches"][name], "tp_training": zero["tp_launches"][f"{name}_cuda"]}
+                   "offload": offload["launches"][name], "tp_training": zero["tp_launches"][f"{name}_cuda"],
+                   "zoo_tp_training": zero["zoo_tp_launches"][f"{name}_cuda"]}
         if name == "flash_fwd":
             by_path["v1_engine"] = v1["k1_launches"]
+            by_path["v1_engine_tp"] = tp_v1_k1
         kernels.append({"name": name, "route": "cuda", "source": "deepspeed_tpu_torch/csrc/flash_attention.cu",
                         "replaces": where, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(flash[s][name]["max_abs_err"] for s in flash), "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        # phase 5's zoo rows: head dims 80 and 96, Falcon-7B's 71:1 (bf16 and f32)
+                        # phase 5's zoo rows: head dims 80 and 96, Falcon-7B's 71:1 (bf16 and f32), and
+                        # Phi-2's tensor-2 rank (16:16, D 80)
                         "zoo_rows": {s: {k: flash[s][name][k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                                                         "bound_by", "library_ms", "max_abs_err")}
                                      for s in flash if s not in FLASH_SHAPES}})

@@ -12,6 +12,7 @@ and the serving path is imported from its module, e.g.
 ``from deepspeed_tpu_torch.inference.v2 import build_engine``.
 """
 
+import dataclasses
 import importlib
 import os
 
@@ -51,10 +52,13 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     launcher's ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``) when
     ``dist_init_required`` is True, or when it is None and the environment
     names a world larger than 1; otherwise the engine trains one rank.
-    ``model_parameters``, ``distributed_port`` and ``mpu`` are the
-    reference's: the engine trains every floating parameter of ``model``, and
-    a Megatron-style ``mpu`` raises (the config's ``tensor_parallel`` block
-    takes the tensor degree; an outside model-parallel unit is not ported).
+    ``model_parameters`` and ``distributed_port`` are the reference's: the
+    engine trains every floating parameter of ``model``.  A Megatron-style
+    ``mpu`` maps its grid onto the mesh (JAX ``__init__.py:62-70``,
+    ``comm/mesh.mesh_from_mpu``): its tensor degree on ``tensor``, its data
+    degree on ``data``, so the engine's groups follow the grid; one the
+    process group cannot hold raises JAX's ``ValueError``, pipeline stages
+    raise naming ROADMAP item 6.4.
     """
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
@@ -65,16 +69,12 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     if config is None:
         raise ValueError("deepspeed_tpu_torch.initialize: config is required")
     from .comm import comm
-    from .comm.mesh import ROADMAP_TENSOR_PARALLEL
     from .runtime.config import DeepSpeedConfig
     from .runtime.dataloader import DeepSpeedDataLoader
     from .runtime.engine import DeepSpeedEngine
-    if mpu is not None:
-        raise NotImplementedError(f"a model-parallel unit (mpu=) is not ported ({ROADMAP_TENSOR_PARALLEL}); set "
-                                  "the config's tensor_parallel.autotp_size")
     if dist_init_required or (dist_init_required is None and int(os.environ.get("WORLD_SIZE", 1)) > 1):
         comm.init_distributed()
-    ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config)
+    ds_config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config, mpu=mpu)
     engine = DeepSpeedEngine(model=model, config=ds_config, optimizer=optimizer, lr_scheduler=lr_scheduler,
                              params=params, device=device, loss_fn=loss_fn, model_inputs_fn=model_inputs_fn)
     dataloader = None
@@ -107,6 +107,14 @@ def tp_model_init(model=None, tp_size: int = 1, dtype=None, config=None):
 def init_inference(model=None, config=None, **kwargs):
     """Build the v1 inference engine (port of ``deepspeed_tpu.init_inference``;
     ref: ``deepspeed/__init__.py:291``): ``InferenceEngine(model, config,
-    params=None, device="cuda", generator=None)``."""
-    from .inference.engine import InferenceEngine
-    return InferenceEngine(model=model, config=config or {}, **kwargs)
+    params=None, device="cuda", generator=None)``.  Other keyword arguments
+    are config keys (``tensor_parallel=2``, ``replace_with_kernel_inject=True``,
+    ``dtype``...) merged over ``config``'s, as the reference merges them."""
+    from .inference.engine import DeepSpeedInferenceConfig, InferenceEngine
+    engine_keys = ("params", "device", "generator")
+    over = {k: v for k, v in kwargs.items() if k not in engine_keys}
+    if over:
+        if isinstance(config, DeepSpeedInferenceConfig):
+            config = dataclasses.asdict(config)
+        config = {**(config or {}), **over}
+    return InferenceEngine(model=model, config=config or {}, **{k: v for k, v in kwargs.items() if k in engine_keys})

@@ -43,8 +43,10 @@ BATCH_AXES = (DATA_AXIS, EXPERT_AXIS)
 ROADMAP_MULTI_DEVICE = "ROADMAP Queue 1 item 6, multi-device training (pipeline/tensor/sequence parallel)"
 #: what of MoE over several ranks still raises
 ROADMAP_EXPERT_PARALLEL = "ROADMAP Queue 1 item 6.1, MoE over several ranks"
-#: what of tensor parallelism still raises (its second part)
-ROADMAP_TENSOR_PARALLEL = "ROADMAP Queue 1 item 6.2, tensor parallelism beyond the Llama family and its MoE models"
+#: what of tensor parallelism still raises (its part 6.2.5)
+ROADMAP_TENSOR_PARALLEL = "ROADMAP Queue 1 item 6.2, tensor parallelism (its part 6.2.5, what is left)"
+#: pipeline parallelism
+ROADMAP_PIPELINE = "ROADMAP Queue 1 item 6.4, pipeline parallelism"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +131,36 @@ def axis_size(mesh: Mesh, *axes: str) -> int:
     for a in axes:
         n *= mesh.shape.get(a, 1)
     return n
+
+
+def _mpu_degree(mpu, names, default: int = 1) -> int:
+    """The first accessor of ``names`` that ``mpu`` has (Megatron renamed
+    them across versions), called; ``default`` when none is there."""
+    for n in names:
+        fn = getattr(mpu, n, None)
+        if callable(fn):
+            return int(fn())
+    return default
+
+
+def mesh_from_mpu(mpu, world_size: Optional[int] = None) -> Mesh:
+    """The mesh of an outside Megatron-style ``mpu``'s grid (JAX
+    ``mesh_from_mpu``, ``comm/mesh.py:122-147``): its tensor degree on
+    ``tensor``, its data degree on ``data`` (the ranks the others leave when
+    it gives none).  A grid the process group's ranks cannot hold raises
+    JAX's ``ValueError`` ("needs"); pipeline stages raise naming ROADMAP
+    item 6.4; a grid smaller than the process group raises ``MeshSpec``'s
+    error (the port's groups span every rank)."""
+    tp = _mpu_degree(mpu, ("get_tensor_model_parallel_world_size", "get_model_parallel_world_size"))
+    pp = _mpu_degree(mpu, ("get_pipeline_model_parallel_world_size", "get_pipe_parallel_world_size"))
+    dp = _mpu_degree(mpu, ("get_data_parallel_world_size", ), default=-1)
+    n = process_world_size() if world_size is None else world_size
+    need = tp * pp * (dp if dp > 0 else 1)
+    if need > n:
+        raise ValueError(f"mpu grid tp={tp} pp={pp} dp={dp} needs {need} devices, have {n}")
+    if pp > 1:
+        raise NotImplementedError(f"mpu grid with {pp} pipeline stages ({ROADMAP_PIPELINE})")
+    return create_mesh(MeshSpec(data=dp if dp > 0 else -1, tensor=tp), n)
 
 
 def process_world_size() -> int:

@@ -20,8 +20,18 @@
     EOS blanking and the ragged cut of the JAX engine.
 
 The engine runs on the card unless the caller passes ``device="cpu"``.
-Tensor parallelism (``tensor_parallel`` > 1) raises naming ROADMAP item 6.2: the v2 engine
-serves the Llama family over tensor-parallel ranks.
+
+Tensor parallelism (``tensor_parallel`` N > 1; JAX ``:59-71``, ``:117``):
+the process group holds N ranks (gloo ranks may share one card), the mesh
+is ``data`` 1 × ``tensor`` N (``utils/groups``' tensor group), and the
+model, built whole, is cut to the rank's slices after kernel injection
+(``module_inject/layers.cut_tensor_parallel_``: the Megatron layout of
+``models/gpt2.py`` and ``gpt_family.py``, GPT-2's fused ``c_attn`` cut by
+heads within each of q, k and v).  ``forward`` returns the whole logits,
+gathered over the vocab on every rank (kind ``logits``), and ``generate``
+gathers the last position's, so every rank emits the same tokens.  GPT-2,
+BLOOM, GPT-NeoX, GPT-J and GPT-Neo are cut; any other model (BERT, CLIP,
+the v2 families) at N > 1 raises naming ROADMAP item 6.2.
 """
 
 import dataclasses
@@ -32,7 +42,9 @@ import torch
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
+from ..comm.mesh import ROADMAP_TENSOR_PARALLEL, MeshSpec, create_mesh, process_world_size, set_global_mesh
+from ..module_inject.layers import (NO_TENSOR_PARALLEL, TensorParallel, cut_tensor_parallel_,
+                                    gather_from_tensor_region)
 from ..ops.flash_attention import SUPPORTED_HEAD_DIMS
 from ..utils.logging import log_dist, logger
 
@@ -84,14 +96,16 @@ class InferenceEngine:
             raise ValueError("init_inference: model is required")
         self.config = config if isinstance(config, DeepSpeedInferenceConfig) \
             else DeepSpeedInferenceConfig.from_dict(config)
+        #: this rank's place on the tensor axis, and the mesh (None on one rank)
+        self.tp, self.mesh = NO_TENSOR_PARALLEL, None
         if self.config.tensor_parallel > 1:
-            raise NotImplementedError(f"tensor_parallel={self.config.tensor_parallel}: the v1 engine at tensor "
-                                      f"parallelism is not ported ({ROADMAP_TENSOR_PARALLEL}); serve through "
-                                      "InferenceEngineV2(tensor_parallel=N)")
+            self._setup_tp(model)
         self.device = resolve_device(device)
         if params is not None:
             model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()}, strict=True, assign=True)
         module = self._maybe_inject_kernels(model)
+        if self.tp.size > 1:
+            cut_tensor_parallel_(module, self.tp)
         with torch.no_grad():
             module = module.to(self.device)
             for p in module.parameters():
@@ -99,8 +113,32 @@ class InferenceEngine:
                     p.data = p.data.to(self.config.dtype)
         self.module = module.eval().requires_grad_(False)
         self.generator = generator if generator is not None else torch.Generator(self.device).manual_seed(0)
-        log_dist(f"InferenceEngine: device={self.device} dtype={self.config.dtype} "
+        log_dist(f"InferenceEngine: device={self.device} dtype={self.config.dtype} tp={self.tp.size} "
                  f"kernel_inject={self.config.replace_with_kernel_inject}", ranks=[0])
+
+    def _setup_tp(self, model: nn.Module) -> None:
+        """The mesh ``data`` 1 × ``tensor`` N over the process group and
+        this rank's place on it; a model the engine does not cut, or a
+        degree that does not divide its heads or vocab, raises."""
+        from ..models.gpt2 import GPT2LMHeadModel
+        from ..models.gpt_family import BloomForCausalLM, GPTJForCausalLM, GPTNeoForCausalLM, GPTNeoXForCausalLM
+        from ..models.llama import check_divides
+        from ..utils import groups
+        n = self.config.tensor_parallel
+        cut = (GPT2LMHeadModel, BloomForCausalLM, GPTNeoXForCausalLM, GPTJForCausalLM, GPTNeoForCausalLM)
+        if type(model) not in cut:
+            raise NotImplementedError(f"tensor_parallel={n}: the v1 engine cuts {', '.join(c.__name__ for c in cut)} "
+                                      f"over tensor-parallel ranks, not {type(model).__name__} "
+                                      f"({ROADMAP_TENSOR_PARALLEL})")
+        check_divides(n, num_attention_heads=model.cfg.num_attention_heads, vocab_size=model.cfg.vocab_size)
+        world = process_world_size()
+        if world != n:
+            raise ValueError(f"tensor_parallel={n} but the process group has {world} ranks: start {n} ranks and "
+                             "create the process group first (comm.init_distributed)")
+        self.mesh = create_mesh(MeshSpec(data=1, tensor=n), world)
+        set_global_mesh(self.mesh)
+        groups.create_tensor_groups()
+        self.tp = TensorParallel(n, groups.get_tensor_model_parallel_rank(), groups.get_tensor_model_parallel_group())
 
     def _maybe_inject_kernels(self, model: nn.Module) -> nn.Module:
         """``attention_impl="flash"`` on a config that has the field (JAX
@@ -125,9 +163,11 @@ class InferenceEngine:
 
     @torch.no_grad()
     def forward(self, *args, **kwargs):
-        """The model on its inputs (tensors moved to the engine's device)."""
+        """The model on its inputs (tensors moved to the engine's device);
+        over tensor-parallel ranks the whole logits on every rank."""
         move = lambda x: torch.as_tensor(x).to(self.device) if isinstance(x, (torch.Tensor, np.ndarray)) else x
-        return self.module(*[move(a) for a in args], **{k: move(v) for k, v in kwargs.items()})
+        out = self.module(*[move(a) for a in args], **{k: move(v) for k, v in kwargs.items()})
+        return gather_from_tensor_region(out, self.tp, "logits")
 
     __call__ = forward
 
@@ -147,7 +187,8 @@ class InferenceEngine:
         for t in range(max_new):
             cur = s0 + t
             out = self.module(buf)
-            last = (out[0] if isinstance(out, tuple) else out)[:, cur - 1]          # [B, V]
+            last = gather_from_tensor_region((out[0] if isinstance(out, tuple) else out)[:, cur - 1], self.tp,
+                                             "logits")                              # [B, V]
             if do_sample:
                 probs = torch.softmax(last.float() / temperature, dim=-1)
                 nxt = torch.multinomial(probs, 1, generator=self.generator)[:, 0]

@@ -41,18 +41,21 @@ Against the JAX engine:
     ``tensor`` axis is N; JAX ``_resolve_mesh``/``_setup_tp`` :309-367):
     the process group is N ranks (gloo ranks may share one card), each
     running this engine with the same scheduler, state manager and
-    sampling generator.  Each holds its slices of the Llama, Mixtral or
-    Qwen2-MoE twin (``models/llama_cache.py``, ``mixtral_cache.py``,
-    ``cache_zoo.py``: q/k/v and their biases, each expert's FFN on its
-    ``expert_mlp`` dim, the shared expert; a whole state dict is cut here
-    tensor by tensor, a sliced one taken as it is) and its kv heads of the
-    arena; K3 attends over the rank's heads, the row-parallel projections,
-    the MoE layers' combines and the embedding all-reduce, and the last
-    tokens' logits are gathered, so every rank samples the same tokens.  A gloo collective is host-side and cannot be
-    captured, so the step programs run eagerly on the card (logged once).
-    ``compile_aot_serving`` reckons a rank's bytes without allocating.
-    Weight-only int8, speculative decoding and the other families (Falcon,
-    OPT, Phi) at N > 1 raise naming ROADMAP item 6.2.
+    sampling generator.  Each holds its slices of the family's twin
+    (``models/llama_cache.py``, ``mixtral_cache.py``, ``cache_zoo.py``:
+    q/k/v and their biases, the MLP's up projection and its bias, each
+    expert's FFN on its ``expert_mlp`` dim, the shared expert, the vocab and
+    Phi's head bias; a whole state dict is cut here tensor by tensor, a
+    sliced one taken as it is) and its kv heads of the arena; K3 attends
+    over the rank's heads, the row-parallel projections, the MoE layers'
+    combines and the embedding all-reduce, and the last tokens' logits are
+    gathered, so every rank samples the same tokens.  A gloo collective is
+    host-side and cannot be captured, so the step programs run eagerly on
+    the card (logged once).
+    ``compile_aot_serving`` reckons a rank's bytes without allocating.  A
+    degree that does not divide the heads or kv heads raises JAX's
+    ``ValueError`` (Falcon-7B's one kv head at N = 2).  Weight-only int8
+    and speculative decoding at N > 1 raise naming ROADMAP item 6.2.
 """
 
 import dataclasses
@@ -906,8 +909,9 @@ def compile_aot_serving(cfg, mesh: Mesh, engine_config: Optional[RaggedInference
     nothing (JAX ``compile_aot_serving`` :145-171): the sharded twin and one
     layer's arena on the ``meta`` device, so Llama-3-8B or Mixtral-8x7B at
     tensor 8 is reckoned without eight cards.  The bytes are JAX's
-    ``_serving_shardings``' but for a q/k/v bias, whose leaf JAX keeps
-    whole on every rank and the port cuts with its heads.  Returns ``(budget, n_params)``,
+    ``_serving_shardings``' but for the biases JAX keeps whole on every
+    rank and the port cuts with its heads or vocab: q/k/v's, the MLP up
+    projection's (Falcon, OPT, Phi) and Phi's LM head's.  Returns ``(budget, n_params)``,
     ``n_params`` the whole model's parameter count."""
     eng_cfg = engine_config or RaggedInferenceEngineConfig()
     kvcfg = eng_cfg.kv

@@ -22,7 +22,15 @@ flax's do.
 Falcon-RW's alibi slopes are a float32 ``[H]`` tensor the model makes once
 on its device (``bind``), so a captured step graph reads the same tensor on
 every replay; Mistral's window is the int ``cfg.sliding_window`` of the
-Llama twin.  Qwen2-MoE's twin is the Llama twin with its sparse (or, in a
+Llama twin.
+
+Over ``tensor_parallel`` N ranks each twin holds its training model's
+slices (``models/{falcon,opt,phi}.py``: the heads, the MLP's up
+projection and the vocab cut, the learned positions and the norms whole),
+its arena holds the rank's kv heads, Falcon-RW's slopes are the rank's
+heads' (``falcon.rank_alibi_slopes``, made in ``bind`` after the engine
+has set the rank), and ``logits`` gathers the vocab slices over the tensor
+group, as the Llama twin does.  Qwen2-MoE's twin is the Llama twin with its sparse (or, in a
 mixed stack, dense) MLP per layer (JAX ``cache_zoo.py:321-380``); Mixtral's
 is ``mixtral_cache.py``.  ``build_cache_model`` picks a config's twin, this
 registry's or the Llama one, and serves Mixtral dropless.
@@ -35,8 +43,8 @@ import torch
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
-from .falcon import FalconAttention, FalconBlock, FalconConfig, FalconForCausalLM, alibi_slopes
+from ..module_inject.layers import gather_from_tensor_region
+from .falcon import FalconAttention, FalconBlock, FalconConfig, FalconForCausalLM, rank_alibi_slopes
 from .llama import LlamaConfig
 from .llama_cache import LlamaAttentionCache, LlamaForCausalLMWithCache, paged_attention_core
 from .mixtral import MixtralConfig
@@ -64,6 +72,11 @@ class _CacheTwin(nn.Module):
         """Make the model's non-weight tensors on ``device`` (once; a model
         built on the meta device calls it after its state dict is loaded)."""
 
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The training model's head over hidden rows: ``[..., V]``, the
+        vocab slices gathered over the tensor group."""
+        return gather_from_tensor_region(super().logits(x), self.tp, "logits")
+
     def forward(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
         return self.logits(self.hidden(input_ids, start_pos, block_table, cache, chunk_lens))
 
@@ -74,8 +87,8 @@ class _CacheTwin(nn.Module):
 class FalconAttentionCache(FalconAttention):
     """The training attention's projections over the paged arena."""
 
-    def __init__(self, cfg: FalconConfig, page_size: int, device=None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: FalconConfig, page_size: int, device=None, tp_size: int = 1):
+        super().__init__(cfg, device, tp_size=tp_size)
         self.page_size = page_size
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens, slopes):
@@ -87,21 +100,24 @@ class FalconAttentionCache(FalconAttention):
 class FalconForCausalLMWithCache(_CacheTwin, FalconForCausalLM):
     """The training model's embedding and head over paged blocks."""
 
-    def __init__(self, cfg: FalconConfig, page_size: int = 16, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: FalconConfig, page_size: int = 16, device: DeviceLike = "cuda", tensor_parallel: int = 1):
         self.page_size = page_size
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, tensor_parallel=tensor_parallel)
         dev = resolve_device(device)
-        #: Falcon-RW's float32 [H] alibi slopes on the model's device (``bind``)
+        #: Falcon-RW's float32 alibi slopes of the rank's heads on the model's device (``bind``)
         self.alibi_slopes: Optional[torch.Tensor] = None
         if dev.type != "meta":
             self.bind(dev)
 
     def _make_block(self, cfg: FalconConfig, device) -> nn.Module:
-        return FalconBlock(cfg, device, FalconAttentionCache(cfg, self.page_size, device))
+        return FalconBlock(cfg, device, FalconAttentionCache(cfg, self.page_size, device, tp_size=self.tp.size),
+                           tp_size=self.tp.size)
 
     def bind(self, device: torch.device) -> None:
-        if self.cfg.alibi and self.alibi_slopes is None:
-            self.alibi_slopes = torch.from_numpy(alibi_slopes(self.cfg.num_attention_heads)).to(device)
+        """The rank's alibi slopes (after the engine has set the rank: the
+        meta-built twin's ``bind`` runs after ``set_tensor_parallel_``)."""
+        if self.cfg.alibi:
+            self.alibi_slopes = rank_alibi_slopes(self.cfg, self.tp, device)
 
     def hidden(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
         _check_cache(cache, self.h)
@@ -120,8 +136,8 @@ class FalconForCausalLMWithCache(_CacheTwin, FalconForCausalLM):
 class OPTAttentionCache(OPTAttention):
     """The training attention's projections over the paged arena."""
 
-    def __init__(self, cfg: OPTConfig, page_size: int, device=None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: OPTConfig, page_size: int, device=None, tp_size: int = 1):
+        super().__init__(cfg, device, tp_size=tp_size)
         self.page_size = page_size
 
     def forward(self, x, pages, block_table, start_pos, chunk_lens):
@@ -133,12 +149,13 @@ class OPTAttentionCache(OPTAttention):
 class OPTForCausalLMWithCache(_CacheTwin, OPTForCausalLM):
     """The training model's embeddings and head over paged blocks."""
 
-    def __init__(self, cfg: OPTConfig, page_size: int = 16, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: OPTConfig, page_size: int = 16, device: DeviceLike = "cuda", tensor_parallel: int = 1):
         self.page_size = page_size
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, tensor_parallel=tensor_parallel)
 
     def _make_block(self, cfg: OPTConfig, device) -> nn.Module:
-        return OPTBlock(cfg, device, OPTAttentionCache(cfg, self.page_size, device))
+        return OPTBlock(cfg, device, OPTAttentionCache(cfg, self.page_size, device, tp_size=self.tp.size),
+                        tp_size=self.tp.size)
 
     def hidden(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
         _check_cache(cache, self.layers)
@@ -157,8 +174,8 @@ class PhiAttentionCache(PhiAttention):
     """The training attention's projections, ``qk_layernorm`` and partial
     rotary over the paged arena."""
 
-    def __init__(self, cfg: PhiConfig, page_size: int, device=None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: PhiConfig, page_size: int, device=None, tp_size: int = 1):
+        super().__init__(cfg, device, tp_size=tp_size)
         self.page_size = page_size
 
     def forward(self, x, positions, pages, block_table, start_pos, chunk_lens):
@@ -170,12 +187,13 @@ class PhiAttentionCache(PhiAttention):
 class PhiForCausalLMWithCache(_CacheTwin, PhiForCausalLM):
     """The training model's embedding and head over paged blocks."""
 
-    def __init__(self, cfg: PhiConfig, page_size: int = 16, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: PhiConfig, page_size: int = 16, device: DeviceLike = "cuda", tensor_parallel: int = 1):
         self.page_size = page_size
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, tensor_parallel=tensor_parallel)
 
     def _make_block(self, cfg: PhiConfig, device) -> nn.Module:
-        return PhiBlock(cfg, device, PhiAttentionCache(cfg, self.page_size, device))
+        return PhiBlock(cfg, device, PhiAttentionCache(cfg, self.page_size, device, tp_size=self.tp.size),
+                        tp_size=self.tp.size)
 
     def hidden(self, input_ids, start_pos, block_table, cache, chunk_lens=None) -> torch.Tensor:
         _check_cache(cache, self.layers)
@@ -224,20 +242,12 @@ CACHE_MODEL_REGISTRY = {
 }
 
 
-#: the configs whose twins serve over several tensor-parallel ranks
-TENSOR_PARALLEL_CONFIGS = (LlamaConfig, MixtralConfig, Qwen2MoeConfig)
-
-
 def build_cache_model(cfg, page_size: int, device: DeviceLike = "cuda", tensor_parallel: int = 1):
     """The paged twin of a config's family (JAX ``engine_v2.py:39-56``):
     ``CACHE_MODEL_REGISTRY``'s, else Llama.  Mixtral is served dropless: a
     config with ``drop_tokens`` is replaced by one without (capacity drops
     would zero routed tokens at random and leave HF's outputs).  Over
-    ``tensor_parallel`` ranks a rank's slices of the Llama, Mixtral or
-    Qwen2-MoE twin; the other families raise naming ROADMAP item 6.2."""
-    if tensor_parallel > 1 and type(cfg) not in TENSOR_PARALLEL_CONFIGS:
-        raise NotImplementedError(f"serving a {type(cfg).__name__} over {tensor_parallel} tensor-parallel ranks "
-                                  f"is not ported ({ROADMAP_TENSOR_PARALLEL})")
+    ``tensor_parallel`` ranks a rank's slices of any family's twin."""
     if isinstance(cfg, MixtralConfig) and cfg.drop_tokens:
         cfg = dataclasses.replace(cfg, drop_tokens=False)
     kw = {"tensor_parallel": tensor_parallel} if tensor_parallel > 1 else {}

@@ -18,6 +18,21 @@ repeated-KV route).  Alibi runs the plain attention with the bias folded by
 1/√D, and any other impl raises, as in JAX (no kernel takes alibi).
 Parameter names mirror the JAX tree (``word_embeddings``, ``h.{i}.
 self_attention.{q,k,v}_proj``, ``dense``, ``dense_h_to_4h``, ``ln_f``, ...).
+
+Tensor parallelism (``tensor_parallel`` N > 1; JAX's logical axes through
+``module_inject/tp_rules.py``, the collectives placed by hand in
+``module_inject/layers.py`` as in ``models/llama.py``): q/k/v (and their
+biases) and ``dense_h_to_4h`` (and its bias) are column-parallel, ``dense``
+and ``dense_4h_to_h`` row-parallel (their biases whole, added after the
+reduce), the embedding and the head vocab-parallel.  A rank attends over
+its query and kv heads, and Falcon-RW's alibi adds the slopes of the
+rank's heads (``rank_alibi_slopes``), not the model's first H/N.  The
+parallel block (Falcon-7B, the new architecture) reduces its two
+row-parallel partial sums apart: two all-reduces a block (kinds ``o_proj``
+and ``down_proj``, as Llama's), each followed by its bias, so a block
+computes what one rank computes.  A degree that does not divide the heads,
+the kv heads (Falcon-7B's one), the MLP width or the vocab raises JAX's
+``ValueError`` ("must divide").
 """
 
 import dataclasses
@@ -30,8 +45,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
+from ..module_inject.layers import (ColumnParallelLinear, RowParallelLinear, TensorParallel, VocabParallelEmbedding,
+                                    copy_to_tensor_region, row_parallel_dense, set_tensor_parallel_,
+                                    vocab_parallel_embed)
 from ..ops.attention import reference_attention
-from .llama import LayerNorm, _linear, apply_rope, block_runner, dense, get_attention_impl, hf_value, rotary_embedding
+from .llama import (LayerNorm, _parallel, apply_rope, block_runner, check_divides, dense, get_attention_impl, hf_value,
+                    rotary_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,28 +131,53 @@ def alibi_slopes(n_heads: int) -> np.ndarray:
     return np.asarray(pow2_slopes(closest) + extra, np.float32)
 
 
+def check_tensor_parallel(cfg: FalconConfig, tp_size: int) -> None:
+    """Raise JAX's ``ValueError`` unless ``tp_size`` divides the heads, the
+    kv heads, the MLP width and the vocab."""
+    check_divides(tp_size, num_attention_heads=cfg.num_attention_heads, num_key_value_heads=cfg.num_kv_heads,
+                  ffn_hidden_size=cfg.ffn_hidden_size or 4 * cfg.hidden_size, vocab_size=cfg.vocab_size)
+
+
+def rank_alibi_slopes(cfg: FalconConfig, tp: TensorParallel, device) -> torch.Tensor:
+    """The float32 alibi slopes of this rank's heads: heads ``[t·H/N,
+    (t+1)·H/N)`` of the model's ``alibi_slopes(H)``."""
+    return torch.from_numpy(alibi_slopes(cfg.num_attention_heads)[tp.slice(cfg.num_attention_heads)]).to(device)
+
+
 class FalconAttention(nn.Module):
     """The q/k/v and ``dense`` projections and the rotary, and the
     cache-free attention (the paged twin, ``cache_zoo.FalconAttentionCache``,
-    shares the projections)."""
+    shares the projections); over ``tp_size`` ranks a rank's heads."""
 
-    def __init__(self, cfg: FalconConfig, device=None):
+    def __init__(self, cfg: FalconConfig, device=None, tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
         h, kv, d, e = cfg.num_attention_heads, cfg.num_kv_heads, cfg.head_dim, cfg.hidden_size
-        self.q_proj = _linear(cfg, e, h * d, cfg.bias, device)
-        self.k_proj = _linear(cfg, e, kv * d, cfg.bias, device)
-        self.v_proj = _linear(cfg, e, kv * d, cfg.bias, device)
-        self.dense = _linear(cfg, h * d, e, cfg.bias, device)
+        col, row = ColumnParallelLinear, RowParallelLinear
+        self.q_proj = _parallel(col, cfg, e, h * d, cfg.bias, device, tp_size)
+        self.k_proj = _parallel(col, cfg, e, kv * d, cfg.bias, device, tp_size)
+        self.v_proj = _parallel(col, cfg, e, kv * d, cfg.bias, device, tp_size)
+        self.dense = _parallel(row, cfg, h * d, e, cfg.bias, device, tp_size)
+
+    @property
+    def n_heads(self) -> int:
+        """This rank's query heads."""
+        return self.q_proj.out_features // self.cfg.head_dim
+
+    @property
+    def n_kv(self) -> int:
+        """This rank's kv heads."""
+        return self.k_proj.out_features // self.cfg.head_dim
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """x [B, S, E] → q [B, S, H, D], k/v [B, S, KV, D], rotated unless alibi."""
+        """x [B, S, E] → q [B, S, H, D], k/v [B, S, KV, D] (this rank's heads), rotated unless alibi."""
         cfg = self.cfg
         b, s, _ = x.shape
         d = cfg.head_dim
-        q = dense(x, self.q_proj, cfg.dtype).view(b, s, cfg.num_attention_heads, d)
-        k = dense(x, self.k_proj, cfg.dtype).view(b, s, cfg.num_kv_heads, d)
-        v = dense(x, self.v_proj, cfg.dtype).view(b, s, cfg.num_kv_heads, d)
+        x = copy_to_tensor_region(x, self.q_proj.tp, "qkv")
+        q = dense(x, self.q_proj, cfg.dtype).view(b, s, self.n_heads, d)
+        k = dense(x, self.k_proj, cfg.dtype).view(b, s, self.n_kv, d)
+        v = dense(x, self.v_proj, cfg.dtype).view(b, s, self.n_kv, d)
         if not cfg.alibi:   # Falcon-RW: alibi in the attention instead of rotary
             cos, sin = rotary_embedding(positions, d, cfg.rope_theta)
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -141,7 +185,7 @@ class FalconAttention(nn.Module):
 
     def out(self, attn: torch.Tensor) -> torch.Tensor:
         b, s = attn.shape[:2]
-        return dense(attn.reshape(b, s, -1), self.dense, self.cfg.dtype)
+        return row_parallel_dense(attn.reshape(b, s, -1), self.dense, self.cfg.dtype, "o_proj")
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, segment_ids: Optional[torch.Tensor] = None,
                 slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -166,7 +210,8 @@ class FalconBlock(nn.Module):
     *attn_args)`` hands ``attn_args`` to ``self_attention``: the cache-free
     one, or the paged twin's when given."""
 
-    def __init__(self, cfg: FalconConfig, device=None, self_attention: Optional[nn.Module] = None):
+    def __init__(self, cfg: FalconConfig, device=None, self_attention: Optional[nn.Module] = None,
+                 tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
         ln = lambda: LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, device)
@@ -176,14 +221,16 @@ class FalconBlock(nn.Module):
             self.ln_attn, self.ln_mlp = ln(), ln()
         else:
             self.input_layernorm = ln()
-        self.self_attention = self_attention if self_attention is not None else FalconAttention(cfg, device)
+        self.self_attention = self_attention if self_attention is not None else \
+            FalconAttention(cfg, device, tp_size=tp_size)
         ffn = cfg.ffn_hidden_size or 4 * cfg.hidden_size
-        self.dense_h_to_4h = _linear(cfg, cfg.hidden_size, ffn, cfg.bias, device)
-        self.dense_4h_to_h = _linear(cfg, ffn, cfg.hidden_size, cfg.bias, device)
+        self.dense_h_to_4h = _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, ffn, cfg.bias, device, tp_size)
+        self.dense_4h_to_h = _parallel(RowParallelLinear, cfg, ffn, cfg.hidden_size, cfg.bias, device, tp_size)
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        return dense(F.gelu(dense(x, self.dense_h_to_4h, dt)), self.dense_4h_to_h, dt)
+        x = copy_to_tensor_region(x, self.dense_h_to_4h.tp, "mlp")
+        return row_parallel_dense(F.gelu(dense(x, self.dense_h_to_4h, dt)), self.dense_4h_to_h, dt, "down_proj")
 
     def forward(self, x: torch.Tensor, *attn_args) -> torch.Tensor:
         cfg = self.cfg
@@ -199,22 +246,30 @@ class FalconBlock(nn.Module):
 
 class FalconForCausalLM(nn.Module):
     """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
-    compute dtype; each block under ``cfg.remat``'s checkpoint.  The paged
-    twin (``cache_zoo``) subclasses it with its own blocks (``_make_block``)
-    and shares ``embed`` and ``logits``."""
+    compute dtype (``[B, S, V/N]``, this rank's vocab slice, over
+    ``tensor_parallel`` N ranks); each block under ``cfg.remat``'s
+    checkpoint.  The paged twin (``cache_zoo``) subclasses it with its own
+    blocks (``_make_block``) and shares ``embed`` and ``logits``."""
 
-    def __init__(self, cfg: FalconConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: FalconConfig, device: DeviceLike = "cuda", tensor_parallel: int = 1):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.word_embeddings = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
-                                                  dtype=cfg.param_dtype)
+        check_tensor_parallel(cfg, tensor_parallel)
+        #: this rank's place on the tensor axis (its group set by the engine)
+        self.tp = TensorParallel(tensor_parallel)
+        self.word_embeddings = nn.utils.skip_init(VocabParallelEmbedding, cfg.vocab_size, cfg.hidden_size,
+                                                  device=dev, dtype=cfg.param_dtype, tp_size=tensor_parallel)
         self.h = nn.ModuleList([self._make_block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, dev)
-        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, cfg.hidden_size, cfg.vocab_size, False, dev)
+        self.lm_head = None if cfg.tie_word_embeddings else \
+            _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, cfg.vocab_size, False, dev, tensor_parallel)
+        if tensor_parallel > 1:
+            from ..comm import comm
+            set_tensor_parallel_(self, TensorParallel(tensor_parallel, comm.get_rank() % tensor_parallel))
 
     def _make_block(self, cfg: FalconConfig, device) -> nn.Module:
-        return FalconBlock(cfg, device)
+        return FalconBlock(cfg, device, tp_size=self.tp.size)
 
     @property
     def attention_bias_kind(self) -> Optional[str]:
@@ -223,11 +278,12 @@ class FalconForCausalLM(nn.Module):
         return "alibi" if self.cfg.alibi else None
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(input_ids.long(), self.word_embeddings.weight).to(self.cfg.dtype)
+        return vocab_parallel_embed(input_ids.long(), self.word_embeddings.weight, self.tp).to(self.cfg.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        """``ln_f`` and the head (tied: ``embed.attend``) over hidden rows."""
-        x = self.ln_f(x)
+        """``ln_f`` and the head (tied: ``embed.attend``) over hidden rows:
+        this rank's vocab slice over ``tensor_parallel`` ranks."""
+        x = copy_to_tensor_region(self.ln_f(x), self.tp, "lm_head")
         if self.lm_head is None:
             return x @ self.word_embeddings.weight.to(self.cfg.dtype).T
         return dense(x, self.lm_head, self.cfg.dtype)
@@ -237,7 +293,7 @@ class FalconForCausalLM(nn.Module):
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
-        slopes = torch.from_numpy(alibi_slopes(cfg.num_attention_heads)).to(input_ids.device) if cfg.alibi else None
+        slopes = rank_alibi_slopes(cfg, self.tp, input_ids.device) if cfg.alibi else None
         x = self.embed(input_ids)
         run = block_runner(cfg)
         for block in self.h:

@@ -7,6 +7,16 @@ and a tied LM head.  Attention follows ``cfg.attention_impl`` through
 ``cfg.remat_policy``, as the Llama model does (``llama.block_runner``).
 Parameter names mirror the JAX tree with the layers unrolled (``h.{i}.attn.
 c_attn``, ``h.{i}.mlp.c_fc``, ...) and torch's ``[out, in]`` weights.
+
+The projections are ``module_inject/layers.py``'s tensor-parallel layers
+(``nn.Linear`` at degree 1), so the v1 engine cuts a whole model over
+``tensor_parallel`` ranks (``cut_tensor_parallel_``): ``c_attn``'s outputs
+are q, k and v laid out ``(3, H, D)`` (JAX's kernel axes ``(EMBED, None,
+HEADS, HEAD_DIM)``), so a rank keeps its heads of each of the three
+(``parts=3``), not a contiguous third of the rows; ``c_fc`` is
+column-parallel, both ``c_proj`` row-parallel (kinds ``o_proj`` and
+``down_proj``), the token table vocab-parallel (the tied head gives the
+rank's vocab slice) and the learned positions whole.
 """
 
 import dataclasses
@@ -16,7 +26,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from .llama import LayerNorm, _linear, block_runner, causal_lm_loss, dense, get_attention_impl, hf_value
+from ..module_inject.layers import (NO_TENSOR_PARALLEL, ColumnParallelLinear, RowParallelLinear,
+                                    VocabParallelEmbedding, copy_to_tensor_region, row_parallel_dense,
+                                    vocab_parallel_embed)
+from .llama import LayerNorm, _parallel, block_runner, causal_lm_loss, dense, get_attention_impl, hf_value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,15 +78,17 @@ class GPT2Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         e = cfg.hidden_size
-        self.c_attn = _linear(cfg, e, 3 * e, True, device)
-        self.c_proj = _linear(cfg, e, e, True, device)
+        self.c_attn = nn.utils.skip_init(ColumnParallelLinear, e, 3 * e, bias=True, device=device,
+                                         dtype=cfg.param_dtype, parts=3)
+        self.c_proj = _parallel(RowParallelLinear, cfg, e, e, True, device, 1)
 
     def forward(self, x, segment_ids=None):
         cfg = self.cfg
         b, s, _ = x.shape
-        q, k, v = dense(x, self.c_attn, cfg.dtype).view(b, s, 3, cfg.num_attention_heads, cfg.head_dim).unbind(dim=2)
+        x = copy_to_tensor_region(x, self.c_attn.tp, "qkv")
+        q, k, v = dense(x, self.c_attn, cfg.dtype).view(b, s, 3, -1, cfg.head_dim).unbind(dim=2)
         out = get_attention_impl(cfg.attention_impl)(q, k, v, causal=True, segment_ids=segment_ids)
-        return dense(out.reshape(b, s, -1), self.c_proj, cfg.dtype)
+        return row_parallel_dense(out.reshape(b, s, -1), self.c_proj, cfg.dtype, "o_proj")
 
 
 class GPT2MLP(nn.Module):
@@ -81,12 +96,13 @@ class GPT2MLP(nn.Module):
     def __init__(self, cfg: GPT2Config, device=None):
         super().__init__()
         self.cfg = cfg
-        self.c_fc = _linear(cfg, cfg.hidden_size, 4 * cfg.hidden_size, True, device)
-        self.c_proj = _linear(cfg, 4 * cfg.hidden_size, cfg.hidden_size, True, device)
+        self.c_fc = _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, 4 * cfg.hidden_size, True, device, 1)
+        self.c_proj = _parallel(RowParallelLinear, cfg, 4 * cfg.hidden_size, cfg.hidden_size, True, device, 1)
 
     def forward(self, x):
         dt = self.cfg.dtype
-        return dense(F.gelu(dense(x, self.c_fc, dt), approximate="tanh"), self.c_proj, dt)
+        x = copy_to_tensor_region(x, self.c_fc.tp, "mlp")
+        return row_parallel_dense(F.gelu(dense(x, self.c_fc, dt), approximate="tanh"), self.c_proj, dt, "down_proj")
 
 
 class GPT2Block(nn.Module):
@@ -109,22 +125,25 @@ class GPT2LMHeadModel(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        emb = lambda n: nn.utils.skip_init(nn.Embedding, n, cfg.hidden_size, device=dev, dtype=cfg.param_dtype)
-        self.wte, self.wpe = emb(cfg.vocab_size), emb(cfg.n_positions)
+        #: this rank's place on the tensor axis (set by the v1 engine's cut)
+        self.tp = NO_TENSOR_PARALLEL
+        emb = lambda cls, n: nn.utils.skip_init(cls, n, cfg.hidden_size, device=dev, dtype=cfg.param_dtype)
+        self.wte, self.wpe = emb(VocabParallelEmbedding, cfg.vocab_size), emb(nn.Embedding, cfg.n_positions)
         self.h = nn.ModuleList([GPT2Block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, dev)
-        self.lm_head = None if cfg.tie_word_embeddings else _linear(cfg, cfg.hidden_size, cfg.vocab_size, False, dev)
+        self.lm_head = None if cfg.tie_word_embeddings else \
+            _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, cfg.vocab_size, False, dev, 1)
 
     def forward(self, input_ids: torch.Tensor, positions=None, segment_ids=None) -> torch.Tensor:
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(input_ids.shape[1], device=input_ids.device).expand(input_ids.shape)
-        x = F.embedding(input_ids.long(), self.wte.weight).to(cfg.dtype) + \
+        x = vocab_parallel_embed(input_ids.long(), self.wte.weight, self.tp).to(cfg.dtype) + \
             F.embedding(positions.long(), self.wpe.weight).to(cfg.dtype)
         run = block_runner(cfg)
         for block in self.h:
             x = run(block, x, segment_ids)
-        x = self.ln_f(x)
+        x = copy_to_tensor_region(self.ln_f(x), self.tp, "lm_head")
         if self.lm_head is None:
             return x.to(cfg.dtype) @ self.wte.weight.to(cfg.dtype).T
         return dense(x, self.lm_head, cfg.dtype)

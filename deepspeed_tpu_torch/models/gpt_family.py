@@ -24,6 +24,19 @@ JAX.  Numerics follow the JAX modules: weights in ``param_dtype`` cast to
 float32.  Parameter names mirror the JAX tree with the layers unrolled
 (``h.{i}`` or ``layers.{i}``) and torch's ``[out, in]`` weights, so
 ``models/convert.py`` carries a JAX tree across leaf by leaf.
+
+The projections are ``module_inject/layers.py``'s tensor-parallel layers
+(``nn.Linear`` at degree 1), so the v1 engine cuts a whole model over
+``tensor_parallel`` ranks (``cut_tensor_parallel_``): q/k/v (BLOOM's and
+GPT-NeoX's fused ``query_key_value``, laid out per head ``(H, 3, D)``, cut
+by heads as one contiguous block) and the MLP's up projection
+column-parallel, the attention output and the MLP's down projection
+row-parallel (kinds ``o_proj`` and ``down_proj``; GPT-NeoX's and GPT-J's
+parallel branches reduce apart, two all-reduces a block), the token table
+and the head vocab-parallel (GPT-J's head bias cut with the vocab),
+GPT-Neo's learned positions whole.  A rank attends over its heads:
+BLOOM's alibi adds the slopes of those heads, the partial and interleaved
+rotaries act per head.
 """
 
 import dataclasses
@@ -34,9 +47,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
+from ..module_inject.layers import (NO_TENSOR_PARALLEL, ColumnParallelLinear, RowParallelLinear,
+                                    VocabParallelEmbedding, copy_to_tensor_region, row_parallel_dense,
+                                    vocab_parallel_embed)
 from ..ops.attention import reference_attention
-from .falcon import alibi_slopes
-from .llama import LayerNorm, _linear, dense, get_attention_impl, hf_value, rotary_embedding
+from .falcon import rank_alibi_slopes
+from .llama import LayerNorm, _parallel, dense, get_attention_impl, hf_value, rotary_embedding
 from .phi import apply_partial_rope
 
 
@@ -58,12 +74,28 @@ def _ln(cfg, device) -> LayerNorm:
     return LayerNorm(cfg.hidden_size, cfg.layer_norm_epsilon, cfg.dtype, cfg.param_dtype, device)
 
 
-def _embedding(cfg, num: int, device) -> nn.Embedding:
-    return nn.utils.skip_init(nn.Embedding, num, cfg.hidden_size, device=device, dtype=cfg.param_dtype)
+def _embedding(cfg, num: int, device, vocab: bool = True) -> nn.Embedding:
+    """A token table (vocab-parallel) or, with ``vocab=False``, a whole one."""
+    cls = VocabParallelEmbedding if vocab else nn.Embedding
+    return nn.utils.skip_init(cls, num, cfg.hidden_size, device=device, dtype=cfg.param_dtype)
+
+
+def _col(cfg, fan_in: int, fan_out: int, bias: bool, device) -> nn.Linear:
+    return _parallel(ColumnParallelLinear, cfg, fan_in, fan_out, bias, device, 1)
+
+
+def _row(cfg, fan_in: int, fan_out: int, bias: bool, device) -> nn.Linear:
+    return _parallel(RowParallelLinear, cfg, fan_in, fan_out, bias, device, 1)
 
 
 def _gelu_mlp(cfg, x, fc_in: nn.Linear, fc_out: nn.Linear) -> torch.Tensor:
-    return dense(F.gelu(dense(x, fc_in, cfg.dtype), approximate="tanh"), fc_out, cfg.dtype)
+    x = copy_to_tensor_region(x, fc_in.tp, "mlp")
+    return row_parallel_dense(F.gelu(dense(x, fc_in, cfg.dtype), approximate="tanh"), fc_out, cfg.dtype, "down_proj")
+
+
+def _out(cfg, attn: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """The attention's output projection over ``attn`` [B, S, H, D]."""
+    return row_parallel_dense(attn.reshape(*attn.shape[:2], -1), layer, cfg.dtype, "o_proj")
 
 
 def _positions(input_ids: torch.Tensor, positions: Optional[torch.Tensor]) -> torch.Tensor:
@@ -74,6 +106,18 @@ def _positions(input_ids: torch.Tensor, positions: Optional[torch.Tensor]) -> to
 
 class _CausalLM(nn.Module):
     """The shared trunk: embed, the stack, the final LayerNorm, the head."""
+
+    def __init__(self):
+        super().__init__()
+        #: this rank's place on the tensor axis (set by the v1 engine's cut)
+        self.tp = NO_TENSOR_PARALLEL
+
+    def _embed_tokens(self, input_ids, table: nn.Embedding) -> torch.Tensor:
+        return vocab_parallel_embed(input_ids.long(), table.weight, self.tp).to(self.cfg.dtype)
+
+    def _to_head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final hidden rows into the (vocab-parallel) head."""
+        return copy_to_tensor_region(x, self.tp, "lm_head")
 
     def _embed(self, input_ids, positions) -> torch.Tensor:
         raise NotImplementedError
@@ -93,8 +137,9 @@ class _CausalLM(nn.Module):
         return self._head(x)
 
     def attend(self, x: torch.Tensor, embedding: nn.Embedding) -> torch.Tensor:
-        """flax ``Embed.attend``: x against the table, both in the compute dtype."""
-        return x.to(self.cfg.dtype) @ embedding.weight.to(self.cfg.dtype).T
+        """flax ``Embed.attend``: x against the table (the rank's vocab
+        rows), both in the compute dtype."""
+        return self._to_head(x).to(self.cfg.dtype) @ embedding.weight.to(self.cfg.dtype).T
 
 
 # ------------------------------------------------------------------- BLOOM
@@ -132,17 +177,17 @@ class BloomAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         e = cfg.hidden_size
-        self.query_key_value = _linear(cfg, e, 3 * e, True, device)
-        self.dense = _linear(cfg, e, e, True, device)
+        self.query_key_value = _col(cfg, e, 3 * e, True, device)
+        self.dense = _row(cfg, e, e, True, device)
 
     def forward(self, x, positions, segment_ids=None, slopes=None):
         cfg = self.cfg
         b, s, _ = x.shape
-        qkv = dense(x, self.query_key_value, cfg.dtype).view(b, s, cfg.num_attention_heads, 3, cfg.head_dim)
+        x = copy_to_tensor_region(x, self.query_key_value.tp, "qkv")
+        qkv = dense(x, self.query_key_value, cfg.dtype).view(b, s, -1, 3, cfg.head_dim)
         q, k, v = qkv.unbind(dim=3)
         bias = slopes[None, :, None, None] * positions.float()[:, None, None, :]
-        out = reference_attention(q, k, v, True, segment_ids=segment_ids, attn_bias=bias)
-        return dense(out.reshape(b, s, -1), self.dense, cfg.dtype)
+        return _out(cfg, reference_attention(q, k, v, True, segment_ids=segment_ids, attn_bias=bias), self.dense)
 
 
 class BloomBlock(nn.Module):
@@ -153,8 +198,8 @@ class BloomBlock(nn.Module):
         self.input_layernorm = _ln(cfg, device)
         self.self_attention = BloomAttention(cfg, device)
         self.post_attention_layernorm = _ln(cfg, device)
-        self.dense_h_to_4h = _linear(cfg, cfg.hidden_size, 4 * cfg.hidden_size, True, device)
-        self.dense_4h_to_h = _linear(cfg, 4 * cfg.hidden_size, cfg.hidden_size, True, device)
+        self.dense_h_to_4h = _col(cfg, cfg.hidden_size, 4 * cfg.hidden_size, True, device)
+        self.dense_4h_to_h = _row(cfg, 4 * cfg.hidden_size, cfg.hidden_size, True, device)
 
     def forward(self, x, positions, segment_ids=None, slopes=None):
         h = x + self.self_attention(self.input_layernorm(x), positions, segment_ids, slopes)
@@ -178,9 +223,8 @@ class BloomForCausalLM(_CausalLM):
 
     def forward(self, input_ids, positions=None, segment_ids=None):
         positions = _positions(input_ids, positions)
-        slopes = torch.from_numpy(alibi_slopes(self.cfg.num_attention_heads)).to(input_ids.device)
-        x = F.embedding(input_ids.long(), self.word_embeddings.weight).to(self.cfg.dtype)
-        x = self.word_embeddings_layernorm(x)
+        slopes = rank_alibi_slopes(self.cfg, self.tp, input_ids.device)
+        x = self.word_embeddings_layernorm(self._embed_tokens(input_ids, self.word_embeddings))
         for block in self.h:
             x = block(x, positions, segment_ids, slopes)
         return self.attend(self.ln_f(x), self.word_embeddings)
@@ -230,21 +274,22 @@ class GPTNeoXBlock(nn.Module):
         e = cfg.hidden_size
         self.input_layernorm = _ln(cfg, device)
         self.post_attention_layernorm = _ln(cfg, device)
-        self.query_key_value = _linear(cfg, e, 3 * e, True, device)
-        self.dense = _linear(cfg, e, e, True, device)
-        self.dense_h_to_4h = _linear(cfg, e, cfg.intermediate_size, True, device)
-        self.dense_4h_to_h = _linear(cfg, cfg.intermediate_size, e, True, device)
+        self.query_key_value = _col(cfg, e, 3 * e, True, device)
+        self.dense = _row(cfg, e, e, True, device)
+        self.dense_h_to_4h = _col(cfg, e, cfg.intermediate_size, True, device)
+        self.dense_4h_to_h = _row(cfg, cfg.intermediate_size, e, True, device)
 
     def attention(self, x, positions, segment_ids=None):
         cfg = self.cfg
         b, s, _ = x.shape
         d = cfg.head_dim
         rot = int(d * cfg.rotary_pct)
-        q, k, v = dense(x, self.query_key_value, cfg.dtype).view(b, s, cfg.num_attention_heads, 3, d).unbind(dim=3)
+        x = copy_to_tensor_region(x, self.query_key_value.tp, "qkv")
+        q, k, v = dense(x, self.query_key_value, cfg.dtype).view(b, s, -1, 3, d).unbind(dim=3)
         cos, sin = rotary_embedding(positions, rot, cfg.rope_theta)
         q, k = apply_partial_rope(q, cos, sin, rot), apply_partial_rope(k, cos, sin, rot)
-        out = get_attention_impl(cfg.attention_impl)(q, k, v, causal=True, segment_ids=segment_ids)
-        return dense(out.reshape(b, s, -1), self.dense, cfg.dtype)
+        return _out(cfg, get_attention_impl(cfg.attention_impl)(q, k, v, causal=True, segment_ids=segment_ids),
+                    self.dense)
 
     def forward(self, x, positions, segment_ids=None):
         attn = self.attention(self.input_layernorm(x), positions, segment_ids)
@@ -265,16 +310,16 @@ class GPTNeoXForCausalLM(_CausalLM):
         self.embed_in = _embedding(cfg, cfg.vocab_size, dev)
         self.layers = nn.ModuleList([GPTNeoXBlock(cfg, dev) for _ in range(cfg.num_hidden_layers)])
         self.final_layer_norm = _ln(cfg, dev)
-        self.embed_out = _linear(cfg, cfg.hidden_size, cfg.vocab_size, False, dev)
+        self.embed_out = _col(cfg, cfg.hidden_size, cfg.vocab_size, False, dev)
 
     def _embed(self, input_ids, positions):
-        return F.embedding(input_ids.long(), self.embed_in.weight).to(self.cfg.dtype)
+        return self._embed_tokens(input_ids, self.embed_in)
 
     def _blocks(self):
         return self.layers
 
     def _head(self, x):
-        return dense(self.final_layer_norm(x), self.embed_out, self.cfg.dtype)
+        return dense(self._to_head(self.final_layer_norm(x)), self.embed_out, self.cfg.dtype)
 
 
 # ------------------------------------------------------------------- GPT-J
@@ -316,23 +361,23 @@ class GPTJBlock(nn.Module):
         self.cfg = cfg
         e = cfg.hidden_size
         self.ln_1 = _ln(cfg, device)
-        self.q_proj = _linear(cfg, e, e, False, device)
-        self.k_proj = _linear(cfg, e, e, False, device)
-        self.v_proj = _linear(cfg, e, e, False, device)
-        self.out_proj = _linear(cfg, e, e, False, device)
-        self.fc_in = _linear(cfg, e, cfg.intermediate_size, True, device)
-        self.fc_out = _linear(cfg, cfg.intermediate_size, e, True, device)
+        self.q_proj = _col(cfg, e, e, False, device)
+        self.k_proj = _col(cfg, e, e, False, device)
+        self.v_proj = _col(cfg, e, e, False, device)
+        self.out_proj = _row(cfg, e, e, False, device)
+        self.fc_in = _col(cfg, e, cfg.intermediate_size, True, device)
+        self.fc_out = _row(cfg, cfg.intermediate_size, e, True, device)
 
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
         b, s, _ = x.shape
         a_in = self.ln_1(x)    # one LayerNorm feeds both parallel branches
-        heads = lambda proj: dense(a_in, proj, cfg.dtype).view(b, s, cfg.num_attention_heads, cfg.head_dim)
+        q_in = copy_to_tensor_region(a_in, self.q_proj.tp, "qkv")
+        heads = lambda proj: dense(q_in, proj, cfg.dtype).view(b, s, -1, cfg.head_dim)
         q = apply_rope_interleaved(heads(self.q_proj), positions, cfg.rotary_dim)
         k = apply_rope_interleaved(heads(self.k_proj), positions, cfg.rotary_dim)
         out = get_attention_impl(cfg.attention_impl)(q, k, heads(self.v_proj), causal=True, segment_ids=segment_ids)
-        attn = dense(out.reshape(b, s, -1), self.out_proj, cfg.dtype)
-        return x + attn + _gelu_mlp(cfg, a_in, self.fc_in, self.fc_out)
+        return x + _out(cfg, out, self.out_proj) + _gelu_mlp(cfg, a_in, self.fc_in, self.fc_out)
 
 
 class GPTJForCausalLM(_CausalLM):
@@ -345,16 +390,16 @@ class GPTJForCausalLM(_CausalLM):
         self.wte = _embedding(cfg, cfg.vocab_size, dev)
         self.h = nn.ModuleList([GPTJBlock(cfg, dev) for _ in range(cfg.num_hidden_layers)])
         self.ln_f = _ln(cfg, dev)
-        self.lm_head = _linear(cfg, cfg.hidden_size, cfg.vocab_size, True, dev)
+        self.lm_head = _col(cfg, cfg.hidden_size, cfg.vocab_size, True, dev)
 
     def _embed(self, input_ids, positions):
-        return F.embedding(input_ids.long(), self.wte.weight).to(self.cfg.dtype)
+        return self._embed_tokens(input_ids, self.wte)
 
     def _blocks(self):
         return self.h
 
     def _head(self, x):
-        return dense(self.ln_f(x), self.lm_head, self.cfg.dtype)
+        return dense(self._to_head(self.ln_f(x)), self.lm_head, self.cfg.dtype)
 
 
 # ------------------------------------------------------------------ GPT-Neo
@@ -423,21 +468,21 @@ class GPTNeoBlock(nn.Module):
         self.cfg, self.window = cfg, window
         e = cfg.hidden_size
         self.ln_1 = _ln(cfg, device)
-        self.q_proj = _linear(cfg, e, e, False, device)
-        self.k_proj = _linear(cfg, e, e, False, device)
-        self.v_proj = _linear(cfg, e, e, False, device)
-        self.out_proj = _linear(cfg, e, e, True, device)
+        self.q_proj = _col(cfg, e, e, False, device)
+        self.k_proj = _col(cfg, e, e, False, device)
+        self.v_proj = _col(cfg, e, e, False, device)
+        self.out_proj = _row(cfg, e, e, True, device)
         self.ln_2 = _ln(cfg, device)
-        self.c_fc = _linear(cfg, e, cfg.intermediate_size, True, device)
-        self.c_proj = _linear(cfg, cfg.intermediate_size, e, True, device)
+        self.c_fc = _col(cfg, e, cfg.intermediate_size, True, device)
+        self.c_proj = _row(cfg, cfg.intermediate_size, e, True, device)
 
     def forward(self, x, positions, segment_ids=None):
         cfg = self.cfg
         b, s, _ = x.shape
-        a_in = self.ln_1(x)
-        heads = lambda proj: dense(a_in, proj, cfg.dtype).view(b, s, cfg.num_attention_heads, cfg.head_dim)
+        a_in = copy_to_tensor_region(self.ln_1(x), self.q_proj.tp, "qkv")
+        heads = lambda proj: dense(a_in, proj, cfg.dtype).view(b, s, -1, cfg.head_dim)
         out = windowed_attention(heads(self.q_proj), heads(self.k_proj), heads(self.v_proj), self.window, segment_ids)
-        h = x + dense(out.reshape(b, s, -1), self.out_proj, cfg.dtype)
+        h = x + _out(cfg, out, self.out_proj)
         return h + _gelu_mlp(cfg, self.ln_2(h), self.c_fc, self.c_proj)
 
 
@@ -449,14 +494,13 @@ class GPTNeoForCausalLM(_CausalLM):
         dev = resolve_device(device)
         self.cfg = cfg
         self.wte = _embedding(cfg, cfg.vocab_size, dev)
-        self.wpe = _embedding(cfg, cfg.max_position_embeddings, dev)
+        self.wpe = _embedding(cfg, cfg.max_position_embeddings, dev, vocab=False)
         self.h = nn.ModuleList([GPTNeoBlock(cfg, cfg.layer_window(i), dev) for i in range(cfg.num_hidden_layers)])
         self.ln_f = _ln(cfg, dev)
 
     def _embed(self, input_ids, positions):
-        dt = self.cfg.dtype
-        return F.embedding(input_ids.long(), self.wte.weight).to(dt) + F.embedding(positions.long(),
-                                                                                self.wpe.weight).to(dt)
+        return self._embed_tokens(input_ids, self.wte) + F.embedding(positions.long(),
+                                                                     self.wpe.weight).to(self.cfg.dtype)
 
     def _blocks(self):
         return self.h

@@ -174,17 +174,21 @@ def _parallel(cls, cfg: LlamaConfig, fan_in: int, fan_out: int, bias: bool, devi
     return nn.utils.skip_init(cls, fan_in, fan_out, bias=bias, device=device, dtype=cfg.param_dtype, tp_size=tp_size)
 
 
+def check_divides(tp_size: int, **dims: int) -> None:
+    """Raise JAX's ``ValueError`` ("must divide") unless ``tp_size``
+    divides every dim of ``dims`` (name → size)."""
+    bad = {k: v for k, v in dims.items() if v % tp_size}
+    if bad:
+        raise ValueError(f"tensor_parallel={tp_size} must divide " + ", ".join(f"{k}={v}" for k, v in bad.items()))
+
+
 def check_tensor_parallel(cfg: LlamaConfig, tp_size: int) -> None:
     """Raise unless ``tp_size`` divides the heads, the kv heads, the MLP
     width and the vocab (JAX's serving engine raises for the heads,
     ``engine_v2.py:355-358``; its layouts refuse the others)."""
-    if tp_size == 1:
-        return
-    dims = {"num_attention_heads": cfg.num_attention_heads, "num_key_value_heads": cfg.num_key_value_heads,
-            "intermediate_size": cfg.intermediate_size, "vocab_size": cfg.vocab_size}
-    bad = {k: v for k, v in dims.items() if v % tp_size}
-    if bad:
-        raise ValueError(f"tensor_parallel={tp_size} must divide " + ", ".join(f"{k}={v}" for k, v in bad.items()))
+    check_divides(tp_size, num_attention_heads=cfg.num_attention_heads,
+                  num_key_value_heads=cfg.num_key_value_heads, intermediate_size=cfg.intermediate_size,
+                  vocab_size=cfg.vocab_size)
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:

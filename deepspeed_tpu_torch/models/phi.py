@@ -10,6 +10,17 @@ one residual; biases on every projection and the LM head; rotary on the first
 ``cache_zoo.PhiForCausalLMWithCache``, which shares ``PhiBlock`` and the
 projections of ``PhiAttention``.  Phi-3 is a Llama layout
 (``inference/v2/model_implementations/policies.py``).
+
+Tensor parallelism (``tensor_parallel`` N > 1, as ``models/falcon.py``):
+q/k/v and ``fc1`` (with their biases) column-parallel, ``dense`` and
+``fc2`` row-parallel (kinds ``o_proj`` and ``down_proj``, each reduced
+apart, two all-reduces a parallel block; their biases whole), the
+embedding vocab-parallel and the biased head column-parallel over the
+vocab with the rank's slice of its bias (whole in JAX).  The partial rotary
+acts on each of the rank's heads, and so does ``qk_layernorm`` (its
+whole scale and bias get their gradients summed over the tensor group);
+``causal_lm_loss`` with the rank's ``tp``
+is the vocab-parallel cross entropy.
 """
 
 import dataclasses
@@ -20,7 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..accelerator import DeviceLike, resolve_device
-from .llama import LayerNorm, _linear, block_runner, dense, get_attention_impl, hf_value, rotary_embedding
+from ..module_inject.layers import (ColumnParallelLinear, RowParallelLinear, TensorParallel, VocabParallelEmbedding,
+                                    copy_to_tensor_region, row_parallel_dense, set_tensor_parallel_,
+                                    vocab_parallel_embed)
+from .llama import (LayerNorm, _parallel, block_runner, check_divides, dense, get_attention_impl, hf_value,
+                    rotary_embedding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,39 +100,70 @@ def apply_partial_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, ro
     return torch.cat([rotated.to(x.dtype), keep], dim=-1)
 
 
+def check_tensor_parallel(cfg: PhiConfig, tp_size: int) -> None:
+    """Raise JAX's ``ValueError`` unless ``tp_size`` divides the heads, the
+    kv heads, the MLP width and the vocab."""
+    check_divides(tp_size, num_attention_heads=cfg.num_attention_heads,
+                  num_key_value_heads=cfg.num_key_value_heads, intermediate_size=cfg.intermediate_size,
+                  vocab_size=cfg.vocab_size)
+
+
 class PhiAttention(nn.Module):
     """The biased q/k/v and ``dense`` projections, ``qk_layernorm`` and the
     partial rotary, and the cache-free attention (the paged twin,
-    ``cache_zoo.PhiAttentionCache``, shares the rest)."""
+    ``cache_zoo.PhiAttentionCache``, shares the rest); over ``tp_size``
+    ranks a rank's heads."""
 
-    def __init__(self, cfg: PhiConfig, device=None):
+    def __init__(self, cfg: PhiConfig, device=None, tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
         h, kv, d, e = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
-        self.q_proj = _linear(cfg, e, h * d, True, device)
-        self.k_proj = _linear(cfg, e, kv * d, True, device)
-        self.v_proj = _linear(cfg, e, kv * d, True, device)
-        self.dense = _linear(cfg, h * d, e, True, device)
+        col, row = ColumnParallelLinear, RowParallelLinear
+        self.q_proj = _parallel(col, cfg, e, h * d, True, device, tp_size)
+        self.k_proj = _parallel(col, cfg, e, kv * d, True, device, tp_size)
+        self.v_proj = _parallel(col, cfg, e, kv * d, True, device, tp_size)
+        self.dense = _parallel(row, cfg, h * d, e, True, device, tp_size)
         if cfg.qk_layernorm:   # per head, over D, before the rotary (Phi-1/1.5)
             self.q_layernorm = LayerNorm(d, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
             self.k_layernorm = LayerNorm(d, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
 
+    @property
+    def n_heads(self) -> int:
+        """This rank's query heads."""
+        return self.q_proj.out_features // self.cfg.head_dim
+
+    @property
+    def n_kv(self) -> int:
+        """This rank's kv heads."""
+        return self.k_proj.out_features // self.cfg.head_dim
+
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """x [B, S, E] → q [B, S, H, D], k/v [B, S, KV, D] after the partial rotary."""
+        """x [B, S, E] → q [B, S, H, D], k/v [B, S, KV, D] (this rank's heads) after the partial rotary."""
         cfg = self.cfg
         b, s, _ = x.shape
         d = cfg.head_dim
-        q = dense(x, self.q_proj, cfg.dtype).view(b, s, cfg.num_attention_heads, d)
-        k = dense(x, self.k_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, d)
-        v = dense(x, self.v_proj, cfg.dtype).view(b, s, cfg.num_key_value_heads, d)
+        x = copy_to_tensor_region(x, self.q_proj.tp, "qkv")
+        q = dense(x, self.q_proj, cfg.dtype).view(b, s, self.n_heads, d)
+        k = dense(x, self.k_proj, cfg.dtype).view(b, s, self.n_kv, d)
+        v = dense(x, self.v_proj, cfg.dtype).view(b, s, self.n_kv, d)
         if cfg.qk_layernorm:
-            q, k = self.q_layernorm(q), self.k_layernorm(k)
+            q, k = self._head_norm(self.q_layernorm, q), self._head_norm(self.k_layernorm, k)
         cos, sin = rotary_embedding(positions, cfg.rotary_dim, cfg.rope_theta)
         return apply_partial_rope(q, cos, sin, cfg.rotary_dim), apply_partial_rope(k, cos, sin, cfg.rotary_dim), v
 
+    def _head_norm(self, norm: LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        """``norm`` over D of each of the rank's heads.  Its scale and bias
+        are whole on every rank but see only the rank's heads, so their
+        gradients are summed over the tensor group (kind ``qk_layernorm``)."""
+        tp = self.q_proj.tp
+        if tp.size == 1:
+            return norm(x)
+        w, b = (copy_to_tensor_region(p, tp, "qk_layernorm") for p in (norm.weight, norm.bias))
+        return F.layer_norm(x.float(), (x.shape[-1], ), w.float(), b.float(), norm.eps).to(norm.dtype)
+
     def out(self, attn: torch.Tensor) -> torch.Tensor:
         b, s = attn.shape[:2]
-        return dense(attn.reshape(b, s, -1), self.dense, self.cfg.dtype)
+        return row_parallel_dense(attn.reshape(b, s, -1), self.dense, self.cfg.dtype, "o_proj")
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -130,46 +176,57 @@ class PhiBlock(nn.Module):
     ``forward(x, *attn_args)`` hands ``attn_args`` to ``self_attn`` (the
     cache-free attention, or the paged twin's when given)."""
 
-    def __init__(self, cfg: PhiConfig, device=None, self_attn: Optional[nn.Module] = None):
+    def __init__(self, cfg: PhiConfig, device=None, self_attn: Optional[nn.Module] = None, tp_size: int = 1):
         super().__init__()
         self.cfg = cfg
         self.input_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, device)
-        self.self_attn = self_attn if self_attn is not None else PhiAttention(cfg, device)
-        self.fc1 = _linear(cfg, cfg.hidden_size, cfg.intermediate_size, True, device)
-        self.fc2 = _linear(cfg, cfg.intermediate_size, cfg.hidden_size, True, device)
+        self.self_attn = self_attn if self_attn is not None else PhiAttention(cfg, device, tp_size=tp_size)
+        self.fc1 = _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, cfg.intermediate_size, True, device, tp_size)
+        self.fc2 = _parallel(RowParallelLinear, cfg, cfg.intermediate_size, cfg.hidden_size, True, device, tp_size)
 
     def forward(self, x: torch.Tensor, *attn_args) -> torch.Tensor:
         dt = self.cfg.dtype
         h = self.input_layernorm(x)
         attn = self.self_attn(h, *attn_args)
-        mlp = dense(F.gelu(dense(h, self.fc1, dt), approximate="tanh"), self.fc2, dt)
+        m_in = copy_to_tensor_region(h, self.fc1.tp, "mlp")
+        mlp = row_parallel_dense(F.gelu(dense(m_in, self.fc1, dt), approximate="tanh"), self.fc2, dt, "down_proj")
         return x + attn + mlp
 
 
 class PhiForCausalLM(nn.Module):
     """Cache-free forward: ``input_ids`` [B, S] → logits [B, S, V] in the
-    compute dtype; each block under ``cfg.remat``'s checkpoint.  The paged
-    twin (``cache_zoo``) subclasses it with its own blocks (``_make_block``)
-    and shares ``embed`` and ``logits``."""
+    compute dtype (``[B, S, V/N]``, this rank's vocab slice, over
+    ``tensor_parallel`` N ranks); each block under ``cfg.remat``'s
+    checkpoint.  The paged twin (``cache_zoo``) subclasses it with its own
+    blocks (``_make_block``) and shares ``embed`` and ``logits``."""
 
-    def __init__(self, cfg: PhiConfig, device: DeviceLike = "cuda"):
+    def __init__(self, cfg: PhiConfig, device: DeviceLike = "cuda", tensor_parallel: int = 1):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed_tokens = nn.utils.skip_init(nn.Embedding, cfg.vocab_size, cfg.hidden_size, device=dev,
-                                               dtype=cfg.param_dtype)
+        check_tensor_parallel(cfg, tensor_parallel)
+        #: this rank's place on the tensor axis (its group set by the engine)
+        self.tp = TensorParallel(tensor_parallel)
+        self.embed_tokens = nn.utils.skip_init(VocabParallelEmbedding, cfg.vocab_size, cfg.hidden_size, device=dev,
+                                               dtype=cfg.param_dtype, tp_size=tensor_parallel)
         self.layers = nn.ModuleList([self._make_block(cfg, dev) for _ in range(cfg.num_hidden_layers)])
         self.final_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, cfg.dtype, cfg.param_dtype, dev)
-        self.lm_head = _linear(cfg, cfg.hidden_size, cfg.vocab_size, True, dev)
+        self.lm_head = _parallel(ColumnParallelLinear, cfg, cfg.hidden_size, cfg.vocab_size, True, dev,
+                                 tensor_parallel)
+        if tensor_parallel > 1:
+            from ..comm import comm
+            set_tensor_parallel_(self, TensorParallel(tensor_parallel, comm.get_rank() % tensor_parallel))
 
     def _make_block(self, cfg: PhiConfig, device) -> nn.Module:
-        return PhiBlock(cfg, device)
+        return PhiBlock(cfg, device, tp_size=self.tp.size)
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(input_ids.long(), self.embed_tokens.weight).to(self.cfg.dtype)
+        return vocab_parallel_embed(input_ids.long(), self.embed_tokens.weight, self.tp).to(self.cfg.dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(self.final_layernorm(x), self.lm_head, self.cfg.dtype)
+        """The final LayerNorm and the biased head: this rank's vocab slice
+        (and its slice of the bias) over ``tensor_parallel`` ranks."""
+        return dense(copy_to_tensor_region(self.final_layernorm(x), self.tp, "lm_head"), self.lm_head, self.cfg.dtype)
 
     def forward(self, input_ids: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -23,7 +23,9 @@ accumulation would; gathers move bit patterns.  Every collective is counted
 by kind and direction in ``comm.tensor_parallel_kinds`` and kept out of the
 CommsLogger (``comm.unrecorded``), as JAX logs its jitted step as one entry.
 
-``ColumnParallelLinear`` holds ``[out/N, in]`` (its bias ``[out/N]``),
+``ColumnParallelLinear`` holds ``[out/N, in]`` (its bias ``[out/N]``; a
+fused projection of ``parts`` outputs laid out part-major, as GPT-2's
+``c_attn`` ``(3, H, D)``, holds the rank's slice of each part),
 ``RowParallelLinear`` ``[out, in/N]`` (its bias whole, added after the
 reduce), ``VocabParallelEmbedding`` ``[V/N, E]``: rank ``t`` holds rows
 (or columns) ``[t·n, (t+1)·n)`` of the whole tensor, the JAX slice of the
@@ -43,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..comm import comm
+from ..comm.mesh import ROADMAP_TENSOR_PARALLEL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,15 +151,19 @@ def gather_from_tensor_region(x: torch.Tensor, tp: TensorParallel, kind: str = "
 
 class ColumnParallelLinear(nn.Linear):
     """``nn.Linear(in, out)`` of which this rank holds output rows
-    ``[t·out/N, (t+1)·out/N)`` (ref: ``LinearLayer``)."""
+    ``[t·out/N, (t+1)·out/N)`` (ref: ``LinearLayer``); with ``parts`` > 1
+    the outputs are ``parts`` blocks laid out part-major (a fused q/k/v) and
+    the rank holds rows ``[t·n/N, (t+1)·n/N)`` of each block of ``n``."""
     tp_dim = 0
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None, dtype=None,
-                 tp_size: int = 1):
-        if out_features % tp_size:
-            raise ValueError(f"tensor parallelism over {tp_size} ranks does not divide {out_features} outputs")
+                 tp_size: int = 1, parts: int = 1):
+        if out_features % (tp_size * parts):
+            raise ValueError(f"tensor parallelism over {tp_size} ranks does not divide {out_features} outputs "
+                             f"in {parts} parts")
         super().__init__(in_features, out_features // tp_size, bias=bias, device=device, dtype=dtype)
         self.tp = TensorParallel(tp_size)
+        self.parts = parts
 
 
 class RowParallelLinear(nn.Linear):
@@ -228,10 +235,12 @@ def cut_tensor_parallel_(module: nn.Module, tp: TensorParallel) -> nn.Module:
     for _, m in tp_layers(module):
         if m.tp.size != 1:
             raise ValueError(f"{type(m).__name__} is already cut over {m.tp.size} ranks")
-        m.weight = nn.Parameter(narrow_to_rank(m.weight.data, m.tp_dim, tp).clone(),
+        parts = getattr(m, "parts", 1)
+        m.weight = nn.Parameter(narrow_to_rank(m.weight.data, m.tp_dim, tp, parts).clone(),
                                 requires_grad=m.weight.requires_grad)
         if isinstance(m, ColumnParallelLinear) and m.bias is not None:
-            m.bias = nn.Parameter(narrow_to_rank(m.bias.data, 0, tp).clone(), requires_grad=m.bias.requires_grad)
+            m.bias = nn.Parameter(narrow_to_rank(m.bias.data, 0, tp, parts).clone(),
+                                  requires_grad=m.bias.requires_grad)
         if isinstance(m, VocabParallelEmbedding):
             m.num_embeddings = m.weight.shape[0]
         else:
@@ -281,9 +290,14 @@ def tp_dims(module: nn.Module) -> dict:
     """Parameter name → the dim of the port tensor sliced over the tensor
     axis, for every parameter a rank holds a slice of (a column-parallel
     layer's weight and bias, a row-parallel layer's weight, a
-    vocab-parallel table, an expert bank's weights)."""
+    vocab-parallel table, an expert bank's weights).  A fused projection's
+    slice is not one contiguous cut: one cut over several ranks raises (it
+    is cut by ``cut_tensor_parallel_`` only)."""
     out = {}
     for name, m in tp_layers(module):
+        if getattr(m, "parts", 1) > 1 and m.tp.size > 1:
+            raise NotImplementedError(f"{name!r} fuses {m.parts} projections: its tensor slice is not one "
+                                      f"contiguous cut of the whole tensor ({ROADMAP_TENSOR_PARALLEL})")
         pre = f"{name}." if name else ""
         out[pre + "weight"] = m.tp_dim
         if isinstance(m, ColumnParallelLinear) and m.bias is not None:
@@ -294,10 +308,17 @@ def tp_dims(module: nn.Module) -> dict:
     return out
 
 
-def narrow_to_rank(t: torch.Tensor, dim: Optional[int], tp: TensorParallel) -> torch.Tensor:
-    """This rank's slice of the whole tensor ``t`` on ``dim`` (``t`` itself for None)."""
+def narrow_to_rank(t: torch.Tensor, dim: Optional[int], tp: TensorParallel, parts: int = 1) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``t`` on ``dim`` (``t`` itself
+    for None); with ``parts`` > 1, ``dim`` is ``parts`` blocks and the
+    rank's slice of each is kept (a copy)."""
     if dim is None or tp.size == 1:
         return t
+    if parts > 1:
+        shape = list(t.shape)
+        blocks = t.reshape(shape[:dim] + [parts, shape[dim] // parts] + shape[dim + 1:])
+        shape[dim] //= tp.size
+        return narrow_to_rank(blocks, dim + 1, tp).reshape(shape)
     s = tp.slice(t.shape[dim])
     return t.narrow(dim, s.start, s.stop - s.start)
 

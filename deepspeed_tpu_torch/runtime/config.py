@@ -43,7 +43,8 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from ..comm.mesh import ROADMAP_MULTI_DEVICE, ROADMAP_TENSOR_PARALLEL, MeshSpec, process_world_size
+from ..comm.mesh import (ROADMAP_MULTI_DEVICE, ROADMAP_TENSOR_PARALLEL, TENSOR_AXIS, MeshSpec, mesh_from_mpu,
+                         process_world_size)
 from .constants import (ACTIVATION_CHECKPOINTING, BFLOAT16, BFLOAT16_OLD, CHECKPOINT, CHECKPOINT_TAG_VALIDATION_MODES,
                         COMET, COMMS_LOGGER, COMPRESSION_TRAINING, CSV_MONITOR, DATA_EFFICIENCY, EIGENVALUE, ELASTICITY,
                         FLOPS_PROFILER, FP16, GRADIENT_ACCUMULATION_STEPS, GRADIENT_CLIPPING, HYBRID_ENGINE,
@@ -313,9 +314,10 @@ class MoEConfig:
 class ActivationCheckpointingConfig:
     """``activation_checkpointing`` (JAX ``config.py:188``): the policy knobs
     that ``runtime/activation_checkpointing.policy_from_config`` maps onto
-    the model's ``remat_policy``.  ``partition_activations`` over more than
-    one rank and ``cpu_checkpointing`` raise (tensor-parallel activation
-    shards and host offload are not ported)."""
+    the model's ``remat_policy``; ``partition_activations`` cuts the inputs
+    ``checkpointing.checkpoint`` keeps over the tensor axis (a no-op at
+    tensor 1).  ``cpu_checkpointing`` raises (host offload is not
+    ported)."""
     partition_activations: bool = False
     contiguous_memory_optimization: bool = False
     cpu_checkpointing: bool = False
@@ -461,9 +463,11 @@ def _zero_config(values: Optional[Dict[str, Any]]) -> ZeroConfig:
 class DeepSpeedConfig:
     """Parse and validate the training config; resolve the batch triangle
     (``train_batch_size = micro × gas × dp``, dp the process group's world
-    size, 1 without one)."""
+    size, 1 without one).  An outside Megatron-style ``mpu`` sets the
+    tensor degree from its grid (``comm/mesh.mesh_from_mpu``); a config
+    whose ``tensor_parallel.autotp_size`` names another degree raises."""
 
-    def __init__(self, config: Union[str, Dict]):
+    def __init__(self, config: Union[str, Dict], mpu=None):
         if isinstance(config, str):
             if not os.path.exists(config):
                 raise DeepSpeedConfigError(f"Expected a valid json file path, got {config}")
@@ -488,6 +492,11 @@ class DeepSpeedConfig:
         self.tensor_parallel_config = _block(TensorParallelConfig, TENSOR_PARALLEL,
                                              tp_block if isinstance(tp_block, dict) else None)
         tp = self.tensor_parallel_config.autotp_size
+        if mpu is not None:
+            grid = mesh_from_mpu(mpu).shape[TENSOR_AXIS]
+            if tp not in (1, grid):
+                raise ValueError(f"tensor_parallel.autotp_size {tp} but the mpu's grid has tensor {grid}")
+            tp = self.tensor_parallel_config.autotp_size = grid
         #: the data-parallel degree: the process group's ranks over the
         #: tensor degree (JAX ``config.py:468-476``)
         self.dp_world_size = max(1, process_world_size() // tp)
@@ -509,9 +518,6 @@ class DeepSpeedConfig:
         self.mesh_spec.resolve(process_world_size())
         self.activation_checkpointing_config = _block(ActivationCheckpointingConfig, ACTIVATION_CHECKPOINTING,
                                                       pd.get(ACTIVATION_CHECKPOINTING))
-        if self.activation_checkpointing_config.partition_activations and process_world_size() > 1:
-            raise NotImplementedError(f"activation_checkpointing.partition_activations over {process_world_size()} "
-                                      f"ranks is not ported ({ROADMAP_TENSOR_PARALLEL})")
         self.flops_profiler_config = _block(FlopsProfilerConfig, FLOPS_PROFILER, pd.get(FLOPS_PROFILER))
         self.comms_config = _block(CommsLoggerConfig, COMMS_LOGGER, pd.get(COMMS_LOGGER))
         self.monitor_config = MonitorConfig(tensorboard=_block(TensorBoardConfig, TENSORBOARD, pd.get(TENSORBOARD)),

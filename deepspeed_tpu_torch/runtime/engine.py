@@ -119,8 +119,9 @@ layers over several ranks raise naming ROADMAP item 6.1.
 Tensor parallelism (``tensor_parallel.autotp_size`` N > 1; JAX's mesh
 ``data`` × ``tensor``, or ``data`` × ``expert`` × ``tensor`` with MoE
 layers, ``engine.py:128-136``): the model is the Llama family's
-(``LlamaForCausalLM``, q/k/v biases included), ``MixtralForCausalLM`` or
-``Qwen2MoeForCausalLM``, cut to this rank's slices by the Megatron layout
+(``LlamaForCausalLM``, q/k/v biases included), ``MixtralForCausalLM``,
+``Qwen2MoeForCausalLM``, ``FalconForCausalLM``, ``OPTForCausalLM`` or
+``PhiForCausalLM``, cut to this rank's slices by the Megatron layout
 (``module_inject/layers.py``; an expert bank on its ``expert_mlp`` dim; a
 model built whole is cut here) and given its tensor group.  The rows of a
 batch split over the data axis only (``dp_rank``/``dp_world`` are the data
@@ -140,9 +141,9 @@ initial broadcast sends the replicated tensors from rank 0 and each slice
 from the first rank of its data-parallel group.  ``module_state_dict``,
 the master, the moments and the checkpoints hold whole tensors, gathered
 over the tensor group as well, so a checkpoint loads at any tensor degree.
-The other families, a custom loss without ``rank_share``, the qgZ/LoCo
-wire, MiCS/hpZ and the offload tiers at ``tensor`` > 1 raise naming
-ROADMAP item 6.2.
+The v1 families (GPT-2, BLOOM, GPT-NeoX, GPT-J, GPT-Neo), BERT and CLIP,
+a custom loss without ``rank_share``, the qgZ/LoCo wire, MiCS/hpZ and the
+offload tiers at ``tensor`` > 1 raise naming ROADMAP item 6.2.
 
 ``forward``, ``eval_batch`` and ``backward`` take the global micro-batch, as
 ``train_batch`` does, and return JAX's loss over all of it (its ``forward``
@@ -180,8 +181,11 @@ from ..accelerator import DeviceLike, resolve_device
 from ..comm import comm
 from ..comm.mesh import (EXPERT_AXIS, ROADMAP_EXPERT_PARALLEL, ROADMAP_MULTI_DEVICE, ROADMAP_TENSOR_PARALLEL,
                          TENSOR_AXIS, create_mesh, set_global_mesh)
+from ..models.falcon import FalconForCausalLM
 from ..models.llama import LlamaForCausalLM, causal_lm_loss
 from ..models.mixtral import MixtralForCausalLM
+from ..models.opt import OPTForCausalLM
+from ..models.phi import PhiForCausalLM
 from ..models.qwen2_moe import Qwen2MoeForCausalLM
 from ..module_inject.layers import (NO_TENSOR_PARALLEL, TensorParallel, cut_tensor_parallel_, gather_dim,
                                     set_tensor_parallel_, slice_state, tensor_parallel_of, tp_dims)
@@ -516,14 +520,14 @@ class DeepSpeedEngine:
         return [k for k, v in named.items() if v]
 
     #: the models that train at ``tensor`` > 1
-    TENSOR_PARALLEL_MODELS = (LlamaForCausalLM, MixtralForCausalLM, Qwen2MoeForCausalLM)
+    TENSOR_PARALLEL_MODELS = (LlamaForCausalLM, MixtralForCausalLM, Qwen2MoeForCausalLM, FalconForCausalLM,
+                              OPTForCausalLM, PhiForCausalLM)
 
     def _check_tensor_parallel_features(self, model: nn.Module, loss_fn) -> None:
         """What of tensor parallelism is not ported raises naming ROADMAP
-        item 6.2: a model other than the Llama family's
-        ``LlamaForCausalLM``, ``MixtralForCausalLM`` and
-        ``Qwen2MoeForCausalLM`` (the other families), a custom loss without
-        ``rank_share``, the qgZ/LoCo wire, MiCS/hpZ and the offload tiers."""
+        item 6.2: a model other than ``TENSOR_PARALLEL_MODELS`` (the v1
+        families, BERT, CLIP), a custom loss without ``rank_share``, the
+        qgZ/LoCo wire, MiCS/hpZ and the offload tiers."""
         what = []
         if type(model) not in self.TENSOR_PARALLEL_MODELS:
             names = ", ".join(c.__name__ for c in self.TENSOR_PARALLEL_MODELS)

@@ -287,15 +287,19 @@ def _serve(states, tp):
 
 
 def _raises():
-    """What stays out of scope at tensor 2 on the 2-rank group: Falcon's
-    training and serving, the v1 engine's tensor_parallel."""
-    from deepspeed_tpu_torch.models.falcon import FalconConfig, FalconForCausalLM
-    fcfg = FalconConfig(vocab_size=96, hidden_size=48, num_hidden_layers=1, num_attention_heads=4, num_kv_heads=2,
-                        new_decoder_architecture=True, dtype=torch.float32)
-    calls = {"falcon-train": lambda: tds.initialize(model=FalconForCausalLM(fcfg, device="cpu"), device="cpu",
-                                                    config={"train_batch_size": 2,
-                                                            "tensor_parallel": {"autotp_size": 2}}),
-             "falcon-serve": lambda: build_engine(fcfg, {}, _econf(2), device="cpu")}
+    """What stays out of scope at tensor 2 on the 2-rank group: training a
+    v1 family (GPT-2), the v1 engine's tensor_parallel for BERT."""
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+    gcfg = GPT2Config(vocab_size=96, hidden_size=48, num_hidden_layers=1, num_attention_heads=4, n_positions=64,
+                      dtype=torch.float32)
+    bert = BertConfig(vocab_size=96, hidden_size=48, num_hidden_layers=1, num_attention_heads=4, intermediate_size=96,
+                      max_position_embeddings=64, dtype=torch.float32)
+    calls = {"gpt2-train": lambda: tds.initialize(model=GPT2LMHeadModel(gcfg, device="cpu"), device="cpu",
+                                                  config={"train_batch_size": 2,
+                                                          "tensor_parallel": {"autotp_size": 2}}),
+             "v1-bert": lambda: tds.init_inference(model=BertForMaskedLM(bert, device="cpu"),
+                                                   config={"tensor_parallel": {"tp_size": 2}}, device="cpu")}
     raised = {}
     for name, call in calls.items():
         try:

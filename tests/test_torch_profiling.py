@@ -13,8 +13,10 @@ profiler, activation checkpointing and the config keys.
   * ``checkpointing.checkpoint`` and the ``activation_checkpointing`` key
     give the gradients of no checkpointing (bit for bit, float32), the
     policy follows JAX's ``_policy_from_config``, ``RNGStatesTracker``
-    forks deterministically, ``partition_activations`` at world > 1 and
-    ``cpu_checkpointing`` raise naming their items;
+    forks deterministically (on the card unless asked for another device,
+    as ``model_parallel_rng_key``), ``partition_activations`` at world > 1
+    without a tensor axis is JAX's no-op, ``cpu_checkpointing`` raises
+    naming its item;
   * ``comms_logger`` turns the CommsLogger on; the keys still rejected name
     their items (``hybrid_engine`` 5.4, ``eigenvalue`` 7, ``elasticity``
     and ``data_efficiency`` 8).
@@ -141,21 +143,51 @@ def test_activation_checkpointing_key_maps_onto_the_remat_policy():
 
 
 def test_partition_activations_at_world_above_one_raises(monkeypatch):
+    """At world > 1 without a tensor axis ``partition_activations`` is JAX's
+    no-op: ``configure`` no longer raises (the activation partitions over
+    tensor ranks are ported, ``tests/test_torch_zoo_tensor_parallel.py``),
+    and ``checkpoint`` gives the function's value and gradients exactly."""
     monkeypatch.setattr(comm, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        checkpointing.configure(partition_activations=True)
-    checkpointing.reset()
+    checkpointing.configure(partition_activations=True)
+    try:
+        w = torch.randn(8, 4, generator=torch.Generator().manual_seed(1), requires_grad=True)
+        x = torch.randn(3, 8, generator=torch.Generator().manual_seed(2))
+        fn = lambda w, x: torch.tanh(x @ w).square().sum()
+        want, (want_g, ) = fn(w, x), torch.autograd.grad(fn(w, x), [w])
+        got = checkpointing.checkpoint(fn, w, x)
+        assert torch.equal(got, want) and torch.equal(torch.autograd.grad(got, [w])[0], want_g)
+    finally:
+        checkpointing.reset()
 
 
 def test_rng_tracker_forks_deterministically():
     tracker = checkpointing.model_parallel_cuda_manual_seed(7)
     states = tracker.get_states()
-    a = [torch.rand(3, generator=tracker.fork()) for _ in range(2)]
+    a = [torch.rand(3, generator=tracker.fork(device="cpu")) for _ in range(2)]
     assert not torch.equal(a[0], a[1])
     tracker.set_states(states)
-    assert all(torch.equal(x, torch.rand(3, generator=tracker.fork())) for x in a)
+    assert all(torch.equal(x, torch.rand(3, generator=tracker.fork(device="cpu"))) for x in a)
     with pytest.raises(Exception, match="already exists"):
         tracker.add("data-parallel-rng", 1)
+
+
+def test_rng_tracker_fork_and_model_parallel_rng_key_default_to_the_card():
+    """An entry point makes its generator on the card unless the caller
+    names another device: without one, ``fork()`` and
+    ``model_parallel_rng_key`` raise rather than hand back a CPU generator."""
+    tracker = checkpointing.model_parallel_cuda_manual_seed(7)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tracker.fork()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        checkpointing.model_parallel_rng_key(3)
+    assert tracker.fork(device="cpu").device.type == "cpu"
+
+
+def test_model_parallel_rng_key_without_a_tensor_axis_is_the_seed_s_stream():
+    """Outside a tensor axis of more than one rank, JAX's key is
+    ``PRNGKey(seed)``: the port's is ``seed``'s own generator."""
+    got = torch.rand(4, generator=checkpointing.model_parallel_rng_key(11, device="cpu"))
+    assert torch.equal(got, torch.rand(4, generator=torch.Generator().manual_seed(11)))
 
 
 def test_comms_logger_key_and_the_items_of_the_rejected_keys(monkeypatch):

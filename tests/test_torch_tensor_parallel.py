@@ -151,15 +151,15 @@ def _rank(rank, state, ckpt_dir, init3):
             raised[name] = None
         except NotImplementedError as e:
             raised[name] = str(e)
-    # MoE and q/k/v biases train at tensor > 1 (tests/test_torch_moe_tensor_parallel.py); Falcon stays queued
-    from deepspeed_tpu_torch.models.falcon import FalconConfig, FalconForCausalLM
+    # MoE, q/k/v biases, Falcon, OPT and Phi train at tensor > 1; the v1 families (GPT-2) stay queued
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
     try:
-        fcfg = FalconConfig(vocab_size=96, hidden_size=48, num_hidden_layers=1, num_attention_heads=4, num_kv_heads=2,
-                            new_decoder_architecture=True, dtype=torch.float32)
-        tds.initialize(model=FalconForCausalLM(fcfg, device="cpu"), device="cpu", config=_config(0, 2))
-        raised["falcon"] = None
+        gcfg = GPT2Config(vocab_size=96, hidden_size=48, num_hidden_layers=1, num_attention_heads=4,
+                          n_positions=64, dtype=torch.float32)
+        tds.initialize(model=GPT2LMHeadModel(gcfg, device="cpu"), device="cpu", config=_config(0, 2))
+        raised["gpt2"] = None
     except NotImplementedError as e:
-        raised["falcon"] = str(e)
+        raised["gpt2"] = str(e)
     out[6]["raised"] = raised
     comm.barrier()
     torch.distributed.destroy_process_group()

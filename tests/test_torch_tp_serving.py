@@ -24,7 +24,8 @@ over ``tensor_parallel`` ranks, ``models/llama_cache.py``'s sharded twin,
     embedding, forward and backward, at tensor 2 against the one-rank ones
     (rtol 1e-6, gradients within 1e-7 absolute).
   * What is not ported at tensor > 1 raises naming ROADMAP item 6.2:
-    int8 weights (JAX's message), speculative decoding, another family.
+    int8 weights (JAX's message), speculative decoding, BERT in the v1
+    engine.
 
 JAX is imported only inside the tests, so the ranks start without it.
 """
@@ -160,16 +161,17 @@ def _seeded_state(tensor_parallel: int = 1):
 def _raises(state):
     from deepspeed_tpu_torch.inference.quantization import quantize_inference_params
     from deepspeed_tpu_torch.inference.v2 import SpecConfig
-    from deepspeed_tpu_torch.models.falcon import FalconConfig
+    import deepspeed_tpu_torch as tds
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertForMaskedLM
     raised = {}
+    bert = BertConfig(vocab_size=96, hidden_size=48, num_hidden_layers=1, num_attention_heads=4, intermediate_size=96,
+                      max_position_embeddings=64, dtype=torch.float32)
     calls = {"int8": lambda: build_engine(CFG, quantize_inference_params(state, cfg=CFG), _econf(tensor_parallel=2),
                                           device="cpu"),
              "spec": lambda: build_engine(CFG, state, _econf(tensor_parallel=2, spec=SpecConfig(max_draft=2)),
                                           device="cpu"),
-             "falcon": lambda: build_engine(FalconConfig(vocab_size=96, hidden_size=48, num_hidden_layers=1,
-                                                         num_attention_heads=4, num_kv_heads=2,
-                                                         new_decoder_architecture=True, dtype=torch.float32),
-                                            {}, _econf(tensor_parallel=2), device="cpu")}
+             "v1-bert": lambda: tds.init_inference(model=BertForMaskedLM(bert, device="cpu"),
+                                                   config={"tensor_parallel": {"tp_size": 2}}, device="cpu")}
     for name, call in calls.items():
         try:
             call()
